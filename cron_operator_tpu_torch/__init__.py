@@ -1,0 +1,21 @@
+"""cron_operator_tpu_torch — the PyTorch/CUDA port of ``cron_operator_tpu``.
+
+A second package beside the JAX one, for NVIDIA Hopper (H100). It imports
+``torch`` and nothing of JAX or of ``cron_operator_tpu``; the operator's
+control plane reaches its workloads only through ``module:function``
+entrypoint strings (``tpu.kubedl.io/entrypoint``), so it launches them
+unchanged. Sub-packages mirror the JAX package's:
+
+- ``backends`` — the ``JobContext`` an entrypoint receives.
+- ``ops``      — the hand-written Hopper kernels (``ops/csrc``) with their
+                 plain PyTorch versions, attention dispatch, RoPE.
+- ``parallel`` — dense single-device attention (parallelism comes later).
+- ``models``   — the GPT family and the flax-to-torch weight converter.
+- ``workloads``— KV-cache generation and the ``generate_job`` entrypoint.
+- ``utils``    — device resolution.
+
+Entry points run on the CUDA card; they use the CPU only when the caller
+asks (``param.platform=cpu`` or ``device="cpu"``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,258 @@
+"""GPT-style decoder, as in ``cron_operator_tpu/models/gpt.py``.
+
+Causal attention goes through :func:`ops.attention.multi_head_attention`
+(the Hopper flash kernel on the card, plain attention on the CPU); the
+output embedding is tied. Parameters live in ``cfg.dtype``; LayerNorm
+epsilon (1e-6) and the tanh-approximate gelu are flax's, not torch's
+defaults. Only the dense FFN is ported: ``moe_every > 0`` raises until the
+MoE slice.
+
+Serving: :meth:`GPT.prefill` consumes a whole prompt in one batched causal
+pass and writes every layer's K/V into a :class:`KVCache`;
+:meth:`GPT.decode` then takes one token per call against it. The cache is a
+static ``[b, max_len, kv_heads, head_dim]`` buffer per layer, updated in
+place (JAX returns a new one per step), with one position counter at the
+model level.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cron_operator_tpu_torch.models.layers import GroupedQKVProjection
+from cron_operator_tpu_torch.ops.attention import multi_head_attention
+
+LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch defaults to 1e-5)
+DECODE_MASK = -1e30  # decode's score for unwritten cache positions
+
+
+@dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50257
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_dim: int = 3072
+    max_len: int = 1024
+    dtype: torch.dtype = torch.bfloat16
+    attention_impl: str = "auto"  # auto | flash | xla
+    # Grouped-query attention: 0 means MHA (fused qkv projection); a divisor
+    # of num_heads shares each K/V head across num_heads/num_kv_heads query
+    # heads, and the KV cache shrinks by that factor.
+    num_kv_heads: int = 0
+    # Rotary position embeddings on Q/K; the learned pos_emb is then absent.
+    rope: bool = False
+    # MoE fields mirror the JAX config; moe_every > 0 is not ported yet.
+    moe_every: int = 0
+    num_experts: int = 8
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    # Return (final hidden states, tied embedding table) instead of logits.
+    return_hidden: bool = False
+
+    @staticmethod
+    def tiny(**overrides) -> "GPTConfig":
+        defaults = dict(
+            vocab_size=1024, hidden_size=128, num_layers=2, num_heads=4,
+            mlp_dim=512, max_len=512,
+        )
+        defaults.update(overrides)
+        return GPTConfig(**defaults)
+
+
+@dataclass
+class KVCache:
+    """Per-layer K/V buffers ``[b, max_len, kv_heads, head_dim]`` and the
+    number of positions written so far."""
+
+    k: List[torch.Tensor] = field(default_factory=list)
+    v: List[torch.Tensor] = field(default_factory=list)
+    pos: int = 0
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        self.config = cfg
+        kw = dict(device=device, dtype=cfg.dtype)
+        self.ln_attn = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS, **kw)
+        self.attn = GroupedQKVProjection(cfg, device=device)
+        self.out = nn.Linear(
+            self.attn.heads * self.attn.head_dim, cfg.hidden_size, **kw
+        )
+        self.ln_mlp = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS, **kw)
+        self.fc_in = nn.Linear(cfg.hidden_size, cfg.mlp_dim, **kw)
+        self.fc_out = nn.Linear(cfg.mlp_dim, cfg.hidden_size, **kw)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        cache_k: Optional[torch.Tensor] = None,
+        cache_v: Optional[torch.Tensor] = None,
+        pos: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Full causal pass when ``pos`` is None (writing the prompt's K/V
+        into the cache buffers when given: prefill); one-token decode at
+        cache position ``pos`` otherwise."""
+        cfg = self.config
+        b, s, _ = x.shape
+        y = self.ln_attn(x)
+        decode = pos is not None
+        q, k, v = self.attn(
+            y,
+            rope_positions=(
+                torch.arange(pos, pos + 1, device=x.device) if decode else None
+            ),
+        )
+        if decode:
+            attn = self._decode_attention(q, k, v, cache_k, cache_v, pos)
+        else:
+            attn = multi_head_attention(
+                q, k, v, causal=True, impl=cfg.attention_impl
+            )
+            if cache_k is not None:
+                cache_k[:, :s] = k
+                cache_v[:, :s] = v
+        x = x + self.out(attn.reshape(b, s, -1))
+        y = self.ln_mlp(x)
+        y = self.fc_out(F.gelu(self.fc_in(y), approximate="tanh"))
+        return x + y
+
+    def _decode_attention(self, q, k, v, cache_k, cache_v, pos: int):
+        """One-token attention against the layer's cache: the new K/V land at
+        ``pos``, unwritten positions are masked (not sliced) with -1e30, the
+        grouped einsum serves ``group`` query heads per K/V head with f32
+        products, and the probabilities drop to ``cfg.dtype`` before the PV
+        product, as in the JAX decode."""
+        cfg = self.config
+        b, _, h, d = q.shape
+        kv_h = k.shape[2]
+        cache_k[:, pos] = k[:, 0]
+        cache_v[:, pos] = v[:, 0]
+        qg = q.reshape(b, kv_h, h // kv_h, d).float()
+        scores = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.float())
+        scores = scores * (1.0 / d ** 0.5)
+        written = torch.arange(cfg.max_len, device=q.device) <= pos
+        scores = scores.masked_fill(~written, DECODE_MASK)
+        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+        out = torch.einsum("bkgs,bskd->bkgd", probs.float(), cache_v.float())
+        return out.to(cfg.dtype).reshape(b, 1, h, d)
+
+
+class GPT(nn.Module):
+    """Token ids ``[batch, seq]`` -> next-token logits ``[b, s, vocab]`` in
+    f32 (or ``(hidden, embedding table)`` with ``cfg.return_hidden``). The
+    JAX model also returns an MoE aux loss, always 0 for the dense blocks
+    ported here, so the port leaves it out."""
+
+    def __init__(self, config: GPTConfig = GPTConfig(), *, device=None):
+        super().__init__()
+        if config.moe_every > 0:
+            raise NotImplementedError(
+                "MoE blocks (moe_every > 0) wait for the MoE slice "
+                "(ROADMAP.md queue 1)"
+            )
+        self.config = config
+        kw = dict(device=device, dtype=config.dtype)
+        self.tok_emb = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
+        self.pos_emb = None if config.rope else nn.Parameter(
+            torch.empty(config.max_len, config.hidden_size, **kw)
+        )
+        self.layers = nn.ModuleList(
+            DecoderLayer(config, device=device)
+            for _ in range(config.num_layers)
+        )
+        self.ln_f = nn.LayerNorm(config.hidden_size, eps=LN_EPS, **kw)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "GPT":
+        """Random weights at flax's initializer scales, drawn from
+        ``generator`` (which must live on the parameters' device): token
+        embedding normal with std 1/sqrt(hidden) (flax's default embed
+        init), pos_emb normal(0.02), Linear weights lecun-normal over their
+        fan-in (truncated at 2 std, as flax draws them), biases 0,
+        LayerNorm scale 1 and bias 0."""
+        cfg = self.config
+
+        def draw(param, std, truncated=False):
+            t = torch.empty(param.shape, dtype=torch.float32,
+                            device=param.device)
+            if truncated:
+                # flax lecun_normal: a standard normal truncated to [-2, 2],
+                # scaled so the truncated draw keeps the variance 1/fan_in.
+                nn.init.trunc_normal_(t, generator=generator)
+                t *= std / 0.87962566103423978
+            else:
+                nn.init.normal_(t, std=std, generator=generator)
+            param.copy_(t)
+
+        draw(self.tok_emb.weight, 1.0 / math.sqrt(cfg.hidden_size))
+        if self.pos_emb is not None:
+            draw(self.pos_emb, 0.02)
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                draw(module.weight, 1.0 / math.sqrt(module.in_features),
+                     truncated=True)
+                module.bias.zero_()
+            elif isinstance(module, nn.LayerNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+        return self
+
+    def new_cache(self, batch: int) -> KVCache:
+        """Zeroed per-layer K/V buffers for ``batch`` sequences."""
+        cfg = self.config
+        kv_heads = cfg.num_kv_heads or cfg.num_heads
+        shape = (batch, cfg.max_len, kv_heads, cfg.hidden_size // cfg.num_heads)
+        dev = self.tok_emb.weight.device
+        cache = KVCache()
+        for _ in range(cfg.num_layers):
+            cache.k.append(torch.zeros(shape, dtype=cfg.dtype, device=dev))
+            cache.v.append(torch.zeros(shape, dtype=cfg.dtype, device=dev))
+        return cache
+
+    def _embed(self, input_ids: torch.Tensor, start: int) -> torch.Tensor:
+        x = self.tok_emb(input_ids)
+        if self.pos_emb is not None:
+            x = x + self.pos_emb[start:start + input_ids.shape[1]][None]
+        return x
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        # tied output embedding (flax tok.attend) in cfg.dtype, then f32
+        return F.linear(self.ln_f(x), self.tok_emb.weight).float()
+
+    def forward(self, input_ids: torch.Tensor):
+        x = self._embed(input_ids, 0)
+        for layer in self.layers:
+            x = layer(x)
+        if self.config.return_hidden:
+            return self.ln_f(x), self.tok_emb.weight
+        return self._logits(x)
+
+    def prefill(self, input_ids: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        """One batched causal pass over the prompt ``[b, p]`` that fills every
+        layer's cache; returns the last position's logits ``[b, vocab]``."""
+        x = self._embed(input_ids, 0)
+        for layer, ck, cv in zip(self.layers, cache.k, cache.v):
+            x = layer(x, ck, cv)
+        cache.pos = input_ids.shape[1]
+        return self._logits(x[:, -1:])[:, 0]
+
+    def decode(self, token: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        """One token ``[b, 1]`` at the cache's next position; returns its
+        logits ``[b, vocab]``."""
+        pos = cache.pos
+        cache.pos = pos + 1
+        x = self._embed(token, pos)
+        for layer, ck, cv in zip(self.layers, cache.k, cache.v):
+            x = layer(x, ck, cv, pos=pos)
+        return self._logits(x)[:, 0]
+
+
+__all__ = ["GPT", "GPTConfig", "DecoderLayer", "KVCache"]

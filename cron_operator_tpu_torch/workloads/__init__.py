@@ -1,0 +1,7 @@
+"""Schedulable workloads of the port: KV-cache generation and its
+``generate_job`` entrypoint. Importing this package builds nothing."""
+
+from cron_operator_tpu_torch.workloads.entrypoints import generate_job
+from cron_operator_tpu_torch.workloads.generate import generate
+
+__all__ = ["generate", "generate_job"]

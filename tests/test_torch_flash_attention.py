@@ -1,0 +1,127 @@
+"""The port's flash-attention forward against the JAX package's kernel K1.
+
+On the CPU the port's wrapper runs its plain version; it is held against
+the Pallas kernel in interpret mode (O and LSE) and against the dense JAX
+reference, at the tolerance of f32 summation order. The shape rules and
+refusals are the JAX package's. The CUDA kernel itself is held against the
+plain version in ``test_torch_flash_kernel_cuda.py``, which needs the card.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cron_operator_tpu.ops.attention import reference_attention as jax_reference
+from cron_operator_tpu.ops.flash_attention import _forward as jax_forward
+from cron_operator_tpu.ops.flash_attention import flash_attention as jax_flash
+
+# the module, not the function of the same name that ops/__init__ exports
+fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
+
+ATOL = 2e-5  # f32, summation order only
+_jax_fwd = jax.jit(jax_forward, static_argnums=(3, 4, 5, 6))
+
+
+def _inputs(seed, b, s, h, kv_h, d):
+    rng = np.random.default_rng(seed)
+    return [
+        rng.standard_normal(shape, dtype=np.float32)
+        for shape in ((b, s, h, d), (b, s, kv_h, d), (b, s, kv_h, d))
+    ]
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _max_err(a, b):
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+
+
+class TestPlainMatchesJaxKernel:
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("block", [None, 64])
+    def test_o_and_lse(self, causal, block):
+        q, k, v = _inputs(7, 2, 256, 2, 2, 64)
+        bq = block or 256  # the JAX default block for seq 256
+        o_j, lse_j = _jax_fwd(q, k, v, causal, bq, bq, True)
+        o_t, lse_t = fa.flash_attention_fwd(
+            *_torch(q, k, v), causal=causal, block_q=block, block_k=block
+        )
+        assert o_t.shape == (2, 256, 2, 64)
+        assert lse_t.shape == tuple(lse_j.shape) == (4, 256, 1)
+        assert _max_err(o_t, o_j) < ATOL
+        assert _max_err(lse_t, lse_j) < ATOL
+
+    def test_public_wrappers_agree(self):
+        q, k, v = _inputs(3, 1, 128, 2, 2, 32)
+        ref = jax_flash(q, k, v, causal=True, interpret=True)
+        out = fa.flash_attention(*_torch(q, k, v), causal=True)
+        assert _max_err(out, ref) < ATOL
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("kv_h", [2, 1])  # groups 2 and 4
+    def test_gqa_matches_repeated_reference(self, causal, kv_h):
+        q, k, v = _inputs(11, 2, 256, 4, kv_h, 32)
+        group = 4 // kv_h
+        ref = jax_reference(
+            q, jnp.repeat(k, group, axis=2), jnp.repeat(v, group, axis=2),
+            causal=causal,
+        )
+        o, lse = fa.flash_attention_fwd(*_torch(q, k, v), causal=causal)
+        assert o.shape == (2, 256, 4, 32)
+        assert _max_err(o, ref) < ATOL
+        _, lse_j = _jax_fwd(q, k, v, causal, 256, 256, True)
+        assert _max_err(lse, lse_j) < ATOL
+
+
+class TestRefusals:
+    def test_rejects_unaligned_seq(self):
+        q = torch.ones(1, 100, 1, 8)
+        with pytest.raises(ValueError, match="multiple of block sizes"):
+            fa.flash_attention(q, q, q)
+
+    def test_rejects_bad_head_ratio(self):
+        q = torch.ones(1, 128, 4, 8)
+        k = torch.ones(1, 128, 3, 8)
+        with pytest.raises(ValueError, match="positive divisor"):
+            fa.flash_attention(q, k, k)
+
+    def test_no_backward_yet(self):
+        q = torch.ones(1, 128, 1, 32, requires_grad=True)
+        with pytest.raises(NotImplementedError, match="K2/K3"):
+            fa.flash_attention(q, q, q)
+
+    def test_other_devices_raise(self):
+        q = torch.empty(1, 128, 1, 32, device="meta")
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            fa.flash_attention(q, q, q)
+
+    @pytest.mark.parametrize(
+        "dtype, d, match",
+        [(torch.float16, 64, "float32 or bfloat16"), (torch.float32, 48, "head_dim")],
+    )
+    def test_kernel_launcher_checks_before_building(self, dtype, d, match):
+        """The launcher refuses what the kernel does not take before it
+        builds or launches anything (so this runs without nvcc)."""
+        q = torch.zeros(1, 128, 2, d, dtype=dtype)
+        with pytest.raises(ValueError, match=match):
+            fa._launch(q, q, q, causal=True)
+
+    def test_cpu_tensor_launches_nothing(self, monkeypatch):
+        monkeypatch.setattr(fa.flash_attention, "launches", 0)
+        q, k, v = _torch(*_inputs(1, 1, 128, 2, 2, 32))
+        fa.flash_attention(q, k, v, causal=True)
+        assert fa.flash_attention.launches == 0
+
+    def test_default_block_matches_jax(self):
+        from cron_operator_tpu.ops.flash_attention import (
+            _default_block as jax_default_block,
+        )
+
+        for s in (128, 256, 384, 512, 640, 1024, 1536, 2048, 100):
+            assert fa._default_block(s) == jax_default_block(s)
