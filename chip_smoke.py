@@ -8,19 +8,33 @@ Run from the root of a checkout on a machine with one CUDA card::
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Device: the card's name and power limit; build every kernel of the port
-   from ``cron_operator_tpu_torch/ops/csrc`` (nvcc, sm_90a).
-2. Kernel against its plain version on the card: the flash-attention
-   forward (K1) against ``flash_attention_reference`` over bf16/f32, causal
-   or not, head_dim 64/128, GQA groups 1/2/4, seq 128/512/2048.
+   from ``cron_operator_tpu_torch/ops/csrc`` (nvcc, sm_90a, one process per
+   source, all started together).
+2. Kernels against their plain versions on the card: the flash-attention
+   forward (K1) against ``flash_attention_reference``, and the backward
+   pair K2 (dQ) and K3 (dK, dV) against ``flash_attention_bwd_reference``,
+   over bf16/f32, causal or not, head_dim 64/128 (plus 32 and 256 for the
+   backward), GQA groups 1/2/4, seq 128/512/2048; a second backward run
+   must be bit-identical, and the backward's peak memory must grow about
+   linearly from seq 2048 to 8192.
 3. The serving slice at GPT-2 small width: ``generate_job`` through a job
    context, with every kernel count set to 0 just before and read just
    after; then prefill logits through the kernel against the plain-attention
    path on the same weights and prompt.
-4. Times (CUDA events, medians): K1 per launch at the slice's shape beside
-   its bound, the plain version and ``F.scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it); the slice's prefill, decode
+4. Serving times (CUDA events, medians): K1 per launch at the slice's shape
+   beside its bound, the plain version and ``F.scaled_dot_product_attention``
+   (a yardstick only: the port never calls it); the slice's prefill, decode
    step and tokens/s.
-5. A ``kernels`` JSON line, the card line, and last the result line
+5. The training slice at GPT-2 small width: ``gpt`` through a job context
+   (b 8, s 1024, 10 steps), every kernel count set to 0 just before and
+   read just after; then three steps on the kernel path against the
+   plain-attention path from the same f32 weights, both measured against an
+   f32 run.
+6. Training times: K1, K2 and K3 per launch at the slice's shape beside
+   their bounds, their plain versions and the SDPA yardsticks (SDPA's
+   backward alone for K2 and K3); the train step, tokens/s and MFU; a
+   profile of one step.
+7. A ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -49,6 +63,18 @@ SLICE_PARAMS = {
 }
 GPT2_SMALL_PARAMS = 124_439_808
 K1_SHAPE = dict(b=8, s=512, h=12, d=64)  # the slice's prefill attention
+
+# The training slice: the gpt entrypoint at its defaults, GPT-2 small,
+# 8 sequences of 1024 tokens, bf16 compute over f32 parameters, AdamW.
+TRAIN_PARAMS = {"size": "base", "batch_size": "8", "seq_len": "1024",
+                "steps": "10"}
+TRAIN_SHAPE = dict(b=8, s=1024, h=12, d=64)  # its attention
+TRAIN_PROGRESS_KEYS = (
+    "started_at", "steps_per_call", "data_mode", "first_step_at",
+    "first_step_latency_s", "compile_time_s", "steps_done", "step_timeline",
+    "last_loss", "last_step_time_s", "tokens_per_s", "avg_step_time_s",
+    "steps_per_s", "data_stall_ms_p50", "n_params",
+)
 
 
 def fail(msg: str) -> None:
@@ -172,24 +198,139 @@ def phase_kernel_vs_plain(torch, fa) -> None:
     print(f"kernel vs plain: {n} cases agree", flush=True)
 
 
+def bwd_bound(q, k, causal):
+    """(bytes_ms, ops_ms, bytes, flops) of K2 and of K3 for these inputs:
+    each input read once and each output written once, and the products
+    over the (query, key) pairs the mask keeps, at the data-sheet rates."""
+    b, s, h, d = q.shape
+    kv_h = k.shape[2]
+    es = q.element_size()
+    q_bytes, kv_bytes = b * s * h * d * es, b * s * kv_h * d * es
+    rows = 2 * b * h * s * 4  # f32 LSE and Delta
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    out = {}
+    for name, moved, per_pair in (
+            ("K2", 3 * q_bytes + 2 * kv_bytes + rows, 6 * d),  # Q dO dQ, K V
+            ("K3", 2 * q_bytes + 4 * kv_bytes + rows, 8 * d)):  # Q dO, K V dK dV
+        flops = per_pair * pairs
+        out[name] = (moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3,
+                     moved, flops)
+    return out
+
+
+def check_bwd(torch, fa, name: str, q, k, v, do, causal: bool):
+    """Runs K2 and K3 twice and their plain versions once on the same card
+    tensors; fails unless the two runs are bit-identical and agree with the
+    plain versions: in f32 within 1e-4 max|ref| (summation order), in bf16
+    within 2^-7 |ref| + 1e-4 max|ref| per element (both sides accumulate in
+    f32 and round once). Returns (max|d dQ|, max|d dK, d dV|)."""
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = fa._delta(o, do)
+    runs = []
+    for _ in range(2):
+        dq = fa.flash_attention_dq(q, k, v, do, lse, delta, causal=causal)
+        dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal=causal)
+        runs.append((dq, dk, dv))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail(f"{name}: a second backward run is not bit-identical")
+    refs = (fa.flash_attention_dq_reference(q, k, v, do, lse, delta,
+                                            causal=causal),
+            *fa.flash_attention_dkv_reference(q, k, v, do, lse, delta,
+                                              causal=causal))
+    errs = []
+    for grad, got, ref in zip(("dQ", "dK", "dV"), runs[0], refs):
+        ref = ref.float()
+        diff = (got.float() - ref).abs()
+        floor = 1e-4 * ref.abs().max().item()
+        bound = (2.0 ** -7 * ref.abs() + floor if q.dtype == torch.bfloat16
+                 else torch.full_like(diff, floor))
+        if not (bool(torch.isfinite(got.float()).all())
+                and bool((diff <= bound).all())):
+            fail(f"{name}: {grad} disagrees with the plain version "
+                 f"(max|d|={diff.max().item():.3e}, floor {floor:.3e})")
+        errs.append(diff.max().item())
+    print(f"  {name}: max|d dQ|={errs[0]:.3e} max|d dK|={errs[1]:.3e} "
+          f"max|d dV|={errs[2]:.3e}")
+    return errs[0], max(errs[1:])
+
+
+def phase_bwd_vs_plain(torch, fa) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def inputs(b, s, h, kv_h, d, dtype):
+        def draw(heads):
+            return torch.randn(b, s, heads, d, generator=gen,
+                               device="cuda").to(dtype)
+        return draw(h), draw(kv_h), draw(kv_h), draw(h)
+
+    cases = [(dtype, causal, d, group, s)
+             for dtype in (torch.bfloat16, torch.float32)
+             for causal in (False, True) for d in (64, 128)
+             for group in (1, 2, 4) for s in (128, 512, 2048)]
+    cases += [(dtype, causal, d, 2, 512) for dtype in (torch.bfloat16,
+                                                       torch.float32)
+              for causal in (False, True) for d in (32, 256)]
+    for dtype, causal, d, group, s in cases:
+        b, h = 2, 8
+        check_bwd(torch, fa, f"K2/K3 {str(dtype)[6:]} causal={int(causal)} "
+                  f"d={d} group={group} s={s}",
+                  *inputs(b, s, h, h // group, d, dtype), causal)
+    print(f"backward kernels vs plain: {len(cases)} cases agree, each "
+          "bit-identical on a second run", flush=True)
+
+    # Peak memory of the backward at b*h fixed: O(s) (the outputs and
+    # Delta), where a materialised s x s score matrix would grow 16x.
+    peaks = {}
+    for s in (2048, 8192):
+        q, k, v, do = inputs(1, s, 8, 8, 64, torch.bfloat16)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+        peaks[s] = torch.cuda.max_memory_allocated() - base
+        del q, k, v, do, o, lse, grads
+    ratio = peaks[8192] / peaks[2048]
+    print(f"backward peak memory above its inputs: s 2048 {peaks[2048]} B, "
+          f"s 8192 {peaks[8192]} B, ratio {ratio:.2f} (linear: 4, "
+          "quadratic: 16)", flush=True)
+    if ratio > 5:
+        fail(f"backward memory grows {ratio:.2f}x for 4x the sequence")
+
+
+def zero_counts(fa) -> None:
+    for fn in (fa.flash_attention, fa.flash_attention_dq,
+               fa.flash_attention_dkv):
+        fn.launches = 0
+
+
+def read_counts(fa):
+    return (fa.flash_attention.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches)
+
+
 def phase_slice(torch, fa):
     from cron_operator_tpu_torch.backends.registry import JobContext
     from cron_operator_tpu_torch.workloads.entrypoints import generate_job
 
     ctx = JobContext("chip-smoke-generate", "default", {}, dict(SLICE_PARAMS))
     rounds = int(SLICE_PARAMS["rounds"])
-    fa.flash_attention.launches = 0
+    zero_counts(fa)
     t0 = time.monotonic()
     generate_job(ctx)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = fa.flash_attention.launches
+    launches, dq_launches, dkv_launches = read_counts(fa)
     print(f"slice: generate_job in {wall:.2f} s, progress {ctx.progress}")
     print(f"slice: flash_attention launches {launches} "
-          f"(expected 12 x {rounds})", flush=True)
-    if launches != 12 * rounds:
-        fail(f"flash kernel launched {launches} times on the main path, "
-             f"not {12 * rounds}")
+          f"(expected 12 x {rounds}), backward {dq_launches}/{dkv_launches} "
+          "(expected 0)", flush=True)
+    if launches != 12 * rounds or dq_launches or dkv_launches:
+        fail(f"flash kernels launched {launches}/{dq_launches}/"
+             f"{dkv_launches} times on the serving path, not "
+             f"{12 * rounds}/0/0")
     for key in ("n_params", "decode_read_bytes_per_step", "started_at",
                 "first_step_at", "first_step_latency_s", "tokens_per_s",
                 "steps_done", "tokens_generated"):
@@ -205,9 +346,11 @@ def phase_slice(torch, fa):
 
 
 def slice_model(torch, cfg, weights_from=None):
+    """A serving model as ``generate_job`` builds it: parameters kept in
+    ``cfg.dtype``."""
     from cron_operator_tpu_torch.models import GPT
 
-    model = GPT(cfg, device="cuda")
+    model = GPT(cfg, device="cuda", param_dtype=cfg.dtype)
     if weights_from is None:
         model.init_weights(torch.Generator(device="cuda").manual_seed(0))
     else:
@@ -309,10 +452,6 @@ def phase_times(torch, fa, flash_model, card):
         profile_window(torch, card, "decode x16",
                        lambda: [decode_step() for _ in range(16)])
     return {
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "cron_operator_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "cron_operator_tpu/ops/flash_attention.py:72",
         "max_abs_err": k1_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
@@ -320,6 +459,217 @@ def phase_times(torch, fa, flash_model, card):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
     }, prefill_ms, decode_ms
+
+
+def phase_train(torch, fa):
+    """The training slice through the entrypoint a user's Cron calls."""
+    import math
+
+    from cron_operator_tpu_torch.backends.registry import JobContext
+    from cron_operator_tpu_torch.workloads.entrypoints import gpt
+
+    ctx = JobContext("chip-smoke-gpt", "default", {}, dict(TRAIN_PARAMS))
+    steps = int(TRAIN_PARAMS["steps"])
+    zero_counts(fa)
+    t0 = time.monotonic()
+    gpt(ctx)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts(fa)
+    progress = {k: v for k, v in ctx.progress.items() if k != "step_timeline"}
+    print(f"train: gpt in {wall:.2f} s, progress {progress}")
+    print(f"train: launches K1/K2/K3 {counts} (expected 12 x {steps} each)",
+          flush=True)
+    if counts != (12 * steps,) * 3:
+        fail(f"flash kernels launched {counts} times on the training path, "
+             f"not {12 * steps} each")
+    for key in TRAIN_PROGRESS_KEYS:
+        if key not in ctx.progress:
+            fail(f"progress key {key!r} was not published")
+    if ctx.progress["n_params"] != GPT2_SMALL_PARAMS:
+        fail(f"n_params {ctx.progress['n_params']} is not GPT-2 small's")
+    if ctx.progress["steps_done"] != steps:
+        fail(f"steps_done {ctx.progress['steps_done']} is not {steps}")
+    if len(ctx.progress["step_timeline"]) != steps:
+        fail("step_timeline does not hold every step")
+    if not math.isfinite(ctx.progress["last_loss"]):
+        fail("the last loss is not finite")
+    if not ctx.progress["tokens_per_s"] > 0:
+        fail("tokens_per_s is not positive")
+    return counts, ctx.progress
+
+
+def phase_train_correctness(torch):
+    """Three AdamW steps on the kernel path and on the plain-attention path
+    from the same f32 weights and batches; each is measured against an f32
+    run. Both bf16 paths carry bf16 rounding through 12 layers and differ
+    only in how attention rounds, so the kernel path must stay within twice
+    the plain bf16 path's own distance from f32: per-step losses (plus
+    1e-3, as the prefill check allows), and the first step's gradients as
+    one vector (L2 norm of the difference)."""
+    from cron_operator_tpu_torch.models import GPT, GPTConfig
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.train import Trainer
+
+    cfg = GPTConfig(max_len=1024)
+    init = GPT(cfg, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(0))
+    state = {k: v.clone() for k, v in init.state_dict().items()}
+    del init
+    stream = data.device_causal_token_batches(8, 1024, cfg.vocab_size,
+                                              device="cuda", seed=5)
+    batches = [next(stream) for _ in range(3)]
+    losses, grads = {}, {}
+    for name, over in (("flash", dict(attention_impl="flash")),
+                       ("plain", dict(attention_impl="xla")),
+                       ("f32", dict(attention_impl="xla",
+                                    dtype=torch.float32))):
+        model = GPT(replace(cfg, **over), device="cuda")
+        model.load_state_dict(state)
+        trainer = Trainer(model)
+        losses[name] = []
+        for i, batch in enumerate(batches):
+            losses[name].append(trainer.step(batch).loss)
+            if i == 0:
+                grads[name] = torch.cat([p.grad.flatten()
+                                         for p in model.parameters()])
+        del model, trainer
+        torch.cuda.empty_cache()
+    print(f"train losses: flash {losses['flash']} plain {losses['plain']} "
+          f"f32 {losses['f32']}")
+    for i in range(len(batches)):
+        d_fp = abs(losses["flash"][i] - losses["plain"][i])
+        d_p32 = abs(losses["plain"][i] - losses["f32"][i])
+        print(f"  step {i + 1}: |flash-plain|={d_fp:.6f} "
+              f"|plain-f32|={d_p32:.6f}")
+        if d_fp > 2 * d_p32 + 1e-3:
+            fail(f"step {i + 1}: the kernel path's loss is off the plain "
+                 "path's by more than bf16 noise")
+    g_fp = (grads["flash"] - grads["plain"]).norm().item()
+    g_p32 = (grads["plain"] - grads["f32"]).norm().item()
+    print(f"first-step grads: |flash-plain|={g_fp:.6f} |plain-f32|="
+          f"{g_p32:.6f} (|g f32|={grads['f32'].norm().item():.4f})",
+          flush=True)
+    if not (torch.isfinite(grads["flash"]).all() and g_fp <= 2 * g_p32):
+        fail("the kernel path's first-step grads are off the plain path's by "
+             "more than bf16 noise")
+
+
+def phase_train_times(torch, fa, card):
+    import torch.nn.functional as F
+
+    from cron_operator_tpu_torch.models import GPT, GPTConfig
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.train import Trainer
+
+    b, s, h, d = (TRAIN_SHAPE[x] for x in "bshd")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    # the main path's layout: strided views of one fused qkv projection and
+    # a contiguous dO
+    qkv = torch.randn(b, s, 3, h, d, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    rows = {}
+
+    # K1 at the training shape
+    k1_err = check_k1(torch, fa, f"K1 bfloat16 causal=1 b={b} s={s} h={h} "
+                      f"d={d} (the training slice)", q, k, v, True)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    moved = 4 * q.numel() * q.element_size() + b * h * s * 4
+    flops = 4 * d * b * h * (s * (s + 1) // 2)
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    rows["K1"] = dict(
+        max_abs_err=k1_err,
+        ms=median_ms(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True), iters=20),
+        plain_ms=median_ms(torch, lambda: fa.flash_attention_reference(
+            q, k, v, causal=True), iters=10),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=50),
+    )
+
+    # K2 and K3
+    dq_err, dkv_err = check_bwd(
+        torch, fa, f"K2/K3 bfloat16 causal=1 b={b} s={s} h={h} d={d} "
+        "(the training slice)", q, k, v, do, True)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa._delta(o, do)
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_bwd_ms = median_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, dot, retain_graph=True), iters=20)
+    bounds = bwd_bound(q, k, True)
+    for name, err, kernel, plain in (
+            ("K2", dq_err, fa.flash_attention_dq,
+             fa.flash_attention_dq_reference),
+            ("K3", dkv_err, fa.flash_attention_dkv,
+             fa.flash_attention_dkv_reference)):
+        bytes_ms, ops_ms, _, _ = bounds[name]
+        rows[name] = dict(
+            max_abs_err=err,
+            ms=median_ms(torch, lambda: kernel(q, k, v, do, lse, delta,
+                                               causal=True), iters=20),
+            plain_ms=median_ms(torch, lambda: plain(q, k, v, do, lse, delta,
+                                                    causal=True), iters=5),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=sdpa_bwd_ms,
+        )
+    for name, row in rows.items():
+        extra = ""
+        if name in bounds:
+            _, _, moved, flops = bounds[name]
+            extra = f" ({moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)"
+        print(f"[{card}] {name} b{b} s{s} h{h} d{d} causal bf16: "
+              f"{row['ms']:.4f} ms/launch | plain {row['plain_ms']:.4f} ms | "
+              f"sdpa {row['library_ms']:.4f} ms | bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}){extra}",
+              flush=True)
+    del qkv, q, k, v, do, qt, kt, vt, dot, o, lse, delta, leaves, out
+
+    # The train step (the gpt entrypoint's model, optimizer and batch shape)
+    cfg = GPTConfig(max_len=s)
+    model = GPT(cfg, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(0))
+    trainer = Trainer(model)
+    batch = next(data.device_causal_token_batches(b, s, cfg.vocab_size,
+                                                  device="cuda"))
+    step_ms = median_ms(torch, lambda: trainer.step(batch, sync=False),
+                        iters=5, reps=3, warmup=2)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = b * s
+    attn_flops = cfg.num_layers * 3 * 4 * d * b * h * (s * (s + 1) // 2)
+    model_flops = 6 * n_params * tokens + attn_flops
+    mfu = model_flops / (step_ms / 1e3 * BF16_FLOPS)
+    print(f"[{card}] train step (GPT-2 small, b{b} s{s}, bf16/f32 masters, "
+          f"AdamW): {step_ms:.3f} ms | {tokens / step_ms * 1e3:.1f} tokens/s |"
+          f" {1e3 / step_ms:.3f} steps/s | model FLOPs/step "
+          f"{model_flops / 1e12:.4f} T (6*N*T {6 * n_params * tokens / 1e12:.4f}"
+          f" T + causal attention fwd+bwd {attn_flops / 1e12:.4f} T) | mfu "
+          f"{mfu:.4f} of {BF16_FLOPS / 1e12:.0f} TFLOP/s", flush=True)
+    profile_window(torch, card, "train step x1", lambda: trainer.step(batch))
+    return rows, {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+                  "steps_per_s": 1e3 / step_ms, "mfu": mfu,
+                  "model_flops_per_step": model_flops}
+
+
+KERNEL_ROWS = {
+    "K1": ("flash_attention_fwd", "cron_operator_tpu_torch/ops/csrc/flash_fwd.cu",
+           "cron_operator_tpu/ops/flash_attention.py:72"),
+    "K2": ("flash_attention_dq", "cron_operator_tpu_torch/ops/csrc/flash_bwd.cu",
+           "cron_operator_tpu/ops/flash_attention.py:138"),
+    "K3": ("flash_attention_dkv", "cron_operator_tpu_torch/ops/csrc/flash_bwd.cu",
+           "cron_operator_tpu/ops/flash_attention.py:192"),
+}
+
+
+def kernel_entry(key: str, name_suffix: str, launches: int, row: dict) -> dict:
+    name, source, replaces = KERNEL_ROWS[key]
+    return {"name": name + name_suffix, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, **row}
 
 
 def main() -> None:
@@ -342,10 +692,10 @@ def main() -> None:
 
     card = phase_device(torch)
     phase_kernel_vs_plain(torch, fa)
+    phase_bwd_vs_plain(torch, fa)
     launches, progress = phase_slice(torch, fa)
     flash_model = phase_slice_correctness(torch)
     k1, prefill_ms, decode_ms = phase_times(torch, fa, flash_model, card)
-    k1["launches"] = launches
     print(f"[{card}] slice tokens/s {progress['tokens_per_s']} (rounds 2-3 of "
           f"generate_job) | first round {progress['first_step_latency_s']} s")
     print("slice " + json.dumps({
@@ -353,7 +703,27 @@ def main() -> None:
         "tokens_per_s": progress["tokens_per_s"],
         "decode_read_bytes_per_step": progress["decode_read_bytes_per_step"],
     }))
-    print(json.dumps({"kernels": [k1]}))
+    del flash_model
+    torch.cuda.empty_cache()
+
+    train_counts, train_progress = phase_train(torch, fa)
+    phase_train_correctness(torch)
+    train_rows, step = phase_train_times(torch, fa, card)
+    print(f"[{card}] train job: {train_progress['tokens_per_s']} tokens/s, "
+          f"{train_progress['avg_step_time_s']} s/step, "
+          f"{train_progress['steps_per_s']} steps/s (steps 2-10 of gpt), "
+          f"first step {train_progress['compile_time_s']} s")
+    print("train " + json.dumps({
+        **step, "job_tokens_per_s": train_progress["tokens_per_s"],
+        "job_avg_step_time_s": train_progress["avg_step_time_s"],
+        "job_first_step_s": train_progress["compile_time_s"],
+    }))
+    print(json.dumps({"kernels": [
+        kernel_entry("K1", "", launches, k1),
+        kernel_entry("K1", "@train", train_counts[0], train_rows["K1"]),
+        kernel_entry("K2", "", train_counts[1], train_rows["K2"]),
+        kernel_entry("K3", "", train_counts[2], train_rows["K3"]),
+    ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

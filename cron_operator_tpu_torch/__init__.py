@@ -8,10 +8,12 @@ unchanged. Sub-packages mirror the JAX package's:
 
 - ``backends`` — the ``JobContext`` an entrypoint receives.
 - ``ops``      — the hand-written Hopper kernels (``ops/csrc``) with their
-                 plain PyTorch versions, attention dispatch, RoPE.
+                 plain PyTorch versions, attention dispatch, RoPE, chunked
+                 cross-entropy.
 - ``parallel`` — dense single-device attention (parallelism comes later).
 - ``models``   — the GPT family and the flax-to-torch weight converter.
-- ``workloads``— KV-cache generation and the ``generate_job`` entrypoint.
+- ``workloads``— KV-cache generation, synthetic data, the training harness,
+                 and the ``generate_job`` and ``gpt`` entrypoints.
 - ``utils``    — device resolution.
 
 Entry points run on the CUDA card; they use the CPU only when the caller

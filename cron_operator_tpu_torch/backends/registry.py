@@ -5,9 +5,10 @@ Port entrypoints only duck-type their ``ctx`` (``params``, ``progress``,
 ``publish``, ``should_stop``), so the JAX executor's ``JobContext`` works as
 well as this one. This copy holds the fields the port's entrypoints read
 and lets a caller outside the operator (a script, ``chip_smoke.py``, a
-test) build a context without importing the JAX package; the JAX
-context's ``slice_spec``, ``trace_id``, ``watchdog`` and ``hang`` come
-with the slices that read them.
+test) build a context without importing the JAX package. ``watchdog`` and
+``hang`` are the JAX context's optional step-watchdog channels that the
+training loop reads; ``slice_spec`` and ``trace_id`` come with the slices
+that read them.
 """
 
 from __future__ import annotations
@@ -39,6 +40,12 @@ class JobContext:
     progress: Dict[str, Any] = field(default_factory=dict)
     # set by the executor: flushes `progress` into the status mid-run
     publish: Optional[Callable[[], None]] = None
+    # step-progress watchdog: the training loop calls .beat() after every
+    # step; None = not armed
+    watchdog: Optional[Any] = None
+    # injected gray failure: once set, the training loop stops progressing
+    # until the job is cancelled; None = no injection channel
+    hang: Optional[threading.Event] = None
 
     def __post_init__(self) -> None:
         self.params = {

@@ -6,6 +6,8 @@
 ``state_dict`` of the port's :class:`models.gpt.GPT` for the same config.
 A flax kernel ``[in..., out...]`` becomes a torch ``Linear`` weight
 ``[out, in]`` after flattening each side; biases flatten.
+:func:`flax_rank` goes the other way for the one property of a flax shape
+that training reads: its rank.
 """
 
 from __future__ import annotations
@@ -14,6 +16,23 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+
+# Biases whose flax shape has more than one axis: ``qkv`` is (3, heads,
+# head_dim), ``q`` (heads, head_dim), ``kv`` (2, kv_heads, head_dim). The port
+# flattens them to rank 1.
+_FLAX_BIAS_RANKS = {"attn.qkv.bias": 3, "attn.q.bias": 2, "attn.kv.bias": 3}
+
+
+def flax_rank(name: str, param: torch.Tensor) -> int:
+    """The rank the flax tree gives the port's parameter ``name``: every
+    flattened multi-axis bias has its flax rank back, every other parameter
+    keeps its own (kernels, embeddings and norms have one rank on both
+    sides)."""
+    for suffix, rank in _FLAX_BIAS_RANKS.items():
+        if name.endswith(suffix):
+            return rank
+    return param.ndim
 
 
 def _tensor(array) -> torch.Tensor:
@@ -64,4 +83,4 @@ def params_from_flax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     return sd
 
 
-__all__ = ["params_from_flax"]
+__all__ = ["flax_rank", "params_from_flax"]

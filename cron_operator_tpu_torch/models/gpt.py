@@ -1,8 +1,11 @@
 """GPT-style decoder, as in ``cron_operator_tpu/models/gpt.py``.
 
 Causal attention goes through :func:`ops.attention.multi_head_attention`
-(the Hopper flash kernel on the card, plain attention on the CPU); the
-output embedding is tied. Parameters live in ``cfg.dtype``; LayerNorm
+(the Hopper flash kernels on the card, plain attention on the CPU); the
+output embedding is tied. Parameters live in ``param_dtype`` (f32 by
+default, as flax's ``param_dtype``) and are cast to ``cfg.dtype`` where
+they are used, so a bf16 model trains f32 masters; a serving model may keep
+bf16 parameters, which the cast at use would give anyway. LayerNorm
 epsilon (1e-6) and the tanh-approximate gelu are flax's, not torch's
 defaults. Only the dense FFN is ported: ``moe_every > 0`` raises until the
 MoE slice.
@@ -25,7 +28,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cron_operator_tpu_torch.models.layers import GroupedQKVProjection
+from cron_operator_tpu_torch.models.layers import (
+    GroupedQKVProjection,
+    LayerNorm,
+    Linear,
+)
 from cron_operator_tpu_torch.ops.attention import multi_head_attention
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch defaults to 1e-5)
@@ -77,18 +84,21 @@ class KVCache:
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = cfg
-        kw = dict(device=device, dtype=cfg.dtype)
-        self.ln_attn = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS, **kw)
-        self.attn = GroupedQKVProjection(cfg, device=device)
-        self.out = nn.Linear(
+        kw = dict(device=device, compute_dtype=cfg.dtype,
+                  param_dtype=param_dtype)
+        self.ln_attn = LayerNorm(cfg.hidden_size, eps=LN_EPS, **kw)
+        self.attn = GroupedQKVProjection(cfg, device=device,
+                                         param_dtype=param_dtype)
+        self.out = Linear(
             self.attn.heads * self.attn.head_dim, cfg.hidden_size, **kw
         )
-        self.ln_mlp = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS, **kw)
-        self.fc_in = nn.Linear(cfg.hidden_size, cfg.mlp_dim, **kw)
-        self.fc_out = nn.Linear(cfg.mlp_dim, cfg.hidden_size, **kw)
+        self.ln_mlp = LayerNorm(cfg.hidden_size, eps=LN_EPS, **kw)
+        self.fc_in = Linear(cfg.hidden_size, cfg.mlp_dim, **kw)
+        self.fc_out = Linear(cfg.mlp_dim, cfg.hidden_size, **kw)
 
     def forward(
         self,
@@ -151,7 +161,8 @@ class GPT(nn.Module):
     JAX model also returns an MoE aux loss, always 0 for the dense blocks
     ported here, so the port leaves it out."""
 
-    def __init__(self, config: GPTConfig = GPTConfig(), *, device=None):
+    def __init__(self, config: GPTConfig = GPTConfig(), *, device=None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         if config.moe_every > 0:
             raise NotImplementedError(
@@ -159,16 +170,18 @@ class GPT(nn.Module):
                 "(ROADMAP.md queue 1)"
             )
         self.config = config
-        kw = dict(device=device, dtype=config.dtype)
+        kw = dict(device=device, dtype=param_dtype)
         self.tok_emb = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
         self.pos_emb = None if config.rope else nn.Parameter(
             torch.empty(config.max_len, config.hidden_size, **kw)
         )
         self.layers = nn.ModuleList(
-            DecoderLayer(config, device=device)
+            DecoderLayer(config, device=device, param_dtype=param_dtype)
             for _ in range(config.num_layers)
         )
-        self.ln_f = nn.LayerNorm(config.hidden_size, eps=LN_EPS, **kw)
+        self.ln_f = LayerNorm(config.hidden_size, eps=LN_EPS, device=device,
+                              compute_dtype=config.dtype,
+                              param_dtype=param_dtype)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "GPT":
@@ -200,7 +213,7 @@ class GPT(nn.Module):
                 draw(module.weight, 1.0 / math.sqrt(module.in_features),
                      truncated=True)
                 module.bias.zero_()
-            elif isinstance(module, nn.LayerNorm):
+            elif isinstance(module, LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
         return self
@@ -218,14 +231,16 @@ class GPT(nn.Module):
         return cache
 
     def _embed(self, input_ids: torch.Tensor, start: int) -> torch.Tensor:
-        x = self.tok_emb(input_ids)
+        dt = self.config.dtype
+        x = self.tok_emb(input_ids).to(dt)
         if self.pos_emb is not None:
-            x = x + self.pos_emb[start:start + input_ids.shape[1]][None]
+            x = x + self.pos_emb[start:start + input_ids.shape[1]].to(dt)[None]
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         # tied output embedding (flax tok.attend) in cfg.dtype, then f32
-        return F.linear(self.ln_f(x), self.tok_emb.weight).float()
+        table = self.tok_emb.weight.to(self.config.dtype)
+        return F.linear(self.ln_f(x), table).float()
 
     def forward(self, input_ids: torch.Tensor):
         x = self._embed(input_ids, 0)

@@ -1,6 +1,7 @@
 """Hot-op layer of the port: the hand-written Hopper flash-attention
-forward (``csrc/flash_fwd.cu``) with its plain PyTorch version, the
-attention dispatcher and RoPE."""
+kernels (forward ``csrc/flash_fwd.cu``, backward ``csrc/flash_bwd.cu``)
+with their plain PyTorch versions, the attention dispatcher, RoPE and the
+chunked cross-entropy."""
 
 from cron_operator_tpu_torch.ops.attention import (
     multi_head_attention,

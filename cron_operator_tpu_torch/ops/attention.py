@@ -1,7 +1,8 @@
 """Attention dispatch, as in ``cron_operator_tpu/ops/attention.py``.
 
-- ``"flash"`` — the hand-written Hopper kernel (:mod:`ops.flash_attention`);
-  the automatic pick for CUDA tensors with tile-aligned shapes.
+- ``"flash"`` — the hand-written Hopper kernels (:mod:`ops.flash_attention`):
+  K1 forward, K2/K3 backward, so gradients pass through; the automatic pick
+  for CUDA tensors with tile-aligned shapes.
 - ``"xla"`` — plain PyTorch attention with f32 products
   (:func:`parallel.ring._single_device_attention`); the name is kept from the
   JAX package so configs carry over. The CPU path.

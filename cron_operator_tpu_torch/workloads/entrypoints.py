@@ -8,18 +8,30 @@ progress into ``ctx.progress``. The operator reaches them by
 ``tpu.kubedl.io/entrypoint:
 cron_operator_tpu_torch.workloads.entrypoints:generate_job``.
 
-Common params: ``platform`` (unset = the CUDA card; ``cpu`` on request).
+Common params: ``platform`` (unset = the CUDA card; ``cpu`` on request);
+for training, ``steps``, ``batch_size``, ``data`` (``device`` default |
+``host``), ``lr``/``lr_schedule``/``warmup_steps``/``schedule_steps``/
+``grad_clip``/``decay_mask``/``sync_every`` (see :func:`_train_kwargs`).
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
+from typing import Any, Dict, Iterator, Optional
 
 import torch
 
 from cron_operator_tpu_torch.models.gpt import GPT, GPTConfig
 from cron_operator_tpu_torch.utils.device import resolve_device
+from cron_operator_tpu_torch.workloads import data as datasets
 from cron_operator_tpu_torch.workloads.generate import generate
+from cron_operator_tpu_torch.workloads.train import (
+    StepStats,
+    TrainConfig,
+    Trainer,
+    cross_entropy_loss,
+)
 
 
 def _gqa_rope_kwargs(ctx) -> dict:
@@ -28,6 +40,248 @@ def _gqa_rope_kwargs(ctx) -> dict:
         "num_kv_heads": int(ctx.params.get("kv_heads", 0)),
         "rope": ctx.params.get("rope", "0") in ("1", "true"),
     }
+
+
+def _train_kwargs(ctx, steps: int, **defaults) -> dict:
+    """TrainConfig kwargs: per-entrypoint defaults overridden by the common
+    ``param.*`` surface, as in the JAX package: ``lr``, ``lr_schedule``
+    (constant|cosine|warmup_cosine), ``warmup_steps``, ``schedule_steps``
+    (default: the run's step target), ``grad_clip`` (0 = off),
+    ``decay_mask``, ``sync_every``. The JAX package's ``steps_per_call``
+    (``"auto"`` resolves to 1 here), ``prefetch`` and ``stage_async``
+    (staging runs inline) select modes the port does not have yet; see
+    :func:`_refuse_later_slices`."""
+    kw = dict(defaults)
+    kw.update(
+        sync_every=int(ctx.params.get("sync_every", 1)),
+        lr_schedule=ctx.params.get("lr_schedule", "constant"),
+        warmup_steps=int(ctx.params.get("warmup_steps", 0)),
+        schedule_steps=int(ctx.params.get("schedule_steps", steps)),
+        grad_clip_norm=float(ctx.params.get("grad_clip", 0)),
+        decay_mask=ctx.params.get("decay_mask", "0") in ("1", "true"),
+    )
+    if "lr" in ctx.params:
+        kw["learning_rate"] = float(ctx.params["lr"])
+    return kw
+
+
+# Params of the JAX training entrypoints that later slices bring, each with
+# the ROADMAP.md queue 1 item it waits for.
+_LATER = "waits for ROADMAP.md queue 1 item"
+
+
+def _refuse_later_slices(ctx) -> None:
+    p = ctx.params
+    for axis in ("tensor", "seq", "fsdp", "expert", "slices", "pipe"):
+        if int(p.get(axis, 1)) > 1:
+            raise NotImplementedError(
+                f"param.{axis} > 1 (a device mesh) {_LATER} 7"
+            )
+    if int(p.get("moe_every", 0)) > 0:
+        raise NotImplementedError(f"param.moe_every (MoE) {_LATER} 9")
+    if p.get("attention") in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"param.attention={p['attention']} (sequence parallel) {_LATER} 8"
+        )
+    if p.get("checkpoint", "0") in ("1", "true", "yes"):
+        raise NotImplementedError(f"param.checkpoint (checkpoints) {_LATER} 5")
+    for key in ("mfu", "flops_accounting"):
+        if p.get(key, "0") in ("1", "true"):
+            raise NotImplementedError(f"param.{key} (perf tooling) {_LATER} 12")
+    if p.get("profile_dir"):
+        raise NotImplementedError(f"param.profile_dir (perf tooling) {_LATER} 12")
+    if p.get("data", "device") not in ("device", "host"):
+        raise NotImplementedError(
+            f"param.data={p['data']} (fused data) {_LATER} 6"
+        )
+    if p.get("steps_per_call", "auto") != "auto" and int(p["steps_per_call"]) > 1:
+        raise NotImplementedError(
+            f"param.steps_per_call > 1 (multi-step dispatch) {_LATER} 6"
+        )
+    if int(p.get("prefetch", 0)) > 0:
+        raise NotImplementedError(
+            f"param.prefetch (background staging) {_LATER} 6"
+        )
+
+
+def _batches(ctx, host_factory, device_factory) -> Iterator[Dict[str, Any]]:
+    """``param.data``: ``device`` (default) draws batches on the device from
+    a torch.Generator; ``host`` keeps the JAX package's numpy streams."""
+    if ctx.params.get("data", "device") == "host":
+        return host_factory()
+    return device_factory()
+
+
+def _run(
+    ctx,
+    trainer: Trainer,
+    batches: Iterator[Dict[str, Any]],
+    steps: int,
+    tokens_per_step: Optional[int] = None,
+) -> None:
+    """Drive ``trainer`` and publish the JAX ``_run``'s progress keys through
+    the ctx: ``started_at``, ``steps_per_call``, ``data_mode``,
+    ``first_step_at``, ``first_step_latency_s``, ``compile_time_s`` (the
+    first step's wall), ``steps_done``, ``step_timeline``, ``last_loss``,
+    ``last_step_time_s``, ``tokens_per_s``, ``avg_step_time_s``,
+    ``steps_per_s``, ``data_stall_ms_p50`` and, under ``sync_every > 1``,
+    ``async_dispatch_ms_p50``. Beats ``ctx.watchdog`` after every step and
+    honours ``ctx.hang``."""
+    ctx.progress["started_at"] = time.time()
+    ctx.progress["steps_per_call"] = 1  # "auto" resolves to 1 (see above)
+    ctx.progress["data_mode"] = ctx.params.get("data", "device")
+    started_mono = time.monotonic()
+    last_publish = [0.0]
+    # param.step_delay_s paces the loop (keeps a short job in flight long
+    # enough to be preempted mid-run)
+    step_delay_s = float(ctx.params.get("step_delay_s", 0) or 0)
+    window = [0.0, 0]  # wall time and step count since the last synced step
+    timeline: deque = deque(
+        maxlen=max(1, int(ctx.params.get("timeline_steps", 64) or 64))
+    )
+
+    def on_step(s: StepStats) -> None:
+        first_call = "first_step_at" not in ctx.progress
+        if first_call:
+            ctx.progress["first_step_at"] = time.time()
+            ctx.progress["first_step_latency_s"] = round(
+                time.monotonic() - started_mono, 6
+            )
+            ctx.progress["compile_time_s"] = round(
+                trainer.first_dispatch_time_s, 4
+            )
+        ctx.progress["steps_done"] = s.step
+        timeline.append({
+            "step": s.step,
+            "t": round(time.monotonic() - started_mono, 4),
+            "step_s": round(s.step_time_s, 6),
+            "data_s": round(s.data_s, 6),
+            "dispatch_s": round(s.dispatch_s, 6),
+            "device_s": round(s.sync_s, 6),
+            "ckpt_s": 0.0,  # no checkpoints yet
+            "compile": s.compiled,
+        })
+        # Under sync_every > 1 an async step's wall is dispatch only and the
+        # next synced step absorbs the window's device work: publish the
+        # window's average at each synced step.
+        window[0] += s.step_time_s
+        window[1] += 1
+        if s.loss is not None:
+            win_avg = window[0] / window[1]
+            ctx.progress["last_loss"] = s.loss
+            ctx.progress["last_step_time_s"] = round(win_avg, 4)
+            if tokens_per_step and win_avg > 0:
+                ctx.progress["tokens_per_s"] = round(
+                    tokens_per_step / win_avg, 1
+                )
+            window[0], window[1] = 0.0, 0
+        if step_delay_s:
+            time.sleep(step_delay_s)
+        now = time.time()
+        if ctx.publish is not None and (
+            first_call or now - last_publish[0] > 1.0
+        ):
+            last_publish[0] = now
+            ctx.progress["step_timeline"] = list(timeline)
+            ctx.publish()
+        wd = getattr(ctx, "watchdog", None)
+        if wd is not None:
+            wd.beat()
+        hang = getattr(ctx, "hang", None)
+        if hang is not None and hang.is_set():
+            # Injected gray failure: alive, no error, no further progress,
+            # until the watchdog's preemption cancels the run.
+            ctx.progress["hang_injected_at"] = time.time()
+            ctx.cancel.wait()
+
+    stats = trainer.run(
+        batches, steps, should_stop=ctx.should_stop, on_step=on_step
+    )
+    if timeline:
+        ctx.progress["step_timeline"] = list(timeline)
+    # Steady state: the first step (kernel build, warm-up) is left out.
+    tail = stats[1:] if len(stats) > 1 else stats
+    if tail:
+        avg = sum(s.step_time_s for s in tail) / len(tail)
+        ctx.progress["avg_step_time_s"] = round(avg, 4)
+        ctx.progress["steps_per_s"] = round(1.0 / avg, 4) if avg > 0 else None
+        if tokens_per_step and avg > 0:
+            ctx.progress["tokens_per_s"] = round(tokens_per_step / avg, 1)
+    # Dispatch-only walls of the async steps (the last call is left out: an
+    # early exit charges the device drain to it).
+    async_ms = sorted(s.step_time_s * 1e3 for s in tail[:-1] if s.loss is None)
+    if async_ms:
+        ctx.progress["async_dispatch_ms_p50"] = round(
+            async_ms[len(async_ms) // 2], 2
+        )
+    stall_ms = sorted(s.data_s * 1e3 for s in tail)
+    if stall_ms:
+        ctx.progress["data_stall_ms_p50"] = round(
+            stall_ms[len(stall_ms) // 2], 3
+        )
+
+
+def gpt(ctx) -> None:
+    """GPT causal LM on synthetic tokens, as the JAX ``gpt`` entrypoint.
+
+    Params: steps(=10), batch_size(=8), seq_len(=1024), size(=base|tiny),
+    attention(=auto|flash|xla), remat(=0), fused_xent(=0: when 1 the loss is
+    :func:`ops.xent.chunked_cross_entropy` against the tied embedding and
+    the ``[b, s, vocab]`` logits are never built), kv_heads(=0: MHA),
+    rope(=0|1), data(=device|host), platform, and the optimizer params of
+    :func:`_train_kwargs` (AdamW at lr 1e-3 by default). Targets are
+    next-token shifted. Weights come from seed 0. Besides the training
+    progress keys it publishes ``n_params``. The mesh params, MoE,
+    ring/Ulysses attention, checkpoints, ``data=fused``, ``prefetch``,
+    ``steps_per_call`` > 1, ``mfu``, ``flops_accounting`` and
+    ``profile_dir`` raise ``NotImplementedError`` until their slice;
+    ``stage_async`` is accepted (staging runs inline).
+    """
+    _refuse_later_slices(ctx)
+    steps = int(ctx.params.get("steps", 10))
+    batch_size = int(ctx.params.get("batch_size", 8))
+    seq_len = int(ctx.params.get("seq_len", 1024))
+    size = ctx.params.get("size", "base")
+    fused_xent = ctx.params.get("fused_xent", "0") in ("1", "true")
+    device = resolve_device(ctx.params.get("platform"))
+    maker = GPTConfig.tiny if size == "tiny" else GPTConfig
+    cfg = maker(
+        max_len=seq_len, attention_impl=ctx.params.get("attention", "auto"),
+        return_hidden=fused_xent, **_gqa_rope_kwargs(ctx),
+    )
+    model = GPT(cfg, device=device).init_weights(
+        torch.Generator(device=device).manual_seed(0)
+    )
+    ctx.progress["n_params"] = sum(p.numel() for p in model.parameters())
+    if fused_xent:
+        from cron_operator_tpu_torch.ops.xent import chunked_cross_entropy
+
+        def loss_fn(out, y):
+            hidden, table = out  # return_hidden: the model hands back both
+            return chunked_cross_entropy(hidden, table, y)
+    else:
+        loss_fn = cross_entropy_loss
+    trainer = Trainer(
+        model,
+        TrainConfig(**_train_kwargs(
+            ctx, steps, remat=ctx.params.get("remat", "0") in ("1", "true"),
+        )),
+        loss_fn=loss_fn,
+    )
+    _run(
+        ctx, trainer,
+        _batches(
+            ctx,
+            lambda: datasets.causal_token_batches(
+                batch_size, seq_len, cfg.vocab_size
+            ),
+            lambda: datasets.device_causal_token_batches(
+                batch_size, seq_len, cfg.vocab_size, device=device
+            ),
+        ),
+        steps,
+        tokens_per_step=batch_size * seq_len,
+    )
 
 
 def generate_job(ctx) -> None:
@@ -63,7 +317,10 @@ def generate_job(ctx) -> None:
         **_gqa_rope_kwargs(ctx),
     )
     weights_rng = torch.Generator(device=device).manual_seed(0)
-    model = GPT(cfg, device=device).init_weights(weights_rng).eval()
+    # Serving keeps the parameters in cfg.dtype: the cast at use that a
+    # training model's f32 masters go through gives the same values.
+    model = GPT(cfg, device=device, param_dtype=cfg.dtype)
+    model = model.init_weights(weights_rng).eval()
 
     # Decode is HBM-bandwidth-bound: each step reads the parameters once for
     # the whole batch plus every item's full static KV cache ([b, max_len,
@@ -124,4 +381,4 @@ def generate_job(ctx) -> None:
             ctx.publish()
 
 
-__all__ = ["generate_job"]
+__all__ = ["generate_job", "gpt"]

@@ -1,13 +1,18 @@
-"""The port's ``generate_job`` against the JAX package's: same params, same
-published progress keys and read-bytes model; the card unless asked."""
+"""The port's entrypoints against the JAX package's: ``generate_job`` and
+the ``gpt`` training job take the same params and publish the same progress
+keys (and ``generate_job`` the same read-bytes model); they run on the card
+unless asked, and the params of later slices raise."""
+
+import threading
 
 import pytest
 import torch
 
 from cron_operator_tpu.backends.registry import JobContext as JaxJobContext
 from cron_operator_tpu.workloads.entrypoints import generate_job as jax_generate_job
+from cron_operator_tpu.workloads.entrypoints import gpt as jax_gpt
 from cron_operator_tpu_torch.backends.registry import JobContext
-from cron_operator_tpu_torch.workloads.entrypoints import generate_job
+from cron_operator_tpu_torch.workloads.entrypoints import generate_job, gpt
 
 PARAMS = {
     "platform": "cpu", "size": "tiny", "rounds": "2", "batch_size": "2",
@@ -61,3 +66,114 @@ def test_stop_before_the_first_round():
 def test_context_normalizes_param_keys():
     ctx = JobContext("gen", "default", {}, {"Batch-Size": 3})
     assert ctx.params == {"batch_size": "3"}
+
+
+GPT_PARAMS = {
+    "platform": "cpu", "size": "tiny", "steps": "3", "batch_size": "2",
+    "seq_len": "32", "attention": "xla",
+}
+
+
+@pytest.mark.parametrize("extra", [{}, {"sync_every": "2", "steps": "5"}],
+                         ids=["sync_every_1", "sync_every_2"])
+def test_gpt_publishes_what_the_jax_job_publishes(extra):
+    """Same params (host data, one step per call, inline staging, which the
+    JAX job takes as options and the port as its only mode): the same
+    progress keys, plus the port's ``n_params``; under ``sync_every=2``
+    both add ``async_dispatch_ms_p50``."""
+    params = {**GPT_PARAMS, "data": "host", "steps_per_call": "1",
+              "stage_async": "0", **extra}
+    # one JAX device: the tiny batch does not divide over the 8 CPU devices
+    jctx = JaxJobContext("train", "default", {}, {**params, "devices": "1"})
+    jax_gpt(jctx)
+    published = []
+    ctx = JobContext("train", "default", {}, dict(params))
+    ctx.publish = lambda: published.append(dict(ctx.progress))
+    gpt(ctx)
+    assert set(ctx.progress) == set(jctx.progress) | {"n_params"}
+    for key in ("steps_done", "steps_per_call", "data_mode"):
+        assert ctx.progress[key] == jctx.progress[key], key
+    steps = int(params["steps"])
+    assert ctx.progress["steps_done"] == steps
+    assert len(ctx.progress["step_timeline"]) == steps
+    assert ("async_dispatch_ms_p50" in ctx.progress) == ("sync_every" in extra)
+    assert ctx.progress["step_timeline"][0]["compile"] is True
+    assert ctx.progress["tokens_per_s"] > 0
+    assert published and "first_step_at" in published[0]
+
+
+def test_gpt_defaults_resolve_and_draw_on_the_device():
+    """``steps_per_call=auto`` is published as 1; ``data=device`` (the
+    default) draws from a torch.Generator on the job's device. The watchdog
+    is beaten once per step."""
+    beats = []
+    ctx = JobContext("train", "default", {}, dict(GPT_PARAMS))
+    ctx.watchdog = type("Beat", (), {"beat": lambda self: beats.append(1)})()
+    gpt(ctx)
+    assert ctx.progress["steps_per_call"] == 1
+    assert ctx.progress["data_mode"] == "device"
+    assert ctx.progress["steps_done"] == 3 and len(beats) == 3
+    import math
+    assert math.isfinite(ctx.progress["last_loss"])
+
+
+def test_gpt_injected_hang_waits_for_cancel():
+    """An injected hang wedges the loop after the step in flight until the
+    job is cancelled: here the watchdog's first beat, which comes after
+    that step, cancels the job 0.2 s later."""
+    ctx = JobContext("train", "default", {}, dict(GPT_PARAMS))
+    ctx.hang = threading.Event()
+    ctx.hang.set()
+    timers = []
+
+    class Watchdog:
+        def beat(self):
+            timers.append(threading.Timer(0.2, ctx.cancel.set))
+            timers[-1].start()
+
+    ctx.watchdog = Watchdog()
+    gpt(ctx)
+    for t in timers:
+        t.join(timeout=5)
+        assert not t.is_alive()
+    assert len(timers) == 1
+    assert ctx.progress["steps_done"] == 1
+    assert ctx.progress["hang_injected_at"] > 0
+
+
+def test_gpt_fused_xent_matches_the_logits_loss():
+    """``fused_xent=1`` changes memory, not math: the first-step loss of the
+    chunked cross-entropy equals the logits path's (same seeds), within the
+    5e-3 the JAX package's own test allows."""
+    losses = []
+    for fused in ("0", "1"):
+        ctx = JobContext("train", "default", {}, {
+            **GPT_PARAMS, "steps": "1", "fused_xent": fused, "data": "host"})
+        gpt(ctx)
+        losses.append(ctx.progress["last_loss"])
+    assert abs(losses[0] - losses[1]) < 5e-3, losses
+
+
+def test_gpt_refuses_the_cpu_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = {k: v for k, v in GPT_PARAMS.items() if k != "platform"}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpt(JobContext("train", "default", {}, params))
+
+
+@pytest.mark.parametrize(
+    "extra, match",
+    [({axis: "2"}, f"param.{axis}") for axis in
+     ("tensor", "seq", "fsdp", "expert", "slices", "pipe")]
+    + [({"moe_every": "1"}, "MoE"), ({"attention": "ring"}, "ring"),
+       ({"attention": "ulysses"}, "ulysses"),
+       ({"checkpoint": "1"}, "checkpoint"), ({"mfu": "1"}, "mfu"),
+       ({"flops_accounting": "1"}, "flops_accounting"),
+       ({"profile_dir": "prof"}, "profile_dir"),
+       ({"data": "fused"}, "fused"), ({"prefetch": "2"}, "prefetch"),
+       ({"steps_per_call": "4"}, "steps_per_call")],
+    ids=lambda v: "-".join(v) if isinstance(v, dict) else None,
+)
+def test_gpt_later_slices_raise(extra, match):
+    with pytest.raises(NotImplementedError, match=match):
+        gpt(JobContext("train", "default", {}, {**GPT_PARAMS, **extra}))

@@ -91,10 +91,14 @@ class TestRefusals:
         with pytest.raises(ValueError, match="positive divisor"):
             fa.flash_attention(q, k, k)
 
-    def test_no_backward_yet(self):
+    def test_only_flash_attention_records_a_graph(self):
+        """``flash_attention`` is differentiable (its backward is held
+        against the JAX kernels in ``test_torch_flash_backward.py``);
+        ``flash_attention_fwd`` returns bare tensors."""
         q = torch.ones(1, 128, 1, 32, requires_grad=True)
-        with pytest.raises(NotImplementedError, match="K2/K3"):
-            fa.flash_attention(q, q, q)
+        assert fa.flash_attention(q, q, q).grad_fn is not None
+        o, lse = fa.flash_attention_fwd(q, q, q)
+        assert o.grad_fn is None and lse.grad_fn is None
 
     def test_other_devices_raise(self):
         q = torch.empty(1, 128, 1, 32, device="meta")

@@ -125,3 +125,39 @@ def test_moe_not_ported_and_gqa_cache_is_kv_heads_sized():
         GPT(GPTConfig.tiny(moe_every=1))
     model = GPT(GPTConfig.tiny(num_kv_heads=2))
     assert model.new_cache(3).k[0].shape == (3, 512, 2, 32)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_bf16_compute_over_f32_parameters_matches_jax(variant):
+    """Flax keeps parameters in f32 and casts them to ``dtype`` at use; so
+    does the port. A bf16 forward from the same f32 weights stays within
+    bf16 tolerance of the JAX bf16 forward: twice the JAX bf16 forward's
+    own distance from the f32 one."""
+    over = VARIANTS[variant]
+    jcfg, params, _ = _pair(**over)
+    jcfg_bf16 = JaxGPTConfig.tiny(dtype=jnp.bfloat16, **over)
+    cfg = GPTConfig.tiny(dtype=torch.bfloat16, **over)
+    model = GPT(cfg)
+    model.load_state_dict(params_from_flax(params, cfg))
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    ids = _ids(2, 16)
+    ref_bf16, _ = JaxGPT(jcfg_bf16).apply({"params": params}, ids)
+    ref_f32, _ = JaxGPT(jcfg).apply({"params": params}, ids)
+    with torch.no_grad():
+        out = model(torch.from_numpy(ids).long())
+    assert out.dtype == torch.float32
+    assert _err(out, ref_bf16) <= 2 * _err(ref_bf16, ref_f32)
+
+
+def test_bf16_model_trains_f32_masters():
+    """An AdamW step of lr 1e-3 moves a LayerNorm scale of 1.0 by 1e-3,
+    which a bf16 parameter (spacing 2^-8 below 1) would round away."""
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.train import Trainer
+
+    model = GPT(GPTConfig.tiny(max_len=32))
+    model.init_weights(torch.Generator().manual_seed(0))
+    Trainer(model).step(next(data.causal_token_batches(2, 32, 1024)))
+    scale = model.layers[0].ln_attn.weight.detach()
+    assert scale.dtype == torch.float32
+    assert ((scale - 1).abs() - 1e-3).abs().max().item() < 1e-5

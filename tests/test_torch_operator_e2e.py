@@ -4,7 +4,8 @@ A live ``Manager`` with the ``CronReconciler`` and a thread-isolation
 ``LocalExecutor``, on the real clock, fires an ``@every 1s`` Cron whose
 ``kubeflow.org/v1 PyTorchJob`` template names the port's ``generate_job`` by
 ``module:function``; the workload must reach Succeeded with the port's
-progress folded into its status.
+progress folded into its status. The same holds for the port's ``gpt``
+training job.
 """
 
 import time
@@ -15,12 +16,13 @@ from cron_operator_tpu.controller import CronReconciler
 from cron_operator_tpu.runtime import APIServer, Manager
 
 ENTRYPOINT = "cron_operator_tpu_torch.workloads.entrypoints:generate_job"
+GPT_ENTRYPOINT = "cron_operator_tpu_torch.workloads.entrypoints:gpt"
+GENERATE_PARAMS = {"platform": "cpu", "size": "tiny", "rounds": "1",
+                   "max_new": "4", "batch_size": "2", "prompt_len": "4"}
 
 
-def _cron():
-    params = {"platform": "cpu", "size": "tiny", "rounds": "1",
-              "max_new": "4", "batch_size": "2", "prompt_len": "4"}
-    annotations = {"tpu.kubedl.io/entrypoint": ENTRYPOINT}
+def _cron(entrypoint=ENTRYPOINT, params=GENERATE_PARAMS):
+    annotations = {"tpu.kubedl.io/entrypoint": entrypoint}
     annotations.update(
         {f"tpu.kubedl.io/param.{k}": v for k, v in params.items()}
     )
@@ -50,7 +52,7 @@ def _succeeded(api):
     return None
 
 
-def test_cron_runs_the_port_generate_job():
+def _run_until_succeeded(cron):
     api = APIServer()
     mgr = Manager(api)
     mgr.add_controller(
@@ -61,17 +63,30 @@ def test_cron_runs_the_port_generate_job():
     executor.start()
     mgr.start()
     try:
-        api.create(_cron())
+        api.create(cron)
         deadline = time.monotonic() + 60
         job = None
         while job is None and time.monotonic() < deadline:
             time.sleep(0.1)
             job = _succeeded(api)
         assert job is not None, "no PyTorchJob reached Succeeded in 60 s"
-        progress = job["status"]["trainingProgress"]
-        assert progress["tokens_generated"] == 8
-        assert progress["steps_done"] == 1
+        return job["status"]["trainingProgress"]
     finally:
         mgr.stop()
         executor.stop()
         api.close()
+
+
+def test_cron_runs_the_port_generate_job():
+    progress = _run_until_succeeded(_cron())
+    assert progress["tokens_generated"] == 8
+    assert progress["steps_done"] == 1
+
+
+def test_cron_runs_the_port_gpt_training_job():
+    progress = _run_until_succeeded(_cron(GPT_ENTRYPOINT, {
+        "platform": "cpu", "size": "tiny", "steps": "2", "batch_size": "2",
+        "seq_len": "32",
+    }))
+    assert progress["first_step_at"] > 0
+    assert progress["steps_done"] == 2

@@ -1,0 +1,82 @@
+"""The port's chunked cross-entropy against the JAX package's.
+
+The same numpy hidden states, tied table and labels go through JAX
+``chunked_cross_entropy`` and the port's; loss and both gradients agree
+within f32 summation order (``rtol 1e-5`` on the loss, ``rtol 1e-4`` with
+``atol 1e-6`` on the grads, the bounds ``tests/test_xent.py`` holds the JAX
+op to against the naive path). The chunks cover a vocab the chunk divides,
+ones it does not, and a chunk larger than the vocab.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cron_operator_tpu.ops.xent import chunked_cross_entropy as jax_xent
+from cron_operator_tpu_torch.ops.xent import chunked_cross_entropy
+
+T, D, V = 24, 16, 100
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(0)
+    hidden = rng.standard_normal((2, T // 2, D), dtype=np.float32)
+    table = 0.1 * rng.standard_normal((V, D), dtype=np.float32)
+    labels = rng.integers(0, V, (2, T // 2)).astype(np.int32)
+    return hidden, table, labels
+
+
+def _port(hidden, table, labels, chunk):
+    h = torch.tensor(hidden, requires_grad=True)
+    w = torch.tensor(table, requires_grad=True)
+    loss = chunked_cross_entropy(h, w, torch.tensor(labels), chunk)
+    dh, dw = torch.autograd.grad(loss, (h, w))
+    return loss.item(), dh.numpy(), dw.numpy()
+
+
+def _jax(hidden, table, labels, chunk):
+    loss, (dh, dw) = jax.value_and_grad(
+        lambda h, w: jax_xent(h, w, jnp.asarray(labels), chunk),
+        argnums=(0, 1),
+    )(hidden, table)
+    return float(loss), np.asarray(dh), np.asarray(dw)
+
+
+# 100 divides; 32, 33 and 7 leave a short final chunk; 128 > V is clamped
+@pytest.mark.parametrize("chunk", [V, 32, 33, 7, 128])
+def test_loss_and_grads_match_jax(data, chunk):
+    got = _port(*data, chunk)
+    ref = _jax(*data, chunk)
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5)
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6)
+
+
+def test_matches_the_full_logits_loss(data):
+    """The chunked loss is the plain cross-entropy of the full logits."""
+    hidden, table, labels = data
+    logits = torch.tensor(hidden).reshape(-1, D) @ torch.tensor(table).T
+    want = torch.nn.functional.cross_entropy(
+        logits, torch.tensor(labels).reshape(-1).long())
+    got = chunked_cross_entropy(torch.tensor(hidden), torch.tensor(table),
+                                torch.tensor(labels), 32)
+    assert abs(float(got) - float(want)) <= 1e-5 * float(want)
+
+
+def test_bf16_hidden_gives_bf16_grads(data):
+    """bf16 hidden states are upcast per chunk (f32 products) and their
+    gradient comes back in bf16, as in the JAX op."""
+    hidden, table, labels = data
+    h = torch.tensor(hidden).bfloat16().requires_grad_()
+    w = torch.tensor(table, requires_grad=True)
+    loss = chunked_cross_entropy(h, w, torch.tensor(labels), 32)
+    dh, dw = torch.autograd.grad(loss, (h, w))
+    assert loss.dtype == torch.float32
+    assert dh.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    ref_loss, _, _ = _jax(np.asarray(jnp.asarray(hidden, jnp.bfloat16)
+                                     .astype(jnp.float32)), table, labels, 32)
+    np.testing.assert_allclose(loss.item(), ref_loss, rtol=1e-5)
