@@ -14,26 +14,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    forward (K1) against ``flash_attention_reference``, and the backward
    pair K2 (dQ) and K3 (dK, dV) against ``flash_attention_bwd_reference``,
    over bf16/f32, causal or not, head_dim 64/128 (plus 32 and 256 for the
-   backward), GQA groups 1/2/4, seq 128/512/2048; a second backward run
-   must be bit-identical, and the backward's peak memory must grow about
-   linearly from seq 2048 to 8192.
+   backward), GQA groups 1/2/4, seq 128/512/2048, so over both kernel
+   designs (``sm90`` for bf16 at d 64/128, ``fma`` for the rest), within
+   the bounds of ``forward_tolerance`` and ``dkv_tolerance``; a second
+   backward run must be bit-identical, and the backward's peak memory must
+   grow about linearly from seq 2048 to 8192.
 3. The serving slice at GPT-2 small width: ``generate_job`` through a job
    context, with every kernel count set to 0 just before and read just
-   after; then prefill logits through the kernel against the plain-attention
-   path on the same weights and prompt.
-4. Serving times (CUDA events, medians): K1 per launch at the slice's shape
-   beside its bound, the plain version and ``F.scaled_dot_product_attention``
-   (a yardstick only: the port never calls it); the slice's prefill, decode
-   step and tokens/s.
+   after (every K1 launch must be of the sm90 design); then prefill logits
+   through the kernel against the plain-attention path on the same weights
+   and prompt.
+4. Serving times: K1 per launch at the slice's shape (device time of
+   back-to-back launches with the card held busy while the host enqueues
+   them; plain CUDA-event time beside it), beside its bound, the plain
+   version and
+   ``F.scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it); the slice's prefill, decode step and tokens/s (CUDA events,
+   medians).
 5. The training slice at GPT-2 small width: ``gpt`` through a job context
    (b 8, s 1024, 10 steps), every kernel count set to 0 just before and
-   read just after; then three steps on the kernel path against the
-   plain-attention path from the same f32 weights, both measured against an
-   f32 run.
-6. Training times: K1, K2 and K3 per launch at the slice's shape beside
-   their bounds, their plain versions and the SDPA yardsticks (SDPA's
-   backward alone for K2 and K3); the train step, tokens/s and MFU; a
-   profile of one step.
+   read just after (K1 and K3 all sm90, K2 all fma); then three steps on
+   the kernel path against the plain-attention path from the same f32
+   weights, both measured against an f32 run.
+6. Training times: K1, K2 and K3 per launch at the slice's shape (device
+   time, event time beside it) beside their bounds, their plain versions
+   and the SDPA yardsticks (SDPA's backward alone for K2 and K3); the train
+   step, tokens/s and MFU; a profile of one step.
 7. A ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -155,18 +161,17 @@ def phase_device(torch):
 
 def check_k1(torch, fa, name: str, q, k, v, causal: bool) -> float:
     """Runs K1 and its plain version on the same card tensors and fails
-    unless they agree; returns max|dO|. In bf16 both sides round one f32
-    result to bf16, so O may differ by one bf16 ulp (<= 2^-7 |O|); in f32
+    unless they agree; returns max|dO|. O within ``forward_tolerance`` for
+    the design that runs: in bf16 the sm90 design rounds P to bf16 before
+    P V, as the TPU kernel does (2^-7 |O| + 2^-8 (P |V|) / l + 1e-4 max|O|),
+    the fma design rounds O once (one bf16 ulp, 2^-7 |O| + 1e-4); in f32
     only the summation order differs (1e-4). LSE is f32 on both sides:
     summation order only (1e-4)."""
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
     diff = (o.float() - o_ref.float()).abs()
-    if q.dtype == torch.bfloat16:
-        bound = 2.0 ** -7 * o_ref.float().abs() + 1e-4
-    else:
-        bound = torch.full_like(diff, 1e-4)
+    bound = fa.forward_tolerance(q, k, v, o_ref, lse_ref, causal=causal)
     err_o = diff.max().item()
     err_lse = (lse - lse_ref).abs().max().item()
     print(f"  {name}: max|dO|={err_o:.3e} max|dLSE|={err_lse:.3e}")
@@ -195,7 +200,8 @@ def phase_kernel_vs_plain(torch, fa) -> None:
                                  f"d={d} group={group} s={s}",
                                  q, k, v, causal)
                         n += 1
-    print(f"kernel vs plain: {n} cases agree", flush=True)
+    print(f"kernel vs plain: {n} cases agree, launches by design "
+          f"{fa.flash_attention.launches_by_design}", flush=True)
 
 
 def bwd_bound(q, k, causal):
@@ -221,9 +227,12 @@ def bwd_bound(q, k, causal):
 def check_bwd(torch, fa, name: str, q, k, v, do, causal: bool):
     """Runs K2 and K3 twice and their plain versions once on the same card
     tensors; fails unless the two runs are bit-identical and agree with the
-    plain versions: in f32 within 1e-4 max|ref| (summation order), in bf16
-    within 2^-7 |ref| + 1e-4 max|ref| per element (both sides accumulate in
-    f32 and round once). Returns (max|d dQ|, max|d dK, d dV|)."""
+    plain versions: in f32 within 1e-4 max|ref| (summation order); in bf16
+    dQ within 2^-7 |ref| + 1e-4 max|ref| per element (K2 keeps dS in f32
+    and rounds once), dK and dV within ``dkv_tolerance`` for the design
+    that runs (K3's sm90 design rounds P and dS to bf16, as the TPU kernel
+    does; its fma design rounds once). Returns (max|d dQ|, max|d dK, d
+    dV|)."""
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     delta = fa._delta(o, do)
     runs = []
@@ -239,12 +248,19 @@ def check_bwd(torch, fa, name: str, q, k, v, do, causal: bool):
             *fa.flash_attention_dkv_reference(q, k, v, do, lse, delta,
                                               causal=causal))
     errs = []
-    for grad, got, ref in zip(("dQ", "dK", "dV"), runs[0], refs):
+    dkv_bounds = fa.dkv_tolerance(q, k, v, do, lse, delta, *refs[1:],
+                                  causal=causal)
+    for grad, got, ref, dkv_bound in zip(("dQ", "dK", "dV"), runs[0], refs,
+                                         (None, *dkv_bounds)):
         ref = ref.float()
         diff = (got.float() - ref).abs()
         floor = 1e-4 * ref.abs().max().item()
-        bound = (2.0 ** -7 * ref.abs() + floor if q.dtype == torch.bfloat16
-                 else torch.full_like(diff, floor))
+        if dkv_bound is not None:
+            bound = dkv_bound
+        elif q.dtype == torch.bfloat16:
+            bound = 2.0 ** -7 * ref.abs() + floor
+        else:
+            bound = torch.full_like(diff, floor)
         if not (bool(torch.isfinite(got.float()).all())
                 and bool((diff <= bound).all())):
             fail(f"{name}: {grad} disagrees with the plain version "
@@ -277,7 +293,8 @@ def phase_bwd_vs_plain(torch, fa) -> None:
                   f"d={d} group={group} s={s}",
                   *inputs(b, s, h, h // group, d, dtype), causal)
     print(f"backward kernels vs plain: {len(cases)} cases agree, each "
-          "bit-identical on a second run", flush=True)
+          "bit-identical on a second run; K3 launches by design "
+          f"{fa.flash_attention_dkv.launches_by_design}", flush=True)
 
     # Peak memory of the backward at b*h fixed: O(s) (the outputs and
     # Delta), where a materialised s x s score matrix would grow 16x.
@@ -304,11 +321,17 @@ def zero_counts(fa) -> None:
     for fn in (fa.flash_attention, fa.flash_attention_dq,
                fa.flash_attention_dkv):
         fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(fa.DESIGNS, 0)
 
 
 def read_counts(fa):
     return (fa.flash_attention.launches, fa.flash_attention_dq.launches,
             fa.flash_attention_dkv.launches)
+
+
+def read_designs(fa):
+    return tuple(dict(fn.launches_by_design) for fn in (
+        fa.flash_attention, fa.flash_attention_dq, fa.flash_attention_dkv))
 
 
 def phase_slice(torch, fa):
@@ -323,14 +346,18 @@ def phase_slice(torch, fa):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches, dq_launches, dkv_launches = read_counts(fa)
+    k1_designs = read_designs(fa)[0]
     print(f"slice: generate_job in {wall:.2f} s, progress {ctx.progress}")
     print(f"slice: flash_attention launches {launches} "
-          f"(expected 12 x {rounds}), backward {dq_launches}/{dkv_launches} "
-          "(expected 0)", flush=True)
+          f"(expected 12 x {rounds}, all sm90: {k1_designs}), backward "
+          f"{dq_launches}/{dkv_launches} (expected 0)", flush=True)
     if launches != 12 * rounds or dq_launches or dkv_launches:
         fail(f"flash kernels launched {launches}/{dq_launches}/"
              f"{dkv_launches} times on the serving path, not "
              f"{12 * rounds}/0/0")
+    if k1_designs["sm90"] != launches:
+        fail(f"K1 launches on the serving path by design {k1_designs}: not "
+             "all sm90")
     for key in ("n_params", "decode_read_bytes_per_step", "started_at",
                 "first_step_at", "first_step_latency_s", "tokens_per_s",
                 "steps_done", "tokens_generated"):
@@ -402,6 +429,49 @@ def phase_slice_correctness(torch):
     return flash
 
 
+def device_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn``: the median over ``reps`` of the CUDA-
+    event time of ``iters`` back-to-back calls, enqueued while the card is
+    held busy (``torch.cuda._sleep``, twice the host's enqueue time), so
+    that the kernels run back to back and the host's time between launches
+    is not counted. ``fn`` must not synchronise."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    hold_cycles = int(2 * host_s * 2e9) + 1_000_000  # the SM clock is <= 2 GHz
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold_cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def timed_rows(torch, card, name, fns, iters=(20, 5, 20)):
+    """(device ms, CUDA-event ms) per call of a kernel's wrapper, its plain
+    version and its library yardstick. The device ms (:func:`device_ms`) is
+    what the kernels line reports: at the slices' shapes a call of the
+    wrappers costs the host about as long as the kernel runs, so
+    back-to-back calls timed by events alone measure the host as much as
+    the card. The event times are printed beside them."""
+    device = [device_ms(torch, fn, n) for fn, n in zip(fns, iters)]
+    events = [median_ms(torch, fn, iters=n) for fn, n in zip(fns, iters)]
+    print(f"[{card}] {name} (kernel, plain, library): device ms {device} | "
+          f"event ms {events}", flush=True)
+    return device, events
+
+
 def phase_times(torch, fa, flash_model, card):
     import torch.nn.functional as F
 
@@ -413,22 +483,20 @@ def phase_times(torch, fa, flash_model, card):
     q, k, v = qkv.unbind(2)
     k1_err = check_k1(torch, fa, f"K1 bfloat16 causal=1 b={b} s={s} h={h} "
                       f"d={d} (the slice's prefill)", q, k, v, True)
-    k1_ms = median_ms(torch, lambda: fa.flash_attention_fwd(
-        q, k, v, causal=True), iters=50)
-    plain_ms = median_ms(torch, lambda: fa.flash_attention_reference(
-        q, k, v, causal=True), iters=20)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters=50)
+    (k1_ms, plain_ms, library_ms), _ = timed_rows(torch, card, "K1", (
+        lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+        lambda: fa.flash_attention_reference(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)))
     moved = 4 * q.numel() * q.element_size() + b * h * s * 4  # + f32 LSE
     flops = 4 * d * b * h * (s * (s + 1) // 2)  # QK^T and PV, causal pairs
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    print(f"[{card}] K1 b{b} s{s} h{h} d{d} causal bf16: {k1_ms:.4f} ms/launch"
-          f" | plain {plain_ms:.4f} ms | sdpa {library_ms:.4f} ms | bound "
-          f"{bound_ms * 1e3:.2f} us ({moved / 1e6:.2f} MB, "
-          f"{flops / 1e9:.3f} GFLOP)", flush=True)
+    print(f"[{card}] K1 b{b} s{s} h{h} d{d} causal bf16: {k1_ms:.4f} ms/"
+          f"launch (device) | plain {plain_ms:.4f} ms | sdpa "
+          f"{library_ms:.4f} ms | bound {bound_ms * 1e3:.2f} us "
+          f"({moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
 
     prompt = torch.randint(0, flash_model.config.vocab_size, (8, 512),
                            generator=gen, device="cuda")
@@ -476,13 +544,19 @@ def phase_train(torch, fa):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = read_counts(fa)
+    designs = read_designs(fa)
     progress = {k: v for k, v in ctx.progress.items() if k != "step_timeline"}
     print(f"train: gpt in {wall:.2f} s, progress {progress}")
-    print(f"train: launches K1/K2/K3 {counts} (expected 12 x {steps} each)",
-          flush=True)
+    print(f"train: launches K1/K2/K3 {counts} (expected 12 x {steps} each), "
+          f"by design {designs} (K1, K3 sm90; K2 fma)", flush=True)
     if counts != (12 * steps,) * 3:
         fail(f"flash kernels launched {counts} times on the training path, "
              f"not {12 * steps} each")
+    for name, n, by_design, design in zip(("K1", "K2", "K3"), counts,
+                                          designs, ("sm90", "fma", "sm90")):
+        if by_design[design] != n:
+            fail(f"{name} launches on the training path by design "
+                 f"{by_design}: not all {design}")
     for key in TRAIN_PROGRESS_KEYS:
         if key not in ctx.progress:
             fail(f"progress key {key!r} was not published")
@@ -579,16 +653,15 @@ def phase_train_times(torch, fa, card):
     moved = 4 * q.numel() * q.element_size() + b * h * s * 4
     flops = 4 * d * b * h * (s * (s + 1) // 2)
     bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    (ms, plain_ms, library_ms), _ = timed_rows(torch, card, "K1", (
+        lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+        lambda: fa.flash_attention_reference(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)))
     rows["K1"] = dict(
-        max_abs_err=k1_err,
-        ms=median_ms(torch, lambda: fa.flash_attention_fwd(
-            q, k, v, causal=True), iters=20),
-        plain_ms=median_ms(torch, lambda: fa.flash_attention_reference(
-            q, k, v, causal=True), iters=10),
+        max_abs_err=k1_err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=50),
+        library_ms=library_ms,
     )
 
     # K2 and K3
@@ -599,8 +672,10 @@ def phase_train_times(torch, fa, card):
     delta = fa._delta(o, do)
     leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    sdpa_bwd_ms = median_ms(torch, lambda: torch.autograd.grad(
-        out, leaves, dot, retain_graph=True), iters=20)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, leaves, dot, retain_graph=True)
+
     bounds = bwd_bound(q, k, True)
     for name, err, kernel, plain in (
             ("K2", dq_err, fa.flash_attention_dq,
@@ -608,15 +683,14 @@ def phase_train_times(torch, fa, card):
             ("K3", dkv_err, fa.flash_attention_dkv,
              fa.flash_attention_dkv_reference)):
         bytes_ms, ops_ms, _, _ = bounds[name]
+        (ms, plain_ms, library_ms), _ = timed_rows(torch, card, name, (
+            lambda: kernel(q, k, v, do, lse, delta, causal=True),
+            lambda: plain(q, k, v, do, lse, delta, causal=True), sdpa_bwd))
         rows[name] = dict(
-            max_abs_err=err,
-            ms=median_ms(torch, lambda: kernel(q, k, v, do, lse, delta,
-                                               causal=True), iters=20),
-            plain_ms=median_ms(torch, lambda: plain(q, k, v, do, lse, delta,
-                                                    causal=True), iters=5),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=sdpa_bwd_ms,
+            library_ms=library_ms,
         )
     for name, row in rows.items():
         extra = ""
@@ -624,7 +698,8 @@ def phase_train_times(torch, fa, card):
             _, _, moved, flops = bounds[name]
             extra = f" ({moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)"
         print(f"[{card}] {name} b{b} s{s} h{h} d{d} causal bf16: "
-              f"{row['ms']:.4f} ms/launch | plain {row['plain_ms']:.4f} ms | "
+              f"{row['ms']:.4f} ms/launch (device) | plain "
+              f"{row['plain_ms']:.4f} ms | "
               f"sdpa {row['library_ms']:.4f} ms | bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}){extra}",
               flush=True)
@@ -656,20 +731,24 @@ def phase_train_times(torch, fa, card):
                   "model_flops_per_step": model_flops}
 
 
+CSRC = "cron_operator_tpu_torch/ops/csrc/"
+# the design the main path runs (bf16, head dim 64), its source, and the
+# TPU kernel it replaces
 KERNEL_ROWS = {
-    "K1": ("flash_attention_fwd", "cron_operator_tpu_torch/ops/csrc/flash_fwd.cu",
+    "K1": ("flash_attention_fwd", "sm90", CSRC + "flash_fwd_sm90.cu",
            "cron_operator_tpu/ops/flash_attention.py:72"),
-    "K2": ("flash_attention_dq", "cron_operator_tpu_torch/ops/csrc/flash_bwd.cu",
+    "K2": ("flash_attention_dq", "fma", CSRC + "flash_bwd.cu",
            "cron_operator_tpu/ops/flash_attention.py:138"),
-    "K3": ("flash_attention_dkv", "cron_operator_tpu_torch/ops/csrc/flash_bwd.cu",
+    "K3": ("flash_attention_dkv", "sm90", CSRC + "flash_bwd_dkv_sm90.cu",
            "cron_operator_tpu/ops/flash_attention.py:192"),
 }
 
 
 def kernel_entry(key: str, name_suffix: str, launches: int, row: dict) -> dict:
-    name, source, replaces = KERNEL_ROWS[key]
-    return {"name": name + name_suffix, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, **row}
+    name, design, source, replaces = KERNEL_ROWS[key]
+    return {"name": name + name_suffix, "route": "cuda", "design": design,
+            "source": source, "replaces": replaces, "launches": launches,
+            **row}
 
 
 def main() -> None:

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with :mod:`ctypes` — no PyTorch headers,
 so a build takes seconds. Libraries land in ``build/torch_kernels/`` at the
-root of the checkout, named by a hash of their source, so an edited source
-is rebuilt and a stale library is never loaded. ``nvcc``'s report (ptxas
+root of the checkout, named by a hash of their source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. ``nvcc``'s report (ptxas
 registers, shared memory, spills) is kept beside each library as ``.log``.
 
 Only the machine with the card builds: nothing here runs at import time.
@@ -47,6 +48,9 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

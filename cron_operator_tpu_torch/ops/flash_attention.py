@@ -3,18 +3,32 @@ autograd Function that joins them.
 
 The kernels replace the JAX package's three Pallas kernels in
 ``cron_operator_tpu/ops/flash_attention.py``: K1 ``_flash_kernel``, the
-online-softmax forward (``csrc/flash_fwd.cu``), and the backward pair K2
-``_bwd_dq_kernel`` (dQ) and K3 ``_bwd_dkv_kernel`` (dK, dV) in
-``csrc/flash_bwd.cu``. The s x s score matrix never reaches HBM in either
-direction. The source files' headers state each kernel's bound and design.
+online-softmax forward, and the backward pair K2 ``_bwd_dq_kernel`` (dQ) and
+K3 ``_bwd_dkv_kernel`` (dK, dV). The s x s score matrix never reaches HBM in
+either direction. K1 and K3 come in two designs, chosen by :func:`_design`
+from the dtype and head dim before anything launches:
+
+- ``sm90``, for bf16 at head dim 64 or 128: bf16 ``wgmma`` tiles fed by TMA
+  through a ring of mbarrier-guarded stages (``csrc/flash_fwd_sm90.cu``,
+  ``csrc/flash_bwd_dkv_sm90.cu``, helpers in ``csrc/sm90.cuh``). They round P
+  (and, in K3, dS) to bf16 before the second product, as the TPU kernels do.
+- ``fma``, for f32 and head dims 32 and 256: f32 FMAs on f32 shared-memory
+  tiles (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), which keep P and dS
+  in f32. K2 has only this design.
+
+The source files' headers state each kernel's bound and design. Every
+wrapper counts its launches (``.launches``) and its launches per design
+(``.launches_by_design``). :func:`forward_tolerance` and
+:func:`dkv_tolerance` state how far a kernel may lie from the plain version.
 
 :func:`flash_attention_fwd`, :func:`flash_attention_dq` and
 :func:`flash_attention_dkv` launch their kernel for a CUDA tensor and run the
 same function in plain PyTorch for a CPU tensor; there is no fallback from
 one to the other. The kernels read Q, K, V and dO through their strides (so
 the ``qkv[:, :, i]`` slices of the fused projection go in without a copy;
-only a last dimension that is not unit-stride is made contiguous) and write
-fresh contiguous outputs.
+only a last dimension that is not unit-stride is made contiguous; the sm90
+design also copies an input whose base or strides TMA cannot take, see
+:func:`_tma_ready`) and write fresh contiguous outputs.
 
 :func:`flash_attention` is differentiable: its Function saves ``(q, k, v,
 o, lse)`` from the forward, and its backward computes ``Delta = rowsum(dO *
@@ -25,8 +39,9 @@ reruns the forward.
 The shape rules are the JAX package's: ``seq`` must divide by the block
 edges, which default to :func:`_default_block` (multiples of 128), and K/V
 may carry a positive divisor of the query heads. The kernels' own tiles are
-64 rows (32 for the backward at head dim 256), which divide every accepted
-``seq``.
+64 rows (32 for the fma backward at head dim 256 and for the sm90 K3's query
+tiles at head dim 128), which divide every accepted ``seq``; the sm90 K1's
+128-row blocks at head dim 128 handle a last half block.
 """
 
 from __future__ import annotations
@@ -45,6 +60,8 @@ NEG_INF = -1e30  # masked score: exp() underflows to exactly 0, no inf - inf
 LSE_MASKED = 1e30
 KERNEL_TILE = 64  # query and key rows per tile inside the kernel
 HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernel is compiled for
+SM90_HEAD_DIMS = (64, 128)  # head dims of the bf16 wgmma/TMA design
+DESIGNS = ("sm90", "fma")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _count_lock = threading.Lock()
@@ -103,7 +120,41 @@ def flash_attention_reference(
     return o.to(q.dtype), lse.reshape(b * h, s, 1)
 
 
+def _design(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel design K1 and K3 take: ``"sm90"`` (bf16 wgmma tiles fed by
+    TMA) for bf16 at head dim 64 or 128, ``"fma"`` for everything else the
+    kernels accept. The route follows from dtype and head dim alone; no
+    launch is ever retried on the other design."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90"
+    return "fma"
+
+
+def _tma_ready(x: torch.Tensor) -> bool:
+    """Whether TMA can read ``x`` in place: a 16-byte aligned base, a unit
+    last stride, and batch, seq and head strides that are positive multiples
+    of 16 bytes."""
+    return (x.data_ptr() % 16 == 0 and x.stride(-1) == 1
+            and all(st > 0 and st * x.element_size() % 16 == 0
+                    for st in x.stride()[:-1]))
+
+
+def _for_tma(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, or a fresh contiguous copy (an aligned allocation, even
+    where ``x`` is contiguous already) where TMA cannot read it."""
+    if _tma_ready(x):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _count(fn, design: str) -> None:
+    with _count_lock:
+        fn.launches += 1
+        fn.launches_by_design[design] += 1
+
+
 _lib: Optional[ctypes.CDLL] = None
+_sm90_lib: Optional[ctypes.CDLL] = None
 
 
 def _kernel() -> ctypes.CDLL:
@@ -146,32 +197,61 @@ def _check_kernel_inputs(q, k, v) -> None:
         raise ValueError("q, k and v must lie on one device")
 
 
+def _kernel_sm90() -> ctypes.CDLL:
+    """The built sm90 forward library, with its C signature declared."""
+    global _sm90_lib
+    if _sm90_lib is None:
+        lib = _build.load("flash_fwd_sm90")
+        lib.flash_fwd_sm90.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
+            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.flash_fwd_sm90.restype = ctypes.c_int
+        lib.flash_fwd_sm90_error_string.argtypes = [ctypes.c_int]
+        lib.flash_fwd_sm90_error_string.restype = ctypes.c_char_p
+        _sm90_lib = lib
+    return _sm90_lib
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, fn: str,
+              error_string: Optional[str] = None) -> None:
+    """Raises unless the C function ``fn`` returned 0 (cudaSuccess), with
+    the message of the library's ``<fn>_error_string`` (or the one named)."""
+    if err != 0:
+        name = error_string or f"{fn}_error_string"
+        message = getattr(lib, name)(err).decode()
+        raise RuntimeError(f"{fn} launch failed: {message}")
+
+
 def _launch(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on the card, in the design of :func:`_design`."""
     b, s, h, d = q.shape
     _check_kernel_inputs(q, k, v)
     kv_h = k.shape[2]
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    design = _design(q.dtype, d)
+    if design == "sm90":
+        q, k, v = (_for_tma(x) for x in (q, k, v))
+    else:
+        q, k, v = (x if x.stride(-1) == 1 else x.contiguous()
+                   for x in (q, k, v))
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s, 1), dtype=torch.float32, device=q.device)
-    lib = _kernel()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr())
+    strides = [st for x in (q, k, v, o) for st in x.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), _DTYPE_CODES[q.dtype], b, s, h, kv_h, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            o.stride(0), o.stride(1), o.stride(2),
-            int(causal), 1.0 / d ** 0.5, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            "flash_fwd launch failed: "
-            + lib.flash_fwd_error_string(err).decode()
-        )
-    with _count_lock:
-        flash_attention.launches += 1
+        if design == "sm90":
+            lib, fn = _kernel_sm90(), "flash_fwd_sm90"
+            err = lib.flash_fwd_sm90(*ptrs, b, s, h, kv_h, d, *strides,
+                                     int(causal), 1.0 / d ** 0.5, stream)
+        else:
+            lib, fn = _kernel(), "flash_fwd"
+            err = lib.flash_fwd(*ptrs, _DTYPE_CODES[q.dtype], b, s, h, kv_h,
+                                d, *strides, int(causal), 1.0 / d ** 0.5,
+                                stream)
+    _raise_on(err, lib, fn)
+    _count(flash_attention, design)
     return o, lse
 
 
@@ -210,6 +290,18 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return d.permute(0, 2, 1).reshape(b * h, s, 1).contiguous()
 
 
+def _reference_scores(q, k, causal: bool) -> torch.Tensor:
+    """Scaled f32 scores ``[b, h, s_q, s_k]`` with the ``NEG_INF`` mask."""
+    b, s, h, d = q.shape
+    _, _, group = _gqa_layout(q, k)
+    kf = k.float().repeat_interleave(group, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / d ** 0.5)
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, NEG_INF)
+    return scores
+
+
 def _reference_p_ds(q, k, v, do, lse, delta, causal: bool):
     """P and dS ``[b, h, s_q, s_k]`` in f32, recomputed from the LSE as the
     kernels do, plus the f32 K/V repeated to the query heads."""
@@ -217,11 +309,7 @@ def _reference_p_ds(q, k, v, do, lse, delta, causal: bool):
     _, _, group = _gqa_layout(q, k)
     kf = k.float().repeat_interleave(group, dim=2)
     vf = v.float().repeat_interleave(group, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / d ** 0.5)
-    if causal:
-        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~keep, NEG_INF)
-    p = torch.exp(scores - lse.reshape(b, h, s, 1))
+    p = torch.exp(_reference_scores(q, k, causal) - lse.reshape(b, h, s, 1))
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
     ds = p * (dp - delta.reshape(b, h, s, 1))
     return p, ds, kf
@@ -260,7 +348,69 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=False):
     return dq, dk, dv
 
 
+# ------------------------------------------------------------- tolerances
+#
+# How far a kernel's result may lie from its plain version on the same
+# inputs, by the design :func:`_design` picks for them. In f32 (fma) the two
+# differ only in summation order: 1e-4 for O, 1e-4 max|ref| for dK and dV.
+# The fma kernels in bf16 keep P and dS in f32 and round each result once,
+# so they may differ by one bf16 ulp on top: 2^-7 |O_ref| + 1e-4 for O,
+# 2^-7 |ref| + 1e-4 max|ref| for dK and dV. The sm90 kernels round P (and
+# dS) to bf16 before the second product, as the TPU kernels do, where the
+# plain versions keep f32: each rounded term is off by at most 2^-9 of
+# itself, so the sum is off by at most 2^-9 of the sum of the terms'
+# magnitudes. With the final rounding to bf16 (2^-8 of the result) and room
+# for the f32 summation order, their bounds are, with P and dS the plain
+# version's f32 values and l the row sum:
+#   O:  2^-7 |O_ref| + 2^-8 (P |V|) / l + 1e-4 max|O_ref|
+#   dV: 2^-7 |dV_ref| + 2^-8 sum_q P |dO| + 1e-4 max|dV_ref|
+#   dK: 2^-7 |dK_ref| + 2^-8 scale sum_q |dS| |Q| + 1e-4 max|dK_ref|
+
+
+def forward_tolerance(q, k, v, o_ref, lse_ref, *, causal=False):
+    """The bound on ``|O - O_ref|`` per element, for K1's ``o`` against
+    :func:`flash_attention_reference`'s ``(o_ref, lse_ref)`` on the same
+    inputs, for the design that K1 takes for them (see the note above)."""
+    o_abs = o_ref.float().abs()
+    if q.dtype != torch.bfloat16:
+        return torch.full_like(o_abs, 1e-4)
+    b, s, h, d = q.shape
+    if _design(q.dtype, d) == "fma":
+        return 2.0 ** -7 * o_abs + 1e-4
+    _, _, group = _gqa_layout(q, k)
+    p = torch.exp(_reference_scores(q, k, causal)
+                  - lse_ref.reshape(b, h, s, 1))  # P / l
+    v_abs = v.float().abs().repeat_interleave(group, dim=2)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v_abs)
+    return 2.0 ** -7 * o_abs + 2.0 ** -8 * pv + 1e-4 * o_abs.max()
+
+
+def dkv_tolerance(q, k, v, do, lse, delta, dk_ref, dv_ref, *, causal=False):
+    """The bounds on ``|dK - dK_ref|`` and ``|dV - dV_ref|`` per element,
+    for K3's ``(dk, dv)`` against :func:`flash_attention_dkv_reference`'s
+    on the same inputs, for the design that K3 takes for them (see the note
+    above)."""
+    dk_abs, dv_abs = dk_ref.float().abs(), dv_ref.float().abs()
+    dk_floor = 1e-4 * dk_abs.max().item()
+    dv_floor = 1e-4 * dv_abs.max().item()
+    if q.dtype != torch.bfloat16:
+        return torch.full_like(dk_abs, dk_floor), torch.full_like(dv_abs,
+                                                                  dv_floor)
+    b, s, h, d = q.shape
+    if _design(q.dtype, d) == "fma":
+        return (2.0 ** -7 * dk_abs + dk_floor, 2.0 ** -7 * dv_abs + dv_floor)
+    _, kv_h, group = _gqa_layout(q, k)
+    p, ds, _ = _reference_p_ds(q, k, v, do, lse, delta, causal)
+    p_do = torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs())
+    ds_q = torch.einsum("bhqk,bqhd->bkhd", ds.abs(), q.float().abs())
+    p_do = p_do.reshape(b, s, kv_h, group, d).sum(3)
+    ds_q = ds_q.reshape(b, s, kv_h, group, d).sum(3) * (1.0 / d ** 0.5)
+    return (2.0 ** -7 * dk_abs + 2.0 ** -8 * ds_q + dk_floor,
+            2.0 ** -7 * dv_abs + 2.0 ** -8 * p_do + dv_floor)
+
+
 _bwd_lib: Optional[ctypes.CDLL] = None
+_dkv_sm90_lib: Optional[ctypes.CDLL] = None
 
 
 def _bwd_kernel() -> ctypes.CDLL:
@@ -284,10 +434,28 @@ def _bwd_kernel() -> ctypes.CDLL:
     return _bwd_lib
 
 
-def _bwd_args(q, k, v, do, lse, delta, outs):
+def _dkv_sm90_kernel() -> ctypes.CDLL:
+    """The built sm90 dK/dV library, with its C signature declared."""
+    global _dkv_sm90_lib
+    if _dkv_sm90_lib is None:
+        lib = _build.load("flash_bwd_dkv_sm90")
+        lib.flash_bwd_dkv_sm90.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 18
+            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.flash_bwd_dkv_sm90.restype = ctypes.c_int
+        lib.flash_bwd_dkv_sm90_error_string.argtypes = [ctypes.c_int]
+        lib.flash_bwd_dkv_sm90_error_string.restype = ctypes.c_char_p
+        _dkv_sm90_lib = lib
+    return _dkv_sm90_lib
+
+
+def _bwd_args(q, k, v, do, lse, delta, outs, design: str = "fma"):
     """Checks the backward's inputs as :func:`_launch` checks the forward's;
-    returns the unit-stride inputs, then the C interface's shape arguments
-    and the strides of the inputs and ``outs``, in its order."""
+    returns the inputs as the design reads them (unit-stride; for sm90 also
+    TMA-ready, with 16-byte aligned LSE and Delta), then the C interface's
+    shape arguments and the strides of the inputs and ``outs``, in its
+    order."""
     _check_kernel_inputs(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError("dO must match q in shape, dtype and device")
@@ -296,35 +464,42 @@ def _bwd_args(q, k, v, do, lse, delta, outs):
         if (t.dtype != torch.float32 or t.shape != (b * h, s, 1)
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"{name} must be contiguous f32 [b*h, s, 1]")
-    q, k, v, do = (x if x.stride(-1) == 1 else x.contiguous()
-                   for x in (q, k, v, do))
+    head = [b, s, h, k.shape[2], d]
+    if design == "sm90":
+        q, k, v, do = (_for_tma(x) for x in (q, k, v, do))
+        lse, delta = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (lse, delta))
+    else:
+        q, k, v, do = (x if x.stride(-1) == 1 else x.contiguous()
+                       for x in (q, k, v, do))
+        head = [_DTYPE_CODES[q.dtype], *head]
     strides = [st for x in (q, k, v, do, *outs) for st in x.stride()[:3]]
-    head = [_DTYPE_CODES[q.dtype], b, s, h, k.shape[2], d]
-    return (q, k, v, do), head, strides
+    return (q, k, v, do, lse, delta), head, strides
 
 
-def _bwd_call(fn_name: str, q, k, v, do, lse, delta, outs, causal: bool):
-    (q, k, v, do), head, strides = _bwd_args(q, k, v, do, lse, delta, outs)
-    lib = _bwd_kernel()
+def _bwd_call(fn_name: str, q, k, v, do, lse, delta, outs, causal: bool,
+              design: str = "fma") -> None:
+    """Checks the inputs, then builds (at first use) and launches ``fn_name``
+    of the design's library."""
+    inputs, head, strides = _bwd_args(q, k, v, do, lse, delta, outs, design)
+    if design == "sm90":
+        lib, error_string = _dkv_sm90_kernel(), None
+    else:
+        lib, error_string = _bwd_kernel(), "flash_bwd_error_string"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, fn_name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+            *(x.data_ptr() for x in inputs), *(o.data_ptr() for o in outs),
             *head, *strides, int(causal), 1.0 / q.shape[-1] ** 0.5, stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"{fn_name} launch failed: "
-            + lib.flash_bwd_error_string(err).decode()
-        )
+    _raise_on(err, lib, fn_name, error_string)
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, *, causal=False):
     """dQ (kernel K2) from the forward's LSE and ``Delta``: a CUDA tensor
     launches the kernel (or raises), a CPU tensor takes
     :func:`flash_attention_dq_reference`. ``flash_attention_dq.launches``
-    counts the kernel's launches."""
+    counts the kernel's launches (all of the ``fma`` design)."""
     if q.device.type == "cpu":
         return flash_attention_dq_reference(
             q, k, v, do, lse, delta, causal=causal
@@ -333,28 +508,28 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal=False):
         raise ValueError(f"flash attention runs on CUDA or CPU, not {q.device}")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_call("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal)
-    with _count_lock:
-        flash_attention_dq.launches += 1
+    _count(flash_attention_dq, "fma")
     return dq
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=False):
     """``(dk, dv)`` (kernel K3) at the K/V head count, each summed over the
     query heads of its group inside the kernel: a CUDA tensor launches the
-    kernel (or raises), a CPU tensor takes
+    kernel of its :func:`_design` (or raises), a CPU tensor takes
     :func:`flash_attention_dkv_reference`. ``flash_attention_dkv.launches``
-    counts the kernel's launches."""
+    counts the kernel's launches, ``.launches_by_design`` per design."""
     if q.device.type == "cpu":
         return flash_attention_dkv_reference(
             q, k, v, do, lse, delta, causal=causal
         )
     if not q.is_cuda:
         raise ValueError(f"flash attention runs on CUDA or CPU, not {q.device}")
+    design = _design(q.dtype, q.shape[-1])
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _bwd_call("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal)
-    with _count_lock:
-        flash_attention_dkv.launches += 1
+    fn_name = "flash_bwd_dkv_sm90" if design == "sm90" else "flash_bwd_dkv"
+    _bwd_call(fn_name, q, k, v, do, lse, delta, (dk, dv), causal, design)
+    _count(flash_attention_dkv, design)
     return dk, dv
 
 
@@ -405,11 +580,13 @@ def flash_attention(
     return flash_attention_fwd(q, k, v, causal=causal)[0]
 
 
-flash_attention.launches = 0
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+for _fn in (flash_attention, flash_attention_dq, flash_attention_dkv):
+    _fn.launches = 0
+    _fn.launches_by_design = dict.fromkeys(DESIGNS, 0)
+del _fn
 
 __all__ = [
+    "dkv_tolerance",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
@@ -419,4 +596,5 @@ __all__ = [
     "flash_attention_dq_reference",
     "flash_attention_fwd",
     "flash_attention_reference",
+    "forward_tolerance",
 ]

@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Serving times of the PyTorch port, compared between checkouts on one card.
+
+Run on a machine with a CUDA card::
+
+    python3 hack/torch_serving_ab.py ROOT_A ROOT_B ROOT_B ROOT_A
+
+Each ROOT is the root of a checkout of the repo (``.`` for this one). Every
+ROOT given is measured in a process of its own that imports
+``cron_operator_tpu_torch`` from that root only, in the order given: list
+them as A B B A so that a drift of the host or the card falls on both. Each
+process builds its root's kernels (not timed) and then measures the serving
+slice of ``chip_smoke.py`` (GPT-2 small, seed-0 bf16 weights, 8 prompts of
+512 tokens):
+
+- ``prefill_ms``: one prefill, CUDA events over 3 back-to-back calls;
+- ``decode_ms``: one decode step at cache position 512, over 20 calls;
+- ``k1_host_us``: the host's time to enqueue one ``flash_attention_fwd``
+  call at the prefill's attention shape (the strided ``qkv[:, :, i]``
+  views), over 200 calls;
+- ``tokens_per_s``: ``generate_job``'s own figure (3 rounds, rounds 2-3).
+
+The first three are medians over 9 repetitions; their minimum and maximum
+are printed too. Each process prints one JSON line; the last line holds,
+per root, the median of every metric over that root's processes.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPS = 9
+PARAMS = {
+    "size": "base", "seq_len": "1024", "batch_size": "8", "prompt_len": "512",
+    "max_new": "64", "rounds": "3", "temperature": "0", "seed": "0",
+}
+METRICS = ("prefill_ms", "decode_ms", "k1_host_us", "tokens_per_s")
+
+
+def _events_ms(torch, fn, iters: int):
+    """Per-call CUDA-event time of ``iters`` back-to-back calls, REPS times."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return times
+
+
+def _host_us(torch, fn, iters: int = 200):
+    """Per-call host time to enqueue ``iters`` calls, REPS times."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return times
+
+
+def measure(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import importlib
+
+    import torch
+
+    import cron_operator_tpu_torch
+    from cron_operator_tpu_torch.backends.registry import JobContext
+    from cron_operator_tpu_torch.models import GPT, GPTConfig
+    from cron_operator_tpu_torch.ops import _build
+    from cron_operator_tpu_torch.workloads.entrypoints import generate_job
+
+    pkg_root = Path(cron_operator_tpu_torch.__file__).resolve().parents[1]
+    if pkg_root != root:
+        raise SystemExit(f"imported the port from {pkg_root}, not {root}")
+    # the module, not the function of the same name that ops/__init__ exports
+    fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
+    _build.build_all()
+
+    out = {"root": str(root)}
+    cfg = GPTConfig(max_len=1024)
+    model = GPT(cfg, device="cuda", param_dtype=cfg.dtype)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen,
+                           device="cuda")
+    with torch.inference_mode():
+        cache = model.new_cache(8)
+        series = {"prefill_ms": _events_ms(
+            torch, lambda: model.prefill(prompt, cache), iters=3)}
+        token = prompt[:, -1:]
+
+        def decode_step():
+            cache.pos = 512  # every timed step decodes at one position
+            model.decode(token, cache)
+
+        series["decode_ms"] = _events_ms(torch, decode_step, iters=20)
+    qkv = torch.randn(8, 512, 3, 12, 64, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    series["k1_host_us"] = _host_us(
+        torch, lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    for name, values in series.items():
+        out[name] = statistics.median(values)
+        out[name + "_min_max"] = [min(values), max(values)]
+    del model, cache, qkv, q, k, v
+    torch.cuda.empty_cache()
+
+    ctx = JobContext("serving-ab", "default", {}, dict(PARAMS))
+    generate_job(ctx)
+    out["tokens_per_s"] = ctx.progress["tokens_per_s"]
+    return out
+
+
+def main(argv) -> int:
+    if len(argv) >= 2 and argv[0] == "--measure":
+        print(json.dumps(measure(Path(argv[1]).resolve())), flush=True)
+        return 0
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    runs = []
+    for root in argv:
+        root = Path(root).resolve()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--measure",
+             str(root)],
+            cwd=root, capture_output=True, text=True, timeout=900,
+        )
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        line = proc.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        runs.append(json.loads(line))
+    summary = {}
+    for run in runs:
+        summary.setdefault(run["root"], []).append(run)
+    print(json.dumps({root: {m: statistics.median(r[m] for r in rs)
+                             for m in METRICS}
+                      for root, rs in summary.items()}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

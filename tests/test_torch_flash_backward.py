@@ -6,8 +6,12 @@ They are held against the JAX package's ``_flash_bwd`` on the same
 residuals and against ``jax.grad`` through its ``flash_attention`` in
 interpret mode, at ``1e-4 * max|ref|`` per gradient (f32 summation order,
 as ``tests/test_ops.py`` bounds the JAX kernels against dense attention).
-The CUDA kernels themselves are held against the plain versions in
-``test_torch_flash_bwd_kernel_cuda.py``, which needs the card.
+The JAX package's kernels run with bf16 inputs, which round P and dS to
+bf16 as the port's sm90 K3 does, give dK and dV within ``dkv_tolerance`` of
+the port's f32 plain version on the same residuals: that pins the bound the
+card tests hold K3 to. The CUDA kernels themselves are held against the
+plain versions in ``test_torch_flash_bwd_kernel_cuda.py``, which needs the
+card.
 """
 
 import importlib
@@ -99,6 +103,70 @@ def test_autograd_matches_jax_grad(s, block, causal, kv_h):
     got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
     for g, r in zip(got, ref):
         _assert_close(g, r)
+
+
+def _bf16_case(d, kv_h, causal):
+    """dK and dV of the JAX kernels in bf16 and of the port's f32 plain
+    version on the same residuals (the bf16 Q, K, V, dO, O and the f32 LSE
+    of the JAX forward), with the bounds of ``dkv_tolerance``."""
+    arrays = _inputs(d * 10 + kv_h, 256, kv_h, d=d, b=1)
+    q, k, v, do = (jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays)
+    o, lse = _jax_fwd(q, k, v, causal, 128, 128, True)
+    _, dk_j, dv_j = _jax_bwd(causal, 128, 128, True, (q, k, v, o, lse), do)
+    qt, kt, vt, dot, ot, lse_t = _torch(
+        *(x.astype(jnp.float32) for x in (q, k, v, do, o)), lse)
+    delta = fa._delta(ot, dot)
+    refs = fa.flash_attention_dkv_reference(qt, kt, vt, dot, lse_t, delta,
+                                            causal=causal)
+    bounds = fa.dkv_tolerance(qt.bfloat16(), kt.bfloat16(), vt.bfloat16(),
+                              dot.bfloat16(), lse_t, delta, *refs,
+                              causal=causal)
+    got = _torch(*(x.astype(jnp.float32) for x in (dk_j, dv_j)))
+    return got, refs, bounds
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kv_h", [4, 2, 1])  # groups 1, 2, 4
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_kernels_within_dkv_bound(d, kv_h, causal):
+    got, refs, bounds = _bf16_case(d, kv_h, causal)
+    for g, r, bound in zip(got, refs, bounds):
+        assert bool(((g - r).abs() <= bound).all())
+
+
+def test_dkv_one_ulp_is_not_enough():
+    """Rounding P and dS to bf16 moves dK by more than one bf16 ulp of
+    itself somewhere, which is why the bound has its 2^-8 terms."""
+    (dk, _), (dk_ref, _), _ = _bf16_case(64, 4, False)
+    one_ulp = 2.0 ** -7 * dk_ref.abs() + 1e-4 * dk_ref.abs().max()
+    assert not bool(((dk - dk_ref).abs() <= one_ulp).all())
+
+
+def test_f32_dkv_bound_is_summation_order():
+    q, k, v, do = _torch(*_inputs(4, 128, 2))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa._delta(o, do)
+    refs = fa.flash_attention_dkv_reference(q, k, v, do, lse, delta,
+                                            causal=True)
+    for ref, bound in zip(refs, fa.dkv_tolerance(q, k, v, do, lse, delta,
+                                                 *refs, causal=True)):
+        assert torch.equal(bound, torch.full_like(
+            ref, 1e-4 * ref.abs().max().item()))
+
+
+@pytest.mark.parametrize("d", [32, 256])
+def test_fma_bf16_dkv_bound_is_one_ulp(d):
+    """The fma design keeps P and dS in f32 and rounds dK and dV once: its
+    bf16 bound stays one bf16 ulp, with none of the sm90 design's terms."""
+    q, k, v, do = (t.bfloat16() for t in _torch(*_inputs(5, 128, 2, d=d)))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa._delta(o, do)
+    refs = fa.flash_attention_dkv_reference(q, k, v, do, lse, delta,
+                                            causal=True)
+    for ref, bound in zip(refs, fa.dkv_tolerance(q, k, v, do, lse, delta,
+                                                 *refs, causal=True)):
+        ref = ref.float().abs()
+        assert torch.equal(bound, 2.0 ** -7 * ref + 1e-4 * ref.max().item())
 
 
 def test_gradients_under_checkpoint():

@@ -7,10 +7,13 @@ installed: ``python -m pytest --noconftest -m cuda
 tests/test_torch_flash_bwd_kernel_cuda.py``.
 
 Tolerances: in f32 the two sides differ only in summation order,
-``1e-4 * max|ref|``; in bf16 both accumulate in f32 and round once, so an
-element may differ by one bf16 ulp on top: ``2^-7 |ref| + 1e-4 * max|ref|``.
+``1e-4 * max|ref|``. In bf16, dQ (K2, which keeps dS in f32) may differ by
+one bf16 ulp on top: ``2^-7 |ref| + 1e-4 * max|ref|``; dK and dV take the
+bound of ``fa.dkv_tolerance``, since K3's sm90 design rounds P and dS to
+bf16 before its products, as the TPU kernel does.
 """
 
+import faulthandler
 import importlib
 
 import numpy as np
@@ -19,12 +22,19 @@ import torch
 
 fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
 
+# Seconds one test may take, the kernels' first build included. A kernel
+# that never finishes (an mbarrier phase error) would hang the session: the
+# watchdog prints every thread's stack and ends the process instead.
+CASE_TIMEOUT_S = 300
+
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return torch.device("cuda")
+    faulthandler.dump_traceback_later(CASE_TIMEOUT_S, exit=True)
+    yield torch.device("cuda")
+    faulthandler.cancel_dump_traceback_later()
 
 
 def _inputs(seed, b, s, h, kv_h, d, device, dtype):
@@ -47,6 +57,21 @@ def _assert_close(got, ref):
         assert diff.max().item() <= floor
 
 
+def _assert_grads_close(q, k, v, do, lse, delta, causal, dq, dk, dv):
+    dq_ref = fa.flash_attention_dq_reference(q, k, v, do, lse, delta,
+                                             causal=causal)
+    dk_ref, dv_ref = fa.flash_attention_dkv_reference(q, k, v, do, lse, delta,
+                                                      causal=causal)
+    for got, ref, x in zip((dq, dk, dv), (dq_ref, dk_ref, dv_ref), (q, k, v)):
+        assert got.shape == x.shape and got.dtype == x.dtype
+        assert bool(torch.isfinite(got.float()).all())
+    _assert_close(dq, dq_ref)
+    bounds = fa.dkv_tolerance(q, k, v, do, lse, delta, dk_ref, dv_ref,
+                              causal=causal)
+    for got, ref, bound in zip((dk, dv), (dk_ref, dv_ref), bounds):
+        assert bool(((got.float() - ref.float()).abs() <= bound).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
@@ -60,13 +85,57 @@ def test_kernels_match_plain(cuda_device, dtype, causal, kv_h, d):
     torch.cuda.synchronize()
     assert (fa.flash_attention_dq.launches,
             fa.flash_attention_dkv.launches) == (before[0] + 1, before[1] + 1)
-    refs = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
-    for got, ref, x in zip(grads, refs, (q, k, v)):
-        assert got.shape == x.shape and got.dtype == x.dtype
-        _assert_close(got, ref)
+    _assert_grads_close(q, k, v, do, lse, fa._delta(o, do), causal, *grads)
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     for a, b in zip(grads, again):
         assert torch.equal(a, b)  # no atomics: bit-identical run to run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 192, 1024])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kv_h", [4, 2, 1])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_dkv_matches_plain(cuda_device, d, kv_h, causal, s):
+    """K3's bf16 wgmma/TMA design, GQA groups 1/2/4, bit-identical reruns."""
+    q, k, v, do = _inputs(13, 2, s, 4, kv_h, d, cuda_device, torch.bfloat16)
+    block = 64 if s % 128 else None
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, block_q=block,
+                                    block_k=block)
+    delta = fa._delta(o, do)
+    before = fa.flash_attention_dkv.launches_by_design["sm90"]
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal=causal)
+    dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_dkv.launches_by_design["sm90"] == before + 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, causal=causal)
+    _assert_grads_close(q, k, v, do, lse, delta, causal, dq, dk, dv)
+
+
+@pytest.mark.cuda
+def test_sm90_dkv_through_strided_and_misaligned_inputs(cuda_device):
+    """Strided ``qkv[:, :, i]`` views go to TMA as they are; a dO whose base
+    TMA cannot take is copied; both still run the sm90 kernel and give the
+    contiguous inputs' grads."""
+    qkv = torch.randn(2, 256, 3, 4, 64, device=cuda_device,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(2, 256, 4, 64, device=cuda_device, dtype=torch.bfloat16)
+    buf = torch.empty(do.numel() + 1, device=cuda_device, dtype=do.dtype)
+    do_off = buf[1:].view(do.shape)
+    do_off.copy_(do)
+    assert not fa._tma_ready(do_off)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa._delta(o, do)
+    counts = dict(fa.flash_attention_dkv.launches_by_design)
+    got = fa.flash_attention_dkv(q, k, v, do_off, lse, delta, causal=True)
+    ref = fa.flash_attention_dkv(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), do, lse, delta, causal=True)
+    assert fa.flash_attention_dkv.launches_by_design == {
+        "sm90": counts["sm90"] + 2, "fma": counts["fma"]}
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
