@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    over bf16/f32, causal or not, head_dim 64/128 (plus 32 and 256 for the
    backward), GQA groups 1/2/4, seq 128/512/2048, so over both kernel
    designs (``sm90`` for bf16 at d 64/128, ``fma`` for the rest), within
-   the bounds of ``forward_tolerance`` and ``dkv_tolerance``; a second
+   the bounds of ``forward_tolerance``, ``dq_tolerance`` and
+   ``dkv_tolerance``; a second
    backward run must be bit-identical, and the backward's peak memory must
    grow about linearly from seq 2048 to 8192.
 3. The serving slice at GPT-2 small width: ``generate_job`` through a job
@@ -33,7 +34,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    medians).
 5. The training slice at GPT-2 small width: ``gpt`` through a job context
    (b 8, s 1024, 10 steps), every kernel count set to 0 just before and
-   read just after (K1 and K3 all sm90, K2 all fma); then three steps on
+   read just after (K1, K2 and K3 all sm90); then three steps on
    the kernel path against the plain-attention path from the same f32
    weights, both measured against an f32 run.
 6. Training times: K1, K2 and K3 per launch at the slice's shape (device
@@ -228,11 +229,11 @@ def check_bwd(torch, fa, name: str, q, k, v, do, causal: bool):
     """Runs K2 and K3 twice and their plain versions once on the same card
     tensors; fails unless the two runs are bit-identical and agree with the
     plain versions: in f32 within 1e-4 max|ref| (summation order); in bf16
-    dQ within 2^-7 |ref| + 1e-4 max|ref| per element (K2 keeps dS in f32
-    and rounds once), dK and dV within ``dkv_tolerance`` for the design
-    that runs (K3's sm90 design rounds P and dS to bf16, as the TPU kernel
-    does; its fma design rounds once). Returns (max|d dQ|, max|d dK, d
-    dV|)."""
+    dQ within ``dq_tolerance`` and dK and dV within ``dkv_tolerance`` for
+    the design that runs (the sm90 designs round dS, and in K3 P, to bf16,
+    as the TPU kernels do; the fma design keeps them in f32 and rounds each
+    grad once: 2^-7 |ref| + 1e-4 max|ref|). Returns (max|d dQ|, max|d dK,
+    d dV|)."""
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     delta = fa._delta(o, do)
     runs = []
@@ -248,19 +249,15 @@ def check_bwd(torch, fa, name: str, q, k, v, do, causal: bool):
             *fa.flash_attention_dkv_reference(q, k, v, do, lse, delta,
                                               causal=causal))
     errs = []
-    dkv_bounds = fa.dkv_tolerance(q, k, v, do, lse, delta, *refs[1:],
-                                  causal=causal)
-    for grad, got, ref, dkv_bound in zip(("dQ", "dK", "dV"), runs[0], refs,
-                                         (None, *dkv_bounds)):
+    bounds = (fa.dq_tolerance(q, k, v, do, lse, delta, refs[0],
+                              causal=causal),
+              *fa.dkv_tolerance(q, k, v, do, lse, delta, *refs[1:],
+                                causal=causal))
+    for grad, got, ref, bound in zip(("dQ", "dK", "dV"), runs[0], refs,
+                                     bounds):
         ref = ref.float()
         diff = (got.float() - ref).abs()
         floor = 1e-4 * ref.abs().max().item()
-        if dkv_bound is not None:
-            bound = dkv_bound
-        elif q.dtype == torch.bfloat16:
-            bound = 2.0 ** -7 * ref.abs() + floor
-        else:
-            bound = torch.full_like(diff, floor)
         if not (bool(torch.isfinite(got.float()).all())
                 and bool((diff <= bound).all())):
             fail(f"{name}: {grad} disagrees with the plain version "
@@ -293,7 +290,8 @@ def phase_bwd_vs_plain(torch, fa) -> None:
                   f"d={d} group={group} s={s}",
                   *inputs(b, s, h, h // group, d, dtype), causal)
     print(f"backward kernels vs plain: {len(cases)} cases agree, each "
-          "bit-identical on a second run; K3 launches by design "
+          "bit-identical on a second run; launches by design: K2 "
+          f"{fa.flash_attention_dq.launches_by_design}, K3 "
           f"{fa.flash_attention_dkv.launches_by_design}", flush=True)
 
     # Peak memory of the backward at b*h fixed: O(s) (the outputs and
@@ -548,12 +546,12 @@ def phase_train(torch, fa):
     progress = {k: v for k, v in ctx.progress.items() if k != "step_timeline"}
     print(f"train: gpt in {wall:.2f} s, progress {progress}")
     print(f"train: launches K1/K2/K3 {counts} (expected 12 x {steps} each), "
-          f"by design {designs} (K1, K3 sm90; K2 fma)", flush=True)
+          f"by design {designs} (all sm90)", flush=True)
     if counts != (12 * steps,) * 3:
         fail(f"flash kernels launched {counts} times on the training path, "
              f"not {12 * steps} each")
     for name, n, by_design, design in zip(("K1", "K2", "K3"), counts,
-                                          designs, ("sm90", "fma", "sm90")):
+                                          designs, ("sm90",) * 3):
         if by_design[design] != n:
             fail(f"{name} launches on the training path by design "
                  f"{by_design}: not all {design}")
@@ -737,7 +735,7 @@ CSRC = "cron_operator_tpu_torch/ops/csrc/"
 KERNEL_ROWS = {
     "K1": ("flash_attention_fwd", "sm90", CSRC + "flash_fwd_sm90.cu",
            "cron_operator_tpu/ops/flash_attention.py:72"),
-    "K2": ("flash_attention_dq", "fma", CSRC + "flash_bwd.cu",
+    "K2": ("flash_attention_dq", "sm90", CSRC + "flash_bwd_dq_sm90.cu",
            "cron_operator_tpu/ops/flash_attention.py:138"),
     "K3": ("flash_attention_dkv", "sm90", CSRC + "flash_bwd_dkv_sm90.cu",
            "cron_operator_tpu/ops/flash_attention.py:192"),

@@ -34,9 +34,11 @@
 //   bit-identical to the next run's.
 // The TPU kernels' sequential innermost grid axis becomes the block's loop.
 //
-// This first version does the products with f32 FMAs on tiles held as f32 in
-// shared memory (no tensor cores), as the forward does. It is right and
-// simple; wgmma/TMA is later work.
+// This design does the products with f32 FMAs on tiles held as f32 in
+// shared memory (no tensor cores), as `flash_fwd.cu` does. It serves f32 and
+// head dims 32 and 256; bf16 at head dims 64 and 128 runs the Hopper designs
+// `flash_bwd_dq_sm90.cu` (K2) and `flash_bwd_dkv_sm90.cu` (K3), bf16 wgmma
+// tiles fed by TMA.
 //
 // Tiles: 64 rows for head dims 32 to 128 and 32 rows at d 256, where four
 // padded f32 tiles of 64 rows would need 263 KB of shared memory, above the

@@ -5,21 +5,23 @@ The kernels replace the JAX package's three Pallas kernels in
 ``cron_operator_tpu/ops/flash_attention.py``: K1 ``_flash_kernel``, the
 online-softmax forward, and the backward pair K2 ``_bwd_dq_kernel`` (dQ) and
 K3 ``_bwd_dkv_kernel`` (dK, dV). The s x s score matrix never reaches HBM in
-either direction. K1 and K3 come in two designs, chosen by :func:`_design`
+either direction. Each kernel comes in two designs, chosen by :func:`_design`
 from the dtype and head dim before anything launches:
 
 - ``sm90``, for bf16 at head dim 64 or 128: bf16 ``wgmma`` tiles fed by TMA
   through a ring of mbarrier-guarded stages (``csrc/flash_fwd_sm90.cu``,
-  ``csrc/flash_bwd_dkv_sm90.cu``, helpers in ``csrc/sm90.cuh``). They round P
-  (and, in K3, dS) to bf16 before the second product, as the TPU kernels do.
+  ``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``, helpers in
+  ``csrc/sm90.cuh``). They round P (K1, K3) and dS (K2, K3) to bf16 before
+  the product that takes it, as the TPU kernels do.
 - ``fma``, for f32 and head dims 32 and 256: f32 FMAs on f32 shared-memory
   tiles (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), which keep P and dS
-  in f32. K2 has only this design.
+  in f32.
 
 The source files' headers state each kernel's bound and design. Every
 wrapper counts its launches (``.launches``) and its launches per design
-(``.launches_by_design``). :func:`forward_tolerance` and
-:func:`dkv_tolerance` state how far a kernel may lie from the plain version.
+(``.launches_by_design``). :func:`forward_tolerance`,
+:func:`dq_tolerance` and :func:`dkv_tolerance` state how far a kernel may lie
+from the plain version.
 
 :func:`flash_attention_fwd`, :func:`flash_attention_dq` and
 :func:`flash_attention_dkv` launch their kernel for a CUDA tensor and run the
@@ -48,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -121,7 +123,7 @@ def flash_attention_reference(
 
 
 def _design(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel design K1 and K3 take: ``"sm90"`` (bf16 wgmma tiles fed by
+    """The kernel design K1, K2 and K3 take: ``"sm90"`` (bf16 wgmma tiles fed by
     TMA) for bf16 at head dim 64 or 128, ``"fma"`` for everything else the
     kernels accept. The route follows from dtype and head dim alone; no
     launch is ever retried on the other design."""
@@ -352,17 +354,18 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=False):
 #
 # How far a kernel's result may lie from its plain version on the same
 # inputs, by the design :func:`_design` picks for them. In f32 (fma) the two
-# differ only in summation order: 1e-4 for O, 1e-4 max|ref| for dK and dV.
-# The fma kernels in bf16 keep P and dS in f32 and round each result once,
-# so they may differ by one bf16 ulp on top: 2^-7 |O_ref| + 1e-4 for O,
-# 2^-7 |ref| + 1e-4 max|ref| for dK and dV. The sm90 kernels round P (and
-# dS) to bf16 before the second product, as the TPU kernels do, where the
-# plain versions keep f32: each rounded term is off by at most 2^-9 of
+# differ only in summation order: 1e-4 for O, 1e-4 max|ref| for dQ, dK and
+# dV. The fma kernels in bf16 keep P and dS in f32 and round each result
+# once, so they may differ by one bf16 ulp on top: 2^-7 |O_ref| + 1e-4 for
+# O, 2^-7 |ref| + 1e-4 max|ref| for dQ, dK and dV. The sm90 kernels round P
+# (and dS) to bf16 before the second product, as the TPU kernels do, where
+# the plain versions keep f32: each rounded term is off by at most 2^-9 of
 # itself, so the sum is off by at most 2^-9 of the sum of the terms'
 # magnitudes. With the final rounding to bf16 (2^-8 of the result) and room
 # for the f32 summation order, their bounds are, with P and dS the plain
 # version's f32 values and l the row sum:
 #   O:  2^-7 |O_ref| + 2^-8 (P |V|) / l + 1e-4 max|O_ref|
+#   dQ: 2^-7 |dQ_ref| + 2^-8 scale sum_k |dS| |K| + 1e-4 max|dQ_ref|
 #   dV: 2^-7 |dV_ref| + 2^-8 sum_q P |dO| + 1e-4 max|dV_ref|
 #   dK: 2^-7 |dK_ref| + 2^-8 scale sum_q |dS| |Q| + 1e-4 max|dK_ref|
 
@@ -383,6 +386,22 @@ def forward_tolerance(q, k, v, o_ref, lse_ref, *, causal=False):
     v_abs = v.float().abs().repeat_interleave(group, dim=2)
     pv = torch.einsum("bhqk,bkhd->bqhd", p, v_abs)
     return 2.0 ** -7 * o_abs + 2.0 ** -8 * pv + 1e-4 * o_abs.max()
+
+
+def dq_tolerance(q, k, v, do, lse, delta, dq_ref, *, causal=False):
+    """The bound on ``|dQ - dQ_ref|`` per element, for K2's ``dq`` against
+    :func:`flash_attention_dq_reference`'s on the same inputs, for the
+    design that K2 takes for them (see the note above)."""
+    dq_abs = dq_ref.float().abs()
+    floor = 1e-4 * dq_abs.max().item()
+    if q.dtype != torch.bfloat16:
+        return torch.full_like(dq_abs, floor)
+    d = q.shape[-1]
+    if _design(q.dtype, d) == "fma":
+        return 2.0 ** -7 * dq_abs + floor
+    _, ds, kf = _reference_p_ds(q, k, v, do, lse, delta, causal)
+    ds_k = torch.einsum("bhqk,bkhd->bqhd", ds.abs(), kf.abs()) * (1.0 / d ** 0.5)
+    return 2.0 ** -7 * dq_abs + 2.0 ** -8 * ds_k + floor
 
 
 def dkv_tolerance(q, k, v, do, lse, delta, dk_ref, dv_ref, *, causal=False):
@@ -410,7 +429,9 @@ def dkv_tolerance(q, k, v, do, lse, delta, dk_ref, dv_ref, *, causal=False):
 
 
 _bwd_lib: Optional[ctypes.CDLL] = None
-_dkv_sm90_lib: Optional[ctypes.CDLL] = None
+_bwd_sm90_libs: Dict[str, ctypes.CDLL] = {}
+# pointer arguments of each sm90 backward kernel's C function
+_SM90_BWD_POINTERS = {"dq": 7, "dkv": 8}
 
 
 def _bwd_kernel() -> ctypes.CDLL:
@@ -434,20 +455,27 @@ def _bwd_kernel() -> ctypes.CDLL:
     return _bwd_lib
 
 
-def _dkv_sm90_kernel() -> ctypes.CDLL:
-    """The built sm90 dK/dV library, with its C signature declared."""
-    global _dkv_sm90_lib
-    if _dkv_sm90_lib is None:
-        lib = _build.load("flash_bwd_dkv_sm90")
-        lib.flash_bwd_dkv_sm90.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 18
+def _bwd_sm90_kernel(kernel: str) -> ctypes.CDLL:
+    """The built sm90 library of backward kernel ``kernel`` (``"dq"``: K2,
+    ``csrc/flash_bwd_dq_sm90.cu``; ``"dkv"``: K3), with the C signature of
+    its function declared: the pointers, ``b, s, h, kv_h, d``, three strides
+    for each pointer but LSE and Delta, ``causal``, ``scale``, the stream."""
+    lib = _bwd_sm90_libs.get(kernel)
+    if lib is None:
+        name, n_ptrs = f"flash_bwd_{kernel}_sm90", _SM90_BWD_POINTERS[kernel]
+        lib = _build.load(name)
+        fn = getattr(lib, name)
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
+            + [ctypes.c_int64] * (3 * (n_ptrs - 2))
             + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         )
-        lib.flash_bwd_dkv_sm90.restype = ctypes.c_int
-        lib.flash_bwd_dkv_sm90_error_string.argtypes = [ctypes.c_int]
-        lib.flash_bwd_dkv_sm90_error_string.restype = ctypes.c_char_p
-        _dkv_sm90_lib = lib
-    return _dkv_sm90_lib
+        fn.restype = ctypes.c_int
+        err_fn = getattr(lib, f"{name}_error_string")
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+        _bwd_sm90_libs[kernel] = lib
+    return lib
 
 
 def _bwd_args(q, k, v, do, lse, delta, outs, design: str = "fma"):
@@ -477,14 +505,17 @@ def _bwd_args(q, k, v, do, lse, delta, outs, design: str = "fma"):
     return (q, k, v, do, lse, delta), head, strides
 
 
-def _bwd_call(fn_name: str, q, k, v, do, lse, delta, outs, causal: bool,
-              design: str = "fma") -> None:
-    """Checks the inputs, then builds (at first use) and launches ``fn_name``
-    of the design's library."""
+def _bwd_call(kernel: str, q, k, v, do, lse, delta, outs, causal: bool,
+              design: str) -> None:
+    """Checks the inputs, then builds (at first use) and launches backward
+    kernel ``kernel`` (``"dq"``: K2, ``"dkv"``: K3) of the design's
+    library."""
     inputs, head, strides = _bwd_args(q, k, v, do, lse, delta, outs, design)
     if design == "sm90":
-        lib, error_string = _dkv_sm90_kernel(), None
+        fn_name = f"flash_bwd_{kernel}_sm90"
+        lib, error_string = _bwd_sm90_kernel(kernel), None
     else:
+        fn_name = f"flash_bwd_{kernel}"
         lib, error_string = _bwd_kernel(), "flash_bwd_error_string"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -495,21 +526,39 @@ def _bwd_call(fn_name: str, q, k, v, do, lse, delta, outs, causal: bool,
     _raise_on(err, lib, fn_name, error_string)
 
 
+def _launch_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
+    """K2 on the card, in the design of :func:`_design`."""
+    design = _design(q.dtype, q.shape[-1])
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_call("dq", q, k, v, do, lse, delta, (dq,), causal, design)
+    _count(flash_attention_dq, design)
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta,
+                causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on the card, in the design of :func:`_design`."""
+    design = _design(q.dtype, q.shape[-1])
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_call("dkv", q, k, v, do, lse, delta, (dk, dv), causal, design)
+    _count(flash_attention_dkv, design)
+    return dk, dv
+
+
 def flash_attention_dq(q, k, v, do, lse, delta, *, causal=False):
     """dQ (kernel K2) from the forward's LSE and ``Delta``: a CUDA tensor
-    launches the kernel (or raises), a CPU tensor takes
-    :func:`flash_attention_dq_reference`. ``flash_attention_dq.launches``
-    counts the kernel's launches (all of the ``fma`` design)."""
+    launches the kernel of its :func:`_design` (or raises), a CPU tensor
+    takes :func:`flash_attention_dq_reference`.
+    ``flash_attention_dq.launches`` counts the kernel's launches,
+    ``.launches_by_design`` per design."""
     if q.device.type == "cpu":
         return flash_attention_dq_reference(
             q, k, v, do, lse, delta, causal=causal
         )
     if not q.is_cuda:
         raise ValueError(f"flash attention runs on CUDA or CPU, not {q.device}")
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_call("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal)
-    _count(flash_attention_dq, "fma")
-    return dq
+    return _launch_dq(q, k, v, do, lse, delta, causal)
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=False):
@@ -524,13 +573,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=False):
         )
     if not q.is_cuda:
         raise ValueError(f"flash attention runs on CUDA or CPU, not {q.device}")
-    design = _design(q.dtype, q.shape[-1])
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    fn_name = "flash_bwd_dkv_sm90" if design == "sm90" else "flash_bwd_dkv"
-    _bwd_call(fn_name, q, k, v, do, lse, delta, (dk, dv), causal, design)
-    _count(flash_attention_dkv, design)
-    return dk, dv
+    return _launch_dkv(q, k, v, do, lse, delta, causal)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False):
@@ -587,6 +630,7 @@ del _fn
 
 __all__ = [
     "dkv_tolerance",
+    "dq_tolerance",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",

@@ -130,19 +130,22 @@ def measure(root: Path) -> dict:
     return out
 
 
-def main(argv) -> int:
+def compare(argv, script: Path, measure, metrics, doc: str) -> int:
+    """``script``'s command line: ``--measure ROOT`` measures one root in
+    this process with ``measure``; a list of roots runs ``script`` once for
+    each, in order, each in its own process, and prints every process's
+    JSON line, then per root the median of every metric in ``metrics``."""
     if len(argv) >= 2 and argv[0] == "--measure":
         print(json.dumps(measure(Path(argv[1]).resolve())), flush=True)
         return 0
     if not argv:
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     runs = []
     for root in argv:
         root = Path(root).resolve()
         proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--measure",
-             str(root)],
+            [sys.executable, str(script), "--measure", str(root)],
             cwd=root, capture_output=True, text=True, timeout=900,
         )
         if proc.returncode != 0:
@@ -155,9 +158,13 @@ def main(argv) -> int:
     for run in runs:
         summary.setdefault(run["root"], []).append(run)
     print(json.dumps({root: {m: statistics.median(r[m] for r in rs)
-                             for m in METRICS}
+                             for m in metrics}
                       for root, rs in summary.items()}))
     return 0
+
+
+def main(argv) -> int:
+    return compare(argv, Path(__file__).resolve(), measure, METRICS, __doc__)
 
 
 if __name__ == "__main__":

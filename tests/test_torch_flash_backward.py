@@ -14,6 +14,7 @@ plain versions in ``test_torch_flash_bwd_kernel_cuda.py``, which needs the
 card.
 """
 
+import functools
 import importlib
 
 import jax
@@ -105,24 +106,45 @@ def test_autograd_matches_jax_grad(s, block, causal, kv_h):
         _assert_close(g, r)
 
 
+@functools.lru_cache(maxsize=None)
+def _bf16_jax(d, kv_h, causal):
+    """The JAX kernels' forward and backward in bf16 (interpret mode): the
+    residuals as f32 torch tensors (the bf16 Q, K, V, dO, O and the f32
+    LSE), ``Delta`` from them, and the JAX ``(dq, dk, dv)`` as f32."""
+    arrays = _inputs(d * 10 + kv_h, 256, kv_h, d=d, b=1)
+    q, k, v, do = (jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays)
+    o, lse = _jax_fwd(q, k, v, causal, 128, 128, True)
+    grads = _jax_bwd(causal, 128, 128, True, (q, k, v, o, lse), do)
+    qt, kt, vt, dot, ot, lse_t = _torch(
+        *(x.astype(jnp.float32) for x in (q, k, v, do, o)), lse)
+    delta = fa._delta(ot, dot)
+    got = _torch(*(x.astype(jnp.float32) for x in grads))
+    return (qt, kt, vt, dot, lse_t, delta), got
+
+
 def _bf16_case(d, kv_h, causal):
     """dK and dV of the JAX kernels in bf16 and of the port's f32 plain
     version on the same residuals (the bf16 Q, K, V, dO, O and the f32 LSE
     of the JAX forward), with the bounds of ``dkv_tolerance``."""
-    arrays = _inputs(d * 10 + kv_h, 256, kv_h, d=d, b=1)
-    q, k, v, do = (jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays)
-    o, lse = _jax_fwd(q, k, v, causal, 128, 128, True)
-    _, dk_j, dv_j = _jax_bwd(causal, 128, 128, True, (q, k, v, o, lse), do)
-    qt, kt, vt, dot, ot, lse_t = _torch(
-        *(x.astype(jnp.float32) for x in (q, k, v, do, o)), lse)
-    delta = fa._delta(ot, dot)
+    (qt, kt, vt, dot, lse_t, delta), (_, dk_j, dv_j) = _bf16_jax(d, kv_h,
+                                                                 causal)
     refs = fa.flash_attention_dkv_reference(qt, kt, vt, dot, lse_t, delta,
                                             causal=causal)
     bounds = fa.dkv_tolerance(qt.bfloat16(), kt.bfloat16(), vt.bfloat16(),
                               dot.bfloat16(), lse_t, delta, *refs,
                               causal=causal)
-    got = _torch(*(x.astype(jnp.float32) for x in (dk_j, dv_j)))
-    return got, refs, bounds
+    return (dk_j, dv_j), refs, bounds
+
+
+def _bf16_dq_case(d, kv_h, causal):
+    """dQ of the JAX kernel K2 in bf16 and of the port's f32 plain version
+    on the same residuals, with the bound of ``dq_tolerance``."""
+    (qt, kt, vt, dot, lse_t, delta), (dq_j, _, _) = _bf16_jax(d, kv_h, causal)
+    ref = fa.flash_attention_dq_reference(qt, kt, vt, dot, lse_t, delta,
+                                          causal=causal)
+    bound = fa.dq_tolerance(qt.bfloat16(), kt.bfloat16(), vt.bfloat16(),
+                            dot.bfloat16(), lse_t, delta, ref, causal=causal)
+    return dq_j, ref, bound
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -140,6 +162,51 @@ def test_dkv_one_ulp_is_not_enough():
     (dk, _), (dk_ref, _), _ = _bf16_case(64, 4, False)
     one_ulp = 2.0 ** -7 * dk_ref.abs() + 1e-4 * dk_ref.abs().max()
     assert not bool(((dk - dk_ref).abs() <= one_ulp).all())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kv_h", [4, 2, 1])  # groups 1, 2, 4
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_kernels_within_dq_bound(d, kv_h, causal):
+    """The Pallas K2 in bf16, which rounds dS to bf16 before dS K as the
+    port's sm90 K2 does, lies within the sm90 ``dq_tolerance`` of the f32
+    plain version: that pins the bound the card tests hold K2 to."""
+    dq, ref, bound = _bf16_dq_case(d, kv_h, causal)
+    assert fa._design(torch.bfloat16, d) == "sm90"
+    assert bool(((dq - ref).abs() <= bound).all())
+
+
+def test_dq_one_ulp_is_not_enough():
+    """Rounding dS to bf16 moves dQ by more than one bf16 ulp of itself
+    somewhere, which is why the bound has its 2^-8 term."""
+    dq, ref, _ = _bf16_dq_case(64, 4, False)
+    one_ulp = 2.0 ** -7 * ref.abs() + 1e-4 * ref.abs().max()
+    assert not bool(((dq - ref).abs() <= one_ulp).all())
+
+
+def test_f32_dq_bound_is_summation_order():
+    q, k, v, do = _torch(*_inputs(4, 128, 2))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa._delta(o, do)
+    ref = fa.flash_attention_dq_reference(q, k, v, do, lse, delta, causal=True)
+    bound = fa.dq_tolerance(q, k, v, do, lse, delta, ref, causal=True)
+    assert torch.equal(bound, torch.full_like(ref,
+                                              1e-4 * ref.abs().max().item()))
+
+
+@pytest.mark.parametrize("d", [32, 256])
+def test_fma_bf16_dq_bound_is_one_ulp(d):
+    """The fma design keeps dS in f32 and rounds dQ once: its bf16 bound
+    stays one bf16 ulp, with none of the sm90 design's terms."""
+    q, k, v, do = (t.bfloat16() for t in _torch(*_inputs(5, 128, 2, d=d)))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa._delta(o, do)
+    ref = fa.flash_attention_dq_reference(q, k, v, do, lse, delta,
+                                          causal=True)
+    bound = fa.dq_tolerance(q, k, v, do, lse, delta, ref, causal=True)
+    ref = ref.float().abs()
+    assert fa._design(q.dtype, d) == "fma"
+    assert torch.equal(bound, 2.0 ** -7 * ref + 1e-4 * ref.max().item())
 
 
 def test_f32_dkv_bound_is_summation_order():
@@ -216,3 +283,54 @@ def test_backward_launcher_checks_lse_layout():
     with pytest.raises(ValueError, match="lse must be contiguous"):
         fa._bwd_args(q, q, q, q, torch.zeros(2, 128), torch.zeros(2, 128, 1),
                      (q,))
+
+
+@pytest.mark.parametrize("kernel, fn", [("dq", "flash_attention_dq"),
+                                        ("dkv", "flash_attention_dkv")])
+@pytest.mark.parametrize("dtype, d, design", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 32, "fma"), (torch.float32, 64, "fma"),
+])
+def test_backward_launch_routes_by_design(monkeypatch, kernel, fn, dtype, d,
+                                          design):
+    """K2 and K3 take the library of :func:`_design` and count the launch
+    under it: bf16 at d 64/128 goes to the sm90 kernels. The launch itself
+    is recorded here, not made (no card)."""
+    calls = []
+    monkeypatch.setattr(fa, "_bwd_call", lambda name, *a: calls.append(
+        (name, a[-1])))
+    wrapper = getattr(fa, fn)
+    monkeypatch.setattr(wrapper, "launches", 0)
+    monkeypatch.setattr(wrapper, "launches_by_design",
+                        dict.fromkeys(fa.DESIGNS, 0))
+    q = torch.zeros(1, 128, 2, d, dtype=dtype)
+    lse = torch.zeros(2, 128, 1)
+    launch = fa._launch_dq if kernel == "dq" else fa._launch_dkv
+    launch(q, q, q, q, lse, lse, True)
+    assert calls == [(kernel, design)]
+    assert wrapper.launches == 1
+    assert wrapper.launches_by_design == {**dict.fromkeys(fa.DESIGNS, 0),
+                                          design: 1}
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("s, kv_h, lse_shape, match", [
+    (96, 2, (2, 96, 1), "multiple of 64"),
+    (128, 3, (2, 128, 1), "positive divisor"),
+    (128, 2, (2, 128), "lse must be contiguous"),
+])
+def test_sm90_backward_launcher_checks_before_building(monkeypatch, kernel, s,
+                                                       kv_h, lse_shape, match):
+    """What the sm90 K2 and K3 do not take is refused before their library
+    is built (so this runs without nvcc)."""
+    def no_build(name):
+        raise AssertionError(f"built {name} for refused inputs")
+
+    monkeypatch.setattr(fa._build, "load", no_build)
+    q = torch.zeros(1, s, 2, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, s, kv_h, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(lse_shape)
+    outs = (q,) if kernel == "dq" else (k, k)
+    with pytest.raises(ValueError, match=match):
+        fa._bwd_call(kernel, q, k, k, q, lse, torch.zeros(2, s, 1), outs,
+                     True, "sm90")

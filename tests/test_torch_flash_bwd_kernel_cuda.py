@@ -7,10 +7,11 @@ installed: ``python -m pytest --noconftest -m cuda
 tests/test_torch_flash_bwd_kernel_cuda.py``.
 
 Tolerances: in f32 the two sides differ only in summation order,
-``1e-4 * max|ref|``. In bf16, dQ (K2, which keeps dS in f32) may differ by
-one bf16 ulp on top: ``2^-7 |ref| + 1e-4 * max|ref|``; dK and dV take the
-bound of ``fa.dkv_tolerance``, since K3's sm90 design rounds P and dS to
-bf16 before its products, as the TPU kernel does.
+``1e-4 * max|ref|``. In bf16, dQ takes the bound of ``fa.dq_tolerance`` and
+dK and dV that of ``fa.dkv_tolerance``: the fma design keeps P and dS in f32
+and may differ by one bf16 ulp on top, ``2^-7 |ref| + 1e-4 * max|ref|``;
+the sm90 designs of K2 and K3 round dS (and P) to bf16 before their
+products, as the TPU kernels do, and their bounds add that rounding.
 """
 
 import faulthandler
@@ -47,16 +48,6 @@ def _inputs(seed, b, s, h, kv_h, d, device, dtype):
     ]
 
 
-def _assert_close(got, ref):
-    ref = ref.float()
-    diff = (got.float() - ref).abs()
-    floor = 1e-4 * ref.abs().max().item()
-    if got.dtype == torch.bfloat16:
-        assert bool((diff <= 2.0 ** -7 * ref.abs() + floor).all())
-    else:
-        assert diff.max().item() <= floor
-
-
 def _assert_grads_close(q, k, v, do, lse, delta, causal, dq, dk, dv):
     dq_ref = fa.flash_attention_dq_reference(q, k, v, do, lse, delta,
                                              causal=causal)
@@ -65,10 +56,10 @@ def _assert_grads_close(q, k, v, do, lse, delta, causal, dq, dk, dv):
     for got, ref, x in zip((dq, dk, dv), (dq_ref, dk_ref, dv_ref), (q, k, v)):
         assert got.shape == x.shape and got.dtype == x.dtype
         assert bool(torch.isfinite(got.float()).all())
-    _assert_close(dq, dq_ref)
-    bounds = fa.dkv_tolerance(q, k, v, do, lse, delta, dk_ref, dv_ref,
-                              causal=causal)
-    for got, ref, bound in zip((dk, dv), (dk_ref, dv_ref), bounds):
+    bounds = (fa.dq_tolerance(q, k, v, do, lse, delta, dq_ref, causal=causal),
+              *fa.dkv_tolerance(q, k, v, do, lse, delta, dk_ref, dv_ref,
+                                causal=causal))
+    for got, ref, bound in zip((dq, dk, dv), (dq_ref, dk_ref, dv_ref), bounds):
         assert bool(((got.float() - ref.float()).abs() <= bound).all())
 
 
@@ -114,10 +105,33 @@ def test_sm90_dkv_matches_plain(cuda_device, d, kv_h, causal, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 192, 1024])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kv_h", [4, 2, 1])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_dq_matches_plain(cuda_device, d, kv_h, causal, s):
+    """K2's bf16 wgmma/TMA design, GQA groups 1/2/4, within
+    ``dq_tolerance``, bit-identical reruns."""
+    q, k, v, do = _inputs(17, 2, s, 4, kv_h, d, cuda_device, torch.bfloat16)
+    block = 64 if s % 128 else None
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, block_q=block,
+                                    block_k=block)
+    delta = fa._delta(o, do)
+    before = fa.flash_attention_dq.launches_by_design["sm90"]
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, causal=causal)
+    dq2 = fa.flash_attention_dq(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_dq.launches_by_design["sm90"] == before + 2
+    assert torch.equal(dq, dq2)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal=causal)
+    _assert_grads_close(q, k, v, do, lse, delta, causal, dq, dk, dv)
+
+
+@pytest.mark.cuda
 def test_sm90_dkv_through_strided_and_misaligned_inputs(cuda_device):
     """Strided ``qkv[:, :, i]`` views go to TMA as they are; a dO whose base
-    TMA cannot take is copied; both still run the sm90 kernel and give the
-    contiguous inputs' grads."""
+    TMA cannot take is copied; both still run the sm90 kernels (K2 and K3)
+    and give the contiguous inputs' grads."""
     qkv = torch.randn(2, 256, 3, 4, 64, device=cuda_device,
                       dtype=torch.bfloat16)
     q, k, v = qkv.unbind(2)
@@ -128,12 +142,18 @@ def test_sm90_dkv_through_strided_and_misaligned_inputs(cuda_device):
     assert not fa._tma_ready(do_off)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     delta = fa._delta(o, do)
-    counts = dict(fa.flash_attention_dkv.launches_by_design)
-    got = fa.flash_attention_dkv(q, k, v, do_off, lse, delta, causal=True)
-    ref = fa.flash_attention_dkv(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), do, lse, delta, causal=True)
-    assert fa.flash_attention_dkv.launches_by_design == {
-        "sm90": counts["sm90"] + 2, "fma": counts["fma"]}
+    counts = [dict(fn.launches_by_design)
+              for fn in (fa.flash_attention_dq, fa.flash_attention_dkv)]
+    got = (fa.flash_attention_dq(q, k, v, do_off, lse, delta, causal=True),
+           *fa.flash_attention_dkv(q, k, v, do_off, lse, delta, causal=True))
+    contiguous = (q.contiguous(), k.contiguous(), v.contiguous(), do, lse,
+                  delta)
+    ref = (fa.flash_attention_dq(*contiguous, causal=True),
+           *fa.flash_attention_dkv(*contiguous, causal=True))
+    for fn, before in zip((fa.flash_attention_dq, fa.flash_attention_dkv),
+                          counts):
+        assert fn.launches_by_design == {"sm90": before["sm90"] + 2,
+                                         "fma": before["fma"]}
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
 
@@ -155,12 +175,30 @@ def test_autograd_through_strided_views(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_tensors_never_take_the_plain_version(cuda_device):
-    """A shape the kernels refuse raises on the card; it is not computed by
-    the plain version instead."""
+def test_cuda_tensors_never_take_the_plain_version(cuda_device, monkeypatch):
+    """A shape the kernels refuse raises on the card, in either design; it
+    is not computed by the plain version instead, which a CUDA tensor never
+    reaches."""
+    def never(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("flash_attention_dq_reference",
+                 "flash_attention_dkv_reference"):
+        monkeypatch.setattr(fa, name, never)
     q = torch.zeros(1, 128, 2, 48, device=cuda_device)
     lse = torch.zeros(2, 128, 1, device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_dq(q, q, q, q, lse, lse, causal=True)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_dkv(q, q, q, q, lse, lse, causal=True)
+    # the sm90 design (bf16, d 64) with an LSE that is not [b*h, s, 1]
+    q = torch.zeros(1, 128, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    flat = torch.zeros(2, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="lse must be contiguous"):
+        fa.flash_attention_dq(q, q, q, q, flat, lse, causal=True)
+    with pytest.raises(ValueError, match="lse must be contiguous"):
+        fa.flash_attention_dkv(q, q, q, q, flat, lse, causal=True)
+    dq = fa.flash_attention_dq(q, q, q, q, lse, lse, causal=True)
+    dk, dv = fa.flash_attention_dkv(q, q, q, q, lse, lse, causal=True)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g.float()).all()) for g in (dq, dk, dv))
