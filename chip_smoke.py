@@ -41,8 +41,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    time, event time beside it) beside their bounds, their plain versions
    and the SDPA yardsticks (SDPA's backward alone for K2 and K3); the train
    step, tokens/s and MFU; a profile of one step.
-7. A ``kernels`` JSON line, the card line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+7. BERT-base through ``bert`` (b 8, s 512, 10 steps): K1, K2 and K3 each
+   launched 120 times, all sm90, non-causal; three steps on the kernel
+   path against the plain path and f32, as phase 5; K1-K3 at BERT's shape
+   beside their bounds, plain versions and SDPA (``is_causal=False``); the
+   train step, tokens/s, MFU and a profile.
+8. ResNet-50 (``resnet50``: b 128, image 224, SGD), ViT-B/16 (``vit``:
+   b 64, image 224) and the MLP (``mnist``) at their defaults, each with
+   its parameter count and no flash launch; for ResNet-50 and ViT the
+   step, images/s, model FLOPs per step (``FlopCounterMode``), MFU and a
+   profile.
+9. A ``kernels`` JSON line, the card line, and last the result line
+   ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -76,6 +86,18 @@ K1_SHAPE = dict(b=8, s=512, h=12, d=64)  # the slice's prefill attention
 TRAIN_PARAMS = {"size": "base", "batch_size": "8", "seq_len": "1024",
                 "steps": "10"}
 TRAIN_SHAPE = dict(b=8, s=1024, h=12, d=64)  # its attention
+# BERT-base MLM at the bert entrypoint's defaults: 8 sequences of 512
+# tokens, AdamW; its attention is non-causal.
+BERT_PARAMS = {"size": "base", "batch_size": "8", "seq_len": "512",
+               "steps": "10"}
+BERT_SHAPE = dict(b=8, s=512, h=12, d=64)
+# The image and MLP jobs at their entrypoints' defaults.
+RESNET50_PARAMS = {"batch_size": "128", "image_size": "224", "steps": "10"}
+VIT_PARAMS = {"size": "base", "batch_size": "64", "image_size": "224",
+              "steps": "10"}
+MNIST_PARAMS = {"batch_size": "256", "steps": "20"}
+N_PARAMS = {"gpt": GPT2_SMALL_PARAMS, "bert": 108_890_112,
+            "resnet50": 25_557_032, "vit": 86_567_656, "mnist": 535_818}
 TRAIN_PROGRESS_KEYS = (
     "started_at", "steps_per_call", "data_mode", "first_step_at",
     "first_step_latency_s", "compile_time_s", "steps_done", "step_timeline",
@@ -132,8 +154,11 @@ def profile_window(torch, card: str, label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # a record_function range (the optimizer's step) also carries device
+    # time, that of the kernels inside it: leave it out of the sum
     kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+               if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     print(f"[{card}] profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%)")
@@ -527,51 +552,57 @@ def phase_times(torch, fa, flash_model, card):
     }, prefill_ms, decode_ms
 
 
-def phase_train(torch, fa):
-    """The training slice through the entrypoint a user's Cron calls."""
+def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int):
+    """A training job through the entrypoint a user's Cron calls, with every
+    kernel count set to 0 just before and read just after: each of K1, K2
+    and K3 must have launched ``sm90_per_step`` times a step, all of the
+    sm90 design (0 for a job whose attention never reaches the kernels)."""
     import math
 
     from cron_operator_tpu_torch.backends.registry import JobContext
-    from cron_operator_tpu_torch.workloads.entrypoints import gpt
+    from cron_operator_tpu_torch.workloads import entrypoints
 
-    ctx = JobContext("chip-smoke-gpt", "default", {}, dict(TRAIN_PARAMS))
-    steps = int(TRAIN_PARAMS["steps"])
+    ctx = JobContext(f"chip-smoke-{job}", "default", {}, dict(params))
+    steps = int(params["steps"])
     zero_counts(fa)
     t0 = time.monotonic()
-    gpt(ctx)
+    getattr(entrypoints, job)(ctx)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = read_counts(fa)
     designs = read_designs(fa)
     progress = {k: v for k, v in ctx.progress.items() if k != "step_timeline"}
-    print(f"train: gpt in {wall:.2f} s, progress {progress}")
-    print(f"train: launches K1/K2/K3 {counts} (expected 12 x {steps} each), "
+    expected = sm90_per_step * steps
+    print(f"{job}: in {wall:.2f} s, progress {progress}")
+    print(f"{job}: launches K1/K2/K3 {counts} (expected {expected} each), "
           f"by design {designs} (all sm90)", flush=True)
-    if counts != (12 * steps,) * 3:
-        fail(f"flash kernels launched {counts} times on the training path, "
-             f"not {12 * steps} each")
-    for name, n, by_design, design in zip(("K1", "K2", "K3"), counts,
-                                          designs, ("sm90",) * 3):
-        if by_design[design] != n:
-            fail(f"{name} launches on the training path by design "
-                 f"{by_design}: not all {design}")
+    if counts != (expected,) * 3:
+        fail(f"flash kernels launched {counts} times on the {job} path, "
+             f"not {expected} each")
+    for name, n, by_design in zip(("K1", "K2", "K3"), counts, designs):
+        if by_design["sm90"] != n:
+            fail(f"{name} launches on the {job} path by design {by_design}: "
+                 "not all sm90")
+    tokens = "tokens_per_s" in ctx.progress
     for key in TRAIN_PROGRESS_KEYS:
-        if key not in ctx.progress:
-            fail(f"progress key {key!r} was not published")
-    if ctx.progress["n_params"] != GPT2_SMALL_PARAMS:
-        fail(f"n_params {ctx.progress['n_params']} is not GPT-2 small's")
+        if key not in ctx.progress and (tokens or key != "tokens_per_s"):
+            fail(f"{job}: progress key {key!r} was not published")
+    if ctx.progress["n_params"] != N_PARAMS[job]:
+        fail(f"{job}: n_params {ctx.progress['n_params']} is not "
+             f"{N_PARAMS[job]}")
     if ctx.progress["steps_done"] != steps:
-        fail(f"steps_done {ctx.progress['steps_done']} is not {steps}")
+        fail(f"{job}: steps_done {ctx.progress['steps_done']} is not {steps}")
     if len(ctx.progress["step_timeline"]) != steps:
-        fail("step_timeline does not hold every step")
+        fail(f"{job}: step_timeline does not hold every step")
     if not math.isfinite(ctx.progress["last_loss"]):
-        fail("the last loss is not finite")
-    if not ctx.progress["tokens_per_s"] > 0:
-        fail("tokens_per_s is not positive")
+        fail(f"{job}: the last loss is not finite")
+    rate = "tokens_per_s" if tokens else "steps_per_s"
+    if not ctx.progress[rate] > 0:
+        fail(f"{job}: {rate} is not positive")
     return counts, ctx.progress
 
 
-def phase_train_correctness(torch):
+def phase_train_correctness(torch, model_cls, cfg, stream, label):
     """Three AdamW steps on the kernel path and on the plain-attention path
     from the same f32 weights and batches; each is measured against an f32
     run. Both bf16 paths carry bf16 rounding through 12 layers and differ
@@ -579,24 +610,19 @@ def phase_train_correctness(torch):
     the plain bf16 path's own distance from f32: per-step losses (plus
     1e-3, as the prefill check allows), and the first step's gradients as
     one vector (L2 norm of the difference)."""
-    from cron_operator_tpu_torch.models import GPT, GPTConfig
-    from cron_operator_tpu_torch.workloads import data
     from cron_operator_tpu_torch.workloads.train import Trainer
 
-    cfg = GPTConfig(max_len=1024)
-    init = GPT(cfg, device="cuda").init_weights(
+    init = model_cls(cfg, device="cuda").init_weights(
         torch.Generator(device="cuda").manual_seed(0))
     state = {k: v.clone() for k, v in init.state_dict().items()}
     del init
-    stream = data.device_causal_token_batches(8, 1024, cfg.vocab_size,
-                                              device="cuda", seed=5)
     batches = [next(stream) for _ in range(3)]
     losses, grads = {}, {}
     for name, over in (("flash", dict(attention_impl="flash")),
                        ("plain", dict(attention_impl="xla")),
                        ("f32", dict(attention_impl="xla",
                                     dtype=torch.float32))):
-        model = GPT(replace(cfg, **over), device="cuda")
+        model = model_cls(replace(cfg, **over), device="cuda")
         model.load_state_dict(state)
         trainer = Trainer(model)
         losses[name] = []
@@ -607,7 +633,7 @@ def phase_train_correctness(torch):
                                          for p in model.parameters()])
         del model, trainer
         torch.cuda.empty_cache()
-    print(f"train losses: flash {losses['flash']} plain {losses['plain']} "
+    print(f"{label} losses: flash {losses['flash']} plain {losses['plain']} "
           f"f32 {losses['f32']}")
     for i in range(len(batches)):
         d_fp = abs(losses["flash"][i] - losses["plain"][i])
@@ -615,26 +641,36 @@ def phase_train_correctness(torch):
         print(f"  step {i + 1}: |flash-plain|={d_fp:.6f} "
               f"|plain-f32|={d_p32:.6f}")
         if d_fp > 2 * d_p32 + 1e-3:
-            fail(f"step {i + 1}: the kernel path's loss is off the plain "
-                 "path's by more than bf16 noise")
+            fail(f"{label} step {i + 1}: the kernel path's loss is off the "
+                 "plain path's by more than bf16 noise")
     g_fp = (grads["flash"] - grads["plain"]).norm().item()
     g_p32 = (grads["plain"] - grads["f32"]).norm().item()
-    print(f"first-step grads: |flash-plain|={g_fp:.6f} |plain-f32|="
+    print(f"{label} first-step grads: |flash-plain|={g_fp:.6f} |plain-f32|="
           f"{g_p32:.6f} (|g f32|={grads['f32'].norm().item():.4f})",
           flush=True)
     if not (torch.isfinite(grads["flash"]).all() and g_fp <= 2 * g_p32):
-        fail("the kernel path's first-step grads are off the plain path's by "
-             "more than bf16 noise")
+        fail(f"{label}: the kernel path's first-step grads are off the plain "
+             "path's by more than bf16 noise")
 
 
-def phase_train_times(torch, fa, card):
-    import torch.nn.functional as F
-
+def phase_gpt_correctness(torch):
     from cron_operator_tpu_torch.models import GPT, GPTConfig
     from cron_operator_tpu_torch.workloads import data
-    from cron_operator_tpu_torch.workloads.train import Trainer
 
-    b, s, h, d = (TRAIN_SHAPE[x] for x in "bshd")
+    cfg = GPTConfig(max_len=1024)
+    phase_train_correctness(
+        torch, GPT, cfg, data.device_causal_token_batches(
+            8, 1024, cfg.vocab_size, device="cuda", seed=5), "train")
+
+
+def attention_rows(torch, fa, card, shape: dict, causal: bool, label: str):
+    """K1, K2 and K3 at one training shape: each checked against its plain
+    version, then timed (device time, event time beside it) beside its
+    bound, its plain version and the SDPA yardstick (SDPA's backward alone
+    for K2 and K3)."""
+    import torch.nn.functional as F
+
+    b, s, h, d = (shape[x] for x in "bshd")
     gen = torch.Generator(device="cuda").manual_seed(4)
     # the main path's layout: strided views of one fused qkv projection and
     # a contiguous dO
@@ -643,47 +679,53 @@ def phase_train_times(torch, fa, card):
     q, k, v = qkv.unbind(2)
     do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
     rows = {}
+    mask = f"causal={int(causal)}"
 
-    # K1 at the training shape
-    k1_err = check_k1(torch, fa, f"K1 bfloat16 causal=1 b={b} s={s} h={h} "
-                      f"d={d} (the training slice)", q, k, v, True)
+    # K1: Q, K, V read and O written in bf16, the f32 LSE written; QK^T and
+    # PV over the (query, key) pairs the mask keeps
+    k1_err = check_k1(torch, fa, f"K1 bfloat16 {mask} b={b} s={s} h={h} "
+                      f"d={d} ({label})", q, k, v, causal)
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     moved = 4 * q.numel() * q.element_size() + b * h * s * 4
-    flops = 4 * d * b * h * (s * (s + 1) // 2)
+    flops = 4 * d * pairs
     bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-    (ms, plain_ms, library_ms), _ = timed_rows(torch, card, "K1", (
-        lambda: fa.flash_attention_fwd(q, k, v, causal=True),
-        lambda: fa.flash_attention_reference(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)))
+    (ms, plain_ms, library_ms), _ = timed_rows(torch, card, f"K1 ({label})", (
+        lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
+        lambda: fa.flash_attention_reference(q, k, v, causal=causal),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)))
     rows["K1"] = dict(
         max_abs_err=k1_err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=library_ms,
     )
+    bounds = {"K1": (bytes_ms, ops_ms, moved, flops)}
 
     # K2 and K3
     dq_err, dkv_err = check_bwd(
-        torch, fa, f"K2/K3 bfloat16 causal=1 b={b} s={s} h={h} d={d} "
-        "(the training slice)", q, k, v, do, True)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        torch, fa, f"K2/K3 bfloat16 {mask} b={b} s={s} h={h} d={d} "
+        f"({label})", q, k, v, do, causal)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     delta = fa._delta(o, do)
     leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
 
     def sdpa_bwd():
         return torch.autograd.grad(out, leaves, dot, retain_graph=True)
 
-    bounds = bwd_bound(q, k, True)
+    bounds.update(bwd_bound(q, k, causal))
     for name, err, kernel, plain in (
             ("K2", dq_err, fa.flash_attention_dq,
              fa.flash_attention_dq_reference),
             ("K3", dkv_err, fa.flash_attention_dkv,
              fa.flash_attention_dkv_reference)):
         bytes_ms, ops_ms, _, _ = bounds[name]
-        (ms, plain_ms, library_ms), _ = timed_rows(torch, card, name, (
-            lambda: kernel(q, k, v, do, lse, delta, causal=True),
-            lambda: plain(q, k, v, do, lse, delta, causal=True), sdpa_bwd))
+        (ms, plain_ms, library_ms), _ = timed_rows(
+            torch, card, f"{name} ({label})", (
+                lambda: kernel(q, k, v, do, lse, delta, causal=causal),
+                lambda: plain(q, k, v, do, lse, delta, causal=causal),
+                sdpa_bwd))
         rows[name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(bytes_ms, ops_ms),
@@ -691,42 +733,137 @@ def phase_train_times(torch, fa, card):
             library_ms=library_ms,
         )
     for name, row in rows.items():
-        extra = ""
-        if name in bounds:
-            _, _, moved, flops = bounds[name]
-            extra = f" ({moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)"
-        print(f"[{card}] {name} b{b} s{s} h{h} d{d} causal bf16: "
+        _, _, moved, flops = bounds[name]
+        print(f"[{card}] {name} b{b} s{s} h{h} d{d} {mask} bf16 ({label}): "
               f"{row['ms']:.4f} ms/launch (device) | plain "
               f"{row['plain_ms']:.4f} ms | "
               f"sdpa {row['library_ms']:.4f} ms | bound "
-              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}){extra}",
-              flush=True)
-    del qkv, q, k, v, do, qt, kt, vt, dot, o, lse, delta, leaves, out
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) "
+              f"({moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
+    return rows
 
-    # The train step (the gpt entrypoint's model, optimizer and batch shape)
-    cfg = GPTConfig(max_len=s)
-    model = GPT(cfg, device="cuda").init_weights(
-        torch.Generator(device="cuda").manual_seed(0))
-    trainer = Trainer(model)
-    batch = next(data.device_causal_token_batches(b, s, cfg.vocab_size,
-                                                  device="cuda"))
+
+def step_times(torch, card, label: str, trainer, batch, model_flops: float,
+               items: int, unit: str):
+    """One training step of ``trainer`` on ``batch`` (CUDA events over 5
+    back-to-back steps, median of 3), ``items`` a step in ``unit``/s, MFU
+    against the bf16 peak from ``model_flops`` a step, and a profile."""
     step_ms = median_ms(torch, lambda: trainer.step(batch, sync=False),
                         iters=5, reps=3, warmup=2)
+    mfu = model_flops / (step_ms / 1e3 * BF16_FLOPS)
+    print(f"[{card}] {label}: {step_ms:.3f} ms | {items / step_ms * 1e3:.1f} "
+          f"{unit}/s | {1e3 / step_ms:.3f} steps/s | model FLOPs/step "
+          f"{model_flops / 1e12:.4f} T | mfu {mfu:.4f} of "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s", flush=True)
+    profile_window(torch, card, f"{label} x1", lambda: trainer.step(batch))
+    return {"step_ms": step_ms, f"{unit}_per_s": items / step_ms * 1e3,
+            "steps_per_s": 1e3 / step_ms, "mfu": mfu,
+            "model_flops_per_step": model_flops}
+
+
+def lm_step_times(torch, card, label, model_cls, cfg, stream, shape, causal):
+    """The step of a language model at ``shape``: model FLOPs are 6 N T
+    plus the attention's 3 * 4 d b h per (query, key) pair the mask keeps,
+    per layer (forward and backward)."""
+    from cron_operator_tpu_torch.workloads.train import Trainer
+
+    b, s, h, d = (shape[x] for x in "bshd")
+    model = model_cls(cfg, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(0))
+    trainer = Trainer(model)
     n_params = sum(p.numel() for p in model.parameters())
     tokens = b * s
-    attn_flops = cfg.num_layers * 3 * 4 * d * b * h * (s * (s + 1) // 2)
-    model_flops = 6 * n_params * tokens + attn_flops
-    mfu = model_flops / (step_ms / 1e3 * BF16_FLOPS)
-    print(f"[{card}] train step (GPT-2 small, b{b} s{s}, bf16/f32 masters, "
-          f"AdamW): {step_ms:.3f} ms | {tokens / step_ms * 1e3:.1f} tokens/s |"
-          f" {1e3 / step_ms:.3f} steps/s | model FLOPs/step "
-          f"{model_flops / 1e12:.4f} T (6*N*T {6 * n_params * tokens / 1e12:.4f}"
-          f" T + causal attention fwd+bwd {attn_flops / 1e12:.4f} T) | mfu "
-          f"{mfu:.4f} of {BF16_FLOPS / 1e12:.0f} TFLOP/s", flush=True)
-    profile_window(torch, card, "train step x1", lambda: trainer.step(batch))
-    return rows, {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-                  "steps_per_s": 1e3 / step_ms, "mfu": mfu,
-                  "model_flops_per_step": model_flops}
+    pairs = s * (s + 1) // 2 if causal else s * s
+    attn_flops = cfg.num_layers * 3 * 4 * d * b * h * pairs
+    dense_flops = 6 * n_params * tokens
+    print(f"[{card}] {label}: model FLOPs/step {dense_flops / 1e12:.4f} T "
+          f"(6*N*T) + {attn_flops / 1e12:.4f} T (attention fwd+bwd, "
+          f"causal={int(causal)})")
+    out = step_times(torch, card, label, trainer, next(stream),
+                     dense_flops + attn_flops, tokens, "tokens")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_times(torch, fa, card):
+    from cron_operator_tpu_torch.models import GPT, GPTConfig
+    from cron_operator_tpu_torch.workloads import data
+
+    rows = attention_rows(torch, fa, card, TRAIN_SHAPE, True,
+                          "the training slice")
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    cfg = GPTConfig(max_len=s)
+    step = lm_step_times(
+        torch, card, f"train step (GPT-2 small, b{b} s{s}, bf16/f32 "
+        "masters, AdamW)", GPT, cfg,
+        data.device_causal_token_batches(b, s, cfg.vocab_size, device="cuda"),
+        TRAIN_SHAPE, True)
+    return rows, step
+
+
+def phase_bert(torch, fa, card):
+    """BERT-base: the job, the kernel path against the plain path, the
+    kernels at its shape and the step."""
+    from cron_operator_tpu_torch.models import Bert, BertConfig
+    from cron_operator_tpu_torch.workloads import data
+
+    counts, progress = phase_job(torch, fa, "bert", BERT_PARAMS, 12)
+    b, s = BERT_SHAPE["b"], BERT_SHAPE["s"]
+    cfg = BertConfig.base(max_len=s)
+    phase_train_correctness(
+        torch, Bert, cfg, data.device_token_batches(
+            b, s, cfg.vocab_size, device="cuda", seed=5), "bert")
+    rows = attention_rows(torch, fa, card, BERT_SHAPE, False, "bert")
+    step = lm_step_times(
+        torch, card, f"bert step (BERT-base, b{b} s{s}, bf16/f32 masters, "
+        "AdamW)", Bert, cfg,
+        data.device_token_batches(b, s, cfg.vocab_size, device="cuda"),
+        BERT_SHAPE, False)
+    print(f"[{card}] bert job: {progress['tokens_per_s']} tokens/s, "
+          f"{progress['avg_step_time_s']} s/step (steps 2-10 of bert), first "
+          f"step {progress['compile_time_s']} s")
+    print("bert " + json.dumps({
+        **step, "job_tokens_per_s": progress["tokens_per_s"],
+        "job_avg_step_time_s": progress["avg_step_time_s"],
+        "job_first_step_s": progress["compile_time_s"],
+    }))
+    return counts, rows
+
+
+def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
+                    train_config):
+    """An image job at its defaults (no attention reaches the kernels),
+    then its step on the card (``make_model()``'s model with seed-0
+    weights, the job's optimizer): model FLOPs a step counted by
+    ``FlopCounterMode`` over one forward and backward."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.train import Trainer
+
+    _, progress = phase_job(torch, fa, job, params, 0)
+    b, size = int(params["batch_size"]), int(params["image_size"])
+    model = make_model().init_weights(
+        torch.Generator(device="cuda").manual_seed(0))
+    trainer = Trainer(model, train_config)
+    batch = next(data.device_imagenet_batches(
+        b, size, model.head.out_features, device="cuda"))
+    with FlopCounterMode(display=False) as counter:
+        trainer.loss_fn(model(batch["x"]), batch["y"]).backward()
+    model.zero_grad(set_to_none=True)
+    step = step_times(torch, card, f"{job} step (b{b}, image {size})",
+                      trainer, batch, counter.get_total_flops(), b, "images")
+    print(f"[{card}] {job} job: {progress['steps_per_s']} steps/s, "
+          f"{progress['avg_step_time_s']} s/step (steps 2-10), first step "
+          f"{progress['compile_time_s']} s")
+    print(f"{job} " + json.dumps({
+        **step, "job_steps_per_s": progress["steps_per_s"],
+        "job_avg_step_time_s": progress["avg_step_time_s"],
+        "job_first_step_s": progress["compile_time_s"],
+    }))
+    del model, trainer, batch
+    torch.cuda.empty_cache()
 
 
 CSRC = "cron_operator_tpu_torch/ops/csrc/"
@@ -767,12 +904,22 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
 
-    card = phase_device(torch)
-    phase_kernel_vs_plain(torch, fa)
-    phase_bwd_vs_plain(torch, fa)
-    launches, progress = phase_slice(torch, fa)
-    flash_model = phase_slice_correctness(torch)
-    k1, prefill_ms, decode_ms = phase_times(torch, fa, flash_model, card)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        walls[name] = time.monotonic() - t0
+        print(f"phase {name}: {walls[name]:.1f} s", flush=True)
+        return out
+
+    card = timed("device and build", phase_device, torch)
+    timed("K1 vs plain", phase_kernel_vs_plain, torch, fa)
+    timed("K2/K3 vs plain", phase_bwd_vs_plain, torch, fa)
+    launches, progress = timed("generate_job", phase_slice, torch, fa)
+    flash_model = timed("prefill correctness", phase_slice_correctness, torch)
+    k1, prefill_ms, decode_ms = timed("serving times", phase_times, torch, fa,
+                                      flash_model, card)
     print(f"[{card}] slice tokens/s {progress['tokens_per_s']} (rounds 2-3 of "
           f"generate_job) | first round {progress['first_step_latency_s']} s")
     print("slice " + json.dumps({
@@ -783,9 +930,10 @@ def main() -> None:
     del flash_model
     torch.cuda.empty_cache()
 
-    train_counts, train_progress = phase_train(torch, fa)
-    phase_train_correctness(torch)
-    train_rows, step = phase_train_times(torch, fa, card)
+    train_counts, train_progress = timed("gpt", phase_job, torch, fa, "gpt",
+                                         TRAIN_PARAMS, 12)
+    timed("gpt correctness", phase_gpt_correctness, torch)
+    train_rows, step = timed("gpt times", phase_train_times, torch, fa, card)
     print(f"[{card}] train job: {train_progress['tokens_per_s']} tokens/s, "
           f"{train_progress['avg_step_time_s']} s/step, "
           f"{train_progress['steps_per_s']} steps/s (steps 2-10 of gpt), "
@@ -795,11 +943,30 @@ def main() -> None:
         "job_avg_step_time_s": train_progress["avg_step_time_s"],
         "job_first_step_s": train_progress["compile_time_s"],
     }))
+
+    bert_counts, bert_rows = timed("bert", phase_bert, torch, fa, card)
+
+    from cron_operator_tpu_torch.models import ResNet50, ViT, ViTConfig
+    from cron_operator_tpu_torch.workloads.train import TrainConfig
+
+    # each job's model and optimizer, as its entrypoint builds them
+    timed("resnet50", phase_image_job, torch, fa, card, "resnet50",
+          RESNET50_PARAMS, lambda: ResNet50(device="cuda"),
+          TrainConfig(optimizer="sgd", learning_rate=0.1))
+    timed("vit", phase_image_job, torch, fa, card, "vit", VIT_PARAMS,
+          lambda: ViT(ViTConfig.base(), device="cuda"), TrainConfig())
+    timed("mnist", phase_job, torch, fa, "mnist", MNIST_PARAMS, 0)
+    print(f"phases: {sum(walls.values()):.1f} s in all, "
+          + json.dumps({k: round(v, 1) for k, v in walls.items()}))
+
     print(json.dumps({"kernels": [
         kernel_entry("K1", "", launches, k1),
         kernel_entry("K1", "@train", train_counts[0], train_rows["K1"]),
         kernel_entry("K2", "", train_counts[1], train_rows["K2"]),
         kernel_entry("K3", "", train_counts[2], train_rows["K3"]),
+        kernel_entry("K1", "@bert", bert_counts[0], bert_rows["K1"]),
+        kernel_entry("K2", "@bert", bert_counts[1], bert_rows["K2"]),
+        kernel_entry("K3", "@bert", bert_counts[2], bert_rows["K3"]),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,16 @@
 """Flax parameter trees to port ``state_dict``s.
 
-``params_from_flax(tree, cfg)`` takes the nested dict of numpy arrays that
-``jax.tree_util`` gives for a ``cron_operator_tpu`` ``GPT`` (its
+Each converter takes the nested dict of numpy arrays that
+``jax.tree_util`` gives for a ``cron_operator_tpu`` model (its
 ``["params"]`` collection, converted with ``np.asarray``) and returns the
-``state_dict`` of the port's :class:`models.gpt.GPT` for the same config.
-A flax kernel ``[in..., out...]`` becomes a torch ``Linear`` weight
-``[out, in]`` after flattening each side; biases flatten.
-:func:`flax_rank` goes the other way for the one property of a flax shape
-that training reads: its rank.
+``state_dict`` of the port's model of the same config:
+:func:`params_from_flax` for GPT and BERT (one layout), and
+:func:`vit_params_from_flax`, :func:`resnet_params_from_flax` and
+:func:`mlp_params_from_flax`. A flax kernel ``[in..., out...]`` becomes a
+torch ``Linear`` weight ``[out, in]`` after flattening each side; biases
+flatten; a conv kernel goes from HWIO to OIHW. :func:`flax_rank` goes the
+other way for the one property of a flax shape that training reads: its
+rank.
 """
 
 from __future__ import annotations
@@ -56,16 +59,19 @@ def _layer_norm(node: Mapping[str, Any], prefix: str) -> Dict:
     }
 
 
-def params_from_flax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """f32 ``state_dict`` for the port's GPT from a flax GPT param tree."""
-    if cfg.moe_every > 0:
-        raise NotImplementedError("MoE parameter trees wait for the MoE slice")
-    sd: Dict[str, torch.Tensor] = {
-        "tok_emb.weight": _tensor(tree["tok_emb"]["embedding"]),
-    }
-    if not cfg.rope:
-        sd["pos_emb"] = _tensor(tree["pos_emb"])
+def _conv(node: Mapping[str, Any], prefix: str) -> Dict:
+    kernel = np.asarray(node["kernel"], dtype=np.float32)  # HWIO
+    sd = {f"{prefix}.weight": _tensor(kernel.transpose(3, 2, 0, 1))}
+    if "bias" in node:
+        sd[f"{prefix}.bias"] = _tensor(node["bias"])
+    return sd
+
+
+def _encoder_stack(tree: Mapping[str, Any], cfg) -> Dict:
+    """The pre-LN blocks (``layers.{i}``), the final LayerNorm and the
+    learned positions of GPT, BERT or ViT."""
     mha = (cfg.num_kv_heads or cfg.num_heads) == cfg.num_heads
+    sd: Dict[str, torch.Tensor] = {}
     for i in range(cfg.num_layers):
         node = tree[f"layer_{i}"]
         p = f"layers.{i}"
@@ -80,7 +86,61 @@ def params_from_flax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
         sd.update(_linear(node["Dense_0"], 1, f"{p}.fc_in"))
         sd.update(_linear(node["Dense_1"], 1, f"{p}.fc_out"))
     sd.update(_layer_norm(tree["LayerNorm_0"], "ln_f"))
+    if not cfg.rope:
+        sd["pos_emb"] = _tensor(tree["pos_emb"])
     return sd
 
 
-__all__ = ["flax_rank", "params_from_flax"]
+def params_from_flax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """f32 ``state_dict`` for the port's GPT or BERT (``cfg`` a
+    ``GPTConfig`` or ``BertConfig``) from its flax param tree."""
+    if getattr(cfg, "moe_every", 0) > 0:
+        raise NotImplementedError("MoE parameter trees wait for the MoE slice")
+    sd = {"tok_emb.weight": _tensor(tree["tok_emb"]["embedding"])}
+    sd.update(_encoder_stack(tree, cfg))
+    return sd
+
+
+def vit_params_from_flax(tree: Mapping[str, Any],
+                         cfg) -> Dict[str, torch.Tensor]:
+    """f32 ``state_dict`` for the port's ViT from a flax ViT param tree."""
+    sd = _conv(tree["patch_embed"], "patch_embed")
+    sd["cls_token"] = _tensor(tree["cls_token"])
+    sd.update(_encoder_stack(tree, cfg))
+    sd.update(_linear(tree["head"], 1, "head"))
+    return sd
+
+
+def resnet_params_from_flax(tree: Mapping[str, Any],
+                            model) -> Dict[str, torch.Tensor]:
+    """f32 ``state_dict`` for the port's ResNet ``model`` from the flax
+    tree of the same stages: ``Conv_0``/``GroupNorm_0`` (the stem),
+    ``<Block>_{j}`` with its ``Conv_i``/``GroupNorm_i`` in creation order,
+    and ``Dense_0`` (the head)."""
+    sd = _conv(tree["Conv_0"], "stem")
+    sd.update(_layer_norm(tree["GroupNorm_0"], "stem_norm"))
+    for j, block in enumerate(model.blocks):
+        node = tree[f"{type(block).__name__}_{j}"]
+        for i in range(len(block.convs)):
+            sd.update(_conv(node[f"Conv_{i}"], f"blocks.{j}.convs.{i}"))
+            sd.update(_layer_norm(node[f"GroupNorm_{i}"],
+                                  f"blocks.{j}.norms.{i}"))
+    sd.update(_linear(tree["Dense_0"], 1, "head"))
+    return sd
+
+
+def mlp_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """f32 ``state_dict`` for the port's MLP from a flax MLP param tree."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(tree)):
+        sd.update(_linear(tree[f"Dense_{i}"], 1, f"dense.{i}"))
+    return sd
+
+
+__all__ = [
+    "flax_rank",
+    "mlp_params_from_flax",
+    "params_from_flax",
+    "resnet_params_from_flax",
+    "vit_params_from_flax",
+]

@@ -32,6 +32,8 @@ from cron_operator_tpu_torch.models.layers import (
     GroupedQKVProjection,
     LayerNorm,
     Linear,
+    draw_,
+    init_flax_layers_,
 )
 from cron_operator_tpu_torch.ops.attention import multi_head_attention
 
@@ -84,6 +86,12 @@ class KVCache:
 
 
 class DecoderLayer(nn.Module):
+    """Pre-LN block: attention (causal here; BERT's and ViT's
+    :class:`~cron_operator_tpu_torch.models.bert.EncoderLayer` is this block
+    with ``causal = False``), then the tanh-gelu FFN."""
+
+    causal = True
+
     def __init__(self, cfg: GPTConfig, device=None,
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -107,9 +115,9 @@ class DecoderLayer(nn.Module):
         cache_v: Optional[torch.Tensor] = None,
         pos: Optional[int] = None,
     ) -> torch.Tensor:
-        """Full causal pass when ``pos`` is None (writing the prompt's K/V
-        into the cache buffers when given: prefill); one-token decode at
-        cache position ``pos`` otherwise."""
+        """Full pass when ``pos`` is None (writing the prompt's K/V into the
+        cache buffers when given: prefill); one-token decode at cache
+        position ``pos`` otherwise."""
         cfg = self.config
         b, s, _ = x.shape
         y = self.ln_attn(x)
@@ -124,7 +132,7 @@ class DecoderLayer(nn.Module):
             attn = self._decode_attention(q, k, v, cache_k, cache_v, pos)
         else:
             attn = multi_head_attention(
-                q, k, v, causal=True, impl=cfg.attention_impl
+                q, k, v, causal=self.causal, impl=cfg.attention_impl
             )
             if cache_k is not None:
                 cache_k[:, :s] = k
@@ -188,34 +196,12 @@ class GPT(nn.Module):
         """Random weights at flax's initializer scales, drawn from
         ``generator`` (which must live on the parameters' device): token
         embedding normal with std 1/sqrt(hidden) (flax's default embed
-        init), pos_emb normal(0.02), Linear weights lecun-normal over their
-        fan-in (truncated at 2 std, as flax draws them), biases 0,
-        LayerNorm scale 1 and bias 0."""
-        cfg = self.config
-
-        def draw(param, std, truncated=False):
-            t = torch.empty(param.shape, dtype=torch.float32,
-                            device=param.device)
-            if truncated:
-                # flax lecun_normal: a standard normal truncated to [-2, 2],
-                # scaled so the truncated draw keeps the variance 1/fan_in.
-                nn.init.trunc_normal_(t, generator=generator)
-                t *= std / 0.87962566103423978
-            else:
-                nn.init.normal_(t, std=std, generator=generator)
-            param.copy_(t)
-
-        draw(self.tok_emb.weight, 1.0 / math.sqrt(cfg.hidden_size))
+        init), pos_emb normal(0.02), then :func:`init_flax_layers_`."""
+        draw_(self.tok_emb.weight, 1.0 / math.sqrt(self.config.hidden_size),
+              generator)
         if self.pos_emb is not None:
-            draw(self.pos_emb, 0.02)
-        for module in self.modules():
-            if isinstance(module, nn.Linear):
-                draw(module.weight, 1.0 / math.sqrt(module.in_features),
-                     truncated=True)
-                module.bias.zero_()
-            elif isinstance(module, LayerNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
+            draw_(self.pos_emb, 0.02, generator)
+        init_flax_layers_(self, generator)
         return self
 
     def new_cache(self, batch: int) -> KVCache:

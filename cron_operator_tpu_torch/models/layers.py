@@ -1,20 +1,23 @@
 """Shared Q/K/V projection, as in ``cron_operator_tpu/models/layers.py``,
-and the layers that keep flax's split between parameter and compute dtype.
+the layers that keep flax's split between parameter and compute dtype, and
+flax's initializer scales.
 
 Fused ``qkv`` projection to ``(3, heads, head_dim)`` for MHA; split ``q``
 (``(heads, head_dim)``) and ``kv`` (``(2, kv_heads, head_dim)``) for
 grouped-query configs; RoPE on Q/K when the config asks for it.
 
 Flax modules keep their parameters in ``param_dtype`` (f32 by default) and
-cast them to ``dtype`` where they are used; :class:`Linear` and
-:class:`LayerNorm` do the same with explicit casts. ``torch.autocast`` is
-not used: it returns f32 from ``layer_norm``, where flax's LayerNorm
-normalises in f32 and rounds its output to ``dtype``.
+cast them to ``dtype`` where they are used; :class:`Linear`,
+:class:`Conv2d`, :class:`LayerNorm` and :class:`GroupNorm` do the same with
+explicit casts. ``torch.autocast`` is not used: it returns f32 from
+``layer_norm``, where flax's LayerNorm normalises in f32 and rounds its
+output to ``dtype``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +57,114 @@ class LayerNorm(nn.LayerNorm):
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(self.compute_dtype)
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """flax's ``"SAME"`` padding of one spatial axis, (before, after): the
+    output has ceil(size / stride) positions and the odd pixel of an odd
+    total goes after."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2d(nn.Conv2d):
+    """flax ``nn.Conv(dtype=..., param_dtype=...)`` over NCHW-shaped tensors:
+    parameters in ``param_dtype`` (the weight ``channels_last``, as flax's
+    NHWC), the product in ``compute_dtype``.
+
+    ``padding`` is ``"SAME"`` (flax's default, by :func:`same_padding` on
+    each axis at call time; an asymmetric pad is applied with ``F.pad``) or
+    explicit ``((top, bottom), (left, right))``. torch's ``padding=1`` on a
+    stride-2 3x3 over an even map pads (1, 1) where flax pads (0, 1).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, *, compute_dtype: torch.dtype,
+                 padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+                 bias: bool = False, device=None,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         bias=bias, device=device, dtype=param_dtype)
+        self.weight = nn.Parameter(
+            self.weight.detach().contiguous(memory_format=torch.channels_last)
+        )
+        self.flax_padding = padding
+        self.compute_dtype = compute_dtype
+
+    def _pads(self, hw) -> Sequence[Tuple[int, int]]:
+        if self.flax_padding != "SAME":
+            return self.flax_padding
+        return [same_padding(n, k, s) for n, k, s in
+                zip(hw, self.kernel_size, self.stride)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = x.to(dt)
+        (top, bottom), (left, right) = self._pads(x.shape[-2:])
+        if top == bottom and left == right:
+            padding = (top, left)
+        else:
+            x = F.pad(x, (left, right, top, bottom))
+            padding = 0
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x, self.weight.to(dt), bias, self.stride, padding)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm(dtype=...)``: 32 groups of consecutive channels,
+    epsilon 1e-6, normalised in f32 with f32 parameters and rounded to
+    ``compute_dtype``. The variance is ``F.group_norm``'s, E[(x - E[x])^2];
+    flax computes E[x^2] - E[x]^2 (``use_fast_variance``), which loses
+    digits to cancellation when a group's mean is large beside its spread."""
+
+    def __init__(self, channels: int, *, compute_dtype: torch.dtype,
+                 device=None, param_dtype: torch.dtype = torch.float32):
+        super().__init__(32, channels, eps=1e-6, device=device,
+                         dtype=param_dtype)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(self.compute_dtype)
+
+
+# flax's lecun_normal: a standard normal truncated to [-2, 2], scaled so the
+# truncated draw keeps the variance 1/fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def draw_(param: torch.Tensor, std: float, generator: torch.Generator,
+          truncated: bool = False) -> None:
+    """Fill ``param`` from normal(0, std) drawn by ``generator`` (which must
+    live on the parameter's device), truncated at 2 std as flax's
+    ``lecun_normal`` draws when ``truncated``."""
+    t = torch.empty(param.shape, dtype=torch.float32, device=param.device)
+    if truncated:
+        nn.init.trunc_normal_(t, generator=generator)
+        t *= std / _TRUNC_STD
+    else:
+        nn.init.normal_(t, std=std, generator=generator)
+    param.copy_(t)
+
+
+@torch.no_grad()
+def init_flax_layers_(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initializers for every layer of ``model``, in module
+    order: ``Linear`` and ``Conv2d`` kernels truncated lecun-normal over
+    their fan-in (a conv's is kh * kw * in_channels), biases 0, norm scales
+    1 and biases 0."""
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Conv2d)):
+            fan_in = module.weight[0].numel()
+            draw_(module.weight, 1.0 / math.sqrt(fan_in), generator,
+                  truncated=True)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
 
 
 class GroupedQKVProjection(nn.Module):
@@ -108,4 +219,13 @@ class GroupedQKVProjection(nn.Module):
         return q, k, v
 
 
-__all__ = ["GroupedQKVProjection", "LayerNorm", "Linear"]
+__all__ = [
+    "Conv2d",
+    "GroupNorm",
+    "GroupedQKVProjection",
+    "LayerNorm",
+    "Linear",
+    "draw_",
+    "init_flax_layers_",
+    "same_padding",
+]

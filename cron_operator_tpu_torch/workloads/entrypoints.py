@@ -12,17 +12,29 @@ Common params: ``platform`` (unset = the CUDA card; ``cpu`` on request);
 for training, ``steps``, ``batch_size``, ``data`` (``device`` default |
 ``host``), ``lr``/``lr_schedule``/``warmup_steps``/``schedule_steps``/
 ``grad_clip``/``decay_mask``/``sync_every`` (see :func:`_train_kwargs`).
+Every training job's weights come from seed 0, and besides the JAX
+``_run``'s progress keys it publishes ``n_params``. The mesh params, MoE,
+ring/Ulysses attention, checkpoints, ``data=fused``, ``prefetch``,
+``steps_per_call`` > 1, ``mfu``, ``flops_accounting`` and ``profile_dir``
+raise ``NotImplementedError`` until their slice (:func:`_refuse_later_slices`);
+``stage_async`` is accepted (staging runs inline).
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Dict, Iterator, Optional
+from dataclasses import replace
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
+from torch import nn
 
+from cron_operator_tpu_torch.models.bert import Bert, BertConfig
 from cron_operator_tpu_torch.models.gpt import GPT, GPTConfig
+from cron_operator_tpu_torch.models.mlp import MLP
+from cron_operator_tpu_torch.models.resnet import ResNet50
+from cron_operator_tpu_torch.models.vit import ViT, ViTConfig
 from cron_operator_tpu_torch.utils.device import resolve_device
 from cron_operator_tpu_torch.workloads import data as datasets
 from cron_operator_tpu_torch.workloads.generate import generate
@@ -110,6 +122,37 @@ def _batches(ctx, host_factory, device_factory) -> Iterator[Dict[str, Any]]:
     if ctx.params.get("data", "device") == "host":
         return host_factory()
     return device_factory()
+
+
+def _remat(ctx) -> bool:
+    return ctx.params.get("remat", "0") in ("1", "true")
+
+
+def _seeded(model: nn.Module, device: torch.device) -> nn.Module:
+    """``model`` with flax-scale random weights from seed 0."""
+    return model.init_weights(torch.Generator(device=device).manual_seed(0))
+
+
+def _train_job(
+    ctx,
+    model: nn.Module,
+    steps: int,
+    host_factory: Callable[[], Iterator],
+    device_factory: Callable[[], Iterator],
+    tokens_per_step: Optional[int] = None,
+    loss_fn=cross_entropy_loss,
+    **train_defaults,
+) -> None:
+    """Publish ``n_params``, then train ``model`` through :func:`_run` on
+    the batches ``param.data`` picks, with ``train_defaults`` under the
+    common optimizer params."""
+    ctx.progress["n_params"] = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(
+        model, TrainConfig(**_train_kwargs(ctx, steps, **train_defaults)),
+        loss_fn=loss_fn,
+    )
+    _run(ctx, trainer, _batches(ctx, host_factory, device_factory), steps,
+         tokens_per_step=tokens_per_step)
 
 
 def _run(
@@ -221,6 +264,67 @@ def _run(
         )
 
 
+def mnist(ctx) -> None:
+    """MLP on synthetic MNIST, as the JAX ``mnist`` entrypoint. Params:
+    steps(=20), batch_size(=256), SGD at lr 0.01 unless ``param.lr``."""
+    _refuse_later_slices(ctx)
+    steps = int(ctx.params.get("steps", 20))
+    batch_size = int(ctx.params.get("batch_size", 256))
+    device = resolve_device(ctx.params.get("platform"))
+    _train_job(
+        ctx, _seeded(MLP(device=device), device), steps,
+        lambda: datasets.mnist_batches(batch_size),
+        lambda: datasets.device_mnist_batches(batch_size, device=device),
+        optimizer="sgd", learning_rate=0.01,
+    )
+
+
+def resnet50(ctx) -> None:
+    """ResNet-50 on synthetic ImageNet, the JAX package's north-star
+    workload. Params: steps(=10), batch_size(=128), image_size(=224), SGD
+    at lr 0.1 unless ``param.lr``."""
+    _refuse_later_slices(ctx)
+    steps = int(ctx.params.get("steps", 10))
+    batch_size = int(ctx.params.get("batch_size", 128))
+    image_size = int(ctx.params.get("image_size", 224))
+    device = resolve_device(ctx.params.get("platform"))
+    _train_job(
+        ctx, _seeded(ResNet50(device=device), device), steps,
+        lambda: datasets.imagenet_batches(batch_size, image_size),
+        lambda: datasets.device_imagenet_batches(batch_size, image_size,
+                                                 device=device),
+        optimizer="sgd", learning_rate=0.1,
+    )
+
+
+def bert(ctx) -> None:
+    """BERT MLM on synthetic tokens, as the JAX ``bert`` entrypoint.
+
+    Params: steps(=10), batch_size(=8), seq_len(=512, the model's max_len),
+    size(=base|tiny), attention(=auto|flash|xla: ``auto`` runs the Hopper
+    flash kernels, non-causal, on the card when seq_len is a multiple of
+    128), remat(=0), kv_heads(=0: MHA), rope(=0|1). AdamW at lr 1e-3;
+    targets are the inputs (``token_batches``).
+    """
+    _refuse_later_slices(ctx)
+    steps = int(ctx.params.get("steps", 10))
+    batch_size = int(ctx.params.get("batch_size", 8))
+    seq_len = int(ctx.params.get("seq_len", 512))
+    size = ctx.params.get("size", "base")
+    device = resolve_device(ctx.params.get("platform"))
+    maker = BertConfig.tiny if size == "tiny" else BertConfig.base
+    cfg = maker(max_len=seq_len,
+                attention_impl=ctx.params.get("attention", "auto"),
+                **_gqa_rope_kwargs(ctx))
+    _train_job(
+        ctx, _seeded(Bert(cfg, device=device), device), steps,
+        lambda: datasets.token_batches(batch_size, seq_len, cfg.vocab_size),
+        lambda: datasets.device_token_batches(
+            batch_size, seq_len, cfg.vocab_size, device=device),
+        tokens_per_step=batch_size * seq_len, remat=_remat(ctx),
+    )
+
+
 def gpt(ctx) -> None:
     """GPT causal LM on synthetic tokens, as the JAX ``gpt`` entrypoint.
 
@@ -230,12 +334,7 @@ def gpt(ctx) -> None:
     the ``[b, s, vocab]`` logits are never built), kv_heads(=0: MHA),
     rope(=0|1), data(=device|host), platform, and the optimizer params of
     :func:`_train_kwargs` (AdamW at lr 1e-3 by default). Targets are
-    next-token shifted. Weights come from seed 0. Besides the training
-    progress keys it publishes ``n_params``. The mesh params, MoE,
-    ring/Ulysses attention, checkpoints, ``data=fused``, ``prefetch``,
-    ``steps_per_call`` > 1, ``mfu``, ``flops_accounting`` and
-    ``profile_dir`` raise ``NotImplementedError`` until their slice;
-    ``stage_async`` is accepted (staging runs inline).
+    next-token shifted.
     """
     _refuse_later_slices(ctx)
     steps = int(ctx.params.get("steps", 10))
@@ -249,10 +348,6 @@ def gpt(ctx) -> None:
         max_len=seq_len, attention_impl=ctx.params.get("attention", "auto"),
         return_hidden=fused_xent, **_gqa_rope_kwargs(ctx),
     )
-    model = GPT(cfg, device=device).init_weights(
-        torch.Generator(device=device).manual_seed(0)
-    )
-    ctx.progress["n_params"] = sum(p.numel() for p in model.parameters())
     if fused_xent:
         from cron_operator_tpu_torch.ops.xent import chunked_cross_entropy
 
@@ -261,26 +356,41 @@ def gpt(ctx) -> None:
             return chunked_cross_entropy(hidden, table, y)
     else:
         loss_fn = cross_entropy_loss
-    trainer = Trainer(
-        model,
-        TrainConfig(**_train_kwargs(
-            ctx, steps, remat=ctx.params.get("remat", "0") in ("1", "true"),
-        )),
-        loss_fn=loss_fn,
+    _train_job(
+        ctx, _seeded(GPT(cfg, device=device), device), steps,
+        lambda: datasets.causal_token_batches(
+            batch_size, seq_len, cfg.vocab_size),
+        lambda: datasets.device_causal_token_batches(
+            batch_size, seq_len, cfg.vocab_size, device=device),
+        tokens_per_step=batch_size * seq_len, loss_fn=loss_fn,
+        remat=_remat(ctx),
     )
-    _run(
-        ctx, trainer,
-        _batches(
-            ctx,
-            lambda: datasets.causal_token_batches(
-                batch_size, seq_len, cfg.vocab_size
-            ),
-            lambda: datasets.device_causal_token_batches(
-                batch_size, seq_len, cfg.vocab_size, device=device
-            ),
-        ),
-        steps,
-        tokens_per_step=batch_size * seq_len,
+
+
+def vit(ctx) -> None:
+    """ViT classification on synthetic ImageNet, as the JAX ``vit``
+    entrypoint. Params: steps(=10), batch_size(=64), image_size(=the
+    config's: 224 base, 32 tiny), size(=base|tiny), remat(=0),
+    kv_heads(=0: MHA), rope(=0|1: rotary over the flattened patch index,
+    replacing the learned table). AdamW at lr 1e-3. Attention is the plain
+    path: (size/patch)^2 + 1 tokens are never a multiple of 128.
+    """
+    _refuse_later_slices(ctx)
+    steps = int(ctx.params.get("steps", 10))
+    batch_size = int(ctx.params.get("batch_size", 64))
+    size = ctx.params.get("size", "base")
+    device = resolve_device(ctx.params.get("platform"))
+    maker = ViTConfig.tiny if size == "tiny" else ViTConfig.base
+    cfg = maker(**_gqa_rope_kwargs(ctx))
+    cfg = replace(cfg, image_size=int(ctx.params.get("image_size",
+                                                     cfg.image_size)))
+    _train_job(
+        ctx, _seeded(ViT(cfg, device=device), device), steps,
+        lambda: datasets.imagenet_batches(batch_size, cfg.image_size,
+                                          num_classes=cfg.num_classes),
+        lambda: datasets.device_imagenet_batches(
+            batch_size, cfg.image_size, cfg.num_classes, device=device),
+        remat=_remat(ctx),
     )
 
 
@@ -381,4 +491,4 @@ def generate_job(ctx) -> None:
             ctx.publish()
 
 
-__all__ = ["generate_job", "gpt"]
+__all__ = ["bert", "generate_job", "gpt", "mnist", "resnet50", "vit"]

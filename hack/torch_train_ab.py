@@ -89,8 +89,11 @@ def _device_busy_ms(torch, fn, iters: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    # a record_function range (the optimizer's step) also carries the device
+    # time of the kernels inside it: leave it out of the sum
     busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type.name == "CUDA")
+                  if e.device_type.name == "CUDA"
+                  and not getattr(e, "is_user_annotation", False))
     return busy_us / 1e3 / iters
 
 

@@ -1,7 +1,8 @@
 """The port's entrypoints against the JAX package's: ``generate_job`` and
-the ``gpt`` training job take the same params and publish the same progress
-keys (and ``generate_job`` the same read-bytes model); they run on the card
-unless asked, and the params of later slices raise."""
+the training jobs (``gpt``, ``bert``, ``mnist``, ``resnet50``, ``vit``) take
+the same params and publish the same progress keys (and ``generate_job``
+the same read-bytes model); they run on the card unless asked, and the
+params of later slices raise."""
 
 import threading
 
@@ -10,8 +11,10 @@ import torch
 
 from cron_operator_tpu.backends.registry import JobContext as JaxJobContext
 from cron_operator_tpu.workloads.entrypoints import generate_job as jax_generate_job
+from cron_operator_tpu.workloads import entrypoints as jax_entrypoints
 from cron_operator_tpu.workloads.entrypoints import gpt as jax_gpt
 from cron_operator_tpu_torch.backends.registry import JobContext
+from cron_operator_tpu_torch.workloads import entrypoints
 from cron_operator_tpu_torch.workloads.entrypoints import generate_job, gpt
 
 PARAMS = {
@@ -177,3 +180,103 @@ def test_gpt_refuses_the_cpu_unless_asked(monkeypatch):
 def test_gpt_later_slices_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         gpt(JobContext("train", "default", {}, {**GPT_PARAMS, **extra}))
+
+
+# The other training jobs at tiny sizes on the CPU (ResNet-50 keeps its
+# full width: the JAX job has no size param; image 32 keeps it quick).
+JOB_PARAMS = {
+    "mnist": {"batch_size": "8"},
+    "bert": {"size": "tiny", "batch_size": "2", "seq_len": "32",
+             "attention": "xla"},
+    "resnet50": {"batch_size": "2", "image_size": "32"},
+    "vit": {"size": "tiny", "batch_size": "2"},
+}
+N_PARAMS = {"mnist": 535_818, "resnet50": 25_557_032}
+
+
+def _job_params(job, **extra):
+    return {"platform": "cpu", "steps": "3", **JOB_PARAMS[job], **extra}
+
+
+@pytest.mark.parametrize("job", ["mnist", "bert", "vit"])
+def test_training_jobs_publish_what_the_jax_jobs_publish(job):
+    """Host data, one step per call, inline staging: the JAX job's progress
+    keys plus the port's ``n_params``; ``tokens_per_s`` only for BERT."""
+    params = _job_params(job, data="host", steps_per_call="1",
+                         stage_async="0")
+    jctx = JaxJobContext("train", "default", {}, {**params, "devices": "1"})
+    getattr(jax_entrypoints, job)(jctx)
+    ctx = JobContext("train", "default", {}, dict(params))
+    getattr(entrypoints, job)(ctx)
+    assert set(ctx.progress) == set(jctx.progress) | {"n_params"}
+    for key in ("steps_done", "steps_per_call", "data_mode"):
+        assert ctx.progress[key] == jctx.progress[key], key
+    assert ("tokens_per_s" in ctx.progress) == (job == "bert")
+    assert ctx.progress["n_params"] == N_PARAMS.get(
+        job, ctx.progress["n_params"])
+
+
+def test_resnet50_publishes_the_jax_run_keys():
+    """The JAX ``_run`` publishes one key set for every job without a token
+    count (read from a JAX ``mnist`` run, which compiles in seconds where
+    ResNet-50 takes minutes); the port's ``resnet50`` adds ``n_params``,
+    ResNet-50's 25,557,032."""
+    jctx = JaxJobContext("train", "default", {}, {
+        **_job_params("mnist", data="host", steps_per_call="1",
+                      stage_async="0"), "devices": "1"})
+    jax_entrypoints.mnist(jctx)
+    ctx = JobContext("train", "default", {}, _job_params(
+        "resnet50", steps="2", data="host"))
+    entrypoints.resnet50(ctx)
+    assert set(ctx.progress) == set(jctx.progress) | {"n_params"}
+    assert ctx.progress["n_params"] == 25_557_032
+    assert ctx.progress["steps_done"] == 2
+
+
+@pytest.mark.parametrize("job", ["mnist", "bert", "vit"])
+def test_training_jobs_draw_on_the_device_by_default(job):
+    ctx = JobContext("train", "default", {}, _job_params(job))
+    getattr(entrypoints, job)(ctx)
+    assert ctx.progress["data_mode"] == "device"
+    assert ctx.progress["steps_done"] == 3
+    import math
+    assert math.isfinite(ctx.progress["last_loss"])
+
+
+@pytest.mark.parametrize("job", sorted(JOB_PARAMS))
+def test_training_jobs_refuse_the_cpu_unless_asked(job, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = {k: v for k, v in _job_params(job).items() if k != "platform"}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(entrypoints, job)(JobContext("train", "default", {}, params))
+
+
+@pytest.mark.parametrize("job", sorted(JOB_PARAMS))
+@pytest.mark.parametrize("extra, match", [
+    ({"fsdp": "2"}, "param.fsdp"), ({"checkpoint": "1"}, "checkpoint"),
+    ({"steps_per_call": "4"}, "steps_per_call"),
+])
+def test_training_jobs_later_slices_raise(job, extra, match):
+    with pytest.raises(NotImplementedError, match=match):
+        getattr(entrypoints, job)(
+            JobContext("train", "default", {}, _job_params(job, **extra)))
+
+
+def test_device_streams_have_the_host_streams_shapes():
+    """``data=device`` draws what the numpy streams give (shapes, dtypes,
+    label range), from a torch.Generator: other values than Threefry's."""
+    from cron_operator_tpu_torch.workloads import data
+
+    for host, dev, classes in (
+            (data.mnist_batches(3), data.device_mnist_batches(3, device="cpu"),
+             10),
+            (data.imagenet_batches(2, 16, 10),
+             data.device_imagenet_batches(2, 16, 10, device="cpu"), 10),
+            (data.token_batches(2, 8, 50),
+             data.device_token_batches(2, 8, 50, device="cpu"), 50)):
+        a, b = next(host), next(dev)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert tuple(a[k].shape) == tuple(b[k].shape), k
+            assert str(b[k].dtype) == f"torch.{a[k].dtype}", k
+        assert 0 <= int(b["y"].min()) and int(b["y"].max()) < classes

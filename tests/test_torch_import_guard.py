@@ -11,7 +11,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "cron_operator_tpu")
 FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "hack" / "torch_serving_ab.py"
+    ROOT / "chip_smoke.py", ROOT / "hack" / "torch_serving_ab.py",
+    ROOT / "hack" / "torch_train_ab.py",
 ]
 
 

@@ -5,7 +5,7 @@ A live ``Manager`` with the ``CronReconciler`` and a thread-isolation
 ``kubeflow.org/v1 PyTorchJob`` template names the port's ``generate_job`` by
 ``module:function``; the workload must reach Succeeded with the port's
 progress folded into its status. The same holds for the port's ``gpt``
-training job.
+and ``mnist`` training jobs.
 """
 
 import time
@@ -17,6 +17,7 @@ from cron_operator_tpu.runtime import APIServer, Manager
 
 ENTRYPOINT = "cron_operator_tpu_torch.workloads.entrypoints:generate_job"
 GPT_ENTRYPOINT = "cron_operator_tpu_torch.workloads.entrypoints:gpt"
+MNIST_ENTRYPOINT = "cron_operator_tpu_torch.workloads.entrypoints:mnist"
 GENERATE_PARAMS = {"platform": "cpu", "size": "tiny", "rounds": "1",
                    "max_new": "4", "batch_size": "2", "prompt_len": "4"}
 
@@ -90,3 +91,12 @@ def test_cron_runs_the_port_gpt_training_job():
     }))
     assert progress["first_step_at"] > 0
     assert progress["steps_done"] == 2
+
+
+def test_cron_runs_the_port_mnist_training_job():
+    progress = _run_until_succeeded(_cron(MNIST_ENTRYPOINT, {
+        "platform": "cpu", "steps": "2", "batch_size": "8",
+    }))
+    assert progress["first_step_at"] > 0
+    assert progress["steps_done"] == 2
+    assert progress["n_params"] == 535_818
