@@ -21,36 +21,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
    backward run must be bit-identical, and the backward's peak memory must
    grow about linearly from seq 2048 to 8192.
 3. The serving slice at GPT-2 small width: ``generate_job`` through a job
-   context, with every kernel count set to 0 just before and read just
-   after (every K1 launch must be of the sm90 design); then prefill logits
-   through the kernel against the plain-attention path on the same weights
-   and prompt.
+   context (its decode steps replay a captured CUDA graph), with every
+   kernel count set to 0 just before and read just after (every K1 launch
+   must be of the sm90 design); then prefill logits through the kernel
+   against the plain-attention path on the same weights and prompt.
 4. Serving times: K1 per launch at the slice's shape (device time of
    back-to-back launches with the card held busy while the host enqueues
    them; plain CUDA-event time beside it), beside its bound, the plain
    version and
    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it); the slice's prefill, decode step and tokens/s (CUDA events,
-   medians).
+   calls it); the slice's prefill, eager decode step and tokens/s (CUDA
+   events, medians); then generation through the decode graph against the
+   eager loop: greedy tokens identical, decode ms a step, device ms of a
+   replayed step, busy share and tokens/s of each.
 5. The training slice at GPT-2 small width: ``gpt`` through a job context
-   (b 8, s 1024, 10 steps), every kernel count set to 0 just before and
-   read just after (K1, K2 and K3 all sm90); then three steps on
-   the kernel path against the plain-attention path from the same f32
-   weights, both measured against an f32 run.
+   (b 8, s 1024, 10 steps in the default mode: ``steps_per_call`` 8, one
+   captured step replayed), every kernel count set to 0 just before and
+   read just after (K1, K2 and K3 all sm90, 120 each through the replay
+   accounting); then three steps on the kernel path against the
+   plain-attention path from the same f32 weights, both measured against
+   an f32 run.
 6. Training times: K1, K2 and K3 per launch at the slice's shape (device
    time, event time beside it) beside their bounds, their plain versions
-   and the SDPA yardsticks (SDPA's backward alone for K2 and K3); the train
-   step, tokens/s and MFU; a profile of one step.
+   and the SDPA yardsticks (SDPA's backward alone for K2 and K3); then the
+   step as one replayed graph of 8 steps (``step(..., chunk=8)``) against
+   the eager step in this process: 8 eager steps and one graphed call
+   from the same weights and data must leave the same loss and the same
+   parameter bits; the step ms, tokens/s, MFU and device busy share of
+   each; profiles of an eager step and a graphed call.
 7. BERT-base through ``bert`` (b 8, s 512, 10 steps): K1, K2 and K3 each
    launched 120 times, all sm90, non-causal; three steps on the kernel
    path against the plain path and f32, as phase 5; K1-K3 at BERT's shape
    beside their bounds, plain versions and SDPA (``is_causal=False``); the
-   train step, tokens/s, MFU and a profile.
+   graph against the eager step, as phase 6.
 8. ResNet-50 (``resnet50``: b 128, image 224, SGD), ViT-B/16 (``vit``:
    b 64, image 224) and the MLP (``mnist``) at their defaults, each with
    its parameter count and no flash launch; for ResNet-50 and ViT the
-   step, images/s, model FLOPs per step (``FlopCounterMode``), MFU and a
-   profile.
+   graph against the eager step as phase 6, with model FLOPs per step
+   from ``FlopCounterMode``.
 9. A ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
 
@@ -60,6 +68,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -96,6 +105,7 @@ RESNET50_PARAMS = {"batch_size": "128", "image_size": "224", "steps": "10"}
 VIT_PARAMS = {"size": "base", "batch_size": "64", "image_size": "224",
               "steps": "10"}
 MNIST_PARAMS = {"batch_size": "256", "steps": "20"}
+GRAPH_CHUNK = 8  # steps per call of the default mode (steps_per_call=auto)
 N_PARAMS = {"gpt": GPT2_SMALL_PARAMS, "bert": 108_890_112,
             "resnet50": 25_557_032, "vit": 86_567_656, "mnist": 535_818}
 TRAIN_PROGRESS_KEYS = (
@@ -531,7 +541,7 @@ def phase_times(torch, fa, flash_model, card):
 
         def decode_step():
             # rewind so every timed step decodes at one cache position
-            cache.pos = 512
+            cache.pos.fill_(512)
             flash_model.decode(token, cache)
 
         decode_ms = median_ms(torch, decode_step, iters=20)
@@ -557,8 +567,6 @@ def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int):
     kernel count set to 0 just before and read just after: each of K1, K2
     and K3 must have launched ``sm90_per_step`` times a step, all of the
     sm90 design (0 for a job whose attention never reaches the kernels)."""
-    import math
-
     from cron_operator_tpu_torch.backends.registry import JobContext
     from cron_operator_tpu_torch.workloads import entrypoints
 
@@ -592,6 +600,9 @@ def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int):
              f"{N_PARAMS[job]}")
     if ctx.progress["steps_done"] != steps:
         fail(f"{job}: steps_done {ctx.progress['steps_done']} is not {steps}")
+    if ctx.progress["steps_per_call"] != GRAPH_CHUNK:
+        fail(f"{job}: steps_per_call {ctx.progress['steps_per_call']} is "
+             f"not the default mode's {GRAPH_CHUNK}")
     if len(ctx.progress["step_timeline"]) != steps:
         fail(f"{job}: step_timeline does not hold every step")
     if not math.isfinite(ctx.progress["last_loss"]):
@@ -743,35 +754,115 @@ def attention_rows(torch, fa, card, shape: dict, causal: bool, label: str):
     return rows
 
 
-def step_times(torch, card, label: str, trainer, batch, model_flops: float,
-               items: int, unit: str):
-    """One training step of ``trainer`` on ``batch`` (CUDA events over 5
-    back-to-back steps, median of 3), ``items`` a step in ``unit``/s, MFU
-    against the bf16 peak from ``model_flops`` a step, and a profile."""
-    step_ms = median_ms(torch, lambda: trainer.step(batch, sync=False),
-                        iters=5, reps=3, warmup=2)
-    mfu = model_flops / (step_ms / 1e3 * BF16_FLOPS)
-    print(f"[{card}] {label}: {step_ms:.3f} ms | {items / step_ms * 1e3:.1f} "
-          f"{unit}/s | {1e3 / step_ms:.3f} steps/s | model FLOPs/step "
-          f"{model_flops / 1e12:.4f} T | mfu {mfu:.4f} of "
-          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s", flush=True)
-    profile_window(torch, card, f"{label} x1", lambda: trainer.step(batch))
-    return {"step_ms": step_ms, f"{unit}_per_s": items / step_ms * 1e3,
-            "steps_per_s": 1e3 / step_ms, "mfu": mfu,
-            "model_flops_per_step": model_flops}
+def check_graph_step(torch, label: str, make_trainer):
+    """GRAPH_CHUNK eager steps against one call of as many steps replayed
+    from the captured step graph, each on a fresh trainer from
+    ``make_trainer`` (the same seed-0 weights and the same fused data
+    seed): the last loss and every parameter must be the same bits. Where
+    they are not, a second eager run measures the eager path's own
+    run-to-run spread (nondeterministic library kernels): the graph must
+    then differ from eager by no more than twice that, and the script
+    says so."""
+    k = GRAPH_CHUNK
+
+    def run(chunk):
+        trainer = make_trainer()
+        if chunk == 1:
+            for _ in range(k - 1):
+                trainer.step({}, sync=False)
+            loss = trainer.step({}).loss
+        else:
+            loss = trainer.step({}, chunk=k).loss
+        params = [p.detach().clone() for p in trainer.model.parameters()]
+        del trainer
+        torch.cuda.empty_cache()
+        return loss, params
+
+    def dist(a, b):
+        return max((x.float() - y.float()).abs().max().item()
+                   for x, y in zip(a[1], b[1]))
+
+    eager, graph = run(1), run(k)
+    if not all(math.isfinite(run_[0]) for run_ in (eager, graph)):
+        fail(f"{label}: the loss is not finite")
+    same = eager[0] == graph[0] and all(
+        torch.equal(a, b) for a, b in zip(eager[1], graph[1]))
+    if same:
+        print(f"{label}: {k} replayed steps == {k} eager steps (loss "
+              f"{graph[0]!r}, every parameter bit-identical)", flush=True)
+        return
+    spread = dist(eager, run(1))
+    d_graph = dist(eager, graph)
+    print(f"{label}: FINDING: graph differs from eager: loss {graph[0]!r} vs "
+          f"{eager[0]!r}, max|param diff| {d_graph:.3e}; eager against "
+          f"itself {spread:.3e}", flush=True)
+    if spread == 0 or d_graph > 2 * spread:
+        fail(f"{label}: the replayed steps differ from the eager steps "
+             "beyond the eager path's own spread")
 
 
-def lm_step_times(torch, card, label, model_cls, cfg, stream, shape, causal):
-    """The step of a language model at ``shape``: model FLOPs are 6 N T
-    plus the attention's 3 * 4 d b h per (query, key) pair the mask keeps,
-    per layer (forward and backward)."""
+def graph_vs_eager(torch, card, label: str, make_trainer, model_flops: float,
+                   items: int, unit: str):
+    """The step of a fused-data trainer (each step draws its batch) eagerly
+    and as one replayed graph of GRAPH_CHUNK steps (``step(..., chunk=8)``),
+    in this process: the wall ms a step (CUDA events over back-to-back
+    calls, median of 3: what the host's enqueue leaves of the card's time
+    is in it), the device ms a step (a graphed call enqueued while the card
+    is held busy: the kernels back to back, the same kernels as the eager
+    step's), the busy share (device ms over wall ms), ``items`` a step in
+    ``unit``/s and MFU against the bf16 peak from ``model_flops`` a step;
+    then profiles of an eager step and a graphed call."""
+    k = GRAPH_CHUNK
+    check_graph_step(torch, label, make_trainer)
+    trainer = make_trainer()
+
+    def eager():
+        trainer.step({}, sync=False)
+
+    def graph():
+        trainer.step({}, sync=False, chunk=k)
+
+    graph()  # the warm-up step and the capture
+    device = device_ms(torch, graph, iters=1, reps=3) / k
+    rows = {"device_ms": device, "model_flops_per_step": model_flops}
+    for mode, fn, iters, per_call in (("eager", eager, k, 1),
+                                      ("graph", graph, 1, k)):
+        step_ms = median_ms(torch, fn, iters=iters, reps=3, warmup=1) / per_call
+        rows[mode] = {
+            "step_ms": step_ms, f"{unit}_per_s": items / step_ms * 1e3,
+            "steps_per_s": 1e3 / step_ms,
+            "mfu": model_flops / (step_ms / 1e3 * BF16_FLOPS),
+            "busy": device / step_ms,
+        }
+        print(f"[{card}] {label} {mode}: {step_ms:.3f} ms/step | "
+              f"{items / step_ms * 1e3:.1f} {unit}/s | mfu "
+              f"{rows[mode]['mfu']:.4f} of {BF16_FLOPS / 1e12:.0f} TFLOP/s | "
+              f"device {device:.3f} ms/step, busy {100 * device / step_ms:.1f}%"
+              f" | model FLOPs/step {model_flops / 1e12:.4f} T", flush=True)
+    profile_window(torch, card, f"{label} eager x1",
+                   lambda: trainer.step({}))
+    profile_window(torch, card, f"{label} graph x{k}",
+                   lambda: trainer.step({}, chunk=k))
+    del trainer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lm_step_times(torch, card, label, model_cls, cfg, sample, shape, causal):
+    """The step of a language model at ``shape``, graph against eager:
+    model FLOPs are 6 N T plus the attention's 3 * 4 d b h per (query, key)
+    pair the mask keeps, per layer (forward and backward)."""
     from cron_operator_tpu_torch.workloads.train import Trainer
 
     b, s, h, d = (shape[x] for x in "bshd")
-    model = model_cls(cfg, device="cuda").init_weights(
-        torch.Generator(device="cuda").manual_seed(0))
-    trainer = Trainer(model)
-    n_params = sum(p.numel() for p in model.parameters())
+
+    def make_trainer():
+        model = model_cls(cfg, device="cuda").init_weights(
+            torch.Generator(device="cuda").manual_seed(0))
+        return Trainer(model, sample_fn=sample)
+
+    n_params = sum(p.numel() for p in model_cls(cfg, device="meta")
+                   .parameters())
     tokens = b * s
     pairs = s * (s + 1) // 2 if causal else s * s
     attn_flops = cfg.num_layers * 3 * 4 * d * b * h * pairs
@@ -779,11 +870,8 @@ def lm_step_times(torch, card, label, model_cls, cfg, stream, shape, causal):
     print(f"[{card}] {label}: model FLOPs/step {dense_flops / 1e12:.4f} T "
           f"(6*N*T) + {attn_flops / 1e12:.4f} T (attention fwd+bwd, "
           f"causal={int(causal)})")
-    out = step_times(torch, card, label, trainer, next(stream),
-                     dense_flops + attn_flops, tokens, "tokens")
-    del model, trainer
-    torch.cuda.empty_cache()
-    return out
+    return graph_vs_eager(torch, card, label, make_trainer,
+                          dense_flops + attn_flops, tokens, "tokens")
 
 
 def phase_train_times(torch, fa, card):
@@ -797,8 +885,7 @@ def phase_train_times(torch, fa, card):
     step = lm_step_times(
         torch, card, f"train step (GPT-2 small, b{b} s{s}, bf16/f32 "
         "masters, AdamW)", GPT, cfg,
-        data.device_causal_token_batches(b, s, cfg.vocab_size, device="cuda"),
-        TRAIN_SHAPE, True)
+        data.causal_token_sample(b, s, cfg.vocab_size), TRAIN_SHAPE, True)
     return rows, step
 
 
@@ -817,12 +904,11 @@ def phase_bert(torch, fa, card):
     rows = attention_rows(torch, fa, card, BERT_SHAPE, False, "bert")
     step = lm_step_times(
         torch, card, f"bert step (BERT-base, b{b} s{s}, bf16/f32 masters, "
-        "AdamW)", Bert, cfg,
-        data.device_token_batches(b, s, cfg.vocab_size, device="cuda"),
+        "AdamW)", Bert, cfg, data.token_sample(b, s, cfg.vocab_size),
         BERT_SHAPE, False)
     print(f"[{card}] bert job: {progress['tokens_per_s']} tokens/s, "
-          f"{progress['avg_step_time_s']} s/step (steps 2-10 of bert), first "
-          f"step {progress['compile_time_s']} s")
+          f"{progress['avg_step_time_s']} s/step (the calls after the first),"
+          f" first call {progress['compile_time_s']} s")
     print("bert " + json.dumps({
         **step, "job_tokens_per_s": progress["tokens_per_s"],
         "job_avg_step_time_s": progress["avg_step_time_s"],
@@ -834,36 +920,106 @@ def phase_bert(torch, fa, card):
 def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
                     train_config):
     """An image job at its defaults (no attention reaches the kernels),
-    then its step on the card (``make_model()``'s model with seed-0
-    weights, the job's optimizer): model FLOPs a step counted by
-    ``FlopCounterMode`` over one forward and backward."""
+    then its step on the card, graph against eager (``make_model()``'s
+    model with seed-0 weights, the job's optimizer, fused data): model
+    FLOPs a step counted by ``FlopCounterMode`` over one forward and
+    backward."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from cron_operator_tpu_torch.workloads import data
-    from cron_operator_tpu_torch.workloads.train import Trainer
+    from cron_operator_tpu_torch.workloads.train import (
+        Trainer,
+        cross_entropy_loss,
+    )
 
     _, progress = phase_job(torch, fa, job, params, 0)
     b, size = int(params["batch_size"]), int(params["image_size"])
-    model = make_model().init_weights(
-        torch.Generator(device="cuda").manual_seed(0))
-    trainer = Trainer(model, train_config)
-    batch = next(data.device_imagenet_batches(
-        b, size, model.head.out_features, device="cuda"))
+
+    def seeded():
+        return make_model().init_weights(
+            torch.Generator(device="cuda").manual_seed(0))
+
+    model = seeded()
+    sample = data.imagenet_sample(b, size, model.head.out_features)
+    batch = sample(torch.Generator(device="cuda").manual_seed(0))
     with FlopCounterMode(display=False) as counter:
-        trainer.loss_fn(model(batch["x"]), batch["y"]).backward()
-    model.zero_grad(set_to_none=True)
-    step = step_times(torch, card, f"{job} step (b{b}, image {size})",
-                      trainer, batch, counter.get_total_flops(), b, "images")
+        cross_entropy_loss(model(batch["x"]), batch["y"]).backward()
+    del model, batch
+    torch.cuda.empty_cache()
+    step = graph_vs_eager(
+        torch, card, f"{job} step (b{b}, image {size})",
+        lambda: Trainer(seeded(), train_config, sample_fn=sample),
+        counter.get_total_flops(), b, "images")
     print(f"[{card}] {job} job: {progress['steps_per_s']} steps/s, "
-          f"{progress['avg_step_time_s']} s/step (steps 2-10), first step "
-          f"{progress['compile_time_s']} s")
+          f"{progress['avg_step_time_s']} s/step (the calls after the "
+          f"first), first call {progress['compile_time_s']} s")
     print(f"{job} " + json.dumps({
         **step, "job_steps_per_s": progress["steps_per_s"],
         "job_avg_step_time_s": progress["avg_step_time_s"],
         "job_first_step_s": progress["compile_time_s"],
     }))
-    del model, trainer, batch
+
+
+def phase_serving_graph(torch, card, prefill_ms: float):
+    """Generation at the slice's shape (b 8, prompt 512, 64 new tokens,
+    greedy) through the decode graph against the eager loop, on the same
+    weights and prompt: the tokens must be identical. Wall ms of a whole
+    generation (host clock, synchronised, median of the 3 after a first
+    one that holds the graph's warm-up and capture) gives the decode ms a
+    step, ``(wall - prefill) / 63``, and tokens/s; the device ms of one
+    replayed decode step (the card held busy) over the decode ms a step is
+    the busy share of each."""
+    import importlib
+
+    from cron_operator_tpu_torch.models import GPTConfig
+
+    serving = importlib.import_module("cron_operator_tpu_torch.workloads.generate")
+    cfg = GPTConfig(max_len=1024)
+    model = slice_model(torch, cfg)
+    b, p, n = 8, 512, 64
+    prompt = torch.randint(0, cfg.vocab_size, (b, p), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+    outs, rows = {}, {}
+    with torch.inference_mode():
+        for mode, captured in (("eager", False), ("graph", True)):
+            walls = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[mode] = serving.generate(cfg, model, prompt, n,
+                                              captured=captured)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            gen_ms = statistics.median(walls[1:])
+            rows[mode] = {"generate_ms": gen_ms, "first_ms": walls[0],
+                          "decode_ms_per_step": (gen_ms - prefill_ms) / (n - 1),
+                          "tokens_per_s": b * n / gen_ms * 1e3}
+        if not torch.equal(outs["eager"], outs["graph"]):
+            fail("greedy tokens through the decode graph differ from the "
+                 "eager loop's")
+        decoder = serving._decoder(model, b, True, None)
+        token = prompt[:, -1:]
+
+        def replay():
+            decoder.cache.pos.fill_(p)  # every step decodes at one position
+            decoder.step({"token": token})
+
+        device = device_ms(torch, replay, iters=20, reps=5)
+        profile_window(torch, card, "generate graph x1",
+                       lambda: serving.generate(cfg, model, prompt, n))
+    rows["device_ms_per_step"] = device
+    for mode in ("eager", "graph"):
+        r = rows[mode]
+        r["busy"] = device / r["decode_ms_per_step"]
+        print(f"[{card}] generate {mode} (b{b} p{p} +{n}): "
+              f"{r['generate_ms']:.3f} ms (first {r['first_ms']:.1f}) | decode "
+              f"{r['decode_ms_per_step']:.3f} ms/step, device {device:.3f} ms,"
+              f" busy {100 * r['busy']:.1f}% | {r['tokens_per_s']:.1f} "
+              "tokens/s", flush=True)
+    print(f"greedy tokens: graph == eager ({b} x {n})", flush=True)
+    del model, decoder
     torch.cuda.empty_cache()
+    return rows
 
 
 CSRC = "cron_operator_tpu_torch/ops/csrc/"
@@ -922,13 +1078,16 @@ def main() -> None:
                                       flash_model, card)
     print(f"[{card}] slice tokens/s {progress['tokens_per_s']} (rounds 2-3 of "
           f"generate_job) | first round {progress['first_step_latency_s']} s")
+    del flash_model
+    torch.cuda.empty_cache()
+    serving = timed("serving graph", phase_serving_graph, torch, card,
+                    prefill_ms)
     print("slice " + json.dumps({
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
         "tokens_per_s": progress["tokens_per_s"],
         "decode_read_bytes_per_step": progress["decode_read_bytes_per_step"],
+        **serving,
     }))
-    del flash_model
-    torch.cuda.empty_cache()
 
     train_counts, train_progress = timed("gpt", phase_job, torch, fa, "gpt",
                                          TRAIN_PARAMS, 12)
@@ -936,8 +1095,8 @@ def main() -> None:
     train_rows, step = timed("gpt times", phase_train_times, torch, fa, card)
     print(f"[{card}] train job: {train_progress['tokens_per_s']} tokens/s, "
           f"{train_progress['avg_step_time_s']} s/step, "
-          f"{train_progress['steps_per_s']} steps/s (steps 2-10 of gpt), "
-          f"first step {train_progress['compile_time_s']} s")
+          f"{train_progress['steps_per_s']} steps/s (the calls after the "
+          f"first), first call {train_progress['compile_time_s']} s")
     print("train " + json.dumps({
         **step, "job_tokens_per_s": train_progress["tokens_per_s"],
         "job_avg_step_time_s": train_progress["avg_step_time_s"],

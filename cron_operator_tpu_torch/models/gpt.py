@@ -15,7 +15,10 @@ pass and writes every layer's K/V into a :class:`KVCache`;
 :meth:`GPT.decode` then takes one token per call against it. The cache is a
 static ``[b, max_len, kv_heads, head_dim]`` buffer per layer, updated in
 place (JAX returns a new one per step), with one position counter at the
-model level.
+model level. The counter is a 0-d int64 tensor on the cache's device, and
+every use of it in a decode step is an op on that device: a decode step
+never waits for the host, so it can be captured in a CUDA graph and
+replayed (``workloads.generate``).
 """
 
 from __future__ import annotations
@@ -78,11 +81,11 @@ class GPTConfig:
 @dataclass
 class KVCache:
     """Per-layer K/V buffers ``[b, max_len, kv_heads, head_dim]`` and the
-    number of positions written so far."""
+    number of positions written so far, a 0-d int64 tensor beside them."""
 
     k: List[torch.Tensor] = field(default_factory=list)
     v: List[torch.Tensor] = field(default_factory=list)
-    pos: int = 0
+    pos: Optional[torch.Tensor] = None
 
 
 class DecoderLayer(nn.Module):
@@ -113,21 +116,16 @@ class DecoderLayer(nn.Module):
         x: torch.Tensor,
         cache_k: Optional[torch.Tensor] = None,
         cache_v: Optional[torch.Tensor] = None,
-        pos: Optional[int] = None,
+        pos: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Full pass when ``pos`` is None (writing the prompt's K/V into the
         cache buffers when given: prefill); one-token decode at cache
-        position ``pos`` otherwise."""
+        position ``pos`` (a 1-element int64 tensor) otherwise."""
         cfg = self.config
         b, s, _ = x.shape
         y = self.ln_attn(x)
         decode = pos is not None
-        q, k, v = self.attn(
-            y,
-            rope_positions=(
-                torch.arange(pos, pos + 1, device=x.device) if decode else None
-            ),
-        )
+        q, k, v = self.attn(y, rope_positions=pos)
         if decode:
             attn = self._decode_attention(q, k, v, cache_k, cache_v, pos)
         else:
@@ -142,7 +140,7 @@ class DecoderLayer(nn.Module):
         y = self.fc_out(F.gelu(self.fc_in(y), approximate="tanh"))
         return x + y
 
-    def _decode_attention(self, q, k, v, cache_k, cache_v, pos: int):
+    def _decode_attention(self, q, k, v, cache_k, cache_v, pos):
         """One-token attention against the layer's cache: the new K/V land at
         ``pos``, unwritten positions are masked (not sliced) with -1e30, the
         grouped einsum serves ``group`` query heads per K/V head with f32
@@ -151,8 +149,8 @@ class DecoderLayer(nn.Module):
         cfg = self.config
         b, _, h, d = q.shape
         kv_h = k.shape[2]
-        cache_k[:, pos] = k[:, 0]
-        cache_v[:, pos] = v[:, 0]
+        cache_k.index_copy_(1, pos, k)
+        cache_v.index_copy_(1, pos, v)
         qg = q.reshape(b, kv_h, h // kv_h, d).float()
         scores = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.float())
         scores = scores * (1.0 / d ** 0.5)
@@ -210,17 +208,22 @@ class GPT(nn.Module):
         kv_heads = cfg.num_kv_heads or cfg.num_heads
         shape = (batch, cfg.max_len, kv_heads, cfg.hidden_size // cfg.num_heads)
         dev = self.tok_emb.weight.device
-        cache = KVCache()
+        cache = KVCache(pos=torch.zeros((), dtype=torch.int64, device=dev))
         for _ in range(cfg.num_layers):
             cache.k.append(torch.zeros(shape, dtype=cfg.dtype, device=dev))
             cache.v.append(torch.zeros(shape, dtype=cfg.dtype, device=dev))
         return cache
 
-    def _embed(self, input_ids: torch.Tensor, start: int) -> torch.Tensor:
+    def _embed(self, input_ids: torch.Tensor,
+                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings plus the learned positions ``0..s-1``, or
+        ``pos`` (a 1-element tensor) for a decode step."""
         dt = self.config.dtype
         x = self.tok_emb(input_ids).to(dt)
         if self.pos_emb is not None:
-            x = x + self.pos_emb[start:start + input_ids.shape[1]].to(dt)[None]
+            table = (self.pos_emb[:input_ids.shape[1]] if pos is None
+                     else self.pos_emb.index_select(0, pos))
+            x = x + table.to(dt)[None]
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -229,7 +232,7 @@ class GPT(nn.Module):
         return F.linear(self.ln_f(x), table).float()
 
     def forward(self, input_ids: torch.Tensor):
-        x = self._embed(input_ids, 0)
+        x = self._embed(input_ids)
         for layer in self.layers:
             x = layer(x)
         if self.config.return_hidden:
@@ -239,20 +242,20 @@ class GPT(nn.Module):
     def prefill(self, input_ids: torch.Tensor, cache: KVCache) -> torch.Tensor:
         """One batched causal pass over the prompt ``[b, p]`` that fills every
         layer's cache; returns the last position's logits ``[b, vocab]``."""
-        x = self._embed(input_ids, 0)
+        x = self._embed(input_ids)
         for layer, ck, cv in zip(self.layers, cache.k, cache.v):
             x = layer(x, ck, cv)
-        cache.pos = input_ids.shape[1]
+        cache.pos.fill_(input_ids.shape[1])
         return self._logits(x[:, -1:])[:, 0]
 
     def decode(self, token: torch.Tensor, cache: KVCache) -> torch.Tensor:
         """One token ``[b, 1]`` at the cache's next position; returns its
-        logits ``[b, vocab]``."""
-        pos = cache.pos
-        cache.pos = pos + 1
+        logits ``[b, vocab]`` and advances the position, on the device."""
+        pos = cache.pos.reshape(1)
         x = self._embed(token, pos)
         for layer, ck, cv in zip(self.layers, cache.k, cache.v):
             x = layer(x, ck, cv, pos=pos)
+        cache.pos.add_(1)
         return self._logits(x)[:, 0]
 
 

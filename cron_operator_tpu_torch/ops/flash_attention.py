@@ -19,7 +19,9 @@ from the dtype and head dim before anything launches:
 
 The source files' headers state each kernel's bound and design. Every
 wrapper counts its launches (``.launches``) and its launches per design
-(``.launches_by_design``). :func:`forward_tolerance`,
+(``.launches_by_design``); a launch recorded by a CUDA graph capture counts
+once per replay of the graph (:func:`capture_launches`,
+:func:`count_replays`). :func:`forward_tolerance`,
 :func:`dq_tolerance` and :func:`dkv_tolerance` state how far a kernel may lie
 from the plain version.
 
@@ -48,9 +50,10 @@ tiles at head dim 128), which divide every accepted ``seq``; the sm90 K1's
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -149,10 +152,49 @@ def _for_tma(x: torch.Tensor) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def _count(fn, design: str) -> None:
+# The launches recorded by each CUDA graph capture in progress, by the
+# handle of the stream it captures: a capture records a kernel without
+# running it. Keyed by stream, not by thread: the backward of a captured
+# step launches on the autograd engine's thread, on the capture's stream.
+_capture_tallies: Dict[int, Dict[Tuple[object, str], int]] = {}
+
+
+def _count(fn, design: str, stream: int) -> None:
+    """One launch of ``fn``'s kernel on ``stream`` (a CUDA stream handle),
+    or one recorded by the capture of that stream."""
     with _count_lock:
+        tally = _capture_tallies.get(stream)
+        if tally is not None:
+            tally[fn, design] = tally.get((fn, design), 0) + 1
+            return
         fn.launches += 1
         fn.launches_by_design[design] += 1
+
+
+@contextlib.contextmanager
+def capture_launches(stream: int) -> Iterator[Dict[Tuple[object, str], int]]:
+    """Around a CUDA graph capture of ``stream`` (its handle,
+    ``torch.cuda.Stream.cuda_stream``): the wrappers' launches on that
+    stream go into the yielded tally (``(wrapper, design) -> launches``)
+    instead of their counts, since the capture only records them. Each
+    replay of the graph then adds them through :func:`count_replays`."""
+    tally: Dict[Tuple[object, str], int] = {}
+    with _count_lock:
+        _capture_tallies[stream] = tally
+    try:
+        yield tally
+    finally:
+        with _count_lock:
+            del _capture_tallies[stream]
+
+
+def count_replays(tally: Dict[Tuple[object, str], int], replays: int) -> None:
+    """Adds ``replays`` replays of a graph whose capture recorded ``tally``
+    to the wrappers' ``launches`` and ``launches_by_design``."""
+    with _count_lock:
+        for (fn, design), n in tally.items():
+            fn.launches += n * replays
+            fn.launches_by_design[design] += n * replays
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -253,7 +295,7 @@ def _launch(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
                                 d, *strides, int(causal), 1.0 / d ** 0.5,
                                 stream)
     _raise_on(err, lib, fn)
-    _count(flash_attention, design)
+    _count(flash_attention, design, stream)
     return o, lse
 
 
@@ -506,10 +548,10 @@ def _bwd_args(q, k, v, do, lse, delta, outs, design: str = "fma"):
 
 
 def _bwd_call(kernel: str, q, k, v, do, lse, delta, outs, causal: bool,
-              design: str) -> None:
+              design: str) -> int:
     """Checks the inputs, then builds (at first use) and launches backward
     kernel ``kernel`` (``"dq"``: K2, ``"dkv"``: K3) of the design's
-    library."""
+    library; returns the handle of the stream it launched on."""
     inputs, head, strides = _bwd_args(q, k, v, do, lse, delta, outs, design)
     if design == "sm90":
         fn_name = f"flash_bwd_{kernel}_sm90"
@@ -524,14 +566,15 @@ def _bwd_call(kernel: str, q, k, v, do, lse, delta, outs, causal: bool,
             *head, *strides, int(causal), 1.0 / q.shape[-1] ** 0.5, stream,
         )
     _raise_on(err, lib, fn_name, error_string)
+    return stream
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
     """K2 on the card, in the design of :func:`_design`."""
     design = _design(q.dtype, q.shape[-1])
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_call("dq", q, k, v, do, lse, delta, (dq,), causal, design)
-    _count(flash_attention_dq, design)
+    stream = _bwd_call("dq", q, k, v, do, lse, delta, (dq,), causal, design)
+    _count(flash_attention_dq, design, stream)
     return dq
 
 
@@ -541,8 +584,9 @@ def _launch_dkv(q, k, v, do, lse, delta,
     design = _design(q.dtype, q.shape[-1])
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _bwd_call("dkv", q, k, v, do, lse, delta, (dk, dv), causal, design)
-    _count(flash_attention_dkv, design)
+    stream = _bwd_call("dkv", q, k, v, do, lse, delta, (dk, dv), causal,
+                       design)
+    _count(flash_attention_dkv, design, stream)
     return dk, dv
 
 
@@ -629,6 +673,8 @@ for _fn in (flash_attention, flash_attention_dq, flash_attention_dkv):
 del _fn
 
 __all__ = [
+    "capture_launches",
+    "count_replays",
     "dkv_tolerance",
     "dq_tolerance",
     "flash_attention",

@@ -8,24 +8,29 @@ progress into ``ctx.progress``. The operator reaches them by
 ``tpu.kubedl.io/entrypoint:
 cron_operator_tpu_torch.workloads.entrypoints:generate_job``.
 
-Common params: ``platform`` (unset = the CUDA card; ``cpu`` on request);
-for training, ``steps``, ``batch_size``, ``data`` (``device`` default |
-``host``), ``lr``/``lr_schedule``/``warmup_steps``/``schedule_steps``/
-``grad_clip``/``decay_mask``/``sync_every`` (see :func:`_train_kwargs`).
+Common params: ``platform`` (unset = the CUDA card; ``cpu`` on request),
+``devices`` (the first N devices of the platform, as the JAX ``_devices``:
+more than are visible raise ``ValueError``); for training, ``steps``,
+``batch_size``, ``data`` (``device`` default | ``host`` | ``fused``),
+``steps_per_call`` (``auto`` default: 8 steps per call, one CUDA graph of
+the step replayed per step on the card), ``prefetch``, ``stage_async``,
+``lr``/``lr_schedule``/``warmup_steps``/``schedule_steps``/``grad_clip``/
+``decay_mask``/``sync_every``/``save_every`` (see :func:`_train_kwargs`).
 Every training job's weights come from seed 0, and besides the JAX
-``_run``'s progress keys it publishes ``n_params``. The mesh params, MoE,
-ring/Ulysses attention, checkpoints, ``data=fused``, ``prefetch``,
-``steps_per_call`` > 1, ``mfu``, ``flops_accounting`` and ``profile_dir``
-raise ``NotImplementedError`` until their slice (:func:`_refuse_later_slices`);
-``stage_async`` is accepted (staging runs inline).
+``_run``'s progress keys it publishes ``n_params``. ``pipe > 1`` raises
+``ValueError`` for good, as in the JAX package. The mesh params (and
+``devices`` > 1), MoE, ring/Ulysses attention, checkpoints, ``mfu``,
+``flops_accounting`` and ``profile_dir`` raise ``NotImplementedError``
+until their slice (:func:`_train_device`).
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from collections import deque
 from dataclasses import replace
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 from torch import nn
@@ -54,18 +59,28 @@ def _gqa_rope_kwargs(ctx) -> dict:
     }
 
 
+def _steps_per_call(ctx):
+    """param.steps_per_call: ``"auto"`` (the default execution mode, 8
+    steps per call: ``Trainer.resolved_steps_per_call``) or an int."""
+    raw = ctx.params.get("steps_per_call", "auto")
+    return raw if raw == "auto" else int(raw)
+
+
 def _train_kwargs(ctx, steps: int, **defaults) -> dict:
     """TrainConfig kwargs: per-entrypoint defaults overridden by the common
     ``param.*`` surface, as in the JAX package: ``lr``, ``lr_schedule``
     (constant|cosine|warmup_cosine), ``warmup_steps``, ``schedule_steps``
     (default: the run's step target), ``grad_clip`` (0 = off),
-    ``decay_mask``, ``sync_every``. The JAX package's ``steps_per_call``
-    (``"auto"`` resolves to 1 here), ``prefetch`` and ``stage_async``
-    (staging runs inline) select modes the port does not have yet; see
-    :func:`_refuse_later_slices`."""
+    ``decay_mask``, ``save_every`` (=10; read once checkpoints exist),
+    ``prefetch`` (=0), ``sync_every``, ``steps_per_call`` (="auto") and
+    ``stage_async`` (="1": background staging of external batches)."""
     kw = dict(defaults)
     kw.update(
+        save_every=int(ctx.params.get("save_every", 10)),
+        prefetch=int(ctx.params.get("prefetch", 0)),
         sync_every=int(ctx.params.get("sync_every", 1)),
+        steps_per_call=_steps_per_call(ctx),
+        stage_async=ctx.params.get("stage_async", "1") in ("1", "true"),
         lr_schedule=ctx.params.get("lr_schedule", "constant"),
         warmup_steps=int(ctx.params.get("warmup_steps", 0)),
         schedule_steps=int(ctx.params.get("schedule_steps", steps)),
@@ -82,9 +97,44 @@ def _train_kwargs(ctx, steps: int, **defaults) -> dict:
 _LATER = "waits for ROADMAP.md queue 1 item"
 
 
-def _refuse_later_slices(ctx) -> None:
+def _devices(ctx) -> List[torch.device]:
+    """The devices torch sees for the job's platform (``param.platform``),
+    capped to the first ``param.devices`` of them, as the JAX ``_devices``:
+    more than are visible raise ``ValueError``."""
+    device = resolve_device(ctx.params.get("platform"))
+    if device.type == "cuda":
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [device]
+    want = int(ctx.params.get("devices", 0) or 0)
+    if want > 0:
+        if want > len(devs):
+            raise ValueError(
+                f"param.devices={want} but only {len(devs)} device(s) visible"
+            )
+        devs = devs[:want]
+    return devs
+
+
+def _train_device(ctx) -> torch.device:
+    """The device a training job runs on, after the checks of the JAX
+    ``_devices`` and ``_mesh``: ``param.pipe > 1`` raises ``ValueError``
+    for good (the standard jobs train one step; pipelining is a primitive
+    for custom entrypoints), and the params of later slices raise
+    ``NotImplementedError``, ``param.devices > 1`` among them (a mesh)."""
+    devs = _devices(ctx)
     p = ctx.params
-    for axis in ("tensor", "seq", "fsdp", "expert", "slices", "pipe"):
+    if int(p.get("pipe", 1)) > 1:
+        raise ValueError(
+            "param.pipe is not supported by the standard entrypoints — "
+            "pipeline parallelism requires a staged model"
+        )
+    if int(p.get("devices", 0) or 0) > 1:
+        raise NotImplementedError(
+            f"param.devices > 1 (a device mesh) {_LATER} 7"
+        )
+    for axis in ("tensor", "seq", "fsdp", "expert", "slices"):
         if int(p.get(axis, 1)) > 1:
             raise NotImplementedError(
                 f"param.{axis} > 1 (a device mesh) {_LATER} 7"
@@ -102,25 +152,19 @@ def _refuse_later_slices(ctx) -> None:
             raise NotImplementedError(f"param.{key} (perf tooling) {_LATER} 12")
     if p.get("profile_dir"):
         raise NotImplementedError(f"param.profile_dir (perf tooling) {_LATER} 12")
-    if p.get("data", "device") not in ("device", "host"):
-        raise NotImplementedError(
-            f"param.data={p['data']} (fused data) {_LATER} 6"
-        )
-    if p.get("steps_per_call", "auto") != "auto" and int(p["steps_per_call"]) > 1:
-        raise NotImplementedError(
-            f"param.steps_per_call > 1 (multi-step dispatch) {_LATER} 6"
-        )
-    if int(p.get("prefetch", 0)) > 0:
-        raise NotImplementedError(
-            f"param.prefetch (background staging) {_LATER} 6"
-        )
+    return devs[0]
 
 
 def _batches(ctx, host_factory, device_factory) -> Iterator[Dict[str, Any]]:
     """``param.data``: ``device`` (default) draws batches on the device from
-    a torch.Generator; ``host`` keeps the JAX package's numpy streams."""
-    if ctx.params.get("data", "device") == "host":
+    a torch.Generator; ``host`` keeps the JAX package's numpy streams;
+    ``fused`` draws inside the step (the Trainer's ``sample_fn``), so the
+    stream is empty batches."""
+    mode = ctx.params.get("data", "device")
+    if mode == "host":
         return host_factory()
+    if mode == "fused":
+        return itertools.repeat({})
     return device_factory()
 
 
@@ -138,21 +182,25 @@ def _train_job(
     model: nn.Module,
     steps: int,
     host_factory: Callable[[], Iterator],
-    device_factory: Callable[[], Iterator],
+    sample: Callable[[torch.Generator], Dict[str, torch.Tensor]],
     tokens_per_step: Optional[int] = None,
     loss_fn=cross_entropy_loss,
     **train_defaults,
 ) -> None:
     """Publish ``n_params``, then train ``model`` through :func:`_run` on
-    the batches ``param.data`` picks, with ``train_defaults`` under the
-    common optimizer params."""
+    the batches ``param.data`` picks (``sample`` draws the device and fused
+    ones), with ``train_defaults`` under the common optimizer params."""
     ctx.progress["n_params"] = sum(p.numel() for p in model.parameters())
+    device = next(model.parameters()).device
+    fused = ctx.params.get("data", "device") == "fused"
     trainer = Trainer(
         model, TrainConfig(**_train_kwargs(ctx, steps, **train_defaults)),
-        loss_fn=loss_fn,
+        loss_fn=loss_fn, sample_fn=sample if fused else None,
     )
-    _run(ctx, trainer, _batches(ctx, host_factory, device_factory), steps,
-         tokens_per_step=tokens_per_step)
+    batches = _batches(
+        ctx, host_factory,
+        lambda: datasets.device_batches(sample, device=device))
+    _run(ctx, trainer, batches, steps, tokens_per_step=tokens_per_step)
 
 
 def _run(
@@ -171,7 +219,7 @@ def _run(
     ``async_dispatch_ms_p50``. Beats ``ctx.watchdog`` after every step and
     honours ``ctx.hang``."""
     ctx.progress["started_at"] = time.time()
-    ctx.progress["steps_per_call"] = 1  # "auto" resolves to 1 (see above)
+    ctx.progress["steps_per_call"] = trainer.resolved_steps_per_call
     ctx.progress["data_mode"] = ctx.params.get("data", "device")
     started_mono = time.monotonic()
     last_publish = [0.0]
@@ -201,14 +249,14 @@ def _run(
             "data_s": round(s.data_s, 6),
             "dispatch_s": round(s.dispatch_s, 6),
             "device_s": round(s.sync_s, 6),
-            "ckpt_s": 0.0,  # no checkpoints yet
+            "ckpt_s": round(s.ckpt_s, 6),
             "compile": s.compiled,
         })
         # Under sync_every > 1 an async step's wall is dispatch only and the
         # next synced step absorbs the window's device work: publish the
-        # window's average at each synced step.
-        window[0] += s.step_time_s
-        window[1] += 1
+        # window's average at each synced step, weighted by chunk.
+        window[0] += s.step_time_s * s.chunk
+        window[1] += s.chunk
         if s.loss is not None:
             win_avg = window[0] / window[1]
             ctx.progress["last_loss"] = s.loss
@@ -242,22 +290,26 @@ def _run(
     )
     if timeline:
         ctx.progress["step_timeline"] = list(timeline)
-    # Steady state: the first step (kernel build, warm-up) is left out.
+    # Steady state: the first call (kernel build, warm-up, capture) is left
+    # out; chunk-weighted, since calls may carry unequal chunks.
     tail = stats[1:] if len(stats) > 1 else stats
-    if tail:
-        avg = sum(s.step_time_s for s in tail) / len(tail)
+    n_steps = sum(s.chunk for s in tail)
+    if tail and n_steps:
+        avg = sum(s.step_time_s * s.chunk for s in tail) / n_steps
         ctx.progress["avg_step_time_s"] = round(avg, 4)
         ctx.progress["steps_per_s"] = round(1.0 / avg, 4) if avg > 0 else None
         if tokens_per_step and avg > 0:
             ctx.progress["tokens_per_s"] = round(tokens_per_step / avg, 1)
-    # Dispatch-only walls of the async steps (the last call is left out: an
-    # early exit charges the device drain to it).
-    async_ms = sorted(s.step_time_s * 1e3 for s in tail[:-1] if s.loss is None)
+    # Dispatch-only walls of the async calls, whole (x chunk: the call is
+    # what the host pays for); the last call is left out, since an early
+    # exit charges the device drain to it.
+    async_ms = sorted(s.step_time_s * s.chunk * 1e3 for s in tail[:-1]
+                      if s.loss is None)
     if async_ms:
         ctx.progress["async_dispatch_ms_p50"] = round(
             async_ms[len(async_ms) // 2], 2
         )
-    stall_ms = sorted(s.data_s * 1e3 for s in tail)
+    stall_ms = sorted(s.data_s / s.chunk * 1e3 for s in tail)
     if stall_ms:
         ctx.progress["data_stall_ms_p50"] = round(
             stall_ms[len(stall_ms) // 2], 3
@@ -267,14 +319,13 @@ def _run(
 def mnist(ctx) -> None:
     """MLP on synthetic MNIST, as the JAX ``mnist`` entrypoint. Params:
     steps(=20), batch_size(=256), SGD at lr 0.01 unless ``param.lr``."""
-    _refuse_later_slices(ctx)
     steps = int(ctx.params.get("steps", 20))
     batch_size = int(ctx.params.get("batch_size", 256))
-    device = resolve_device(ctx.params.get("platform"))
+    device = _train_device(ctx)
     _train_job(
         ctx, _seeded(MLP(device=device), device), steps,
         lambda: datasets.mnist_batches(batch_size),
-        lambda: datasets.device_mnist_batches(batch_size, device=device),
+        datasets.mnist_sample(batch_size),
         optimizer="sgd", learning_rate=0.01,
     )
 
@@ -283,16 +334,14 @@ def resnet50(ctx) -> None:
     """ResNet-50 on synthetic ImageNet, the JAX package's north-star
     workload. Params: steps(=10), batch_size(=128), image_size(=224), SGD
     at lr 0.1 unless ``param.lr``."""
-    _refuse_later_slices(ctx)
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 128))
     image_size = int(ctx.params.get("image_size", 224))
-    device = resolve_device(ctx.params.get("platform"))
+    device = _train_device(ctx)
     _train_job(
         ctx, _seeded(ResNet50(device=device), device), steps,
         lambda: datasets.imagenet_batches(batch_size, image_size),
-        lambda: datasets.device_imagenet_batches(batch_size, image_size,
-                                                 device=device),
+        datasets.imagenet_sample(batch_size, image_size),
         optimizer="sgd", learning_rate=0.1,
     )
 
@@ -306,12 +355,11 @@ def bert(ctx) -> None:
     128), remat(=0), kv_heads(=0: MHA), rope(=0|1). AdamW at lr 1e-3;
     targets are the inputs (``token_batches``).
     """
-    _refuse_later_slices(ctx)
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 8))
     seq_len = int(ctx.params.get("seq_len", 512))
     size = ctx.params.get("size", "base")
-    device = resolve_device(ctx.params.get("platform"))
+    device = _train_device(ctx)
     maker = BertConfig.tiny if size == "tiny" else BertConfig.base
     cfg = maker(max_len=seq_len,
                 attention_impl=ctx.params.get("attention", "auto"),
@@ -319,8 +367,7 @@ def bert(ctx) -> None:
     _train_job(
         ctx, _seeded(Bert(cfg, device=device), device), steps,
         lambda: datasets.token_batches(batch_size, seq_len, cfg.vocab_size),
-        lambda: datasets.device_token_batches(
-            batch_size, seq_len, cfg.vocab_size, device=device),
+        datasets.token_sample(batch_size, seq_len, cfg.vocab_size),
         tokens_per_step=batch_size * seq_len, remat=_remat(ctx),
     )
 
@@ -332,17 +379,16 @@ def gpt(ctx) -> None:
     attention(=auto|flash|xla), remat(=0), fused_xent(=0: when 1 the loss is
     :func:`ops.xent.chunked_cross_entropy` against the tied embedding and
     the ``[b, s, vocab]`` logits are never built), kv_heads(=0: MHA),
-    rope(=0|1), data(=device|host), platform, and the optimizer params of
+    rope(=0|1), data(=device|host|fused), platform, and the params of
     :func:`_train_kwargs` (AdamW at lr 1e-3 by default). Targets are
     next-token shifted.
     """
-    _refuse_later_slices(ctx)
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 8))
     seq_len = int(ctx.params.get("seq_len", 1024))
     size = ctx.params.get("size", "base")
     fused_xent = ctx.params.get("fused_xent", "0") in ("1", "true")
-    device = resolve_device(ctx.params.get("platform"))
+    device = _train_device(ctx)
     maker = GPTConfig.tiny if size == "tiny" else GPTConfig
     cfg = maker(
         max_len=seq_len, attention_impl=ctx.params.get("attention", "auto"),
@@ -360,8 +406,7 @@ def gpt(ctx) -> None:
         ctx, _seeded(GPT(cfg, device=device), device), steps,
         lambda: datasets.causal_token_batches(
             batch_size, seq_len, cfg.vocab_size),
-        lambda: datasets.device_causal_token_batches(
-            batch_size, seq_len, cfg.vocab_size, device=device),
+        datasets.causal_token_sample(batch_size, seq_len, cfg.vocab_size),
         tokens_per_step=batch_size * seq_len, loss_fn=loss_fn,
         remat=_remat(ctx),
     )
@@ -375,11 +420,10 @@ def vit(ctx) -> None:
     replacing the learned table). AdamW at lr 1e-3. Attention is the plain
     path: (size/patch)^2 + 1 tokens are never a multiple of 128.
     """
-    _refuse_later_slices(ctx)
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 64))
     size = ctx.params.get("size", "base")
-    device = resolve_device(ctx.params.get("platform"))
+    device = _train_device(ctx)
     maker = ViTConfig.tiny if size == "tiny" else ViTConfig.base
     cfg = maker(**_gqa_rope_kwargs(ctx))
     cfg = replace(cfg, image_size=int(ctx.params.get("image_size",
@@ -388,8 +432,8 @@ def vit(ctx) -> None:
         ctx, _seeded(ViT(cfg, device=device), device), steps,
         lambda: datasets.imagenet_batches(batch_size, cfg.image_size,
                                           num_classes=cfg.num_classes),
-        lambda: datasets.device_imagenet_batches(
-            batch_size, cfg.image_size, cfg.num_classes, device=device),
+        datasets.imagenet_sample(batch_size, cfg.image_size,
+                                 cfg.num_classes),
         remat=_remat(ctx),
     )
 
@@ -402,7 +446,9 @@ def generate_job(ctx) -> None:
     Params: rounds(=1), batch_size(=8), prompt_len(=32), max_new(=128),
     temperature(=0 → greedy), size(=base|tiny), seq_len(=prompt_len+max_new:
     the model's max_len), kv_heads(=0: MHA), rope(=0|1), seed(=0: the
-    prompts' seed; weights come from seed 0 as in the JAX job), platform.
+    prompts' seed; weights come from seed 0 as in the JAX job), platform,
+    devices (serving uses the first). On the card the decode steps replay
+    one captured CUDA graph (:func:`workloads.generate.generate`).
     ``checkpoint_from`` and ``moe_every`` wait for later slices.
     """
     if ctx.params.get("checkpoint_from"):
@@ -420,7 +466,7 @@ def generate_job(ctx) -> None:
     max_new = int(ctx.params.get("max_new", 128))
     temperature = float(ctx.params.get("temperature", 0))
     size = ctx.params.get("size", "base")
-    device = resolve_device(ctx.params.get("platform"))
+    device = _devices(ctx)[0]
     maker = GPTConfig.tiny if size == "tiny" else GPTConfig
     cfg = maker(
         max_len=int(ctx.params.get("seq_len", prompt_len + max_new)),

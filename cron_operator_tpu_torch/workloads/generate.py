@@ -1,11 +1,16 @@
 """Autoregressive generation — the serving path for the GPT family.
 
 The prompt is consumed by one batched causal pass that fills the KV cache
-(prefill, through the flash kernel on the card), then ``max_new - 1``
-single-token decode steps follow in a Python loop, sampling from each step's
-logits. The JAX package compiles the whole generation into one XLA program
-and keeps an LRU of compiled functions (``_COMPILED``); eager PyTorch
-compiles nothing, so the port has no counterpart of that cache.
+(prefill, eager, through the flash kernel on the card), then ``max_new - 1``
+single-token decode steps follow, each sampling from its logits. The JAX
+package compiles the whole generation into one program (a ``lax.scan`` over
+the decode steps) and keeps an LRU of compiled functions (``_COMPILED``).
+On the card the port captures one decode step with its sampling as a CUDA
+graph (:class:`parallel.overlap.StepGraph`) and replays it for every new
+token. The captured steps live in an LRU of ``_DECODERS_CAP`` entries, one
+per (model, batch, greedy), each with the static KV cache its graph writes;
+a lock guards the LRU, since the executor runs jobs on threads. On the CPU,
+and with ``captured=False`` on the card, the same step runs eagerly.
 
 Decode is bandwidth-bound (every step reads the parameters and the whole
 static KV cache); batch is the throughput lever.
@@ -13,11 +18,76 @@ static KV cache); batch is the throughput lever.
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+import weakref
+from collections import OrderedDict
+from typing import Callable, Optional
 
 import torch
 
 from cron_operator_tpu_torch.models.gpt import GPT, GPTConfig
+from cron_operator_tpu_torch.parallel.overlap import StepGraph
+
+# (id(model), batch, greedy) -> _Decoder. LRU-bounded: a long-lived
+# executor serving many jobs must not keep every job's graph and cache.
+_DECODERS_CAP = 8
+_DECODERS: "OrderedDict[tuple, _Decoder]" = OrderedDict()
+_DECODERS_LOCK = threading.Lock()
+
+
+def _sample(logits: torch.Tensor, temperature: Optional[torch.Tensor],
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The argmax token (``temperature`` None), or a draw from
+    ``softmax(logits / temperature)``: the exponential race (``p / q`` with
+    ``q ~ Exp(1)``, argmax) that ``torch.multinomial`` runs for one sample,
+    written out since ``multinomial`` checks its input on the host, which a
+    graph capture refuses."""
+    if temperature is None:
+        return logits.argmax(dim=-1)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / q).argmax(dim=-1)
+
+
+class _Decoder:
+    """A model's decode step with its sampling for ``batch`` sequences, on
+    a KV cache of its own: captured at its first use and replayed after.
+    Sampling draws from ``generator``, registered with the graph; the
+    temperature is a device tensor filled before each generation. The
+    model is held weakly: a decoder whose model is gone is dropped."""
+
+    def __init__(self, model: GPT, batch: int, greedy: bool,
+                 generator: Optional[torch.Generator]):
+        self.model = weakref.ref(model)
+        self.generator = generator
+        self.lock = threading.Lock()  # one generation at a time on the cache
+        self.cache = model.new_cache(batch)
+        self.temperature = (None if greedy else
+                            torch.ones((), device=self.cache.pos.device))
+        self.step = StepGraph(
+            self._decode, generators=() if greedy else (generator,))
+
+    def _decode(self, inputs):
+        logits = self.model().decode(inputs["token"], self.cache)
+        return _sample(logits, self.temperature, self.generator)
+
+
+def _decoder(model: GPT, batch: int, greedy: bool,
+             generator: Optional[torch.Generator]) -> _Decoder:
+    key = (id(model), batch, greedy)
+    with _DECODERS_LOCK:
+        entry = _DECODERS.get(key)
+        if (entry is not None and entry.model() is model
+                and (greedy or entry.generator is generator)):
+            _DECODERS.move_to_end(key)
+            return entry
+        for gone in [k for k, e in _DECODERS.items() if e.model() is None]:
+            del _DECODERS[gone]
+        entry = _DECODERS[key] = _Decoder(model, batch, greedy, generator)
+        _DECODERS.move_to_end(key)
+        while len(_DECODERS) > _DECODERS_CAP:
+            _DECODERS.popitem(last=False)
+    return entry
 
 
 @torch.inference_mode()
@@ -29,12 +99,16 @@ def generate(
     *,
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    captured: bool = True,
 ) -> torch.Tensor:
     """Greedy (``temperature=0``) or sampled continuation of each prompt.
 
     ``prompt_ids`` is ``[batch, prompt_len]`` on the model's device; returns
     ``[batch, prompt_len + max_new_tokens]``. Sampling draws from
-    ``generator``, so one seed gives one continuation.
+    ``generator``, so one seed gives one continuation. On the card the
+    decode steps replay a captured CUDA graph unless ``captured=False``,
+    which runs them eagerly (the reference the graph is held against); both
+    give the same tokens.
     """
     b, p = prompt_ids.shape
     if p < 1:
@@ -56,19 +130,38 @@ def generate(
     if model.config != cfg:
         raise ValueError("cfg differs from the model's config")
 
-    def sample(logits: torch.Tensor) -> torch.Tensor:
-        if greedy:
-            return logits.argmax(dim=-1)
-        probs = torch.softmax(logits / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
-
+    if prompt_ids.is_cuda and captured:
+        decoder = _decoder(model, b, greedy, generator)
+        with decoder.lock:
+            if decoder.temperature is not None:
+                decoder.temperature.fill_(temperature)
+            return _generate(
+                model, prompt_ids, max_new_tokens, decoder.cache,
+                decoder.temperature, generator,
+                # the graph's output: the next replay rewrites it
+                lambda inputs: decoder.step(inputs).clone())
     cache = model.new_cache(b)
-    tok = sample(model.prefill(prompt_ids, cache))
+    temp = (None if greedy else
+            torch.tensor(temperature, device=prompt_ids.device))
+
+    def step(inputs):
+        return _sample(model.decode(inputs["token"], cache), temp, generator)
+
+    return _generate(model, prompt_ids, max_new_tokens, cache, temp,
+                     generator, step)
+
+
+def _generate(model: GPT, prompt_ids: torch.Tensor, max_new_tokens: int,
+              cache, temperature: Optional[torch.Tensor],
+              generator: Optional[torch.Generator],
+              step: Callable) -> torch.Tensor:
+    """Prefill, then ``max_new_tokens - 1`` calls of ``step`` (each feeds
+    the previous token and samples from the fresh logits: the last sampled
+    token never needs a forward of its own)."""
+    tok = _sample(model.prefill(prompt_ids, cache), temperature, generator)
     toks = [tok]
-    # Step-then-sample: exactly max_new - 1 decode forwards after the
-    # prefill (the last sampled token never needs a forward of its own).
     for _ in range(max_new_tokens - 1):
-        tok = sample(model.decode(tok[:, None], cache))
+        tok = step({"token": tok[:, None]})
         toks.append(tok)
     new = torch.stack(toks, dim=1).to(prompt_ids.dtype)
     return torch.cat([prompt_ids, new], dim=1)

@@ -1,13 +1,27 @@
 """Training harness of the port, as in ``cron_operator_tpu/workloads/train.py``.
 
-One optimizer step per dispatch (the JAX package's ``steps_per_call=1``)
-on one device, in eager PyTorch: the forward, the loss, the backward
-(through the Hopper flash kernels K1-K3 when attention runs on the card),
-the optional global-norm clip and the optimizer update. The JAX ``Trainer``
-jits that step over a mesh; the port has no mesh yet and nothing to
-compile, so the first step's wall time, which the JAX package reports as
-its compile time, here holds the kernels' build (unless prebuilt) and the
-allocator's warm-up.
+An optimizer step is the forward, the loss, the backward (through the
+Hopper flash kernels K1-K3 when attention runs on the card), the optional
+global-norm clip and the optimizer update, on one device. The JAX
+``Trainer`` jits that step over a mesh; the port has no mesh yet.
+
+Multi-step dispatch (``TrainConfig.steps_per_call``): the JAX package scans
+K steps inside one program. On the card the port captures ONE step as a
+CUDA graph (:class:`parallel.overlap.StepGraph`) and replays it K times per
+call; on the CPU a call runs its K steps eagerly. A call of one step is the
+eager step. The math and the data stream are those of one step per call:
+step i of a call takes the batch it would have taken as a call of its own,
+and the learning rate of its own step count.
+
+On the card the optimizer is always fused (AdamW with ``capturable=True``)
+and its learning rate is a device tensor, filled from :meth:`TrainConfig.
+lr_at` before each step, so that an eager step and a replayed one run the
+same arithmetic. The first step of a run's first multi-step call runs
+eagerly as the graph's warm-up (the kernels' build, the cuBLAS handles and
+the optimizer's state come to exist there) and consumes its batch; the
+capture after it runs nothing. So the first call's wall time, which the
+JAX package reports as its compile time, holds the kernels' build (unless
+prebuilt), the warm-up and the capture.
 
 The optimizer follows optax: AdamW with its defaults (b1 0.9, b2 0.999, eps
 1e-8) and ``TrainConfig.weight_decay``, or SGD with momentum 0.9; the
@@ -16,8 +30,7 @@ optax's schedules are; ``decay_mask`` selects parameters by the rank of
 their flax shape; the clip is ``optax.clip_by_global_norm`` (no epsilon
 added to the norm, unlike ``torch.nn.utils.clip_grad_norm_``).
 
-Not here yet: multi-step dispatch (``steps_per_call > 1``), background
-staging (batches are put on the device inline) and checkpoints.
+Not here yet: checkpoints (``save_every`` is kept for them).
 """
 
 from __future__ import annotations
@@ -25,7 +38,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,10 +46,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from cron_operator_tpu_torch.models.convert import flax_rank
+from cron_operator_tpu_torch.parallel.overlap import StepGraph, chunk_schedule
+from cron_operator_tpu_torch.workloads.data import (
+    ChunkStager,
+    Prefetcher,
+    grouped,
+)
 
 ADAM_BETAS = (0.9, 0.999)  # optax.adamw's b1, b2
 ADAM_EPS = 1e-8  # optax.adamw's eps (eps_root 0)
 SGD_MOMENTUM = 0.9
+# steps_per_call="auto": steps per call while there is no checkpoint store
+# to snap to (the JAX package's _AUTO_MAX_CHUNK)
+AUTO_STEPS_PER_CALL = 8
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -60,6 +82,19 @@ class TrainConfig:
     decay_mask: bool = False
     remat: bool = False  # recompute the forward in the backward
     sync_every: int = 1  # fetch the loss (a device sync) every N steps
+    # Checkpoint cadence in steps, as the JAX package's; the port has no
+    # checkpoint store yet, so nothing reads it until that slice.
+    save_every: int = 0
+    # Batches placed ahead on the device by a background thread (0 = off).
+    prefetch: int = 0
+    # Seed of the generator that fused data (Trainer sample_fn) draws from.
+    data_seed: int = 0
+    # Optimizer steps per call, or "auto" (AUTO_STEPS_PER_CALL). A stop
+    # request lands between calls, so a run may go up to K-1 steps past it.
+    steps_per_call: Union[int, str] = 1
+    # Stage external batches (or chunks) from a background thread, two
+    # ahead; prefetch > 0 sets the depth, False stages inline.
+    stage_async: bool = True
 
     def lr_at(self) -> Callable[[int], float]:
         """The learning rate as a function of the optimizer's step count,
@@ -103,15 +138,20 @@ class TrainConfig:
 
     def make_optimizer(self, model: nn.Module) -> torch.optim.Optimizer:
         """optax's ``adamw`` (masked by flax rank when ``decay_mask``) or
-        ``sgd(momentum=0.9)`` over ``model``'s parameters; the learning rate
-        is set before each step (:meth:`Trainer.step`)."""
+        ``sgd(momentum=0.9)`` over ``model``'s parameters. On the card it is
+        fused (AdamW also ``capturable``) and its learning rate is one f32
+        device tensor that every parameter group shares; on the CPU a float.
+        The Trainer sets it before each step."""
         if self.decay_mask and self.optimizer != "adamw":
             raise ValueError(
                 "decay_mask requires the adamw optimizer "
                 f"(got {self.optimizer!r})"
             )
         params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        fused = bool(params) and params[0][1].is_cuda
+        on_card = bool(params) and params[0][1].is_cuda
+        lr = (torch.tensor(self.learning_rate, dtype=torch.float32,
+                           device=params[0][1].device)
+              if on_card else self.learning_rate)
         if self.optimizer == "adamw":
             if self.decay_mask:
                 groups = [
@@ -123,13 +163,14 @@ class TrainConfig:
             else:
                 groups = [{"params": [p for _, p in params]}]
             return torch.optim.AdamW(
-                groups, lr=self.learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS,
-                weight_decay=self.weight_decay, fused=fused or None,
+                groups, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS,
+                weight_decay=self.weight_decay, fused=on_card or None,
+                capturable=on_card,
             )
         if self.optimizer == "sgd":
             return torch.optim.SGD(
-                [p for _, p in params], lr=self.learning_rate,
-                momentum=SGD_MOMENTUM, fused=fused or None,
+                [p for _, p in params], lr=lr, momentum=SGD_MOMENTUM,
+                fused=on_card or None,
             )
         raise ValueError(f"unknown optimizer {self.optimizer!r}")
 
@@ -152,14 +193,37 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
 class StepStats:
     step: int
     loss: Optional[float]  # None on async (non-synced) steps
-    step_time_s: float
-    # Phase walls of the step, in seconds: data = putting the batch on the
-    # device, dispatch = enqueueing forward, backward and update, sync =
-    # waiting for the loss (0.0 on async steps).
+    step_time_s: float  # per step: the call's wall / chunk
+    chunk: int = 1  # optimizer steps this call carried
+    # Phase walls of the call, in seconds: data = putting the batches on
+    # the device (or waiting for the stager), dispatch = enqueueing the
+    # steps, sync = waiting for the loss (0.0 on async calls), ckpt = the
+    # checkpoint stall (always 0.0: no checkpoints yet).
     data_s: float = 0.0
     dispatch_s: float = 0.0
     sync_s: float = 0.0
-    compiled: bool = False  # the first dispatch (kernel build, warm-up)
+    ckpt_s: float = 0.0
+    compiled: bool = False  # the first call (kernel build, warm-up, capture)
+
+
+class _Placed(dict):
+    """A batch on the trainer's device. ``ready`` is the event that its
+    copies from pinned host memory recorded on the copy stream, or None
+    when it was placed in the stream order of its user."""
+
+    ready: Optional[torch.cuda.Event] = None
+
+    def wait(self, device: torch.device) -> "_Placed":
+        """Orders ``device``'s current stream after the batch's copies, and
+        ties its memory to that stream, so that the copy stream's allocator
+        reuses it only after the step that reads it."""
+        if self.ready is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(self.ready)
+            for t in self.values():
+                t.record_stream(stream)
+            self.ready = None
+        return self
 
 
 class Trainer:
@@ -167,6 +231,12 @@ class Trainer:
 
     ``model(x)`` gives the output ``loss_fn(output, y)`` reads. The model's
     parameters stay where they are; batches go to their device.
+
+    ``sample_fn`` (``generator -> batch``, e.g. ``data.token_sample``)
+    switches to fused data: every step draws its own batch inside the step,
+    from a generator on the model's device seeded with
+    ``config.data_seed``, and ``run`` takes empty batches
+    (``itertools.repeat({})``).
     """
 
     def __init__(
@@ -174,31 +244,106 @@ class Trainer:
         model: nn.Module,
         config: Optional[TrainConfig] = None,
         loss_fn: Callable[[Any, torch.Tensor], torch.Tensor] = cross_entropy_loss,
+        sample_fn: Optional[Callable[[torch.Generator],
+                                     Dict[str, torch.Tensor]]] = None,
     ):
         self.model = model
         self.config = config or TrainConfig()
         self.loss_fn = loss_fn
+        self.sample_fn = sample_fn
         self.device = next(model.parameters()).device
+        spc = self.config.steps_per_call
+        if not (spc == "auto" or isinstance(spc, int)):
+            raise ValueError(
+                f"steps_per_call must be an int or 'auto' (got {spc!r})"
+            )
         self.optimizer = self.config.make_optimizer(model)
+        lr = self.optimizer.param_groups[0]["lr"]
+        self._lr = lr if torch.is_tensor(lr) else None  # the card's
         self._lr_at = self.config.lr_at()
+        self._data_gen = (
+            torch.Generator(device=self.device).manual_seed(
+                self.config.data_seed)
+            if sample_fn is not None else None
+        )
+        on_card = self.device.type == "cuda"
+        self._copy_stream = torch.cuda.Stream(self.device) if on_card else None
+        self._graph: Optional[StepGraph] = None
         self.steps_done = 0
-        # Wall time of the first dispatch (see the module docstring).
+        # Wall time of the first call (see the module docstring).
         self.first_dispatch_time_s: Optional[float] = None
 
-    def put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+    @property
+    def resolved_steps_per_call(self) -> int:
+        """``config.steps_per_call`` with ``"auto"`` resolved. The JAX
+        package resolves it to min(8, save_every) when it checkpoints; the
+        port has no checkpoint store yet, so "auto" is 8."""
+        spc = self.config.steps_per_call
+        if spc == "auto":
+            spc = AUTO_STEPS_PER_CALL
+        return max(1, int(spc))
+
+    def put_batch(self, batch: Dict[str, Any]) -> _Placed:
+        """``batch`` on the trainer's device. On the card, host arrays go
+        through pinned memory and are copied on the trainer's copy stream
+        (the step waits for them, :meth:`_Placed.wait`); tensors already on
+        the card pass as they are. This is the Prefetcher's ``place``: it
+        runs on the staging thread."""
+        if isinstance(batch, _Placed):
+            return batch
+        placed = _Placed()
+        host = {}
+        for k, v in batch.items():
+            if torch.is_tensor(v) and v.device == self.device:
+                placed[k] = v
+            else:
+                host[k] = torch.as_tensor(v)
+        if not host:
+            return placed
+        if self._copy_stream is None:
+            placed.update({k: v.to(self.device) for k, v in host.items()})
+            return placed
+        with torch.cuda.stream(self._copy_stream):
+            for k, v in host.items():
+                placed[k] = v.pin_memory().to(self.device, non_blocking=True)
+            placed.ready = torch.cuda.Event()
+            placed.ready.record(self._copy_stream)
+        return placed
+
+    def put_chunk(self, group: List[Dict[str, Any]]) -> List[_Placed]:
+        """K batches on the device, one call's worth: step i of the call
+        takes batch i. The ChunkStager's ``place``."""
+        if not group:
+            raise ValueError("put_chunk needs a non-empty batch group")
+        return [self.put_batch(b) for b in group]
+
+    def _set_lr(self, count: int) -> None:
+        """The learning rate at optimizer step ``count`` (optax: the
+        pre-increment count): the card's tensor is filled in stream order."""
+        lr = self._lr_at(count)
+        if self._lr is not None:
+            self._lr.fill_(lr)
+        else:
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
 
     def _loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         if self.config.remat:
-            out = checkpoint(self.model, batch["x"], use_reentrant=False)
+            # The models draw no random numbers in their forward, so the
+            # recompute needs no saved RNG state (whose read would be a
+            # host call that a CUDA graph capture refuses).
+            out = checkpoint(self.model, batch["x"], use_reentrant=False,
+                             preserve_rng_state=False)
         else:
             out = self.model(batch["x"])
         return self.loss_fn(out, batch["y"])
 
     def _update(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Forward, backward, clip and optimizer step, all enqueued; returns
-        the loss on the device."""
+        """One step, all enqueued, at the learning rate set before it:
+        (the fused draw,) forward, backward, clip and optimizer step.
+        Returns the loss on the device. This is what the graph captures."""
+        if self.sample_fn is not None:
+            batch = self.sample_fn(self._data_gen)
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(batch)
         loss.backward()
@@ -206,35 +351,99 @@ class Trainer:
             grads = [p.grad for g in self.optimizer.param_groups
                      for p in g["params"] if p.grad is not None]
             clip_by_global_norm_(grads, self.config.grad_clip_norm)
-        lr = self._lr_at(self.steps_done)  # optax: the pre-increment count
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
         self.optimizer.step()
         return loss.detach()
 
-    def step(self, batch: Dict[str, Any], sync: bool = True) -> StepStats:
-        """One optimizer step. ``sync=False`` leaves the loss on the device
-        (its StepStats carry ``loss=None``) so that the caller can amortise
-        the round trip (``TrainConfig.sync_every``)."""
+    def _steps(self, batches: List[_Placed]) -> torch.Tensor:
+        """Enqueues one step per batch; returns the last one's loss. On the
+        card a call of more than one step replays the step graph (captured
+        at the first such call, after its eager warm-up step)."""
+        graph = None
+        if self.device.type == "cuda" and len(batches) > 1:
+            if self._graph is None:
+                self._graph = StepGraph(
+                    self._update,
+                    generators=(() if self._data_gen is None
+                                else (self._data_gen,)),
+                )
+            graph = self._graph
+        loss = None
+        for i, batch in enumerate(batches):
+            self._set_lr(self.steps_done + i)
+            batch = batch.wait(self.device)
+            loss = graph(batch) if graph is not None else self._update(batch)
+        return loss
+
+    def step(
+        self,
+        batch: Union[Dict[str, Any], List[Dict[str, Any]]],
+        sync: bool = True,
+        chunk: int = 1,
+    ) -> StepStats:
+        """One call of ``chunk`` optimizer steps. ``batch`` is one batch
+        (fused data: ``{}``, and ``chunk`` steps each draw their own), or a
+        list of batches (:meth:`put_chunk`), one per step, whose length is
+        the chunk. ``step_time_s`` is per step (the call's wall / chunk);
+        ``loss`` is the last step's, and ``sync=False`` leaves it on the
+        device (``loss=None``) so that the caller can amortise the round
+        trip (``TrainConfig.sync_every``)."""
         compiled = self.first_dispatch_time_s is None
         t0 = time.perf_counter()
-        device_batch = self.put_batch(batch)
+        if isinstance(batch, list):
+            batches = [self.put_batch(b) for b in batch]
+        elif chunk > 1 and self.sample_fn is None:
+            # One external batch must not stand for every step of a call:
+            # a call of K steps takes K batches (put_chunk).
+            raise ValueError(
+                "chunk > 1 requires fused data (sample_fn): one external "
+                "batch cannot feed several steps; pass a list of batches "
+                "(put_chunk) instead"
+            )
+        else:
+            batches = [self.put_batch(batch)] * max(1, chunk)
+        chunk = len(batches)
         t_data = time.perf_counter()
-        loss = self._update(device_batch)
+        loss = self._steps(batches)
         t_disp = time.perf_counter()
         loss = float(loss) if sync else None
         wall = time.perf_counter() - t0
         sync_s = time.perf_counter() - t_disp if sync else 0.0
         if compiled:
             self.first_dispatch_time_s = wall
-        self.steps_done += 1
+        self.steps_done += chunk
         return StepStats(
-            self.steps_done, loss, wall,
+            self.steps_done, loss, wall / chunk,
+            chunk=chunk,
             data_s=t_data - t0,
             dispatch_s=t_disp - t_data,
             sync_s=sync_s,
             compiled=compiled,
         )
+
+    @staticmethod
+    def per_step_stats(s: StepStats) -> List[StepStats]:
+        """A call's StepStats divided into per-step records, what ``run``
+        feeds ``on_step`` so that the step timeline stays per step: the
+        call's phase walls split evenly, the loss (the only one the call
+        fetched) and the checkpoint stall on the last step."""
+        k = s.chunk
+        if k <= 1:
+            return [s]
+        out = []
+        for i in range(k):
+            last = i == k - 1
+            out.append(StepStats(
+                step=s.step - (k - 1 - i),
+                loss=s.loss if last else None,
+                step_time_s=s.step_time_s,  # already per step
+                chunk=1,
+                data_s=s.data_s / k,
+                dispatch_s=s.dispatch_s / k,
+                sync_s=s.sync_s / k,
+                ckpt_s=s.ckpt_s if last else 0.0,
+                compiled=s.compiled,
+            ))
+        return out
 
     def run(
         self,
@@ -244,10 +453,45 @@ class Trainer:
         on_step: Optional[Callable[[StepStats], None]] = None,
     ) -> List[StepStats]:
         """Train until ``steps_done`` reaches ``steps`` (a total-step
-        target). The first and the last step, and every ``sync_every``-th
-        step between, fetch the loss; after an early exit behind async steps
-        the device is drained and the drain charged to the last step."""
+        target), in calls of ``resolved_steps_per_call`` steps cut by
+        :func:`parallel.overlap.chunk_schedule` so that the run never
+        overshoots the target.
+
+        External batches in calls of several steps are grouped and placed
+        by a background ChunkStager (chunk N+1 is on the card while chunk N
+        runs); single-step calls stage batch-ahead through the Prefetcher;
+        ``stage_async=False`` stages inline; fused data needs no staging.
+        The first and the last call, and every call that crosses a
+        ``sync_every`` multiple (counted in steps from the first), fetch the
+        loss; after an early exit behind async calls the device is drained
+        and the drain charged to the last call. ``on_step`` receives
+        per-step stats (:meth:`per_step_stats`); the returned list holds one
+        record per call."""
         se = max(1, self.config.sync_every)
+        spc = self.resolved_steps_per_call
+        external = self.sample_fn is None
+        depth = (
+            self.config.prefetch if self.config.prefetch > 0
+            else (2 if self.config.stage_async else 0)
+        )
+        stager = None
+        prefetcher = None
+        chunks = None  # iterator of placed chunks (external multi-step)
+        sched: List[int] = []
+        # Lazy: a run with nothing to do must not consume and place batches.
+        pending = self.steps_done < steps
+        if pending and external and spc > 1:
+            schedule = chunk_schedule(self.steps_done, steps, spc)
+            if depth > 0:
+                stager = ChunkStager(batches, schedule, self.put_chunk, depth)
+                chunks = stager
+            else:
+                chunks = (self.put_chunk(g) for g in grouped(batches, schedule))
+        elif pending and depth > 0 and (external or self.config.prefetch > 0):
+            prefetcher = Prefetcher(batches, self.put_batch, depth)
+            batches = prefetcher
+        elif pending and not external and spc > 1:
+            sched = chunk_schedule(self.steps_done, steps, spc)
         first = self.steps_done + 1
         stats: List[StepStats] = []
         try:
@@ -255,23 +499,52 @@ class Trainer:
                 if should_stop is not None and should_stop():
                     break
                 nxt = self.steps_done + 1
+                placed = None
+                wait_s = 0.0
+                if chunks is not None:
+                    t_wait = time.perf_counter()
+                    placed = next(chunks)  # StopIteration: the stream ended
+                    wait_s = time.perf_counter() - t_wait
+                    chunk = len(placed)
+                elif sched:
+                    chunk = min(sched.pop(0), steps - self.steps_done)
+                else:
+                    chunk = min(spc, steps - self.steps_done)
+                last_of_call = self.steps_done + chunk
                 sync = (
-                    nxt == first or nxt >= steps
-                    or (nxt - first + 1) // se > (nxt - first) // se
+                    nxt == first or last_of_call >= steps
+                    or (last_of_call - first + 1) // se > (nxt - first) // se
                 )
-                s = self.step(next(batches), sync=sync)
+                if placed is not None:
+                    s = self.step(placed, sync=sync)
+                    if wait_s:
+                        # The stager wait is the part of the host's data
+                        # work that staging did not hide: charge it where
+                        # put_batch's time would have gone.
+                        s.data_s += wait_s
+                        s.step_time_s += wait_s / s.chunk
+                else:
+                    s = self.step(next(batches), sync=sync, chunk=chunk)
                 stats.append(s)
                 if on_step is not None:
-                    on_step(s)
+                    for ps in self.per_step_stats(s):
+                        on_step(ps)
         finally:
             if stats and stats[-1].loss is None and self.device.type == "cuda":
                 t0 = time.perf_counter()
                 torch.cuda.synchronize(self.device)
-                stats[-1].step_time_s += time.perf_counter() - t0
+                stats[-1].step_time_s += (
+                    (time.perf_counter() - t0) / stats[-1].chunk
+                )
+            if stager is not None:
+                stager.close()
+            if prefetcher is not None:
+                prefetcher.close()
         return stats
 
 
 __all__ = [
+    "AUTO_STEPS_PER_CALL",
     "StepStats",
     "TrainConfig",
     "Trainer",

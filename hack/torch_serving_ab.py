@@ -109,7 +109,12 @@ def measure(root: Path) -> dict:
         token = prompt[:, -1:]
 
         def decode_step():
-            cache.pos = 512  # every timed step decodes at one position
+            # every timed step decodes at one position (the position is a
+            # device tensor since the decode step became capturable)
+            if torch.is_tensor(cache.pos):
+                cache.pos.fill_(512)
+            else:
+                cache.pos = 512
             model.decode(token, cache)
 
         series["decode_ms"] = _events_ms(torch, decode_step, iters=20)

@@ -2,7 +2,8 @@
 the training jobs (``gpt``, ``bert``, ``mnist``, ``resnet50``, ``vit``) take
 the same params and publish the same progress keys (and ``generate_job``
 the same read-bytes model); they run on the card unless asked, and the
-params of later slices raise."""
+params of later slices raise. The execution modes, ``param.devices`` and
+``param.pipe`` are in ``tests/test_torch_entrypoint_modes.py``."""
 
 import threading
 
@@ -80,10 +81,9 @@ GPT_PARAMS = {
 @pytest.mark.parametrize("extra", [{}, {"sync_every": "2", "steps": "5"}],
                          ids=["sync_every_1", "sync_every_2"])
 def test_gpt_publishes_what_the_jax_job_publishes(extra):
-    """Same params (host data, one step per call, inline staging, which the
-    JAX job takes as options and the port as its only mode): the same
-    progress keys, plus the port's ``n_params``; under ``sync_every=2``
-    both add ``async_dispatch_ms_p50``."""
+    """Same params (host data, one step per call, inline staging): the
+    same progress keys, plus the port's ``n_params``; under
+    ``sync_every=2`` both add ``async_dispatch_ms_p50``."""
     params = {**GPT_PARAMS, "data": "host", "steps_per_call": "1",
               "stage_async": "0", **extra}
     # one JAX device: the tiny batch does not divide over the 8 CPU devices
@@ -106,14 +106,14 @@ def test_gpt_publishes_what_the_jax_job_publishes(extra):
 
 
 def test_gpt_defaults_resolve_and_draw_on_the_device():
-    """``steps_per_call=auto`` is published as 1; ``data=device`` (the
-    default) draws from a torch.Generator on the job's device. The watchdog
-    is beaten once per step."""
+    """``steps_per_call=auto`` is published as 8 (no checkpoint store to
+    snap to); ``data=device`` (the default) draws from a torch.Generator on
+    the job's device. The watchdog is beaten once per step."""
     beats = []
     ctx = JobContext("train", "default", {}, dict(GPT_PARAMS))
     ctx.watchdog = type("Beat", (), {"beat": lambda self: beats.append(1)})()
     gpt(ctx)
-    assert ctx.progress["steps_per_call"] == 1
+    assert ctx.progress["steps_per_call"] == 8
     assert ctx.progress["data_mode"] == "device"
     assert ctx.progress["steps_done"] == 3 and len(beats) == 3
     import math
@@ -123,7 +123,9 @@ def test_gpt_defaults_resolve_and_draw_on_the_device():
 def test_gpt_injected_hang_waits_for_cancel():
     """An injected hang wedges the loop after the step in flight until the
     job is cancelled: here the watchdog's first beat, which comes after
-    that step, cancels the job 0.2 s later."""
+    that step, cancels the job 0.2 s later. In the default mode the call in
+    flight carries all 3 steps: the loop records (and beats for) each of
+    them, the first record waits for the cancel, and no call follows."""
     ctx = JobContext("train", "default", {}, dict(GPT_PARAMS))
     ctx.hang = threading.Event()
     ctx.hang.set()
@@ -139,9 +141,10 @@ def test_gpt_injected_hang_waits_for_cancel():
     for t in timers:
         t.join(timeout=5)
         assert not t.is_alive()
-    assert len(timers) == 1
-    assert ctx.progress["steps_done"] == 1
+    assert len(timers) == 3
+    assert ctx.progress["steps_done"] == 3
     assert ctx.progress["hang_injected_at"] > 0
+    assert [e["step"] for e in ctx.progress["step_timeline"]] == [1, 2, 3]
 
 
 def test_gpt_fused_xent_matches_the_logits_loss():
@@ -167,19 +170,33 @@ def test_gpt_refuses_the_cpu_unless_asked(monkeypatch):
 @pytest.mark.parametrize(
     "extra, match",
     [({axis: "2"}, f"param.{axis}") for axis in
-     ("tensor", "seq", "fsdp", "expert", "slices", "pipe")]
+     ("tensor", "seq", "fsdp", "expert", "slices")]
     + [({"moe_every": "1"}, "MoE"), ({"attention": "ring"}, "ring"),
        ({"attention": "ulysses"}, "ulysses"),
        ({"checkpoint": "1"}, "checkpoint"), ({"mfu": "1"}, "mfu"),
        ({"flops_accounting": "1"}, "flops_accounting"),
-       ({"profile_dir": "prof"}, "profile_dir"),
-       ({"data": "fused"}, "fused"), ({"prefetch": "2"}, "prefetch"),
-       ({"steps_per_call": "4"}, "steps_per_call")],
+       ({"profile_dir": "prof"}, "profile_dir")],
     ids=lambda v: "-".join(v) if isinstance(v, dict) else None,
 )
 def test_gpt_later_slices_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         gpt(JobContext("train", "default", {}, {**GPT_PARAMS, **extra}))
+
+
+def test_gpt_default_mode_matches_the_jax_job():
+    """The default execution mode (``steps_per_call=auto``) with host data:
+    the JAX and the port job publish the same ``steps_per_call`` and one
+    timeline entry per step, over calls of 8 steps and a tail of 2."""
+    params = {**GPT_PARAMS, "data": "host", "steps": "10"}
+    jctx = JaxJobContext("train", "default", {}, {**params, "devices": "1"})
+    jax_gpt(jctx)
+    ctx = JobContext("train", "default", {}, dict(params))
+    gpt(ctx)
+    assert ctx.progress["steps_per_call"] == jctx.progress["steps_per_call"]
+    assert ctx.progress["steps_per_call"] == 8
+    assert (len(ctx.progress["step_timeline"])
+            == len(jctx.progress["step_timeline"]) == 10)
+    assert ctx.progress["steps_done"] == jctx.progress["steps_done"] == 10
 
 
 # The other training jobs at tiny sizes on the CPU (ResNet-50 keeps its
@@ -254,7 +271,6 @@ def test_training_jobs_refuse_the_cpu_unless_asked(job, monkeypatch):
 @pytest.mark.parametrize("job", sorted(JOB_PARAMS))
 @pytest.mark.parametrize("extra, match", [
     ({"fsdp": "2"}, "param.fsdp"), ({"checkpoint": "1"}, "checkpoint"),
-    ({"steps_per_call": "4"}, "steps_per_call"),
 ])
 def test_training_jobs_later_slices_raise(job, extra, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -1,6 +1,8 @@
 """The port's KV-cache generation: greedy output token-identical to the JAX
-package's ``generate`` from converted weights, equal to a full-forward
-rerun, the same argument checks, and seeded sampling."""
+package's ``generate`` from converted weights (with the cache position a
+device tensor that decode advances on the device), equal to a full-forward
+rerun, the same argument checks, and seeded sampling, whose draw is
+``torch.multinomial``'s written out."""
 
 import jax
 import jax.numpy as jnp
@@ -99,3 +101,41 @@ def test_rejects_the_same_bad_arguments():
         generate(cfg, model, prompt, 0)
     with pytest.raises(ValueError, match="differs"):
         generate(GPTConfig.tiny(dtype=torch.float32), model, prompt, 1)
+
+
+def test_cache_position_is_a_device_tensor_advanced_by_decode():
+    """Prefill sets the position, each decode step adds one on the device;
+    the K/V of step ``pos`` land at ``pos``."""
+    _, _, cfg, model = _pair()
+    cache = model.new_cache(2)
+    assert cache.pos.dtype == torch.int64 and cache.pos.dim() == 0
+    prompt = torch.from_numpy(_prompt()).long()
+    with torch.no_grad():
+        model.prefill(prompt, cache)
+        assert int(cache.pos) == 4
+        written = cache.k[0].abs().sum((0, 2, 3)) > 0
+        assert written.tolist() == [True] * 4 + [False] * (cfg.max_len - 4)
+        model.decode(prompt[:, -1:], cache)
+        model.decode(prompt[:, -1:], cache)
+    assert int(cache.pos) == 6
+    written = cache.k[0].abs().sum((0, 2, 3)) > 0
+    assert written[:6].all() and not written[6:].any()
+
+
+def test_sampling_draw_is_multinomials():
+    """The exponential race of ``_sample`` gives the token that
+    ``torch.multinomial`` draws for one sample from the same generator
+    state (it checks its input on the host, which a graph capture
+    refuses)."""
+    from cron_operator_tpu_torch.workloads.generate import _sample
+
+    logits = torch.from_numpy(
+        np.random.default_rng(5).standard_normal((4, 1024)).astype(np.float32)
+    )
+    temperature = torch.tensor(0.7)
+    got = _sample(logits, temperature, torch.Generator().manual_seed(3))
+    probs = torch.softmax(logits / temperature, dim=-1)
+    want = torch.multinomial(probs, 1,
+                             generator=torch.Generator().manual_seed(3))[:, 0]
+    assert torch.equal(got, want)
+    assert torch.equal(_sample(logits, None, None), logits.argmax(-1))

@@ -1,0 +1,155 @@
+"""Multi-step dispatch on the card: the training step captured as a CUDA
+graph and replayed against the eager step, the decode step's graph against
+the eager decode loop, and fused data against the device stream.
+
+Needs a CUDA card and nvcc (the flash kernels have no CPU mode, and a CUDA
+graph needs a card); skips without one. It imports only torch and the
+port, so it also runs where JAX is not installed: ``python -m pytest
+--noconftest -m cuda tests/test_torch_graphs_cuda.py``.
+"""
+
+import faulthandler
+import importlib
+import itertools
+
+import pytest
+import torch
+
+from cron_operator_tpu_torch.models import MLP, Bert, BertConfig, GPT, GPTConfig
+from cron_operator_tpu_torch.parallel.overlap import StepGraph
+from cron_operator_tpu_torch.workloads import data
+from cron_operator_tpu_torch.workloads.generate import generate
+from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
+
+fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
+
+CASE_TIMEOUT_S = 300  # as the kernel card tests: the first build included
+STEPS = 6
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs and the kernels have no "
+                    "CPU mode")
+    faulthandler.dump_traceback_later(CASE_TIMEOUT_S, exit=True)
+    yield torch.device("cuda")
+    faulthandler.cancel_dump_traceback_later()
+
+
+def _gpt():
+    # head dim 64 in bf16: the sm90 kernels; seq 128 takes the flash path
+    cfg = GPTConfig.tiny(hidden_size=256, max_len=128)
+    return GPT(cfg, device="cuda"), data.causal_token_sample(2, 128,
+                                                             cfg.vocab_size)
+
+
+def _bert():
+    cfg = BertConfig.tiny(hidden_size=256, max_len=128)
+    return Bert(cfg, device="cuda"), data.token_sample(2, 128, cfg.vocab_size)
+
+
+def _mnist():
+    return MLP(device="cuda"), data.mnist_sample(32)
+
+
+MODELS = {"gpt": (_gpt, {}), "bert": (_bert, {}),
+          "gpt_remat": (_gpt, {"remat": True}),
+          "mnist": (_mnist, {"optimizer": "sgd", "learning_rate": 0.01})}
+
+
+def _train(make, config, batches, graphed: bool):
+    """STEPS steps from seed-0 weights: one call of STEPS steps (the graph:
+    an eager warm-up step, the capture, STEPS - 1 replays) or STEPS calls
+    of one eager step. Returns the last loss, the parameters and the flash
+    launches counted."""
+    model, _ = make()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    trainer = Trainer(model, TrainConfig(lr_schedule="cosine",
+                                         schedule_steps=STEPS, **config))
+    before = fa.flash_attention.launches, fa.flash_attention_dkv.launches
+    if graphed:
+        loss = trainer.step(list(batches)).loss
+        assert trainer._graph is not None and trainer._graph.replays == STEPS - 1
+    else:
+        loss = [trainer.step(b).loss for b in batches][-1]
+    torch.cuda.synchronize()
+    launches = (fa.flash_attention.launches - before[0],
+                fa.flash_attention_dkv.launches - before[1])
+    return loss, dict(model.named_parameters()), launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_graph_replay_matches_the_eager_step(cuda_device, name):
+    """The same 6 steps (a cosine schedule, so every step has its own
+    learning rate) as one replayed graph and as eager steps: the same loss
+    and bit-identical parameters, and the kernels counted once per step
+    through the replays."""
+    make, config = MODELS[name]
+    _, sample = make()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = [sample(gen) for _ in range(STEPS)]
+    eager = _train(make, config, batches, graphed=False)
+    graphed = _train(make, config, batches, graphed=True)
+    assert eager[0] == graphed[0]
+    for n, p in eager[1].items():
+        assert torch.equal(p, graphed[1][n]), n
+    if name != "mnist":
+        layers = 2
+        # remat runs the forward twice a step
+        per_step = (2 if config.get("remat") else 1) * layers
+        assert graphed[2] == eager[2] == (per_step * STEPS, layers * STEPS)
+
+
+@pytest.mark.cuda
+def test_fused_draws_in_the_graph_are_the_device_streams(cuda_device):
+    """A draw captured with its generator registered gives, replay after
+    replay, what the device stream draws from the same seed; and a fused
+    run of 4 steps in one call trains on exactly those batches."""
+    sample = data.causal_token_sample(2, 128, 1024)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    graph = StepGraph(lambda _: sample(gen)["x"].clone(), generators=(gen,))
+    drawn = [graph({}).clone() for _ in range(4)]
+    stream = data.device_batches(sample, device="cuda", seed=7)
+    for got in drawn:
+        assert torch.equal(got, next(stream)["x"])
+
+    runs = []
+    for fused in (False, True):
+        model, sample = _gpt()
+        model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        trainer = Trainer(model, TrainConfig(steps_per_call=4, data_seed=3),
+                          sample_fn=sample if fused else None)
+        batches = (itertools.repeat({}) if fused else
+                   data.device_batches(sample, device="cuda", seed=3))
+        stats = trainer.run(batches, 4)
+        assert [s.chunk for s in stats] == [4]
+        runs.append(dict(model.named_parameters()))
+    for n, p in runs[0].items():
+        assert torch.equal(p, runs[1][n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "sampled"])
+def test_decode_graph_matches_the_eager_loop(cuda_device, temperature):
+    """Generation through the captured decode step (twice: capture, then
+    replays only) gives the eager loop's tokens, greedy and seeded-sampled."""
+    cfg = GPTConfig.tiny(hidden_size=256, max_len=192)
+    model = GPT(cfg, device="cuda", param_dtype=cfg.dtype)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0)).eval()
+    prompt = torch.randint(0, cfg.vocab_size, (2, 128), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+
+    def run(captured):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        return [generate(cfg, model, prompt, 16, temperature=temperature,
+                         generator=gen, captured=captured) for _ in range(2)]
+
+    eager = run(False)
+    graphed = run(True)
+    for a, b in zip(eager, graphed):
+        assert a.shape == (2, 144)
+        assert torch.equal(a, b)
+    if temperature:
+        assert not torch.equal(eager[0], eager[1])  # the stream moved on

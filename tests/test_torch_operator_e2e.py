@@ -74,6 +74,10 @@ def _run_until_succeeded(cron):
         return job["status"]["trainingProgress"]
     finally:
         mgr.stop()
+        # A tick that fired just before the manager stopped may leave a job
+        # thread registered but not yet started, and stop() joins every
+        # registered thread: let the executor go idle first.
+        executor.wait_idle(timeout=30.0)
         executor.stop()
         api.close()
 

@@ -11,11 +11,18 @@
   MHA under SGD (parameters compared too), on the ``xla`` path, and once on
   the ``flash`` path (the port's plain K1-K3 through the autograd Function
   against the JAX kernels in interpret mode).
+- Multi-step calls: 10 steps at ``steps_per_call`` 1, 2 and 5 (host data,
+  staged ahead or inline) leave bit-identical parameters; at
+  ``steps_per_call=4`` the losses are the JAX ``Trainer``'s at 4; fused
+  data trains on the batches the device stream draws from the same seed;
+  ``per_step_stats`` splits a call into its steps.
 
 Everything runs in f32 on the CPU; each tolerance is stated where it is
 used. Parameters are compared under SGD only: under AdamW an element whose
 gradient is about 0 takes a step of about +-lr whose sign is rounding noise.
 """
+
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +42,7 @@ from cron_operator_tpu_torch.models import GPT, GPTConfig
 from cron_operator_tpu_torch.models.convert import flax_rank, params_from_flax
 from cron_operator_tpu_torch.workloads import data
 from cron_operator_tpu_torch.workloads.train import (
+    StepStats,
     TrainConfig,
     Trainer,
     clip_by_global_norm_,
@@ -278,3 +286,113 @@ def test_run_is_a_total_step_target_and_stops_on_request():
     assert len(trainer.run(batches, 3)) == 1  # only the remainder
     assert trainer.run(batches, 10, should_stop=lambda: True) == []
     assert trainer.steps_done == 3
+
+
+# ------------------------------------------------------- multi-step calls
+
+
+def _params_after(steps_per_call, stage_async=True, steps=10):
+    model = _tiny()
+    trainer = Trainer(model, TrainConfig(steps_per_call=steps_per_call,
+                                         stage_async=stage_async))
+    stats = trainer.run(data.causal_token_batches(2, 32, 1024), steps)
+    assert trainer.steps_done == steps
+    assert sum(s.chunk for s in stats) == steps
+    return stats, {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+@pytest.fixture(scope="module")
+def one_step_calls():
+    return _params_after(1, stage_async=False)
+
+
+@pytest.mark.parametrize("steps_per_call, stage_async", [
+    (1, True),  # the Prefetcher
+    (2, False),  # inline groups
+    (5, True),  # the ChunkStager
+], ids=["1-prefetched", "2-inline", "5-staged"])
+def test_steps_per_call_leaves_bit_identical_params(
+        one_step_calls, steps_per_call, stage_async):
+    """Step i of a call takes the batch (and the learning rate) it would
+    have taken as a call of its own: the parameters after 10 steps are the
+    same bits as with calls of one step staged inline, whatever the
+    chunking and the staging."""
+    stats, params = _params_after(steps_per_call, stage_async)
+    assert [s.chunk for s in stats] == [steps_per_call] * (10 // steps_per_call)
+    ref_stats, ref = one_step_calls
+    for name, p in ref.items():
+        assert torch.equal(params[name], p), name
+    # each call fetches its last step's loss, the one-step run's loss there
+    want = {s.step: s.loss for s in ref_stats}
+    assert [s.loss for s in stats] == [want[s.step] for s in stats]
+
+
+def test_losses_at_steps_per_call_4_match_the_jax_trainer():
+    """Calls of 4 steps on both sides, the same numpy batches: each call's
+    last loss within the tolerance of the one-step runs above."""
+    seq = 32
+    jcfg, tcfg, params, model = _pair(seq)
+    jax_model = JaxGPT(jcfg)
+    jax_trainer = JaxTrainer(
+        lambda p, x: jax_model.apply({"params": p}, x), params,
+        mesh_for_devices(jax.devices("cpu")[:1]),
+        JaxTrainConfig(steps_per_call=4, stage_async=False,
+                       aux_loss_in_output=True),
+    )
+    want = jax_trainer.run(jax_data.causal_token_batches(2, seq, 1024), 12)
+    trainer = Trainer(model, TrainConfig(steps_per_call=4))
+    got = trainer.run(data.causal_token_batches(2, seq, 1024), 12)
+    assert [s.chunk for s in got] == [s.chunk for s in want] == [4, 4, 4]
+    assert [s.step for s in got] == [s.step for s in want]
+    diffs = [abs(a.loss - b.loss) for a, b in zip(got, want)]
+    assert max(diffs) <= LOSS_ATOL, (got, want)
+
+
+def test_fused_data_trains_on_the_device_stream():
+    """``sample_fn`` draws each step's batch inside the step from a
+    generator seeded with ``data_seed``: the same batches as the device
+    stream from that seed, so the same parameters, in calls of 3."""
+    sample = data.causal_token_sample(2, 32, 1024)
+    runs = []
+    for fused in (False, True):
+        model = _tiny()
+        trainer = Trainer(model, TrainConfig(steps_per_call=3, data_seed=4),
+                          sample_fn=sample if fused else None)
+        batches = (itertools.repeat({}) if fused else
+                   data.device_batches(sample, device="cpu", seed=4))
+        trainer.run(batches, 6)
+        runs.append(dict(model.named_parameters()))
+    for name, p in runs[0].items():
+        assert torch.equal(p, runs[1][name]), name
+
+
+def test_one_external_batch_cannot_feed_a_call_of_several_steps():
+    trainer = Trainer(_tiny())
+    batch = next(data.causal_token_batches(2, 32, 1024))
+    with pytest.raises(ValueError, match="chunk > 1 requires fused data"):
+        trainer.step(batch, chunk=2)
+    stats = trainer.step(trainer.put_chunk([batch, batch]))
+    assert stats.chunk == 2 and trainer.steps_done == 2
+
+
+def test_per_step_stats_split_a_call():
+    """One record per step, the phase walls split evenly, the loss (and
+    the checkpoint stall) on the last step, as the JAX ``per_step_stats``."""
+    call = StepStats(step=7, loss=1.5, step_time_s=0.25, chunk=4, data_s=0.4,
+                     dispatch_s=0.8, sync_s=1.2, ckpt_s=0.1, compiled=True)
+    steps = Trainer.per_step_stats(call)
+    assert [s.step for s in steps] == [4, 5, 6, 7]
+    assert [s.loss for s in steps] == [None, None, None, 1.5]
+    assert [s.ckpt_s for s in steps] == [0.0, 0.0, 0.0, 0.1]
+    for s in steps:
+        assert (s.chunk, s.step_time_s, s.compiled) == (1, 0.25, True)
+        assert (s.data_s, s.dispatch_s, s.sync_s) == (0.1, 0.2, 0.3)
+    single = StepStats(step=1, loss=2.0, step_time_s=0.5)
+    assert Trainer.per_step_stats(single) == [single]
+
+
+def test_auto_steps_per_call_resolves_to_8():
+    assert Trainer(_tiny(), TrainConfig(steps_per_call="auto")
+                   ).resolved_steps_per_call == 8
+    with pytest.raises(ValueError, match="steps_per_call"):
+        Trainer(_tiny(), TrainConfig(steps_per_call="8"))
