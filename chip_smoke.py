@@ -59,19 +59,49 @@ Phases, in order; any failure exits non-zero and prints no result line:
    its parameter count and no flash launch; for ResNet-50 and ViT the
    graph against the eager step as phase 6, with model FLOPs per step
    from ``FlopCounterMode``.
-9. A ``kernels`` JSON line, the card line, and last the result line
-   ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
+9. The one-card job contract at GPT-2 small width (b 8, s 1024, bf16 over
+   f32 parameters, AdamW, fused data): 12 steps in calls of 4 against 8
+   steps saved every 4 and a fresh model and trainer that restore step 8
+   and train to 12; steps 9-12's losses, every parameter and the
+   optimizer state equal to the bit, K1, K2 and K3 launched 48 times each
+   on the resumed run, all sm90, counts set to 0 just before it and read
+   just after; the save stall, the restore time and the bytes a
+   checkpoint takes.
+10. The port runner as a subprocess on the card: ``gpt checkpoint=1
+    save_every=4 steps=16 step_delay_s=0.2`` in a temporary
+    ``checkpoint_dir``, SIGTERM once a progress frame shows 4 steps done
+    (exit 0, a ``done`` frame with ``cancelled: true``), then the same
+    command to its end (resumed from the last step saved, 16 steps, exit
+    0, the JAX runner's frame types).
+11. ``generate_job checkpoint_from=`` that lineage (b 8, prompt 512, 64
+    new tokens, 2 rounds): ``restored_from_step`` reported, K1 launched 12
+    times in each round's prefill, greedy tokens equal to those of a GPT
+    built in this process from the checkpoint's f32 parameters (eager
+    decode).
+12. ``gpt mfu=1 flops_accounting=1`` (24 steps): the published ``mfu``
+    within 3% of this script's own MFU over the job's step time, and
+    ``xla_flops_per_step`` within 1% of this script's FLOPs (6 N T plus
+    the attention's 12 d per kept pair); ``gpt profile_dir=`` leaves a
+    ``torch.profiler`` trace that names the sm90 K1 kernel.
+13. A ``kernels`` JSON line, the card line, and last the result line
+    ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
+    Every temporary directory is deleted and every subprocess ended.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
+import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -1022,6 +1052,326 @@ def phase_serving_graph(torch, card, prefill_ms: float):
     return rows
 
 
+def lm_model_flops(n_params: int, shape: dict, causal: bool,
+                   num_layers: int) -> float:
+    """Model FLOPs of a language model's training step at ``shape``: 6 N T
+    plus the attention's 3 * 4 d b h per (query, key) pair the mask keeps,
+    per layer (forward and backward), as :func:`lm_step_times` counts."""
+    b, s, h, d = (shape[x] for x in "bshd")
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 6 * n_params * b * s + num_layers * 3 * 4 * d * b * h * pairs
+
+
+def phase_resume(torch, fa, card, root: str):
+    """Resume is exact: 12 steps in calls of 4 against 8 steps saved every 4
+    and a fresh model and trainer that restore step 8 and train to 12, all
+    from the seed-0 weights and the fused data seed. Each step's loss is
+    written into a device buffer inside the step (so the captured step
+    logs it too); the resumed run's K1-K3 launches are counted from 0."""
+    from cron_operator_tpu_torch.models import GPT, GPTConfig
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.checkpoint import CheckpointStore
+    from cron_operator_tpu_torch.workloads.train import (
+        TrainConfig,
+        Trainer,
+        cross_entropy_loss,
+    )
+
+    cfg = GPTConfig(max_len=1024)
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    sample = data.causal_token_sample(b, s, cfg.vocab_size)
+    config = TrainConfig(save_every=4, steps_per_call=4)
+
+    def make(store=None):
+        model = GPT(cfg, device="cuda").init_weights(
+            torch.Generator(device="cuda").manual_seed(0))
+        log = torch.zeros(16, device="cuda")
+        pos = torch.zeros((), dtype=torch.long, device="cuda")
+
+        def loss_fn(out, y):
+            loss = cross_entropy_loss(out, y)
+            log.index_put_((pos,), loss.detach())
+            pos.add_(1)
+            return loss
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = Trainer(model, config, loss_fn=loss_fn, sample_fn=sample,
+                          checkpoint=store)
+        torch.cuda.synchronize()
+        return trainer, log, time.perf_counter() - t0
+
+    def run(trainer, steps):
+        ckpt = {}
+        trainer.run(itertools.repeat({}), steps,
+                    on_step=lambda st: ckpt.__setitem__(st.step, st.ckpt_s))
+        torch.cuda.synchronize()
+        return ckpt
+
+    whole, whole_log, _ = make()
+    run(whole, 12)
+    store = CheckpointStore("default", "chip-smoke-resume", root=root)
+    first, first_log, _ = make(store)
+    t0 = time.perf_counter()
+    ckpt = run(first, 8)
+    first_wall = time.perf_counter() - t0
+    store.close()
+    if store.all_steps() != [4, 8]:
+        fail(f"resume: saved steps {store.all_steps()}, not [4, 8]")
+    if not torch.equal(first_log[:8], whole_log[:8]):
+        fail("resume: the checkpointing run's losses differ from the "
+             "uninterrupted run's")
+    payload = Path(store.directory) / "8" / "state.pt"
+    ckpt_bytes = payload.stat().st_size
+    del first
+    torch.cuda.empty_cache()
+
+    store = CheckpointStore("default", "chip-smoke-resume", root=root)
+    resumed, resumed_log, restore_s = make(store)
+    if resumed.steps_done != 8:
+        fail(f"resume: restored {resumed.steps_done} steps, not 8")
+    zero_counts(fa)
+    run(resumed, 12)
+    counts, designs = read_counts(fa), read_designs(fa)
+    store.close()
+    print(f"resume: K1/K2/K3 launches on the resumed run {counts} (expected "
+          f"48 each), by design {designs}", flush=True)
+    if counts != (48,) * 3 or any(d["sm90"] != 48 for d in designs):
+        fail(f"resume: flash launches {counts} by design {designs}, not 48 "
+             "each, all sm90")
+    same_losses = torch.equal(resumed_log[:4], whole_log[8:12])
+    same_params = all(torch.equal(a, b_) for a, b_ in zip(
+        whole.model.state_dict().values(), resumed.model.state_dict().values()))
+    sw, sr = whole.optimizer.state_dict(), resumed.optimizer.state_dict()
+    same_opt = sw["state"].keys() == sr["state"].keys() and all(
+        torch.equal(v, sr["state"][i][k])
+        for i, st in sw["state"].items() for k, v in st.items())
+    steps_on_card = all(st["step"].is_cuda for st in sr["state"].values())
+    same_gen = torch.equal(whole._data_gen.get_state(),
+                           resumed._data_gen.get_state())
+    print(f"resume: steps 9-12 losses {resumed_log[:4].tolist()} vs "
+          f"{whole_log[8:12].tolist()}; losses equal {same_losses}, "
+          f"parameters equal {same_params}, optimizer state equal "
+          f"{same_opt} (step tensors on the card {steps_on_card}), data "
+          f"generator state equal {same_gen}", flush=True)
+    if not (same_losses and same_params and same_opt and steps_on_card
+            and same_gen):
+        fail("resume: the resumed run is not the uninterrupted run to the bit")
+    row = {"save_ms_step4": ckpt[4] * 1e3, "save_ms_step8": ckpt[8] * 1e3,
+           "restore_ms": restore_s * 1e3, "checkpoint_bytes": ckpt_bytes,
+           "run8_with_saves_s": first_wall}
+    print(f"[{card}] checkpoint of GPT-2 small + AdamW: {ckpt_bytes} bytes a "
+          f"step | save stall (copy to pinned host memory, ckpt_s) step 4 "
+          f"{row['save_ms_step4']:.1f} ms, step 8 {row['save_ms_step8']:.1f} "
+          f"ms | restore (load from disk, copy into the trainer) "
+          f"{row['restore_ms']:.1f} ms | 8 steps with 2 saves, the writes "
+          f"drained: {first_wall:.2f} s", flush=True)
+    del whole, resumed
+    torch.cuda.empty_cache()
+    return counts, row
+
+
+RUNNER_JOB = "chip-smoke-gpt"
+RUNNER_ARGS = ["gpt", "checkpoint=1", "save_every=4", "steps=16",
+               "step_delay_s=0.2"]
+FRAME_TYPES = {"progress", "spans", "error", "done"}  # the JAX runner's
+
+
+def runner_frames(proc, on_frame=None):
+    """The runner's ``@@CRON_TPU@@`` frames, read as they come;
+    ``on_frame`` sees each one."""
+    frames = []
+    for line in proc.stdout:
+        if line.startswith("@@CRON_TPU@@ "):
+            frames.append(json.loads(line[len("@@CRON_TPU@@ "):]))
+            if on_frame is not None:
+                on_frame(frames[-1])
+    return frames
+
+
+def start_runner(root: str):
+    """The runner in a subprocess, its stderr into a file under ``root``."""
+    path = os.pathsep.join(p for p in (str(HERE), os.environ.get("PYTHONPATH"))
+                           if p)
+    env = dict(os.environ, PYTHONPATH=path, TPU_JOB_NAME=RUNNER_JOB,
+               TPU_JOB_NAMESPACE="default", TPU_TRACE_ID="0c1a2b3c4d5e6f70")
+    stderr_path = os.path.join(root, "runner.stderr")
+    with open(stderr_path, "w") as stderr:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cron_operator_tpu_torch.workloads.runner",
+             *RUNNER_ARGS, f"checkpoint_dir={root}"],
+            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=stderr,
+            text=True)
+    proc.stderr_path = stderr_path
+    return proc
+
+
+def finish(proc, timeout: float = 300):
+    """Waits for the runner (killing it past ``timeout``): its exit code and
+    the end of its stderr."""
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, Path(proc.stderr_path).read_text()[-3000:]
+
+
+def phase_runner(root: str):
+    """The port runner on the card, stopped by SIGTERM once 4 steps are
+    done, then run again to its end: it must resume from the last save.
+    Returns the step it stopped at, the lineage's last step (16) and the
+    seconds from the signal to the stopped runner's exit."""
+    proc = start_runner(root)
+    signalled = []
+    try:
+        def stop_at_4(frame):
+            if (frame["type"] == "progress" and not signalled
+                    and frame["progress"].get("steps_done", 0) >= 4):
+                proc.send_signal(signal.SIGTERM)
+                signalled.append(time.monotonic())
+
+        frames = runner_frames(proc, stop_at_4)
+    finally:
+        code, err = finish(proc)
+    stop_s = time.monotonic() - signalled[0] if signalled else math.nan
+    done = frames[-1] if frames else {}
+    print(f"runner: SIGTERM run exit {code} {stop_s:.2f} s after the signal, "
+          f"frames {[f['type'] for f in frames]}, done steps "
+          f"{done.get('progress', {}).get('steps_done')}, cancelled "
+          f"{done.get('cancelled')}", flush=True)
+    if code != 0 or done.get("type") != "done" or done.get("cancelled") is not True:
+        fail(f"runner: the SIGTERM run did not stop gracefully (exit {code}):"
+             f" {err}")
+    steps = sorted(int(p.name) for p in Path(root, "default", RUNNER_JOB)
+                   .iterdir() if p.name.isdigit())
+    stopped = done["progress"]["steps_done"]
+    if not steps or steps[-1] != stopped or stopped >= 16:
+        fail(f"runner: stopped at {stopped} with saved steps {steps}")
+
+    proc = start_runner(root)
+    try:
+        frames = runner_frames(proc)
+    finally:
+        code, err = finish(proc)
+    types = [f["type"] for f in frames]
+    progress = frames[-1]["progress"] if frames else {}
+    print(f"runner: rerun exit {code}, frames {types}, resumed_from_step "
+          f"{progress.get('resumed_from_step')}, steps_done "
+          f"{progress.get('steps_done')}, last_loss "
+          f"{progress.get('last_loss')}, tokens/s "
+          f"{progress.get('tokens_per_s')}", flush=True)
+    if code != 0 or not types or types[-1] != "done" or "error" in types \
+            or not set(types) <= FRAME_TYPES or "spans" not in types:
+        fail(f"runner: the rerun failed (exit {code}, frames {types}): "
+             f"{err}")
+    if (progress.get("resumed_from_step") != stopped
+            or progress.get("steps_done") != 16
+            or frames[-1]["cancelled"] is not False
+            or not math.isfinite(progress.get("last_loss", math.nan))):
+        fail(f"runner: the rerun did not resume from step {stopped} to 16: "
+             f"{progress}")
+    return stopped, 16, stop_s
+
+
+def phase_serve_checkpoint(torch, fa, root: str, step: int):
+    """``generate_job checkpoint_from`` the runner's lineage, whose newest
+    step is ``step``, with K1's count set to 0 just before and read just
+    after; its greedy tokens
+    against a GPT built here from the checkpoint's f32 parameters (eager
+    decode) on the prompts the job drew."""
+    from cron_operator_tpu_torch.backends.registry import JobContext
+    from cron_operator_tpu_torch.models import GPT, GPTConfig
+    from cron_operator_tpu_torch.workloads import entrypoints
+    from cron_operator_tpu_torch.workloads.checkpoint import CheckpointStore
+    from cron_operator_tpu_torch.workloads.generate import generate
+
+    served = []
+
+    def spy(cfg, model, prompt, max_new, **kw):
+        out = generate(cfg, model, prompt, max_new, **kw)
+        served.append((prompt.clone(), out.clone()))
+        return out
+
+    params = {"seq_len": "1024", "prompt_len": "512", "max_new": "64",
+              "batch_size": "8", "rounds": "2", "checkpoint_from": RUNNER_JOB,
+              "checkpoint_dir": root}
+    ctx = JobContext("chip-smoke-serve", "default", {}, params)
+    entrypoints.generate, real = spy, entrypoints.generate
+    try:
+        zero_counts(fa)
+        entrypoints.generate_job(ctx)
+        torch.cuda.synchronize()
+        counts, designs = read_counts(fa), read_designs(fa)
+    finally:
+        entrypoints.generate = real
+    progress = ctx.progress
+    print(f"serve: {progress}; K1/K2/K3 launches {counts} (expected 24/0/0, "
+          f"all sm90: {designs[0]})", flush=True)
+    if progress.get("restored_from_step") != step:
+        fail(f"serve: restored_from_step {progress.get('restored_from_step')}"
+             f", not {step}")
+    if counts != (24, 0, 0) or designs[0]["sm90"] != 24:
+        fail(f"serve: flash launches {counts}, not 12 in each round's prefill")
+    cfg = GPTConfig(max_len=1024)
+    model = GPT(cfg, device="cuda")  # f32 masters, cast at use
+    store = CheckpointStore("default", RUNNER_JOB, root=root, create=False)
+    model.load_state_dict(store.restore_params(step))
+    store.close()
+    model.eval()
+    with torch.inference_mode():
+        for i, (prompt, out) in enumerate(served):
+            want = generate(cfg, model, prompt, 64, captured=False)
+            if not (out.shape == (8, 576) and torch.equal(out, want)):
+                fail(f"serve: round {i}'s greedy tokens differ from the "
+                     "checkpoint's in-process model")
+    print(f"serve: {len(served)} rounds x 8 x 64 greedy tokens equal the "
+          "in-process model's", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+MFU_PARAMS = {**TRAIN_PARAMS, "steps": "24", "mfu": "1",
+              "flops_accounting": "1"}
+
+
+def phase_mfu(torch, card, root: str):
+    """``gpt mfu=1 flops_accounting=1`` against this script's FLOPs, over
+    the job's own steady-state step time; then a profiled run."""
+    from cron_operator_tpu_torch.backends.registry import JobContext
+    from cron_operator_tpu_torch.workloads import entrypoints
+
+    ctx = JobContext("chip-smoke-mfu", "default", {}, dict(MFU_PARAMS))
+    entrypoints.gpt(ctx)
+    p = ctx.progress
+    flops = lm_model_flops(GPT2_SMALL_PARAMS, TRAIN_SHAPE, True, 12)
+    mfu = flops / (p["avg_step_time_s"] * BF16_FLOPS)
+    print(f"[{card}] mfu: job {p.get('mfu')} vs script {mfu:.4f} over "
+          f"{p['avg_step_time_s']} s/step | xla_flops_per_step "
+          f"{p.get('xla_flops_per_step')} vs script {flops:.6e} "
+          f"({p.get('xla_flops_per_step', 0) / flops - 1:+.4%})", flush=True)
+    if not (p.get("mfu") and abs(p["mfu"] / mfu - 1) <= 0.03):
+        fail(f"mfu: the job's {p.get('mfu')} is not within 3% of {mfu:.4f}")
+    if abs(p.get("xla_flops_per_step", 0) / flops - 1) > 0.01:
+        fail(f"mfu: xla_flops_per_step {p.get('xla_flops_per_step')} is not "
+             f"within 1% of {flops:.6e}")
+
+    prof_dir = os.path.join(root, "profile")
+    ctx = JobContext("chip-smoke-profile", "default", {},
+                     {**TRAIN_PARAMS, "steps": "3", "profile_dir": prof_dir})
+    entrypoints.gpt(ctx)
+    trace = ctx.progress.get("profile_trace")
+    print(f"profile: steps_per_call {ctx.progress['steps_per_call']}, trace "
+          f"{trace}, error {ctx.progress.get('profile_error')}", flush=True)
+    if not trace or "flash_fwd_sm90_kernel" not in Path(trace).read_text():
+        fail("profile: no trace naming the sm90 K1 kernel")
+    return {"mfu_job": p["mfu"], "mfu_script": mfu,
+            "flops_job": p["xla_flops_per_step"], "flops_script": flops,
+            "avg_step_time_s": p["avg_step_time_s"]}
+
+
 CSRC = "cron_operator_tpu_torch/ops/csrc/"
 # the design the main path runs (bf16, head dim 64), its source, and the
 # TPU kernel it replaces
@@ -1115,6 +1465,20 @@ def main() -> None:
     timed("vit", phase_image_job, torch, fa, card, "vit", VIT_PARAMS,
           lambda: ViT(ViTConfig.base(), device="cuda"), TrainConfig())
     timed("mnist", phase_job, torch, fa, "mnist", MNIST_PARAMS, 0)
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        resume_counts, resume = timed("resume", phase_resume, torch, fa,
+                                      card, root)
+        stopped, last, stop_s = timed("runner", phase_runner, root)
+        serve_counts = timed("serve checkpoint", phase_serve_checkpoint,
+                             torch, fa, root, last)
+        mfu = timed("mfu and profile", phase_mfu, torch, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("contract " + json.dumps({**resume, "runner_stopped_at": stopped,
+                                    "runner_exit_s_after_sigterm": stop_s,
+                                    **mfu}))
     print(f"phases: {sum(walls.values()):.1f} s in all, "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
 
@@ -1126,6 +1490,12 @@ def main() -> None:
         kernel_entry("K1", "@bert", bert_counts[0], bert_rows["K1"]),
         kernel_entry("K2", "@bert", bert_counts[1], bert_rows["K2"]),
         kernel_entry("K3", "@bert", bert_counts[2], bert_rows["K3"]),
+        # this slice's paths: the resumed training run (the training
+        # slice's shape) and serving from the checkpoint (the prefill's)
+        kernel_entry("K1", "@resume", resume_counts[0], train_rows["K1"]),
+        kernel_entry("K2", "@resume", resume_counts[1], train_rows["K2"]),
+        kernel_entry("K3", "@resume", resume_counts[2], train_rows["K3"]),
+        kernel_entry("K1", "@serve_checkpoint", serve_counts[0], k1),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

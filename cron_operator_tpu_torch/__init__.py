@@ -6,14 +6,17 @@ control plane reaches its workloads only through ``module:function``
 entrypoint strings (``tpu.kubedl.io/entrypoint``), so it launches them
 unchanged. Sub-packages mirror the JAX package's:
 
-- ``backends`` — the ``JobContext`` an entrypoint receives.
+- ``backends`` — the ``JobContext`` an entrypoint receives, the entrypoint
+                 registry, the card's peak FLOP/s.
 - ``ops``      — the hand-written Hopper kernels (``ops/csrc``) with their
                  plain PyTorch versions, attention dispatch, RoPE, chunked
                  cross-entropy.
 - ``parallel`` — dense single-device attention (parallelism comes later).
 - ``models``   — the GPT family and the flax-to-torch weight converter.
 - ``workloads``— KV-cache generation, synthetic data, the training harness,
-                 and the ``generate_job`` and ``gpt`` entrypoints.
+                 checkpoints, the entrypoints (``generate_job``, ``gpt``,
+                 ``bert``, ``mnist``, ``resnet50``, ``vit``) and the pod
+                 runner.
 - ``utils``    — device resolution.
 
 Entry points run on the CUDA card; they use the CPU only when the caller

@@ -8,10 +8,16 @@
   JAX package so configs carry over. The CPU path.
 - ``"ring"`` / ``"ulysses"`` — sequence parallelism; not ported yet.
 
-Models call :func:`multi_head_attention` and stay strategy-agnostic.
+Models call :func:`multi_head_attention` and stay strategy-agnostic. On the
+``meta`` device (a FLOP count, :func:`count_attention_flops`) attention
+computes nothing and is counted by formula, whatever ``impl`` says.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Iterator, Optional
 
 import torch
 
@@ -24,6 +30,56 @@ def reference_attention(
 ) -> torch.Tensor:
     """Naive full attention on ``[b, s, h, d]`` — the numeric ground truth."""
     return _single_device_attention(q, k, v, causal=causal)
+
+
+class AttentionFlops:
+    """A running count of attention's model FLOPs."""
+
+    def __init__(self) -> None:
+        self.flops = 0
+
+
+_TALLY: contextvars.ContextVar[Optional[AttentionFlops]] = (
+    contextvars.ContextVar("attention_flops", default=None))
+
+
+@contextlib.contextmanager
+def count_attention_flops() -> Iterator[AttentionFlops]:
+    """Counts the model FLOPs of the attention that runs on ``meta`` tensors
+    in this context: 4 d per (query, key) pair that the mask keeps and per
+    query head in the forward (Q K^T and P V), twice that in the backward,
+    the convention of ``chip_smoke.py``'s MFU. The kernels' own work is
+    larger: K2 and K3 recompute Q K^T (6 d and 8 d a pair, not 8 d)."""
+    tally = AttentionFlops()
+    token = _TALLY.set(tally)
+    try:
+        yield tally
+    finally:
+        _TALLY.reset(token)
+
+
+class _MetaAttention(torch.autograd.Function):
+    """Attention on ``meta`` tensors: the output's shape, no values, and the
+    FLOPs into the tally of :func:`count_attention_flops` (taken at the
+    forward, since the backward may run on another thread)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        b, s, h, d = q.shape
+        pairs = s * (s + 1) // 2 if causal else s * k.shape[1]
+        ctx.flops = 4 * d * b * h * pairs
+        ctx.tally = _TALLY.get()
+        ctx.inputs = [(t.shape, t.dtype) for t in (q, k, v)]
+        if ctx.tally is not None:
+            ctx.tally.flops += ctx.flops
+        return q.new_empty(b, s, h, v.shape[-1])
+
+    @staticmethod
+    def backward(ctx, do):
+        if ctx.tally is not None:
+            ctx.tally.flops += 2 * ctx.flops
+        return (*(torch.empty(shape, dtype=dtype, device="meta")
+                  for shape, dtype in ctx.inputs), None)
 
 
 def multi_head_attention(
@@ -41,6 +97,8 @@ def multi_head_attention(
     divisor) go to the flash kernel as they are; the other impls repeat
     them here.
     """
+    if q.is_meta:
+        return _MetaAttention.apply(q, k, v, causal)
     if impl == "auto":
         # The JAX package also waits for seq >= 1024 before it picks its
         # kernel; that crossover was measured on a TPU v5e and does not carry
@@ -74,4 +132,5 @@ def multi_head_attention(
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
-__all__ = ["multi_head_attention", "reference_attention"]
+__all__ = ["count_attention_flops", "multi_head_attention",
+           "reference_attention"]

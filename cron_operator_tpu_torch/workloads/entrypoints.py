@@ -17,16 +17,31 @@ the step replayed per step on the card), ``prefetch``, ``stage_async``,
 ``lr``/``lr_schedule``/``warmup_steps``/``schedule_steps``/``grad_clip``/
 ``decay_mask``/``sync_every``/``save_every`` (see :func:`_train_kwargs`).
 Every training job's weights come from seed 0, and besides the JAX
-``_run``'s progress keys it publishes ``n_params``. ``pipe > 1`` raises
-``ValueError`` for good, as in the JAX package. The mesh params (and
-``devices`` > 1), MoE, ring/Ulysses attention, checkpoints, ``mfu``,
-``flops_accounting`` and ``profile_dir`` raise ``NotImplementedError``
-until their slice (:func:`_train_device`).
+``_run``'s progress keys it publishes ``n_params``.
+
+The one-card job contract of the JAX package holds: ``checkpoint=1`` saves
+every ``save_every`` steps into a :class:`workloads.checkpoint.CheckpointStore`
+(``checkpoint_job``, ``checkpoint_lineage``, ``checkpoint_keep``,
+``checkpoint_dir``) and a re-run resumes from the newest step
+(:func:`_checkpoint_store`); ``generate_job`` serves a lineage's latest
+parameters (``checkpoint_from``); ``mfu=1`` publishes a rolling and a final
+MFU against the card's peak (:mod:`backends.gpu`, or
+``peak_flops_per_chip``), ``flops_accounting=1`` the step's FLOPs as
+``xla_flops_per_step``, and ``profile_dir`` takes a ``torch.profiler``
+trace of the steady-state calls (:func:`_run`). Each entrypoint registers
+under the JAX package's short name (``gpt``, ``bert``, ``mnist``,
+``resnet50``, ``vit``, ``generate``) for :func:`backends.registry.
+resolve_entrypoint` and the port runner.
+
+``pipe > 1`` raises ``ValueError`` for good, as in the JAX package. The
+mesh params (and ``devices`` > 1), MoE and ring/Ulysses attention raise
+``NotImplementedError`` until their slice (:func:`_train_device`).
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from collections import deque
 from dataclasses import replace
@@ -35,6 +50,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import torch
 from torch import nn
 
+from cron_operator_tpu_torch.backends.gpu import peak_flops_per_chip
+from cron_operator_tpu_torch.backends.registry import register_entrypoint
 from cron_operator_tpu_torch.models.bert import Bert, BertConfig
 from cron_operator_tpu_torch.models.gpt import GPT, GPTConfig
 from cron_operator_tpu_torch.models.mlp import MLP
@@ -42,6 +59,7 @@ from cron_operator_tpu_torch.models.resnet import ResNet50
 from cron_operator_tpu_torch.models.vit import ViT, ViTConfig
 from cron_operator_tpu_torch.utils.device import resolve_device
 from cron_operator_tpu_torch.workloads import data as datasets
+from cron_operator_tpu_torch.workloads.checkpoint import CheckpointStore
 from cron_operator_tpu_torch.workloads.generate import generate
 from cron_operator_tpu_torch.workloads.train import (
     StepStats,
@@ -61,9 +79,34 @@ def _gqa_rope_kwargs(ctx) -> dict:
 
 def _steps_per_call(ctx):
     """param.steps_per_call: ``"auto"`` (the default execution mode, 8
-    steps per call: ``Trainer.resolved_steps_per_call``) or an int."""
+    steps per call, or save_every when checkpointing:
+    ``Trainer.resolved_steps_per_call``) or an int. A profiled run
+    (``param.profile_dir``) pins "auto" to 1, as the JAX package does: the
+    profiler starts after the first call, and eager steps show every
+    kernel."""
     raw = ctx.params.get("steps_per_call", "auto")
-    return raw if raw == "auto" else int(raw)
+    if raw != "auto":
+        return int(raw)
+    return 1 if ctx.params.get("profile_dir") else "auto"
+
+
+def _checkpoint_store(ctx) -> Optional[CheckpointStore]:
+    """The job's CheckpointStore when it opts in (``param.checkpoint=1``):
+    the preemption-recovery path, where the re-run of a preempted job
+    resumes from the last saved step. ``checkpoint_lineage`` (``job``
+    default, ``family`` to continue one run across Forbid ticks),
+    ``checkpoint_job`` (another job's lineage), ``checkpoint_keep`` (steps
+    retained, 3) and ``checkpoint_dir`` (the root), as in the JAX
+    package."""
+    if ctx.params.get("checkpoint", "0") not in ("1", "true", "yes"):
+        return None
+    return CheckpointStore(
+        ctx.namespace or "default",
+        ctx.params.get("checkpoint_job") or ctx.name,
+        root=ctx.params.get("checkpoint_dir"),
+        max_to_keep=int(ctx.params.get("checkpoint_keep", 3)),
+        lineage=ctx.params.get("checkpoint_lineage", "job"),
+    )
 
 
 def _train_kwargs(ctx, steps: int, **defaults) -> dict:
@@ -71,7 +114,7 @@ def _train_kwargs(ctx, steps: int, **defaults) -> dict:
     ``param.*`` surface, as in the JAX package: ``lr``, ``lr_schedule``
     (constant|cosine|warmup_cosine), ``warmup_steps``, ``schedule_steps``
     (default: the run's step target), ``grad_clip`` (0 = off),
-    ``decay_mask``, ``save_every`` (=10; read once checkpoints exist),
+    ``decay_mask``, ``save_every`` (=10: the checkpoint cadence),
     ``prefetch`` (=0), ``sync_every``, ``steps_per_call`` (="auto") and
     ``stage_async`` (="1": background staging of external batches)."""
     kw = dict(defaults)
@@ -121,8 +164,9 @@ def _train_device(ctx) -> torch.device:
     """The device a training job runs on, after the checks of the JAX
     ``_devices`` and ``_mesh``: ``param.pipe > 1`` raises ``ValueError``
     for good (the standard jobs train one step; pipelining is a primitive
-    for custom entrypoints), and the params of later slices raise
-    ``NotImplementedError``, ``param.devices > 1`` among them (a mesh)."""
+    for custom entrypoints), and the params of later slices (a mesh, MoE,
+    sequence parallelism) raise ``NotImplementedError``, ``param.devices >
+    1`` among them."""
     devs = _devices(ctx)
     p = ctx.params
     if int(p.get("pipe", 1)) > 1:
@@ -145,13 +189,6 @@ def _train_device(ctx) -> torch.device:
         raise NotImplementedError(
             f"param.attention={p['attention']} (sequence parallel) {_LATER} 8"
         )
-    if p.get("checkpoint", "0") in ("1", "true", "yes"):
-        raise NotImplementedError(f"param.checkpoint (checkpoints) {_LATER} 5")
-    for key in ("mfu", "flops_accounting"):
-        if p.get(key, "0") in ("1", "true"):
-            raise NotImplementedError(f"param.{key} (perf tooling) {_LATER} 12")
-    if p.get("profile_dir"):
-        raise NotImplementedError(f"param.profile_dir (perf tooling) {_LATER} 12")
     return devs[0]
 
 
@@ -193,14 +230,68 @@ def _train_job(
     ctx.progress["n_params"] = sum(p.numel() for p in model.parameters())
     device = next(model.parameters()).device
     fused = ctx.params.get("data", "device") == "fused"
-    trainer = Trainer(
-        model, TrainConfig(**_train_kwargs(ctx, steps, **train_defaults)),
-        loss_fn=loss_fn, sample_fn=sample if fused else None,
-    )
+    store = _checkpoint_store(ctx)
+    try:
+        trainer = Trainer(
+            model, TrainConfig(**_train_kwargs(ctx, steps, **train_defaults)),
+            loss_fn=loss_fn, sample_fn=sample if fused else None,
+            checkpoint=store,
+        )
+    except BaseException:
+        if store is not None:
+            store.close()
+        raise
     batches = _batches(
         ctx, host_factory,
         lambda: datasets.device_batches(sample, device=device))
     _run(ctx, trainer, batches, steps, tokens_per_step=tokens_per_step)
+
+
+def _peak_flops(ctx, device: torch.device) -> Optional[float]:
+    """The MFU denominator: ``param.peak_flops_per_chip``, else the card's
+    peak by its name (:func:`backends.gpu.peak_flops_per_chip`); None on
+    the CPU or an unknown card."""
+    try:
+        if ctx.params.get("peak_flops_per_chip"):
+            return float(ctx.params["peak_flops_per_chip"])
+    except (TypeError, ValueError):
+        return None
+    if device.type != "cuda":
+        return None
+    return peak_flops_per_chip(torch.cuda.get_device_name(device))
+
+
+def _start_profile(ctx, device: torch.device, profile_dir: str):
+    """A started ``torch.profiler`` (host and, on the card, CUDA activity)
+    for ``profile_dir``, or None after publishing ``profile_error``: the
+    profiler is process-wide, and a diagnostic never fails the job."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        prof = profile(activities=activities)
+        prof.start()
+    except Exception as exc:  # noqa: BLE001
+        ctx.progress["profile_error"] = str(exc)
+        return None
+    ctx.progress["profile_dir"] = profile_dir
+    return prof
+
+
+def _stop_profile(ctx, prof, profile_dir: str) -> None:
+    """Stops ``prof`` and writes its trace (Chrome trace JSON) into
+    ``profile_dir``; a failure goes into ``profile_error``."""
+    try:
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(
+            profile_dir, f"{ctx.name}.{os.getpid()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        ctx.progress["profile_trace"] = path
+    except Exception as exc:  # noqa: BLE001
+        ctx.progress["profile_error"] = str(exc)
 
 
 def _run(
@@ -212,24 +303,46 @@ def _run(
 ) -> None:
     """Drive ``trainer`` and publish the JAX ``_run``'s progress keys through
     the ctx: ``started_at``, ``steps_per_call``, ``data_mode``,
+    ``resumed_from_step`` (with ``steps_done``, up front, on a resume),
     ``first_step_at``, ``first_step_latency_s``, ``compile_time_s`` (the
-    first step's wall), ``steps_done``, ``step_timeline``, ``last_loss``,
+    first call's wall), ``steps_done``, ``step_timeline``, ``last_loss``,
     ``last_step_time_s``, ``tokens_per_s``, ``avg_step_time_s``,
-    ``steps_per_s``, ``data_stall_ms_p50`` and, under ``sync_every > 1``,
-    ``async_dispatch_ms_p50``. Beats ``ctx.watchdog`` after every step and
-    honours ``ctx.hang``."""
+    ``steps_per_s``, ``data_stall_ms_p50``, under ``sync_every > 1``
+    ``async_dispatch_ms_p50``, under ``mfu=1`` ``mfu`` (rolling at synced
+    steps after the first call, then the steady-state average's), under
+    ``flops_accounting=1`` ``xla_flops_per_step`` (the JAX key, which the
+    executor reads: here :meth:`Trainer.flops_per_step`), and under
+    ``profile_dir`` ``profile_dir`` and ``profile_trace`` (or
+    ``profile_error``). Beats ``ctx.watchdog`` after every step and
+    honours ``ctx.hang``. The checkpoint store is closed (its writes
+    drained) before this returns, whatever happens."""
     ctx.progress["started_at"] = time.time()
     ctx.progress["steps_per_call"] = trainer.resolved_steps_per_call
     ctx.progress["data_mode"] = ctx.params.get("data", "device")
     started_mono = time.monotonic()
+    if trainer.steps_done:
+        # The restored steps are done: publish them up front, since a
+        # resume at or past the target runs nothing.
+        ctx.progress["resumed_from_step"] = trainer.steps_done
+        ctx.progress["steps_done"] = trainer.steps_done
     last_publish = [0.0]
     # param.step_delay_s paces the loop (keeps a short job in flight long
     # enough to be preempted mid-run)
     step_delay_s = float(ctx.params.get("step_delay_s", 0) or 0)
+    profile_dir = ctx.params.get("profile_dir")
+    profiler = [None]
     window = [0.0, 0]  # wall time and step count since the last synced step
     timeline: deque = deque(
         maxlen=max(1, int(ctx.params.get("timeline_steps", 64) or 64))
     )
+    mfu_on = str(ctx.params.get("mfu", "0")).lower() in ("1", "true")
+    peak = _peak_flops(ctx, trainer.device) if mfu_on else None
+
+    def _mfu(step_avg_s: float) -> Optional[float]:
+        if not (peak and step_avg_s > 0):
+            return None
+        flops = trainer.flops_per_step()
+        return round(flops / (step_avg_s * peak), 4) if flops else None
 
     def on_step(s: StepStats) -> None:
         first_call = "first_step_at" not in ctx.progress
@@ -241,6 +354,8 @@ def _run(
             ctx.progress["compile_time_s"] = round(
                 trainer.first_dispatch_time_s, 4
             )
+            if profile_dir:
+                profiler[0] = _start_profile(ctx, trainer.device, profile_dir)
         ctx.progress["steps_done"] = s.step
         timeline.append({
             "step": s.step,
@@ -265,6 +380,12 @@ def _run(
                 ctx.progress["tokens_per_s"] = round(
                     tokens_per_step / win_avg, 1
                 )
+            if mfu_on and not s.compiled:
+                # rolling, over the synced window; the first call holds
+                # the build, warm-up and capture
+                mfu = _mfu(win_avg)
+                if mfu is not None:
+                    ctx.progress["mfu"] = mfu
             window[0], window[1] = 0.0, 0
         if step_delay_s:
             time.sleep(step_delay_s)
@@ -285,9 +406,17 @@ def _run(
             ctx.progress["hang_injected_at"] = time.time()
             ctx.cancel.wait()
 
-    stats = trainer.run(
-        batches, steps, should_stop=ctx.should_stop, on_step=on_step
-    )
+    try:
+        stats = trainer.run(
+            batches, steps, should_stop=ctx.should_stop, on_step=on_step
+        )
+    finally:
+        if profiler[0] is not None:
+            _stop_profile(ctx, profiler[0], profile_dir)
+        if trainer.checkpoint is not None:
+            # The last save is on disk when the entrypoint returns: the
+            # executor's preempt flush never sees a port store.
+            trainer.checkpoint.close()
     if timeline:
         ctx.progress["step_timeline"] = list(timeline)
     # Steady state: the first call (kernel build, warm-up, capture) is left
@@ -300,6 +429,10 @@ def _run(
         ctx.progress["steps_per_s"] = round(1.0 / avg, 4) if avg > 0 else None
         if tokens_per_step and avg > 0:
             ctx.progress["tokens_per_s"] = round(tokens_per_step / avg, 1)
+        if mfu_on:
+            mfu = _mfu(avg)
+            if mfu is not None:
+                ctx.progress["mfu"] = mfu
     # Dispatch-only walls of the async calls, whole (x chunk: the call is
     # what the host pays for); the last call is left out, since an early
     # exit charges the device drain to it.
@@ -314,8 +447,13 @@ def _run(
         ctx.progress["data_stall_ms_p50"] = round(
             stall_ms[len(stall_ms) // 2], 3
         )
+    if ctx.params.get("flops_accounting", "0") in ("1", "true"):
+        flops = trainer.flops_per_step()
+        if flops:
+            ctx.progress["xla_flops_per_step"] = flops
 
 
+@register_entrypoint("mnist")
 def mnist(ctx) -> None:
     """MLP on synthetic MNIST, as the JAX ``mnist`` entrypoint. Params:
     steps(=20), batch_size(=256), SGD at lr 0.01 unless ``param.lr``."""
@@ -330,6 +468,7 @@ def mnist(ctx) -> None:
     )
 
 
+@register_entrypoint("resnet50")
 def resnet50(ctx) -> None:
     """ResNet-50 on synthetic ImageNet, the JAX package's north-star
     workload. Params: steps(=10), batch_size(=128), image_size(=224), SGD
@@ -346,6 +485,7 @@ def resnet50(ctx) -> None:
     )
 
 
+@register_entrypoint("bert")
 def bert(ctx) -> None:
     """BERT MLM on synthetic tokens, as the JAX ``bert`` entrypoint.
 
@@ -372,6 +512,7 @@ def bert(ctx) -> None:
     )
 
 
+@register_entrypoint("gpt")
 def gpt(ctx) -> None:
     """GPT causal LM on synthetic tokens, as the JAX ``gpt`` entrypoint.
 
@@ -412,6 +553,7 @@ def gpt(ctx) -> None:
     )
 
 
+@register_entrypoint("vit")
 def vit(ctx) -> None:
     """ViT classification on synthetic ImageNet, as the JAX ``vit``
     entrypoint. Params: steps(=10), batch_size(=64), image_size(=the
@@ -438,6 +580,7 @@ def vit(ctx) -> None:
     )
 
 
+@register_entrypoint("generate")
 def generate_job(ctx) -> None:
     """Scheduled batch inference: GPT KV-cache generation as a Cron
     workload. Each round generates a batch of continuations from random
@@ -447,15 +590,15 @@ def generate_job(ctx) -> None:
     temperature(=0 → greedy), size(=base|tiny), seq_len(=prompt_len+max_new:
     the model's max_len), kv_heads(=0: MHA), rope(=0|1), seed(=0: the
     prompts' seed; weights come from seed 0 as in the JAX job), platform,
-    devices (serving uses the first). On the card the decode steps replay
-    one captured CUDA graph (:func:`workloads.generate.generate`).
-    ``checkpoint_from`` and ``moe_every`` wait for later slices.
+    devices (serving uses the first), checkpoint_from (=unset: random
+    weights; a job or family name serves the newest parameters that
+    training lineage saved, the train-nightly to serve-nightly pairing;
+    the GPTConfig params, ``seq_len`` among them, must match the training
+    job's) and checkpoint_dir (=the store root). On the card the decode
+    steps replay one captured CUDA graph
+    (:func:`workloads.generate.generate`). ``moe_every`` waits for the MoE
+    slice.
     """
-    if ctx.params.get("checkpoint_from"):
-        raise NotImplementedError(
-            "param.checkpoint_from waits for the checkpoint slice "
-            "(ROADMAP.md queue 1)"
-        )
     if int(ctx.params.get("moe_every", 0)) > 0:
         raise NotImplementedError(
             "param.moe_every waits for the MoE slice (ROADMAP.md queue 1)"
@@ -472,11 +615,34 @@ def generate_job(ctx) -> None:
         max_len=int(ctx.params.get("seq_len", prompt_len + max_new)),
         **_gqa_rope_kwargs(ctx),
     )
-    weights_rng = torch.Generator(device=device).manual_seed(0)
     # Serving keeps the parameters in cfg.dtype: the cast at use that a
     # training model's f32 masters go through gives the same values.
     model = GPT(cfg, device=device, param_dtype=cfg.dtype)
-    model = model.init_weights(weights_rng).eval()
+    ckpt_from = ctx.params.get("checkpoint_from")
+    if ckpt_from:
+        # Restored weights replace the init, which is skipped.
+        store = CheckpointStore(
+            ctx.namespace or "default", ckpt_from,
+            root=ctx.params.get("checkpoint_dir"),
+            create=False,  # read-only: a mistyped name must raise
+        )
+        try:
+            # Pin the step before restoring: a training tick may save a
+            # newer one meanwhile, and the served step must be the one
+            # reported.
+            step = store.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"lineage {ckpt_from!r} has no completed checkpoint yet"
+                )
+            model.load_state_dict(store.restore_params(step))
+            ctx.progress["restored_from_step"] = step
+        finally:
+            store.close()
+        model = model.eval()
+    else:
+        weights_rng = torch.Generator(device=device).manual_seed(0)
+        model = model.init_weights(weights_rng).eval()
 
     # Decode is HBM-bandwidth-bound: each step reads the parameters once for
     # the whole batch plus every item's full static KV cache ([b, max_len,

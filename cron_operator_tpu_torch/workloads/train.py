@@ -30,11 +30,31 @@ optax's schedules are; ``decay_mask`` selects parameters by the rank of
 their flax shape; the clip is ``optax.clip_by_global_norm`` (no epsilon
 added to the norm, unlike ``torch.nn.utils.clip_grad_norm_``).
 
-Not here yet: checkpoints (``save_every`` is kept for them).
+Checkpoints (``Trainer(..., checkpoint=store)``, a
+:class:`workloads.checkpoint.CheckpointStore`): the constructor restores
+the newest step before any step, warm-up or capture, so that a captured
+step holds the restored tensors' addresses (a load copies into the live
+tensors; the optimizer's state is built by ``load_state_dict`` before the
+first step creates any). A call whose steps cross a ``save_every``
+multiple ends with a save: the parameters, the optimizer's whole state
+(fused AdamW's device ``step`` tensors too), the step count and the fused
+data generator's state are copied to the host in stream order after the
+call's last step, and the copy is waited for before the next call is
+enqueued; the store writes it from a thread of its own. ``run`` cuts its
+calls at ``save_every`` multiples so that a save lands on its step. After a
+resume, fused data continues its stream where it stopped (the restored
+generator state), as the JAX package's ``fold_in(data_seed, step)`` does;
+``data=device`` and ``data=host`` streams start again from their first
+batch, as the JAX package's do.
+
+:meth:`Trainer.flops_per_step` counts a step's model FLOPs once, on the
+``meta`` device (see its docstring), for the ``mfu`` and
+``flops_accounting`` params.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import time
 from dataclasses import dataclass
@@ -46,6 +66,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from cron_operator_tpu_torch.models.convert import flax_rank
+from cron_operator_tpu_torch.ops.attention import count_attention_flops
 from cron_operator_tpu_torch.parallel.overlap import StepGraph, chunk_schedule
 from cron_operator_tpu_torch.workloads.data import (
     ChunkStager,
@@ -56,8 +77,8 @@ from cron_operator_tpu_torch.workloads.data import (
 ADAM_BETAS = (0.9, 0.999)  # optax.adamw's b1, b2
 ADAM_EPS = 1e-8  # optax.adamw's eps (eps_root 0)
 SGD_MOMENTUM = 0.9
-# steps_per_call="auto": steps per call while there is no checkpoint store
-# to snap to (the JAX package's _AUTO_MAX_CHUNK)
+# steps_per_call="auto": steps per call, or save_every when a checkpoint
+# store is set and save_every is smaller (the JAX package's _AUTO_MAX_CHUNK)
 AUTO_STEPS_PER_CALL = 8
 
 
@@ -82,9 +103,7 @@ class TrainConfig:
     decay_mask: bool = False
     remat: bool = False  # recompute the forward in the backward
     sync_every: int = 1  # fetch the loss (a device sync) every N steps
-    # Checkpoint cadence in steps, as the JAX package's; the port has no
-    # checkpoint store yet, so nothing reads it until that slice.
-    save_every: int = 0
+    save_every: int = 0  # checkpoint cadence in steps (0 = never)
     # Batches placed ahead on the device by a background thread (0 = off).
     prefetch: int = 0
     # Seed of the generator that fused data (Trainer sample_fn) draws from.
@@ -198,7 +217,8 @@ class StepStats:
     # Phase walls of the call, in seconds: data = putting the batches on
     # the device (or waiting for the stager), dispatch = enqueueing the
     # steps, sync = waiting for the loss (0.0 on async calls), ckpt = the
-    # checkpoint stall (always 0.0: no checkpoints yet).
+    # checkpoint stall (the copy to the host, and the wait for the previous
+    # save's write; not in step_time_s).
     data_s: float = 0.0
     dispatch_s: float = 0.0
     sync_s: float = 0.0
@@ -237,6 +257,10 @@ class Trainer:
     from a generator on the model's device seeded with
     ``config.data_seed``, and ``run`` takes empty batches
     (``itertools.repeat({})``).
+
+    ``checkpoint`` (a ``CheckpointStore``) restores the newest saved step
+    here, before anything runs, and saves every ``config.save_every``
+    steps (see the module docstring).
     """
 
     def __init__(
@@ -246,11 +270,13 @@ class Trainer:
         loss_fn: Callable[[Any, torch.Tensor], torch.Tensor] = cross_entropy_loss,
         sample_fn: Optional[Callable[[torch.Generator],
                                      Dict[str, torch.Tensor]]] = None,
+        checkpoint: Optional[Any] = None,
     ):
         self.model = model
         self.config = config or TrainConfig()
         self.loss_fn = loss_fn
         self.sample_fn = sample_fn
+        self.checkpoint = checkpoint
         self.device = next(model.parameters()).device
         spc = self.config.steps_per_call
         if not (spc == "auto" or isinstance(spc, int)):
@@ -270,18 +296,115 @@ class Trainer:
         self._copy_stream = torch.cuda.Stream(self.device) if on_card else None
         self._graph: Optional[StepGraph] = None
         self.steps_done = 0
+        if checkpoint is not None and checkpoint.latest_step() is not None:
+            # Resume before any step, warm-up or capture, falling back past
+            # unreadable steps as the JAX package's store does.
+            _, state = checkpoint.restore_latest(
+                like={"params": self.model.state_dict()})
+            self.load_state(state)
+        # Shapes and dtypes of one step's batch, noted at the first step
+        # (flops_per_step's input), and the count, made once.
+        self._batch_struct: Optional[Dict[str, Any]] = None
+        self._flops_per_step: Optional[float] = None
+        self._flops_counted = False
         # Wall time of the first call (see the module docstring).
         self.first_dispatch_time_s: Optional[float] = None
 
     @property
     def resolved_steps_per_call(self) -> int:
-        """``config.steps_per_call`` with ``"auto"`` resolved. The JAX
-        package resolves it to min(8, save_every) when it checkpoints; the
-        port has no checkpoint store yet, so "auto" is 8."""
+        """``config.steps_per_call`` with ``"auto"`` resolved: calls of
+        ``min(8, save_every)`` steps when checkpointing (``run`` cuts calls
+        at save_every multiples, so a longer call would only fragment into
+        the same pieces), 8 otherwise."""
         spc = self.config.steps_per_call
         if spc == "auto":
-            spc = AUTO_STEPS_PER_CALL
+            se = self.config.save_every
+            spc = (min(AUTO_STEPS_PER_CALL, se)
+                   if self.checkpoint is not None and se > 0
+                   else AUTO_STEPS_PER_CALL)
         return max(1, int(spc))
+
+    def host_state(self) -> Dict[str, Any]:
+        """The trainer's state as host tensors and plain values, what a save
+        writes: ``params`` (the model's state dict), ``optimizer`` (its whole
+        state dict; the learning rate, which the trainer sets before every
+        step, as a float), ``step`` and ``data_gen`` (the fused data
+        generator's state, or None). Card tensors are copied into pinned
+        memory in the current stream's order, after every step enqueued so
+        far, and the copies are waited for here, so that the next step
+        cannot overwrite them."""
+        opt = self.optimizer.state_dict()
+        opt["param_groups"] = [
+            {**g, "lr": float(g["lr"])} for g in opt["param_groups"]]
+        state = {
+            "params": _to_host(self.model.state_dict()),
+            "optimizer": _to_host(opt),
+            "step": self.steps_done,
+            "data_gen": (self._data_gen.get_state()
+                         if self._data_gen is not None else None),
+        }
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return state
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        """Loads a :meth:`host_state` into the live model (copied into its
+        tensors), the optimizer and the data generator, and sets
+        ``steps_done``. Only before the step is captured: a captured step
+        holds the addresses of the optimizer state, which the load builds
+        anew."""
+        if self._graph is not None:
+            raise RuntimeError("load_state after the step graph's capture")
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        lr = self._lr if self._lr is not None else self.config.learning_rate
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr  # the card's shared lr tensor, as at creation
+        if self._data_gen is not None and state.get("data_gen") is not None:
+            self._data_gen.set_state(state["data_gen"])
+        self.steps_done = int(state["step"])
+
+    def flops_per_step(self) -> Optional[float]:
+        """Model FLOPs of one optimizer step at the batch shapes trained:
+        the forward and backward of the loss, counted once and lazily (None
+        before the first step, or when the count fails).
+
+        The count runs on the ``meta`` device, on meta copies of the
+        parameters (``torch.func.functional_call``), so that it touches
+        neither the live gradients nor the optimizer state that a captured
+        step reads, and moves no data: ``FlopCounterMode`` counts the
+        matmuls and convolutions, and attention, which reaches the hand
+        kernels (invisible to ``FlopCounterMode``) on the card and full
+        s x s products on the CPU, is counted by one formula on every
+        device (:func:`ops.attention.count_attention_flops`). Neither
+        ``remat``'s recompute nor the P that the backward kernels recompute
+        is counted, nor the optimizer's elementwise update; the chunked
+        cross-entropy's backward, which recomputes its logits with aten
+        matmuls, is."""
+        if self._flops_counted or self._batch_struct is None:
+            return self._flops_per_step
+        self._flops_counted = True
+        try:
+            meta = {
+                name: torch.empty_like(t, device="meta").requires_grad_(
+                    t.requires_grad)
+                for name, t in itertools.chain(self.model.named_parameters(),
+                                               self.model.named_buffers())
+            }
+            batch = {k: torch.empty(shape, dtype=dtype, device="meta")
+                     for k, (shape, dtype) in self._batch_struct.items()}
+            from torch.func import functional_call
+            from torch.utils.flop_counter import FlopCounterMode
+
+            with FlopCounterMode(display=False) as counter, \
+                    count_attention_flops() as attention:
+                out = functional_call(self.model, meta, (batch["x"],))
+                self.loss_fn(out, batch["y"]).backward()
+            flops = counter.get_total_flops() + attention.flops
+            self._flops_per_step = float(flops) if flops else None
+        except Exception:  # noqa: BLE001 -- a diagnostic must not fail
+            self._flops_per_step = None  # the training run
+        return self._flops_per_step
 
     def put_batch(self, batch: Dict[str, Any]) -> _Placed:
         """``batch`` on the trainer's device. On the card, host arrays go
@@ -344,6 +467,9 @@ class Trainer:
         Returns the loss on the device. This is what the graph captures."""
         if self.sample_fn is not None:
             batch = self.sample_fn(self._data_gen)
+        if self._batch_struct is None:
+            self._batch_struct = {k: (tuple(v.shape), v.dtype)
+                                  for k, v in batch.items()}
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(batch)
         loss.backward()
@@ -410,13 +536,24 @@ class Trainer:
         sync_s = time.perf_counter() - t_disp if sync else 0.0
         if compiled:
             self.first_dispatch_time_s = wall
+        before = self.steps_done
         self.steps_done += chunk
+        ckpt_s = 0.0
+        se = self.config.save_every
+        if (self.checkpoint is not None and se > 0
+                and self.steps_done // se > before // se):
+            # The call crossed a save_every multiple: save (the host copy
+            # is the stall; the store writes it to disk on its own thread).
+            t_ckpt = time.perf_counter()
+            self.checkpoint.save(self.steps_done, self.host_state())
+            ckpt_s = time.perf_counter() - t_ckpt
         return StepStats(
             self.steps_done, loss, wall / chunk,
             chunk=chunk,
             data_s=t_data - t0,
             dispatch_s=t_disp - t_data,
             sync_s=sync_s,
+            ckpt_s=ckpt_s,
             compiled=compiled,
         )
 
@@ -453,9 +590,11 @@ class Trainer:
         on_step: Optional[Callable[[StepStats], None]] = None,
     ) -> List[StepStats]:
         """Train until ``steps_done`` reaches ``steps`` (a total-step
-        target), in calls of ``resolved_steps_per_call`` steps cut by
+        target, so a restored trainer runs only the remainder), in calls of
+        ``resolved_steps_per_call`` steps cut by
         :func:`parallel.overlap.chunk_schedule` so that the run never
-        overshoots the target.
+        overshoots the target and, with a checkpoint store, no call crosses
+        a ``save_every`` multiple. The store is waited for at the end.
 
         External batches in calls of several steps are grouped and placed
         by a background ChunkStager (chunk N+1 is on the card while chunk N
@@ -470,6 +609,9 @@ class Trainer:
         se = max(1, self.config.sync_every)
         spc = self.resolved_steps_per_call
         external = self.sample_fn is None
+        boundary = (self.config.save_every
+                    if self.checkpoint is not None
+                    and self.config.save_every > 0 else 0)
         depth = (
             self.config.prefetch if self.config.prefetch > 0
             else (2 if self.config.stage_async else 0)
@@ -481,7 +623,7 @@ class Trainer:
         # Lazy: a run with nothing to do must not consume and place batches.
         pending = self.steps_done < steps
         if pending and external and spc > 1:
-            schedule = chunk_schedule(self.steps_done, steps, spc)
+            schedule = chunk_schedule(self.steps_done, steps, spc, boundary)
             if depth > 0:
                 stager = ChunkStager(batches, schedule, self.put_chunk, depth)
                 chunks = stager
@@ -491,7 +633,7 @@ class Trainer:
             prefetcher = Prefetcher(batches, self.put_batch, depth)
             batches = prefetcher
         elif pending and not external and spc > 1:
-            sched = chunk_schedule(self.steps_done, steps, spc)
+            sched = chunk_schedule(self.steps_done, steps, spc, boundary)
         first = self.steps_done + 1
         stats: List[StepStats] = []
         try:
@@ -540,7 +682,26 @@ class Trainer:
                 stager.close()
             if prefetcher is not None:
                 prefetcher.close()
+        if self.checkpoint is not None:
+            self.checkpoint.wait()
         return stats
+
+
+def _to_host(x: Any) -> Any:
+    """``x`` (tensors in dicts, lists and tuples) with every tensor copied
+    to the host: a card tensor into pinned memory, without waiting (the
+    caller synchronises), a CPU tensor cloned."""
+    if torch.is_tensor(x):
+        x = x.detach()
+        if x.is_cuda:
+            out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            return out.copy_(x, non_blocking=True)
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _to_host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_host(v) for v in x)
+    return x
 
 
 __all__ = [

@@ -1,8 +1,9 @@
 """The port's entrypoints against the JAX package's: ``generate_job`` and
 the training jobs (``gpt``, ``bert``, ``mnist``, ``resnet50``, ``vit``) take
 the same params and publish the same progress keys (and ``generate_job``
-the same read-bytes model); they run on the card unless asked, and the
-params of later slices raise. The execution modes, ``param.devices`` and
+the same read-bytes model); they run on the card unless asked, the params
+of later slices raise, and the job-contract params (``checkpoint``,
+``mfu``, ``flops_accounting``, ``profile_dir``) run. The execution modes, ``param.devices`` and
 ``param.pipe`` are in ``tests/test_torch_entrypoint_modes.py``."""
 
 import threading
@@ -51,10 +52,7 @@ def test_refuses_the_cpu_unless_asked(monkeypatch):
         generate_job(JobContext("gen", "default", {}, params))
 
 
-@pytest.mark.parametrize(
-    "extra, match",
-    [({"checkpoint_from": "train"}, "checkpoint"), ({"moe_every": "2"}, "MoE")],
-)
+@pytest.mark.parametrize("extra, match", [({"moe_every": "2"}, "MoE")])
 def test_later_slices_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         generate_job(JobContext("gen", "default", {}, {**PARAMS, **extra}))
@@ -172,15 +170,30 @@ def test_gpt_refuses_the_cpu_unless_asked(monkeypatch):
     [({axis: "2"}, f"param.{axis}") for axis in
      ("tensor", "seq", "fsdp", "expert", "slices")]
     + [({"moe_every": "1"}, "MoE"), ({"attention": "ring"}, "ring"),
-       ({"attention": "ulysses"}, "ulysses"),
-       ({"checkpoint": "1"}, "checkpoint"), ({"mfu": "1"}, "mfu"),
-       ({"flops_accounting": "1"}, "flops_accounting"),
-       ({"profile_dir": "prof"}, "profile_dir")],
+       ({"attention": "ulysses"}, "ulysses")],
     ids=lambda v: "-".join(v) if isinstance(v, dict) else None,
 )
 def test_gpt_later_slices_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         gpt(JobContext("train", "default", {}, {**GPT_PARAMS, **extra}))
+
+
+@pytest.mark.parametrize("extra, key", [
+    ({"checkpoint": "1"}, "steps_done"),
+    ({"mfu": "1", "peak_flops_per_chip": "1e12"}, "mfu"),
+    ({"flops_accounting": "1"}, "xla_flops_per_step"),
+    ({"profile_dir": "prof"}, "profile_trace")],
+    ids=["checkpoint", "mfu", "flops_accounting", "profile_dir"])
+def test_gpt_job_contract_params_run(extra, key, tmp_path):
+    """The params that waited for the one-card job contract run and
+    publish what the JAX job does (``profile_trace`` is the port's)."""
+    extra = {k: (str(tmp_path / v) if k == "profile_dir" else v)
+             for k, v in extra.items()}
+    ctx = JobContext("train", "default", {}, {
+        **GPT_PARAMS, "checkpoint_dir": str(tmp_path), **extra})
+    gpt(ctx)
+    assert ctx.progress["steps_done"] == int(GPT_PARAMS["steps"])
+    assert key in ctx.progress and "profile_error" not in ctx.progress
 
 
 def test_gpt_default_mode_matches_the_jax_job():
@@ -270,7 +283,7 @@ def test_training_jobs_refuse_the_cpu_unless_asked(job, monkeypatch):
 
 @pytest.mark.parametrize("job", sorted(JOB_PARAMS))
 @pytest.mark.parametrize("extra, match", [
-    ({"fsdp": "2"}, "param.fsdp"), ({"checkpoint": "1"}, "checkpoint"),
+    ({"fsdp": "2"}, "param.fsdp"), ({"moe_every": "1"}, "MoE"),
 ])
 def test_training_jobs_later_slices_raise(job, extra, match):
     with pytest.raises(NotImplementedError, match=match):

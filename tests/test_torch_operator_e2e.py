@@ -5,7 +5,9 @@ A live ``Manager`` with the ``CronReconciler`` and a thread-isolation
 ``kubeflow.org/v1 PyTorchJob`` template names the port's ``generate_job`` by
 ``module:function``; the workload must reach Succeeded with the port's
 progress folded into its status. The same holds for the port's ``gpt``
-and ``mnist`` training jobs.
+and ``mnist`` training jobs, for ``mnist`` under subprocess isolation (the
+executor's runner resolves the port's ref), and for a checkpointing port
+job that is preempted and resumes from its last save.
 """
 
 import time
@@ -104,3 +106,76 @@ def test_cron_runs_the_port_mnist_training_job():
     assert progress["first_step_at"] > 0
     assert progress["steps_done"] == 2
     assert progress["n_params"] == 535_818
+
+
+def test_cron_runs_the_port_mnist_job_in_a_subprocess():
+    """``tpu.kubedl.io/isolation: subprocess``: the executor spawns its
+    runner, which resolves the port's ``module:function`` ref itself, and
+    folds the child's progress frames into the status."""
+    cron = _cron(MNIST_ENTRYPOINT, {
+        "platform": "cpu", "steps": "2", "batch_size": "8",
+    })
+    cron["spec"]["template"]["workload"]["metadata"]["annotations"][
+        "tpu.kubedl.io/isolation"] = "subprocess"
+    progress = _run_until_succeeded(cron)
+    assert progress["steps_done"] == 2
+    assert progress["n_params"] == 535_818
+
+
+def test_preempted_port_job_resumes_from_its_checkpoint(tmp_path):
+    """The executor loop of ``tests/test_checkpoint.py``'s preempt-then-
+    resume on a PyTorchJob: preempt a checkpointing port job mid-run; the
+    restarted run resumes from the saved step instead of starting over."""
+    from cron_operator_tpu.utils.clock import RealClock
+    from cron_operator_tpu_torch.workloads.checkpoint import CheckpointStore
+
+    api = APIServer(clock=RealClock())
+    ex = LocalExecutor(api)
+    ex.start()
+    job = {
+        "apiVersion": "kubeflow.org/v1",
+        "kind": "PyTorchJob",
+        "metadata": {
+            "name": "mnist-pre", "namespace": "default",
+            "annotations": {
+                "tpu.kubedl.io/entrypoint": MNIST_ENTRYPOINT,
+                "tpu.kubedl.io/restart-on-preemption": "true",
+                "tpu.kubedl.io/param.steps": "400",
+                "tpu.kubedl.io/param.batch_size": "8",
+                "tpu.kubedl.io/param.platform": "cpu",
+                "tpu.kubedl.io/param.checkpoint": "1",
+                "tpu.kubedl.io/param.save_every": "5",
+                "tpu.kubedl.io/param.step_delay_s": "0.01",
+                "tpu.kubedl.io/param.checkpoint_dir": str(tmp_path),
+            },
+        },
+        "spec": {"replicaSpecs": {"Worker": {"replicas": 1}}},
+    }
+    try:
+        api.create(job)
+        # Wait until some steps are checkpointed.
+        deadline = time.time() + 90.0
+        progressed = 0
+        while time.time() < deadline and progressed < 10:
+            store = CheckpointStore("default", "mnist-pre", root=str(tmp_path))
+            progressed = store.latest_step() or 0
+            store.close()
+            time.sleep(0.3)
+        assert progressed >= 10, "job never checkpointed progress"
+
+        ex.preempt("default", "mnist-pre", kind="PyTorchJob")
+        # The re-run resumes; wait for resumed_from_step to appear.
+        deadline = time.time() + 90.0
+        resumed = None
+        while time.time() < deadline and resumed is None:
+            j = api.get("kubeflow.org/v1", "PyTorchJob", "default",
+                        "mnist-pre")
+            prog = (j.get("status") or {}).get("trainingProgress") or {}
+            resumed = prog.get("resumed_from_step")
+            time.sleep(0.3)
+        assert resumed is not None and resumed >= 10
+        assert resumed % 5 == 0
+    finally:
+        # Cancel the (long) re-run and shut down.
+        api.delete("kubeflow.org/v1", "PyTorchJob", "default", "mnist-pre")
+        ex.stop()
