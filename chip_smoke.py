@@ -83,7 +83,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
     ``xla_flops_per_step`` within 1% of this script's FLOPs (6 N T plus
     the attention's 12 d per kept pair); ``gpt profile_dir=`` leaves a
     ``torch.profiler`` trace that names the sm90 K1 kernel.
-13. A ``kernels`` JSON line, the card line, and last the result line
+13. Switch-MoE training: ``gpt moe_every=2 num_experts=8`` (the shipped
+    GPT Cron's MoE params) at GPT-2 small width, b 8, s 1024, 10 steps in
+    the default mode, 322,634,496 parameters: K1, K2 and K3 each launched
+    120 times, all sm90, counts set to 0 just before and read just after;
+    three steps on the kernel path against the plain path and f32, as
+    phase 5, with the tokens whose expert differs between the paths
+    counted; the replayed graph against 8 eager steps (loss and parameter
+    bits equal), step ms, device ms, busy share, tokens/s, MFU over the
+    counted FLOPs (``Trainer.flops_per_step``, the one-hot products
+    included) and over the active parameters' 6 N T, peak memory, the
+    one-hot dispatch and combine products' device time and share, and
+    profiles.
+14. Switch-MoE serving: ``generate_job`` with the same MoE params at the
+    serving slice's shape (K1 36 launches over 3 rounds, all sm90); the
+    decode graph against the eager loop (greedy tokens equal), prefill ms,
+    decode ms a step and tokens/s; then the cached greedy decode against
+    a full-forward rerun for 8 tokens at full width with
+    ``moe_capacity_factor=8`` (no token dropped on either path), in f32.
+15. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
 
@@ -92,6 +110,9 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import importlib
 import itertools
 import json
 import math
@@ -135,6 +156,13 @@ RESNET50_PARAMS = {"batch_size": "128", "image_size": "224", "steps": "10"}
 VIT_PARAMS = {"size": "base", "batch_size": "64", "image_size": "224",
               "steps": "10"}
 MNIST_PARAMS = {"batch_size": "256", "steps": "20"}
+# Switch-MoE: the MoE params of the shipped GPT Cron
+# (examples/v1alpha1/cron/cron-jax-gpt.yaml): every second block's FFN is 8
+# experts, capacity factor 1.25, aux weight 0.01 (the GPTConfig defaults).
+MOE_PARAMS = {"moe_every": "2", "num_experts": "8"}
+MOE_TRAIN_PARAMS = {**TRAIN_PARAMS, **MOE_PARAMS}
+MOE_SLICE_PARAMS = {**SLICE_PARAMS, **MOE_PARAMS}
+GPT2_SMALL_MOE_PARAMS = 322_634_496
 GRAPH_CHUNK = 8  # steps per call of the default mode (steps_per_call=auto)
 N_PARAMS = {"gpt": GPT2_SMALL_PARAMS, "bert": 108_890_112,
             "resnet50": 25_557_032, "vit": 86_567_656, "mnist": 535_818}
@@ -149,6 +177,15 @@ TRAIN_PROGRESS_KEYS = (
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def release(torch) -> None:
+    """Returns the card memory of deleted trainers and models: a trainer and
+    its step graph reference each other (the graph holds the trainer's
+    bound step), so the collector runs before the allocator's cache is
+    emptied, or each graph's private pool stays held."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -397,12 +434,13 @@ def read_designs(fa):
         fa.flash_attention, fa.flash_attention_dq, fa.flash_attention_dkv))
 
 
-def phase_slice(torch, fa):
+def phase_slice(torch, fa, params=SLICE_PARAMS, n_params=GPT2_SMALL_PARAMS,
+                label="slice"):
     from cron_operator_tpu_torch.backends.registry import JobContext
     from cron_operator_tpu_torch.workloads.entrypoints import generate_job
 
-    ctx = JobContext("chip-smoke-generate", "default", {}, dict(SLICE_PARAMS))
-    rounds = int(SLICE_PARAMS["rounds"])
+    ctx = JobContext("chip-smoke-generate", "default", {}, dict(params))
+    rounds = int(params["rounds"])
     zero_counts(fa)
     t0 = time.monotonic()
     generate_job(ctx)
@@ -410,8 +448,8 @@ def phase_slice(torch, fa):
     wall = time.monotonic() - t0
     launches, dq_launches, dkv_launches = read_counts(fa)
     k1_designs = read_designs(fa)[0]
-    print(f"slice: generate_job in {wall:.2f} s, progress {ctx.progress}")
-    print(f"slice: flash_attention launches {launches} "
+    print(f"{label}: generate_job in {wall:.2f} s, progress {ctx.progress}")
+    print(f"{label}: flash_attention launches {launches} "
           f"(expected 12 x {rounds}, all sm90: {k1_designs}), backward "
           f"{dq_launches}/{dkv_launches} (expected 0)", flush=True)
     if launches != 12 * rounds or dq_launches or dkv_launches:
@@ -428,8 +466,9 @@ def phase_slice(torch, fa):
             fail(f"progress key {key!r} was not published")
     if not ctx.progress["tokens_per_s"] > 0:
         fail("tokens_per_s is not positive")
-    if ctx.progress["n_params"] != GPT2_SMALL_PARAMS:
-        fail(f"n_params {ctx.progress['n_params']} is not GPT-2 small's")
+    if ctx.progress["n_params"] != n_params:
+        fail(f"{label}: n_params {ctx.progress['n_params']} is not "
+             f"{n_params}")
     if ctx.progress["tokens_generated"] != rounds * 8 * 64:
         fail("tokens_generated does not count every round")
     return launches, ctx.progress
@@ -592,11 +631,14 @@ def phase_times(torch, fa, flash_model, card):
     }, prefill_ms, decode_ms
 
 
-def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int):
+def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int,
+              n_params=None):
     """A training job through the entrypoint a user's Cron calls, with every
     kernel count set to 0 just before and read just after: each of K1, K2
     and K3 must have launched ``sm90_per_step`` times a step, all of the
-    sm90 design (0 for a job whose attention never reaches the kernels)."""
+    sm90 design (0 for a job whose attention never reaches the kernels).
+    ``n_params`` is the parameter count expected (the job's default
+    model's by default)."""
     from cron_operator_tpu_torch.backends.registry import JobContext
     from cron_operator_tpu_torch.workloads import entrypoints
 
@@ -625,9 +667,9 @@ def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int):
     for key in TRAIN_PROGRESS_KEYS:
         if key not in ctx.progress and (tokens or key != "tokens_per_s"):
             fail(f"{job}: progress key {key!r} was not published")
-    if ctx.progress["n_params"] != N_PARAMS[job]:
-        fail(f"{job}: n_params {ctx.progress['n_params']} is not "
-             f"{N_PARAMS[job]}")
+    n_params = n_params or N_PARAMS[job]
+    if ctx.progress["n_params"] != n_params:
+        fail(f"{job}: n_params {ctx.progress['n_params']} is not {n_params}")
     if ctx.progress["steps_done"] != steps:
         fail(f"{job}: steps_done {ctx.progress['steps_done']} is not {steps}")
     if ctx.progress["steps_per_call"] != GRAPH_CHUNK:
@@ -643,6 +685,24 @@ def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int):
     return counts, ctx.progress
 
 
+@contextlib.contextmanager
+def recorded_routes(routes: list):
+    """Appends each router call's expert choice (the argmax of its logits,
+    ``[tokens]`` on the card) to ``routes`` while the context is open."""
+    moe = importlib.import_module("cron_operator_tpu_torch.parallel.moe")
+    real = moe.router_top1
+
+    def spy(logits, capacity):
+        routes.append(logits.detach().argmax(dim=-1))
+        return real(logits, capacity)
+
+    moe.router_top1 = spy
+    try:
+        yield routes
+    finally:
+        moe.router_top1 = real
+
+
 def phase_train_correctness(torch, model_cls, cfg, stream, label):
     """Three AdamW steps on the kernel path and on the plain-attention path
     from the same f32 weights and batches; each is measured against an f32
@@ -650,32 +710,48 @@ def phase_train_correctness(torch, model_cls, cfg, stream, label):
     only in how attention rounds, so the kernel path must stay within twice
     the plain bf16 path's own distance from f32: per-step losses (plus
     1e-3, as the prefill check allows), and the first step's gradients as
-    one vector (L2 norm of the difference)."""
-    from cron_operator_tpu_torch.workloads.train import Trainer
+    one vector (L2 norm of the difference). An MoE model's aux loss is in
+    the loss; the tokens its routers send to another expert than the other
+    path's in the first step (its roundings differ, so a near-tie may go
+    either way) are counted and printed."""
+    from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
     init = model_cls(cfg, device="cuda").init_weights(
         torch.Generator(device="cuda").manual_seed(0))
     state = {k: v.clone() for k, v in init.state_dict().items()}
+    moe = getattr(init, "has_moe", False)
     del init
     batches = [next(stream) for _ in range(3)]
-    losses, grads = {}, {}
+    losses, grads, routes = {}, {}, {}
     for name, over in (("flash", dict(attention_impl="flash")),
                        ("plain", dict(attention_impl="xla")),
                        ("f32", dict(attention_impl="xla",
                                     dtype=torch.float32))):
         model = model_cls(replace(cfg, **over), device="cuda")
         model.load_state_dict(state)
-        trainer = Trainer(model)
+        trainer = Trainer(model, TrainConfig(aux_loss_in_output=moe))
         losses[name] = []
+        routes[name] = []
         for i, batch in enumerate(batches):
-            losses[name].append(trainer.step(batch).loss)
+            with recorded_routes(routes[name] if i == 0 else []):
+                losses[name].append(trainer.step(batch).loss)
             if i == 0:
                 grads[name] = torch.cat([p.grad.flatten()
                                          for p in model.parameters()])
         del model, trainer
-        torch.cuda.empty_cache()
+        release(torch)
     print(f"{label} losses: flash {losses['flash']} plain {losses['plain']} "
           f"f32 {losses['f32']}")
+    if moe:
+        def flips(a, b):
+            return sum(int((x != y).sum()) for x, y in zip(routes[a],
+                                                           routes[b]))
+        tokens = sum(r.numel() for r in routes["f32"])
+        print(f"{label} route flips in step 1 ({len(routes['f32'])} MoE "
+              f"layers, {tokens} token routes): flash vs plain "
+              f"{flips('flash', 'plain')}, plain vs f32 "
+              f"{flips('plain', 'f32')}, flash vs f32 "
+              f"{flips('flash', 'f32')}", flush=True)
     for i in range(len(batches)):
         d_fp = abs(losses["flash"][i] - losses["plain"][i])
         d_p32 = abs(losses["plain"][i] - losses["f32"][i])
@@ -805,7 +881,7 @@ def check_graph_step(torch, label: str, make_trainer):
             loss = trainer.step({}, chunk=k).loss
         params = [p.detach().clone() for p in trainer.model.parameters()]
         del trainer
-        torch.cuda.empty_cache()
+        release(torch)
         return loss, params
 
     def dist(a, b):
@@ -874,7 +950,7 @@ def graph_vs_eager(torch, card, label: str, make_trainer, model_flops: float,
     profile_window(torch, card, f"{label} graph x{k}",
                    lambda: trainer.step({}, chunk=k))
     del trainer
-    torch.cuda.empty_cache()
+    release(torch)
     return rows
 
 
@@ -975,7 +1051,7 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
     with FlopCounterMode(display=False) as counter:
         cross_entropy_loss(model(batch["x"]), batch["y"]).backward()
     del model, batch
-    torch.cuda.empty_cache()
+    release(torch)
     step = graph_vs_eager(
         torch, card, f"{job} step (b{b}, image {size})",
         lambda: Trainer(seeded(), train_config, sample_fn=sample),
@@ -990,7 +1066,8 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
     }))
 
 
-def phase_serving_graph(torch, card, prefill_ms: float):
+def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
+                        label: str = "generate"):
     """Generation at the slice's shape (b 8, prompt 512, 64 new tokens,
     greedy) through the decode graph against the eager loop, on the same
     weights and prompt: the tokens must be identical. Wall ms of a whole
@@ -998,13 +1075,11 @@ def phase_serving_graph(torch, card, prefill_ms: float):
     one that holds the graph's warm-up and capture) gives the decode ms a
     step, ``(wall - prefill) / 63``, and tokens/s; the device ms of one
     replayed decode step (the card held busy) over the decode ms a step is
-    the busy share of each."""
-    import importlib
-
+    the busy share of each. ``cfg`` is GPT-2 small's unless given."""
     from cron_operator_tpu_torch.models import GPTConfig
 
     serving = importlib.import_module("cron_operator_tpu_torch.workloads.generate")
-    cfg = GPTConfig(max_len=1024)
+    cfg = cfg or GPTConfig(max_len=1024)
     model = slice_model(torch, cfg)
     b, p, n = 8, 512, 64
     prompt = torch.randint(0, cfg.vocab_size, (b, p), device="cuda",
@@ -1035,20 +1110,20 @@ def phase_serving_graph(torch, card, prefill_ms: float):
             decoder.step({"token": token})
 
         device = device_ms(torch, replay, iters=20, reps=5)
-        profile_window(torch, card, "generate graph x1",
+        profile_window(torch, card, f"{label} graph x1",
                        lambda: serving.generate(cfg, model, prompt, n))
     rows["device_ms_per_step"] = device
     for mode in ("eager", "graph"):
         r = rows[mode]
         r["busy"] = device / r["decode_ms_per_step"]
-        print(f"[{card}] generate {mode} (b{b} p{p} +{n}): "
+        print(f"[{card}] {label} {mode} (b{b} p{p} +{n}): "
               f"{r['generate_ms']:.3f} ms (first {r['first_ms']:.1f}) | decode "
               f"{r['decode_ms_per_step']:.3f} ms/step, device {device:.3f} ms,"
               f" busy {100 * r['busy']:.1f}% | {r['tokens_per_s']:.1f} "
               "tokens/s", flush=True)
-    print(f"greedy tokens: graph == eager ({b} x {n})", flush=True)
+    print(f"{label} greedy tokens: graph == eager ({b} x {n})", flush=True)
     del model, decoder
-    torch.cuda.empty_cache()
+    release(torch)
     return rows
 
 
@@ -1124,7 +1199,7 @@ def phase_resume(torch, fa, card, root: str):
     payload = Path(store.directory) / "8" / "state.pt"
     ckpt_bytes = payload.stat().st_size
     del first
-    torch.cuda.empty_cache()
+    release(torch)
 
     store = CheckpointStore("default", "chip-smoke-resume", root=root)
     resumed, resumed_log, restore_s = make(store)
@@ -1167,7 +1242,7 @@ def phase_resume(torch, fa, card, root: str):
           f"{row['restore_ms']:.1f} ms | 8 steps with 2 saves, the writes "
           f"drained: {first_wall:.2f} s", flush=True)
     del whole, resumed
-    torch.cuda.empty_cache()
+    release(torch)
     return counts, row
 
 
@@ -1329,7 +1404,7 @@ def phase_serve_checkpoint(torch, fa, root: str, step: int):
     print(f"serve: {len(served)} rounds x 8 x 64 greedy tokens equal the "
           "in-process model's", flush=True)
     del model
-    torch.cuda.empty_cache()
+    release(torch)
     return counts
 
 
@@ -1372,6 +1447,185 @@ def phase_mfu(torch, card, root: str):
             "avg_step_time_s": p["avg_step_time_s"]}
 
 
+def moe_cfg(**over):
+    """GPT-2 small with the Switch-MoE params of ``MOE_PARAMS``."""
+    from cron_operator_tpu_torch.models import GPTConfig
+
+    return GPTConfig(max_len=1024, moe_every=int(MOE_PARAMS["moe_every"]),
+                     num_experts=int(MOE_PARAMS["num_experts"]), **over)
+
+
+def onehot_products_ms(torch, cfg, shape: dict):
+    """Device ms of the one-hot dispatch and combine products of one MoE
+    layer at the training step's shapes, forward and backward (the five
+    products autograd runs: dispatch and combine forward, dX through the
+    dispatch, and the combine's two gradients), in bf16 with the dispatch
+    of a real routing, each timed alone."""
+    from cron_operator_tpu_torch.parallel.moe import _capacity, router_top1
+
+    t, d, e = shape["b"] * shape["s"], cfg.hidden_size, cfg.num_experts
+    c = _capacity(t, e, cfg.moe_capacity_factor)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def randn(*size):
+        return torch.randn(*size, generator=gen, device="cuda")
+
+    x = randn(t, d)
+    combine, dispatch, _ = router_top1(x @ (randn(d, e) * 0.02), c)
+    x, combine, dispatch = (v.bfloat16() for v in (x, combine, dispatch))
+    expert_out, d_in = randn(e, c, d).bfloat16(), randn(e, c, d).bfloat16()
+    d_y = randn(t, d).bfloat16()
+    products = {
+        "dispatch": lambda: torch.einsum("td,tec->ecd", x, dispatch),
+        "combine": lambda: torch.einsum("ecd,tec->td", expert_out, combine),
+        "dX through dispatch": lambda: torch.einsum("ecd,tec->td", d_in,
+                                                    dispatch),
+        "d expert_out": lambda: torch.einsum("td,tec->ecd", d_y, combine),
+        "d combine": lambda: torch.einsum("td,ecd->tec", d_y, expert_out),
+    }
+    ms = {name: device_ms(torch, fn, iters=10, reps=3)
+          for name, fn in products.items()}
+    flops = 2 * t * e * c * d
+    return ms, flops
+
+
+def phase_moe_train(torch, fa, card):
+    """Switch-MoE training at GPT-2 small width: the job (K1-K3 120 each,
+    all sm90), the kernel path against the plain path and f32 with route
+    flips counted, peak memory, the graph against the eager step, MFU over
+    the counted and over the active FLOPs, and the one-hot products'
+    share of the step's device time."""
+    from cron_operator_tpu_torch.models import GPT
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
+
+    counts, progress = phase_job(torch, fa, "gpt", MOE_TRAIN_PARAMS, 12,
+                                 n_params=GPT2_SMALL_MOE_PARAMS)
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    cfg = moe_cfg()
+    phase_train_correctness(
+        torch, GPT, cfg, data.device_causal_token_batches(
+            b, s, cfg.vocab_size, device="cuda", seed=5), "moe train")
+    sample = data.causal_token_sample(b, s, cfg.vocab_size)
+
+    def make_trainer():
+        model = GPT(cfg, device="cuda").init_weights(
+            torch.Generator(device="cuda").manual_seed(0))
+        return Trainer(model, TrainConfig(aux_loss_in_output=True),
+                       sample_fn=sample)
+
+    # Peak memory (everything allocated: parameters, grads, AdamW state,
+    # activations): an eager step after a first one, and a fresh trainer's
+    # first graphed call (the warm-up step, the capture and 7 replays).
+    trainer = make_trainer()
+    trainer.step({})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.step({})
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
+    counted = trainer.flops_per_step()
+    del trainer
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = make_trainer()
+    trainer.step({}, chunk=GRAPH_CHUNK)
+    torch.cuda.synchronize()
+    graph_peak = torch.cuda.max_memory_allocated()
+    del trainer
+    release(torch)
+    if not counted:
+        fail("moe train: Trainer.flops_per_step counted nothing")
+    n_moe = cfg.num_layers // cfg.moe_every
+    n_active = GPT2_SMALL_MOE_PARAMS - n_moe * (cfg.num_experts - 1) * (
+        2 * cfg.hidden_size * cfg.mlp_dim)
+    active = lm_model_flops(n_active, TRAIN_SHAPE, True, cfg.num_layers)
+    print(f"[{card}] moe train: peak memory {eager_peak / 2**30:.2f} GiB "
+          f"(eager step), {graph_peak / 2**30:.2f} GiB (first graphed call) "
+          f"| counted FLOPs/step {counted / 1e12:.4f} T (FlopCounterMode, "
+          f"one-hot products included) | active {active / 1e12:.4f} T (6 N T "
+          f"over {n_active} active parameters + attention)", flush=True)
+    step = graph_vs_eager(
+        torch, card, f"moe train step (GPT-2 small, moe_every 2, 8 experts, "
+        f"b{b} s{s}, bf16/f32 masters, AdamW)", make_trainer, counted,
+        b * s, "tokens")
+    ms, flops = onehot_products_ms(torch, cfg, TRAIN_SHAPE)
+    per_step = n_moe * sum(ms.values())
+    share = per_step / step["device_ms"]
+    active_mfu = active / (step["graph"]["step_ms"] / 1e3 * BF16_FLOPS)
+    print(f"[{card}] moe one-hot products, one layer (device ms, "
+          f"{flops / 1e9:.1f} GFLOP each): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f" | x{n_moe} layers {per_step:.3f} ms of {step['device_ms']:.3f}"
+          f" ms device a step ({100 * share:.1f}%) | MFU over active FLOPs "
+          f"(graph) {active_mfu:.4f}", flush=True)
+    return counts, {
+        **step, "eager_peak_bytes": eager_peak, "graph_peak_bytes": graph_peak,
+        "counted_flops_per_step": counted, "active_flops_per_step": active,
+        "active_mfu_graph": active_mfu, "onehot_ms_per_layer": ms,
+        "onehot_ms_per_step": per_step, "onehot_share": share,
+        "job_tokens_per_s": progress["tokens_per_s"],
+        "job_avg_step_time_s": progress["avg_step_time_s"],
+        "job_first_step_s": progress["compile_time_s"],
+    }
+
+
+def phase_moe_serving(torch, fa, card):
+    """Switch-MoE serving: ``generate_job`` at the slice's shape, the decode
+    graph against the eager loop; then the cached greedy decode against a
+    full-forward rerun (the oracle of the JAX package's MoE decode test) at
+    full width with capacity factor 8: no token is dropped on either path,
+    and in f32 neither rounding nor a route flips a greedy token."""
+    from cron_operator_tpu_torch.models import GPT
+
+    serving = importlib.import_module("cron_operator_tpu_torch.workloads.generate")
+    launches, progress = phase_slice(torch, fa, MOE_SLICE_PARAMS,
+                                     GPT2_SMALL_MOE_PARAMS, "moe serving")
+    cfg = moe_cfg()
+    model = slice_model(torch, cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (8, 512), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.inference_mode():
+        cache = model.new_cache(8)
+        prefill_ms = median_ms(torch, lambda: model.prefill(prompt, cache),
+                               iters=3)
+    del model, cache
+    release(torch)
+    rows = phase_serving_graph(torch, card, prefill_ms, cfg, "moe generate")
+
+    ocfg = moe_cfg(moe_capacity_factor=8.0, dtype=torch.float32)
+    model = GPT(ocfg, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(0)).eval()
+    prompt = torch.randint(0, ocfg.vocab_size, (8, 128), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(4))
+    margin = math.inf
+    with torch.inference_mode():
+        out = serving.generate(ocfg, model, prompt, 8)
+        seq = prompt
+        for _ in range(8):
+            logits, _ = model(seq)
+            top2 = logits[:, -1].topk(2).values
+            margin = min(margin, (top2[:, 0] - top2[:, 1]).min().item())
+            seq = torch.cat([seq, logits[:, -1].argmax(-1, keepdim=True)], 1)
+    same = torch.equal(out, seq)
+    print(f"moe oracle (f32, capacity factor 8, b8 p128 +8): cached decode "
+          f"{'==' if same else '!='} full-forward rerun; smallest greedy "
+          f"top-2 logit margin {margin:.5f}", flush=True)
+    if not same:
+        fail("moe serving: cached greedy decode differs from the full "
+             "forward at no-drop capacity")
+    del model
+    release(torch)
+    print(f"[{card}] moe serving: prefill {prefill_ms:.3f} ms (b8 p512) | "
+          f"decode {rows['graph']['decode_ms_per_step']:.3f} ms/step graph, "
+          f"{rows['eager']['decode_ms_per_step']:.3f} eager | "
+          f"{rows['graph']['tokens_per_s']:.1f} tokens/s graph | job "
+          f"{progress['tokens_per_s']} tokens/s", flush=True)
+    return launches, {"prefill_ms": prefill_ms,
+                      "job_tokens_per_s": progress["tokens_per_s"],
+                      "oracle_margin": margin, **rows}
+
+
 CSRC = "cron_operator_tpu_torch/ops/csrc/"
 # the design the main path runs (bf16, head dim 64), its source, and the
 # TPU kernel it replaces
@@ -1404,8 +1658,6 @@ def main() -> None:
 
     if Path(cron_operator_tpu_torch.__file__).resolve().parent.parent != HERE:
         fail("imported cron_operator_tpu_torch from outside this checkout")
-    import importlib
-
     fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1429,7 +1681,7 @@ def main() -> None:
     print(f"[{card}] slice tokens/s {progress['tokens_per_s']} (rounds 2-3 of "
           f"generate_job) | first round {progress['first_step_latency_s']} s")
     del flash_model
-    torch.cuda.empty_cache()
+    release(torch)
     serving = timed("serving graph", phase_serving_graph, torch, card,
                     prefill_ms)
     print("slice " + json.dumps({
@@ -1479,6 +1731,12 @@ def main() -> None:
     print("contract " + json.dumps({**resume, "runner_stopped_at": stopped,
                                     "runner_exit_s_after_sigterm": stop_s,
                                     **mfu}))
+    moe_counts, moe_train = timed("moe training", phase_moe_train, torch, fa,
+                                  card)
+    print("moe_train " + json.dumps(moe_train))
+    moe_launches, moe_serving = timed("moe serving", phase_moe_serving, torch,
+                                      fa, card)
+    print("moe_serving " + json.dumps(moe_serving))
     print(f"phases: {sum(walls.values()):.1f} s in all, "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
 
@@ -1496,6 +1754,12 @@ def main() -> None:
         kernel_entry("K2", "@resume", resume_counts[1], train_rows["K2"]),
         kernel_entry("K3", "@resume", resume_counts[2], train_rows["K3"]),
         kernel_entry("K1", "@serve_checkpoint", serve_counts[0], k1),
+        # the Switch-MoE paths: training at the training slice's shape and
+        # serving's prefill at the serving slice's
+        kernel_entry("K1", "@moe", moe_counts[0], train_rows["K1"]),
+        kernel_entry("K2", "@moe", moe_counts[1], train_rows["K2"]),
+        kernel_entry("K3", "@moe", moe_counts[2], train_rows["K3"]),
+        kernel_entry("K1", "@moe_serve", moe_launches, k1),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,10 @@ unchanged. Sub-packages mirror the JAX package's:
 - ``ops``      — the hand-written Hopper kernels (``ops/csrc``) with their
                  plain PyTorch versions, attention dispatch, RoPE, chunked
                  cross-entropy.
-- ``parallel`` — dense single-device attention (parallelism comes later).
-- ``models``   — the GPT family and the flax-to-torch weight converter.
+- ``parallel`` — dense single-device attention, multi-step dispatch and
+                 the Switch-MoE FFN (meshes come later).
+- ``models``   — the GPT family (MoE blocks included), BERT, ViT,
+                 ResNet, the MLP and the flax-to-torch weight converter.
 - ``workloads``— KV-cache generation, synthetic data, the training harness,
                  checkpoints, the entrypoints (``generate_job``, ``gpt``,
                  ``bert``, ``mnist``, ``resnet50``, ``vit``) and the pod

@@ -99,7 +99,7 @@ class Bert(nn.Module):
         if self.pos_emb is not None:
             x = x + self.pos_emb[:input_ids.shape[1]].to(dt)[None]
         for layer in self.layers:
-            x = layer(x)
+            x, _ = layer(x)
         # tied output embedding (flax tok.attend) in cfg.dtype, then f32
         table = self.tok_emb.weight.to(dt)
         return F.linear(self.ln_f(x), table).float()

@@ -8,9 +8,9 @@ Each converter takes the nested dict of numpy arrays that
 :func:`vit_params_from_flax`, :func:`resnet_params_from_flax` and
 :func:`mlp_params_from_flax`. A flax kernel ``[in..., out...]`` becomes a
 torch ``Linear`` weight ``[out, in]`` after flattening each side; biases
-flatten; a conv kernel goes from HWIO to OIHW. :func:`flax_rank` goes the
-other way for the one property of a flax shape that training reads: its
-rank.
+flatten; a conv kernel goes from HWIO to OIHW; MoE expert weights keep
+their layout. :func:`flax_rank` goes the other way for the one property of
+a flax shape that training reads: its rank.
 """
 
 from __future__ import annotations
@@ -83,8 +83,13 @@ def _encoder_stack(tree: Mapping[str, Any], cfg) -> Dict:
             sd.update(_linear(node["kv"], 1, f"{p}.attn.kv"))
         sd.update(_linear(node["out"], 2, f"{p}.out"))
         sd.update(_layer_norm(node["LayerNorm_1"], f"{p}.ln_mlp"))
-        sd.update(_linear(node["Dense_0"], 1, f"{p}.fc_in"))
-        sd.update(_linear(node["Dense_1"], 1, f"{p}.fc_out"))
+        if "moe" in node:
+            # MoE blocks keep JAX's layout: no transposes
+            for name in ("router", "wi", "wo"):
+                sd[f"{p}.moe.{name}"] = _tensor(node["moe"][name])
+        else:
+            sd.update(_linear(node["Dense_0"], 1, f"{p}.fc_in"))
+            sd.update(_linear(node["Dense_1"], 1, f"{p}.fc_out"))
     sd.update(_layer_norm(tree["LayerNorm_0"], "ln_f"))
     if not cfg.rope:
         sd["pos_emb"] = _tensor(tree["pos_emb"])
@@ -93,9 +98,8 @@ def _encoder_stack(tree: Mapping[str, Any], cfg) -> Dict:
 
 def params_from_flax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """f32 ``state_dict`` for the port's GPT or BERT (``cfg`` a
-    ``GPTConfig`` or ``BertConfig``) from its flax param tree."""
-    if getattr(cfg, "moe_every", 0) > 0:
-        raise NotImplementedError("MoE parameter trees wait for the MoE slice")
+    ``GPTConfig`` or ``BertConfig``) from its flax param tree; a GPT's MoE
+    blocks (``layer_{i}/moe/{router,wi,wo}``) map one to one."""
     sd = {"tok_emb.weight": _tensor(tree["tok_emb"]["embedding"])}
     sd.update(_encoder_stack(tree, cfg))
     return sd

@@ -7,8 +7,12 @@ default, as flax's ``param_dtype``) and are cast to ``cfg.dtype`` where
 they are used, so a bf16 model trains f32 masters; a serving model may keep
 bf16 parameters, which the cast at use would give anyway. LayerNorm
 epsilon (1e-6) and the tanh-approximate gelu are flax's, not torch's
-defaults. Only the dense FFN is ported: ``moe_every > 0`` raises until the
-MoE slice.
+defaults. With ``moe_every = k > 0`` every k-th block's FFN is a Switch
+top-1 mixture of experts (:class:`MoEBlock`, :mod:`parallel.moe`), and the
+forward returns ``(output, aux)``, the weighted router balance loss beside
+the output, which the trainer adds to the task loss
+(``TrainConfig.aux_loss_in_output``). A dense model returns the output
+alone: the JAX model's aux is always 0 there.
 
 Serving: :meth:`GPT.prefill` consumes a whole prompt in one batched causal
 pass and writes every layer's K/V into a :class:`KVCache`;
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +43,7 @@ from cron_operator_tpu_torch.models.layers import (
     init_flax_layers_,
 )
 from cron_operator_tpu_torch.ops.attention import multi_head_attention
+from cron_operator_tpu_torch.parallel.moe import moe_ffn
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch defaults to 1e-5)
 DECODE_MASK = -1e30  # decode's score for unwritten cache positions
@@ -60,7 +65,9 @@ class GPTConfig:
     num_kv_heads: int = 0
     # Rotary position embeddings on Q/K; the learned pos_emb is then absent.
     rope: bool = False
-    # MoE fields mirror the JAX config; moe_every > 0 is not ported yet.
+    # MoE: 0 disables; k > 0 replaces every k-th block's FFN with a
+    # Switch-MoE layer of num_experts experts. moe_aux_weight scales the
+    # summed router balance loss that the model returns beside its output.
     moe_every: int = 0
     num_experts: int = 8
     moe_capacity_factor: float = 1.25
@@ -88,15 +95,64 @@ class KVCache:
     pos: Optional[torch.Tensor] = None
 
 
+class MoEBlock(nn.Module):
+    """Switch-MoE FFN around :func:`parallel.moe.moe_ffn`, as the JAX
+    ``MoEBlock``: parameters ``router [d, E]``, ``wi [E, d, mlp]`` and
+    ``wo [E, mlp, d]`` in JAX's layout, no biases. Routing runs in f32, the
+    expert products in ``cfg.dtype``, and the output is cast to it.
+
+    Decode steps route a batch-sized token pool, where the training
+    capacity factor would drop colliding tokens (capacity 1): decode raises
+    the factor to ``num_experts``, so the capacity is the batch and no token
+    is dropped. Prefill keeps the training factor, as in the JAX package.
+    """
+
+    def __init__(self, cfg: GPTConfig, device=None,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config = cfg
+        d, e, f = cfg.hidden_size, cfg.num_experts, cfg.mlp_dim
+        kw = dict(device=device, dtype=param_dtype)
+        self.router = nn.Parameter(torch.empty(d, e, **kw))
+        self.wi = nn.Parameter(torch.empty(e, d, f, **kw))
+        self.wo = nn.Parameter(torch.empty(e, f, d, **kw))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """flax's initializers: the router normal(0.02); ``wi`` and ``wo``
+        truncated lecun-normal, whose fan-in on ``(E, in, out)`` counts the
+        expert axis (E * in), as flax's ``lecun_normal`` does."""
+        e = self.config.num_experts
+        draw_(self.router, 0.02, generator)
+        for w in (self.wi, self.wo):
+            draw_(w, 1.0 / math.sqrt(e * w.shape[1]), generator,
+                  truncated=True)
+
+    def forward(self, x: torch.Tensor, decode: bool = False):
+        """``x [b, s, d]`` -> (``[b, s, d]`` in ``cfg.dtype``, aux loss);
+        tokens are routed in row-major ``b * s`` order, as in JAX."""
+        cfg = self.config
+        b, s, d = x.shape
+        cf = cfg.moe_capacity_factor
+        if decode:
+            cf = max(cf, float(cfg.num_experts))
+        params = {"router": self.router, "wi": self.wi, "wo": self.wo}
+        y, aux = moe_ffn(params, x.reshape(b * s, d), capacity_factor=cf,
+                         compute_dtype=cfg.dtype)
+        return y.reshape(b, s, d).to(cfg.dtype), aux
+
+
 class DecoderLayer(nn.Module):
     """Pre-LN block: attention (causal here; BERT's and ViT's
     :class:`~cron_operator_tpu_torch.models.bert.EncoderLayer` is this block
-    with ``causal = False``), then the tanh-gelu FFN."""
+    with ``causal = False``), then the tanh-gelu FFN, or with ``use_moe``
+    the :class:`MoEBlock` in its place."""
 
     causal = True
 
     def __init__(self, cfg: GPTConfig, device=None,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32,
+                 use_moe: bool = False):
         super().__init__()
         self.config = cfg
         kw = dict(device=device, compute_dtype=cfg.dtype,
@@ -108,8 +164,12 @@ class DecoderLayer(nn.Module):
             self.attn.heads * self.attn.head_dim, cfg.hidden_size, **kw
         )
         self.ln_mlp = LayerNorm(cfg.hidden_size, eps=LN_EPS, **kw)
-        self.fc_in = Linear(cfg.hidden_size, cfg.mlp_dim, **kw)
-        self.fc_out = Linear(cfg.mlp_dim, cfg.hidden_size, **kw)
+        self.moe = None
+        if use_moe:
+            self.moe = MoEBlock(cfg, device=device, param_dtype=param_dtype)
+        else:
+            self.fc_in = Linear(cfg.hidden_size, cfg.mlp_dim, **kw)
+            self.fc_out = Linear(cfg.mlp_dim, cfg.hidden_size, **kw)
 
     def forward(
         self,
@@ -117,10 +177,12 @@ class DecoderLayer(nn.Module):
         cache_k: Optional[torch.Tensor] = None,
         cache_v: Optional[torch.Tensor] = None,
         pos: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Full pass when ``pos`` is None (writing the prompt's K/V into the
         cache buffers when given: prefill); one-token decode at cache
-        position ``pos`` (a 1-element int64 tensor) otherwise."""
+        position ``pos`` (a 1-element int64 tensor) otherwise. Returns the
+        block's output and the MoE block's aux loss (None for a dense
+        FFN)."""
         cfg = self.config
         b, s, _ = x.shape
         y = self.ln_attn(x)
@@ -137,8 +199,12 @@ class DecoderLayer(nn.Module):
                 cache_v[:, :s] = v
         x = x + self.out(attn.reshape(b, s, -1))
         y = self.ln_mlp(x)
-        y = self.fc_out(F.gelu(self.fc_in(y), approximate="tanh"))
-        return x + y
+        aux = None
+        if self.moe is not None:
+            y, aux = self.moe(y, decode=decode)
+        else:
+            y = self.fc_out(F.gelu(self.fc_in(y), approximate="tanh"))
+        return x + y, aux
 
     def _decode_attention(self, q, k, v, cache_k, cache_v, pos):
         """One-token attention against the layer's cache: the new K/V land at
@@ -163,28 +229,29 @@ class DecoderLayer(nn.Module):
 
 class GPT(nn.Module):
     """Token ids ``[batch, seq]`` -> next-token logits ``[b, s, vocab]`` in
-    f32 (or ``(hidden, embedding table)`` with ``cfg.return_hidden``). The
-    JAX model also returns an MoE aux loss, always 0 for the dense blocks
-    ported here, so the port leaves it out."""
+    f32 (or ``(hidden, embedding table)`` with ``cfg.return_hidden``). With
+    MoE blocks (:attr:`has_moe`) the forward returns ``(output, aux)``:
+    ``aux`` is the layers' summed router balance loss times
+    ``moe_aux_weight``, an f32 scalar. The JAX model returns the pair
+    always, with aux 0 for dense blocks; the port's dense model returns the
+    output alone."""
 
     def __init__(self, config: GPTConfig = GPTConfig(), *, device=None,
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if config.moe_every > 0:
-            raise NotImplementedError(
-                "MoE blocks (moe_every > 0) wait for the MoE slice "
-                "(ROADMAP.md queue 1)"
-            )
         self.config = config
         kw = dict(device=device, dtype=param_dtype)
         self.tok_emb = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
         self.pos_emb = None if config.rope else nn.Parameter(
             torch.empty(config.max_len, config.hidden_size, **kw)
         )
+        every = config.moe_every
         self.layers = nn.ModuleList(
-            DecoderLayer(config, device=device, param_dtype=param_dtype)
-            for _ in range(config.num_layers)
+            DecoderLayer(config, device=device, param_dtype=param_dtype,
+                         use_moe=every > 0 and (i + 1) % every == 0)
+            for i in range(config.num_layers)
         )
+        self.has_moe = any(layer.moe is not None for layer in self.layers)
         self.ln_f = LayerNorm(config.hidden_size, eps=LN_EPS, device=device,
                               compute_dtype=config.dtype,
                               param_dtype=param_dtype)
@@ -194,12 +261,16 @@ class GPT(nn.Module):
         """Random weights at flax's initializer scales, drawn from
         ``generator`` (which must live on the parameters' device): token
         embedding normal with std 1/sqrt(hidden) (flax's default embed
-        init), pos_emb normal(0.02), then :func:`init_flax_layers_`."""
+        init), pos_emb normal(0.02), then :func:`init_flax_layers_` and the
+        MoE blocks' own draws (:meth:`MoEBlock.init_weights`)."""
         draw_(self.tok_emb.weight, 1.0 / math.sqrt(self.config.hidden_size),
               generator)
         if self.pos_emb is not None:
             draw_(self.pos_emb, 0.02, generator)
         init_flax_layers_(self, generator)
+        for layer in self.layers:
+            if layer.moe is not None:
+                layer.moe.init_weights(generator)
         return self
 
     def new_cache(self, batch: int) -> KVCache:
@@ -233,18 +304,25 @@ class GPT(nn.Module):
 
     def forward(self, input_ids: torch.Tensor):
         x = self._embed(input_ids)
+        aux = None
         for layer in self.layers:
-            x = layer(x)
+            x, layer_aux = layer(x)
+            if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
         if self.config.return_hidden:
-            return self.ln_f(x), self.tok_emb.weight
-        return self._logits(x)
+            out = self.ln_f(x), self.tok_emb.weight
+        else:
+            out = self._logits(x)
+        if not self.has_moe:
+            return out
+        return out, self.config.moe_aux_weight * aux
 
     def prefill(self, input_ids: torch.Tensor, cache: KVCache) -> torch.Tensor:
         """One batched causal pass over the prompt ``[b, p]`` that fills every
         layer's cache; returns the last position's logits ``[b, vocab]``."""
         x = self._embed(input_ids)
         for layer, ck, cv in zip(self.layers, cache.k, cache.v):
-            x = layer(x, ck, cv)
+            x, _ = layer(x, ck, cv)
         cache.pos.fill_(input_ids.shape[1])
         return self._logits(x[:, -1:])[:, 0]
 
@@ -254,9 +332,9 @@ class GPT(nn.Module):
         pos = cache.pos.reshape(1)
         x = self._embed(token, pos)
         for layer, ck, cv in zip(self.layers, cache.k, cache.v):
-            x = layer(x, ck, cv, pos=pos)
+            x, _ = layer(x, ck, cv, pos=pos)
         cache.pos.add_(1)
         return self._logits(x)[:, 0]
 
 
-__all__ = ["GPT", "GPTConfig", "DecoderLayer", "KVCache"]
+__all__ = ["GPT", "GPTConfig", "DecoderLayer", "KVCache", "MoEBlock"]

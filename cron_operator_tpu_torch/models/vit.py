@@ -112,7 +112,7 @@ class ViT(nn.Module):
         if self.pos_emb is not None:
             x = x + self.pos_emb.to(cfg.dtype)[None]
         for layer in self.layers:
-            x = layer(x)
+            x, _ = layer(x)
         return self.head(self.ln_f(x)[:, 0].float())
 
 

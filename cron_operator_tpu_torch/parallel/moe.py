@@ -1,0 +1,132 @@
+"""Switch top-1 mixture-of-experts FFN on one device, as in
+``cron_operator_tpu/parallel/moe.py``.
+
+- **Dense dispatch, static shapes.** Routing is two products with a
+  ``[tokens, experts, capacity]`` one-hot dispatch and combine tensor (the
+  GShard formulation), not a gather and scatter: every shape follows from
+  the input's shape, and no step reads the device from the host, so a
+  routed step can be captured in a CUDA graph and replayed.
+- **Top-1 routing with a capacity.** Each expert's buffer holds
+  ``capacity = ceil(tokens / E * factor)`` tokens, filled in token order;
+  the tokens past it are dropped (combine weight 0: they pass through the
+  residual). The Switch load-balancing loss is returned for the trainer
+  to add.
+
+The one-hots are built by comparing indices with an ``arange``: a dropped
+token's slot index is ``capacity``, which matches no column and gives the
+all-zero row that ``jax.nn.one_hot`` gives an out-of-range index
+(``F.one_hot`` would raise, and checks its range on the host).
+
+The expert axis over several devices (``moe_param_sharding`` and the
+all-to-alls) waits for the mesh (ROADMAP.md queue 1 item 7).
+
+Usage::
+
+    params = init_moe_params(generator, d_model=..., d_ff=..., n_experts=8)
+    y, aux = moe_ffn(params, x)               # x: [tokens, d_model]
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def init_moe_params(
+    generator: torch.Generator, *, d_model: int, d_ff: int, n_experts: int
+) -> Dict[str, torch.Tensor]:
+    """f32 parameters on the generator's device, at the JAX function's
+    scales: ``router [d_model, E]`` normal(0.02), ``wi [E, d_model, d_ff]``
+    normal / sqrt(d_model), ``wo [E, d_ff, d_model]`` normal / sqrt(d_ff),
+    all untruncated."""
+    dev = generator.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=dev)
+
+    return {
+        "router": normal(d_model, n_experts) * 0.02,
+        "wi": normal(n_experts, d_model, d_ff) / math.sqrt(d_model),
+        "wo": normal(n_experts, d_ff, d_model) / math.sqrt(d_ff),
+    }
+
+
+def _capacity(tokens: int, n_experts: int, capacity_factor: float) -> int:
+    return max(1, int(math.ceil(tokens / n_experts * capacity_factor)))
+
+
+def router_top1(
+    logits: torch.Tensor, capacity: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Switch top-1 router.
+
+    ``logits``: ``[T, E]``. Returns (combine ``[T, E, C]``, dispatch
+    ``[T, E, C]`` one-hot, aux load-balance loss), in ``logits``' dtype. A
+    token's slot is its 0-based rank among the tokens routed to its expert
+    (cumsum order over ``T``); rank >= capacity drops it. ``dispatch``
+    carries no gradient; ``combine`` carries the router's through the gate
+    probability, and the aux loss through the mean router probability.
+    """
+    T, E = logits.shape
+    probs = torch.softmax(logits, dim=-1)
+    expert_index = probs.argmax(dim=-1)  # [T], the first maximum, as jnp
+    experts = torch.arange(E, device=logits.device)
+    expert_mask = (expert_index[:, None] == experts).to(probs.dtype)  # [T, E]
+
+    # Switch aux loss: E * sum_e (token fraction on e) * (mean router prob e).
+    density = expert_mask.mean(dim=0)
+    density_proxy = probs.mean(dim=0)
+    aux_loss = E * torch.sum(density * density_proxy)
+
+    # Slot = 0-based rank among the expert's tokens (the unselected entries
+    # add 0, so the sum picks out the selected expert's rank).
+    position = ((torch.cumsum(expert_mask, dim=0) - 1.0) * expert_mask).sum(
+        dim=-1).long()  # [T]
+    kept = position < capacity
+
+    gate = (probs * expert_mask).sum(dim=-1) * kept  # [T]
+    slot = torch.where(kept, position, capacity)  # overflow -> C: no column
+    slots = torch.arange(capacity, device=logits.device)
+    slot_one_hot = (slot[:, None] == slots).to(probs.dtype)  # [T, C]
+    dispatch = expert_mask[:, :, None] * slot_one_hot[:, None, :]  # [T, E, C]
+    combine = gate[:, None, None] * dispatch
+    return combine, dispatch, aux_loss
+
+
+def moe_ffn(
+    params: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    *,
+    capacity_factor: float = 1.25,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mixture-of-experts FFN over a flat token batch.
+
+    ``x``: ``[T, d_model]`` -> (``[T, d_model]``, aux loss). Dropped tokens
+    give zeros: compose with a residual connection.
+
+    Routing (logits, softmax, aux loss) always runs in f32. The four
+    products (dispatch, the two expert matmuls, combine) run in
+    ``compute_dtype`` (default ``x.dtype``), with the one-hots cast to it;
+    gelu is tanh-approximate, as flax's.
+    """
+    T = x.shape[0]
+    E = params["wi"].shape[0]
+    C = _capacity(T, E, capacity_factor)
+    cd = compute_dtype or x.dtype
+
+    logits = x.float() @ params["router"].float()
+    combine, dispatch, aux_loss = router_top1(logits, C)
+
+    expert_in = torch.einsum("td,tec->ecd", x.to(cd), dispatch.to(cd))
+    h = F.gelu(torch.einsum("ecd,edf->ecf", expert_in, params["wi"].to(cd)),
+               approximate="tanh")
+    expert_out = torch.einsum("ecf,efd->ecd", h, params["wo"].to(cd))
+    y = torch.einsum("ecd,tec->td", expert_out, combine.to(cd))
+    return y, aux_loss
+
+
+__all__ = ["init_moe_params", "moe_ffn", "router_top1"]

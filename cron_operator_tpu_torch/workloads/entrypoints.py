@@ -33,9 +33,12 @@ under the JAX package's short name (``gpt``, ``bert``, ``mnist``,
 ``resnet50``, ``vit``, ``generate``) for :func:`backends.registry.
 resolve_entrypoint` and the port runner.
 
-``pipe > 1`` raises ``ValueError`` for good, as in the JAX package. The
-mesh params (and ``devices`` > 1), MoE and ring/Ulysses attention raise
-``NotImplementedError`` until their slice (:func:`_train_device`).
+``moe_every``/``num_experts`` put Switch-MoE blocks into ``gpt`` and
+``generate_job``, on one device; the other jobs ignore them, as the JAX
+jobs do. ``pipe > 1`` raises ``ValueError`` for good, as in the JAX
+package. The mesh params (``devices`` > 1 and ``expert`` > 1 among them)
+and ring/Ulysses attention raise ``NotImplementedError`` until their slice
+(:func:`_train_device`).
 """
 
 from __future__ import annotations
@@ -74,6 +77,15 @@ def _gqa_rope_kwargs(ctx) -> dict:
     return {
         "num_kv_heads": int(ctx.params.get("kv_heads", 0)),
         "rope": ctx.params.get("rope", "0") in ("1", "true"),
+    }
+
+
+def _moe_kwargs(ctx) -> dict:
+    """param.moe_every / param.num_experts, parsed as the JAX ``gpt`` and
+    ``generate`` entrypoints do."""
+    return {
+        "moe_every": int(ctx.params.get("moe_every", 0)),
+        "num_experts": int(ctx.params.get("num_experts", 8)),
     }
 
 
@@ -164,9 +176,9 @@ def _train_device(ctx) -> torch.device:
     """The device a training job runs on, after the checks of the JAX
     ``_devices`` and ``_mesh``: ``param.pipe > 1`` raises ``ValueError``
     for good (the standard jobs train one step; pipelining is a primitive
-    for custom entrypoints), and the params of later slices (a mesh, MoE,
-    sequence parallelism) raise ``NotImplementedError``, ``param.devices >
-    1`` among them."""
+    for custom entrypoints), and the params of later slices (a mesh, the
+    expert axis among its axes, and sequence parallelism) raise
+    ``NotImplementedError``, ``param.devices > 1`` among them."""
     devs = _devices(ctx)
     p = ctx.params
     if int(p.get("pipe", 1)) > 1:
@@ -183,8 +195,6 @@ def _train_device(ctx) -> torch.device:
             raise NotImplementedError(
                 f"param.{axis} > 1 (a device mesh) {_LATER} 7"
             )
-    if int(p.get("moe_every", 0)) > 0:
-        raise NotImplementedError(f"param.moe_every (MoE) {_LATER} 9")
     if p.get("attention") in ("ring", "ulysses"):
         raise NotImplementedError(
             f"param.attention={p['attention']} (sequence parallel) {_LATER} 8"
@@ -517,12 +527,14 @@ def gpt(ctx) -> None:
     """GPT causal LM on synthetic tokens, as the JAX ``gpt`` entrypoint.
 
     Params: steps(=10), batch_size(=8), seq_len(=1024), size(=base|tiny),
-    attention(=auto|flash|xla), remat(=0), fused_xent(=0: when 1 the loss is
-    :func:`ops.xent.chunked_cross_entropy` against the tied embedding and
-    the ``[b, s, vocab]`` logits are never built), kv_heads(=0: MHA),
-    rope(=0|1), data(=device|host|fused), platform, and the params of
-    :func:`_train_kwargs` (AdamW at lr 1e-3 by default). Targets are
-    next-token shifted.
+    attention(=auto|flash|xla), moe_every(=0: dense; k > 0 makes every
+    k-th block's FFN a Switch-MoE layer), num_experts(=8), remat(=0),
+    fused_xent(=0: when 1 the loss is :func:`ops.xent.chunked_cross_entropy`
+    against the tied embedding and the ``[b, s, vocab]`` logits are never
+    built), kv_heads(=0: MHA), rope(=0|1), data(=device|host|fused),
+    platform, and the params of :func:`_train_kwargs` (AdamW at lr 1e-3 by
+    default). Targets are next-token shifted; an MoE model's weighted
+    router balance loss is added to the task loss.
     """
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 8))
@@ -533,8 +545,9 @@ def gpt(ctx) -> None:
     maker = GPTConfig.tiny if size == "tiny" else GPTConfig
     cfg = maker(
         max_len=seq_len, attention_impl=ctx.params.get("attention", "auto"),
-        return_hidden=fused_xent, **_gqa_rope_kwargs(ctx),
+        return_hidden=fused_xent, **_moe_kwargs(ctx), **_gqa_rope_kwargs(ctx),
     )
+    model = _seeded(GPT(cfg, device=device), device)
     if fused_xent:
         from cron_operator_tpu_torch.ops.xent import chunked_cross_entropy
 
@@ -544,12 +557,14 @@ def gpt(ctx) -> None:
     else:
         loss_fn = cross_entropy_loss
     _train_job(
-        ctx, _seeded(GPT(cfg, device=device), device), steps,
+        ctx, model, steps,
         lambda: datasets.causal_token_batches(
             batch_size, seq_len, cfg.vocab_size),
         datasets.causal_token_sample(batch_size, seq_len, cfg.vocab_size),
         tokens_per_step=batch_size * seq_len, loss_fn=loss_fn,
         remat=_remat(ctx),
+        # the JAX job sets it always; the port's dense GPT returns no aux
+        aux_loss_in_output=model.has_moe,
     )
 
 
@@ -588,21 +603,17 @@ def generate_job(ctx) -> None:
 
     Params: rounds(=1), batch_size(=8), prompt_len(=32), max_new(=128),
     temperature(=0 → greedy), size(=base|tiny), seq_len(=prompt_len+max_new:
-    the model's max_len), kv_heads(=0: MHA), rope(=0|1), seed(=0: the
+    the model's max_len), kv_heads(=0: MHA), rope(=0|1), moe_every(=0) and
+    num_experts(=8) (Switch-MoE blocks, as the ``gpt`` job's), seed(=0: the
     prompts' seed; weights come from seed 0 as in the JAX job), platform,
     devices (serving uses the first), checkpoint_from (=unset: random
     weights; a job or family name serves the newest parameters that
     training lineage saved, the train-nightly to serve-nightly pairing;
-    the GPTConfig params, ``seq_len`` among them, must match the training
-    job's) and checkpoint_dir (=the store root). On the card the decode
-    steps replay one captured CUDA graph
-    (:func:`workloads.generate.generate`). ``moe_every`` waits for the MoE
-    slice.
+    the GPTConfig params, ``seq_len`` and the MoE params among them, must
+    match the training job's) and checkpoint_dir (=the store root). On the
+    card the decode steps replay one captured CUDA graph
+    (:func:`workloads.generate.generate`).
     """
-    if int(ctx.params.get("moe_every", 0)) > 0:
-        raise NotImplementedError(
-            "param.moe_every waits for the MoE slice (ROADMAP.md queue 1)"
-        )
     rounds = int(ctx.params.get("rounds", 1))
     batch_size = int(ctx.params.get("batch_size", 8))
     prompt_len = int(ctx.params.get("prompt_len", 32))
@@ -613,7 +624,7 @@ def generate_job(ctx) -> None:
     maker = GPTConfig.tiny if size == "tiny" else GPTConfig
     cfg = maker(
         max_len=int(ctx.params.get("seq_len", prompt_len + max_new)),
-        **_gqa_rope_kwargs(ctx),
+        **_gqa_rope_kwargs(ctx), **_moe_kwargs(ctx),
     )
     # Serving keeps the parameters in cfg.dtype: the cast at use that a
     # training model's f32 masters go through gives the same values.
@@ -645,9 +656,10 @@ def generate_job(ctx) -> None:
         model = model.init_weights(weights_rng).eval()
 
     # Decode is HBM-bandwidth-bound: each step reads the parameters once for
-    # the whole batch plus every item's full static KV cache ([b, max_len,
-    # kv_h, d] K and V per layer, masked, not truncated). Published so a
-    # consumer can place tokens/s against the card's memory roofline.
+    # the whole batch (every expert, as the JAX count of the tree's leaves)
+    # plus every item's full static KV cache ([b, max_len, kv_h, d] K and V
+    # per layer, masked, not truncated). Published so a consumer can place
+    # tokens/s against the card's memory roofline.
     n_params = sum(p.numel() for p in model.parameters())
     kv_heads = cfg.num_kv_heads or cfg.num_heads
     head_dim = cfg.hidden_size // cfg.num_heads

@@ -14,6 +14,13 @@ and with ``captured=False`` on the card, the same step runs eagerly.
 
 Decode is bandwidth-bound (every step reads the parameters and the whole
 static KV cache); batch is the throughput lever.
+
+MoE models: a decode step routes its batch with no-drop capacity (the
+factor raised to ``num_experts``), while prefill keeps the configured
+``moe_capacity_factor``, as in the JAX package. Cached decode and a full
+forward therefore agree token for token only when ``moe_capacity_factor >=
+num_experts``; below it a token dropped by the full forward's router but
+routed by decode's (or the reverse) may legitimately change the output.
 """
 
 from __future__ import annotations

@@ -104,6 +104,9 @@ class TrainConfig:
     remat: bool = False  # recompute the forward in the backward
     sync_every: int = 1  # fetch the loss (a device sync) every N steps
     save_every: int = 0  # checkpoint cadence in steps (0 = never)
+    # The model returns (output, aux); the scalar aux (the MoE router balance
+    # loss, already weighted by the model) is added to the task loss.
+    aux_loss_in_output: bool = False
     # Batches placed ahead on the device by a background thread (0 = off).
     prefetch: int = 0
     # Seed of the generator that fused data (Trainer sample_fn) draws from.
@@ -249,8 +252,9 @@ class _Placed(dict):
 class Trainer:
     """Owns a model, its optimizer and the step loop.
 
-    ``model(x)`` gives the output ``loss_fn(output, y)`` reads. The model's
-    parameters stay where they are; batches go to their device.
+    ``model(x)`` gives the output ``loss_fn(output, y)`` reads (or, under
+    ``config.aux_loss_in_output``, that output and an aux loss to add). The
+    model's parameters stay where they are; batches go to their device.
 
     ``sample_fn`` (``generator -> batch``, e.g. ``data.token_sample``)
     switches to fused data: every step draws its own batch inside the step,
@@ -399,7 +403,7 @@ class Trainer:
             with FlopCounterMode(display=False) as counter, \
                     count_attention_flops() as attention:
                 out = functional_call(self.model, meta, (batch["x"],))
-                self.loss_fn(out, batch["y"]).backward()
+                self._objective(out, batch["y"]).backward()
             flops = counter.get_total_flops() + attention.flops
             self._flops_per_step = float(flops) if flops else None
         except Exception:  # noqa: BLE001 -- a diagnostic must not fail
@@ -450,6 +454,14 @@ class Trainer:
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
 
+    def _objective(self, out: Any, y: torch.Tensor) -> torch.Tensor:
+        """The loss of the model's output: ``loss_fn``, plus the aux loss
+        the model returns beside its output under ``aux_loss_in_output``."""
+        if self.config.aux_loss_in_output:
+            out, aux = out
+            return self.loss_fn(out, y) + aux
+        return self.loss_fn(out, y)
+
     def _loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         if self.config.remat:
             # The models draw no random numbers in their forward, so the
@@ -459,7 +471,7 @@ class Trainer:
                              preserve_rng_state=False)
         else:
             out = self.model(batch["x"])
-        return self.loss_fn(out, batch["y"])
+        return self._objective(out, batch["y"])
 
     def _update(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One step, all enqueued, at the learning rate set before it:

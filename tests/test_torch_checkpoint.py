@@ -477,3 +477,62 @@ def test_training_entrypoint_resumes_and_publishes_it(tmp_path):
     store = CheckpointStore("default", "mlp", root=str(tmp_path))
     assert store.all_steps() == [2, 4, 6]
     store.close()
+
+
+def test_moe_lineage_resumes_and_serves(tmp_path, monkeypatch):
+    """An MoE ``gpt`` lineage (every second block 4 experts, fused data)
+    saved at step 2 and resumed to 4 ends with the parameters of an
+    uninterrupted 4-step run, to the bit; ``generate_job checkpoint_from``
+    with the same MoE params serves them (cast to the serving dtype), and
+    its greedy tokens are those of an f32 model loaded from the step."""
+    from cron_operator_tpu_torch.models import GPT, GPTConfig
+    from cron_operator_tpu_torch.workloads.generate import generate
+
+    model_params = {"platform": "cpu", "size": "tiny", "seq_len": "16",
+                    "moe_every": "2", "num_experts": "4"}
+    train = {**model_params, "batch_size": "2", "data": "fused",
+             "checkpoint": "1", "save_every": "2"}
+
+    def run(name, root, steps):
+        ctx = JobContext(name, "default", {}, {
+            **train, "steps": str(steps), "checkpoint_dir": str(root)})
+        resolve_entrypoint("gpt")(ctx)
+        return ctx.progress
+
+    run("moe-lm", tmp_path / "a", 2)
+    resumed = run("moe-lm", tmp_path / "a", 4)
+    assert resumed["resumed_from_step"] == 2 and resumed["steps_done"] == 4
+    run("moe-lm", tmp_path / "b", 4)
+    trained = {}
+    for root in ("a", "b"):
+        store = CheckpointStore("default", "moe-lm", root=str(tmp_path / root))
+        assert store.latest_step() == 4
+        trained[root] = store.restore_params()
+        store.close()
+    assert any(".moe.wi" in name for name in trained["a"])
+    for name, value in trained["a"].items():
+        assert torch.equal(value, trained["b"][name]), name
+
+    served = {}
+    real_generate = entrypoints.generate
+
+    def spy(cfg, model, prompt, max_new, **kw):
+        served["params"] = {k: v.clone() for k, v in model.state_dict().items()}
+        served["out"] = real_generate(cfg, model, prompt, max_new, **kw)
+        served["prompt"] = prompt.clone()
+        return served["out"]
+
+    monkeypatch.setattr(entrypoints, "generate", spy)
+    ctx = JobContext("moe-serve", "default", {}, {
+        **model_params, "rounds": "1", "batch_size": "2", "prompt_len": "4",
+        "max_new": "4", "checkpoint_from": "moe-lm",
+        "checkpoint_dir": str(tmp_path / "a")})
+    resolve_entrypoint("generate")(ctx)
+    assert ctx.progress["restored_from_step"] == 4
+    for name, value in served["params"].items():
+        assert torch.equal(value, trained["a"][name].to(torch.bfloat16)), name
+    cfg = GPTConfig.tiny(max_len=16, moe_every=2, num_experts=4)
+    model = GPT(cfg)
+    model.load_state_dict(trained["a"])
+    want = generate(cfg, model.eval(), served["prompt"], 4)
+    assert torch.equal(served["out"], want)

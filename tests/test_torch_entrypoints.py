@@ -2,8 +2,10 @@
 the training jobs (``gpt``, ``bert``, ``mnist``, ``resnet50``, ``vit``) take
 the same params and publish the same progress keys (and ``generate_job``
 the same read-bytes model); they run on the card unless asked, the params
-of later slices raise, and the job-contract params (``checkpoint``,
-``mfu``, ``flops_accounting``, ``profile_dir``) run. The execution modes, ``param.devices`` and
+of later slices raise, the job-contract params (``checkpoint``, ``mfu``,
+``flops_accounting``, ``profile_dir``) run, and ``moe_every`` builds
+Switch-MoE blocks in ``gpt`` and ``generate_job`` and is ignored by the
+other jobs. The execution modes, ``param.devices`` and
 ``param.pipe`` are in ``tests/test_torch_entrypoint_modes.py``."""
 
 import threading
@@ -16,6 +18,7 @@ from cron_operator_tpu.workloads.entrypoints import generate_job as jax_generate
 from cron_operator_tpu.workloads import entrypoints as jax_entrypoints
 from cron_operator_tpu.workloads.entrypoints import gpt as jax_gpt
 from cron_operator_tpu_torch.backends.registry import JobContext
+from cron_operator_tpu_torch.models import GPT, GPTConfig
 from cron_operator_tpu_torch.workloads import entrypoints
 from cron_operator_tpu_torch.workloads.entrypoints import generate_job, gpt
 
@@ -26,9 +29,13 @@ PARAMS = {
 
 
 @pytest.mark.parametrize(
-    "extra", [{}, {"kv_heads": "2", "rope": "1"}], ids=["mha", "gqa_rope"]
+    "extra", [{}, {"kv_heads": "2", "rope": "1"},
+              {"moe_every": "2", "num_experts": "4"}],
+    ids=["mha", "gqa_rope", "moe"]
 )
 def test_publishes_what_the_jax_job_publishes(extra):
+    """The same keys and counts; with MoE blocks ``n_params`` and the
+    read-bytes model count every expert, as the JAX job's leaf count."""
     params = {**PARAMS, **extra}
     jctx = JaxJobContext("gen", "default", {}, dict(params))
     jax_generate_job(jctx)
@@ -52,10 +59,19 @@ def test_refuses_the_cpu_unless_asked(monkeypatch):
         generate_job(JobContext("gen", "default", {}, params))
 
 
-@pytest.mark.parametrize("extra, match", [({"moe_every": "2"}, "MoE")])
-def test_later_slices_raise(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        generate_job(JobContext("gen", "default", {}, {**PARAMS, **extra}))
+def test_generate_job_serves_moe_blocks():
+    """``moe_every`` builds the MoE model the ``gpt`` job trains: its
+    parameter count is the dense model's with every second FFN replaced by
+    4 experts and a router (tiny: hidden 128, mlp 512, no biases)."""
+    dense = JobContext("gen", "default", {}, dict(PARAMS))
+    generate_job(dense)
+    ctx = JobContext("gen", "default", {}, {
+        **PARAMS, "moe_every": "2", "num_experts": "4"})
+    generate_job(ctx)
+    ffn = 128 * 512 + 512 + 512 * 128 + 128
+    moe = 128 * 4 + 2 * 4 * 128 * 512
+    assert ctx.progress["n_params"] == dense.progress["n_params"] - ffn + moe
+    assert ctx.progress["tokens_generated"] == 16
 
 
 def test_stop_before_the_first_round():
@@ -169,13 +185,49 @@ def test_gpt_refuses_the_cpu_unless_asked(monkeypatch):
     "extra, match",
     [({axis: "2"}, f"param.{axis}") for axis in
      ("tensor", "seq", "fsdp", "expert", "slices")]
-    + [({"moe_every": "1"}, "MoE"), ({"attention": "ring"}, "ring"),
+    + [({"attention": "ring"}, "ring"),
        ({"attention": "ulysses"}, "ulysses")],
     ids=lambda v: "-".join(v) if isinstance(v, dict) else None,
 )
 def test_gpt_later_slices_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         gpt(JobContext("train", "default", {}, {**GPT_PARAMS, **extra}))
+
+
+@pytest.mark.parametrize("extra", [{}, {"remat": "1"}, {"fused_xent": "1"}],
+                         ids=["default", "remat", "fused_xent"])
+def test_gpt_trains_moe_blocks(extra):
+    """``moe_every=1`` (every block MoE, 4 experts) trains, also under
+    remat and with the chunked cross-entropy: the parameters count every
+    expert, and the first step's loss is the task loss plus the model's
+    aux loss (one step a call, so that the first step publishes it)."""
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.train import cross_entropy_loss
+
+    params = {**GPT_PARAMS, "moe_every": "1", "num_experts": "4",
+              "steps": "4", "data": "fused", "steps_per_call": "1", **extra}
+    ctx = JobContext("train", "default", {}, params)
+    losses = []
+    ctx.publish = lambda: losses.append(ctx.progress.get("last_loss"))
+    gpt(ctx)
+    assert ctx.progress["steps_done"] == 4
+    import math
+    assert math.isfinite(ctx.progress["last_loss"])
+    dense = JobContext("train", "default", {}, {**GPT_PARAMS, "steps": "1"})
+    gpt(dense)
+    per_ffn = 4 * 128 + 2 * 4 * 128 * 512 - (128 * 512 + 512 + 512 * 128 + 128)
+    assert ctx.progress["n_params"] == dense.progress["n_params"] + 2 * per_ffn
+    # The first step of the job, replayed here from the seed-0 weights and
+    # the fused generator's first batch: task loss + aux.
+    model = GPT(GPTConfig.tiny(max_len=32, moe_every=1, num_experts=4))
+    model.init_weights(torch.Generator().manual_seed(0))
+    batch = data.causal_token_sample(2, 32, 1024)(
+        torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        logits, aux = model(batch["x"])
+    first = cross_entropy_loss(logits, batch["y"]).item() + aux.item()
+    timeline = ctx.progress["step_timeline"]
+    assert len(timeline) == 4 and losses[0] == pytest.approx(first, rel=1e-5)
 
 
 @pytest.mark.parametrize("extra, key", [
@@ -283,12 +335,28 @@ def test_training_jobs_refuse_the_cpu_unless_asked(job, monkeypatch):
 
 @pytest.mark.parametrize("job", sorted(JOB_PARAMS))
 @pytest.mark.parametrize("extra, match", [
-    ({"fsdp": "2"}, "param.fsdp"), ({"moe_every": "1"}, "MoE"),
+    ({"fsdp": "2"}, "param.fsdp"), ({"expert": "2"}, "param.expert"),
 ])
 def test_training_jobs_later_slices_raise(job, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         getattr(entrypoints, job)(
             JobContext("train", "default", {}, _job_params(job, **extra)))
+
+
+@pytest.mark.parametrize("job", sorted(JOB_PARAMS))
+def test_training_jobs_ignore_moe_every(job):
+    """Only ``gpt`` builds MoE blocks; the other jobs ignore ``moe_every``
+    and ``num_experts``, as the JAX jobs do: the same model and the same
+    first loss as without them."""
+    runs = []
+    for extra in ({}, {"moe_every": "1", "num_experts": "4"}):
+        ctx = JobContext("train", "default", {}, _job_params(
+            job, steps="1", data="host", **extra))
+        getattr(entrypoints, job)(ctx)
+        runs.append(ctx.progress)
+    assert runs[1]["steps_done"] == 1
+    assert runs[1]["n_params"] == runs[0]["n_params"]
+    assert runs[1]["last_loss"] == runs[0]["last_loss"]
 
 
 def test_device_streams_have_the_host_streams_shapes():

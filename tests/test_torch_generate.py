@@ -1,7 +1,7 @@
 """The port's KV-cache generation: greedy output token-identical to the JAX
 package's ``generate`` from converted weights (with the cache position a
 device tensor that decode advances on the device), equal to a full-forward
-rerun, the same argument checks, and seeded sampling, whose draw is
+rerun (dense, GQA with RoPE, and Switch-MoE blocks), the same argument checks, and seeded sampling, whose draw is
 ``torch.multinomial``'s written out."""
 
 import jax
@@ -36,7 +36,9 @@ def _prompt(b=2, p=4, seed=1):
 
 
 @pytest.mark.parametrize(
-    "over", [dict(), dict(num_kv_heads=2, rope=True)], ids=["mha", "gqa_rope"]
+    "over", [dict(), dict(num_kv_heads=2, rope=True),
+             dict(moe_every=2, num_experts=4)],
+    ids=["mha", "gqa_rope", "moe"]
 )
 def test_greedy_matches_jax_generate(over):
     jcfg, params, tcfg, model = _pair(**over)
@@ -48,7 +50,12 @@ def test_greedy_matches_jax_generate(over):
 
 
 @pytest.mark.parametrize(
-    "over", [dict(), dict(num_kv_heads=2, rope=True)], ids=["mha", "gqa_rope"]
+    "over", [dict(), dict(num_kv_heads=2, rope=True),
+             # the JAX MoE oracle: a capacity factor of num_experts drops
+             # no token in the full forward either, so no drop can hide a
+             # routing divergence between the two paths
+             dict(moe_every=1, num_experts=4, moe_capacity_factor=4.0)],
+    ids=["mha", "gqa_rope", "moe"]
 )
 def test_greedy_matches_full_forward_rerun(over):
     cfg = GPTConfig.tiny(dtype=torch.float32, **over)
@@ -59,7 +66,10 @@ def test_greedy_matches_full_forward_rerun(over):
     seq = prompt
     with torch.no_grad():
         for _ in range(6):
-            nxt = model(seq)[:, -1].argmax(-1, keepdim=True)
+            logits = model(seq)
+            if model.has_moe:
+                logits, _ = logits
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
             seq = torch.cat([seq, nxt], dim=1)
     assert torch.equal(out, seq), "cached decode diverged from the full forward"
 

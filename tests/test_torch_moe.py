@@ -1,0 +1,240 @@
+"""The port's Switch-MoE FFN (``parallel/moe.py``) against the JAX package's,
+case by case after ``tests/test_moe.py``'s single-device cases, on the same
+numpy inputs in f32 on the CPU.
+
+Routing is discontinuous: a near-tie between two experts could go either
+way between two f32 implementations. So each case first checks that every
+token's route (its expert, and its slot in that expert's buffer) is JAX's,
+and that the inputs sit clear of ties (the smallest top-1 margin of the
+router probabilities is stated per case), and only then compares values.
+The expert-sharded cases of ``tests/test_moe.py`` wait for the mesh.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cron_operator_tpu.parallel.moe import init_moe_params as jax_init
+from cron_operator_tpu.parallel.moe import moe_ffn as jax_moe_ffn
+from cron_operator_tpu.parallel.moe import router_top1 as jax_router_top1
+from cron_operator_tpu_torch.parallel.moe import (
+    _capacity,
+    init_moe_params,
+    moe_ffn,
+    router_top1,
+)
+
+D, F, E = 8, 16, 4
+# f32 values: the same products and reductions in another order
+VALUE_ATOL = 1e-5
+# The router draws normal(0.02) weights, so its probabilities sit near 1/E
+# and the top two differ little; the cases' smallest gaps are 8.6e-6 and
+# up, over 250 f32 ulps of a probability near 1/4.
+MIN_MARGIN = 1e-6
+
+
+def _inputs(x_key, p_key, tokens, dtype=jnp.float32):
+    """The JAX case's input and parameters as numpy arrays."""
+    x = np.asarray(jax.random.normal(jax.random.PRNGKey(x_key), (tokens, D),
+                                     dtype))
+    params = jax_init(jax.random.PRNGKey(p_key), d_model=D, d_ff=F,
+                      n_experts=E)
+    return x, {k: np.asarray(v) for k, v in params.items()}
+
+
+def _torch(params):
+    return {k: torch.tensor(v) for k, v in params.items()}
+
+
+def _routes(dispatch):
+    """(kept, expert, slot) of every token from a [T, E, C] dispatch; -1
+    for a dropped token's expert and slot."""
+    d = np.asarray(dispatch, dtype=np.float32)
+    kept = d.sum(axis=(1, 2)) > 0
+    expert = np.where(kept, d.sum(axis=2).argmax(axis=1), -1)
+    slot = np.where(kept, d.sum(axis=1).argmax(axis=1), -1)
+    return kept, expert, slot
+
+
+def _min_margin(logits):
+    """The smallest gap between a token's top two router probabilities."""
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(logits, jnp.float32)))
+    top2 = np.sort(probs, axis=-1)[:, -2:]
+    return float((top2[:, 1] - top2[:, 0]).min())
+
+
+def _assert_same_routes(x, params, capacity):
+    """Each package routes the input its own way (logits in f32 from x and
+    the router); the routes must be identical, clear of ties. Returns the
+    two dispatches."""
+    logits = np.asarray(x, np.float32) @ params["router"]
+    # above f32 rounding of a probability near 1/E (an ulp is 3e-8)
+    assert _min_margin(logits) > MIN_MARGIN
+    _, jax_dispatch, _ = jax_router_top1(
+        jnp.asarray(x, jnp.float32) @ jnp.asarray(params["router"]), capacity)
+    _, dispatch, _ = router_top1(
+        torch.tensor(np.asarray(x, np.float32)) @ _torch(params)["router"],
+        capacity)
+    for ours, ref in zip(_routes(dispatch.numpy()), _routes(jax_dispatch)):
+        np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(dispatch.numpy(), np.asarray(jax_dispatch))
+    return dispatch, jax_dispatch
+
+
+def _per_token_reference(params, x, capacity):
+    """Per-token numpy Switch top-1 with capacity drop (tanh gelu)."""
+    probs = np.asarray(jax.nn.softmax(x @ params["router"], axis=-1))
+    counts = [0] * E
+    out = np.zeros_like(x)
+    for t in range(x.shape[0]):
+        e = int(np.argmax(probs[t]))
+        if counts[e] >= capacity:
+            continue  # dropped
+        counts[e] += 1
+        h = x[t] @ params["wi"][e]
+        h = 0.5 * h * (1 + np.tanh(np.sqrt(2 / np.pi) * (h + 0.044715 * h ** 3)))
+        out[t] = (h @ params["wo"][e]) * probs[t, e]
+    return out
+
+
+class TestRouting:
+    def test_dispatch_combine_shapes_and_slots(self):
+        x, params = _inputs(0, 1, 12)
+        _assert_same_routes(x, params, 3)
+        logits = x @ params["router"]
+        combine, dispatch, aux = router_top1(torch.tensor(logits), 3)
+        jc, jd, jaux = jax_router_top1(jnp.asarray(logits), 3)
+        assert combine.shape == dispatch.shape == (12, E, 3)
+        # Each kept token occupies exactly one (expert, slot); each
+        # (expert, slot) holds at most one token.
+        per_token = dispatch.sum(dim=(1, 2))
+        assert set(per_token.tolist()) <= {0.0, 1.0}
+        assert dispatch.sum(dim=0).max().item() <= 1.0
+        assert aux.item() > 0.0
+        np.testing.assert_array_equal(dispatch.numpy(), np.asarray(jd))
+        np.testing.assert_allclose(combine.numpy(), np.asarray(jc),
+                                   rtol=0, atol=1e-6)
+        assert abs(aux.item() - float(jaux)) <= 1e-6
+
+    def test_matches_per_token_reference(self):
+        x, params = _inputs(2, 3, 32)
+        capacity = _capacity(32, E, 1.25)
+        assert capacity == max(1, int(np.ceil(32 / E * 1.25)))
+        _assert_same_routes(x, params, capacity)
+        y, aux = moe_ffn(_torch(params), torch.tensor(x),
+                         capacity_factor=1.25)
+        jy, jaux = jax_moe_ffn({k: jnp.asarray(v) for k, v in params.items()},
+                               jnp.asarray(x), capacity_factor=1.25)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=0,
+                                   atol=VALUE_ATOL)
+        assert abs(aux.item() - float(jaux)) <= 1e-6
+        ref = _per_token_reference(params, x, capacity)
+        np.testing.assert_allclose(y.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+    def test_overflow_tokens_are_dropped_to_zero(self):
+        """Tiny capacity forces drops; dropped rows must be exactly 0."""
+        x, params = _inputs(4, 5, 16)
+        dispatch, _ = _assert_same_routes(x, params, 1)
+        kept = dispatch.sum(dim=(1, 2)).numpy() > 0
+        assert kept.sum() <= E  # at most capacity * E tokens survive
+        assert kept.sum() < 16
+        y, _ = moe_ffn(_torch(params), torch.tensor(x),
+                       capacity_factor=1.0 / (16 / E))
+        jy, _ = jax_moe_ffn({k: jnp.asarray(v) for k, v in params.items()},
+                            jnp.asarray(x), capacity_factor=1.0 / (16 / E))
+        dropped_rows = y.numpy()[~kept]
+        np.testing.assert_array_equal(dropped_rows,
+                                      np.zeros_like(dropped_rows))
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=0,
+                                   atol=VALUE_ATOL)
+
+
+class TestTraining:
+    def test_grads_flow_and_aux_loss_balances(self):
+        """The gradients of mean(y^2) + 0.01 aux: every one finite, the
+        router's nonzero (through the gates and the aux loss, since the
+        dispatch carries none), and each within f32 rounding of jax.grad's."""
+        x, params = _inputs(9, 10, 32)
+        _assert_same_routes(x, params, _capacity(32, E, 1.25))
+
+        def jax_loss(p):
+            y, aux = jax_moe_ffn(p, jnp.asarray(x))
+            return jnp.mean(y ** 2) + 0.01 * aux
+
+        want = jax.grad(jax_loss)({k: jnp.asarray(v)
+                                   for k, v in params.items()})
+        leaves = {k: v.clone().requires_grad_() for k, v in
+                  _torch(params).items()}
+        y, aux = moe_ffn(leaves, torch.tensor(x))
+        (torch.mean(y ** 2) + 0.01 * aux).backward()
+        for name, leaf in leaves.items():
+            grad = leaf.grad.numpy()
+            assert np.isfinite(grad).all(), name
+            ref = np.asarray(want[name])
+            np.testing.assert_allclose(
+                grad, ref, rtol=0, atol=1e-5 * np.abs(ref).max(),
+                err_msg=name)
+        # Router must receive gradient (through gates and aux loss).
+        assert leaves["router"].grad.abs().sum().item() > 0.0
+
+    def test_aux_loss_alone_reaches_the_router(self):
+        """The aux loss's gradient reaches the router through the mean
+        router probability, as jax.grad of the JAX aux gives it."""
+        x, params = _inputs(9, 10, 32)
+        want = jax.grad(lambda r: jax_router_top1(
+            jnp.asarray(x) @ r, 10)[2])(jnp.asarray(params["router"]))
+        router = torch.tensor(params["router"]).requires_grad_()
+        router_top1(torch.tensor(x) @ router, 10)[2].backward()
+        assert router.grad.abs().sum().item() > 0.0
+        np.testing.assert_allclose(router.grad.numpy(), np.asarray(want),
+                                   rtol=0, atol=1e-7)
+
+
+class TestTrainerIntegration:
+    def test_moe_compute_dtype_follows_model(self):
+        """bf16 models run the expert products in bf16, keeping only
+        routing in f32: the output is bf16, the aux f32, and the output
+        within twice the JAX bf16 output's own distance from f32."""
+        x, params = _inputs(1, 0, 16, dtype=jnp.bfloat16)
+        jparams = {k: jnp.asarray(v) for k, v in params.items()}
+        xb = jnp.asarray(x)  # bfloat16
+        _assert_same_routes(np.asarray(xb, np.float32), params,
+                            _capacity(16, E, 1.25))
+        y, aux = moe_ffn(_torch(params),
+                         torch.tensor(np.asarray(xb, np.float32)).to(
+                             torch.bfloat16),
+                         compute_dtype=torch.bfloat16)
+        assert y.dtype == torch.bfloat16
+        assert aux.dtype == torch.float32
+        jy, jaux = jax_moe_ffn(jparams, xb, compute_dtype=jnp.bfloat16)
+        jy32, _ = jax_moe_ffn(jparams, xb.astype(jnp.float32))
+        gap = np.abs(np.asarray(jy, np.float32) - np.asarray(jy32)).max()
+        assert np.abs(y.float().numpy() - np.asarray(jy, np.float32)).max() \
+            <= 2 * gap
+        assert abs(aux.item() - float(jaux)) <= 1e-6
+
+
+def test_init_moe_params_scales():
+    """The JAX function's scales, untruncated, on the generator's device."""
+    params = init_moe_params(torch.Generator().manual_seed(0), d_model=256,
+                             d_ff=512, n_experts=8)
+    assert params["router"].shape == (256, 8)
+    assert params["wi"].shape == (8, 256, 512)
+    assert params["wo"].shape == (8, 512, 256)
+    assert abs(params["router"].std().item() - 0.02) < 1e-3
+    assert abs(params["wi"].std().item() - 256 ** -0.5) < 1e-3
+    assert abs(params["wo"].std().item() - 512 ** -0.5) < 1e-3
+    # untruncated: a normal draw of ~1M values reaches past 4 std
+    assert params["wi"].abs().max().item() > 4 * 256 ** -0.5
+    assert {p.dtype for p in params.values()} == {torch.float32}
+
+
+@pytest.mark.parametrize("tokens, experts, factor", [
+    (8192, 8, 1.25), (8, 8, 8.0), (4096, 8, 1.25), (12, 4, 0.1)])
+def test_capacity_is_the_jax_capacity(tokens, experts, factor):
+    from cron_operator_tpu.parallel.moe import _capacity as jax_capacity
+
+    assert _capacity(tokens, experts, factor) == jax_capacity(
+        tokens, experts, factor)

@@ -7,9 +7,10 @@
   The clip formula is pinned on its own against ``optax.clip_by_global_norm``.
 - 20 steps of GPT tiny through the port's ``Trainer`` give the JAX
   ``Trainer``'s losses (``steps_per_call=1``, the same numpy
-  ``causal_token_batches``), for MHA and GQA with RoPE under AdamW and for
-  MHA under SGD (parameters compared too), on the ``xla`` path, and once on
-  the ``flash`` path (the port's plain K1-K3 through the autograd Function
+  ``causal_token_batches``), for MHA, GQA with RoPE and Switch-MoE blocks
+  (the router's aux loss added to the loss, as ``aux_loss_in_output``)
+  under AdamW and for MHA and MoE under SGD (parameters compared too), on
+  the ``xla`` path, and once on the ``flash`` path (the port's plain K1-K3 through the autograd Function
   against the JAX kernels in interpret mode).
 - Multi-step calls: 10 steps at ``steps_per_call`` 1, 2 and 5 (host data,
   staged ahead or inline) leave bit-identical parameters; at
@@ -219,6 +220,10 @@ RUNS = {
     "gqa_rope-adamw": (32, "xla", {"num_kv_heads": 2, "rope": True}, {}),
     "mha-sgd": (32, "xla", {}, {"optimizer": "sgd", "learning_rate": 0.05}),
     "flash-adamw": (128, "flash", {}, {}),
+    # Switch-MoE blocks (layer 1 of 2, 4 experts, the aux loss added)
+    "moe-adamw": (32, "xla", {"moe_every": 2, "num_experts": 4}, {}),
+    "moe-sgd": (32, "xla", {"moe_every": 2, "num_experts": 4},
+                {"optimizer": "sgd", "learning_rate": 0.05}),
 }
 
 
@@ -227,7 +232,8 @@ def test_twenty_steps_match_the_jax_trainer(run):
     seq, impl, over, train_kw = RUNS[run]
     jcfg, tcfg, params, model = _pair(seq, impl=impl, **over)
     want, jax_params = _jax_losses(jcfg, params, seq, 20, **train_kw)
-    trainer = Trainer(model, TrainConfig(**train_kw))
+    trainer = Trainer(model, TrainConfig(aux_loss_in_output=model.has_moe,
+                                         **train_kw))
     stats = trainer.run(data.causal_token_batches(2, seq, 1024), 20)
     got = [s.loss for s in stats]
     assert len(got) == 20 and trainer.steps_done == 20
@@ -248,6 +254,32 @@ def test_remat_gives_the_same_steps():
         model = _tiny()
         trainer = Trainer(model, TrainConfig(remat=remat))
         stats = trainer.run(data.causal_token_batches(2, 32, 1024), 3)
+        runs.append(([s.loss for s in stats], model.state_dict()))
+    assert runs[0][0] == runs[1][0]
+    for name, p in runs[0][1].items():
+        assert torch.equal(p, runs[1][1][name]), name
+
+
+def test_moe_aux_loss_is_added_eager_and_under_remat():
+    """Under ``aux_loss_in_output`` the step's loss is the task loss plus
+    the model's aux (the router balance loss times ``moe_aux_weight``),
+    and ``remat`` recomputes both: the same losses and parameters."""
+    cfg = GPTConfig.tiny(dtype=torch.float32, max_len=32, moe_every=2,
+                         num_experts=4)
+    batches = list(itertools.islice(data.causal_token_batches(2, 32, 1024),
+                                    3))
+    runs = []
+    for remat in (False, True):
+        model = GPT(cfg).init_weights(torch.Generator().manual_seed(0))
+        x, y = (torch.as_tensor(batches[0][k]) for k in ("x", "y"))
+        with torch.no_grad():
+            logits, aux = model(x)
+            want = (cross_entropy_loss(logits, y) + aux).item()
+        assert aux.item() > 0
+        trainer = Trainer(model, TrainConfig(remat=remat,
+                                             aux_loss_in_output=True))
+        stats = trainer.run(iter(batches), 3)
+        assert stats[0].loss == pytest.approx(want, rel=1e-6)
         runs.append(([s.loss for s in stats], model.state_dict()))
     assert runs[0][0] == runs[1][0]
     for name, p in runs[0][1].items():
