@@ -101,7 +101,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
     decode ms a step and tokens/s; then the cached greedy decode against
     a full-forward rerun for 8 tokens at full width with
     ``moe_capacity_factor=8`` (no token dropped on either path), in f32.
-15. A ``kernels`` JSON line, the card line, and last the result line
+15. The device mesh on one card: the script starts itself twice
+    (``--mesh-rank``) as two ranks of a gloo group on ``cuda:0`` (NCCL
+    refuses two ranks on one device); each calls ``gpt`` at GPT-2 small
+    widths (b 8 x 1024 global, AdamW, ``data=host``, 3 steps) under a
+    strategy of ``MESH_STRATEGIES`` not in ``MESH_LEFT_OUT`` (``devices=2``:
+    gloo's functional all-gather of CUDA tensors crashes under torch 2.11,
+    which ``fsdp``, ``tensor`` and ``expert`` need). Each rank's K1, K2 and
+    K3 must launch 36 times, all sm90, at the strategy's local (batch,
+    heads), counts set to 0 just before the job and read just after; both
+    ranks report the same losses; against a one-rank run of the same
+    batches (a process of its own) the per-step loss gap stays within
+    ``MESH_LOSS_BOUND`` and the update distance (the parameters' change
+    over the run, gathered whole) within ``MESH_UPDATE_BOUND``, and a
+    one-rank run at lr 0 must fall outside both; K1-K3 are timed at the
+    local shape; the step ms is printed as two ranks time-sharing the
+    card, not as scaling. ``hack/torch_mesh_cards.py`` runs the same ranks
+    and checks over NCCL, one rank a card.
+16. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
 
@@ -113,6 +130,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import importlib
+import io
 import itertools
 import json
 import math
@@ -180,10 +198,10 @@ def fail(msg: str) -> None:
 
 
 def release(torch) -> None:
-    """Returns the card memory of deleted trainers and models: a trainer and
-    its step graph reference each other (the graph holds the trainer's
-    bound step), so the collector runs before the allocator's cache is
-    emptied, or each graph's private pool stays held."""
+    """Returns the card memory of deleted trainers and models: the collector
+    runs before the allocator's cache is emptied, so that nothing a
+    reference cycle holds keeps its blocks (a trainer and its step graph
+    no longer make one: the graph holds the trainer's step weakly)."""
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1626,6 +1644,327 @@ def phase_moe_serving(torch, fa, card):
                       "oracle_margin": margin, **rows}
 
 
+# Phase 15: the device mesh on one card. Two ranks share cuda:0 in a gloo
+# process group (NCCL refuses two ranks on one device), each calls the gpt
+# entrypoint at GPT-2 small width, b 8 x 1024, AdamW, data=host, 3 steps.
+MESH_PARAMS = {"size": "base", "batch_size": "8", "seq_len": "1024",
+               "steps": "3", "data": "host", "steps_per_call": "1"}
+MESH_STRATEGIES = {
+    # name: (strategy params, K1-K3's local (batch, heads) on each rank)
+    "data": ({"devices": "2"}, (4, 12)),
+    "fsdp": ({"fsdp": "2"}, (4, 12)),
+    "tensor": ({"tensor": "2"}, (8, 6)),
+    "expert": ({**MOE_PARAMS, "expert": "2"}, (8, 12)),
+}
+# Strategies this phase leaves out, and the collective that keeps them out:
+# under torch 2.11 (the card's), gloo's functional all-gather of CUDA
+# tensors (_c10d_functional.all_gather_into_tensor, then wait_tensor, as
+# DTensor's Shard -> Replicate redistribution issues it) ends the process
+# with SIGSEGV; the plain dist.all_gather_into_tensor of the same tensors
+# works. fsdp and tensor gather parameters and activations that way in the
+# forward, expert in the backward (the gradient of a Replicate -> Shard
+# slice of the expert-stacked products); data needs only all-reduce. The
+# CPU tests train all four in gloo worlds.
+_GATHER = ("gloo functional all_gather_into_tensor on CUDA tensors "
+           "(SIGSEGV, torch 2.11)")
+MESH_LEFT_OUT = {"fsdp": _GATHER, "tensor": _GATHER, "expert": _GATHER}
+# Every check of a mesh run holds it against a one-rank run of the same
+# global batches (the reference), on two readings:
+# - the per-step loss gap. Sound runs differ by bf16 products whose row
+#   blocks and partial sums round in another order (and, under expert, by
+#   top-1 routes that a near tie flips); a run whose parameters never move
+#   differs by the training's own descent. MESH_FROZEN_PARAMS runs the
+#   reference at lr 0, and the check fails unless that reading lies above
+#   the bound, so the bound is shown to catch it in every run.
+# - the update distance |d_mesh - d_ref| / |d_ref|, where d is the change
+#   of every parameter over the run, gathered whole on rank 0: 1 exactly
+#   for parameters that never move, and far from 0 when a rank applies
+#   gradients of its own rows alone.
+MESH_LOSS_BOUND = 2e-3
+MESH_UPDATE_BOUND = 0.25
+MESH_FROZEN_PARAMS = {"lr": "0"}
+MESH_STEPS = int(MESH_PARAMS["steps"])
+MESH_LAYERS = 12  # GPT-2 small: one K1, K2 and K3 launch a layer and step
+
+
+class LossLog(dict):
+    """A job's progress that keeps every ``last_loss`` published."""
+
+    def __init__(self):
+        super().__init__()
+        self.losses = []
+
+    def __setitem__(self, key, value):
+        if key == "last_loss":
+            self.losses.append(value)
+        super().__setitem__(key, value)
+
+
+def run_gpt(torch, params: dict, delta_out: str, profile: bool = False):
+    """The ``gpt`` entrypoint on ``params`` in this process (a rank of the
+    process group when there is one), with every kernel count set to 0 just
+    before and read just after, and the (batch, heads) of each launch.
+    Writes to ``delta_out`` (on rank 0; every rank gathers) the change of
+    every parameter over the run, whole, f32. ``profile`` runs one more
+    step of the same batch size under ``profile_window`` (every rank) and
+    keeps what it printed. Returns the counts, designs, shapes, per-step
+    losses, step s and tokens/s (and the profile)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
+    from cron_operator_tpu_torch.backends.registry import JobContext
+    from cron_operator_tpu_torch.workloads import data, entrypoints
+
+    def whole(t):
+        t = t.detach()
+        return (t.full_tensor() if isinstance(t, DTensor) else t).to(
+            "cpu", torch.float32, copy=True)
+
+    shapes, made = set(), []
+    launchers = {a: getattr(fa, a) for a in ("_launch", "_launch_dq",
+                                             "_launch_dkv")}
+    real_trainer = entrypoints.Trainer
+
+    def trainer(model, *args, **kw):
+        start = {n: whole(p) for n, p in model.named_parameters()}
+        made.append((real_trainer(model, *args, **kw), start))
+        return made[-1][0]
+
+    for attr, inner in launchers.items():
+        def traced(q, *args, _inner=inner, _name=attr):
+            shapes.add((_name, q.shape[0], q.shape[2]))
+            return _inner(q, *args)
+        setattr(fa, attr, traced)
+    entrypoints.Trainer = trainer
+    try:
+        ctx = JobContext("chip-smoke-mesh", "default", {}, params,
+                         progress=LossLog())
+        zero_counts(fa)
+        entrypoints.gpt(ctx)
+        torch.cuda.synchronize()
+        result = {"counts": read_counts(fa), "designs": read_designs(fa),
+                  "shapes": sorted(shapes), "losses": ctx.progress.losses,
+                  "step_s": ctx.progress["avg_step_time_s"],
+                  "tokens_per_s": ctx.progress["tokens_per_s"]}
+    finally:
+        entrypoints.Trainer = real_trainer
+        for attr, inner in launchers.items():
+            setattr(fa, attr, inner)
+    tr, start = made[0]
+    delta = {n: whole(p) - start[n] for n, p in tr.model.named_parameters()}
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        torch.save(delta, delta_out)
+    del delta, start
+    if profile:
+        batch = next(data.causal_token_batches(
+            int(params["batch_size"]), int(params["seq_len"]),
+            tr.model.config.vocab_size))
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            profile_window(torch, card_line(), "one mesh step",
+                           lambda: tr.step(batch))
+        result["profile"] = text.getvalue()
+    return result
+
+
+def mesh_rank(rank: int, world: int, local_rank: int, backend: str,
+              port: int, params: dict, out: str, profile: bool) -> None:
+    """One rank of a mesh run (``chip_smoke.py --mesh-rank``): joins a
+    process group of ``world`` ranks over ``backend`` on
+    ``cuda:local_rank`` (none for a world of one), runs :func:`run_gpt`
+    and writes its result to ``out`` (the parameter change to
+    ``out.delta.pt``)."""
+    import faulthandler
+
+    faulthandler.enable()  # a crashed rank leaves its stack in its stderr
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(local_rank))
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(local_rank)
+    if world > 1:
+        dist.init_process_group(backend, rank=rank, world_size=world,
+                                init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        result = run_gpt(torch, params, out + ".delta.pt", profile)
+        Path(out).write_text(json.dumps(result))
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, params: dict, root: str, name: str, *,
+                backend: str = "gloo", cards: int = 1,
+                profile: bool = False) -> list:
+    """``world`` rank processes of one mesh run (rank r on card
+    r % ``cards``), waited for; their results. A rank that fails fails the
+    script, with the end of its stderr."""
+    port = free_port()
+    outs = [os.path.join(root, f"{name}.{r}.json") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(outs[r] + ".stderr", "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(HERE / "chip_smoke.py"), "--mesh-rank",
+                 str(r), str(world), str(r % cards), backend, str(port),
+                 json.dumps(params), outs[r]] + (["--profile"] * profile),
+                cwd=HERE, stdout=subprocess.DEVNULL, stderr=err))
+    try:
+        for r, proc in enumerate(procs):
+            proc.wait(timeout=600)
+            if proc.returncode:
+                err = Path(outs[r] + ".stderr").read_text()[-3000:]
+                fail(f"mesh {name}: rank {r} exited {proc.returncode}:\n{err}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks = [json.loads(Path(o).read_text()) for o in outs]
+    ranks[0]["delta"] = outs[0] + ".delta.pt"
+    return ranks
+
+
+def update_distance(torch, delta: str, ref_delta: str) -> float:
+    """|d - d_ref| / |d_ref| over every parameter, from two saved changes."""
+    a = torch.load(delta, weights_only=True)
+    b = torch.load(ref_delta, weights_only=True)
+    num = sum(float((a[n].double() - b[n].double()).square().sum()) for n in b)
+    den = sum(float(b[n].double().square().sum()) for n in b)
+    return math.sqrt(num / den)
+
+
+def mesh_readings(torch, run: list, ref: dict):
+    """A mesh run (its ranks' results) against the reference's: the largest
+    per-step loss gap and the update distance."""
+    if len(ref["losses"]) != MESH_STEPS or len(run[0]["losses"]) != MESH_STEPS:
+        fail(f"a mesh run published {len(run[0]['losses'])} losses and its "
+             f"reference {len(ref['losses'])}, not {MESH_STEPS}")
+    gap = max(abs(a - b) for a, b in zip(run[0]["losses"], ref["losses"]))
+    return gap, update_distance(torch, run[0]["delta"], ref["delta"])
+
+
+def mesh_problems(torch, ranks: list, ref: dict, local: tuple):
+    """Every check of one strategy's run: each rank's K1, K2 and K3
+    launched MESH_STEPS x MESH_LAYERS times, all sm90, at the strategy's
+    local (batch, heads); every rank's losses equal; the loss gap and the
+    update distance against the reference within their bounds. Returns the
+    problems (empty when it passed) and the two readings."""
+    want = MESH_STEPS * MESH_LAYERS
+    problems = []
+    for r, got in enumerate(ranks):
+        if got["counts"] != [want] * 3:
+            problems.append(f"rank {r} launched K1/K2/K3 {got['counts']} "
+                            f"times, not {want} each")
+        if any(d["sm90"] != n for d, n in zip(got["designs"], got["counts"])):
+            problems.append(f"rank {r} launches by design {got['designs']}: "
+                            "not all sm90")
+        if {tuple(x[1:]) for x in got["shapes"]} != {tuple(local)}:
+            problems.append(f"rank {r} launched at (batch, heads) "
+                            f"{got['shapes']}, not {tuple(local)}")
+        if got["losses"] != ranks[0]["losses"]:
+            problems.append(f"ranks report different losses "
+                            f"{[x['losses'] for x in ranks]}")
+    gap, dist = mesh_readings(torch, ranks, ref)
+    if not gap <= MESH_LOSS_BOUND:
+        problems.append(f"losses {ranks[0]['losses']} not within "
+                        f"{MESH_LOSS_BOUND} of the reference's {ref['losses']}")
+    if not dist <= MESH_UPDATE_BOUND:
+        problems.append(f"update distance {dist} above {MESH_UPDATE_BOUND}")
+    return problems, {"loss_gap": gap, "update_distance": dist}
+
+
+def frozen_reading(torch, refs: dict, root: str) -> dict:
+    """The reference at lr 0 (parameters that never move) against the
+    reference: its readings must fail both bounds."""
+    (frozen,) = spawn_ranks(1, {**MESH_PARAMS, **MESH_FROZEN_PARAMS}, root,
+                            "frozen")
+    gap, dist = mesh_readings(torch, [frozen], refs["dense"])
+    if not (gap > MESH_LOSS_BOUND and dist > MESH_UPDATE_BOUND):
+        fail(f"a run whose parameters never move reads a loss gap {gap} and "
+             f"an update distance {dist}: within the bounds "
+             f"{MESH_LOSS_BOUND}, {MESH_UPDATE_BOUND}")
+    return {"loss_gap": gap, "update_distance": dist}
+
+
+def mesh_references(strategies: dict, root: str) -> dict:
+    """One-rank runs of MESH_PARAMS, dense and with the MoE params, as each
+    strategy in ``strategies`` needs them."""
+    refs = {}
+    for extra in [v[0] for v in strategies.values()]:
+        kind = "moe" if "moe_every" in extra else "dense"
+        if kind not in refs:
+            model = MOE_PARAMS if kind == "moe" else {}
+            (refs[kind],) = spawn_ranks(1, {**MESH_PARAMS, **model}, root,
+                                        f"ref_{kind}")
+    return refs
+
+
+def phase_mesh(torch, fa, card):
+    """Every strategy of MESH_STRATEGIES not in MESH_LEFT_OUT, as two ranks
+    on the one card, through :func:`mesh_problems` against one-rank runs of
+    the same batches, with the frozen reading beside. Returns each
+    strategy's launches summed over the ranks, the rows of the kernels at
+    each local shape, its step ms and its readings."""
+    from cron_operator_tpu_torch.utils.device import world_size
+
+    if world_size() != 1:
+        fail("the smoke's own process must not be in a process group")
+    strategies = {k: v for k, v in MESH_STRATEGIES.items()
+                  if k not in MESH_LEFT_OUT}
+    for name in MESH_LEFT_OUT:
+        print(f"mesh {name}: left out: {MESH_LEFT_OUT[name]}", flush=True)
+    if "data" not in strategies:
+        fail("the mesh phase must run the data strategy")
+    root = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    results, rows = {}, {}
+    try:
+        refs = mesh_references(strategies, root)
+        frozen = frozen_reading(torch, refs, root)
+        print(f"mesh: parameters that never move (lr 0) read a loss gap "
+              f"{frozen['loss_gap']:.6f} and an update distance "
+              f"{frozen['update_distance']:.6f} (bounds {MESH_LOSS_BOUND}, "
+              f"{MESH_UPDATE_BOUND})", flush=True)
+        for name, (extra, local) in strategies.items():
+            ranks = spawn_ranks(2, {**MESH_PARAMS, **extra}, root, name)
+            ref = refs["moe" if "moe_every" in extra else "dense"]
+            problems, readings = mesh_problems(torch, ranks, ref, local)
+            print(f"mesh {name}: losses {ranks[0]['losses']} against one "
+                  f"rank {ref['losses']}: max gap {readings['loss_gap']:.6f}"
+                  f", update distance {readings['update_distance']:.6f}; "
+                  f"K1/K2/K3 {ranks[0]['counts']} a rank, all sm90, at "
+                  f"(batch, heads) {local}", flush=True)
+            if problems:
+                fail(f"mesh {name}: " + "; ".join(problems))
+            print(f"[{card}] mesh {name}: {ranks[0]['step_s'] * 1e3:.1f} ms "
+                  "a step (steps 2-3; two ranks time-sharing one card "
+                  "through host gloo collectives: not a scaling number)",
+                  flush=True)
+            shape = dict(TRAIN_SHAPE, b=local[0], h=local[1])
+            key = (local[0], local[1])
+            if key not in rows:
+                rows[key] = attention_rows(torch, fa, card, shape, True,
+                                           f"mesh {name}")
+            results[name] = {
+                "launches": [sum(x["counts"][i] for x in ranks)
+                             for i in range(3)],
+                "rows": rows[key], "step_ms": ranks[0]["step_s"] * 1e3,
+                **readings, "frozen": frozen}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return results
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 CSRC = "cron_operator_tpu_torch/ops/csrc/"
 # the design the main path runs (bf16, head dim 64), its source, and the
 # TPU kernel it replaces
@@ -1737,6 +2076,10 @@ def main() -> None:
     moe_launches, moe_serving = timed("moe serving", phase_moe_serving, torch,
                                       fa, card)
     print("moe_serving " + json.dumps(moe_serving))
+    mesh = timed("mesh on one card", phase_mesh, torch, fa, card)
+    print("mesh " + json.dumps({k: {x: v[x] for x in (
+        "step_ms", "loss_gap", "update_distance", "frozen")}
+        for k, v in mesh.items()}))
     print(f"phases: {sum(walls.values()):.1f} s in all, "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
 
@@ -1760,6 +2103,12 @@ def main() -> None:
         kernel_entry("K2", "@moe", moe_counts[1], train_rows["K2"]),
         kernel_entry("K3", "@moe", moe_counts[2], train_rows["K3"]),
         kernel_entry("K1", "@moe_serve", moe_launches, k1),
+        # the mesh paths: each strategy's launches summed over its two
+        # ranks, each row at the strategy's local shape
+        *(kernel_entry(key, f"@mesh_{name}", run["launches"][i],
+                       run["rows"][key])
+          for name, run in mesh.items()
+          for i, key in enumerate(("K1", "K2", "K3"))),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -1768,4 +2117,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5], int(sys.argv[6]), json.loads(sys.argv[7]),
+                  sys.argv[8], sys.argv[9:10] == ["--profile"])
+    else:
+        main()

@@ -22,8 +22,10 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from cron_operator_tpu_torch.ops.rope import apply_rope
+from cron_operator_tpu_torch.parallel.mesh import on_local_rows
 
 
 class Linear(nn.Linear):
@@ -98,6 +100,12 @@ class Conv2d(nn.Conv2d):
                 zip(hw, self.kernel_size, self.stride)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, DTensor):
+            # DTensor has no placement rule for a strided NCHW conv
+            return on_local_rows(self._conv, x, self.weight, self.bias)
+        return self._conv(x, self.weight, self.bias)
+
+    def _conv(self, x, weight, bias):
         dt = self.compute_dtype
         x = x.to(dt)
         (top, bottom), (left, right) = self._pads(x.shape[-2:])
@@ -106,8 +114,8 @@ class Conv2d(nn.Conv2d):
         else:
             x = F.pad(x, (left, right, top, bottom))
             padding = 0
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x, self.weight.to(dt), bias, self.stride, padding)
+        bias = None if bias is None else bias.to(dt)
+        return F.conv2d(x, weight.to(dt), bias, self.stride, padding)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -124,8 +132,13 @@ class GroupNorm(nn.GroupNorm):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                         self.bias.float(), self.eps)
+        if isinstance(x, DTensor):
+            return on_local_rows(self._norm, x, self.weight, self.bias)
+        return self._norm(x, self.weight, self.bias)
+
+    def _norm(self, x, weight, bias):
+        y = F.group_norm(x.float(), self.num_groups, weight.float(),
+                         bias.float(), self.eps)
         return y.to(self.compute_dtype)
 
 
@@ -167,6 +180,22 @@ def init_flax_layers_(model: nn.Module, generator: torch.Generator) -> None:
             module.bias.zero_()
 
 
+def unsplit_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last dim whole on every rank: a DTensor split there
+    (a projection whose output features lie on ``tensor`` or ``fsdp``) is
+    gathered over those mesh axes, since a flattened ``(3, heads,
+    head_dim)`` split has no placement after the view. A plain tensor, or
+    a DTensor whole there, passes as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    last = x.ndim - 1
+    placements = [Replicate() if isinstance(p, Shard) and p.dim % x.ndim == last
+                  else p for p in x.placements]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
 class GroupedQKVProjection(nn.Module):
     """``y [b, s, hidden]`` -> (q, k, v), each ``[b, s, heads, head_dim]``
     with k/v at ``kv_heads``. The counterpart of ``grouped_qkv_projection``.
@@ -205,10 +234,12 @@ class GroupedQKVProjection(nn.Module):
         b, s, _ = y.shape
         d = self.head_dim
         if self.kv_heads == self.heads:
-            q, k, v = self.qkv(y).view(b, s, 3, self.heads, d).unbind(2)
+            q, k, v = unsplit_last(self.qkv(y)).view(
+                b, s, 3, self.heads, d).unbind(2)
         else:
-            q = self.q(y).view(b, s, self.heads, d)
-            k, v = self.kv(y).view(b, s, 2, self.kv_heads, d).unbind(2)
+            q = unsplit_last(self.q(y)).view(b, s, self.heads, d)
+            k, v = unsplit_last(self.kv(y)).view(
+                b, s, 2, self.kv_heads, d).unbind(2)
         if self.rope:
             positions = (
                 torch.arange(s, device=y.device) if rope_positions is None

@@ -10,7 +10,10 @@
 
 Models call :func:`multi_head_attention` and stay strategy-agnostic. On the
 ``meta`` device (a FLOP count, :func:`count_attention_flops`) attention
-computes nothing and is counted by formula, whatever ``impl`` says.
+computes nothing and is counted by formula, whatever ``impl`` says. Over a
+device mesh q, k and v are DTensors that carry their mesh, so a model
+passes none (the JAX models pass theirs): each rank runs the dispatch on
+its local block (:func:`_sharded_attention`, the JAX ``_sharded_flash``).
 """
 
 from __future__ import annotations
@@ -20,8 +23,15 @@ import contextvars
 from typing import Iterator, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from cron_operator_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
+from cron_operator_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    TENSOR_AXIS,
+    axis_sizes,
+)
 from cron_operator_tpu_torch.parallel.ring import _single_device_attention
 
 
@@ -97,6 +107,8 @@ def multi_head_attention(
     divisor) go to the flash kernel as they are; the other impls repeat
     them here.
     """
+    if isinstance(q, DTensor):
+        return _sharded_attention(q, k, v, causal=causal, impl=impl)
     if q.is_meta:
         return _MetaAttention.apply(q, k, v, causal)
     if impl == "auto":
@@ -132,5 +144,45 @@ def multi_head_attention(
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
-__all__ = ["count_attention_flops", "multi_head_attention",
+def attention_placements(q, k, mesh) -> tuple:
+    """Placements of ``[b, s, h, d]`` attention operands on ``mesh``, the
+    JAX ``_sharded_flash`` spec: the batch over the batch axes when it
+    divides their product, the heads over ``tensor`` when both the q and
+    the kv head counts divide it, everything else replicated."""
+    sizes = axis_sizes(mesh)
+    n_batch = 1
+    for name in BATCH_AXES:
+        n_batch *= sizes.get(name, 1)
+    split_batch = q.shape[0] % n_batch == 0
+    t = sizes.get(TENSOR_AXIS, 1)
+    split_heads = t > 1 and q.shape[2] % t == 0 and k.shape[2] % t == 0
+    out = []
+    for name in sizes:
+        if name in BATCH_AXES and split_batch:
+            out.append(Shard(0))
+        elif name == TENSOR_AXIS and split_heads:
+            out.append(Shard(2))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _sharded_attention(q, k, v, *, causal: bool, impl: str):
+    """Attention on DTensors, as the JAX ``_sharded_flash``: q, k and v are
+    laid out by :func:`attention_placements` and each rank runs
+    :func:`multi_head_attention` (K1-K3 on the card) on its local ``[b/dp,
+    s, h/tp, d]`` block, which needs no collective; the output keeps that
+    layout. The kernel wrappers only ever see local tensors."""
+    mesh = q.device_mesh
+    spec = list(attention_placements(q, k, mesh))  # a list: ONE output
+    fn = local_map(
+        lambda q, k, v: multi_head_attention(q, k, v, causal=causal,
+                                             impl=impl),
+        out_placements=spec, in_placements=(spec, spec, spec),
+        redistribute_inputs=True, device_mesh=mesh,
+    )
+    return fn(q, k, v)
+
+
+__all__ = ["attention_placements", "count_attention_flops", "multi_head_attention",
            "reference_attention"]

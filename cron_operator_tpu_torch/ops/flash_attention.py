@@ -82,6 +82,20 @@ def _default_block(s: int) -> int:
     return 128
 
 
+def _refuse_placed(*tensors) -> None:
+    """The kernels read local memory: a DTensor (a tensor over a device
+    mesh) is refused, never gathered quietly. ``ops.attention`` hands the
+    kernels each rank's local block through ``local_map``."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            "the flash kernels take local tensors, not DTensors: call "
+            "ops.attention.multi_head_attention, which runs them on each "
+            "rank's block"
+        )
+
+
 def _check_shapes(s: int, block_q: int, block_k: int) -> None:
     if s % block_q or s % block_k:
         raise ValueError(
@@ -313,6 +327,7 @@ def flash_attention_fwd(
     launches the kernel (or raises); a CPU tensor takes the plain version.
     The outputs carry no autograd graph: :func:`flash_attention` is the
     differentiable entry."""
+    _refuse_placed(q, k, v)
     s = q.shape[1]
     _check_shapes(s, block_q or _default_block(s), block_k or _default_block(s))
     with torch.no_grad():
@@ -596,6 +611,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal=False):
     takes :func:`flash_attention_dq_reference`.
     ``flash_attention_dq.launches`` counts the kernel's launches,
     ``.launches_by_design`` per design."""
+    _refuse_placed(q, k, v, do)
     if q.device.type == "cpu":
         return flash_attention_dq_reference(
             q, k, v, do, lse, delta, causal=causal
@@ -611,6 +627,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=False):
     kernel of its :func:`_design` (or raises), a CPU tensor takes
     :func:`flash_attention_dkv_reference`. ``flash_attention_dkv.launches``
     counts the kernel's launches, ``.launches_by_design`` per design."""
+    _refuse_placed(q, k, v, do)
     if q.device.type == "cpu":
         return flash_attention_dkv_reference(
             q, k, v, do, lse, delta, causal=causal
@@ -659,7 +676,8 @@ def flash_attention(
     """Differentiable flash attention on ``[batch, seq, heads, head_dim]``
     tensors; K/V may carry fewer heads than Q (a positive divisor), and
     their grads come back at that head count. ``flash_attention.launches``
-    counts the forward kernel's launches."""
+    counts the forward kernel's launches. A DTensor raises ``TypeError``."""
+    _refuse_placed(q, k, v)
     s = q.shape[1]
     _check_shapes(s, block_q or _default_block(s), block_k or _default_block(s))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):

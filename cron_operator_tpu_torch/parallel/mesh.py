@@ -1,0 +1,647 @@
+"""Device meshes and placement rules, as in ``cron_operator_tpu/parallel/mesh.py``.
+
+The JAX package expresses parallelism as a ``jax.sharding.Mesh`` of named
+axes and lets GSPMD insert the collectives. The port's mesh is the process
+group's world: one rank per device (a rank drives ``cuda:$LOCAL_RANK``, or
+the CPU under gloo), arranged by a :class:`MeshPlan` into a
+``torch.distributed.device_mesh.DeviceMesh`` with the plan's axis names in
+the same row-major order. Parameters, optimizer state and batches become
+DTensors whose placements (``Shard(i)``/``Replicate()``, one per mesh axis)
+come from the rules below, and DTensor's propagation inserts the
+collectives, as GSPMD does for the JAX package.
+
+Axis convention (outer to inner), shared with the JAX package:
+
+- ``pipe``   pipeline stages (not consumed by the standard jobs);
+- ``data``   data parallelism (batch rows; gradients summed);
+- ``fsdp``   parameter sharding, ZeRO-3 style (a second batch axis);
+- ``expert`` expert parallelism (expert-stacked MoE weights);
+- ``seq``    sequence parallelism (a later slice);
+- ``tensor`` tensor parallelism (a weight's output-features dim, heads).
+
+The plan half (:class:`MeshPlan`, :func:`plan_for_devices`, :func:`replan`,
+:func:`regrow`) is a copy of the JAX package's pure Python: the controller
+replans a preempted job with the JAX copy and resubmits a port job, so the
+two must agree case for case.
+
+A "slice" of the JAX package (one TPU slice, ICI inside, DCN between) is a
+node here: :func:`hybrid_mesh_for_slices` groups ranks by
+``LOCAL_WORLD_SIZE`` and keeps every model axis inside a node, with the
+``data`` axis outermost and node-major.
+
+Placement rule, on the port's own layout. The JAX rule reads flax shapes,
+whose last dim is a kernel's output features; a torch ``Linear`` or
+``Conv2d`` weight keeps its output features in dim 0. :func:`placements_for_shape`
+takes that dim (``features_dim``) and applies the JAX rule to the shape
+with the features dim moved last, so a 2-D weight gets, transposed, the
+JAX placement of its flax kernel, ties of a square matrix included. The
+rank-3/4 ``DenseGeneral`` kernels that the port flattens (``qkv``
+``[3 * h * d, hidden]``, ``out`` ``[hidden, h * d]``) are the one
+divergence: JAX shards their head_dim on ``tensor``, which no single
+``Shard`` of the flattened weight expresses; the port shards the flattened
+output features. Checkpoints hold full tensors keyed by name, so placement
+never reaches the file format.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import (
+    DTensor,
+    Partial,
+    Replicate,
+    Shard,
+    distribute_tensor,
+)
+
+from cron_operator_tpu_torch.utils.device import world_size
+
+DATA_AXIS = "data"
+FSDP_AXIS = "fsdp"
+TENSOR_AXIS = "tensor"
+SEQ_AXIS = "seq"
+PIPE_AXIS = "pipe"
+EXPERT_AXIS = "expert"
+
+# Axes over which a batch's leading dimension is split.
+BATCH_AXES: Tuple[str, ...] = (DATA_AXIS, FSDP_AXIS)
+
+
+@dataclass(frozen=True)
+class MeshPlan:
+    """A named-axis factorization of a device count."""
+
+    axis_sizes: Dict[str, int] = field(default_factory=dict)
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.axis_sizes.values():
+            n *= s
+        return n
+
+    def axis(self, name: str) -> int:
+        return self.axis_sizes.get(name, 1)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.axis_sizes.keys())
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.axis_sizes.values())
+
+
+def plan_for_devices(
+    n_devices: int,
+    *,
+    tensor: int = 1,
+    seq: int = 1,
+    fsdp: int = 1,
+    pipe: int = 1,
+    expert: int = 1,
+    data: Optional[int] = None,
+) -> MeshPlan:
+    """Factor ``n_devices`` into the standard axes, ``data`` inferred as the
+    remainder unless given; raises ``ValueError`` when the factors do not
+    multiply out. Axis order (outer to inner): pipe, data, fsdp, expert,
+    seq, tensor."""
+    model_par = tensor * seq * fsdp * pipe * expert
+    if n_devices % model_par != 0:
+        raise ValueError(
+            f"{n_devices} devices not divisible by "
+            f"tensor*seq*fsdp*pipe*expert={model_par}"
+        )
+    inferred_data = n_devices // model_par
+    if data is not None and data != inferred_data:
+        raise ValueError(
+            f"data={data} inconsistent: {n_devices} devices / {model_par} = "
+            f"{inferred_data}"
+        )
+    sizes: Dict[str, int] = {}
+    if pipe > 1:
+        sizes[PIPE_AXIS] = pipe
+    sizes[DATA_AXIS] = inferred_data
+    if fsdp > 1:
+        sizes[FSDP_AXIS] = fsdp
+    if expert > 1:
+        sizes[EXPERT_AXIS] = expert
+    if seq > 1:
+        sizes[SEQ_AXIS] = seq
+    if tensor > 1:
+        sizes[TENSOR_AXIS] = tensor
+    return MeshPlan(sizes)
+
+
+def replan(
+    old_plan: MeshPlan,
+    surviving_devices: Any,
+    *,
+    allow_grow: bool = False,
+    original_plan: Optional[MeshPlan] = None,
+) -> MeshPlan:
+    """Recompute a plan after the device pool changed size (a count or a
+    sequence of devices).
+
+    Shrink (preemption): ``data`` absorbs the loss first; model axes keep
+    their sizes while the surviving count stays divisible by their
+    product, and are otherwise reduced largest-first by prime factors.
+    Grow (``allow_grow=True``): ``data`` widens first, and with
+    ``original_plan`` model axes that a shrink reduced are restored toward
+    their original sizes, largest deficit first, one prime factor at a
+    time, while the target stays divisible. A larger pool without
+    ``allow_grow``, an empty pool, or an indivisible grow target raise
+    ``ValueError``."""
+    try:
+        surviving = int(surviving_devices)
+    except (TypeError, ValueError):
+        surviving = len(surviving_devices)
+    if surviving <= 0:
+        raise ValueError("no surviving devices to replan onto")
+    if surviving > old_plan.n_devices and not allow_grow:
+        raise ValueError(
+            f"replan is shrink-only: {surviving} surviving > "
+            f"{old_plan.n_devices} planned"
+        )
+    if surviving == old_plan.n_devices:
+        return old_plan
+    model = {
+        name: old_plan.axis(name)
+        for name in (PIPE_AXIS, EXPERT_AXIS, SEQ_AXIS, FSDP_AXIS, TENSOR_AXIS)
+    }
+
+    def _model_par() -> int:
+        n = 1
+        for s in model.values():
+            n *= s
+        return n
+
+    if surviving > old_plan.n_devices:
+        if original_plan is not None:
+            while True:
+                deficits = {
+                    a: original_plan.axis(a) // model[a]
+                    for a in model
+                    if original_plan.axis(a) > model[a]
+                    and original_plan.axis(a) % model[a] == 0
+                }
+                restorable = None
+                for a in sorted(deficits, key=lambda a: -deficits[a]):
+                    f = deficits[a]
+                    p = next(q for q in range(2, f + 1) if f % q == 0)
+                    if surviving % (_model_par() * p) == 0:
+                        restorable = (a, p)
+                        break
+                if restorable is None:
+                    break
+                model[restorable[0]] *= restorable[1]
+        if surviving % _model_par():
+            raise ValueError(
+                f"cannot grow onto {surviving} devices: not divisible by "
+                f"model parallelism {_model_par()}"
+            )
+    else:
+        while surviving % _model_par():
+            name = max((a for a in model if model[a] > 1),
+                       key=lambda a: model[a])
+            size = model[name]
+            factor = next(p for p in range(2, size + 1) if size % p == 0)
+            model[name] //= factor
+    return plan_for_devices(
+        surviving,
+        tensor=model[TENSOR_AXIS],
+        seq=model[SEQ_AXIS],
+        fsdp=model[FSDP_AXIS],
+        pipe=model[PIPE_AXIS],
+        expert=model[EXPERT_AXIS],
+    )
+
+
+def regrow(
+    old_plan: MeshPlan,
+    devices: Any,
+    original_plan: Optional[MeshPlan] = None,
+) -> MeshPlan:
+    """Explicit grow: :func:`replan` with ``allow_grow=True``."""
+    return replan(
+        old_plan, devices, allow_grow=True, original_plan=original_plan
+    )
+
+
+# ---- meshes over the process group ----------------------------------------
+
+
+def world_ranks() -> List[int]:
+    """The ranks of the default process group, in order (``[0]`` without
+    one)."""
+    return list(range(world_size()))
+
+
+def rank_grid(plan: MeshPlan, ranks: Sequence[int]) -> torch.Tensor:
+    """``ranks`` reshaped row-major into the plan's shape, as the JAX
+    ``make_mesh`` lays out ``jax.devices()``."""
+    ranks = list(ranks)
+    if plan.n_devices != len(ranks):
+        raise ValueError(
+            f"mesh plan needs {plan.n_devices} devices, got {len(ranks)}"
+        )
+    return torch.tensor(ranks, dtype=torch.int64).reshape(plan.shape)
+
+
+def _device_mesh(grid: torch.Tensor, names: Tuple[str, ...],
+                 device_type: Optional[str]):
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return DeviceMesh(device_type, grid, mesh_dim_names=names)
+
+
+def make_mesh(plan: MeshPlan, ranks: Optional[Sequence[int]] = None, *,
+              device_type: Optional[str] = None):
+    """A ``DeviceMesh`` of the plan over ``ranks`` (default: the whole
+    world), row-major, with the plan's axis names. Every rank of the world
+    must call it (it creates the axes' sub-groups)."""
+    ranks = world_ranks() if ranks is None else list(ranks)
+    return _device_mesh(rank_grid(plan, ranks), plan.axis_names, device_type)
+
+
+def mesh_for_devices(
+    ranks: Optional[Sequence[int]] = None,
+    *,
+    tensor: int = 1,
+    seq: int = 1,
+    fsdp: int = 1,
+    pipe: int = 1,
+    expert: int = 1,
+    device_type: Optional[str] = None,
+):
+    """One call: factor the world (or ``ranks``) and build the mesh."""
+    ranks = world_ranks() if ranks is None else list(ranks)
+    plan = plan_for_devices(len(ranks), tensor=tensor, seq=seq, fsdp=fsdp,
+                            pipe=pipe, expert=expert)
+    return make_mesh(plan, ranks, device_type=device_type)
+
+
+def mesh_for_slice(
+    slice_spec: Any,
+    *,
+    tensor: int = 1,
+    seq: int = 1,
+    fsdp: int = 1,
+    pipe: int = 1,
+    expert: int = 1,
+    ranks: Optional[Sequence[int]] = None,
+    device_type: Optional[str] = None,
+):
+    """The mesh over the devices of ``slice_spec``, any object with
+    ``.chips`` and ``.topology`` (the operator's slice spec): the world
+    must hold exactly ``chips`` ranks."""
+    ranks = world_ranks() if ranks is None else list(ranks)
+    if len(ranks) != slice_spec.chips:
+        raise ValueError(
+            f"slice {slice_spec.topology!r} has {slice_spec.chips} chips but "
+            f"{len(ranks)} devices are visible"
+        )
+    plan = plan_for_devices(slice_spec.chips, tensor=tensor, seq=seq,
+                            fsdp=fsdp, pipe=pipe, expert=expert)
+    return make_mesh(plan, ranks, device_type=device_type)
+
+
+def group_devices_by_slice(devices: Sequence[Any],
+                           n_slices: int) -> List[List[Any]]:
+    """Partition devices (ranks) into their slices (nodes).
+
+    Items that carry ``slice_index`` are grouped by it, as the JAX
+    function groups TPU devices; plain ranks fall into contiguous equal
+    chunks, which is node-major under torchrun's rank order. Uneven or
+    indivisible groupings raise ``ValueError``."""
+    if len(devices) % n_slices:
+        raise ValueError(
+            f"{len(devices)} devices not divisible into {n_slices} slices"
+        )
+    indices = [getattr(d, "slice_index", None) for d in devices]
+    if all(i is not None for i in indices):
+        groups: Dict[Any, list] = {}
+        for d in devices:
+            groups.setdefault(d.slice_index, []).append(d)
+        if len(groups) != n_slices:
+            raise ValueError(
+                f"devices span {len(groups)} slice(s), expected {n_slices}"
+            )
+        sizes = {len(g) for g in groups.values()}
+        if len(sizes) != 1:
+            raise ValueError(f"uneven slice sizes: {sorted(sizes)}")
+        return [groups[k] for k in sorted(groups)]
+    per = len(devices) // n_slices
+    return [list(devices[i * per:(i + 1) * per]) for i in range(n_slices)]
+
+
+@dataclass(frozen=True)
+class _NodeRank:
+    """A rank and the node (``rank // LOCAL_WORLD_SIZE``) it runs on."""
+
+    rank: int
+    slice_index: int
+
+
+def _node_ranks(ranks: Sequence[int]) -> List[Any]:
+    """``ranks`` tagged with their node when ``LOCAL_WORLD_SIZE`` is set
+    (ranks per node, as torchrun and the PyTorchJob render it), else as
+    they are."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
+    if local <= 0:
+        return list(ranks)
+    return [_NodeRank(r, r // local) for r in ranks]
+
+
+def hybrid_grid(
+    n_slices: int,
+    devices: Sequence[Any],
+    *,
+    tensor: int = 1,
+    seq: int = 1,
+    fsdp: int = 1,
+    pipe: int = 1,
+    expert: int = 1,
+) -> Tuple[List[List[Any]], Tuple[str, ...], Tuple[int, ...]]:
+    """The multi-slice layout of the JAX ``hybrid_mesh_for_slices``:
+    ``(groups, axis_names, inner_shape)``. ``data`` is outermost and
+    slice-major (consecutive data indices stay in one slice), every model
+    axis lives inside one slice, ``pipe`` included."""
+    groups = group_devices_by_slice(list(devices), n_slices)
+    per_slice = len(groups[0])
+    model_par = tensor * seq * fsdp * pipe * expert
+    if per_slice % model_par:
+        raise ValueError(
+            f"per-slice device count {per_slice} not divisible by "
+            f"tensor*seq*fsdp*pipe*expert={model_par}"
+        )
+    sizes: Dict[str, int] = {}
+    if pipe > 1:
+        sizes[PIPE_AXIS] = pipe
+    if fsdp > 1:
+        sizes[FSDP_AXIS] = fsdp
+    if expert > 1:
+        sizes[EXPERT_AXIS] = expert
+    if seq > 1:
+        sizes[SEQ_AXIS] = seq
+    if tensor > 1:
+        sizes[TENSOR_AXIS] = tensor
+    inner = (per_slice // model_par, *sizes.values())
+    return groups, (DATA_AXIS, *sizes.keys()), inner
+
+
+def hybrid_mesh_for_slices(
+    n_slices: int,
+    *,
+    tensor: int = 1,
+    seq: int = 1,
+    fsdp: int = 1,
+    pipe: int = 1,
+    expert: int = 1,
+    ranks: Optional[Sequence[int]] = None,
+    device_type: Optional[str] = None,
+):
+    """Multi-node (inter-node x intra-node) mesh over the world: the
+    ``data`` axis outermost and node-major, so only the data-parallel
+    gradient sums cross nodes; the model axes stay inside a node."""
+    ranks = world_ranks() if ranks is None else list(ranks)
+    groups, names, inner = hybrid_grid(
+        n_slices, _node_ranks(ranks), tensor=tensor, seq=seq, fsdp=fsdp,
+        pipe=pipe, expert=expert)
+    grid = torch.cat([
+        torch.tensor([getattr(r, "rank", r) for r in g]).reshape(inner)
+        for g in groups
+    ])
+    return _device_mesh(grid, names, device_type)
+
+
+# ---- placement rules -------------------------------------------------------
+
+
+def axis_sizes(mesh: Any) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or a :class:`MeshPlan`."""
+    if isinstance(mesh, MeshPlan):
+        return dict(mesh.axis_sizes)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def batch_placements(mesh: Any, *, seq_dim: Optional[int] = None) -> tuple:
+    """Placements of a batch (the JAX ``batch_pspec``): rows (dim 0) split
+    over ``data`` then ``fsdp``, and with ``seq_dim`` that dim over
+    ``seq``; every other axis replicates."""
+    if seq_dim is not None and seq_dim <= 0:
+        raise ValueError("seq_dim must be a positive dim index")
+    out = []
+    for name in axis_sizes(mesh):
+        if name in BATCH_AXES:
+            out.append(Shard(0))
+        elif name == SEQ_AXIS and seq_dim is not None:
+            out.append(Shard(seq_dim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def on_local_rows(fn, x, *weights):
+    """``fn(x_rows, *weights_whole)`` on each rank, for an op that DTensor
+    has no rule for (a convolution, a group norm, a pooling): ``x`` (a
+    DTensor) is laid out by :func:`batch_placements`, each weight is
+    gathered whole (FSDP's all-gather at use), and each rank runs ``fn`` on
+    its own rows of the batch with plain tensors. A weight's gradient is a
+    partial sum over the batch axes (each rank saw its own rows), so it is
+    declared ``Partial`` there and reduced, or reduce-scattered onto the
+    weight's shards, in the backward. The result is a DTensor laid out as
+    the batch. A weight may be None."""
+    mesh = x.device_mesh
+    rows = batch_placements(mesh)
+    grads = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
+    whole = [Replicate()] * mesh.ndim
+    local = [None if w is None else
+             w.redistribute(mesh, whole).to_local(grad_placements=grads)
+             for w in weights]
+    out = fn(x.redistribute(mesh, rows).to_local(), *local)
+    return DTensor.from_local(out, mesh, rows, run_check=False)
+
+
+def spec_for_shape(shape: Tuple[int, ...], mesh: Any, *,
+                   features_dim: int = -1) -> List[Optional[str]]:
+    """The JAX ``pspec_for_shape`` in the port's layout: one entry per dim
+    of ``shape``, the mesh axis it is split over or None.
+
+    - rank 0/1 (biases, scales): replicated;
+    - with a ``tensor`` axis, ``features_dim`` (the output features: the
+      last dim of a flax kernel, dim 0 of a torch ``Linear``/``Conv2d``
+      weight) goes on ``tensor`` when it divides;
+    - with an ``fsdp`` axis, the largest remaining divisible dim goes on
+      ``fsdp``, ties to the first in flax order (the features dim moved
+      last)."""
+    n = len(shape)
+    spec: List[Optional[str]] = [None] * n
+    if n < 2:
+        return spec
+    sizes = axis_sizes(mesh)
+    feat = features_dim % n
+    order = [i for i in range(n) if i != feat] + [feat]  # flax order
+    t = sizes.get(TENSOR_AXIS, 1)
+    if t > 1 and shape[feat] % t == 0:
+        spec[feat] = TENSOR_AXIS
+    f = sizes.get(FSDP_AXIS, 1)
+    if f > 1:
+        for i in sorted(order, key=lambda i: -shape[i]):
+            if spec[i] is None and shape[i] % f == 0:
+                spec[i] = FSDP_AXIS
+                break
+    return spec
+
+
+def placements_from_spec(spec: Sequence[Optional[Any]], mesh: Any) -> tuple:
+    """Per-dim axis entries (an axis name, a tuple of names, or None) as
+    DTensor placements, one per mesh axis."""
+    dim_of: Dict[str, int] = {}
+    for dim, entry in enumerate(spec):
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None:
+                dim_of[name] = dim
+    return tuple(Shard(dim_of[name]) if name in dim_of else Replicate()
+                 for name in axis_sizes(mesh))
+
+
+def placements_for_shape(shape: Tuple[int, ...], mesh: Any, *,
+                         features_dim: int = -1) -> tuple:
+    """:func:`spec_for_shape` as DTensor placements."""
+    return placements_from_spec(
+        spec_for_shape(shape, mesh, features_dim=features_dim), mesh)
+
+
+def expert_stacked(shape: Tuple[int, ...], expert_size: int) -> bool:
+    """Shape test for expert-stacked ``[E, ...]`` weights, shared by
+    :func:`sharding_for_tree` (under a ``moe`` name) and
+    ``parallel.moe.moe_param_sharding``."""
+    return (
+        expert_size > 1
+        and len(shape) >= 3
+        and shape[0] % expert_size == 0
+    )
+
+
+def features_dims(model: nn.Module) -> Dict[str, int]:
+    """``{parameter name: output-features dim}`` for the weights that keep
+    their output features in dim 0 (``Linear`` and ``Conv2d``); every other
+    parameter has them last."""
+    out = {}
+    for prefix, module in model.named_modules():
+        if isinstance(module, (nn.Linear, nn.Conv2d)):
+            out[f"{prefix}.weight" if prefix else "weight"] = 0
+    return out
+
+
+def sharding_for_tree(tree: Any, mesh: Any) -> Dict[str, tuple]:
+    """``{name: placements}`` for a model's parameters (an ``nn.Module``)
+    or a flat ``{name: tensor}`` dict, by :func:`placements_for_shape`,
+    with the JAX package's one name-aware rule: under an ``expert`` axis, a
+    rank >= 3 tensor whose name has a ``moe`` component and whose leading
+    dim divides the axis is expert-stacked and goes on ``Shard(0)`` over
+    ``expert`` alone. The optimizer's state takes its parameter's
+    placements."""
+    if isinstance(tree, nn.Module):
+        feats = features_dims(tree)
+        named = dict(tree.named_parameters())
+    else:
+        feats, named = {}, dict(tree)
+    expert = axis_sizes(mesh).get(EXPERT_AXIS, 1)
+    out = {}
+    for name, t in named.items():
+        shape = tuple(t.shape)
+        if expert_stacked(shape, expert) and "moe" in name.split("."):
+            out[name] = placements_from_spec(
+                [EXPERT_AXIS] + [None] * (len(shape) - 1), mesh)
+        else:
+            out[name] = placements_for_shape(
+                shape, mesh, features_dim=feats.get(name, -1))
+    return out
+
+
+def distribute_parameters(model: nn.Module, mesh: Any,
+                          placements: Optional[Dict[str, tuple]] = None
+                          ) -> nn.Module:
+    """Replaces each parameter of ``model`` by a DTensor on ``mesh``, placed
+    by ``placements`` (default :func:`sharding_for_tree`). Every rank holds
+    the same whole values (the same seed, or the same checkpoint), so each
+    keeps its own shard and nothing is sent. Parameters that are DTensors
+    already stay; a tied parameter is placed once."""
+    placements = placements or sharding_for_tree(model, mesh)
+    done: Dict[int, nn.Parameter] = {}
+    for prefix, module in model.named_modules(remove_duplicate=False):
+        for name, p in list(module.named_parameters(recurse=False)):
+            if isinstance(p, DTensor):
+                continue
+            if id(p) not in done:
+                full = f"{prefix}.{name}" if prefix else name
+                done[id(p)] = nn.Parameter(
+                    distribute_tensor(p.detach(), mesh, placements[full],
+                                      src_data_rank=None),
+                    requires_grad=p.requires_grad)
+            module.register_parameter(name, done[id(p)])
+    return model
+
+
+def batch_rows(mesh: Any, n_rows: int) -> slice:
+    """The rows of an ``n_rows`` global batch that this rank holds under
+    :func:`batch_placements`: the batch axes split it in order (``data``
+    major, ``fsdp`` minor), as a ``P(("data", "fsdp"))`` batch. Raises
+    ``ValueError`` when the rows do not divide."""
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    index, count = 0, 1
+    for axis in BATCH_AXES:
+        if axis in names:
+            i = names.index(axis)
+            index = index * mesh.shape[i] + coord[i]
+            count *= mesh.shape[i]
+    if n_rows % count:
+        raise ValueError(
+            f"a batch of {n_rows} rows does not divide over the "
+            f"{count} shards of the batch axes {BATCH_AXES}"
+        )
+    per = n_rows // count
+    return slice(index * per, (index + 1) * per)
+
+
+__all__ = [
+    "BATCH_AXES",
+    "DATA_AXIS",
+    "EXPERT_AXIS",
+    "FSDP_AXIS",
+    "MeshPlan",
+    "PIPE_AXIS",
+    "SEQ_AXIS",
+    "TENSOR_AXIS",
+    "axis_sizes",
+    "batch_placements",
+    "batch_rows",
+    "distribute_parameters",
+    "expert_stacked",
+    "features_dims",
+    "group_devices_by_slice",
+    "hybrid_grid",
+    "hybrid_mesh_for_slices",
+    "make_mesh",
+    "mesh_for_devices",
+    "mesh_for_slice",
+    "on_local_rows",
+    "placements_for_shape",
+    "placements_from_spec",
+    "plan_for_devices",
+    "rank_grid",
+    "regrow",
+    "replan",
+    "sharding_for_tree",
+    "spec_for_shape",
+    "world_ranks",
+]

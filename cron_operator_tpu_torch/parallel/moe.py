@@ -17,8 +17,13 @@ token's slot index is ``capacity``, which matches no column and gives the
 all-zero row that ``jax.nn.one_hot`` gives an out-of-range index
 (``F.one_hot`` would raise, and checks its range on the host).
 
-The expert axis over several devices (``moe_param_sharding`` and the
-all-to-alls) waits for the mesh (ROADMAP.md queue 1 item 7).
+Over a mesh the parameters and tokens are DTensors: the expert-stacked
+``wi``/``wo`` lie on ``Shard(0)`` over the ``expert`` axis
+(:func:`moe_param_sharding`, or ``parallel.mesh.sharding_for_tree``), the
+router is replicated, and DTensor's propagation over the four products
+places the collectives, as GSPMD does for the JAX package. Routing gathers
+the logits (:func:`_route`), so capacities and slots are those of one
+device and the output equals the unsharded one.
 
 Usage::
 
@@ -33,6 +38,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from cron_operator_tpu_torch.parallel.mesh import (
+    EXPERT_AXIS,
+    axis_sizes,
+    expert_stacked,
+)
 
 
 def init_moe_params(
@@ -96,6 +109,36 @@ def router_top1(
     return combine, dispatch, aux_loss
 
 
+def _route(logits: torch.Tensor, capacity: int):
+    """:func:`router_top1`, on DTensor logits over the whole token set on
+    every rank: a token's slot is its rank among ALL the tokens routed to
+    its expert, as on one device (and under GSPMD), so the logits are
+    gathered and each rank routes them alike. The one-hots and the aux
+    loss come back replicated."""
+    if not isinstance(logits, DTensor):
+        return router_top1(logits, capacity)
+    mesh = logits.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    fn = local_map(lambda lg: router_top1(lg, capacity),
+                   out_placements=(rep, rep, rep), in_placements=(rep,),
+                   redistribute_inputs=True, device_mesh=mesh)
+    return fn(logits)
+
+
+def moe_param_sharding(params: Dict[str, torch.Tensor], mesh) -> Dict[str, tuple]:
+    """Placements of the MoE parameters, as the JAX function: expert-stacked
+    weights (:func:`parallel.mesh.expert_stacked`) on ``Shard(0)`` over the
+    ``expert`` axis, everything else (the router) replicated."""
+    sizes = axis_sizes(mesh)
+    expert = sizes.get(EXPERT_AXIS, 1)
+    out = {}
+    for name, t in params.items():
+        stacked = expert_stacked(tuple(t.shape), expert)
+        out[name] = tuple(Shard(0) if stacked and axis == EXPERT_AXIS
+                          else Replicate() for axis in sizes)
+    return out
+
+
 def moe_ffn(
     params: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -119,14 +162,18 @@ def moe_ffn(
     cd = compute_dtype or x.dtype
 
     logits = x.float() @ params["router"].float()
-    combine, dispatch, aux_loss = router_top1(logits, C)
+    combine, dispatch, aux_loss = _route(logits, C)
 
-    expert_in = torch.einsum("td,tec->ecd", x.to(cd), dispatch.to(cd))
-    h = F.gelu(torch.einsum("ecd,edf->ecf", expert_in, params["wi"].to(cd)),
-               approximate="tanh")
-    expert_out = torch.einsum("ecf,efd->ecd", h, params["wo"].to(cd))
-    y = torch.einsum("ecd,tec->td", expert_out, combine.to(cd))
+    # Matmuls that keep the expert dim leading: einsum's own reshapes would
+    # merge a sharded expert dim behind another, which DTensor refuses. With
+    # wi/wo on Shard(0) over expert each rank runs its experts' products and
+    # the combine is a partial sum over the expert axis.
+    x, dispatch, combine = x.to(cd), dispatch.to(cd), combine.to(cd)
+    expert_in = torch.matmul(dispatch.permute(1, 2, 0), x)  # [E, C, d]
+    h = F.gelu(torch.bmm(expert_in, params["wi"].to(cd)), approximate="tanh")
+    expert_out = torch.bmm(h, params["wo"].to(cd))  # [E, C, d]
+    y = torch.matmul(combine.reshape(T, E * C), expert_out.reshape(E * C, -1))
     return y, aux_loss
 
 
-__all__ = ["init_moe_params", "moe_ffn", "router_top1"]
+__all__ = ["init_moe_params", "moe_ffn", "moe_param_sharding", "router_top1"]

@@ -14,15 +14,18 @@
 - :func:`chunk_schedule` cuts a run into calls of up to K steps, a copy of
   the JAX package's function.
 
-``stacked_shardings`` has no counterpart until the port has a device mesh
-(ROADMAP.md queue 1 item 7): one device holds every batch whole.
+``stacked_shardings`` has no counterpart: a world above one rank runs its
+steps eagerly (no chunk is stacked), and each step's batch is placed by
+``workloads.data.local_rows`` and ``parallel.mesh.batch_placements``.
 """
 
 from __future__ import annotations
 
+import inspect
 import logging
 import queue
 import threading
+import weakref
 from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
 import torch
@@ -157,7 +160,12 @@ class StepGraph:
 
     def __init__(self, fn: Callable[[Dict[str, torch.Tensor]], Any],
                  generators: Sequence[torch.Generator] = ()):
-        self._fn = fn
+        # A bound method (the Trainer's step) is held weakly: its owner
+        # holds this graph, and a strong reference back would make a cycle
+        # that keeps a deleted owner's graph, and its memory pool, alive
+        # until the cycle collector runs.
+        self._fn = (weakref.WeakMethod(fn) if inspect.ismethod(fn)
+                    else lambda: fn)
         self._generators = tuple(generators)
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._inputs: Dict[str, torch.Tensor] = {}
@@ -181,7 +189,8 @@ class StepGraph:
         side = torch.cuda.Stream(device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            outputs = self._fn(inputs)
+            fn = self._fn()
+            outputs = fn(inputs)
             self._inputs = {name: torch.empty_like(value)
                             for name, value in inputs.items()}
             graph = torch.cuda.CUDAGraph()
@@ -190,7 +199,7 @@ class StepGraph:
             with capture_launches(side.cuda_stream) as launches, \
                     torch.cuda.graph(graph, stream=side,
                                      capture_error_mode="thread_local"):
-                self._outputs = self._fn(self._inputs)
+                self._outputs = fn(self._inputs)
         main.wait_stream(side)
         self._graph = graph
         self._launches = launches

@@ -11,6 +11,11 @@ own checkpoints; concurrent ticks get directories of their own), or with
 ``lineage="family"`` the name without its per-tick unix suffix, so that
 successive Forbid ticks continue one run.
 
+Over a device mesh every rank gathers the state whole and rank 0 alone
+writes it (the trainer's choice; the store is the same), so a checkpoint
+is the one-device state whatever world size saved it, and
+:meth:`CheckpointStore.restore_resharded` places it onto any mesh.
+
 Format: the port's own, not Orbax. A step is a directory written under a
 temporary name and committed by ``os.replace``, so a listed step was
 written whole; its payload is ``torch.save`` of CPU tensors and plain
@@ -33,6 +38,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 logger = logging.getLogger("workloads.checkpoint")
 
@@ -73,6 +79,26 @@ def _check_like(payload: Any, like: Any, path: str = "") -> None:
             if key not in payload:
                 raise ValueError(f"checkpoint has no entry {path}/{key}")
             _check_like(payload[key], value, f"{path}/{key}")
+
+
+def place_like(payload: Any, like: Any) -> Any:
+    """``payload`` (nested dicts of whole CPU tensors and plain values) with
+    every tensor that ``like`` holds at the same path placed as that one:
+    a DTensor ``like`` gives a DTensor on its mesh with its placements,
+    each rank keeping its own shard of the whole tensor (nothing is sent),
+    a plain tensor ``like`` gives a tensor on its device. Entries that
+    ``like`` does not name stay as they are. Shapes and dtypes must
+    agree."""
+    if torch.is_tensor(like):
+        _check_like(payload, like)
+        if isinstance(like, DTensor):
+            return distribute_tensor(payload.to(like.device), like.device_mesh,
+                                     like.placements, src_data_rank=None)
+        return payload.to(like.device)
+    if isinstance(like, dict) and isinstance(payload, dict):
+        return {k: place_like(v, like[k]) if k in like else v
+                for k, v in payload.items()}
+    return payload
 
 
 class CheckpointStore:
@@ -217,13 +243,12 @@ class CheckpointStore:
         raise last_err  # type: ignore[misc]  # the loop ran at least once
 
     def restore_resharded(self, step: int, like: Any) -> Any:
-        """Restore across device meshes: waits for the port's mesh
-        (ROADMAP.md queue 1 item 7); on one device :meth:`restore` is the
-        whole story."""
-        raise NotImplementedError(
-            "restore_resharded waits for the device mesh (ROADMAP.md queue 1 "
-            "item 7)"
-        )
+        """Restore across device meshes: the checkpoint holds whole tensors
+        keyed by name, whatever world size saved it, and each tensor that
+        ``like`` declares is placed as ``like``'s is (:func:`place_like`):
+        a DTensor's shards onto its mesh, a plain tensor onto its device.
+        The JAX package's Tenplex plan, restricted to this format."""
+        return place_like(self.restore(step, like), like)
 
     def restore_params(self, step: Optional[int] = None) -> Any:
         """The ``params`` part of ``step`` (default: the newest) for
@@ -294,4 +319,5 @@ __all__ = [
     "DEFAULT_ROOT",
     "flush_open_stores",
     "job_family",
+    "place_like",
 ]

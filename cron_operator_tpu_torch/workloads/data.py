@@ -9,6 +9,10 @@ the card from a ``torch.Generator`` (``device_*_batches``), and
 ``*_sample`` functions, so one seed gives both the same batches. That
 stream differs from the JAX package's Threefry stream for the same seed.
 ``Prefetcher`` and ``ChunkStager`` stage batches from a producer thread.
+
+Over a device mesh every rank draws the same global batch from the same
+seed, whatever the mode, and keeps its rows (:func:`local_rows`), so that
+a sharded run trains on exactly the one-process batches.
 """
 
 from __future__ import annotations
@@ -18,7 +22,15 @@ from typing import Any, Dict, Iterator
 import numpy as np
 import torch
 
+from cron_operator_tpu_torch.parallel.mesh import batch_rows
 from cron_operator_tpu_torch.parallel.overlap import DoubleBuffer
+
+
+def local_rows(batch: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a global ``batch`` under ``mesh``
+    (:func:`parallel.mesh.batch_rows`: split over ``data``, then
+    ``fsdp``)."""
+    return batch[batch_rows(mesh, batch.shape[0])]
 
 
 def mnist_batches(batch_size: int, seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
@@ -218,6 +230,7 @@ __all__ = [
     "grouped",
     "imagenet_batches",
     "imagenet_sample",
+    "local_rows",
     "mnist_batches",
     "mnist_sample",
     "token_batches",

@@ -9,8 +9,8 @@ progress into ``ctx.progress``. The operator reaches them by
 cron_operator_tpu_torch.workloads.entrypoints:generate_job``.
 
 Common params: ``platform`` (unset = the CUDA card; ``cpu`` on request),
-``devices`` (the first N devices of the platform, as the JAX ``_devices``:
-more than are visible raise ``ValueError``); for training, ``steps``,
+``devices`` (the world size: one rank per device, ``cuda:$LOCAL_RANK``;
+another count raises ``ValueError``); for training, ``steps``,
 ``batch_size``, ``data`` (``device`` default | ``host`` | ``fused``),
 ``steps_per_call`` (``auto`` default: 8 steps per call, one CUDA graph of
 the step replayed per step on the card), ``prefetch``, ``stage_async``,
@@ -34,11 +34,13 @@ under the JAX package's short name (``gpt``, ``bert``, ``mnist``,
 resolve_entrypoint` and the port runner.
 
 ``moe_every``/``num_experts`` put Switch-MoE blocks into ``gpt`` and
-``generate_job``, on one device; the other jobs ignore them, as the JAX
-jobs do. ``pipe > 1`` raises ``ValueError`` for good, as in the JAX
-package. The mesh params (``devices`` > 1 and ``expert`` > 1 among them)
-and ring/Ulysses attention raise ``NotImplementedError`` until their slice
-(:func:`_train_device`).
+``generate_job``; the other jobs ignore them, as the JAX jobs do. The
+training jobs run over a device mesh when the process group's world has
+more than one rank (``tensor``, ``fsdp``, ``expert`` and ``slices`` factor
+it, ``data`` takes the rest: :func:`_train_device`); ``generate_job``
+serves on each rank's card alone. ``pipe > 1`` raises ``ValueError`` for
+good, as in the JAX package; sequence parallelism (``seq``, ring/Ulysses
+attention) raises ``NotImplementedError`` until its slice.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ import os
 import time
 from collections import deque
 from dataclasses import replace
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 from torch import nn
@@ -60,7 +62,13 @@ from cron_operator_tpu_torch.models.gpt import GPT, GPTConfig
 from cron_operator_tpu_torch.models.mlp import MLP
 from cron_operator_tpu_torch.models.resnet import ResNet50
 from cron_operator_tpu_torch.models.vit import ViT, ViTConfig
-from cron_operator_tpu_torch.utils.device import resolve_device
+from cron_operator_tpu_torch.parallel.mesh import (
+    group_devices_by_slice,
+    hybrid_mesh_for_slices,
+    mesh_for_devices,
+    plan_for_devices,
+)
+from cron_operator_tpu_torch.utils.device import resolve_device, world_size
 from cron_operator_tpu_torch.workloads import data as datasets
 from cron_operator_tpu_torch.workloads.checkpoint import CheckpointStore
 from cron_operator_tpu_torch.workloads.generate import generate
@@ -152,54 +160,53 @@ def _train_kwargs(ctx, steps: int, **defaults) -> dict:
 _LATER = "waits for ROADMAP.md queue 1 item"
 
 
-def _devices(ctx) -> List[torch.device]:
-    """The devices torch sees for the job's platform (``param.platform``),
-    capped to the first ``param.devices`` of them, as the JAX ``_devices``:
-    more than are visible raise ``ValueError``."""
-    device = resolve_device(ctx.params.get("platform"))
-    if device.type == "cuda":
-        devs = [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    else:
-        devs = [device]
-    want = int(ctx.params.get("devices", 0) or 0)
-    if want > 0:
-        if want > len(devs):
-            raise ValueError(
-                f"param.devices={want} but only {len(devs)} device(s) visible"
-            )
-        devs = devs[:want]
-    return devs
+def _device(ctx) -> torch.device:
+    """The device of this rank for the job's platform (``param.platform``):
+    :func:`utils.device.resolve_device`, which holds ``param.devices`` to
+    the world size (one rank per device; the JAX ``_devices`` caps one
+    controller's devices instead)."""
+    return resolve_device(ctx.params.get("platform"),
+                          ctx.params.get("devices"))
 
 
-def _train_device(ctx) -> torch.device:
-    """The device a training job runs on, after the checks of the JAX
+def _train_device(ctx):
+    """``(device, mesh)`` of a training job, after the checks of the JAX
     ``_devices`` and ``_mesh``: ``param.pipe > 1`` raises ``ValueError``
     for good (the standard jobs train one step; pipelining is a primitive
-    for custom entrypoints), and the params of later slices (a mesh, the
-    expert axis among its axes, and sequence parallelism) raise
-    ``NotImplementedError``, ``param.devices > 1`` among them."""
-    devs = _devices(ctx)
+    for custom entrypoints), and sequence parallelism (``seq > 1``, ring
+    and Ulysses attention) raises ``NotImplementedError`` until its slice.
+    The mesh factors the world by ``tensor``, ``fsdp`` and ``expert``
+    (:func:`parallel.mesh.mesh_for_devices`), or with ``slices > 1``
+    groups it by node (:func:`parallel.mesh.hybrid_mesh_for_slices`); a
+    world of one rank trains unwrapped (mesh None), and axes that do not
+    divide the world raise ``ValueError``, as in the JAX package."""
+    device = _device(ctx)
     p = ctx.params
     if int(p.get("pipe", 1)) > 1:
         raise ValueError(
             "param.pipe is not supported by the standard entrypoints — "
             "pipeline parallelism requires a staged model"
         )
-    if int(p.get("devices", 0) or 0) > 1:
+    if int(p.get("seq", 1)) > 1:
         raise NotImplementedError(
-            f"param.devices > 1 (a device mesh) {_LATER} 7"
+            f"param.seq > 1 (sequence parallel) {_LATER} 8"
         )
-    for axis in ("tensor", "seq", "fsdp", "expert", "slices"):
-        if int(p.get(axis, 1)) > 1:
-            raise NotImplementedError(
-                f"param.{axis} > 1 (a device mesh) {_LATER} 7"
-            )
     if p.get("attention") in ("ring", "ulysses"):
         raise NotImplementedError(
             f"param.attention={p['attention']} (sequence parallel) {_LATER} 8"
         )
-    return devs[0]
+    axes = {axis: int(p.get(axis, 1)) for axis in ("tensor", "fsdp", "expert")}
+    slices = int(p.get("slices", 1))
+    world = world_size()
+    if world == 1:
+        # the JAX package's errors for axes that one device cannot hold
+        plan_for_devices(1, **axes)
+        group_devices_by_slice([device], slices)
+        return device, None
+    kind = "cpu" if device.type == "cpu" else "cuda"
+    if slices > 1:
+        return device, hybrid_mesh_for_slices(slices, device_type=kind, **axes)
+    return device, mesh_for_devices(device_type=kind, **axes)
 
 
 def _batches(ctx, host_factory, device_factory) -> Iterator[Dict[str, Any]]:
@@ -232,11 +239,13 @@ def _train_job(
     sample: Callable[[torch.Generator], Dict[str, torch.Tensor]],
     tokens_per_step: Optional[int] = None,
     loss_fn=cross_entropy_loss,
+    mesh=None,
     **train_defaults,
 ) -> None:
     """Publish ``n_params``, then train ``model`` through :func:`_run` on
     the batches ``param.data`` picks (``sample`` draws the device and fused
-    ones), with ``train_defaults`` under the common optimizer params."""
+    ones), with ``train_defaults`` under the common optimizer params, over
+    ``mesh`` when the world has more than one rank."""
     ctx.progress["n_params"] = sum(p.numel() for p in model.parameters())
     device = next(model.parameters()).device
     fused = ctx.params.get("data", "device") == "fused"
@@ -245,7 +254,7 @@ def _train_job(
         trainer = Trainer(
             model, TrainConfig(**_train_kwargs(ctx, steps, **train_defaults)),
             loss_fn=loss_fn, sample_fn=sample if fused else None,
-            checkpoint=store,
+            checkpoint=store, mesh=mesh,
         )
     except BaseException:
         if store is not None:
@@ -347,6 +356,8 @@ def _run(
     )
     mfu_on = str(ctx.params.get("mfu", "0")).lower() in ("1", "true")
     peak = _peak_flops(ctx, trainer.device) if mfu_on else None
+    if peak and trainer.mesh is not None:
+        peak *= trainer.mesh.size()  # a step's FLOPs are the whole mesh's
 
     def _mfu(step_avg_s: float) -> Optional[float]:
         if not (peak and step_avg_s > 0):
@@ -469,12 +480,12 @@ def mnist(ctx) -> None:
     steps(=20), batch_size(=256), SGD at lr 0.01 unless ``param.lr``."""
     steps = int(ctx.params.get("steps", 20))
     batch_size = int(ctx.params.get("batch_size", 256))
-    device = _train_device(ctx)
+    device, mesh = _train_device(ctx)
     _train_job(
         ctx, _seeded(MLP(device=device), device), steps,
         lambda: datasets.mnist_batches(batch_size),
         datasets.mnist_sample(batch_size),
-        optimizer="sgd", learning_rate=0.01,
+        optimizer="sgd", learning_rate=0.01, mesh=mesh,
     )
 
 
@@ -486,12 +497,12 @@ def resnet50(ctx) -> None:
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 128))
     image_size = int(ctx.params.get("image_size", 224))
-    device = _train_device(ctx)
+    device, mesh = _train_device(ctx)
     _train_job(
         ctx, _seeded(ResNet50(device=device), device), steps,
         lambda: datasets.imagenet_batches(batch_size, image_size),
         datasets.imagenet_sample(batch_size, image_size),
-        optimizer="sgd", learning_rate=0.1,
+        optimizer="sgd", learning_rate=0.1, mesh=mesh,
     )
 
 
@@ -509,7 +520,7 @@ def bert(ctx) -> None:
     batch_size = int(ctx.params.get("batch_size", 8))
     seq_len = int(ctx.params.get("seq_len", 512))
     size = ctx.params.get("size", "base")
-    device = _train_device(ctx)
+    device, mesh = _train_device(ctx)
     maker = BertConfig.tiny if size == "tiny" else BertConfig.base
     cfg = maker(max_len=seq_len,
                 attention_impl=ctx.params.get("attention", "auto"),
@@ -518,7 +529,7 @@ def bert(ctx) -> None:
         ctx, _seeded(Bert(cfg, device=device), device), steps,
         lambda: datasets.token_batches(batch_size, seq_len, cfg.vocab_size),
         datasets.token_sample(batch_size, seq_len, cfg.vocab_size),
-        tokens_per_step=batch_size * seq_len, remat=_remat(ctx),
+        tokens_per_step=batch_size * seq_len, remat=_remat(ctx), mesh=mesh,
     )
 
 
@@ -541,7 +552,7 @@ def gpt(ctx) -> None:
     seq_len = int(ctx.params.get("seq_len", 1024))
     size = ctx.params.get("size", "base")
     fused_xent = ctx.params.get("fused_xent", "0") in ("1", "true")
-    device = _train_device(ctx)
+    device, mesh = _train_device(ctx)
     maker = GPTConfig.tiny if size == "tiny" else GPTConfig
     cfg = maker(
         max_len=seq_len, attention_impl=ctx.params.get("attention", "auto"),
@@ -562,7 +573,7 @@ def gpt(ctx) -> None:
             batch_size, seq_len, cfg.vocab_size),
         datasets.causal_token_sample(batch_size, seq_len, cfg.vocab_size),
         tokens_per_step=batch_size * seq_len, loss_fn=loss_fn,
-        remat=_remat(ctx),
+        remat=_remat(ctx), mesh=mesh,
         # the JAX job sets it always; the port's dense GPT returns no aux
         aux_loss_in_output=model.has_moe,
     )
@@ -580,7 +591,7 @@ def vit(ctx) -> None:
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 64))
     size = ctx.params.get("size", "base")
-    device = _train_device(ctx)
+    device, mesh = _train_device(ctx)
     maker = ViTConfig.tiny if size == "tiny" else ViTConfig.base
     cfg = maker(**_gqa_rope_kwargs(ctx))
     cfg = replace(cfg, image_size=int(ctx.params.get("image_size",
@@ -591,7 +602,7 @@ def vit(ctx) -> None:
                                           num_classes=cfg.num_classes),
         datasets.imagenet_sample(batch_size, cfg.image_size,
                                  cfg.num_classes),
-        remat=_remat(ctx),
+        remat=_remat(ctx), mesh=mesh,
     )
 
 
@@ -620,7 +631,7 @@ def generate_job(ctx) -> None:
     max_new = int(ctx.params.get("max_new", 128))
     temperature = float(ctx.params.get("temperature", 0))
     size = ctx.params.get("size", "base")
-    device = _devices(ctx)[0]
+    device = _device(ctx)
     maker = GPTConfig.tiny if size == "tiny" else GPTConfig
     cfg = maker(
         max_len=int(ctx.params.get("seq_len", prompt_len + max_new)),

@@ -2,8 +2,27 @@
 
 An optimizer step is the forward, the loss, the backward (through the
 Hopper flash kernels K1-K3 when attention runs on the card), the optional
-global-norm clip and the optimizer update, on one device. The JAX
-``Trainer`` jits that step over a mesh; the port has no mesh yet.
+global-norm clip and the optimizer update, on one device, or over a device
+mesh (``Trainer(..., mesh=...)``, a ``DeviceMesh`` from
+:mod:`parallel.mesh` over a process group of one rank per device), as the
+JAX ``Trainer`` jits it over its mesh.
+
+Under a mesh the parameters and the whole optimizer state are DTensors
+placed by :func:`parallel.mesh.sharding_for_tree`; each rank draws or
+receives the same global batch and keeps its rows
+(:func:`workloads.data.local_rows`, the batch split over ``data`` then
+``fsdp``), so a sharded run sees exactly the one-process batch; DTensor's
+propagation places the collectives (attention runs on local blocks, see
+:mod:`ops.attention`). The reported loss and the clip norm are global. A
+world above one runs its steps eagerly: no CUDA graph (a gloo collective
+cannot be captured), no staging thread, and the optimizer without
+``capturable``, its learning rate a float. A save gathers every tensor
+whole on every rank and rank 0 alone writes it; a restore places each
+tensor of the (full-tensor) checkpoint as the live one is placed, so a
+checkpoint saved at one world size resumes at another
+(:meth:`workloads.checkpoint.CheckpointStore.restore_resharded`). Every
+rank reads the store itself, so the ranks must share it: the constructor
+raises on every rank when they restored different steps.
 
 Multi-step dispatch (``TrainConfig.steps_per_call``): the JAX package scans
 K steps inside one program. On the card the port captures ONE step as a
@@ -63,15 +82,22 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from cron_operator_tpu_torch.models.convert import flax_rank
 from cron_operator_tpu_torch.ops.attention import count_attention_flops
+from cron_operator_tpu_torch.parallel.mesh import (
+    batch_placements,
+    distribute_parameters,
+)
 from cron_operator_tpu_torch.parallel.overlap import StepGraph, chunk_schedule
+from cron_operator_tpu_torch.workloads.checkpoint import place_like
 from cron_operator_tpu_torch.workloads.data import (
     ChunkStager,
     Prefetcher,
     grouped,
+    local_rows,
 )
 
 ADAM_BETAS = (0.9, 0.999)  # optax.adamw's b1, b2
@@ -163,14 +189,20 @@ class TrainConfig:
         ``sgd(momentum=0.9)`` over ``model``'s parameters. On the card it is
         fused (AdamW also ``capturable``) and its learning rate is one f32
         device tensor that every parameter group shares; on the CPU a float.
-        The Trainer sets it before each step."""
+        Over placed parameters (DTensors, a mesh) it is not ``capturable``
+        and its learning rate is a float, since the steps run eagerly;
+        AdamW stays fused on the card (the fused kernel takes DTensors) and
+        SGD, and AdamW on the CPU, take the foreach implementation. The
+        Trainer sets it before each step."""
         if self.decay_mask and self.optimizer != "adamw":
             raise ValueError(
                 "decay_mask requires the adamw optimizer "
                 f"(got {self.optimizer!r})"
             )
         params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        on_card = bool(params) and params[0][1].is_cuda
+        placed = bool(params) and isinstance(params[0][1], DTensor)
+        is_cuda = bool(params) and params[0][1].is_cuda
+        on_card = is_cuda and not placed  # capturable, a device lr
         lr = (torch.tensor(self.learning_rate, dtype=torch.float32,
                            device=params[0][1].device)
               if on_card else self.learning_rate)
@@ -186,24 +218,46 @@ class TrainConfig:
                 groups = [{"params": [p for _, p in params]}]
             return torch.optim.AdamW(
                 groups, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS,
-                weight_decay=self.weight_decay, fused=on_card or None,
-                capturable=on_card,
+                weight_decay=self.weight_decay, fused=is_cuda or None,
+                capturable=on_card, foreach=(placed and not is_cuda) or None,
             )
         if self.optimizer == "sgd":
             return torch.optim.SGD(
                 [p for _, p in params], lr=lr, momentum=SGD_MOMENTUM,
-                fused=on_card or None,
+                fused=on_card or None, foreach=placed or None,
             )
         raise ValueError(f"unknown optimizer {self.optimizer!r}")
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (a partial sum reduced) on every rank; a
+    plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _same_step_on_every_rank(step: Optional[int]) -> None:
+    """Raises on every rank unless every rank restored the same step (None:
+    no checkpoint). Each rank reads its own view of the store (a node-local
+    root differs between nodes), and the shards of a placed state must all
+    come from one state."""
+    steps: List[Optional[int]] = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(steps, step)
+    if len(set(steps)) > 1:
+        raise RuntimeError(
+            f"the ranks restored different checkpoint steps {steps} (by "
+            "rank; None: no checkpoint): every rank must read the same "
+            "store")
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
     """``optax.clip_by_global_norm`` in place: when the global norm reaches
     ``max_norm``, every gradient is scaled by ``max_norm / norm``. No
     epsilon is added to the norm (``clip_grad_norm_`` adds 1e-6), and the
-    decision stays on the device."""
+    decision stays on the device. A sharded gradient's norm is reduced over
+    its shards, so the norm is the global one on every rank."""
     norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+        torch.stack([_whole(torch.linalg.vector_norm(g.float()))
+                     for g in grads])
     )
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
@@ -265,6 +319,10 @@ class Trainer:
     ``checkpoint`` (a ``CheckpointStore``) restores the newest saved step
     here, before anything runs, and saves every ``config.save_every``
     steps (see the module docstring).
+
+    ``mesh`` (a ``DeviceMesh`` of more than one rank) places the model's
+    parameters here (:func:`parallel.mesh.distribute_parameters`) and
+    trains over it (see the module docstring); None trains on one device.
     """
 
     def __init__(
@@ -275,7 +333,14 @@ class Trainer:
         sample_fn: Optional[Callable[[torch.Generator],
                                      Dict[str, torch.Tensor]]] = None,
         checkpoint: Optional[Any] = None,
+        mesh: Optional[Any] = None,
     ):
+        self.mesh = mesh
+        if mesh is not None:
+            distribute_parameters(model, mesh)
+            self._batch_placements = batch_placements(mesh)
+        # Rank 0 alone writes checkpoints; every rank gathers them.
+        self._writes = mesh is None or mesh.get_rank() == 0
         self.model = model
         self.config = config or TrainConfig()
         self.loss_fn = loss_fn
@@ -296,16 +361,21 @@ class Trainer:
                 self.config.data_seed)
             if sample_fn is not None else None
         )
-        on_card = self.device.type == "cuda"
+        on_card = self.device.type == "cuda" and mesh is None
         self._copy_stream = torch.cuda.Stream(self.device) if on_card else None
         self._graph: Optional[StepGraph] = None
         self.steps_done = 0
-        if checkpoint is not None and checkpoint.latest_step() is not None:
+        if checkpoint is not None:
             # Resume before any step, warm-up or capture, falling back past
             # unreadable steps as the JAX package's store does.
-            _, state = checkpoint.restore_latest(
+            restored = (checkpoint.restore_latest(
                 like={"params": self.model.state_dict()})
-            self.load_state(state)
+                if checkpoint.latest_step() is not None else None)
+            if mesh is not None:
+                _same_step_on_every_rank(
+                    None if restored is None else restored[0])
+            if restored is not None:
+                self.load_state(restored[1])
         # Shapes and dtypes of one step's batch, noted at the first step
         # (flops_per_step's input), and the count, made once.
         self._batch_struct: Optional[Dict[str, Any]] = None
@@ -336,7 +406,9 @@ class Trainer:
         generator's state, or None). Card tensors are copied into pinned
         memory in the current stream's order, after every step enqueued so
         far, and the copies are waited for here, so that the next step
-        cannot overwrite them."""
+        cannot overwrite them. Under a mesh every rank gathers each tensor
+        whole (a collective: every rank calls this) and the state is the
+        one-device state."""
         opt = self.optimizer.state_dict()
         opt["param_groups"] = [
             {**g, "lr": float(g["lr"])} for g in opt["param_groups"]]
@@ -356,9 +428,12 @@ class Trainer:
         tensors), the optimizer and the data generator, and sets
         ``steps_done``. Only before the step is captured: a captured step
         holds the addresses of the optimizer state, which the load builds
-        anew."""
+        anew. Under a mesh the state's whole tensors are placed as the live
+        ones are (:meth:`_placed_like`), whatever world size saved them."""
         if self._graph is not None:
             raise RuntimeError("load_state after the step graph's capture")
+        if self.mesh is not None:
+            state = place_like(state, self._placed_like(state))
         self.model.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["optimizer"])
         lr = self._lr if self._lr is not None else self.config.learning_rate
@@ -367,6 +442,23 @@ class Trainer:
         if self._data_gen is not None and state.get("data_gen") is not None:
             self._data_gen.set_state(state["data_gen"])
         self.steps_done = int(state["step"])
+
+    def _placed_like(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The placements a restored state takes under the mesh, as a
+        ``like`` of :func:`workloads.checkpoint.place_like`: the parameters
+        as the live ones, and each optimizer state tensor shaped like its
+        parameter as that parameter (the optimizer's state mirrors it, as
+        the JAX ``sharding_for_tree`` places it); scalars (a step count)
+        stay as they are."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        opt_like = {}
+        for i, entry in state["optimizer"].get("state", {}).items():
+            p = params[int(i)]
+            opt_like[i] = {k: p for k, v in entry.items()
+                           if torch.is_tensor(v) and v.ndim
+                           and tuple(v.shape) == tuple(p.shape)}
+        return {"params": self.model.state_dict(),
+                "optimizer": {"state": opt_like}}
 
     def flops_per_step(self) -> Optional[float]:
         """Model FLOPs of one optimizer step at the batch shapes trained:
@@ -389,8 +481,9 @@ class Trainer:
             return self._flops_per_step
         self._flops_counted = True
         try:
-            meta = {
-                name: torch.empty_like(t, device="meta").requires_grad_(
+            meta = {  # whole shapes: a step's FLOPs over the mesh
+                name: torch.empty(t.shape, dtype=t.dtype,
+                                  device="meta").requires_grad_(
                     t.requires_grad)
                 for name, t in itertools.chain(self.model.named_parameters(),
                                                self.model.named_buffers())
@@ -415,9 +508,17 @@ class Trainer:
         through pinned memory and are copied on the trainer's copy stream
         (the step waits for them, :meth:`_Placed.wait`); tensors already on
         the card pass as they are. This is the Prefetcher's ``place``: it
-        runs on the staging thread."""
+        runs on the staging thread. Under a mesh each value is the global
+        batch, of which this rank keeps its rows, as a DTensor laid out by
+        :func:`parallel.mesh.batch_placements`."""
         if isinstance(batch, _Placed):
             return batch
+        if self.mesh is not None:
+            return _Placed({
+                k: v if isinstance(v, DTensor) else DTensor.from_local(
+                    local_rows(torch.as_tensor(v), self.mesh).to(self.device),
+                    self.mesh, self._batch_placements, run_check=False)
+                for k, v in batch.items()})
         placed = _Placed()
         host = {}
         for k, v in batch.items():
@@ -479,6 +580,8 @@ class Trainer:
         Returns the loss on the device. This is what the graph captures."""
         if self.sample_fn is not None:
             batch = self.sample_fn(self._data_gen)
+            if self.mesh is not None:
+                batch = self.put_batch(batch)
         if self._batch_struct is None:
             self._batch_struct = {k: (tuple(v.shape), v.dtype)
                                   for k, v in batch.items()}
@@ -490,14 +593,15 @@ class Trainer:
                      for p in g["params"] if p.grad is not None]
             clip_by_global_norm_(grads, self.config.grad_clip_norm)
         self.optimizer.step()
-        return loss.detach()
+        return _whole(loss.detach())
 
     def _steps(self, batches: List[_Placed]) -> torch.Tensor:
         """Enqueues one step per batch; returns the last one's loss. On the
         card a call of more than one step replays the step graph (captured
         at the first such call, after its eager warm-up step)."""
         graph = None
-        if self.device.type == "cuda" and len(batches) > 1:
+        if (self.device.type == "cuda" and self.mesh is None
+                and len(batches) > 1):
             if self._graph is None:
                 self._graph = StepGraph(
                     self._update,
@@ -557,7 +661,9 @@ class Trainer:
             # The call crossed a save_every multiple: save (the host copy
             # is the stall; the store writes it to disk on its own thread).
             t_ckpt = time.perf_counter()
-            self.checkpoint.save(self.steps_done, self.host_state())
+            state = self.host_state()
+            if self._writes:
+                self.checkpoint.save(self.steps_done, state)
             ckpt_s = time.perf_counter() - t_ckpt
         return StepStats(
             self.steps_done, loss, wall / chunk,
@@ -628,6 +734,8 @@ class Trainer:
             self.config.prefetch if self.config.prefetch > 0
             else (2 if self.config.stage_async else 0)
         )
+        if self.mesh is not None:
+            depth = 0  # one thread issues a rank's collectives
         stager = None
         prefetcher = None
         chunks = None  # iterator of placed chunks (external multi-step)
@@ -696,15 +804,19 @@ class Trainer:
                 prefetcher.close()
         if self.checkpoint is not None:
             self.checkpoint.wait()
+            if self.mesh is not None:
+                # The other ranks return once rank 0's writes are on disk.
+                torch.distributed.barrier()
         return stats
 
 
 def _to_host(x: Any) -> Any:
     """``x`` (tensors in dicts, lists and tuples) with every tensor copied
     to the host: a card tensor into pinned memory, without waiting (the
-    caller synchronises), a CPU tensor cloned."""
+    caller synchronises), a CPU tensor cloned, a DTensor gathered whole
+    first."""
     if torch.is_tensor(x):
-        x = x.detach()
+        x = _whole(x.detach())
         if x.is_cuda:
             out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
             return out.copy_(x, non_blocking=True)

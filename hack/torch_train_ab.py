@@ -4,7 +4,7 @@ card.
 
 Run on a machine with a CUDA card::
 
-    python3 hack/torch_train_ab.py ROOT_A ROOT_B ROOT_B ROOT_A
+    python3 hack/torch_train_ab.py [--moe] ROOT_A ROOT_B ROOT_B ROOT_A
 
 Each ROOT is the root of a checkout of the repo (``.`` for this one). Every
 ROOT given is measured in a process of its own that imports
@@ -12,7 +12,9 @@ ROOT given is measured in a process of its own that imports
 them as A B B A so that a drift of the host or the card falls on both. Each
 process builds its root's kernels (not timed) and then measures the training
 slice of ``chip_smoke.py`` (GPT-2 small, seed-0 f32 weights, bf16 compute,
-AdamW, one batch of 8 x 1024 tokens drawn on the card):
+AdamW, one batch of 8 x 1024 tokens drawn on the card; with ``--moe`` every
+second block's FFN is a Switch-MoE layer of 8 experts, as ``chip_smoke.py``'s
+MoE phase trains it):
 
 - ``step_ms``: one step (``Trainer.step(sync=False)``), CUDA events over 5
   back-to-back steps, as ``chip_smoke.py`` times it;
@@ -36,6 +38,7 @@ over that root's processes.
 
 from __future__ import annotations
 
+import os
 import statistics
 import sys
 import time
@@ -47,6 +50,8 @@ from torch_serving_ab import REPS, _events_ms, compare  # noqa: E402
 B, S, H, D = 8, 1024, 12, 64
 PARAMS = {"size": "base", "batch_size": str(B), "seq_len": str(S),
           "steps": "10"}
+MOE = {"moe_every": "2", "num_experts": "8"}
+MOE_ENV = "TORCH_TRAIN_AB_MOE"  # set by --moe for the measuring processes
 METRICS = ("step_ms", "device_ms", "dispatch_ms", "k2_ms", "tokens_per_s")
 
 
@@ -109,7 +114,7 @@ def measure(root: Path) -> dict:
     from cron_operator_tpu_torch.ops import _build
     from cron_operator_tpu_torch.workloads import data
     from cron_operator_tpu_torch.workloads.entrypoints import gpt
-    from cron_operator_tpu_torch.workloads.train import Trainer
+    from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
     pkg_root = Path(cron_operator_tpu_torch.__file__).resolve().parents[1]
     if pkg_root != root:
@@ -118,11 +123,12 @@ def measure(root: Path) -> dict:
     fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
     _build.build_all()
 
-    out = {"root": str(root)}
-    cfg = GPTConfig(max_len=S)
+    moe = MOE if os.environ.get(MOE_ENV) == "1" else {}
+    out = {"root": str(root), **moe}
+    cfg = GPTConfig(max_len=S, **{k: int(v) for k, v in moe.items()})
     model = GPT(cfg, device="cuda").init_weights(
         torch.Generator(device="cuda").manual_seed(0))
-    trainer = Trainer(model)
+    trainer = Trainer(model, TrainConfig(aux_loss_in_output=bool(moe)))
     batch = next(data.device_causal_token_batches(B, S, cfg.vocab_size,
                                                   device="cuda"))
     dispatch = []
@@ -153,13 +159,16 @@ def measure(root: Path) -> dict:
     del qkv, q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
 
-    ctx = JobContext("train-ab", "default", {}, dict(PARAMS))
+    ctx = JobContext("train-ab", "default", {}, {**PARAMS, **moe})
     gpt(ctx)
     out["tokens_per_s"] = ctx.progress["tokens_per_s"]
     return out
 
 
 def main(argv) -> int:
+    if "--moe" in argv:
+        os.environ[MOE_ENV] = "1"
+        argv = [a for a in argv if a != "--moe"]
     return compare(argv, Path(__file__).resolve(), measure, METRICS, __doc__)
 
 

@@ -6,7 +6,7 @@
   with its metrics sink, the empty lineage, train-then-serve through
   ``generate_job checkpoint_from``, the read-only open; and the cases the
   port adds: retention, ``flush_open_stores``, ``restore_resharded``
-  waiting for the mesh. (The executor's preempt-then-resume is in
+  placing a template's tensors. (The executor's preempt-then-resume is in
   ``tests/test_torch_operator_e2e.py``.)
 - Parity: the JAX ``Trainer`` with its Orbax store and the port's with its
   store, on the MLP from converted weights and ``data=host``: 10 steps
@@ -183,14 +183,20 @@ class TestRestoreFallbackChain:
 
 
 def test_restore_resharded_waits_for_the_mesh(tmp_path):
-    """The JAX package's elastic restore across meshes needs the port's
-    mesh (ROADMAP.md queue 1 item 7); a mismatched template is refused."""
+    """``restore_resharded`` places each tensor that the template names as
+    the template's is (plain tensors onto their device here; DTensors onto
+    their mesh in ``test_torch_mesh.py``'s elastic chain), keeps what it
+    does not name, and refuses a mismatched template, as ``restore``
+    does."""
     store = CheckpointStore("ns", "elastic", root=str(tmp_path))
-    store.save(2, {"params": {"w": torch.ones(4)}, "step": 2})
+    store.save(2, {"params": {"w": torch.arange(4.0)}, "step": 2})
     store.wait()
     try:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            store.restore_resharded(2, {"params": {"w": torch.zeros(4)}})
+        out = store.restore_resharded(2, {"params": {"w": torch.zeros(4)}})
+        assert torch.equal(out["params"]["w"], torch.arange(4.0))
+        assert out["step"] == 2
+        with pytest.raises(ValueError, match="expected"):
+            store.restore_resharded(2, {"params": {"w": torch.zeros(5)}})
         with pytest.raises(ValueError, match="expected"):
             store.restore(2, {"params": {"w": torch.zeros(5)}})
     finally:

@@ -3,7 +3,7 @@ that pick devices, against the JAX package's: calls of several steps
 (staged ahead or inline), batch prefetch and fused data run each job to
 its step target with one timeline entry per step; ``param.pipe > 1`` and
 ``param.devices`` beyond the visible count raise ``ValueError`` in both
-packages; ``param.devices > 1`` waits for the mesh."""
+packages; ``param.devices`` is the world size (one rank per device)."""
 
 import math
 
@@ -96,12 +96,14 @@ def test_devices_caps_as_in_jax():
 
 
 def test_devices_above_one_wait_for_the_mesh(monkeypatch):
-    """With two cards visible, ``param.devices=2`` asks for a mesh, which
-    the port does not have yet; three raise ``ValueError`` as in JAX."""
+    """The mesh is one rank per device: a lone process that sees two cards
+    and asks for ``param.devices=2`` (or 3) is told to launch one rank per
+    card, where the JAX package's single controller would drive both; a
+    world of two ranks takes ``devices=2`` (``test_torch_mesh.py``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     params = {k: v for k, v in _params("gpt").items() if k != "platform"}
-    with pytest.raises(NotImplementedError, match="param.devices > 1"):
-        gpt(JobContext("train", "default", {}, {**params, "devices": "2"}))
-    with pytest.raises(ValueError, match="only 2 device"):
-        gpt(JobContext("train", "default", {}, {**params, "devices": "3"}))
+    for want in ("2", "3"):
+        with pytest.raises(ValueError, match="launch one rank per card"):
+            gpt(JobContext("train", "default", {}, {**params,
+                                                     "devices": want}))

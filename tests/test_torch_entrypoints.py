@@ -190,6 +190,14 @@ def test_gpt_refuses_the_cpu_unless_asked(monkeypatch):
     ids=lambda v: "-".join(v) if isinstance(v, dict) else None,
 )
 def test_gpt_later_slices_raise(extra, match):
+    """Sequence parallelism (``seq``, ring and Ulysses attention) waits for
+    its slice; the mesh axes are the mesh's now, and a world of one
+    process cannot hold them: ``ValueError``, as the JAX package's one-device
+    mesh raises (``slices``: one device does not divide into two)."""
+    if next(iter(extra)) in ("tensor", "fsdp", "expert", "slices"):
+        with pytest.raises(ValueError, match="not divisible"):
+            gpt(JobContext("train", "default", {}, {**GPT_PARAMS, **extra}))
+        return
     with pytest.raises(NotImplementedError, match=match):
         gpt(JobContext("train", "default", {}, {**GPT_PARAMS, **extra}))
 
@@ -338,9 +346,15 @@ def test_training_jobs_refuse_the_cpu_unless_asked(job, monkeypatch):
     ({"fsdp": "2"}, "param.fsdp"), ({"expert": "2"}, "param.expert"),
 ])
 def test_training_jobs_later_slices_raise(job, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        getattr(entrypoints, job)(
-            JobContext("train", "default", {}, _job_params(job, **extra)))
+    """``fsdp``/``expert`` above the world's size raise ``ValueError`` in
+    every training job, as in the JAX package on one device (the axes
+    themselves train in gloo worlds: ``test_torch_parallel.py``)."""
+    params = _job_params(job, **extra)
+    with pytest.raises(ValueError, match="not divisible"):
+        getattr(entrypoints, job)(JobContext("train", "default", {}, params))
+    with pytest.raises(ValueError, match="not divisible"):
+        getattr(jax_entrypoints, job)(JaxJobContext(
+            "train", "default", {}, {**params, "devices": "1"}))
 
 
 @pytest.mark.parametrize("job", sorted(JOB_PARAMS))

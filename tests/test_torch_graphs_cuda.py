@@ -153,3 +153,37 @@ def test_decode_graph_matches_the_eager_loop(cuda_device, temperature):
         assert torch.equal(a, b)
     if temperature:
         assert not torch.equal(eager[0], eager[1])  # the stream moved on
+
+
+@pytest.mark.cuda
+def test_a_deleted_trainer_returns_its_graph_pool(cuda_device):
+    """The step graph holds the trainer's step weakly, so a trainer goes
+    with its last reference, its graph (the owner of the graph's private
+    memory pool) with it: no reference cycle waits for the collector. The
+    memory the run held is returned (the cuBLAS workspace of the capture's
+    stream stays cached, so the count need not fall to the start's)."""
+    import gc
+    import weakref
+
+    def train():
+        model, sample = _gpt()
+        model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        trainer = Trainer(model, TrainConfig())
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        trainer.step([sample(gen) for _ in range(3)])
+        assert trainer._graph is not None and trainer._graph.replays == 2
+        torch.cuda.synchronize()
+        held = sum(p.numel() * p.element_size() for p in model.parameters())
+        return (weakref.ref(trainer), weakref.ref(trainer._graph),
+                torch.cuda.memory_allocated(), held)
+
+    gc.collect()
+    gc.disable()
+    try:
+        trainer, graph, during, params_bytes = train()
+        assert trainer() is None and graph() is None
+        after = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    # the parameters, the AdamW state (2x) and the gradients at least
+    assert during - after >= 4 * params_bytes, (during, after, params_bytes)

@@ -12,7 +12,10 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "cron_operator_tpu")
 FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "hack" / "torch_serving_ab.py",
-    ROOT / "hack" / "torch_train_ab.py",
+    ROOT / "hack" / "torch_train_ab.py", ROOT / "hack" / "torch_mesh_cards.py",
+    ROOT / "hack" / "torch_mesh_readings.py",
+    # the rank bodies of the gloo worlds import the port alone
+    ROOT / "tests" / "torch_mesh_ranks.py",
 ]
 
 

@@ -129,3 +129,34 @@ def test_launches_on_other_streams_count_during_a_capture():
         fa._count(fn, "fma", OTHER)
     assert tally == {}
     assert fn.launches == before + 1
+
+
+def test_step_graph_holds_a_bound_step_weakly():
+    """A trainer holds its StepGraph and the graph its step (``Trainer.
+    _update``): a bound method is held weakly, so the pair goes with the
+    owner's last reference (no cycle left for the collector; the graph's
+    pool goes with it). A plain function is held as it is."""
+    import gc
+    import weakref
+
+    from cron_operator_tpu_torch.parallel.overlap import StepGraph
+
+    class Owner:
+        def step(self, inputs):
+            return inputs
+
+    owner = Owner()
+    owner.graph = StepGraph(owner.step)
+    assert owner.graph._fn()({"x": 1}) == {"x": 1}
+    gone = weakref.ref(owner)
+    gc.disable()
+    try:
+        del owner
+        assert gone() is None
+    finally:
+        gc.enable()
+
+    def step(inputs):
+        return inputs
+
+    assert StepGraph(step)._fn() is step
