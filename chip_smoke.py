@@ -118,7 +118,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
     local shape; the step ms is printed as two ranks time-sharing the
     card, not as scaling. ``hack/torch_mesh_cards.py`` runs the same ranks
     and checks over NCCL, one rank a card.
-16. A ``kernels`` JSON line, the card line, and last the result line
+16. Sequence and pipeline parallelism on one card, two ranks of a gloo
+    group on ``cuda:0`` as in phase 15: ``gpt attention=ring seq=2``
+    (GPT-2 small, b 8 x 1024 global, each rank ``[8, 512]``, causal) and
+    ``bert attention=ulysses seq=2`` (BERT-base, b 8 x 512), AdamW,
+    ``data=host``, 3 steps, each held by phase 15's checks
+    (``MESH_LOSS_BOUND``, ``MESH_UPDATE_BOUND``, and a one-rank run at lr
+    0 outside both) against a one-rank ``attention=xla`` run of the same
+    batches (the same plain f32 attention as the sequence-parallel bodies,
+    so the check isolates the split); both ranks report the same losses,
+    and K1-K3 launch 0 times on these paths (counts set to 0 just before
+    the job and read just after). Printed for each: the step ms
+    (time-shared), the device ms of one layer's attention body (forward
+    and backward, ``profile_window`` at the rank's local shape) and the
+    share of a profiled step's device time that the model's 12 bodies
+    take, and peak memory a rank. Then ``spmd_pipeline`` over the two ranks
+    as pipe 2: each stage one port ``DecoderLayer`` at GPT-2 small width
+    (bf16 products over f32 parameters placed by
+    ``pipeline_param_sharding``), x ``[8, 1024, 768]`` in 4 microbatches:
+    the output and the gradients of x and of each rank's stage against
+    the two layers run in sequence on the rank, within ``PIPE_REL_BOUND``
+    (relative L2; the other layer's gradients must fall outside it), and
+    K1-K3 launched ``PIPE_TICKS`` times each a rank, all sm90. The ring's
+    K/V hops and the pipeline's activation hops cross the gloo group
+    through pinned host buffers (``parallel.ring._hop_through_host``:
+    gloo's send and receive take host memory only).
+17. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
 
@@ -238,7 +263,7 @@ def profile_window(torch, card: str, label: str, fn) -> None:
     """Where one window's device time goes: the top kernels by device time
     and the device's busy share of the window's wall time (torch.profiler;
     its own overhead lengthens the wall time, so the idle share is an upper
-    bound)."""
+    bound). Returns the window's wall and device-busy ms."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -261,6 +286,7 @@ def profile_window(torch, card: str, label: str, fn) -> None:
         print(f"    {100 * e.self_device_time_total / busy_us:5.1f}% "
               f"{e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
               f"{e.key[:90]}")
+    return wall_us / 1e3, busy_us / 1e3
 
 
 def phase_device(torch):
@@ -1700,15 +1726,18 @@ class LossLog(dict):
         super().__setitem__(key, value)
 
 
-def run_gpt(torch, params: dict, delta_out: str, profile: bool = False):
-    """The ``gpt`` entrypoint on ``params`` in this process (a rank of the
-    process group when there is one), with every kernel count set to 0 just
-    before and read just after, and the (batch, heads) of each launch.
-    Writes to ``delta_out`` (on rank 0; every rank gathers) the change of
-    every parameter over the run, whole, f32. ``profile`` runs one more
-    step of the same batch size under ``profile_window`` (every rank) and
-    keeps what it printed. Returns the counts, designs, shapes, per-step
-    losses, step s and tokens/s (and the profile)."""
+def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
+            job: str = "gpt", readings=None):
+    """The ``job`` entrypoint (``gpt`` or ``bert``) on ``params`` in this
+    process (a rank of the process group when there is one), with every
+    kernel count set to 0 just before and read just after, and the (batch,
+    heads) of each launch. Writes to ``delta_out`` (on rank 0; every rank
+    gathers) the change of every parameter over the run, whole, f32.
+    ``profile`` runs one more step of the same batch size under
+    ``profile_window`` (every rank) and keeps what it printed;
+    ``readings(trainer, batch)`` adds its dict to the result. Returns the
+    counts, designs, shapes, per-step losses, step s, tokens/s and the
+    peak memory in GiB (and the profile)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -1740,13 +1769,15 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False):
     try:
         ctx = JobContext("chip-smoke-mesh", "default", {}, params,
                          progress=LossLog())
+        torch.cuda.reset_peak_memory_stats()
         zero_counts(fa)
-        entrypoints.gpt(ctx)
+        getattr(entrypoints, job)(ctx)
         torch.cuda.synchronize()
         result = {"counts": read_counts(fa), "designs": read_designs(fa),
                   "shapes": sorted(shapes), "losses": ctx.progress.losses,
                   "step_s": ctx.progress["avg_step_time_s"],
-                  "tokens_per_s": ctx.progress["tokens_per_s"]}
+                  "tokens_per_s": ctx.progress["tokens_per_s"],
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     finally:
         entrypoints.Trainer = real_trainer
         for attr, inner in launchers.items():
@@ -1756,10 +1787,12 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False):
     if not dist.is_initialized() or dist.get_rank() == 0:
         torch.save(delta, delta_out)
     del delta, start
+    stream = data.token_batches if job == "bert" else data.causal_token_batches
+    batch = next(stream(int(params["batch_size"]), int(params["seq_len"]),
+                        tr.model.config.vocab_size))
+    if readings is not None:
+        result.update(readings(tr, batch))
     if profile:
-        batch = next(data.causal_token_batches(
-            int(params["batch_size"]), int(params["seq_len"]),
-            tr.model.config.vocab_size))
         text = io.StringIO()
         with contextlib.redirect_stdout(text):
             profile_window(torch, card_line(), "one mesh step",
@@ -1769,12 +1802,14 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False):
 
 
 def mesh_rank(rank: int, world: int, local_rank: int, backend: str,
-              port: int, params: dict, out: str, profile: bool) -> None:
+              port: int, task: str, params: dict, out: str,
+              profile: bool) -> None:
     """One rank of a mesh run (``chip_smoke.py --mesh-rank``): joins a
     process group of ``world`` ranks over ``backend`` on
-    ``cuda:local_rank`` (none for a world of one), runs :func:`run_gpt`
-    and writes its result to ``out`` (the parameter change to
-    ``out.delta.pt``)."""
+    ``cuda:local_rank`` (none for a world of one), runs ``task`` (``gpt``
+    or ``bert``: :func:`run_gpt` of that job, with the sequence readings
+    under ``seq``; ``pipeline``: :func:`run_pipeline`) and writes its
+    result to ``out`` (the parameter change to ``out.delta.pt``)."""
     import faulthandler
 
     faulthandler.enable()  # a crashed rank leaves its stack in its stderr
@@ -1788,7 +1823,12 @@ def mesh_rank(rank: int, world: int, local_rank: int, backend: str,
         dist.init_process_group(backend, rank=rank, world_size=world,
                                 init_method=f"tcp://127.0.0.1:{port}")
     try:
-        result = run_gpt(torch, params, out + ".delta.pt", profile)
+        if task == "pipeline":
+            result = run_pipeline(torch)
+        else:
+            seq = int(params.get("seq", 1)) > 1
+            result = run_gpt(torch, params, out + ".delta.pt", profile,
+                             job=task, readings=seq_readings if seq else None)
         Path(out).write_text(json.dumps(result))
     finally:
         if world > 1:
@@ -1797,8 +1837,8 @@ def mesh_rank(rank: int, world: int, local_rank: int, backend: str,
 
 def spawn_ranks(world: int, params: dict, root: str, name: str, *,
                 backend: str = "gloo", cards: int = 1,
-                profile: bool = False) -> list:
-    """``world`` rank processes of one mesh run (rank r on card
+                profile: bool = False, task: str = "gpt") -> list:
+    """``world`` rank processes of one mesh run of ``task`` (rank r on card
     r % ``cards``), waited for; their results. A rank that fails fails the
     script, with the end of its stderr."""
     port = free_port()
@@ -1809,7 +1849,8 @@ def spawn_ranks(world: int, params: dict, root: str, name: str, *,
             procs.append(subprocess.Popen(
                 [sys.executable, str(HERE / "chip_smoke.py"), "--mesh-rank",
                  str(r), str(world), str(r % cards), backend, str(port),
-                 json.dumps(params), outs[r]] + (["--profile"] * profile),
+                 task, json.dumps(params), outs[r]]
+                + (["--profile"] * profile),
                 cwd=HERE, stdout=subprocess.DEVNULL, stderr=err))
     try:
         for r, proc in enumerate(procs):
@@ -1823,7 +1864,8 @@ def spawn_ranks(world: int, params: dict, root: str, name: str, *,
                 proc.kill()
                 proc.wait()
     ranks = [json.loads(Path(o).read_text()) for o in outs]
-    ranks[0]["delta"] = outs[0] + ".delta.pt"
+    if task != "pipeline":
+        ranks[0]["delta"] = outs[0] + ".delta.pt"
     return ranks
 
 
@@ -1876,12 +1918,13 @@ def mesh_problems(torch, ranks: list, ref: dict, local: tuple):
     return problems, {"loss_gap": gap, "update_distance": dist}
 
 
-def frozen_reading(torch, refs: dict, root: str) -> dict:
+def frozen_reading(torch, refs: dict, root: str, params: dict = MESH_PARAMS,
+                   kind: str = "dense", task: str = "gpt") -> dict:
     """The reference at lr 0 (parameters that never move) against the
     reference: its readings must fail both bounds."""
-    (frozen,) = spawn_ranks(1, {**MESH_PARAMS, **MESH_FROZEN_PARAMS}, root,
-                            "frozen")
-    gap, dist = mesh_readings(torch, [frozen], refs["dense"])
+    (frozen,) = spawn_ranks(1, {**params, **MESH_FROZEN_PARAMS}, root,
+                            f"frozen_{task}", task=task)
+    gap, dist = mesh_readings(torch, [frozen], refs[kind])
     if not (gap > MESH_LOSS_BOUND and dist > MESH_UPDATE_BOUND):
         fail(f"a run whose parameters never move reads a loss gap {gap} and "
              f"an update distance {dist}: within the bounds "
@@ -1954,6 +1997,221 @@ def phase_mesh(torch, fa, card):
                 **readings, "frozen": frozen}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return results
+
+
+# Phase 16: sequence and pipeline parallelism on one card, two ranks of a
+# gloo group on cuda:0 as in phase 15.
+SEQ_RUNS = {
+    # name: (job, params of the two-rank run; the reference runs them with
+    # attention=xla at one rank)
+    "ring": ("gpt", {**MESH_PARAMS, "attention": "ring", "seq": "2"}),
+    "ulysses": ("bert", {**MESH_PARAMS, "seq_len": "512",
+                         "attention": "ulysses", "seq": "2"}),
+}
+SEQ_LAYERS = 12  # GPT-2 small and BERT-base: one attention body a layer
+PIPE_SHAPE = dict(b=8, s=1024, hidden=768, microbatches=4)
+PIPE_TICKS = PIPE_SHAPE["microbatches"] + 2 - 1  # stage_fn calls a rank
+# The pipeline against the same two layers in sequence, relative L2 of each
+# compared tensor: bf16 products over microbatches of 2 rows against the
+# whole batch round in other cuBLAS tiles (a few bf16 ulps, about 0.4%
+# each); a stage's gradients held against the other layer's must read
+# above it.
+PIPE_REL_BOUND = 2e-2
+
+
+def seq_readings(tr, batch) -> dict:
+    """On each rank of a sequence-parallel run: one profiled step's device
+    ms, and the device ms of one layer's attention body (its forward and
+    backward on this rank's block, causal for gpt) under
+    ``profile_window``, at the run's local shape."""
+    import torch
+
+    from cron_operator_tpu_torch.parallel.ring import ring_attention_local
+    from cron_operator_tpu_torch.parallel.ulysses import (
+        ulysses_attention_local,
+    )
+
+    card = card_line()
+    _, step_ms = profile_window(torch, card, "one sequence-parallel step",
+                                lambda: tr.step(batch))
+    cfg = tr.model.config
+    mesh = tr.mesh
+    b, s = batch["x"].shape
+    h, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    t = s // dict(zip(mesh.mesh_dim_names, mesh.shape))["seq"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(b, t, h, d, device="cuda", dtype=cfg.dtype,
+                           generator=gen).requires_grad_() for _ in range(3))
+    causal = cfg.attention_impl == "ring"  # gpt: ring; bert: ulysses
+    body = ring_attention_local if causal else ulysses_attention_local
+
+    def fwd_bwd():
+        out = body(q, k, v, mesh=mesh, causal=causal)
+        out.backward(torch.ones_like(out))
+
+    _, body_ms = profile_window(torch, card, "one attention body, fwd+bwd",
+                                fwd_bwd)
+    return {"step_device_ms": step_ms, "body_device_ms": body_ms,
+            "body_share": SEQ_LAYERS * body_ms / step_ms}
+
+
+def rel_l2(torch, a, b) -> float:
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm())
+
+
+def run_pipeline(torch) -> dict:
+    """On each of two ranks: ``spmd_pipeline`` over a pipe-2 mesh of two
+    port ``DecoderLayer``s at GPT-2 small width (weights from seed 0, f32
+    parameters placed by ``pipeline_param_sharding``, bf16 products) on x
+    ``[8, 1024, 768]`` bf16 in 4 microbatches, K1-K3 counted over its
+    forward and backward (the loss ``mean(y ** 2)`` in f32); then the two
+    layers in sequence on this rank from the same weights and x. Returns
+    the counts and designs, and the relative L2 of the output, x's
+    gradient and this rank's stage gradients against the sequence's (and
+    of the stage's against the other layer's)."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.func import functional_call
+
+    fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
+    from cron_operator_tpu_torch.models.gpt import DecoderLayer, GPTConfig
+    from cron_operator_tpu_torch.models.layers import init_flax_layers_
+    from cron_operator_tpu_torch.parallel.mesh import mesh_for_devices
+    from cron_operator_tpu_torch.parallel.pipeline import (
+        pipeline_param_sharding,
+        spmd_pipeline,
+        stack_pipeline_stages,
+    )
+
+    cfg = GPTConfig()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layers = [DecoderLayer(cfg, device="cuda") for _ in range(2)]
+    for layer in layers:
+        init_flax_layers_(layer, gen)
+    x = torch.randn(PIPE_SHAPE["b"], PIPE_SHAPE["s"], PIPE_SHAPE["hidden"],
+                    device="cuda", generator=gen).to(cfg.dtype)
+    mesh = mesh_for_devices(device_type="cuda", pipe=2)
+    stage = mesh.get_local_rank("pipe")
+    stacked = stack_pipeline_stages([
+        {n: p.detach() for n, p in layer.named_parameters()}
+        for layer in layers])
+    place = pipeline_param_sharding(stacked, mesh)
+    placed = {n: distribute_tensor(t, mesh, place[n], src_data_rank=None)
+              .requires_grad_() for n, t in stacked.items()}
+
+    def stage_fn(params, x):
+        return functional_call(layers[0], params, (x,))[0]
+
+    xp = x.clone().requires_grad_()
+    zero_counts(fa)
+    y = spmd_pipeline(stage_fn, placed, xp, mesh=mesh,
+                      n_microbatches=PIPE_SHAPE["microbatches"])
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    counts, designs = read_counts(fa), read_designs(fa)
+
+    xs = x.clone().requires_grad_()
+    ys = xs
+    for layer in layers:
+        ys, _ = layer(ys)
+    ys.float().square().mean().backward()
+    grads = {n: placed[n].grad.to_local()[0] for n in placed}
+    mine = dict(layers[stage].named_parameters())
+    other = dict(layers[1 - stage].named_parameters())
+    return {
+        "counts": counts, "designs": designs,
+        "y": rel_l2(torch, y, ys), "x_grad": rel_l2(torch, xp.grad, xs.grad),
+        "stage_grads": max(rel_l2(torch, grads[n], mine[n].grad)
+                           for n in grads if mine[n].grad.norm() > 0),
+        "other_layer": min(rel_l2(torch, grads[n], other[n].grad)
+                           for n in grads if other[n].grad.norm() > 0),
+    }
+
+
+def phase_seq(torch, fa, card):
+    """Ring ``gpt`` and Ulysses ``bert`` over two ranks against one-rank
+    ``attention=xla`` runs (phase 15's checks, K1-K3 0 launches), then the
+    pipe-2 pipeline against the layers in sequence. Returns each run's
+    readings and the pipeline's launches."""
+    root = tempfile.mkdtemp(prefix="chip-smoke-seq-")
+    results = {}
+    try:
+        for name, (job, params) in SEQ_RUNS.items():
+            plain = {k: v for k, v in params.items() if k != "seq"}
+            plain["attention"] = "xla"
+            (ref,) = spawn_ranks(1, plain, root, f"ref_{name}", task=job)
+            frozen = frozen_reading(torch, {"ref": ref}, root, plain, "ref",
+                                    job)
+            ranks = spawn_ranks(2, params, root, name, task=job)
+            gap, dist = mesh_readings(torch, ranks, ref)
+            problems = [f"rank {r} launched K1/K2/K3 {got['counts']} times, "
+                        "not 0" for r, got in enumerate(ranks)
+                        if got["counts"] != [0, 0, 0]]
+            if any(got["losses"] != ranks[0]["losses"] for got in ranks):
+                problems.append("ranks report different losses "
+                                f"{[got['losses'] for got in ranks]}")
+            if not gap <= MESH_LOSS_BOUND:
+                problems.append(f"losses {ranks[0]['losses']} not within "
+                                f"{MESH_LOSS_BOUND} of {ref['losses']}")
+            if not dist <= MESH_UPDATE_BOUND:
+                problems.append(f"update distance {dist} above "
+                                f"{MESH_UPDATE_BOUND}")
+            print(f"seq {name} ({job}): losses {ranks[0]['losses']} against "
+                  f"one rank's attention=xla {ref['losses']}: max gap "
+                  f"{gap:.6f}, update distance {dist:.6f}; lr 0 reads "
+                  f"{frozen['loss_gap']:.6f} and "
+                  f"{frozen['update_distance']:.6f}; K1/K2/K3 "
+                  f"{[got['counts'] for got in ranks]}", flush=True)
+            if problems:
+                fail(f"seq {name}: " + "; ".join(problems))
+            got = ranks[0]
+            print(f"[{card}] seq {name}: {got['step_s'] * 1e3:.1f} ms a step "
+                  "(steps 2-3, two ranks time-sharing one card: not a scaling "
+                  f"number); one attention body {got['body_device_ms']:.3f} "
+                  f"device ms (fwd+bwd), {SEQ_LAYERS} of them "
+                  f"{100 * got['body_share']:.1f}% of a profiled step's "
+                  f"{got['step_device_ms']:.3f} device ms; peak "
+                  f"{max(r['peak_gib'] for r in ranks):.2f} GiB a rank",
+                  flush=True)
+            results[name] = {
+                "step_ms": got["step_s"] * 1e3, "loss_gap": gap,
+                "update_distance": dist, "frozen": frozen,
+                "body_device_ms": got["body_device_ms"],
+                "step_device_ms": got["step_device_ms"],
+                "body_share": got["body_share"],
+                "peak_gib": max(r["peak_gib"] for r in ranks),
+                "launches": [sum(r["counts"][i] for r in ranks)
+                             for i in range(3)]}
+        ranks = spawn_ranks(2, {}, root, "pipeline", task="pipeline")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r, got in enumerate(ranks):
+        print(f"pipeline rank {r}: K1/K2/K3 {got['counts']} {got['designs']}; "
+              f"relative L2 against the layers in sequence: y {got['y']:.5f}, "
+              f"x grad {got['x_grad']:.5f}, stage grads "
+              f"{got['stage_grads']:.5f} (the other layer's "
+              f"{got['other_layer']:.3f}); bound {PIPE_REL_BOUND}", flush=True)
+        if got["counts"] != [PIPE_TICKS] * 3:
+            fail(f"pipeline rank {r} launched K1/K2/K3 {got['counts']} "
+                 f"times, not {PIPE_TICKS} each")
+        if any(d["sm90"] != n for d, n in zip(got["designs"], got["counts"])):
+            fail(f"pipeline rank {r} launches by design {got['designs']}: "
+                 "not all sm90")
+        worst = max(got["y"], got["x_grad"], got["stage_grads"])
+        if not (worst <= PIPE_REL_BOUND < got["other_layer"]):
+            fail(f"pipeline rank {r}: relative L2 {worst} (bound "
+                 f"{PIPE_REL_BOUND}) or the other layer's "
+                 f"{got['other_layer']} within it")
+    results["pipeline"] = {
+        "launches": [sum(g["counts"][i] for g in ranks) for i in range(3)],
+        **{k: max(g[k] for g in ranks) for k in ("y", "x_grad",
+                                                 "stage_grads")},
+        "other_layer": min(g["other_layer"] for g in ranks),
+        # K1-K3 at the stages' shape: a microbatch of 2 rows
+        "rows": attention_rows(torch, fa, card, dict(
+            TRAIN_SHAPE, b=PIPE_SHAPE["b"] // PIPE_SHAPE["microbatches"]),
+            True, "pipeline")}
     return results
 
 
@@ -2080,6 +2338,9 @@ def main() -> None:
     print("mesh " + json.dumps({k: {x: v[x] for x in (
         "step_ms", "loss_gap", "update_distance", "frozen")}
         for k, v in mesh.items()}))
+    seq = timed("sequence and pipeline", phase_seq, torch, fa, card)
+    print("seq " + json.dumps({k: {x: y for x, y in v.items() if x != "rows"}
+                               for k, v in seq.items()}))
     print(f"phases: {sum(walls.values()):.1f} s in all, "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
 
@@ -2109,6 +2370,11 @@ def main() -> None:
                        run["rows"][key])
           for name, run in mesh.items()
           for i, key in enumerate(("K1", "K2", "K3"))),
+        # the pipeline of phase 16: its launches summed over the two ranks,
+        # at the training slice's shape in microbatches of 2 rows
+        *(kernel_entry(key, "@pipeline", seq["pipeline"]["launches"][i],
+                       seq["pipeline"]["rows"][key])
+          for i, key in enumerate(("K1", "K2", "K3"))),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
@@ -2119,7 +2385,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
-                  sys.argv[5], int(sys.argv[6]), json.loads(sys.argv[7]),
-                  sys.argv[8], sys.argv[9:10] == ["--profile"])
+                  sys.argv[5], int(sys.argv[6]), sys.argv[7],
+                  json.loads(sys.argv[8]), sys.argv[9],
+                  sys.argv[10:11] == ["--profile"])
     else:
         main()

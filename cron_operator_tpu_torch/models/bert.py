@@ -15,14 +15,15 @@ import math
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cron_operator_tpu_torch.models.gpt import LN_EPS, DecoderLayer
 from cron_operator_tpu_torch.models.layers import (
     LayerNorm,
+    add_positions,
     draw_,
     init_flax_layers_,
+    linear,
 )
 
 
@@ -97,12 +98,12 @@ class Bert(nn.Module):
         dt = self.config.dtype
         x = self.tok_emb(input_ids).to(dt)
         if self.pos_emb is not None:
-            x = x + self.pos_emb[:input_ids.shape[1]].to(dt)[None]
+            x = add_positions(x, self.pos_emb[:input_ids.shape[1]].to(dt))
         for layer in self.layers:
             x, _ = layer(x)
         # tied output embedding (flax tok.attend) in cfg.dtype, then f32
         table = self.tok_emb.weight.to(dt)
-        return F.linear(self.ln_f(x), table).float()
+        return linear(self.ln_f(x), table).float()
 
 
 __all__ = ["Bert", "BertConfig", "EncoderLayer"]

@@ -39,8 +39,10 @@ from cron_operator_tpu_torch.models.layers import (
     GroupedQKVProjection,
     LayerNorm,
     Linear,
+    add_positions,
     draw_,
     init_flax_layers_,
+    linear,
 )
 from cron_operator_tpu_torch.ops.attention import multi_head_attention
 from cron_operator_tpu_torch.parallel.moe import moe_ffn
@@ -294,13 +296,13 @@ class GPT(nn.Module):
         if self.pos_emb is not None:
             table = (self.pos_emb[:input_ids.shape[1]] if pos is None
                      else self.pos_emb.index_select(0, pos))
-            x = x + table.to(dt)[None]
+            x = add_positions(x, table.to(dt))
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         # tied output embedding (flax tok.attend) in cfg.dtype, then f32
         table = self.tok_emb.weight.to(self.config.dtype)
-        return F.linear(self.ln_f(x), table).float()
+        return linear(self.ln_f(x), table).float()
 
     def forward(self, input_ids: torch.Tensor):
         x = self._embed(input_ids)

@@ -22,7 +22,8 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from cron_operator_tpu_torch.ops.rope import apply_rope
 from cron_operator_tpu_torch.parallel.mesh import on_local_rows
@@ -41,7 +42,89 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def split_inside(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a DTensor split on a dim between its first and its
+    last: a ``[b, s, ...]`` activation whose sequence lies on ``seq``."""
+    return isinstance(x, DTensor) and any(
+        isinstance(p, Shard) and 0 < p.dim % x.ndim < x.ndim - 1
+        for p in x.placements)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``F.linear``; on an activation split inside (:func:`split_inside`),
+    by :func:`_linear_on_blocks`."""
+    if split_inside(x):
+        return _linear_on_blocks(x, weight, bias)
+    return F.linear(x, weight, bias)
+
+
+def add_positions(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``x [b, s, d] + table[None]`` (``table [s, d]``, learned positions).
+    On an activation split inside (:func:`split_inside`) each rank adds the
+    block of the whole table at its own global positions (and features,
+    where ``tensor`` splits them), and the table's gradient is a partial
+    sum over the axes that split ``x``: DTensor's own rule leaves the
+    table's gradient split over ``seq`` and gathers it, through the
+    functional all-gather that gloo cannot run on CUDA tensors
+    (``chip_smoke.py``'s ``MESH_LEFT_OUT``)."""
+    if not split_inside(x):
+        return x + table[None]
+    mesh = x.device_mesh
+    grads = [Partial() if isinstance(p, Shard) else Replicate()
+             for p in x.placements]
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=grads)
+    local = x.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        x.shape, mesh, x.placements)
+    block = whole.narrow(0, offset[1], local.shape[1]).narrow(
+        1, offset[2], local.shape[2])  # its positions and its features
+    return DTensor.from_local(local + block[None], mesh, x.placements,
+                              run_check=False)
+
+
+def _linear_on_blocks(x: DTensor, weight: DTensor,
+                      bias: Optional[DTensor]) -> DTensor:
+    """``F.linear`` on each rank's block of a ``[b, s, in]`` DTensor split
+    over the batch and ``seq`` axes. DTensor's own rule flattens ``[b, s]``
+    into a strided split, gathers the sequence for a biased product, and
+    searches its strategies for up to a minute an op on a three-axis mesh
+    (torch 2.13 on the CPU). Here the product is the column-parallel one:
+    ``x`` keeps its row and position splits and is whole along every other
+    axis; the weight (and bias) keep a split of their output features
+    (dim 0) on an axis where ``x`` is whole, which splits the output's last
+    dim there, and are gathered along every other axis. Gradients: the
+    weight's and bias's sum over the axes that split ``x`` (each rank saw
+    its tokens), ``x``'s over the axes that split the output features."""
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    xp, wp, outp, xg, wg = [], [], [], [], []
+    for px, pw in zip(x.placements, weight.placements):
+        if isinstance(px, Shard) and px.dim % x.ndim < last:
+            xp.append(px)
+            wp.append(Replicate())
+            outp.append(px)
+            xg.append(px)
+            wg.append(Partial())
+        elif isinstance(pw, Shard) and pw.dim == 0:
+            xp.append(Replicate())
+            wp.append(pw)
+            outp.append(Shard(last))
+            xg.append(Partial())
+            wg.append(pw)
+        else:
+            for out in (xp, wp, outp, xg, wg):
+                out.append(Replicate())
+    local = F.linear(
+        x.redistribute(mesh, xp).to_local(grad_placements=xg),
+        weight.redistribute(mesh, wp).to_local(grad_placements=wg),
+        None if bias is None else
+        bias.redistribute(mesh, wp).to_local(grad_placements=wg))
+    return DTensor.from_local(local, mesh, outp, run_check=False)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -256,7 +339,9 @@ __all__ = [
     "GroupedQKVProjection",
     "LayerNorm",
     "Linear",
+    "add_positions",
     "draw_",
     "init_flax_layers_",
+    "linear",
     "same_padding",
 ]

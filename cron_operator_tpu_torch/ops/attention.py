@@ -6,14 +6,23 @@
 - ``"xla"`` — plain PyTorch attention with f32 products
   (:func:`parallel.ring._single_device_attention`); the name is kept from the
   JAX package so configs carry over. The CPU path.
-- ``"ring"`` / ``"ulysses"`` — sequence parallelism; not ported yet.
+- ``"ring"`` — sequence-parallel ring attention over the mesh's ``seq``
+  axis (:mod:`parallel.ring`); the automatic pick when the mesh has
+  ``seq > 1``. Any head count.
+- ``"ulysses"`` — the all-to-all head-scatter variant
+  (:mod:`parallel.ulysses`); the head count must divide the ``seq`` axis.
 
 Models call :func:`multi_head_attention` and stay strategy-agnostic. On the
 ``meta`` device (a FLOP count, :func:`count_attention_flops`) attention
 computes nothing and is counted by formula, whatever ``impl`` says. Over a
 device mesh q, k and v are DTensors that carry their mesh, so a model
 passes none (the JAX models pass theirs): each rank runs the dispatch on
-its local block (:func:`_sharded_attention`, the JAX ``_sharded_flash``).
+its local block (:func:`_sharded_attention`, the JAX ``_sharded_flash``),
+or under ``seq > 1`` (or an explicit ``ring``/``ulysses``) the
+sequence-parallel body on its block of the sequence. A plain tensor has no
+mesh, so ``ring`` and ``ulysses`` give plain attention there: what the JAX
+dispatch gives under a mesh without a ``seq`` axis, which is how every JAX
+job calls it on one device (JAX raises only when no mesh is passed at all).
 """
 
 from __future__ import annotations
@@ -29,10 +38,15 @@ from torch.distributed.tensor.experimental import local_map
 from cron_operator_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 from cron_operator_tpu_torch.parallel.mesh import (
     BATCH_AXES,
+    SEQ_AXIS,
     TENSOR_AXIS,
     axis_sizes,
 )
-from cron_operator_tpu_torch.parallel.ring import _single_device_attention
+from cron_operator_tpu_torch.parallel.ring import (
+    _single_device_attention,
+    ring_attention,
+)
+from cron_operator_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 def reference_attention(
@@ -102,10 +116,10 @@ def multi_head_attention(
 ) -> torch.Tensor:
     """Dispatching attention on ``[batch, seq, heads, head_dim]``.
 
-    ``impl``: ``"auto" | "flash" | "xla"`` (``"ring"``/``"ulysses"`` raise
-    until the sequence-parallel slice). Grouped-query K/V (fewer heads, a
-    divisor) go to the flash kernel as they are; the other impls repeat
-    them here.
+    ``impl``: ``"auto" | "flash" | "xla" | "ring" | "ulysses"``.
+    Grouped-query K/V (fewer heads, a divisor) go to the flash kernel as
+    they are; the other impls repeat them here, the sequence-parallel ones
+    before the sequence is split.
     """
     if isinstance(q, DTensor):
         return _sharded_attention(q, k, v, causal=causal, impl=impl)
@@ -122,26 +136,33 @@ def multi_head_attention(
             else "xla"
         )
 
-    h, kv_h = q.shape[2], k.shape[2]
-    if kv_h != h and impl != "flash":
-        if kv_h < 1 or h % kv_h:
-            raise ValueError(
-                f"k/v heads {kv_h} must be a positive divisor of "
-                f"q heads {h}"
-            )
-        k = k.repeat_interleave(h // kv_h, dim=2)
-        v = v.repeat_interleave(h // kv_h, dim=2)
-
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"impl={impl!r} waits for the sequence-parallel slice "
-            "(ROADMAP.md queue 1, sequence parallel: ring/Ulysses)"
-        )
+    if impl != "flash":
+        k, v = _full_heads(q, k, v)
     if impl == "flash":
         return flash_attention(q, k, v, causal=causal)
-    if impl == "xla":
+    if impl in ("xla", "ring", "ulysses"):
         return _single_device_attention(q, k, v, causal=causal)
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _full_heads(q, k, v):
+    """Grouped-query ``k``/``v`` broadcast to ``q``'s head count (each K/V
+    head serves ``h / kv_h`` consecutive query heads), as the JAX dispatch's
+    ``jnp.repeat``; by ``expand``, which a DTensor split over the batch or
+    the sequence takes too."""
+    h, kv_h = q.shape[2], k.shape[2]
+    if kv_h == h:
+        return k, v
+    if kv_h < 1 or h % kv_h:
+        raise ValueError(
+            f"k/v heads {kv_h} must be a positive divisor of q heads {h}"
+        )
+    b, s, _, d = k.shape
+
+    def repeat(t):
+        return t[:, :, :, None, :].expand(b, s, kv_h, h // kv_h, d).reshape(
+            b, s, h, d)
+    return repeat(k), repeat(v)
 
 
 def attention_placements(q, k, mesh) -> tuple:
@@ -168,12 +189,23 @@ def attention_placements(q, k, mesh) -> tuple:
 
 
 def _sharded_attention(q, k, v, *, causal: bool, impl: str):
-    """Attention on DTensors, as the JAX ``_sharded_flash``: q, k and v are
-    laid out by :func:`attention_placements` and each rank runs
+    """Attention on DTensors. ``auto`` under ``seq > 1`` is ``ring``, as the
+    JAX dispatch picks it for a mesh with a ``seq`` axis; ``ring`` and
+    ``ulysses`` take full-head K/V and run
+    :func:`parallel.ring.ring_attention` or
+    :func:`parallel.ulysses.ulysses_attention` over the mesh. Otherwise, as
+    the JAX ``_sharded_flash``: q, k and v are laid out by
+    :func:`attention_placements` and each rank runs
     :func:`multi_head_attention` (K1-K3 on the card) on its local ``[b/dp,
     s, h/tp, d]`` block, which needs no collective; the output keeps that
     layout. The kernel wrappers only ever see local tensors."""
     mesh = q.device_mesh
+    if impl == "auto" and axis_sizes(mesh).get(SEQ_AXIS, 1) > 1:
+        impl = "ring"
+    if impl in ("ring", "ulysses"):
+        k, v = _full_heads(q, k, v)
+        fn = ring_attention if impl == "ring" else ulysses_attention
+        return fn(q, k, v, mesh, causal=causal)
     spec = list(attention_placements(q, k, mesh))  # a list: ONE output
     fn = local_map(
         lambda q, k, v: multi_head_attention(q, k, v, causal=causal,

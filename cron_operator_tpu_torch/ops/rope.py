@@ -3,12 +3,16 @@
 Rotates each (even, odd) feature pair of Q and K by a position- and
 frequency-dependent angle, in f32. The same function serves the full
 forward (``positions = arange(seq)``) and a decode step (``positions =
-[current_index]``).
+[current_index]``). Over a mesh ``x`` is a DTensor whose sequence may be
+split over ``seq``; ``positions`` stay global, so the tables enter as
+replicated DTensors and each rank rotates its block at its own global
+positions, as JAX rotates before the sequence is split.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 
 def rope_angles(
@@ -26,7 +30,8 @@ def rope_angles(
 def apply_rope(
     x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
 ) -> torch.Tensor:
-    """Rotate ``x [batch, seq, heads, head_dim]`` at ``positions [seq]``.
+    """Rotate ``x [batch, seq, heads, head_dim]`` at ``positions [seq]``
+    (plain, global positions, also for a DTensor ``x``).
 
     head_dim must be even. Returns x's dtype (rotation in f32).
     """
@@ -36,6 +41,10 @@ def apply_rope(
     cos, sin = rope_angles(positions, d, theta)
     cos = cos[None, :, None, :]
     sin = sin[None, :, None, :]
+    if isinstance(x, DTensor):
+        rep = [Replicate()] * x.device_mesh.ndim
+        cos, sin = (DTensor.from_local(t, x.device_mesh, rep, run_check=False)
+                    for t in (cos, sin))
     xf = x.to(torch.float32).reshape(b, s, h, d // 2, 2)
     x1, x2 = xf[..., 0], xf[..., 1]
     rot = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -16,11 +16,20 @@ vocab size, and the rows of the final chunk past the vocab's end contribute
 nothing (JAX pads that chunk and masks the padding to ``-inf``; here the
 final chunk is cut at the vocab's end, which leaves the same rows out).
 Products and the logsumexp run in f32 whatever the inputs' type.
+
+Over a mesh the hidden states and labels are DTensors, their rows split
+over the batch axes and, under sequence parallelism, their positions over
+``seq``: each rank runs the chunked loss on its own tokens against the
+whole table, and the mean over the global tokens is the sum of the ranks'
+shares (:func:`_sharded_cross_entropy`).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from cron_operator_tpu_torch.parallel.mesh import batch_placements
 
 
 def _chunks(v: int, chunk_size: int):
@@ -94,7 +103,28 @@ def chunked_cross_entropy(
     ``hidden``: ``[..., d]`` (any leading dims); ``table``: ``[V, d]`` (the
     tied output embedding); ``labels``: ``[...]`` int. Returns a scalar.
     """
+    if isinstance(hidden, DTensor):
+        return _sharded_cross_entropy(hidden, table, labels, chunk_size)
     return _ChunkedCrossEntropy.apply(hidden, table, labels, chunk_size)
+
+
+def _sharded_cross_entropy(hidden, table, labels, chunk_size: int):
+    """The loss of DTensor ``hidden [b, s, d]`` and ``labels [b, s]``: each
+    rank's tokens (rows over the batch axes, positions over ``seq``) against
+    the table gathered whole, scaled by its share of the tokens; the result
+    is a ``Partial`` sum over the axes that split the tokens, and the
+    table's gradient a partial sum over them too."""
+    mesh = hidden.device_mesh
+    tokens = list(batch_placements(mesh, seq_dim=1))
+    split = [Partial() if isinstance(p, Shard) else Replicate()
+             for p in tokens]
+    table = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=split)
+    h = hidden.redistribute(mesh, tokens).to_local()
+    y = labels.redistribute(mesh, tokens).to_local()
+    loss = _ChunkedCrossEntropy.apply(h, table, y, chunk_size)
+    loss = loss * (y.numel() / labels.numel())
+    return DTensor.from_local(loss, mesh, split, run_check=False)
 
 
 __all__ = ["chunked_cross_entropy"]

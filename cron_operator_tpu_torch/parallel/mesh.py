@@ -16,7 +16,8 @@ Axis convention (outer to inner), shared with the JAX package:
 - ``data``   data parallelism (batch rows; gradients summed);
 - ``fsdp``   parameter sharding, ZeRO-3 style (a second batch axis);
 - ``expert`` expert parallelism (expert-stacked MoE weights);
-- ``seq``    sequence parallelism (a later slice);
+- ``seq``    sequence parallelism (ring and Ulysses attention, a batch's
+  positions split by ``batch_placements(mesh, seq_dim=...)``);
 - ``tensor`` tensor parallelism (a weight's output-features dim, heads).
 
 The plan half (:class:`MeshPlan`, :func:`plan_for_devices`, :func:`replan`,
@@ -613,6 +614,22 @@ def batch_rows(mesh: Any, n_rows: int) -> slice:
     return slice(index * per, (index + 1) * per)
 
 
+def seq_block(mesh: Any, n_positions: int) -> slice:
+    """The positions of an ``n_positions`` sequence that this rank holds
+    under ``batch_placements(mesh, seq_dim=...)``: its coordinate's block on
+    ``seq`` (all of them without a ``seq`` axis). Raises ``ValueError`` when
+    the positions do not divide."""
+    count = axis_sizes(mesh).get(SEQ_AXIS, 1)
+    if n_positions % count:
+        raise ValueError(
+            f"a sequence of {n_positions} positions does not divide over "
+            f"the {count} shards of the {SEQ_AXIS!r} axis"
+        )
+    per = n_positions // count
+    index = mesh.get_local_rank(SEQ_AXIS) if count > 1 else 0
+    return slice(index * per, (index + 1) * per)
+
+
 __all__ = [
     "BATCH_AXES",
     "DATA_AXIS",
@@ -641,6 +658,7 @@ __all__ = [
     "rank_grid",
     "regrow",
     "replan",
+    "seq_block",
     "sharding_for_tree",
     "spec_for_shape",
     "world_ranks",

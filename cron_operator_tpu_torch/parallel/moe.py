@@ -23,7 +23,10 @@ Over a mesh the parameters and tokens are DTensors: the expert-stacked
 router is replicated, and DTensor's propagation over the four products
 places the collectives, as GSPMD does for the JAX package. Routing gathers
 the logits (:func:`_route`), so capacities and slots are those of one
-device and the output equals the unsharded one.
+device and the output equals the unsharded one; under sequence
+parallelism too, where ``x`` holds every rank's positions in the global
+row-major token order and the capacity comes from the global token
+count.
 
 Usage::
 

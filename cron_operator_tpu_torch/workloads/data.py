@@ -11,8 +11,9 @@ stream differs from the JAX package's Threefry stream for the same seed.
 ``Prefetcher`` and ``ChunkStager`` stage batches from a producer thread.
 
 Over a device mesh every rank draws the same global batch from the same
-seed, whatever the mode, and keeps its rows (:func:`local_rows`), so that
-a sharded run trains on exactly the one-process batches.
+seed, whatever the mode, and keeps its rows (:func:`local_rows`), and
+under sequence parallelism its block of their positions, so that a sharded
+run trains on exactly the one-process batches.
 """
 
 from __future__ import annotations
@@ -22,15 +23,21 @@ from typing import Any, Dict, Iterator
 import numpy as np
 import torch
 
-from cron_operator_tpu_torch.parallel.mesh import batch_rows
+from cron_operator_tpu_torch.parallel.mesh import batch_rows, seq_block
 from cron_operator_tpu_torch.parallel.overlap import DoubleBuffer
 
 
-def local_rows(batch: torch.Tensor, mesh) -> torch.Tensor:
+def local_rows(batch: torch.Tensor, mesh, seq_dim=None) -> torch.Tensor:
     """This rank's rows of a global ``batch`` under ``mesh``
     (:func:`parallel.mesh.batch_rows`: split over ``data``, then
-    ``fsdp``)."""
-    return batch[batch_rows(mesh, batch.shape[0])]
+    ``fsdp``), and with ``seq_dim`` its block of that dim
+    (:func:`parallel.mesh.seq_block`), as ``batch_placements(mesh,
+    seq_dim=seq_dim)`` lays a batch out."""
+    rows = batch[batch_rows(mesh, batch.shape[0])]
+    if seq_dim is None:
+        return rows
+    block = seq_block(mesh, rows.shape[seq_dim])
+    return rows.narrow(seq_dim, block.start, block.stop - block.start)
 
 
 def mnist_batches(batch_size: int, seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:

@@ -36,11 +36,14 @@ resolve_entrypoint` and the port runner.
 ``moe_every``/``num_experts`` put Switch-MoE blocks into ``gpt`` and
 ``generate_job``; the other jobs ignore them, as the JAX jobs do. The
 training jobs run over a device mesh when the process group's world has
-more than one rank (``tensor``, ``fsdp``, ``expert`` and ``slices`` factor
-it, ``data`` takes the rest: :func:`_train_device`); ``generate_job``
-serves on each rank's card alone. ``pipe > 1`` raises ``ValueError`` for
-good, as in the JAX package; sequence parallelism (``seq``, ring/Ulysses
-attention) raises ``NotImplementedError`` until its slice.
+more than one rank (``tensor``, ``seq``, ``fsdp``, ``expert`` and
+``slices`` factor it, ``data`` takes the rest: :func:`_train_device`);
+``generate_job`` serves on each rank's card alone. ``gpt`` and ``bert``
+split their sequences over ``seq`` and take ``attention=ring|ulysses``
+(:mod:`parallel.ring`, :mod:`parallel.ulysses`), as the JAX jobs do; the
+other training jobs refuse those attentions (``ValueError``). ``pipe > 1``
+raises ``ValueError`` for good, as in the JAX package: pipelining is the
+:func:`parallel.pipeline.spmd_pipeline` primitive for custom entrypoints.
 """
 
 from __future__ import annotations
@@ -155,11 +158,6 @@ def _train_kwargs(ctx, steps: int, **defaults) -> dict:
     return kw
 
 
-# Params of the JAX training entrypoints that later slices bring, each with
-# the ROADMAP.md queue 1 item it waits for.
-_LATER = "waits for ROADMAP.md queue 1 item"
-
-
 def _device(ctx) -> torch.device:
     """The device of this rank for the job's platform (``param.platform``):
     :func:`utils.device.resolve_device`, which holds ``param.devices`` to
@@ -169,33 +167,35 @@ def _device(ctx) -> torch.device:
                           ctx.params.get("devices"))
 
 
-def _train_device(ctx):
+def _train_device(ctx, sequence_parallel: bool = False):
     """``(device, mesh)`` of a training job, after the checks of the JAX
     ``_devices`` and ``_mesh``: ``param.pipe > 1`` raises ``ValueError``
-    for good (the standard jobs train one step; pipelining is a primitive
-    for custom entrypoints), and sequence parallelism (``seq > 1``, ring
-    and Ulysses attention) raises ``NotImplementedError`` until its slice.
-    The mesh factors the world by ``tensor``, ``fsdp`` and ``expert``
+    for good (the standard jobs train one step; pipelining is the
+    ``spmd_pipeline`` primitive for custom entrypoints), and
+    ``attention=ring|ulysses`` raises ``ValueError`` unless the job is
+    ``sequence_parallel`` (``gpt``, ``bert``). The mesh factors the world
+    by ``tensor``, ``seq``, ``fsdp`` and ``expert``
     (:func:`parallel.mesh.mesh_for_devices`), or with ``slices > 1``
     groups it by node (:func:`parallel.mesh.hybrid_mesh_for_slices`); a
-    world of one rank trains unwrapped (mesh None), and axes that do not
-    divide the world raise ``ValueError``, as in the JAX package."""
+    world of one rank trains unwrapped (mesh None: ring and Ulysses are
+    then plain attention, as over the JAX job's one-device mesh), and axes
+    that do not divide the world raise ``ValueError``, as in the JAX
+    package."""
     device = _device(ctx)
     p = ctx.params
     if int(p.get("pipe", 1)) > 1:
         raise ValueError(
             "param.pipe is not supported by the standard entrypoints — "
-            "pipeline parallelism requires a staged model"
+            "pipeline parallelism requires a staged model via "
+            "cron_operator_tpu_torch.parallel.spmd_pipeline"
         )
-    if int(p.get("seq", 1)) > 1:
-        raise NotImplementedError(
-            f"param.seq > 1 (sequence parallel) {_LATER} 8"
+    if p.get("attention") in ("ring", "ulysses") and not sequence_parallel:
+        raise ValueError(
+            f"param.attention={p['attention']} applies to the gpt and bert "
+            "jobs only (sequence-parallel attention)"
         )
-    if p.get("attention") in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"param.attention={p['attention']} (sequence parallel) {_LATER} 8"
-        )
-    axes = {axis: int(p.get(axis, 1)) for axis in ("tensor", "fsdp", "expert")}
+    axes = {axis: int(p.get(axis, 1))
+            for axis in ("tensor", "seq", "fsdp", "expert")}
     slices = int(p.get("slices", 1))
     world = world_size()
     if world == 1:
@@ -511,16 +511,18 @@ def bert(ctx) -> None:
     """BERT MLM on synthetic tokens, as the JAX ``bert`` entrypoint.
 
     Params: steps(=10), batch_size(=8), seq_len(=512, the model's max_len),
-    size(=base|tiny), attention(=auto|flash|xla: ``auto`` runs the Hopper
-    flash kernels, non-causal, on the card when seq_len is a multiple of
-    128), remat(=0), kv_heads(=0: MHA), rope(=0|1). AdamW at lr 1e-3;
-    targets are the inputs (``token_batches``).
+    size(=base|tiny), attention(=auto|flash|xla|ring|ulysses: ``auto`` runs
+    the Hopper flash kernels, non-causal, on the card when seq_len is a
+    multiple of 128, and ring attention under ``seq > 1``), the mesh axes
+    seq/tensor/fsdp (the sequence split over ``seq``), remat(=0),
+    kv_heads(=0: MHA), rope(=0|1). AdamW at lr 1e-3; targets are the inputs
+    (``token_batches``).
     """
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 8))
     seq_len = int(ctx.params.get("seq_len", 512))
     size = ctx.params.get("size", "base")
-    device, mesh = _train_device(ctx)
+    device, mesh = _train_device(ctx, sequence_parallel=True)
     maker = BertConfig.tiny if size == "tiny" else BertConfig.base
     cfg = maker(max_len=seq_len,
                 attention_impl=ctx.params.get("attention", "auto"),
@@ -530,6 +532,7 @@ def bert(ctx) -> None:
         lambda: datasets.token_batches(batch_size, seq_len, cfg.vocab_size),
         datasets.token_sample(batch_size, seq_len, cfg.vocab_size),
         tokens_per_step=batch_size * seq_len, remat=_remat(ctx), mesh=mesh,
+        seq_dim_in_batch=1, labels_follow_seq=True,
     )
 
 
@@ -538,8 +541,10 @@ def gpt(ctx) -> None:
     """GPT causal LM on synthetic tokens, as the JAX ``gpt`` entrypoint.
 
     Params: steps(=10), batch_size(=8), seq_len(=1024), size(=base|tiny),
-    attention(=auto|flash|xla), moe_every(=0: dense; k > 0 makes every
-    k-th block's FFN a Switch-MoE layer), num_experts(=8), remat(=0),
+    attention(=auto|flash|xla|ring|ulysses), the mesh axes
+    seq/tensor/fsdp/expert (the sequence split over ``seq``), moe_every(=0:
+    dense; k > 0 makes every k-th block's FFN a Switch-MoE layer),
+    num_experts(=8), remat(=0),
     fused_xent(=0: when 1 the loss is :func:`ops.xent.chunked_cross_entropy`
     against the tied embedding and the ``[b, s, vocab]`` logits are never
     built), kv_heads(=0: MHA), rope(=0|1), data(=device|host|fused),
@@ -552,7 +557,7 @@ def gpt(ctx) -> None:
     seq_len = int(ctx.params.get("seq_len", 1024))
     size = ctx.params.get("size", "base")
     fused_xent = ctx.params.get("fused_xent", "0") in ("1", "true")
-    device, mesh = _train_device(ctx)
+    device, mesh = _train_device(ctx, sequence_parallel=True)
     maker = GPTConfig.tiny if size == "tiny" else GPTConfig
     cfg = maker(
         max_len=seq_len, attention_impl=ctx.params.get("attention", "auto"),
@@ -573,7 +578,8 @@ def gpt(ctx) -> None:
             batch_size, seq_len, cfg.vocab_size),
         datasets.causal_token_sample(batch_size, seq_len, cfg.vocab_size),
         tokens_per_step=batch_size * seq_len, loss_fn=loss_fn,
-        remat=_remat(ctx), mesh=mesh,
+        remat=_remat(ctx), mesh=mesh, seq_dim_in_batch=1,
+        labels_follow_seq=True,
         # the JAX job sets it always; the port's dense GPT returns no aux
         aux_loss_in_output=model.has_moe,
     )
@@ -587,6 +593,8 @@ def vit(ctx) -> None:
     kv_heads(=0: MHA), rope(=0|1: rotary over the flattened patch index,
     replacing the learned table). AdamW at lr 1e-3. Attention is the plain
     path: (size/patch)^2 + 1 tokens are never a multiple of 128.
+    ``attention=ring|ulysses`` raises ``ValueError`` (the JAX job ignores
+    it).
     """
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 64))

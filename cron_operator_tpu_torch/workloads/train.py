@@ -11,7 +11,9 @@ Under a mesh the parameters and the whole optimizer state are DTensors
 placed by :func:`parallel.mesh.sharding_for_tree`; each rank draws or
 receives the same global batch and keeps its rows
 (:func:`workloads.data.local_rows`, the batch split over ``data`` then
-``fsdp``), so a sharded run sees exactly the one-process batch; DTensor's
+``fsdp``) and, with ``TrainConfig.seq_dim_in_batch``, its block of the
+sequence over ``seq`` (labels too with ``labels_follow_seq``), so a sharded
+run sees exactly the one-process batch; DTensor's
 propagation places the collectives (attention runs on local blocks, see
 :mod:`ops.attention`). The reported loss and the clip norm are global. A
 world above one runs its steps eagerly: no CUDA graph (a gloo collective
@@ -128,6 +130,8 @@ class TrainConfig:
     # AdamW weight decay only on parameters whose flax shape has rank >= 2
     decay_mask: bool = False
     remat: bool = False  # recompute the forward in the backward
+    seq_dim_in_batch: Optional[int] = None  # dim of x split over `seq`
+    labels_follow_seq: bool = False  # labels carry the seq dim too (LM, MLM)
     sync_every: int = 1  # fetch the loss (a device sync) every N steps
     save_every: int = 0  # checkpoint cadence in steps (0 = never)
     # The model returns (output, aux); the scalar aux (the MoE router balance
@@ -336,13 +340,12 @@ class Trainer:
         mesh: Optional[Any] = None,
     ):
         self.mesh = mesh
+        self.config = config or TrainConfig()
         if mesh is not None:
             distribute_parameters(model, mesh)
-            self._batch_placements = batch_placements(mesh)
         # Rank 0 alone writes checkpoints; every rank gathers them.
         self._writes = mesh is None or mesh.get_rank() == 0
         self.model = model
-        self.config = config or TrainConfig()
         self.loss_fn = loss_fn
         self.sample_fn = sample_fn
         self.checkpoint = checkpoint
@@ -514,11 +517,8 @@ class Trainer:
         if isinstance(batch, _Placed):
             return batch
         if self.mesh is not None:
-            return _Placed({
-                k: v if isinstance(v, DTensor) else DTensor.from_local(
-                    local_rows(torch.as_tensor(v), self.mesh).to(self.device),
-                    self.mesh, self._batch_placements, run_check=False)
-                for k, v in batch.items()})
+            return _Placed({k: v if isinstance(v, DTensor) else self._local(
+                k, torch.as_tensor(v)) for k, v in batch.items()})
         placed = _Placed()
         host = {}
         for k, v in batch.items():
@@ -537,6 +537,19 @@ class Trainer:
             placed.ready = torch.cuda.Event()
             placed.ready.record(self._copy_stream)
         return placed
+
+    def _local(self, key: str, value: torch.Tensor) -> DTensor:
+        """This rank's block of the global batch value ``key`` as a DTensor
+        laid out by :func:`parallel.mesh.batch_placements`: rows over the
+        batch axes, and the ``seq_dim_in_batch`` dim over ``seq`` for ``x``
+        (for ``y`` too under ``labels_follow_seq``), the JAX Trainer's
+        batch shardings."""
+        cfg = self.config
+        seq_dim = (cfg.seq_dim_in_batch
+                   if key != "y" or cfg.labels_follow_seq else None)
+        return DTensor.from_local(
+            local_rows(value, self.mesh, seq_dim).to(self.device), self.mesh,
+            batch_placements(self.mesh, seq_dim=seq_dim), run_check=False)
 
     def put_chunk(self, group: List[Dict[str, Any]]) -> List[_Placed]:
         """K batches on the device, one call's worth: step i of the call

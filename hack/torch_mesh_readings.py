@@ -45,7 +45,9 @@ def rank_main(root: str, rank: int, world: int, port: int, params: dict,
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    torch.cuda.synchronize = lambda *a: None  # run_gpt's, for the card
+    # run_gpt's card calls: its synchronise and its peak-memory reading
+    torch.cuda.synchronize = lambda *a: None
+    torch.cuda.reset_peak_memory_stats = lambda *a: None
     import chip_smoke
 
     if world > 1:

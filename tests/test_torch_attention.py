@@ -14,6 +14,7 @@ from cron_operator_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from cron_operator_tpu.models.layers import grouped_qkv_projection
 from cron_operator_tpu.ops.attention import multi_head_attention as jax_mha
 from cron_operator_tpu.ops.rope import apply_rope as jax_apply_rope
+from cron_operator_tpu.parallel.mesh import mesh_for_devices as jax_mesh
 from cron_operator_tpu_torch.models.convert import _linear
 from cron_operator_tpu_torch.models.gpt import GPTConfig
 from cron_operator_tpu_torch.models.layers import GroupedQKVProjection
@@ -56,9 +57,20 @@ class TestDispatch:
 
     @pytest.mark.parametrize("impl", ["ring", "ulysses"])
     def test_sequence_parallel_not_ported(self, impl):
-        q = torch.zeros(1, 128, 2, 32)
-        with pytest.raises(NotImplementedError, match="sequence-parallel"):
-            multi_head_attention(q, q, q, impl=impl)
+        """A plain tensor carries no mesh: ``ring`` and ``ulysses`` give plain
+        attention, as the JAX dispatch does under a mesh without a ``seq``
+        axis (the JAX jobs' one-device mesh), GQA K/V repeated as there.
+        The sequence-parallel paths themselves run in gloo worlds
+        (``test_torch_ring.py``)."""
+        q, k, v = _qkv(4, 2, 128, 4, 2, 32)
+        ref = jax_mha(q, k, v, causal=True, impl=impl,
+                      mesh=jax_mesh(jax.devices("cpu")[:1]))
+        out = multi_head_attention(
+            *(torch.from_numpy(x) for x in (q, k, v)), causal=True, impl=impl)
+        xla = multi_head_attention(
+            *(torch.from_numpy(x) for x in (q, k, v)), causal=True, impl="xla")
+        assert torch.equal(out, xla)
+        assert _err(out, ref) < ATOL
 
     def test_unknown_impl_and_bad_ratio(self):
         q = torch.zeros(1, 128, 4, 32)

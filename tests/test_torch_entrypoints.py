@@ -190,16 +190,23 @@ def test_gpt_refuses_the_cpu_unless_asked(monkeypatch):
     ids=lambda v: "-".join(v) if isinstance(v, dict) else None,
 )
 def test_gpt_later_slices_raise(extra, match):
-    """Sequence parallelism (``seq``, ring and Ulysses attention) waits for
-    its slice; the mesh axes are the mesh's now, and a world of one
-    process cannot hold them: ``ValueError``, as the JAX package's one-device
-    mesh raises (``slices``: one device does not divide into two)."""
-    if next(iter(extra)) in ("tensor", "fsdp", "expert", "slices"):
+    """The mesh axes, ``seq`` among them, are the mesh's, and a world of one
+    process cannot hold them: ``ValueError``, as the JAX package's
+    one-device mesh raises (``slices``: one device does not divide into
+    two). ``attention=ring|ulysses`` at one rank trains with plain
+    attention, as the JAX job does over its one-device mesh: the losses of
+    ``attention=xla``. The sequence-parallel runs are in
+    ``test_torch_ring.py``."""
+    if "attention" not in extra:
         with pytest.raises(ValueError, match="not divisible"):
             gpt(JobContext("train", "default", {}, {**GPT_PARAMS, **extra}))
         return
-    with pytest.raises(NotImplementedError, match=match):
-        gpt(JobContext("train", "default", {}, {**GPT_PARAMS, **extra}))
+    runs = []
+    for params in ({**GPT_PARAMS, **extra}, GPT_PARAMS):
+        ctx = JobContext("train", "default", {}, {**params, "data": "host"})
+        gpt(ctx)
+        runs.append(ctx.progress["last_loss"])
+    assert runs[0] == runs[1], (match, runs)
 
 
 @pytest.mark.parametrize("extra", [{}, {"remat": "1"}, {"fused_xent": "1"}],

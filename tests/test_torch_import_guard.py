@@ -14,6 +14,7 @@ FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "hack" / "torch_serving_ab.py",
     ROOT / "hack" / "torch_train_ab.py", ROOT / "hack" / "torch_mesh_cards.py",
     ROOT / "hack" / "torch_mesh_readings.py",
+    ROOT / "hack" / "torch_gloo_cuda_probe.py",
     # the rank bodies of the gloo worlds import the port alone
     ROOT / "tests" / "torch_mesh_ranks.py",
 ]

@@ -341,8 +341,8 @@ def test_devices_param_is_the_world_size(monkeypatch):
 
 
 def test_world_of_one_refuses_axes_it_cannot_hold():
-    """At one rank the model axes raise ``ValueError`` as the JAX package's
-    one-device mesh does; ``seq`` and ring/Ulysses wait for their slice."""
+    """At one rank the model axes, ``seq`` among them, raise ``ValueError``
+    as the JAX package's one-device mesh does."""
     ctx = JobContext("t", "ns", {}, {"platform": "cpu", "fsdp": "2"})
     with pytest.raises(ValueError, match="not divisible"):
         entrypoints._train_device(ctx)
@@ -350,7 +350,7 @@ def test_world_of_one_refuses_axes_it_cannot_hold():
     with pytest.raises(ValueError, match="slices"):
         entrypoints._train_device(ctx)
     ctx = JobContext("t", "ns", {}, {"platform": "cpu", "seq": "2"})
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="not divisible"):
         entrypoints._train_device(ctx)
     device, mesh = entrypoints._train_device(
         JobContext("t", "ns", {}, {"platform": "cpu"}))

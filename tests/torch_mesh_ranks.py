@@ -12,17 +12,20 @@ torch, numpy and the port only.
 
 Jobs (dicts):
 
-- ``train``: a GPT (``cfg``: ``GPTConfig.tiny`` overrides, f32) loaded from
-  ``weights`` (a state dict file) trains ``steps`` steps of the numpy
-  ``causal_token_batches(batch, seq, 1024)`` under ``axes``; results: the
-  losses, the first step's gradients, gathered whole, and the parameters'
-  placements.
+- ``train``: a GPT (``cfg``: ``GPTConfig.tiny`` overrides, f32; a BERT
+  with ``"model": "bert"``) loaded from ``weights`` (a state dict file)
+  trains ``steps`` steps of the numpy ``causal_token_batches(batch, seq,
+  1024)`` (``"stream": "token_batches"`` for BERT's) under ``axes``;
+  results: the losses, the first step's gradients, gathered whole, and the
+  parameters' placements.
 - ``chain``: a GPT tiny from seed 0 trains on fused data to ``steps`` with
   a checkpoint store at ``dir`` (``save_every``), resuming from its newest
   step; results: the restored step, the parameters right after the
   restore, and the losses.
 - ``split``: :func:`_split`; ``moe``: :func:`_moe`; ``refuse``:
-  :func:`_refuse`.
+  :func:`_refuse`; ``attention``: :func:`_attention`; ``hop``:
+  :func:`_hop`; ``guards``: :func:`_guards`; ``pipe_guards``:
+  :func:`_pipe_guards`; ``pipeline``: :func:`_pipeline`.
 
 :func:`mesh_probe` is an entrypoint for the port's runner.
 """
@@ -45,10 +48,49 @@ ROOT = Path(__file__).resolve().parents[1]
 def _config(job):
     import torch
 
+    from cron_operator_tpu_torch.models.bert import BertConfig
     from cron_operator_tpu_torch.models.gpt import GPTConfig
 
-    return GPTConfig.tiny(dtype=torch.float32, attention_impl="xla",
-                          **job.get("cfg", {}))
+    maker = BertConfig.tiny if job.get("model") == "bert" else GPTConfig.tiny
+    return maker(**{"dtype": torch.float32, "attention_impl": "xla",
+                    **job.get("cfg", {})})
+
+
+def _model(job):
+    from cron_operator_tpu_torch.models.bert import Bert
+    from cron_operator_tpu_torch.models.gpt import GPT
+
+    return (Bert if job.get("model") == "bert" else GPT)(_config(job))
+
+
+def qkv_arrays(seed: int, b: int, s: int, h: int, kv_h: int, d: int):
+    """Seeded numpy q ``[b, s, h, d]``, k and v ``[b, s, kv_h, d]``, f32:
+    the inputs that the ranks and the test process share."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape, dtype=np.float32)
+                 for shape in ((b, s, h, d), (b, s, kv_h, d), (b, s, kv_h, d)))
+
+
+def pipeline_arrays(seed: int, n_stages: int, width: int, batch: int):
+    """Seeded numpy stage parameters ``[{"w": [width, width], "b":
+    [width]}]`` and input ``[batch, width]`` of the pipeline cases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    stages = [{"w": rng.standard_normal((width, width), dtype=np.float32)
+               / width ** 0.5,
+               "b": rng.standard_normal(width, dtype=np.float32) * 0.1}
+              for _ in range(n_stages)]
+    return stages, rng.standard_normal((batch, width), dtype=np.float32)
+
+
+def pipeline_stage(p, x):
+    """The pipeline cases' stage: ``relu(x @ w + b)``."""
+    import torch
+
+    return torch.relu(x @ p["w"] + p["b"])
 
 
 def _whole(t):
@@ -62,19 +104,18 @@ def _whole(t):
 def _train(job, mesh) -> Dict[str, Any]:
     import torch
 
-    from cron_operator_tpu_torch.models.gpt import GPT
     from cron_operator_tpu_torch.workloads import data
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
     cfg = _config(job)
-    model = GPT(cfg)
+    model = _model(job)
     model.load_state_dict(torch.load(job["weights"], weights_only=True))
     trainer = Trainer(model, TrainConfig(
         steps_per_call=1, stage_async=False,
-        aux_loss_in_output=model.has_moe,
+        aux_loss_in_output=getattr(model, "has_moe", False),
         **job.get("train", {})), mesh=mesh)
-    batches = data.causal_token_batches(job["batch"], cfg.max_len,
-                                        cfg.vocab_size)
+    stream = getattr(data, job.get("stream", "causal_token_batches"))
+    batches = stream(job["batch"], cfg.max_len, cfg.vocab_size)
     stats = trainer.run(batches, 1)
     grads = {n: _whole(p.grad) for n, p in model.named_parameters()}
     stats += trainer.run(batches, job["steps"])
@@ -200,6 +241,177 @@ def _refuse(job, mesh) -> Dict[str, Any]:
     return {"refused": out}
 
 
+def _attention(job, mesh) -> Dict[str, Any]:
+    """Sequence-parallel attention (``impl`` ring or ulysses) on the seeded
+    ``qkv_arrays(*job["qkv"])``, two ways: the public function on plain
+    global tensors (k and v repeated to q's heads, as the JAX dispatch
+    does before it), and :func:`ops.attention.multi_head_attention` on
+    DTensors laid out by ``batch_placements(mesh, seq_dim=1)`` (grouped
+    k/v as they are). Results: each way's output and the gradients of
+    ``sum(out ** 2)``, whole."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from cron_operator_tpu_torch.ops.attention import multi_head_attention
+    from cron_operator_tpu_torch.parallel.mesh import batch_placements
+    from cron_operator_tpu_torch.parallel.ring import ring_attention
+    from cron_operator_tpu_torch.parallel.ulysses import ulysses_attention
+
+    q, k, v = (torch.from_numpy(a) for a in qkv_arrays(*job["qkv"]))
+    group = q.shape[2] // k.shape[2]
+    fn = ring_attention if job["impl"] == "ring" else ulysses_attention
+    plain = [t.clone().requires_grad_() for t in
+             (q, k.repeat_interleave(group, 2), v.repeat_interleave(group, 2))]
+    out = fn(*plain, mesh, causal=job["causal"])
+    (out ** 2).sum().backward()
+    place = batch_placements(mesh, seq_dim=1)
+    placed = [distribute_tensor(t, mesh, place, src_data_rank=None)
+              .requires_grad_() for t in (q, k, v)]
+    out_d = multi_head_attention(*placed, causal=job["causal"],
+                                 impl=job["impl"])
+    (out_d ** 2).sum().backward()
+    return {"out": _whole(out), "grads": [t.grad.clone() for t in plain],
+            "out_dispatch": _whole(out_d),
+            "grads_dispatch": [_whole(t.grad) for t in placed],
+            "placements": [str(p) for p in out_d.placements]}
+
+
+def _hop(job, mesh) -> Dict[str, Any]:
+    """:func:`parallel.ring.ppermute` by ``shift`` over ``axis``: each rank
+    sends its coordinate, weights what it receives by its coordinate + 1
+    and differentiates the sum; then the same hop with the host-staged path
+    forced. Results: the coordinate, what came in, the input's gradient and
+    what the staged hop brought."""
+    import torch
+
+    from cron_operator_tpu_torch.parallel import ring
+
+    group = mesh.get_group(job["axis"])
+    coord = mesh.get_local_rank(job["axis"])
+    x = torch.full((3,), float(coord), requires_grad=True)
+    out = ring.ppermute(x, group, shift=job["shift"])
+    (out * (coord + 1)).sum().backward()
+    direct = ring.stages_through_host
+    ring.stages_through_host = lambda group, tensors: True
+    try:
+        staged = ring.ppermute((x.detach(), x.detach() * 2), group,
+                               shift=job["shift"])
+    finally:
+        ring.stages_through_host = direct
+    return {"coord": coord, "out": out.detach(), "grad": x.grad,
+            "staged": [t.clone() for t in staged]}
+
+
+def _error(call) -> Any:
+    try:
+        call()
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+def _guards(job, mesh) -> Dict[str, Any]:
+    """The guards of ring and Ulysses on a mesh whose ``seq`` axis is the
+    world: the ``ValueError`` message of each refused call (None if it did
+    not raise), and the fallbacks' largest gap to plain attention."""
+    import torch
+
+    from cron_operator_tpu_torch.parallel.mesh import mesh_for_devices
+    from cron_operator_tpu_torch.parallel.ring import (
+        _single_device_attention,
+        ring_attention,
+    )
+    from cron_operator_tpu_torch.parallel.ulysses import ulysses_attention
+
+    ring = mesh.size()
+    gen = torch.Generator().manual_seed(1)
+    odd = torch.ones(2, 8 * ring + 1, 2, 8)
+    one = torch.randn(1, 8 * ring + 1, 2, 8, generator=gen)
+    q = torch.randn(2, 16, 2, 8, generator=gen)
+    flat = mesh_for_devices(device_type="cpu")  # no seq axis
+    heads = torch.ones(2, 8 * ring, ring + 1, 8)
+    return {
+        "indivisible": _error(lambda: ring_attention(odd, odd, odd, mesh)),
+        "batch_of_one": (ring_attention(one, one, one, mesh)
+                         - _single_device_attention(one, one, one,
+                                                    causal=False)
+                         ).abs().max().item(),
+        "heads": _error(lambda: ulysses_attention(heads, heads, heads, mesh)),
+        "degenerate": (ring_attention(q, q, q, flat, causal=True)
+                       - _single_device_attention(q, q, q, causal=True)
+                       ).abs().max().item(),
+    }
+
+
+def _pipe_guards(job, mesh) -> Dict[str, Any]:
+    """The ``ValueError`` messages of ``spmd_pipeline``'s checks (None where
+    it did not raise): no ``pipe`` axis, a stage count unequal to the
+    axis, a batch that does not divide into microbatches and, with a data
+    axis, a per-shard batch that does not."""
+    import torch
+
+    from cron_operator_tpu_torch.parallel.mesh import mesh_for_devices
+    from cron_operator_tpu_torch.parallel.pipeline import spmd_pipeline
+
+    world = mesh.size()
+    stages, x = pipeline_arrays(0, 4, 16, 8)
+    stacked = {n: torch.stack([torch.from_numpy(s[n]) for s in stages])
+               for n in ("w", "b")}
+    x = torch.from_numpy(x)
+
+    def call(mesh, n_stages, microbatches):
+        return _error(lambda: spmd_pipeline(
+            pipeline_stage, {n: t[:n_stages] for n, t in stacked.items()},
+            x, mesh=mesh, n_microbatches=microbatches))
+
+    flat = mesh_for_devices(device_type="cpu")
+    pipe = mesh_for_devices(device_type="cpu", pipe=world)
+    half = mesh_for_devices(device_type="cpu", pipe=2)  # x data world / 2
+    return {"no_pipe": call(flat, world, 4),
+            "stages": call(pipe, 4 if world == 2 else 2, 4),
+            "microbatches": call(pipe, world, 3),
+            "per_shard": call(half, 2, 8)}
+
+
+def _pipeline(job, mesh) -> Dict[str, Any]:
+    """:func:`parallel.pipeline.spmd_pipeline` of :func:`pipeline_stage`
+    over the seeded ``pipeline_arrays(*job["arrays"])`` in
+    ``job["microbatches"]`` microbatches: with plain stacked parameters
+    (the output, the gradients of ``sum(y ** 2)`` for x and every stacked
+    tensor) and with DTensor ones placed by ``pipeline_param_sharding``
+    (the output, the gradients gathered whole, and their placements)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from cron_operator_tpu_torch.parallel.pipeline import (
+        pipeline_param_sharding,
+        spmd_pipeline,
+        stack_pipeline_stages,
+    )
+
+    stages, x = pipeline_arrays(*job["arrays"])
+    stacked = {n: t.requires_grad_() for n, t in stack_pipeline_stages(
+        [{n: torch.from_numpy(a) for n, a in s.items()} for s in stages]
+    ).items()}
+    x = torch.from_numpy(x).requires_grad_()
+    m = job["microbatches"]
+    y = spmd_pipeline(pipeline_stage, stacked, x, mesh=mesh, n_microbatches=m)
+    (y ** 2).sum().backward()
+    place = pipeline_param_sharding(stacked, mesh)
+    placed = {n: distribute_tensor(t.detach(), mesh, place[n],
+                                   src_data_rank=None).requires_grad_()
+              for n, t in stacked.items()}
+    y_d = spmd_pipeline(pipeline_stage, placed, x.detach(), mesh=mesh,
+                        n_microbatches=m)
+    (y_d ** 2).sum().backward()
+    return {"y": y.detach(), "x_grad": x.grad,
+            "grads": {n: t.grad for n, t in stacked.items()},
+            "y_dtensor": y_d.detach(),
+            "grads_dtensor": {n: _whole(t.grad) for n, t in placed.items()},
+            "placements": {n: [str(p) for p in t.placements]
+                           for n, t in placed.items()}}
+
+
 def mesh_probe(ctx) -> None:
     """An entrypoint for the port's runner: publishes the device and the
     mesh that a training job of these params gets on this rank."""
@@ -230,7 +442,10 @@ def _rank_main(jobs_file: str) -> int:
         for job in spec["jobs"]:
             mesh = mesh_for_devices(device_type="cpu", **job["axes"])
             run = {"train": _train, "chain": _chain, "split": _split,
-                   "moe": _moe, "refuse": _refuse}[job["kind"]]
+                   "moe": _moe, "refuse": _refuse, "attention": _attention,
+                   "hop": _hop, "guards": _guards,
+                   "pipe_guards": _pipe_guards,
+                   "pipeline": _pipeline}[job["kind"]]
             out = run(job, mesh)
             out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
             torch.save(out, Path(spec["out"]) / f"{job['name']}.rank{rank}.pt")
