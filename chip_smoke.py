@@ -143,7 +143,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
     K/V hops and the pipeline's activation hops cross the gloo group
     through pinned host buffers (``parallel.ring._hop_through_host``:
     gloo's send and receive take host memory only).
-17. A ``kernels`` JSON line, the card line, and last the result line
+17. The microbench (``ops/microbench.py``, the port's timing primitive)
+    at ``bench.py``'s attention shape (b 4, s 2048, h 8, d 64, causal,
+    bf16; the MoE leg at its defaults), its ``main`` called in this
+    process with every kernel count set to 0 just before and read just
+    after: K1, K2 and K3 must all launch, all sm90; its JSON line printed;
+    no timing may read ``null``; K1 on the microbench's own inputs within
+    ``forward_tolerance``, and the line's ``flash_max_abs_err_vs_f32_ref``
+    within the largest bound; K1-K3 at that shape against their plain
+    versions, timed (``attention_rows``); and ``flash_ms`` (a CUDA graph
+    of 20 K1 calls, by ``timed_chain``) within ``MICROBENCH_AGREE`` of
+    K1's ``device_ms``.
+18. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
 
@@ -169,6 +180,8 @@ import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
+
+from cron_operator_tpu_torch.ops.microbench import device_ms, median_ms
 
 HERE = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core rate.
@@ -238,25 +251,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
-
-
-def median_ms(torch, fn, iters: int, reps: int = 5, warmup: int = 3) -> float:
-    """Median over ``reps`` of the mean time of ``iters`` back-to-back calls,
-    from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
 
 
 def profile_window(torch, card: str, label: str, fn) -> None:
@@ -573,35 +567,6 @@ def phase_slice_correctness(torch):
     print(f"greedy first token: {int((tok_f == tok_p).sum())}/8 rows agree",
           flush=True)
     return flash
-
-
-def device_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
-    """Device time per call of ``fn``: the median over ``reps`` of the CUDA-
-    event time of ``iters`` back-to-back calls, enqueued while the card is
-    held busy (``torch.cuda._sleep``, twice the host's enqueue time), so
-    that the kernels run back to back and the host's time between launches
-    is not counted. ``fn`` must not synchronise."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    hold_cycles = int(2 * host_s * 2e9) + 1_000_000  # the SM clock is <= 2 GHz
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(hold_cycles)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
 
 
 def timed_rows(torch, card, name, fns, iters=(20, 5, 20)):
@@ -2215,6 +2180,77 @@ def phase_seq(torch, fa, card):
     return results
 
 
+# bench.py's attention_bench shape (bench.py:293-294), the microbench's
+# defaults otherwise; flash_ms and K1's device ms must agree within this
+MICROBENCH_ARGS = ["seq=2048", "batch=4", "heads=8", "head_dim=64",
+                   "iters=20", "causal=1"]
+MICROBENCH_SHAPE = dict(b=4, s=2048, h=8, d=64)
+MICROBENCH_AGREE = 0.25
+
+
+def phase_microbench(torch, fa, card):
+    """The port's microbench through its ``main``, as ``python -m
+    cron_operator_tpu_torch.ops.microbench`` runs it, on its main path
+    (counts set to 0 just before, read just after), then its checks (see
+    the module docstring, phase 17). Returns the counts, K1-K3's rows at
+    the shape and the JSON line."""
+    from cron_operator_tpu_torch.ops import microbench
+
+    zero_counts(fa)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = microbench.main(MICROBENCH_ARGS)
+    counts, designs = read_counts(fa), read_designs(fa)
+    if rc != 0:
+        fail(f"microbench main exited {rc}")
+    line = out.getvalue().strip().splitlines()[-1]
+    print("microbench " + line, flush=True)
+    bench = json.loads(line)
+    release(torch)
+    print(f"microbench launches {counts}, by design {designs}", flush=True)
+    for name, by_design in zip(("K1", "K2", "K3"), designs):
+        if not by_design["sm90"] or by_design["fma"]:
+            fail(f"microbench: {name} launched {by_design}, not sm90 alone")
+    times = {key: bench[key] for key in (
+        "flash_ms", "xla_ms", "flash_grad_ms", "xla_grad_ms")}
+    times.update({f"moe_{key}": bench["moe"][key]
+                  for key in ("fwd_ms", "grad_ms")})
+    missing = [key for key, t in times.items() if t is None]
+    if missing:
+        fail(f"microbench timings read null: {missing}")
+
+    b, s, h, d = (MICROBENCH_SHAPE[x] for x in "bshd")
+    q, k, v = microbench.attention_inputs(b, s, h, d, "cuda")
+    check_k1(torch, fa, f"K1 bfloat16 causal=1 b={b} s={s} h={h} d={d} "
+             "(the microbench's inputs)", q, k, v, True)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=True)
+    bound = fa.forward_tolerance(q, k, v, o_ref, lse_ref,
+                                 causal=True).max().item()
+    err = bench["flash_max_abs_err_vs_f32_ref"]
+    print(f"microbench max|O - O_f32| {err} within the largest bound "
+          f"{bound:.5f}", flush=True)
+    if not 0 <= err <= bound:
+        fail(f"microbench max error {err} beyond forward_tolerance {bound}")
+    del q, k, v, o_ref, lse_ref
+    release(torch)
+
+    rows = attention_rows(torch, fa, card, MICROBENCH_SHAPE, True,
+                          "microbench")
+    k1 = rows["K1"]
+    apart = abs(bench["flash_ms"] - k1["ms"]) / k1["ms"]
+    print(f"[{card}] microbench flash_ms {bench['flash_ms']} (timed_chain: a "
+          f"captured chain of 20) vs K1 device_ms {k1['ms']:.4f} "
+          f"({100 * apart:.1f}% apart) | xla_ms {bench['xla_ms']} (the plain "
+          f"f32 body) | sdpa {k1['library_ms']:.4f} ms | flash_grad_ms "
+          f"{bench['flash_grad_ms']} vs xla_grad_ms {bench['xla_grad_ms']}",
+          flush=True)
+    if apart > MICROBENCH_AGREE:
+        fail(f"microbench flash_ms and K1's device ms are {100 * apart:.1f}% "
+             "apart")
+    release(torch)
+    return counts, rows, bench
+
+
 def free_port() -> int:
     import socket
 
@@ -2341,6 +2377,8 @@ def main() -> None:
     seq = timed("sequence and pipeline", phase_seq, torch, fa, card)
     print("seq " + json.dumps({k: {x: y for x, y in v.items() if x != "rows"}
                                for k, v in seq.items()}))
+    micro_counts, micro_rows, _ = timed("microbench", phase_microbench, torch,
+                                        fa, card)
     print(f"phases: {sum(walls.values()):.1f} s in all, "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
 
@@ -2374,6 +2412,9 @@ def main() -> None:
         # at the training slice's shape in microbatches of 2 rows
         *(kernel_entry(key, "@pipeline", seq["pipeline"]["launches"][i],
                        seq["pipeline"]["rows"][key])
+          for i, key in enumerate(("K1", "K2", "K3"))),
+        # the microbench of phase 17 at bench.py's attention shape
+        *(kernel_entry(key, "@microbench", micro_counts[i], micro_rows[key])
           for i, key in enumerate(("K1", "K2", "K3"))),
     ]}))
     print(f"card: {card_line()}")

@@ -27,6 +27,7 @@ per root, the median of every metric over that root's processes.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -42,22 +43,16 @@ PARAMS = {
 METRICS = ("prefill_ms", "decode_ms", "k1_host_us", "tokens_per_s")
 
 
-def _events_ms(torch, fn, iters: int):
-    """Per-call CUDA-event time of ``iters`` back-to-back calls, REPS times."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return times
+def microbench():
+    """This checkout's ``cron_operator_tpu_torch/ops/microbench.py``, loaded
+    by path: its timers time every root measured, whichever port a root
+    holds (the module imports nothing of the port at module level)."""
+    path = (Path(__file__).resolve().parents[1] / "cron_operator_tpu_torch"
+            / "ops" / "microbench.py")
+    spec = importlib.util.spec_from_file_location("ab_microbench", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _host_us(torch, fn, iters: int = 200):
@@ -87,6 +82,7 @@ def measure(root: Path) -> dict:
     from cron_operator_tpu_torch.ops import _build
     from cron_operator_tpu_torch.workloads.entrypoints import generate_job
 
+    event_ms = microbench().event_ms
     pkg_root = Path(cron_operator_tpu_torch.__file__).resolve().parents[1]
     if pkg_root != root:
         raise SystemExit(f"imported the port from {pkg_root}, not {root}")
@@ -104,8 +100,8 @@ def measure(root: Path) -> dict:
                            device="cuda")
     with torch.inference_mode():
         cache = model.new_cache(8)
-        series = {"prefill_ms": _events_ms(
-            torch, lambda: model.prefill(prompt, cache), iters=3)}
+        series = {"prefill_ms": event_ms(
+            torch, lambda: model.prefill(prompt, cache), 3, REPS)}
         token = prompt[:, -1:]
 
         def decode_step():
@@ -117,7 +113,7 @@ def measure(root: Path) -> dict:
                 cache.pos = 512
             model.decode(token, cache)
 
-        series["decode_ms"] = _events_ms(torch, decode_step, iters=20)
+        series["decode_ms"] = event_ms(torch, decode_step, 20, REPS)
     qkv = torch.randn(8, 512, 3, 12, 64, generator=gen,
                       device="cuda").to(torch.bfloat16)
     q, k, v = qkv.unbind(2)

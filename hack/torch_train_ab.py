@@ -41,11 +41,10 @@ from __future__ import annotations
 import os
 import statistics
 import sys
-import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from torch_serving_ab import REPS, _events_ms, compare  # noqa: E402
+from torch_serving_ab import REPS, compare, microbench  # noqa: E402
 
 B, S, H, D = 8, 1024, 12, 64
 PARAMS = {"size": "base", "batch_size": str(B), "seq_len": str(S),
@@ -53,33 +52,6 @@ PARAMS = {"size": "base", "batch_size": str(B), "seq_len": str(S),
 MOE = {"moe_every": "2", "num_experts": "8"}
 MOE_ENV = "TORCH_TRAIN_AB_MOE"  # set by --moe for the measuring processes
 METRICS = ("step_ms", "device_ms", "dispatch_ms", "k2_ms", "tokens_per_s")
-
-
-def _held_ms(torch, fn, iters: int):
-    """Per-call CUDA-event time of ``iters`` back-to-back calls, REPS times,
-    enqueued while the card sleeps for twice the host's enqueue time, so
-    that the events see the card's time alone."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    hold_cycles = int(2 * host_s * 2e9) + 1_000_000  # the SM clock is <= 2 GHz
-    times = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(hold_cycles)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return times
 
 
 def _device_busy_ms(torch, fn, iters: int = 3) -> float:
@@ -116,6 +88,7 @@ def measure(root: Path) -> dict:
     from cron_operator_tpu_torch.workloads.entrypoints import gpt
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
+    event_ms = microbench().event_ms
     pkg_root = Path(cron_operator_tpu_torch.__file__).resolve().parents[1]
     if pkg_root != root:
         raise SystemExit(f"imported the port from {pkg_root}, not {root}")
@@ -136,7 +109,7 @@ def measure(root: Path) -> dict:
     def step():
         dispatch.append(trainer.step(batch, sync=False).dispatch_s * 1e3)
 
-    series = {"step_ms": _events_ms(torch, step, 5)}
+    series = {"step_ms": event_ms(torch, step, 5, REPS)}
     series["dispatch_ms"] = dispatch[-5 * REPS:]
     out["device_ms"] = _device_busy_ms(torch, step)
     del model, trainer, batch
@@ -150,9 +123,10 @@ def measure(root: Path) -> dict:
                      device="cuda").to(torch.bfloat16)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     delta = fa._delta(o, do)
-    series["k2_ms"] = _held_ms(
+    series["k2_ms"] = event_ms(
         torch, lambda: fa.flash_attention_dq(q, k, v, do, lse, delta,
-                                             causal=True), 20)
+                                             causal=True), 20, REPS,
+        held=True)
     for name, values in series.items():
         out[name] = statistics.median(values)
         out[name + "_min_max"] = [min(values), max(values)]

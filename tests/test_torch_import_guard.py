@@ -15,6 +15,9 @@ FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     ROOT / "hack" / "torch_train_ab.py", ROOT / "hack" / "torch_mesh_cards.py",
     ROOT / "hack" / "torch_mesh_readings.py",
     ROOT / "hack" / "torch_gloo_cuda_probe.py",
+    # the perf tooling: the harness, the step bench and the MFU scripts
+    ROOT / "hack" / "torch_bench.py", ROOT / "hack" / "torch_step_bench.py",
+    ROOT / "hack" / "torch_mfu_probe.py", ROOT / "hack" / "torch_mfu_attrib.py",
     # the rank bodies of the gloo worlds import the port alone
     ROOT / "tests" / "torch_mesh_ranks.py",
 ]
