@@ -105,9 +105,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
     (``--mesh-rank``) as two ranks of a gloo group on ``cuda:0`` (NCCL
     refuses two ranks on one device); each calls ``gpt`` at GPT-2 small
     widths (b 8 x 1024 global, AdamW, ``data=host``, 3 steps) under a
-    strategy of ``MESH_STRATEGIES`` not in ``MESH_LEFT_OUT`` (``devices=2``:
+    strategy of ``MESH_STRATEGIES`` not in ``MESH_LEFT_OUT`` (``devices=2``,
+    the plain path under ``DistributedDataParallel``, eager over gloo:
     gloo's functional all-gather of CUDA tensors crashes under torch 2.11,
-    which ``fsdp``, ``tensor`` and ``expert`` need). Each rank's K1, K2 and
+    which ``tensor`` and ``expert`` need, and FSDP2 over gloo on CUDA
+    tensors is untried). Each rank's K1, K2 and
     K3 must launch 36 times, all sm90, at the strategy's local (batch,
     heads), counts set to 0 just before the job and read just after; both
     ranks report the same losses; against a one-rank run of the same
@@ -139,7 +141,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
     the output and the gradients of x and of each rank's stage against
     the two layers run in sequence on the rank, within ``PIPE_REL_BOUND``
     (relative L2; the other layer's gradients must fall outside it), and
-    K1-K3 launched ``PIPE_TICKS`` times each a rank, all sm90. The ring's
+    K1-K3 launched ``pipe_ticks(2)`` times each a rank, all sm90. The ring's
     K/V hops and the pipeline's activation hops cross the gloo group
     through pinned host buffers (``parallel.ring._hop_through_host``:
     gloo's send and receive take host memory only).
@@ -154,7 +156,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
     versions, timed (``attention_rows``); and ``flash_ms`` (a CUDA graph
     of 20 K1 calls, by ``timed_chain``) within ``MICROBENCH_AGREE`` of
     K1's ``device_ms``.
-18. A ``kernels`` JSON line, the card line, and last the result line
+18. The meshed step captured over NCCL: the script starts itself once
+    (``--mesh-rank``) as the one rank of an NCCL process group on
+    ``cuda:0`` (asynchronous error handling off), which calls ``gpt`` at
+    GPT-2 small widths (b 8 x 1024, AdamW, ``data=host``) over a one-rank
+    mesh: the plain data-parallel path (``DistributedDataParallel``), 24
+    steps in calls of 8, the first ``MESH_GRAPH_WARMUP`` eager and every
+    later one a replay of the step captured with its collectives; K1, K2
+    and K3 must launch 288 times each, all sm90 (counts set to 0 just
+    before the job and read just after, a replay counted once); the same
+    job in calls of one step (every step eager) must leave the same losses
+    and the same parameter bits; a profiled replayed call must show an
+    NCCL kernel; its step ms (a replayed call, CUDA events) is printed
+    beside phase 6's unwrapped graphed step.
+19. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
 
@@ -1652,13 +1667,17 @@ MESH_STRATEGIES = {
 # tensors (_c10d_functional.all_gather_into_tensor, then wait_tensor, as
 # DTensor's Shard -> Replicate redistribution issues it) ends the process
 # with SIGSEGV; the plain dist.all_gather_into_tensor of the same tensors
-# works. fsdp and tensor gather parameters and activations that way in the
-# forward, expert in the backward (the gradient of a Replicate -> Shard
-# slice of the expert-stacked products); data needs only all-reduce. The
-# CPU tests train all four in gloo worlds.
+# works. tensor gathers parameters and activations that way in the forward,
+# expert in the backward (the gradient of a Replicate -> Shard slice of the
+# expert-stacked products); data trains under DDP, which needs only
+# all-reduce. fsdp trains under FSDP2, whose all-gathers and reduce-scatters
+# of CUDA tensors over gloo no run has tried (hack/torch_mesh_cards.py runs
+# it over NCCL). The CPU tests train all four in gloo worlds.
 _GATHER = ("gloo functional all_gather_into_tensor on CUDA tensors "
            "(SIGSEGV, torch 2.11)")
-MESH_LEFT_OUT = {"fsdp": _GATHER, "tensor": _GATHER, "expert": _GATHER}
+MESH_LEFT_OUT = {"fsdp": "FSDP2's collectives of CUDA tensors over gloo "
+                         "(untried; over NCCL on several cards)",
+                 "tensor": _GATHER, "expert": _GATHER}
 # Every check of a mesh run holds it against a one-rank run of the same
 # global batches (the reference), on two readings:
 # - the per-step loss gap. Sound runs differ by bf16 products whose row
@@ -1771,9 +1790,11 @@ def mesh_rank(rank: int, world: int, local_rank: int, backend: str,
               profile: bool) -> None:
     """One rank of a mesh run (``chip_smoke.py --mesh-rank``): joins a
     process group of ``world`` ranks over ``backend`` on
-    ``cuda:local_rank`` (none for a world of one), runs ``task`` (``gpt``
-    or ``bert``: :func:`run_gpt` of that job, with the sequence readings
-    under ``seq``; ``pipeline``: :func:`run_pipeline`) and writes its
+    ``cuda:local_rank`` (none for a gloo world of one; NCCL's asynchronous
+    error handling off, which a captured step needs), runs ``task``
+    (``gpt`` or ``bert``: :func:`run_gpt` of that job, with the sequence
+    readings under ``seq``; ``pipeline``: :func:`run_pipeline` over
+    ``world`` stages; ``graph``: :func:`run_mesh_graph`) and writes its
     result to ``out`` (the parameter change to ``out.delta.pt``)."""
     import faulthandler
 
@@ -1784,28 +1805,34 @@ def mesh_rank(rank: int, world: int, local_rank: int, backend: str,
     import torch.distributed as dist
 
     torch.cuda.set_device(local_rank)
-    if world > 1:
+    grouped = world > 1 or backend == "nccl"
+    if backend == "nccl":
+        os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "0"
+    if grouped:
         dist.init_process_group(backend, rank=rank, world_size=world,
                                 init_method=f"tcp://127.0.0.1:{port}")
     try:
         if task == "pipeline":
-            result = run_pipeline(torch)
+            result = run_pipeline(torch, world)
+        elif task == "graph":
+            result = run_mesh_graph(torch, params, out)
         else:
             seq = int(params.get("seq", 1)) > 1
             result = run_gpt(torch, params, out + ".delta.pt", profile,
                              job=task, readings=seq_readings if seq else None)
         Path(out).write_text(json.dumps(result))
     finally:
-        if world > 1:
+        if grouped:
             dist.destroy_process_group()
 
 
 def spawn_ranks(world: int, params: dict, root: str, name: str, *,
                 backend: str = "gloo", cards: int = 1,
-                profile: bool = False, task: str = "gpt") -> list:
+                profile: bool = False, task: str = "gpt",
+                timeout: float = 600) -> list:
     """``world`` rank processes of one mesh run of ``task`` (rank r on card
-    r % ``cards``), waited for; their results. A rank that fails fails the
-    script, with the end of its stderr."""
+    r % ``cards``), waited for up to ``timeout`` s each; their results. A
+    rank that fails fails the script, with the end of its stderr."""
     port = free_port()
     outs = [os.path.join(root, f"{name}.{r}.json") for r in range(world)]
     procs = []
@@ -1819,7 +1846,7 @@ def spawn_ranks(world: int, params: dict, root: str, name: str, *,
                 cwd=HERE, stdout=subprocess.DEVNULL, stderr=err))
     try:
         for r, proc in enumerate(procs):
-            proc.wait(timeout=600)
+            proc.wait(timeout=timeout)
             if proc.returncode:
                 err = Path(outs[r] + ".stderr").read_text()[-3000:]
                 fail(f"mesh {name}: rank {r} exited {proc.returncode}:\n{err}")
@@ -1976,7 +2003,12 @@ SEQ_RUNS = {
 }
 SEQ_LAYERS = 12  # GPT-2 small and BERT-base: one attention body a layer
 PIPE_SHAPE = dict(b=8, s=1024, hidden=768, microbatches=4)
-PIPE_TICKS = PIPE_SHAPE["microbatches"] + 2 - 1  # stage_fn calls a rank
+
+
+def pipe_ticks(stages: int) -> int:
+    """stage_fn calls a rank of a pipe of ``stages``."""
+    return PIPE_SHAPE["microbatches"] + stages - 1
+
 # The pipeline against the same two layers in sequence, relative L2 of each
 # compared tensor: bf16 products over microbatches of 2 rows against the
 # whole batch round in other cuBLAS tiles (a few bf16 ulps, about 0.4%
@@ -2026,16 +2058,17 @@ def rel_l2(torch, a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def run_pipeline(torch) -> dict:
-    """On each of two ranks: ``spmd_pipeline`` over a pipe-2 mesh of two
-    port ``DecoderLayer``s at GPT-2 small width (weights from seed 0, f32
+def run_pipeline(torch, stages: int = 2) -> dict:
+    """On each of ``stages`` ranks: ``spmd_pipeline`` over a pipe mesh of
+    ``stages`` port ``DecoderLayer``s at GPT-2 small width (weights from
+    seed 0, f32
     parameters placed by ``pipeline_param_sharding``, bf16 products) on x
     ``[8, 1024, 768]`` bf16 in 4 microbatches, K1-K3 counted over its
-    forward and backward (the loss ``mean(y ** 2)`` in f32); then the two
+    forward and backward (the loss ``mean(y ** 2)`` in f32); then the
     layers in sequence on this rank from the same weights and x. Returns
     the counts and designs, and the relative L2 of the output, x's
     gradient and this rank's stage gradients against the sequence's (and
-    of the stage's against the other layer's)."""
+    the least of the stage's against the other layers')."""
     from torch.distributed.tensor import distribute_tensor
     from torch.func import functional_call
 
@@ -2051,12 +2084,12 @@ def run_pipeline(torch) -> dict:
 
     cfg = GPTConfig()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    layers = [DecoderLayer(cfg, device="cuda") for _ in range(2)]
+    layers = [DecoderLayer(cfg, device="cuda") for _ in range(stages)]
     for layer in layers:
         init_flax_layers_(layer, gen)
     x = torch.randn(PIPE_SHAPE["b"], PIPE_SHAPE["s"], PIPE_SHAPE["hidden"],
                     device="cuda", generator=gen).to(cfg.dtype)
-    mesh = mesh_for_devices(device_type="cuda", pipe=2)
+    mesh = mesh_for_devices(device_type="cuda", pipe=stages)
     stage = mesh.get_local_rank("pipe")
     stacked = stack_pipeline_stages([
         {n: p.detach() for n, p in layer.named_parameters()}
@@ -2083,15 +2116,57 @@ def run_pipeline(torch) -> dict:
     ys.float().square().mean().backward()
     grads = {n: placed[n].grad.to_local()[0] for n in placed}
     mine = dict(layers[stage].named_parameters())
-    other = dict(layers[1 - stage].named_parameters())
+    others = [dict(layer.named_parameters())
+              for i, layer in enumerate(layers) if i != stage]
     return {
         "counts": counts, "designs": designs,
         "y": rel_l2(torch, y, ys), "x_grad": rel_l2(torch, xp.grad, xs.grad),
         "stage_grads": max(rel_l2(torch, grads[n], mine[n].grad)
                            for n in grads if mine[n].grad.norm() > 0),
         "other_layer": min(rel_l2(torch, grads[n], other[n].grad)
-                           for n in grads if other[n].grad.norm() > 0),
+                           for other in others for n in grads
+                           if other[n].grad.norm() > 0),
     }
+
+
+def seq_problems(torch, ranks: list, ref: dict):
+    """Every check of a sequence-parallel run against its one-rank
+    ``attention=xla`` reference: K1-K3 0 launches on every rank, every
+    rank's losses equal, the loss gap and the update distance within their
+    bounds. Returns the problems and the two readings."""
+    gap, dist = mesh_readings(torch, ranks, ref)
+    problems = [f"rank {r} launched K1/K2/K3 {got['counts']} times, not 0"
+                for r, got in enumerate(ranks) if got["counts"] != [0, 0, 0]]
+    if any(got["losses"] != ranks[0]["losses"] for got in ranks):
+        problems.append("ranks report different losses "
+                        f"{[got['losses'] for got in ranks]}")
+    if not gap <= MESH_LOSS_BOUND:
+        problems.append(f"losses {ranks[0]['losses']} not within "
+                        f"{MESH_LOSS_BOUND} of {ref['losses']}")
+    if not dist <= MESH_UPDATE_BOUND:
+        problems.append(f"update distance {dist} above {MESH_UPDATE_BOUND}")
+    return problems, (gap, dist)
+
+
+def pipeline_problems(ranks: list, stages: int) -> list:
+    """Every check of a pipeline run over ``stages`` ranks: K1-K3 launched
+    ``pipe_ticks(stages)`` times each a rank, all sm90; the output, x's
+    gradient and each stage's gradients within PIPE_REL_BOUND of the
+    layers in sequence, and the other layers' gradients outside it."""
+    problems = []
+    for r, got in enumerate(ranks):
+        if got["counts"] != [pipe_ticks(stages)] * 3:
+            problems.append(f"rank {r} launched K1/K2/K3 {got['counts']} "
+                            f"times, not {pipe_ticks(stages)} each")
+        if any(d["sm90"] != n for d, n in zip(got["designs"], got["counts"])):
+            problems.append(f"rank {r} launches by design {got['designs']}: "
+                            "not all sm90")
+        worst = max(got["y"], got["x_grad"], got["stage_grads"])
+        if not (worst <= PIPE_REL_BOUND < got["other_layer"]):
+            problems.append(f"rank {r}: relative L2 {worst} (bound "
+                            f"{PIPE_REL_BOUND}) or the other layers' "
+                            f"{got['other_layer']} within it")
+    return problems
 
 
 def phase_seq(torch, fa, card):
@@ -2109,19 +2184,7 @@ def phase_seq(torch, fa, card):
             frozen = frozen_reading(torch, {"ref": ref}, root, plain, "ref",
                                     job)
             ranks = spawn_ranks(2, params, root, name, task=job)
-            gap, dist = mesh_readings(torch, ranks, ref)
-            problems = [f"rank {r} launched K1/K2/K3 {got['counts']} times, "
-                        "not 0" for r, got in enumerate(ranks)
-                        if got["counts"] != [0, 0, 0]]
-            if any(got["losses"] != ranks[0]["losses"] for got in ranks):
-                problems.append("ranks report different losses "
-                                f"{[got['losses'] for got in ranks]}")
-            if not gap <= MESH_LOSS_BOUND:
-                problems.append(f"losses {ranks[0]['losses']} not within "
-                                f"{MESH_LOSS_BOUND} of {ref['losses']}")
-            if not dist <= MESH_UPDATE_BOUND:
-                problems.append(f"update distance {dist} above "
-                                f"{MESH_UPDATE_BOUND}")
+            problems, (gap, dist) = seq_problems(torch, ranks, ref)
             print(f"seq {name} ({job}): losses {ranks[0]['losses']} against "
                   f"one rank's attention=xla {ref['losses']}: max gap "
                   f"{gap:.6f}, update distance {dist:.6f}; lr 0 reads "
@@ -2157,17 +2220,9 @@ def phase_seq(torch, fa, card):
               f"x grad {got['x_grad']:.5f}, stage grads "
               f"{got['stage_grads']:.5f} (the other layer's "
               f"{got['other_layer']:.3f}); bound {PIPE_REL_BOUND}", flush=True)
-        if got["counts"] != [PIPE_TICKS] * 3:
-            fail(f"pipeline rank {r} launched K1/K2/K3 {got['counts']} "
-                 f"times, not {PIPE_TICKS} each")
-        if any(d["sm90"] != n for d, n in zip(got["designs"], got["counts"])):
-            fail(f"pipeline rank {r} launches by design {got['designs']}: "
-                 "not all sm90")
-        worst = max(got["y"], got["x_grad"], got["stage_grads"])
-        if not (worst <= PIPE_REL_BOUND < got["other_layer"]):
-            fail(f"pipeline rank {r}: relative L2 {worst} (bound "
-                 f"{PIPE_REL_BOUND}) or the other layer's "
-                 f"{got['other_layer']} within it")
+    problems = pipeline_problems(ranks, 2)
+    if problems:
+        fail("pipeline: " + "; ".join(problems))
     results["pipeline"] = {
         "launches": [sum(g["counts"][i] for g in ranks) for i in range(3)],
         **{k: max(g[k] for g in ranks) for k in ("y", "x_grad",
@@ -2249,6 +2304,153 @@ def phase_microbench(torch, fa, card):
              "apart")
     release(torch)
     return counts, rows, bench
+
+
+# Phase 18: the meshed step captured over NCCL on one card. One rank of a
+# one-rank NCCL process group (NCCL refuses two ranks on one card) trains
+# gpt over a one-rank mesh: the plain data-parallel path (DDP), whose calls
+# of GRAPH_CHUNK steps replay one captured step with the collectives inside
+# it, after MESH_GRAPH_WARMUP eager steps.
+GRAPH_MESH_PARAMS = {**TRAIN_PARAMS, "steps": "24", "data": "host",
+                     "steps_per_call": str(GRAPH_CHUNK)}
+GRAPH_MESH_STEPS = int(GRAPH_MESH_PARAMS["steps"])
+# its step ms against phase 6's unwrapped graphed step: printed, not a gate
+GRAPH_MESH_AGREE = 0.10
+# NCCL's kernels by name: its collectives' (ncclDevKernel_...) and, in a
+# one-rank group, the reduce of a scaled all-reduce (onerank.cu's
+# oneRankReduce). At one rank NCCL launches nothing for an in-place sum,
+# which DDP's gradient buckets are; the loss's average is a scaled one.
+NCCL_KERNELS = ("nccl", "onerank")
+
+
+def replay_kernels(torch, fn) -> dict:
+    """``{kernel name: (device ms, launches)}`` of one call of ``fn`` under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)}
+
+
+def run_mesh_graph(torch, params: dict, out: str) -> dict:
+    """On the rank of a one-rank NCCL group: :func:`run_gpt` of ``params``
+    (calls of GRAPH_CHUNK steps, replayed after the warm-up), then one more
+    call timed (CUDA events, median of 3) and one profiled (the NCCL
+    kernels inside the replay); then :func:`run_gpt` of the same job with
+    ``steps_per_call`` 1 (every step eager). Returns the graphed run's
+    result with the eager run's losses and whether every parameter after
+    the two runs is the same bits."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    finals = {}
+
+    def snapshot(tr):  # this rank's values (its shards under FSDP2)
+        return [(p.to_local() if isinstance(p, DTensor) else p).detach()
+                .clone() for p in tr.model.parameters()]
+
+    def graph_readings(tr, batch):
+        finals["graph"] = snapshot(tr)
+        replayed = tr.replayed_steps
+        batches = [batch] * GRAPH_CHUNK
+
+        def call():
+            tr.step(batches, sync=False)
+
+        step_ms = median_ms(torch, call, iters=1, reps=3,
+                            warmup=1) / GRAPH_CHUNK
+        kernels = replay_kernels(torch, call)
+        return {"replayed": replayed, "step_ms": step_ms,
+                "nccl": {k: v for k, v in kernels.items()
+                         if any(m in k.lower() for m in NCCL_KERNELS)},
+                "busy_ms": sum(ms for ms, _ in kernels.values())
+                / GRAPH_CHUNK,
+                "backend": dist.get_backend(),
+                "plain": not any(isinstance(p, DTensor)
+                                 for p in tr.model.parameters())}
+
+    def eager_readings(tr, batch):
+        finals["eager"] = snapshot(tr)
+        return {}
+
+    graph = run_gpt(torch, params, out + ".graph.pt",
+                    readings=graph_readings)
+    release(torch)
+    eager = run_gpt(torch, {**params, "steps_per_call": "1"},
+                    out + ".eager.pt", readings=eager_readings)
+    graph["eager_losses"] = eager["losses"]
+    graph["same_bits"] = all(torch.equal(a, b) for a, b in
+                             zip(finals["graph"], finals["eager"]))
+    return graph
+
+
+def phase_mesh_graph(torch, card, unwrapped_ms: float) -> dict:
+    """The rank of :func:`run_mesh_graph` (a process of its own, NCCL on
+    ``cuda:0``), held to: K1, K2 and K3 launched GRAPH_MESH_STEPS x
+    MESH_LAYERS times each, all sm90, at the training slice's shape (the
+    replays counted once each); the plain path on NCCL; every step after
+    MESH_GRAPH_WARMUP replayed; the losses and every parameter equal to the
+    eager run's to the bit; an NCCL kernel inside the profiled replay. Its
+    step ms is printed beside ``unwrapped_ms`` (phase 6's graphed step of
+    one card, unwrapped). Returns the launches and the readings."""
+    from cron_operator_tpu_torch.workloads.train import MESH_GRAPH_WARMUP
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-graph-")
+    try:
+        (got,) = spawn_ranks(1, GRAPH_MESH_PARAMS, root, "graph",
+                             backend="nccl", task="graph")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = GRAPH_MESH_STEPS * MESH_LAYERS
+    ends = got["eager_losses"][GRAPH_CHUNK - 1::GRAPH_CHUNK]
+    problems = []
+    if got["counts"] != [want] * 3:
+        problems.append(f"K1/K2/K3 launched {got['counts']} times, not "
+                        f"{want} each")
+    if any(d["sm90"] != n for d, n in zip(got["designs"], got["counts"])):
+        problems.append(f"launches by design {got['designs']}: not all sm90")
+    if {tuple(x[1:]) for x in got["shapes"]} != {
+            (TRAIN_SHAPE["b"], TRAIN_SHAPE["h"])}:
+        problems.append(f"launched at (batch, heads) {got['shapes']}")
+    if got["backend"] != "nccl" or not got["plain"]:
+        problems.append(f"trained over {got['backend']} with plain "
+                        f"parameters {got['plain']}")
+    if got["replayed"] != GRAPH_MESH_STEPS - MESH_GRAPH_WARMUP:
+        problems.append(f"{got['replayed']} steps replayed, not "
+                        f"{GRAPH_MESH_STEPS - MESH_GRAPH_WARMUP}")
+    if not all(math.isfinite(x) for x in got["losses"]):
+        problems.append(f"losses {got['losses']} not finite")
+    if got["losses"] != ends or not got["same_bits"]:
+        problems.append(f"graphed losses {got['losses']} against eager "
+                        f"{ends}, parameters the same bits: "
+                        f"{got['same_bits']}")
+    if not got["nccl"]:
+        problems.append("no NCCL kernel in the profiled replay")
+    print(f"mesh graph: {GRAPH_MESH_STEPS} steps in calls of {GRAPH_CHUNK} "
+          f"over a one-rank NCCL group, {MESH_GRAPH_WARMUP} eager then "
+          f"{got['replayed']} replayed; losses {got['losses']} == eager "
+          f"{ends}: {got['losses'] == ends}, parameters the same bits: "
+          f"{got['same_bits']}; K1/K2/K3 {got['counts']}; NCCL kernels in "
+          f"a replayed call of {GRAPH_CHUNK}: {got['nccl']}", flush=True)
+    if problems:
+        fail("mesh graph: " + "; ".join(problems))
+    ratio = got["step_ms"] / unwrapped_ms
+    print(f"[{card}] mesh graph: {got['step_ms']:.3f} ms a step (a replayed "
+          f"call of {GRAPH_CHUNK}, CUDA events, median of 3), against the "
+          f"unwrapped graphed step's {unwrapped_ms:.3f} ms: x{ratio:.4f} "
+          f"({'within' if abs(ratio - 1) <= GRAPH_MESH_AGREE else 'outside'}"
+          f" {GRAPH_MESH_AGREE:.0%}); kernels {got['busy_ms']:.3f} device ms "
+          f"a step; peak {got['peak_gib']:.2f} GiB", flush=True)
+    return {"launches": got["counts"], "step_ms": got["step_ms"],
+            "unwrapped_ms": unwrapped_ms, "ratio": ratio,
+            "nccl": got["nccl"], "replayed": got["replayed"],
+            "losses": got["losses"]}
 
 
 def free_port() -> int:
@@ -2379,6 +2581,9 @@ def main() -> None:
                                for k, v in seq.items()}))
     micro_counts, micro_rows, _ = timed("microbench", phase_microbench, torch,
                                         fa, card)
+    graph = timed("mesh graph", phase_mesh_graph, torch, card,
+                  step["graph"]["step_ms"])
+    print("mesh_graph " + json.dumps(graph))
     print(f"phases: {sum(walls.values()):.1f} s in all, "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
 
@@ -2415,6 +2620,11 @@ def main() -> None:
           for i, key in enumerate(("K1", "K2", "K3"))),
         # the microbench of phase 17 at bench.py's attention shape
         *(kernel_entry(key, "@microbench", micro_counts[i], micro_rows[key])
+          for i, key in enumerate(("K1", "K2", "K3"))),
+        # the meshed step captured over NCCL of phase 18, at the training
+        # slice's shape
+        *(kernel_entry(key, "@mesh_graph", graph["launches"][i],
+                       train_rows[key])
           for i, key in enumerate(("K1", "K2", "K3"))),
     ]}))
     print(f"card: {card_line()}")

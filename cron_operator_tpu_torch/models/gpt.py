@@ -107,7 +107,13 @@ class MoEBlock(nn.Module):
     capacity factor would drop colliding tokens (capacity 1): decode raises
     the factor to ``num_experts``, so the capacity is the batch and no token
     is dropped. Prefill keeps the training factor, as in the JAX package.
+
+    ``token_group`` is None, or on the plain data-parallel path the process
+    group whose ranks split the batch (``parallel.mesh.data_parallel`` sets
+    it): training steps then route among every rank's tokens.
     """
+
+    token_group = None
 
     def __init__(self, cfg: GPTConfig, device=None,
                  param_dtype: torch.dtype = torch.float32):
@@ -140,7 +146,8 @@ class MoEBlock(nn.Module):
             cf = max(cf, float(cfg.num_experts))
         params = {"router": self.router, "wi": self.wi, "wo": self.wo}
         y, aux = moe_ffn(params, x.reshape(b * s, d), capacity_factor=cf,
-                         compute_dtype=cfg.dtype)
+                         compute_dtype=cfg.dtype,
+                         group=None if decode else self.token_group)
         return y.reshape(b, s, d).to(cfg.dtype), aux
 
 

@@ -20,6 +20,17 @@ Axis convention (outer to inner), shared with the JAX package:
   positions split by ``batch_placements(mesh, seq_dim=...)``);
 - ``tensor`` tensor parallelism (a weight's output-features dim, heads).
 
+Two paths train over a mesh (:func:`plain_axes` picks one). A mesh whose
+axes above 1 are only ``data`` and ``fsdp`` trains plain modules
+(:func:`data_parallel`): ``DistributedDataParallel`` for ``data``, FSDP2
+``fully_shard`` per block and on the root for ``fsdp`` (replicated over
+``data`` when both are above 1), each parameter split on the dim the
+placement rule gives it; the model code sees plain tensors, and on NCCL the
+step can be captured as a CUDA graph. A mesh with ``tensor``, ``expert``,
+``seq`` or ``pipe`` above 1 places every parameter as a DTensor
+(:func:`distribute_parameters`) and DTensor's propagation places the
+collectives. The JAX package has one path, GSPMD, for every mesh.
+
 The plan half (:class:`MeshPlan`, :func:`plan_for_devices`, :func:`replan`,
 :func:`regrow`) is a copy of the JAX package's pure Python: the controller
 replans a preempted job with the JAX copy and resubmits a port job, so the
@@ -51,6 +62,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (
@@ -592,6 +604,110 @@ def distribute_parameters(model: nn.Module, mesh: Any,
     return model
 
 
+def plain_axes(mesh: Any) -> bool:
+    """Whether every axis of ``mesh`` above 1 is a batch axis (``data`` or
+    ``fsdp``): such a mesh trains plain modules (:func:`data_parallel`);
+    any other keeps DTensor parameters (:func:`distribute_parameters`)."""
+    return all(size == 1 or name in BATCH_AXES
+               for name, size in axis_sizes(mesh).items())
+
+
+def batch_group(mesh: Any):
+    """The process group of every rank of a :func:`plain_axes` mesh, over
+    which its batch rows are split: the one axis above 1 (or the only
+    axis), or with ``data`` and ``fsdp`` both above 1 the default group,
+    whose whole world the mesh must then be."""
+    big = [name for name, size in axis_sizes(mesh).items() if size > 1]
+    if len(big) == 1 or mesh.ndim == 1:
+        return mesh.get_group(big[0] if big else 0)
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(
+            f"a {axis_sizes(mesh)} mesh of {mesh.size()} ranks in a world "
+            f"of {dist.get_world_size()}: a data x fsdp mesh must be the "
+            "whole world")
+    return dist.group.WORLD
+
+
+@dataclass
+class DataParallel:
+    """A model wrapped by :func:`data_parallel`."""
+
+    module: nn.Module  # what a step calls: the DDP wrapper, or the model
+    group: Any  # :func:`batch_group`: every rank of the mesh
+    # Parameters that FSDP2 leaves whole on every rank (those the rule
+    # replicates over ``fsdp``): their gradients are this rank's, and the
+    # caller averages them over ``group``.
+    replicated: List[nn.Parameter]
+
+
+def _blocks(model: nn.Module) -> List[nn.Module]:
+    """The repeated blocks of ``model``: the children of each outermost
+    ``nn.ModuleList`` (transformer layers, ResNet blocks, MLP layers)."""
+    blocks, outer = [], []
+    for name, module in model.named_modules():
+        if isinstance(module, nn.ModuleList) and not any(
+                name.startswith(o + ".") for o in outer):
+            outer.append(name)
+            blocks.extend(module)
+    return blocks
+
+
+def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
+    """``model`` trained over a :func:`plain_axes` mesh, its parameters
+    plain tensors in the model code:
+
+    - no ``fsdp`` axis: ``DistributedDataParallel`` over :func:`batch_group`
+      (the gradients averaged by bucketed all-reduces in the backward, as
+      views of the buckets; no initial broadcast: every rank holds the same
+      values, the same seed or checkpoint, as :func:`distribute_parameters`
+      assumes; no buffers broadcast; every parameter used);
+    - an ``fsdp`` axis (:func:`plan_for_devices` names it when it is above
+      1; a mesh made from a plan that names it at 1 runs FSDP2 on one
+      rank): FSDP2 ``fully_shard`` on each block
+      (:func:`_blocks`) and on the root, over ``fsdp`` (over ``data`` x
+      ``fsdp`` when ``data`` is above 1: sharded on ``fsdp``, replicated on
+      ``data``), each parameter split on the dim :func:`sharding_for_tree`
+      gives it on ``fsdp``; the parameters it replicates there stay plain
+      (``ignored_params``) and are returned in ``replicated``. The
+      all-gathers stay f32, as the parameters are (no mixed precision).
+
+    Modules with a ``token_group`` attribute (the MoE block) get
+    :func:`batch_group`: they route over every rank's tokens, as the JAX
+    sharded trainer does (:func:`parallel.moe.moe_ffn`)."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.nn.parallel import DistributedDataParallel
+
+    group = batch_group(mesh)
+    for module in model.modules():
+        if hasattr(module, "token_group"):
+            module.token_group = group
+    sizes = axis_sizes(mesh)
+    if FSDP_AXIS not in sizes:
+        device = next(model.parameters()).device
+        ddp = DistributedDataParallel(
+            model, device_ids=[device] if device.type == "cuda" else None,
+            process_group=group, broadcast_buffers=False, init_sync=False,
+            gradient_as_bucket_view=True)
+        return DataParallel(ddp, group, [])
+    names = list(sizes)
+    rule = sharding_for_tree(model, mesh)
+    split, replicated = {}, []
+    for name, p in model.named_parameters():
+        placement = rule[name][names.index(FSDP_AXIS)]
+        if isinstance(placement, Shard):
+            split[p] = placement
+        else:
+            replicated.append(p)
+    axes = (DATA_AXIS, FSDP_AXIS) if sizes.get(DATA_AXIS, 1) > 1 else (
+        FSDP_AXIS,)
+    kw = dict(mesh=mesh[axes], shard_placement_fn=split.__getitem__,
+              ignored_params=set(replicated))
+    for block in _blocks(model):
+        fully_shard(block, **kw)
+    fully_shard(model, **kw)
+    return DataParallel(model, group, replicated)
+
+
 def batch_rows(mesh: Any, n_rows: int) -> slice:
     """The rows of an ``n_rows`` global batch that this rank holds under
     :func:`batch_placements`: the batch axes split it in order (``data``
@@ -633,6 +749,7 @@ def seq_block(mesh: Any, n_positions: int) -> slice:
 __all__ = [
     "BATCH_AXES",
     "DATA_AXIS",
+    "DataParallel",
     "EXPERT_AXIS",
     "FSDP_AXIS",
     "MeshPlan",
@@ -640,8 +757,10 @@ __all__ = [
     "SEQ_AXIS",
     "TENSOR_AXIS",
     "axis_sizes",
+    "batch_group",
     "batch_placements",
     "batch_rows",
+    "data_parallel",
     "distribute_parameters",
     "expert_stacked",
     "features_dims",
@@ -654,6 +773,7 @@ __all__ = [
     "on_local_rows",
     "placements_for_shape",
     "placements_from_spec",
+    "plain_axes",
     "plan_for_devices",
     "rank_grid",
     "regrow",

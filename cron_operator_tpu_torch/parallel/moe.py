@@ -26,7 +26,14 @@ the logits (:func:`_route`), so capacities and slots are those of one
 device and the output equals the unsharded one; under sequence
 parallelism too, where ``x`` holds every rank's positions in the global
 row-major token order and the capacity comes from the global token
-count.
+count. On the plain data-parallel path (``parallel.mesh.data_parallel``)
+the tokens are each rank's plain rows and ``moe_ffn`` takes the process
+group they are split over (``group``): the logits are gathered and routed
+alike on every rank, the capacity counts every rank's tokens, each
+expert's input is the sum over the ranks of their dispatched tokens (each
+slot holds one token, so the sum is exact), and every rank runs every
+expert on it and combines its own rows. The routes and the output are
+those of one device, as under GSPMD.
 
 Usage::
 
@@ -40,6 +47,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
@@ -128,6 +136,45 @@ def _route(logits: torch.Tensor, capacity: int):
     return fn(logits)
 
 
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows of ``x`` over ``group``, in rank order; the
+    gradient of this rank's rows sums every rank's gradient of them."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.new_empty((dist.get_world_size(group) * x.shape[0],
+                           *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        rows = grad.shape[0] // dist.get_world_size(ctx.group)
+        me = dist.get_rank(ctx.group)
+        return grad[me * rows:(me + 1) * rows], None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of ``x`` over ``group`` on every rank; each rank's gradient
+    is the sum of every rank's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 def moe_param_sharding(params: Dict[str, torch.Tensor], mesh) -> Dict[str, tuple]:
     """Placements of the MoE parameters, as the JAX function: expert-stacked
     weights (:func:`parallel.mesh.expert_stacked`) on ``Shard(0)`` over the
@@ -148,11 +195,15 @@ def moe_ffn(
     *,
     capacity_factor: float = 1.25,
     compute_dtype: Optional[torch.dtype] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mixture-of-experts FFN over a flat token batch.
 
     ``x``: ``[T, d_model]`` -> (``[T, d_model]``, aux loss). Dropped tokens
-    give zeros: compose with a residual connection.
+    give zeros: compose with a residual connection. With ``group`` (a
+    process group of more than one rank), ``x`` is this rank's part of a
+    batch split over the group's ranks in rank order, routed with every
+    rank's tokens (see the module docstring).
 
     Routing (logits, softmax, aux loss) always runs in f32. The four
     products (dispatch, the two expert matmuls, combine) run in
@@ -161,11 +212,18 @@ def moe_ffn(
     """
     T = x.shape[0]
     E = params["wi"].shape[0]
-    C = _capacity(T, E, capacity_factor)
+    ranks = 1 if group is None else dist.get_world_size(group)
+    C = _capacity(T * ranks, E, capacity_factor)
     cd = compute_dtype or x.dtype
 
     logits = x.float() @ params["router"].float()
-    combine, dispatch, aux_loss = _route(logits, C)
+    if ranks > 1:
+        combine, dispatch, aux_loss = router_top1(
+            _GatherRows.apply(logits, group), C)
+        rows = slice(dist.get_rank(group) * T, (dist.get_rank(group) + 1) * T)
+        combine, dispatch = combine[rows], dispatch[rows]
+    else:
+        combine, dispatch, aux_loss = _route(logits, C)
 
     # Matmuls that keep the expert dim leading: einsum's own reshapes would
     # merge a sharded expert dim behind another, which DTensor refuses. With
@@ -173,6 +231,8 @@ def moe_ffn(
     # the combine is a partial sum over the expert axis.
     x, dispatch, combine = x.to(cd), dispatch.to(cd), combine.to(cd)
     expert_in = torch.matmul(dispatch.permute(1, 2, 0), x)  # [E, C, d]
+    if ranks > 1:
+        expert_in = _SumOver.apply(expert_in, group)
     h = F.gelu(torch.bmm(expert_in, params["wi"].to(cd)), approximate="tanh")
     expert_out = torch.bmm(h, params["wo"].to(cd))  # [E, C, d]
     y = torch.matmul(combine.reshape(T, E * C), expert_out.reshape(E * C, -1))

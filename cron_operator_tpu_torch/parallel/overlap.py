@@ -14,9 +14,10 @@
 - :func:`chunk_schedule` cuts a run into calls of up to K steps, a copy of
   the JAX package's function.
 
-``stacked_shardings`` has no counterpart: a world above one rank runs its
-steps eagerly (no chunk is stacked), and each step's batch is placed by
-``workloads.data.local_rows`` and ``parallel.mesh.batch_placements``.
+``stacked_shardings`` has no counterpart: no chunk is stacked. Each step of
+a meshed call takes its own batch, this rank's rows of it
+(``workloads.data.local_rows``), and a meshed step is captured only on the
+plain data-parallel path over NCCL (``workloads.train``).
 """
 
 from __future__ import annotations
@@ -132,18 +133,26 @@ class StepGraph:
     device value, every varying scalar (a learning rate, a temperature) in a
     device tensor that the caller fills before the call.
 
-    The first call runs ``fn`` once eagerly on a side stream, a real step
-    that consumes ``inputs`` and returns its own outputs: it builds the
-    kernels, sets their shared-memory limits, creates the cuBLAS and cuDNN
-    handles and the optimizer's state, none of which may happen inside a
-    capture. Then it captures ``fn`` on the same stream over static copies
-    of the inputs, which records and runs nothing. Every later call copies
+    The first ``warmup`` calls run ``fn`` eagerly on a side stream, real
+    steps that consume their ``inputs`` and return their own outputs: they
+    build the kernels, set their shared-memory limits, create the cuBLAS
+    and cuDNN handles, the optimizer's state and the NCCL communicators,
+    and let ``DistributedDataParallel`` rebuild its buckets and pass its
+    first iterations' timing, none of which may happen inside a capture.
+    The last of them then captures ``fn`` on the same stream over static
+    copies of the inputs, which records and runs nothing. Every later call copies
     ``inputs`` into those static buffers, in stream order behind the replay
     before, and replays the graph; its outputs are the tensors the capture
     returned, overwritten by each replay. Every address the graph holds
     (static inputs, parameters, optimizer state, the graph's own pool, the
     kernels' TMA descriptors encoded at capture) stays fixed while it
     lives, and nothing here reallocates them.
+
+    ``stream`` is the stream the warm-up and the capture run on (default:
+    a side stream of the graph's own). A caller whose modules keep
+    per-stream state, such as ``DistributedDataParallel``'s gradient
+    accumulators, passes the stream it built them and runs its eager
+    steps on.
 
     ``generators`` (torch.Generators on the card) are registered with the
     graph, so each replay draws what the eager call would have drawn at
@@ -159,7 +168,9 @@ class StepGraph:
     """
 
     def __init__(self, fn: Callable[[Dict[str, torch.Tensor]], Any],
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (),
+                 warmup: int = 1,
+                 stream: Optional[torch.cuda.Stream] = None):
         # A bound method (the Trainer's step) is held weakly: its owner
         # holds this graph, and a strong reference back would make a cycle
         # that keeps a deleted owner's graph, and its memory pool, alive
@@ -167,6 +178,8 @@ class StepGraph:
         self._fn = (weakref.WeakMethod(fn) if inspect.ismethod(fn)
                     else lambda: fn)
         self._generators = tuple(generators)
+        self._warmup = max(1, int(warmup))
+        self._side = stream
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._inputs: Dict[str, torch.Tensor] = {}
         self._outputs: Any = None
@@ -175,7 +188,8 @@ class StepGraph:
 
     def __call__(self, inputs: Dict[str, torch.Tensor]) -> Any:
         if self._graph is None:
-            return self._warm_up_and_capture(inputs)
+            self._warmup -= 1
+            return self._warm_up(inputs, capture=self._warmup == 0)
         for name, value in inputs.items():
             self._inputs[name].copy_(value)
         self._graph.replay()
@@ -183,14 +197,21 @@ class StepGraph:
         self.replays += 1
         return self._outputs
 
-    def _warm_up_and_capture(self, inputs: Dict[str, torch.Tensor]) -> Any:
+    def _warm_up(self, inputs: Dict[str, torch.Tensor], capture: bool) -> Any:
+        """One eager call on the side stream, then the capture if
+        ``capture``."""
         device = next(iter(inputs.values())).device if inputs else None
         main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(device)
+        side = self._side
         side.wait_stream(main)
         with torch.cuda.stream(side):
             fn = self._fn()
             outputs = fn(inputs)
+            if not capture:
+                main.wait_stream(side)
+                return outputs
             self._inputs = {name: torch.empty_like(value)
                             for name, value in inputs.items()}
             graph = torch.cuda.CUDAGraph()

@@ -35,9 +35,9 @@ resolve_entrypoint` and the port runner.
 
 ``moe_every``/``num_experts`` put Switch-MoE blocks into ``gpt`` and
 ``generate_job``; the other jobs ignore them, as the JAX jobs do. The
-training jobs run over a device mesh when the process group's world has
-more than one rank (``tensor``, ``seq``, ``fsdp``, ``expert`` and
-``slices`` factor it, ``data`` takes the rest: :func:`_train_device`);
+training jobs run over a device mesh when the process has a process group
+(``tensor``, ``seq``, ``fsdp``, ``expert`` and ``slices`` factor its
+world, ``data`` takes the rest: :func:`_train_device`);
 ``generate_job`` serves on each rank's card alone. ``gpt`` and ``bert``
 split their sequences over ``seq`` and take ``attention=ring|ulysses``
 (:mod:`parallel.ring`, :mod:`parallel.ulysses`), as the JAX jobs do; the
@@ -176,10 +176,12 @@ def _train_device(ctx, sequence_parallel: bool = False):
     ``sequence_parallel`` (``gpt``, ``bert``). The mesh factors the world
     by ``tensor``, ``seq``, ``fsdp`` and ``expert``
     (:func:`parallel.mesh.mesh_for_devices`), or with ``slices > 1``
-    groups it by node (:func:`parallel.mesh.hybrid_mesh_for_slices`); a
-    world of one rank trains unwrapped (mesh None: ring and Ulysses are
-    then plain attention, as over the JAX job's one-device mesh), and axes
-    that do not divide the world raise ``ValueError``, as in the JAX
+    groups it by node (:func:`parallel.mesh.hybrid_mesh_for_slices`); one
+    process without a process group trains unwrapped (mesh None: ring and
+    Ulysses are then plain attention, as over the JAX job's one-device
+    mesh), a process group of one rank over a one-rank mesh (the plain
+    data-parallel path, as the JAX trainer always trains over a mesh), and
+    axes that do not divide the world raise ``ValueError``, as in the JAX
     package."""
     device = _device(ctx)
     p = ctx.params
@@ -198,7 +200,7 @@ def _train_device(ctx, sequence_parallel: bool = False):
             for axis in ("tensor", "seq", "fsdp", "expert")}
     slices = int(p.get("slices", 1))
     world = world_size()
-    if world == 1:
+    if world == 1 and not torch.distributed.is_initialized():
         # the JAX package's errors for axes that one device cannot hold
         plan_for_devices(1, **axes)
         group_devices_by_slice([device], slices)

@@ -100,6 +100,11 @@ def _maybe_init_distributed(params: Dict[str, str]) -> bool:
     import torch.distributed as dist
 
     backend = "gloo" if params.get("platform") == "cpu" else "nccl"
+    if backend == "nccl":
+        # NCCL's asynchronous error handling watches each collective's
+        # events from a thread of its own, which a CUDA graph capture of
+        # the meshed step refuses (PyTorch's recipe for DDP under graphs).
+        os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "0"
     logger.info("initialising torch.distributed: %s %s rank %d of %d",
                 backend, world["init_method"], world["rank"],
                 world["world_size"])

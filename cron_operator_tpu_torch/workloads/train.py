@@ -7,18 +7,32 @@ mesh (``Trainer(..., mesh=...)``, a ``DeviceMesh`` from
 :mod:`parallel.mesh` over a process group of one rank per device), as the
 JAX ``Trainer`` jits it over its mesh.
 
-Under a mesh the parameters and the whole optimizer state are DTensors
-placed by :func:`parallel.mesh.sharding_for_tree`; each rank draws or
-receives the same global batch and keeps its rows
-(:func:`workloads.data.local_rows`, the batch split over ``data`` then
-``fsdp``) and, with ``TrainConfig.seq_dim_in_batch``, its block of the
-sequence over ``seq`` (labels too with ``labels_follow_seq``), so a sharded
-run sees exactly the one-process batch; DTensor's
-propagation places the collectives (attention runs on local blocks, see
-:mod:`ops.attention`). The reported loss and the clip norm are global. A
-world above one runs its steps eagerly: no CUDA graph (a gloo collective
-cannot be captured), no staging thread, and the optimizer without
-``capturable``, its learning rate a float. A save gathers every tensor
+Under a mesh each rank draws or receives the same global batch and keeps
+its rows (:func:`workloads.data.local_rows`, the batch split over ``data``
+then ``fsdp``), so a sharded run sees exactly the one-process batch. The
+reported loss and the clip norm are global. Two paths
+(:func:`parallel.mesh.plain_axes`):
+
+- a mesh whose axes above 1 are only ``data`` and ``fsdp`` trains the plain
+  module under ``DistributedDataParallel`` or FSDP2
+  (:func:`parallel.mesh.data_parallel`): the batch is each rank's rows as
+  plain tensors, the loss an all-reduce of the ranks' means on the device,
+  and the parameters that FSDP2 leaves whole have their gradients averaged
+  here. It runs as on one card: staging, a fused ``capturable`` optimizer
+  with a device learning rate, and on an NCCL group the step captured as a
+  CUDA graph with the collectives inside it, after ``MESH_GRAPH_WARMUP``
+  eager steps. A gloo collective cannot be captured, so a gloo group runs
+  its steps eagerly.
+- any other mesh places the parameters and the whole optimizer state as
+  DTensors (:func:`parallel.mesh.sharding_for_tree`), and each rank's
+  batch as a DTensor, with ``TrainConfig.seq_dim_in_batch`` its block of
+  the sequence over ``seq`` (labels too with ``labels_follow_seq``);
+  DTensor's propagation places the collectives (attention runs on local
+  blocks, see :mod:`ops.attention`). It runs its steps eagerly: no CUDA
+  graph, no staging thread, and the optimizer without ``capturable``, its
+  learning rate a float.
+
+A save gathers every tensor
 whole on every rank and rank 0 alone writes it; a restore places each
 tensor of the (full-tensor) checkpoint as the live one is placed, so a
 checkpoint saved at one world size resumes at another
@@ -75,23 +89,29 @@ batch, as the JAX package's do.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint
 
 from cron_operator_tpu_torch.models.convert import flax_rank
 from cron_operator_tpu_torch.ops.attention import count_attention_flops
 from cron_operator_tpu_torch.parallel.mesh import (
     batch_placements,
+    data_parallel,
     distribute_parameters,
+    plain_axes,
 )
 from cron_operator_tpu_torch.parallel.overlap import StepGraph, chunk_schedule
 from cron_operator_tpu_torch.workloads.checkpoint import place_like
@@ -108,6 +128,13 @@ SGD_MOMENTUM = 0.9
 # steps_per_call="auto": steps per call, or save_every when a checkpoint
 # store is set and save_every is smaller (the JAX package's _AUTO_MAX_CHUNK)
 AUTO_STEPS_PER_CALL = 8
+# Eager steps before a meshed step is captured over NCCL (StepGraph's
+# warmup): DistributedDataParallel rebuilds its buckets after its first
+# step and times its first 10 iterations with CUDA events that it reads
+# back at the next forward (``set_runtime_stats_and_log``), which a capture
+# refuses. Under torch 2.11 DDP captures after 11 and not after 1, 2, 3, 6
+# or 10; FSDP2 after 1 (hack/torch_graph_warmup_probe.py). Both take 11.
+MESH_GRAPH_WARMUP = 11
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -188,23 +215,28 @@ class TrainConfig:
             return decay(count - warmup)
         return at
 
-    def make_optimizer(self, model: nn.Module) -> torch.optim.Optimizer:
+    def make_optimizer(self, model: nn.Module,
+                       placed: Optional[bool] = None) -> torch.optim.Optimizer:
         """optax's ``adamw`` (masked by flax rank when ``decay_mask``) or
         ``sgd(momentum=0.9)`` over ``model``'s parameters. On the card it is
         fused (AdamW also ``capturable``) and its learning rate is one f32
         device tensor that every parameter group shares; on the CPU a float.
-        Over placed parameters (DTensors, a mesh) it is not ``capturable``
+        Over ``placed`` parameters (the DTensor path of a mesh; default:
+        whether the first parameter is a DTensor) it is not ``capturable``
         and its learning rate is a float, since the steps run eagerly;
         AdamW stays fused on the card (the fused kernel takes DTensors) and
-        SGD, and AdamW on the CPU, take the foreach implementation. The
-        Trainer sets it before each step."""
+        SGD, and AdamW on the CPU, take the foreach implementation. FSDP2's
+        sharded parameters are DTensors but not ``placed``: that path runs
+        as one card's. The Trainer sets the learning rate before each
+        step."""
         if self.decay_mask and self.optimizer != "adamw":
             raise ValueError(
                 "decay_mask requires the adamw optimizer "
                 f"(got {self.optimizer!r})"
             )
         params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        placed = bool(params) and isinstance(params[0][1], DTensor)
+        if placed is None:
+            placed = bool(params) and isinstance(params[0][1], DTensor)
         is_cuda = bool(params) and params[0][1].is_cuda
         on_card = is_cuda and not placed  # capturable, a device lr
         lr = (torch.tensor(self.learning_rate, dtype=torch.float32,
@@ -251,6 +283,49 @@ def _same_step_on_every_rank(step: Optional[int]) -> None:
             f"the ranks restored different checkpoint steps {steps} (by "
             "rank; None: no checkpoint): every rank must read the same "
             "store")
+
+
+def _average_(grads: List[torch.Tensor], group) -> None:
+    """Each of ``grads`` (this rank's, whole) replaced by its mean over
+    ``group``'s ranks, in one all-reduce of their concatenation."""
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def _mean_over(value: torch.Tensor, group) -> torch.Tensor:
+    """``value``'s mean over ``group``'s ranks, in place: NCCL's average
+    (one collective, a kernel even at one rank), or gloo's sum, which has
+    no average, divided by the ranks."""
+    if dist.get_backend(group) == "nccl":
+        dist.all_reduce(value, op=dist.ReduceOp.AVG, group=group)
+        return value
+    dist.all_reduce(value, group=group)
+    return value.div_(dist.get_world_size(group))
+
+
+@contextlib.contextmanager
+def _as_one_device(model: nn.Module):
+    """``model`` as one device runs it, for the block's duration: every
+    module without its forward hooks (FSDP2's all-gathers) and without a
+    ``token_group`` (the MoE block's routing over the ranks)."""
+    saved = [(m, m._forward_pre_hooks, m._forward_hooks,
+              getattr(m, "token_group", None)) for m in model.modules()]
+    for m, _, _, group in saved:
+        m._forward_pre_hooks, m._forward_hooks = OrderedDict(), OrderedDict()
+        if group is not None:
+            m.token_group = None
+    try:
+        yield
+    finally:
+        for m, pre, post, group in saved:
+            m._forward_pre_hooks, m._forward_hooks = pre, post
+            if group is not None:
+                m.token_group = group
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
@@ -324,9 +399,11 @@ class Trainer:
     here, before anything runs, and saves every ``config.save_every``
     steps (see the module docstring).
 
-    ``mesh`` (a ``DeviceMesh`` of more than one rank) places the model's
-    parameters here (:func:`parallel.mesh.distribute_parameters`) and
-    trains over it (see the module docstring); None trains on one device.
+    ``mesh`` (a ``DeviceMesh``) wraps the model here
+    (:func:`parallel.mesh.data_parallel`) or places its parameters
+    (:func:`parallel.mesh.distribute_parameters`), and trains over it (see
+    the module docstring); None trains on one device. ``self.model`` stays
+    the model itself, whose state dict a checkpoint holds.
     """
 
     def __init__(
@@ -341,7 +418,28 @@ class Trainer:
     ):
         self.mesh = mesh
         self.config = config or TrainConfig()
-        if mesh is not None:
+        self.device = next(model.parameters()).device
+        # The plain data-parallel path: what a step calls, the group of
+        # every rank, and the parameters whose gradients are averaged here.
+        self._plain = mesh is not None and plain_axes(mesh)
+        self._forward: nn.Module = model
+        self._group = None
+        self._replicated: List[nn.Parameter] = []
+        # The plain path's steps run on a stream of their own on the card,
+        # the one DDP is built on: DDP keeps the parameters' gradient
+        # accumulators, which carry the stream they were made on, and a
+        # backward whose accumulators are on another stream (the default
+        # one) syncs with it, which a capture refuses.
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self._plain and self.device.type == "cuda"
+                        else None)
+        if self._plain:
+            with self._on_stream():
+                wrapped = data_parallel(model, mesh)
+            self._forward = wrapped.module
+            self._group = wrapped.group
+            self._replicated = wrapped.replicated
+        elif mesh is not None:
             distribute_parameters(model, mesh)
         # Rank 0 alone writes checkpoints; every rank gathers them.
         self._writes = mesh is None or mesh.get_rank() == 0
@@ -349,13 +447,13 @@ class Trainer:
         self.loss_fn = loss_fn
         self.sample_fn = sample_fn
         self.checkpoint = checkpoint
-        self.device = next(model.parameters()).device
         spc = self.config.steps_per_call
         if not (spc == "auto" or isinstance(spc, int)):
             raise ValueError(
                 f"steps_per_call must be an int or 'auto' (got {spc!r})"
             )
-        self.optimizer = self.config.make_optimizer(model)
+        self.optimizer = self.config.make_optimizer(
+            model, placed=mesh is not None and not self._plain)
         lr = self.optimizer.param_groups[0]["lr"]
         self._lr = lr if torch.is_tensor(lr) else None  # the card's
         self._lr_at = self.config.lr_at()
@@ -364,8 +462,12 @@ class Trainer:
                 self.config.data_seed)
             if sample_fn is not None else None
         )
-        on_card = self.device.type == "cuda" and mesh is None
+        on_card = self.device.type == "cuda" and (mesh is None or self._plain)
         self._copy_stream = torch.cuda.Stream(self.device) if on_card else None
+        # A call of several steps replays a captured step: on one card, or
+        # on the plain path over NCCL after MESH_GRAPH_WARMUP eager steps.
+        self._captures = on_card and (
+            mesh is None or dist.get_backend(self._group) == "nccl")
         self._graph: Optional[StepGraph] = None
         self.steps_done = 0
         if checkpoint is not None:
@@ -386,6 +488,11 @@ class Trainer:
         self._flops_counted = False
         # Wall time of the first call (see the module docstring).
         self.first_dispatch_time_s: Optional[float] = None
+
+    @property
+    def replayed_steps(self) -> int:
+        """Steps run as replays of the captured step graph so far."""
+        return 0 if self._graph is None else self._graph.replays
 
     @property
     def resolved_steps_per_call(self) -> int:
@@ -479,7 +586,8 @@ class Trainer:
         ``remat``'s recompute nor the P that the backward kernels recompute
         is counted, nor the optimizer's elementwise update; the chunked
         cross-entropy's backward, which recomputes its logits with aten
-        matmuls, is."""
+        matmuls, is. On the plain meshed path the model is counted as one
+        device runs it, at the global batch's shapes."""
         if self._flops_counted or self._batch_struct is None:
             return self._flops_per_step
         self._flops_counted = True
@@ -496,8 +604,10 @@ class Trainer:
             from torch.func import functional_call
             from torch.utils.flop_counter import FlopCounterMode
 
+            one_device = (_as_one_device(self.model) if self._plain
+                          else contextlib.nullcontext())
             with FlopCounterMode(display=False) as counter, \
-                    count_attention_flops() as attention:
+                    count_attention_flops() as attention, one_device:
                 out = functional_call(self.model, meta, (batch["x"],))
                 self._objective(out, batch["y"]).backward()
             flops = counter.get_total_flops() + attention.flops
@@ -512,16 +622,19 @@ class Trainer:
         (the step waits for them, :meth:`_Placed.wait`); tensors already on
         the card pass as they are. This is the Prefetcher's ``place``: it
         runs on the staging thread. Under a mesh each value is the global
-        batch, of which this rank keeps its rows, as a DTensor laid out by
+        batch, of which this rank keeps its rows: plain on the
+        data-parallel path, else a DTensor laid out by
         :func:`parallel.mesh.batch_placements`."""
         if isinstance(batch, _Placed):
             return batch
-        if self.mesh is not None:
+        if self.mesh is not None and not self._plain:
             return _Placed({k: v if isinstance(v, DTensor) else self._local(
                 k, torch.as_tensor(v)) for k, v in batch.items()})
         placed = _Placed()
         host = {}
         for k, v in batch.items():
+            if self._plain:
+                v = local_rows(torch.as_tensor(v), self.mesh)
             if torch.is_tensor(v) and v.device == self.device:
                 placed[k] = v
             else:
@@ -581,10 +694,10 @@ class Trainer:
             # The models draw no random numbers in their forward, so the
             # recompute needs no saved RNG state (whose read would be a
             # host call that a CUDA graph capture refuses).
-            out = checkpoint(self.model, batch["x"], use_reentrant=False,
+            out = checkpoint(self._forward, batch["x"], use_reentrant=False,
                              preserve_rng_state=False)
         else:
-            out = self.model(batch["x"])
+            out = self._forward(batch["x"])
         return self._objective(out, batch["y"])
 
     def _update(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -595,39 +708,67 @@ class Trainer:
             batch = self.sample_fn(self._data_gen)
             if self.mesh is not None:
                 batch = self.put_batch(batch)
-        if self._batch_struct is None:
-            self._batch_struct = {k: (tuple(v.shape), v.dtype)
-                                  for k, v in batch.items()}
+        if self._batch_struct is None:  # the global batch's shapes
+            rows = dist.get_world_size(self._group) if self._plain else 1
+            self._batch_struct = {
+                k: ((v.shape[0] * rows, *v.shape[1:]), v.dtype)
+                for k, v in batch.items()}
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(batch)
         loss.backward()
+        _average_([p.grad for p in self._replicated if p.grad is not None],
+                  self._group)
         if self.config.grad_clip_norm > 0:
             grads = [p.grad for g in self.optimizer.param_groups
                      for p in g["params"] if p.grad is not None]
             clip_by_global_norm_(grads, self.config.grad_clip_norm)
-        self.optimizer.step()
-        return _whole(loss.detach())
+        if not self._plain:
+            self.optimizer.step()
+            return _whole(loss.detach())
+        # FSDP2's shards are DTensors and the parameters it leaves whole
+        # are not: the fused update takes both as one list.
+        with implicit_replication():
+            self.optimizer.step()
+        return _mean_over(loss.detach().clone(), self._group)
 
     def _steps(self, batches: List[_Placed]) -> torch.Tensor:
         """Enqueues one step per batch; returns the last one's loss. On the
-        card a call of more than one step replays the step graph (captured
-        at the first such call, after its eager warm-up step)."""
+        card (or the plain meshed path over NCCL) a call of more than one
+        step replays the step graph, captured after the eager warm-up steps
+        of the first such calls (one on one card, ``MESH_GRAPH_WARMUP`` on a
+        mesh)."""
         graph = None
-        if (self.device.type == "cuda" and self.mesh is None
-                and len(batches) > 1):
+        if self._captures and len(batches) > 1:
             if self._graph is None:
                 self._graph = StepGraph(
                     self._update,
                     generators=(() if self._data_gen is None
                                 else (self._data_gen,)),
+                    warmup=1 if self.mesh is None else MESH_GRAPH_WARMUP,
+                    stream=self._stream,
                 )
             graph = self._graph
         loss = None
-        for i, batch in enumerate(batches):
-            self._set_lr(self.steps_done + i)
-            batch = batch.wait(self.device)
-            loss = graph(batch) if graph is not None else self._update(batch)
+        with self._on_stream():
+            for i, batch in enumerate(batches):
+                self._set_lr(self.steps_done + i)
+                batch = batch.wait(self.device)
+                loss = (graph(batch) if graph is not None
+                        else self._update(batch))
         return loss
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """The block on the plain path's stream, ordered after the current
+        stream's work and before its later work (nothing without one)."""
+        if self._stream is None:
+            yield
+            return
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            yield
+        current.wait_stream(self._stream)
 
     def step(
         self,
@@ -747,7 +888,7 @@ class Trainer:
             self.config.prefetch if self.config.prefetch > 0
             else (2 if self.config.stage_async else 0)
         )
-        if self.mesh is not None:
+        if self.mesh is not None and not self._plain:
             depth = 0  # one thread issues a rank's collectives
         stager = None
         prefetcher = None
@@ -843,6 +984,7 @@ def _to_host(x: Any) -> Any:
 
 __all__ = [
     "AUTO_STEPS_PER_CALL",
+    "MESH_GRAPH_WARMUP",
     "StepStats",
     "TrainConfig",
     "Trainer",

@@ -4,23 +4,39 @@ with several cards.
 
 Run from the root of a checkout::
 
-    python3 hack/torch_mesh_cards.py [N] [--profile NAME]
+    python3 hack/torch_mesh_cards.py [N] [--profile NAME] [--only A,B]
 
 ``N`` (default: every visible card; 2 or 4) ranks, one per card, join an
 NCCL process group and each call the port's ``gpt`` entrypoint on
 ``chip_smoke.MESH_PARAMS`` (GPT-2 small widths, b 8 x 1024 global, bf16
 over f32 parameters, AdamW, ``data=host``, ``steps_per_call=1``, 3 steps)
-under each strategy of ``STRATEGIES[N]``. The ranks, the one-rank
-references, the frozen reading and every check are ``chip_smoke.py``'s
-mesh phase's (``spawn_ranks``, ``mesh_references``, ``frozen_reading``,
-``mesh_problems``): every rank launches K1, K2 and K3 36 times, all sm90, at
-the strategy's local (batch, heads), reports the same losses, and holds the
-loss gap and the update distance against one rank's run within
-``MESH_LOSS_BOUND`` and ``MESH_UPDATE_BOUND``. ``--profile NAME`` runs one
-more step of strategy NAME under ``torch.profiler`` on every rank and
-prints rank 0's busy share and top kernels. It prints one JSON line per
-run (the losses, both readings, the step ms of steps 2-3 and the mesh's
-tokens/s, as the entrypoint publishes them) and the card line, and exits
+under each strategy of ``STRATEGIES[N]``. ``data`` and ``fsdp`` meshes
+train plain modules (DDP, FSDP2), the others DTensor parameters. The
+ranks, the one-rank references, the frozen reading and every check are
+``chip_smoke.py``'s mesh phase's (``spawn_ranks``, ``mesh_references``,
+``frozen_reading``, ``mesh_problems``): every rank launches K1, K2 and K3
+36 times, all sm90, at the strategy's local (batch, heads), reports the
+same losses, and holds the loss gap and the update distance against one
+rank's run within ``MESH_LOSS_BOUND`` and ``MESH_UPDATE_BOUND``.
+
+On four cards it then runs, from ``chip_smoke.py``'s phases 16 and 18:
+
+- ``SEQ_LEGS``: ring ``gpt`` under ``seq`` 2 (two ranks), ``seq`` 4 and
+  ``data`` 2 x ``seq`` 2, and Ulysses ``bert`` under ``seq`` 2, each held by
+  ``seq_problems`` against one rank's ``attention=xla`` run of the same
+  batches (with its lr-0 reading), the hops over NCCL;
+- ``PIPE_STAGES``: ``spmd_pipeline`` of 2 and of 4 GPT-2-small layers over
+  as many ranks, held by ``pipeline_problems`` (``PIPE_REL_BOUND``);
+- ``GRAPH_LEGS``: ``data`` 4 and ``fsdp`` 4 at ``GRAPH_MESH_PARAMS`` (24
+  steps in calls of 8: captured over NCCL after ``MESH_GRAPH_WARMUP`` eager
+  steps, replayed) against the same job in calls of one step: the losses
+  and every parameter the same bits on every rank, the replayed call's
+  step ms and the NCCL kernels in it.
+
+``--profile NAME`` runs one more step of strategy NAME under
+``torch.profiler`` on every rank and prints rank 0's busy share and top
+kernels; ``--only`` runs the named runs alone (the references they need
+too). It prints one JSON line per run and the card line, and exits
 non-zero on a failure. It imports nothing of JAX.
 """
 
@@ -28,6 +44,7 @@ from __future__ import annotations
 
 import json
 import shutil
+import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -47,6 +64,115 @@ STRATEGIES = {
         "tensor2": ({"tensor": "2"}, (8, 6)),
         "expert2": ({**MOE, "expert": "2"}, (8, 12))},
 }
+# name: (ranks, job, params over MESH_PARAMS); the reference is one rank's
+# run of the job at attention=xla
+SEQ_LEGS = {
+    "seq2_ring": (2, "gpt", {"attention": "ring", "seq": "2"}),
+    "seq4_ring": (4, "gpt", {"attention": "ring", "seq": "4"}),
+    "data2_seq2": (4, "gpt", {"attention": "ring", "seq": "2"}),
+    "seq2_ulysses": (2, "bert", {"seq_len": "512", "attention": "ulysses",
+                                 "seq": "2"}),
+}
+PIPE_STAGES = (2, 4)
+# name: params over GRAPH_MESH_PARAMS, K1-K3's local (batch, heads)
+GRAPH_LEGS = {"data4_graph": ({"devices": "4"}, (2, 12)),
+              "fsdp4_graph": ({"fsdp": "4"}, (2, 12))}
+LEG_TIMEOUT_S = 240  # a rank of a leg that runs longer fails the leg
+
+
+def attempt(name: str, leg) -> bool:
+    """``leg()`` (which returns whether it failed); a rank that failed or
+    timed out (``chip_smoke.fail``'s exit, the wait's timeout) fails this
+    leg alone, and the script goes on to the next. Returns whether it
+    failed."""
+    try:
+        return leg()
+    except (SystemExit, subprocess.TimeoutExpired) as err:
+        print(json.dumps({"run": name, "problems": [repr(err)]}), flush=True)
+        return True
+
+
+def seq_leg(smoke, torch, root, refs, name) -> bool:
+    """One sequence-parallel leg over NCCL (its reference first, once per
+    job and params); returns whether it failed."""
+    world, job, extra = SEQ_LEGS[name]
+    params = {**smoke.MESH_PARAMS, **extra}
+    plain = {k: v for k, v in params.items() if k != "seq"}
+    plain["attention"] = "xla"
+    key = json.dumps([job, plain], sort_keys=True)
+    if key not in refs:
+        (ref,) = smoke.spawn_ranks(1, plain, root, f"ref_{name}", task=job,
+                                   timeout=LEG_TIMEOUT_S)
+        frozen = smoke.frozen_reading(torch, {"ref": ref}, root, plain,
+                                      "ref", job)
+        refs[key] = ref
+        print(json.dumps({"run": f"one rank ({job}, attention=xla)",
+                          "losses": ref["losses"],
+                          "step_ms": ref["step_s"] * 1e3, "lr0": frozen}),
+              flush=True)
+    ranks = smoke.spawn_ranks(world, params, root, name, backend="nccl",
+                              cards=world, task=job, timeout=LEG_TIMEOUT_S)
+    problems, (gap, dist) = smoke.seq_problems(torch, ranks, refs[key])
+    got = ranks[0]
+    print(json.dumps({
+        "run": name, "cards": world, "job": job, "params": extra,
+        "losses": got["losses"], "loss_gap": gap, "update_distance": dist,
+        "step_ms": got["step_s"] * 1e3, "tokens_per_s": got["tokens_per_s"],
+        "body_device_ms": got["body_device_ms"],
+        "step_device_ms": got["step_device_ms"],
+        "body_share": got["body_share"],
+        "peak_gib": max(r["peak_gib"] for r in ranks),
+        "problems": problems}), flush=True)
+    return bool(problems)
+
+
+def pipe_leg(smoke, stages, root) -> bool:
+    """``spmd_pipeline`` over ``stages`` ranks; returns whether it
+    failed."""
+    ranks = smoke.spawn_ranks(stages, {}, root, f"pipe{stages}",
+                              backend="nccl", cards=stages, task="pipeline",
+                              timeout=LEG_TIMEOUT_S)
+    problems = smoke.pipeline_problems(ranks, stages)
+    print(json.dumps({
+        "run": f"pipe{stages}", "cards": stages,
+        "launches_per_rank": ranks[0]["counts"],
+        **{k: max(r[k] for r in ranks)
+           for k in ("y", "x_grad", "stage_grads")},
+        "other_layers": min(r["other_layer"] for r in ranks),
+        "bound": smoke.PIPE_REL_BOUND, "problems": problems}), flush=True)
+    return bool(problems)
+
+
+def graph_leg(smoke, name, root) -> bool:
+    """A captured meshed step on four cards against its eager run; returns
+    whether it failed."""
+    from cron_operator_tpu_torch.workloads.train import MESH_GRAPH_WARMUP
+
+    extra, local = GRAPH_LEGS[name]
+    ranks = smoke.spawn_ranks(4, {**smoke.GRAPH_MESH_PARAMS, **extra}, root,
+                              name, backend="nccl", cards=4, task="graph",
+                              timeout=LEG_TIMEOUT_S)
+    want = smoke.GRAPH_MESH_STEPS * smoke.MESH_LAYERS
+    problems = []
+    for r, got in enumerate(ranks):
+        ends = got["eager_losses"][smoke.GRAPH_CHUNK - 1::smoke.GRAPH_CHUNK]
+        if got["losses"] != ends or not got["same_bits"]:
+            problems.append(f"rank {r}: graphed losses {got['losses']} "
+                            f"against eager {ends}, parameters the same "
+                            f"bits: {got['same_bits']}")
+        if got["counts"] != [want] * 3 or {
+                tuple(x[1:]) for x in got["shapes"]} != {local}:
+            problems.append(f"rank {r}: K1/K2/K3 {got['counts']} at "
+                            f"{got['shapes']}")
+        if got["losses"] != ranks[0]["losses"]:
+            problems.append(f"rank {r} reports other losses")
+    print(json.dumps({
+        "run": name, "cards": 4, "params": extra, "warmup": MESH_GRAPH_WARMUP,
+        "replayed": ranks[0]["replayed"], "losses": ranks[0]["losses"],
+        "step_ms": ranks[0]["step_ms"],
+        "kernel_ms_per_step": ranks[0]["busy_ms"], "nccl": ranks[0]["nccl"],
+        "peak_gib": ranks[0]["peak_gib"], "problems": problems}), flush=True)
+    return bool(problems)
 
 
 def main(argv) -> int:
@@ -57,8 +183,15 @@ def main(argv) -> int:
 
     if not torch.cuda.is_available():
         sys.exit("needs CUDA cards")
-    profiled = argv[argv.index("--profile") + 1] if "--profile" in argv else None
-    args = [a for a in argv if a not in ("--profile", profiled)]
+    opts = {a: argv[argv.index(a) + 1] for a in ("--profile", "--only")
+            if a in argv}
+    args = [a for a in argv if a not in opts and a not in opts.values()]
+    profiled = opts.get("--profile")
+    only = set(opts["--only"].split(",")) if "--only" in opts else None
+
+    def wanted(name):
+        return only is None or name in only
+
     n = int(args[0]) if args else torch.cuda.device_count()
     if n not in STRATEGIES or n > torch.cuda.device_count():
         sys.exit(f"needs 2 or 4 visible cards, asked for {n} of "
@@ -68,23 +201,26 @@ def main(argv) -> int:
     failed = False
     root = tempfile.mkdtemp(prefix="mesh-cards-")
     try:
-        refs = smoke.mesh_references(STRATEGIES[n], root)
+        strategies = {k: v for k, v in STRATEGIES[n].items() if wanted(k)}
+        refs = smoke.mesh_references(strategies, root) if strategies else {}
         for kind, ref in refs.items():
             print(json.dumps({"run": f"one rank ({kind})",
                               "losses": ref["losses"],
                               "step_ms": ref["step_s"] * 1e3,
                               "tokens_per_s": ref["tokens_per_s"]}),
                   flush=True)
-        print(json.dumps({"run": "one rank at lr 0 (frozen)",
-                          **smoke.frozen_reading(torch, refs, root)}),
-              flush=True)
-        for name, (extra, local) in STRATEGIES[n].items():
+        if refs:
+            print(json.dumps({"run": "one rank at lr 0 (frozen)",
+                              **smoke.frozen_reading(torch, refs, root)}),
+                  flush=True)
+
+        def strategy(name, extra, local):
             ranks = smoke.spawn_ranks(
                 n, {**smoke.MESH_PARAMS, **extra}, root, name,
-                backend="nccl", cards=n, profile=name == profiled)
+                backend="nccl", cards=n, profile=name == profiled,
+                timeout=LEG_TIMEOUT_S)
             ref = refs["moe" if "moe_every" in extra else "dense"]
             problems, readings = smoke.mesh_problems(torch, ranks, ref, local)
-            failed |= bool(problems)
             print(json.dumps({
                 "run": name, "cards": n, "params": extra,
                 "local_batch_heads": local,
@@ -96,6 +232,21 @@ def main(argv) -> int:
             if "profile" in ranks[0]:
                 print(f"{name}, rank 0 of {n}:\n{ranks[0]['profile']}",
                       flush=True)
+            return bool(problems)
+
+        for name, (extra, local) in strategies.items():
+            failed |= attempt(name, lambda: strategy(name, extra, local))
+        if n == 4:
+            seq_refs = {}
+            for name in filter(wanted, SEQ_LEGS):
+                failed |= attempt(name, lambda: seq_leg(
+                    smoke, torch, root, seq_refs, name))
+            for stages in PIPE_STAGES:
+                if wanted(f"pipe{stages}"):
+                    failed |= attempt(f"pipe{stages}", lambda: pipe_leg(
+                        smoke, stages, root))
+            for name in filter(wanted, GRAPH_LEGS):
+                failed |= attempt(name, lambda: graph_leg(smoke, name, root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"card: {card}")

@@ -20,6 +20,9 @@ FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     ROOT / "hack" / "torch_mfu_probe.py", ROOT / "hack" / "torch_mfu_attrib.py",
     # the rank bodies of the gloo worlds import the port alone
     ROOT / "tests" / "torch_mesh_ranks.py",
+    # the meshed step captured over NCCL: its warm-up probe and card test
+    ROOT / "hack" / "torch_graph_warmup_probe.py",
+    ROOT / "tests" / "test_torch_mesh_graph_cuda.py",
 ]
 
 

@@ -22,6 +22,8 @@ Jobs (dicts):
   a checkpoint store at ``dir`` (``save_every``), resuming from its newest
   step; results: the restored step, the parameters right after the
   restore, and the losses.
+- ``data_parallel``: :func:`_data_parallel`; ``moe_group``:
+  :func:`_moe_group`.
 - ``split``: :func:`_split`; ``moe``: :func:`_moe`; ``refuse``:
   :func:`_refuse`; ``attention``: :func:`_attention`; ``hop``:
   :func:`_hop`; ``guards``: :func:`_guards`; ``pipe_guards``:
@@ -122,9 +124,96 @@ def _train(job, mesh) -> Dict[str, Any]:
     return {
         "losses": [s.loss for s in stats],
         "grads": grads,
-        "placements": {n: [str(pl) for pl in p.placements]
+        "placements": {n: placements(p, mesh)
                        for n, p in model.named_parameters()},
+        "final": {n: _whole(p) for n, p in model.named_parameters()},
+        "path": _path(model),
     }
+
+
+def _path(model) -> str:
+    """How a trainer holds ``model`` over its mesh: ``fsdp`` (FSDP2),
+    ``dtensor`` (placed parameters) or ``ddp`` (plain parameters)."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(model, FSDPModule):
+        return "fsdp"
+    first = next(model.parameters())
+    return "dtensor" if isinstance(first, DTensor) else "ddp"
+
+
+def _data_parallel(job, mesh) -> Dict[str, Any]:
+    """:func:`_train`'s results, and under ``chunked`` the losses, the
+    final parameters and the model FLOPs a step
+    (``Trainer.flops_per_step``) of the same steps trained in calls of
+    ``chunk`` steps (staged by the trainer's background thread)."""
+    import torch
+
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
+
+    out = _train(job, mesh)
+    cfg = _config(job)
+    model = _model(job)
+    model.load_state_dict(torch.load(job["weights"], weights_only=True))
+    trainer = Trainer(model, TrainConfig(
+        steps_per_call=job["chunk"],
+        aux_loss_in_output=getattr(model, "has_moe", False),
+        **job.get("train", {})), mesh=mesh)
+    stats = trainer.run(data.causal_token_batches(job["batch"], cfg.max_len,
+                                                  cfg.vocab_size),
+                        job["steps"])
+    out["chunked"] = {
+        "losses": [s.loss for s in stats],
+        "final": {n: _whole(p) for n, p in model.named_parameters()},
+        "flops": trainer.flops_per_step()}
+    return out
+
+
+def _moe_group(job, mesh) -> Dict[str, Any]:
+    """``moe_ffn`` on this rank's rows of a seeded token batch with
+    ``group`` the mesh's batch group: the output rows, the aux loss, this
+    rank's input gradient and the parameters' gradients summed over the
+    ranks (the objective is the one-device one split over them); and the
+    output of the same rows routed among this rank's tokens alone."""
+    import torch
+    import torch.distributed as dist
+
+    from cron_operator_tpu_torch.parallel.mesh import batch_group
+    from cron_operator_tpu_torch.parallel.moe import init_moe_params, moe_ffn
+    from cron_operator_tpu_torch.workloads.data import local_rows
+
+    group = batch_group(mesh)
+    gen = torch.Generator().manual_seed(job["seed"])
+    params = {k: v.requires_grad_() for k, v in init_moe_params(
+        gen, d_model=job["d"], d_ff=job["f"],
+        n_experts=job["experts"]).items()}
+    x = local_rows(torch.randn(job["tokens"], job["d"], generator=gen),
+                   mesh).requires_grad_()
+    kw = {"capacity_factor": job["capacity_factor"]}
+    y, aux = moe_ffn(params, x, group=group, **kw)
+    ranks = dist.get_world_size(group)
+    ((y ** 2).sum() / job["tokens"] + 0.01 * aux / ranks).backward()
+    grads = {}
+    for name, p in params.items():
+        dist.all_reduce(p.grad, group=group)
+        grads[name] = p.grad
+    alone, _ = moe_ffn(params, x, **kw)
+    return {"y": y.detach(), "aux": aux.detach(), "x_grad": x.grad,
+            "grads": grads, "alone": alone.detach()}
+
+
+def placements(p, mesh) -> List[str]:
+    """``p``'s placement on each axis of ``mesh``, as strings: a DTensor's
+    (``R`` on an axis its own mesh, FSDP2's, does not span), ``R`` on every
+    axis for a plain tensor (a DDP parameter, or one FSDP2 leaves whole)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(p, DTensor):
+        return ["R"] * mesh.ndim
+    on = dict(zip(p.device_mesh.mesh_dim_names, map(str, p.placements)))
+    return [on.get(name, "R") for name in mesh.mesh_dim_names]
 
 
 def _chain(job, mesh) -> Dict[str, Any]:
@@ -441,7 +530,8 @@ def _rank_main(jobs_file: str) -> int:
     try:
         for job in spec["jobs"]:
             mesh = mesh_for_devices(device_type="cpu", **job["axes"])
-            run = {"train": _train, "chain": _chain, "split": _split,
+            run = {"train": _train, "data_parallel": _data_parallel,
+                   "moe_group": _moe_group, "chain": _chain, "split": _split,
                    "moe": _moe, "refuse": _refuse, "attention": _attention,
                    "hop": _hop, "guards": _guards,
                    "pipe_guards": _pipe_guards,
