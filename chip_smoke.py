@@ -23,8 +23,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 3. The serving slice at GPT-2 small width: ``generate_job`` through a job
    context (its decode steps replay a captured CUDA graph), with every
    kernel count set to 0 just before and read just after (every K1 launch
-   must be of the sm90 design); then prefill logits through the kernel
-   against the plain-attention path on the same weights and prompt.
+   must be of the sm90 design, and the decode kernel must launch 12 times
+   in each of the 3 x 63 decode steps); then prefill logits through the
+   kernel against the plain-attention path on the same weights and
+   prompt.
 4. Serving times: K1 per launch at the slice's shape (device time of
    back-to-back launches with the card held busy while the host enqueues
    them; plain CUDA-event time beside it), beside its bound, the plain
@@ -32,8 +34,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
    calls it); the slice's prefill, eager decode step and tokens/s (CUDA
    events, medians); then generation through the decode graph against the
-   eager loop: greedy tokens identical, decode ms a step, device ms of a
-   replayed step, busy share and tokens/s of each.
+   eager loop: greedy tokens identical, decode ms a step (beside the 2.895
+   ms it took before the decode kernel), device ms of a replayed step,
+   busy share and tokens/s of each; the decode kernel launched 12 times a
+   decode step in both; an eager decode step copies, casts or pads no
+   tensor of a layer's cache size or more (neither the KV cache nor the
+   vocab table); a replayed step profiled, with the decode kernel's three
+   passes once a layer.
 5. The training slice at GPT-2 small width: ``gpt`` through a job context
    (b 8, s 1024, 10 steps in the default mode: ``steps_per_call`` 8, one
    captured step replayed), every kernel count set to 0 just before and
@@ -48,12 +55,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the eager step in this process: 8 eager steps and one graphed call
    from the same weights and data must leave the same loss and the same
    parameter bits; the step ms, tokens/s, MFU and device busy share of
-   each; profiles of an eager step and a graphed call.
+   each (the graphed step beside the 41.805 ms before the vocab GEMMs
+   were padded); profiles of an eager step and a graphed call, in which
+   cuBLAS GEMMs for 1- or 2-element aligned rows may take under 1% of the
+   device time (``UNALIGNED_GEMM``: the unpadded vocab GEMMs took 37%).
 7. BERT-base through ``bert`` (b 8, s 512, 10 steps): K1, K2 and K3 each
    launched 120 times, all sm90, non-causal; three steps on the kernel
    path against the plain path and f32, as phase 5; K1-K3 at BERT's shape
    beside their bounds, plain versions and SDPA (``is_causal=False``); the
-   graph against the eager step, as phase 6.
+   graph against the eager step, as phase 6 (beside 15.496 ms).
 8. ResNet-50 (``resnet50``: b 128, image 224, SGD), ViT-B/16 (``vit``:
    b 64, image 224) and the MLP (``mnist``) at their defaults, each with
    its parameter count and no flash launch; for ResNet-50 and ViT the
@@ -75,9 +85,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
     0, the JAX runner's frame types).
 11. ``generate_job checkpoint_from=`` that lineage (b 8, prompt 512, 64
     new tokens, 2 rounds): ``restored_from_step`` reported, K1 launched 12
-    times in each round's prefill, greedy tokens equal to those of a GPT
-    built in this process from the checkpoint's f32 parameters (eager
-    decode).
+    times in each round's prefill and the decode kernel 12 times in each
+    decode step, greedy tokens equal to those of a GPT built in this
+    process from the checkpoint's f32 parameters (eager decode).
 12. ``gpt mfu=1 flops_accounting=1`` (24 steps): the published ``mfu``
     within 3% of this script's own MFU over the job's step time, and
     ``xla_flops_per_step`` within 1% of this script's FLOPs (6 N T plus
@@ -94,11 +104,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
     counted FLOPs (``Trainer.flops_per_step``, the one-hot products
     included) and over the active parameters' 6 N T, peak memory, the
     one-hot dispatch and combine products' device time and share, and
-    profiles.
+    profiles; the graphed step beside 69.017 ms, unaligned GEMMs under
+    1% of the graphed call's device time as in phase 6, and no cumsum over
+    an outer axis (``OUTER_SCAN``).
 14. Switch-MoE serving: ``generate_job`` with the same MoE params at the
-    serving slice's shape (K1 36 launches over 3 rounds, all sm90); the
-    decode graph against the eager loop (greedy tokens equal), prefill ms,
-    decode ms a step and tokens/s; then the cached greedy decode against
+    serving slice's shape (K1 36 launches over 3 rounds, all sm90, the
+    decode kernel 12 a decode step); the decode graph against the eager
+    loop as phase 4 (beside 3.442 ms a decode step), prefill ms and
+    tokens/s; then the cached greedy decode against
     a full-forward rerun for 8 tokens at full width with
     ``moe_capacity_factor=8`` (no token dropped on either path), in f32.
 15. The device mesh on one card: the script starts itself twice
@@ -169,7 +182,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
     and the same parameter bits; a profiled replayed call must show an
     NCCL kernel; its step ms (a replayed call, CUDA events) is printed
     beside phase 6's unwrapped graphed step.
-19. A ``kernels`` JSON line, the card line, and last the result line
+19. The decode kernel (``ops/csrc/decode_attn.cu``) against its plain
+    version ``decode_attention_reference`` at GPT-2 small's decode shape
+    (q ``[8, 1, 12, 64]``, caches ``[8, 1024, 12, 64]`` bf16) at cache
+    positions 0, 511, 575 and 1023, a GQA case of group 2 and an f32 case,
+    within ``decode_tolerance``; two runs bit-identical; NaN and inf past
+    the position giving the output of a cache zeroed there; its device
+    time at position 575 beside its bound (the K and V bytes up to the
+    position over 3.35 TB/s), the plain version and SDPA with a boolean
+    mask of the written positions (a yardstick: the port never calls it).
+20. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
 
@@ -186,6 +208,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -235,6 +258,26 @@ MOE_TRAIN_PARAMS = {**TRAIN_PARAMS, **MOE_PARAMS}
 MOE_SLICE_PARAMS = {**SLICE_PARAMS, **MOE_PARAMS}
 GPT2_SMALL_MOE_PARAMS = 322_634_496
 GRAPH_CHUNK = 8  # steps per call of the default mode (steps_per_call=auto)
+# The graphed step and decode ms before the padded vocab table, the decode
+# kernel and the inner-axis router scan (PERF.md section 5; H100 80GB
+# HBM3, 700 W), printed beside this run's.
+BEFORE_MS = {"gpt": 41.805, "bert": 15.496, "moe": 69.017,
+             "decode": 2.895, "moe decode": 3.442}
+# Kernels the graphed steps must no longer spend time in, each regex with
+# the largest share of a graphed call's device time its kernels may take:
+# cuBLAS's GEMMs for rows of 1- or 2-element alignment, which the vocab
+# widths 50257 and 30522 ran at 15.6-37% of a step before they were padded
+# (a small f32 GEMM of the MoE router, [T, 768] x [768, 8], runs one at
+# about 0.2%), and the cumsum that scans an outer axis, which the MoE
+# router ran before its scan moved to the inner axis.
+UNALIGNED_GEMM = {r"align[12](?!\d)": 0.01}
+OUTER_SCAN = {r"scan_outer_dim": 0.0}
+# Phase 19: the decode kernel at GPT-2 small's decode shape, at the first,
+# the middle, the slice's last (prompt 512 + 64 new tokens) and the final
+# cache position, and a GQA case of group 2.
+DECODE_SHAPE = dict(b=8, max_len=1024, h=12, d=64)
+DECODE_POSITIONS = (0, 511, 575, 1023)
+DECODE_TIMED_POS = 575
 N_PARAMS = {"gpt": GPT2_SMALL_PARAMS, "bert": 108_890_112,
             "resnet50": 25_557_032, "vit": 86_567_656, "mnist": 535_818}
 TRAIN_PROGRESS_KEYS = (
@@ -268,11 +311,12 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def profile_window(torch, card: str, label: str, fn) -> None:
+def profile_window(torch, card: str, label: str, fn, kernels_out=None):
     """Where one window's device time goes: the top kernels by device time
     and the device's busy share of the window's wall time (torch.profiler;
     its own overhead lengthens the wall time, so the idle share is an upper
-    bound). Returns the window's wall and device-busy ms."""
+    bound). Returns the window's wall and device-busy ms; every kernel's
+    (name, device us, launches) goes into ``kernels_out`` when given."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -289,6 +333,9 @@ def profile_window(torch, card: str, label: str, fn) -> None:
                if e.device_type.name == "CUDA" and e.self_device_time_total > 0
                and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    if kernels_out is not None:
+        kernels_out.extend((e.key, e.self_device_time_total, e.count)
+                           for e in kernels)
     print(f"[{card}] profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -475,6 +522,16 @@ def zero_counts(fa) -> None:
                fa.flash_attention_dkv):
         fn.launches = 0
         fn.launches_by_design = dict.fromkeys(fa.DESIGNS, 0)
+    decode = decode_wrapper()
+    decode.launches = 0
+    decode.launches_by_design = {"fma": 0}
+
+
+def decode_wrapper():
+    """``ops.attention.decode_attention``, whose ``launches`` count the
+    decode kernel's."""
+    return importlib.import_module(
+        "cron_operator_tpu_torch.ops.attention").decode_attention
 
 
 def read_counts(fa):
@@ -501,7 +558,14 @@ def phase_slice(torch, fa, params=SLICE_PARAMS, n_params=GPT2_SMALL_PARAMS,
     wall = time.monotonic() - t0
     launches, dq_launches, dkv_launches = read_counts(fa)
     k1_designs = read_designs(fa)[0]
+    decode_launches = decode_wrapper().launches
+    steps = rounds * (int(params["max_new"]) - 1)
     print(f"{label}: generate_job in {wall:.2f} s, progress {ctx.progress}")
+    print(f"{label}: decode_attention launches {decode_launches} (expected "
+          f"12 a decode step x {steps} steps)", flush=True)
+    if decode_launches != 12 * steps:
+        fail(f"{label}: the decode kernel launched {decode_launches} times, "
+             f"not 12 in each of {steps} decode steps")
     print(f"{label}: flash_attention launches {launches} "
           f"(expected 12 x {rounds}, all sm90: {k1_designs}), backward "
           f"{dq_launches}/{dkv_launches} (expected 0)", flush=True)
@@ -524,7 +588,7 @@ def phase_slice(torch, fa, params=SLICE_PARAMS, n_params=GPT2_SMALL_PARAMS,
              f"{n_params}")
     if ctx.progress["tokens_generated"] != rounds * 8 * 64:
         fail("tokens_generated does not count every round")
-    return launches, ctx.progress
+    return launches, decode_launches, ctx.progress
 
 
 def slice_model(torch, cfg, weights_from=None):
@@ -932,7 +996,8 @@ def check_graph_step(torch, label: str, make_trainer):
 
 
 def graph_vs_eager(torch, card, label: str, make_trainer, model_flops: float,
-                   items: int, unit: str):
+                   items: int, unit: str, before_ms: float = None,
+                   forbid: str = None):
     """The step of a fused-data trainer (each step draws its batch) eagerly
     and as one replayed graph of GRAPH_CHUNK steps (``step(..., chunk=8)``),
     in this process: the wall ms a step (CUDA events over back-to-back
@@ -941,7 +1006,10 @@ def graph_vs_eager(torch, card, label: str, make_trainer, model_flops: float,
     is held busy: the kernels back to back, the same kernels as the eager
     step's), the busy share (device ms over wall ms), ``items`` a step in
     ``unit``/s and MFU against the bf16 peak from ``model_flops`` a step;
-    then profiles of an eager step and a graphed call."""
+    then profiles of an eager step and a graphed call. The graphed step ms
+    is printed beside ``before_ms`` where given; ``forbid`` maps regexes to
+    the largest share of the graphed call's device time that the kernels
+    each matches may take."""
     k = GRAPH_CHUNK
     check_graph_step(torch, label, make_trainer)
     trainer = make_trainer()
@@ -971,14 +1039,31 @@ def graph_vs_eager(torch, card, label: str, make_trainer, model_flops: float,
               f" | model FLOPs/step {model_flops / 1e12:.4f} T", flush=True)
     profile_window(torch, card, f"{label} eager x1",
                    lambda: trainer.step({}))
+    kernels = []
     profile_window(torch, card, f"{label} graph x{k}",
-                   lambda: trainer.step({}, chunk=k))
+                   lambda: trainer.step({}, chunk=k), kernels)
     del trainer
     release(torch)
+    if before_ms is not None:
+        print(f"[{card}] {label}: graphed {rows['graph']['step_ms']:.3f} ms a "
+              f"step, beside {before_ms} before the padded vocab GEMMs and "
+              "the inner-axis router scan (PERF.md section 5)", flush=True)
+    busy_us = sum(us for _, us, _ in kernels)
+    for pattern, most in (forbid or {}).items():
+        hits = [(name[:120], us / 1e3, n) for name, us, n in kernels
+                if re.search(pattern, name)]
+        share = sum(ms for _, ms, _ in hits) * 1e3 / busy_us
+        print(f"{label}: kernels matching {pattern!r} in the graphed call: "
+              f"{hits or 'none'} ({100 * share:.2f}% of its device time, at "
+              f"most {100 * most:.0f}%)", flush=True)
+        if hits and share >= most:
+            fail(f"{label}: the graphed step still spends {100 * share:.2f}% "
+                 f"of its device time in {hits}")
     return rows
 
 
-def lm_step_times(torch, card, label, model_cls, cfg, sample, shape, causal):
+def lm_step_times(torch, card, label, model_cls, cfg, sample, shape, causal,
+                  before_ms=None, forbid=None):
     """The step of a language model at ``shape``, graph against eager:
     model FLOPs are 6 N T plus the attention's 3 * 4 d b h per (query, key)
     pair the mask keeps, per layer (forward and backward)."""
@@ -1001,7 +1086,8 @@ def lm_step_times(torch, card, label, model_cls, cfg, sample, shape, causal):
           f"(6*N*T) + {attn_flops / 1e12:.4f} T (attention fwd+bwd, "
           f"causal={int(causal)})")
     return graph_vs_eager(torch, card, label, make_trainer,
-                          dense_flops + attn_flops, tokens, "tokens")
+                          dense_flops + attn_flops, tokens, "tokens",
+                          before_ms, forbid)
 
 
 def phase_train_times(torch, fa, card):
@@ -1015,7 +1101,8 @@ def phase_train_times(torch, fa, card):
     step = lm_step_times(
         torch, card, f"train step (GPT-2 small, b{b} s{s}, bf16/f32 "
         "masters, AdamW)", GPT, cfg,
-        data.causal_token_sample(b, s, cfg.vocab_size), TRAIN_SHAPE, True)
+        data.causal_token_sample(b, s, cfg.vocab_size), TRAIN_SHAPE, True,
+        BEFORE_MS["gpt"], UNALIGNED_GEMM)
     return rows, step
 
 
@@ -1035,7 +1122,7 @@ def phase_bert(torch, fa, card):
     step = lm_step_times(
         torch, card, f"bert step (BERT-base, b{b} s{s}, bf16/f32 masters, "
         "AdamW)", Bert, cfg, data.token_sample(b, s, cfg.vocab_size),
-        BERT_SHAPE, False)
+        BERT_SHAPE, False, BEFORE_MS["bert"], UNALIGNED_GEMM)
     print(f"[{card}] bert job: {progress['tokens_per_s']} tokens/s, "
           f"{progress['avg_step_time_s']} s/step (the calls after the first),"
           f" first call {progress['compile_time_s']} s")
@@ -1090,16 +1177,52 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
     }))
 
 
+COPYING_OPS = ("_to_copy", "copy_", "clone", "contiguous", "_reshape_copy",
+               "constant_pad_nd", "cat")
+
+
+def copying_ops(torch, fn, min_numel: int) -> list:
+    """The copies, casts, pads and concatenations that one eager call of
+    ``fn`` makes with a tensor of at least ``min_numel`` elements among its
+    operands or results, as (op, shape) pairs: a dispatch mode sees every
+    aten op of the call (a kernel called through ctypes runs none). Call it
+    under ``no_grad``, not ``inference_mode``, where composite ops (``to``,
+    ``einsum``) would reach the mode whole, their copies unseen."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    found = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ in COPYING_OPS:
+                big = [tuple(t.shape) for t in tree_leaves((args, kwargs, out))
+                       if isinstance(t, torch.Tensor) and t.numel() >= min_numel]
+                if big:
+                    found.append((str(func), big[0]))
+            return out
+
+    with Watch():
+        fn()
+    return found
+
+
 def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
-                        label: str = "generate"):
+                        label: str = "generate", before_ms: float = None):
     """Generation at the slice's shape (b 8, prompt 512, 64 new tokens,
     greedy) through the decode graph against the eager loop, on the same
     weights and prompt: the tokens must be identical. Wall ms of a whole
     generation (host clock, synchronised, median of the 3 after a first
     one that holds the graph's warm-up and capture) gives the decode ms a
-    step, ``(wall - prefill) / 63``, and tokens/s; the device ms of one
-    replayed decode step (the card held busy) over the decode ms a step is
-    the busy share of each. ``cfg`` is GPT-2 small's unless given."""
+    step, ``(wall - prefill) / 63``, and tokens/s, printed beside
+    ``before_ms``, the decode ms a step before the decode kernel; the
+    device ms of one replayed decode step (the card held busy) over the
+    decode ms a step is the busy share of each. An eager decode step may
+    copy, cast or pad no tensor of a layer's cache size or larger (the KV
+    cache, the vocab table: ``copying_ops``); the graph must launch the
+    decode kernel 12 times a step; a replayed step is profiled. ``cfg`` is
+    GPT-2 small's unless given."""
     from cron_operator_tpu_torch.models import GPTConfig
 
     serving = importlib.import_module("cron_operator_tpu_torch.workloads.generate")
@@ -1108,10 +1231,24 @@ def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
     b, p, n = 8, 512, 64
     prompt = torch.randint(0, cfg.vocab_size, (b, p), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(3))
+    with torch.no_grad():
+        cache = model.new_cache(b)
+        model.prefill(prompt, cache)
+        big = min(cache.k[0].numel(), model.tok_emb.weight.numel())
+        copies = copying_ops(
+            torch, lambda: model.decode(prompt[:, -1:], cache), big)
+        del cache
+    print(f"{label}: copies of {big}+ elements in an eager decode step: "
+          f"{copies or 'none'}", flush=True)
+    if copies:
+        fail(f"{label}: a decode step copies a cache- or table-sized tensor: "
+             f"{copies}")
+    decode = decode_wrapper()
     outs, rows = {}, {}
     with torch.inference_mode():
         for mode, captured in (("eager", False), ("graph", True)):
             walls = []
+            launches_before = decode.launches
             for _ in range(4):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1120,9 +1257,14 @@ def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
             gen_ms = statistics.median(walls[1:])
+            launched = decode.launches - launches_before
             rows[mode] = {"generate_ms": gen_ms, "first_ms": walls[0],
                           "decode_ms_per_step": (gen_ms - prefill_ms) / (n - 1),
-                          "tokens_per_s": b * n / gen_ms * 1e3}
+                          "tokens_per_s": b * n / gen_ms * 1e3,
+                          "decode_launches_per_step": launched / (4 * (n - 1))}
+            if launched != 12 * 4 * (n - 1):
+                fail(f"{label} {mode}: the decode kernel launched {launched} "
+                     f"times in 4 x {n - 1} decode steps, not 12 a step")
         if not torch.equal(outs["eager"], outs["graph"]):
             fail("greedy tokens through the decode graph differ from the "
                  "eager loop's")
@@ -1136,6 +1278,20 @@ def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
         device = device_ms(torch, replay, iters=20, reps=5)
         profile_window(torch, card, f"{label} graph x1",
                        lambda: serving.generate(cfg, model, prompt, n))
+        kernels = []
+        profile_window(torch, card, f"{label} replayed decode step x1", replay,
+                       kernels)
+    decode_kernels = {name: count for name, _, count in kernels
+                      if "decode_attn" in name or any(
+                          k in name for k in ("scores_kernel", "pv_kernel",
+                                              "combine_kernel"))}
+    copy_us = sum(us for name, us, _ in kernels if "copy" in name.lower())
+    print(f"{label}: a replayed decode step runs the decode kernel's passes "
+          f"{decode_kernels}; copy kernels {copy_us / 1e3:.4f} ms of it",
+          flush=True)
+    if sorted(decode_kernels.values()) != [12, 12, 12]:
+        fail(f"{label}: a replayed decode step does not run the decode "
+             f"kernel's three passes once a layer: {decode_kernels}")
     rows["device_ms_per_step"] = device
     for mode in ("eager", "graph"):
         r = rows[mode]
@@ -1145,6 +1301,10 @@ def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
               f"{r['decode_ms_per_step']:.3f} ms/step, device {device:.3f} ms,"
               f" busy {100 * r['busy']:.1f}% | {r['tokens_per_s']:.1f} "
               "tokens/s", flush=True)
+    if before_ms is not None:
+        print(f"[{card}] {label}: decode {rows['graph']['decode_ms_per_step']:.3f}"
+              f" ms a step graphed, beside {before_ms} before the decode "
+              "kernel (PERF.md section 5)", flush=True)
     print(f"{label} greedy tokens: graph == eager ({b} x {n})", flush=True)
     del model, decoder
     release(torch)
@@ -1403,11 +1563,16 @@ def phase_serve_checkpoint(torch, fa, root: str, step: int):
         entrypoints.generate_job(ctx)
         torch.cuda.synchronize()
         counts, designs = read_counts(fa), read_designs(fa)
+        decode_launches = decode_wrapper().launches
     finally:
         entrypoints.generate = real
     progress = ctx.progress
     print(f"serve: {progress}; K1/K2/K3 launches {counts} (expected 24/0/0, "
-          f"all sm90: {designs[0]})", flush=True)
+          f"all sm90: {designs[0]}); decode_attention {decode_launches} "
+          "(expected 12 x 63 x 2)", flush=True)
+    if decode_launches != 12 * 63 * 2:
+        fail(f"serve: the decode kernel launched {decode_launches} times, "
+             "not 12 in each of 2 x 63 decode steps")
     if progress.get("restored_from_step") != step:
         fail(f"serve: restored_from_step {progress.get('restored_from_step')}"
              f", not {step}")
@@ -1429,7 +1594,7 @@ def phase_serve_checkpoint(torch, fa, root: str, step: int):
           "in-process model's", flush=True)
     del model
     release(torch)
-    return counts
+    return counts, decode_launches
 
 
 MFU_PARAMS = {**TRAIN_PARAMS, "steps": "24", "mfu": "1",
@@ -1572,7 +1737,7 @@ def phase_moe_train(torch, fa, card):
     step = graph_vs_eager(
         torch, card, f"moe train step (GPT-2 small, moe_every 2, 8 experts, "
         f"b{b} s{s}, bf16/f32 masters, AdamW)", make_trainer, counted,
-        b * s, "tokens")
+        b * s, "tokens", BEFORE_MS["moe"], {**UNALIGNED_GEMM, **OUTER_SCAN})
     ms, flops = onehot_products_ms(torch, cfg, TRAIN_SHAPE)
     per_step = n_moe * sum(ms.values())
     share = per_step / step["device_ms"]
@@ -1603,8 +1768,8 @@ def phase_moe_serving(torch, fa, card):
     from cron_operator_tpu_torch.models import GPT
 
     serving = importlib.import_module("cron_operator_tpu_torch.workloads.generate")
-    launches, progress = phase_slice(torch, fa, MOE_SLICE_PARAMS,
-                                     GPT2_SMALL_MOE_PARAMS, "moe serving")
+    launches, decode_launches, progress = phase_slice(
+        torch, fa, MOE_SLICE_PARAMS, GPT2_SMALL_MOE_PARAMS, "moe serving")
     cfg = moe_cfg()
     model = slice_model(torch, cfg)
     prompt = torch.randint(0, cfg.vocab_size, (8, 512), device="cuda",
@@ -1615,7 +1780,8 @@ def phase_moe_serving(torch, fa, card):
                                iters=3)
     del model, cache
     release(torch)
-    rows = phase_serving_graph(torch, card, prefill_ms, cfg, "moe generate")
+    rows = phase_serving_graph(torch, card, prefill_ms, cfg, "moe generate",
+                               BEFORE_MS["moe decode"])
 
     ocfg = moe_cfg(moe_capacity_factor=8.0, dtype=torch.float32)
     model = GPT(ocfg, device="cuda").init_weights(
@@ -1645,9 +1811,9 @@ def phase_moe_serving(torch, fa, card):
           f"{rows['eager']['decode_ms_per_step']:.3f} eager | "
           f"{rows['graph']['tokens_per_s']:.1f} tokens/s graph | job "
           f"{progress['tokens_per_s']} tokens/s", flush=True)
-    return launches, {"prefill_ms": prefill_ms,
-                      "job_tokens_per_s": progress["tokens_per_s"],
-                      "oracle_margin": margin, **rows}
+    return launches, decode_launches, {
+        "prefill_ms": prefill_ms, "job_tokens_per_s": progress["tokens_per_s"],
+        "oracle_margin": margin, **rows}
 
 
 # Phase 15: the device mesh on one card. Two ranks share cuda:0 in a gloo
@@ -2453,6 +2619,91 @@ def phase_mesh_graph(torch, card, unwrapped_ms: float) -> dict:
             "losses": got["losses"]}
 
 
+def phase_decode_kernel(torch, card) -> dict:
+    """The decode kernel against its plain version at GPT-2 small's decode
+    shape (q ``[8, 1, 12, 64]``, caches ``[8, 1024, 12, 64]`` bf16) at
+    every position of ``DECODE_POSITIONS``, a GQA case of group 2 and an
+    f32 case: ``out`` within ``decode_tolerance`` (bf16: 2^-7 |ref| + 2^-7
+    (P |V|) + 1e-4 max|ref|, a rounding flip of a probability and of the
+    output; f32: summation order), two runs bit-identical, and NaN/inf
+    past ``pos`` giving the output of a cache zeroed there. Then its device
+    ms at ``DECODE_TIMED_POS`` beside the plain version's, SDPA's with a
+    boolean mask of the written positions (a yardstick) and the bound: the
+    K and V bytes up to ``pos`` (plus q and out) over 3.35 TB/s against
+    4 b h (pos + 1) d operations over the bf16 peak."""
+    import torch.nn.functional as F
+
+    attn = importlib.import_module("cron_operator_tpu_torch.ops.attention")
+    b, max_len, h, d = (DECODE_SHAPE[x] for x in ("b", "max_len", "h", "d"))
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def inputs(kv_h, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((b, 1, h, d), (b, max_len, kv_h, d),
+                              (b, max_len, kv_h, d))]
+
+    cases = ([(h, torch.bfloat16, pos) for pos in DECODE_POSITIONS]
+             + [(h // 2, torch.bfloat16, pos) for pos in (0, 575, 1023)]
+             + [(h, torch.float32, DECODE_TIMED_POS)])
+    worst = {}
+    for kv_h, dtype, pos in cases:
+        q, k, v = inputs(kv_h, dtype)
+        p = torch.tensor([pos], device="cuda")
+        out = attn.decode_attention(q, k, v, p)
+        again = attn.decode_attention(q, k, v, p)
+        ref = attn.decode_attention_reference(q, k, v, p)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        bound = attn.decode_tolerance(q, k, v, p, ref)
+        kz, vz, kg, vg = k.clone(), v.clone(), k.clone(), v.clone()
+        kz[:, pos + 1:], vz[:, pos + 1:] = 0, 0
+        kg[:, pos + 1:], vg[:, pos + 1:] = float("nan"), float("inf")
+        same_past = torch.equal(attn.decode_attention(q, kz, vz, p),
+                                attn.decode_attention(q, kg, vg, p))
+        exact = (out == ref).float().mean().item()
+        name = f"{str(dtype)[6:]} kv_h {kv_h} pos {pos}"
+        print(f"  decode_attn {name}: max|d out|={err.max().item():.3e}, "
+              f"max err/bound {(err / bound).max().item():.3f}, "
+              f"{100 * exact:.2f}% of elements equal to the bit, reruns "
+              f"{'identical' if torch.equal(out, again) else 'DIFFER'}, "
+              f"garbage past pos {'ignored' if same_past else 'READ'}",
+              flush=True)
+        if not (bool(torch.isfinite(out.float()).all())
+                and bool((err <= bound).all())):
+            fail(f"decode_attn {name} disagrees with the plain version")
+        if not torch.equal(out, again):
+            fail(f"decode_attn {name}: two runs differ")
+        if not same_past:
+            fail(f"decode_attn {name}: positions past pos change the output")
+        if dtype == torch.bfloat16 and kv_h == h:
+            worst[pos] = err.max().item()
+
+    pos = DECODE_TIMED_POS
+    q, k, v = inputs(h, torch.bfloat16)
+    p = torch.tensor([pos], device="cuda")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = (torch.arange(max_len, device="cuda") <= pos)[None, None, None]
+    (ms, plain_ms, library_ms), _ = timed_rows(torch, card, "decode_attn", (
+        lambda: attn.decode_attention(q, k, v, p),
+        lambda: attn.decode_attention_reference(q, k, v, p),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)))
+    n = pos + 1
+    moved = (2 * b * n * h * d + 2 * b * h * d) * q.element_size()
+    flops = 4 * b * h * n * d
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[{card}] decode_attn b{b} cache {max_len} h{h} d{d} bf16 at pos "
+          f"{pos}: {ms * 1e3:.2f} us/call (device) | plain {plain_ms * 1e3:.2f}"
+          f" us | sdpa with a boolean mask {library_ms * 1e3:.2f} us | bound "
+          f"{bound_ms * 1e3:.2f} us ({moved / 1e6:.2f} MB, "
+          f"{flops / 1e6:.1f} MFLOP)", flush=True)
+    return {"max_abs_err": worst[pos], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
 def free_port() -> int:
     import socket
 
@@ -2472,6 +2723,18 @@ KERNEL_ROWS = {
     "K3": ("flash_attention_dkv", "sm90", CSRC + "flash_bwd_dkv_sm90.cu",
            "cron_operator_tpu/ops/flash_attention.py:192"),
 }
+
+
+DECODE_ROW = ("decode_attention", "fma", CSRC + "decode_attn.cu",
+              # no Pallas kernel: XLA compiles the JAX decode's attention
+              "cron_operator_tpu/models/gpt.py:215")
+
+
+def decode_entry(name_suffix: str, launches: int, row: dict) -> dict:
+    name, design, source, replaces = DECODE_ROW
+    return {"name": name + name_suffix, "route": "cuda", "design": design,
+            "source": source, "replaces": replaces, "launches": launches,
+            **row}
 
 
 def kernel_entry(key: str, name_suffix: str, launches: int, row: dict) -> dict:
@@ -2509,7 +2772,8 @@ def main() -> None:
     card = timed("device and build", phase_device, torch)
     timed("K1 vs plain", phase_kernel_vs_plain, torch, fa)
     timed("K2/K3 vs plain", phase_bwd_vs_plain, torch, fa)
-    launches, progress = timed("generate_job", phase_slice, torch, fa)
+    launches, decode_launches, progress = timed("generate_job", phase_slice,
+                                                torch, fa)
     flash_model = timed("prefill correctness", phase_slice_correctness, torch)
     k1, prefill_ms, decode_ms = timed("serving times", phase_times, torch, fa,
                                       flash_model, card)
@@ -2518,7 +2782,7 @@ def main() -> None:
     del flash_model
     release(torch)
     serving = timed("serving graph", phase_serving_graph, torch, card,
-                    prefill_ms)
+                    prefill_ms, None, "generate", BEFORE_MS["decode"])
     print("slice " + json.dumps({
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
         "tokens_per_s": progress["tokens_per_s"],
@@ -2558,8 +2822,8 @@ def main() -> None:
         resume_counts, resume = timed("resume", phase_resume, torch, fa,
                                       card, root)
         stopped, last, stop_s = timed("runner", phase_runner, root)
-        serve_counts = timed("serve checkpoint", phase_serve_checkpoint,
-                             torch, fa, root, last)
+        serve_counts, serve_decode = timed(
+            "serve checkpoint", phase_serve_checkpoint, torch, fa, root, last)
         mfu = timed("mfu and profile", phase_mfu, torch, card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2569,8 +2833,8 @@ def main() -> None:
     moe_counts, moe_train = timed("moe training", phase_moe_train, torch, fa,
                                   card)
     print("moe_train " + json.dumps(moe_train))
-    moe_launches, moe_serving = timed("moe serving", phase_moe_serving, torch,
-                                      fa, card)
+    moe_launches, moe_decode, moe_serving = timed(
+        "moe serving", phase_moe_serving, torch, fa, card)
     print("moe_serving " + json.dumps(moe_serving))
     mesh = timed("mesh on one card", phase_mesh, torch, fa, card)
     print("mesh " + json.dumps({k: {x: v[x] for x in (
@@ -2584,11 +2848,18 @@ def main() -> None:
     graph = timed("mesh graph", phase_mesh_graph, torch, card,
                   step["graph"]["step_ms"])
     print("mesh_graph " + json.dumps(graph))
+    decode_row = timed("decode kernel vs plain", phase_decode_kernel, torch,
+                       card)
     print(f"phases: {sum(walls.values()):.1f} s in all, "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
 
     print(json.dumps({"kernels": [
         kernel_entry("K1", "", launches, k1),
+        # the decode kernel on the serving paths: generate_job, serving the
+        # checkpoint, MoE serving; every row at GPT-2 small's decode shape
+        decode_entry("", decode_launches, decode_row),
+        decode_entry("@serve_checkpoint", serve_decode, decode_row),
+        decode_entry("@moe_serve", moe_decode, decode_row),
         kernel_entry("K1", "@train", train_counts[0], train_rows["K1"]),
         kernel_entry("K2", "", train_counts[1], train_rows["K2"]),
         kernel_entry("K3", "", train_counts[2], train_rows["K3"]),

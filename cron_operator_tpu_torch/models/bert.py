@@ -23,7 +23,7 @@ from cron_operator_tpu_torch.models.layers import (
     add_positions,
     draw_,
     init_flax_layers_,
-    linear,
+    tied_logits,
 )
 
 
@@ -101,9 +101,9 @@ class Bert(nn.Module):
             x = add_positions(x, self.pos_emb[:input_ids.shape[1]].to(dt))
         for layer in self.layers:
             x, _ = layer(x)
-        # tied output embedding (flax tok.attend) in cfg.dtype, then f32
-        table = self.tok_emb.weight.to(dt)
-        return linear(self.ln_f(x), table).float()
+        # tied output embedding (flax tok.attend) in cfg.dtype, then f32,
+        # through a zero-padded table (layers.tied_logits)
+        return tied_logits(self.ln_f(x), self.tok_emb.weight, dt)
 
 
 __all__ = ["Bert", "BertConfig", "EncoderLayer"]

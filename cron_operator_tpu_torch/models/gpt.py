@@ -34,21 +34,25 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.fsdp import FSDPModule
 
 from cron_operator_tpu_torch.models.layers import (
     GroupedQKVProjection,
     LayerNorm,
     Linear,
+    PaddedTable,
     add_positions,
     draw_,
     init_flax_layers_,
-    linear,
+    tied_logits,
 )
-from cron_operator_tpu_torch.ops.attention import multi_head_attention
+from cron_operator_tpu_torch.ops.attention import (
+    decode_attention,
+    multi_head_attention,
+)
 from cron_operator_tpu_torch.parallel.moe import moe_ffn
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch defaults to 1e-5)
-DECODE_MASK = -1e30  # decode's score for unwritten cache positions
 
 
 @dataclass(frozen=True)
@@ -216,24 +220,13 @@ class DecoderLayer(nn.Module):
         return x + y, aux
 
     def _decode_attention(self, q, k, v, cache_k, cache_v, pos):
-        """One-token attention against the layer's cache: the new K/V land at
-        ``pos``, unwritten positions are masked (not sliced) with -1e30, the
-        grouped einsum serves ``group`` query heads per K/V head with f32
-        products, and the probabilities drop to ``cfg.dtype`` before the PV
-        product, as in the JAX decode."""
-        cfg = self.config
-        b, _, h, d = q.shape
-        kv_h = k.shape[2]
+        """One-token attention against the layer's cache: the new K/V land
+        at ``pos``, then :func:`ops.attention.decode_attention` (the decode
+        kernel on the card, the JAX decode's arithmetic on the CPU) attends
+        over the positions written."""
         cache_k.index_copy_(1, pos, k)
         cache_v.index_copy_(1, pos, v)
-        qg = q.reshape(b, kv_h, h // kv_h, d).float()
-        scores = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.float())
-        scores = scores * (1.0 / d ** 0.5)
-        written = torch.arange(cfg.max_len, device=q.device) <= pos
-        scores = scores.masked_fill(~written, DECODE_MASK)
-        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-        out = torch.einsum("bkgs,bskd->bkgd", probs.float(), cache_v.float())
-        return out.to(cfg.dtype).reshape(b, 1, h, d)
+        return decode_attention(q, cache_k, cache_v, pos)
 
 
 class GPT(nn.Module):
@@ -264,6 +257,7 @@ class GPT(nn.Module):
         self.ln_f = LayerNorm(config.hidden_size, eps=LN_EPS, device=device,
                               compute_dtype=config.dtype,
                               param_dtype=param_dtype)
+        self._vocab_table = PaddedTable()
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "GPT":
@@ -307,9 +301,14 @@ class GPT(nn.Module):
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        # tied output embedding (flax tok.attend) in cfg.dtype, then f32
-        table = self.tok_emb.weight.to(self.config.dtype)
-        return linear(self.ln_f(x), table).float()
+        """The tied output embedding (flax ``tok.attend``) in ``cfg.dtype``,
+        then f32, through a zero-padded table (:func:`layers.tied_logits`).
+        Serving (no autograd) keeps its padded table across calls, so a
+        decode step copies none. FSDP2 writes the gathered weight without
+        bumping its version counter, so a model it wraps pads at use."""
+        cache = None if isinstance(self, FSDPModule) else self._vocab_table
+        return tied_logits(self.ln_f(x), self.tok_emb.weight,
+                           self.config.dtype, cache)
 
     def forward(self, input_ids: torch.Tensor):
         x = self._embed(input_ids)

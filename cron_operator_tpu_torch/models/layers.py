@@ -127,6 +127,101 @@ def _linear_on_blocks(x: DTensor, weight: DTensor,
     return DTensor.from_local(local, mesh, outp, run_check=False)
 
 
+VOCAB_ROWS_MULTIPLE = 64  # the tied output table's rows, padded
+
+
+def padded_vocab(v: int) -> int:
+    """``v`` rounded up to a multiple of :data:`VOCAB_ROWS_MULTIPLE`."""
+    return -(-v // VOCAB_ROWS_MULTIPLE) * VOCAB_ROWS_MULTIPLE
+
+
+def _pad_rows(weight: torch.Tensor, dtype: torch.dtype,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``weight [V, E]`` cast to ``dtype`` into the first V rows of a table
+    of :func:`padded_vocab` rows whose rest is zero (``out``, when given):
+    the cast at use and the padding in one pass over the weight. Under
+    autograd the weight's gradient is the table's first V rows, ``[V, E]``
+    in the weight's dtype."""
+    v, e = weight.shape
+    if out is None:
+        out = torch.empty((padded_vocab(v), e), dtype=dtype,
+                          device=weight.device)
+        out[v:].zero_()
+    out[:v].copy_(weight)
+    return out
+
+
+class PaddedTable:
+    """A model's padded copy of its tied output table for steps without
+    autograd (serving), made by :func:`_pad_rows` once and reused while the
+    weight is unchanged: a decode step then reads it and copies nothing.
+
+    The copy is keyed on the weight (its object, storage and version
+    counter, which every in-place write such as ``load_state_dict`` or an
+    optimizer step bumps), so a restored or retrained weight is never
+    served stale. It is refilled in place, so a CUDA graph captured over it
+    reads the new values at its next replay once an eager call (a prefill)
+    has refilled it. A capture never fills it: a stale key there gives no
+    table, and the caller pads at use."""
+
+    def __init__(self) -> None:
+        self._table: Optional[torch.Tensor] = None
+        self._key = None
+
+    def get(self, weight: torch.Tensor,
+            dtype: torch.dtype) -> Optional[torch.Tensor]:
+        if weight.is_inference():  # no version counter to key on
+            return None
+        key = (id(weight), weight.data_ptr(), weight._version, dtype)
+        if key == self._key:
+            return self._table
+        if weight.is_cuda and torch.cuda.is_current_stream_capturing():
+            return None
+        table = self._table
+        shape = (padded_vocab(weight.shape[0]), weight.shape[1])
+        if table is None or (table.shape, table.dtype, table.device) != (
+                shape, dtype, weight.device):
+            table = None
+        # a normal tensor without a graph, even under inference_mode: it
+        # outlives the call and is refilled in place by later ones
+        with torch.inference_mode(False), torch.no_grad():
+            self._table = _pad_rows(weight, dtype, table)
+        self._key = key
+        return self._table
+
+
+def tied_logits(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
+                cache: Optional[PaddedTable] = None) -> torch.Tensor:
+    """The tied output embedding (flax ``tok.attend``): ``x @ weight.T`` in
+    ``dtype``, returned in f32 ``[..., V]``.
+
+    A vocab that is not a multiple of :data:`VOCAB_ROWS_MULTIPLE` (GPT-2's
+    50257, BERT's 30522) gives cuBLAS an output row of odd or 2-element
+    alignment, and it picks its slowest GEMMs for it. So the product runs
+    against a table padded with zero rows (:func:`_pad_rows`), and its
+    output is cut back to V columns before the f32 cast: no caller sees a
+    padded column (an argmax over all-negative logits would pick one).
+    Without autograd the padded table comes from ``cache`` (a
+    :class:`PaddedTable`). A DTensor operand (a ``tensor``/``expert``/
+    ``seq`` mesh) and the ``meta`` device (the FLOP count, which stays at
+    the true vocab) take the product unpadded."""
+    v = weight.shape[0]
+    if (v % VOCAB_ROWS_MULTIPLE == 0 or weight.is_meta
+            or isinstance(weight, DTensor) or isinstance(x, DTensor)):
+        return linear(x, weight.to(dtype)).float()
+    table = None
+    if cache is not None and not torch.is_grad_enabled():
+        table = cache.get(weight, dtype)
+    if table is None:
+        table = _pad_rows(weight, dtype)
+    logits = F.linear(x, table)[..., :v]
+    # a fresh f32 tensor, as the unpadded product's .float() gives: in f32
+    # .float() would return a view of the padded logits
+    if logits.dtype == torch.float32:
+        return logits.contiguous()
+    return logits.float()
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` that normalises in f32 with its parameters and
     rounds the result to ``compute_dtype``, as flax's ``nn.LayerNorm(dtype=
@@ -339,9 +434,12 @@ __all__ = [
     "GroupedQKVProjection",
     "LayerNorm",
     "Linear",
+    "PaddedTable",
     "add_positions",
     "draw_",
     "init_flax_layers_",
     "linear",
+    "padded_vocab",
     "same_padding",
+    "tied_logits",
 ]

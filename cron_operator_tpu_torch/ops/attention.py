@@ -12,6 +12,13 @@
 - ``"ulysses"`` — the all-to-all head-scatter variant
   (:mod:`parallel.ulysses`); the head count must divide the ``seq`` axis.
 
+One-token decode against a KV cache has its own entry,
+:func:`decode_attention`: the hand kernel ``csrc/decode_attn.cu`` on the
+card, :func:`decode_attention_reference` on the CPU. It has no counterpart
+file in the JAX package, whose decode attention lives inside
+``cron_operator_tpu/models/gpt.py`` (``DecoderLayer._decode_attention``),
+where XLA compiles it.
+
 Models call :func:`multi_head_attention` and stay strategy-agnostic. On the
 ``meta`` device (a FLOP count, :func:`count_attention_flops`) attention
 computes nothing and is counted by formula, whatever ``impl`` says. Over a
@@ -29,13 +36,21 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import ctypes
 from typing import Iterator, Optional
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from cron_operator_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
+from cron_operator_tpu_torch.ops import _build
+from cron_operator_tpu_torch.ops.flash_attention import (
+    _DTYPE_CODES,
+    HEAD_DIMS,
+    _count,
+    _raise_on,
+    flash_attention,
+)
 from cron_operator_tpu_torch.parallel.mesh import (
     BATCH_AXES,
     SEQ_AXIS,
@@ -216,5 +231,184 @@ def _sharded_attention(q, k, v, *, causal: bool, impl: str):
     return fn(q, k, v)
 
 
-__all__ = ["attention_placements", "count_attention_flops", "multi_head_attention",
-           "reference_attention"]
+# ------------------------------------------------------------------ decode
+
+DECODE_MASK = -1e30  # decode's score for unwritten cache positions
+DECODE_HEAD_DIMS = (32, 64, 128, 256)  # head dims decode_attn is built for
+DECODE_MAX_GROUP = 32  # query heads per K/V head the kernel takes
+DECODE_CHUNK = 64  # cache positions per block: CHUNK in csrc/decode_attn.cu
+
+
+def decode_attention_reference(q: torch.Tensor, cache_k: torch.Tensor,
+                               cache_v: torch.Tensor,
+                               pos: torch.Tensor) -> torch.Tensor:
+    """One-token attention of ``q [b, 1, h, d]`` against the caches ``[b,
+    max_len, kv_h, d]``, written up to ``pos`` (a 1-element int64 tensor),
+    in plain PyTorch: the JAX decode's arithmetic
+    (``cron_operator_tpu/models/gpt.py:223-243``). The grouped einsum
+    serves ``h // kv_h`` query heads per K/V head with f32 products, the
+    positions past ``pos`` are masked (not sliced) with ``DECODE_MASK``, the
+    softmax runs in f32 and its probabilities drop to ``q``'s dtype before
+    the PV product, which accumulates in f32. Returns ``[b, 1, h, d]`` in
+    ``q``'s dtype."""
+    b, _, h, d = q.shape
+    probs = _decode_probs(q, cache_k, pos).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", probs.float(), cache_v.float())
+    return out.to(q.dtype).reshape(b, 1, h, d)
+
+
+def _decode_probs(q, cache_k, pos) -> torch.Tensor:
+    """The decode's f32 softmax ``[b, kv_h, h // kv_h, max_len]``: the
+    grouped scores with f32 products, scaled, the unwritten positions
+    masked with ``DECODE_MASK``."""
+    b, _, h, d = q.shape
+    kv_h = cache_k.shape[2]
+    qg = q.reshape(b, kv_h, h // kv_h, d).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.float())
+    scores = scores * (1.0 / d ** 0.5)
+    written = torch.arange(cache_k.shape[1], device=q.device) <= pos
+    scores = scores.masked_fill(~written, DECODE_MASK)
+    return torch.softmax(scores, dim=-1)
+
+
+def decode_tolerance(q, cache_k, cache_v, pos, out_ref) -> torch.Tensor:
+    """The bound on ``|out - out_ref|`` per element, for the kernel's
+    ``out`` against :func:`decode_attention_reference`'s on the same
+    inputs. The two sum in other orders, so their f32 scores, row sums and
+    P V sums differ in the last bits. In bf16 that can move a probability
+    across a rounding boundary, by one bf16 ulp (at most 2^-7 of it), and
+    the output's own rounding by one ulp (2^-7 of it): 2^-7 |out_ref| +
+    2^-7 (P |V|) + 1e-4 max|out_ref|, with P the reference's f32
+    probabilities. In f32 nothing is rounded to a narrower type, and the
+    orders alone give 1e-4 (P |V|) + 1e-5 max|out_ref|."""
+    b, _, h, d = q.shape
+    written = torch.arange(cache_k.shape[1], device=q.device) <= pos
+    v_abs = cache_v.float().abs().masked_fill(~written[None, :, None, None], 0)
+    pv = torch.einsum("bkgs,bskd->bkgd", _decode_probs(q, cache_k, pos),
+                      v_abs).reshape(b, 1, h, d)
+    ref = out_ref.float().abs()
+    if q.dtype == torch.bfloat16:
+        return 2.0 ** -7 * (ref + pv) + 1e-4 * ref.max()
+    return 1e-4 * pv + 1e-5 * ref.max()
+
+
+_decode_lib: Optional[ctypes.CDLL] = None
+
+
+def _decode_kernel() -> ctypes.CDLL:
+    """The built decode library, with its C signature declared."""
+    global _decode_lib
+    if _decode_lib is None:
+        lib = _build.load("decode_attn")
+        lib.decode_attn.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 10
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.decode_attn.restype = ctypes.c_int
+        lib.decode_attn_error_string.argtypes = [ctypes.c_int]
+        lib.decode_attn_error_string.restype = ctypes.c_char_p
+        _decode_lib = lib
+    return _decode_lib
+
+
+def _check_decode_inputs(q, cache_k, cache_v, pos) -> None:
+    """Refuses what the decode kernel does not take, before anything is
+    built: it reads the caches in place with 16-byte loads, so they are
+    not copied to fit."""
+    b, one, h, d = q.shape
+    if one != 1:
+        raise ValueError(f"decode attention takes one query position, not {one}")
+    if cache_k.shape != cache_v.shape or cache_k.shape[0] != b or (
+            cache_k.shape[3] != d):
+        raise ValueError(
+            f"caches {tuple(cache_k.shape)}/{tuple(cache_v.shape)} do not fit "
+            f"q {tuple(q.shape)}")
+    kv_h = cache_k.shape[2]
+    if kv_h < 1 or h % kv_h or h // kv_h > DECODE_MAX_GROUP:
+        raise ValueError(
+            f"k/v heads {kv_h} must divide q heads {h} in groups of at most "
+            f"{DECODE_MAX_GROUP}")
+    if d not in DECODE_HEAD_DIMS:
+        raise ValueError(
+            f"decode kernel takes head_dim in {DECODE_HEAD_DIMS}, not {d}")
+    if q.dtype not in _DTYPE_CODES or cache_k.dtype != q.dtype or (
+            cache_v.dtype != q.dtype):
+        raise ValueError("q and the caches must share one dtype, float32 or "
+                         f"bfloat16, not {q.dtype}/{cache_k.dtype}/"
+                         f"{cache_v.dtype}")
+    if pos.dtype != torch.int64 or pos.numel() != 1:
+        raise ValueError("pos must be a 1-element int64 tensor")
+    if any(t.device != q.device for t in (cache_k, cache_v, pos)):
+        raise ValueError("q, the caches and pos must lie on one device")
+    vec = 16 // q.element_size()
+    for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
+        if (t.stride(3) != 1 or t.data_ptr() % 16
+                or any(st % vec for st in t.stride()[:3])):
+            raise ValueError(
+                f"{name} must have unit stride in head_dim and 16-byte "
+                "aligned rows")
+
+
+def _launch_decode(q, cache_k, cache_v, pos) -> torch.Tensor:
+    """The decode kernel on the card."""
+    _check_decode_inputs(q, cache_k, cache_v, pos)
+    b, _, h, d = q.shape
+    max_len, kv_h = cache_k.shape[1], cache_k.shape[2]
+    group = h // kv_h
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    chunks = -(-max_len // DECODE_CHUNK)
+    dev = q.device
+    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev)
+    scores = torch.empty((b, kv_h, group, max_len), dtype=torch.float32,
+                         device=dev)
+    partial = torch.empty((b, kv_h, chunks, group, d), dtype=torch.float32,
+                          device=dev)
+    strides = (q.stride(0), q.stride(2), *cache_k.stride()[:3],
+               *cache_v.stride()[:3], out.stride(0), out.stride(2))
+    lib = _decode_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.decode_attn(
+            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), scores.data_ptr(),
+            partial.data_ptr(), _DTYPE_CODES[q.dtype], b, max_len, h, kv_h, d,
+            *strides, 1.0 / d ** 0.5, stream)
+    _raise_on(err, lib, "decode_attn")
+    _count(decode_attention, "fma", stream)
+    return out
+
+
+def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One-token attention of ``q [b, 1, h, d]`` against the KV caches
+    ``[b, max_len, kv_h, d]`` written up to position ``pos`` (a 1-element
+    int64 tensor on their device, read there: a captured decode step
+    replays at every position without the host). Returns ``[b, 1, h, d]``
+    in ``q``'s dtype.
+
+    A CUDA tensor launches the hand kernel ``csrc/decode_attn.cu`` (or
+    raises); a CPU tensor takes :func:`decode_attention_reference`. The
+    kernel reads the bf16 (or f32) caches through their strides and only
+    the positions up to ``pos``, which is exact (a masked score's
+    probability is 0 in f32). A launch counts in ``.launches`` and
+    ``.launches_by_design["fma"]``, once per replay where a graph capture
+    recorded it (``ops.flash_attention.capture_launches``). A DTensor is
+    refused: serving runs on one device."""
+    if any(isinstance(t, DTensor) for t in (q, cache_k, cache_v, pos)):
+        raise TypeError("decode attention takes local tensors, not DTensors")
+    with torch.no_grad():
+        if q.is_cuda:
+            return _launch_decode(q, cache_k, cache_v, pos)
+        if q.device.type == "cpu":
+            return decode_attention_reference(q, cache_k, cache_v, pos)
+    raise ValueError(f"decode attention runs on CUDA or CPU, not {q.device}")
+
+
+decode_attention.launches = 0
+decode_attention.launches_by_design = {"fma": 0}
+
+
+__all__ = ["DECODE_MASK", "attention_placements", "count_attention_flops",
+           "decode_attention", "decode_attention_reference",
+           "decode_tolerance", "multi_head_attention", "reference_attention"]

@@ -13,9 +13,13 @@ loop over the chunks. It serves the ``gpt`` entrypoint's
 
 The JAX version's two edge rules hold: the chunk size is clamped to the
 vocab size, and the rows of the final chunk past the vocab's end contribute
-nothing (JAX pads that chunk and masks the padding to ``-inf``; here the
-final chunk is cut at the vocab's end, which leaves the same rows out).
-Products and the logsumexp run in f32 whatever the inputs' type.
+nothing. JAX pads that chunk to the chunk size and masks the padding to
+``-inf``. Here a chunk whose row count is not a multiple of 64 (the final
+chunk of an odd vocab: 1105 rows of GPT-2's 50257 at chunk 8192) is padded
+with zero rows to the next multiple of 64, which keeps cuBLAS off its
+unaligned GEMMs, and its padded columns are masked to ``-inf`` before the
+logsumexp and kept out of ``dhidden`` and ``dtable``. Products and the
+logsumexp run in f32 whatever the inputs' type.
 
 Over a mesh the hidden states and labels are DTensors, their rows split
 over the batch axes and, under sequence parallelism, their positions over
@@ -32,10 +36,37 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from cron_operator_tpu_torch.parallel.mesh import batch_placements
 
 
+ROWS_MULTIPLE = 64  # a chunk's table rows, padded
+
+
 def _chunks(v: int, chunk_size: int):
     """``(start, end)`` of each vocab chunk, the size clamped to ``v``."""
     chunk_size = min(chunk_size, v)
     return [(i, min(i + chunk_size, v)) for i in range(0, v, chunk_size)]
+
+
+def _chunk_table(table: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    """Rows ``[start, end)`` of ``table`` in f32, with zero rows after them
+    up to a multiple of ``ROWS_MULTIPLE`` (the cast and the padding in one
+    pass over the rows). On the ``meta`` device (the FLOP count) the rows
+    stay unpadded, so the count stays at the true vocab."""
+    n = end - start
+    padded = -(-n // ROWS_MULTIPLE) * ROWS_MULTIPLE
+    if padded == n or table.is_meta:
+        return table[start:end].float()
+    tbl = torch.empty((padded, table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    tbl[n:].zero_()
+    tbl[:n].copy_(table[start:end])
+    return tbl
+
+
+def _chunk_logits(h: torch.Tensor, tbl: torch.Tensor, n: int) -> torch.Tensor:
+    """``h @ tbl.T`` ``[T, padded]``, its columns past the chunk's ``n``
+    rows masked to ``-inf``."""
+    s = h @ tbl.T
+    s[:, n:] = float("-inf")
+    return s
 
 
 def _label_slot(y: torch.Tensor, start: int, end: int):
@@ -55,7 +86,8 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
         l = torch.zeros(t, device=h.device)
         label_logit = torch.zeros(t, device=h.device)
         for start, end in _chunks(table.shape[0], chunk_size):
-            s = h @ table[start:end].float().T  # [T, chunk]
+            s = _chunk_logits(h, _chunk_table(table, start, end),
+                              end - start)  # [T, chunk padded]
             m_new = torch.maximum(m, s.amax(dim=-1))
             l = l * torch.exp(m - m_new) + torch.exp(s - m_new[:, None]).sum(-1)
             m = m_new
@@ -80,13 +112,15 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
                              device=table.device)
         rows = torch.arange(t, device=h.device)
         for start, end in _chunks(table.shape[0], ctx.chunk_size):
-            tbl = table[start:end].float()
-            p = torch.exp(h @ tbl.T - lse[:, None])  # softmax slice [T, chunk]
+            n = end - start
+            tbl = _chunk_table(table, start, end)
+            # softmax slice [T, chunk padded], 0 in the padded columns
+            p = torch.exp(_chunk_logits(h, tbl, n) - lse[:, None])
             in_chunk, local = _label_slot(y, start, end)
             p[rows, local] -= in_chunk.float()  # minus the one-hot label
             dlogits = p * scale
             dh += dlogits @ tbl
-            dtable[start:end] = dlogits.T @ h
+            dtable[start:end] = (dlogits.T @ h)[:n]
         return (dh.reshape(hidden.shape).to(hidden.dtype),
                 dtable.to(table.dtype), None, None)
 

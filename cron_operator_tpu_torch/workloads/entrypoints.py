@@ -679,8 +679,10 @@ def generate_job(ctx) -> None:
     # Decode is HBM-bandwidth-bound: each step reads the parameters once for
     # the whole batch (every expert, as the JAX count of the tree's leaves)
     # plus every item's full static KV cache ([b, max_len, kv_h, d] K and V
-    # per layer, masked, not truncated). Published so a consumer can place
-    # tokens/s against the card's memory roofline.
+    # per layer, masked, not truncated, in the JAX job; the port's decode
+    # kernel reads only the positions written, so this is its most).
+    # Published so a consumer can place tokens/s against the card's memory
+    # roofline.
     n_params = sum(p.numel() for p in model.parameters())
     kv_heads = cfg.num_kv_heads or cfg.num_heads
     head_dim = cfg.hidden_size // cfg.num_heads

@@ -23,6 +23,8 @@ FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     # the meshed step captured over NCCL: its warm-up probe and card test
     ROOT / "hack" / "torch_graph_warmup_probe.py",
     ROOT / "tests" / "test_torch_mesh_graph_cuda.py",
+    # the decode kernel's card test
+    ROOT / "tests" / "test_torch_decode_attention_cuda.py",
 ]
 
 

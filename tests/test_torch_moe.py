@@ -20,6 +20,7 @@ from cron_operator_tpu.parallel.moe import init_moe_params as jax_init
 from cron_operator_tpu.parallel.moe import moe_ffn as jax_moe_ffn
 from cron_operator_tpu.parallel.moe import router_top1 as jax_router_top1
 from cron_operator_tpu_torch.parallel.moe import (
+    _slot_positions,
     _capacity,
     init_moe_params,
     moe_ffn,
@@ -238,3 +239,30 @@ def test_capacity_is_the_jax_capacity(tokens, experts, factor):
 
     assert _capacity(tokens, experts, factor) == jax_capacity(
         tokens, experts, factor)
+
+
+@pytest.mark.parametrize("tokens", [1, 7, 1000, 8192])
+def test_slot_positions_scan_the_inner_axis_to_the_same_ranks(tokens):
+    """The router's cumsum runs along the inner axis of an ``[E, T]`` copy;
+    on random one-hot masks its ranks equal the token-axis cumsum's, the
+    port's former form and JAX's, from 1 to 8192 tokens."""
+    rng = np.random.default_rng(tokens)
+    mask = np.eye(E, dtype=np.float32)[rng.integers(0, E, tokens)]
+    got = _slot_positions(torch.tensor(mask))
+    assert got.dtype == torch.int64 and got.shape == (tokens,)
+    t = torch.tensor(mask)
+    dim0 = ((torch.cumsum(t, dim=0) - 1.0) * t).sum(dim=-1).long()
+    assert torch.equal(got, dim0)
+    ref = ((jnp.cumsum(jnp.asarray(mask), axis=0) - 1.0)
+           * jnp.asarray(mask)).sum(-1).astype(jnp.int32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_routes_at_the_training_token_count_equal_jax():
+    """8192 tokens, as one MoE layer of the GPT-2-small step routes, at a
+    small capacity so that most tokens past it are dropped."""
+    rng = np.random.default_rng(11)
+    logits = 3 * rng.standard_normal((8192, E), dtype=np.float32)
+    _, dispatch, _ = router_top1(torch.tensor(logits), 64)
+    _, jax_dispatch, _ = jax_router_top1(jnp.asarray(logits), 64)
+    np.testing.assert_array_equal(dispatch.numpy(), np.asarray(jax_dispatch))

@@ -45,11 +45,30 @@ def _jax(hidden, table, labels, chunk):
     return float(loss), np.asarray(dh), np.asarray(dw)
 
 
-# 100 divides; 32, 33 and 7 leave a short final chunk; 128 > V is clamped
-@pytest.mark.parametrize("chunk", [V, 32, 33, 7, 128])
+# 100 divides; 32, 33, 7 and 64 leave a short final chunk (64's is 36 rows,
+# padded to 64 and masked); 128 > V is clamped
+@pytest.mark.parametrize("chunk", [V, 32, 33, 7, 128, 64])
 def test_loss_and_grads_match_jax(data, chunk):
     got = _port(*data, chunk)
     ref = _jax(*data, chunk)
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5)
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6)
+
+
+def test_padded_final_chunk_matches_jax():
+    """A vocab whose final chunk is not a multiple of 64 rows (1361 = 2 x
+    512 + 337, padded to 384), as GPT-2's 50257 leaves 1105 at chunk 8192:
+    the padded columns stay out of the loss and of both gradients."""
+    rng = np.random.default_rng(5)
+    v = 1361
+    hidden = rng.standard_normal((2, T // 2, D), dtype=np.float32)
+    table = 0.1 * rng.standard_normal((v, D), dtype=np.float32)
+    labels = rng.integers(0, v, (2, T // 2)).astype(np.int32)
+    labels[0, 0] = v - 1  # a label in the last real row
+    got = _port(hidden, table, labels, 512)
+    ref = _jax(hidden, table, labels, 512)
     np.testing.assert_allclose(got[0], ref[0], rtol=1e-5)
     for g, r in zip(got[1:], ref[1:]):
         assert g.shape == r.shape
