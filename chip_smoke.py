@@ -66,9 +66,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    graph against the eager step, as phase 6 (beside 15.496 ms).
 8. ResNet-50 (``resnet50``: b 128, image 224, SGD), ViT-B/16 (``vit``:
    b 64, image 224) and the MLP (``mnist``) at their defaults, each with
-   its parameter count and no flash launch; for ResNet-50 and ViT the
-   graph against the eager step as phase 6, with model FLOPs per step
-   from ``FlopCounterMode``.
+   its parameter count and no flash launch; ResNet-50's GroupNorm kernels
+   launched 53 times a step each, forward and backward (530 over its 10
+   steps, a replay counted once; ViT's 0), counts set to 0 just before
+   the job and read just after; for ResNet-50 and ViT the graph against
+   the eager step as phase 6, with model FLOPs per step from
+   ``FlopCounterMode``.
 9. The one-card job contract at GPT-2 small width (b 8, s 1024, bf16 over
    f32 parameters, AdamW, fused data): 12 steps in calls of 4 against 8
    steps saved every 4 and a fresh model and trainer that restore step 8
@@ -191,7 +194,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
     time at position 575 beside its bound (the K and V bytes up to the
     position over 3.35 TB/s), the plain version and SDPA with a boolean
     mask of the written positions (a yardstick: the port never calls it).
-20. A ``kernels`` JSON line, the card line, and last the result line
+20. The GroupNorm kernels (``ops/csrc/group_norm.cu``) against their
+    plain versions ``group_norm_reference`` and
+    ``group_norm_backward_reference`` at each of ResNet-50's 12 norm
+    shapes at b 128 (``RESNET50_NORMS``, bf16): y, mean and rstd, then
+    dx, dgamma and dbeta, within ``group_norm_tolerance``, two runs
+    bit-identical; an f32 case; a mean-100, std-1 case in f32 within the
+    variance-gap bound of ``tests/test_torch_resnet.py``; an NCHW CUDA
+    tensor raising; one GroupNorm forward and backward copying or casting
+    no activation-sized tensor. Each shape timed forward and backward
+    (device time, the card held busy) beside its byte bound, the plain
+    version, ``F.group_norm`` and ``native_group_norm_backward`` (the
+    yardsticks the port never calls on the card), and the sums over the
+    53 norms; then phase 8's ResNet-50 step (graph and eager ms, images/s,
+    MFU) beside the 69.747 and 72.098 ms before the kernels, with its
+    GroupNorm launches.
+21. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
 
@@ -525,6 +543,9 @@ def zero_counts(fa) -> None:
     decode = decode_wrapper()
     decode.launches = 0
     decode.launches_by_design = {"fma": 0}
+    for fn in norm_wrappers():
+        fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
 
 
 def decode_wrapper():
@@ -532,6 +553,17 @@ def decode_wrapper():
     decode kernel's."""
     return importlib.import_module(
         "cron_operator_tpu_torch.ops.attention").decode_attention
+
+
+def norm_wrappers():
+    """``ops.group_norm``'s forward and backward wrappers, whose
+    ``launches`` count the GroupNorm kernels'."""
+    gn = importlib.import_module("cron_operator_tpu_torch.ops.group_norm")
+    return gn.group_norm_forward, gn.group_norm_backward
+
+
+def read_norm_counts():
+    return tuple(fn.launches for fn in norm_wrappers())
 
 
 def read_counts(fa):
@@ -1135,12 +1167,14 @@ def phase_bert(torch, fa, card):
 
 
 def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
-                    train_config):
-    """An image job at its defaults (no attention reaches the kernels),
-    then its step on the card, graph against eager (``make_model()``'s
-    model with seed-0 weights, the job's optimizer, fused data): model
-    FLOPs a step counted by ``FlopCounterMode`` over one forward and
-    backward."""
+                    train_config, norms_per_step: int = 0):
+    """An image job at its defaults (no attention reaches the kernels; the
+    GroupNorm kernels launch ``norms_per_step`` times a step each, forward
+    and backward, counted from 0 over the job), then its step on the card,
+    graph against eager (``make_model()``'s model with seed-0 weights, the
+    job's optimizer, fused data): model FLOPs a step counted by
+    ``FlopCounterMode`` over one forward and backward. Returns the
+    GroupNorm launches and the step's rows."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from cron_operator_tpu_torch.workloads import data
@@ -1150,6 +1184,15 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
     )
 
     _, progress = phase_job(torch, fa, job, params, 0)
+    norm_counts = read_norm_counts()  # counted from 0 over the job
+    steps = int(params["steps"])
+    expected = (norms_per_step * steps,) * 2
+    print(f"{job}: GroupNorm kernel launches (forward, backward) "
+          f"{norm_counts} (expected {expected}: {norms_per_step} a step, a "
+          f"replay counted once)", flush=True)
+    if norm_counts != expected:
+        fail(f"the GroupNorm kernels launched {norm_counts} times on the "
+             f"{job} path, not {expected}")
     b, size = int(params["batch_size"]), int(params["image_size"])
 
     def seeded():
@@ -1175,6 +1218,7 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
         "job_avg_step_time_s": progress["avg_step_time_s"],
         "job_first_step_s": progress["compile_time_s"],
     }))
+    return norm_counts, step
 
 
 COPYING_OPS = ("_to_copy", "copy_", "clone", "contiguous", "_reshape_copy",
@@ -2704,6 +2748,254 @@ def phase_decode_kernel(torch, card) -> dict:
             "library_ms": library_ms}
 
 
+# ResNet-50's GroupNorms at b 128 x 224^2: (channels, map side, norms a
+# step), 53 in all (models/resnet.py: the stem, then each block's convs and
+# its projection shortcut)
+RESNET50_NORMS = ((64, 112, 1), (64, 56, 6), (128, 56, 1), (256, 56, 4),
+                  (128, 28, 7), (256, 28, 1), (512, 28, 5), (256, 14, 11),
+                  (512, 14, 1), (1024, 14, 7), (512, 7, 5), (2048, 7, 4))
+NORM_BATCH = int(RESNET50_PARAMS["batch_size"])
+NORM_GROUPS, NORM_EPS = 32, 1e-6
+# f32 operations an element (statistics and normalisation; the backward's
+# two sums and dx) over the f32 rate outside the tensor cores (H100 SXM)
+NORM_OPS = {"forward": 5, "backward": 10}
+F32_FLOPS = 67e12
+# ResNet-50's graphed and eager step before the GroupNorm kernels
+# (PERF.md section 5, H100 80GB HBM3 at 700 W)
+NORM_BEFORE_MS = {"graph": 69.747, "eager": 72.098}
+
+
+def norm_bound(b: int, c: int, hw: int, esize: int, direction: str):
+    """(bound ms, bound_by) of one norm: each input read once and each
+    output written once (forward x, gamma, beta -> y, mean, rstd; backward
+    x, dy, mean, rstd, gamma -> dx, dgamma, dbeta) over 3.35 TB/s, against
+    ``NORM_OPS`` f32 operations an element over the f32 rate."""
+    n, stats = b * c * hw, 2 * b * NORM_GROUPS * 4
+    if direction == "forward":
+        moved = 2 * n * esize + 2 * c * 4 + stats
+    else:
+        moved = 3 * n * esize + 3 * c * 4 + stats
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = NORM_OPS[direction] * n / F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def check_norm(torch, gn, label: str, x, dy, gamma, beta, out_dtype):
+    """Both GroupNorm kernels against their plain versions on one input:
+    y, mean and rstd, then dx, dgamma and dbeta (the plain backward from
+    the kernel's statistics, so both take the same inputs), each within
+    ``group_norm_tolerance``; a second run of each bit-identical. Returns
+    the largest |y - plain| and |dx - plain|."""
+    g, eps = NORM_GROUPS, NORM_EPS
+    y, mean, rstd = gn.group_norm_forward(x, gamma, beta, g, eps, out_dtype)
+    dx, dgamma, dbeta = gn.group_norm_backward(dy, x, mean, rstd, gamma, g)
+    again = gn.group_norm_forward(x, gamma, beta, g, eps, out_dtype)
+    again += gn.group_norm_backward(dy, x, *again[1:], gamma, g)
+    same = all(torch.equal(a, b) for a, b in zip(
+        (y, mean, rstd, dx, dgamma, dbeta), again))
+    del again
+    ry, rmean, rrstd = gn.group_norm_reference(x, gamma, beta, g, eps,
+                                               out_dtype)
+    rdx, rdgamma, rdbeta = gn.group_norm_backward_reference(dy, x, mean, rstd,
+                                                            gamma, g)
+    bounds = gn.group_norm_tolerance(x, gamma, beta, g, rmean, rrstd, ry, dy,
+                                     rdx)
+    pairs = {"y": (y, ry), "mean": (mean, rmean), "rstd": (rstd, rrstd),
+             "dx": (dx, rdx), "dgamma": (dgamma, rdgamma),
+             "dbeta": (dbeta, rdbeta)}
+    ratios, errs = {}, {}
+    for key, (got, want) in pairs.items():
+        err = (got.float() - want.float()).abs()
+        if not bool(torch.isfinite(got.float()).all()):
+            fail(f"GroupNorm {label}: {key} is not finite")
+        ratios[key] = (err / bounds[key]).max().item()
+        errs[key] = err.max().item()
+        if not bool((err <= bounds[key]).all()):
+            fail(f"GroupNorm {label}: {key} outside group_norm_tolerance "
+                 f"(max err/bound {ratios[key]:.3f})")
+    if not same:
+        fail(f"GroupNorm {label}: two runs differ")
+    torch.cuda.synchronize()
+    print(f"  group_norm {label}: max err/bound "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items())
+          + f"; max|d y| {errs['y']:.3e}, max|d dx| {errs['dx']:.3e}; reruns "
+          "identical", flush=True)
+    return errs["y"], errs["dx"]
+
+
+def variance_gap_bound(torch, x, gamma, beta):
+    """The exact f64 GroupNorm of ``x`` and the bound of
+    ``tests/test_torch_resnet.py::test_group_norm_variance_gap_is_bounded``
+    on an f32 result: a sum of n f32 terms of size E[x^2] is off by up to
+    n 2^-24 E[x^2], which moves the variance by that much relative to
+    itself, and the output by half that times max |x - mean| / std and
+    max |gamma|."""
+    b, c = x.shape[:2]
+    g = x.double().reshape(b, NORM_GROUPS, -1)
+    mean = g.mean(-1, keepdim=True)
+    var = g.var(-1, unbiased=False, keepdim=True)
+    z = ((g - mean) / torch.sqrt(var + NORM_EPS)).reshape(x.shape)
+    exact = z * gamma.double()[:, None, None] + beta.double()[:, None, None]
+    n = g.shape[-1]
+    rel_var = n * 2.0 ** -24 * ((g ** 2).mean(-1, keepdim=True) / var).max()
+    bound = rel_var / 2 * z.abs().max() * gamma.abs().max()
+    return exact, bound.item()
+
+
+def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
+    """The GroupNorm kernels (``ops/csrc/group_norm.cu``) against their
+    plain versions at each of ResNet-50's 12 norm shapes at b 128 in bf16
+    (``check_norm``), an f32 case and a mean-100 case held to the
+    variance-gap bound of ``tests/test_torch_resnet.py``; a CUDA input that
+    is not channels-last raises; one model GroupNorm's forward and backward
+    copies and casts no activation-sized tensor. Each shape timed forward
+    and backward (device ms with the card held busy) beside its bound, the
+    plain version and the library call (``F.group_norm``, and
+    ``native_group_norm_backward``), and the sums over the 53 norms; then
+    phase 8's ResNet-50 step beside PERF.md section 5's. Returns the two
+    kernels' rows for the kernels line, each time summed over the 53
+    norms."""
+    import torch.nn.functional as F
+
+    from cron_operator_tpu_torch.models.layers import GroupNorm
+
+    gn = importlib.import_module("cron_operator_tpu_torch.ops.group_norm")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    g, eps, bf16 = NORM_GROUPS, NORM_EPS, torch.bfloat16
+
+    def inputs(b, c, side, dtype, mean=0.0):
+        def nhwc():
+            return torch.randn(b, side, side, c, generator=gen,
+                               device="cuda").permute(0, 3, 1, 2)
+        x, dy = (mean + nhwc()).to(dtype), nhwc().to(dtype)
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        return x, dy, gamma, beta
+
+    for label, dtype, shape in (("f32 b4 C256 14x14", torch.float32,
+                                 (4, 256, 14)),):
+        check_norm(torch, gn, label, *inputs(*shape, dtype), dtype)
+    for b, c, side in ((2, 64, 6), (8, 512, 14)):
+        x, _, gamma, beta = inputs(b, c, side, torch.float32, mean=100.0)
+        y, _, _ = gn.group_norm_forward(x, gamma, beta, g, eps, torch.float32)
+        exact, bound = variance_gap_bound(torch, x, gamma, beta)
+        err = (y.double() - exact).abs().max().item()
+        print(f"  group_norm mean 100, std 1, f32 b{b} C{c} {side}x{side}: "
+              f"max|y - exact f64| {err:.3e}, variance-gap bound "
+              f"{bound:.3e}", flush=True)
+        if not err <= bound:
+            fail(f"GroupNorm mean-100 case b{b} C{c}: {err} beyond the "
+                 f"variance-gap bound {bound}")
+    x, dy, gamma, beta = inputs(2, 64, 8, bf16)
+    for name, call in (
+            ("forward", lambda: gn.group_norm_forward(
+                x.contiguous(), gamma, beta, g, eps, bf16)),
+            ("backward", lambda: gn.group_norm_backward(
+                dy.contiguous(), x, *gn.group_norm_forward(
+                    x, gamma, beta, g, eps, bf16)[1:], gamma, g))):
+        try:
+            call()
+        except ValueError as err:
+            print(f"  group_norm {name} of an NCHW-contiguous CUDA tensor "
+                  f"raises: {err}", flush=True)
+        else:
+            fail(f"the GroupNorm {name} kernel took a tensor that is not "
+                 "channels-last")
+
+    totals = {d: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"),
+                               0.0) for d in ("forward", "backward")}
+    worst = {"forward": 0.0, "backward": 0.0}
+    lib_note = "channels-last inputs"
+    bound_by = set()
+    for c, side, count in RESNET50_NORMS:
+        b, hw = NORM_BATCH, side * side
+        x, dy, gamma, beta = inputs(b, c, side, bf16)
+        err_y, err_dx = check_norm(torch, gn, f"bf16 b{b} C{c} {side}x{side}",
+                                   x, dy, gamma, beta, bf16)
+        worst["forward"] = max(worst["forward"], err_y)
+        worst["backward"] = max(worst["backward"], err_dx)
+        _, mean, rstd = gn.group_norm_forward(x, gamma, beta, g, eps, bf16)
+        gamma_lp, beta_lp = gamma.to(bf16), beta.to(bf16)
+        args = (x, gamma_lp, beta_lp, b, c, hw, g, eps)
+        # the backward's library call on the channels-last tensors where it
+        # takes them and gives F.group_norm's statistics, else on NCHW copies
+        want = F.group_norm(x, g, gamma_lp, beta_lp, eps).float()
+        try:
+            out, lmean, lrstd = torch.ops.aten.native_group_norm(*args)
+            took = torch.allclose(out.float(), want, atol=0.05)
+            lib_note = "its output on them disagreed with F.group_norm's"
+        except RuntimeError as err:
+            took, lib_note = False, str(err)[:80]
+        lib_x, lib_dy = x, dy
+        if not took:
+            lib_note = f"NCHW-contiguous copies ({lib_note})"
+            lib_x, lib_dy = x.contiguous(), dy.contiguous()
+            _, lmean, lrstd = torch.ops.aten.native_group_norm(
+                lib_x, gamma_lp, beta_lp, b, c, hw, g, eps)
+        del want
+        fns = {
+            "forward": (
+                lambda: gn.group_norm_forward(x, gamma, beta, g, eps, bf16),
+                lambda: gn.group_norm_reference(x, gamma, beta, g, eps, bf16),
+                lambda: F.group_norm(x, g, gamma_lp, beta_lp, eps)),
+            "backward": (
+                lambda: gn.group_norm_backward(dy, x, mean, rstd, gamma, g),
+                lambda: gn.group_norm_backward_reference(dy, x, mean, rstd,
+                                                         gamma, g),
+                lambda: torch.ops.aten.native_group_norm_backward(
+                    lib_dy, lib_x, lmean, lrstd, gamma_lp, b, c, hw, g,
+                    [True] * 3)),
+        }
+        for direction, (kernel, plain, library) in fns.items():
+            ms, plain_ms, library_ms = (device_ms(torch, fn, n) for fn, n in (
+                (kernel, 20), (plain, 3), (library, 10)))
+            bound_ms, by = norm_bound(b, c, hw, 2, direction)
+            bound_by.add(by)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("library_ms", library_ms), ("bound_ms", bound_ms)):
+                totals[direction][key] += count * v
+            print(f"[{card}] group_norm {direction} b{b} C{c} {side}x{side} "
+                  f"bf16 (x{count} a step): {ms * 1e3:.2f} us (device) | "
+                  f"bound {bound_ms * 1e3:.2f} us ({bound_ms / ms:.1%}) | "
+                  f"plain {plain_ms * 1e3:.2f} us | library "
+                  f"{library_ms * 1e3:.2f} us", flush=True)
+        if (c, side) == RESNET50_NORMS[0][:2]:
+            norm = GroupNorm(c, compute_dtype=bf16, device="cuda")
+            xr = x.detach().requires_grad_()
+            found = copying_ops(torch, lambda: norm(xr).backward(dy),
+                                x.numel())
+            print(f"  one GroupNorm forward and backward at b{b} C{c} "
+                  f"{side}x{side}: copies or casts of {x.numel()}+ elements "
+                  f"{found or 'none'}", flush=True)
+            if found:
+                fail(f"a GroupNorm forward and backward copies or casts "
+                     f"activation-sized tensors: {found}")
+            del norm, xr
+        del x, dy, mean, rstd, lmean, lrstd, lib_x, lib_dy, fns
+        release(torch)
+    print(f"[{card}] group_norm over ResNet-50's 53 norms a step (library "
+          f"backward on {lib_note}): " + json.dumps(totals), flush=True)
+
+    if resnet_step is not None:
+        steps = int(RESNET50_PARAMS["steps"])
+        print(f"[{card}] resnet50: GroupNorm launches {norm_counts} over "
+              f"{steps} steps ({norm_counts[0] // steps} forward and "
+              f"{norm_counts[1] // steps} backward a step)", flush=True)
+        for mode in ("graph", "eager"):
+            row = resnet_step[mode]
+            print(f"[{card}] resnet50 {mode} step with the GroupNorm kernels:"
+                  f" {row['step_ms']:.3f} ms, {row['images_per_s']:.1f} "
+                  f"images/s, MFU {row['mfu']:.4f}, beside "
+                  f"{NORM_BEFORE_MS[mode]} ms before them (PERF.md section "
+                  "5)", flush=True)
+    return {d: {"max_abs_err": worst[d], "ms": totals[d]["ms"],
+                "plain_ms": totals[d]["plain_ms"],
+                "bound_ms": totals[d]["bound_ms"],
+                "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
+                "library_ms": totals[d]["library_ms"]}
+            for d in ("forward", "backward")}
+
+
 def free_port() -> int:
     import socket
 
@@ -2740,6 +3032,18 @@ def decode_entry(name_suffix: str, launches: int, row: dict) -> dict:
 def kernel_entry(key: str, name_suffix: str, launches: int, row: dict) -> dict:
     name, design, source, replaces = KERNEL_ROWS[key]
     return {"name": name + name_suffix, "route": "cuda", "design": design,
+            "source": source, "replaces": replaces, "launches": launches,
+            **row}
+
+
+NORM_ROW = (CSRC + "group_norm.cu",
+            # no Pallas kernel: XLA fuses flax's nn.GroupNorm
+            "cron_operator_tpu/models/resnet.py:38")
+
+
+def norm_entry(name: str, launches: int, row: dict) -> dict:
+    source, replaces = NORM_ROW
+    return {"name": name, "route": "cuda", "design": "two_pass",
             "source": source, "replaces": replaces, "launches": launches,
             **row}
 
@@ -2810,9 +3114,11 @@ def main() -> None:
     from cron_operator_tpu_torch.workloads.train import TrainConfig
 
     # each job's model and optimizer, as its entrypoint builds them
-    timed("resnet50", phase_image_job, torch, fa, card, "resnet50",
-          RESNET50_PARAMS, lambda: ResNet50(device="cuda"),
-          TrainConfig(optimizer="sgd", learning_rate=0.1))
+    norm_counts, resnet_step = timed(
+        "resnet50", phase_image_job, torch, fa, card, "resnet50",
+        RESNET50_PARAMS, lambda: ResNet50(device="cuda"),
+        TrainConfig(optimizer="sgd", learning_rate=0.1),
+        sum(n for _, _, n in RESNET50_NORMS))
     timed("vit", phase_image_job, torch, fa, card, "vit", VIT_PARAMS,
           lambda: ViT(ViTConfig.base(), device="cuda"), TrainConfig())
     timed("mnist", phase_job, torch, fa, "mnist", MNIST_PARAMS, 0)
@@ -2850,6 +3156,8 @@ def main() -> None:
     print("mesh_graph " + json.dumps(graph))
     decode_row = timed("decode kernel vs plain", phase_decode_kernel, torch,
                        card)
+    norm_rows = timed("GroupNorm kernel vs plain", phase_group_norm, torch,
+                      card, norm_counts, resnet_step)
     print(f"phases: {sum(walls.values()):.1f} s in all, "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
 
@@ -2897,6 +3205,10 @@ def main() -> None:
         *(kernel_entry(key, "@mesh_graph", graph["launches"][i],
                        train_rows[key])
           for i, key in enumerate(("K1", "K2", "K3"))),
+        # the GroupNorm pair on the resnet50 path of phase 8; each time is
+        # one step's 53 norms at b 128 x 224^2, summed over their shapes
+        norm_entry("group_norm", norm_counts[0], norm_rows["forward"]),
+        norm_entry("group_norm_bwd", norm_counts[1], norm_rows["backward"]),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

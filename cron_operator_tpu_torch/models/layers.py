@@ -25,6 +25,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
+from cron_operator_tpu_torch.ops.group_norm import group_norm
 from cron_operator_tpu_torch.ops.rope import apply_rope
 from cron_operator_tpu_torch.parallel.mesh import on_local_rows
 
@@ -299,9 +300,12 @@ class Conv2d(nn.Conv2d):
 class GroupNorm(nn.GroupNorm):
     """flax ``nn.GroupNorm(dtype=...)``: 32 groups of consecutive channels,
     epsilon 1e-6, normalised in f32 with f32 parameters and rounded to
-    ``compute_dtype``. The variance is ``F.group_norm``'s, E[(x - E[x])^2];
-    flax computes E[x^2] - E[x]^2 (``use_fast_variance``), which loses
-    digits to cancellation when a group's mean is large beside its spread."""
+    ``compute_dtype``. The variance is E[(x - E[x])^2] (``F.group_norm``'s
+    on the CPU, Chan's combination in the kernel on the card); flax computes
+    E[x^2] - E[x]^2 (``use_fast_variance``), which loses digits to
+    cancellation when a group's mean is large beside its spread. The norm
+    runs through ``ops.group_norm.group_norm``: the hand kernels on a
+    channels-last CUDA tensor, the plain versions on the CPU."""
 
     def __init__(self, channels: int, *, compute_dtype: torch.dtype,
                  device=None, param_dtype: torch.dtype = torch.float32):
@@ -315,9 +319,8 @@ class GroupNorm(nn.GroupNorm):
         return self._norm(x, self.weight, self.bias)
 
     def _norm(self, x, weight, bias):
-        y = F.group_norm(x.float(), self.num_groups, weight.float(),
-                         bias.float(), self.eps)
-        return y.to(self.compute_dtype)
+        return group_norm(x, weight, bias, groups=self.num_groups,
+                          eps=self.eps, out_dtype=self.compute_dtype)
 
 
 # flax's lecun_normal: a standard normal truncated to [-2, 2], scaled so the

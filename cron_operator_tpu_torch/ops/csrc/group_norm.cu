@@ -1,0 +1,663 @@
+// GroupNorm over channels-last tensors for Hopper (sm_90a), forward and
+// backward, plain C interface for ctypes.
+//
+// No Pallas kernel stands behind this one: on the TPU, XLA compiles flax's
+// nn.GroupNorm (cron_operator_tpu/models/resnet.py:38, and every norm of
+// that file) into the convolutions' fusions. The port's plain version
+// (ops/group_norm.py group_norm_reference) casts x to f32, lets
+// F.group_norm copy the channels-last tensor to NCHW, and casts back; its
+// autograd saves the f32 copy. This pair reads the bf16 (or f32) NHWC
+// tensor as it lies and keeps only f32 statistics.
+//
+// Function (G groups of Cg = C / G consecutive channels, n = Cg * H * W):
+//   forward   mean_g, M2_g by Chan's combination of partial (n, mean, M2)
+//             rstd_g = 1 / sqrt(M2_g / n + eps)
+//             y = (x - mean_g) * (rstd_g * gamma_c) + beta_c   (flax's
+//             order), in f32, rounded once to y's type
+//   backward  xhat = (x - mean_g) * rstd_g, recomputed from x
+//             s1_g = sum gamma_c dy, s2_g = sum gamma_c dy xhat over (b, g)
+//             dx = rstd_g * (gamma_c dy - s1_g / n - xhat s2_g / n)
+//             dgamma_c = sum_{b,h,w} dy xhat, dbeta_c = sum_{b,h,w} dy
+// No float atomics: every sum and merge has one order, so reruns are
+// bit-identical. Nothing here allocates or synchronises; the wrapper hands
+// in the outputs and every scratch buffer, and a graph capture holds.
+//
+// Bound: bytes. The forward must read x and write y, the backward read x
+// and dy and write dx (the statistics and gamma are B * G and C floats).
+// ResNet-50's 53 norms at b 128 x 224^2 hold 1,422,589,952 elements a
+// step: 5.69 GB forward and 8.54 GB backward in bf16, 1.70 + 2.55 ms at
+// 3.35 TB/s; the largest norm (C 64 at 112^2, 102.8 M elements) 122.7 and
+// 184.0 us. The arithmetic is a few operations an element.
+//
+// Design, a simple two-pass one (each pass a grid of tiles):
+// - Layout. A group is 2-64 adjacent channels, 4-128 bytes of bf16 a pixel:
+//   a block per (b, g) would read short strided runs. A block reads whole
+//   slabs of a pixel row instead: SLAB = min(C, 256) channels (512 bytes of
+//   bf16), as 16-byte vectors, one per thread and pixel; the 256 threads
+//   are rows x cols (cols = SLAB / vector) and each reads PIX = 8 pixels
+//   rows apart, so a warp's loads are contiguous. A thread keeps its 8
+//   vectors packed (32 registers for bf16) and widens each value where it
+//   uses it, so two or three blocks share an SM and one block's reduction
+//   overlaps another's loads.
+// - Parallelism. A tile is (b, slab, rows * 8 pixels): 8-16 K elements.
+//   The statistics of a (b, g) are split over the tiles and merged in a
+//   second, ordered step, so every shape gives 256-6,272 blocks for 132
+//   SMs, not 128 blocks of one sample each.
+// - Forward: stats_kernel (a thread's 8 pixels by two passes in registers,
+//   then each group's rows x Cg per-channel partials combined at once:
+//   mean = sum n_i mean_i / N, M2 = sum M2_i + n_i (mean_i - mean)^2, each
+//   sum a fixed tree over the group's threads); finalize_kernel (a warp per
+//   (b, g) merges the tiles' partials pairwise in order); normalize_kernel
+//   (the second read of x).
+// - Backward: bwd_partials_kernel (per (b, tile, c) sums of dy xhat and
+//   dy over the tile's pixels); bwd_sum_kernel (per (b, c) over the tiles
+//   in order, then s1 / n and s2 / n of each (b, g) by a tree over its Cg
+//   channels); dx_kernel (the second read of x and dy), whose last C / 32
+//   blocks sum dgamma, dbeta over b in order.
+// C must be a power of two with G | C, C / G <= 256 and C at least one
+// vector (8 bf16, 4 f32); the wrapper checks the layout (NHWC-contiguous,
+// 16-byte aligned).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int PIX = 8;         // pixels each thread reads in a tile
+constexpr int MAX_SLAB = 256;  // channels of a slab
+constexpr int DG_CHANNELS = 32;
+constexpr int DG_LANES = THREADS / DG_CHANNELS;
+
+struct Tiling {
+  int slab;      // channels a block reads of each pixel
+  int slabs;     // C / slab
+  int cols;      // vectors across a slab
+  int rows;      // THREADS / cols
+  int pix_tile;  // pixels of a tile: rows * PIX
+  int tiles;     // tiles of a (b, slab)
+  int cg;        // channels of a group
+  int cg_log2;
+};
+
+bool power_of_two(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+int log2_of(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
+}
+
+// Returns false for a shape the kernels do not take.
+bool make_tiling(int channels, int hw, int groups, int vec, Tiling* t) {
+  if (!power_of_two(channels) || !power_of_two(groups) || channels < vec ||
+      groups > channels || hw <= 0)
+    return false;
+  t->slab = channels < MAX_SLAB ? channels : MAX_SLAB;
+  t->slabs = channels / t->slab;
+  t->cols = t->slab / vec;
+  t->rows = THREADS / t->cols;
+  t->pix_tile = t->rows * PIX;
+  t->tiles = (hw + t->pix_tile - 1) / t->pix_tile;
+  t->cg = channels / groups;
+  t->cg_log2 = log2_of(t->cg);
+  return t->cg <= t->slab;
+}
+
+int vec_of(int dtype) { return dtype == 0 ? 4 : 8; }
+
+// V values of T kept as they lie in memory (V * sizeof(T) is 8, 16 or 32
+// bytes), read and written in 8- or 16-byte accesses, widened to f32 one
+// value at a time.
+template <typename T, int V>
+struct Packed {
+  static constexpr int WORDS = V * (int)sizeof(T) / 4;
+  uint32_t w[WORDS];
+
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (WORDS >= 4) {
+#pragma unroll
+      for (int k = 0; k < WORDS / 4; ++k) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + k);
+        w[4 * k] = v.x;
+        w[4 * k + 1] = v.y;
+        w[4 * k + 2] = v.z;
+        w[4 * k + 3] = v.w;
+      }
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = v.x;
+      w[1] = v.y;
+    }
+  }
+
+  __device__ __forceinline__ void store(T* p) const {
+    if constexpr (WORDS >= 4) {
+#pragma unroll
+      for (int k = 0; k < WORDS / 4; ++k)
+        reinterpret_cast<uint4*>(p)[k] =
+            make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+    } else {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    }
+  }
+
+  __device__ __forceinline__ float get(int j) const {
+    if constexpr (sizeof(T) == 4) {
+      return __uint_as_float(w[j]);
+    } else {  // bf16: the upper half of an f32
+      const uint32_t v = w[j >> 1];
+      return __uint_as_float((j & 1) ? (v & 0xffff0000u) : (v << 16));
+    }
+  }
+
+  __device__ __forceinline__ void set(int j, float f) {
+    if constexpr (sizeof(T) == 4) {
+      w[j] = __float_as_uint(f);
+    } else {
+      const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(f));
+      w[j >> 1] = (j & 1) ? ((w[j >> 1] & 0xffffu) | (h << 16))
+                          : ((w[j >> 1] & 0xffff0000u) | h);
+    }
+  }
+};
+
+// Chan's merge of (nb, mb, m2b) into (n, m, m2); an empty side is a no-op.
+__device__ __forceinline__ void chan_merge(float& n, float& m, float& m2,
+                                           float nb, float mb, float m2b) {
+  if (nb == 0.f) return;
+  if (n == 0.f) {
+    n = nb;
+    m = mb;
+    m2 = m2b;
+    return;
+  }
+  const float nn = n + nb;
+  const float d = mb - m;
+  const float f = nb / nn;
+  m = m + d * f;
+  m2 = m2 + m2b + d * d * n * f;
+  n = nn;
+}
+
+// The sum of v over the tpg consecutive threads of a group (tpg a power of
+// two), the same bits in each: a butterfly within the warp (a + b == b + a,
+// so both partners of each exchange hold one value), then the group's
+// warps in order through `scratch` (one float a warp).
+__device__ __forceinline__ float group_sum(float v, int tpg,
+                                           float* scratch) {
+  const int width = tpg < 32 ? tpg : 32;
+  for (int off = width / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (tpg > 32) {
+    __syncthreads();  // the scratch's last readers are done
+    if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+    __syncthreads();
+    const int warps = tpg / 32, first = threadIdx.x / tpg * warps;
+    v = 0.f;
+    for (int k = 0; k < warps; ++k) v += scratch[first + k];
+  }
+  return v;
+}
+
+// Pixels that thread row `row` of tile `tile` reads (its first valid ones).
+__device__ __forceinline__ int row_count(const Tiling& t, int tile, int row,
+                                         int hw) {
+  const int left = hw - tile * t.pix_tile - row;
+  if (left <= 0) return 0;
+  const int k = (left + t.rows - 1) / t.rows;
+  return k < PIX ? k : PIX;
+}
+
+__device__ __forceinline__ int tile_pixels(const Tiling& t, int tile, int hw) {
+  const int left = hw - tile * t.pix_tile;
+  return left < t.pix_tile ? left : t.pix_tile;
+}
+
+// ---------------------------------------------------------------- forward
+
+// grid (tiles, slabs, b). part: [b, groups, tiles] of (mean, M2).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 3)
+    stats_kernel(const T* __restrict__ x, float2* __restrict__ part, int hw,
+                 int channels, int groups, Tiling t) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ float s_mean[THREADS * V];  // [row][channel of the slab]
+  __shared__ float s_m2[THREADS * V];
+  __shared__ float s_count[THREADS];  // pixels of each thread row
+  __shared__ float scratch[THREADS / 32];
+  const int tile = blockIdx.x, slab = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, col = tid % t.cols, row = tid / t.cols;
+  const int k = row_count(t, tile, row, hw);
+  const T* base = x + ((int64_t)b * hw + (int64_t)tile * t.pix_tile + row) *
+                          channels + slab * t.slab + col * V;
+  Packed<T, V> v[PIX];
+#pragma unroll
+  for (int i = 0; i < PIX; ++i)
+    if (i < k) v[i].load(base + (int64_t)i * t.rows * channels);
+  const float inv_k = k ? 1.f / (float)k : 0.f;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < PIX; ++i)
+      if (i < k) sum += v[i].get(j);
+    const float mean = sum * inv_k;
+    float m2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < PIX; ++i)
+      if (i < k) {
+        const float d = v[i].get(j) - mean;
+        m2 += d * d;
+      }
+    s_mean[row * t.slab + col * V + j] = mean;
+    s_m2[row * t.slab + col * V + j] = m2;
+  }
+  if (col == 0) s_count[row] = (float)k;
+  __syncthreads();
+  // Group lg of the slab has rows * cg partials (entry e: row e / cg,
+  // channel lg * cg + e % cg) = tpg * V: its tpg threads take V each.
+  const int gs = t.slab / t.cg, tpg = THREADS / gs;
+  const int lg = tid / tpg, lane = tid % tpg;
+  float nm = 0.f;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int e = lane * V + j, r = e >> t.cg_log2;
+    nm += s_count[r] * s_mean[r * t.slab + lg * t.cg + (e & (t.cg - 1))];
+  }
+  const float n = (float)(tile_pixels(t, tile, hw) * t.cg);
+  const float mean = group_sum(nm, tpg, scratch) / n;
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int e = lane * V + j, r = e >> t.cg_log2;
+    const int idx = r * t.slab + lg * t.cg + (e & (t.cg - 1));
+    const float d = s_mean[idx] - mean;
+    q += s_m2[idx] + s_count[r] * d * d;
+  }
+  const float m2 = group_sum(q, tpg, scratch);
+  if (lane == 0) {
+    const int g = slab * gs + lg;
+    part[((int64_t)b * groups + g) * t.tiles + tile] = make_float2(mean, m2);
+  }
+}
+
+// A warp per (b, g): the tiles' partials merged in order (lane l takes
+// tiles l, l + 32, ...; then a shuffle tree), then mean and rstd.
+__global__ void __launch_bounds__(THREADS)
+    finalize_kernel(const float2* __restrict__ part, float* __restrict__ mean,
+                    float* __restrict__ rstd, int batch, int hw, int groups,
+                    float eps, Tiling t) {
+  const int warp = (blockIdx.x * THREADS + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= batch * groups) return;
+  const float2* p = part + (int64_t)warp * t.tiles;
+  float n = 0.f, m = 0.f, m2 = 0.f;
+  for (int tile = lane; tile < t.tiles; tile += 32)
+    chan_merge(n, m, m2, (float)(tile_pixels(t, tile, hw) * t.cg), p[tile].x,
+               p[tile].y);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float nb = __shfl_down_sync(0xffffffffu, n, off);
+    const float mb = __shfl_down_sync(0xffffffffu, m, off);
+    const float m2b = __shfl_down_sync(0xffffffffu, m2, off);
+    if (lane < off) chan_merge(n, m, m2, nb, mb, m2b);
+  }
+  if (lane == 0) {
+    mean[warp] = m;
+    rstd[warp] = 1.f / sqrtf(m2 / n + eps);
+  }
+}
+
+// grid (tiles, slabs, b): y = (x - mean) * (rstd * gamma) + beta.
+template <typename TX, typename TY>
+__global__ void __launch_bounds__(THREADS, 2)
+    normalize_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
+                     const float* __restrict__ beta,
+                     const float* __restrict__ mean,
+                     const float* __restrict__ rstd, TY* __restrict__ y,
+                     int hw, int channels, int groups, Tiling t) {
+  constexpr int V = 16 / sizeof(TX);
+  const int tile = blockIdx.x, slab = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, col = tid % t.cols, row = tid / t.cols;
+  const int c0 = slab * t.slab + col * V;
+  const int k = row_count(t, tile, row, hw);
+  const int64_t at =
+      ((int64_t)b * hw + (int64_t)tile * t.pix_tile + row) * channels + c0;
+  Packed<TX, V> v[PIX];
+#pragma unroll
+  for (int i = 0; i < PIX; ++i)
+    if (i < k) v[i].load(x + at + (int64_t)i * t.rows * channels);
+  float mu[V], mul[V], add[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = c0 + j, bg = b * groups + (c >> t.cg_log2);
+    mu[j] = mean[bg];
+    mul[j] = rstd[bg] * gamma[c];
+    add[j] = beta[c];
+  }
+#pragma unroll
+  for (int i = 0; i < PIX; ++i)
+    if (i < k) {
+      Packed<TY, V> out{};
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        out.set(j, fmaf(v[i].get(j) - mu[j], mul[j], add[j]));
+      out.store(y + at + (int64_t)i * t.rows * channels);
+    }
+}
+
+// --------------------------------------------------------------- backward
+
+// grid (tiles, slabs, b). part: [b, tiles, C] of (sum dy xhat, sum dy).
+template <typename TX, typename TY>
+__global__ void __launch_bounds__(THREADS, 2)
+    bwd_partials_kernel(const TY* __restrict__ dy, const TX* __restrict__ x,
+                        const float* __restrict__ mean,
+                        const float* __restrict__ rstd,
+                        float2* __restrict__ part, int hw, int channels,
+                        int groups, Tiling t) {
+  constexpr int V = 16 / sizeof(TX);
+  __shared__ float s_a[THREADS * V];  // [row][channel of the slab]
+  __shared__ float s_b[THREADS * V];
+  const int tile = blockIdx.x, slab = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, col = tid % t.cols, row = tid / t.cols;
+  const int c0 = slab * t.slab + col * V;
+  const int k = row_count(t, tile, row, hw);
+  const int64_t at =
+      ((int64_t)b * hw + (int64_t)tile * t.pix_tile + row) * channels + c0;
+  Packed<TX, V> xv[PIX];
+  Packed<TY, V> dv[PIX];
+#pragma unroll
+  for (int i = 0; i < PIX; ++i)
+    if (i < k) {
+      xv[i].load(x + at + (int64_t)i * t.rows * channels);
+      dv[i].load(dy + at + (int64_t)i * t.rows * channels);
+    }
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int bg = b * groups + ((c0 + j) >> t.cg_log2);
+    const float mu = mean[bg], r = rstd[bg];
+    float a = 0.f, s = 0.f;
+#pragma unroll
+    for (int i = 0; i < PIX; ++i)
+      if (i < k) {
+        const float d = dv[i].get(j);
+        a += d * ((xv[i].get(j) - mu) * r);
+        s += d;
+      }
+    s_a[row * t.slab + col * V + j] = a;
+    s_b[row * t.slab + col * V + j] = s;
+  }
+  __syncthreads();
+  if (tid < t.slab) {
+    float sa = 0.f, sb = 0.f;
+    for (int q = 0; q < t.rows; ++q) {
+      sa += s_a[q * t.slab + tid];
+      sb += s_b[q * t.slab + tid];
+    }
+    part[((int64_t)b * t.tiles + tile) * channels + slab * t.slab + tid] =
+        make_float2(sa, sb);
+  }
+}
+
+// A thread per (b, c): the tiles' partials summed in order into sums[b, c];
+// then s1 / n and s2 / n of each (b, g) by a tree over its cg consecutive
+// channels (a block's 256 channels hold whole groups) into coef[b, g].
+__global__ void __launch_bounds__(THREADS)
+    bwd_sum_kernel(const float2* __restrict__ part,
+                   const float* __restrict__ gamma, float2* __restrict__ sums,
+                   float2* __restrict__ coef, int batch, int hw, int channels,
+                   Tiling t) {
+  __shared__ float s1[THREADS], s2[THREADS];
+  const int tid = threadIdx.x;
+  const int64_t i = (int64_t)blockIdx.x * THREADS + tid;
+  const bool live = i < (int64_t)batch * channels;
+  const int64_t b = i / channels;
+  const int c = (int)(i % channels);
+  float sa = 0.f, sb = 0.f;
+  if (live) {
+    const float2* p = part + b * t.tiles * channels + c;
+    for (int tile = 0; tile < t.tiles; ++tile) {
+      const float2 v = p[(int64_t)tile * channels];
+      sa += v.x;
+      sb += v.y;
+    }
+    sums[i] = make_float2(sa, sb);
+    s1[tid] = gamma[c] * sb;
+    s2[tid] = gamma[c] * sa;
+  } else {
+    s1[tid] = 0.f;
+    s2[tid] = 0.f;
+  }
+  __syncthreads();
+  for (int s = t.cg / 2; s > 0; s >>= 1) {
+    if ((tid & (t.cg - 1)) < s) {
+      s1[tid] += s1[tid + s];
+      s2[tid] += s2[tid + s];
+    }
+    __syncthreads();
+  }
+  if (live && (c & (t.cg - 1)) == 0) {
+    const float n = (float)t.cg * (float)hw;
+    coef[b * (channels >> t.cg_log2) + (c >> t.cg_log2)] =
+        make_float2(s1[tid] / n, s2[tid] / n);
+  }
+}
+
+// 1-D grid: tiles * slabs * b blocks of dx, then C / 32 blocks of dgamma
+// and dbeta.
+template <typename TX, typename TY>
+__global__ void __launch_bounds__(THREADS, 2)
+    dx_kernel(const TY* __restrict__ dy, const TX* __restrict__ x,
+              const float* __restrict__ mean, const float* __restrict__ rstd,
+              const float* __restrict__ gamma,
+              const float2* __restrict__ sums, const float2* __restrict__ coef,
+              TX* __restrict__ dx, float* __restrict__ dgamma,
+              float* __restrict__ dbeta, int batch, int hw, int channels,
+              int groups, Tiling t) {
+  constexpr int V = 16 / sizeof(TX);
+  const int tid = threadIdx.x;
+  const int64_t n_dx = (int64_t)t.tiles * t.slabs * batch;
+  if (blockIdx.x >= n_dx) {
+    // dgamma_c = sum_b sum dy xhat, dbeta_c = sum_b sum dy, in b's order.
+    __shared__ float2 lanes[DG_LANES][DG_CHANNELS];
+    const int c = (int)(blockIdx.x - n_dx) * DG_CHANNELS + tid % DG_CHANNELS;
+    const int lane = tid / DG_CHANNELS;
+    float sa = 0.f, sb = 0.f;
+    if (c < channels)
+      for (int b = lane; b < batch; b += DG_LANES) {
+        const float2 v = sums[(int64_t)b * channels + c];
+        sa += v.x;
+        sb += v.y;
+      }
+    lanes[lane][tid % DG_CHANNELS] = make_float2(sa, sb);
+    __syncthreads();
+    if (tid < DG_CHANNELS && c < channels) {
+      float ga = 0.f, gb = 0.f;
+      for (int l = 0; l < DG_LANES; ++l) {
+        ga += lanes[l][tid].x;
+        gb += lanes[l][tid].y;
+      }
+      dgamma[c] = ga;
+      dbeta[c] = gb;
+    }
+    return;
+  }
+  const int tile = blockIdx.x % t.tiles;
+  const int slab = (blockIdx.x / t.tiles) % t.slabs;
+  const int b = blockIdx.x / (t.tiles * t.slabs);
+  const int col = tid % t.cols, row = tid / t.cols;
+  const int c0 = slab * t.slab + col * V;
+  const int k = row_count(t, tile, row, hw);
+  const int64_t at =
+      ((int64_t)b * hw + (int64_t)tile * t.pix_tile + row) * channels + c0;
+  Packed<TX, V> xv[PIX];
+  Packed<TY, V> dv[PIX];
+#pragma unroll
+  for (int i = 0; i < PIX; ++i)
+    if (i < k) {
+      xv[i].load(x + at + (int64_t)i * t.rows * channels);
+      dv[i].load(dy + at + (int64_t)i * t.rows * channels);
+    }
+  float mu[V], r[V], g[V], c1[V], c2[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = c0 + j, bg = b * groups + (c >> t.cg_log2);
+    const float2 cf = coef[bg];
+    mu[j] = mean[bg];
+    r[j] = rstd[bg];
+    g[j] = gamma[c];
+    c1[j] = cf.x;
+    c2[j] = cf.y;
+  }
+#pragma unroll
+  for (int i = 0; i < PIX; ++i)
+    if (i < k) {
+      Packed<TX, V> out{};
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xhat = (xv[i].get(j) - mu[j]) * r[j];
+        out.set(j, r[j] * (g[j] * dv[i].get(j) - c1[j] - xhat * c2[j]));
+      }
+      out.store(dx + at + (int64_t)i * t.rows * channels);
+    }
+}
+
+template <typename TX, typename TY>
+int run_forward(const void* x, const float* gamma, const float* beta,
+                void* y, float* mean, float* rstd, float2* part, int batch,
+                int hw, int channels, int groups, float eps, const Tiling& t,
+                cudaStream_t st) {
+  const dim3 grid(t.tiles, t.slabs, batch);
+  stats_kernel<TX><<<grid, THREADS, 0, st>>>(static_cast<const TX*>(x), part,
+                                             hw, channels, groups, t);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int warps = batch * groups;
+  finalize_kernel<<<(warps * 32 + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      part, mean, rstd, batch, hw, groups, eps, t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  normalize_kernel<TX, TY><<<grid, THREADS, 0, st>>>(
+      static_cast<const TX*>(x), gamma, beta, mean, rstd, static_cast<TY*>(y),
+      hw, channels, groups, t);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TY>
+int run_backward(const void* dy, const void* x, const float* mean,
+                 const float* rstd, const float* gamma, void* dx,
+                 float* dgamma, float* dbeta, float2* part, float2* sums,
+                 float2* coef, int batch, int hw, int channels, int groups,
+                 const Tiling& t, cudaStream_t st) {
+  const TX* xp = static_cast<const TX*>(x);
+  const TY* dyp = static_cast<const TY*>(dy);
+  bwd_partials_kernel<TX, TY><<<dim3(t.tiles, t.slabs, batch), THREADS, 0,
+                                st>>>(dyp, xp, mean, rstd, part, hw, channels,
+                                      groups, t);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t bc = (int64_t)batch * channels;
+  bwd_sum_kernel<<<(unsigned)((bc + THREADS - 1) / THREADS), THREADS, 0,
+                   st>>>(part, gamma, sums, coef, batch, hw, channels, t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (int64_t)t.tiles * t.slabs * batch +
+                         (channels + DG_CHANNELS - 1) / DG_CHANNELS;
+  dx_kernel<TX, TY><<<(unsigned)blocks, THREADS, 0, st>>>(
+      dyp, xp, mean, rstd, gamma, sums, coef, static_cast<TX*>(dx), dgamma,
+      dbeta, batch, hw, channels, groups, t);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Tiles of a (b, slab) for x's dtype (0 = float32, 1 = bfloat16): the
+// scratch sizes below depend on it. -1 for a shape the kernels refuse.
+int group_norm_tiles(int channels, int hw, int groups, int x_dtype) {
+  Tiling t;
+  if ((x_dtype != 0 && x_dtype != 1) ||
+      !make_tiling(channels, hw, groups, vec_of(x_dtype), &t))
+    return -1;
+  return t.tiles;
+}
+
+// x and y [b, h, w, C] (NHWC in memory), gamma/beta f32 [C]; mean and rstd
+// f32 [b, groups]; part f32 scratch [b, groups, tiles, 2]. Dtypes: 0 =
+// float32, 1 = bfloat16. Returns the launches' cudaGetLastError().
+int group_norm_fwd(const void* x, const void* gamma, const void* beta,
+                   void* y, void* mean, void* rstd, void* part, int x_dtype,
+                   int y_dtype, int batch, int channels, int hw, int groups,
+                   float eps, void* stream) {
+  Tiling t;
+  if (batch <= 0 || (x_dtype != 0 && x_dtype != 1) ||
+      (y_dtype != 0 && y_dtype != 1) ||
+      !make_tiling(channels, hw, groups, vec_of(x_dtype), &t))
+    return cudaErrorInvalidValue;
+  const float* g = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  float* mu = static_cast<float*>(mean);
+  float* rs = static_cast<float*>(rstd);
+  float2* pa = static_cast<float2*>(part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 1 && y_dtype == 1)
+    return run_forward<__nv_bfloat16, __nv_bfloat16>(
+        x, g, be, y, mu, rs, pa, batch, hw, channels, groups, eps, t, st);
+  if (x_dtype == 1)
+    return run_forward<__nv_bfloat16, float>(x, g, be, y, mu, rs, pa, batch,
+                                             hw, channels, groups, eps, t, st);
+  if (y_dtype == 1)
+    return run_forward<float, __nv_bfloat16>(x, g, be, y, mu, rs, pa, batch,
+                                             hw, channels, groups, eps, t, st);
+  return run_forward<float, float>(x, g, be, y, mu, rs, pa, batch, hw,
+                                   channels, groups, eps, t, st);
+}
+
+// dy [b, h, w, C] in dy_dtype, x and dx in x_dtype (NHWC in memory); mean,
+// rstd f32 [b, groups]; gamma, dgamma, dbeta f32 [C]; scratch part f32
+// [b, tiles, C, 2], sums f32 [b, C, 2] and coef f32 [b, groups, 2].
+// Returns the launches' cudaGetLastError().
+int group_norm_bwd(const void* dy, const void* x, const void* mean,
+                   const void* rstd, const void* gamma, void* dx, void* dgamma,
+                   void* dbeta, void* part, void* sums, void* coef,
+                   int x_dtype, int dy_dtype, int batch, int channels, int hw,
+                   int groups, void* stream) {
+  Tiling t;
+  if (batch <= 0 || (x_dtype != 0 && x_dtype != 1) ||
+      (dy_dtype != 0 && dy_dtype != 1) ||
+      !make_tiling(channels, hw, groups, vec_of(x_dtype), &t))
+    return cudaErrorInvalidValue;
+  const float* mu = static_cast<const float*>(mean);
+  const float* rs = static_cast<const float*>(rstd);
+  const float* g = static_cast<const float*>(gamma);
+  float* dg = static_cast<float*>(dgamma);
+  float* db = static_cast<float*>(dbeta);
+  float2* pa = static_cast<float2*>(part);
+  float2* su = static_cast<float2*>(sums);
+  float2* cf = static_cast<float2*>(coef);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 1 && dy_dtype == 1)
+    return run_backward<__nv_bfloat16, __nv_bfloat16>(
+        dy, x, mu, rs, g, dx, dg, db, pa, su, cf, batch, hw, channels, groups,
+        t, st);
+  if (x_dtype == 1)
+    return run_backward<__nv_bfloat16, float>(
+        dy, x, mu, rs, g, dx, dg, db, pa, su, cf, batch, hw, channels, groups,
+        t, st);
+  if (dy_dtype == 1)
+    return run_backward<float, __nv_bfloat16>(
+        dy, x, mu, rs, g, dx, dg, db, pa, su, cf, batch, hw, channels, groups,
+        t, st);
+  return run_backward<float, float>(dy, x, mu, rs, g, dx, dg, db, pa, su, cf,
+                                    batch, hw, channels, groups, t, st);
+}
+
+const char* group_norm_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,384 @@
+"""GroupNorm over channels-last tensors: a CUDA kernel pair for Hopper,
+their plain versions, and the autograd Function that joins them.
+
+The JAX package has no counterpart module: its ResNet calls flax's
+``nn.GroupNorm(dtype=bf16)`` on NHWC activations
+(``cron_operator_tpu/models/resnet.py:38``), and XLA fuses that norm into
+the convolutions' programs. The port's models keep NCHW-shaped tensors with
+channels-last strides (``models/resnet.py``), and ``models/layers.py``
+``GroupNorm`` normalises them through :func:`group_norm`.
+
+- On a CUDA tensor :func:`group_norm_forward` launches the forward kernel
+  of ``csrc/group_norm.cu`` (statistics by Chan merges of per-tile
+  partials, then ``y = (x - mean) * (rstd * gamma) + beta`` in f32, rounded
+  once) and :func:`group_norm_backward` the backward kernel (dx, dgamma and
+  dbeta from x, dy and the saved f32 statistics; x̂ is recomputed). The
+  tensor must be channels-last-contiguous: a hidden ``.contiguous()`` would
+  be the very copy the kernels exist to remove, so anything else raises.
+- On a CPU tensor the same wrappers run :func:`group_norm_reference` and
+  :func:`group_norm_backward_reference` (on a ``meta`` tensor too, whose
+  shapes a FLOP count follows); there is no fallback from the card to the
+  plain versions.
+- A DTensor raises: ``GroupNorm`` hands the rows of a batch-split DTensor
+  over as plain tensors (``parallel.mesh.on_local_rows``).
+
+The Function saves x in its own dtype (not an f32 copy), the f32 ``mean``
+and ``rstd`` ``[B, groups]`` and gamma. Each wrapper counts its kernel's
+launches (``.launches``, ``.launches_by_design``), once per replay where a
+graph capture recorded it (``ops.flash_attention.capture_launches``).
+:func:`group_norm_tolerance` states how far the kernels may lie from the
+plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from cron_operator_tpu_torch.ops import _build
+from cron_operator_tpu_torch.ops.flash_attention import (
+    _DTYPE_CODES,
+    _count,
+    _raise_on,
+)
+
+DESIGN = "two_pass"  # the kernels' one design: statistics, then a second read
+# A blocked f32 sum of at most 2^8 sequential additions, taken in two
+# orders (kernel and plain version): their difference is within
+# 2 * 2^8 * 2^-24 of the sum of the terms' magnitudes.
+SUM_ORDER = 2.0 ** -15
+# One unit in the last place relative to the value: a rounding flip of the
+# result between two neighbours.
+_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23,
+        torch.float64: 2.0 ** -52}
+# the plain versions' devices: the CPU, and ``meta`` for a FLOP count's
+# shapes (``Trainer.flops_per_step``)
+_PLAIN_DEVICES = ("cpu", "meta")
+
+
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32 for bf16 and f32 inputs (flax normalises in f32), f64 for f64."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _grouped(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """``[B, C, H, W]`` as ``[B, groups, C / groups, H * W]`` (a copy for a
+    channels-last tensor)."""
+    b, c = t.shape[:2]
+    return t.reshape(b, groups, c // groups, -1)
+
+
+def group_stats(x: torch.Tensor, groups: int,
+                eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain f32 (f64 for f64) ``mean`` and ``rstd = 1 / sqrt(var + eps)``
+    of each (sample, group), ``[B, groups]``, the variance as E[(x -
+    E[x])^2]."""
+    xg = _grouped(x.to(_compute_dtype(x)), groups)
+    mean = xg.mean((2, 3))
+    var = (xg - mean[:, :, None, None]).square().mean((2, 3))
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_reference(x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor, groups: int, eps: float,
+                         out_dtype: torch.dtype
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain forward, ``(y, mean, rstd)``: x and the parameters in f32
+    (f64 for an f64 x), ``F.group_norm``, then y cast to ``out_dtype`` (the
+    port's ``GroupNorm`` did exactly this before the kernels, and gives the
+    same bits); ``mean`` and ``rstd`` from :func:`group_stats`."""
+    ct = _compute_dtype(x)
+    xc = x.to(ct)
+    y = F.group_norm(xc, groups, weight.to(ct), bias.to(ct), eps)
+    return (y.to(out_dtype), *group_stats(xc, groups, eps))
+
+
+def group_norm_backward_reference(
+        dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+        rstd: torch.Tensor, weight: torch.Tensor, groups: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward, ``(dx, dgamma, dbeta)``, in the kernel's
+    arithmetic (f32, f64 for f64), with x̂ = (x − mean_g)·rstd_g:
+
+    - s1_g = Σ γ_c·dy and s2_g = Σ γ_c·dy·x̂ over each (b, g) of n
+      elements;
+    - dx = rstd_g·(γ_c·dy − s1_g/n − x̂·s2_g/n), rounded once to x's dtype
+      and laid out as x;
+    - dγ_c = Σ_{b,h,w} dy·x̂ and dβ_c = Σ_{b,h,w} dy, in the compute dtype.
+    """
+    ct = _compute_dtype(x)
+    c = x.shape[1]
+    xg, dyg = _grouped(x.to(ct), groups), _grouped(dy.to(ct), groups)
+    gamma = weight.to(ct).reshape(1, groups, -1, 1)
+    xhat = (xg - mean.to(ct)[:, :, None, None]) * rstd.to(ct)[:, :, None, None]
+    gdy = gamma * dyg
+    n = xg.shape[2] * xg.shape[3]
+    s1 = gdy.sum((2, 3), keepdim=True)
+    s2 = (gdy * xhat).sum((2, 3), keepdim=True)
+    dx = rstd.to(ct)[:, :, None, None] * (gdy - s1 / n - xhat * s2 / n)
+    dgamma = (dyg * xhat).sum((0, 3)).reshape(c)
+    dbeta = dyg.sum((0, 3)).reshape(c)
+    return (torch.empty_like(x).copy_(dx.reshape(x.shape)), dgamma, dbeta)
+
+
+def group_norm_tolerance(x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor, groups: int, mean: torch.Tensor,
+                         rstd: torch.Tensor, y: torch.Tensor,
+                         dy: Optional[torch.Tensor] = None,
+                         dx: Optional[torch.Tensor] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """Elementwise bounds on ``|kernel - plain|`` from the plain version's
+    results (``mean``, ``rstd``, ``y``; with ``dy``, also the plain ``dx``),
+    each broadcastable to its quantity: keys ``y``, ``mean``, ``rstd`` and
+    with ``dy`` also ``dx``, ``dgamma``, ``dbeta``.
+
+    Both sides sum in f32 in other orders (:data:`SUM_ORDER` of the terms'
+    magnitudes). The statistics then differ by up to SUM_ORDER of E|x| in
+    the mean and of rstd·(1 + E|x|·rstd) in rstd (the centred squares carry
+    the mean's rounding, relative to the spread); y by that times
+    |γ|·(1 + |x̂|), plus |β|'s rounding, then one unit in the last place of
+    y's dtype at |y| (bf16: 2^-7 |y|, a rounding flip). dx: s1 and s2 by
+    SUM_ORDER of Σ|γ dy| and Σ|γ dy x̂| over the group, over n, times rstd,
+    then one ulp of x's dtype at |dx|; dγ and dβ by SUM_ORDER of Σ|dy x̂| and
+    Σ|dy| over (b, h, w), however many terms (up to 128·112² in ResNet-50):
+    the bound is on the depth of the sums, not their length."""
+    ct = torch.float32
+    xg = _grouped(x.to(ct), groups)
+    m, r = mean.to(ct)[:, :, None, None], rstd.to(ct)[:, :, None, None]
+    abs_mean = xg.abs().mean((2, 3), keepdim=True)
+    drift = 1 + abs_mean * r
+    xhat = (xg - m) * r
+    gamma = weight.to(ct).reshape(1, groups, -1, 1)
+    beta = bias.to(ct).reshape(1, groups, -1, 1)
+    e_y = SUM_ORDER * (gamma.abs() * drift * (1 + xhat.abs()) + beta.abs())
+    bounds = {
+        "mean": SUM_ORDER * abs_mean[:, :, 0, 0],
+        "rstd": SUM_ORDER * (r * drift)[:, :, 0, 0],
+        "y": (_ULP[y.dtype] * _grouped(y.to(ct), groups).abs() + e_y
+              ).reshape(x.shape),
+    }
+    if dy is not None:
+        dyg = _grouped(dy.to(ct), groups)
+        gdy = (gamma * dyg).abs()
+        n = xg.shape[2] * xg.shape[3]
+        s1 = gdy.sum((2, 3), keepdim=True) / n
+        s2 = (gdy * xhat.abs()).sum((2, 3), keepdim=True) / n
+        e_dx = SUM_ORDER * r * (gdy + s1 + (1 + xhat.abs()) * s2)
+        bounds["dx"] = (_ULP[dx.dtype] * _grouped(dx.to(ct), groups).abs()
+                        + e_dx).reshape(x.shape)
+        c = x.shape[1]
+        bounds["dgamma"] = SUM_ORDER * (dyg * xhat).abs().sum((0, 3)).reshape(c)
+        bounds["dbeta"] = SUM_ORDER * dyg.abs().sum((0, 3)).reshape(c)
+    return bounds
+
+
+# ------------------------------------------------------------------ kernels
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _kernel() -> ctypes.CDLL:
+    """The built GroupNorm library, with its C signatures declared."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("group_norm")
+        lib.group_norm_tiles.argtypes = [ctypes.c_int] * 4
+        lib.group_norm_tiles.restype = ctypes.c_int
+        lib.group_norm_fwd.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.group_norm_fwd.restype = ctypes.c_int
+        lib.group_norm_bwd.argtypes = (
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.group_norm_bwd.restype = ctypes.c_int
+        lib.group_norm_error_string.argtypes = [ctypes.c_int]
+        lib.group_norm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _refuse_dtensor(*tensors) -> None:
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            "group_norm takes local tensors, not DTensors: GroupNorm hands a "
+            "batch-split DTensor's rows over through on_local_rows")
+
+
+def _check_activation(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    """Refuses an activation the kernels cannot read in place."""
+    if t.dim() != 4 or t.shape != like.shape or t.device != like.device:
+        raise ValueError(f"{name} must be [B, C, H, W] on x's device, with "
+                         f"x's shape {tuple(like.shape)}, not "
+                         f"{tuple(t.shape)} on {t.device}")
+    if t.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name} must be float32 or bfloat16, not {t.dtype}")
+    if not t.is_contiguous(memory_format=torch.channels_last) or (
+            t.data_ptr() % 16):
+        raise ValueError(
+            f"{name} must be channels-last-contiguous (NHWC in memory) and "
+            "16-byte aligned: the GroupNorm kernels read it in place and "
+            "copy nothing to fit")
+
+
+def _power_of_two(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
+
+
+def _tiles(x: torch.Tensor, groups: int) -> int:
+    """The kernels' tiles per (sample, slab); a shape they refuse raises
+    ValueError before anything is built."""
+    b, c, h, w = x.shape
+    vec = 16 // x.element_size()
+    if not (_power_of_two(c) and _power_of_two(groups) and vec <= c
+            and groups <= c and c // groups <= 256 and b * h * w > 0):
+        raise ValueError(
+            "the GroupNorm kernels take C a power of two of at least one "
+            "16-byte vector, groups a power of two with at most 256 "
+            f"channels a group, and a non-empty batch and map: not x "
+            f"{tuple(x.shape)} {x.dtype} with {groups} groups")
+    tiles = _kernel().group_norm_tiles(c, h * w, groups, _DTYPE_CODES[x.dtype])
+    if tiles < 0:
+        raise RuntimeError(f"group_norm_tiles refused x {tuple(x.shape)} "
+                           f"{x.dtype} with {groups} groups")
+    return tiles
+
+
+def _param(p: torch.Tensor, c: int, device) -> torch.Tensor:
+    if p.shape != (c,) or p.device != device:
+        raise ValueError(f"gamma and beta must be [{c}] on {device}, not "
+                         f"{tuple(p.shape)} on {p.device}")
+    return p.detach().float().contiguous()
+
+
+def _launch_forward(x, weight, bias, groups, eps, out_dtype):
+    _check_activation("x", x, x)
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, not "
+                         f"{out_dtype}")
+    b, c, h, w = x.shape
+    gamma, beta = (_param(p, c, x.device) for p in (weight, bias))
+    tiles = _tiles(x, groups)
+    y = torch.empty_like(x, dtype=out_dtype, memory_format=torch.channels_last)
+    stats = torch.empty((2, b, groups), dtype=torch.float32, device=x.device)
+    part = torch.empty((b, groups, tiles, 2), dtype=torch.float32,
+                       device=x.device)
+    lib = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.group_norm_fwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), part.data_ptr(),
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], b, c, h * w,
+            groups, eps, stream)
+    _raise_on(err, lib, "group_norm_fwd", "group_norm_error_string")
+    _count(group_norm_forward, DESIGN, stream)
+    return y, stats[0], stats[1]
+
+
+def _launch_backward(dy, x, mean, rstd, weight, groups):
+    _check_activation("x", x, x)
+    _check_activation("dy", dy, x)
+    b, c, h, w = x.shape
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if (t.shape != (b, groups) or t.dtype != torch.float32
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 [{b}, "
+                             f"{groups}] on x's device")
+    gamma = _param(weight, c, x.device)
+    tiles = _tiles(x, groups)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    grads = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    part = torch.empty((b, tiles, c, 2), dtype=torch.float32, device=x.device)
+    sums = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
+    coef = torch.empty((b, groups, 2), dtype=torch.float32, device=x.device)
+    lib = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.group_norm_bwd(
+            dy.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            gamma.data_ptr(), dx.data_ptr(), grads[0].data_ptr(),
+            grads[1].data_ptr(), part.data_ptr(), sums.data_ptr(),
+            coef.data_ptr(),
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[dy.dtype], b, c, h * w,
+            groups, stream)
+    _raise_on(err, lib, "group_norm_bwd", "group_norm_error_string")
+    _count(group_norm_backward, DESIGN, stream)
+    return dx, grads[0], grads[1]
+
+
+def group_norm_forward(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor, groups: int, eps: float,
+                       out_dtype: torch.dtype
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(y, mean, rstd)``: the forward kernel on a CUDA tensor (or raises),
+    :func:`group_norm_reference` on a CPU or meta tensor. No autograd."""
+    _refuse_dtensor(x, weight, bias)
+    with torch.no_grad():
+        if x.is_cuda:
+            return _launch_forward(x, weight, bias, groups, eps, out_dtype)
+        if x.device.type in _PLAIN_DEVICES:
+            return group_norm_reference(x, weight, bias, groups, eps,
+                                        out_dtype)
+    raise ValueError(f"group_norm runs on CUDA, CPU or meta, not {x.device}")
+
+
+def group_norm_backward(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                        rstd: torch.Tensor, weight: torch.Tensor, groups: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dgamma, dbeta)``: the backward kernel on a CUDA tensor (or
+    raises), :func:`group_norm_backward_reference` on a CPU or meta
+    tensor."""
+    _refuse_dtensor(dy, x, mean, rstd, weight)
+    with torch.no_grad():
+        if x.is_cuda:
+            return _launch_backward(dy, x, mean, rstd, weight, groups)
+        if x.device.type in _PLAIN_DEVICES:
+            return group_norm_backward_reference(dy, x, mean, rstd, weight,
+                                                 groups)
+    raise ValueError(f"group_norm runs on CUDA, CPU or meta, not {x.device}")
+
+
+group_norm_forward.launches = 0
+group_norm_forward.launches_by_design = {DESIGN: 0}
+group_norm_backward.launches = 0
+group_norm_backward.launches_by_design = {DESIGN: 0}
+
+
+class _GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps, out_dtype):
+        y, mean, rstd = group_norm_forward(x, weight, bias, groups, eps,
+                                           out_dtype)
+        ctx.save_for_backward(x, mean, rstd, weight)
+        ctx.groups = groups
+        ctx.bias_dtype = bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, rstd, weight = ctx.saved_tensors
+        dx, dgamma, dbeta = group_norm_backward(dy, x, mean, rstd, weight,
+                                                ctx.groups)
+        return (dx, dgamma.to(weight.dtype), dbeta.to(ctx.bias_dtype), None,
+                None, None)
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
+               groups: int = 32, eps: float = 1e-6,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """flax ``nn.GroupNorm(num_groups=groups, epsilon=eps, dtype=out_dtype)``
+    of ``x [B, C, H, W]`` (channels-last on the card) with f32 ``weight``
+    (gamma) and ``bias`` (beta) ``[C]``: normalised in f32, y in
+    ``out_dtype`` (x's dtype by default). Differentiable in x, weight and
+    bias; the kernels on a CUDA tensor, the plain versions on a CPU one."""
+    return _GroupNorm.apply(x, weight, bias, groups, eps,
+                            out_dtype or x.dtype)
+
+
+__all__ = ["DESIGN", "SUM_ORDER", "group_norm", "group_norm_backward",
+           "group_norm_backward_reference", "group_norm_forward",
+           "group_norm_reference", "group_norm_tolerance", "group_stats"]

@@ -1,0 +1,301 @@
+"""GroupNorm over channels-last tensors (``ops.group_norm``) on the CPU.
+
+The plain forward ``group_norm_reference`` is the arithmetic that
+``models/layers.py`` ``GroupNorm._norm`` ran inline before the kernels
+(kept below as ``_inline_norm``, verbatim): the two agree to the bit, and so
+does the module, which now runs through the ``autograd.Function``. The plain
+backward ``group_norm_backward_reference`` (the kernel's arithmetic) agrees
+with torch autograd through the plain forward in f32 and f64, and with
+``jax.vjp`` of flax's ``nn.GroupNorm`` on the same seeded numpy x, dy, scale
+and bias in f32; ``gradcheck`` holds through the Function in f64. The
+Function saves x in its own dtype, not an f32 copy. ``group_norm_tolerance``
+admits an f64 evaluation of both passes and refuses a y three bf16 units
+in the last place away. The dispatch: a CPU tensor never touches the kernel
+library, a tensor on the card launches the kernel or raises (never the plain
+version), a meta tensor gives the plain version's shapes (a FLOP count), a
+DTensor raises, and a layout or shape the kernels do not take is refused
+before anything is built. The kernels themselves run in
+``tests/test_torch_group_norm_cuda.py`` on the card.
+"""
+
+import importlib
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, distribute_tensor
+
+from cron_operator_tpu_torch.models.layers import GroupNorm
+
+gn = importlib.import_module("cron_operator_tpu_torch.ops.group_norm")
+
+GROUPS, EPS = 32, 1e-6
+# f32 sums over a group of 2 x 36 terms (x̂, dy x̂) in two orders, and
+# flax's E[x^2] - E[x]^2 against E[(x - E[x])^2] at unit spread: both a few
+# units of 2^-24 times the terms, far inside 2e-5 of a unit-scale result.
+FLAX_GRAD_ATOL = 2e-5
+AUTOGRAD_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _draw(rng, *shape):
+    return rng.standard_normal(shape, dtype=np.float32)
+
+
+def _case(dtype=torch.float32, b=2, c=64, h=6, w=5, seed=0, mean=0.0):
+    """Seeded x (channels-last), dy, gamma and beta, as numpy and torch."""
+    rng = np.random.default_rng(seed)
+    x = mean + _draw(rng, b, h, w, c)  # NHWC, as flax takes it
+    dy = _draw(rng, b, h, w, c)
+    gamma = 1 + 0.1 * _draw(rng, c)
+    beta = 0.1 * _draw(rng, c)
+
+    def nchw(a):
+        return torch.from_numpy(a).permute(0, 3, 1, 2).to(dtype)
+
+    return (x, dy, gamma, beta), (nchw(x), nchw(dy), torch.from_numpy(gamma),
+                                  torch.from_numpy(beta))
+
+
+def _inline_norm(x, weight, bias, num_groups, eps, compute_dtype):
+    """``GroupNorm._norm`` as it read before the kernels."""
+    y = F.group_norm(x.float(), num_groups, weight.float(), bias.float(), eps)
+    return y.to(compute_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mean", [0.0, 100.0])
+def test_plain_forward_is_the_previous_module_to_the_bit(dtype, out_dtype,
+                                                         mean):
+    _, (x, _, gamma, beta) = _case(dtype, mean=mean)
+    want = _inline_norm(x, gamma, beta, GROUPS, EPS, out_dtype)
+    y, m, r = gn.group_norm_reference(x, gamma, beta, GROUPS, EPS, out_dtype)
+    assert y.dtype == out_dtype and torch.equal(y, want)
+    assert m.shape == r.shape == (2, GROUPS) and m.dtype == torch.float32
+    norm = GroupNorm(64, compute_dtype=out_dtype)
+    norm.load_state_dict({"weight": gamma, "bias": beta})
+    with torch.no_grad():
+        assert torch.equal(norm(x), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_backward_reference_matches_autograd(dtype):
+    _, (x, dy, gamma, beta) = _case(dtype, seed=1)
+    x, gamma, beta = (t.to(dtype).requires_grad_() for t in (x, gamma, beta))
+    y, mean, rstd = gn.group_norm_reference(x, gamma, beta, GROUPS, EPS, dtype)
+    want = torch.autograd.grad(y, (x, gamma, beta), dy.to(dtype))
+    got = gn.group_norm_backward_reference(dy.to(dtype), x.detach(), mean,
+                                           rstd, gamma.detach(), GROUPS)
+    assert mean.dtype == rstd.dtype == dtype
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        scale = w.abs().max().item()
+        assert (g - w).abs().max().item() <= AUTOGRAD_RTOL[dtype] * scale
+
+
+def test_backward_reference_matches_flax_vjp():
+    (x, dy, gamma, beta), (tx, tdy, tgamma, _) = _case(seed=2)
+    norm = fnn.GroupNorm(num_groups=GROUPS, epsilon=EPS, dtype=jnp.float32)
+    params = {"scale": jnp.asarray(gamma), "bias": jnp.asarray(beta)}
+    _, vjp = jax.vjp(lambda p, xx: norm.apply({"params": p}, xx), params,
+                     jnp.asarray(x))
+    dparams, dx = vjp(jnp.asarray(dy))
+    mean, rstd = gn.group_stats(tx, GROUPS, EPS)
+    got_dx, got_dgamma, got_dbeta = gn.group_norm_backward_reference(
+        tdy, tx, mean, rstd, tgamma, GROUPS)
+    assert got_dx.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(got_dx.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(dx), rtol=0, atol=FLAX_GRAD_ATOL)
+    np.testing.assert_allclose(got_dgamma.numpy(), np.asarray(
+        dparams["scale"]), rtol=0, atol=FLAX_GRAD_ATOL * 60)
+    np.testing.assert_allclose(got_dbeta.numpy(), np.asarray(
+        dparams["bias"]), rtol=0, atol=FLAX_GRAD_ATOL * 60)
+
+
+def test_gradcheck_through_the_function():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(_draw(rng, 2, 16, 3, 3)).double()
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    gamma = torch.from_numpy(1 + 0.1 * _draw(rng, 16)).double().requires_grad_()
+    beta = torch.from_numpy(0.1 * _draw(rng, 16)).double().requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda a, g, b: gn.group_norm(a, g, b, groups=4, eps=1e-5),
+        (x, gamma, beta))
+
+
+def test_function_saves_x_in_its_own_dtype_and_grads_flow():
+    _, (x, dy, gamma, beta) = _case(torch.bfloat16, seed=4)
+    norm = GroupNorm(64, compute_dtype=torch.bfloat16)
+    norm.load_state_dict({"weight": gamma, "bias": beta})
+    x = x.requires_grad_()
+    saved = []
+
+    def pack(t):
+        saved.append((t.dtype, tuple(t.shape)))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y = norm(x)
+    assert y.dtype == torch.bfloat16
+    assert (torch.float32, tuple(x.shape)) not in saved  # no f32 copy of x
+    assert (torch.bfloat16, tuple(x.shape)) in saved
+    y.backward(dy)
+    mean, rstd = gn.group_stats(x.detach(), GROUPS, EPS)
+    want = gn.group_norm_backward_reference(dy, x.detach(), mean, rstd,
+                                            gamma, GROUPS)
+    assert x.grad.dtype == torch.bfloat16 and torch.equal(x.grad, want[0])
+    assert norm.weight.grad.dtype == norm.bias.grad.dtype == torch.float32
+    assert torch.equal(norm.weight.grad, want[1])
+    assert torch.equal(norm.bias.grad, want[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tolerance_admits_an_f64_evaluation_and_refuses_three_ulps(dtype):
+    _, (x, dy, gamma, beta) = _case(dtype, seed=5)
+    y, mean, rstd = gn.group_norm_reference(x, gamma, beta, GROUPS, EPS, dtype)
+    dx, dgamma, dbeta = gn.group_norm_backward_reference(dy, x, mean, rstd,
+                                                         gamma, GROUPS)
+    bounds = gn.group_norm_tolerance(x, gamma, beta, GROUPS, mean, rstd, y,
+                                     dy, dx)
+    y64, mean64, rstd64 = gn.group_norm_reference(
+        x.double(), gamma, beta, GROUPS, EPS, torch.float64)
+    got = {"y": y64.to(dtype), "mean": mean64, "rstd": rstd64}
+    got.update(zip(("dx", "dgamma", "dbeta"), gn.group_norm_backward_reference(
+        dy.double(), x.double(), mean64, rstd64, gamma, GROUPS)))
+    got["dx"] = got["dx"].to(dtype)
+    want = {"y": y, "mean": mean, "rstd": rstd, "dx": dx, "dgamma": dgamma,
+            "dbeta": dbeta}
+    for key, ref in want.items():
+        err = (got[key].double() - ref.double()).abs()
+        assert bool((err <= bounds[key]).all()), key
+    three_ulps = 3 * 2.0 ** -7 * y.float().abs()  # three bf16 ulps at |y|
+    assert not bool((three_ulps <= bounds["y"]).all())
+
+
+def test_cpu_tensor_never_touches_the_kernel_library(monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"built {name} for a CPU tensor")
+
+    monkeypatch.setattr(gn, "_lib", None)
+    monkeypatch.setattr(gn._build, "load", no_build)
+    for fn in (gn.group_norm_forward, gn.group_norm_backward):
+        monkeypatch.setattr(fn, "launches", 0)
+    _, (x, dy, gamma, beta) = _case(torch.bfloat16, seed=6)
+    norm = GroupNorm(64, compute_dtype=torch.bfloat16)
+    x = x.requires_grad_()
+    norm(x).backward(dy)
+    assert x.grad is not None and norm.weight.grad is not None
+    assert gn.group_norm_forward.launches == gn.group_norm_backward.launches == 0
+
+
+class _OnTheCard(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA tensor: what the wrapper
+    sees on a machine whose card cannot be reached."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_a_cuda_tensor_raises_rather_than_falling_back(monkeypatch):
+    def no_card(name):
+        raise RuntimeError(f"cannot build {name}: no CUDA toolkit or card")
+
+    monkeypatch.setattr(gn, "_lib", None)
+    monkeypatch.setattr(gn._build, "load", no_card)
+    monkeypatch.setattr(gn, "group_norm_reference",
+                        lambda *a: pytest.fail("fell back to the plain version"))
+    monkeypatch.setattr(gn.group_norm_forward, "launches", 0)
+    _, (x, _, gamma, beta) = _case(torch.bfloat16)
+    x = x.as_subclass(_OnTheCard)
+    with pytest.raises(RuntimeError, match="no CUDA toolkit or card"):
+        gn.group_norm_forward(x, gamma, beta, GROUPS, EPS, torch.bfloat16)
+    assert gn.group_norm_forward.launches == 0
+
+
+def test_meta_tensors_take_the_plain_shapes_for_a_flop_count():
+    """``Trainer.flops_per_step`` runs the model on the meta device."""
+    x = torch.empty(2, 64, 4, 4, device="meta", requires_grad=True)
+    p = torch.empty(64, device="meta", requires_grad=True)
+    y = gn.group_norm(x, p, p, out_dtype=torch.bfloat16)
+    assert y.shape == x.shape and y.dtype == torch.bfloat16
+    y.backward(torch.empty_like(y))
+    assert x.grad.shape == x.shape and p.grad.shape == p.shape
+
+
+@pytest.fixture
+def one_rank_mesh():
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_a_dtensor_raises(one_rank_mesh):
+    _, (x, _, gamma, beta) = _case()
+    x = distribute_tensor(x, one_rank_mesh, [Replicate()])
+    with pytest.raises(TypeError, match="not DTensors"):
+        gn.group_norm(x, gamma, beta)
+    with pytest.raises(TypeError, match="not DTensors"):
+        gn.group_norm_forward(x, gamma, beta, GROUPS, EPS, torch.float32)
+
+
+def test_the_module_hands_a_dtensor_over_as_local_rows(one_rank_mesh):
+    _, (x, dy, gamma, beta) = _case(seed=7)
+    norm = GroupNorm(64, compute_dtype=torch.float32)
+    norm.load_state_dict({"weight": gamma, "bias": beta})
+    with torch.no_grad():
+        want = norm(x)
+        for name in ("weight", "bias"):
+            placed = distribute_tensor(getattr(norm, name), one_rank_mesh,
+                                       [Replicate()])
+            setattr(norm, name, torch.nn.Parameter(placed))
+        got = norm(distribute_tensor(x, one_rank_mesh, [Replicate()]))
+    # the rows may arrive in another layout, whose CPU kernel sums in
+    # another order
+    assert (got.to_local() - want).abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("change, match", [
+    (dict(layout="nchw"), "channels-last"),
+    (dict(dtype=torch.float16), "float32 or bfloat16"),
+    (dict(c=96), "power of two"),
+    (dict(groups=3), "power of two"),
+    (dict(c=2 ** 14), "256 channels a group"),
+    (dict(gamma=32), r"gamma and beta must be \[64\]"),
+    (dict(unaligned=True), "16-byte"),
+])
+def test_refused_inputs_raise_before_any_build(monkeypatch, change, match):
+    def no_build(name):
+        raise AssertionError(f"built {name} for refused inputs")
+
+    monkeypatch.setattr(gn, "_lib", None)
+    monkeypatch.setattr(gn._build, "load", no_build)
+    c, dtype = change.get("c", 64), change.get("dtype", torch.bfloat16)
+    x = torch.zeros(2, 4, 4, c, dtype=dtype).permute(0, 3, 1, 2)
+    if change.get("layout") == "nchw":
+        x = x.contiguous()
+    if change.get("unaligned"):
+        # a channels-last view one element past a 16-byte boundary
+        x = torch.zeros(2 * 16 * c + 1, dtype=dtype)[1:].view(
+            2, 4, 4, c).permute(0, 3, 1, 2)
+    gamma = torch.ones(change.get("gamma", c))
+    with pytest.raises(ValueError, match=match):
+        gn._launch_forward(x, gamma, gamma, change.get("groups", GROUPS), EPS,
+                           torch.bfloat16)
+
+
+def test_kernel_bookkeeping():
+    """The wrappers count their launches as the other kernels do, by
+    design."""
+    for fn in (gn.group_norm_forward, gn.group_norm_backward):
+        assert fn.launches_by_design.keys() == {gn.DESIGN}
+        assert isinstance(fn.launches, int)

@@ -1,0 +1,173 @@
+"""The GroupNorm kernels (``ops/csrc/group_norm.cu``) against their plain
+versions, on the card: three ResNet-50 shapes and a ragged one, bf16 and
+f32, forward (y, mean, rstd) and backward (dx, dgamma, dbeta) within
+``group_norm_tolerance``; bit-identical reruns; a CUDA graph capture of the
+forward and backward replayed equal to eager, with the launches counted once
+per replay; the model's ``GroupNorm`` launching both kernels; and inputs
+that are not channels-last-contiguous raising.
+
+Needs a CUDA card and nvcc (the kernels have no CPU mode); skips without a
+card. It imports only torch and the port, so it also runs where JAX is not
+installed: ``python -m pytest --noconftest -m cuda
+tests/test_torch_group_norm_cuda.py``.
+"""
+
+import faulthandler
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from cron_operator_tpu_torch.models.layers import GroupNorm
+
+gn = importlib.import_module("cron_operator_tpu_torch.ops.group_norm")
+fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
+
+CASE_TIMEOUT_S = 300  # as the other kernels' card tests: the build included
+GROUPS, EPS = 32, 1e-6
+# (b, C, H, W): ResNet-50's widest map, a middle one and its 7x7 stage at a
+# small batch, and a map of 35 pixels that ends inside a tile
+SHAPES = [(4, 64, 56, 56), (4, 512, 14, 14), (8, 2048, 7, 7), (3, 128, 5, 7)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    faulthandler.dump_traceback_later(CASE_TIMEOUT_S, exit=True)
+    yield torch.device("cuda")
+    faulthandler.cancel_dump_traceback_later()
+
+
+def _inputs(shape, dtype, device, seed=0):
+    """Seeded channels-last x and dy, f32 gamma and beta."""
+    b, c, h, w = shape
+    rng = np.random.default_rng(seed)
+
+    def nchw(*s):
+        a = torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+        return a.to(device, dtype).permute(0, 3, 1, 2)
+
+    x, dy = nchw(b, h, w, c), nchw(b, h, w, c)
+    gamma = torch.from_numpy(1 + 0.1 * rng.standard_normal(c, np.float32))
+    beta = torch.from_numpy(0.1 * rng.standard_normal(c, np.float32))
+    return x, dy, gamma.to(device), beta.to(device)
+
+
+def _assert_within(got: dict, ref: dict, bounds: dict):
+    for key, want in ref.items():
+        have = got[key]
+        assert have.dtype == want.dtype and have.shape == want.shape, key
+        assert bool(torch.isfinite(have.float()).all()), key
+        err = (have.float() - want.float()).abs()
+        assert bool((err <= bounds[key]).all()), (
+            key, float((err / bounds[key]).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernels_match_the_plain_versions(cuda_device, shape, dtype):
+    x, dy, gamma, beta = _inputs(shape, dtype, cuda_device)
+    y, mean, rstd = gn.group_norm_forward(x, gamma, beta, GROUPS, EPS, dtype)
+    dx, dgamma, dbeta = gn.group_norm_backward(dy, x, mean, rstd, gamma,
+                                               GROUPS)
+    torch.cuda.synchronize()
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    ry, rmean, rrstd = gn.group_norm_reference(x, gamma, beta, GROUPS, EPS,
+                                               dtype)
+    # the backward's plain version from the kernel's own statistics: both
+    # sides then take the same inputs
+    rdx, rdgamma, rdbeta = gn.group_norm_backward_reference(
+        dy, x, mean, rstd, gamma, GROUPS)
+    bounds = gn.group_norm_tolerance(x, gamma, beta, GROUPS, rmean, rrstd, ry,
+                                     dy, rdx)
+    _assert_within({"y": y, "mean": mean, "rstd": rstd},
+                   {"y": ry, "mean": rmean, "rstd": rrstd}, bounds)
+    _assert_within({"dx": dx, "dgamma": dgamma, "dbeta": dbeta},
+                   {"dx": rdx, "dgamma": rdgamma, "dbeta": rdbeta}, bounds)
+
+
+@pytest.mark.cuda
+def test_reruns_are_bit_identical(cuda_device):
+    x, dy, gamma, beta = _inputs(SHAPES[0], torch.bfloat16, cuda_device, 1)
+    runs = []
+    for _ in range(2):
+        y, mean, rstd = gn.group_norm_forward(x, gamma, beta, GROUPS, EPS,
+                                              torch.bfloat16)
+        runs.append((y, mean, rstd, *gn.group_norm_backward(
+            dy, x, mean, rstd, gamma, GROUPS)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graph_capture_equals_eager_and_counts_replays(cuda_device):
+    norm = GroupNorm(256, compute_dtype=torch.bfloat16, device=cuda_device)
+    x, dy, gamma, beta = _inputs((4, 256, 28, 28), torch.bfloat16,
+                                 cuda_device, 2)
+    with torch.no_grad():
+        norm.weight.copy_(gamma)
+        norm.bias.copy_(beta)
+    xin = x.clone().requires_grad_()
+
+    def clear():
+        xin.grad = None
+        norm.zero_grad(set_to_none=True)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        clear()
+        y = norm(xin)  # the eager step, which also warms up
+        y.backward(dy)
+        eager = [t.detach().clone() for t in (y, xin.grad, norm.weight.grad,
+                                              norm.bias.grad)]
+        clear()
+        graph = torch.cuda.CUDAGraph()
+        with fa.capture_launches(side.cuda_stream) as tally, \
+                torch.cuda.graph(graph, stream=side):
+            y = norm(xin)
+            y.backward(dy)
+    torch.cuda.current_stream().wait_stream(side)
+    for fn in (gn.group_norm_forward, gn.group_norm_backward):
+        fn.launches, fn.launches_by_design = 0, {gn.DESIGN: 0}
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    fa.count_replays(tally, 2)
+    assert gn.group_norm_forward.launches == 2
+    assert gn.group_norm_backward.launches == 2
+    assert gn.group_norm_backward.launches_by_design == {gn.DESIGN: 2}
+    for got, want in zip((y, xin.grad, norm.weight.grad, norm.bias.grad),
+                         eager):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_the_model_norm_launches_both_kernels(cuda_device):
+    norm = GroupNorm(128, compute_dtype=torch.bfloat16, device=cuda_device)
+    x, dy, _, _ = _inputs((2, 128, 14, 14), torch.bfloat16, cuda_device, 3)
+    x.requires_grad_()
+    before = (gn.group_norm_forward.launches, gn.group_norm_backward.launches)
+    norm(x).backward(dy)
+    torch.cuda.synchronize()
+    assert (gn.group_norm_forward.launches - before[0],
+            gn.group_norm_backward.launches - before[1]) == (1, 1)
+    assert x.grad.dtype == torch.bfloat16
+    assert norm.weight.grad.dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_an_input_that_is_not_channels_last_raises(cuda_device):
+    x, dy, gamma, beta = _inputs((2, 64, 8, 8), torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="channels-last"):
+        gn.group_norm_forward(x.contiguous(), gamma, beta, GROUPS, EPS,
+                              torch.bfloat16)
+    y, mean, rstd = gn.group_norm_forward(x, gamma, beta, GROUPS, EPS,
+                                          torch.bfloat16)
+    with pytest.raises(ValueError, match="channels-last"):
+        gn.group_norm_backward(dy.contiguous(), x, mean, rstd, gamma, GROUPS)

@@ -25,6 +25,8 @@ FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "test_torch_mesh_graph_cuda.py",
     # the decode kernel's card test
     ROOT / "tests" / "test_torch_decode_attention_cuda.py",
+    # the GroupNorm kernels' card test
+    ROOT / "tests" / "test_torch_group_norm_cuda.py",
 ]
 
 
