@@ -35,12 +35,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    calls it); the slice's prefill, eager decode step and tokens/s (CUDA
    events, medians); then generation through the decode graph against the
    eager loop: greedy tokens identical, decode ms a step (beside the 2.895
-   ms it took before the decode kernel), device ms of a replayed step,
-   busy share and tokens/s of each; the decode kernel launched 12 times a
-   decode step in both; an eager decode step copies, casts or pads no
-   tensor of a layer's cache size or more (neither the KV cache nor the
-   vocab table); a replayed step profiled, with the decode kernel's three
-   passes once a layer.
+   ms it took before the decode kernel and 1.130 on its three-pass
+   design), device ms of a replayed step, busy share and tokens/s of
+   each; the decode kernel launched 12 times a decode step in both; an
+   eager decode step copies, casts or pads no tensor of a layer's cache
+   size or more (neither the KV cache nor the vocab table); a replayed
+   step profiled, with the decode kernel's one cluster launch once a
+   layer (all launches on its cluster design).
 5. The training slice at GPT-2 small width: ``gpt`` through a job context
    (b 8, s 1024, 10 steps in the default mode: ``steps_per_call`` 8, one
    captured step replayed), every kernel count set to 0 just before and
@@ -185,30 +186,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
     and the same parameter bits; a profiled replayed call must show an
     NCCL kernel; its step ms (a replayed call, CUDA events) is printed
     beside phase 6's unwrapped graphed step.
-19. The decode kernel (``ops/csrc/decode_attn.cu``) against its plain
-    version ``decode_attention_reference`` at GPT-2 small's decode shape
-    (q ``[8, 1, 12, 64]``, caches ``[8, 1024, 12, 64]`` bf16) at cache
-    positions 0, 511, 575 and 1023, a GQA case of group 2 and an f32 case,
-    within ``decode_tolerance``; two runs bit-identical; NaN and inf past
-    the position giving the output of a cache zeroed there; its device
-    time at position 575 beside its bound (the K and V bytes up to the
-    position over 3.35 TB/s), the plain version and SDPA with a boolean
-    mask of the written positions (a yardstick: the port never calls it).
+19. The decode kernel (``ops/csrc/decode_attn.cu``), its cluster design
+    (the main path) and its three-pass design, against its plain version
+    ``decode_attention_reference`` at GPT-2 small's decode shape (q ``[8,
+    1, 12, 64]``, caches ``[8, 1024, 12, 64]`` bf16) at cache positions 0,
+    511, 575 and 1023, a GQA case of group 2 and an f32 case, within
+    ``decode_tolerance``; two runs bit-identical; NaN and inf past the
+    position giving the output of a cache zeroed there; the plan and its
+    cluster occupancy; both designs' device time at position 575 beside
+    the bound (the K and V bytes up to the position over 3.35 TB/s), the
+    plain version and SDPA with a boolean mask of the written positions (a
+    yardstick: the port never calls it).
 20. The GroupNorm kernels (``ops/csrc/group_norm.cu``) against their
     plain versions ``group_norm_reference`` and
     ``group_norm_backward_reference`` at each of ResNet-50's 12 norm
     shapes at b 128 (``RESNET50_NORMS``, bf16): y, mean and rstd, then
     dx, dgamma and dbeta, within ``group_norm_tolerance``, two runs
-    bit-identical; an f32 case; a mean-100, std-1 case in f32 within the
-    variance-gap bound of ``tests/test_torch_resnet.py``; an NCHW CUDA
-    tensor raising; one GroupNorm forward and backward copying or casting
-    no activation-sized tensor. Each shape timed forward and backward
-    (device time, the card held busy) beside its byte bound, the plain
-    version, ``F.group_norm`` and ``native_group_norm_backward`` (the
-    yardsticks the port never calls on the card), and the sums over the
-    53 norms; then phase 8's ResNet-50 step (graph and eager ms, images/s,
-    MFU) beside the 69.747 and 72.098 ms before the kernels, with its
-    GroupNorm launches.
+    bit-identical, and the backward's two-pass design on the same inputs;
+    each shape's backward plan and cluster occupancy; two f32 cases; a
+    mean-100, std-1 case in f32 within the variance-gap bound of
+    ``tests/test_torch_resnet.py``; an NCHW CUDA tensor raising; one
+    GroupNorm forward and backward copying or casting no activation-sized
+    tensor. Each shape timed forward and backward (the backward's cluster
+    and two-pass designs; device time, the card held busy) beside its
+    byte bound, the plain version, ``F.group_norm`` and
+    ``native_group_norm_backward`` (the yardsticks the port never calls on
+    the card), and the sums over the 53 norms; then phase 8's ResNet-50 step (graph and eager ms, images/s,
+    MFU) beside the 69.747 and 72.098 ms before the kernels and 27.851 and
+    46.056 on the two-pass backward, with its GroupNorm launches (phase 8
+    fails unless every backward launch is on the cluster design).
 21. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
@@ -281,6 +287,9 @@ GRAPH_CHUNK = 8  # steps per call of the default mode (steps_per_call=auto)
 # HBM3, 700 W), printed beside this run's.
 BEFORE_MS = {"gpt": 41.805, "bert": 15.496, "moe": 69.017,
              "decode": 2.895, "moe decode": 3.442}
+# The graphed decode ms a step on the three-pass decode kernel, before its
+# cluster redesign (PERF.md section 5: PR 13 run 3, H100 80GB HBM3, 700 W).
+DECODE_THREE_PASS_MS = {"generate": 1.130, "moe": 1.586}
 # Kernels the graphed steps must no longer spend time in, each regex with
 # the largest share of a graphed call's device time its kernels may take:
 # cuBLAS's GEMMs for rows of 1- or 2-element alignment, which the vocab
@@ -542,10 +551,26 @@ def zero_counts(fa) -> None:
         fn.launches_by_design = dict.fromkeys(fa.DESIGNS, 0)
     decode = decode_wrapper()
     decode.launches = 0
-    decode.launches_by_design = {"fma": 0}
+    decode.launches_by_design = dict.fromkeys(decode.launches_by_design, 0)
     for fn in norm_wrappers():
         fn.launches = 0
         fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
+
+
+# Launches of the designs that no main path should run now, summed over
+# the main paths' runs for the kernels line (the checks fail on any)
+OLD_DESIGN_LAUNCHES = {"decode": 0, "group_norm_bwd": 0}
+
+
+def check_decode_design(label: str, launches: int) -> None:
+    """Every decode launch of a main path went to the cluster design."""
+    by_design = dict(decode_wrapper().launches_by_design)
+    OLD_DESIGN_LAUNCHES["decode"] += by_design.get("fma", 0)
+    print(f"{label}: decode_attention launches by design {by_design}",
+          flush=True)
+    if by_design.get("cluster") != launches:
+        fail(f"{label}: decode launches by design {by_design}, not all "
+             f"{launches} on the cluster design")
 
 
 def decode_wrapper():
@@ -598,6 +623,7 @@ def phase_slice(torch, fa, params=SLICE_PARAMS, n_params=GPT2_SMALL_PARAMS,
     if decode_launches != 12 * steps:
         fail(f"{label}: the decode kernel launched {decode_launches} times, "
              f"not 12 in each of {steps} decode steps")
+    check_decode_design(label, decode_launches)
     print(f"{label}: flash_attention launches {launches} "
           f"(expected 12 x {rounds}, all sm90: {k1_designs}), backward "
           f"{dq_launches}/{dkv_launches} (expected 0)", flush=True)
@@ -1193,6 +1219,14 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
     if norm_counts != expected:
         fail(f"the GroupNorm kernels launched {norm_counts} times on the "
              f"{job} path, not {expected}")
+    if norms_per_step:
+        by_design = dict(norm_wrappers()[1].launches_by_design)
+        OLD_DESIGN_LAUNCHES["group_norm_bwd"] += by_design.get("two_pass", 0)
+        print(f"{job}: GroupNorm backward launches by design {by_design}",
+              flush=True)
+        if by_design.get("cluster") != norm_counts[1]:
+            fail(f"{job}: GroupNorm backward launches by design {by_design}, "
+                 f"not all {norm_counts[1]} on the cluster design")
     b, size = int(params["batch_size"]), int(params["image_size"])
 
     def seeded():
@@ -1328,14 +1362,16 @@ def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
     decode_kernels = {name: count for name, _, count in kernels
                       if "decode_attn" in name or any(
                           k in name for k in ("scores_kernel", "pv_kernel",
-                                              "combine_kernel"))}
+                                              "combine_kernel",
+                                              "decode_cluster_kernel"))}
     copy_us = sum(us for name, us, _ in kernels if "copy" in name.lower())
-    print(f"{label}: a replayed decode step runs the decode kernel's passes "
+    print(f"{label}: a replayed decode step runs the decode kernel "
           f"{decode_kernels}; copy kernels {copy_us / 1e3:.4f} ms of it",
           flush=True)
-    if sorted(decode_kernels.values()) != [12, 12, 12]:
+    if (list(decode_kernels.values()) != [12]
+            or "decode_cluster_kernel" not in next(iter(decode_kernels))):
         fail(f"{label}: a replayed decode step does not run the decode "
-             f"kernel's three passes once a layer: {decode_kernels}")
+             f"kernel's cluster design once a layer: {decode_kernels}")
     rows["device_ms_per_step"] = device
     for mode in ("eager", "graph"):
         r = rows[mode]
@@ -1348,11 +1384,17 @@ def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
     if before_ms is not None:
         print(f"[{card}] {label}: decode {rows['graph']['decode_ms_per_step']:.3f}"
               f" ms a step graphed, beside {before_ms} before the decode "
-              "kernel (PERF.md section 5)", flush=True)
+              f"kernel and {DECODE_THREE_PASS_MS[label_key(label)]} on its "
+              "three-pass design (PERF.md section 5)", flush=True)
     print(f"{label} greedy tokens: graph == eager ({b} x {n})", flush=True)
     del model, decoder
     release(torch)
     return rows
+
+
+def label_key(label: str) -> str:
+    """The serving label's key in ``DECODE_THREE_PASS_MS``."""
+    return "moe" if "moe" in label.lower() else "generate"
 
 
 def lm_model_flops(n_params: int, shape: dict, causal: bool,
@@ -1617,6 +1659,7 @@ def phase_serve_checkpoint(torch, fa, root: str, step: int):
     if decode_launches != 12 * 63 * 2:
         fail(f"serve: the decode kernel launched {decode_launches} times, "
              "not 12 in each of 2 x 63 decode steps")
+    check_decode_design("serve", decode_launches)
     if progress.get("restored_from_step") != step:
         fail(f"serve: restored_from_step {progress.get('restored_from_step')}"
              f", not {step}")
@@ -2667,14 +2710,18 @@ def phase_decode_kernel(torch, card) -> dict:
     """The decode kernel against its plain version at GPT-2 small's decode
     shape (q ``[8, 1, 12, 64]``, caches ``[8, 1024, 12, 64]`` bf16) at
     every position of ``DECODE_POSITIONS``, a GQA case of group 2 and an
-    f32 case: ``out`` within ``decode_tolerance`` (bf16: 2^-7 |ref| + 2^-7
-    (P |V|) + 1e-4 max|ref|, a rounding flip of a probability and of the
-    output; f32: summation order), two runs bit-identical, and NaN/inf
-    past ``pos`` giving the output of a cache zeroed there. Then its device
-    ms at ``DECODE_TIMED_POS`` beside the plain version's, SDPA's with a
-    boolean mask of the written positions (a yardstick) and the bound: the
-    K and V bytes up to ``pos`` (plus q and out) over 3.35 TB/s against
-    4 b h (pos + 1) d operations over the bf16 peak."""
+    f32 case, each in the design ``decode_plan`` picks (the cluster design
+    at all of them, which the launches by design confirm) and in the
+    three-pass design on the same inputs: ``out`` within
+    ``decode_tolerance`` (bf16: 2^-7 |ref| + 2^-7 (P |V|) + 1e-4 max|ref|,
+    a rounding flip of a probability and of the output; f32: summation
+    order), two runs bit-identical, and NaN/inf past ``pos`` giving the
+    output of a cache zeroed there. Then the plan, the cluster occupancy,
+    and both designs' device ms at ``DECODE_TIMED_POS`` beside the plain
+    version's, SDPA's with a boolean mask of the written positions (a
+    yardstick) and the bound: the K and V bytes up to ``pos`` (plus q and
+    out) over 3.35 TB/s against 4 b h (pos + 1) d operations over the bf16
+    peak. Returns a row for each design."""
     import torch.nn.functional as F
 
     attn = importlib.import_module("cron_operator_tpu_torch.ops.attention")
@@ -2689,48 +2736,70 @@ def phase_decode_kernel(torch, card) -> dict:
     cases = ([(h, torch.bfloat16, pos) for pos in DECODE_POSITIONS]
              + [(h // 2, torch.bfloat16, pos) for pos in (0, 575, 1023)]
              + [(h, torch.float32, DECODE_TIMED_POS)])
-    worst = {}
+    worst = {"cluster": {}, "fma": {}}
+    by_design = attn.decode_attention.launches_by_design
     for kv_h, dtype, pos in cases:
         q, k, v = inputs(kv_h, dtype)
         p = torch.tensor([pos], device="cuda")
-        out = attn.decode_attention(q, k, v, p)
-        again = attn.decode_attention(q, k, v, p)
+        plan = attn.decode_plan(max_len, h // kv_h, d, dtype)
+        name = f"{str(dtype)[6:]} kv_h {kv_h} pos {pos}"
+        if plan["design"] != "cluster":
+            fail(f"decode_attn {name}: the plan keeps {plan['design']}")
+        before = by_design["cluster"]
+        outs = {"cluster": attn.decode_attention(q, k, v, p),
+                "fma": attn._launch_decode(q, k, v, p, design="fma")}
+        if by_design["cluster"] != before + 1:
+            fail(f"decode_attn {name}: the wrapper did not launch the "
+                 "cluster design")
         ref = attn.decode_attention_reference(q, k, v, p)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs()
         bound = attn.decode_tolerance(q, k, v, p, ref)
         kz, vz, kg, vg = k.clone(), v.clone(), k.clone(), v.clone()
         kz[:, pos + 1:], vz[:, pos + 1:] = 0, 0
         kg[:, pos + 1:], vg[:, pos + 1:] = float("nan"), float("inf")
-        same_past = torch.equal(attn.decode_attention(q, kz, vz, p),
-                                attn.decode_attention(q, kg, vg, p))
-        exact = (out == ref).float().mean().item()
-        name = f"{str(dtype)[6:]} kv_h {kv_h} pos {pos}"
-        print(f"  decode_attn {name}: max|d out|={err.max().item():.3e}, "
-              f"max err/bound {(err / bound).max().item():.3f}, "
-              f"{100 * exact:.2f}% of elements equal to the bit, reruns "
-              f"{'identical' if torch.equal(out, again) else 'DIFFER'}, "
-              f"garbage past pos {'ignored' if same_past else 'READ'}",
-              flush=True)
-        if not (bool(torch.isfinite(out.float()).all())
-                and bool((err <= bound).all())):
-            fail(f"decode_attn {name} disagrees with the plain version")
-        if not torch.equal(out, again):
-            fail(f"decode_attn {name}: two runs differ")
-        if not same_past:
-            fail(f"decode_attn {name}: positions past pos change the output")
-        if dtype == torch.bfloat16 and kv_h == h:
-            worst[pos] = err.max().item()
+        for design, out in outs.items():
+            again = attn._launch_decode(q, k, v, p, design=design)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            same_past = torch.equal(
+                attn._launch_decode(q, kz, vz, p, design=design),
+                attn._launch_decode(q, kg, vg, p, design=design))
+            exact = (out == ref).float().mean().item()
+            print(f"  decode_attn {design} {name}: max|d out|="
+                  f"{err.max().item():.3e}, max err/bound "
+                  f"{(err / bound).max().item():.3f}, {100 * exact:.2f}% of "
+                  "elements equal to the bit, reruns "
+                  f"{'identical' if torch.equal(out, again) else 'DIFFER'}, "
+                  f"garbage past pos {'ignored' if same_past else 'READ'}",
+                  flush=True)
+            if not (bool(torch.isfinite(out.float()).all())
+                    and bool((err <= bound).all())):
+                fail(f"decode_attn {design} {name} disagrees with the plain "
+                     "version")
+            if not torch.equal(out, again):
+                fail(f"decode_attn {design} {name}: two runs differ")
+            if not same_past:
+                fail(f"decode_attn {design} {name}: positions past pos "
+                     "change the output")
+            if dtype == torch.bfloat16 and kv_h == h:
+                worst[design][pos] = err.max().item()
 
     pos = DECODE_TIMED_POS
     q, k, v = inputs(h, torch.bfloat16)
     p = torch.tensor([pos], device="cuda")
+    plan = attn.decode_plan(max_len, 1, d, torch.bfloat16)
+    clusters = attn.decode_occupancy(q, k)
+    print(f"[{card}] decode_attn plan at b{b} cache {max_len} h{h} d{d} "
+          f"bf16: {plan}; {b * h} clusters of {plan['cluster']}, "
+          f"{clusters} resident at once (cudaOccupancyMaxActiveClusters)",
+          flush=True)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     mask = (torch.arange(max_len, device="cuda") <= pos)[None, None, None]
     (ms, plain_ms, library_ms), _ = timed_rows(torch, card, "decode_attn", (
         lambda: attn.decode_attention(q, k, v, p),
         lambda: attn.decode_attention_reference(q, k, v, p),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)))
+    three_pass_ms = device_ms(torch, lambda: attn._launch_decode(
+        q, k, v, p, design="fma"), 20)
     n = pos + 1
     moved = (2 * b * n * h * d + 2 * b * h * d) * q.element_size()
     flops = 4 * b * h * n * d
@@ -2738,14 +2807,19 @@ def phase_decode_kernel(torch, card) -> dict:
     ops_ms = flops / BF16_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"[{card}] decode_attn b{b} cache {max_len} h{h} d{d} bf16 at pos "
-          f"{pos}: {ms * 1e3:.2f} us/call (device) | plain {plain_ms * 1e3:.2f}"
-          f" us | sdpa with a boolean mask {library_ms * 1e3:.2f} us | bound "
-          f"{bound_ms * 1e3:.2f} us ({moved / 1e6:.2f} MB, "
-          f"{flops / 1e6:.1f} MFLOP)", flush=True)
-    return {"max_abs_err": worst[pos], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+          f"{pos}: cluster {ms * 1e3:.2f} us/call (device, "
+          f"{bound_ms / ms:.1%} of the bound) | three-pass "
+          f"{three_pass_ms * 1e3:.2f} us (19.04 in PR 14's run 6) | plain "
+          f"{plain_ms * 1e3:.2f} us | sdpa with a boolean mask "
+          f"{library_ms * 1e3:.2f} us | bound {bound_ms * 1e3:.2f} us "
+          f"({moved / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)", flush=True)
+    common = {"plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+              "library_ms": library_ms}
+    return {"cluster": {"max_abs_err": worst["cluster"][pos], "ms": ms,
+                        **common},
+            "fma": {"max_abs_err": worst["fma"][pos], "ms": three_pass_ms,
+                    **common}}
 
 
 # ResNet-50's GroupNorms at b 128 x 224^2: (channels, map side, norms a
@@ -2760,9 +2834,12 @@ NORM_GROUPS, NORM_EPS = 32, 1e-6
 # two sums and dx) over the f32 rate outside the tensor cores (H100 SXM)
 NORM_OPS = {"forward": 5, "backward": 10}
 F32_FLOPS = 67e12
-# ResNet-50's graphed and eager step before the GroupNorm kernels
-# (PERF.md section 5, H100 80GB HBM3 at 700 W)
+# ResNet-50's graphed and eager step before the GroupNorm kernels, and on
+# the two-pass backward before its cluster redesign (PERF.md section 5,
+# H100 80GB HBM3 at 700 W: PR 14 run 6)
 NORM_BEFORE_MS = {"graph": 69.747, "eager": 72.098}
+NORM_TWO_PASS_MS = {"graph": 27.851, "eager": 46.056}
+
 
 
 def norm_bound(b: int, c: int, hw: int, esize: int, direction: str):
@@ -2784,8 +2861,10 @@ def check_norm(torch, gn, label: str, x, dy, gamma, beta, out_dtype):
     """Both GroupNorm kernels against their plain versions on one input:
     y, mean and rstd, then dx, dgamma and dbeta (the plain backward from
     the kernel's statistics, so both take the same inputs), each within
-    ``group_norm_tolerance``; a second run of each bit-identical. Returns
-    the largest |y - plain| and |dx - plain|."""
+    ``group_norm_tolerance``; a second run of each bit-identical; then the
+    backward's two-pass design on the same inputs within the same bounds.
+    Returns the largest |y - plain|, |dx - plain| and the two-pass
+    |dx - plain|."""
     g, eps = NORM_GROUPS, NORM_EPS
     y, mean, rstd = gn.group_norm_forward(x, gamma, beta, g, eps, out_dtype)
     dx, dgamma, dbeta = gn.group_norm_backward(dy, x, mean, rstd, gamma, g)
@@ -2815,12 +2894,25 @@ def check_norm(torch, gn, label: str, x, dy, gamma, beta, out_dtype):
                  f"(max err/bound {ratios[key]:.3f})")
     if not same:
         fail(f"GroupNorm {label}: two runs differ")
+    # the backward's other design on the same inputs and bounds
+    other = gn._launch_backward(dy, x, mean, rstd, gamma, g,
+                                {"design": "two_pass"})
+    for key, got in zip(("dx", "dgamma", "dbeta"), other):
+        err = (got.float() - pairs[key][1].float()).abs()
+        ratios[f"two_pass {key}"] = (err / bounds[key]).max().item()
+        if not (bool(torch.isfinite(got.float()).all())
+                and bool((err <= bounds[key]).all())):
+            fail(f"GroupNorm {label}: the two-pass backward's {key} outside "
+                 "group_norm_tolerance")
+        if key == "dx":
+            errs["two_pass dx"] = err.max().item()
     torch.cuda.synchronize()
     print(f"  group_norm {label}: max err/bound "
           + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items())
-          + f"; max|d y| {errs['y']:.3e}, max|d dx| {errs['dx']:.3e}; reruns "
-          "identical", flush=True)
-    return errs["y"], errs["dx"]
+          + f"; max|d y| {errs['y']:.3e}, max|d dx| {errs['dx']:.3e} "
+          f"(two-pass {errs['two_pass dx']:.3e}); reruns identical",
+          flush=True)
+    return errs["y"], errs["dx"], errs["two_pass dx"]
 
 
 def variance_gap_bound(torch, x, gamma, beta):
@@ -2873,7 +2965,15 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
         return x, dy, gamma, beta
 
     for label, dtype, shape in (("f32 b4 C256 14x14", torch.float32,
-                                 (4, 256, 14)),):
+                                 (4, 256, 14)),
+                                ("f32 b4 C64 112x112", torch.float32,
+                                 (4, 64, 112))):
+        plan = gn.backward_plan(shape[0], shape[1], shape[2] ** 2, g, dtype,
+                                dtype)
+        print(f"  group_norm {label}: backward plan {plan}", flush=True)
+        if plan["design"] != "cluster":
+            fail(f"GroupNorm {label}: the backward plan keeps "
+                 f"{plan['design']}")
         check_norm(torch, gn, label, *inputs(*shape, dtype), dtype)
     for b, c, side in ((2, 64, 6), (8, 512, 14)):
         x, _, gamma, beta = inputs(b, c, side, torch.float32, mean=100.0)
@@ -2904,16 +3004,27 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
 
     totals = {d: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"),
                                0.0) for d in ("forward", "backward")}
-    worst = {"forward": 0.0, "backward": 0.0}
+    totals["backward"]["two_pass_ms"] = 0.0
+    worst = {"forward": 0.0, "backward": 0.0, "two_pass": 0.0}
     lib_note = "channels-last inputs"
     bound_by = set()
     for c, side, count in RESNET50_NORMS:
         b, hw = NORM_BATCH, side * side
         x, dy, gamma, beta = inputs(b, c, side, bf16)
-        err_y, err_dx = check_norm(torch, gn, f"bf16 b{b} C{c} {side}x{side}",
-                                   x, dy, gamma, beta, bf16)
+        plan = gn.backward_plan(b, c, hw, g, bf16, bf16)
+        if plan["design"] != "cluster":
+            fail(f"GroupNorm b{b} C{c} {side}x{side}: the backward plan keeps "
+                 f"{plan['design']}")
+        print(f"[{card}] group_norm backward plan b{b} C{c} {side}x{side}: "
+              f"{plan}; {b * c // plan['slab']} clusters, "
+              f"{gn.backward_occupancy(x, g)} resident at once "
+              "(cudaOccupancyMaxActiveClusters)", flush=True)
+        err_y, err_dx, err_two = check_norm(
+            torch, gn, f"bf16 b{b} C{c} {side}x{side}", x, dy, gamma, beta,
+            bf16)
         worst["forward"] = max(worst["forward"], err_y)
         worst["backward"] = max(worst["backward"], err_dx)
+        worst["two_pass"] = max(worst["two_pass"], err_two)
         _, mean, rstd = gn.group_norm_forward(x, gamma, beta, g, eps, bf16)
         gamma_lp, beta_lp = gamma.to(bf16), beta.to(bf16)
         args = (x, gamma_lp, beta_lp, b, c, hw, g, eps)
@@ -2954,11 +3065,18 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
             for key, v in (("ms", ms), ("plain_ms", plain_ms),
                            ("library_ms", library_ms), ("bound_ms", bound_ms)):
                 totals[direction][key] += count * v
+            extra = ""
+            if direction == "backward":
+                two_ms = device_ms(torch, lambda: gn._launch_backward(
+                    dy, x, mean, rstd, gamma, g, {"design": "two_pass"}), 20)
+                totals[direction]["two_pass_ms"] += count * two_ms
+                extra = (f" | two-pass {two_ms * 1e3:.2f} us "
+                         f"({bound_ms / two_ms:.1%})")
             print(f"[{card}] group_norm {direction} b{b} C{c} {side}x{side} "
                   f"bf16 (x{count} a step): {ms * 1e3:.2f} us (device) | "
                   f"bound {bound_ms * 1e3:.2f} us ({bound_ms / ms:.1%}) | "
                   f"plain {plain_ms * 1e3:.2f} us | library "
-                  f"{library_ms * 1e3:.2f} us", flush=True)
+                  f"{library_ms * 1e3:.2f} us{extra}", flush=True)
         if (c, side) == RESNET50_NORMS[0][:2]:
             norm = GroupNorm(c, compute_dtype=bf16, device="cuda")
             xr = x.detach().requires_grad_()
@@ -2974,7 +3092,8 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
         del x, dy, mean, rstd, lmean, lrstd, lib_x, lib_dy, fns
         release(torch)
     print(f"[{card}] group_norm over ResNet-50's 53 norms a step (library "
-          f"backward on {lib_note}): " + json.dumps(totals), flush=True)
+          f"backward on {lib_note}; the backward's two-pass design beside, "
+          "5.446 ms in PR 14's run 6): " + json.dumps(totals), flush=True)
 
     if resnet_step is not None:
         steps = int(RESNET50_PARAMS["steps"])
@@ -2986,14 +3105,18 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
             print(f"[{card}] resnet50 {mode} step with the GroupNorm kernels:"
                   f" {row['step_ms']:.3f} ms, {row['images_per_s']:.1f} "
                   f"images/s, MFU {row['mfu']:.4f}, beside "
-                  f"{NORM_BEFORE_MS[mode]} ms before them (PERF.md section "
-                  "5)", flush=True)
-    return {d: {"max_abs_err": worst[d], "ms": totals[d]["ms"],
+                  f"{NORM_BEFORE_MS[mode]} ms before them and "
+                  f"{NORM_TWO_PASS_MS[mode]} on the two-pass backward "
+                  "(PERF.md section 5)", flush=True)
+    rows = {d: {"max_abs_err": worst[d], "ms": totals[d]["ms"],
                 "plain_ms": totals[d]["plain_ms"],
                 "bound_ms": totals[d]["bound_ms"],
                 "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
                 "library_ms": totals[d]["library_ms"]}
             for d in ("forward", "backward")}
+    rows["two_pass"] = {**rows["backward"], "max_abs_err": worst["two_pass"],
+                        "ms": totals["backward"]["two_pass_ms"]}
+    return rows
 
 
 def free_port() -> int:
@@ -3017,13 +3140,14 @@ KERNEL_ROWS = {
 }
 
 
-DECODE_ROW = ("decode_attention", "fma", CSRC + "decode_attn.cu",
+DECODE_ROW = ("decode_attention", CSRC + "decode_attn.cu",
               # no Pallas kernel: XLA compiles the JAX decode's attention
               "cron_operator_tpu/models/gpt.py:215")
 
 
-def decode_entry(name_suffix: str, launches: int, row: dict) -> dict:
-    name, design, source, replaces = DECODE_ROW
+def decode_entry(name_suffix: str, design: str, launches: int,
+                 row: dict) -> dict:
+    name, source, replaces = DECODE_ROW
     return {"name": name + name_suffix, "route": "cuda", "design": design,
             "source": source, "replaces": replaces, "launches": launches,
             **row}
@@ -3041,9 +3165,9 @@ NORM_ROW = (CSRC + "group_norm.cu",
             "cron_operator_tpu/models/resnet.py:38")
 
 
-def norm_entry(name: str, launches: int, row: dict) -> dict:
+def norm_entry(name: str, design: str, launches: int, row: dict) -> dict:
     source, replaces = NORM_ROW
-    return {"name": name, "route": "cuda", "design": "two_pass",
+    return {"name": name, "route": "cuda", "design": design,
             "source": source, "replaces": replaces, "launches": launches,
             **row}
 
@@ -3164,10 +3288,16 @@ def main() -> None:
     print(json.dumps({"kernels": [
         kernel_entry("K1", "", launches, k1),
         # the decode kernel on the serving paths: generate_job, serving the
-        # checkpoint, MoE serving; every row at GPT-2 small's decode shape
-        decode_entry("", decode_launches, decode_row),
-        decode_entry("@serve_checkpoint", serve_decode, decode_row),
-        decode_entry("@moe_serve", moe_decode, decode_row),
+        # checkpoint, MoE serving; every row at GPT-2 small's decode shape.
+        # The three-pass design, which no main path runs now (the plan keeps
+        # it for shapes whose tiles pass a block's shared memory), beside
+        decode_entry("", "cluster", decode_launches, decode_row["cluster"]),
+        decode_entry("@serve_checkpoint", "cluster", serve_decode,
+                     decode_row["cluster"]),
+        decode_entry("@moe_serve", "cluster", moe_decode,
+                     decode_row["cluster"]),
+        decode_entry("[three_pass]", "fma", OLD_DESIGN_LAUNCHES["decode"],
+                     decode_row["fma"]),
         kernel_entry("K1", "@train", train_counts[0], train_rows["K1"]),
         kernel_entry("K2", "", train_counts[1], train_rows["K2"]),
         kernel_entry("K3", "", train_counts[2], train_rows["K3"]),
@@ -3206,9 +3336,16 @@ def main() -> None:
                        train_rows[key])
           for i, key in enumerate(("K1", "K2", "K3"))),
         # the GroupNorm pair on the resnet50 path of phase 8; each time is
-        # one step's 53 norms at b 128 x 224^2, summed over their shapes
-        norm_entry("group_norm", norm_counts[0], norm_rows["forward"]),
-        norm_entry("group_norm_bwd", norm_counts[1], norm_rows["backward"]),
+        # one step's 53 norms at b 128 x 224^2, summed over their shapes;
+        # the backward's two-pass design, which no main path runs now,
+        # beside
+        norm_entry("group_norm", "two_pass", norm_counts[0],
+                   norm_rows["forward"]),
+        norm_entry("group_norm_bwd", "cluster", norm_counts[1],
+                   norm_rows["backward"]),
+        norm_entry("group_norm_bwd[two_pass]", "two_pass",
+                   OLD_DESIGN_LAUNCHES["group_norm_bwd"],
+                   norm_rows["two_pass"]),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

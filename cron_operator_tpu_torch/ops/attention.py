@@ -236,7 +236,20 @@ def _sharded_attention(q, k, v, *, causal: bool, impl: str):
 DECODE_MASK = -1e30  # decode's score for unwritten cache positions
 DECODE_HEAD_DIMS = (32, 64, 128, 256)  # head dims decode_attn is built for
 DECODE_MAX_GROUP = 32  # query heads per K/V head the kernel takes
-DECODE_CHUNK = 64  # cache positions per block: CHUNK in csrc/decode_attn.cu
+DECODE_CHUNK = 64  # cache positions per block of "fma": CHUNK in the source
+# The "cluster" design (csrc/decode_attn.cu): CLUSTER blocks of a (b, kv
+# head), TMA boxes of BOX cache rows dealt round them, 128 threads (4
+# warps) a block, HEAD_TILE heads accumulated at once, and the dynamic
+# shared memory a block may take on an H100. Clusters of 4 keep GPT-2
+# small's 96 (b, kv head) pairs resident at once, where clusters of 8 need
+# a second wave (hack/torch_cluster_sweep.py; PERF.md section 6).
+DECODE_CLUSTER = 4
+DECODE_CLUSTERS = (2, 4, 8, 16)  # the sizes the kernel takes
+DECODE_BOX = 16
+DECODE_WARPS = 4
+DECODE_HEAD_TILE = 4
+SMEM_LIMIT = 232448
+DECODE_DESIGNS = ("cluster", "fma")
 
 
 def decode_attention_reference(q: torch.Tensor, cache_k: torch.Tensor,
@@ -295,6 +308,32 @@ def decode_tolerance(q, cache_k, cache_v, pos, out_ref) -> torch.Tensor:
 _decode_lib: Optional[ctypes.CDLL] = None
 
 
+def decode_plan(max_len: int, group: int, head_dim: int,
+                dtype: torch.dtype, cluster: int = DECODE_CLUSTER) -> dict:
+    """The decode kernel's design for a cache of ``max_len`` positions,
+    ``group`` query heads per K/V head, ``head_dim`` and ``dtype``: the
+    ``"cluster"`` design where a block's shared memory (``ClusterLayout``
+    in ``csrc/decode_attn.cu``, mirrored here) fits ``SMEM_LIMIT``, else
+    ``"fma"``, the three-pass design, which holds no tile. Keys ``design``,
+    ``cluster`` (blocks of a (b, kv head); one of ``DECODE_CLUSTERS``),
+    ``slots`` (the boxes of K and of V a block holds), ``span`` (the cache
+    rows a block may hold) and ``smem`` (bytes a block)."""
+    if cluster not in DECODE_CLUSTERS:
+        raise ValueError(f"decode clusters are {DECODE_CLUSTERS} blocks, "
+                         f"not {cluster}")
+    esize = dtype.itemsize
+    boxes = -(-max_len // DECODE_BOX)
+    slots = -(-boxes // cluster)
+    smem = (slots * DECODE_BOX * head_dim * esize  # K's boxes, then V's
+            + group * slots * DECODE_BOX * 4
+            + 2 * group * head_dim * 4
+            + DECODE_WARPS * min(group, DECODE_HEAD_TILE) * head_dim * 4
+            + -(-3 * group * 4 // 16) * 16 + 16)
+    design = "cluster" if smem <= SMEM_LIMIT else "fma"
+    return {"design": design, "cluster": cluster, "slots": slots,
+            "span": slots * DECODE_BOX, "smem": smem}
+
+
 def _decode_kernel() -> ctypes.CDLL:
     """The built decode library, with its C signature declared."""
     global _decode_lib
@@ -305,6 +344,12 @@ def _decode_kernel() -> ctypes.CDLL:
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.decode_attn.restype = ctypes.c_int
+        lib.decode_attn_cluster.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 10
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.decode_attn_cluster.restype = ctypes.c_int
+        lib.decode_attn_cluster_occupancy.argtypes = [ctypes.c_int] * 7
+        lib.decode_attn_cluster_occupancy.restype = ctypes.c_int
         lib.decode_attn_error_string.argtypes = [ctypes.c_int]
         lib.decode_attn_error_string.restype = ctypes.c_char_p
         _decode_lib = lib
@@ -349,34 +394,63 @@ def _check_decode_inputs(q, cache_k, cache_v, pos) -> None:
                 "aligned rows")
 
 
-def _launch_decode(q, cache_k, cache_v, pos) -> torch.Tensor:
-    """The decode kernel on the card."""
+def _launch_decode(q, cache_k, cache_v, pos, design: Optional[str] = None,
+                   cluster: int = DECODE_CLUSTER) -> torch.Tensor:
+    """The decode kernel on the card, in :func:`decode_plan`'s design
+    (``design`` names one, and ``cluster`` another cluster size, to time
+    them beside it)."""
     _check_decode_inputs(q, cache_k, cache_v, pos)
     b, _, h, d = q.shape
     max_len, kv_h = cache_k.shape[1], cache_k.shape[2]
     group = h // kv_h
+    plan = decode_plan(max_len, group, d, q.dtype, cluster)
+    design = design or plan["design"]
+    if design not in DECODE_DESIGNS:
+        raise ValueError(f"decode design {design!r} is not one of "
+                         f"{DECODE_DESIGNS}")
     if q.stride(3) != 1:
         q = q.contiguous()
-    chunks = -(-max_len // DECODE_CHUNK)
     dev = q.device
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev)
-    scores = torch.empty((b, kv_h, group, max_len), dtype=torch.float32,
-                         device=dev)
-    partial = torch.empty((b, kv_h, chunks, group, d), dtype=torch.float32,
-                          device=dev)
     strides = (q.stride(0), q.stride(2), *cache_k.stride()[:3],
                *cache_v.stride()[:3], out.stride(0), out.stride(2))
     lib = _decode_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.decode_attn(
-            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), scores.data_ptr(),
-            partial.data_ptr(), _DTYPE_CODES[q.dtype], b, max_len, h, kv_h, d,
-            *strides, 1.0 / d ** 0.5, stream)
-    _raise_on(err, lib, "decode_attn")
-    _count(decode_attention, "fma", stream)
+        if design == "cluster":
+            err = lib.decode_attn_cluster(
+                q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+                pos.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], b,
+                max_len, h, kv_h, d, plan["cluster"], plan["slots"], *strides,
+                1.0 / d ** 0.5, stream)
+        else:
+            chunks = -(-max_len // DECODE_CHUNK)
+            scores = torch.empty((b, kv_h, group, max_len),
+                                 dtype=torch.float32, device=dev)
+            partial = torch.empty((b, kv_h, chunks, group, d),
+                                  dtype=torch.float32, device=dev)
+            err = lib.decode_attn(
+                q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+                pos.data_ptr(), out.data_ptr(), scores.data_ptr(),
+                partial.data_ptr(), _DTYPE_CODES[q.dtype], b, max_len, h,
+                kv_h, d, *strides, 1.0 / d ** 0.5, stream)
+    _raise_on(err, lib, "decode_attn_cluster" if design == "cluster"
+              else "decode_attn", "decode_attn_error_string")
+    _count(decode_attention, design, stream)
     return out
+
+
+def decode_occupancy(q, cache_k, cluster: int = DECODE_CLUSTER) -> int:
+    """Clusters of the ``"cluster"`` design (of ``cluster`` blocks) that the
+    card holds at once at this shape (``cudaOccupancyMaxActiveClusters``;
+    -1 where it cannot run). Builds the kernel."""
+    b, _, h, d = q.shape
+    kv_h, max_len = cache_k.shape[2], cache_k.shape[1]
+    plan = decode_plan(max_len, h // kv_h, d, q.dtype, cluster)
+    with torch.cuda.device(q.device):
+        return _decode_kernel().decode_attn_cluster_occupancy(
+            _DTYPE_CODES[q.dtype], b, kv_h, h // kv_h, d, plan["cluster"],
+            plan["slots"])
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
@@ -391,10 +465,24 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     raises); a CPU tensor takes :func:`decode_attention_reference`. The
     kernel reads the bf16 (or f32) caches through their strides and only
     the positions up to ``pos``, which is exact (a masked score's
-    probability is 0 in f32). A launch counts in ``.launches`` and
-    ``.launches_by_design["fma"]``, once per replay where a graph capture
-    recorded it (``ops.flash_attention.capture_launches``). A DTensor is
-    refused: serving runs on one device."""
+    probability is 0 in f32). Its design is :func:`decode_plan`'s, by
+    shape:
+
+    - ``"cluster"``, one launch: a thread-block cluster of 4 per (b, kv
+      head) TMA-loads its K and V rows up to ``pos`` into shared memory,
+      exchanges the softmax's row max and sum over distributed shared
+      memory, and rank 0 sums the blocks' P V partials. Its bound is the
+      bytes of K and V up to ``pos`` (4.2 us at GPT-2 small's serving
+      shape at pos 575 on an H100).
+    - ``"fma"``, three launches through f32 workspaces (scores, then P V
+      per chunk, then the chunks' sum), where the cluster design's tiles
+      pass a block's shared memory: a long ``max_len`` at a large group or
+      head dim.
+
+    A launch counts in ``.launches`` and ``.launches_by_design[design]``,
+    once per replay where a graph capture recorded it
+    (``ops.flash_attention.capture_launches``). A DTensor is refused:
+    serving runs on one device."""
     if any(isinstance(t, DTensor) for t in (q, cache_k, cache_v, pos)):
         raise TypeError("decode attention takes local tensors, not DTensors")
     with torch.no_grad():
@@ -406,9 +494,10 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
 
 
 decode_attention.launches = 0
-decode_attention.launches_by_design = {"fma": 0}
+decode_attention.launches_by_design = dict.fromkeys(DECODE_DESIGNS, 0)
 
 
-__all__ = ["DECODE_MASK", "attention_placements", "count_attention_flops",
-           "decode_attention", "decode_attention_reference",
+__all__ = ["DECODE_DESIGNS", "DECODE_MASK", "attention_placements",
+           "count_attention_flops", "decode_attention",
+           "decode_attention_reference", "decode_occupancy", "decode_plan",
            "decode_tolerance", "multi_head_attention", "reference_attention"]

@@ -27,8 +27,46 @@
 // 575) the function reads 2 * 8 * 576 * 12 * 64 * 2 B = 14.2 MB of K and V
 // and does 14 MFLOP: 4.2 us at 3.35 TB/s against 0.014 us at the bf16
 // tensor-core rate. So the design spends nothing on tensor cores and
-// everything on reading K and V once, coalesced, from enough blocks:
+// everything on reading K and V once, from enough blocks, with as few
+// launches and round trips through device memory as it can.
 //
+// Design "cluster" (the main path; ops/attention.py decode_plan picks it
+// whenever its tiles fit a block's shared memory): one launch of (CL, kv_h,
+// b) blocks of 128 threads, a thread-block cluster of CL per (b, kh); CL is
+// 2, 4, 8 or 16, and the plan takes 4, which keeps GPT-2 small's 96
+// clusters resident at once (8 needs a second wave). The cache positions
+// fall into boxes of BOX = 16 rows; block `rank` of the cluster owns boxes
+// rank, rank + CL, rank + 2 CL, ... (interleaved, so at any pos the blocks
+// share the written rows within a box each). Each block:
+//   1. reads pos, and starts TMA loads (4-D tensor maps over the caches'
+//      own strides) of its K boxes up to pos on one mbarrier. A block with
+//      no box loads nothing but still takes part in every cluster barrier.
+//   2. computes the scaled scores of its g heads over its written rows into
+//      shared memory (groups of LANES threads a row, q staged in shared
+//      memory, shuffle sums), starts the TMA loads of its V boxes into the
+//      shared memory K held (half the tiles: 34 KB a block at GPT-2
+//      small's shape), and takes each head's max over its scores.
+//   3. exchanges the maxima over distributed shared memory (DSMEM): after a
+//      cluster barrier every block reads the ranks' maxima in rank order
+//      and takes the row max M.
+//   4. forms e = exp(s - M) in place and its sum, and exchanges the sums the
+//      same way: every block adds the ranks' sums in rank order, so every
+//      block holds the same L.
+//   5. forms p = T(e / L) as the three-pass design does (the global
+//      normalisation before the rounding, as in the reference) and
+//      accumulates its f32 P V partial [g, d] (the V tiles landed during
+//      steps 3-4): rows summed by shuffles in each warp, warps in order.
+//   6. rank 0 sums the ranks' partials in rank order over DSMEM, rounds
+//      once and writes out; a last cluster barrier keeps every block's
+//      shared memory alive until rank 0 has read it.
+// Rows past pos are loaded with their box (TMA reads whole boxes) but never
+// reach an exponent or a product: every loop stops at the written rows.
+// Shared memory holds ceil(ceil(max_len / 16) / CL) boxes (of K, then of V),
+// the scores (g x rows x 4 bytes) and the partials; where that passes a
+// block's 227 KB (a long max_len at a large group or head dim), the plan
+// keeps:
+//
+// Design "fma" (three passes, the first design):
 // 1. scores_kernel, grid (chunks, kv_h, b): each block takes CHUNK
 //    positions of one (b, kh); groups of LANES threads read one K row in
 //    16-byte loads, each group's dot products for all g heads of the group
@@ -43,9 +81,14 @@
 //    and accumulates p * V over the chunk into an f32 partial per chunk.
 // 3. combine_kernel, grid (kv_h, b): sums the chunks' partials in chunk
 //    order and rounds to T.
-// No float atomics: every sum has one order, so reruns are bit-identical.
 // Blocks whose chunk starts past pos return at once: the grid is sized by
 // max_len (static, so a graph capture holds), the work by pos.
+//
+// Neither design uses float atomics: every sum has one order, so reruns are
+// bit-identical. A captured decode graph bakes the cluster design's tensor
+// maps, which hold the caches' addresses, as it bakes every kernel's
+// pointers: the serving loop's caches are allocated once per (model, batch)
+// and written in place, so the addresses hold for the graph's life.
 //
 // Layout: q [b, 1, h, d] and out [b, 1, h, d] by (batch, head) strides; the
 // caches [b, max_len, kv_h, d] by (batch, position, head) strides, unit
@@ -57,12 +100,21 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int THREADS = 256;
 constexpr int CHUNK = 64;      // positions per block
 constexpr int HEAD_TILE = 4;   // query heads accumulated at once in pass 2
 constexpr int MAX_GROUP = 32;  // query heads per K/V head
+// the cluster design
+constexpr int CTHREADS = 128;  // threads of a block
+constexpr int CWARPS = CTHREADS / 32;
+constexpr int BOX = 16;        // cache rows of one TMA box
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -329,6 +381,302 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------ the cluster design
+
+// Byte offsets of the cluster kernel's shared memory: `slots` boxes of K,
+// which V's boxes replace once the scores are taken (each box BOX rows of
+// D values, 128-byte aligned), the scores
+// [g][slots * BOX], q [g][D], the block's P V partial [g][D], the warps'
+// partials [CWARPS][min(g, HEAD_TILE)][D], the maxima, sums and row sums
+// [g] each, and two mbarriers. ops/attention.py decode_plan mirrors it.
+struct ClusterLayout {
+  int k, v, scores, q, pv, red, stats, bars, bytes;
+  __host__ __device__ ClusterLayout(int group, int slots, int d, int esize) {
+    const int box_bytes = BOX * d * esize;
+    k = 0;
+    v = 0;  // V lands where K was
+    scores = slots * box_bytes;
+    q = scores + group * slots * BOX * 4;
+    pv = q + group * d * 4;
+    red = pv + group * d * 4;
+    stats = red + CWARPS * (group < HEAD_TILE ? group : HEAD_TILE) * d * 4;
+    bars = stats + (3 * group * 4 + 15) / 16 * 16;
+    bytes = bars + 16;
+  }
+};
+
+// Boxes a block holds: the cache's boxes dealt round the cluster.
+__host__ __device__ __forceinline__ int cluster_slots(int max_len,
+                                                     int cluster) {
+  return ((max_len + BOX - 1) / BOX + cluster - 1) / cluster;
+}
+
+// grid (cluster, kv_h, b), clusters of `cluster` blocks along x.
+template <typename T, int D>
+__global__ void __launch_bounds__(CTHREADS)
+    decode_cluster_kernel(const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const T* __restrict__ q, const int64_t* __restrict__ pos,
+                   T* __restrict__ out, int max_len, int group, int slots,
+                   Strides sq, Strides so, float scale) {
+  using M = RowMap<T, D>;
+  constexpr int ROWS = CTHREADS / M::LANES;  // K or V rows read at once
+  extern __shared__ __align__(128) unsigned char smem[];
+  const ClusterLayout lay(group, slots, D, sizeof(T));
+  const T* k_s = reinterpret_cast<const T*>(smem + lay.k);
+  const T* v_s = reinterpret_cast<const T*>(smem + lay.v);
+  float* sc = reinterpret_cast<float*>(smem + lay.scores);
+  float* q_s = reinterpret_cast<float*>(smem + lay.q);
+  float* pv = reinterpret_cast<float*>(smem + lay.pv);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  float* xmax = reinterpret_cast<float*>(smem + lay.stats);
+  float* xsum = xmax + group;
+  float* lsum = xsum + group;
+  const uint32_t bar_k = smem_u32(smem + lay.bars), bar_v = bar_k + 8;
+
+  const int cl = gridDim.x;  // the grid is one cluster wide
+  const int rank = static_cast<int>(cluster_rank());
+  const int kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane32 = tid % 32;
+  const int n = written(pos, max_len);
+  const int nbox = (n + BOX - 1) / BOX;
+  const int mine = nbox > rank ? (nbox - rank + cl - 1) / cl : 0;
+  // the written rows of this block's boxes: a prefix, since only the last
+  // box of all (this block's last, if it is this block's) is partial
+  int rows = mine * BOX;
+  if (mine && (nbox - 1) % cl == rank) rows -= nbox * BOX - n;
+  const int cap = slots * BOX;
+
+  if (tid == 0) {
+    mbar_init(bar_k, 1);
+    mbar_init(bar_v, 1);
+    mbar_init_fence();
+    if (mine) {
+      constexpr uint32_t box_bytes = BOX * D * sizeof(T);
+      mbar_arrive_expect_tx(bar_k, mine * box_bytes);
+      for (int i = 0; i < mine; ++i)
+        tma_load_4d(smem_u32(k_s + i * BOX * D), &tm_k, 0,
+                    (rank + i * cl) * BOX, kh, b, bar_k);
+    }
+  }
+  for (int i = tid; i < group * D; i += CTHREADS) {
+    const int head = kh * group + i / D;
+    q_s[i] = to_float(q[b * sq.b + head * sq.h + i % D]);
+  }
+  __syncthreads();  // q staged, the barriers initialised
+
+  // 2. scaled scores of the written rows, each head's block max
+  const int lane = tid % M::LANES, row = tid / M::LANES;
+  if (mine) mbar_wait(bar_k, 0);
+  // every thread runs every round, so the shuffles see whole warps
+  for (int t0 = 0; t0 < rows; t0 += ROWS) {
+    const int t = t0 + row;
+    const bool valid = t < rows;
+    float kv[M::PER_THREAD];
+    if (valid) {
+      load_row<T, D>(k_s + t * D, lane, kv);
+    } else {
+#pragma unroll
+      for (int i = 0; i < M::PER_THREAD; ++i) kv[i] = 0.f;
+    }
+    for (int gi = 0; gi < group; ++gi) {
+      const float* qg = q_s + gi * D;
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < M::PER_THREAD; ++i)
+        acc = fmaf(qg[column<T, D>(i, lane)], kv[i], acc);
+      acc = group_sum<M::LANES>(acc);
+      if (valid && lane == 0) sc[gi * cap + t] = acc * scale;
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();  // every thread is done with K: V's boxes replace it
+  if (tid == 0 && mine) {
+    constexpr uint32_t box_bytes = BOX * D * sizeof(T);
+    mbar_arrive_expect_tx(bar_v, mine * box_bytes);
+    for (int i = 0; i < mine; ++i)
+      tma_load_4d(smem_u32(v_s + i * BOX * D), &tm_v, 0,
+                  (rank + i * cl) * BOX, kh, b, bar_v);
+  }
+  for (int gi = warp; gi < group; gi += CWARPS) {
+    float m = -CUDART_INF_F;
+    for (int t = lane32; t < rows; t += 32) m = fmaxf(m, sc[gi * cap + t]);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane32 == 0) xmax[gi] = m;
+  }
+  cluster_sync();  // 3. every block's maxima visible
+
+  // 4. e = exp(s - M) in place, its block sum; M from every rank
+  for (int gi = warp; gi < group; gi += CWARPS) {
+    float m = -CUDART_INF_F;
+    for (int r = 0; r < cl; ++r) m = fmaxf(m, cluster_peer(xmax, r)[gi]);
+    float l = 0.f;
+    for (int t = lane32; t < rows; t += 32) {
+      const float e = expf(sc[gi * cap + t] - m);
+      sc[gi * cap + t] = e;
+      l += e;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane32 == 0) xsum[gi] = l;
+  }
+  cluster_sync();  // every block's sums visible
+  for (int gi = tid; gi < group; gi += CTHREADS) {
+    float l = 0.f;
+    for (int r = 0; r < cl; ++r) l += cluster_peer(xsum, r)[gi];
+    lsum[gi] = l;
+  }
+  __syncthreads();
+
+  // 5. p = T(e / L), the block's P V partial
+  if (mine) mbar_wait(bar_v, 0);
+  const int ht = group < HEAD_TILE ? group : HEAD_TILE;
+  for (int g0 = 0; g0 < group; g0 += HEAD_TILE) {
+    const int tile = min(HEAD_TILE, group - g0);
+    float acc[HEAD_TILE][M::PER_THREAD];
+#pragma unroll
+    for (int u = 0; u < HEAD_TILE; ++u)
+#pragma unroll
+      for (int i = 0; i < M::PER_THREAD; ++i) acc[u][i] = 0.f;
+    for (int t = row; t < rows; t += ROWS) {
+      float vr[M::PER_THREAD];
+      load_row<T, D>(v_s + t * D, lane, vr);
+#pragma unroll
+      for (int u = 0; u < HEAD_TILE; ++u) {
+        if (u < tile) {
+          const int gi = g0 + u;
+          const float p = to_float(from_float<T>(sc[gi * cap + t] / lsum[gi]));
+#pragma unroll
+          for (int i = 0; i < M::PER_THREAD; ++i)
+            acc[u][i] = fmaf(p, vr[i], acc[u][i]);
+        }
+      }
+    }
+    // the warp's rows by a shuffle tree, then the warps in order
+#pragma unroll
+    for (int u = 0; u < HEAD_TILE; ++u) {
+      if (u < tile) {
+#pragma unroll
+        for (int i = 0; i < M::PER_THREAD; ++i)
+#pragma unroll
+          for (int off = M::LANES; off < 32; off *= 2)
+            acc[u][i] += __shfl_xor_sync(0xffffffffu, acc[u][i], off);
+      }
+    }
+    if (lane32 < M::LANES)
+      for (int u = 0; u < tile; ++u)
+#pragma unroll
+        for (int i = 0; i < M::PER_THREAD; ++i)
+          red[(warp * ht + u) * D + column<T, D>(i, lane)] = acc[u][i];
+    __syncthreads();
+    for (int i = tid; i < tile * D; i += CTHREADS) {
+      const int u = i / D, col = i % D;
+      float sum = 0.f;
+      for (int w = 0; w < CWARPS; ++w) sum += red[(w * ht + u) * D + col];
+      pv[(g0 + u) * D + col] = sum;
+    }
+    __syncthreads();  // red is rewritten by the next head tile
+  }
+  cluster_sync();  // 6. every block's partial visible
+
+  if (rank == 0) {
+    const int used = nbox < cl ? nbox : cl;
+    for (int i = tid; i < group * D; i += CTHREADS) {
+      float sum = 0.f;
+      for (int r = 0; r < used; ++r) sum += cluster_peer(pv, r)[i];
+      const int head = kh * group + i / D;
+      out[b * so.b + head * so.h + i % D] = from_float<T>(sum);
+    }
+  }
+  cluster_sync();  // rank 0 has read every block's shared memory
+}
+
+template <typename T, int D>
+cudaLaunchConfig_t cluster_config(int batch, int kv_heads, int cluster,
+                                  int bytes, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster, kv_heads, batch);
+  config.blockDim = dim3(CTHREADS);
+  config.dynamicSmemBytes = bytes;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+// The shared-memory limit and clusters of 16, once a device.
+template <typename T, int D>
+cudaError_t cluster_attributes() {
+  static std::atomic<uint64_t> done{0};
+  return allow_cluster_once(
+      done, reinterpret_cast<const void*>(decode_cluster_kernel<T, D>),
+      SMEM_LIMIT);
+}
+
+bool valid_cluster(int cluster) {
+  return cluster == 2 || cluster == 4 || cluster == 8 || cluster == 16;
+}
+
+template <typename T, int D>
+cudaError_t launch_cluster(const void* q, const void* k, const void* v,
+                           const int64_t* pos, void* out, int batch,
+                           int max_len, int heads, int kv_heads, int cluster,
+                           int slots, Strides sq, Strides sk, Strides sv,
+                           Strides so, float scale, cudaStream_t stream) {
+  const int group = heads / kv_heads;
+  const ClusterLayout lay(group, slots, D, sizeof(T));
+  if (!valid_cluster(cluster) || slots != cluster_slots(max_len, cluster) ||
+      lay.bytes > SMEM_LIMIT)
+    return cudaErrorInvalidValue;
+  constexpr bool bf16 = sizeof(T) == 2;
+  const cuuint64_t es = sizeof(T);
+  const cuuint32_t box[4] = {(cuuint32_t)D, BOX, 1, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)max_len,
+                              (cuuint64_t)kv_heads, (cuuint64_t)batch};
+  const cuuint64_t k_strides[3] = {sk.s * es, sk.h * es, sk.b * es};
+  const cuuint64_t v_strides[3] = {sv.s * es, sv.h * es, sv.b * es};
+  CUtensorMap tm_k, tm_v;
+  cudaError_t err = make_map_plain(&tm_k, k, 4, bf16, dims, k_strides, box);
+  if (err == cudaSuccess)
+    err = make_map_plain(&tm_v, v, 4, bf16, dims, v_strides, box);
+  if (err == cudaSuccess) err = cluster_attributes<T, D>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config =
+      cluster_config<T, D>(batch, kv_heads, cluster, lay.bytes, &attr);
+  config.stream = stream;
+  return cudaLaunchKernelEx(&config, decode_cluster_kernel<T, D>, tm_k, tm_v,
+                            static_cast<const T*>(q), pos,
+                            static_cast<T*>(out), max_len, group, slots, sq,
+                            so, scale);
+}
+
+// Clusters of the design that can be resident at once on the current
+// device for this shape (cudaOccupancyMaxActiveClusters), or -1.
+template <typename T, int D>
+int cluster_occupancy(int batch, int kv_heads, int group, int cluster,
+                      int slots) {
+  const ClusterLayout lay(group, slots, D, sizeof(T));
+  if (!valid_cluster(cluster) || lay.bytes > SMEM_LIMIT ||
+      cluster_attributes<T, D>() != cudaSuccess)
+    return -1;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config =
+      cluster_config<T, D>(batch, kv_heads, cluster, lay.bytes, &attr);
+  int clusters = -1;
+  if (cudaOccupancyMaxActiveClusters(
+          &clusters, reinterpret_cast<const void*>(decode_cluster_kernel<T, D>),
+          &config) != cudaSuccess)
+    return -1;
+  return clusters;
+}
+
 template <typename T>
 cudaError_t dispatch_dim(int head_dim, const void* q, const void* k,
                          const void* v, const int64_t* pos, void* out,
@@ -352,6 +700,49 @@ cudaError_t dispatch_dim(int head_dim, const void* q, const void* k,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The cluster design's launch and occupancy query, for by_type.
+struct ClusterCall {
+  const void *q, *k, *v;
+  const int64_t* pos;
+  void* out;
+  int batch, max_len, heads, kv_heads, cluster, slots;
+  Strides sq, sk, sv, so;
+  float scale;
+  cudaStream_t stream;
+  template <typename T, int D>
+  int run() const {
+    return launch_cluster<T, D>(q, k, v, pos, out, batch, max_len, heads,
+                                kv_heads, cluster, slots, sq, sk, sv, so,
+                                scale, stream);
+  }
+};
+
+struct OccupancyCall {
+  int batch, kv_heads, group, cluster, slots;
+  template <typename T, int D>
+  int run() const {
+    return cluster_occupancy<T, D>(batch, kv_heads, group, cluster, slots);
+  }
+};
+
+// Calls fn.template run<T, D>() for the dtype code (0 = f32, 1 = bf16) and
+// head dim, or returns `bad` for one the kernels are not built for.
+template <typename Fn, typename R>
+R by_type(int dtype, int head_dim, Fn fn, R bad) {
+#define DECODE_DIMS(T)                                   \
+  switch (head_dim) {                                    \
+    case 32: return fn.template run<T, 32>();            \
+    case 64: return fn.template run<T, 64>();            \
+    case 128: return fn.template run<T, 128>();          \
+    case 256: return fn.template run<T, 256>();          \
+    default: return bad;                                 \
+  }
+  if (dtype == 0) DECODE_DIMS(float)
+  if (dtype == 1) DECODE_DIMS(__nv_bfloat16)
+#undef DECODE_DIMS
+  return bad;
 }
 
 }  // namespace
@@ -390,6 +781,40 @@ int decode_attn(const void* q, const void* k, const void* v,
                                        batch, max_len, heads, kv_heads, sq, sk,
                                        sv, so, scale, st);
   return cudaErrorInvalidValue;
+}
+
+// The cluster design (see the header): one launch, no scratch. `cluster`
+// is 2, 4, 8 or 16 blocks and `slots` ceil(ceil(max_len / 16) / cluster),
+// the boxes of K and of V each block holds (ops/attention.py decode_plan);
+// a shape whose shared memory passes a block's limit, or a wrong `slots`,
+// returns cudaErrorInvalidValue. Other arguments as decode_attn's.
+int decode_attn_cluster(const void* q, const void* k, const void* v,
+                        const void* pos, void* out, int dtype, int batch,
+                        int max_len, int heads, int kv_heads, int head_dim,
+                        int cluster, int slots, int64_t sq_b,
+                        int64_t sq_h, int64_t sk_b, int64_t sk_s,
+                        int64_t sk_h, int64_t sv_b, int64_t sv_s,
+                        int64_t sv_h, int64_t so_b, int64_t so_h,
+                        float scale, void* stream) {
+  if (batch <= 0 || max_len <= 0 || kv_heads <= 0 || heads % kv_heads ||
+      heads / kv_heads > MAX_GROUP)
+    return cudaErrorInvalidValue;
+  const ClusterCall run{q, k, v, static_cast<const int64_t*>(pos), out, batch,
+                max_len, heads, kv_heads, cluster, slots,
+                Strides{sq_b, 0, sq_h},
+                Strides{sk_b, sk_s, sk_h}, Strides{sv_b, sv_s, sv_h},
+                Strides{so_b, 0, so_h}, scale,
+                static_cast<cudaStream_t>(stream)};
+  return by_type(dtype, head_dim, run, (int)cudaErrorInvalidValue);
+}
+
+// Clusters of the cluster design resident at once on the current device
+// for this shape (cudaOccupancyMaxActiveClusters); -1 where it cannot run.
+int decode_attn_cluster_occupancy(int dtype, int batch, int kv_heads,
+                                  int group, int head_dim, int cluster,
+                                  int slots) {
+  return by_type(dtype, head_dim,
+                 OccupancyCall{batch, kv_heads, group, cluster, slots}, -1);
 }
 
 const char* decode_attn_error_string(int err) {

@@ -49,11 +49,40 @@
 //   sum a fixed tree over the group's threads); finalize_kernel (a warp per
 //   (b, g) merges the tiles' partials pairwise in order); normalize_kernel
 //   (the second read of x).
-// - Backward: bwd_partials_kernel (per (b, tile, c) sums of dy xhat and
-//   dy over the tile's pixels); bwd_sum_kernel (per (b, c) over the tiles
-//   in order, then s1 / n and s2 / n of each (b, g) by a tree over its Cg
-//   channels); dx_kernel (the second read of x and dy), whose last C / 32
-//   blocks sum dgamma, dbeta over b in order.
+// - Backward, design "two_pass": bwd_partials_kernel (per (b, tile, c)
+//   sums of dy xhat and dy over the tile's pixels); bwd_sum_kernel (per
+//   (b, c) over the tiles in order, then s1 / n and s2 / n of each (b, g)
+//   by a tree over its Cg channels); dx_kernel (the second read of x and
+//   dy), whose last C / 32 blocks sum dgamma, dbeta over b in order. It
+//   moves 5 units of traffic where the bound needs 3 (x and dy twice).
+// - Backward, design "cluster" (the main path; ops/group_norm.py
+//   backward_plan picks it by shape wherever it fits): one thread-block
+//   cluster of CL blocks (1, 2, 4, 8 or 16) per (b, slab), the slab chosen
+//   so that the (b, slab)'s x and dy fit the cluster's shared memory and
+//   hold whole groups. The plan takes the smallest CL whose blocks fit half
+//   an SM (two blocks an SM, one's loads beside the other's stores) with
+//   pixel rows of 64 bytes or more: at ResNet-50's shapes in bf16, 16
+//   blocks of 32 channels at 112^2, 4 of 32 at 56^2, one block of 32 at
+//   28^2, of 128 at 14^2 and of 256 at 7^2 (hack/torch_cluster_sweep.py
+//   timed the alternatives; a cluster of 8 at one block an SM was slower).
+//   Block `rank` takes pixels [rank * pix, (rank + 1) * pix) of the map:
+//   1. TMA-loads them from x and dy (3-D maps [C, HW, B], boxes of
+//      [box_pix <= 256 pixels, slab channels], each box on its own
+//      mbarrier, all issued at once), and adds each landed box into
+//      per-channel (sum dy xhat, sum dy): a thread's pixels in one chain
+//      (at most 13 at ResNet-50's shapes), the warp's rows by a shuffle
+//      tree, the warps in order;
+//   2. after a cluster barrier, reads the ranks' partials over distributed
+//      shared memory in rank order (every block the same order, so every
+//      block holds the same bits), forms gamma-weighted s1, s2 of each
+//      group by the two-pass design's tree, and rank 0 writes sums[b, c];
+//   3. computes dx from the x and dy still in its shared memory, in the
+//      same formula, and stores it.
+//   bwd_dgamma_kernel, a second launch, sums dgamma and dbeta over b in
+//   order as dx_kernel's last blocks do. x and dy are read once: 3 units of
+//   traffic, the bound's. Each sum is a chain of at most 2^8 additions
+//   (thread, shuffle tree, warps, ranks, channels by a tree), which the
+//   tolerance's SUM_ORDER bounds.
 // C must be a power of two with G | C, C / G <= 256 and C at least one
 // vector (8 bf16, 4 f32); the wrapper checks the layout (NHWC-contiguous,
 // 16-byte aligned).
@@ -62,13 +91,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int THREADS = 256;
 constexpr int PIX = 8;         // pixels each thread reads in a tile
 constexpr int MAX_SLAB = 256;  // channels of a slab
 constexpr int DG_CHANNELS = 32;
 constexpr int DG_LANES = THREADS / DG_CHANNELS;
+// the cluster backward
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_BOX = 256;        // pixels of a TMA box
+constexpr int MAX_CLUSTER = 16;     // 8 portable, 16 with the opt-in
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 
 struct Tiling {
   int slab;      // channels a block reads of each pixel
@@ -127,6 +165,24 @@ struct Packed {
       }
     } else {
       const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = v.x;
+      w[1] = v.y;
+    }
+  }
+
+  // the same from shared memory (a generic pointer, no __ldg)
+  __device__ __forceinline__ void load_shared(const T* p) {
+    if constexpr (WORDS >= 4) {
+#pragma unroll
+      for (int k = 0; k < WORDS / 4; ++k) {
+        const uint4 v = reinterpret_cast<const uint4*>(p)[k];
+        w[4 * k] = v.x;
+        w[4 * k + 1] = v.y;
+        w[4 * k + 2] = v.z;
+        w[4 * k + 3] = v.w;
+      }
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
       w[0] = v.x;
       w[1] = v.y;
     }
@@ -446,6 +502,38 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// dgamma_c = sum_b sum dy xhat, dbeta_c = sum_b sum dy, in b's order, for
+// the DG_CHANNELS channels of block `blk`: DG_LANES lanes over b, then the
+// lanes in order.
+__device__ __forceinline__ void dgamma_block(const float2* __restrict__ sums,
+                                             float* __restrict__ dgamma,
+                                             float* __restrict__ dbeta,
+                                             int batch, int channels,
+                                             int blk) {
+  __shared__ float2 lanes[DG_LANES][DG_CHANNELS];
+  const int tid = threadIdx.x;
+  const int c = blk * DG_CHANNELS + tid % DG_CHANNELS;
+  const int lane = tid / DG_CHANNELS;
+  float sa = 0.f, sb = 0.f;
+  if (c < channels)
+    for (int b = lane; b < batch; b += DG_LANES) {
+      const float2 v = sums[(int64_t)b * channels + c];
+      sa += v.x;
+      sb += v.y;
+    }
+  lanes[lane][tid % DG_CHANNELS] = make_float2(sa, sb);
+  __syncthreads();
+  if (tid < DG_CHANNELS && c < channels) {
+    float ga = 0.f, gb = 0.f;
+    for (int l = 0; l < DG_LANES; ++l) {
+      ga += lanes[l][tid].x;
+      gb += lanes[l][tid].y;
+    }
+    dgamma[c] = ga;
+    dbeta[c] = gb;
+  }
+}
+
 // 1-D grid: tiles * slabs * b blocks of dx, then C / 32 blocks of dgamma
 // and dbeta.
 template <typename TX, typename TY>
@@ -461,28 +549,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int tid = threadIdx.x;
   const int64_t n_dx = (int64_t)t.tiles * t.slabs * batch;
   if (blockIdx.x >= n_dx) {
-    // dgamma_c = sum_b sum dy xhat, dbeta_c = sum_b sum dy, in b's order.
-    __shared__ float2 lanes[DG_LANES][DG_CHANNELS];
-    const int c = (int)(blockIdx.x - n_dx) * DG_CHANNELS + tid % DG_CHANNELS;
-    const int lane = tid / DG_CHANNELS;
-    float sa = 0.f, sb = 0.f;
-    if (c < channels)
-      for (int b = lane; b < batch; b += DG_LANES) {
-        const float2 v = sums[(int64_t)b * channels + c];
-        sa += v.x;
-        sb += v.y;
-      }
-    lanes[lane][tid % DG_CHANNELS] = make_float2(sa, sb);
-    __syncthreads();
-    if (tid < DG_CHANNELS && c < channels) {
-      float ga = 0.f, gb = 0.f;
-      for (int l = 0; l < DG_LANES; ++l) {
-        ga += lanes[l][tid].x;
-        gb += lanes[l][tid].y;
-      }
-      dgamma[c] = ga;
-      dbeta[c] = gb;
-    }
+    dgamma_block(sums, dgamma, dbeta, batch, channels,
+                 (int)(blockIdx.x - n_dx));
     return;
   }
   const int tile = blockIdx.x % t.tiles;
@@ -572,6 +640,284 @@ int run_backward(const void* dy, const void* x, const float* mean,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- the cluster backward
+
+// A cluster backward's plan (ops/group_norm.py backward_plan makes it):
+// slab channels, `cluster` blocks a (b, slab), `pix` pixels a block,
+// boxes of `box_pix` pixels, `nbox` boxes a block.
+struct BwdPlan {
+  int slab, cluster, pix, box_pix, nbox;
+};
+
+// Byte offsets of the cluster backward's shared memory: nbox boxes of x,
+// then of dy (each 128-byte aligned), the row groups' partials
+// [WARPS][slab] of (sum dy xhat, sum dy) as two float arrays, the block's
+// partials [slab] (float2, read by the other ranks), the group tree's two
+// [slab] arrays, and nbox mbarriers. ops/group_norm.py mirrors it.
+struct BwdLayout {
+  int box_x, box_dy, x, dy, red, blk, tree, bars, bytes;
+  __host__ __device__ BwdLayout(const BwdPlan& p, int sx, int sy) {
+    box_x = (p.box_pix * p.slab * sx + 127) / 128 * 128;
+    box_dy = (p.box_pix * p.slab * sy + 127) / 128 * 128;
+    x = 0;
+    dy = p.nbox * box_x;
+    red = dy + p.nbox * box_dy;
+    blk = red + 2 * WARPS * p.slab * 4;
+    tree = blk + p.slab * 8;
+    bars = tree + 2 * p.slab * 4;
+    bytes = bars + p.nbox * 8;
+  }
+};
+
+// grid (cluster, C / slab, b), clusters of `cluster` blocks along x.
+template <typename TX, typename TY>
+__global__ void __launch_bounds__(THREADS, 2)
+    bwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
+                       const __grid_constant__ CUtensorMap tm_dy,
+                       const float* __restrict__ mean,
+                       const float* __restrict__ rstd,
+                       const float* __restrict__ gamma, TX* __restrict__ dx,
+                       float2* __restrict__ sums, int hw, int channels,
+                       int groups, BwdPlan p, int cg_log2) {
+  constexpr int V = 16 / sizeof(TX);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const BwdLayout lay(p, sizeof(TX), sizeof(TY));
+  float* red_a = reinterpret_cast<float*>(smem + lay.red);
+  float* red_b = red_a + WARPS * p.slab;
+  float2* blk = reinterpret_cast<float2*>(smem + lay.blk);
+  float* t1 = reinterpret_cast<float*>(smem + lay.tree);
+  float* t2 = t1 + p.slab;
+  const uint32_t bars = smem_u32(smem + lay.bars);
+
+  const int rank = (int)cluster_rank();
+  const int slab = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int start = rank * p.pix;
+  const int npix = max(min(start + p.pix, hw) - start, 0);
+  const int mine = (npix + p.box_pix - 1) / p.box_pix;
+  const int cg = 1 << cg_log2;
+
+  if (tid == 0) {
+    for (int i = 0; i < p.nbox; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init_fence();
+    const uint32_t bytes = p.box_pix * p.slab * (sizeof(TX) + sizeof(TY));
+    for (int i = 0; i < mine; ++i) {
+      const uint32_t bar = bars + 8 * i;
+      mbar_arrive_expect_tx(bar, bytes);
+      tma_load_3d(smem_u32(smem + lay.x + i * lay.box_x), &tm_x,
+                  slab * p.slab, start + i * p.box_pix, b, bar);
+      tma_load_3d(smem_u32(smem + lay.dy + i * lay.box_dy), &tm_dy,
+                  slab * p.slab, start + i * p.box_pix, b, bar);
+    }
+  }
+  __syncthreads();  // the barriers initialised
+
+  // 1. per-channel (sum dy xhat, sum dy) over the block's pixels
+  const int cols = p.slab / V, rows = THREADS / cols;
+  const int col = tid % cols, row = tid / cols;
+  const int c0 = slab * p.slab + col * V;
+  float mu[V], r[V], a[V], s[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int bg = b * groups + ((c0 + j) >> cg_log2);
+    mu[j] = mean[bg];
+    r[j] = rstd[bg];
+    a[j] = 0.f;
+    s[j] = 0.f;
+  }
+  auto x_at = [&](int q) {
+    const int box = q / p.box_pix;
+    return reinterpret_cast<const TX*>(smem + lay.x + box * lay.box_x) +
+           (q - box * p.box_pix) * p.slab + col * V;
+  };
+  auto dy_at = [&](int q) {
+    const int box = q / p.box_pix;
+    return reinterpret_cast<const TY*>(smem + lay.dy + box * lay.box_dy) +
+           (q - box * p.box_pix) * p.slab + col * V;
+  };
+  int waited = -1;
+  for (int q = row; q < npix; q += rows) {
+    const int box = q / p.box_pix;
+    if (box != waited) {
+      mbar_wait(bars + 8 * box, 0);
+      waited = box;
+    }
+    Packed<TX, V> xv;
+    Packed<TY, V> dv;
+    xv.load_shared(x_at(q));
+    dv.load_shared(dy_at(q));
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float d = dv.get(j);
+      a[j] += d * ((xv.get(j) - mu[j]) * r[j]);
+      s[j] += d;
+    }
+  }
+  // the rows of a warp by a shuffle tree (cols < 32), then row groups in
+  // order: a warp each, or a row each where a row spans whole warps
+  if (cols < 32) {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      for (int off = cols; off < 32; off *= 2) {
+        a[j] += __shfl_xor_sync(0xffffffffu, a[j], off);
+        s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
+      }
+  }
+  const int part = cols < 32 ? warp : row, parts = cols < 32 ? WARPS : rows;
+  if (cols >= 32 || (tid % 32) < cols)
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      red_a[part * p.slab + col * V + j] = a[j];
+      red_b[part * p.slab + col * V + j] = s[j];
+    }
+  __syncthreads();
+  if (tid < p.slab) {
+    float sa = 0.f, sb = 0.f;
+    for (int k = 0; k < parts; ++k) {
+      sa += red_a[k * p.slab + tid];
+      sb += red_b[k * p.slab + tid];
+    }
+    blk[tid] = make_float2(sa, sb);
+  }
+  cluster_sync();  // 2. every block's partials visible
+
+  if (tid < p.slab) {
+    float sa = 0.f, sb = 0.f;
+    for (int k = 0; k < p.cluster; ++k) {
+      const float2 v = cluster_peer(blk, k)[tid];
+      sa += v.x;
+      sb += v.y;
+    }
+    const int c = slab * p.slab + tid;
+    if (rank == 0) sums[(int64_t)b * channels + c] = make_float2(sa, sb);
+    t1[tid] = gamma[c] * sb;
+    t2[tid] = gamma[c] * sa;
+  }
+  cluster_arrive();  // done reading the other blocks
+  __syncthreads();
+  for (int h = cg / 2; h > 0; h >>= 1) {
+    if (tid < p.slab && (tid & (cg - 1)) < h) {
+      t1[tid] += t1[tid + h];
+      t2[tid] += t2[tid + h];
+    }
+    __syncthreads();
+  }
+
+  // 3. dx from the tiles in shared memory
+  const float n = (float)cg * (float)hw;
+  float g[V], c1[V], c2[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int lc = col * V + j, first = lc & ~(cg - 1);
+    g[j] = gamma[c0 + j];
+    c1[j] = t1[first] / n;
+    c2[j] = t2[first] / n;
+  }
+  TX* out = dx + ((int64_t)b * hw + start) * channels + c0;
+  for (int q = row; q < npix; q += rows) {
+    Packed<TX, V> xv, o{};
+    Packed<TY, V> dv;
+    xv.load_shared(x_at(q));
+    dv.load_shared(dy_at(q));
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float xhat = (xv.get(j) - mu[j]) * r[j];
+      o.set(j, r[j] * (g[j] * dv.get(j) - c1[j] - xhat * c2[j]));
+    }
+    o.store(out + (int64_t)q * channels);
+  }
+  cluster_wait();  // the other blocks are done reading this one
+}
+
+// dgamma and dbeta from sums[b, c], C / 32 blocks.
+__global__ void __launch_bounds__(THREADS)
+    bwd_dgamma_kernel(const float2* __restrict__ sums,
+                      float* __restrict__ dgamma, float* __restrict__ dbeta,
+                      int batch, int channels) {
+  dgamma_block(sums, dgamma, dbeta, batch, channels, blockIdx.x);
+}
+
+// Returns false for a plan the cluster kernel does not take.
+bool valid_plan(const BwdPlan& p, int channels, int hw, int groups, int sx,
+                int sy) {
+  const int cg = channels / groups;
+  return power_of_two(p.slab) && p.slab <= MAX_SLAB && channels % p.slab == 0 &&
+         cg <= p.slab && (p.slab * sx) % 16 == 0 && (p.slab * sy) % 16 == 0 &&
+         p.cluster >= 1 && p.cluster <= MAX_CLUSTER &&
+         (int64_t)p.pix * p.cluster >= hw && p.pix > 0 && p.box_pix > 0 &&
+         p.box_pix <= MAX_BOX && p.nbox * p.box_pix >= p.pix &&
+         BwdLayout(p, sx, sy).bytes <= SMEM_LIMIT;
+}
+
+template <typename TX, typename TY>
+cudaLaunchConfig_t cluster_config(const BwdPlan& p, int batch, int channels,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(p.cluster, channels / p.slab, batch);
+  config.blockDim = dim3(THREADS);
+  config.dynamicSmemBytes = BwdLayout(p, sizeof(TX), sizeof(TY)).bytes;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+// The shared-memory limit and clusters of 16, once a device.
+template <typename TX, typename TY>
+cudaError_t cluster_attributes() {
+  static std::atomic<uint64_t> done{0};
+  return allow_cluster_once(
+      done, reinterpret_cast<const void*>(bwd_cluster_kernel<TX, TY>),
+      SMEM_LIMIT);
+}
+
+template <typename TX, typename TY>
+int run_backward_cluster(const void* dy, const void* x, const float* mean,
+                         const float* rstd, const float* gamma, void* dx,
+                         float* dgamma, float* dbeta, float2* sums, int batch,
+                         int hw, int channels, int groups, const BwdPlan& p,
+                         cudaStream_t st) {
+  const cuuint32_t box[3] = {(cuuint32_t)p.slab, (cuuint32_t)p.box_pix, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)channels, (cuuint64_t)hw,
+                              (cuuint64_t)batch};
+  const cuuint64_t sx[2] = {(cuuint64_t)channels * sizeof(TX),
+                            (cuuint64_t)hw * channels * sizeof(TX)};
+  const cuuint64_t sy[2] = {(cuuint64_t)channels * sizeof(TY),
+                            (cuuint64_t)hw * channels * sizeof(TY)};
+  CUtensorMap tm_x, tm_dy;
+  cudaError_t err = make_map_plain(&tm_x, x, 3, sizeof(TX) == 2, dims, sx, box);
+  if (err == cudaSuccess)
+    err = make_map_plain(&tm_dy, dy, 3, sizeof(TY) == 2, dims, sy, box);
+  if (err == cudaSuccess) err = cluster_attributes<TX, TY>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config = cluster_config<TX, TY>(p, batch, channels, &attr);
+  config.stream = st;
+  err = cudaLaunchKernelEx(&config, bwd_cluster_kernel<TX, TY>, tm_x, tm_dy,
+                           mean, rstd, gamma, static_cast<TX*>(dx), sums, hw,
+                           channels, groups, p, log2_of(channels / groups));
+  if (err != cudaSuccess) return err;
+  bwd_dgamma_kernel<<<(channels + DG_CHANNELS - 1) / DG_CHANNELS, THREADS, 0,
+                      st>>>(sums, dgamma, dbeta, batch, channels);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TY>
+int cluster_occupancy(int batch, int channels, const BwdPlan& p) {
+  if (cluster_attributes<TX, TY>() != cudaSuccess) return -1;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config = cluster_config<TX, TY>(p, batch, channels, &attr);
+  int clusters = -1;
+  if (cudaOccupancyMaxActiveClusters(
+          &clusters, reinterpret_cast<const void*>(bwd_cluster_kernel<TX, TY>),
+          &config) != cudaSuccess)
+    return -1;
+  return clusters;
+}
+
 }  // namespace
 
 extern "C" {
@@ -654,6 +1000,63 @@ int group_norm_bwd(const void* dy, const void* x, const void* mean,
         t, st);
   return run_backward<float, float>(dy, x, mu, rs, g, dx, dg, db, pa, su, cf,
                                     batch, hw, channels, groups, t, st);
+}
+
+// The cluster backward (see the header), for the plan of
+// ops/group_norm.py backward_plan: slab, cluster, pix, box_pix and nbox.
+// Arguments as group_norm_bwd's; sums f32 [b, C, 2] is scratch (no part or
+// coef). A plan the kernel does not take returns cudaErrorInvalidValue.
+int group_norm_bwd_cluster(const void* dy, const void* x, const void* mean,
+                           const void* rstd, const void* gamma, void* dx,
+                           void* dgamma, void* dbeta, void* sums, int x_dtype,
+                           int dy_dtype, int batch, int channels, int hw,
+                           int groups, int slab, int cluster, int pix,
+                           int box_pix, int nbox, void* stream) {
+  Tiling t;
+  const BwdPlan p{slab, cluster, pix, box_pix, nbox};
+  if (batch <= 0 || (x_dtype != 0 && x_dtype != 1) ||
+      (dy_dtype != 0 && dy_dtype != 1) ||
+      !make_tiling(channels, hw, groups, vec_of(x_dtype), &t) ||
+      !valid_plan(p, channels, hw, groups, x_dtype ? 2 : 4, dy_dtype ? 2 : 4))
+    return cudaErrorInvalidValue;
+  const float* mu = static_cast<const float*>(mean);
+  const float* rs = static_cast<const float*>(rstd);
+  const float* g = static_cast<const float*>(gamma);
+  float* dg = static_cast<float*>(dgamma);
+  float* db = static_cast<float*>(dbeta);
+  float2* su = static_cast<float2*>(sums);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 1 && dy_dtype == 1)
+    return run_backward_cluster<__nv_bfloat16, __nv_bfloat16>(
+        dy, x, mu, rs, g, dx, dg, db, su, batch, hw, channels, groups, p, st);
+  if (x_dtype == 1)
+    return run_backward_cluster<__nv_bfloat16, float>(
+        dy, x, mu, rs, g, dx, dg, db, su, batch, hw, channels, groups, p, st);
+  if (dy_dtype == 1)
+    return run_backward_cluster<float, __nv_bfloat16>(
+        dy, x, mu, rs, g, dx, dg, db, su, batch, hw, channels, groups, p, st);
+  return run_backward_cluster<float, float>(dy, x, mu, rs, g, dx, dg, db, su,
+                                            batch, hw, channels, groups, p,
+                                            st);
+}
+
+// Clusters of the cluster backward resident at once on the current device
+// for this plan (cudaOccupancyMaxActiveClusters); -1 where it cannot run.
+int group_norm_bwd_cluster_occupancy(int x_dtype, int dy_dtype, int batch,
+                                     int channels, int hw, int groups,
+                                     int slab, int cluster, int pix,
+                                     int box_pix, int nbox) {
+  const BwdPlan p{slab, cluster, pix, box_pix, nbox};
+  if ((x_dtype != 0 && x_dtype != 1) || (dy_dtype != 0 && dy_dtype != 1) ||
+      !valid_plan(p, channels, hw, groups, x_dtype ? 2 : 4, dy_dtype ? 2 : 4))
+    return -1;
+  if (x_dtype == 1 && dy_dtype == 1)
+    return cluster_occupancy<__nv_bfloat16, __nv_bfloat16>(batch, channels, p);
+  if (x_dtype == 1)
+    return cluster_occupancy<__nv_bfloat16, float>(batch, channels, p);
+  if (dy_dtype == 1)
+    return cluster_occupancy<float, __nv_bfloat16>(batch, channels, p);
+  return cluster_occupancy<float, float>(batch, channels, p);
 }
 
 const char* group_norm_error_string(int err) {

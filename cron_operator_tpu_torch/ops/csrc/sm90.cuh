@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's redesigned kernels:
-// TMA tensor maps and loads, mbarriers, and warpgroup matrix multiplies
-// (wgmma), as inline PTX. No CuTe or CUTLASS headers, so a source that
-// includes this builds in seconds.
+// TMA tensor maps and loads, mbarriers, thread-block clusters and warpgroup
+// matrix multiplies (wgmma), as inline PTX. No CuTe or CUTLASS headers, so a
+// source that includes this builds in seconds.
 //
 // Shared-memory tiles. A tile of R rows by 64 bf16 columns (128 bytes a row)
 // is a "panel"; TMA writes it with the 128-byte swizzle, so it must start on
@@ -82,6 +82,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // --------------------------------------------------------------------- TMA
 
+// Orders this thread's earlier shared-memory accesses before later TMA
+// (async proxy) accesses of the same shared memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Loads one box of a 4-D tensor map ([d, s, h, b], innermost first) into
 // shared memory; completion counts its bytes on `bar`.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
@@ -93,6 +99,52 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
       : "memory");
+}
+
+// Loads one box of a 3-D tensor map into shared memory; completion counts
+// its bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// Thread-block clusters: the barrier of all the cluster's threads, split
+// into its arrival (release: this thread's writes, shared memory included,
+// become visible to the cluster) and its wait (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address in block `rank`'s shared memory of what `p` points to in
+// this block's (distributed shared memory), as a generic pointer.
+template <typename T>
+__device__ __forceinline__ const T* cluster_peer(const T* p, uint32_t rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(out);
 }
 
 // Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
@@ -274,6 +326,35 @@ inline cudaError_t make_map_bshd(CUtensorMap* map, const void* base, int b,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A tensor map over `rank` dimensions (innermost first: dims[0] has unit
+// stride, strides[i] is the byte stride of dims[i + 1]) of bf16 (`bf16`
+// true) or f32 elements, boxes of `box` elements, no swizzle: a box lands in
+// shared memory densely, row after row. Elements outside the tensor read as
+// zeros. The base must be 16-byte aligned and the strides multiples of 16
+// bytes; the caller checks both. The encoding is a driver call, which needs
+// the device's context current on this thread: a thread whose device was
+// never set (PyTorch's autograd thread for device 0, whose first CUDA call
+// this may be) has none until a runtime call binds it, so it is bound here.
+inline cudaError_t make_map_plain(CUtensorMap* map, const void* base, int rank,
+                                  bool bf16, const cuuint64_t* dims,
+                                  const cuuint64_t* strides,
+                                  const cuuint32_t* box) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return err;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  CUresult res = encode(
+      map,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      rank, const_cast<void*>(base), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
 // device, once: `devices` (a static of the caller, one per kernel) keeps a
 // bit per device on which it is done, so later launches skip the call. The
@@ -288,6 +369,25 @@ inline cudaError_t allow_smem_once(std::atomic<uint64_t>& devices,
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
+  if (err == cudaSuccess) devices.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// A cluster kernel's two attributes, once a device as allow_smem_once: its
+// dynamic shared-memory limit, and clusters past the portable 8 blocks.
+inline cudaError_t allow_cluster_once(std::atomic<uint64_t>& devices,
+                                      const void* kernel, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (devices.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess) devices.fetch_or(bit, std::memory_order_release);
   return err;
 }

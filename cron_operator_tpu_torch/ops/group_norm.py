@@ -12,7 +12,9 @@ channels-last strides (``models/resnet.py``), and ``models/layers.py``
   of ``csrc/group_norm.cu`` (statistics by Chan merges of per-tile
   partials, then ``y = (x - mean) * (rstd * gamma) + beta`` in f32, rounded
   once) and :func:`group_norm_backward` the backward kernel (dx, dgamma and
-  dbeta from x, dy and the saved f32 statistics; x̂ is recomputed). The
+  dbeta from x, dy and the saved f32 statistics; x̂ is recomputed), in
+  the design :func:`backward_plan` picks by shape: on ResNet-50's shapes a
+  thread-block cluster that reads x and dy once. The
   tensor must be channels-last-contiguous: a hidden ``.contiguous()`` would
   be the very copy the kernels exist to remove, so anything else raises.
 - On a CPU tensor the same wrappers run :func:`group_norm_reference` and
@@ -46,7 +48,26 @@ from cron_operator_tpu_torch.ops.flash_attention import (
     _raise_on,
 )
 
-DESIGN = "two_pass"  # the kernels' one design: statistics, then a second read
+# The kernels' designs, by direction. The forward's one: statistics, then a
+# second read of x. The backward's: "cluster", x and dy read once into a
+# thread-block cluster's shared memory (the main path, where
+# :func:`backward_plan` fits it), and "two_pass", which reads them twice.
+FORWARD_DESIGN = "two_pass"
+BACKWARD_DESIGNS = ("cluster", "two_pass")
+# The cluster backward (csrc/group_norm.cu): the cluster sizes it takes
+# (blocks of a (b, slab); 16 is a non-portable size), 256 threads (8
+# warps) a block, TMA boxes of at most 256 pixels, slabs of at most 256
+# channels, pixel rows of at least 64 bytes where C allows (a narrower
+# slab reads DRAM sectors half used), the dynamic shared memory a block may
+# take on an H100, and the most each of two blocks an SM may take (228 KB
+# less 1 KB reserved a block, halved).
+BACKWARD_CLUSTERS = (1, 2, 4, 8, 16)
+_WARPS = 8
+_MAX_BOX = 256
+_MAX_SLAB = 256
+_MIN_ROW_BYTES = 64
+SMEM_LIMIT = 232448
+_HALF_SM = 115712
 # A blocked f32 sum of at most 2^8 sequential additions, taken in two
 # orders (kernel and plain version): their difference is within
 # 2 * 2^8 * 2^-24 of the sum of the terms' magnitudes.
@@ -195,6 +216,11 @@ def _kernel() -> ctypes.CDLL:
         lib.group_norm_bwd.argtypes = (
             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.group_norm_bwd.restype = ctypes.c_int
+        lib.group_norm_bwd_cluster.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+        lib.group_norm_bwd_cluster.restype = ctypes.c_int
+        lib.group_norm_bwd_cluster_occupancy.argtypes = [ctypes.c_int] * 11
+        lib.group_norm_bwd_cluster_occupancy.restype = ctypes.c_int
         lib.group_norm_error_string.argtypes = [ctypes.c_int]
         lib.group_norm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -247,6 +273,59 @@ def _tiles(x: torch.Tensor, groups: int) -> int:
     return tiles
 
 
+def backward_plan(b: int, c: int, hw: int, groups: int, x_dtype: torch.dtype,
+                  dy_dtype: torch.dtype, cluster: Optional[int] = None,
+                  max_slab: int = _MAX_SLAB) -> dict:
+    """The backward kernel's design for ``[b, c, h, w]`` (``hw = h * w``)
+    with ``groups`` groups: ``"cluster"`` where a cluster's shared memory
+    holds a (b, slab)'s x and dy, else ``"two_pass"``. A slab is a power of
+    two of at most ``max_slab`` channels, whole groups and whole 16-byte
+    vectors of x and dy; a block takes ``pix`` pixels of the map, as
+    ``nbox`` TMA boxes of ``box_pix`` (``BwdLayout`` in
+    ``csrc/group_norm.cu``, mirrored here).
+
+    With ``cluster`` given, the widest slab that fits a block's shared
+    memory at that cluster size. Otherwise the smallest cluster of
+    ``BACKWARD_CLUSTERS`` whose widest slab fits half an SM's shared memory
+    (two blocks an SM, so one block's loads overlap the other's dx stores)
+    with pixel rows of at least ``_MIN_ROW_BYTES`` (or all of C), else the
+    same at one block an SM. ``hack/torch_cluster_sweep.py`` measured that
+    rule on ResNet-50's shapes (PERF.md section 6). Keys ``design``, and
+    for the cluster design ``slab``, ``cluster``, ``pix``, ``box_pix``,
+    ``nbox`` and ``smem`` (bytes a block)."""
+    if cluster is not None:
+        return _fit(c, hw, groups, x_dtype, dy_dtype, cluster, max_slab,
+                    SMEM_LIMIT) or {"design": "two_pass"}
+    rows = min(c * x_dtype.itemsize, _MIN_ROW_BYTES)
+    for budget in (_HALF_SM, SMEM_LIMIT):
+        for size in BACKWARD_CLUSTERS:
+            plan = _fit(c, hw, groups, x_dtype, dy_dtype, size, max_slab,
+                        budget)
+            if plan and plan["slab"] * x_dtype.itemsize >= rows:
+                return plan
+    return {"design": "two_pass"}
+
+
+def _fit(c, hw, groups, x_dtype, dy_dtype, cluster, max_slab, budget):
+    """The cluster plan with the widest slab whose block fits ``budget``
+    bytes of shared memory, or None."""
+    sx, sy = x_dtype.itemsize, dy_dtype.itemsize
+    pix = -(-hw // cluster)
+    nbox = -(-pix // _MAX_BOX)
+    box_pix = -(-pix // nbox)
+    slab = min(c, max_slab)
+    while slab >= c // groups and slab * sx % 16 == 0 and slab * sy % 16 == 0:
+        box_x, box_dy = (-(-box_pix * slab * e // 128) * 128 for e in (sx, sy))
+        smem = (nbox * (box_x + box_dy) + 2 * _WARPS * slab * 4 + slab * 8
+                + 2 * slab * 4 + nbox * 8)
+        if smem <= budget:
+            return {"design": "cluster", "slab": slab, "cluster": cluster,
+                    "pix": pix, "box_pix": box_pix, "nbox": nbox,
+                    "smem": smem}
+        slab //= 2
+    return None
+
+
 def _param(p: torch.Tensor, c: int, device) -> torch.Tensor:
     if p.shape != (c,) or p.device != device:
         raise ValueError(f"gamma and beta must be [{c}] on {device}, not "
@@ -275,11 +354,14 @@ def _launch_forward(x, weight, bias, groups, eps, out_dtype):
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], b, c, h * w,
             groups, eps, stream)
     _raise_on(err, lib, "group_norm_fwd", "group_norm_error_string")
-    _count(group_norm_forward, DESIGN, stream)
+    _count(group_norm_forward, FORWARD_DESIGN, stream)
     return y, stats[0], stats[1]
 
 
-def _launch_backward(dy, x, mean, rstd, weight, groups):
+def _launch_backward(dy, x, mean, rstd, weight, groups,
+                     plan: Optional[dict] = None):
+    """The backward kernel on the card, in :func:`backward_plan`'s design
+    (``plan`` gives another, to time it beside)."""
     _check_activation("x", x, x)
     _check_activation("dy", dy, x)
     b, c, h, w = x.shape
@@ -290,24 +372,51 @@ def _launch_backward(dy, x, mean, rstd, weight, groups):
                              f"{groups}] on x's device")
     gamma = _param(weight, c, x.device)
     tiles = _tiles(x, groups)
+    plan = plan or backward_plan(b, c, h * w, groups, x.dtype, dy.dtype)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     grads = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    part = torch.empty((b, tiles, c, 2), dtype=torch.float32, device=x.device)
     sums = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
-    coef = torch.empty((b, groups, 2), dtype=torch.float32, device=x.device)
     lib = _kernel()
+    codes = (_DTYPE_CODES[x.dtype], _DTYPE_CODES[dy.dtype], b, c, h * w,
+             groups)
+    ptrs = (dy.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            gamma.data_ptr(), dx.data_ptr(), grads[0].data_ptr(),
+            grads[1].data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.group_norm_bwd(
-            dy.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            gamma.data_ptr(), dx.data_ptr(), grads[0].data_ptr(),
-            grads[1].data_ptr(), part.data_ptr(), sums.data_ptr(),
-            coef.data_ptr(),
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[dy.dtype], b, c, h * w,
-            groups, stream)
-    _raise_on(err, lib, "group_norm_bwd", "group_norm_error_string")
-    _count(group_norm_backward, DESIGN, stream)
+        if plan["design"] == "cluster":
+            fn = "group_norm_bwd_cluster"
+            err = lib.group_norm_bwd_cluster(
+                *ptrs, sums.data_ptr(), *codes, *(plan[k] for k in (
+                    "slab", "cluster", "pix", "box_pix", "nbox")), stream)
+        else:
+            fn = "group_norm_bwd"
+            part = torch.empty((b, tiles, c, 2), dtype=torch.float32,
+                               device=x.device)
+            coef = torch.empty((b, groups, 2), dtype=torch.float32,
+                               device=x.device)
+            err = lib.group_norm_bwd(*ptrs, part.data_ptr(), sums.data_ptr(),
+                                     coef.data_ptr(), *codes, stream)
+    _raise_on(err, lib, fn, "group_norm_error_string")
+    _count(group_norm_backward, plan["design"], stream)
     return dx, grads[0], grads[1]
+
+
+def backward_occupancy(x: torch.Tensor, groups: int,
+                       plan: Optional[dict] = None) -> int:
+    """Clusters of the cluster backward that the card holds at once for
+    ``x`` (dy of x's dtype) and ``plan`` (:func:`backward_plan`'s by
+    default): ``cudaOccupancyMaxActiveClusters``, -1 where it cannot run.
+    Builds the kernel."""
+    b, c, h, w = x.shape
+    plan = plan or backward_plan(b, c, h * w, groups, x.dtype, x.dtype)
+    if plan["design"] != "cluster":
+        return -1
+    code = _DTYPE_CODES[x.dtype]
+    with torch.cuda.device(x.device):
+        return _kernel().group_norm_bwd_cluster_occupancy(
+            code, code, b, c, h * w, groups, *(plan[k] for k in (
+                "slab", "cluster", "pix", "box_pix", "nbox")))
 
 
 def group_norm_forward(x: torch.Tensor, weight: torch.Tensor,
@@ -331,7 +440,21 @@ def group_norm_backward(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dx, dgamma, dbeta)``: the backward kernel on a CUDA tensor (or
     raises), :func:`group_norm_backward_reference` on a CPU or meta
-    tensor."""
+    tensor. Its bound is bytes: x and dy read once and dx written once
+    (2.55 ms over ResNet-50's 53 norms a step at b 128 in bf16 on an H100).
+    The design is :func:`backward_plan`'s, by shape:
+
+    - ``"cluster"``: one thread-block cluster of 1 to 16 blocks per
+      (sample, slab of channels) TMA-loads the slab's x and dy into shared
+      memory, sums each channel's dy·x̂ and dy there, exchanges the blocks'
+      sums over distributed shared memory, and writes dx from the tiles it
+      holds; a second small launch sums dγ and dβ over the batch. x and dy
+      are read once: the bound's traffic.
+    - ``"two_pass"``: per-tile sums, their merge, then dx from a second
+      read of x and dy (5 units of traffic where the bound needs 3), for a
+      shape whose slab does not fit the cluster's shared memory.
+
+    A launch counts under its design in ``.launches_by_design``."""
     _refuse_dtensor(dy, x, mean, rstd, weight)
     with torch.no_grad():
         if x.is_cuda:
@@ -343,9 +466,9 @@ def group_norm_backward(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
 
 
 group_norm_forward.launches = 0
-group_norm_forward.launches_by_design = {DESIGN: 0}
+group_norm_forward.launches_by_design = {FORWARD_DESIGN: 0}
 group_norm_backward.launches = 0
-group_norm_backward.launches_by_design = {DESIGN: 0}
+group_norm_backward.launches_by_design = dict.fromkeys(BACKWARD_DESIGNS, 0)
 
 
 class _GroupNorm(torch.autograd.Function):
@@ -379,6 +502,8 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
                             out_dtype or x.dtype)
 
 
-__all__ = ["DESIGN", "SUM_ORDER", "group_norm", "group_norm_backward",
-           "group_norm_backward_reference", "group_norm_forward",
-           "group_norm_reference", "group_norm_tolerance", "group_stats"]
+__all__ = ["BACKWARD_DESIGNS", "FORWARD_DESIGN", "SUM_ORDER",
+           "backward_occupancy", "backward_plan", "group_norm",
+           "group_norm_backward", "group_norm_backward_reference",
+           "group_norm_forward", "group_norm_reference",
+           "group_norm_tolerance", "group_stats"]

@@ -183,9 +183,11 @@ def test_refused_inputs_raise_before_any_build(monkeypatch, change, match):
 
 
 def test_kernel_bookkeeping():
-    """The wrapper counts its launches as the flash kernels do, by design,
-    and the tolerance is the bf16 and f32 rule of its docstring."""
-    assert attn.decode_attention.launches_by_design.keys() == {"fma"}
+    """The wrapper counts its launches as the flash kernels do, by design
+    (the cluster design and the three-pass one), and the tolerance is the
+    bf16 and f32 rule of its docstring."""
+    assert attn.decode_attention.launches_by_design.keys() == {"cluster",
+                                                               "fma"}
     q, _, _, ck, cv = _inputs(H // 2, torch.bfloat16, seed=2)
     p = torch.tensor([40])
     ref = attn.decode_attention_reference(q, ck, cv, p)
@@ -195,3 +197,68 @@ def test_kernel_bookkeeping():
     ref32 = attn.decode_attention_reference(qf, ckf, cvf, p)
     bound32 = attn.decode_tolerance(qf, ckf, cvf, p, ref32)
     assert (bound32 < bound).all()
+
+
+def _assert_cluster_plan(plan, max_len, group, d, dtype):
+    """A cluster plan's tiles fit a block and cover the cache."""
+    assert plan["design"] == "cluster"
+    assert plan["cluster"] == attn.DECODE_CLUSTER == 4
+    assert plan["span"] == plan["slots"] * attn.DECODE_BOX
+    assert plan["cluster"] * plan["span"] >= max_len
+    assert (plan["cluster"] * (plan["slots"] - 1) * attn.DECODE_BOX
+            < -(-max_len // attn.DECODE_BOX) * attn.DECODE_BOX)
+    kv = plan["span"] * d * dtype.itemsize  # K's rows, then V's
+    scores = group * plan["span"] * 4
+    assert kv + scores < plan["smem"] <= attn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("max_len, group, d, dtype", [
+    (1024, 1, 64, torch.bfloat16),   # GPT-2 small's serving shape
+    (1024, 2, 64, torch.bfloat16),   # GQA group 2
+    (1024, 1, 32, torch.bfloat16),
+    (1024, 1, 256, torch.bfloat16),
+    (1000, 4, 128, torch.bfloat16),  # a max_len the boxes do not divide
+    (300, 4, 256, torch.float32),
+    (1024, 1, 64, torch.float32),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_plan_takes_the_cluster_design(max_len, group, d, dtype):
+    plan = attn.decode_plan(max_len, group, d, dtype)
+    _assert_cluster_plan(plan, max_len, group, d, dtype)
+
+
+def test_serving_plan_is_256_rows_a_block_in_34_kb():
+    """The serving shape: clusters of 4, 16 boxes of 16 rows a block, 256
+    rows of K (then of V in the same 32 KB) and the rest a few KB: six
+    blocks an SM, so the call's 384 blocks are resident at once."""
+    plan = attn.decode_plan(1024, 1, 64, torch.bfloat16)
+    assert (plan["cluster"], plan["slots"], plan["span"]) == (4, 16, 256)
+    assert 6 * (plan["smem"] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("max_len, group, d, dtype", [
+    (2048, 2, 256, torch.float32),   # 256 rows of d 256 in f32: 256 KB
+    (4096, 1, 128, torch.float32),
+    (8192, 32, 64, torch.bfloat16),  # a long cache at the largest group
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_plan_keeps_three_passes_beyond_the_shared_memory(max_len, group, d,
+                                                          dtype):
+    plan = attn.decode_plan(max_len, group, d, dtype)
+    assert plan["design"] == "fma" and plan["smem"] > attn.SMEM_LIMIT
+
+
+def test_plan_refuses_a_cluster_size_the_kernel_lacks():
+    with pytest.raises(ValueError, match="decode clusters"):
+        attn.decode_plan(1024, 1, 64, torch.bfloat16, cluster=3)
+    assert attn.decode_plan(1024, 1, 64, torch.bfloat16,
+                            cluster=8)["slots"] == 8
+
+
+def test_an_unknown_design_is_refused_before_any_build(monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"built {name} for a refused design")
+
+    monkeypatch.setattr(attn, "_decode_lib", None)
+    monkeypatch.setattr(attn._build, "load", no_build)
+    q, _, _, ck, cv = _inputs(H, torch.bfloat16)
+    with pytest.raises(ValueError, match="decode design"):
+        attn._launch_decode(q, ck, cv, torch.tensor([3]), design="two_pass")

@@ -1,9 +1,12 @@
 """The decode-attention kernel (``ops/csrc/decode_attn.cu``) against its
 plain version, on the card: every head dim and both dtypes it takes, MHA
-and GQA, the first, a middle and the last cache position; bit-identical
-reruns; positions past ``pos`` never read; a CUDA graph captured once and
-replayed while ``pos`` advances on the device, with its launches counted
-once per replay; and the GPT decode step launching it once a layer.
+and GQA, the first, a middle and the last cache position; the cluster
+design at its edges (pos 0, a box's last and the next's first position,
+the cache's last, a ``max_len`` that does not fill the cluster's boxes)
+and the three-pass design where the plan keeps it; bit-identical reruns;
+positions past ``pos`` never read; a CUDA graph captured once and replayed
+while ``pos`` advances on the device, with its launches counted once per
+replay; and the GPT decode step launching it once a layer.
 
 Needs a CUDA card and nvcc (the kernel has no CPU mode); skips without a
 card. It imports only torch and the port, so it also runs where JAX is not
@@ -102,7 +105,7 @@ def test_graph_replays_at_the_advancing_position(cuda_device):
             out = attn.decode_attention(q, k, v, pos)
             pos.add_(1)
     torch.cuda.current_stream().wait_stream(side)
-    assert tally == {(attn.decode_attention, "fma"): 1}
+    assert tally == {(attn.decode_attention, "cluster"): 1}
     pos.fill_(10)
     before = attn.decode_attention.launches
     for step in range(5):
@@ -114,6 +117,61 @@ def test_graph_replays_at_the_advancing_position(cuda_device):
         assert torch.equal(out, want)
     assert int(pos) == 15
     assert attn.decode_attention.launches == before + 5 + 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, kv_h, d", [
+    (torch.bfloat16, 4, 32), (torch.bfloat16, 2, 128), (torch.bfloat16, 2, 256),
+    (torch.float32, 4, 64), (torch.float32, 8, 128)])
+def test_cluster_design_at_its_edges(cuda_device, dtype, kv_h, d):
+    """``max_len`` 1000 (63 boxes of 16 dealt round 4 ranks: the last box
+    partial, the last rank one box short) at group 1, 2 and 4: pos 0 (one
+    rank, one row), 15 and 16 and 127 and 128 (a rank's box ends, the next
+    rank's begins), 999; the two designs and clusters of 2, 8 and 16 agree
+    within the tolerance on the same inputs, reruns are bit-identical, and
+    NaN/inf past ``pos`` changes nothing."""
+    q, k, v = _inputs(6, 3, 1000, 8, kv_h, d, cuda_device, dtype)
+    assert attn.decode_plan(1000, 8 // kv_h, d, dtype)["design"] == "cluster"
+    for pos in (0, 15, 16, 127, 128, 999):
+        p = torch.tensor([pos], device=cuda_device)
+        before = dict(attn.decode_attention.launches_by_design)
+        out = attn.decode_attention(q, k, v, p)
+        again = attn.decode_attention(q, k, v, p)
+        three_pass = attn._launch_decode(q, k, v, p, design="fma")
+        torch.cuda.synchronize()
+        assert attn.decode_attention.launches_by_design["cluster"] == (
+            before["cluster"] + 2)
+        _assert_matches_plain(q, k, v, p, out)
+        _assert_matches_plain(q, k, v, p, three_pass)
+        assert torch.equal(out, again)
+        for cluster in (2, 8, 16):
+            _assert_matches_plain(q, k, v, p, attn._launch_decode(
+                q, k, v, p, cluster=cluster))
+        kg, vg = k.clone(), v.clone()
+        kg[:, pos + 1:] = float("nan")
+        vg[:, pos + 1:] = float("inf")
+        assert torch.equal(attn.decode_attention(q, kg, vg, p), out)
+
+
+@pytest.mark.cuda
+def test_a_shape_beyond_the_cluster_tiles_keeps_three_passes(cuda_device):
+    """d 256 in f32 over 2048 positions: a rank's 256 rows of K pass a
+    block's shared memory, so the plan keeps the three-pass design."""
+    q, k, v = _inputs(7, 2, 2048, 4, 2, 256, cuda_device, torch.float32)
+    assert attn.decode_plan(2048, 2, 256, torch.float32)["design"] == "fma"
+    p = torch.tensor([1500], device=cuda_device)
+    before = dict(attn.decode_attention.launches_by_design)
+    out = attn.decode_attention(q, k, v, p)
+    torch.cuda.synchronize()
+    assert attn.decode_attention.launches_by_design == {
+        **before, "fma": before["fma"] + 1}
+    _assert_matches_plain(q, k, v, p, out)
+
+
+@pytest.mark.cuda
+def test_cluster_occupancy_is_reported(cuda_device):
+    q, k, _ = _inputs(8, 8, 1024, 12, 12, 64, cuda_device, torch.bfloat16)
+    assert attn.decode_occupancy(q, k) >= 1
 
 
 @pytest.mark.cuda
@@ -129,4 +187,6 @@ def test_gpt_decode_launches_the_kernel_once_a_layer(cuda_device):
         logits = model.decode(prompt[:, -1:], cache)
         torch.cuda.synchronize()
     assert attn.decode_attention.launches == before + cfg.num_layers
+    assert attn.decode_plan(cfg.max_len, 1, cfg.hidden_size // cfg.num_heads,
+                            cfg.dtype)["design"] == "cluster"
     assert logits.shape == (2, cfg.vocab_size) and bool(torch.isfinite(logits).all())

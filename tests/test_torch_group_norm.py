@@ -295,7 +295,96 @@ def test_refused_inputs_raise_before_any_build(monkeypatch, change, match):
 
 def test_kernel_bookkeeping():
     """The wrappers count their launches as the other kernels do, by
-    design."""
+    design: the forward's one, the backward's cluster and two-pass ones."""
+    assert gn.group_norm_forward.launches_by_design.keys() == {"two_pass"}
+    assert gn.group_norm_backward.launches_by_design.keys() == {"cluster",
+                                                                "two_pass"}
     for fn in (gn.group_norm_forward, gn.group_norm_backward):
-        assert fn.launches_by_design.keys() == {gn.DESIGN}
         assert isinstance(fn.launches, int)
+
+
+# ResNet-50's GroupNorms at b 128 x 224^2, (channels, map side), as
+# chip_smoke.py's RESNET50_NORMS lists them
+RESNET50_NORMS = [(64, 112), (64, 56), (128, 56), (256, 56), (128, 28),
+                  (256, 28), (512, 28), (256, 14), (512, 14), (1024, 14),
+                  (512, 7), (2048, 7)]
+
+
+def _assert_fits(plan, c, hw, groups, dtype, dy_dtype=None):
+    """A cluster plan holds whole groups and whole 16-byte vectors, covers
+    the map, and fits a block's shared memory."""
+    assert plan["design"] == "cluster"
+    slab, cluster = plan["slab"], plan["cluster"]
+    assert c % slab == 0 and slab >= c // groups and slab <= 256
+    assert slab & (slab - 1) == 0 and slab * dtype.itemsize % 16 == 0
+    assert plan["pix"] * cluster >= hw > plan["pix"] * (cluster - 1) - cluster
+    assert plan["box_pix"] <= 256
+    assert plan["nbox"] * plan["box_pix"] >= plan["pix"]
+    dy_size = (dy_dtype or dtype).itemsize
+    tiles = plan["nbox"] * plan["box_pix"] * slab * (dtype.itemsize + dy_size)
+    assert tiles < plan["smem"] <= gn.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("c, side", RESNET50_NORMS,
+                         ids=lambda v: str(v))
+def test_backward_plan_takes_the_cluster_design(c, side, dtype):
+    """Each shape's plan: two blocks an SM, the smallest cluster that gets
+    there with pixel rows of 64 bytes or more, and the widest slab at that
+    cluster (twice it would not fit half an SM)."""
+    hw = side * side
+    plan = gn.backward_plan(128, c, hw, GROUPS, dtype, dtype)
+    _assert_fits(plan, c, hw, GROUPS, dtype)
+    assert plan["smem"] <= gn._HALF_SM
+    assert plan["slab"] * dtype.itemsize >= 64
+    wider = gn._fit(c, hw, GROUPS, dtype, dtype, plan["cluster"],
+                    2 * plan["slab"], gn._HALF_SM)
+    assert wider is None or wider["slab"] == plan["slab"]
+    for smaller in gn.BACKWARD_CLUSTERS[:gn.BACKWARD_CLUSTERS.index(
+            plan["cluster"])]:
+        other = gn._fit(c, hw, GROUPS, dtype, dtype, smaller, 256,
+                        gn._HALF_SM)
+        assert other is None or other["slab"] * dtype.itemsize < 64
+
+
+def test_backward_plan_at_resnet50_in_bf16():
+    """(cluster, slab) of each bf16 shape: 16 blocks of 32 channels at
+    112^2, 4 of 32 at 56^2, one block of 32 at 28^2, of 128 at 14^2 and of
+    256 at 7^2; at most 1.53 MiB (1,605,632 bytes) of x and dy a
+    cluster."""
+    plans = {(c, side): gn.backward_plan(128, c, side * side, GROUPS,
+                                         torch.bfloat16, torch.bfloat16)
+             for c, side in RESNET50_NORMS}
+    want = {112: (16, 32), 56: (4, 32), 28: (1, 32), 14: (1, 128),
+            7: (1, 256)}
+    for (c, side), plan in plans.items():
+        assert (plan["cluster"], plan["slab"]) == want[side], (c, side)
+    assert max(side * side * plan["slab"] * 4
+               for (c, side), plan in plans.items()) <= 1_605_632
+
+
+def test_backward_plan_with_mixed_dtypes_and_a_given_cluster():
+    plan = gn.backward_plan(128, 64, 112 * 112, GROUPS, torch.float32,
+                            torch.bfloat16)
+    _assert_fits(plan, 64, 112 * 112, GROUPS, torch.float32, torch.bfloat16)
+    eight = gn.backward_plan(128, 64, 112 * 112, GROUPS, torch.bfloat16,
+                             torch.bfloat16, cluster=8)
+    _assert_fits(eight, 64, 112 * 112, GROUPS, torch.bfloat16)
+    assert (eight["cluster"], eight["slab"]) == (8, 32)
+    assert eight["smem"] > gn._HALF_SM  # one block an SM
+    half = gn.backward_plan(128, 64, 112 * 112, GROUPS, torch.bfloat16,
+                            torch.bfloat16, cluster=16, max_slab=32)
+    assert (half["cluster"], half["slab"]) == (16, 32)
+    assert half["smem"] <= gn._HALF_SM
+
+
+@pytest.mark.parametrize("c, hw, groups, dtype", [
+    (64, 512 * 512, 32, torch.bfloat16),   # 8 channels of 262,144 pixels
+    (4, 56 * 56, 2, torch.float32),        # f32 x with bf16 dy: 8 bytes
+])
+def test_backward_plan_keeps_two_pass_beyond_the_cluster(c, hw, groups,
+                                                         dtype):
+    plan = gn.backward_plan(2, c, hw, groups, dtype, torch.bfloat16)
+    assert plan == {"design": "two_pass"}
+

@@ -1,10 +1,13 @@
 """The GroupNorm kernels (``ops/csrc/group_norm.cu``) against their plain
 versions, on the card: three ResNet-50 shapes and a ragged one, bf16 and
 f32, forward (y, mean, rstd) and backward (dx, dgamma, dbeta) within
-``group_norm_tolerance``; bit-identical reruns; a CUDA graph capture of the
-forward and backward replayed equal to eager, with the launches counted once
-per replay; the model's ``GroupNorm`` launching both kernels; and inputs
-that are not channels-last-contiguous raising.
+``group_norm_tolerance``; the backward's cluster design at its edges (7^2
+and 14^2 maps whose pixels do not divide among the cluster's blocks, a
+slab narrower than C, f32, a rank with no pixel) beside the two-pass
+design on the same inputs; bit-identical reruns; a CUDA graph capture of
+the forward and backward replayed equal to eager, with the launches counted
+once per replay; the model's ``GroupNorm`` launching both kernels; and
+inputs that are not channels-last-contiguous raising.
 
 Needs a CUDA card and nvcc (the kernels have no CPU mode); skips without a
 card. It imports only torch and the port, so it also runs where JAX is not
@@ -91,6 +94,57 @@ def test_kernels_match_the_plain_versions(cuda_device, shape, dtype):
                    {"dx": rdx, "dgamma": rdgamma, "dbeta": rdbeta}, bounds)
 
 
+# (b, C, H, W) for the cluster backward's edges: 7^2 and 14^2 maps, whose
+# 49 and 196 pixels do not divide among clusters of 8 (7 and 25 a block,
+# the last rank short or empty), slabs narrower than C, and the widest map
+EDGE_SHAPES = [(3, 2048, 7, 7), (2, 512, 14, 14), (2, 64, 112, 112),
+               (2, 256, 56, 56), (2, 256, 28, 28)]
+
+
+def _edge_plans(shape, dtype):
+    """backward_plan's plan, then clusters of 8 and of 16 at the widest
+    slab that fits them."""
+    b, c, h, w = shape
+    yield gn.backward_plan(b, c, h * w, GROUPS, dtype, dtype)
+    for cluster in (8, 16):
+        yield gn.backward_plan(b, c, h * w, GROUPS, dtype, dtype,
+                               cluster=cluster)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cluster_backward_at_its_edges(cuda_device, shape, dtype):
+    x, dy, gamma, beta = _inputs(shape, dtype, cuda_device, 4)
+    _, mean, rstd = gn.group_norm_forward(x, gamma, beta, GROUPS, EPS, dtype)
+    ry, rmean, rrstd = gn.group_norm_reference(x, gamma, beta, GROUPS, EPS,
+                                               dtype)
+    ref = gn.group_norm_backward_reference(dy, x, mean, rstd, gamma, GROUPS)
+    bounds = gn.group_norm_tolerance(x, gamma, beta, GROUPS, rmean, rrstd, ry,
+                                     dy, ref[0])
+    keys = ("dx", "dgamma", "dbeta")
+    before = dict(gn.group_norm_backward.launches_by_design)
+    got = gn.group_norm_backward(dy, x, mean, rstd, gamma, GROUPS)
+    assert gn.group_norm_backward.launches_by_design["cluster"] == (
+        before["cluster"] + 1)
+    for plan in [*_edge_plans(shape, dtype), {"design": "two_pass"}]:
+        assert plan["design"] in ("cluster", "two_pass")
+        if plan["design"] == "cluster":
+            assert gn.backward_occupancy(x, GROUPS, plan) >= 1
+        outs = gn._launch_backward(dy, x, mean, rstd, gamma, GROUPS, plan)
+        again = gn._launch_backward(dy, x, mean, rstd, gamma, GROUPS, plan)
+        torch.cuda.synchronize()
+        _assert_within(dict(zip(keys, outs)), dict(zip(keys, ref)), bounds)
+        for a, b_ in zip(outs, again):
+            assert torch.equal(a, b_), plan
+    for a, b_ in zip(got, gn._launch_backward(
+            dy, x, mean, rstd, gamma, GROUPS,
+            gn.backward_plan(*shape[:2], shape[2] * shape[3], GROUPS, dtype,
+                             dtype))):
+        assert torch.equal(a, b_)
+
+
 @pytest.mark.cuda
 def test_reruns_are_bit_identical(cuda_device):
     x, dy, gamma, beta = _inputs(SHAPES[0], torch.bfloat16, cuda_device, 1)
@@ -134,14 +188,16 @@ def test_graph_capture_equals_eager_and_counts_replays(cuda_device):
             y.backward(dy)
     torch.cuda.current_stream().wait_stream(side)
     for fn in (gn.group_norm_forward, gn.group_norm_backward):
-        fn.launches, fn.launches_by_design = 0, {gn.DESIGN: 0}
+        fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
     graph.replay()
     graph.replay()
     torch.cuda.synchronize()
     fa.count_replays(tally, 2)
     assert gn.group_norm_forward.launches == 2
     assert gn.group_norm_backward.launches == 2
-    assert gn.group_norm_backward.launches_by_design == {gn.DESIGN: 2}
+    assert gn.group_norm_backward.launches_by_design == {"cluster": 2,
+                                                         "two_pass": 0}
     for got, want in zip((y, xin.grad, norm.weight.grad, norm.bias.grad),
                          eager):
         assert torch.equal(got, want)
