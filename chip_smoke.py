@@ -69,8 +69,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    b 64, image 224) and the MLP (``mnist``) at their defaults, each with
    its parameter count and no flash launch; ResNet-50's GroupNorm kernels
    launched 53 times a step each, forward and backward (530 over its 10
-   steps, a replay counted once; ViT's 0), counts set to 0 just before
-   the job and read just after; for ResNet-50 and ViT the graph against
+   steps, a replay counted once; ViT's 0), every forward launch on
+   ``forward_plan``'s design and every backward on the cluster design,
+   counts set to 0 just before the job and read just after; for ResNet-50
+   and ViT the graph against
    the eager step as phase 6, with model FLOPs per step from
    ``FlopCounterMode``.
 9. The one-card job contract at GPT-2 small width (b 8, s 1024, bf16 over
@@ -202,19 +204,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
     ``group_norm_backward_reference`` at each of ResNet-50's 12 norm
     shapes at b 128 (``RESNET50_NORMS``, bf16): y, mean and rstd, then
     dx, dgamma and dbeta, within ``group_norm_tolerance``, two runs
-    bit-identical, and the backward's two-pass design on the same inputs;
-    each shape's backward plan and cluster occupancy; two f32 cases; a
-    mean-100, std-1 case in f32 within the variance-gap bound of
-    ``tests/test_torch_resnet.py``; an NCHW CUDA tensor raising; one
-    GroupNorm forward and backward copying or casting no activation-sized
-    tensor. Each shape timed forward and backward (the backward's cluster
-    and two-pass designs; device time, the card held busy) beside its
-    byte bound, the plain version, ``F.group_norm`` and
+    bit-identical, and both kernels' two-pass designs on the same inputs;
+    each shape's forward and backward plans and cluster occupancies; two
+    f32 cases; mean-100, std-1 cases in f32, both forward designs, within
+    the variance-gap bound of ``tests/test_torch_resnet.py``; an NCHW CUDA
+    tensor raising; one GroupNorm forward and backward copying or casting
+    no activation-sized tensor. Each shape timed forward and backward (each
+    direction's cluster and two-pass designs; device time, the card held
+    busy) beside its byte bound, the plain version, ``F.group_norm`` and
     ``native_group_norm_backward`` (the yardsticks the port never calls on
-    the card), and the sums over the 53 norms; then phase 8's ResNet-50 step (graph and eager ms, images/s,
-    MFU) beside the 69.747 and 72.098 ms before the kernels and 27.851 and
-    46.056 on the two-pass backward, with its GroupNorm launches (phase 8
-    fails unless every backward launch is on the cluster design).
+    the card), and the sums over the 53 norms; then phase 8's ResNet-50
+    step (graph and eager ms, images/s, MFU) beside the 69.747 and 72.098
+    ms before the kernels, 27.851 and 46.056 on the two-pass backward, and
+    26.984 and 29.969 on the two-pass forward, with its GroupNorm launches
+    (phase 8 fails unless every launch is on its plan's design).
 21. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
@@ -559,7 +562,7 @@ def zero_counts(fa) -> None:
 
 # Launches of the designs that no main path should run now, summed over
 # the main paths' runs for the kernels line (the checks fail on any)
-OLD_DESIGN_LAUNCHES = {"decode": 0, "group_norm_bwd": 0}
+OLD_DESIGN_LAUNCHES = {"decode": 0, "group_norm": 0, "group_norm_bwd": 0}
 
 
 def check_decode_design(label: str, launches: int) -> None:
@@ -1220,12 +1223,18 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
         fail(f"the GroupNorm kernels launched {norm_counts} times on the "
              f"{job} path, not {expected}")
     if norms_per_step:
-        by_design = dict(norm_wrappers()[1].launches_by_design)
-        OLD_DESIGN_LAUNCHES["group_norm_bwd"] += by_design.get("two_pass", 0)
-        print(f"{job}: GroupNorm backward launches by design {by_design}",
-              flush=True)
-        if by_design.get("cluster") != norm_counts[1]:
-            fail(f"{job}: GroupNorm backward launches by design {by_design}, "
+        forward, backward = (dict(fn.launches_by_design)
+                             for fn in norm_wrappers())
+        OLD_DESIGN_LAUNCHES["group_norm"] += forward.get("two_pass", 0)
+        OLD_DESIGN_LAUNCHES["group_norm_bwd"] += backward.get("two_pass", 0)
+        planned = resnet50_forward_designs(steps)
+        print(f"{job}: GroupNorm forward launches by design {forward} "
+              f"(forward_plan's {planned}), backward {backward}", flush=True)
+        if forward != planned:
+            fail(f"{job}: GroupNorm forward launches by design {forward}, "
+                 f"not forward_plan's {planned}")
+        if backward.get("cluster") != norm_counts[1]:
+            fail(f"{job}: GroupNorm backward launches by design {backward}, "
                  f"not all {norm_counts[1]} on the cluster design")
     b, size = int(params["batch_size"]), int(params["image_size"])
 
@@ -2839,6 +2848,23 @@ F32_FLOPS = 67e12
 # H100 80GB HBM3 at 700 W: PR 14 run 6)
 NORM_BEFORE_MS = {"graph": 69.747, "eager": 72.098}
 NORM_TWO_PASS_MS = {"graph": 27.851, "eager": 46.056}
+# the same on the two-pass forward before its cluster redesign (PERF.md
+# section 5, H100 80GB HBM3 at 700 W)
+NORM_TWO_PASS_FWD_MS = {"graph": 26.984, "eager": 29.969}
+
+
+def resnet50_forward_designs(steps: int) -> dict:
+    """The GroupNorm forward's launches by design over ``steps`` ResNet-50
+    steps, by ``forward_plan`` at each of its 53 norms (bf16)."""
+    import torch
+
+    gn = importlib.import_module("cron_operator_tpu_torch.ops.group_norm")
+    designs = dict.fromkeys(gn.FORWARD_DESIGNS, 0)
+    for c, side, count in RESNET50_NORMS:
+        plan = gn.forward_plan(NORM_BATCH, c, side * side, NORM_GROUPS,
+                               torch.bfloat16)
+        designs[plan["design"]] += count * steps
+    return designs
 
 
 
@@ -2861,10 +2887,10 @@ def check_norm(torch, gn, label: str, x, dy, gamma, beta, out_dtype):
     """Both GroupNorm kernels against their plain versions on one input:
     y, mean and rstd, then dx, dgamma and dbeta (the plain backward from
     the kernel's statistics, so both take the same inputs), each within
-    ``group_norm_tolerance``; a second run of each bit-identical; then the
-    backward's two-pass design on the same inputs within the same bounds.
-    Returns the largest |y - plain|, |dx - plain| and the two-pass
-    |dx - plain|."""
+    ``group_norm_tolerance``; a second run of each bit-identical; then
+    each kernel's two-pass design on the same inputs within the same
+    bounds. Returns the largest |y - plain|, |dx - plain|, and the two-pass
+    designs' |y - plain| and |dx - plain|."""
     g, eps = NORM_GROUPS, NORM_EPS
     y, mean, rstd = gn.group_norm_forward(x, gamma, beta, g, eps, out_dtype)
     dx, dgamma, dbeta = gn.group_norm_backward(dy, x, mean, rstd, gamma, g)
@@ -2894,25 +2920,31 @@ def check_norm(torch, gn, label: str, x, dy, gamma, beta, out_dtype):
                  f"(max err/bound {ratios[key]:.3f})")
     if not same:
         fail(f"GroupNorm {label}: two runs differ")
-    # the backward's other design on the same inputs and bounds
-    other = gn._launch_backward(dy, x, mean, rstd, gamma, g,
-                                {"design": "two_pass"})
-    for key, got in zip(("dx", "dgamma", "dbeta"), other):
-        err = (got.float() - pairs[key][1].float()).abs()
-        ratios[f"two_pass {key}"] = (err / bounds[key]).max().item()
-        if not (bool(torch.isfinite(got.float()).all())
-                and bool((err <= bounds[key]).all())):
-            fail(f"GroupNorm {label}: the two-pass backward's {key} outside "
-                 "group_norm_tolerance")
-        if key == "dx":
-            errs["two_pass dx"] = err.max().item()
+    # each kernel's other design on the same inputs and bounds
+    two_pass = {"design": "two_pass"}
+    others = {
+        "forward": (("y", "mean", "rstd"), gn._launch_forward(
+            x, gamma, beta, g, eps, out_dtype, two_pass)),
+        "backward": (("dx", "dgamma", "dbeta"), gn._launch_backward(
+            dy, x, mean, rstd, gamma, g, two_pass))}
+    for direction, (keys, outs) in others.items():
+        for key, got in zip(keys, outs):
+            err = (got.float() - pairs[key][1].float()).abs()
+            ratios[f"two_pass {key}"] = (err / bounds[key]).max().item()
+            if not (bool(torch.isfinite(got.float()).all())
+                    and bool((err <= bounds[key]).all())):
+                fail(f"GroupNorm {label}: the two-pass {direction}'s {key} "
+                     "outside group_norm_tolerance")
+            if key in ("y", "dx"):
+                errs[f"two_pass {key}"] = err.max().item()
     torch.cuda.synchronize()
     print(f"  group_norm {label}: max err/bound "
           + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items())
-          + f"; max|d y| {errs['y']:.3e}, max|d dx| {errs['dx']:.3e} "
-          f"(two-pass {errs['two_pass dx']:.3e}); reruns identical",
-          flush=True)
-    return errs["y"], errs["dx"], errs["two_pass dx"]
+          + f"; max|d y| {errs['y']:.3e} (two-pass "
+          f"{errs['two_pass y']:.3e}), max|d dx| {errs['dx']:.3e} (two-pass "
+          f"{errs['two_pass dx']:.3e}); reruns identical", flush=True)
+    return (errs["y"], errs["dx"], errs["two_pass y"],
+            errs["two_pass dx"])
 
 
 def variance_gap_bound(torch, x, gamma, beta):
@@ -2940,13 +2972,14 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
     (``check_norm``), an f32 case and a mean-100 case held to the
     variance-gap bound of ``tests/test_torch_resnet.py``; a CUDA input that
     is not channels-last raises; one model GroupNorm's forward and backward
-    copies and casts no activation-sized tensor. Each shape timed forward
-    and backward (device ms with the card held busy) beside its bound, the
-    plain version and the library call (``F.group_norm``, and
+    copies and casts no activation-sized tensor. Each shape's plans and
+    cluster occupancies; each shape timed forward and backward, both
+    designs of each (device ms with the card held busy) beside its bound,
+    the plain version and the library call (``F.group_norm``, and
     ``native_group_norm_backward``), and the sums over the 53 norms; then
-    phase 8's ResNet-50 step beside PERF.md section 5's. Returns the two
-    kernels' rows for the kernels line, each time summed over the 53
-    norms."""
+    phase 8's ResNet-50 step beside PERF.md section 5's. Returns the
+    kernels' rows for the kernels line (each direction's main design and
+    its two-pass design), each time summed over the 53 norms."""
     import torch.nn.functional as F
 
     from cron_operator_tpu_torch.models.layers import GroupNorm
@@ -2968,24 +3001,30 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
                                  (4, 256, 14)),
                                 ("f32 b4 C64 112x112", torch.float32,
                                  (4, 64, 112))):
-        plan = gn.backward_plan(shape[0], shape[1], shape[2] ** 2, g, dtype,
-                                dtype)
-        print(f"  group_norm {label}: backward plan {plan}", flush=True)
-        if plan["design"] != "cluster":
-            fail(f"GroupNorm {label}: the backward plan keeps "
-                 f"{plan['design']}")
+        b, c, hw = shape[0], shape[1], shape[2] ** 2
+        plans = {"forward": gn.forward_plan(b, c, hw, g, dtype),
+                 "backward": gn.backward_plan(b, c, hw, g, dtype, dtype)}
+        print(f"  group_norm {label}: plans {plans}", flush=True)
+        for direction, plan in plans.items():
+            if plan["design"] != "cluster":
+                fail(f"GroupNorm {label}: the {direction} plan keeps "
+                     f"{plan['design']}")
         check_norm(torch, gn, label, *inputs(*shape, dtype), dtype)
     for b, c, side in ((2, 64, 6), (8, 512, 14)):
         x, _, gamma, beta = inputs(b, c, side, torch.float32, mean=100.0)
-        y, _, _ = gn.group_norm_forward(x, gamma, beta, g, eps, torch.float32)
         exact, bound = variance_gap_bound(torch, x, gamma, beta)
-        err = (y.double() - exact).abs().max().item()
-        print(f"  group_norm mean 100, std 1, f32 b{b} C{c} {side}x{side}: "
-              f"max|y - exact f64| {err:.3e}, variance-gap bound "
-              f"{bound:.3e}", flush=True)
-        if not err <= bound:
-            fail(f"GroupNorm mean-100 case b{b} C{c}: {err} beyond the "
-                 f"variance-gap bound {bound}")
+        for plan in (gn.forward_plan(b, c, side * side, g, torch.float32),
+                     {"design": "two_pass"}):
+            y, _, _ = gn._launch_forward(x, gamma, beta, g, eps,
+                                         torch.float32, plan)
+            err = (y.double() - exact).abs().max().item()
+            print(f"  group_norm mean 100, std 1, f32 b{b} C{c} "
+                  f"{side}x{side}, {plan['design']} forward: max|y - exact "
+                  f"f64| {err:.3e}, variance-gap bound {bound:.3e}",
+                  flush=True)
+            if not err <= bound:
+                fail(f"GroupNorm mean-100 case b{b} C{c} ({plan['design']}): "
+                     f"{err} beyond the variance-gap bound {bound}")
     x, dy, gamma, beta = inputs(2, 64, 8, bf16)
     for name, call in (
             ("forward", lambda: gn.group_norm_forward(
@@ -3002,29 +3041,33 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
             fail(f"the GroupNorm {name} kernel took a tensor that is not "
                  "channels-last")
 
-    totals = {d: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"),
-                               0.0) for d in ("forward", "backward")}
-    totals["backward"]["two_pass_ms"] = 0.0
-    worst = {"forward": 0.0, "backward": 0.0, "two_pass": 0.0}
+    totals = {d: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                                "two_pass_ms"), 0.0)
+              for d in ("forward", "backward")}
+    worst = dict.fromkeys(("forward", "backward", "forward_two_pass",
+                           "backward_two_pass"), 0.0)
     lib_note = "channels-last inputs"
     bound_by = set()
     for c, side, count in RESNET50_NORMS:
         b, hw = NORM_BATCH, side * side
         x, dy, gamma, beta = inputs(b, c, side, bf16)
-        plan = gn.backward_plan(b, c, hw, g, bf16, bf16)
-        if plan["design"] != "cluster":
+        plans = {"forward": gn.forward_plan(b, c, hw, g, bf16),
+                 "backward": gn.backward_plan(b, c, hw, g, bf16, bf16)}
+        if plans["backward"]["design"] != "cluster":
             fail(f"GroupNorm b{b} C{c} {side}x{side}: the backward plan keeps "
-                 f"{plan['design']}")
-        print(f"[{card}] group_norm backward plan b{b} C{c} {side}x{side}: "
-              f"{plan}; {b * c // plan['slab']} clusters, "
-              f"{gn.backward_occupancy(x, g)} resident at once "
-              "(cudaOccupancyMaxActiveClusters)", flush=True)
-        err_y, err_dx, err_two = check_norm(
-            torch, gn, f"bf16 b{b} C{c} {side}x{side}", x, dy, gamma, beta,
-            bf16)
-        worst["forward"] = max(worst["forward"], err_y)
-        worst["backward"] = max(worst["backward"], err_dx)
-        worst["two_pass"] = max(worst["two_pass"], err_two)
+                 "two_pass")
+        for direction, plan in plans.items():
+            occupancy = (gn.forward_occupancy if direction == "forward"
+                         else gn.backward_occupancy)(x, g)
+            clusters = (f"{b * c // plan['slab']} clusters, {occupancy} "
+                        "resident at once (cudaOccupancyMaxActiveClusters)"
+                        if plan["design"] == "cluster" else "two passes")
+            print(f"[{card}] group_norm {direction} plan b{b} C{c} "
+                  f"{side}x{side}: {plan}; {clusters}", flush=True)
+        errs = check_norm(torch, gn, f"bf16 b{b} C{c} {side}x{side}", x, dy,
+                          gamma, beta, bf16)
+        for key, err in zip(worst, errs):
+            worst[key] = max(worst[key], err)
         _, mean, rstd = gn.group_norm_forward(x, gamma, beta, g, eps, bf16)
         gamma_lp, beta_lp = gamma.to(bf16), beta.to(bf16)
         args = (x, gamma_lp, beta_lp, b, c, hw, g, eps)
@@ -3057,26 +3100,32 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
                     lib_dy, lib_x, lmean, lrstd, gamma_lp, b, c, hw, g,
                     [True] * 3)),
         }
+        two_pass = {"design": "two_pass"}
+        others = {
+            "forward": lambda: gn._launch_forward(x, gamma, beta, g, eps,
+                                                  bf16, two_pass),
+            "backward": lambda: gn._launch_backward(dy, x, mean, rstd, gamma,
+                                                    g, two_pass)}
         for direction, (kernel, plain, library) in fns.items():
-            ms, plain_ms, library_ms = (device_ms(torch, fn, n) for fn, n in (
-                (kernel, 20), (plain, 3), (library, 10)))
+            # the two designs in turns: main, two-pass, two-pass, main
+            ms, two_ms, two_again, ms_again = (
+                device_ms(torch, fn, 20) for fn in (
+                    kernel, others[direction], others[direction], kernel))
+            ms, two_ms = (ms + ms_again) / 2, (two_ms + two_again) / 2
+            plain_ms, library_ms = (device_ms(torch, fn, n) for fn, n in (
+                (plain, 3), (library, 10)))
             bound_ms, by = norm_bound(b, c, hw, 2, direction)
             bound_by.add(by)
             for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                           ("library_ms", library_ms), ("bound_ms", bound_ms)):
+                           ("library_ms", library_ms), ("bound_ms", bound_ms),
+                           ("two_pass_ms", two_ms)):
                 totals[direction][key] += count * v
-            extra = ""
-            if direction == "backward":
-                two_ms = device_ms(torch, lambda: gn._launch_backward(
-                    dy, x, mean, rstd, gamma, g, {"design": "two_pass"}), 20)
-                totals[direction]["two_pass_ms"] += count * two_ms
-                extra = (f" | two-pass {two_ms * 1e3:.2f} us "
-                         f"({bound_ms / two_ms:.1%})")
             print(f"[{card}] group_norm {direction} b{b} C{c} {side}x{side} "
-                  f"bf16 (x{count} a step): {ms * 1e3:.2f} us (device) | "
-                  f"bound {bound_ms * 1e3:.2f} us ({bound_ms / ms:.1%}) | "
-                  f"plain {plain_ms * 1e3:.2f} us | library "
-                  f"{library_ms * 1e3:.2f} us{extra}", flush=True)
+                  f"bf16 (x{count} a step): {plans[direction]['design']} "
+                  f"{ms * 1e3:.2f} us (device) | bound {bound_ms * 1e3:.2f} "
+                  f"us ({bound_ms / ms:.1%}) | two-pass {two_ms * 1e3:.2f} us "
+                  f"({bound_ms / two_ms:.1%}) | plain {plain_ms * 1e3:.2f} us "
+                  f"| library {library_ms * 1e3:.2f} us", flush=True)
         if (c, side) == RESNET50_NORMS[0][:2]:
             norm = GroupNorm(c, compute_dtype=bf16, device="cuda")
             xr = x.detach().requires_grad_()
@@ -3089,11 +3138,12 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
                 fail(f"a GroupNorm forward and backward copies or casts "
                      f"activation-sized tensors: {found}")
             del norm, xr
-        del x, dy, mean, rstd, lmean, lrstd, lib_x, lib_dy, fns
+        del x, dy, mean, rstd, lmean, lrstd, lib_x, lib_dy, fns, others
         release(torch)
     print(f"[{card}] group_norm over ResNet-50's 53 norms a step (library "
-          f"backward on {lib_note}; the backward's two-pass design beside, "
-          "5.446 ms in PR 14's run 6): " + json.dumps(totals), flush=True)
+          f"backward on {lib_note}; each direction's two-pass design beside, "
+          "3.706 and 5.446 ms before the cluster designs in PERF.md section "
+          "6): " + json.dumps(totals), flush=True)
 
     if resnet_step is not None:
         steps = int(RESNET50_PARAMS["steps"])
@@ -3105,17 +3155,21 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
             print(f"[{card}] resnet50 {mode} step with the GroupNorm kernels:"
                   f" {row['step_ms']:.3f} ms, {row['images_per_s']:.1f} "
                   f"images/s, MFU {row['mfu']:.4f}, beside "
-                  f"{NORM_BEFORE_MS[mode]} ms before them and "
-                  f"{NORM_TWO_PASS_MS[mode]} on the two-pass backward "
+                  f"{NORM_BEFORE_MS[mode]} ms before them, "
+                  f"{NORM_TWO_PASS_MS[mode]} on the two-pass backward and "
+                  f"{NORM_TWO_PASS_FWD_MS[mode]} on the two-pass forward "
                   "(PERF.md section 5)", flush=True)
-    rows = {d: {"max_abs_err": worst[d], "ms": totals[d]["ms"],
-                "plain_ms": totals[d]["plain_ms"],
-                "bound_ms": totals[d]["bound_ms"],
-                "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-                "library_ms": totals[d]["library_ms"]}
-            for d in ("forward", "backward")}
-    rows["two_pass"] = {**rows["backward"], "max_abs_err": worst["two_pass"],
-                        "ms": totals["backward"]["two_pass_ms"]}
+    rows = {}
+    for d in ("forward", "backward"):
+        rows[d] = {"max_abs_err": worst[d], "ms": totals[d]["ms"],
+                   "plain_ms": totals[d]["plain_ms"],
+                   "bound_ms": totals[d]["bound_ms"],
+                   "bound_by": ("bytes" if bound_by == {"bytes"}
+                                else "operations"),
+                   "library_ms": totals[d]["library_ms"]}
+        rows[f"{d}_two_pass"] = {**rows[d],
+                                 "max_abs_err": worst[f"{d}_two_pass"],
+                                 "ms": totals[d]["two_pass_ms"]}
     return rows
 
 
@@ -3337,15 +3391,18 @@ def main() -> None:
           for i, key in enumerate(("K1", "K2", "K3"))),
         # the GroupNorm pair on the resnet50 path of phase 8; each time is
         # one step's 53 norms at b 128 x 224^2, summed over their shapes;
-        # the backward's two-pass design, which no main path runs now,
+        # each direction's two-pass design, which no main path runs now,
         # beside
-        norm_entry("group_norm", "two_pass", norm_counts[0],
+        norm_entry("group_norm", "cluster", norm_counts[0],
                    norm_rows["forward"]),
+        norm_entry("group_norm[two_pass]", "two_pass",
+                   OLD_DESIGN_LAUNCHES["group_norm"],
+                   norm_rows["forward_two_pass"]),
         norm_entry("group_norm_bwd", "cluster", norm_counts[1],
                    norm_rows["backward"]),
         norm_entry("group_norm_bwd[two_pass]", "two_pass",
                    OLD_DESIGN_LAUNCHES["group_norm_bwd"],
-                   norm_rows["two_pass"]),
+                   norm_rows["backward_two_pass"]),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

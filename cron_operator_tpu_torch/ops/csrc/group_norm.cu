@@ -10,7 +10,8 @@
 // tensor as it lies and keeps only f32 statistics.
 //
 // Function (G groups of Cg = C / G consecutive channels, n = Cg * H * W):
-//   forward   mean_g, M2_g by Chan's combination of partial (n, mean, M2)
+//   forward   mean_g, M2_g = sum (x - mean_g)^2 (or Chan's combination of
+//             partial (n, mean, M2), in the two-pass design)
 //             rstd_g = 1 / sqrt(M2_g / n + eps)
 //             y = (x - mean_g) * (rstd_g * gamma_c) + beta_c   (flax's
 //             order), in f32, rounded once to y's type
@@ -25,11 +26,59 @@
 // Bound: bytes. The forward must read x and write y, the backward read x
 // and dy and write dx (the statistics and gamma are B * G and C floats).
 // ResNet-50's 53 norms at b 128 x 224^2 hold 1,422,589,952 elements a
-// step: 5.69 GB forward and 8.54 GB backward in bf16, 1.70 + 2.55 ms at
-// 3.35 TB/s; the largest norm (C 64 at 112^2, 102.8 M elements) 122.7 and
-// 184.0 us. The arithmetic is a few operations an element.
+// step: 5.69 GB forward and 8.54 GB backward in bf16, 1.699 + 2.549 ms at
+// 3.35 TB/s (2 and 3 units of traffic); the largest norm (C 64 at 112^2,
+// 102.8 M elements) 122.7 and 184.0 us. The arithmetic is a few operations
+// an element.
 //
-// Design, a simple two-pass one (each pass a grid of tiles):
+// Each direction has two designs; ops/group_norm.py forward_plan and
+// backward_plan pick one by shape: "cluster" wherever it fits.
+//
+// Design "cluster" (the main path both ways): one thread-block cluster of CL
+// blocks (1, 2, 4, 8 or 16) per (b, slab), the slab chosen so that the
+// (b, slab)'s held tensors (x forward; x and dy backward) fit the cluster's
+// shared memory and hold whole groups. The plan takes the smallest CL whose
+// blocks fit half an SM (two blocks an SM, one's loads beside the other's
+// stores) with pixel rows of 64 bytes or more. At ResNet-50's shapes in
+// bf16: forward 8 blocks of 32 channels at 112^2, 2 of 32 at 56^2, one block
+// of 64 at 28^2 and of 256 at 14^2 and 7^2; backward 16 of 32 at 112^2, 4 of
+// 32 at 56^2, one block of 32 at 28^2, of 128 at 14^2 and of 256 at 7^2
+// (hack/torch_cluster_sweep.py times the alternatives). Block `rank` takes
+// pixels [rank * pix, (rank + 1) * pix) of the map and TMA-loads them (3-D
+// maps [C, HW, B], boxes of [box_pix <= 256 pixels, slab channels], each box
+// on its own mbarrier, all issued at once). A per-channel sum is a thread's
+// pixels in one chain, the warp's rows by a shuffle tree and the warps in
+// order; after a cluster barrier every block reads the ranks' partials over
+// distributed shared memory in rank order (so every block holds the same
+// bits), and a group's channels are summed by a tree.
+// - Forward, fwd_cluster_kernel: the statistics by two exact passes over the
+//   tile in shared memory. The channel sums give mean_g after one exchange,
+//   then sum (x - mean_g)^2 gives M2_g after a second. Chosen over one
+//   exchange of Chan-merged (n, mean, M2) partials: a thread's partial M2
+//   needs its pixels twice either way, so the cost is one more cluster
+//   barrier, and the centred squares keep the variance free of cancellation
+//   at any mean. Rank 0 writes mean and rstd (finalize_kernel's formula); y
+//   is normalize_kernel's expression on the x still in shared memory, stored
+//   from registers in one place. x is read once and y written once: 2 units
+//   of traffic, the bound's. The three passes over the tile are the
+//   kernel's compute, which two blocks an SM overlap with each other's
+//   loads: each thread walks its pixels box by box (no division a pixel),
+//   and y is packed two bf16 values an instruction. Tried and dropped
+//   (PERF.md section 6): y over the x tile and a TMA store (slower), a
+//   persistent cluster with two units' tiles in flight at one block an SM
+//   (slower: eight warps cannot hide the passes' latency).
+// - Backward, bwd_cluster_kernel: per-channel (sum dy xhat, sum dy), one
+//   exchange, the gamma-weighted s1, s2 of each group (rank 0 writes
+//   sums[b, c]), then dx from the x and dy in shared memory, in the two-pass
+//   formula; bwd_dgamma_kernel, a second launch, sums dgamma and dbeta over b
+//   in order as dx_kernel's last blocks do. 3 units of traffic, the bound's.
+// Sum depth: the held tiles fit 227 KB, so a thread's chain is at most
+// pix * slab * size / (16 * 256) <= 57 pixels (25 at ResNet-50's shapes);
+// then 3 shuffle levels, 8 warps, 16 ranks and 8 tree levels over a group's
+// channels: under the 2^8 sequential additions the tolerance's SUM_ORDER
+// bounds.
+//
+// Design "two_pass", kept for shapes past a cluster's shared memory:
 // - Layout. A group is 2-64 adjacent channels, 4-128 bytes of bf16 a pixel:
 //   a block per (b, g) would read short strided runs. A block reads whole
 //   slabs of a pixel row instead: SLAB = min(C, 256) channels (512 bytes of
@@ -48,41 +97,13 @@
 //   mean = sum n_i mean_i / N, M2 = sum M2_i + n_i (mean_i - mean)^2, each
 //   sum a fixed tree over the group's threads); finalize_kernel (a warp per
 //   (b, g) merges the tiles' partials pairwise in order); normalize_kernel
-//   (the second read of x).
-// - Backward, design "two_pass": bwd_partials_kernel (per (b, tile, c)
-//   sums of dy xhat and dy over the tile's pixels); bwd_sum_kernel (per
-//   (b, c) over the tiles in order, then s1 / n and s2 / n of each (b, g)
-//   by a tree over its Cg channels); dx_kernel (the second read of x and
-//   dy), whose last C / 32 blocks sum dgamma, dbeta over b in order. It
-//   moves 5 units of traffic where the bound needs 3 (x and dy twice).
-// - Backward, design "cluster" (the main path; ops/group_norm.py
-//   backward_plan picks it by shape wherever it fits): one thread-block
-//   cluster of CL blocks (1, 2, 4, 8 or 16) per (b, slab), the slab chosen
-//   so that the (b, slab)'s x and dy fit the cluster's shared memory and
-//   hold whole groups. The plan takes the smallest CL whose blocks fit half
-//   an SM (two blocks an SM, one's loads beside the other's stores) with
-//   pixel rows of 64 bytes or more: at ResNet-50's shapes in bf16, 16
-//   blocks of 32 channels at 112^2, 4 of 32 at 56^2, one block of 32 at
-//   28^2, of 128 at 14^2 and of 256 at 7^2 (hack/torch_cluster_sweep.py
-//   timed the alternatives; a cluster of 8 at one block an SM was slower).
-//   Block `rank` takes pixels [rank * pix, (rank + 1) * pix) of the map:
-//   1. TMA-loads them from x and dy (3-D maps [C, HW, B], boxes of
-//      [box_pix <= 256 pixels, slab channels], each box on its own
-//      mbarrier, all issued at once), and adds each landed box into
-//      per-channel (sum dy xhat, sum dy): a thread's pixels in one chain
-//      (at most 13 at ResNet-50's shapes), the warp's rows by a shuffle
-//      tree, the warps in order;
-//   2. after a cluster barrier, reads the ranks' partials over distributed
-//      shared memory in rank order (every block the same order, so every
-//      block holds the same bits), forms gamma-weighted s1, s2 of each
-//      group by the two-pass design's tree, and rank 0 writes sums[b, c];
-//   3. computes dx from the x and dy still in its shared memory, in the
-//      same formula, and stores it.
-//   bwd_dgamma_kernel, a second launch, sums dgamma and dbeta over b in
-//   order as dx_kernel's last blocks do. x and dy are read once: 3 units of
-//   traffic, the bound's. Each sum is a chain of at most 2^8 additions
-//   (thread, shuffle tree, warps, ranks, channels by a tree), which the
-//   tolerance's SUM_ORDER bounds.
+//   (the second read of x): 3 units of traffic where the bound needs 2.
+// - Backward: bwd_partials_kernel (per (b, tile, c) sums of dy xhat and dy
+//   over the tile's pixels); bwd_sum_kernel (per (b, c) over the tiles in
+//   order, then s1 / n and s2 / n of each (b, g) by a tree over its Cg
+//   channels); dx_kernel (the second read of x and dy), whose last C / 32
+//   blocks sum dgamma, dbeta over b in order: 5 units where the bound needs
+//   3.
 // C must be a power of two with G | C, C / G <= 256 and C at least one
 // vector (8 bf16, 4 f32); the wrapper checks the layout (NHWC-contiguous,
 // 16-byte aligned).
@@ -102,7 +123,7 @@ constexpr int PIX = 8;         // pixels each thread reads in a tile
 constexpr int MAX_SLAB = 256;  // channels of a slab
 constexpr int DG_CHANNELS = 32;
 constexpr int DG_LANES = THREADS / DG_CHANNELS;
-// the cluster backward
+// the cluster designs
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_BOX = 256;        // pixels of a TMA box
 constexpr int MAX_CLUSTER = 16;     // 8 portable, 16 with the opt-in
@@ -206,6 +227,21 @@ struct Packed {
       const uint32_t v = w[j >> 1];
       return __uint_as_float((j & 1) ? (v & 0xffff0000u) : (v << 16));
     }
+  }
+
+  // V values rounded once each (bf16 two at a time, low half first)
+  static __device__ __forceinline__ Packed of(const float (&f)[V]) {
+    Packed out;
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      if constexpr (sizeof(T) == 4) {
+        out.w[k] = __float_as_uint(f[k]);
+      } else {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+        out.w[k] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
+    return out;
   }
 
   __device__ __forceinline__ void set(int j, float f) {
@@ -640,34 +676,198 @@ int run_backward(const void* dy, const void* x, const float* mean,
   return cudaGetLastError();
 }
 
-// ------------------------------------------------- the cluster backward
+// ------------------------------------------------------ the cluster designs
 
-// A cluster backward's plan (ops/group_norm.py backward_plan makes it):
-// slab channels, `cluster` blocks a (b, slab), `pix` pixels a block,
-// boxes of `box_pix` pixels, `nbox` boxes a block.
-struct BwdPlan {
+// A cluster design's plan (ops/group_norm.py forward_plan and backward_plan
+// make it): slab channels, `cluster` blocks a (b, slab), `pix` pixels a
+// block, boxes of `box_pix` pixels, `nbox` boxes a block.
+struct ClusterPlan {
   int slab, cluster, pix, box_pix, nbox;
 };
 
-// Byte offsets of the cluster backward's shared memory: nbox boxes of x,
-// then of dy (each 128-byte aligned), the row groups' partials
-// [WARPS][slab] of (sum dy xhat, sum dy) as two float arrays, the block's
-// partials [slab] (float2, read by the other ranks), the group tree's two
-// [slab] arrays, and nbox mbarriers. ops/group_norm.py mirrors it.
-struct BwdLayout {
+// Byte offsets of a cluster kernel's shared memory for held tensors of sx
+// (x) and sy (dy; 0 for the forward, which holds x alone) bytes an element:
+// nbox boxes of x, then of dy (each 128-byte aligned); for each held tensor
+// a row groups' partials array [WARPS][slab] (the forward reuses its one
+// for the sums, then the centred squares); the block's partials, two [slab]
+// float arrays read by the other ranks; for each held tensor a group tree
+// [slab]; and nbox mbarriers. ops/group_norm.py _fit mirrors it.
+struct Layout {
   int box_x, box_dy, x, dy, red, blk, tree, bars, bytes;
-  __host__ __device__ BwdLayout(const BwdPlan& p, int sx, int sy) {
+  __host__ __device__ Layout(const ClusterPlan& p, int sx, int sy) {
+    const int held = sy ? 2 : 1;
     box_x = (p.box_pix * p.slab * sx + 127) / 128 * 128;
     box_dy = (p.box_pix * p.slab * sy + 127) / 128 * 128;
     x = 0;
     dy = p.nbox * box_x;
     red = dy + p.nbox * box_dy;
-    blk = red + 2 * WARPS * p.slab * 4;
+    blk = red + held * WARPS * p.slab * 4;
     tree = blk + p.slab * 8;
-    bars = tree + 2 * p.slab * 4;
+    bars = tree + held * p.slab * 4;
     bytes = bars + p.nbox * 8;
   }
 };
+
+// One exchange of the cluster forward. Thread (row, col) holds v[j] of
+// channel col * V + j of the slab: the sum over the (b, slab) of each
+// channel (the warp's rows by a shuffle tree where cols < 32, the row
+// groups in order through red: a warp each, or a row each where a row
+// spans whole warps; then the ranks over DSMEM in order, so every block
+// gets the same bits), then over each group's cg channels by a tree:
+// tree[first] ends as the group's sum for each group's first channel.
+// `part` is this exchange's [slab] of the block's partials, which the
+// other ranks read after the cluster barrier.
+template <int V>
+__device__ __forceinline__ void cluster_group_sums(float (&v)[V], float* red,
+                                                   float* part, float* tree,
+                                                   const ClusterPlan& p,
+                                                   int cols, int cg) {
+  const int tid = threadIdx.x, col = tid % cols;
+  if (cols < 32) {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      for (int off = cols; off < 32; off *= 2)
+        v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
+  }
+  const int row_group = cols < 32 ? tid / 32 : tid / cols;
+  const int parts = cols < 32 ? WARPS : THREADS / cols;
+  if (cols >= 32 || (tid % 32) < cols)
+#pragma unroll
+    for (int j = 0; j < V; ++j) red[row_group * p.slab + col * V + j] = v[j];
+  __syncthreads();
+  if (tid < p.slab) {
+    float s = 0.f;
+    for (int k = 0; k < parts; ++k) s += red[k * p.slab + tid];
+    part[tid] = s;
+  }
+  cluster_sync();  // every block's partials visible
+  if (tid < p.slab) {
+    float s = 0.f;
+    for (int k = 0; k < p.cluster; ++k) s += cluster_peer(part, k)[tid];
+    tree[tid] = s;
+  }
+  __syncthreads();
+  for (int h = cg / 2; h > 0; h >>= 1) {
+    if (tid < p.slab && (tid & (cg - 1)) < h) tree[tid] += tree[tid + h];
+    __syncthreads();
+  }
+}
+
+// grid (cluster, C / slab, b), clusters of `cluster` blocks along x.
+template <typename TX, typename TY>
+__global__ void __launch_bounds__(THREADS, 2)
+    fwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ beta, TY* __restrict__ y,
+                       float* __restrict__ mean, float* __restrict__ rstd,
+                       int hw, int channels, int groups, float eps,
+                       ClusterPlan p, int cg_log2) {
+  constexpr int V = 16 / sizeof(TX);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout lay(p, sizeof(TX), 0);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  float* blk = reinterpret_cast<float*>(smem + lay.blk);  // sums, then M2s
+  float* tree = reinterpret_cast<float*>(smem + lay.tree);
+  const uint32_t bars = smem_u32(smem + lay.bars);
+
+  const int rank = (int)cluster_rank();
+  const int slab = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int start = rank * p.pix;
+  const int npix = max(min(start + p.pix, hw) - start, 0);
+  const int mine = (npix + p.box_pix - 1) / p.box_pix;
+  const int cg = 1 << cg_log2;
+
+  if (tid == 0) {
+    for (int i = 0; i < p.nbox; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init_fence();
+    for (int i = 0; i < mine; ++i) {
+      const uint32_t bar = bars + 8 * i;
+      mbar_arrive_expect_tx(bar, p.box_pix * p.slab * sizeof(TX));
+      tma_load_3d(smem_u32(smem + lay.x + i * lay.box_x), &tm_x,
+                  slab * p.slab, start + i * p.box_pix, b, bar);
+    }
+  }
+  __syncthreads();  // the barriers initialised
+
+  const int cols = p.slab / V, rows = THREADS / cols;
+  const int col = tid % cols, row = tid / cols;
+  const int c0 = slab * p.slab + col * V;
+  // fn(pixel, its vector in shared memory) over the thread's pixels row,
+  // row + rows, ... box by box (rows is a power of two, so a box's first
+  // is a mask away: no division a pixel), in ascending order; with `wait`,
+  // after each box's barrier. Every pass reads the pixels, so the boxes,
+  // that the first one waited for.
+  auto each = [&](bool wait, auto&& fn) {
+    for (int i = 0; i < mine; ++i) {
+      const int lo = i * p.box_pix, len = min(p.box_pix, npix - lo);
+      int q = (row - lo) & (rows - 1);
+      if (wait && q < len) mbar_wait(bars + 8 * i, 0);
+      const TX* at =
+          reinterpret_cast<const TX*>(smem + lay.x + i * lay.box_x) + col * V;
+      for (; q < len; q += rows) fn(lo + q, at + q * p.slab);
+    }
+  };
+
+  // 1. the channel sums as the boxes land, then mean_g
+  float v[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = 0.f;
+  each(true, [&](int, const TX* at) {
+    Packed<TX, V> xv;
+    xv.load_shared(at);
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] += xv.get(j);
+  });
+  cluster_group_sums(v, red, blk, tree, p, cols, cg);
+  const float n = (float)cg * (float)hw;
+  float mu[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) mu[j] = tree[(col * V + j) & ~(cg - 1)] / n;
+  const bool writer = rank == 0 && tid < p.slab && (tid & (cg - 1)) == 0;
+  const float group_mean = writer ? tree[tid] / n : 0.f;
+
+  // 2. the centred squares, then M2_g (the second exchange writes tree only
+  // after its cluster barrier, which every read of it above precedes)
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = 0.f;
+  each(false, [&](int, const TX* at) {
+    Packed<TX, V> xv;
+    xv.load_shared(at);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float d = xv.get(j) - mu[j];
+      v[j] += d * d;
+    }
+  });
+  cluster_group_sums(v, red, blk + p.slab, tree, p, cols, cg);
+  cluster_arrive();  // done reading the other blocks
+
+  float mul[V], add[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float r = 1.f / sqrtf(tree[(col * V + j) & ~(cg - 1)] / n + eps);
+    mul[j] = r * gamma[c0 + j];
+    add[j] = beta[c0 + j];
+  }
+  if (writer) {
+    const int bg = b * groups + ((slab * p.slab + tid) >> cg_log2);
+    mean[bg] = group_mean;
+    rstd[bg] = 1.f / sqrtf(tree[tid] / n + eps);
+  }
+
+  // 3. y from the tile in shared memory: the one place y is written
+  TY* out = y + ((int64_t)b * hw + start) * channels + c0;
+  each(false, [&](int q, const TX* at) {
+    Packed<TX, V> xv;
+    xv.load_shared(at);
+    float o[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) o[j] = fmaf(xv.get(j) - mu[j], mul[j], add[j]);
+    Packed<TY, V>::of(o).store(out + (int64_t)q * channels);
+  });
+  cluster_wait();  // the other blocks are done reading this one
+}
 
 // grid (cluster, C / slab, b), clusters of `cluster` blocks along x.
 template <typename TX, typename TY>
@@ -678,10 +878,10 @@ __global__ void __launch_bounds__(THREADS, 2)
                        const float* __restrict__ rstd,
                        const float* __restrict__ gamma, TX* __restrict__ dx,
                        float2* __restrict__ sums, int hw, int channels,
-                       int groups, BwdPlan p, int cg_log2) {
+                       int groups, ClusterPlan p, int cg_log2) {
   constexpr int V = 16 / sizeof(TX);
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout lay(p, sizeof(TX), sizeof(TY));
+  const Layout lay(p, sizeof(TX), sizeof(TY));
   float* red_a = reinterpret_cast<float*>(smem + lay.red);
   float* red_b = red_a + WARPS * p.slab;
   float2* blk = reinterpret_cast<float2*>(smem + lay.blk);
@@ -837,64 +1037,110 @@ __global__ void __launch_bounds__(THREADS)
   dgamma_block(sums, dgamma, dbeta, batch, channels, blockIdx.x);
 }
 
-// Returns false for a plan the cluster kernel does not take.
-bool valid_plan(const BwdPlan& p, int channels, int hw, int groups, int sx,
-                int sy) {
+// Returns false for a plan the cluster kernels do not take (sy 0: the
+// forward, which holds x alone).
+bool valid_plan(const ClusterPlan& p, int channels, int hw, int groups,
+                int sx, int sy) {
   const int cg = channels / groups;
   return power_of_two(p.slab) && p.slab <= MAX_SLAB && channels % p.slab == 0 &&
          cg <= p.slab && (p.slab * sx) % 16 == 0 && (p.slab * sy) % 16 == 0 &&
          p.cluster >= 1 && p.cluster <= MAX_CLUSTER &&
          (int64_t)p.pix * p.cluster >= hw && p.pix > 0 && p.box_pix > 0 &&
          p.box_pix <= MAX_BOX && p.nbox * p.box_pix >= p.pix &&
-         BwdLayout(p, sx, sy).bytes <= SMEM_LIMIT;
+         Layout(p, sx, sy).bytes <= SMEM_LIMIT;
+}
+
+// A direction's cluster kernel for (TX, TY) (the forward's TY is y's type,
+// the backward's dy's): its launch configuration and occupancy, and its
+// attributes (the shared-memory limit and clusters of 16), set once a
+// device for each kernel.
+template <bool FWD, typename TX, typename TY>
+struct Cluster {
+  static const void* kernel() {
+    return FWD ? reinterpret_cast<const void*>(fwd_cluster_kernel<TX, TY>)
+               : reinterpret_cast<const void*>(bwd_cluster_kernel<TX, TY>);
+  }
+
+  static cudaError_t allow() {
+    static std::atomic<uint64_t> done{0};
+    return allow_cluster_once(done, kernel(), SMEM_LIMIT);
+  }
+
+  static cudaLaunchConfig_t config(const ClusterPlan& p, int batch,
+                                   int channels, cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(p.cluster, channels / p.slab, batch);
+    config.blockDim = dim3(THREADS);
+    config.dynamicSmemBytes =
+        Layout(p, sizeof(TX), FWD ? 0 : sizeof(TY)).bytes;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = p.cluster;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    return config;
+  }
+
+  static int occupancy(int batch, int channels, const ClusterPlan& p) {
+    if (allow() != cudaSuccess) return -1;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = config(p, batch, channels, &attr);
+    int clusters = -1;
+    if (cudaOccupancyMaxActiveClusters(&clusters, kernel(), &cfg) !=
+        cudaSuccess)
+      return -1;
+    return clusters;
+  }
+};
+
+// The 3-D tensor map [C, HW, B] of one channels-last tensor of T, boxes of
+// [box_pix, slab]; make_map_plain binds the device first.
+template <typename T>
+cudaError_t nhwc_map(CUtensorMap* map, const void* base, int batch, int hw,
+                     int channels, const ClusterPlan& p) {
+  const cuuint32_t box[3] = {(cuuint32_t)p.slab, (cuuint32_t)p.box_pix, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)channels, (cuuint64_t)hw,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)channels * sizeof(T),
+                                 (cuuint64_t)hw * channels * sizeof(T)};
+  return make_map_plain(map, base, 3, sizeof(T) == 2, dims, strides, box);
 }
 
 template <typename TX, typename TY>
-cudaLaunchConfig_t cluster_config(const BwdPlan& p, int batch, int channels,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(p.cluster, channels / p.slab, batch);
-  config.blockDim = dim3(THREADS);
-  config.dynamicSmemBytes = BwdLayout(p, sizeof(TX), sizeof(TY)).bytes;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = p.cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  return config;
-}
-
-// The shared-memory limit and clusters of 16, once a device.
-template <typename TX, typename TY>
-cudaError_t cluster_attributes() {
-  static std::atomic<uint64_t> done{0};
-  return allow_cluster_once(
-      done, reinterpret_cast<const void*>(bwd_cluster_kernel<TX, TY>),
-      SMEM_LIMIT);
+int run_forward_cluster(const void* x, const float* gamma, const float* beta,
+                        void* y, float* mean, float* rstd, int batch, int hw,
+                        int channels, int groups, float eps,
+                        const ClusterPlan& p, cudaStream_t st) {
+  using K = Cluster<true, TX, TY>;
+  CUtensorMap tm_x;
+  cudaError_t err = nhwc_map<TX>(&tm_x, x, batch, hw, channels, p);
+  if (err == cudaSuccess) err = K::allow();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config = K::config(p, batch, channels, &attr);
+  config.stream = st;
+  return cudaLaunchKernelEx(&config, fwd_cluster_kernel<TX, TY>, tm_x, gamma,
+                            beta, static_cast<TY*>(y), mean, rstd, hw,
+                            channels, groups, eps, p,
+                            log2_of(channels / groups));
 }
 
 template <typename TX, typename TY>
 int run_backward_cluster(const void* dy, const void* x, const float* mean,
                          const float* rstd, const float* gamma, void* dx,
                          float* dgamma, float* dbeta, float2* sums, int batch,
-                         int hw, int channels, int groups, const BwdPlan& p,
-                         cudaStream_t st) {
-  const cuuint32_t box[3] = {(cuuint32_t)p.slab, (cuuint32_t)p.box_pix, 1};
-  const cuuint64_t dims[3] = {(cuuint64_t)channels, (cuuint64_t)hw,
-                              (cuuint64_t)batch};
-  const cuuint64_t sx[2] = {(cuuint64_t)channels * sizeof(TX),
-                            (cuuint64_t)hw * channels * sizeof(TX)};
-  const cuuint64_t sy[2] = {(cuuint64_t)channels * sizeof(TY),
-                            (cuuint64_t)hw * channels * sizeof(TY)};
+                         int hw, int channels, int groups,
+                         const ClusterPlan& p, cudaStream_t st) {
+  using K = Cluster<false, TX, TY>;
   CUtensorMap tm_x, tm_dy;
-  cudaError_t err = make_map_plain(&tm_x, x, 3, sizeof(TX) == 2, dims, sx, box);
+  cudaError_t err = nhwc_map<TX>(&tm_x, x, batch, hw, channels, p);
   if (err == cudaSuccess)
-    err = make_map_plain(&tm_dy, dy, 3, sizeof(TY) == 2, dims, sy, box);
-  if (err == cudaSuccess) err = cluster_attributes<TX, TY>();
+    err = nhwc_map<TY>(&tm_dy, dy, batch, hw, channels, p);
+  if (err == cudaSuccess) err = K::allow();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t config = cluster_config<TX, TY>(p, batch, channels, &attr);
+  cudaLaunchConfig_t config = K::config(p, batch, channels, &attr);
   config.stream = st;
   err = cudaLaunchKernelEx(&config, bwd_cluster_kernel<TX, TY>, tm_x, tm_dy,
                            mean, rstd, gamma, static_cast<TX*>(dx), sums, hw,
@@ -905,17 +1151,16 @@ int run_backward_cluster(const void* dy, const void* x, const float* mean,
   return cudaGetLastError();
 }
 
-template <typename TX, typename TY>
-int cluster_occupancy(int batch, int channels, const BwdPlan& p) {
-  if (cluster_attributes<TX, TY>() != cudaSuccess) return -1;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t config = cluster_config<TX, TY>(p, batch, channels, &attr);
-  int clusters = -1;
-  if (cudaOccupancyMaxActiveClusters(
-          &clusters, reinterpret_cast<const void*>(bwd_cluster_kernel<TX, TY>),
-          &config) != cudaSuccess)
-    return -1;
-  return clusters;
+bool dtype_ok(int code) { return code == 0 || code == 1; }
+
+// f(TA{}, TB{}) with the element types of dtype codes a and b (0 = float32,
+// 1 = bfloat16).
+template <typename F>
+int by_dtypes(int a, int b, F&& f) {
+  if (a == 1 && b == 1) return f(__nv_bfloat16{}, __nv_bfloat16{});
+  if (a == 1) return f(__nv_bfloat16{}, float{});
+  if (b == 1) return f(float{}, __nv_bfloat16{});
+  return f(float{}, float{});
 }
 
 }  // namespace
@@ -926,41 +1171,54 @@ extern "C" {
 // scratch sizes below depend on it. -1 for a shape the kernels refuse.
 int group_norm_tiles(int channels, int hw, int groups, int x_dtype) {
   Tiling t;
-  if ((x_dtype != 0 && x_dtype != 1) ||
+  if (!dtype_ok(x_dtype) ||
       !make_tiling(channels, hw, groups, vec_of(x_dtype), &t))
     return -1;
   return t.tiles;
 }
 
-// x and y [b, h, w, C] (NHWC in memory), gamma/beta f32 [C]; mean and rstd
-// f32 [b, groups]; part f32 scratch [b, groups, tiles, 2]. Dtypes: 0 =
-// float32, 1 = bfloat16. Returns the launches' cudaGetLastError().
+// The two-pass forward. x and y [b, h, w, C] (NHWC in memory), gamma/beta
+// f32 [C]; mean and rstd f32 [b, groups]; part f32 scratch [b, groups,
+// tiles, 2]. Dtypes: 0 = float32, 1 = bfloat16. Returns the launches'
+// cudaGetLastError().
 int group_norm_fwd(const void* x, const void* gamma, const void* beta,
                    void* y, void* mean, void* rstd, void* part, int x_dtype,
                    int y_dtype, int batch, int channels, int hw, int groups,
                    float eps, void* stream) {
   Tiling t;
-  if (batch <= 0 || (x_dtype != 0 && x_dtype != 1) ||
-      (y_dtype != 0 && y_dtype != 1) ||
+  if (batch <= 0 || !dtype_ok(x_dtype) || !dtype_ok(y_dtype) ||
       !make_tiling(channels, hw, groups, vec_of(x_dtype), &t))
     return cudaErrorInvalidValue;
-  const float* g = static_cast<const float*>(gamma);
-  const float* be = static_cast<const float*>(beta);
-  float* mu = static_cast<float*>(mean);
-  float* rs = static_cast<float*>(rstd);
-  float2* pa = static_cast<float2*>(part);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 1 && y_dtype == 1)
-    return run_forward<__nv_bfloat16, __nv_bfloat16>(
-        x, g, be, y, mu, rs, pa, batch, hw, channels, groups, eps, t, st);
-  if (x_dtype == 1)
-    return run_forward<__nv_bfloat16, float>(x, g, be, y, mu, rs, pa, batch,
-                                             hw, channels, groups, eps, t, st);
-  if (y_dtype == 1)
-    return run_forward<float, __nv_bfloat16>(x, g, be, y, mu, rs, pa, batch,
-                                             hw, channels, groups, eps, t, st);
-  return run_forward<float, float>(x, g, be, y, mu, rs, pa, batch, hw,
-                                   channels, groups, eps, t, st);
+  return by_dtypes(x_dtype, y_dtype, [&](auto tx, auto ty) {
+    return run_forward<decltype(tx), decltype(ty)>(
+        x, static_cast<const float*>(gamma), static_cast<const float*>(beta),
+        y, static_cast<float*>(mean), static_cast<float*>(rstd),
+        static_cast<float2*>(part), batch, hw, channels, groups, eps, t,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The cluster forward (see the header), for the plan of ops/group_norm.py
+// forward_plan: slab, cluster, pix, box_pix and nbox. Arguments as
+// group_norm_fwd's, with no scratch. A plan the kernel does not take
+// returns cudaErrorInvalidValue.
+int group_norm_fwd_cluster(const void* x, const void* gamma, const void* beta,
+                           void* y, void* mean, void* rstd, int x_dtype,
+                           int y_dtype, int batch, int channels, int hw,
+                           int groups, float eps, int slab, int cluster,
+                           int pix, int box_pix, int nbox, void* stream) {
+  Tiling t;
+  const ClusterPlan p{slab, cluster, pix, box_pix, nbox};
+  if (batch <= 0 || !dtype_ok(x_dtype) || !dtype_ok(y_dtype) ||
+      !make_tiling(channels, hw, groups, vec_of(x_dtype), &t) ||
+      !valid_plan(p, channels, hw, groups, x_dtype ? 2 : 4, 0))
+    return cudaErrorInvalidValue;
+  return by_dtypes(x_dtype, y_dtype, [&](auto tx, auto ty) {
+    return run_forward_cluster<decltype(tx), decltype(ty)>(
+        x, static_cast<const float*>(gamma), static_cast<const float*>(beta),
+        y, static_cast<float*>(mean), static_cast<float*>(rstd), batch, hw,
+        channels, groups, eps, p, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // dy [b, h, w, C] in dy_dtype, x and dx in x_dtype (NHWC in memory); mean,
@@ -973,33 +1231,18 @@ int group_norm_bwd(const void* dy, const void* x, const void* mean,
                    int x_dtype, int dy_dtype, int batch, int channels, int hw,
                    int groups, void* stream) {
   Tiling t;
-  if (batch <= 0 || (x_dtype != 0 && x_dtype != 1) ||
-      (dy_dtype != 0 && dy_dtype != 1) ||
+  if (batch <= 0 || !dtype_ok(x_dtype) || !dtype_ok(dy_dtype) ||
       !make_tiling(channels, hw, groups, vec_of(x_dtype), &t))
     return cudaErrorInvalidValue;
-  const float* mu = static_cast<const float*>(mean);
-  const float* rs = static_cast<const float*>(rstd);
-  const float* g = static_cast<const float*>(gamma);
-  float* dg = static_cast<float*>(dgamma);
-  float* db = static_cast<float*>(dbeta);
-  float2* pa = static_cast<float2*>(part);
-  float2* su = static_cast<float2*>(sums);
-  float2* cf = static_cast<float2*>(coef);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 1 && dy_dtype == 1)
-    return run_backward<__nv_bfloat16, __nv_bfloat16>(
-        dy, x, mu, rs, g, dx, dg, db, pa, su, cf, batch, hw, channels, groups,
-        t, st);
-  if (x_dtype == 1)
-    return run_backward<__nv_bfloat16, float>(
-        dy, x, mu, rs, g, dx, dg, db, pa, su, cf, batch, hw, channels, groups,
-        t, st);
-  if (dy_dtype == 1)
-    return run_backward<float, __nv_bfloat16>(
-        dy, x, mu, rs, g, dx, dg, db, pa, su, cf, batch, hw, channels, groups,
-        t, st);
-  return run_backward<float, float>(dy, x, mu, rs, g, dx, dg, db, pa, su, cf,
-                                    batch, hw, channels, groups, t, st);
+  return by_dtypes(x_dtype, dy_dtype, [&](auto tx, auto ty) {
+    return run_backward<decltype(tx), decltype(ty)>(
+        dy, x, static_cast<const float*>(mean),
+        static_cast<const float*>(rstd), static_cast<const float*>(gamma), dx,
+        static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+        static_cast<float2*>(part), static_cast<float2*>(sums),
+        static_cast<float2*>(coef), batch, hw, channels, groups, t,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 // The cluster backward (see the header), for the plan of
@@ -1013,50 +1256,50 @@ int group_norm_bwd_cluster(const void* dy, const void* x, const void* mean,
                            int groups, int slab, int cluster, int pix,
                            int box_pix, int nbox, void* stream) {
   Tiling t;
-  const BwdPlan p{slab, cluster, pix, box_pix, nbox};
-  if (batch <= 0 || (x_dtype != 0 && x_dtype != 1) ||
-      (dy_dtype != 0 && dy_dtype != 1) ||
+  const ClusterPlan p{slab, cluster, pix, box_pix, nbox};
+  if (batch <= 0 || !dtype_ok(x_dtype) || !dtype_ok(dy_dtype) ||
       !make_tiling(channels, hw, groups, vec_of(x_dtype), &t) ||
       !valid_plan(p, channels, hw, groups, x_dtype ? 2 : 4, dy_dtype ? 2 : 4))
     return cudaErrorInvalidValue;
-  const float* mu = static_cast<const float*>(mean);
-  const float* rs = static_cast<const float*>(rstd);
-  const float* g = static_cast<const float*>(gamma);
-  float* dg = static_cast<float*>(dgamma);
-  float* db = static_cast<float*>(dbeta);
-  float2* su = static_cast<float2*>(sums);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 1 && dy_dtype == 1)
-    return run_backward_cluster<__nv_bfloat16, __nv_bfloat16>(
-        dy, x, mu, rs, g, dx, dg, db, su, batch, hw, channels, groups, p, st);
-  if (x_dtype == 1)
-    return run_backward_cluster<__nv_bfloat16, float>(
-        dy, x, mu, rs, g, dx, dg, db, su, batch, hw, channels, groups, p, st);
-  if (dy_dtype == 1)
-    return run_backward_cluster<float, __nv_bfloat16>(
-        dy, x, mu, rs, g, dx, dg, db, su, batch, hw, channels, groups, p, st);
-  return run_backward_cluster<float, float>(dy, x, mu, rs, g, dx, dg, db, su,
-                                            batch, hw, channels, groups, p,
-                                            st);
+  return by_dtypes(x_dtype, dy_dtype, [&](auto tx, auto ty) {
+    return run_backward_cluster<decltype(tx), decltype(ty)>(
+        dy, x, static_cast<const float*>(mean),
+        static_cast<const float*>(rstd), static_cast<const float*>(gamma), dx,
+        static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+        static_cast<float2*>(sums), batch, hw, channels, groups, p,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
-// Clusters of the cluster backward resident at once on the current device
-// for this plan (cudaOccupancyMaxActiveClusters); -1 where it cannot run.
+// Clusters of a cluster kernel resident at once on the current device for
+// this plan (cudaOccupancyMaxActiveClusters); -1 where it cannot run. The
+// forward's second dtype is y's, the backward's dy's.
+int group_norm_fwd_cluster_occupancy(int x_dtype, int y_dtype, int batch,
+                                     int channels, int hw, int groups,
+                                     int slab, int cluster, int pix,
+                                     int box_pix, int nbox) {
+  const ClusterPlan p{slab, cluster, pix, box_pix, nbox};
+  if (!dtype_ok(x_dtype) || !dtype_ok(y_dtype) ||
+      !valid_plan(p, channels, hw, groups, x_dtype ? 2 : 4, 0))
+    return -1;
+  return by_dtypes(x_dtype, y_dtype, [&](auto tx, auto ty) {
+    return Cluster<true, decltype(tx), decltype(ty)>::occupancy(batch,
+                                                                channels, p);
+  });
+}
+
 int group_norm_bwd_cluster_occupancy(int x_dtype, int dy_dtype, int batch,
                                      int channels, int hw, int groups,
                                      int slab, int cluster, int pix,
                                      int box_pix, int nbox) {
-  const BwdPlan p{slab, cluster, pix, box_pix, nbox};
-  if ((x_dtype != 0 && x_dtype != 1) || (dy_dtype != 0 && dy_dtype != 1) ||
+  const ClusterPlan p{slab, cluster, pix, box_pix, nbox};
+  if (!dtype_ok(x_dtype) || !dtype_ok(dy_dtype) ||
       !valid_plan(p, channels, hw, groups, x_dtype ? 2 : 4, dy_dtype ? 2 : 4))
     return -1;
-  if (x_dtype == 1 && dy_dtype == 1)
-    return cluster_occupancy<__nv_bfloat16, __nv_bfloat16>(batch, channels, p);
-  if (x_dtype == 1)
-    return cluster_occupancy<__nv_bfloat16, float>(batch, channels, p);
-  if (dy_dtype == 1)
-    return cluster_occupancy<float, __nv_bfloat16>(batch, channels, p);
-  return cluster_occupancy<float, float>(batch, channels, p);
+  return by_dtypes(x_dtype, dy_dtype, [&](auto tx, auto ty) {
+    return Cluster<false, decltype(tx), decltype(ty)>::occupancy(batch,
+                                                                 channels, p);
+  });
 }
 
 const char* group_norm_error_string(int err) {

@@ -9,12 +9,12 @@ channels-last strides (``models/resnet.py``), and ``models/layers.py``
 ``GroupNorm`` normalises them through :func:`group_norm`.
 
 - On a CUDA tensor :func:`group_norm_forward` launches the forward kernel
-  of ``csrc/group_norm.cu`` (statistics by Chan merges of per-tile
-  partials, then ``y = (x - mean) * (rstd * gamma) + beta`` in f32, rounded
-  once) and :func:`group_norm_backward` the backward kernel (dx, dgamma and
-  dbeta from x, dy and the saved f32 statistics; x̂ is recomputed), in
-  the design :func:`backward_plan` picks by shape: on ResNet-50's shapes a
-  thread-block cluster that reads x and dy once. The
+  of ``csrc/group_norm.cu`` (the group statistics, then ``y = (x - mean) *
+  (rstd * gamma) + beta`` in f32, rounded once) and
+  :func:`group_norm_backward` the backward kernel (dx, dgamma and dbeta
+  from x, dy and the saved f32 statistics; x̂ is recomputed), each in the
+  design :func:`forward_plan` or :func:`backward_plan` picks by shape: on
+  ResNet-50's shapes a thread-block cluster that reads x (and dy) once. The
   tensor must be channels-last-contiguous: a hidden ``.contiguous()`` would
   be the very copy the kernels exist to remove, so anything else raises.
 - On a CPU tensor the same wrappers run :func:`group_norm_reference` and
@@ -48,24 +48,26 @@ from cron_operator_tpu_torch.ops.flash_attention import (
     _raise_on,
 )
 
-# The kernels' designs, by direction. The forward's one: statistics, then a
-# second read of x. The backward's: "cluster", x and dy read once into a
-# thread-block cluster's shared memory (the main path, where
-# :func:`backward_plan` fits it), and "two_pass", which reads them twice.
-FORWARD_DESIGN = "two_pass"
+# The kernels' designs, by direction: "cluster", the tensors a norm reads
+# (x forward, x and dy backward) read once into a thread-block cluster's
+# shared memory (the main path, where :func:`forward_plan` and
+# :func:`backward_plan` fit it), and "two_pass", which reads them twice.
+FORWARD_DESIGNS = ("cluster", "two_pass")
 BACKWARD_DESIGNS = ("cluster", "two_pass")
-# The cluster backward (csrc/group_norm.cu): the cluster sizes it takes
+# The cluster designs (csrc/group_norm.cu): the cluster sizes they take
 # (blocks of a (b, slab); 16 is a non-portable size), 256 threads (8
 # warps) a block, TMA boxes of at most 256 pixels, slabs of at most 256
 # channels, pixel rows of at least 64 bytes where C allows (a narrower
 # slab reads DRAM sectors half used), the dynamic shared memory a block may
 # take on an H100, and the most each of two blocks an SM may take (228 KB
 # less 1 KB reserved a block, halved).
-BACKWARD_CLUSTERS = (1, 2, 4, 8, 16)
+CLUSTERS = (1, 2, 4, 8, 16)
 _WARPS = 8
 _MAX_BOX = 256
 _MAX_SLAB = 256
 _MIN_ROW_BYTES = 64
+# a cluster plan's keys, in the C entries' order
+_PLAN_KEYS = ("slab", "cluster", "pix", "box_pix", "nbox")
 SMEM_LIMIT = 232448
 _HALF_SM = 115712
 # A blocked f32 sum of at most 2^8 sequential additions, taken in two
@@ -219,8 +221,14 @@ def _kernel() -> ctypes.CDLL:
         lib.group_norm_bwd_cluster.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.group_norm_bwd_cluster.restype = ctypes.c_int
-        lib.group_norm_bwd_cluster_occupancy.argtypes = [ctypes.c_int] * 11
-        lib.group_norm_bwd_cluster_occupancy.restype = ctypes.c_int
+        lib.group_norm_fwd_cluster.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.group_norm_fwd_cluster.restype = ctypes.c_int
+        for occupancy in (lib.group_norm_fwd_cluster_occupancy,
+                          lib.group_norm_bwd_cluster_occupancy):
+            occupancy.argtypes = [ctypes.c_int] * 11
+            occupancy.restype = ctypes.c_int
         lib.group_norm_error_string.argtypes = [ctypes.c_int]
         lib.group_norm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -273,6 +281,18 @@ def _tiles(x: torch.Tensor, groups: int) -> int:
     return tiles
 
 
+def forward_plan(b: int, c: int, hw: int, groups: int, x_dtype: torch.dtype,
+                 cluster: Optional[int] = None,
+                 max_slab: int = _MAX_SLAB) -> dict:
+    """The forward kernel's design for ``[b, c, h, w]`` (``hw = h * w``)
+    with ``groups`` groups: ``"cluster"`` where a cluster's shared memory
+    holds a (b, slab)'s x, else ``"two_pass"``. :func:`backward_plan`'s
+    rule for a block that holds x alone (half the bytes a pixel in bf16):
+    at ResNet-50's shapes in bf16, 8 blocks of 32 channels at 112², 2 of
+    32 at 56², one block of 64 at 28² and of 256 at 14² and 7²."""
+    return _plan(c, hw, groups, (x_dtype,), cluster, max_slab)
+
+
 def backward_plan(b: int, c: int, hw: int, groups: int, x_dtype: torch.dtype,
                   dy_dtype: torch.dtype, cluster: Optional[int] = None,
                   max_slab: int = _MAX_SLAB) -> dict:
@@ -281,43 +301,52 @@ def backward_plan(b: int, c: int, hw: int, groups: int, x_dtype: torch.dtype,
     holds a (b, slab)'s x and dy, else ``"two_pass"``. A slab is a power of
     two of at most ``max_slab`` channels, whole groups and whole 16-byte
     vectors of x and dy; a block takes ``pix`` pixels of the map, as
-    ``nbox`` TMA boxes of ``box_pix`` (``BwdLayout`` in
-    ``csrc/group_norm.cu``, mirrored here).
+    ``nbox`` TMA boxes of ``box_pix`` (``Layout`` in
+    ``csrc/group_norm.cu``, mirrored by ``_fit``).
 
     With ``cluster`` given, the widest slab that fits a block's shared
     memory at that cluster size. Otherwise the smallest cluster of
-    ``BACKWARD_CLUSTERS`` whose widest slab fits half an SM's shared memory
-    (two blocks an SM, so one block's loads overlap the other's dx stores)
-    with pixel rows of at least ``_MIN_ROW_BYTES`` (or all of C), else the
-    same at one block an SM. ``hack/torch_cluster_sweep.py`` measured that
-    rule on ResNet-50's shapes (PERF.md section 6). Keys ``design``, and
-    for the cluster design ``slab``, ``cluster``, ``pix``, ``box_pix``,
-    ``nbox`` and ``smem`` (bytes a block)."""
+    ``CLUSTERS`` whose widest slab fits half an SM's shared memory (two
+    blocks an SM, so one block's loads overlap the other's stores) with
+    pixel rows of at least ``_MIN_ROW_BYTES`` (or all of C), else the same
+    at one block an SM. ``hack/torch_cluster_sweep.py`` measured that rule
+    on ResNet-50's shapes (PERF.md section 6). Keys ``design``, and for the
+    cluster design ``slab``, ``cluster``, ``pix``, ``box_pix``, ``nbox`` and
+    ``smem`` (bytes a block)."""
+    return _plan(c, hw, groups, (x_dtype, dy_dtype), cluster, max_slab)
+
+
+def _plan(c, hw, groups, held, cluster, max_slab):
+    """The rule of :func:`backward_plan` for a block that holds tensors of
+    the dtypes ``held`` (x first)."""
     if cluster is not None:
-        return _fit(c, hw, groups, x_dtype, dy_dtype, cluster, max_slab,
+        return _fit(c, hw, groups, held, cluster, max_slab,
                     SMEM_LIMIT) or {"design": "two_pass"}
-    rows = min(c * x_dtype.itemsize, _MIN_ROW_BYTES)
+    rows = min(c * held[0].itemsize, _MIN_ROW_BYTES)
     for budget in (_HALF_SM, SMEM_LIMIT):
-        for size in BACKWARD_CLUSTERS:
-            plan = _fit(c, hw, groups, x_dtype, dy_dtype, size, max_slab,
-                        budget)
-            if plan and plan["slab"] * x_dtype.itemsize >= rows:
+        for size in CLUSTERS:
+            plan = _fit(c, hw, groups, held, size, max_slab, budget)
+            if plan and plan["slab"] * held[0].itemsize >= rows:
                 return plan
     return {"design": "two_pass"}
 
 
-def _fit(c, hw, groups, x_dtype, dy_dtype, cluster, max_slab, budget):
-    """The cluster plan with the widest slab whose block fits ``budget``
-    bytes of shared memory, or None."""
-    sx, sy = x_dtype.itemsize, dy_dtype.itemsize
+def _fit(c, hw, groups, held, cluster, max_slab, budget):
+    """The cluster plan with the widest slab whose block, holding tensors
+    of the dtypes ``held``, fits ``budget`` bytes of shared memory, or
+    None. Each box has its tiles and its mbarrier; each held tensor takes a
+    ``[WARPS][slab]`` array of row partials and a ``[slab]`` group tree;
+    the block's partials are two ``[slab]`` float arrays whatever it
+    holds."""
+    sizes = [t.itemsize for t in held]
     pix = -(-hw // cluster)
     nbox = -(-pix // _MAX_BOX)
     box_pix = -(-pix // nbox)
     slab = min(c, max_slab)
-    while slab >= c // groups and slab * sx % 16 == 0 and slab * sy % 16 == 0:
-        box_x, box_dy = (-(-box_pix * slab * e // 128) * 128 for e in (sx, sy))
-        smem = (nbox * (box_x + box_dy) + 2 * _WARPS * slab * 4 + slab * 8
-                + 2 * slab * 4 + nbox * 8)
+    while slab >= c // groups and all(slab * e % 16 == 0 for e in sizes):
+        boxes = sum(-(-box_pix * slab * e // 128) * 128 for e in sizes)
+        smem = (nbox * (boxes + 8) + len(sizes) * (_WARPS + 1) * slab * 4
+                + slab * 8)
         if smem <= budget:
             return {"design": "cluster", "slab": slab, "cluster": cluster,
                     "pix": pix, "box_pix": box_pix, "nbox": nbox,
@@ -333,7 +362,10 @@ def _param(p: torch.Tensor, c: int, device) -> torch.Tensor:
     return p.detach().float().contiguous()
 
 
-def _launch_forward(x, weight, bias, groups, eps, out_dtype):
+def _launch_forward(x, weight, bias, groups, eps, out_dtype,
+                    plan: Optional[dict] = None):
+    """The forward kernel on the card, in :func:`forward_plan`'s design
+    (``plan`` gives another, to time it beside)."""
     _check_activation("x", x, x)
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"out_dtype must be float32 or bfloat16, not "
@@ -341,20 +373,27 @@ def _launch_forward(x, weight, bias, groups, eps, out_dtype):
     b, c, h, w = x.shape
     gamma, beta = (_param(p, c, x.device) for p in (weight, bias))
     tiles = _tiles(x, groups)
+    plan = plan or forward_plan(b, c, h * w, groups, x.dtype)
     y = torch.empty_like(x, dtype=out_dtype, memory_format=torch.channels_last)
     stats = torch.empty((2, b, groups), dtype=torch.float32, device=x.device)
-    part = torch.empty((b, groups, tiles, 2), dtype=torch.float32,
-                       device=x.device)
     lib = _kernel()
+    ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr())
+    codes = (_DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], b, c, h * w,
+             groups, eps)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.group_norm_fwd(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), part.data_ptr(),
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], b, c, h * w,
-            groups, eps, stream)
-    _raise_on(err, lib, "group_norm_fwd", "group_norm_error_string")
-    _count(group_norm_forward, FORWARD_DESIGN, stream)
+        if plan["design"] == "cluster":
+            fn = "group_norm_fwd_cluster"
+            err = lib.group_norm_fwd_cluster(
+                *ptrs, *codes, *(plan[k] for k in _PLAN_KEYS), stream)
+        else:
+            fn = "group_norm_fwd"
+            part = torch.empty((b, groups, tiles, 2), dtype=torch.float32,
+                               device=x.device)
+            err = lib.group_norm_fwd(*ptrs, part.data_ptr(), *codes, stream)
+    _raise_on(err, lib, fn, "group_norm_error_string")
+    _count(group_norm_forward, plan["design"], stream)
     return y, stats[0], stats[1]
 
 
@@ -387,8 +426,8 @@ def _launch_backward(dy, x, mean, rstd, weight, groups,
         if plan["design"] == "cluster":
             fn = "group_norm_bwd_cluster"
             err = lib.group_norm_bwd_cluster(
-                *ptrs, sums.data_ptr(), *codes, *(plan[k] for k in (
-                    "slab", "cluster", "pix", "box_pix", "nbox")), stream)
+                *ptrs, sums.data_ptr(), *codes,
+                *(plan[k] for k in _PLAN_KEYS), stream)
         else:
             fn = "group_norm_bwd"
             part = torch.empty((b, tiles, c, 2), dtype=torch.float32,
@@ -402,21 +441,35 @@ def _launch_backward(dy, x, mean, rstd, weight, groups,
     return dx, grads[0], grads[1]
 
 
+def forward_occupancy(x: torch.Tensor, groups: int,
+                      plan: Optional[dict] = None) -> int:
+    """Clusters of the cluster forward that the card holds at once for
+    ``x`` (y of x's dtype) and ``plan`` (:func:`forward_plan`'s by
+    default): ``cudaOccupancyMaxActiveClusters``, -1 where it cannot run.
+    Builds the kernel."""
+    b, c, h, w = x.shape
+    plan = plan or forward_plan(b, c, h * w, groups, x.dtype)
+    return _occupancy("group_norm_fwd_cluster_occupancy", x, groups, plan)
+
+
 def backward_occupancy(x: torch.Tensor, groups: int,
                        plan: Optional[dict] = None) -> int:
     """Clusters of the cluster backward that the card holds at once for
     ``x`` (dy of x's dtype) and ``plan`` (:func:`backward_plan`'s by
-    default): ``cudaOccupancyMaxActiveClusters``, -1 where it cannot run.
-    Builds the kernel."""
+    default), as :func:`forward_occupancy`."""
     b, c, h, w = x.shape
     plan = plan or backward_plan(b, c, h * w, groups, x.dtype, x.dtype)
+    return _occupancy("group_norm_bwd_cluster_occupancy", x, groups, plan)
+
+
+def _occupancy(fn: str, x: torch.Tensor, groups: int, plan: dict) -> int:
     if plan["design"] != "cluster":
         return -1
+    b, c, h, w = x.shape
     code = _DTYPE_CODES[x.dtype]
     with torch.cuda.device(x.device):
-        return _kernel().group_norm_bwd_cluster_occupancy(
-            code, code, b, c, h * w, groups, *(plan[k] for k in (
-                "slab", "cluster", "pix", "box_pix", "nbox")))
+        return getattr(_kernel(), fn)(code, code, b, c, h * w, groups,
+                                      *(plan[k] for k in _PLAN_KEYS))
 
 
 def group_norm_forward(x: torch.Tensor, weight: torch.Tensor,
@@ -424,7 +477,22 @@ def group_norm_forward(x: torch.Tensor, weight: torch.Tensor,
                        out_dtype: torch.dtype
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(y, mean, rstd)``: the forward kernel on a CUDA tensor (or raises),
-    :func:`group_norm_reference` on a CPU or meta tensor. No autograd."""
+    :func:`group_norm_reference` on a CPU or meta tensor. No autograd. Its
+    bound is bytes: x read once and y written once (1.699 ms over
+    ResNet-50's 53 norms a step at b 128 in bf16 on an H100). The design is
+    :func:`forward_plan`'s, by shape:
+
+    - ``"cluster"``: one thread-block cluster of 1 to 16 blocks per
+      (sample, slab of channels) TMA-loads the slab's x into shared memory,
+      sums each channel there, exchanges the blocks' sums over distributed
+      shared memory for each group's mean, then does the same for the
+      centred squares (the variance with no cancellation), and writes y from
+      the tile it holds: x is read once, the bound's traffic.
+    - ``"two_pass"``: per-tile Chan partials, their merge, then y from a
+      second read of x (3 units of traffic where the bound needs 2), for a
+      shape whose slab does not fit the cluster's shared memory.
+
+    A launch counts under its design in ``.launches_by_design``."""
     _refuse_dtensor(x, weight, bias)
     with torch.no_grad():
         if x.is_cuda:
@@ -466,7 +534,7 @@ def group_norm_backward(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
 
 
 group_norm_forward.launches = 0
-group_norm_forward.launches_by_design = {FORWARD_DESIGN: 0}
+group_norm_forward.launches_by_design = dict.fromkeys(FORWARD_DESIGNS, 0)
 group_norm_backward.launches = 0
 group_norm_backward.launches_by_design = dict.fromkeys(BACKWARD_DESIGNS, 0)
 
@@ -502,8 +570,9 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
                             out_dtype or x.dtype)
 
 
-__all__ = ["BACKWARD_DESIGNS", "FORWARD_DESIGN", "SUM_ORDER",
-           "backward_occupancy", "backward_plan", "group_norm",
+__all__ = ["BACKWARD_DESIGNS", "CLUSTERS", "FORWARD_DESIGNS", "SUM_ORDER",
+           "backward_occupancy", "backward_plan", "forward_occupancy",
+           "forward_plan", "group_norm",
            "group_norm_backward", "group_norm_backward_reference",
            "group_norm_forward", "group_norm_reference",
            "group_norm_tolerance", "group_stats"]

@@ -9,17 +9,18 @@ Run from the root of a checkout, on a machine with an H100::
   decode shape (b 8, cache 1024, 12 heads of 64, bf16) at a few cache
   positions, for each cluster size the kernel takes, beside the three-pass
   design; each size's occupancy (clusters resident at once).
-- ``group_norm``: ``ops/csrc/group_norm.cu``'s cluster backward at each of
-  ResNet-50's 12 GroupNorm shapes (b 128, bf16), for clusters of 1 to 16
-  blocks and the widest slab that fits each and half of it, beside the
-  two-pass design; each plan's shared memory and occupancy.
+- ``group_norm``: ``ops/csrc/group_norm.cu``'s cluster forward and cluster
+  backward at each of ResNet-50's 12 GroupNorm shapes (b 128, bf16), for
+  clusters of 1 to 16 blocks and the widest slab that fits each and half
+  of it, beside each direction's two-pass design; each plan's shared
+  memory and occupancy.
 
 Each reading is the device time of one call with the card held busy
 (``ops.microbench.device_ms``), and every output is checked within its
 kernel's tolerance of the plain version first. One JSON line a reading,
 then the card line. This is the reading behind the cluster sizes that
 ``ops/attention.py`` ``decode_plan`` and ``ops/group_norm.py``
-``backward_plan`` choose; it imports nothing of JAX.
+``forward_plan`` and ``backward_plan`` choose; it imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -79,20 +80,55 @@ def sweep_decode(torch, device_ms) -> None:
         emit(kernel="decode_attn", **row)
 
 
-def norm_plans(gn, torch, c: int, hw: int):
-    """The plans to time at one shape: for each cluster size, the widest
-    slab that fits and half of it."""
-    bf16 = torch.bfloat16
+def norm_plans(plan_at):
+    """The plans to time at one shape (``plan_at(cluster=, max_slab=)``: a
+    direction's plan there): for each cluster size, the widest slab that
+    fits and half of it."""
     for cluster in (1, 2, 4, 8, 16):
-        plan = gn.backward_plan(NORM_BATCH, c, hw, GROUPS, bf16, bf16,
-                                cluster=cluster)
+        plan = plan_at(cluster=cluster)
         if plan["design"] != "cluster":
             continue
         yield plan
-        half = gn.backward_plan(NORM_BATCH, c, hw, GROUPS, bf16, bf16,
-                                cluster=cluster, max_slab=plan["slab"] // 2)
+        half = plan_at(cluster=cluster, max_slab=plan["slab"] // 2)
         if half["design"] == "cluster":
             yield half
+
+
+def within(label: str, got, want, bounds: dict) -> None:
+    """Each output within its bound of the plain version, or exit."""
+    for key, have in got.items():
+        err = (have.float() - want[key].float()).abs()
+        if not bool((err <= bounds[key]).all()):
+            raise SystemExit(f"{label}: {key} outside group_norm_tolerance")
+
+
+def sweep_forward(torch, device_ms, gn, x, gamma, beta, c: int,
+                  side: int) -> None:
+    """The forward at one shape: each cluster plan and the two-pass design,
+    each checked against the plain version first."""
+    bf16, hw = torch.bfloat16, side * side
+    ry, rmean, rrstd = gn.group_norm_reference(x, gamma, beta, GROUPS, EPS,
+                                               bf16)
+    want = {"y": ry, "mean": rmean, "rstd": rrstd}
+    bounds = gn.group_norm_tolerance(x, gamma, beta, GROUPS, rmean, rrstd, ry)
+    two_pass = {"design": "two_pass"}
+    row = {"c": c, "side": side,
+           "plan": gn.forward_plan(NORM_BATCH, c, hw, GROUPS, bf16),
+           "two_pass_us": 1e3 * device_ms(torch, lambda: gn._launch_forward(
+               x, gamma, beta, GROUPS, EPS, bf16, two_pass), 20)}
+    readings = []
+    for plan in norm_plans(lambda **kw: gn.forward_plan(
+            NORM_BATCH, c, hw, GROUPS, bf16, **kw)):
+        got = gn._launch_forward(x, gamma, beta, GROUPS, EPS, bf16, plan)
+        within(f"group_norm forward C{c} {side}^2 {plan}",
+               dict(zip(want, got)), want, bounds)
+        us = 1e3 * device_ms(torch, lambda: gn._launch_forward(
+            x, gamma, beta, GROUPS, EPS, bf16, plan), 20)
+        readings.append({"cluster": plan["cluster"], "slab": plan["slab"],
+                         "pix": plan["pix"], "smem": plan["smem"],
+                         "resident": gn.forward_occupancy(x, GROUPS, plan),
+                         "us": us})
+    emit(kernel="group_norm_fwd", **row, plans=readings)
 
 
 def sweep_group_norm(torch, device_ms) -> None:
@@ -109,6 +145,7 @@ def sweep_group_norm(torch, device_ms) -> None:
         x, dy = nhwc(), nhwc()
         gamma = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
         beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        sweep_forward(torch, device_ms, gn, x, gamma, beta, c, side)
         y, mean, rstd = gn.group_norm_forward(x, gamma, beta, GROUPS, EPS,
                                               bf16)
         ref = gn.group_norm_backward_reference(dy, x, mean, rstd, gamma,
@@ -120,13 +157,12 @@ def sweep_group_norm(torch, device_ms) -> None:
             torch, lambda: gn._launch_backward(dy, x, mean, rstd, gamma,
                                                GROUPS, two_pass), 20)}
         readings = []
-        for plan in norm_plans(gn, torch, c, hw):
+        keys = ("dx", "dgamma", "dbeta")
+        for plan in norm_plans(lambda **kw: gn.backward_plan(
+                NORM_BATCH, c, hw, GROUPS, bf16, bf16, **kw)):
             got = gn._launch_backward(dy, x, mean, rstd, gamma, GROUPS, plan)
-            for key, have, want in zip(("dx", "dgamma", "dbeta"), got, ref):
-                err = (have.float() - want.float()).abs()
-                if not bool((err <= bounds[key]).all()):
-                    raise SystemExit(f"group_norm C{c} {side}^2 {plan}: {key} "
-                                     "outside group_norm_tolerance")
+            within(f"group_norm C{c} {side}^2 {plan}",
+                   dict(zip(keys, got)), dict(zip(keys, ref)), bounds)
             us = 1e3 * device_ms(torch, lambda: gn._launch_backward(
                 dy, x, mean, rstd, gamma, GROUPS, plan), 20)
             readings.append({"cluster": plan["cluster"], "slab": plan["slab"],

@@ -295,8 +295,9 @@ def test_refused_inputs_raise_before_any_build(monkeypatch, change, match):
 
 def test_kernel_bookkeeping():
     """The wrappers count their launches as the other kernels do, by
-    design: the forward's one, the backward's cluster and two-pass ones."""
-    assert gn.group_norm_forward.launches_by_design.keys() == {"two_pass"}
+    design: each direction's cluster and two-pass ones."""
+    assert gn.group_norm_forward.launches_by_design.keys() == {"cluster",
+                                                               "two_pass"}
     assert gn.group_norm_backward.launches_by_design.keys() == {"cluster",
                                                                 "two_pass"}
     for fn in (gn.group_norm_forward, gn.group_norm_backward):
@@ -310,18 +311,20 @@ RESNET50_NORMS = [(64, 112), (64, 56), (128, 56), (256, 56), (128, 28),
                   (512, 7), (2048, 7)]
 
 
-def _assert_fits(plan, c, hw, groups, dtype, dy_dtype=None):
-    """A cluster plan holds whole groups and whole 16-byte vectors, covers
-    the map, and fits a block's shared memory."""
+def _assert_fits(plan, c, hw, groups, held):
+    """A cluster plan holds whole groups and whole 16-byte vectors of each
+    held tensor (dtypes ``held``: x, and dy in the backward), covers the
+    map, and fits a block's shared memory."""
     assert plan["design"] == "cluster"
     slab, cluster = plan["slab"], plan["cluster"]
     assert c % slab == 0 and slab >= c // groups and slab <= 256
-    assert slab & (slab - 1) == 0 and slab * dtype.itemsize % 16 == 0
+    assert slab & (slab - 1) == 0
+    assert all(slab * t.itemsize % 16 == 0 for t in held)
     assert plan["pix"] * cluster >= hw > plan["pix"] * (cluster - 1) - cluster
     assert plan["box_pix"] <= 256
     assert plan["nbox"] * plan["box_pix"] >= plan["pix"]
-    dy_size = (dy_dtype or dtype).itemsize
-    tiles = plan["nbox"] * plan["box_pix"] * slab * (dtype.itemsize + dy_size)
+    tiles = plan["nbox"] * plan["box_pix"] * slab * sum(
+        t.itemsize for t in held)
     assert tiles < plan["smem"] <= gn.SMEM_LIMIT
 
 
@@ -335,16 +338,22 @@ def test_backward_plan_takes_the_cluster_design(c, side, dtype):
     cluster (twice it would not fit half an SM)."""
     hw = side * side
     plan = gn.backward_plan(128, c, hw, GROUPS, dtype, dtype)
-    _assert_fits(plan, c, hw, GROUPS, dtype)
-    assert plan["smem"] <= gn._HALF_SM
+    _assert_smallest_cluster(plan, c, hw, (dtype, dtype), gn._HALF_SM)
+
+
+def _assert_smallest_cluster(plan, c, hw, held, budget):
+    """The plan's block, holding the ``held`` tensors, fits ``budget``
+    bytes at the smallest cluster that gets there with pixel rows of 64
+    bytes or more, at the widest slab."""
+    dtype = held[0]
+    _assert_fits(plan, c, hw, GROUPS, held)
+    assert plan["smem"] <= budget
     assert plan["slab"] * dtype.itemsize >= 64
-    wider = gn._fit(c, hw, GROUPS, dtype, dtype, plan["cluster"],
-                    2 * plan["slab"], gn._HALF_SM)
+    wider = gn._fit(c, hw, GROUPS, held, plan["cluster"],
+                    min(2 * plan["slab"], 256), budget)
     assert wider is None or wider["slab"] == plan["slab"]
-    for smaller in gn.BACKWARD_CLUSTERS[:gn.BACKWARD_CLUSTERS.index(
-            plan["cluster"])]:
-        other = gn._fit(c, hw, GROUPS, dtype, dtype, smaller, 256,
-                        gn._HALF_SM)
+    for smaller in gn.CLUSTERS[:gn.CLUSTERS.index(plan["cluster"])]:
+        other = gn._fit(c, hw, GROUPS, held, smaller, 256, budget)
         assert other is None or other["slab"] * dtype.itemsize < 64
 
 
@@ -367,10 +376,10 @@ def test_backward_plan_at_resnet50_in_bf16():
 def test_backward_plan_with_mixed_dtypes_and_a_given_cluster():
     plan = gn.backward_plan(128, 64, 112 * 112, GROUPS, torch.float32,
                             torch.bfloat16)
-    _assert_fits(plan, 64, 112 * 112, GROUPS, torch.float32, torch.bfloat16)
+    _assert_fits(plan, 64, 112 * 112, GROUPS, (torch.float32, torch.bfloat16))
     eight = gn.backward_plan(128, 64, 112 * 112, GROUPS, torch.bfloat16,
                              torch.bfloat16, cluster=8)
-    _assert_fits(eight, 64, 112 * 112, GROUPS, torch.bfloat16)
+    _assert_fits(eight, 64, 112 * 112, GROUPS, (torch.bfloat16,) * 2)
     assert (eight["cluster"], eight["slab"]) == (8, 32)
     assert eight["smem"] > gn._HALF_SM  # one block an SM
     half = gn.backward_plan(128, 64, 112 * 112, GROUPS, torch.bfloat16,
@@ -388,3 +397,82 @@ def test_backward_plan_keeps_two_pass_beyond_the_cluster(c, hw, groups,
     plan = gn.backward_plan(2, c, hw, groups, dtype, torch.bfloat16)
     assert plan == {"design": "two_pass"}
 
+
+
+# backward_plan's (cluster, slab, pix, box_pix, nbox, smem) at each of
+# ResNet-50's shapes, bf16 then f32, as the backward's cluster design was
+# measured with it: holding x alone in the forward's plan changed none
+BACKWARD_PLANS = {
+    (64, 112): [(16, 32, 784, 196, 4, 102944), (16, 16, 784, 196, 4, 101664)],
+    (64, 56): [(4, 32, 784, 196, 4, 102944), (4, 16, 784, 196, 4, 101664)],
+    (128, 56): [(4, 32, 784, 196, 4, 102944), (4, 16, 784, 196, 4, 101664)],
+    (256, 56): [(4, 32, 784, 196, 4, 102944), (4, 16, 784, 196, 4, 101664)],
+    (128, 28): [(1, 32, 784, 196, 4, 102944), (1, 16, 784, 196, 4, 101664)],
+    (256, 28): [(1, 32, 784, 196, 4, 102944), (1, 16, 784, 196, 4, 101664)],
+    (512, 28): [(1, 32, 784, 196, 4, 102944), (1, 16, 784, 196, 4, 101664)],
+    (256, 14): [(1, 128, 196, 196, 1, 110600), (1, 64, 196, 196, 1, 105480)],
+    (512, 14): [(1, 128, 196, 196, 1, 110600), (1, 64, 196, 196, 1, 105480)],
+    (1024, 14): [(1, 128, 196, 196, 1, 110600),
+                 (1, 64, 196, 196, 1, 105480)],
+    (512, 7): [(1, 256, 49, 49, 1, 70664), (1, 128, 49, 49, 1, 60424)],
+    (2048, 7): [(1, 256, 49, 49, 1, 70664), (1, 128, 49, 49, 1, 60424)],
+}
+
+
+def test_backward_plan_is_unchanged_at_resnet50():
+    for (c, side), want in BACKWARD_PLANS.items():
+        for dtype, plan_want in zip((torch.bfloat16, torch.float32), want):
+            plan = gn.backward_plan(128, c, side * side, GROUPS, dtype, dtype)
+            assert plan["design"] == "cluster"
+            assert tuple(plan[k] for k in (
+                "cluster", "slab", "pix", "box_pix", "nbox", "smem")) == (
+                    plan_want), (c, side, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("c, side", RESNET50_NORMS,
+                         ids=lambda v: str(v))
+def test_forward_plan_takes_the_cluster_design(c, side, dtype):
+    """The backward's rule for a block that holds x alone: two blocks an
+    SM, the smallest cluster with 64-byte pixel rows, the widest slab."""
+    hw = side * side
+    plan = gn.forward_plan(128, c, hw, GROUPS, dtype)
+    _assert_smallest_cluster(plan, c, hw, (dtype,), gn._HALF_SM)
+
+
+def test_forward_plan_at_resnet50_in_bf16():
+    """(cluster, slab) of each bf16 shape: 8 blocks of 32 channels at
+    112^2, 2 of 32 at 56^2, one block of 64 at 28^2 and of 256 at 14^2 and
+    7^2; about 100 KB of x a block (25 KB at 7^2)."""
+    want = {112: (8, 32), 56: (2, 32), 28: (1, 64), 14: (1, 256),
+            7: (1, 256)}
+    for c, side in RESNET50_NORMS:
+        plan = gn.forward_plan(128, c, side * side, GROUPS, torch.bfloat16)
+        assert (plan["cluster"], plan["slab"]) == want[side], (c, side)
+        x_bytes = -(-side * side // plan["cluster"]) * plan["slab"] * 2
+        assert x_bytes == (25_088 if side == 7 else 100_352), (c, side)
+
+
+def test_forward_plan_with_f32_x_and_a_given_cluster():
+    plan = gn.forward_plan(128, 64, 112 * 112, GROUPS, torch.float32)
+    _assert_fits(plan, 64, 112 * 112, GROUPS, (torch.float32,))
+    assert (plan["cluster"], plan["slab"]) == (8, 16)
+    sixteen = gn.forward_plan(128, 64, 112 * 112, GROUPS, torch.bfloat16,
+                              cluster=16)
+    _assert_fits(sixteen, 64, 112 * 112, GROUPS, (torch.bfloat16,))
+    assert (sixteen["cluster"], sixteen["slab"]) == (16, 64)
+    one = gn.forward_plan(128, 512, 7 * 7, GROUPS, torch.bfloat16, cluster=1,
+                          max_slab=64)
+    assert (one["cluster"], one["slab"], one["nbox"]) == (1, 64, 1)
+
+
+@pytest.mark.parametrize("c, hw, groups, dtype", [
+    (64, 512 * 512, 32, torch.bfloat16),   # 8 channels of 262,144 pixels
+    (16, 2048 * 2048, 4, torch.float32),   # 4 channels of 4 M pixels
+])
+def test_forward_plan_keeps_two_pass_beyond_the_cluster(c, hw, groups,
+                                                        dtype):
+    assert gn.forward_plan(2, c, hw, groups, dtype) == {"design": "two_pass"}
+    assert gn.forward_plan(2, c, hw, groups, dtype, cluster=16) == {
+        "design": "two_pass"}

@@ -1,7 +1,10 @@
 """The GroupNorm kernels (``ops/csrc/group_norm.cu``) against their plain
 versions, on the card: three ResNet-50 shapes and a ragged one, bf16 and
 f32, forward (y, mean, rstd) and backward (dx, dgamma, dbeta) within
-``group_norm_tolerance``; the backward's cluster design at its edges (7^2
+``group_norm_tolerance``; the forward's cluster design at those shapes and
+at its edges (one block, 16 blocks, a map one pixel past a TMA box, a map
+no cluster divides, f32 x with bf16 y) beside its two-pass design on the
+same inputs; the backward's cluster design at its edges (7^2
 and 14^2 maps whose pixels do not divide among the cluster's blocks, a
 slab narrower than C, f32, a rank with no pixel) beside the two-pass
 design on the same inputs; bit-identical reruns; a CUDA graph capture of
@@ -145,6 +148,59 @@ def test_cluster_backward_at_its_edges(cuda_device, shape, dtype):
         assert torch.equal(a, b_)
 
 
+# (b, C, H, W) for the cluster forward's edges beside SHAPES: a map of 257
+# pixels (one past a 256-pixel box), one of 259 (7 x 37) that no cluster of
+# 2-16 blocks divides, the widest map, and a slab narrower than C
+FORWARD_SHAPES = SHAPES + [(2, 64, 1, 257), (2, 128, 7, 37),
+                           (2, 64, 112, 112), (2, 256, 28, 28)]
+
+
+def _forward_plans(shape, dtype):
+    """forward_plan's plan, then one block and 16 blocks a (b, slab) at the
+    widest slab that fits them, then the two-pass design."""
+    b, c, h, w = shape
+    yield gn.forward_plan(b, c, h * w, GROUPS, dtype)
+    for cluster in (1, 16):
+        yield gn.forward_plan(b, c, h * w, GROUPS, dtype, cluster=cluster)
+    yield {"design": "two_pass"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)], ids=["bf16", "f32", "f32-bf16"])
+@pytest.mark.parametrize("shape", FORWARD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cluster_forward_at_its_edges(cuda_device, shape, dtype, out_dtype):
+    x, _, gamma, beta = _inputs(shape, dtype, cuda_device, 5)
+    ry, rmean, rrstd = gn.group_norm_reference(x, gamma, beta, GROUPS, EPS,
+                                               out_dtype)
+    ref = {"y": ry, "mean": rmean, "rstd": rrstd}
+    bounds = gn.group_norm_tolerance(x, gamma, beta, GROUPS, rmean, rrstd, ry)
+    before = dict(gn.group_norm_forward.launches_by_design)
+    got = gn.group_norm_forward(x, gamma, beta, GROUPS, EPS, out_dtype)
+    assert gn.group_norm_forward.launches_by_design["cluster"] == (
+        before["cluster"] + 1)
+    for plan in _forward_plans(shape, dtype):
+        assert plan["design"] in ("cluster", "two_pass")
+        if plan["design"] == "cluster":
+            assert gn.forward_occupancy(x, GROUPS, plan) >= 1
+        outs = gn._launch_forward(x, gamma, beta, GROUPS, EPS, out_dtype,
+                                  plan)
+        again = gn._launch_forward(x, gamma, beta, GROUPS, EPS, out_dtype,
+                                   plan)
+        torch.cuda.synchronize()
+        assert outs[0].is_contiguous(memory_format=torch.channels_last)
+        _assert_within(dict(zip(ref, outs)), ref, bounds)
+        for a, b_ in zip(outs, again):
+            assert torch.equal(a, b_), plan
+    b, c, h, w = shape
+    for a, b_ in zip(got, gn._launch_forward(
+            x, gamma, beta, GROUPS, EPS, out_dtype,
+            gn.forward_plan(b, c, h * w, GROUPS, dtype))):
+        assert torch.equal(a, b_)
+
+
 @pytest.mark.cuda
 def test_reruns_are_bit_identical(cuda_device):
     x, dy, gamma, beta = _inputs(SHAPES[0], torch.bfloat16, cuda_device, 1)
@@ -196,6 +252,8 @@ def test_graph_capture_equals_eager_and_counts_replays(cuda_device):
     fa.count_replays(tally, 2)
     assert gn.group_norm_forward.launches == 2
     assert gn.group_norm_backward.launches == 2
+    assert gn.group_norm_forward.launches_by_design == {"cluster": 2,
+                                                        "two_pass": 0}
     assert gn.group_norm_backward.launches_by_design == {"cluster": 2,
                                                          "two_pass": 0}
     for got, want in zip((y, xin.grad, norm.weight.grad, norm.bias.grad),
