@@ -107,16 +107,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
     phase 5, with the tokens whose expert differs between the paths
     counted; the replayed graph against 8 eager steps (loss and parameter
     bits equal), step ms, device ms, busy share, tokens/s, MFU over the
-    counted FLOPs (``Trainer.flops_per_step``, the one-hot products
-    included) and over the active parameters' 6 N T, peak memory, the
-    one-hot dispatch and combine products' device time and share, and
-    profiles; the graphed step beside 69.017 ms, unaligned GEMMs under
-    1% of the graphed call's device time as in phase 6, and no cumsum over
-    an outer axis (``OUTER_SCAN``).
+    counted FLOPs (``Trainer.flops_per_step``) and over the active
+    parameters' 6 N T, peak memory, and profiles; the graphed step beside
+    69.017 ms, unaligned GEMMs under 1% of the graphed call's device time
+    as in phase 6, and no cumsum over an outer axis (``OUTER_SCAN``). Then
+    one MoE layer at the step's shape on the index path (dispatch and
+    combine gathered by token index) against the dense one-hot
+    formulation (``moe_ffn_reference``): output, dX through the dispatch
+    and the experts' gradients the same bits, the router's gradient within
+    ``MOE_ROUTER_GRAD_REL``, reruns identical; dispatch and combine timed
+    on each path; and the graphed step with each path in turns (the dense
+    one swapped in, ``dense_moe``), step ms and peak memory beside
+    ``MOE_ONEHOT``.
 14. Switch-MoE serving: ``generate_job`` with the same MoE params at the
     serving slice's shape (K1 36 launches over 3 rounds, all sm90, the
     decode kernel 12 a decode step); the decode graph against the eager
-    loop as phase 4 (beside 3.442 ms a decode step), prefill ms and
+    loop as phase 4 (beside 3.442 ms a decode step), prefill ms on the
+    index and the dense path in turns, greedy tokens equal on both, and
     tokens/s; then the cached greedy decode against
     a full-forward rerun for 8 tokens at full width with
     ``moe_capacity_factor=8`` (no token dropped on either path), in f32.
@@ -302,6 +309,18 @@ DECODE_THREE_PASS_MS = {"generate": 1.130, "moe": 1.586}
 # router ran before its scan moved to the inner axis.
 UNALIGNED_GEMM = {r"align[12](?!\d)": 0.01}
 OUTER_SCAN = {r"scan_outer_dim": 0.0}
+# The MoE GPT on the dense one-hot dispatch and combine, before they became
+# gathers by token index (PERF.md section 5; H100 80GB HBM3, 700 W): the
+# graphed step, the first graphed call's peak memory, the counted and
+# active TFLOP a step, eager prefill and the graphed decode step, printed
+# beside this run's.
+MOE_ONEHOT = {"step_ms": 48.449, "peak_gib": 16.89, "counted_tflop": 10.7513,
+              "active_tflop": 6.5815, "prefill_ms": 17.593,
+              "decode_ms": 1.591}
+# The router's gradient, index path against dense, in bf16: the dense path
+# rounds each gate's gradient to bf16 (unit roundoff 2^-8), the index path
+# sums it in f32; the bound is on the largest entry's scale.
+MOE_ROUTER_GRAD_REL = 2 ** -7
 # Phase 19: the decode kernel at GPT-2 small's decode shape, at the first,
 # the middle, the slice's last (prompt 512 + 64 new tokens) and the final
 # cache position, and a GQA case of group 2.
@@ -346,13 +365,20 @@ def profile_window(torch, card: str, label: str, fn, kernels_out=None):
     and the device's busy share of the window's wall time (torch.profiler;
     its own overhead lengthens the wall time, so the idle share is an upper
     bound). Returns the window's wall and device-busy ms; every kernel's
-    (name, device us, launches) goes into ``kernels_out`` when given."""
-    from torch.profiler import ProfilerActivity, profile
+    (name, device us, launches) goes into ``kernels_out`` when given. The
+    profiler traces one call of ``fn`` first and discards it: a trace
+    that starts with the window can miss the window's first kernels (a
+    replayed decode step once showed 11 of its 12 decode launches and
+    fewer of its first layer's other kernels)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -837,19 +863,21 @@ def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int,
 @contextlib.contextmanager
 def recorded_routes(routes: list):
     """Appends each router call's expert choice (the argmax of its logits,
-    ``[tokens]`` on the card) to ``routes`` while the context is open."""
+    ``[tokens]`` on the card) to ``routes`` while the context is open: it
+    wraps ``router_top1_indices``, which the index path calls and the
+    dense ``router_top1`` builds its one-hots from."""
     moe = importlib.import_module("cron_operator_tpu_torch.parallel.moe")
-    real = moe.router_top1
+    real = moe.router_top1_indices
 
     def spy(logits, capacity):
         routes.append(logits.detach().argmax(dim=-1))
         return real(logits, capacity)
 
-    moe.router_top1 = spy
+    moe.router_top1_indices = spy
     try:
         yield routes
     finally:
-        moe.router_top1 = real
+        moe.router_top1_indices = real
 
 
 def phase_train_correctness(torch, model_cls, cfg, stream, label):
@@ -1740,46 +1768,194 @@ def moe_cfg(**over):
                      num_experts=int(MOE_PARAMS["num_experts"]), **over)
 
 
-def onehot_products_ms(torch, cfg, shape: dict):
-    """Device ms of the one-hot dispatch and combine products of one MoE
-    layer at the training step's shapes, forward and backward (the five
-    products autograd runs: dispatch and combine forward, dX through the
-    dispatch, and the combine's two gradients), in bf16 with the dispatch
-    of a real routing, each timed alone."""
-    from cron_operator_tpu_torch.parallel.moe import _capacity, router_top1
+@contextlib.contextmanager
+def dense_moe():
+    """The MoE GPT's FFN on the dense one-hot formulation
+    (``moe_ffn_reference``, the plain version of the index path) while the
+    context is open, swapped in as ``recorded_routes`` swaps the router."""
+    gpt = importlib.import_module("cron_operator_tpu_torch.models.gpt")
+    moe = importlib.import_module("cron_operator_tpu_torch.parallel.moe")
+    gpt.moe_ffn = moe.moe_ffn_reference
+    try:
+        yield
+    finally:
+        gpt.moe_ffn = moe.moe_ffn
 
+
+def same_bits(torch, a, b) -> bool:
+    """Whether ``a`` and ``b`` hold the same bits."""
+    kind = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(kind), b.view(kind))
+
+
+def check_moe_index_path(torch, card, cfg, shape: dict) -> dict:
+    """``moe_ffn`` (dispatch and combine gathered by token index) against
+    ``moe_ffn_reference`` (the dense ``[T, E, C]`` one-hot products) on the
+    card at one MoE layer of the training step: T = b s tokens, GPT-2
+    small's widths, the config's experts and capacity factor, bf16 over
+    f32 parameters, real routes from seeded weights. The output, dX
+    through the dispatch (both paths given detached logits) and the
+    experts' gradients must be the same bits, the router's gradient within
+    ``MOE_ROUTER_GRAD_REL`` of its largest entry (the dense path rounds
+    each gate's gradient to bf16), and a rerun of the index path
+    bit-identical. Then the device ms of dispatch and combine with their
+    routing, forward and backward, on each path, and of the whole layer
+    on each."""
+    moe = importlib.import_module("cron_operator_tpu_torch.parallel.moe")
     t, d, e = shape["b"] * shape["s"], cfg.hidden_size, cfg.num_experts
-    c = _capacity(t, e, cfg.moe_capacity_factor)
+    factor = cfg.moe_capacity_factor
+    c = moe._capacity(t, e, factor)
     gen = torch.Generator(device="cuda").manual_seed(6)
+    params = moe.init_moe_params(gen, d_model=d, d_ff=cfg.mlp_dim,
+                                 n_experts=e)
+    x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
 
-    def randn(*size):
-        return torch.randn(*size, generator=gen, device="cuda")
+    def run(fn, detached=False):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xl = x.clone().requires_grad_()
+        real = moe.router_top1_indices
+        if detached:
+            moe.router_top1_indices = lambda lg, cap: real(lg.detach(), cap)
+        try:
+            y, aux = fn(leaves, xl, capacity_factor=factor,
+                        compute_dtype=torch.bfloat16)
+            ((y.float() ** 2).mean() + 0.01 * aux).backward()
+        finally:
+            moe.router_top1_indices = real
+        return y.detach(), xl.grad, {k: v.grad for k, v in leaves.items()}
 
-    x = randn(t, d)
-    combine, dispatch, _ = router_top1(x @ (randn(d, e) * 0.02), c)
-    x, combine, dispatch = (v.bfloat16() for v in (x, combine, dispatch))
-    expert_out, d_in = randn(e, c, d).bfloat16(), randn(e, c, d).bfloat16()
-    d_y = randn(t, d).bfloat16()
-    products = {
-        "dispatch": lambda: torch.einsum("td,tec->ecd", x, dispatch),
-        "combine": lambda: torch.einsum("ecd,tec->td", expert_out, combine),
-        "dX through dispatch": lambda: torch.einsum("ecd,tec->td", d_in,
-                                                    dispatch),
-        "d expert_out": lambda: torch.einsum("td,tec->ecd", d_y, combine),
-        "d combine": lambda: torch.einsum("td,ecd->tec", d_y, expert_out),
+    index, dense = run(moe.moe_ffn), run(moe.moe_ffn_reference)
+    again = run(moe.moe_ffn)
+    dx_index = run(moe.moe_ffn, True)[1]
+    dx_dense = run(moe.moe_ffn_reference, True)[1]
+    _, slot, _, _ = moe.router_top1_indices(x.float() @ params["router"], c)
+    kept = int((slot < c).sum())
+    router_err = ((index[2]["router"] - dense[2]["router"]).abs().max()
+                  / dense[2]["router"].abs().max()).item()
+    checks = {
+        "y": same_bits(torch, index[0], dense[0]),
+        "dX through the dispatch": same_bits(torch, dx_index, dx_dense),
+        "wi grad": same_bits(torch, index[2]["wi"], dense[2]["wi"]),
+        "wo grad": same_bits(torch, index[2]["wo"], dense[2]["wo"]),
+        "rerun": same_bits(torch, again[0], index[0]) and same_bits(
+            torch, again[1], index[1]) and all(
+                same_bits(torch, again[2][k], index[2][k]) for k in params),
+        "router grad": router_err <= MOE_ROUTER_GRAD_REL,
     }
-    ms = {name: device_ms(torch, fn, iters=10, reps=3)
-          for name, fn in products.items()}
-    flops = 2 * t * e * c * d
-    return ms, flops
+    print(f"moe index path vs dense (T {t}, E {e}, C {c}, d {d}, bf16; "
+          f"{kept} tokens kept): " + ", ".join(
+              f"{k} {'ok' if v else 'DIFFERS'}" for k, v in checks.items())
+          + f" (router grad max err {router_err:.3e} of its largest entry, "
+          f"at most {MOE_ROUTER_GRAD_REL:.3e})", flush=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"moe: the index path differs from the dense one in {bad}")
+    del index, dense, again, dx_index, dx_dense
+    release(torch)
+
+    # dispatch and combine with their routing, forward and backward, from
+    # the f32 logits, bf16 x and a bf16 expert output (the expert products
+    # between them are the same on both paths)
+    logits = (x.float() @ params["router"]).requires_grad_()
+    xg = x.clone().requires_grad_()
+    expert_out = torch.randn(e, c, d, generator=gen, device="cuda",
+                             dtype=torch.bfloat16).requires_grad_()
+    d_in = torch.randn(e, c, d, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    d_y = torch.randn(t, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+    leaves = [xg, expert_out, logits]
+
+    def index_pass():
+        experts, slot, gate, _ = moe.router_top1_indices(logits, c)
+        dest, src = moe.slot_indices(experts, slot, c, e)
+        expert_in = moe._Dispatch.apply(xg, src, dest, e)
+        y = moe._Combine.apply(expert_out, gate, src, dest)
+        torch.autograd.grad([expert_in, y], leaves, [d_in, d_y])
+
+    def dense_pass():
+        combine, dispatch, _ = moe.router_top1(logits, c)
+        dispatch, combine = dispatch.bfloat16(), combine.bfloat16()
+        expert_in = torch.matmul(dispatch.permute(1, 2, 0), xg)
+        y = torch.matmul(combine.reshape(t, e * c), expert_out.reshape(e * c, d))
+        torch.autograd.grad([expert_in, y], leaves, [d_in, d_y])
+
+    def layer(fn):
+        def go():
+            leaves_ = {k: v.detach().requires_grad_() for k, v in
+                       params.items()}
+            xl = x.detach().requires_grad_()
+            y, aux = fn(leaves_, xl, capacity_factor=factor,
+                        compute_dtype=torch.bfloat16)
+            torch.autograd.grad((y.float() ** 2).mean() + 0.01 * aux,
+                                [*leaves_.values(), xl])
+        return go
+
+    ms = {}
+    for name, fn in (("index", index_pass), ("dense", dense_pass),
+                     ("dense", dense_pass), ("index", index_pass)):
+        ms.setdefault(name, []).append(device_ms(torch, fn, iters=10, reps=3))
+    ms = {k: min(v) for k, v in ms.items()}
+    layer_ms = {"index": device_ms(torch, layer(moe.moe_ffn), iters=10,
+                                   reps=3),
+                "dense": device_ms(torch, layer(moe.moe_ffn_reference),
+                                   iters=10, reps=3)}
+    print(f"[{card}] moe dispatch + combine with routing, forward and "
+          f"backward, one layer (device ms): index {ms['index']:.4f}, dense "
+          f"{ms['dense']:.4f} ({5 * 2 * t * e * c * d / 1e9:.1f} GFLOP of "
+          f"one-hot products) | the whole layer, forward and backward: index "
+          f"{layer_ms['index']:.4f}, dense {layer_ms['dense']:.4f}",
+          flush=True)
+    return {"dispatch_combine_ms": ms, "layer_ms": layer_ms, "kept": kept,
+            "capacity": c, "router_grad_err": router_err}
+
+
+def moe_step_ab(torch, card, make_trainer) -> dict:
+    """The graphed MoE step on the index path and with the dense one-hot
+    formulation swapped in (``dense_moe``), in turns index, dense, dense,
+    index, each on a fresh trainer: the peak memory of its first graphed
+    call (the warm-up step, the capture and 7 replays), then the ms a step
+    of a graphed call (CUDA events, median of 3) and its device ms (the
+    card held busy). Each path keeps its faster reading."""
+    k = GRAPH_CHUNK
+    rows = {}
+    for path in ("index", "dense", "dense", "index"):
+        with dense_moe() if path == "dense" else contextlib.nullcontext():
+            release(torch)
+            torch.cuda.reset_peak_memory_stats()
+            trainer = make_trainer()
+            trainer.step({}, chunk=k)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+
+            def graph():
+                trainer.step({}, sync=False, chunk=k)
+
+            step = median_ms(torch, graph, iters=1, reps=3, warmup=1) / k
+            device = device_ms(torch, graph, iters=1, reps=3) / k
+            del trainer
+            release(torch)
+        rows.setdefault(path, []).append(
+            {"step_ms": step, "device_ms": device, "peak_bytes": peak})
+    best = {p: min(r, key=lambda row: row["step_ms"]) for p, r in rows.items()}
+    print(f"[{card}] moe step A/B (graphed, index/dense/dense/index): "
+          + " | ".join(f"{p} " + ", ".join(
+              f"{r['step_ms']:.3f} ms ({r['device_ms']:.3f} device, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB)" for r in rs)
+              for p, rs in rows.items())
+          + f" | index/dense {best['index']['step_ms'] / best['dense']['step_ms']:.4f}"
+          f" | beside {MOE_ONEHOT['step_ms']} ms and "
+          f"{MOE_ONEHOT['peak_gib']} GiB on the one-hot products (PERF.md "
+          "section 5)", flush=True)
+    return {"runs": rows, "best": best}
 
 
 def phase_moe_train(torch, fa, card):
     """Switch-MoE training at GPT-2 small width: the job (K1-K3 120 each,
     all sm90), the kernel path against the plain path and f32 with route
     flips counted, peak memory, the graph against the eager step, MFU over
-    the counted and over the active FLOPs, and the one-hot products'
-    share of the step's device time."""
+    the counted and over the active FLOPs; the index dispatch and combine
+    against the dense one-hot formulation at one layer (bits, device ms)
+    and the graphed step on each path in one process."""
     from cron_operator_tpu_torch.models import GPT
     from cron_operator_tpu_torch.workloads import data
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
@@ -1826,29 +2002,34 @@ def phase_moe_train(torch, fa, card):
         2 * cfg.hidden_size * cfg.mlp_dim)
     active = lm_model_flops(n_active, TRAIN_SHAPE, True, cfg.num_layers)
     print(f"[{card}] moe train: peak memory {eager_peak / 2**30:.2f} GiB "
-          f"(eager step), {graph_peak / 2**30:.2f} GiB (first graphed call) "
-          f"| counted FLOPs/step {counted / 1e12:.4f} T (FlopCounterMode, "
-          f"one-hot products included) | active {active / 1e12:.4f} T (6 N T "
-          f"over {n_active} active parameters + attention)", flush=True)
+          f"(eager step), {graph_peak / 2**30:.2f} GiB (first graphed call; "
+          f"{MOE_ONEHOT['peak_gib']} on the one-hot products) | counted "
+          f"FLOPs/step {counted / 1e12:.4f} T (FlopCounterMode; "
+          f"{MOE_ONEHOT['counted_tflop']} with the one-hot products) | active "
+          f"{active / 1e12:.4f} T (6 N T over {n_active} active parameters + "
+          f"attention; {MOE_ONEHOT['active_tflop']} before) | counted/active "
+          f"{counted / active:.4f}", flush=True)
     step = graph_vs_eager(
         torch, card, f"moe train step (GPT-2 small, moe_every 2, 8 experts, "
         f"b{b} s{s}, bf16/f32 masters, AdamW)", make_trainer, counted,
         b * s, "tokens", BEFORE_MS["moe"], {**UNALIGNED_GEMM, **OUTER_SCAN})
-    ms, flops = onehot_products_ms(torch, cfg, TRAIN_SHAPE)
-    per_step = n_moe * sum(ms.values())
-    share = per_step / step["device_ms"]
+    layer = check_moe_index_path(torch, card, cfg, TRAIN_SHAPE)
+    ab = moe_step_ab(torch, card, make_trainer)
+    per_step = {k: n_moe * v for k, v in layer["dispatch_combine_ms"].items()}
+    share = per_step["index"] / step["device_ms"]
     active_mfu = active / (step["graph"]["step_ms"] / 1e3 * BF16_FLOPS)
-    print(f"[{card}] moe one-hot products, one layer (device ms, "
-          f"{flops / 1e9:.1f} GFLOP each): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
-          + f" | x{n_moe} layers {per_step:.3f} ms of {step['device_ms']:.3f}"
-          f" ms device a step ({100 * share:.1f}%) | MFU over active FLOPs "
-          f"(graph) {active_mfu:.4f}", flush=True)
+    print(f"[{card}] moe dispatch + combine x{n_moe} layers: index "
+          f"{per_step['index']:.3f} ms of {step['device_ms']:.3f} ms device a "
+          f"step ({100 * share:.1f}%), dense {per_step['dense']:.3f} | graphed "
+          f"step {step['graph']['step_ms']:.3f} ms beside "
+          f"{MOE_ONEHOT['step_ms']} | MFU over active FLOPs (graph) "
+          f"{active_mfu:.4f}", flush=True)
     return counts, {
         **step, "eager_peak_bytes": eager_peak, "graph_peak_bytes": graph_peak,
         "counted_flops_per_step": counted, "active_flops_per_step": active,
-        "active_mfu_graph": active_mfu, "onehot_ms_per_layer": ms,
-        "onehot_ms_per_step": per_step, "onehot_share": share,
+        "active_mfu_graph": active_mfu, "index_vs_dense": layer,
+        "dispatch_combine_ms_per_step": per_step,
+        "dispatch_combine_share": share, "step_ab": ab,
         "job_tokens_per_s": progress["tokens_per_s"],
         "job_avg_step_time_s": progress["avg_step_time_s"],
         "job_first_step_s": progress["compile_time_s"],
@@ -1856,8 +2037,10 @@ def phase_moe_train(torch, fa, card):
 
 
 def phase_moe_serving(torch, fa, card):
-    """Switch-MoE serving: ``generate_job`` at the slice's shape, the decode
-    graph against the eager loop; then the cached greedy decode against a
+    """Switch-MoE serving: ``generate_job`` at the slice's shape; eager
+    prefill on the index and the dense path in turns, and the greedy tokens
+    of each (equal: the forward is the same bits); the decode graph against
+    the eager loop; then the cached greedy decode against a
     full-forward rerun (the oracle of the JAX package's MoE decode test) at
     full width with capacity factor 8: no token is dropped on either path,
     and in f32 neither rounding nor a route flips a greedy token."""
@@ -1870,11 +2053,45 @@ def phase_moe_serving(torch, fa, card):
     model = slice_model(torch, cfg)
     prompt = torch.randint(0, cfg.vocab_size, (8, 512), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(2))
+    # eager prefill is host-bound: its wall ms follows the host's load
+    # (8-23 ms on either path in one call), and so does a device time taken
+    # with the card held busy, whose hold the enqueue can outlast. Each
+    # path's kernel time from a profile (the sum of its kernels' device
+    # time) is read beside it.
+    prefill, prefill_kernels = {}, {}
     with torch.inference_mode():
         cache = model.new_cache(8)
-        prefill_ms = median_ms(torch, lambda: model.prefill(prompt, cache),
-                               iters=3)
-    del model, cache
+
+        def prefill_call():
+            model.prefill(prompt, cache)
+
+        for path in ("index", "dense", "dense", "index"):
+            with dense_moe() if path == "dense" else contextlib.nullcontext():
+                prefill.setdefault(path, []).append(
+                    median_ms(torch, prefill_call, iters=3))
+                prefill_kernels.setdefault(path, []).append(profile_window(
+                    torch, card, f"moe prefill ({path})", prefill_call)[1])
+        del cache
+    prefill_ms = min(prefill["index"])
+    # greedy tokens on each path, eager (a captured decode step is kept per
+    # model and would replay the first path's kernels)
+    tokens = {}
+    for path in ("index", "dense"):
+        with dense_moe() if path == "dense" else contextlib.nullcontext():
+            tokens[path] = serving.generate(cfg, model, prompt[:, :128], 16,
+                                            captured=False)
+    same = torch.equal(tokens["index"], tokens["dense"])
+    print(f"[{card}] moe prefill (b8 p512, eager; index/dense/dense/index): "
+          + " | ".join(f"{p} " + ", ".join(
+              f"{v:.3f} ({d:.3f} in kernels)" for v, d in zip(
+                  vs, prefill_kernels[p])) for p, vs in prefill.items())
+          + f" ms, beside {MOE_ONEHOT['prefill_ms']} on the one-hot products"
+          f" | greedy tokens (b8 p128 +16, eager) index "
+          f"{'==' if same else '!='} dense", flush=True)
+    if not same:
+        fail("moe serving: the index path's greedy tokens differ from the "
+             "dense path's")
+    del model
     release(torch)
     rows = phase_serving_graph(torch, card, prefill_ms, cfg, "moe generate",
                                BEFORE_MS["moe decode"])
@@ -1903,12 +2120,15 @@ def phase_moe_serving(torch, fa, card):
     del model
     release(torch)
     print(f"[{card}] moe serving: prefill {prefill_ms:.3f} ms (b8 p512) | "
-          f"decode {rows['graph']['decode_ms_per_step']:.3f} ms/step graph, "
+          f"decode {rows['graph']['decode_ms_per_step']:.3f} ms/step graph "
+          f"(beside {MOE_ONEHOT['decode_ms']} on the one-hot products), "
           f"{rows['eager']['decode_ms_per_step']:.3f} eager | "
           f"{rows['graph']['tokens_per_s']:.1f} tokens/s graph | job "
           f"{progress['tokens_per_s']} tokens/s", flush=True)
     return launches, decode_launches, {
-        "prefill_ms": prefill_ms, "job_tokens_per_s": progress["tokens_per_s"],
+        "prefill_ms": prefill_ms, "prefill_ms_by_path": prefill,
+        "prefill_kernel_ms_by_path": prefill_kernels,
+        "job_tokens_per_s": progress["tokens_per_s"],
         "oracle_margin": margin, **rows}
 
 

@@ -1,23 +1,37 @@
 """Switch top-1 mixture-of-experts FFN on one device, as in
 ``cron_operator_tpu/parallel/moe.py``.
 
-- **Dense dispatch, static shapes.** Routing is two products with a
-  ``[tokens, experts, capacity]`` one-hot dispatch and combine tensor (the
-  GShard formulation), not a gather and scatter: every shape follows from
-  the input's shape, and no step reads the device from the host, so a
-  routed step can be captured in a CUDA graph and replayed.
+- **Dispatch and combine by token index.** The router gives each token an
+  expert and a slot in that expert's buffer (:func:`router_top1_indices`);
+  :func:`slot_indices` turns them into each token's flat slot and each
+  slot's token. Dispatch gathers the kept tokens' rows into ``[E, C, d]``
+  and combine gathers each token's expert output back, scaled by its
+  gate. Each kept token fills one slot and each slot holds at most one
+  token, so these equal the reference's dense ``[tokens, experts,
+  capacity]`` one-hot products (GShard's formulation) to the bit, forward
+  and through the dispatch's gradient, at none of their cost: those
+  products were a ``[T, E*C]`` matmul each, five a layer in training.
+  Their backward passes are gathers too, with no atomics, so reruns are
+  bit-identical. Only the gate's gradient, summed in f32 here, adds in
+  another order.
+- **Static shapes, no host read.** Every shape follows from the input's,
+  and the index build is device ops alone (a scatter into a buffer with
+  one spare entry, no ``nonzero`` or boolean indexing), so a routed step
+  can be captured in a CUDA graph and replayed.
 - **Top-1 routing with a capacity.** Each expert's buffer holds
   ``capacity = ceil(tokens / E * factor)`` tokens, filled in token order;
-  the tokens past it are dropped (combine weight 0: they pass through the
-  residual). The Switch load-balancing loss is returned for the trainer
-  to add.
+  the tokens past it are dropped (gate 0, a zero row: they pass through
+  the residual). The Switch load-balancing loss is returned for the
+  trainer to add.
 
-The one-hots are built by comparing indices with an ``arange``: a dropped
-token's slot index is ``capacity``, which matches no column and gives the
-all-zero row that ``jax.nn.one_hot`` gives an out-of-range index
-(``F.one_hot`` would raise, and checks its range on the host).
+:func:`router_top1` builds the reference's one-hots from the same routes,
+by comparing indices with an ``arange``: a dropped token's slot index is
+``capacity``, which matches no column and gives the all-zero row that
+``jax.nn.one_hot`` gives an out-of-range index (``F.one_hot`` would raise,
+and checks its range on the host). :func:`moe_ffn_reference` runs the
+dense products on them: the plain version the index path is held to.
 
-Over a mesh the parameters and tokens are DTensors: the expert-stacked
+Over a mesh of DTensors the dense formulation runs: the expert-stacked
 ``wi``/``wo`` lie on ``Shard(0)`` over the ``expert`` axis
 (:func:`moe_param_sharding`, or ``parallel.mesh.sharding_for_tree``), the
 router is replicated, and DTensor's propagation over the four products
@@ -29,11 +43,12 @@ row-major token order and the capacity comes from the global token
 count. On the plain data-parallel path (``parallel.mesh.data_parallel``)
 the tokens are each rank's plain rows and ``moe_ffn`` takes the process
 group they are split over (``group``): the logits are gathered and routed
-alike on every rank, the capacity counts every rank's tokens, each
-expert's input is the sum over the ranks of their dispatched tokens (each
-slot holds one token, so the sum is exact), and every rank runs every
-expert on it and combines its own rows. The routes and the output are
-those of one device, as under GSPMD.
+alike on every rank, the capacity counts every rank's tokens, each rank
+gathers its own tokens into their slots (other ranks' slots read a zero
+row), each expert's input is the sum over the ranks (each slot holds one
+token, so the sum is exact), and every rank runs every expert on it and
+combines its own rows. The routes and the output are those of one
+device, as under GSPMD.
 
 Usage::
 
@@ -95,17 +110,18 @@ def _slot_positions(expert_mask: torch.Tensor) -> torch.Tensor:
     return ((counts - 1.0) * expert_mask).sum(dim=-1).long()
 
 
-def router_top1(
+def router_top1_indices(
     logits: torch.Tensor, capacity: int
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Switch top-1 router.
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Switch top-1 router in index form.
 
-    ``logits``: ``[T, E]``. Returns (combine ``[T, E, C]``, dispatch
-    ``[T, E, C]`` one-hot, aux load-balance loss), in ``logits``' dtype. A
-    token's slot is its 0-based rank among the tokens routed to its expert
-    (cumsum order over ``T``); rank >= capacity drops it. ``dispatch``
-    carries no gradient; ``combine`` carries the router's through the gate
-    probability, and the aux loss through the mean router probability.
+    ``logits``: ``[T, E]``. Returns (``expert_index [T]``, ``slot [T]``,
+    ``gate [T]``, aux load-balance loss). A token's slot is its 0-based
+    rank among the tokens routed to its expert (cumsum order over ``T``);
+    rank >= capacity drops it, and its ``slot`` is then ``capacity``.
+    ``gate`` is the chosen expert's router probability, in ``logits``'
+    dtype, and 0 for a dropped token; it carries the router's gradient,
+    and the aux loss carries it through the mean router probability.
     """
     T, E = logits.shape
     probs = torch.softmax(logits, dim=-1)
@@ -122,9 +138,27 @@ def router_top1(
     kept = position < capacity
 
     gate = (probs * expert_mask).sum(dim=-1) * kept  # [T]
-    slot = torch.where(kept, position, capacity)  # overflow -> C: no column
+    slot = torch.where(kept, position, capacity)  # overflow -> C
+    return expert_index, slot, gate, aux_loss
+
+
+def router_top1(
+    logits: torch.Tensor, capacity: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Switch top-1 router in the reference's one-hot form.
+
+    ``logits``: ``[T, E]``. Returns (combine ``[T, E, C]``, dispatch
+    ``[T, E, C]`` one-hot, aux load-balance loss), in ``logits``' dtype,
+    built from :func:`router_top1_indices`: a dropped token's slot is
+    ``capacity``, which matches no column. ``dispatch`` carries no
+    gradient; ``combine`` carries the router's through the gate.
+    """
+    E = logits.shape[1]
+    expert_index, slot, gate, aux_loss = router_top1_indices(logits, capacity)
+    experts = torch.arange(E, device=logits.device)
+    expert_mask = (expert_index[:, None] == experts).to(gate.dtype)  # [T, E]
     slots = torch.arange(capacity, device=logits.device)
-    slot_one_hot = (slot[:, None] == slots).to(probs.dtype)  # [T, C]
+    slot_one_hot = (slot[:, None] == slots).to(gate.dtype)  # [T, C]
     dispatch = expert_mask[:, :, None] * slot_one_hot[:, None, :]  # [T, E, C]
     combine = gate[:, None, None] * dispatch
     return combine, dispatch, aux_loss
@@ -199,6 +233,73 @@ def moe_param_sharding(params: Dict[str, torch.Tensor], mesh) -> Dict[str, tuple
     return out
 
 
+def slot_indices(
+    expert_index: torch.Tensor, slot: torch.Tensor, capacity: int,
+    n_experts: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``dest [T]``, ``src [E*C]``) from :func:`router_top1_indices`'s
+    routes: ``dest[t]`` is token t's flat slot ``expert * C + slot``, or
+    ``E*C`` for a dropped token; ``src[j]`` is the token in flat slot j,
+    or ``T`` for an empty slot. Device ops only (no ``nonzero``, no
+    boolean indexing, no host read), so a step that builds them captures:
+    ``src`` is ``arange(T)`` scattered into ``E*C + 1`` entries of ``T``,
+    every dropped token onto the last one, whose undefined winner is cut
+    off unread."""
+    T = expert_index.shape[0]
+    flat = n_experts * capacity
+    dest = torch.where(slot < capacity, expert_index * capacity + slot, flat)
+    src = torch.full((flat + 1,), T, dtype=torch.long,
+                     device=expert_index.device)
+    src.scatter_(0, dest, torch.arange(T, device=expert_index.device))
+    return dest, src[:flat]
+
+
+def _rows(v: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """Rows ``index`` of the 2-D ``v``, where index ``len(v)`` reads a row
+    of zeros."""
+    return torch.cat([v, v.new_zeros(1, v.shape[1])])[index]
+
+
+class _Dispatch(torch.autograd.Function):
+    """``expert_in [E, C, d]``: flat slot j holds row ``src[j]`` of ``x``,
+    zeros where the slot is empty. The gradient is a gather too, row
+    ``dest[t]`` of the incoming one (zeros for a dropped token): each slot
+    holds one token, so no sum is needed, and no atomics run."""
+
+    @staticmethod
+    def forward(ctx, x, src, dest, n_experts):
+        ctx.save_for_backward(dest)
+        return _rows(x, src).view(n_experts, -1, x.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dest,) = ctx.saved_tensors
+        return _rows(grad.reshape(-1, grad.shape[-1]), dest), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``y[t] = gate[t] * expert_out[dest[t]]`` in the expert output's dtype,
+    the f32 gate cast to it first, as the reference casts its combine
+    tensor; a dropped token reads a zero row. Backward, by gathers:
+    ``d expert_out[j] = gate[src[j]] * dy[src[j]]`` and
+    ``d gate[t] = <dy[t], expert_out[dest[t]]>`` summed in f32."""
+
+    @staticmethod
+    def forward(ctx, expert_out, gate, src, dest):
+        picked = _rows(expert_out.reshape(-1, expert_out.shape[-1]), dest)
+        gate_cd = gate.to(picked.dtype)
+        ctx.save_for_backward(picked, gate_cd, src)
+        ctx.shape, ctx.gate_dtype = expert_out.shape, gate.dtype
+        return picked * gate_cd[:, None]
+
+    @staticmethod
+    def backward(ctx, dy):
+        picked, gate_cd, src = ctx.saved_tensors
+        d_out = _rows(dy, src) * _rows(gate_cd[:, None], src)
+        d_gate = (dy.float() * picked.float()).sum(dim=-1)
+        return d_out.view(ctx.shape), d_gate.to(ctx.gate_dtype), None, None
+
+
 def moe_ffn(
     params: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -215,11 +316,56 @@ def moe_ffn(
     batch split over the group's ranks in rank order, routed with every
     rank's tokens (see the module docstring).
 
-    Routing (logits, softmax, aux loss) always runs in f32. The four
-    products (dispatch, the two expert matmuls, combine) run in
-    ``compute_dtype`` (default ``x.dtype``), with the one-hots cast to it;
-    gelu is tanh-approximate, as flax's.
+    Routing (logits, softmax, aux loss) always runs in f32. Dispatch and
+    combine are gathers by token index; the two expert matmuls run in
+    ``compute_dtype`` (default ``x.dtype``); gelu is tanh-approximate, as
+    flax's. DTensor inputs or parameters take :func:`moe_ffn_reference`.
     """
+    if isinstance(x, DTensor) or any(isinstance(p, DTensor)
+                                     for p in params.values()):
+        return moe_ffn_reference(params, x, capacity_factor=capacity_factor,
+                                 compute_dtype=compute_dtype, group=group)
+    T = x.shape[0]
+    E = params["wi"].shape[0]
+    ranks = 1 if group is None else dist.get_world_size(group)
+    C = _capacity(T * ranks, E, capacity_factor)
+    cd = compute_dtype or x.dtype
+
+    logits = x.float() @ params["router"].float()
+    if ranks > 1:
+        logits = _GatherRows.apply(logits, group)
+    expert_index, slot, gate, aux_loss = router_top1_indices(logits, C)
+    dest, src = slot_indices(expert_index, slot, C, E)
+    if ranks > 1:
+        # this rank's rows are global tokens first .. first + T - 1; the
+        # slots of other ranks' tokens read the zero row here
+        first = dist.get_rank(group) * T
+        dest, gate = dest[first:first + T], gate[first:first + T]
+        src = src - first
+        src = torch.where((src >= 0) & (src < T), src, T)
+
+    expert_in = _Dispatch.apply(x.to(cd), src, dest, E)  # [E, C, d]
+    if ranks > 1:
+        expert_in = _SumOver.apply(expert_in, group)
+    h = F.gelu(torch.bmm(expert_in, params["wi"].to(cd)), approximate="tanh")
+    expert_out = torch.bmm(h, params["wo"].to(cd))  # [E, C, d]
+    return _Combine.apply(expert_out, gate, src, dest), aux_loss
+
+
+def moe_ffn_reference(
+    params: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    *,
+    capacity_factor: float = 1.25,
+    compute_dtype: Optional[torch.dtype] = None,
+    group=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_ffn` in the reference's dense formulation: dispatch and
+    combine are products with the ``[T, E, C]`` one-hots of
+    :func:`router_top1`, cast to ``compute_dtype``. It is the plain version
+    that the index path is held to, and the path of DTensor inputs and
+    parameters (``tensor``, ``expert`` and ``seq`` meshes), whose
+    collectives DTensor's propagation over the products places."""
     T = x.shape[0]
     E = params["wi"].shape[0]
     ranks = 1 if group is None else dist.get_world_size(group)
@@ -249,4 +395,6 @@ def moe_ffn(
     return y, aux_loss
 
 
-__all__ = ["init_moe_params", "moe_ffn", "moe_param_sharding", "router_top1"]
+__all__ = ["init_moe_params", "moe_ffn", "moe_ffn_reference",
+           "moe_param_sharding", "router_top1", "router_top1_indices",
+           "slot_indices"]

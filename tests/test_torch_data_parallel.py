@@ -206,3 +206,22 @@ def test_moe_ffn_routes_every_ranks_tokens_as_one_device(worlds):
                                        rtol=1e-5, atol=1e-6)
     # routed among its own tokens alone, a rank drops other tokens
     assert any(not torch.allclose(got["alone"], got["y"]) for got in ranks)
+
+
+def test_moe_ffn_group_index_path_equals_the_dense_one(worlds):
+    """Over the group too, each rank's gathers give the dense products'
+    output and expert gradients to the bit: a slot of another rank's token
+    reads a zero row, and the sum over the ranks adds exact zeros. The
+    router's and x's gradients (the gate's <dy, expert_out> summed in
+    another order) stay within f32 rounding."""
+    for got in worlds["moe_ffn"]:
+        dense = got["dense"]
+        assert torch.equal(got["y"], dense["y"])
+        assert torch.equal(got["aux"], dense["aux"])
+        for name in ("wi", "wo"):
+            assert torch.equal(got["grads"][name], dense["grads"][name]), name
+        torch.testing.assert_close(got["grads"]["router"],
+                                   dense["grads"]["router"], rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(got["x_grad"], dense["x_grad"], rtol=1e-5,
+                                   atol=1e-6)

@@ -253,7 +253,9 @@ def test_moe_random_init_uses_flax_scales():
 def test_moe_flops_per_step_are_counted():
     """``Trainer.flops_per_step`` counts an MoE GPT's step on the meta
     device (the routing's argmax and cumsum included): not None, and above
-    the dense model's by the one-hot dispatch and combine products."""
+    the dense model's by the experts' and the router's products alone:
+    dispatch and combine are gathers by token index, which count no
+    FLOPs."""
     from cron_operator_tpu_torch.workloads import data
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
@@ -267,11 +269,10 @@ def test_moe_flops_per_step_are_counted():
         flops[name] = trainer.flops_per_step()
     assert flops["moe"] is not None and flops["dense"] is not None
     # layer 1's FFN (2 x 64 tokens x 128 x 512 x 2 products, x 3 for the
-    # backward) becomes E=4 experts over C=20 slots each, plus the four
-    # one-hot products over T x E x C
+    # backward) becomes E=4 experts over C=20 slots each
     t, d, f, e, c = 64, 128, 512, 4, 20
     dense_ffn = 3 * 2 * 2 * t * d * f
-    moe_ffn = 3 * 2 * 2 * e * c * d * f + 2 * t * e * c * d * (2 + 3)
+    moe_ffn = 3 * 2 * 2 * e * c * d * f
     router = 3 * 2 * t * d * e
     assert flops["moe"] - flops["dense"] == pytest.approx(
         moe_ffn + router - dense_ffn, rel=0.02)

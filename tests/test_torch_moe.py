@@ -8,6 +8,10 @@ token's route (its expert, and its slot in that expert's buffer) is JAX's,
 and that the inputs sit clear of ties (the smallest top-1 margin of the
 router probabilities is stated per case), and only then compares values.
 The expert-sharded cases of ``tests/test_moe.py`` wait for the mesh.
+
+The port's plain-tensor path dispatches and combines by token index
+(gathers); its dense one-hot formulation stays as ``moe_ffn_reference``,
+and the last cases hold the one to the other.
 """
 
 import jax
@@ -19,12 +23,16 @@ import torch
 from cron_operator_tpu.parallel.moe import init_moe_params as jax_init
 from cron_operator_tpu.parallel.moe import moe_ffn as jax_moe_ffn
 from cron_operator_tpu.parallel.moe import router_top1 as jax_router_top1
+from cron_operator_tpu_torch.parallel import moe as port_moe
 from cron_operator_tpu_torch.parallel.moe import (
     _slot_positions,
     _capacity,
     init_moe_params,
     moe_ffn,
+    moe_ffn_reference,
     router_top1,
+    router_top1_indices,
+    slot_indices,
 )
 
 D, F, E = 8, 16, 4
@@ -266,3 +274,120 @@ def test_routes_at_the_training_token_count_equal_jax():
     _, dispatch, _ = router_top1(torch.tensor(logits), 64)
     _, jax_dispatch, _ = jax_router_top1(jnp.asarray(logits), 64)
     np.testing.assert_array_equal(dispatch.numpy(), np.asarray(jax_dispatch))
+
+
+# The index path against the dense formulation. name: (experts, capacity
+# factor); None sets the capacity to the busiest expert's count, so that
+# expert's buffer is exactly full and no token drops.
+INDEX_CASES = {
+    "dropped": (4, 0.5),
+    "empty_slots": (4, 2.0),
+    "exactly_full": (4, None),
+    "one_expert": (1, 1.0),
+}
+INDEX_TOKENS = 64
+# The router's and x's gradients: the index path sums each gate's gradient
+# <dy, expert_out> in f32 in its own order (f32: 1e-5 of the largest entry,
+# as the JAX parity cases), where the dense path takes it from a product
+# that rounds it to the compute dtype (bf16: unit roundoff 2^-8 on each
+# token's term, so 2^-7 of the largest entry).
+ROUTER_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _index_run(fn, params, x, factor, dtype):
+    """y, aux, dx and the parameters' gradients of mean(y^2) + 0.01 aux."""
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xl = x.clone().requires_grad_()
+    y, aux = fn(leaves, xl, capacity_factor=factor, compute_dtype=dtype)
+    ((y.float() ** 2).mean() + 0.01 * aux).backward()
+    return (y.detach(), aux.detach(), xl.grad,
+            {k: v.grad for k, v in leaves.items()})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(INDEX_CASES))
+def test_index_path_equals_the_dense_formulation(case, dtype, monkeypatch):
+    """Each kept token fills one slot and each slot holds one token, so
+    every row of the dense products has one non-zero term: the gathers give
+    the forward, dX through the dispatch and the experts' gradients to the
+    bit, in f32 and bf16. The router's and x's gradients (x's through the
+    router's logits) are within ``ROUTER_GRAD_REL``; a rerun is
+    bit-identical."""
+    experts, factor = INDEX_CASES[case]
+    T = INDEX_TOKENS
+    gen = torch.Generator().manual_seed(7)
+    params = init_moe_params(gen, d_model=D, d_ff=F, n_experts=experts)
+    x = torch.randn(T, D, generator=gen).to(dtype)
+    logits = x.float() @ params["router"]
+    expert_index, _, _, _ = router_top1_indices(logits, T)
+    counts = torch.bincount(expert_index, minlength=experts)
+    if factor is None:
+        factor = (counts.max().item() - 0.5) * experts / T
+    cap = _capacity(T, experts, factor)
+    _, slot, gate, _ = router_top1_indices(logits, cap)
+    kept = slot < cap
+    assert {"dropped": not kept.all(),
+            "empty_slots": kept.all() and bool((counts < cap).any()),
+            "exactly_full": kept.all() and counts.max().item() == cap,
+            "one_expert": kept.all() and cap == T}[case]
+    assert torch.equal(gate == 0, ~kept)
+    dest, src = slot_indices(expert_index, slot, cap, experts)
+    assert torch.equal(dest[~kept], torch.full_like(dest[~kept],
+                                                    experts * cap))
+    assert torch.equal(src[dest[kept]], torch.arange(T)[kept])
+    assert (src == T).sum().item() == experts * cap - kept.sum().item()
+
+    index = _index_run(moe_ffn, params, x, factor, dtype)
+    dense = _index_run(moe_ffn_reference, params, x, factor, dtype)
+    assert index[0].dtype == dtype
+    assert torch.equal(_bits(index[0]), _bits(dense[0]))
+    assert torch.equal(index[1], dense[1])
+    for name in ("wi", "wo"):
+        assert torch.equal(_bits(index[3][name]), _bits(dense[3][name])), name
+    rel = ROUTER_GRAD_REL[dtype]
+    for got, want in ((index[3]["router"], dense[3]["router"]),
+                      (index[2], dense[2])):
+        assert ((got.float() - want.float()).abs()
+                <= rel * want.float().abs().max()).all()
+    again = _index_run(moe_ffn, params, x, factor, dtype)
+    assert torch.equal(_bits(again[0]), _bits(index[0]))
+    assert torch.equal(_bits(again[2]), _bits(index[2]))
+    for name in params:
+        assert torch.equal(again[3][name], index[3][name]), name
+
+    # dX through the dispatch alone: both paths route detached logits
+    real = port_moe.router_top1_indices
+    monkeypatch.setattr(port_moe, "router_top1_indices",
+                        lambda lg, c: real(lg.detach(), c))
+    index = _index_run(moe_ffn, params, x, factor, dtype)
+    dense = _index_run(moe_ffn_reference, params, x, factor, dtype)
+    assert torch.equal(_bits(index[2]), _bits(dense[2]))
+
+
+def test_index_path_runs_no_token_by_slot_product():
+    """Under ``FlopCounterMode`` a training pass of the index path counts
+    the router's and the experts' products alone, forward and backward;
+    the dense formulation adds its five ``[T, E*C]`` products (dispatch,
+    combine, dX through the dispatch, d expert_out, d combine)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    T = INDEX_TOKENS
+    gen = torch.Generator().manual_seed(8)
+    params = init_moe_params(gen, d_model=D, d_ff=F, n_experts=E)
+    x = torch.randn(T, D, generator=gen)
+    C = _capacity(T, E, 1.25)
+    counted = {}
+    for fn in (moe_ffn, moe_ffn_reference):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        with FlopCounterMode(display=False) as mode:
+            y, aux = fn(leaves, x.clone().requires_grad_())
+            (y.sum() + aux).backward()
+        counted[fn] = mode.get_total_flops()
+    work = 3 * 2 * T * D * E + 3 * 2 * 2 * E * C * D * F
+    assert counted[moe_ffn] == work
+    assert counted[moe_ffn_reference] == work + 5 * 2 * T * E * C * D

@@ -1,6 +1,8 @@
 """Switch-MoE on the card: the MoE GPT's training step captured as a CUDA
 graph and replayed against the eager step, its decode step's graph against
-the eager decode loop, and ``moe_ffn`` on the card against its CPU result.
+the eager decode loop, ``moe_ffn`` on the card against its CPU result, and
+its index path (dispatch and combine gathered by token index) against the
+dense one-hot formulation ``moe_ffn_reference``.
 
 Needs a CUDA card and nvcc (the flash kernels have no CPU mode, and a CUDA
 graph needs a card); skips without one. It imports only torch and the
@@ -16,10 +18,12 @@ import pytest
 import torch
 
 from cron_operator_tpu_torch.models import GPT, GPTConfig
+from cron_operator_tpu_torch.parallel import moe as port_moe
 from cron_operator_tpu_torch.parallel.moe import (
     _capacity,
     init_moe_params,
     moe_ffn,
+    moe_ffn_reference,
     router_top1,
 )
 from cron_operator_tpu_torch.workloads import data
@@ -67,10 +71,10 @@ def _train(batches, graphed: bool):
 
 @pytest.mark.cuda
 def test_moe_graph_replay_matches_the_eager_step(cuda_device):
-    """The routing (argmax, cumsum, the one-hots built against an arange)
-    reads nothing on the host, so the MoE step captures; replayed it gives
-    the eager steps' loss and parameters to the bit, with K1 launched once
-    a layer a step."""
+    """The routing and the index build (argmax, cumsum, a scatter into a
+    buffer with a spare entry) read nothing on the host, so the MoE step
+    captures; replayed it gives the eager steps' loss and parameters to
+    the bit, with K1 launched once a layer a step."""
     sample = data.causal_token_sample(2, 128, CFG.vocab_size)
     gen = torch.Generator(device="cuda").manual_seed(1)
     batches = [sample(gen) for _ in range(STEPS)]
@@ -128,3 +132,57 @@ def test_moe_ffn_on_the_card_matches_the_cpu(cuda_device, dtype):
         bound = 2 ** -7 * y_cpu.abs() + 2 ** -7 * scale
     assert ((y - y_cpu).abs() <= bound).all()
     assert abs(aux.item() - aux_cpu.item()) <= 1e-6
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [0.5, 1.25], ids=["dropped", "default"])
+def test_index_path_is_the_dense_path_to_the_bit(cuda_device, monkeypatch,
+                                                 factor):
+    """bf16 over f32 parameters at 2048 tokens and 8 experts: the output,
+    and dX through the dispatch (both paths route detached logits, so the
+    router's path adds nothing to dX), are the dense products' bits: each
+    of their rows has one non-zero term, which cuBLAS accumulates in f32
+    and rounds once, as the gathers' bf16 product does."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_moe_params(gen, d_model=256, d_ff=1024, n_experts=8)
+    x = torch.randn(2048, 256, generator=gen, device="cuda").bfloat16()
+    real = port_moe.router_top1_indices
+    monkeypatch.setattr(port_moe, "router_top1_indices",
+                        lambda lg, c: real(lg.detach(), c))
+
+    def run(fn):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xl = x.clone().requires_grad_()
+        y, _ = fn(leaves, xl, capacity_factor=factor,
+                  compute_dtype=torch.bfloat16)
+        (y.float() ** 2).mean().backward()
+        return y.detach(), xl.grad, leaves["wo"].grad
+
+    index, dense = run(moe_ffn), run(moe_ffn_reference)
+    assert torch.isfinite(index[0].float()).all()
+    assert index[0].abs().max() > 0 and index[1].abs().max() > 0
+    for got, want in zip(index, dense):
+        assert torch.equal(_bits(got), _bits(want))
+    again = run(moe_ffn)
+    for got, want in zip(again, index):
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_moe_greedy_tokens_are_the_dense_paths(cuda_device, monkeypatch):
+    """The MoE GPT's greedy continuation (eager) on the index path and with
+    the dense formulation swapped into ``MoEBlock``: the same tokens."""
+    gpt = importlib.import_module("cron_operator_tpu_torch.models.gpt")
+    model = GPT(CFG, device="cuda", param_dtype=CFG.dtype)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0)).eval()
+    prompt = torch.randint(0, CFG.vocab_size, (4, 64), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    index = generate(CFG, model, prompt, 16, captured=False)
+    monkeypatch.setattr(gpt, "moe_ffn", moe_ffn_reference)
+    dense = generate(CFG, model, prompt, 16, captured=False)
+    assert index.shape == (4, 80)
+    assert torch.equal(index, dense)

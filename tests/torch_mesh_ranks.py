@@ -175,33 +175,45 @@ def _moe_group(job, mesh) -> Dict[str, Any]:
     """``moe_ffn`` on this rank's rows of a seeded token batch with
     ``group`` the mesh's batch group: the output rows, the aux loss, this
     rank's input gradient and the parameters' gradients summed over the
-    ranks (the objective is the one-device one split over them); and the
-    output of the same rows routed among this rank's tokens alone."""
+    ranks (the objective is the one-device one split over them), on the
+    index path (``moe_ffn``) and on the dense one (``moe_ffn_reference``,
+    under ``"dense"``); and the output of the same rows routed among this
+    rank's tokens alone."""
     import torch
     import torch.distributed as dist
 
     from cron_operator_tpu_torch.parallel.mesh import batch_group
-    from cron_operator_tpu_torch.parallel.moe import init_moe_params, moe_ffn
+    from cron_operator_tpu_torch.parallel.moe import (
+        init_moe_params,
+        moe_ffn,
+        moe_ffn_reference,
+    )
     from cron_operator_tpu_torch.workloads.data import local_rows
 
     group = batch_group(mesh)
     gen = torch.Generator().manual_seed(job["seed"])
-    params = {k: v.requires_grad_() for k, v in init_moe_params(
-        gen, d_model=job["d"], d_ff=job["f"],
-        n_experts=job["experts"]).items()}
-    x = local_rows(torch.randn(job["tokens"], job["d"], generator=gen),
-                   mesh).requires_grad_()
+    init = init_moe_params(gen, d_model=job["d"], d_ff=job["f"],
+                           n_experts=job["experts"])
+    rows = local_rows(torch.randn(job["tokens"], job["d"], generator=gen),
+                      mesh)
     kw = {"capacity_factor": job["capacity_factor"]}
-    y, aux = moe_ffn(params, x, group=group, **kw)
     ranks = dist.get_world_size(group)
-    ((y ** 2).sum() / job["tokens"] + 0.01 * aux / ranks).backward()
-    grads = {}
-    for name, p in params.items():
-        dist.all_reduce(p.grad, group=group)
-        grads[name] = p.grad
-    alone, _ = moe_ffn(params, x, **kw)
-    return {"y": y.detach(), "aux": aux.detach(), "x_grad": x.grad,
-            "grads": grads, "alone": alone.detach()}
+
+    def run(fn):
+        params = {k: v.clone().requires_grad_() for k, v in init.items()}
+        x = rows.clone().requires_grad_()
+        y, aux = fn(params, x, group=group, **kw)
+        ((y ** 2).sum() / job["tokens"] + 0.01 * aux / ranks).backward()
+        grads = {}
+        for name, p in params.items():
+            dist.all_reduce(p.grad, group=group)
+            grads[name] = p.grad
+        return {"y": y.detach(), "aux": aux.detach(), "x_grad": x.grad,
+                "grads": grads}
+
+    out = run(moe_ffn)
+    alone, _ = moe_ffn(init, rows, **kw)
+    return {**out, "alone": alone, "dense": run(moe_ffn_reference)}
 
 
 def placements(p, mesh) -> List[str]:
