@@ -70,11 +70,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    its parameter count and no flash launch; ResNet-50's GroupNorm kernels
    launched 53 times a step each, forward and backward (530 over its 10
    steps, a replay counted once; ViT's 0), every forward launch on
-   ``forward_plan``'s design and every backward on the cluster design,
-   counts set to 0 just before the job and read just after; for ResNet-50
-   and ViT the graph against
-   the eager step as phase 6, with model FLOPs per step from
-   ``FlopCounterMode``.
+   ``forward_plan``'s design and every backward on the cluster design, the
+   forward's epilogues 33 relu, 16 residual then relu and 4 none a step
+   and the backward's 33 relu masks (``RESNET50_EPILOGUES``), counts set
+   to 0 just before the job and read just after; for ResNet-50 and ViT the
+   graph against the eager step as phase 6, with model FLOPs per step from
+   ``FlopCounterMode``, and for ResNet-50 the graphed call's device time
+   in the relus' forward and backward and the adds (``RESNET50_SHARES``).
 9. The one-card job contract at GPT-2 small width (b 8, s 1024, bf16 over
    f32 parameters, AdamW, fused data): 12 steps in calls of 4 against 8
    steps saved every 4 and a fresh model and trainer that restore step 8
@@ -216,15 +218,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
     f32 cases; mean-100, std-1 cases in f32, both forward designs, within
     the variance-gap bound of ``tests/test_torch_resnet.py``; an NCHW CUDA
     tensor raising; one GroupNorm forward and backward copying or casting
-    no activation-sized tensor. Each shape timed forward and backward (each
-    direction's cluster and two-pass designs; device time, the card held
-    busy) beside its byte bound, the plain version, ``F.group_norm`` and
-    ``native_group_norm_backward`` (the yardsticks the port never calls on
-    the card), and the sums over the 53 norms; then phase 8's ResNet-50
-    step (graph and eager ms, images/s, MFU) beside the 69.747 and 72.098
-    ms before the kernels, 27.851 and 46.056 on the two-pass backward, and
-    26.984 and 29.969 on the two-pass forward, with its GroupNorm launches
-    (phase 8 fails unless every launch is on its plan's design).
+    no activation-sized tensor. The epilogues at every shape, in both
+    designs of each direction: the forward's relu and residual-then-relu
+    the same bits as the unfused kernel's y followed by torch's add and
+    relu, the backward's relu mask the unfused kernel fed ``dy * (z >
+    0)``, reruns identical. Each shape timed forward and backward (each
+    direction's cluster and two-pass designs, with the shape's epilogues
+    as ResNet-50 runs them and without; device time, the card held busy)
+    beside its byte bound (a residual is one unit more), the plain
+    version, ``F.group_norm`` and ``native_group_norm_backward`` (the
+    yardsticks the port never calls on the card, without epilogue), and
+    the sums over the 53 norms; then phase 8's ResNet-50 step (graph and
+    eager ms, images/s, MFU) beside 26.181 and 43.327 ms before the fused
+    epilogues, 69.747 and 72.098 before the kernels, 27.851 and 46.056 on
+    the two-pass backward and 26.984 and 29.969 on the two-pass forward,
+    with its GroupNorm launches (phase 8 fails unless every launch is on
+    its plan's design and epilogue).
 21. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
@@ -584,6 +593,7 @@ def zero_counts(fa) -> None:
     for fn in norm_wrappers():
         fn.launches = 0
         fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
+        fn.launches_by_epilogue = dict.fromkeys(fn.launches_by_epilogue, 0)
 
 
 # Launches of the designs that no main path should run now, summed over
@@ -1086,7 +1096,7 @@ def check_graph_step(torch, label: str, make_trainer):
 
 def graph_vs_eager(torch, card, label: str, make_trainer, model_flops: float,
                    items: int, unit: str, before_ms: float = None,
-                   forbid: str = None):
+                   forbid: str = None, shares: dict = None):
     """The step of a fused-data trainer (each step draws its batch) eagerly
     and as one replayed graph of GRAPH_CHUNK steps (``step(..., chunk=8)``),
     in this process: the wall ms a step (CUDA events over back-to-back
@@ -1098,7 +1108,8 @@ def graph_vs_eager(torch, card, label: str, make_trainer, model_flops: float,
     then profiles of an eager step and a graphed call. The graphed step ms
     is printed beside ``before_ms`` where given; ``forbid`` maps regexes to
     the largest share of the graphed call's device time that the kernels
-    each matches may take."""
+    each matches may take; ``shares`` maps labels to regexes whose kernels'
+    share of that time goes into ``rows["shares"]``."""
     k = GRAPH_CHUNK
     check_graph_step(torch, label, make_trainer)
     trainer = make_trainer()
@@ -1138,6 +1149,15 @@ def graph_vs_eager(torch, card, label: str, make_trainer, model_flops: float,
               f"step, beside {before_ms} before the padded vocab GEMMs and "
               "the inner-axis router scan (PERF.md section 5)", flush=True)
     busy_us = sum(us for _, us, _ in kernels)
+    if shares:
+        rows["shares"] = {}
+        for name, pattern in shares.items():
+            hits = [(k[:90], us / 1e3, n) for k, us, n in kernels
+                    if re.search(pattern, k)]
+            rows["shares"][name] = sum(ms for _, ms, _ in hits) * 1e3 / busy_us
+            print(f"[{card}] {label}: {name} ({pattern!r}) "
+                  f"{100 * rows['shares'][name]:.2f}% of the graphed call's "
+                  f"device time: {hits or 'none'}", flush=True)
     for pattern, most in (forbid or {}).items():
         hits = [(name[:120], us / 1e3, n) for name, us, n in kernels
                 if re.search(pattern, name)]
@@ -1224,14 +1244,18 @@ def phase_bert(torch, fa, card):
 
 
 def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
-                    train_config, norms_per_step: int = 0):
+                    train_config, norms_per_step: int = 0,
+                    shares: dict = None):
     """An image job at its defaults (no attention reaches the kernels; the
     GroupNorm kernels launch ``norms_per_step`` times a step each, forward
-    and backward, counted from 0 over the job), then its step on the card,
-    graph against eager (``make_model()``'s model with seed-0 weights, the
-    job's optimizer, fused data): model FLOPs a step counted by
-    ``FlopCounterMode`` over one forward and backward. Returns the
-    GroupNorm launches and the step's rows."""
+    and backward, counted from 0 over the job, each on its plan's design
+    and ResNet-50's epilogue), then its step on the card, graph against
+    eager (``make_model()``'s model with seed-0 weights, the job's
+    optimizer, fused data): model FLOPs a step counted by
+    ``FlopCounterMode`` over one forward and backward; ``shares`` as
+    :func:`graph_vs_eager`'s. Returns the GroupNorm launches (forward,
+    backward and the two directions' launches by epilogue) and the step's
+    rows."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from cron_operator_tpu_torch.workloads import data
@@ -1264,6 +1288,17 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
         if backward.get("cluster") != norm_counts[1]:
             fail(f"{job}: GroupNorm backward launches by design {backward}, "
                  f"not all {norm_counts[1]} on the cluster design")
+        epilogues = tuple(dict(fn.launches_by_epilogue)
+                          for fn in norm_wrappers())
+        planned = resnet50_epilogues(steps)
+        print(f"{job}: GroupNorm launches by epilogue, forward "
+              f"{epilogues[0]}, backward {epilogues[1]} (expected "
+              f"{planned[0]} and {planned[1]}: 33 relu, 16 residual then "
+              "relu and 4 none a step; 33 masked backward)", flush=True)
+        if epilogues != planned:
+            fail(f"{job}: GroupNorm launches by epilogue {epilogues}, not "
+                 f"{planned}")
+        norm_counts = (*norm_counts, *epilogues)
     b, size = int(params["batch_size"]), int(params["image_size"])
 
     def seeded():
@@ -1280,7 +1315,7 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
     step = graph_vs_eager(
         torch, card, f"{job} step (b{b}, image {size})",
         lambda: Trainer(seeded(), train_config, sample_fn=sample),
-        counter.get_total_flops(), b, "images")
+        counter.get_total_flops(), b, "images", shares=shares)
     print(f"[{card}] {job} job: {progress['steps_per_s']} steps/s, "
           f"{progress['avg_step_time_s']} s/step (the calls after the "
           f"first), first call {progress['compile_time_s']} s")
@@ -3057,6 +3092,25 @@ def phase_decode_kernel(torch, card) -> dict:
 RESNET50_NORMS = ((64, 112, 1), (64, 56, 6), (128, 56, 1), (256, 56, 4),
                   (128, 28, 7), (256, 28, 1), (512, 28, 5), (256, 14, 11),
                   (512, 14, 1), (1024, 14, 7), (512, 7, 5), (2048, 7, 4))
+# the forward epilogues of each shape's norms (models/resnet.py: the stem
+# and each block's inner norms take a relu, each block's last norm its
+# residual then a relu, the projection shortcuts none): 33, 16 and 4 a step
+RESNET50_EPILOGUES = {
+    (64, 112): {"relu": 1}, (64, 56): {"relu": 6}, (128, 56): {"relu": 1},
+    (256, 56): {"residual_relu": 3, "none": 1}, (128, 28): {"relu": 7},
+    (256, 28): {"relu": 1}, (512, 28): {"residual_relu": 4, "none": 1},
+    (256, 14): {"relu": 11}, (512, 14): {"relu": 1},
+    (1024, 14): {"residual_relu": 6, "none": 1}, (512, 7): {"relu": 5},
+    (2048, 7): {"residual_relu": 3, "none": 1}}
+assert all(sum(RESNET50_EPILOGUES[c, side].values()) == n
+           for c, side, n in RESNET50_NORMS)
+# the backward's epilogue of a forward's: a relu's mask runs in the kernel,
+# a residual's before it
+BACKWARD_EPILOGUE = {"none": "none", "relu": "relu", "residual_relu": "none"}
+# the profile's buckets of the separate elementwise passes around the norms
+# (torch's relu is clamp_min, its backward threshold_backward)
+RESNET50_SHARES = {"relu forward": r"clamp", "relu backward": r"threshold",
+                   "adds": r"CUDAFunctor_add|AddFunctor"}
 NORM_BATCH = int(RESNET50_PARAMS["batch_size"])
 NORM_GROUPS, NORM_EPS = 32, 1e-6
 # f32 operations an element (statistics and normalisation; the backward's
@@ -3071,6 +3125,21 @@ NORM_TWO_PASS_MS = {"graph": 27.851, "eager": 46.056}
 # the same on the two-pass forward before its cluster redesign (PERF.md
 # section 5, H100 80GB HBM3 at 700 W)
 NORM_TWO_PASS_FWD_MS = {"graph": 26.984, "eager": 29.969}
+# the same before the relus and residual adds ran in the norms' epilogues
+# (PERF.md section 5, H100 80GB HBM3 at 700 W)
+NORM_UNFUSED_MS = {"graph": 26.181, "eager": 43.327}
+
+
+def resnet50_epilogues(steps: int) -> tuple:
+    """The GroupNorm forward's and backward's launches by epilogue over
+    ``steps`` ResNet-50 steps."""
+    forward = {"none": 0, "relu": 0, "residual_relu": 0}
+    backward = {"none": 0, "relu": 0}
+    for mix in RESNET50_EPILOGUES.values():
+        for epilogue, n in mix.items():
+            forward[epilogue] += n * steps
+            backward[BACKWARD_EPILOGUE[epilogue]] += n * steps
+    return forward, backward
 
 
 def resnet50_forward_designs(steps: int) -> dict:
@@ -3087,17 +3156,22 @@ def resnet50_forward_designs(steps: int) -> dict:
     return designs
 
 
-
-def norm_bound(b: int, c: int, hw: int, esize: int, direction: str):
-    """(bound ms, bound_by) of one norm: each input read once and each
-    output written once (forward x, gamma, beta -> y, mean, rstd; backward
-    x, dy, mean, rstd, gamma -> dx, dgamma, dbeta) over 3.35 TB/s, against
+def norm_bound(b: int, c: int, hw: int, esize: int, direction: str,
+               epilogue: str = "none"):
+    """(bound ms, bound_by) of one norm with ``epilogue``: each input read
+    once and each output written once (forward x, gamma, beta and a
+    residual -> z, mean, rstd; backward x, dy, mean, rstd, gamma and for a
+    relu's mask beta -> dx, dgamma, dbeta) over 3.35 TB/s, against
     ``NORM_OPS`` f32 operations an element over the f32 rate."""
     n, stats = b * c * hw, 2 * b * NORM_GROUPS * 4
     if direction == "forward":
         moved = 2 * n * esize + 2 * c * 4 + stats
+        if epilogue == "residual_relu":
+            moved += n * esize
     else:
         moved = 3 * n * esize + 3 * c * 4 + stats
+        if epilogue == "relu":
+            moved += c * 4
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = NORM_OPS[direction] * n / F32_FLOPS * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
@@ -3165,6 +3239,53 @@ def check_norm(torch, gn, label: str, x, dy, gamma, beta, out_dtype):
           f"{errs['two_pass dx']:.3e}); reruns identical", flush=True)
     return (errs["y"], errs["dx"], errs["two_pass y"],
             errs["two_pass dx"])
+
+
+def check_epilogues(torch, gn, label: str, x, dy, gamma, beta, residual):
+    """The epilogues against the unfused kernels and torch's ops on one
+    input, in each direction's main and two-pass designs: the forward's
+    relu and residual-then-relu the same bits as the unfused kernel's y
+    followed by ``residual + y`` and ``torch.relu``; the backward's relu
+    mask the unfused kernel fed ``threshold_backward(dy, z, 0)``; every
+    fused launch twice, bit-identical. Returns the plans checked."""
+    g, eps, dtype = NORM_GROUPS, NORM_EPS, x.dtype
+    b, c, h, w = x.shape
+    plans = {"forward": (gn.forward_plan(b, c, h * w, g, dtype),
+                         {"design": "two_pass"}),
+             "backward": (gn.backward_plan(b, c, h * w, g, dtype, dtype),
+                          {"design": "two_pass"})}
+    for plan in plans["forward"]:
+        y, mean, rstd = gn._launch_forward(x, gamma, beta, g, eps, dtype,
+                                           plan)
+        for res in (None, residual):
+            want = torch.relu(y if res is None else res + y)
+            for _ in range(2):
+                z, m, r = gn._launch_forward(x, gamma, beta, g, eps, dtype,
+                                             plan, relu=True, residual=res)
+                if not (torch.equal(z, want) and torch.equal(m, mean)
+                        and torch.equal(r, rstd)):
+                    fail(f"GroupNorm {label}: the {plan['design']} forward "
+                         f"with {'a residual and ' * (res is not None)}relu "
+                         "differs from the unfused kernel and torch")
+        del y, want, z
+    z, mean, rstd = gn.group_norm_forward(x, gamma, beta, g, eps, dtype,
+                                          relu=True)
+    masked = torch.ops.aten.threshold_backward(dy, z, 0)
+    for plan in plans["backward"]:
+        want = gn._launch_backward(masked, x, mean, rstd, gamma, g, plan)
+        for _ in range(2):
+            got = gn._launch_backward(dy, x, mean, rstd, gamma, g, plan,
+                                      relu=True, bias=beta)
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, want)):
+                fail(f"GroupNorm {label}: the {plan['design']} backward with "
+                     "the relu's mask differs from the unfused kernel fed "
+                     "dy * (z > 0)")
+    torch.cuda.synchronize()
+    print(f"  group_norm {label}: relu and residual-then-relu forward, relu "
+          "backward equal to the unfused kernels and torch's ops to the bit "
+          f"in the {plans['forward'][0]['design']} and two-pass designs; "
+          "reruns identical", flush=True)
+    return plans
 
 
 def variance_gap_bound(torch, x, gamma, beta):
@@ -3261,8 +3382,11 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
             fail(f"the GroupNorm {name} kernel took a tensor that is not "
                  "channels-last")
 
+    # unfused (no epilogue) and fused (each norm's epilogue as ResNet-50
+    # runs it) sums over the 53 norms
     totals = {d: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                                "two_pass_ms"), 0.0)
+                                "two_pass_ms", "fused_ms", "fused_plain_ms",
+                                "fused_bound_ms", "fused_two_pass_ms"), 0.0)
               for d in ("forward", "backward")}
     worst = dict.fromkeys(("forward", "backward", "forward_two_pass",
                            "backward_two_pass"), 0.0)
@@ -3288,6 +3412,9 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
                           gamma, beta, bf16)
         for key, err in zip(worst, errs):
             worst[key] = max(worst[key], err)
+        res = inputs(b, c, side, bf16)[0]
+        check_epilogues(torch, gn, f"bf16 b{b} C{c} {side}x{side}", x, dy,
+                        gamma, beta, res)
         _, mean, rstd = gn.group_norm_forward(x, gamma, beta, g, eps, bf16)
         gamma_lp, beta_lp = gamma.to(bf16), beta.to(bf16)
         args = (x, gamma_lp, beta_lp, b, c, hw, g, eps)
@@ -3326,6 +3453,27 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
                                                   bf16, two_pass),
             "backward": lambda: gn._launch_backward(dy, x, mean, rstd, gamma,
                                                     g, two_pass)}
+
+        def fused(direction, epilogue):
+            """(main design, two-pass design, plain version) of one norm
+            with ``epilogue``."""
+            relu = epilogue != "none"
+            if direction == "forward":
+                r = res if epilogue == "residual_relu" else None
+                return (lambda: gn.group_norm_forward(
+                            x, gamma, beta, g, eps, bf16, relu, r),
+                        lambda: gn._launch_forward(
+                            x, gamma, beta, g, eps, bf16, two_pass,
+                            relu=relu, residual=r),
+                        lambda: gn.group_norm_reference(
+                            x, gamma, beta, g, eps, bf16, relu, r))
+            return (lambda: gn.group_norm_backward(
+                        dy, x, mean, rstd, gamma, g, relu, beta, eps),
+                    lambda: gn._launch_backward(
+                        dy, x, mean, rstd, gamma, g, two_pass, relu=relu,
+                        bias=beta),
+                    lambda: gn.group_norm_backward_reference(
+                        dy, x, mean, rstd, gamma, g, relu, beta, eps))
         for direction, (kernel, plain, library) in fns.items():
             # the two designs in turns: main, two-pass, two-pass, main
             ms, two_ms, two_again, ms_again = (
@@ -3346,6 +3494,32 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
                   f"us ({bound_ms / ms:.1%}) | two-pass {two_ms * 1e3:.2f} us "
                   f"({bound_ms / two_ms:.1%}) | plain {plain_ms * 1e3:.2f} us "
                   f"| library {library_ms * 1e3:.2f} us", flush=True)
+            mix = {}
+            for epilogue, n in RESNET50_EPILOGUES[c, side].items():
+                if direction == "backward":
+                    epilogue = BACKWARD_EPILOGUE[epilogue]
+                mix[epilogue] = mix.get(epilogue, 0) + n
+            for epilogue, n in mix.items():
+                row = (ms, two_ms, plain_ms, bound_ms)
+                if epilogue != "none":
+                    main, two, plain_e = fused(direction, epilogue)
+                    f_ms, f_two, f_two2, f_ms2 = (
+                        device_ms(torch, fn, 20) for fn in (main, two, two,
+                                                            main))
+                    row = ((f_ms + f_ms2) / 2, (f_two + f_two2) / 2,
+                           device_ms(torch, plain_e, 3),
+                           norm_bound(b, c, hw, 2, direction, epilogue)[0])
+                    print(f"[{card}] group_norm {direction} with {epilogue} "
+                          f"b{b} C{c} {side}x{side} bf16 (x{n} a step): "
+                          f"{plans[direction]['design']} {row[0] * 1e3:.2f} "
+                          f"us (device; {ms * 1e3:.2f} unfused) | bound "
+                          f"{row[3] * 1e3:.2f} us ({row[3] / row[0]:.1%}; "
+                          f"{bound_ms * 1e3:.2f} unfused) | two-pass "
+                          f"{row[1] * 1e3:.2f} us | plain {row[2] * 1e3:.2f} "
+                          "us", flush=True)
+                for key, v in zip(("fused_ms", "fused_two_pass_ms",
+                                   "fused_plain_ms", "fused_bound_ms"), row):
+                    totals[direction][key] += n * v
         if (c, side) == RESNET50_NORMS[0][:2]:
             norm = GroupNorm(c, compute_dtype=bf16, device="cuda")
             xr = x.detach().requires_grad_()
@@ -3358,38 +3532,56 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
                 fail(f"a GroupNorm forward and backward copies or casts "
                      f"activation-sized tensors: {found}")
             del norm, xr
-        del x, dy, mean, rstd, lmean, lrstd, lib_x, lib_dy, fns, others
+        del x, dy, res, mean, rstd, lmean, lrstd, lib_x, lib_dy, fns, others
         release(torch)
     print(f"[{card}] group_norm over ResNet-50's 53 norms a step (library "
           f"backward on {lib_note}; each direction's two-pass design beside, "
           "3.706 and 5.446 ms before the cluster designs in PERF.md section "
-          "6): " + json.dumps(totals), flush=True)
+          "6; fused: each norm's epilogue as ResNet-50 runs it, unfused 2.819 "
+          "and 4.213 ms before the epilogues): " + json.dumps(totals),
+          flush=True)
 
     if resnet_step is not None:
         steps = int(RESNET50_PARAMS["steps"])
-        print(f"[{card}] resnet50: GroupNorm launches {norm_counts} over "
+        print(f"[{card}] resnet50: GroupNorm launches {norm_counts[:2]} over "
               f"{steps} steps ({norm_counts[0] // steps} forward and "
-              f"{norm_counts[1] // steps} backward a step)", flush=True)
+              f"{norm_counts[1] // steps} backward a step), by epilogue "
+              f"forward {norm_counts[2]}, backward {norm_counts[3]}",
+              flush=True)
         for mode in ("graph", "eager"):
             row = resnet_step[mode]
-            print(f"[{card}] resnet50 {mode} step with the GroupNorm kernels:"
-                  f" {row['step_ms']:.3f} ms, {row['images_per_s']:.1f} "
-                  f"images/s, MFU {row['mfu']:.4f}, beside "
-                  f"{NORM_BEFORE_MS[mode]} ms before them, "
-                  f"{NORM_TWO_PASS_MS[mode]} on the two-pass backward and "
-                  f"{NORM_TWO_PASS_FWD_MS[mode]} on the two-pass forward "
-                  "(PERF.md section 5)", flush=True)
+            print(f"[{card}] resnet50 {mode} step with the GroupNorm kernels"
+                  f" and their epilogues: {row['step_ms']:.3f} ms, "
+                  f"{row['images_per_s']:.1f} images/s, MFU "
+                  f"{row['mfu']:.4f}, beside {NORM_UNFUSED_MS[mode]} ms "
+                  f"before the epilogues, {NORM_BEFORE_MS[mode]} before the "
+                  f"kernels, {NORM_TWO_PASS_MS[mode]} on the two-pass "
+                  f"backward and {NORM_TWO_PASS_FWD_MS[mode]} on the "
+                  "two-pass forward (PERF.md section 5)", flush=True)
+        print(f"[{card}] resnet50 graphed call's device time in the "
+              "elementwise passes around the norms: " + ", ".join(
+                  f"{k} {100 * v:.2f}%" for k, v in
+                  resnet_step["shares"].items())
+              + " (10.5% adds and gradient sums, 8.9% relu backward, 6.1% "
+              "relu forward before the epilogues: PERF.md section 5)",
+              flush=True)
+    # each row times the 53 norms with ResNet-50's epilogues (the main
+    # path's work), its unfused times beside; the library call has none
     rows = {}
     for d in ("forward", "backward"):
-        rows[d] = {"max_abs_err": worst[d], "ms": totals[d]["ms"],
-                   "plain_ms": totals[d]["plain_ms"],
-                   "bound_ms": totals[d]["bound_ms"],
+        rows[d] = {"max_abs_err": worst[d], "ms": totals[d]["fused_ms"],
+                   "plain_ms": totals[d]["fused_plain_ms"],
+                   "bound_ms": totals[d]["fused_bound_ms"],
                    "bound_by": ("bytes" if bound_by == {"bytes"}
                                 else "operations"),
-                   "library_ms": totals[d]["library_ms"]}
+                   "library_ms": totals[d]["library_ms"],
+                   "unfused_ms": totals[d]["ms"],
+                   "unfused_bound_ms": totals[d]["bound_ms"],
+                   "unfused_plain_ms": totals[d]["plain_ms"]}
         rows[f"{d}_two_pass"] = {**rows[d],
                                  "max_abs_err": worst[f"{d}_two_pass"],
-                                 "ms": totals[d]["two_pass_ms"]}
+                                 "ms": totals[d]["fused_two_pass_ms"],
+                                 "unfused_ms": totals[d]["two_pass_ms"]}
     return rows
 
 
@@ -3516,7 +3708,7 @@ def main() -> None:
         "resnet50", phase_image_job, torch, fa, card, "resnet50",
         RESNET50_PARAMS, lambda: ResNet50(device="cuda"),
         TrainConfig(optimizer="sgd", learning_rate=0.1),
-        sum(n for _, _, n in RESNET50_NORMS))
+        sum(n for _, _, n in RESNET50_NORMS), RESNET50_SHARES)
     timed("vit", phase_image_job, torch, fa, card, "vit", VIT_PARAMS,
           lambda: ViT(ViTConfig.base(), device="cuda"), TrainConfig())
     timed("mnist", phase_job, torch, fa, "mnist", MNIST_PARAMS, 0)
@@ -3556,6 +3748,7 @@ def main() -> None:
                        card)
     norm_rows = timed("GroupNorm kernel vs plain", phase_group_norm, torch,
                       card, norm_counts, resnet_step)
+    step_epilogues = resnet50_epilogues(1)
     print(f"phases: {sum(walls.values()):.1f} s in all, "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
 
@@ -3610,19 +3803,24 @@ def main() -> None:
                        train_rows[key])
           for i, key in enumerate(("K1", "K2", "K3"))),
         # the GroupNorm pair on the resnet50 path of phase 8; each time is
-        # one step's 53 norms at b 128 x 224^2, summed over their shapes;
-        # each direction's two-pass design, which no main path runs now,
-        # beside
+        # one step's 53 norms at b 128 x 224^2 with the epilogue mix that
+        # "epilogues" states (a step's; "launches_by_epilogue" the run's),
+        # summed over their shapes, the unfused sums beside; each
+        # direction's two-pass design, which no main path runs now, beside
         norm_entry("group_norm", "cluster", norm_counts[0],
-                   norm_rows["forward"]),
+                   {**norm_rows["forward"], "epilogues": step_epilogues[0],
+                    "launches_by_epilogue": norm_counts[2]}),
         norm_entry("group_norm[two_pass]", "two_pass",
                    OLD_DESIGN_LAUNCHES["group_norm"],
-                   norm_rows["forward_two_pass"]),
+                   {**norm_rows["forward_two_pass"],
+                    "epilogues": step_epilogues[0]}),
         norm_entry("group_norm_bwd", "cluster", norm_counts[1],
-                   norm_rows["backward"]),
+                   {**norm_rows["backward"], "epilogues": step_epilogues[1],
+                    "launches_by_epilogue": norm_counts[3]}),
         norm_entry("group_norm_bwd[two_pass]", "two_pass",
                    OLD_DESIGN_LAUNCHES["group_norm_bwd"],
-                   norm_rows["backward_two_pass"]),
+                   {**norm_rows["backward_two_pass"],
+                    "epilogues": step_epilogues[1]}),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

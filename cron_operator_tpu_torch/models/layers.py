@@ -305,7 +305,10 @@ class GroupNorm(nn.GroupNorm):
     E[x^2] - E[x]^2 (``use_fast_variance``), which loses digits to
     cancellation when a group's mean is large beside its spread. The norm
     runs through ``ops.group_norm.group_norm``: the hand kernels on a
-    channels-last CUDA tensor, the plain versions on the CPU."""
+    channels-last CUDA tensor, the plain versions on the CPU. ``relu`` and
+    ``residual`` (ResNet's ``relu(y + residual)``) run in the kernels'
+    epilogues; on a DTensor they follow the norm as DTensor ops, since
+    ``on_local_rows`` takes its extra arguments for weights."""
 
     def __init__(self, channels: int, *, compute_dtype: torch.dtype,
                  device=None, param_dtype: torch.dtype = torch.float32):
@@ -313,14 +316,19 @@ class GroupNorm(nn.GroupNorm):
                          dtype=param_dtype)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                relu: bool = False) -> torch.Tensor:
         if isinstance(x, DTensor):
-            return on_local_rows(self._norm, x, self.weight, self.bias)
-        return self._norm(x, self.weight, self.bias)
+            y = on_local_rows(self._norm, x, self.weight, self.bias)
+            if residual is not None:
+                y = residual + y
+            return F.relu(y) if relu else y
+        return self._norm(x, self.weight, self.bias, residual, relu)
 
-    def _norm(self, x, weight, bias):
+    def _norm(self, x, weight, bias, residual=None, relu=False):
         return group_norm(x, weight, bias, groups=self.num_groups,
-                          eps=self.eps, out_dtype=self.compute_dtype)
+                          eps=self.eps, out_dtype=self.compute_dtype,
+                          relu=relu, residual=residual)
 
 
 # flax's lecun_normal: a standard normal truncated to [-2, 2], scaled so the

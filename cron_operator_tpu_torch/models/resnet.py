@@ -31,9 +31,11 @@ from cron_operator_tpu_torch.models.layers import (
 
 class _Block(nn.Module):
     """A residual block: ``convs`` (each followed by a GroupNorm, relu
-    between), plus the projection shortcut when the shape changes. The
-    convs and norms are numbered as flax numbers ``Conv_i``/``GroupNorm_i``
-    in creation order, the shortcut's pair last."""
+    between), plus the projection shortcut when the shape changes; the
+    output is relu(shortcut + the last norm). The relus and the add run in
+    the norms' epilogues (``GroupNorm(relu=, residual=)``). The convs and
+    norms are numbered as flax numbers ``Conv_i``/``GroupNorm_i`` in
+    creation order, the shortcut's pair last."""
 
     expansion = 1
 
@@ -56,14 +58,16 @@ class _Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x
-        for i in range(self.n_main):
-            y = self.norms[i](self.convs[i](y))
-            if i < self.n_main - 1:
-                y = F.relu(y)
+        last = self.n_main - 1
+        for i in range(last):
+            y = self.norms[i](self.convs[i](y), relu=True)
         residual = x
         if len(self.convs) > self.n_main:
             residual = self.norms[-1](self.convs[-1](x))
-        return F.relu(residual + y)
+        # relu(residual + norm(conv(y))), the add and relu in the norm's
+        # epilogue
+        return self.norms[last](self.convs[last](y), residual=residual,
+                                relu=True)
 
 
 class BottleneckBlock(_Block):
@@ -121,7 +125,7 @@ class ResNet(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2).to(self.dtype)  # NHWC strides
-        x = F.relu(self.stem_norm(self.stem(x)))
+        x = self.stem_norm(self.stem(x), relu=True)
         x = F.max_pool2d(x, 3, 2, 1)
         for block in self.blocks:
             x = block(x)

@@ -19,6 +19,18 @@
 //             s1_g = sum gamma_c dy, s2_g = sum gamma_c dy xhat over (b, g)
 //             dx = rstd_g * (gamma_c dy - s1_g / n - xhat s2_g / n)
 //             dgamma_c = sum_{b,h,w} dy xhat, dbeta_c = sum_{b,h,w} dy
+// Epilogues, ResNet's ops after a norm (models/resnet.py), fused where y is
+// written so that they cost no pass of their own:
+//   forward   EPI_RELU z = relu(y); EPI_RESIDUAL_RELU z = relu(round(y) + r),
+//             the residual r of y's type read from global memory beside the
+//             store and added in f32, rounded once: a bf16 torch add and
+//             relu, to the bit. The relu comes before the last rounding,
+//             which keeps the sign.
+//   backward  relu: dy is zeroed where round(y) <= 0, y recomputed from x
+//             by the forward's expression (norm_y, the same mean, rstd,
+//             gamma, beta), before any sum reads it: the unmasked kernel fed
+//             dy * (z > 0), to the bit. The residual's mask stays outside
+//             (ops/group_norm.py: z is saved, and dres is the masked dy).
 // No float atomics: every sum and merge has one order, so reruns are
 // bit-identical. Nothing here allocates or synchronises; the wrapper hands
 // in the outputs and every scratch buffer, and a graph capture holds.
@@ -28,8 +40,9 @@
 // ResNet-50's 53 norms at b 128 x 224^2 hold 1,422,589,952 elements a
 // step: 5.69 GB forward and 8.54 GB backward in bf16, 1.699 + 2.549 ms at
 // 3.35 TB/s (2 and 3 units of traffic); the largest norm (C 64 at 112^2,
-// 102.8 M elements) 122.7 and 184.0 us. The arithmetic is a few operations
-// an element.
+// 102.8 M elements) 122.7 and 184.0 us. The residual epilogue reads one
+// unit more: its 16 norms hold 353 M elements, 0.422 ms. The arithmetic is
+// a few operations an element.
 //
 // Each direction has two designs; ops/group_norm.py forward_plan and
 // backward_plan pick one by shape: "cluster" wherever it fits.
@@ -112,11 +125,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "sm90.cuh"
 
 namespace {
 
 using namespace sm90;
+
+// the forward's epilogues (ops/group_norm.py EPILOGUES, in order); the
+// backward takes 0 or EPI_RELU
+constexpr int EPI_NONE = 0;
+constexpr int EPI_RELU = 1;
+constexpr int EPI_RESIDUAL_RELU = 2;
+// residual pixels a thread reads ahead of its stores in the cluster forward,
+// so that its global loads overlap
+constexpr int RES_AHEAD = 4;
 
 constexpr int THREADS = 256;
 constexpr int PIX = 8;         // pixels each thread reads in a tile
@@ -254,6 +278,46 @@ struct Packed {
     }
   }
 };
+
+// y before its rounding, the one expression every forward writes and the
+// backward's relu mask recomputes: (x - mean) * (rstd * gamma) + beta, with
+// mul = norm_mul(rstd, gamma) and add = beta. Explicit roundings, so that no
+// contraction can make two call sites differ.
+__device__ __forceinline__ float norm_mul(float rstd, float gamma) {
+  return __fmul_rn(rstd, gamma);
+}
+
+__device__ __forceinline__ float norm_y(float x, float mean, float mul,
+                                        float add) {
+  return fmaf(__fsub_rn(x, mean), mul, add);
+}
+
+// f rounded to T and widened back
+template <typename T>
+__device__ __forceinline__ float round_to(float f) {
+  if constexpr (sizeof(T) == 4)
+    return f;
+  else
+    return __bfloat162float(__float2bfloat16_rn(f));
+}
+
+// z of epilogue EPI from y (not yet rounded) and the residual r: y,
+// relu(y) or relu(round(y) + r), still to be rounded to TY once. A NaN
+// stays NaN, as torch's relu keeps it.
+template <int EPI, typename TY>
+__device__ __forceinline__ float epilogue(float y, float r) {
+  if constexpr (EPI == EPI_RESIDUAL_RELU) y = __fadd_rn(round_to<TY>(y), r);
+  if constexpr (EPI != EPI_NONE) y = (y > 0.f || y != y) ? y : 0.f;
+  return y;
+}
+
+// Whether the forward's relu passed the gradient at x: round_TY(y) > 0,
+// with y recomputed by norm_y.
+template <typename TY>
+__device__ __forceinline__ bool relu_passes(float x, float mean, float mul,
+                                            float add) {
+  return round_to<TY>(norm_y(x, mean, mul, add)) > 0.f;
+}
 
 // Chan's merge of (nb, mb, m2b) into (n, m, m2); an empty side is a no-op.
 __device__ __forceinline__ void chan_merge(float& n, float& m, float& m2,
@@ -402,13 +466,15 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// grid (tiles, slabs, b): y = (x - mean) * (rstd * gamma) + beta.
-template <typename TX, typename TY>
+// grid (tiles, slabs, b): y = (x - mean) * (rstd * gamma) + beta, then
+// epilogue EPI (the residual, of y's type, read beside x).
+template <typename TX, typename TY, int EPI>
 __global__ void __launch_bounds__(THREADS, 2)
     normalize_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
                      const float* __restrict__ beta,
                      const float* __restrict__ mean,
-                     const float* __restrict__ rstd, TY* __restrict__ y,
+                     const float* __restrict__ rstd,
+                     const TY* __restrict__ residual, TY* __restrict__ y,
                      int hw, int channels, int groups, Tiling t) {
   constexpr int V = 16 / sizeof(TX);
   const int tile = blockIdx.x, slab = blockIdx.y, b = blockIdx.z;
@@ -418,15 +484,20 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int64_t at =
       ((int64_t)b * hw + (int64_t)tile * t.pix_tile + row) * channels + c0;
   Packed<TX, V> v[PIX];
+  Packed<TY, V> res[PIX] = {};
 #pragma unroll
   for (int i = 0; i < PIX; ++i)
-    if (i < k) v[i].load(x + at + (int64_t)i * t.rows * channels);
+    if (i < k) {
+      v[i].load(x + at + (int64_t)i * t.rows * channels);
+      if constexpr (EPI == EPI_RESIDUAL_RELU)
+        res[i].load(residual + at + (int64_t)i * t.rows * channels);
+    }
   float mu[V], mul[V], add[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     const int c = c0 + j, bg = b * groups + (c >> t.cg_log2);
     mu[j] = mean[bg];
-    mul[j] = rstd[bg] * gamma[c];
+    mul[j] = norm_mul(rstd[bg], gamma[c]);
     add[j] = beta[c];
   }
 #pragma unroll
@@ -435,19 +506,48 @@ __global__ void __launch_bounds__(THREADS, 2)
       Packed<TY, V> out{};
 #pragma unroll
       for (int j = 0; j < V; ++j)
-        out.set(j, fmaf(v[i].get(j) - mu[j], mul[j], add[j]));
+        out.set(j, epilogue<EPI, TY>(norm_y(v[i].get(j), mu[j], mul[j],
+                                            add[j]),
+                                     res[i].get(j)));
       out.store(y + at + (int64_t)i * t.rows * channels);
     }
 }
 
+// Zeroes the dy values of PIX pixels (k of them valid) where the forward's
+// relu stopped the gradient (relu_passes), channel c0 + j of each vector:
+// the masked dy that every later read takes.
+template <typename TX, typename TY, int V>
+__device__ __forceinline__ void mask_pixels(const Packed<TX, V> (&xv)[PIX],
+                                            Packed<TY, V> (&dv)[PIX], int k,
+                                            int b, int c0, int groups,
+                                            int cg_log2,
+                                            const float* __restrict__ mean,
+                                            const float* __restrict__ rstd,
+                                            const float* __restrict__ gamma,
+                                            const float* __restrict__ beta) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = c0 + j, bg = b * groups + (c >> cg_log2);
+    const float mu = mean[bg], mul = norm_mul(rstd[bg], gamma[c]),
+                add = beta[c];
+#pragma unroll
+    for (int i = 0; i < PIX; ++i)
+      if (i < k && !relu_passes<TY>(xv[i].get(j), mu, mul, add))
+        dv[i].set(j, 0.f);
+  }
+}
+
 // --------------------------------------------------------------- backward
 
-// grid (tiles, slabs, b). part: [b, tiles, C] of (sum dy xhat, sum dy).
-template <typename TX, typename TY>
+// grid (tiles, slabs, b). part: [b, tiles, C] of (sum dy xhat, sum dy);
+// with RELU, of the masked dy.
+template <typename TX, typename TY, bool RELU>
 __global__ void __launch_bounds__(THREADS, 2)
     bwd_partials_kernel(const TY* __restrict__ dy, const TX* __restrict__ x,
                         const float* __restrict__ mean,
                         const float* __restrict__ rstd,
+                        const float* __restrict__ gamma,
+                        const float* __restrict__ beta,
                         float2* __restrict__ part, int hw, int channels,
                         int groups, Tiling t) {
   constexpr int V = 16 / sizeof(TX);
@@ -467,6 +567,8 @@ __global__ void __launch_bounds__(THREADS, 2)
       xv[i].load(x + at + (int64_t)i * t.rows * channels);
       dv[i].load(dy + at + (int64_t)i * t.rows * channels);
     }
+  if constexpr (RELU)
+    mask_pixels(xv, dv, k, b, c0, groups, t.cg_log2, mean, rstd, gamma, beta);
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     const int bg = b * groups + ((c0 + j) >> t.cg_log2);
@@ -570,13 +672,13 @@ __device__ __forceinline__ void dgamma_block(const float2* __restrict__ sums,
   }
 }
 
-// 1-D grid: tiles * slabs * b blocks of dx, then C / 32 blocks of dgamma
-// and dbeta.
-template <typename TX, typename TY>
+// 1-D grid: tiles * slabs * b blocks of dx (of the masked dy with RELU),
+// then C / 32 blocks of dgamma and dbeta.
+template <typename TX, typename TY, bool RELU>
 __global__ void __launch_bounds__(THREADS, 2)
     dx_kernel(const TY* __restrict__ dy, const TX* __restrict__ x,
               const float* __restrict__ mean, const float* __restrict__ rstd,
-              const float* __restrict__ gamma,
+              const float* __restrict__ gamma, const float* __restrict__ beta,
               const float2* __restrict__ sums, const float2* __restrict__ coef,
               TX* __restrict__ dx, float* __restrict__ dgamma,
               float* __restrict__ dbeta, int batch, int hw, int channels,
@@ -605,6 +707,8 @@ __global__ void __launch_bounds__(THREADS, 2)
       xv[i].load(x + at + (int64_t)i * t.rows * channels);
       dv[i].load(dy + at + (int64_t)i * t.rows * channels);
     }
+  if constexpr (RELU)
+    mask_pixels(xv, dv, k, b, c0, groups, t.cg_log2, mean, rstd, gamma, beta);
   float mu[V], r[V], g[V], c1[V], c2[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
@@ -629,11 +733,11 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
 }
 
-template <typename TX, typename TY>
+template <typename TX, typename TY, int EPI>
 int run_forward(const void* x, const float* gamma, const float* beta,
-                void* y, float* mean, float* rstd, float2* part, int batch,
-                int hw, int channels, int groups, float eps, const Tiling& t,
-                cudaStream_t st) {
+                const void* residual, void* y, float* mean, float* rstd,
+                float2* part, int batch, int hw, int channels, int groups,
+                float eps, const Tiling& t, cudaStream_t st) {
   const dim3 grid(t.tiles, t.slabs, batch);
   stats_kernel<TX><<<grid, THREADS, 0, st>>>(static_cast<const TX*>(x), part,
                                              hw, channels, groups, t);
@@ -644,23 +748,24 @@ int run_forward(const void* x, const float* gamma, const float* beta,
       part, mean, rstd, batch, hw, groups, eps, t);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  normalize_kernel<TX, TY><<<grid, THREADS, 0, st>>>(
-      static_cast<const TX*>(x), gamma, beta, mean, rstd, static_cast<TY*>(y),
-      hw, channels, groups, t);
+  normalize_kernel<TX, TY, EPI><<<grid, THREADS, 0, st>>>(
+      static_cast<const TX*>(x), gamma, beta, mean, rstd,
+      static_cast<const TY*>(residual), static_cast<TY*>(y), hw, channels,
+      groups, t);
   return cudaGetLastError();
 }
 
-template <typename TX, typename TY>
+template <typename TX, typename TY, bool RELU>
 int run_backward(const void* dy, const void* x, const float* mean,
-                 const float* rstd, const float* gamma, void* dx,
-                 float* dgamma, float* dbeta, float2* part, float2* sums,
-                 float2* coef, int batch, int hw, int channels, int groups,
-                 const Tiling& t, cudaStream_t st) {
+                 const float* rstd, const float* gamma, const float* beta,
+                 void* dx, float* dgamma, float* dbeta, float2* part,
+                 float2* sums, float2* coef, int batch, int hw, int channels,
+                 int groups, const Tiling& t, cudaStream_t st) {
   const TX* xp = static_cast<const TX*>(x);
   const TY* dyp = static_cast<const TY*>(dy);
-  bwd_partials_kernel<TX, TY><<<dim3(t.tiles, t.slabs, batch), THREADS, 0,
-                                st>>>(dyp, xp, mean, rstd, part, hw, channels,
-                                      groups, t);
+  bwd_partials_kernel<TX, TY, RELU>
+      <<<dim3(t.tiles, t.slabs, batch), THREADS, 0, st>>>(
+          dyp, xp, mean, rstd, gamma, beta, part, hw, channels, groups, t);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t bc = (int64_t)batch * channels;
@@ -670,9 +775,9 @@ int run_backward(const void* dy, const void* x, const float* mean,
   if (err != cudaSuccess) return err;
   const int64_t blocks = (int64_t)t.tiles * t.slabs * batch +
                          (channels + DG_CHANNELS - 1) / DG_CHANNELS;
-  dx_kernel<TX, TY><<<(unsigned)blocks, THREADS, 0, st>>>(
-      dyp, xp, mean, rstd, gamma, sums, coef, static_cast<TX*>(dx), dgamma,
-      dbeta, batch, hw, channels, groups, t);
+  dx_kernel<TX, TY, RELU><<<(unsigned)blocks, THREADS, 0, st>>>(
+      dyp, xp, mean, rstd, gamma, beta, sums, coef, static_cast<TX*>(dx),
+      dgamma, dbeta, batch, hw, channels, groups, t);
   return cudaGetLastError();
 }
 
@@ -754,11 +859,12 @@ __device__ __forceinline__ void cluster_group_sums(float (&v)[V], float* red,
 }
 
 // grid (cluster, C / slab, b), clusters of `cluster` blocks along x.
-template <typename TX, typename TY>
+template <typename TX, typename TY, int EPI>
 __global__ void __launch_bounds__(THREADS, 2)
     fwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
                        const float* __restrict__ gamma,
-                       const float* __restrict__ beta, TY* __restrict__ y,
+                       const float* __restrict__ beta,
+                       const TY* __restrict__ residual, TY* __restrict__ y,
                        float* __restrict__ mean, float* __restrict__ rstd,
                        int hw, int channels, int groups, float eps,
                        ClusterPlan p, int cg_log2) {
@@ -847,7 +953,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     const float r = 1.f / sqrtf(tree[(col * V + j) & ~(cg - 1)] / n + eps);
-    mul[j] = r * gamma[c0 + j];
+    mul[j] = norm_mul(r, gamma[c0 + j]);
     add[j] = beta[c0 + j];
   }
   if (writer) {
@@ -856,27 +962,53 @@ __global__ void __launch_bounds__(THREADS, 2)
     rstd[bg] = 1.f / sqrtf(tree[tid] / n + eps);
   }
 
-  // 3. y from the tile in shared memory: the one place y is written
-  TY* out = y + ((int64_t)b * hw + start) * channels + c0;
-  each(false, [&](int q, const TX* at) {
-    Packed<TX, V> xv;
-    xv.load_shared(at);
-    float o[V];
+  // 3. y from the tile in shared memory and its epilogue: the one place y
+  // is written. `each`'s walk, RES_AHEAD pixels at a time where a residual
+  // is read from global memory, so that a thread's loads overlap.
+  constexpr int AHEAD = EPI == EPI_RESIDUAL_RELU ? RES_AHEAD : 1;
+  const int64_t first = ((int64_t)b * hw + start) * channels + c0;
+  for (int i = 0; i < mine; ++i) {
+    const int lo = i * p.box_pix, len = min(p.box_pix, npix - lo);
+    const TX* tile =
+        reinterpret_cast<const TX*>(smem + lay.x + i * lay.box_x) + col * V;
+    for (int q = (row - lo) & (rows - 1); q < len; q += AHEAD * rows) {
+      Packed<TY, V> res[AHEAD] = {};
+      if constexpr (EPI == EPI_RESIDUAL_RELU) {
 #pragma unroll
-    for (int j = 0; j < V; ++j) o[j] = fmaf(xv.get(j) - mu[j], mul[j], add[j]);
-    Packed<TY, V>::of(o).store(out + (int64_t)q * channels);
-  });
+        for (int u = 0; u < AHEAD; ++u)
+          if (q + u * rows < len)
+            res[u].load(residual + first +
+                        (int64_t)(lo + q + u * rows) * channels);
+      }
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) {
+        const int k = q + u * rows;
+        if (k >= len) break;
+        Packed<TX, V> xv;
+        xv.load_shared(tile + k * p.slab);
+        float o[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          o[j] = epilogue<EPI, TY>(norm_y(xv.get(j), mu[j], mul[j], add[j]),
+                                   res[u].get(j));
+        Packed<TY, V>::of(o).store(y + first + (int64_t)(lo + k) * channels);
+      }
+    }
+  }
   cluster_wait();  // the other blocks are done reading this one
 }
 
-// grid (cluster, C / slab, b), clusters of `cluster` blocks along x.
-template <typename TX, typename TY>
+// grid (cluster, C / slab, b), clusters of `cluster` blocks along x. With
+// RELU the sums' pass masks each dy vector it reads and writes it back into
+// the tile where it zeroed a value, so the dx pass reads the masked dy.
+template <typename TX, typename TY, bool RELU>
 __global__ void __launch_bounds__(THREADS, 2)
     bwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
                        const __grid_constant__ CUtensorMap tm_dy,
                        const float* __restrict__ mean,
                        const float* __restrict__ rstd,
-                       const float* __restrict__ gamma, TX* __restrict__ dx,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ beta, TX* __restrict__ dx,
                        float2* __restrict__ sums, int hw, int channels,
                        int groups, ClusterPlan p, int cg_log2) {
   constexpr int V = 16 / sizeof(TX);
@@ -916,7 +1048,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int cols = p.slab / V, rows = THREADS / cols;
   const int col = tid % cols, row = tid / cols;
   const int c0 = slab * p.slab + col * V;
-  float mu[V], r[V], a[V], s[V];
+  float mu[V], r[V], a[V], s[V], mul[V], add[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     const int bg = b * groups + ((c0 + j) >> cg_log2);
@@ -924,6 +1056,10 @@ __global__ void __launch_bounds__(THREADS, 2)
     r[j] = rstd[bg];
     a[j] = 0.f;
     s[j] = 0.f;
+    if constexpr (RELU) {
+      mul[j] = norm_mul(r[j], gamma[c0 + j]);
+      add[j] = beta[c0 + j];
+    }
   }
   auto x_at = [&](int q) {
     const int box = q / p.box_pix;
@@ -932,7 +1068,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   };
   auto dy_at = [&](int q) {
     const int box = q / p.box_pix;
-    return reinterpret_cast<const TY*>(smem + lay.dy + box * lay.box_dy) +
+    return reinterpret_cast<TY*>(smem + lay.dy + box * lay.box_dy) +
            (q - box * p.box_pix) * p.slab + col * V;
   };
   int waited = -1;
@@ -946,6 +1082,16 @@ __global__ void __launch_bounds__(THREADS, 2)
     Packed<TY, V> dv;
     xv.load_shared(x_at(q));
     dv.load_shared(dy_at(q));
+    if constexpr (RELU) {
+      bool zeroed = false;
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (!relu_passes<TY>(xv.get(j), mu[j], mul[j], add[j])) {
+          dv.set(j, 0.f);
+          zeroed = true;
+        }
+      if (zeroed) dv.store(dy_at(q));  // this thread's dx pass reads it
+    }
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const float d = dv.get(j);
@@ -1051,14 +1197,16 @@ bool valid_plan(const ClusterPlan& p, int channels, int hw, int groups,
 }
 
 // A direction's cluster kernel for (TX, TY) (the forward's TY is y's type,
-// the backward's dy's): its launch configuration and occupancy, and its
-// attributes (the shared-memory limit and clusters of 16), set once a
-// device for each kernel.
-template <bool FWD, typename TX, typename TY>
+// the backward's dy's) and epilogue EPI (the backward's relu for EPI_RELU):
+// its launch configuration and occupancy, and its attributes (the
+// shared-memory limit and clusters of 16), set once a device for each
+// kernel.
+template <bool FWD, typename TX, typename TY, int EPI>
 struct Cluster {
   static const void* kernel() {
-    return FWD ? reinterpret_cast<const void*>(fwd_cluster_kernel<TX, TY>)
-               : reinterpret_cast<const void*>(bwd_cluster_kernel<TX, TY>);
+    return FWD ? reinterpret_cast<const void*>(fwd_cluster_kernel<TX, TY, EPI>)
+               : reinterpret_cast<const void*>(
+                     bwd_cluster_kernel<TX, TY, EPI != EPI_NONE>);
   }
 
   static cudaError_t allow() {
@@ -1107,12 +1255,13 @@ cudaError_t nhwc_map(CUtensorMap* map, const void* base, int batch, int hw,
   return make_map_plain(map, base, 3, sizeof(T) == 2, dims, strides, box);
 }
 
-template <typename TX, typename TY>
+template <typename TX, typename TY, int EPI>
 int run_forward_cluster(const void* x, const float* gamma, const float* beta,
-                        void* y, float* mean, float* rstd, int batch, int hw,
-                        int channels, int groups, float eps,
-                        const ClusterPlan& p, cudaStream_t st) {
-  using K = Cluster<true, TX, TY>;
+                        const void* residual, void* y, float* mean,
+                        float* rstd, int batch, int hw, int channels,
+                        int groups, float eps, const ClusterPlan& p,
+                        cudaStream_t st) {
+  using K = Cluster<true, TX, TY, EPI>;
   CUtensorMap tm_x;
   cudaError_t err = nhwc_map<TX>(&tm_x, x, batch, hw, channels, p);
   if (err == cudaSuccess) err = K::allow();
@@ -1120,19 +1269,20 @@ int run_forward_cluster(const void* x, const float* gamma, const float* beta,
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t config = K::config(p, batch, channels, &attr);
   config.stream = st;
-  return cudaLaunchKernelEx(&config, fwd_cluster_kernel<TX, TY>, tm_x, gamma,
-                            beta, static_cast<TY*>(y), mean, rstd, hw,
-                            channels, groups, eps, p,
-                            log2_of(channels / groups));
+  return cudaLaunchKernelEx(&config, fwd_cluster_kernel<TX, TY, EPI>, tm_x,
+                            gamma, beta, static_cast<const TY*>(residual),
+                            static_cast<TY*>(y), mean, rstd, hw, channels,
+                            groups, eps, p, log2_of(channels / groups));
 }
 
-template <typename TX, typename TY>
+template <typename TX, typename TY, bool RELU>
 int run_backward_cluster(const void* dy, const void* x, const float* mean,
-                         const float* rstd, const float* gamma, void* dx,
-                         float* dgamma, float* dbeta, float2* sums, int batch,
-                         int hw, int channels, int groups,
-                         const ClusterPlan& p, cudaStream_t st) {
-  using K = Cluster<false, TX, TY>;
+                         const float* rstd, const float* gamma,
+                         const float* beta, void* dx, float* dgamma,
+                         float* dbeta, float2* sums, int batch, int hw,
+                         int channels, int groups, const ClusterPlan& p,
+                         cudaStream_t st) {
+  using K = Cluster<false, TX, TY, RELU ? EPI_RELU : EPI_NONE>;
   CUtensorMap tm_x, tm_dy;
   cudaError_t err = nhwc_map<TX>(&tm_x, x, batch, hw, channels, p);
   if (err == cudaSuccess)
@@ -1142,9 +1292,10 @@ int run_backward_cluster(const void* dy, const void* x, const float* mean,
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t config = K::config(p, batch, channels, &attr);
   config.stream = st;
-  err = cudaLaunchKernelEx(&config, bwd_cluster_kernel<TX, TY>, tm_x, tm_dy,
-                           mean, rstd, gamma, static_cast<TX*>(dx), sums, hw,
-                           channels, groups, p, log2_of(channels / groups));
+  err = cudaLaunchKernelEx(&config, bwd_cluster_kernel<TX, TY, RELU>, tm_x,
+                           tm_dy, mean, rstd, gamma, beta,
+                           static_cast<TX*>(dx), sums, hw, channels, groups,
+                           p, log2_of(channels / groups));
   if (err != cudaSuccess) return err;
   bwd_dgamma_kernel<<<(channels + DG_CHANNELS - 1) / DG_CHANNELS, THREADS, 0,
                       st>>>(sums, dgamma, dbeta, batch, channels);
@@ -1152,6 +1303,27 @@ int run_backward_cluster(const void* dy, const void* x, const float* mean,
 }
 
 bool dtype_ok(int code) { return code == 0 || code == 1; }
+
+// A forward's epilogue code and residual agree: a residual exactly with
+// EPI_RESIDUAL_RELU. The backward takes EPI_NONE or EPI_RELU (and beta with
+// the latter).
+bool forward_epilogue_ok(int epi, const void* residual) {
+  return (epi == EPI_NONE || epi == EPI_RELU || epi == EPI_RESIDUAL_RELU) &&
+         (residual != nullptr) == (epi == EPI_RESIDUAL_RELU);
+}
+
+bool backward_epilogue_ok(int epi, const void* beta) {
+  return epi == EPI_NONE || (epi == EPI_RELU && beta != nullptr);
+}
+
+// f(std::integral_constant<int, E>{}) for epilogue code epi
+template <typename F>
+int by_epilogue(int epi, F&& f) {
+  if (epi == EPI_RELU) return f(std::integral_constant<int, EPI_RELU>{});
+  if (epi == EPI_RESIDUAL_RELU)
+    return f(std::integral_constant<int, EPI_RESIDUAL_RELU>{});
+  return f(std::integral_constant<int, EPI_NONE>{});
+}
 
 // f(TA{}, TB{}) with the element types of dtype codes a and b (0 = float32,
 // 1 = bfloat16).
@@ -1179,22 +1351,28 @@ int group_norm_tiles(int channels, int hw, int groups, int x_dtype) {
 
 // The two-pass forward. x and y [b, h, w, C] (NHWC in memory), gamma/beta
 // f32 [C]; mean and rstd f32 [b, groups]; part f32 scratch [b, groups,
-// tiles, 2]. Dtypes: 0 = float32, 1 = bfloat16. Returns the launches'
-// cudaGetLastError().
+// tiles, 2]. Dtypes: 0 = float32, 1 = bfloat16. epilogue: 0 none, 1 relu,
+// 2 residual then relu, with residual [b, h, w, C] of y's dtype (null
+// otherwise). Returns the launches' cudaGetLastError().
 int group_norm_fwd(const void* x, const void* gamma, const void* beta,
-                   void* y, void* mean, void* rstd, void* part, int x_dtype,
-                   int y_dtype, int batch, int channels, int hw, int groups,
-                   float eps, void* stream) {
+                   const void* residual, void* y, void* mean, void* rstd,
+                   void* part, int x_dtype, int y_dtype, int batch,
+                   int channels, int hw, int groups, float eps, int epilogue,
+                   void* stream) {
   Tiling t;
   if (batch <= 0 || !dtype_ok(x_dtype) || !dtype_ok(y_dtype) ||
+      !forward_epilogue_ok(epilogue, residual) ||
       !make_tiling(channels, hw, groups, vec_of(x_dtype), &t))
     return cudaErrorInvalidValue;
   return by_dtypes(x_dtype, y_dtype, [&](auto tx, auto ty) {
-    return run_forward<decltype(tx), decltype(ty)>(
-        x, static_cast<const float*>(gamma), static_cast<const float*>(beta),
-        y, static_cast<float*>(mean), static_cast<float*>(rstd),
-        static_cast<float2*>(part), batch, hw, channels, groups, eps, t,
-        static_cast<cudaStream_t>(stream));
+    return by_epilogue(epilogue, [&](auto epi) {
+      return run_forward<decltype(tx), decltype(ty), decltype(epi)::value>(
+          x, static_cast<const float*>(gamma),
+          static_cast<const float*>(beta), residual, y,
+          static_cast<float*>(mean), static_cast<float*>(rstd),
+          static_cast<float2*>(part), batch, hw, channels, groups, eps, t,
+          static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
@@ -1203,45 +1381,58 @@ int group_norm_fwd(const void* x, const void* gamma, const void* beta,
 // group_norm_fwd's, with no scratch. A plan the kernel does not take
 // returns cudaErrorInvalidValue.
 int group_norm_fwd_cluster(const void* x, const void* gamma, const void* beta,
-                           void* y, void* mean, void* rstd, int x_dtype,
-                           int y_dtype, int batch, int channels, int hw,
-                           int groups, float eps, int slab, int cluster,
-                           int pix, int box_pix, int nbox, void* stream) {
+                           const void* residual, void* y, void* mean,
+                           void* rstd, int x_dtype, int y_dtype, int batch,
+                           int channels, int hw, int groups, float eps,
+                           int epilogue, int slab, int cluster, int pix,
+                           int box_pix, int nbox, void* stream) {
   Tiling t;
   const ClusterPlan p{slab, cluster, pix, box_pix, nbox};
   if (batch <= 0 || !dtype_ok(x_dtype) || !dtype_ok(y_dtype) ||
+      !forward_epilogue_ok(epilogue, residual) ||
       !make_tiling(channels, hw, groups, vec_of(x_dtype), &t) ||
       !valid_plan(p, channels, hw, groups, x_dtype ? 2 : 4, 0))
     return cudaErrorInvalidValue;
   return by_dtypes(x_dtype, y_dtype, [&](auto tx, auto ty) {
-    return run_forward_cluster<decltype(tx), decltype(ty)>(
-        x, static_cast<const float*>(gamma), static_cast<const float*>(beta),
-        y, static_cast<float*>(mean), static_cast<float*>(rstd), batch, hw,
-        channels, groups, eps, p, static_cast<cudaStream_t>(stream));
+    return by_epilogue(epilogue, [&](auto epi) {
+      return run_forward_cluster<decltype(tx), decltype(ty),
+                                 decltype(epi)::value>(
+          x, static_cast<const float*>(gamma),
+          static_cast<const float*>(beta), residual, y,
+          static_cast<float*>(mean), static_cast<float*>(rstd), batch, hw,
+          channels, groups, eps, p, static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
 // dy [b, h, w, C] in dy_dtype, x and dx in x_dtype (NHWC in memory); mean,
 // rstd f32 [b, groups]; gamma, dgamma, dbeta f32 [C]; scratch part f32
 // [b, tiles, C, 2], sums f32 [b, C, 2] and coef f32 [b, groups, 2].
+// epilogue 1 (relu) masks dy by the forward's relu, recomputed from x,
+// gamma and beta f32 [C] (null with epilogue 0); dy's dtype is then y's.
 // Returns the launches' cudaGetLastError().
 int group_norm_bwd(const void* dy, const void* x, const void* mean,
-                   const void* rstd, const void* gamma, void* dx, void* dgamma,
-                   void* dbeta, void* part, void* sums, void* coef,
-                   int x_dtype, int dy_dtype, int batch, int channels, int hw,
-                   int groups, void* stream) {
+                   const void* rstd, const void* gamma, const void* beta,
+                   void* dx, void* dgamma, void* dbeta, void* part,
+                   void* sums, void* coef, int x_dtype, int dy_dtype,
+                   int batch, int channels, int hw, int groups, int epilogue,
+                   void* stream) {
   Tiling t;
   if (batch <= 0 || !dtype_ok(x_dtype) || !dtype_ok(dy_dtype) ||
+      !backward_epilogue_ok(epilogue, beta) ||
       !make_tiling(channels, hw, groups, vec_of(x_dtype), &t))
     return cudaErrorInvalidValue;
   return by_dtypes(x_dtype, dy_dtype, [&](auto tx, auto ty) {
-    return run_backward<decltype(tx), decltype(ty)>(
-        dy, x, static_cast<const float*>(mean),
-        static_cast<const float*>(rstd), static_cast<const float*>(gamma), dx,
-        static_cast<float*>(dgamma), static_cast<float*>(dbeta),
-        static_cast<float2*>(part), static_cast<float2*>(sums),
-        static_cast<float2*>(coef), batch, hw, channels, groups, t,
-        static_cast<cudaStream_t>(stream));
+    return by_epilogue(epilogue, [&](auto epi) {
+      return run_backward<decltype(tx), decltype(ty),
+                          decltype(epi)::value == EPI_RELU>(
+          dy, x, static_cast<const float*>(mean),
+          static_cast<const float*>(rstd), static_cast<const float*>(gamma),
+          static_cast<const float*>(beta), dx, static_cast<float*>(dgamma),
+          static_cast<float*>(dbeta), static_cast<float2*>(part),
+          static_cast<float2*>(sums), static_cast<float2*>(coef), batch, hw,
+          channels, groups, t, static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
@@ -1250,30 +1441,37 @@ int group_norm_bwd(const void* dy, const void* x, const void* mean,
 // Arguments as group_norm_bwd's; sums f32 [b, C, 2] is scratch (no part or
 // coef). A plan the kernel does not take returns cudaErrorInvalidValue.
 int group_norm_bwd_cluster(const void* dy, const void* x, const void* mean,
-                           const void* rstd, const void* gamma, void* dx,
-                           void* dgamma, void* dbeta, void* sums, int x_dtype,
-                           int dy_dtype, int batch, int channels, int hw,
-                           int groups, int slab, int cluster, int pix,
+                           const void* rstd, const void* gamma,
+                           const void* beta, void* dx, void* dgamma,
+                           void* dbeta, void* sums, int x_dtype, int dy_dtype,
+                           int batch, int channels, int hw, int groups,
+                           int epilogue, int slab, int cluster, int pix,
                            int box_pix, int nbox, void* stream) {
   Tiling t;
   const ClusterPlan p{slab, cluster, pix, box_pix, nbox};
   if (batch <= 0 || !dtype_ok(x_dtype) || !dtype_ok(dy_dtype) ||
+      !backward_epilogue_ok(epilogue, beta) ||
       !make_tiling(channels, hw, groups, vec_of(x_dtype), &t) ||
       !valid_plan(p, channels, hw, groups, x_dtype ? 2 : 4, dy_dtype ? 2 : 4))
     return cudaErrorInvalidValue;
   return by_dtypes(x_dtype, dy_dtype, [&](auto tx, auto ty) {
-    return run_backward_cluster<decltype(tx), decltype(ty)>(
-        dy, x, static_cast<const float*>(mean),
-        static_cast<const float*>(rstd), static_cast<const float*>(gamma), dx,
-        static_cast<float*>(dgamma), static_cast<float*>(dbeta),
-        static_cast<float2*>(sums), batch, hw, channels, groups, p,
-        static_cast<cudaStream_t>(stream));
+    return by_epilogue(epilogue, [&](auto epi) {
+      return run_backward_cluster<decltype(tx), decltype(ty),
+                                  decltype(epi)::value == EPI_RELU>(
+          dy, x, static_cast<const float*>(mean),
+          static_cast<const float*>(rstd), static_cast<const float*>(gamma),
+          static_cast<const float*>(beta), dx, static_cast<float*>(dgamma),
+          static_cast<float*>(dbeta), static_cast<float2*>(sums), batch, hw,
+          channels, groups, p, static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
 // Clusters of a cluster kernel resident at once on the current device for
 // this plan (cudaOccupancyMaxActiveClusters); -1 where it cannot run. The
-// forward's second dtype is y's, the backward's dy's.
+// forward's second dtype is y's, the backward's dy's. Every epilogue's
+// kernel has the same launch bounds and shared memory, so the plain one
+// stands for them.
 int group_norm_fwd_cluster_occupancy(int x_dtype, int y_dtype, int batch,
                                      int channels, int hw, int groups,
                                      int slab, int cluster, int pix,
@@ -1283,8 +1481,8 @@ int group_norm_fwd_cluster_occupancy(int x_dtype, int y_dtype, int batch,
       !valid_plan(p, channels, hw, groups, x_dtype ? 2 : 4, 0))
     return -1;
   return by_dtypes(x_dtype, y_dtype, [&](auto tx, auto ty) {
-    return Cluster<true, decltype(tx), decltype(ty)>::occupancy(batch,
-                                                                channels, p);
+    return Cluster<true, decltype(tx), decltype(ty), EPI_NONE>::occupancy(
+        batch, channels, p);
   });
 }
 
@@ -1297,8 +1495,8 @@ int group_norm_bwd_cluster_occupancy(int x_dtype, int dy_dtype, int batch,
       !valid_plan(p, channels, hw, groups, x_dtype ? 2 : 4, dy_dtype ? 2 : 4))
     return -1;
   return by_dtypes(x_dtype, dy_dtype, [&](auto tx, auto ty) {
-    return Cluster<false, decltype(tx), decltype(ty)>::occupancy(batch,
-                                                                 channels, p);
+    return Cluster<false, decltype(tx), decltype(ty), EPI_NONE>::occupancy(
+        batch, channels, p);
   });
 }
 

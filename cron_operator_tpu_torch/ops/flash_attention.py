@@ -170,29 +170,40 @@ def _for_tma(x: torch.Tensor) -> torch.Tensor:
 # handle of the stream it captures: a capture records a kernel without
 # running it. Keyed by stream, not by thread: the backward of a captured
 # step launches on the autograd engine's thread, on the capture's stream.
-_capture_tallies: Dict[int, Dict[Tuple[object, str], int]] = {}
+_capture_tallies: Dict[int, Dict[Tuple[object, ...], int]] = {}
 
 
-def _count(fn, design: str, stream: int) -> None:
+def _count(fn, design: str, stream: int,
+           epilogue: Optional[str] = None) -> None:
     """One launch of ``fn``'s kernel on ``stream`` (a CUDA stream handle),
-    or one recorded by the capture of that stream."""
+    or one recorded by the capture of that stream; with ``epilogue``, also
+    counted in ``fn.launches_by_epilogue``."""
+    key = (fn, design) if epilogue is None else (fn, design, epilogue)
     with _count_lock:
         tally = _capture_tallies.get(stream)
         if tally is not None:
-            tally[fn, design] = tally.get((fn, design), 0) + 1
+            tally[key] = tally.get(key, 0) + 1
             return
-        fn.launches += 1
-        fn.launches_by_design[design] += 1
+        _add_launches(key, 1)
+
+
+def _add_launches(key: Tuple[object, ...], n: int) -> None:
+    fn, design = key[:2]
+    fn.launches += n
+    fn.launches_by_design[design] += n
+    if len(key) == 3:
+        fn.launches_by_epilogue[key[2]] += n
 
 
 @contextlib.contextmanager
-def capture_launches(stream: int) -> Iterator[Dict[Tuple[object, str], int]]:
+def capture_launches(stream: int) -> Iterator[Dict[Tuple[object, ...], int]]:
     """Around a CUDA graph capture of ``stream`` (its handle,
     ``torch.cuda.Stream.cuda_stream``): the wrappers' launches on that
-    stream go into the yielded tally (``(wrapper, design) -> launches``)
+    stream go into the yielded tally (``(wrapper, design) -> launches``, or
+    ``(wrapper, design, epilogue)`` for a wrapper that counts epilogues)
     instead of their counts, since the capture only records them. Each
     replay of the graph then adds them through :func:`count_replays`."""
-    tally: Dict[Tuple[object, str], int] = {}
+    tally: Dict[Tuple[object, ...], int] = {}
     with _count_lock:
         _capture_tallies[stream] = tally
     try:
@@ -202,13 +213,13 @@ def capture_launches(stream: int) -> Iterator[Dict[Tuple[object, str], int]]:
             del _capture_tallies[stream]
 
 
-def count_replays(tally: Dict[Tuple[object, str], int], replays: int) -> None:
+def count_replays(tally: Dict[Tuple[object, ...], int], replays: int) -> None:
     """Adds ``replays`` replays of a graph whose capture recorded ``tally``
-    to the wrappers' ``launches`` and ``launches_by_design``."""
+    to the wrappers' ``launches``, ``launches_by_design`` and, where
+    counted, ``launches_by_epilogue``."""
     with _count_lock:
-        for (fn, design), n in tally.items():
-            fn.launches += n * replays
-            fn.launches_by_design[design] += n * replays
+        for key, n in tally.items():
+            _add_launches(key, n * replays)
 
 
 _lib: Optional[ctypes.CDLL] = None

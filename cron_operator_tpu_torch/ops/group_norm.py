@@ -24,10 +24,20 @@ channels-last strides (``models/resnet.py``), and ``models/layers.py``
 - A DTensor raises: ``GroupNorm`` hands the rows of a batch-split DTensor
   over as plain tensors (``parallel.mesh.on_local_rows``).
 
+ResNet's ops after a norm run in the kernels' epilogues (:data:`EPILOGUES`):
+``relu=True`` gives ``z = relu(y)``, and a ``residual`` (with ``relu``)
+``z = relu(y + residual)``, y rounded to its dtype before the add and the
+add rounded once, as the bf16 ``+`` and ``F.relu`` the model ran before,
+to the bit. The backward of a relu recomputes its mask from x (the kernel
+by the forward's expression; the plain version by the plain forward); the
+residual's mask is ``threshold_backward`` of the saved z, whose result is
+also the residual's gradient.
+
 The Function saves x in its own dtype (not an f32 copy), the f32 ``mean``
-and ``rstd`` ``[B, groups]`` and gamma. Each wrapper counts its kernel's
-launches (``.launches``, ``.launches_by_design``), once per replay where a
-graph capture recorded it (``ops.flash_attention.capture_launches``).
+and ``rstd`` ``[B, groups]`` and gamma (beta too for a relu, z for a
+residual). Each wrapper counts its kernel's launches (``.launches``,
+``.launches_by_design``, ``.launches_by_epilogue``), once per replay where
+a graph capture recorded it (``ops.flash_attention.capture_launches``).
 :func:`group_norm_tolerance` states how far the kernels may lie from the
 plain versions.
 """
@@ -54,6 +64,11 @@ from cron_operator_tpu_torch.ops.flash_attention import (
 # :func:`backward_plan` fit it), and "two_pass", which reads them twice.
 FORWARD_DESIGNS = ("cluster", "two_pass")
 BACKWARD_DESIGNS = ("cluster", "two_pass")
+# The forward's epilogues (csrc/group_norm.cu EPI_*, in order): y as it
+# is, relu(y), relu(y + residual); the backward's: dy as it is, or masked
+# by the forward's relu (a residual's mask is applied before the kernel).
+EPILOGUES = ("none", "relu", "residual_relu")
+BACKWARD_EPILOGUES = ("none", "relu")
 # The cluster designs (csrc/group_norm.cu): the cluster sizes they take
 # (blocks of a (b, slab); 16 is a non-portable size), 256 threads (8
 # warps) a block, TMA boxes of at most 256 pixels, slabs of at most 256
@@ -106,33 +121,72 @@ def group_stats(x: torch.Tensor, groups: int,
     return mean, torch.rsqrt(var + eps)
 
 
+def _epilogue(relu: bool, residual: Optional[torch.Tensor], x: torch.Tensor,
+              out_dtype: torch.dtype) -> str:
+    """The name in :data:`EPILOGUES` of ``relu`` and ``residual``; a
+    residual without a relu, or one that is not of x's shape and device
+    and y's dtype, raises ValueError."""
+    if residual is None:
+        return "relu" if relu else "none"
+    if not relu:
+        raise ValueError("a residual is fused only with relu=True: ResNet "
+                         "adds it before the block's last relu")
+    if (residual.shape != x.shape or residual.dtype != out_dtype
+            or residual.device != x.device):
+        raise ValueError(
+            f"the residual must have x's shape {tuple(x.shape)} and device "
+            f"and y's dtype {out_dtype}, not {tuple(residual.shape)} "
+            f"{residual.dtype} on {residual.device}")
+    return "residual_relu"
+
+
 def group_norm_reference(x: torch.Tensor, weight: torch.Tensor,
                          bias: torch.Tensor, groups: int, eps: float,
-                         out_dtype: torch.dtype
+                         out_dtype: torch.dtype, relu: bool = False,
+                         residual: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain forward, ``(y, mean, rstd)``: x and the parameters in f32
+    """The plain forward, ``(z, mean, rstd)``: x and the parameters in f32
     (f64 for an f64 x), ``F.group_norm``, then y cast to ``out_dtype`` (the
     port's ``GroupNorm`` did exactly this before the kernels, and gives the
-    same bits); ``mean`` and ``rstd`` from :func:`group_stats`."""
+    same bits); with ``residual``, ``y + residual`` in ``out_dtype``; with
+    ``relu``, ``F.relu`` of that: the model's former sequence, op for op.
+    ``mean`` and ``rstd`` from :func:`group_stats`."""
+    _epilogue(relu, residual, x, out_dtype)
     ct = _compute_dtype(x)
     xc = x.to(ct)
-    y = F.group_norm(xc, groups, weight.to(ct), bias.to(ct), eps)
-    return (y.to(out_dtype), *group_stats(xc, groups, eps))
+    y = F.group_norm(xc, groups, weight.to(ct), bias.to(ct), eps).to(out_dtype)
+    if residual is not None:
+        y = residual + y
+    if relu:
+        y = F.relu(y)
+    return (y, *group_stats(xc, groups, eps))
 
 
 def group_norm_backward_reference(
         dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
         rstd: torch.Tensor, weight: torch.Tensor, groups: int,
+        relu: bool = False, bias: Optional[torch.Tensor] = None,
+        eps: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain backward, ``(dx, dgamma, dbeta)``, in the kernel's
     arithmetic (f32, f64 for f64), with x̂ = (x − mean_g)·rstd_g:
 
+    - with ``relu``, dy is first masked as autograd masks it behind
+      ``F.relu`` (``threshold_backward`` against y > 0), y recomputed from
+      x, ``bias`` and ``eps`` by :func:`group_norm_reference` in dy's
+      dtype, the plain forward's bits;
     - s1_g = Σ γ_c·dy and s2_g = Σ γ_c·dy·x̂ over each (b, g) of n
       elements;
     - dx = rstd_g·(γ_c·dy − s1_g/n − x̂·s2_g/n), rounded once to x's dtype
       and laid out as x;
     - dγ_c = Σ_{b,h,w} dy·x̂ and dβ_c = Σ_{b,h,w} dy, in the compute dtype.
     """
+    if relu:
+        if bias is None or eps is None:
+            raise ValueError("the relu's mask needs bias and eps: y is "
+                             "recomputed from x")
+        y = group_norm_reference(x, weight, bias, groups, eps, dy.dtype)[0]
+        dy = torch.ops.aten.threshold_backward(dy, y, 0)
     ct = _compute_dtype(x)
     c = x.shape[1]
     xg, dyg = _grouped(x.to(ct), groups), _grouped(dy.to(ct), groups)
@@ -212,18 +266,18 @@ def _kernel() -> ctypes.CDLL:
         lib.group_norm_tiles.argtypes = [ctypes.c_int] * 4
         lib.group_norm_tiles.restype = ctypes.c_int
         lib.group_norm_fwd.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.group_norm_fwd.restype = ctypes.c_int
         lib.group_norm_bwd.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.group_norm_bwd.restype = ctypes.c_int
         lib.group_norm_bwd_cluster.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
         lib.group_norm_bwd_cluster.restype = ctypes.c_int
         lib.group_norm_fwd_cluster.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.group_norm_fwd_cluster.restype = ctypes.c_int
         for occupancy in (lib.group_norm_fwd_cluster_occupancy,
                           lib.group_norm_bwd_cluster_occupancy):
@@ -363,13 +417,18 @@ def _param(p: torch.Tensor, c: int, device) -> torch.Tensor:
 
 
 def _launch_forward(x, weight, bias, groups, eps, out_dtype,
-                    plan: Optional[dict] = None):
+                    plan: Optional[dict] = None, relu: bool = False,
+                    residual: Optional[torch.Tensor] = None):
     """The forward kernel on the card, in :func:`forward_plan`'s design
-    (``plan`` gives another, to time it beside)."""
+    (``plan`` gives another, to time it beside), with the epilogue of
+    ``relu`` and ``residual``."""
     _check_activation("x", x, x)
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"out_dtype must be float32 or bfloat16, not "
                          f"{out_dtype}")
+    epilogue = _epilogue(relu, residual, x, out_dtype)
+    if residual is not None:
+        _check_activation("residual", residual, x)
     b, c, h, w = x.shape
     gamma, beta = (_param(p, c, x.device) for p in (weight, bias))
     tiles = _tiles(x, groups)
@@ -377,10 +436,11 @@ def _launch_forward(x, weight, bias, groups, eps, out_dtype,
     y = torch.empty_like(x, dtype=out_dtype, memory_format=torch.channels_last)
     stats = torch.empty((2, b, groups), dtype=torch.float32, device=x.device)
     lib = _kernel()
-    ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+    ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            None if residual is None else residual.data_ptr(), y.data_ptr(),
             stats[0].data_ptr(), stats[1].data_ptr())
     codes = (_DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], b, c, h * w,
-             groups, eps)
+             groups, eps, EPILOGUES.index(epilogue))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if plan["design"] == "cluster":
@@ -393,16 +453,21 @@ def _launch_forward(x, weight, bias, groups, eps, out_dtype,
                                device=x.device)
             err = lib.group_norm_fwd(*ptrs, part.data_ptr(), *codes, stream)
     _raise_on(err, lib, fn, "group_norm_error_string")
-    _count(group_norm_forward, plan["design"], stream)
+    _count(group_norm_forward, plan["design"], stream, epilogue)
     return y, stats[0], stats[1]
 
 
 def _launch_backward(dy, x, mean, rstd, weight, groups,
-                     plan: Optional[dict] = None):
+                     plan: Optional[dict] = None, relu: bool = False,
+                     bias: Optional[torch.Tensor] = None):
     """The backward kernel on the card, in :func:`backward_plan`'s design
-    (``plan`` gives another, to time it beside)."""
+    (``plan`` gives another, to time it beside); with ``relu``, dy masked
+    by the forward's relu, recomputed from x, gamma and ``bias``."""
     _check_activation("x", x, x)
     _check_activation("dy", dy, x)
+    if relu and bias is None:
+        raise ValueError("the relu's mask needs bias: y is recomputed "
+                         "from x")
     b, c, h, w = x.shape
     for name, t in (("mean", mean), ("rstd", rstd)):
         if (t.shape != (b, groups) or t.dtype != torch.float32
@@ -410,17 +475,19 @@ def _launch_backward(dy, x, mean, rstd, weight, groups,
             raise ValueError(f"{name} must be contiguous float32 [{b}, "
                              f"{groups}] on x's device")
     gamma = _param(weight, c, x.device)
+    beta = _param(bias, c, x.device) if relu else None
     tiles = _tiles(x, groups)
     plan = plan or backward_plan(b, c, h * w, groups, x.dtype, dy.dtype)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     grads = torch.empty((2, c), dtype=torch.float32, device=x.device)
     sums = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
     lib = _kernel()
+    epilogue = "relu" if relu else "none"
     codes = (_DTYPE_CODES[x.dtype], _DTYPE_CODES[dy.dtype], b, c, h * w,
-             groups)
+             groups, BACKWARD_EPILOGUES.index(epilogue))
     ptrs = (dy.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            gamma.data_ptr(), dx.data_ptr(), grads[0].data_ptr(),
-            grads[1].data_ptr())
+            gamma.data_ptr(), None if beta is None else beta.data_ptr(),
+            dx.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if plan["design"] == "cluster":
@@ -437,7 +504,7 @@ def _launch_backward(dy, x, mean, rstd, weight, groups,
             err = lib.group_norm_bwd(*ptrs, part.data_ptr(), sums.data_ptr(),
                                      coef.data_ptr(), *codes, stream)
     _raise_on(err, lib, fn, "group_norm_error_string")
-    _count(group_norm_backward, plan["design"], stream)
+    _count(group_norm_backward, plan["design"], stream, epilogue)
     return dx, grads[0], grads[1]
 
 
@@ -445,8 +512,8 @@ def forward_occupancy(x: torch.Tensor, groups: int,
                       plan: Optional[dict] = None) -> int:
     """Clusters of the cluster forward that the card holds at once for
     ``x`` (y of x's dtype) and ``plan`` (:func:`forward_plan`'s by
-    default): ``cudaOccupancyMaxActiveClusters``, -1 where it cannot run.
-    Builds the kernel."""
+    default), whatever the epilogue: ``cudaOccupancyMaxActiveClusters``,
+    -1 where it cannot run. Builds the kernel."""
     b, c, h, w = x.shape
     plan = plan or forward_plan(b, c, h * w, groups, x.dtype)
     return _occupancy("group_norm_fwd_cluster_occupancy", x, groups, plan)
@@ -474,13 +541,16 @@ def _occupancy(fn: str, x: torch.Tensor, groups: int, plan: dict) -> int:
 
 def group_norm_forward(x: torch.Tensor, weight: torch.Tensor,
                        bias: torch.Tensor, groups: int, eps: float,
-                       out_dtype: torch.dtype
+                       out_dtype: torch.dtype, relu: bool = False,
+                       residual: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(y, mean, rstd)``: the forward kernel on a CUDA tensor (or raises),
-    :func:`group_norm_reference` on a CPU or meta tensor. No autograd. Its
-    bound is bytes: x read once and y written once (1.699 ms over
-    ResNet-50's 53 norms a step at b 128 in bf16 on an H100). The design is
-    :func:`forward_plan`'s, by shape:
+    """``(z, mean, rstd)``: the forward kernel on a CUDA tensor (or raises),
+    :func:`group_norm_reference` on a CPU or meta tensor. No autograd. z is
+    y with the epilogue of ``relu`` and ``residual`` (:data:`EPILOGUES`),
+    applied where y is written. Its bound is bytes: x (and the residual)
+    read once and z written once (1.699 ms over ResNet-50's 53 norms a step
+    at b 128 in bf16 on an H100, 2.121 with the residuals of its 16
+    blocks). The design is :func:`forward_plan`'s, by shape:
 
     - ``"cluster"``: one thread-block cluster of 1 to 16 blocks per
       (sample, slab of channels) TMA-loads the slab's x into shared memory,
@@ -492,25 +562,33 @@ def group_norm_forward(x: torch.Tensor, weight: torch.Tensor,
       second read of x (3 units of traffic where the bound needs 2), for a
       shape whose slab does not fit the cluster's shared memory.
 
-    A launch counts under its design in ``.launches_by_design``."""
-    _refuse_dtensor(x, weight, bias)
+    A launch counts under its design in ``.launches_by_design`` and under
+    its epilogue in ``.launches_by_epilogue``."""
+    _refuse_dtensor(x, weight, bias, residual)
     with torch.no_grad():
         if x.is_cuda:
-            return _launch_forward(x, weight, bias, groups, eps, out_dtype)
+            return _launch_forward(x, weight, bias, groups, eps, out_dtype,
+                                   relu=relu, residual=residual)
         if x.device.type in _PLAIN_DEVICES:
             return group_norm_reference(x, weight, bias, groups, eps,
-                                        out_dtype)
+                                        out_dtype, relu, residual)
     raise ValueError(f"group_norm runs on CUDA, CPU or meta, not {x.device}")
 
 
 def group_norm_backward(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
-                        rstd: torch.Tensor, weight: torch.Tensor, groups: int
+                        rstd: torch.Tensor, weight: torch.Tensor, groups: int,
+                        relu: bool = False,
+                        bias: Optional[torch.Tensor] = None,
+                        eps: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dx, dgamma, dbeta)``: the backward kernel on a CUDA tensor (or
     raises), :func:`group_norm_backward_reference` on a CPU or meta
-    tensor. Its bound is bytes: x and dy read once and dx written once
-    (2.55 ms over ResNet-50's 53 norms a step at b 128 in bf16 on an H100).
-    The design is :func:`backward_plan`'s, by shape:
+    tensor. With ``relu``, of dy masked by the forward's relu, which each
+    side recomputes from x, gamma and ``bias`` as its forward computed y
+    (the plain version needs ``eps`` too); dy's dtype is then y's. Its
+    bound is bytes: x and dy read once and dx written once (2.55 ms over
+    ResNet-50's 53 norms a step at b 128 in bf16 on an H100); the mask costs
+    arithmetic, no bytes. The design is :func:`backward_plan`'s, by shape:
 
     - ``"cluster"``: one thread-block cluster of 1 to 16 blocks per
       (sample, slab of channels) TMA-loads the slab's x and dy into shared
@@ -522,55 +600,77 @@ def group_norm_backward(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
       read of x and dy (5 units of traffic where the bound needs 3), for a
       shape whose slab does not fit the cluster's shared memory.
 
-    A launch counts under its design in ``.launches_by_design``."""
-    _refuse_dtensor(dy, x, mean, rstd, weight)
+    A launch counts under its design in ``.launches_by_design`` and under
+    its epilogue in ``.launches_by_epilogue``."""
+    _refuse_dtensor(dy, x, mean, rstd, weight, bias)
     with torch.no_grad():
         if x.is_cuda:
-            return _launch_backward(dy, x, mean, rstd, weight, groups)
+            return _launch_backward(dy, x, mean, rstd, weight, groups,
+                                    relu=relu, bias=bias)
         if x.device.type in _PLAIN_DEVICES:
             return group_norm_backward_reference(dy, x, mean, rstd, weight,
-                                                 groups)
+                                                 groups, relu, bias, eps)
     raise ValueError(f"group_norm runs on CUDA, CPU or meta, not {x.device}")
 
 
 group_norm_forward.launches = 0
 group_norm_forward.launches_by_design = dict.fromkeys(FORWARD_DESIGNS, 0)
+group_norm_forward.launches_by_epilogue = dict.fromkeys(EPILOGUES, 0)
 group_norm_backward.launches = 0
 group_norm_backward.launches_by_design = dict.fromkeys(BACKWARD_DESIGNS, 0)
+group_norm_backward.launches_by_epilogue = dict.fromkeys(BACKWARD_EPILOGUES,
+                                                         0)
 
 
 class _GroupNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, weight, bias, groups, eps, out_dtype):
-        y, mean, rstd = group_norm_forward(x, weight, bias, groups, eps,
-                                           out_dtype)
-        ctx.save_for_backward(x, mean, rstd, weight)
-        ctx.groups = groups
-        ctx.bias_dtype = bias.dtype
-        return y
+    """The norm and its epilogue. A relu's backward runs in the kernel,
+    which recomputes the mask from x; a residual's is
+    ``threshold_backward`` of the saved z (the next layer's input, alive
+    anyway), whose result is the residual's gradient and the kernel's
+    unmasked dy."""
 
     @staticmethod
-    def backward(ctx, dy):
-        x, mean, rstd, weight = ctx.saved_tensors
-        dx, dgamma, dbeta = group_norm_backward(dy, x, mean, rstd, weight,
-                                                ctx.groups)
-        return (dx, dgamma.to(weight.dtype), dbeta.to(ctx.bias_dtype), None,
-                None, None)
+    def forward(ctx, x, weight, bias, residual, groups, eps, out_dtype, relu):
+        z, mean, rstd = group_norm_forward(x, weight, bias, groups, eps,
+                                           out_dtype, relu, residual)
+        ctx.groups, ctx.eps, ctx.bias_dtype = groups, eps, bias.dtype
+        ctx.residual = residual is not None
+        ctx.relu = relu and not ctx.residual  # the kernel's mask
+        ctx.save_for_backward(x, mean, rstd, weight,
+                              z if ctx.residual else bias if relu else None)
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        x, mean, rstd, weight, kept = ctx.saved_tensors
+        dres = None
+        if ctx.residual:
+            dz = dres = torch.ops.aten.threshold_backward(dz, kept, 0)
+        dx, dgamma, dbeta = group_norm_backward(
+            dz, x, mean, rstd, weight, ctx.groups, ctx.relu,
+            kept if ctx.relu else None, ctx.eps)
+        return (dx, dgamma.to(weight.dtype), dbeta.to(ctx.bias_dtype), dres,
+                None, None, None, None)
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
                groups: int = 32, eps: float = 1e-6,
-               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+               out_dtype: Optional[torch.dtype] = None, relu: bool = False,
+               residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """flax ``nn.GroupNorm(num_groups=groups, epsilon=eps, dtype=out_dtype)``
     of ``x [B, C, H, W]`` (channels-last on the card) with f32 ``weight``
     (gamma) and ``bias`` (beta) ``[C]``: normalised in f32, y in
-    ``out_dtype`` (x's dtype by default). Differentiable in x, weight and
-    bias; the kernels on a CUDA tensor, the plain versions on a CPU one."""
-    return _GroupNorm.apply(x, weight, bias, groups, eps,
-                            out_dtype or x.dtype)
+    ``out_dtype`` (x's dtype by default); then, with ``relu``, ``relu(y)``,
+    and with a ``residual`` of y's shape and dtype too, ``relu(y +
+    residual)``, the same bits as those ops after the norm. Differentiable
+    in x, weight, bias and the residual; the kernels on a CUDA tensor, the
+    plain versions on a CPU one."""
+    return _GroupNorm.apply(x, weight, bias, residual, groups, eps,
+                            out_dtype or x.dtype, relu)
 
 
-__all__ = ["BACKWARD_DESIGNS", "CLUSTERS", "FORWARD_DESIGNS", "SUM_ORDER",
+__all__ = ["BACKWARD_DESIGNS", "BACKWARD_EPILOGUES", "CLUSTERS",
+           "EPILOGUES", "FORWARD_DESIGNS", "SUM_ORDER",
            "backward_occupancy", "backward_plan", "forward_occupancy",
            "forward_plan", "group_norm",
            "group_norm_backward", "group_norm_backward_reference",

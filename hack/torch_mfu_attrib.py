@@ -81,15 +81,20 @@ def main(argv=None) -> int:
 
     class Scale(nn.Module):
         """GroupNorm's stand-in: a learned scalar scale, no reduction (the
-        JAX script's ``_Identity``), so every layer keeps a parameter."""
+        JAX script's ``_Identity``), so every layer keeps a parameter; the
+        residual add and the relu that the norm's epilogue takes follow as
+        torch ops."""
 
         def __init__(self, compute_dtype):
             super().__init__()
             self.scale = nn.Parameter(torch.ones(1, device=device))
             self.compute_dtype = compute_dtype
 
-        def forward(self, x):
-            return x * self.scale.to(self.compute_dtype)
+        def forward(self, x, residual=None, relu=False):
+            y = x * self.scale.to(self.compute_dtype)
+            if residual is not None:
+                y = residual + y
+            return torch.relu(y) if relu else y
 
     def without_norms(module):
         for name, child in module.named_children():

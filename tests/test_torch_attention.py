@@ -1,6 +1,8 @@
 """The port's attention dispatch, RoPE and Q/K/V projection against the JAX
 package, on the same numpy inputs, in f32 on the CPU."""
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 from typing import Any
 
 import flax.linen as fnn

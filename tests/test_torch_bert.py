@@ -8,6 +8,8 @@ the plain versions of K1-K3 through the autograd Function) against the JAX
 kernels in interpret mode; and ten AdamW steps through both Trainers.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

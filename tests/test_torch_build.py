@@ -2,6 +2,8 @@
 of its source, of every shared header in ``csrc/`` and of the flags, so an
 edited header or source is rebuilt and a stale library is never loaded."""
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import importlib
 import shutil
 

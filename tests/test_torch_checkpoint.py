@@ -20,6 +20,8 @@
 Everything runs on the CPU in f32 unless stated.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import os
 
 import jax

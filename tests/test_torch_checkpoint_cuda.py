@@ -15,6 +15,8 @@ the port: ``python -m pytest --noconftest -m cuda
 tests/test_torch_checkpoint_cuda.py``.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import faulthandler
 import itertools
 

@@ -34,6 +34,8 @@ The card's side (a captured step over NCCL equal to the eager one) is in
 ``tests/test_torch_mesh_graph_cuda.py``.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import numpy as np
 import pytest
 import torch

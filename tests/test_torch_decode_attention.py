@@ -13,6 +13,8 @@ refused before anything is built. The kernel itself runs in
 ``tests/test_torch_decode_attention_cuda.py`` on the card.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import importlib
 
 import numpy as np

@@ -14,6 +14,8 @@ installed: ``python -m pytest --noconftest -m cuda
 tests/test_torch_decode_attention_cuda.py``.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import faulthandler
 import importlib
 

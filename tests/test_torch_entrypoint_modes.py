@@ -5,6 +5,8 @@ its step target with one timeline entry per step; ``param.pipe > 1`` and
 ``param.devices`` beyond the visible count raise ``ValueError`` in both
 packages; ``param.devices`` is the world size (one rank per device)."""
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import math
 
 import pytest

@@ -8,6 +8,8 @@ Switch-MoE blocks in ``gpt`` and ``generate_job`` and is ignored by the
 other jobs. The execution modes, ``param.devices`` and
 ``param.pipe`` are in ``tests/test_torch_entrypoint_modes.py``."""
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import threading
 
 import pytest

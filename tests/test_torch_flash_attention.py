@@ -11,6 +11,8 @@ CUDA kernels themselves are held against the plain version in
 ``test_torch_flash_kernel_cuda.py``, which needs the card.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import importlib
 
 import jax

@@ -14,6 +14,8 @@ plain versions in ``test_torch_flash_bwd_kernel_cuda.py``, which needs the
 card.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import functools
 import importlib
 

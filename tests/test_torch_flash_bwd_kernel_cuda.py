@@ -14,6 +14,8 @@ the sm90 designs of K2 and K3 round dS (and P) to bf16 before their
 products, as the TPU kernels do, and their bounds add that rounding.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import faulthandler
 import importlib
 

@@ -6,6 +6,8 @@ installed: ``python -m pytest --noconftest -m cuda
 tests/test_torch_flash_kernel_cuda.py``.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import faulthandler
 import importlib
 

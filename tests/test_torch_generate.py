@@ -4,6 +4,8 @@ device tensor that decode advances on the device), equal to a full-forward
 rerun (dense, GQA with RoPE, and Switch-MoE blocks), the same argument checks, and seeded sampling, whose draw is
 ``torch.multinomial``'s written out."""
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

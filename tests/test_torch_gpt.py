@@ -9,6 +9,8 @@ expert and buffer slot, in each MoE call) are checked equal to JAX's before
 any value is compared, and whose aux loss is compared with JAX's.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp

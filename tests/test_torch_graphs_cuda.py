@@ -8,6 +8,8 @@ port, so it also runs where JAX is not installed: ``python -m pytest
 --noconftest -m cuda tests/test_torch_graphs_cuda.py``.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import faulthandler
 import importlib
 import itertools

@@ -14,9 +14,17 @@ in the last place away. The dispatch: a CPU tensor never touches the kernel
 library, a tensor on the card launches the kernel or raises (never the plain
 version), a meta tensor gives the plain version's shapes (a FLOP count), a
 DTensor raises, and a layout or shape the kernels do not take is refused
-before anything is built. The kernels themselves run in
-``tests/test_torch_group_norm_cuda.py`` on the card.
+before anything is built. The epilogues (``relu``, ``residual`` then
+relu): the fused plain op is the former unfused sequence (the norm, ``+
+residual``, ``F.relu``) to the bit, forward and backward for x, gamma,
+beta and the residual, in bf16 and f32; the masked plain backward is
+autograd through that sequence; a residual without a relu, or not of y's
+shape and dtype, raises; launches count by epilogue, once per replay. The
+kernels themselves run in ``tests/test_torch_group_norm_cuda.py`` on the
+card.
 """
+
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
 
 import importlib
 
@@ -34,6 +42,7 @@ from torch.distributed.tensor import Replicate, distribute_tensor
 from cron_operator_tpu_torch.models.layers import GroupNorm
 
 gn = importlib.import_module("cron_operator_tpu_torch.ops.group_norm")
+fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
 
 GROUPS, EPS = 32, 1e-6
 # f32 sums over a group of 2 x 36 terms (x̂, dy x̂) in two orders, and
@@ -476,3 +485,150 @@ def test_forward_plan_keeps_two_pass_beyond_the_cluster(c, hw, groups,
     assert gn.forward_plan(2, c, hw, groups, dtype) == {"design": "two_pass"}
     assert gn.forward_plan(2, c, hw, groups, dtype, cluster=16) == {
         "design": "two_pass"}
+
+
+# ------------------------------------------------------------- epilogues
+
+
+def _unfused(norm, x, residual, relu):
+    """The model's former sequence after a norm: ``F.relu(residual + y)``
+    or ``F.relu(y)``."""
+    y = norm(x)
+    if residual is not None:
+        y = residual + y
+    return F.relu(y) if relu else y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_residual", [False, True],
+                         ids=["relu", "residual_relu"])
+def test_fused_epilogue_is_the_former_sequence_to_the_bit(dtype,
+                                                          with_residual):
+    """z and the gradients of x, gamma, beta and the residual through the
+    fused op equal those through the norm, the add and ``F.relu`` as the
+    model ran them, bit for bit; the plain forward gives the same z."""
+    _, (x, dy, gamma, beta) = _case(dtype, seed=8)
+    rng = np.random.default_rng(9)
+    res = torch.from_numpy(_draw(rng, 2, 6, 5, 64)).permute(0, 3, 1, 2).to(
+        dtype) if with_residual else None
+    norm = GroupNorm(64, compute_dtype=dtype)
+    norm.load_state_dict({"weight": gamma, "bias": beta})
+    runs = []
+    for fused in (False, True):
+        xin = x.clone().requires_grad_()
+        rin = None if res is None else res.clone().requires_grad_()
+        norm.zero_grad(set_to_none=True)
+        z = (norm(xin, residual=rin, relu=True) if fused
+             else _unfused(norm, xin, rin, True))
+        z.backward(dy)
+        runs.append([z, xin.grad, norm.weight.grad, norm.bias.grad]
+                    + ([] if rin is None else [rin.grad]))
+    assert bool((runs[1][0] == 0).any()) and bool((runs[1][0] > 0).any())
+    for got, want in zip(*reversed(runs)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    plain, _, _ = gn.group_norm_reference(x, gamma, beta, GROUPS, EPS, dtype,
+                                          relu=True, residual=res)
+    assert torch.equal(plain, runs[0][0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_masked_backward_reference_is_autograd_through_the_relu(dtype):
+    """The plain backward with ``relu`` masks dy as autograd masks it
+    behind ``F.relu`` of the plain forward: the same bits as the plain
+    backward of that masked dy, and autograd through ``F.group_norm`` and
+    ``F.relu`` within AUTOGRAD_RTOL."""
+    _, (x, dy, gamma, beta) = _case(dtype, seed=10)
+    x, dy = x.to(dtype), dy.to(dtype)
+    xg, gg, bg = (t.to(dtype).requires_grad_() for t in (x, gamma, beta))
+    y, mean, rstd = gn.group_norm_reference(xg, gg, bg, GROUPS, EPS, dtype)
+    z = F.relu(y)
+    masked = torch.autograd.grad(z, y, dy, retain_graph=True)[0]
+    want = torch.autograd.grad(z, (xg, gg, bg), dy)
+    got = gn.group_norm_backward_reference(dy, x, mean, rstd, gamma.to(dtype),
+                                           GROUPS, relu=True,
+                                           bias=beta.to(dtype), eps=EPS)
+    again = gn.group_norm_backward_reference(masked, x, mean, rstd,
+                                             gamma.to(dtype), GROUPS)
+    assert bool((masked == 0).any())
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        scale = w.abs().max().item()
+        assert (g - w).abs().max().item() <= AUTOGRAD_RTOL[dtype] * scale
+
+
+@pytest.mark.parametrize("change, match", [
+    (dict(relu=False), "only with relu=True"),
+    (dict(dtype=torch.float32), "y's dtype"),
+    (dict(shape=(2, 64, 6, 4)), "x's shape"),
+])
+def test_a_residual_the_epilogue_does_not_take_raises(change, match):
+    _, (x, _, gamma, beta) = _case(torch.bfloat16)
+    res = torch.zeros(change.get("shape", x.shape),
+                      dtype=change.get("dtype", torch.bfloat16))
+    with pytest.raises(ValueError, match=match):
+        gn.group_norm(x, gamma, beta, relu=change.get("relu", True),
+                      residual=res)
+
+
+def test_refused_epilogue_inputs_raise_before_any_build(monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"built {name} for refused inputs")
+
+    monkeypatch.setattr(gn, "_lib", None)
+    monkeypatch.setattr(gn._build, "load", no_build)
+    x = torch.zeros(2, 4, 4, 64, dtype=torch.bfloat16).permute(0, 3, 1, 2)
+    gamma = torch.ones(64)
+    with pytest.raises(ValueError, match="residual must be channels-last"):
+        gn._launch_forward(x, gamma, gamma, GROUPS, EPS, torch.bfloat16,
+                           relu=True, residual=x.contiguous())
+    with pytest.raises(ValueError, match="needs bias"):
+        gn._launch_backward(x, x, torch.zeros(2, GROUPS),
+                            torch.ones(2, GROUPS), gamma, GROUPS, relu=True)
+    with pytest.raises(ValueError, match="needs bias and eps"):
+        gn.group_norm_backward(x, x, torch.zeros(2, GROUPS),
+                               torch.ones(2, GROUPS), gamma, GROUPS,
+                               relu=True)
+
+
+def test_meta_tensors_take_the_epilogues():
+    x = torch.empty(2, 64, 4, 4, device="meta", requires_grad=True)
+    res = torch.empty(2, 64, 4, 4, device="meta", requires_grad=True)
+    p = torch.empty(64, device="meta", requires_grad=True)
+    z = gn.group_norm(x, p, p, relu=True, residual=res)
+    z.backward(torch.empty_like(z))
+    assert res.grad.shape == x.grad.shape == x.shape
+    gn.group_norm(x, p, p, relu=True).backward(torch.empty_like(z))
+
+
+STREAM = 0x3000  # a stream handle for a capture's tally
+
+
+def test_epilogue_bookkeeping_counts_once_per_replay(monkeypatch):
+    """Each wrapper counts its launches by epilogue beside its designs: the
+    forward's none, relu and residual_relu, the backward's none and relu; a
+    capture's launches count once a replay."""
+    fwd, bwd = gn.group_norm_forward, gn.group_norm_backward
+    assert tuple(fwd.launches_by_epilogue) == gn.EPILOGUES == (
+        "none", "relu", "residual_relu")
+    assert tuple(bwd.launches_by_epilogue) == gn.BACKWARD_EPILOGUES == (
+        "none", "relu")
+    for fn in (fwd, bwd):
+        monkeypatch.setattr(fn, "launches", 0)
+        monkeypatch.setattr(fn, "launches_by_design",
+                            dict.fromkeys(fn.launches_by_design, 0))
+        monkeypatch.setattr(fn, "launches_by_epilogue",
+                            dict.fromkeys(fn.launches_by_epilogue, 0))
+    fa._count(fwd, "cluster", STREAM, "residual_relu")
+    with fa.capture_launches(STREAM) as tally:
+        fa._count(fwd, "cluster", STREAM, "relu")
+        fa._count(bwd, "cluster", STREAM, "relu")
+        fa._count(bwd, "two_pass", STREAM, "none")
+    assert tally == {(fwd, "cluster", "relu"): 1, (bwd, "cluster", "relu"): 1,
+                     (bwd, "two_pass", "none"): 1}
+    fa.count_replays(tally, 3)
+    assert fwd.launches == 4 and bwd.launches == 6
+    assert fwd.launches_by_epilogue == {"none": 0, "relu": 3,
+                                        "residual_relu": 1}
+    assert bwd.launches_by_epilogue == {"none": 3, "relu": 3}
+    assert bwd.launches_by_design == {"cluster": 3, "two_pass": 3}

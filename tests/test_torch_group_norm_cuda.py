@@ -10,13 +10,21 @@ slab narrower than C, f32, a rank with no pixel) beside the two-pass
 design on the same inputs; bit-identical reruns; a CUDA graph capture of
 the forward and backward replayed equal to eager, with the launches counted
 once per replay; the model's ``GroupNorm`` launching both kernels; and
-inputs that are not channels-last-contiguous raising.
+inputs that are not channels-last-contiguous raising. The epilogues, in
+both designs of each direction at the edge shapes above: the fused forward
+(relu, and a residual then relu) equals the unfused kernel's y followed by
+torch's add and relu, and the fused backward (the relu's mask recomputed
+from x) the unfused kernel fed ``dy * (z > 0)``, to the bit, reruns
+identical; a captured fused norm replays equal to eager, counted by
+epilogue.
 
 Needs a CUDA card and nvcc (the kernels have no CPU mode); skips without a
 card. It imports only torch and the port, so it also runs where JAX is not
 installed: ``python -m pytest --noconftest -m cuda
 tests/test_torch_group_norm_cuda.py``.
 """
+
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
 
 import faulthandler
 import importlib
@@ -285,3 +293,118 @@ def test_an_input_that_is_not_channels_last_raises(cuda_device):
                                           torch.bfloat16)
     with pytest.raises(ValueError, match="channels-last"):
         gn.group_norm_backward(dy.contiguous(), x, mean, rstd, gamma, GROUPS)
+
+
+# ------------------------------------------------------------- epilogues
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)], ids=["bf16", "f32", "f32-bf16"])
+@pytest.mark.parametrize("shape", FORWARD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_forward_is_the_unfused_kernel_and_torch(cuda_device, shape,
+                                                       dtype, out_dtype):
+    """relu(y) and relu(y + residual) in the forward's epilogue: the same
+    bits as the unfused kernel's y, then torch's add and ``F.relu``, in
+    each plan of ``_forward_plans``; the statistics unchanged; reruns
+    identical."""
+    x, _, gamma, beta = _inputs(shape, dtype, cuda_device, 6)
+    res = _inputs(shape, out_dtype, cuda_device, 7)[0]
+    before = dict(gn.group_norm_forward.launches_by_epilogue)
+    for plan in _forward_plans(shape, dtype):
+        y, mean, rstd = gn._launch_forward(x, gamma, beta, GROUPS, EPS,
+                                           out_dtype, plan)
+        for residual in (None, res):
+            want = torch.relu(y if residual is None else residual + y)
+            runs = [gn._launch_forward(x, gamma, beta, GROUPS, EPS, out_dtype,
+                                       plan, relu=True, residual=residual)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            for z, m, r in runs:
+                assert z.is_contiguous(memory_format=torch.channels_last)
+                assert torch.equal(z, want), (plan, residual is None)
+                assert torch.equal(m, mean) and torch.equal(r, rstd)
+            assert bool((want == 0).any()) and bool((want > 0).any())
+    plans = len(list(_forward_plans(shape, dtype)))
+    after = gn.group_norm_forward.launches_by_epilogue
+    assert (after["relu"] - before["relu"], after["residual_relu"]
+            - before["residual_relu"]) == (2 * plans, 2 * plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", EDGE_SHAPES + SHAPES[3:],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_backward_is_the_unfused_kernel_of_the_masked_dy(
+        cuda_device, shape, dtype):
+    """The backward with the relu's mask recomputed from x equals the
+    unfused kernel fed ``threshold_backward(dy, z, 0)`` (autograd's mask
+    behind the forward's relu) to the bit, dx, dgamma and dbeta, in each of
+    ``_edge_plans`` and the two-pass design; reruns identical."""
+    x, dy, gamma, beta = _inputs(shape, dtype, cuda_device, 8)
+    z, mean, rstd = gn.group_norm_forward(x, gamma, beta, GROUPS, EPS, dtype,
+                                          relu=True)
+    masked = torch.ops.aten.threshold_backward(dy, z, 0)
+    assert bool((masked == 0).any()) and bool((masked != 0).any())
+    for plan in [*_edge_plans(shape, dtype), {"design": "two_pass"}]:
+        want = gn._launch_backward(masked, x, mean, rstd, gamma, GROUPS, plan)
+        runs = [gn._launch_backward(dy, x, mean, rstd, gamma, GROUPS, plan,
+                                    relu=True, bias=beta) for _ in range(2)]
+        torch.cuda.synchronize()
+        for got in runs:
+            for key, a, b_ in zip(("dx", "dgamma", "dbeta"), got, want):
+                assert torch.equal(a, b_), (plan, key)
+
+
+@pytest.mark.cuda
+def test_fused_graph_equals_eager_and_counts_epilogues(cuda_device):
+    """A block's last norm, ``relu(norm(x) + residual)``, and an inner
+    norm's ``relu(norm(x))``, forward and backward captured and replayed:
+    the same bits as eager, launches counted by epilogue once a replay."""
+    norms = [GroupNorm(256, compute_dtype=torch.bfloat16, device=cuda_device)
+             for _ in range(2)]
+    x, dy, gamma, beta = _inputs((4, 256, 28, 28), torch.bfloat16,
+                                 cuda_device, 9)
+    res = _inputs((4, 256, 28, 28), torch.bfloat16, cuda_device, 10)[0]
+    with torch.no_grad():
+        for norm in norms:
+            norm.weight.copy_(gamma)
+            norm.bias.copy_(beta)
+    xin, rin = x.clone().requires_grad_(), res.clone().requires_grad_()
+    leaves = (xin, rin, *norms[0].parameters(), *norms[1].parameters())
+
+    def step():
+        for t in leaves:
+            t.grad = None
+        z = norms[1](norms[0](xin, relu=True), residual=rin, relu=True)
+        z.backward(dy)
+        return z
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = [step().detach().clone()] + [t.grad.clone() for t in leaves]
+        graph = torch.cuda.CUDAGraph()
+        for t in leaves:
+            t.grad = None
+        with fa.capture_launches(side.cuda_stream) as tally, \
+                torch.cuda.graph(graph, stream=side):
+            z = norms[1](norms[0](xin, relu=True), residual=rin, relu=True)
+            z.backward(dy)
+    torch.cuda.current_stream().wait_stream(side)
+    for fn in (gn.group_norm_forward, gn.group_norm_backward):
+        fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
+        fn.launches_by_epilogue = dict.fromkeys(fn.launches_by_epilogue, 0)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    fa.count_replays(tally, 2)
+    assert gn.group_norm_forward.launches_by_epilogue == {
+        "none": 0, "relu": 2, "residual_relu": 2}
+    assert gn.group_norm_backward.launches_by_epilogue == {"none": 2,
+                                                           "relu": 2}
+    for got, want in zip([z] + [t.grad for t in leaves], eager):
+        assert torch.equal(got, want)

@@ -1,5 +1,7 @@
 """The port imports nothing of JAX and nothing of the JAX package."""
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import ast
 import os
 import subprocess
@@ -18,8 +20,9 @@ FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     # the perf tooling: the harness, the step bench and the MFU scripts
     ROOT / "hack" / "torch_bench.py", ROOT / "hack" / "torch_step_bench.py",
     ROOT / "hack" / "torch_mfu_probe.py", ROOT / "hack" / "torch_mfu_attrib.py",
-    # the rank bodies of the gloo worlds import the port alone
-    ROOT / "tests" / "torch_mesh_ranks.py",
+    # the rank bodies of the gloo worlds import the port alone, and the
+    # test helper that sets an xdist worker's torch threads torch alone
+    ROOT / "tests" / "torch_mesh_ranks.py", ROOT / "tests" / "torch_threads.py",
     # the meshed step captured over NCCL: its warm-up probe and card test
     ROOT / "hack" / "torch_graph_warmup_probe.py",
     ROOT / "tests" / "test_torch_mesh_graph_cuda.py",

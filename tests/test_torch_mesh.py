@@ -29,6 +29,8 @@ and its elastic restore in gloo worlds on the CPU.
   onto 2 and 4 ranks.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import itertools
 import json
 import os

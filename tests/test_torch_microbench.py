@@ -14,6 +14,8 @@ against the JAX package's, on the CPU at a small size.
   script measuring another checkout can load it by path.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import ast
 import json
 from pathlib import Path

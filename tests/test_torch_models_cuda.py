@@ -8,6 +8,8 @@ installed: ``python -m pytest --noconftest -m cuda
 tests/test_torch_models_cuda.py``.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import faulthandler
 import importlib
 from dataclasses import replace

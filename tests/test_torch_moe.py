@@ -14,6 +14,8 @@ The port's plain-tensor path dispatches and combines by token index
 and the last cases hold the one to the other.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,8 @@ port, so it also runs where JAX is not installed: ``python -m pytest
 --noconftest -m cuda tests/test_torch_moe_cuda.py``.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import faulthandler
 import importlib
 from dataclasses import replace

@@ -10,6 +10,8 @@ executor's runner resolves the port's ref), and for a checkpointing port
 job that is preempted and resumes from its last save.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import time
 
 from cron_operator_tpu.api.scheme import GVK_CRON, default_scheme

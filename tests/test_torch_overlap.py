@@ -5,6 +5,8 @@ close semantics, ``grouped`` on a partial group, and the launch accounting
 of captured kernels (:func:`ops.flash_attention.capture_launches`).
 ``StepGraph`` itself needs a card (``tests/test_torch_graphs_cuda.py``)."""
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import importlib
 import threading
 import time

@@ -23,6 +23,8 @@ The elastic chain (checkpoints across world sizes) is in
 ``test_torch_mesh.py``.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

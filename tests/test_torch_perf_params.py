@@ -18,6 +18,8 @@
 - ``backends/gpu.py`` knows the H100 SXM's peak by the device name.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import json
 
 import pytest

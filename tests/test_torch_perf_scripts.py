@@ -14,6 +14,8 @@ cpu``, called in this process (the harness's measured run spawns the
   non-zero.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import ast
 import importlib.util
 import json

@@ -16,6 +16,8 @@ shard's batch) that does not divide into microbatches; the standard jobs
 refuse ``pipe > 1``.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,8 +6,15 @@ NHWC images in f32 on the CPU: a single conv under flax's ``"SAME"``
 padding at odd and even sizes and strides 1 and 2, GroupNorm, ResNet-18
 (logits and grads), a narrow ResNet-50 at image 80 (its stage-4 conv
 strides a 5x5 map), SGD steps through both Trainers, and the MLP. The
-numpy image streams give the JAX package's arrays.
+numpy image streams give the JAX package's arrays. The blocks' relus and
+residual adds run in the GroupNorms' epilogues: a narrow ResNet-18 keeps
+its parameter names and gives the former block sequence's logits and
+gradients to the bit, and its norms and ResNet-50's run the epilogues
+counted a step (33 relu, 16 residual, 4 plain norms forward in ResNet-50;
+33 masked backward).
 """
+
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
 
 import flax.linen as fnn
 import jax
@@ -32,6 +39,7 @@ from cron_operator_tpu_torch.models.convert import (
     resnet_params_from_flax,
 )
 from cron_operator_tpu_torch.models.layers import Conv2d, GroupNorm, same_padding
+from cron_operator_tpu_torch.ops import group_norm as gn_ops
 from cron_operator_tpu_torch.workloads import data
 from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
@@ -253,6 +261,122 @@ def test_resnet18_sgd_steps_match_the_jax_trainer(resnet18_pair):
         data.imagenet_batches(2, 32, 10), 3)
     got = [s.loss for s in stats]
     assert max(abs(a - b) for a, b in zip(got, want)) <= LOSS_ATOL, (got, want)
+
+
+# ------------------------------------------ the norms' fused epilogues
+
+
+def _former_forward(model, images):
+    """``ResNet.forward`` as it ran before the epilogues were fused: each
+    norm, then ``F.relu``, and ``F.relu(residual + y)`` at a block's end."""
+    F = torch.nn.functional
+    x = images.permute(0, 3, 1, 2).to(model.dtype)
+    x = F.relu(model.stem_norm(model.stem(x)))
+    x = F.max_pool2d(x, 3, 2, 1)
+    for block in model.blocks:
+        y = x
+        for i in range(block.n_main):
+            y = block.norms[i](block.convs[i](y))
+            if i < block.n_main - 1:
+                y = F.relu(y)
+        residual = x
+        if len(block.convs) > block.n_main:
+            residual = block.norms[-1](block.convs[-1](x))
+        x = F.relu(residual + y)
+    return model.head(x.mean((2, 3))).float()
+
+
+def _narrow_resnet18(dtype):
+    """ResNet-18 at width 32 (the narrowest that 32 groups take) from seed
+    0, with non-trivial norm parameters."""
+    model = ResNet18(num_classes=10, width=32, dtype=dtype)
+    model.init_weights(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def test_resnet18_parameter_names_are_unchanged():
+    names = list(_narrow_resnet18(torch.float32).state_dict())
+    blocks = []
+    for j in range(8):
+        n = 3 if j in (2, 4, 6) else 2  # stages 2-4 open with a shortcut
+        blocks += [f"blocks.{j}.convs.{i}.weight" for i in range(n)]
+        blocks += [f"blocks.{j}.norms.{i}.{k}" for i in range(n)
+                   for k in ("weight", "bias")]
+    assert sorted(names) == sorted(
+        ["stem.weight", "stem_norm.weight", "stem_norm.bias", *blocks,
+         "head.weight", "head.bias"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_resnet18_fused_epilogues_equal_the_former_blocks(dtype):
+    """Logits and the gradients of every parameter and of the images, the
+    same bits through the fused epilogues as through the former sequence.
+    In bf16 the convolutions' weight gradients are left out: oneDNN's bf16
+    weight gradient on the CPU differs from run to run of one sequence
+    (seen at stage 4's first conv), so it cannot be held to bits; f32 holds
+    them all."""
+    model = _narrow_resnet18(dtype)
+    images = torch.tensor(_images(2, 16))
+    runs = []
+    for forward in (_former_forward, lambda m, x: m(x)):
+        model.zero_grad(set_to_none=True)
+        x = images.clone().requires_grad_()
+        logits = forward(model, x)
+        torch.nn.functional.cross_entropy(
+            logits, torch.tensor([3, 7])).backward()
+        runs.append((logits.detach(), x.grad, {
+            n: p.grad for n, p in model.named_parameters()
+            if dtype == torch.float32 or "convs" not in n and n != "stem.weight"}))
+    (want_logits, want_dx, want), (logits, dx, got) = runs
+    assert torch.equal(logits, want_logits) and torch.equal(dx, want_dx)
+    assert got.keys() == want.keys() and len(got) >= 41
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+
+
+def _count_epilogues(monkeypatch, model, images):
+    """The forward's epilogues and the backward's masks that one forward and
+    backward of ``model`` asks of the GroupNorm wrappers."""
+    forward, backward = {}, {}
+    fwd, bwd = gn_ops.group_norm_forward, gn_ops.group_norm_backward
+
+    def spy_fwd(x, weight, bias, groups, eps, out_dtype, relu=False,
+                residual=None):
+        key = ("residual_relu" if residual is not None
+               else "relu" if relu else "none")
+        forward[key] = forward.get(key, 0) + 1
+        return fwd(x, weight, bias, groups, eps, out_dtype, relu, residual)
+
+    def spy_bwd(*args):
+        key = "relu" if args[6] else "none"
+        backward[key] = backward.get(key, 0) + 1
+        return bwd(*args)
+
+    monkeypatch.setattr(gn_ops, "group_norm_forward", spy_fwd)
+    monkeypatch.setattr(gn_ops, "group_norm_backward", spy_bwd)
+    model(images).sum().backward()
+    return forward, backward
+
+
+def test_resnet_epilogue_counts_a_step(monkeypatch):
+    """ResNet-50 (on the meta device, as a FLOP count runs it): the stem's
+    and each block's two inner norms with a relu (33), each block's last
+    with its residual (16), the 4 shortcuts plain; backward the 33 relus
+    masked in the norm. ResNet-18: 9, 8 and 3, then 9 masked."""
+    counts = _count_epilogues(monkeypatch, ResNet50(device="meta"),
+                              torch.empty(1, 32, 32, 3, device="meta"))
+    assert counts == ({"relu": 33, "residual_relu": 16, "none": 4},
+                      {"relu": 33, "none": 20})
+    counts = _count_epilogues(monkeypatch, _narrow_resnet18(torch.float32),
+                              torch.tensor(_images(1, 16)))
+    assert counts == ({"relu": 9, "residual_relu": 8, "none": 3},
+                      {"relu": 9, "none": 11})
 
 
 # ------------------------------------------------------------------- MLP

@@ -30,6 +30,8 @@ them, all from the same seeded numpy inputs in f32.
   every rank reporting the same global loss.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 from dataclasses import replace
 from types import SimpleNamespace
 

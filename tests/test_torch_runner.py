@@ -12,6 +12,8 @@ and a re-run resumes from it. Two runner processes initialise gloo from the
 each other start together (``runs``).
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import json
 import os
 import signal

@@ -23,6 +23,8 @@ used. Parameters are compared under SGD only: under AdamW an element whose
 gradient is about 0 takes a step of about +-lr whose sign is rounding noise.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import itertools
 
 import jax

@@ -7,6 +7,8 @@ learned positions and with RoPE, for MHA and GQA; an image that does not
 divide by the patch raises as the JAX model does.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,8 @@ table padded with zero rows and is cut back before anyone sees it.
 - ``Trainer.flops_per_step`` counts the true vocab.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import pytest
 import torch
 import torch.distributed as dist

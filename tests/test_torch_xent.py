@@ -8,6 +8,8 @@ op to against the naive path). The chunks cover a vocab the chunk divides,
 ones it does not, and a chunk larger than the vocab.
 """
 
+import torch_threads  # noqa: F401  (an xdist worker's torch threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
