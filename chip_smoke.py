@@ -46,9 +46,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (b 8, s 1024, 10 steps in the default mode: ``steps_per_call`` 8, one
    captured step replayed), every kernel count set to 0 just before and
    read just after (K1, K2 and K3 all sm90, 120 each through the replay
-   accounting); then three steps on the kernel path against the
-   plain-attention path from the same f32 weights, both measured against
-   an f32 run.
+   accounting; the loss kernels of ``ops/csrc/xent.cu`` once a step each,
+   10 and 10); then three steps on the kernel path (flash attention and
+   the loss kernels) against the plain path (plain attention, the former
+   f32 loss) from the same f32 weights, both measured against an f32 run.
 6. Training times: K1, K2 and K3 per launch at the slice's shape (device
    time, event time beside it) beside their bounds, their plain versions
    and the SDPA yardsticks (SDPA's backward alone for K2 and K3); then the
@@ -59,9 +60,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    each (the graphed step beside the 41.805 ms before the vocab GEMMs
    were padded); profiles of an eager step and a graphed call, in which
    cuBLAS GEMMs for 1- or 2-element aligned rows may take under 1% of the
-   device time (``UNALIGNED_GEMM``: the unpadded vocab GEMMs took 37%).
+   device time (``UNALIGNED_GEMM``: the unpadded vocab GEMMs took 37%), and
+   the graphed call's shares of the loss kernels, log-softmax, LayerNorm's
+   kernels and copies and casts (``LM_SHARES``). The trainers of phases
+   6, 7 and 13 are wired as the jobs wire them (``lm_wiring``).
 7. BERT-base through ``bert`` (b 8, s 512, 10 steps): K1, K2 and K3 each
-   launched 120 times, all sm90, non-causal; three steps on the kernel
+   launched 120 times, all sm90, non-causal, the loss kernels 10 each;
+   three steps on the kernel
    path against the plain path and f32, as phase 5; K1-K3 at BERT's shape
    beside their bounds, plain versions and SDPA (``is_causal=False``); the
    graph against the eager step, as phase 6 (beside 15.496 ms).
@@ -82,8 +87,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    steps saved every 4 and a fresh model and trainer that restore step 8
    and train to 12; steps 9-12's losses, every parameter and the
    optimizer state equal to the bit, K1, K2 and K3 launched 48 times each
-   on the resumed run, all sm90, counts set to 0 just before it and read
-   just after; the save stall, the restore time and the bytes a
+   on the resumed run, all sm90, and the loss kernels 4 each (the model
+   and loss wired as the job wires them), counts set to 0 just before it
+   and read just after; the save stall, the restore time and the bytes a
    checkpoint takes.
 10. The port runner as a subprocess on the card: ``gpt checkpoint=1
     save_every=4 steps=16 step_delay_s=0.2`` in a temporary
@@ -104,7 +110,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 13. Switch-MoE training: ``gpt moe_every=2 num_experts=8`` (the shipped
     GPT Cron's MoE params) at GPT-2 small width, b 8, s 1024, 10 steps in
     the default mode, 322,634,496 parameters: K1, K2 and K3 each launched
-    120 times, all sm90, counts set to 0 just before and read just after;
+    120 times, all sm90, the loss kernels 10 each, counts set to 0 just
+    before and read just after;
     three steps on the kernel path against the plain path and f32, as
     phase 5, with the tokens whose expert differs between the paths
     counted; the replayed graph against 8 eager steps (loss and parameter
@@ -139,7 +146,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
     which ``tensor`` and ``expert`` need, and FSDP2 over gloo on CUDA
     tensors is untried). Each rank's K1, K2 and
     K3 must launch 36 times, all sm90, at the strategy's local (batch,
-    heads), counts set to 0 just before the job and read just after; both
+    heads), and the loss kernels 3 times each (a plain mesh), counts set
+    to 0 just before the job and read just after; both
     ranks report the same losses; against a one-rank run of the same
     batches (a process of its own) the per-step loss gap stays within
     ``MESH_LOSS_BOUND`` and the update distance (the parameters' change
@@ -157,7 +165,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
     0 outside both) against a one-rank ``attention=xla`` run of the same
     batches (the same plain f32 attention as the sequence-parallel bodies,
     so the check isolates the split); both ranks report the same losses,
-    and K1-K3 launch 0 times on these paths (counts set to 0 just before
+    and K1-K3 and the loss kernels (a ``seq`` mesh keeps the former f32
+    loss) launch 0 times on these paths (counts set to 0 just before
     the job and read just after). Printed for each: the step ms
     (time-shared), the device ms of one layer's attention body (forward
     and backward, ``profile_window`` at the rank's local shape) and the
@@ -191,7 +200,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
     mesh: the plain data-parallel path (``DistributedDataParallel``), 24
     steps in calls of 8, the first ``MESH_GRAPH_WARMUP`` eager and every
     later one a replay of the step captured with its collectives; K1, K2
-    and K3 must launch 288 times each, all sm90 (counts set to 0 just
+    and K3 must launch 288 times each, all sm90, and the loss kernels 24
+    each (counts set to 0 just
     before the job and read just after, a replay counted once); the same
     job in calls of one step (every step eager) must leave the same losses
     and the same parameter bits; a profiled replayed call must show an
@@ -234,7 +244,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
     the two-pass backward and 26.984 and 29.969 on the two-pass forward,
     with its GroupNorm launches (phase 8 fails unless every launch is on
     its plan's design and epilogue).
-21. A ``kernels`` JSON line, the card line, and last the result line
+21. The loss kernels (``ops/csrc/xent.cu``, ``xent_fwd`` and
+    ``xent_bwd``) against their plain versions
+    (``softmax_xent_forward_reference``, ``softmax_xent_backward_reference``)
+    at GPT-2 small's logits ``[8192, 50304]`` (vocab 50257) and BERT-base's
+    ``[4096, 30528]`` (30522), bf16 and f32, labels 0 and V - 1 among them,
+    NaN in the padded columns, and logits offset by +100: each row's loss
+    and logsumexp, the mean and the gradient within ``xent_tolerance``,
+    the padded columns exact zeros, reruns the same bits; each kernel
+    timed at those shapes and at the data mesh's 4096 rows of GPT's vocab
+    beside its byte bound, its plain version and ``F.cross_entropy`` on the
+    cut bf16 logits (its backward alone for ``xent_bwd``; a yardstick the
+    port never calls); the first graphed call of a GPT-2 small and of a
+    BERT-base step making no f32 tensor of the logits' size and no cut copy
+    of the logits (a dispatch mode over the warm-up, the capture and the
+    replays); the gpt,
+    bert and MoE gpt graphed steps on the loss kernels and with the former
+    loss swapped in, in turns, with their peak memory, beside 30.212,
+    14.389 and 35.980 ms (``LOSS_BEFORE_MS``); one LayerNorm forward and
+    backward at GPT's and BERT's activations timed, and the same norm on
+    f32 copies (its own kernels; the difference is its casts), times 25 a
+    step, beside the step's device ms. The
+    loss kernels' launches on the gpt, bert, MoE gpt, resumed, data-mesh
+    and NCCL-graph paths (phases 5, 7, 9, 13, 15 and 18) go into the
+    kernels line.
+22. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
 
@@ -336,6 +370,24 @@ MOE_ROUTER_GRAD_REL = 2 ** -7
 DECODE_SHAPE = dict(b=8, max_len=1024, h=12, d=64)
 DECODE_POSITIONS = (0, 511, 575, 1023)
 DECODE_TIMED_POS = 575
+# Phase 21: the loss kernels at the logits the gpt and bert jobs make,
+# (T, Vp, V): GPT-2 small's b 8 x 1024 and BERT-base's b 8 x 512.
+XENT_SHAPES = {"gpt": (8192, 50304, 50257), "bert": (4096, 30528, 30522)}
+# The graphed steps on the former loss (f32 log-softmax over the cut f32
+# logits), PERF.md section 5's readings before the loss kernels; H100
+# 80GB HBM3, 700 W.
+LOSS_BEFORE_MS = {"gpt": 30.212, "bert": 14.389, "moe": 35.980}
+# The loss kernels' launches (forward, backward) on each main path, filled
+# by the phases that run it, for the kernels line.
+XENT_LAUNCHES = {}
+# Shares of a graphed LM call's device time read from its profile: the
+# loss kernels, log-softmax (the former loss), LayerNorm's kernels and
+# copies and casts (PyTorch's direct_copy_kernel: copy_ and the casts to
+# f32; bfloat16_copy_kernel: the casts to bf16).
+LM_SHARES = {"loss kernels": r"xent_(fwd|bwd)_kernel",
+             "log_softmax": r"softmax",
+             "layer_norm": r"layer_norm|GammaBeta",
+             "copies and casts": r"direct_copy_kernel|bfloat16_copy_kernel"}
 N_PARAMS = {"gpt": GPT2_SMALL_PARAMS, "bert": 108_890_112,
             "resnet50": 25_557_032, "vit": 86_567_656, "mnist": 535_818}
 TRAIN_PROGRESS_KEYS = (
@@ -594,6 +646,9 @@ def zero_counts(fa) -> None:
         fn.launches = 0
         fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
         fn.launches_by_epilogue = dict.fromkeys(fn.launches_by_epilogue, 0)
+    for fn in xent_wrappers():
+        fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
 
 
 # Launches of the designs that no main path should run now, summed over
@@ -628,6 +683,44 @@ def norm_wrappers():
 
 def read_norm_counts():
     return tuple(fn.launches for fn in norm_wrappers())
+
+
+def xent_wrappers():
+    """``ops.xent``'s forward and backward wrappers, whose ``launches``
+    count the loss kernels'."""
+    xent = importlib.import_module("cron_operator_tpu_torch.ops.xent")
+    return xent.softmax_xent_forward, xent.softmax_xent_backward
+
+
+def read_xent_counts():
+    return [fn.launches for fn in xent_wrappers()]
+
+
+def check_xent(label: str, path: str, counts, steps: int) -> None:
+    """The loss kernels launched once a step each on the path ``path``
+    (``steps`` steps; 0 for a path that keeps the former loss), kept for
+    the kernels line."""
+    print(f"{label}: loss kernel launches (forward, backward) {counts} "
+          f"(expected {steps} each)", flush=True)
+    if list(counts) != [steps, steps]:
+        fail(f"{label}: the loss kernels launched {counts} times, not "
+             f"{steps} each")
+    if steps:
+        XENT_LAUNCHES[path] = [XENT_LAUNCHES.get(path, [0, 0])[i] + counts[i]
+                               for i in range(2)]
+
+
+def lm_wiring(cfg, former: bool = False):
+    """``(cfg, loss_fn)`` of a GPT or BERT config as the gpt and bert jobs
+    wire them on one card (``entrypoints.lm_loss``: the padded product
+    through the loss kernels), or with ``former`` the wiring before them
+    (the model's f32 logits and ``cross_entropy_loss``)."""
+    from cron_operator_tpu_torch.workloads.entrypoints import lm_loss
+    from cron_operator_tpu_torch.workloads.train import cross_entropy_loss
+
+    return_hidden, loss_fn = ((False, cross_entropy_loss) if former
+                              else lm_loss())
+    return replace(cfg, return_hidden=return_hidden), loss_fn
 
 
 def read_counts(fa):
@@ -817,13 +910,14 @@ def phase_times(torch, fa, flash_model, card):
 
 
 def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int,
-              n_params=None):
+              n_params=None, xent_path: str = None):
     """A training job through the entrypoint a user's Cron calls, with every
     kernel count set to 0 just before and read just after: each of K1, K2
     and K3 must have launched ``sm90_per_step`` times a step, all of the
-    sm90 design (0 for a job whose attention never reaches the kernels).
-    ``n_params`` is the parameter count expected (the job's default
-    model's by default)."""
+    sm90 design (0 for a job whose attention never reaches the kernels),
+    and the loss kernels once a step each on an LM path (``xent_path``,
+    its name in the kernels line), else never. ``n_params`` is the
+    parameter count expected (the job's default model's by default)."""
     from cron_operator_tpu_torch.backends.registry import JobContext
     from cron_operator_tpu_torch.workloads import entrypoints
 
@@ -836,6 +930,7 @@ def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int,
     wall = time.monotonic() - t0
     counts = read_counts(fa)
     designs = read_designs(fa)
+    check_xent(job, xent_path, read_xent_counts(), steps if xent_path else 0)
     progress = {k: v for k, v in ctx.progress.items() if k != "step_timeline"}
     expected = sm90_per_step * steps
     print(f"{job}: in {wall:.2f} s, progress {progress}")
@@ -891,9 +986,11 @@ def recorded_routes(routes: list):
 
 
 def phase_train_correctness(torch, model_cls, cfg, stream, label):
-    """Three AdamW steps on the kernel path and on the plain-attention path
-    from the same f32 weights and batches; each is measured against an f32
-    run. Both bf16 paths carry bf16 rounding through 12 layers and differ
+    """Three AdamW steps on the kernel path (flash attention and the loss
+    kernels, wired as the job wires them) and on the plain path (plain
+    attention, the former f32 loss) from the same f32 weights and batches;
+    each is measured against an f32 run (plain, former loss). Both bf16
+    paths carry bf16 rounding through 12 layers and differ
     only in how attention rounds, so the kernel path must stay within twice
     the plain bf16 path's own distance from f32: per-step losses (plus
     1e-3, as the prefill check allows), and the first step's gradients as
@@ -914,9 +1011,12 @@ def phase_train_correctness(torch, model_cls, cfg, stream, label):
                        ("plain", dict(attention_impl="xla")),
                        ("f32", dict(attention_impl="xla",
                                     dtype=torch.float32))):
-        model = model_cls(replace(cfg, **over), device="cuda")
+        wired, loss_fn = lm_wiring(replace(cfg, **over),
+                                   former=name != "flash")
+        model = model_cls(wired, device="cuda")
         model.load_state_dict(state)
-        trainer = Trainer(model, TrainConfig(aux_loss_in_output=moe))
+        trainer = Trainer(model, TrainConfig(aux_loss_in_output=moe),
+                          loss_fn=loss_fn)
         losses[name] = []
         routes[name] = []
         for i, batch in enumerate(batches):
@@ -1173,17 +1273,19 @@ def graph_vs_eager(torch, card, label: str, make_trainer, model_flops: float,
 
 def lm_step_times(torch, card, label, model_cls, cfg, sample, shape, causal,
                   before_ms=None, forbid=None):
-    """The step of a language model at ``shape``, graph against eager:
-    model FLOPs are 6 N T plus the attention's 3 * 4 d b h per (query, key)
-    pair the mask keeps, per layer (forward and backward)."""
+    """The step of a language model at ``shape``, wired as its job wires it
+    (the loss kernels), graph against eager, with :data:`LM_SHARES` of the
+    graphed call: model FLOPs are 6 N T plus the attention's 3 * 4 d b h per
+    (query, key) pair the mask keeps, per layer (forward and backward)."""
     from cron_operator_tpu_torch.workloads.train import Trainer
 
     b, s, h, d = (shape[x] for x in "bshd")
+    wired, loss_fn = lm_wiring(cfg)
 
     def make_trainer():
-        model = model_cls(cfg, device="cuda").init_weights(
+        model = model_cls(wired, device="cuda").init_weights(
             torch.Generator(device="cuda").manual_seed(0))
-        return Trainer(model, sample_fn=sample)
+        return Trainer(model, loss_fn=loss_fn, sample_fn=sample)
 
     n_params = sum(p.numel() for p in model_cls(cfg, device="meta")
                    .parameters())
@@ -1196,7 +1298,7 @@ def lm_step_times(torch, card, label, model_cls, cfg, sample, shape, causal,
           f"causal={int(causal)})")
     return graph_vs_eager(torch, card, label, make_trainer,
                           dense_flops + attn_flops, tokens, "tokens",
-                          before_ms, forbid)
+                          before_ms, forbid, LM_SHARES)
 
 
 def phase_train_times(torch, fa, card):
@@ -1217,11 +1319,13 @@ def phase_train_times(torch, fa, card):
 
 def phase_bert(torch, fa, card):
     """BERT-base: the job, the kernel path against the plain path, the
-    kernels at its shape and the step."""
+    kernels at its shape and the step. Returns the job's K1-K3 launches,
+    the kernels' rows and the step's rows."""
     from cron_operator_tpu_torch.models import Bert, BertConfig
     from cron_operator_tpu_torch.workloads import data
 
-    counts, progress = phase_job(torch, fa, "bert", BERT_PARAMS, 12)
+    counts, progress = phase_job(torch, fa, "bert", BERT_PARAMS, 12,
+                                 xent_path="bert")
     b, s = BERT_SHAPE["b"], BERT_SHAPE["s"]
     cfg = BertConfig.base(max_len=s)
     phase_train_correctness(
@@ -1240,7 +1344,7 @@ def phase_bert(torch, fa, card):
         "job_avg_step_time_s": progress["avg_step_time_s"],
         "job_first_step_s": progress["compile_time_s"],
     }))
-    return counts, rows
+    return counts, rows, step
 
 
 def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
@@ -1484,17 +1588,15 @@ def phase_resume(torch, fa, card, root: str):
     and a fresh model and trainer that restore step 8 and train to 12, all
     from the seed-0 weights and the fused data seed. Each step's loss is
     written into a device buffer inside the step (so the captured step
-    logs it too); the resumed run's K1-K3 launches are counted from 0."""
+    logs it too); the resumed run's K1-K3 and loss kernel launches are
+    counted from 0. The model and loss are wired as the gpt job wires
+    them."""
     from cron_operator_tpu_torch.models import GPT, GPTConfig
     from cron_operator_tpu_torch.workloads import data
     from cron_operator_tpu_torch.workloads.checkpoint import CheckpointStore
-    from cron_operator_tpu_torch.workloads.train import (
-        TrainConfig,
-        Trainer,
-        cross_entropy_loss,
-    )
+    from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
-    cfg = GPTConfig(max_len=1024)
+    cfg, job_loss = lm_wiring(GPTConfig(max_len=1024))
     b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
     sample = data.causal_token_sample(b, s, cfg.vocab_size)
     config = TrainConfig(save_every=4, steps_per_call=4)
@@ -1506,7 +1608,7 @@ def phase_resume(torch, fa, card, root: str):
         pos = torch.zeros((), dtype=torch.long, device="cuda")
 
         def loss_fn(out, y):
-            loss = cross_entropy_loss(out, y)
+            loss = job_loss(out, y)
             log.index_put_((pos,), loss.detach())
             pos.add_(1)
             return loss
@@ -1550,6 +1652,7 @@ def phase_resume(torch, fa, card, root: str):
     zero_counts(fa)
     run(resumed, 12)
     counts, designs = read_counts(fa), read_designs(fa)
+    check_xent("resume", "resume", read_xent_counts(), 4)
     store.close()
     print(f"resume: K1/K2/K3 launches on the resumed run {counts} (expected "
           f"48 each), by design {designs}", flush=True)
@@ -1944,20 +2047,21 @@ def check_moe_index_path(torch, card, cfg, shape: dict) -> dict:
             "capacity": c, "router_grad_err": router_err}
 
 
-def moe_step_ab(torch, card, make_trainer) -> dict:
-    """The graphed MoE step on the index path and with the dense one-hot
-    formulation swapped in (``dense_moe``), in turns index, dense, dense,
-    index, each on a fresh trainer: the peak memory of its first graphed
+def graphed_runs(torch, paths, make_trainer, context=None):
+    """The graphed step of ``make_trainer(path)`` for each of ``paths`` in
+    turn (for instance A, B, B, A), each on a fresh trainer (inside
+    ``context(path)`` where given): the peak memory of its first graphed
     call (the warm-up step, the capture and 7 replays), then the ms a step
     of a graphed call (CUDA events, median of 3) and its device ms (the
-    card held busy). Each path keeps its faster reading."""
+    card held busy). Returns every reading by path and each path's faster
+    one."""
     k = GRAPH_CHUNK
     rows = {}
-    for path in ("index", "dense", "dense", "index"):
-        with dense_moe() if path == "dense" else contextlib.nullcontext():
+    for path in paths:
+        with context(path) if context else contextlib.nullcontext():
             release(torch)
             torch.cuda.reset_peak_memory_stats()
-            trainer = make_trainer()
+            trainer = make_trainer(path)
             trainer.step({}, chunk=k)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
@@ -1971,7 +2075,19 @@ def moe_step_ab(torch, card, make_trainer) -> dict:
             release(torch)
         rows.setdefault(path, []).append(
             {"step_ms": step, "device_ms": device, "peak_bytes": peak})
-    best = {p: min(r, key=lambda row: row["step_ms"]) for p, r in rows.items()}
+    return rows, {p: min(r, key=lambda row: row["step_ms"])
+                  for p, r in rows.items()}
+
+
+def moe_step_ab(torch, card, make_trainer) -> dict:
+    """The graphed MoE step on the index path and with the dense one-hot
+    formulation swapped in (``dense_moe``), in turns index, dense, dense,
+    index (:func:`graphed_runs`). Each path keeps its faster reading."""
+    rows, best = graphed_runs(
+        torch, ("index", "dense", "dense", "index"),
+        lambda path: make_trainer(),
+        lambda path: dense_moe() if path == "dense" else
+        contextlib.nullcontext())
     print(f"[{card}] moe step A/B (graphed, index/dense/dense/index): "
           + " | ".join(f"{p} " + ", ".join(
               f"{r['step_ms']:.3f} ms ({r['device_ms']:.3f} device, peak "
@@ -1996,19 +2112,21 @@ def phase_moe_train(torch, fa, card):
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
     counts, progress = phase_job(torch, fa, "gpt", MOE_TRAIN_PARAMS, 12,
-                                 n_params=GPT2_SMALL_MOE_PARAMS)
+                                 n_params=GPT2_SMALL_MOE_PARAMS,
+                                 xent_path="moe")
     b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
     cfg = moe_cfg()
     phase_train_correctness(
         torch, GPT, cfg, data.device_causal_token_batches(
             b, s, cfg.vocab_size, device="cuda", seed=5), "moe train")
     sample = data.causal_token_sample(b, s, cfg.vocab_size)
+    wired, loss_fn = lm_wiring(cfg)
 
     def make_trainer():
-        model = GPT(cfg, device="cuda").init_weights(
+        model = GPT(wired, device="cuda").init_weights(
             torch.Generator(device="cuda").manual_seed(0))
         return Trainer(model, TrainConfig(aux_loss_in_output=True),
-                       sample_fn=sample)
+                       loss_fn=loss_fn, sample_fn=sample)
 
     # Peak memory (everything allocated: parameters, grads, AdamW state,
     # activations): an eager step after a first one, and a fresh trainer's
@@ -2047,7 +2165,8 @@ def phase_moe_train(torch, fa, card):
     step = graph_vs_eager(
         torch, card, f"moe train step (GPT-2 small, moe_every 2, 8 experts, "
         f"b{b} s{s}, bf16/f32 masters, AdamW)", make_trainer, counted,
-        b * s, "tokens", BEFORE_MS["moe"], {**UNALIGNED_GEMM, **OUTER_SCAN})
+        b * s, "tokens", BEFORE_MS["moe"], {**UNALIGNED_GEMM, **OUTER_SCAN},
+        LM_SHARES)
     layer = check_moe_index_path(torch, card, cfg, TRAIN_SHAPE)
     ab = moe_step_ab(torch, card, make_trainer)
     per_step = {k: n_moe * v for k, v in layer["dispatch_combine_ms"].items()}
@@ -2237,8 +2356,9 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
     ``profile`` runs one more step of the same batch size under
     ``profile_window`` (every rank) and keeps what it printed;
     ``readings(trainer, batch)`` adds its dict to the result. Returns the
-    counts, designs, shapes, per-step losses, step s, tokens/s and the
-    peak memory in GiB (and the profile)."""
+    counts (and the loss kernels' under ``xent``), designs, shapes, per-step
+    losses, step s, tokens/s and the peak memory in GiB (and the
+    profile)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -2275,6 +2395,7 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
         getattr(entrypoints, job)(ctx)
         torch.cuda.synchronize()
         result = {"counts": read_counts(fa), "designs": read_designs(fa),
+                  "xent": read_xent_counts(),
                   "shapes": sorted(shapes), "losses": ctx.progress.losses,
                   "step_s": ctx.progress["avg_step_time_s"],
                   "tokens_per_s": ctx.progress["tokens_per_s"],
@@ -2483,6 +2604,9 @@ def phase_mesh(torch, fa, card):
             ranks = spawn_ranks(2, {**MESH_PARAMS, **extra}, root, name)
             ref = refs["moe" if "moe_every" in extra else "dense"]
             problems, readings = mesh_problems(torch, ranks, ref, local)
+            for r, got in enumerate(ranks):  # a plain mesh: the kernels
+                check_xent(f"mesh {name} rank {r}", f"mesh_{name}",
+                           got["xent"], MESH_STEPS)
             print(f"mesh {name}: losses {ranks[0]['losses']} against one "
                   f"rank {ref['losses']}: max gap {readings['loss_gap']:.6f}"
                   f", update distance {readings['update_distance']:.6f}; "
@@ -2702,6 +2826,8 @@ def phase_seq(torch, fa, card):
                                     job)
             ranks = spawn_ranks(2, params, root, name, task=job)
             problems, (gap, dist) = seq_problems(torch, ranks, ref)
+            for r, got in enumerate(ranks):  # a seq mesh: the former loss
+                check_xent(f"seq {name} rank {r}", None, got["xent"], 0)
             print(f"seq {name} ({job}): losses {ranks[0]['losses']} against "
                   f"one rank's attention=xla {ref['losses']}: max gap "
                   f"{gap:.6f}, update distance {dist:.6f}; lr 0 reads "
@@ -2935,6 +3061,7 @@ def phase_mesh_graph(torch, card, unwrapped_ms: float) -> dict:
     if {tuple(x[1:]) for x in got["shapes"]} != {
             (TRAIN_SHAPE["b"], TRAIN_SHAPE["h"])}:
         problems.append(f"launched at (batch, heads) {got['shapes']}")
+    check_xent("mesh graph", "mesh_graph", got["xent"], GRAPH_MESH_STEPS)
     if got["backend"] != "nccl" or not got["plain"]:
         problems.append(f"trained over {got['backend']} with plain "
                         f"parameters {got['plain']}")
@@ -3585,6 +3712,295 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
     return rows
 
 
+# Phase 21: the loss kernels (ops/csrc/xent.cu). Their bound's f32
+# operations an element (forward: subtract, scale, exp2, add; backward:
+# subtract, scale, exp2, subtract, scale) over the f32 rate outside the
+# tensor cores, beside the bytes.
+XENT_OPS = {"fwd": 4, "bwd": 5}
+# LayerNorms a step of GPT-2 small and BERT-base: two a block and the
+# final one.
+LM_NORMS = 2 * 12 + 1
+
+
+def xent_inputs(torch, shape, dtype, seed=0, offset=0.0):
+    """Seeded logits ``[T, Vp]`` (3 x standard normal plus ``offset``, NaN
+    in the padded columns, which the kernels must not read) and int64
+    labels ``[T]`` with 0 and V - 1 among them."""
+    t, vp, v = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(t, vp, generator=gen, device="cuda").mul_(3).add_(offset)
+    x[:, v:] = float("nan")
+    y = torch.randint(0, v, (t,), generator=gen, device="cuda")
+    y[0], y[1] = 0, v - 1
+    return x.to(dtype), y
+
+
+def check_xent_pair(torch, xent, label, x, y, v, g) -> dict:
+    """The loss kernels against their plain versions on ``x``, ``y``: each
+    row's loss and logsumexp, the mean and the gradient within
+    ``xent_tolerance``, the padded columns exact zeros, a rerun the same
+    bits. Returns the largest errors (the loss rows', the gradient's)."""
+    loss, lse = xent.softmax_xent_forward(x, y, v)
+    dx = xent.softmax_xent_backward(x, y, lse, g, v)
+    torch.cuda.synchronize()
+    ref_loss, ref_lse = xent.softmax_xent_forward_reference(x, y, v)
+    ref_dx = xent.softmax_xent_backward_reference(x, y, g, v)
+    bounds = xent.xent_tolerance(x, y, v, ref_loss, ref_lse, g, ref_dx)
+    errs = {}
+    for name, got, want in (("lse", lse, ref_lse), ("loss", loss, ref_loss),
+                            ("dlogits", dx[:, :v], ref_dx[:, :v])):
+        err = (got.float() - want.float()).abs()
+        ratio = float((err / bounds[name]).max())
+        errs[name] = float(err.max())
+        if not (bool(torch.isfinite(got).all()) and ratio <= 1):
+            fail(f"xent {label}: {name} off its plain version: max err "
+                 f"{errs[name]:.3e}, err/bound {ratio:.3f}")
+        errs[name + "_ratio"] = ratio
+    mean_err = float((loss.mean() - ref_loss.mean()).abs())
+    pad_zero = bool((dx[:, v:] == 0).all())
+    again_loss, again_lse = xent.softmax_xent_forward(x, y, v)
+    again = xent.softmax_xent_backward(x, y, again_lse, g, v)
+    rerun = all(same_bits(torch, a, b) for a, b in (
+        (loss, again_loss), (lse, again_lse), (dx, again)))
+    print(f"xent {label}: loss rows max err {errs['loss']:.3e} (err/bound "
+          f"{errs['loss_ratio']:.3f}), lse {errs['lse']:.3e} "
+          f"({errs['lse_ratio']:.3f}), mean {mean_err:.3e} (bound "
+          f"{float(bounds['mean']):.3e}), dlogits {errs['dlogits']:.3e} "
+          f"({errs['dlogits_ratio']:.3f}); padded columns zero {pad_zero}; "
+          f"rerun the same bits {rerun}", flush=True)
+    if not (mean_err <= float(bounds["mean"]) and pad_zero and rerun):
+        fail(f"xent {label}: mean off its bound, a padded column not zero "
+             "or a rerun not the same bits")
+    return errs
+
+
+def xent_rows(torch, xent, card, label, shape) -> dict:
+    """The loss kernels at ``shape`` in bf16, each timed (device time, the
+    card held busy; event time beside it) beside its byte bound, its plain
+    version and the library yardstick: ``F.cross_entropy`` on the cut
+    logits (a contiguous copy made beforehand), forward, and its backward
+    alone (``torch.autograd.grad``)."""
+    import torch.nn.functional as F
+
+    t, vp, v = shape
+    x, y = xent_inputs(torch, shape, torch.bfloat16, seed=7)
+    g = torch.ones((), device="cuda")
+    _, lse = xent.softmax_xent_forward(x, y, v)
+    cut = x[:, :v].contiguous().requires_grad_()
+    out = F.cross_entropy(cut, y)
+    element = x.element_size()
+    moved = {"fwd": t * vp * element + t * (8 + 2 * 4),
+             "bwd": 2 * t * vp * element + t * (8 + 4)}
+    rows = {}
+    for name, fns in (
+            ("fwd", (lambda: xent.softmax_xent_forward(x, y, v),
+                     lambda: xent.softmax_xent_forward_reference(x, y, v),
+                     lambda: F.cross_entropy(cut, y))),
+            ("bwd", (lambda: xent.softmax_xent_backward(x, y, lse, g, v),
+                     lambda: xent.softmax_xent_backward_reference(x, y, g,
+                                                                  v),
+                     lambda: torch.autograd.grad(out, cut,
+                                                 retain_graph=True)))):
+        (ms, plain_ms, library_ms), _ = timed_rows(
+            torch, card, f"xent_{name} ({label})", fns)
+        bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = XENT_OPS[name] * t * v / F32_FLOPS * 1e3
+        rows[name] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=library_ms)
+        print(f"[{card}] xent_{name} T {t} Vp {vp} bf16 ({label}): "
+              f"{ms:.4f} ms (device) | plain {plain_ms:.4f} ms | "
+              f"F.cross_entropy {library_ms:.4f} ms | bound "
+              f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}, "
+              f"{moved[name] / 1e6:.1f} MB) | "
+              f"{100 * rows[name]['bound_ms'] / ms:.1f}% of the bound",
+              flush=True)
+    del x, y, cut, out
+    release(torch)
+    return rows
+
+
+def logits_made(torch, fn, t: int, v: int, vp: int) -> list:
+    """(op, shape, dtype) of every aten op result of one call of ``fn``
+    that is shaped like the logits (last dim V or Vp, at least T V
+    elements): a dispatch mode sees every op, the autograd engine's
+    included, and those of a CUDA graph's capture (a kernel called
+    through ctypes runs none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    made = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for r in tree_leaves(out):
+                if (isinstance(r, torch.Tensor) and r.dim() >= 2
+                        and r.shape[-1] in (v, vp) and r.numel() >= t * v):
+                    made.append((str(func), tuple(r.shape), str(r.dtype)))
+            return out
+
+    with Watch():
+        fn()
+    return made
+
+
+def layer_norm_rows(torch, card, label: str, shape: dict,
+                    step: dict) -> dict:
+    """Where LayerNorm's time in a step goes (ROADMAP fault 14's split):
+    one of the model's ``LayerNorm`` (x cast to f32, ``F.layer_norm``, the
+    result cast to bf16) forward and backward at the step's activation
+    ``[b, s, 768]``, device time with the card held busy, beside the same
+    norm on f32 copies made beforehand (its own kernels, no cast); the
+    difference is its four casts. Each times :data:`LM_NORMS` a step,
+    beside the graphed step's device ms and its profile's copies and
+    casts. (``torch.profiler`` recorded no kernel of so short a window on
+    the card.)"""
+    import torch.nn.functional as F
+
+    from cron_operator_tpu_torch.models.gpt import LN_EPS
+    from cron_operator_tpu_torch.models.layers import LayerNorm
+
+    b, s = shape["b"], shape["s"]
+    width = shape["h"] * shape["d"]
+    ln = LayerNorm(width, eps=LN_EPS, compute_dtype=torch.bfloat16,
+                   device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(b, s, width, generator=gen, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    dy = torch.randn(b, s, width, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    xf = x.detach().float().requires_grad_()
+    dyf = dy.float()
+    params = (ln.weight, ln.bias)
+
+    def norm():
+        torch.autograd.grad(ln(x), (x, *params), dy)
+
+    def norm_f32():
+        y = F.layer_norm(xf, (width,), *params, LN_EPS)
+        torch.autograd.grad(y, (xf, *params), dyf)
+
+    row = {"all": device_ms(torch, norm), "norm": device_ms(torch, norm_f32)}
+    row["casts"] = row["all"] - row["norm"]
+    per_step = {k: LM_NORMS * v for k, v in row.items()}
+    shares = {k: v / step["device_ms"] for k, v in per_step.items()}
+    copies = step.get("shares", {}).get("copies and casts")
+    print(f"[{card}] LayerNorm ({label}, [{b}, {s}, {width}] bf16, forward "
+          f"and backward): {row['all']:.4f} ms a norm (device), "
+          f"{row['norm']:.4f} on f32 copies (its own kernels), "
+          f"{row['casts']:.4f} its casts; x{LM_NORMS} a step "
+          f"{per_step['all']:.3f} ms = {100 * shares['all']:.1f}% of "
+          f"{step['device_ms']:.3f} device ms ({100 * shares['norm']:.1f}% "
+          f"norm, {100 * shares['casts']:.1f}% casts; the graphed call's "
+          f"copies and casts {100 * (copies or 0):.1f}%)", flush=True)
+    del x, dy, xf, dyf
+    release(torch)
+    return {"per_norm_ms": row, "per_step_ms": per_step, "shares": shares,
+            "step_copies_share": copies}
+
+
+def phase_xent(torch, card, steps: dict) -> dict:
+    """The loss kernels (``ops/csrc/xent.cu``) against their plain versions
+    at GPT-2 small's and BERT-base's logits, bf16 and f32, and offset by
+    +100; their times beside the bounds, the plain versions and
+    ``F.cross_entropy`` (also at the data mesh's local T of 4096 rows);
+    the first graphed call of a GPT-2 small and a BERT-base step making no
+    f32 tensor of the logits' size and no cut copy of them; the gpt, bert and MoE gpt
+    graphed steps on the loss kernels and with the former loss swapped in
+    (the model's f32 logits and ``cross_entropy_loss``), in turns, beside
+    :data:`LOSS_BEFORE_MS`, with the peak memory of each; LayerNorm's part
+    of the GPT and BERT steps. ``steps`` holds phases 6, 7 and 13's
+    readings of the graphed steps on the loss kernels. Returns the
+    kernels line's rows and the readings."""
+    from cron_operator_tpu_torch.models import GPT, Bert, BertConfig, GPTConfig
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
+
+    xent = importlib.import_module("cron_operator_tpu_torch.ops.xent")
+    errs = {}
+    for name, shape in XENT_SHAPES.items():
+        for dtype, offset, g in ((torch.bfloat16, 0.0, 1.0),
+                                 (torch.float32, 0.0, 1.0),
+                                 (torch.bfloat16, 100.0, 0.37),
+                                 (torch.float32, 100.0, 0.37)):
+            x, y = xent_inputs(torch, shape, dtype, seed=len(errs),
+                               offset=offset)
+            label = f"{name} {str(dtype)[6:]} offset {offset:g}"
+            errs[label] = check_xent_pair(
+                torch, xent, label, x, y, shape[2],
+                torch.full((), g, device="cuda"))
+            del x, y
+            release(torch)
+    mesh_shape = (4096,) + XENT_SHAPES["gpt"][1:]
+    rows = {name: xent_rows(torch, xent, card, name, shape)
+            for name, shape in (*XENT_SHAPES.items(), ("mesh", mesh_shape))}
+    for name in XENT_SHAPES:
+        for d in ("fwd", "bwd"):
+            key = "loss" if d == "fwd" else "dlogits"
+            rows[name][d]["max_abs_err"] = errs[
+                f"{name} bfloat16 offset 0"][key]
+    for d in ("fwd", "bwd"):
+        rows["mesh"][d]["max_abs_err"] = rows["gpt"][d]["max_abs_err"]
+
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    models = {
+        "gpt": (GPT, GPTConfig(max_len=s),
+                data.causal_token_sample(b, s, 50257), False),
+        "bert": (Bert, BertConfig.base(max_len=BERT_SHAPE["s"]),
+                 data.token_sample(BERT_SHAPE["b"], BERT_SHAPE["s"], 30522),
+                 False),
+        "moe": (GPT, moe_cfg(), data.causal_token_sample(b, s, 50257), True),
+    }
+
+    def trainer_of(name, former=False):
+        cls, cfg, sample, moe = models[name]
+        wired, loss_fn = lm_wiring(cfg, former)
+        model = cls(wired, device="cuda").init_weights(
+            torch.Generator(device="cuda").manual_seed(0))
+        return Trainer(model, TrainConfig(aux_loss_in_output=moe),
+                       loss_fn=loss_fn, sample_fn=sample)
+
+    kinds = {}
+    for name in XENT_SHAPES:
+        t, vp, v = XENT_SHAPES[name]
+        trainer = trainer_of(name)
+        made = logits_made(
+            torch, lambda: trainer.step({}, chunk=GRAPH_CHUNK), t, v, vp)
+        del trainer
+        release(torch)
+        kinds[name] = sorted(set(made))
+        print(f"xent: the first graphed call of a {name} step (warm-up, "
+              f"capture, {GRAPH_CHUNK - 1} replays) made {len(made)} "
+              f"logits-shaped tensors: {kinds[name]}", flush=True)
+        if not made or any(dtype != "torch.bfloat16" or shape[-1] != vp
+                           for _, shape, dtype in made):
+            fail(f"xent: a graphed {name} step made an f32 tensor of the "
+                 "logits' size or a cut copy of the logits (or the watch "
+                 "saw none)")
+
+    ab = {}
+    for name in models:
+        runs, best = graphed_runs(
+            torch, ("kernels", "former", "former", "kernels"),
+            lambda path: trainer_of(name, former=path == "former"))
+        ab[name] = {"runs": runs, "best": best}
+        print(f"[{card}] {name} step A/B (graphed, kernels/former/former/"
+              f"kernels): " + " | ".join(f"{p} " + ", ".join(
+                  f"{r['step_ms']:.3f} ms ({r['device_ms']:.3f} device, peak "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB)" for r in rs)
+                  for p, rs in runs.items())
+              + " | kernels/former "
+              f"{best['kernels']['step_ms'] / best['former']['step_ms']:.4f}"
+              f" | beside {LOSS_BEFORE_MS[name]} ms on the former loss "
+              "(PERF.md section 5)", flush=True)
+    norms = {name: layer_norm_rows(torch, card, name, shape, steps[name])
+             for name, shape in (("gpt", TRAIN_SHAPE), ("bert", BERT_SHAPE))}
+    return {"rows": rows, "errors": errs, "logits_made": kinds,
+            "step_ab": ab, "layer_norm": norms}
+
+
 def free_port() -> int:
     import socket
 
@@ -3638,6 +4054,27 @@ def norm_entry(name: str, design: str, launches: int, row: dict) -> dict:
             **row}
 
 
+XENT_ROW = (CSRC + "xent.cu",
+            # no Pallas kernel: XLA fuses the JAX loss's f32 log-softmax
+            "cron_operator_tpu/workloads/train.py:44")
+# each main path of the loss kernels, its suffix in the kernels line and
+# the shape of phase 21 whose times stand for it
+XENT_PATHS = (("gpt", "", "gpt"), ("bert", "@bert", "bert"),
+              ("moe", "@moe", "gpt"), ("resume", "@resume", "gpt"),
+              ("mesh_data", "@mesh_data", "mesh"),
+              ("mesh_graph", "@mesh_graph", "gpt"))
+
+
+def xent_entries(rows: dict) -> list:
+    source, replaces = XENT_ROW
+    return [{"name": f"softmax_xent_{d}{suffix}", "route": "cuda",
+             "design": "row", "source": source, "replaces": replaces,
+             "launches": XENT_LAUNCHES.get(path, [0, 0])[i],
+             **rows[shape][d]}
+            for path, suffix, shape in XENT_PATHS
+            for i, d in enumerate(("fwd", "bwd"))]
+
+
 def main() -> None:
     import torch
 
@@ -3685,7 +4122,7 @@ def main() -> None:
     }))
 
     train_counts, train_progress = timed("gpt", phase_job, torch, fa, "gpt",
-                                         TRAIN_PARAMS, 12)
+                                         TRAIN_PARAMS, 12, None, "gpt")
     timed("gpt correctness", phase_gpt_correctness, torch)
     train_rows, step = timed("gpt times", phase_train_times, torch, fa, card)
     print(f"[{card}] train job: {train_progress['tokens_per_s']} tokens/s, "
@@ -3698,7 +4135,8 @@ def main() -> None:
         "job_first_step_s": train_progress["compile_time_s"],
     }))
 
-    bert_counts, bert_rows = timed("bert", phase_bert, torch, fa, card)
+    bert_counts, bert_rows, bert_step = timed("bert", phase_bert, torch, fa,
+                                              card)
 
     from cron_operator_tpu_torch.models import ResNet50, ViT, ViTConfig
     from cron_operator_tpu_torch.workloads.train import TrainConfig
@@ -3748,6 +4186,13 @@ def main() -> None:
                        card)
     norm_rows = timed("GroupNorm kernel vs plain", phase_group_norm, torch,
                       card, norm_counts, resnet_step)
+    loss = timed("softmax xent kernel vs plain", phase_xent, torch, card,
+                 {"gpt": step, "bert": bert_step})
+    print("xent " + json.dumps({
+        "launches": XENT_LAUNCHES, "errors": loss["errors"],
+        "logits_made": loss["logits_made"],
+        "step_ab": {k: v["best"] for k, v in loss["step_ab"].items()},
+        "layer_norm": loss["layer_norm"]}))
     step_epilogues = resnet50_epilogues(1)
     print(f"phases: {sum(walls.values()):.1f} s in all, "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
@@ -3821,6 +4266,9 @@ def main() -> None:
                    OLD_DESIGN_LAUNCHES["group_norm_bwd"],
                    {**norm_rows["backward_two_pass"],
                     "epilogues": step_epilogues[1]}),
+        # the loss kernels on the gpt and bert paths of phases 5, 7, 9, 13,
+        # 15 and 18, each row at its path's logits (phase 21)
+        *xent_entries(loss["rows"]),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,9 @@ class BertConfig:
     # Grouped-query attention (0 = MHA) and rotary positions, as GPTConfig.
     num_kv_heads: int = 0
     rope: bool = False
+    # forward returns (hidden, embedding table) for a loss that takes the
+    # product itself (the bert job's ops.xent.tied_cross_entropy), as GPT's
+    return_hidden: bool = False
 
     @staticmethod
     def base(**overrides) -> "BertConfig":
@@ -62,7 +65,8 @@ class EncoderLayer(DecoderLayer):
 
 
 class Bert(nn.Module):
-    """Token ids ``[batch, seq]`` -> MLM logits ``[b, s, vocab]`` in f32.
+    """Token ids ``[batch, seq]`` -> MLM logits ``[b, s, vocab]`` in f32
+    (or ``(hidden, embedding table)`` with ``cfg.return_hidden``).
     ``pos_emb`` is ``[max_len, hidden]``, sliced to the sequence, and absent
     under ``rope``."""
 
@@ -94,13 +98,15 @@ class Bert(nn.Module):
         init_flax_layers_(self, generator)
         return self
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor):
         dt = self.config.dtype
         x = self.tok_emb(input_ids).to(dt)
         if self.pos_emb is not None:
             x = add_positions(x, self.pos_emb[:input_ids.shape[1]].to(dt))
         for layer in self.layers:
             x, _ = layer(x)
+        if self.config.return_hidden:
+            return self.ln_f(x), self.tok_emb.weight
         # tied output embedding (flax tok.attend) in cfg.dtype, then f32,
         # through a zero-padded table (layers.tied_logits)
         return tied_logits(self.ln_f(x), self.tok_emb.weight, dt)

@@ -191,31 +191,43 @@ class PaddedTable:
         return self._table
 
 
-def tied_logits(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
-                cache: Optional[PaddedTable] = None) -> torch.Tensor:
-    """The tied output embedding (flax ``tok.attend``): ``x @ weight.T`` in
-    ``dtype``, returned in f32 ``[..., V]``.
+def tied_product(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
+                 cache: Optional[PaddedTable] = None) -> torch.Tensor:
+    """The tied output embedding's product (flax ``tok.attend``) ``x @
+    weight.T`` in ``dtype``, ``[..., Vp]``.
 
     A vocab that is not a multiple of :data:`VOCAB_ROWS_MULTIPLE` (GPT-2's
     50257, BERT's 30522) gives cuBLAS an output row of odd or 2-element
     alignment, and it picks its slowest GEMMs for it. So the product runs
-    against a table padded with zero rows (:func:`_pad_rows`), and its
-    output is cut back to V columns before the f32 cast: no caller sees a
-    padded column (an argmax over all-negative logits would pick one).
-    Without autograd the padded table comes from ``cache`` (a
-    :class:`PaddedTable`). A DTensor operand (a ``tensor``/``expert``/
-    ``seq`` mesh) and the ``meta`` device (the FLOP count, which stays at
-    the true vocab) take the product unpadded."""
+    against a table padded with zero rows (:func:`_pad_rows`), Vp =
+    :func:`padded_vocab` columns, the padded ones zero. Without autograd
+    the padded table comes from ``cache`` (a :class:`PaddedTable`). A
+    DTensor operand (a ``tensor``/``expert``/``seq`` mesh) and the ``meta``
+    device (the FLOP count, which stays at the true vocab) take the product
+    unpadded, Vp = V."""
     v = weight.shape[0]
     if (v % VOCAB_ROWS_MULTIPLE == 0 or weight.is_meta
             or isinstance(weight, DTensor) or isinstance(x, DTensor)):
-        return linear(x, weight.to(dtype)).float()
+        return linear(x, weight.to(dtype))
     table = None
     if cache is not None and not torch.is_grad_enabled():
         table = cache.get(weight, dtype)
     if table is None:
         table = _pad_rows(weight, dtype)
-    logits = F.linear(x, table)[..., :v]
+    return F.linear(x, table)
+
+
+def tied_logits(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
+                cache: Optional[PaddedTable] = None) -> torch.Tensor:
+    """The tied output embedding (flax ``tok.attend``): ``x @ weight.T`` in
+    ``dtype`` (:func:`tied_product`), returned in f32 ``[..., V]``: a padded
+    product is cut back to V columns before the f32 cast, so no caller sees
+    a padded column (an argmax over all-negative logits would pick one)."""
+    v = weight.shape[0]
+    logits = tied_product(x, weight, dtype, cache)
+    if logits.shape[-1] == v:
+        return logits.float()
+    logits = logits[..., :v]
     # a fresh f32 tensor, as the unpadded product's .float() gives: in f32
     # .float() would return a view of the padded logits
     if logits.dtype == torch.float32:
@@ -453,4 +465,5 @@ __all__ = [
     "padded_vocab",
     "same_padding",
     "tied_logits",
+    "tied_product",
 ]

@@ -1,15 +1,29 @@
-"""Chunked softmax cross-entropy over a large vocab, as in
-``cron_operator_tpu/ops/xent.py``.
+"""Softmax cross-entropy over a large vocab: the training loss of the
+``gpt`` and ``bert`` jobs, as in ``cron_operator_tpu/workloads/train.py``
+and ``cron_operator_tpu/ops/xent.py``.
 
-For a causal LM the loss path ``hidden @ table.T -> [T, V] logits -> softmax
-CE`` builds the biggest tensor of the step. :func:`chunked_cross_entropy`
-never does: its forward keeps an online logsumexp over vocab chunks and
-picks out the label's logit, and its backward recomputes each chunk's
-softmax slice and accumulates ``dhidden`` and ``dtable`` chunk by chunk, so
-the extra memory is ``[T, chunk]``. The JAX version is ``jnp`` under
-``lax.scan``, not a Pallas kernel, so this one is plain PyTorch in a Python
-loop over the chunks. It serves the ``gpt`` entrypoint's
-``param.fused_xent=1``.
+Two losses live here.
+
+:func:`tied_cross_entropy` is the jobs' default. It runs the tied output
+embedding's product ``hidden @ table.T`` in the hidden states' dtype
+against the table padded to :data:`models.layers.VOCAB_ROWS_MULTIPLE`
+rows, then :func:`softmax_cross_entropy` on that padded product itself, an
+autograd Function over the CUDA pair of ``csrc/xent.cu``: its forward reads
+the logits once for each row's f32 logsumexp and loss, its backward reads
+them once and writes their gradient once, in the logits' dtype, zero in
+the padded columns. No f32 ``[T, V]`` tensor and no cut copy of the logits
+is made, forward or backward. The JAX package has no Pallas kernel here:
+XLA fuses its ``cross_entropy_loss`` (``workloads/train.py:44-49``) into
+reductions over the bf16 logits. :func:`softmax_cross_entropy_reference` is
+the plain version, the port's former arithmetic op for op.
+
+:func:`chunked_cross_entropy` never builds the full logits: its forward
+keeps an online logsumexp over vocab chunks and picks out the label's
+logit, and its backward recomputes each chunk's softmax slice and
+accumulates ``dhidden`` and ``dtable`` chunk by chunk, so the extra memory
+is ``[T, chunk]``. The JAX version is ``jnp`` under ``lax.scan``, not a
+Pallas kernel, so this one is plain PyTorch in a Python loop over the
+chunks. It serves the ``gpt`` entrypoint's ``param.fused_xent=1``.
 
 The JAX version's two edge rules hold: the chunk size is clamped to the
 vocab size, and the rows of the final chunk past the vocab's end contribute
@@ -25,14 +39,27 @@ Over a mesh the hidden states and labels are DTensors, their rows split
 over the batch axes and, under sequence parallelism, their positions over
 ``seq``: each rank runs the chunked loss on its own tokens against the
 whole table, and the mean over the global tokens is the sum of the ranks'
-shares (:func:`_sharded_cross_entropy`).
+shares (:func:`_sharded_cross_entropy`). :func:`softmax_cross_entropy`
+refuses DTensors: the jobs keep ``cross_entropy_loss`` on the f32 logits
+for a mesh that places DTensors.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import Dict, Optional, Tuple
+
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from cron_operator_tpu_torch.models.layers import tied_product
+from cron_operator_tpu_torch.ops import _build
+from cron_operator_tpu_torch.ops.flash_attention import (
+    _DTYPE_CODES,
+    _count,
+    _raise_on,
+)
 from cron_operator_tpu_torch.parallel.mesh import batch_placements
 
 
@@ -161,4 +188,319 @@ def _sharded_cross_entropy(hidden, table, labels, chunk_size: int):
     return DTensor.from_local(loss, mesh, split, run_check=False)
 
 
-__all__ = ["chunked_cross_entropy"]
+
+
+# ------------------------------------------- softmax cross-entropy kernels
+
+# The kernels' one design (csrc/xent.cu): one block of 256 threads a row,
+# 16-byte vectors strided by the block.
+XENT_DESIGNS = ("row",)
+_THREADS = 256
+# The label dtypes the kernels read, by their byte widths.
+_LABEL_BYTES = {torch.int32: 4, torch.int64: 8}
+# The plain versions' devices: the CPU, and ``meta`` for a FLOP count's
+# shapes (``Trainer.flops_per_step``).
+_PLAIN_DEVICES = ("cpu", "meta")
+# f32 unit roundoff, and the depth assumed of the plain version's f32 sums
+# (torch's log_softmax and mean sum each row or the T losses in per-thread
+# chains and trees of no more than 2^8 sequential additions).
+_U = 2.0 ** -24
+_PLAIN_DEPTH = 2 ** 8
+# One unit in the last place relative to the value: a rounding flip of the
+# result between two neighbours.
+_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
+
+
+def softmax_cross_entropy_reference(logits: torch.Tensor, labels: torch.Tensor,
+                                    vocab: int) -> torch.Tensor:
+    """The plain loss, differentiable: the mean over the rows of ``logits
+    [..., Vp]`` of the softmax cross-entropy of their first ``vocab``
+    columns against ``labels [...]``. It is the port's former arithmetic
+    op for op: ``F.log_softmax`` of the cut logits cast to f32, the
+    label's entry gathered, the mean negated (``workloads/train.py``
+    ``cross_entropy_loss`` of ``tied_logits``'s f32 ``[..., V]``)."""
+    logp = F.log_softmax(logits[..., :vocab].float(), dim=-1)
+    return -logp.gather(-1, labels.long()[..., None])[..., 0].mean()
+
+
+def softmax_xent_forward_reference(
+        logits: torch.Tensor, labels: torch.Tensor,
+        vocab: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain forward of ``logits [T, Vp]`` and ``labels [T]``: ``(loss,
+    lse)``, f32 ``[T]``: each row's loss ``-log_softmax(x)[label]`` (the
+    former ops, so the mean of the losses is
+    :func:`softmax_cross_entropy_reference`'s bits) and its logsumexp."""
+    x = logits[:, :vocab].float()
+    logp = F.log_softmax(x, dim=-1)
+    loss = -logp.gather(1, labels.long()[:, None])[:, 0]
+    return loss, torch.logsumexp(x, dim=-1)
+
+
+def softmax_xent_backward_reference(logits: torch.Tensor, labels: torch.Tensor,
+                                    g: torch.Tensor,
+                                    vocab: int) -> torch.Tensor:
+    """The plain backward: the gradient of the mean loss times ``g`` with
+    respect to ``logits [T, Vp]``, in the logits' dtype, zero past
+    ``vocab``. It runs what autograd ran on the former path, op for op and
+    to the bit: the mean's and the negation's ``-g / T`` scattered into a
+    zeroed f32 ``[T, V]`` at the labels, log-softmax's backward against its
+    output (recomputed: it reads no logsumexp), the cast to the logits'
+    dtype and the cut's padding back to Vp columns."""
+    t = labels.numel()
+    logp = F.log_softmax(logits[:, :vocab].float(), dim=-1)
+    grad = torch.zeros_like(logp)
+    grad.scatter_(1, labels.long()[:, None], (-g.float() / t).expand(t, 1))
+    dx = torch._log_softmax_backward_data(grad, logp, 1, torch.float32)
+    out = torch.zeros(logits.shape, dtype=logits.dtype, device=logits.device)
+    out[:, :vocab] = dx
+    return out
+
+
+def _sum_depth(vp: int, dtype: torch.dtype) -> int:
+    """The most sequential f32 additions in the kernel's row sum: a
+    thread's vectors, the warp's 5 shuffles and the 8 warps."""
+    vec = 16 // dtype.itemsize
+    return -(-vp // (_THREADS * vec)) * vec + 5 + 8
+
+
+def xent_tolerance(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
+                   loss: torch.Tensor, lse: torch.Tensor,
+                   g: Optional[torch.Tensor] = None,
+                   dlogits: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Elementwise bounds on ``|kernel - plain|`` from the plain version's
+    results on ``logits [T, Vp]`` and ``labels [T]`` (``loss`` and ``lse``
+    ``[T]``; with ``g``, also the plain ``dlogits``): keys ``lse``,
+    ``loss`` (each row's), ``mean`` and with ``g`` also ``dlogits``
+    ``[T, V]`` (the padded columns are exact zeros on both sides).
+
+    Both sides sum the same positive terms exp(x - m) in f32 in other
+    orders: the kernel's chains are :func:`_sum_depth` deep, the plain
+    version's at most 2^8, so the sums differ by up to (d_k + d_p)·u of
+    themselves, u = 2^-24. Each term carries exp2f's 2 ulp and the
+    rounding of (x - m) and of its product by log2 e, about 2u·|x - m| of
+    itself; the log and the add of m round by u of |lse| each side. So
+    lse may differ by e_lse = (d_k + d_p)·u + 2^-21 + 2^-22·(R + |lse|), R
+    the row's largest |x - lse|; a row's loss by e_lse + 2^-22·|loss|; the
+    mean (one torch sum over T each side, the same order) by the mean of
+    those plus 2·2^8·u of the mean |loss|. The gradient (p - [j = label])
+    ·g/T, p = exp(x - lse), by |g/T|·(p·(e_lse + 2^-21·(1 + |x - lse|))
+    + 2^-22·(p + [j = label])) in f32, then one unit in the last place of
+    the logits' dtype at |dlogits| (bf16: 2^-7 |d|, a rounding flip)."""
+    ct = torch.float32
+    x = logits[:, :vocab].to(ct)
+    lse = lse.to(ct)
+    gap = (x - lse[:, None]).abs()
+    depth = _sum_depth(logits.shape[1], logits.dtype) + _PLAIN_DEPTH
+    e_lse = (depth * _U + 2.0 ** -21
+             + 2.0 ** -22 * (gap.amax(dim=1) + lse.abs()))
+    e_loss = e_lse + 2.0 ** -22 * loss.to(ct).abs()
+    bounds = {
+        "lse": e_lse,
+        "loss": e_loss,
+        "mean": (e_loss.mean()
+                 + 2 * _PLAIN_DEPTH * _U * loss.to(ct).abs().mean()),
+    }
+    if g is not None:
+        scale = g.to(ct).abs() / labels.numel()
+        p = torch.exp(-gap)
+        hot = torch.zeros_like(p)
+        hot.scatter_(1, labels.long()[:, None], 1.0)
+        e_f32 = scale * (p * (e_lse[:, None] + 2.0 ** -21 * (1 + gap))
+                         + 2.0 ** -22 * (p + hot))
+        bounds["dlogits"] = (_ULP[dlogits.dtype]
+                             * dlogits[:, :vocab].to(ct).abs() + e_f32)
+    return bounds
+
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _kernel() -> ctypes.CDLL:
+    """The built loss library, with its C signatures declared."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("xent")
+        lib.xent_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.xent_fwd.restype = ctypes.c_int
+        lib.xent_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.xent_bwd.restype = ctypes.c_int
+        lib.xent_error_string.argtypes = [ctypes.c_int]
+        lib.xent_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check_kernel_inputs(logits: torch.Tensor, labels: torch.Tensor,
+                         vocab: int) -> None:
+    """Refuses what the kernels cannot read in place, before anything is
+    built: a hidden copy of the logits would be the very pass the kernels
+    exist to remove."""
+    if logits.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the loss kernels take float32 or bfloat16 logits, "
+                         f"not {logits.dtype}")
+    t, vp = logits.shape
+    if not 0 < vocab <= vp:
+        raise ValueError(f"vocab {vocab} does not fit logits [{t}, {vp}]")
+    vec = 16 // logits.element_size()
+    if (logits.stride() != (vp, 1) or vp % vec or logits.data_ptr() % 16):
+        raise ValueError(
+            f"logits [{t}, {vp}] must be contiguous rows of whole 16-byte "
+            "vectors at a 16-byte aligned address: the loss kernels read "
+            "them in place")
+    if (labels.dtype not in _LABEL_BYTES or labels.shape != (t,)
+            or labels.stride() != (1,) or labels.device != logits.device):
+        raise ValueError(f"labels must be contiguous int32 or int64 [{t}] on "
+                         f"the logits' device, not {labels.dtype} "
+                         f"{tuple(labels.shape)} on {labels.device}")
+
+
+def _launch_forward(logits, labels, vocab):
+    _check_kernel_inputs(logits, labels, vocab)
+    t, vp = logits.shape
+    out = torch.empty((2, t), dtype=torch.float32, device=logits.device)
+    lib = _kernel()
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        err = lib.xent_fwd(logits.data_ptr(), labels.data_ptr(),
+                           out[1].data_ptr(), out[0].data_ptr(),
+                           _DTYPE_CODES[logits.dtype],
+                           _LABEL_BYTES[labels.dtype], t, vp, vocab, stream)
+    _raise_on(err, lib, "xent_fwd", "xent_error_string")
+    _count(softmax_xent_forward, "row", stream)
+    return out[0], out[1]
+
+
+def _launch_backward(logits, labels, lse, g, vocab):
+    _check_kernel_inputs(logits, labels, vocab)
+    t, vp = logits.shape
+    if (lse.shape != (t,) or lse.dtype != torch.float32
+            or lse.stride() != (1,) or lse.device != logits.device):
+        raise ValueError(f"lse must be contiguous float32 [{t}] on the "
+                         "logits' device")
+    g = g.detach().to(device=logits.device, dtype=torch.float32).reshape(())
+    dlogits = torch.empty_like(logits, memory_format=torch.contiguous_format)
+    lib = _kernel()
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        err = lib.xent_bwd(logits.data_ptr(), labels.data_ptr(),
+                           lse.data_ptr(), g.data_ptr(), dlogits.data_ptr(),
+                           _DTYPE_CODES[logits.dtype],
+                           _LABEL_BYTES[labels.dtype], t, vp, vocab, stream)
+    _raise_on(err, lib, "xent_bwd", "xent_error_string")
+    _count(softmax_xent_backward, "row", stream)
+    return dlogits
+
+
+def _refuse_dtensor(*tensors) -> None:
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            "softmax_cross_entropy takes local tensors, not DTensors: a mesh "
+            "that places DTensors keeps cross_entropy_loss on the f32 logits")
+
+
+def softmax_xent_forward(logits: torch.Tensor, labels: torch.Tensor,
+                         vocab: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss, lse)``, f32 ``[T]``, of ``logits [T, Vp]`` (the first
+    ``vocab`` columns count) and ``labels [T]``: the forward kernel on a
+    CUDA tensor (or raises), :func:`softmax_xent_forward_reference` on a
+    CPU or meta tensor. No autograd. Its bound is bytes: the logits read
+    once (0.246 ms at GPT-2 small's b 8 x 1024 in bf16 on an H100)."""
+    _refuse_dtensor(logits, labels)
+    with torch.no_grad():
+        if logits.is_cuda:
+            return _launch_forward(logits, labels, vocab)
+        if logits.device.type in _PLAIN_DEVICES:
+            return softmax_xent_forward_reference(logits, labels, vocab)
+    raise ValueError(f"the loss runs on CUDA, CPU or meta, not "
+                     f"{logits.device}")
+
+
+def softmax_xent_backward(logits: torch.Tensor, labels: torch.Tensor,
+                          lse: torch.Tensor, g: torch.Tensor,
+                          vocab: int) -> torch.Tensor:
+    """The gradient of the mean loss times ``g`` (a one-element tensor)
+    with respect to ``logits [T, Vp]``, in their dtype, exact zeros past
+    ``vocab``: the backward kernel on a CUDA tensor (or raises), from the
+    forward's ``lse``; :func:`softmax_xent_backward_reference` on a CPU or
+    meta tensor. No autograd. Its bound is bytes: the logits read once and
+    the gradient written once (0.492 ms at GPT-2 small's b 8 x 1024)."""
+    _refuse_dtensor(logits, labels, lse, g)
+    with torch.no_grad():
+        if logits.is_cuda:
+            return _launch_backward(logits, labels, lse, g, vocab)
+        if logits.device.type in _PLAIN_DEVICES:
+            return softmax_xent_backward_reference(logits, labels, g, vocab)
+    raise ValueError(f"the loss runs on CUDA, CPU or meta, not "
+                     f"{logits.device}")
+
+
+softmax_xent_forward.launches = 0
+softmax_xent_forward.launches_by_design = dict.fromkeys(XENT_DESIGNS, 0)
+softmax_xent_backward.launches = 0
+softmax_xent_backward.launches_by_design = dict.fromkeys(XENT_DESIGNS, 0)
+
+
+class _SoftmaxCrossEntropy(torch.autograd.Function):
+    """The mean loss of ``logits [T, Vp]``; saves the logits (the product,
+    alive anyway until the GEMM's backward has run), the labels and the
+    f32 ``lse [T]``, no f32 copy of the logits."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab):
+        loss, lse = softmax_xent_forward(logits, labels, vocab)
+        ctx.vocab = vocab
+        ctx.save_for_backward(logits, labels, lse)
+        return loss.mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        return (softmax_xent_backward(logits, labels, lse, g, ctx.vocab),
+                None, None)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab: int) -> torch.Tensor:
+    """Mean softmax cross-entropy of the first ``vocab`` columns of
+    ``logits [..., Vp]`` against integer ``labels [...]``, differentiable
+    in the logits: the kernels of ``csrc/xent.cu`` on a CUDA tensor (which
+    must be contiguous: nothing is copied to fit), the plain versions on a
+    CPU or meta one, the same bits as
+    :func:`softmax_cross_entropy_reference` there, loss and gradient. A
+    DTensor raises ``TypeError``. Each wrapper counts its launches
+    (``softmax_xent_forward.launches``, ``softmax_xent_backward.launches``),
+    once per replay where a graph capture recorded it."""
+    _refuse_dtensor(logits, labels)
+    vp = logits.shape[-1]
+    if not 0 < vocab <= vp or labels.shape != logits.shape[:-1]:
+        raise ValueError(f"labels {tuple(labels.shape)} and vocab {vocab} do "
+                         f"not fit logits {tuple(logits.shape)}")
+    if logits.is_cuda and not logits.is_contiguous():
+        raise ValueError("CUDA logits must be contiguous: the loss kernels "
+                         "read them in place")
+    return _SoftmaxCrossEntropy.apply(logits.reshape(-1, vp),
+                                      labels.reshape(-1), vocab)
+
+
+def tied_cross_entropy(hidden: torch.Tensor, table: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """The ``gpt`` and ``bert`` jobs' loss: the tied output embedding's
+    product ``hidden @ table.T`` (flax ``tok.attend``) in the hidden states'
+    dtype against the table padded with zero rows
+    (``models.layers.tied_product``, as ``tied_logits`` runs it), and
+    :func:`softmax_cross_entropy` on the padded product ``[..., Vp]``
+    itself. ``hidden [..., d]``, ``table [V, d]``, ``labels [...]``; a
+    scalar. On the ``meta`` device (the FLOP count) the product stays at
+    the true vocab."""
+    return softmax_cross_entropy(tied_product(hidden, table, hidden.dtype),
+                                 labels, table.shape[0])
+
+
+__all__ = ["XENT_DESIGNS", "chunked_cross_entropy", "softmax_cross_entropy",
+           "softmax_cross_entropy_reference", "softmax_xent_backward",
+           "softmax_xent_backward_reference", "softmax_xent_forward",
+           "softmax_xent_forward_reference", "tied_cross_entropy",
+           "xent_tolerance"]

@@ -65,10 +65,15 @@ from cron_operator_tpu_torch.models.gpt import GPT, GPTConfig
 from cron_operator_tpu_torch.models.mlp import MLP
 from cron_operator_tpu_torch.models.resnet import ResNet50
 from cron_operator_tpu_torch.models.vit import ViT, ViTConfig
+from cron_operator_tpu_torch.ops.xent import (
+    chunked_cross_entropy,
+    tied_cross_entropy,
+)
 from cron_operator_tpu_torch.parallel.mesh import (
     group_devices_by_slice,
     hybrid_mesh_for_slices,
     mesh_for_devices,
+    plain_axes,
     plan_for_devices,
 )
 from cron_operator_tpu_torch.utils.device import resolve_device, world_size
@@ -222,6 +227,35 @@ def _batches(ctx, host_factory, device_factory) -> Iterator[Dict[str, Any]]:
     if mode == "fused":
         return itertools.repeat({})
     return device_factory()
+
+
+def _tied_loss(out, y):
+    hidden, table = out  # return_hidden: the model hands back both
+    return tied_cross_entropy(hidden, table, y)
+
+
+def _chunked_loss(out, y):
+    hidden, table = out
+    return chunked_cross_entropy(hidden, table, y)
+
+
+def lm_loss(mesh=None, fused_xent: bool = False):
+    """``(return_hidden, loss_fn)`` of the ``gpt`` and ``bert`` jobs: the
+    model's ``return_hidden`` and the loss of its output.
+
+    - ``fused_xent``: :func:`ops.xent.chunked_cross_entropy` of the final
+      hidden states against the tied table, no logits built.
+    - Otherwise, without a mesh or over a mesh of batch axes alone
+      (``plain_axes``: DDP or FSDP2 on plain modules):
+      :func:`ops.xent.tied_cross_entropy`, the padded bf16 product and the
+      loss kernels of ``ops/csrc/xent.cu`` on the card.
+    - A mesh that places DTensors (``tensor``, ``expert``, ``seq``): the
+      model's f32 logits and ``cross_entropy_loss``, the former path."""
+    if fused_xent:
+        return True, _chunked_loss
+    if mesh is not None and not plain_axes(mesh):
+        return False, cross_entropy_loss
+    return True, _tied_loss
 
 
 def _remat(ctx) -> bool:
@@ -518,7 +552,9 @@ def bert(ctx) -> None:
     multiple of 128, and ring attention under ``seq > 1``), the mesh axes
     seq/tensor/fsdp (the sequence split over ``seq``), remat(=0),
     kv_heads(=0: MHA), rope(=0|1). AdamW at lr 1e-3; targets are the inputs
-    (``token_batches``).
+    (``token_batches``). The loss is :func:`lm_loss`'s: the padded product's
+    softmax cross-entropy through the loss kernels, or ``cross_entropy_loss``
+    of the f32 logits over a mesh that places DTensors.
     """
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 8))
@@ -526,15 +562,17 @@ def bert(ctx) -> None:
     size = ctx.params.get("size", "base")
     device, mesh = _train_device(ctx, sequence_parallel=True)
     maker = BertConfig.tiny if size == "tiny" else BertConfig.base
+    return_hidden, loss_fn = lm_loss(mesh)
     cfg = maker(max_len=seq_len,
                 attention_impl=ctx.params.get("attention", "auto"),
-                **_gqa_rope_kwargs(ctx))
+                return_hidden=return_hidden, **_gqa_rope_kwargs(ctx))
     _train_job(
         ctx, _seeded(Bert(cfg, device=device), device), steps,
         lambda: datasets.token_batches(batch_size, seq_len, cfg.vocab_size),
         datasets.token_sample(batch_size, seq_len, cfg.vocab_size),
-        tokens_per_step=batch_size * seq_len, remat=_remat(ctx), mesh=mesh,
-        seq_dim_in_batch=1, labels_follow_seq=True,
+        tokens_per_step=batch_size * seq_len, loss_fn=loss_fn,
+        remat=_remat(ctx), mesh=mesh, seq_dim_in_batch=1,
+        labels_follow_seq=True,
     )
 
 
@@ -547,10 +585,13 @@ def gpt(ctx) -> None:
     seq/tensor/fsdp/expert (the sequence split over ``seq``), moe_every(=0:
     dense; k > 0 makes every k-th block's FFN a Switch-MoE layer),
     num_experts(=8), remat(=0),
-    fused_xent(=0: when 1 the loss is :func:`ops.xent.chunked_cross_entropy`
-    against the tied embedding and the ``[b, s, vocab]`` logits are never
-    built), kv_heads(=0: MHA), rope(=0|1), data(=device|host|fused),
-    platform, and the params of :func:`_train_kwargs` (AdamW at lr 1e-3 by
+    fused_xent(=0: the loss is :func:`ops.xent.tied_cross_entropy`, the
+    whole padded bf16 logits through the loss kernels, or over a mesh that
+    places DTensors ``cross_entropy_loss`` of the f32 logits; when 1 it is
+    :func:`ops.xent.chunked_cross_entropy` against the tied embedding and
+    the ``[b, s, vocab]`` logits are never built; :func:`lm_loss`),
+    kv_heads(=0: MHA), rope(=0|1), data(=device|host|fused), platform,
+    and the params of :func:`_train_kwargs` (AdamW at lr 1e-3 by
     default). Targets are next-token shifted; an MoE model's weighted
     router balance loss is added to the task loss.
     """
@@ -561,19 +602,13 @@ def gpt(ctx) -> None:
     fused_xent = ctx.params.get("fused_xent", "0") in ("1", "true")
     device, mesh = _train_device(ctx, sequence_parallel=True)
     maker = GPTConfig.tiny if size == "tiny" else GPTConfig
+    return_hidden, loss_fn = lm_loss(mesh, fused_xent)
     cfg = maker(
         max_len=seq_len, attention_impl=ctx.params.get("attention", "auto"),
-        return_hidden=fused_xent, **_moe_kwargs(ctx), **_gqa_rope_kwargs(ctx),
+        return_hidden=return_hidden, **_moe_kwargs(ctx),
+        **_gqa_rope_kwargs(ctx),
     )
     model = _seeded(GPT(cfg, device=device), device)
-    if fused_xent:
-        from cron_operator_tpu_torch.ops.xent import chunked_cross_entropy
-
-        def loss_fn(out, y):
-            hidden, table = out  # return_hidden: the model hands back both
-            return chunked_cross_entropy(hidden, table, y)
-    else:
-        loss_fn = cross_entropy_loss
     _train_job(
         ctx, model, steps,
         lambda: datasets.causal_token_batches(

@@ -30,6 +30,8 @@ FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "test_torch_decode_attention_cuda.py",
     # the GroupNorm kernels' card test
     ROOT / "tests" / "test_torch_group_norm_cuda.py",
+    # the loss kernels' card test
+    ROOT / "tests" / "test_torch_softmax_xent_cuda.py",
     # the cluster kernels' sweep of cluster sizes
     ROOT / "hack" / "torch_cluster_sweep.py",
 ]

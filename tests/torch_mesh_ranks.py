@@ -27,7 +27,8 @@ Jobs (dicts):
 - ``split``: :func:`_split`; ``moe``: :func:`_moe`; ``refuse``:
   :func:`_refuse`; ``attention``: :func:`_attention`; ``hop``:
   :func:`_hop`; ``guards``: :func:`_guards`; ``pipe_guards``:
-  :func:`_pipe_guards`; ``pipeline``: :func:`_pipeline`.
+  :func:`_pipe_guards`; ``pipeline``: :func:`_pipeline`; ``lm_job``:
+  :func:`_lm_job`.
 
 :func:`mesh_probe` is an entrypoint for the port's runner.
 """
@@ -513,6 +514,50 @@ def _pipeline(job, mesh) -> Dict[str, Any]:
                            for n, t in placed.items()}}
 
 
+class _LossBeat:
+    """A job's watchdog that records its loss at each step's beat."""
+
+    def __init__(self, ctx, losses):
+        self.ctx, self.losses = ctx, losses
+
+    def beat(self):
+        self.losses.append(self.ctx.progress["last_loss"])
+
+
+def _lm_job(job, mesh) -> Dict[str, Any]:
+    """The ``gpt`` or ``bert`` entrypoint (``entry``) with ``params`` over
+    the world, once as it is and once with the former loss wiring
+    (``lm_loss`` giving the model's f32 logits and ``cross_entropy_loss``):
+    each run's per-step losses (``steps_per_call=1``) and its calls of the
+    loss kernels' forward wrapper (``ops.xent.softmax_xent_forward``)."""
+    from cron_operator_tpu_torch.backends.registry import JobContext
+    from cron_operator_tpu_torch.ops import xent
+    from cron_operator_tpu_torch.workloads import entrypoints
+    from cron_operator_tpu_torch.workloads.train import cross_entropy_loss
+
+    forward, lm_loss = xent.softmax_xent_forward, entrypoints.lm_loss
+    runs = {}
+    for route in ("job", "former"):
+        calls = []
+
+        def spy(*args):
+            calls.append(1)
+            return forward(*args)
+
+        xent.softmax_xent_forward = spy
+        if route == "former":
+            entrypoints.lm_loss = lambda *a, **k: (False, cross_entropy_loss)
+        losses = []
+        ctx = JobContext("train", "default", {}, dict(job["params"]))
+        ctx.watchdog = _LossBeat(ctx, losses)
+        try:
+            getattr(entrypoints, job["entry"])(ctx)
+        finally:
+            xent.softmax_xent_forward, entrypoints.lm_loss = forward, lm_loss
+        runs[route] = {"losses": losses, "kernel_calls": len(calls)}
+    return {"runs": runs}
+
+
 def mesh_probe(ctx) -> None:
     """An entrypoint for the port's runner: publishes the device and the
     mesh that a training job of these params gets on this rank."""
@@ -547,7 +592,7 @@ def _rank_main(jobs_file: str) -> int:
                    "moe": _moe, "refuse": _refuse, "attention": _attention,
                    "hop": _hop, "guards": _guards,
                    "pipe_guards": _pipe_guards,
-                   "pipeline": _pipeline}[job["kind"]]
+                   "pipeline": _pipeline, "lm_job": _lm_job}[job["kind"]]
             out = run(job, mesh)
             out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
             torch.save(out, Path(spec["out"]) / f"{job['name']}.rank{rank}.pt")
