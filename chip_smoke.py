@@ -50,6 +50,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    10 and 10); then three steps on the kernel path (flash attention and
    the loss kernels) against the plain path (plain attention, the former
    f32 loss) from the same f32 weights, both measured against an f32 run.
+   The LayerNorm kernels (``ops/csrc/layer_norm.cu``) launch 25 times a
+   step each way here, as on every GPT, BERT and ViT training path
+   (phases 7, 8, 9 and 13), and 25 times a prefill and a decode step on
+   the serving paths (phases 3, 11 and 14); phases 15, 16 and 18 record
+   theirs as they come.
 6. Training times: K1, K2 and K3 per launch at the slice's shape (device
    time, event time beside it) beside their bounds, their plain versions
    and the SDPA yardsticks (SDPA's backward alone for K2 and K3); then the
@@ -262,13 +267,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
     bert and MoE gpt graphed steps on the loss kernels and with the former
     loss swapped in, in turns, with their peak memory, beside 30.212,
     14.389 and 35.980 ms (``LOSS_BEFORE_MS``); one LayerNorm forward and
-    backward at GPT's and BERT's activations timed, and the same norm on
-    f32 copies (its own kernels; the difference is its casts), times 25 a
-    step, beside the step's device ms. The
+    backward at GPT's and BERT's activations timed on its kernels and on
+    the former arithmetic (the difference is what the kernels save), times
+    25 a step, beside the step's device ms. The
     loss kernels' launches on the gpt, bert, MoE gpt, resumed, data-mesh
     and NCCL-graph paths (phases 5, 7, 9, 13, 15 and 18) go into the
     kernels line.
-22. A ``kernels`` JSON line, the card line, and last the result line
+22. The LayerNorm kernels (``ops/csrc/layer_norm.cu``, ``layer_norm_fwd``
+    and ``layer_norm_bwd``) against their plain versions
+    (``layer_norm_reference``, ``layer_norm_backward_reference``) at the
+    rows of the main paths (``LN_SHAPES``: GPT's ``[8192, 768]``, BERT's
+    ``[4096, 768]``, ViT-B's ``[12608, 768]``, a decode step's ``[8,
+    768]``, the pipeline's ``[2048, 768]``) and the tiny widths 128 and
+    64, x in bf16 and f32, f32 and bf16 parameters, and rows offset by
+    +100, within ``layer_norm_tolerance``, reruns the same bits; each
+    kernel timed beside its byte bound, its plain version and
+    ``F.layer_norm`` on the bf16 x with bf16-cast parameters (its backward
+    alone for ``layer_norm_bwd``; a yardstick the port never calls); the
+    graphed gpt and bert steps on the kernels and with the former
+    arithmetic swapped in (``former_layer_norm``), in turns, beside 22.882
+    and 12.242 ms (``LN_BEFORE_MS``); serving on each path in turns (the
+    graphed decode step beside 1.054 ms, greedy tokens graph against eager
+    and kernels against former); LayerNorm's share of the gpt, bert and
+    vit steps. Their launches on every path go into the kernels line.
+23. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
 
@@ -380,6 +402,12 @@ LOSS_BEFORE_MS = {"gpt": 30.212, "bert": 14.389, "moe": 35.980}
 # The loss kernels' launches (forward, backward) on each main path, filled
 # by the phases that run it, for the kernels line.
 XENT_LAUNCHES = {}
+# LayerNorms a step (or a prefill, or a decode step) of GPT-2 small,
+# BERT-base and ViT-B/16: two a block and the final one.
+LM_NORMS = 2 * 12 + 1
+# The LayerNorm kernels' launches (forward, backward) on each path, filled
+# by the phases that run it, for the kernels line.
+LN_LAUNCHES = {}
 # Shares of a graphed LM call's device time read from its profile: the
 # loss kernels, log-softmax (the former loss), LayerNorm's kernels and
 # copies and casts (PyTorch's direct_copy_kernel: copy_ and the casts to
@@ -646,7 +674,7 @@ def zero_counts(fa) -> None:
         fn.launches = 0
         fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
         fn.launches_by_epilogue = dict.fromkeys(fn.launches_by_epilogue, 0)
-    for fn in xent_wrappers():
+    for fn in (*xent_wrappers(), *ln_wrappers()):
         fn.launches = 0
         fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
 
@@ -710,6 +738,55 @@ def check_xent(label: str, path: str, counts, steps: int) -> None:
                                for i in range(2)]
 
 
+def ln_wrappers():
+    """``ops.layer_norm``'s forward and backward wrappers, whose
+    ``launches`` count the LayerNorm kernels'."""
+    ln = importlib.import_module("cron_operator_tpu_torch.ops.layer_norm")
+    return ln.layer_norm_forward, ln.layer_norm_backward
+
+
+def read_ln_counts():
+    return [fn.launches for fn in ln_wrappers()]
+
+
+def check_ln(label: str, path: str, counts, expected) -> None:
+    """The LayerNorm kernels' launches (forward, backward) on the path
+    ``path``, kept for the kernels line: ``expected`` (forward, backward),
+    or None for a path whose counts are recorded as they come."""
+    print(f"{label}: LayerNorm kernel launches (forward, backward) {counts}"
+          + ("" if expected is None else f" (expected {list(expected)})"),
+          flush=True)
+    if expected is not None and list(counts) != list(expected):
+        fail(f"{label}: the LayerNorm kernels launched {counts} times, not "
+             f"{list(expected)}")
+    if path:
+        LN_LAUNCHES[path] = [LN_LAUNCHES.get(path, [0, 0])[i] + counts[i]
+                             for i in range(2)]
+
+
+@contextlib.contextmanager
+def former_layer_norm():
+    """``models.layers.LayerNorm`` on its former arithmetic (x cast to f32,
+    ``F.layer_norm``, the result cast back; the plain versions of the
+    LayerNorm kernels) while the context is open, swapped in as
+    ``dense_moe`` swaps the MoE FFN."""
+    import torch.nn.functional as F
+
+    layers = importlib.import_module("cron_operator_tpu_torch.models.layers")
+    real = layers.LayerNorm.forward
+
+    def former(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape,
+                         self.weight.float(), self.bias.float(), self.eps)
+        return y.to(self.compute_dtype)
+
+    layers.LayerNorm.forward = former
+    try:
+        yield
+    finally:
+        layers.LayerNorm.forward = real
+
+
 def lm_wiring(cfg, former: bool = False):
     """``(cfg, loss_fn)`` of a GPT or BERT config as the gpt and bert jobs
     wire them on one card (``entrypoints.lm_loss``: the padded product
@@ -734,7 +811,7 @@ def read_designs(fa):
 
 
 def phase_slice(torch, fa, params=SLICE_PARAMS, n_params=GPT2_SMALL_PARAMS,
-                label="slice"):
+                label="slice", ln_path="generate"):
     from cron_operator_tpu_torch.backends.registry import JobContext
     from cron_operator_tpu_torch.workloads.entrypoints import generate_job
 
@@ -749,6 +826,10 @@ def phase_slice(torch, fa, params=SLICE_PARAMS, n_params=GPT2_SMALL_PARAMS,
     k1_designs = read_designs(fa)[0]
     decode_launches = decode_wrapper().launches
     steps = rounds * (int(params["max_new"]) - 1)
+    # the LayerNorm forward 25 times in each round's prefill and each decode
+    # step (a replay counted once)
+    check_ln(label, ln_path, read_ln_counts(),
+             (LM_NORMS * (rounds + steps), 0))
     print(f"{label}: generate_job in {wall:.2f} s, progress {ctx.progress}")
     print(f"{label}: decode_attention launches {decode_launches} (expected "
           f"12 a decode step x {steps} steps)", flush=True)
@@ -910,14 +991,16 @@ def phase_times(torch, fa, flash_model, card):
 
 
 def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int,
-              n_params=None, xent_path: str = None):
+              n_params=None, xent_path: str = None, ln_path: str = None):
     """A training job through the entrypoint a user's Cron calls, with every
     kernel count set to 0 just before and read just after: each of K1, K2
     and K3 must have launched ``sm90_per_step`` times a step, all of the
     sm90 design (0 for a job whose attention never reaches the kernels),
     and the loss kernels once a step each on an LM path (``xent_path``,
-    its name in the kernels line), else never. ``n_params`` is the
-    parameter count expected (the job's default model's by default)."""
+    its name in the kernels line), else never; the LayerNorm kernels
+    :data:`LM_NORMS` times a step each way on the path ``ln_path`` (the LM
+    path's by default), else never. ``n_params`` is the parameter count
+    expected (the job's default model's by default)."""
     from cron_operator_tpu_torch.backends.registry import JobContext
     from cron_operator_tpu_torch.workloads import entrypoints
 
@@ -931,6 +1014,9 @@ def phase_job(torch, fa, job: str, params: dict, sm90_per_step: int,
     counts = read_counts(fa)
     designs = read_designs(fa)
     check_xent(job, xent_path, read_xent_counts(), steps if xent_path else 0)
+    ln_path = ln_path or xent_path
+    check_ln(job, ln_path, read_ln_counts(),
+             (LM_NORMS * steps if ln_path else 0,) * 2)
     progress = {k: v for k, v in ctx.progress.items() if k != "step_timeline"}
     expected = sm90_per_step * steps
     print(f"{job}: in {wall:.2f} s, progress {progress}")
@@ -1349,7 +1435,7 @@ def phase_bert(torch, fa, card):
 
 def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
                     train_config, norms_per_step: int = 0,
-                    shares: dict = None):
+                    shares: dict = None, ln_path: str = None):
     """An image job at its defaults (no attention reaches the kernels; the
     GroupNorm kernels launch ``norms_per_step`` times a step each, forward
     and backward, counted from 0 over the job, each on its plan's design
@@ -1357,9 +1443,10 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
     eager (``make_model()``'s model with seed-0 weights, the job's
     optimizer, fused data): model FLOPs a step counted by
     ``FlopCounterMode`` over one forward and backward; ``shares`` as
-    :func:`graph_vs_eager`'s. Returns the GroupNorm launches (forward,
-    backward and the two directions' launches by epilogue) and the step's
-    rows."""
+    :func:`graph_vs_eager`'s; ``ln_path`` names a job whose LayerNorms
+    launch the kernels (``phase_job``'s). Returns the GroupNorm launches
+    (forward, backward and the two directions' launches by epilogue) and
+    the step's rows."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from cron_operator_tpu_torch.workloads import data
@@ -1368,7 +1455,7 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
         cross_entropy_loss,
     )
 
-    _, progress = phase_job(torch, fa, job, params, 0)
+    _, progress = phase_job(torch, fa, job, params, 0, ln_path=ln_path)
     norm_counts = read_norm_counts()  # counted from 0 over the job
     steps = int(params["steps"])
     expected = (norms_per_step * steps,) * 2
@@ -1653,6 +1740,7 @@ def phase_resume(torch, fa, card, root: str):
     run(resumed, 12)
     counts, designs = read_counts(fa), read_designs(fa)
     check_xent("resume", "resume", read_xent_counts(), 4)
+    check_ln("resume", "resume", read_ln_counts(), (4 * LM_NORMS,) * 2)
     store.close()
     print(f"resume: K1/K2/K3 launches on the resumed run {counts} (expected "
           f"48 each), by design {designs}", flush=True)
@@ -1825,6 +1913,8 @@ def phase_serve_checkpoint(torch, fa, root: str, step: int):
         torch.cuda.synchronize()
         counts, designs = read_counts(fa), read_designs(fa)
         decode_launches = decode_wrapper().launches
+        check_ln("serve", "serve_checkpoint", read_ln_counts(),
+                 (LM_NORMS * 2 * 64, 0))
     finally:
         entrypoints.generate = real
     progress = ctx.progress
@@ -2202,7 +2292,8 @@ def phase_moe_serving(torch, fa, card):
 
     serving = importlib.import_module("cron_operator_tpu_torch.workloads.generate")
     launches, decode_launches, progress = phase_slice(
-        torch, fa, MOE_SLICE_PARAMS, GPT2_SMALL_MOE_PARAMS, "moe serving")
+        torch, fa, MOE_SLICE_PARAMS, GPT2_SMALL_MOE_PARAMS, "moe serving",
+        "moe_serve")
     cfg = moe_cfg()
     model = slice_model(torch, cfg)
     prompt = torch.randint(0, cfg.vocab_size, (8, 512), device="cuda",
@@ -2356,7 +2447,8 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
     ``profile`` runs one more step of the same batch size under
     ``profile_window`` (every rank) and keeps what it printed;
     ``readings(trainer, batch)`` adds its dict to the result. Returns the
-    counts (and the loss kernels' under ``xent``), designs, shapes, per-step
+    counts (and the loss kernels' under ``xent``, the LayerNorm kernels'
+    under ``layer_norm``), designs, shapes, per-step
     losses, step s, tokens/s and the peak memory in GiB (and the
     profile)."""
     import torch.distributed as dist
@@ -2396,6 +2488,7 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
         torch.cuda.synchronize()
         result = {"counts": read_counts(fa), "designs": read_designs(fa),
                   "xent": read_xent_counts(),
+                  "layer_norm": read_ln_counts(),
                   "shapes": sorted(shapes), "losses": ctx.progress.losses,
                   "step_s": ctx.progress["avg_step_time_s"],
                   "tokens_per_s": ctx.progress["tokens_per_s"],
@@ -2607,6 +2700,8 @@ def phase_mesh(torch, fa, card):
             for r, got in enumerate(ranks):  # a plain mesh: the kernels
                 check_xent(f"mesh {name} rank {r}", f"mesh_{name}",
                            got["xent"], MESH_STEPS)
+                check_ln(f"mesh {name} rank {r}", f"mesh_{name}",
+                         got["layer_norm"], (LM_NORMS * MESH_STEPS,) * 2)
             print(f"mesh {name}: losses {ranks[0]['losses']} against one "
                   f"rank {ref['losses']}: max gap {readings['loss_gap']:.6f}"
                   f", update distance {readings['update_distance']:.6f}; "
@@ -2749,6 +2844,7 @@ def run_pipeline(torch, stages: int = 2) -> dict:
     y.float().square().mean().backward()
     torch.cuda.synchronize()
     counts, designs = read_counts(fa), read_designs(fa)
+    layer_norm = read_ln_counts()
 
     xs = x.clone().requires_grad_()
     ys = xs
@@ -2760,7 +2856,7 @@ def run_pipeline(torch, stages: int = 2) -> dict:
     others = [dict(layer.named_parameters())
               for i, layer in enumerate(layers) if i != stage]
     return {
-        "counts": counts, "designs": designs,
+        "counts": counts, "designs": designs, "layer_norm": layer_norm,
         "y": rel_l2(torch, y, ys), "x_grad": rel_l2(torch, xp.grad, xs.grad),
         "stage_grads": max(rel_l2(torch, grads[n], mine[n].grad)
                            for n in grads if mine[n].grad.norm() > 0),
@@ -2826,8 +2922,11 @@ def phase_seq(torch, fa, card):
                                     job)
             ranks = spawn_ranks(2, params, root, name, task=job)
             problems, (gap, dist) = seq_problems(torch, ranks, ref)
-            for r, got in enumerate(ranks):  # a seq mesh: the former loss
+            for r, got in enumerate(ranks):  # a seq mesh: the former loss,
+                # the LayerNorm kernels on each rank's own rows
                 check_xent(f"seq {name} rank {r}", None, got["xent"], 0)
+                check_ln(f"seq {name} rank {r}", f"seq_{name}",
+                         got["layer_norm"], (LM_NORMS * MESH_STEPS,) * 2)
             print(f"seq {name} ({job}): losses {ranks[0]['losses']} against "
                   f"one rank's attention=xla {ref['losses']}: max gap "
                   f"{gap:.6f}, update distance {dist:.6f}; lr 0 reads "
@@ -2858,6 +2957,7 @@ def phase_seq(torch, fa, card):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for r, got in enumerate(ranks):
+        check_ln(f"pipeline rank {r}", "pipeline", got["layer_norm"], None)
         print(f"pipeline rank {r}: K1/K2/K3 {got['counts']} {got['designs']}; "
               f"relative L2 against the layers in sequence: y {got['y']:.5f}, "
               f"x grad {got['x_grad']:.5f}, stage grads "
@@ -3062,6 +3162,7 @@ def phase_mesh_graph(torch, card, unwrapped_ms: float) -> dict:
             (TRAIN_SHAPE["b"], TRAIN_SHAPE["h"])}:
         problems.append(f"launched at (batch, heads) {got['shapes']}")
     check_xent("mesh graph", "mesh_graph", got["xent"], GRAPH_MESH_STEPS)
+    check_ln("mesh graph", "mesh_graph", got["layer_norm"], None)
     if got["backend"] != "nccl" or not got["plain"]:
         problems.append(f"trained over {got['backend']} with plain "
                         f"parameters {got['plain']}")
@@ -3717,9 +3818,6 @@ def phase_group_norm(torch, card, norm_counts, resnet_step) -> dict:
 # subtract, scale, exp2, subtract, scale) over the f32 rate outside the
 # tensor cores, beside the bytes.
 XENT_OPS = {"fwd": 4, "bwd": 5}
-# LayerNorms a step of GPT-2 small and BERT-base: two a block and the
-# final one.
-LM_NORMS = 2 * 12 + 1
 
 
 def xent_inputs(torch, shape, dtype, seed=0, offset=0.0):
@@ -3846,62 +3944,7 @@ def logits_made(torch, fn, t: int, v: int, vp: int) -> list:
     return made
 
 
-def layer_norm_rows(torch, card, label: str, shape: dict,
-                    step: dict) -> dict:
-    """Where LayerNorm's time in a step goes (ROADMAP fault 14's split):
-    one of the model's ``LayerNorm`` (x cast to f32, ``F.layer_norm``, the
-    result cast to bf16) forward and backward at the step's activation
-    ``[b, s, 768]``, device time with the card held busy, beside the same
-    norm on f32 copies made beforehand (its own kernels, no cast); the
-    difference is its four casts. Each times :data:`LM_NORMS` a step,
-    beside the graphed step's device ms and its profile's copies and
-    casts. (``torch.profiler`` recorded no kernel of so short a window on
-    the card.)"""
-    import torch.nn.functional as F
-
-    from cron_operator_tpu_torch.models.gpt import LN_EPS
-    from cron_operator_tpu_torch.models.layers import LayerNorm
-
-    b, s = shape["b"], shape["s"]
-    width = shape["h"] * shape["d"]
-    ln = LayerNorm(width, eps=LN_EPS, compute_dtype=torch.bfloat16,
-                   device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    x = torch.randn(b, s, width, generator=gen, device="cuda",
-                    dtype=torch.bfloat16, requires_grad=True)
-    dy = torch.randn(b, s, width, generator=gen, device="cuda",
-                     dtype=torch.bfloat16)
-    xf = x.detach().float().requires_grad_()
-    dyf = dy.float()
-    params = (ln.weight, ln.bias)
-
-    def norm():
-        torch.autograd.grad(ln(x), (x, *params), dy)
-
-    def norm_f32():
-        y = F.layer_norm(xf, (width,), *params, LN_EPS)
-        torch.autograd.grad(y, (xf, *params), dyf)
-
-    row = {"all": device_ms(torch, norm), "norm": device_ms(torch, norm_f32)}
-    row["casts"] = row["all"] - row["norm"]
-    per_step = {k: LM_NORMS * v for k, v in row.items()}
-    shares = {k: v / step["device_ms"] for k, v in per_step.items()}
-    copies = step.get("shares", {}).get("copies and casts")
-    print(f"[{card}] LayerNorm ({label}, [{b}, {s}, {width}] bf16, forward "
-          f"and backward): {row['all']:.4f} ms a norm (device), "
-          f"{row['norm']:.4f} on f32 copies (its own kernels), "
-          f"{row['casts']:.4f} its casts; x{LM_NORMS} a step "
-          f"{per_step['all']:.3f} ms = {100 * shares['all']:.1f}% of "
-          f"{step['device_ms']:.3f} device ms ({100 * shares['norm']:.1f}% "
-          f"norm, {100 * shares['casts']:.1f}% casts; the graphed call's "
-          f"copies and casts {100 * (copies or 0):.1f}%)", flush=True)
-    del x, dy, xf, dyf
-    release(torch)
-    return {"per_norm_ms": row, "per_step_ms": per_step, "shares": shares,
-            "step_copies_share": copies}
-
-
-def phase_xent(torch, card, steps: dict) -> dict:
+def phase_xent(torch, card) -> dict:
     """The loss kernels (``ops/csrc/xent.cu``) against their plain versions
     at GPT-2 small's and BERT-base's logits, bf16 and f32, and offset by
     +100; their times beside the bounds, the plain versions and
@@ -3910,10 +3953,9 @@ def phase_xent(torch, card, steps: dict) -> dict:
     f32 tensor of the logits' size and no cut copy of them; the gpt, bert and MoE gpt
     graphed steps on the loss kernels and with the former loss swapped in
     (the model's f32 logits and ``cross_entropy_loss``), in turns, beside
-    :data:`LOSS_BEFORE_MS`, with the peak memory of each; LayerNorm's part
-    of the GPT and BERT steps. ``steps`` holds phases 6, 7 and 13's
-    readings of the graphed steps on the loss kernels. Returns the
-    kernels line's rows and the readings."""
+    :data:`LOSS_BEFORE_MS`, with the peak memory of each (LayerNorm's
+    part of the steps is phase 22's). Returns the kernels line's rows and
+    the readings."""
     from cron_operator_tpu_torch.models import GPT, Bert, BertConfig, GPTConfig
     from cron_operator_tpu_torch.workloads import data
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
@@ -3995,10 +4037,357 @@ def phase_xent(torch, card, steps: dict) -> dict:
               f"{best['kernels']['step_ms'] / best['former']['step_ms']:.4f}"
               f" | beside {LOSS_BEFORE_MS[name]} ms on the former loss "
               "(PERF.md section 5)", flush=True)
-    norms = {name: layer_norm_rows(torch, card, name, shape, steps[name])
-             for name, shape in (("gpt", TRAIN_SHAPE), ("bert", BERT_SHAPE))}
     return {"rows": rows, "errors": errs, "logits_made": kinds,
-            "step_ab": ab, "layer_norm": norms}
+            "step_ab": ab}
+
+
+# Phase 22: the LayerNorm kernels (ops/csrc/layer_norm.cu) at the rows
+# (T, H) of the main paths: GPT-2 small's b 8 x 1024, BERT-base's b 8 x
+# 512 (and the data mesh's rank), ViT-B/16's b 64 x 197, a decode step's
+# b 8, the pipeline's microbatch of 2 x 1024 and the tiny configs' widths.
+LN_SHAPES = {"gpt": (8192, 768), "bert": (4096, 768), "vit": (12608, 768),
+             "decode": (8, 768), "pipeline": (2048, 768),
+             "tiny_gpt": (2048, 128), "tiny_vit": (2048, 64)}
+LN_TIMED = ("gpt", "bert", "vit", "decode", "pipeline")
+# the shapes also checked with rows offset by +100
+LN_OFFSET_SHAPES = ("gpt", "tiny_gpt", "tiny_vit")
+LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon, the models' LN_EPS
+# The graphed gpt and bert steps and the graphed decode step on the former
+# LayerNorm (x cast to f32, torch's f32 norm, the cast back), PERF.md
+# section 5's readings before the kernels (H100 80GB HBM3, 700 W).
+LN_BEFORE_MS = {"gpt": 22.882, "bert": 12.242, "decode": 1.054}
+# f32 operations an element in the bound's count beside the bytes: the
+# forward's sum, centred square (2), and y (3); the backward's x̂ (2), γ dy,
+# two row sums (2), two parameter partials (2) and dx (4).
+LN_OPS = {"fwd": 6, "bwd": 12}
+
+
+def ln_inputs(torch, shape, dtype, param_dtype=None, seed=0, offset=0.0):
+    """Seeded x (standard normal plus ``offset``) and dy in ``dtype``, gamma
+    (1 + 0.1 normal) and beta (0.1 normal) in ``param_dtype`` (f32 by
+    default)."""
+    t, h = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(t, h, generator=gen, device="cuda").add_(offset)
+    dy = torch.randn(t, h, generator=gen, device="cuda")
+    gamma = 1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(h, generator=gen, device="cuda")
+    pdt = param_dtype or torch.float32
+    return x.to(dtype), dy.to(dtype), gamma.to(pdt), beta.to(pdt)
+
+
+def check_ln_pair(torch, ln, label, x, dy, gamma, beta, out_dtype) -> dict:
+    """The LayerNorm kernels against their plain versions on the same
+    inputs: y, mean, rstd, dx, dgamma and dbeta within
+    ``layer_norm_tolerance``, a rerun the same bits. Returns the largest
+    errors (y's and dx's) and err/bound ratios."""
+    y, mean, rstd = ln.layer_norm_forward(x, gamma, beta, LN_EPS, out_dtype)
+    grads = ln.layer_norm_backward(dy, x, mean, rstd, gamma, beta)
+    torch.cuda.synchronize()
+    ref = ln.layer_norm_reference(x, gamma, beta, LN_EPS, out_dtype)
+    ref_grads = ln.layer_norm_backward_reference(dy, x, ref[1], ref[2],
+                                                 gamma, beta)
+    bounds = ln.layer_norm_tolerance(x, gamma, beta, ref[1], ref[2], ref[0],
+                                     dy, ref_grads[0], ref_grads[1])
+    errs = {}
+    h = x.shape[-1]
+    for name, got, want in zip(("y", "mean", "rstd", "dx", "dgamma",
+                                "dbeta"), (y, mean, rstd, *grads),
+                               (*ref, *ref_grads)):
+        err = (got.float() - want.float()).abs()
+        if name in ("y", "dx"):
+            err = err.reshape(-1, h)
+        ratio = float((err / bounds[name]).max())
+        errs[name] = float(err.max())
+        errs[name + "_ratio"] = ratio
+        if not (got.dtype == want.dtype and got.shape == want.shape
+                and bool(torch.isfinite(got).all()) and ratio <= 1):
+            fail(f"layer_norm {label}: {name} off its plain version: max "
+                 f"err {errs[name]:.3e}, err/bound {ratio:.3f}")
+    again = ln.layer_norm_forward(x, gamma, beta, LN_EPS, out_dtype)
+    again_grads = ln.layer_norm_backward(dy, x, again[1], again[2], gamma,
+                                         beta)
+    rerun = all(same_bits(torch, a, b) for a, b in zip(
+        (y, mean, rstd, *grads), (*again, *again_grads)))
+    print(f"layer_norm {label}: " + ", ".join(
+        f"{k} {errs[k]:.3e} ({errs[k + '_ratio']:.3f})"
+        for k in ("y", "mean", "rstd", "dx", "dgamma", "dbeta"))
+        + f" (max err, err/bound); rerun the same bits {rerun}", flush=True)
+    if not rerun:
+        fail(f"layer_norm {label}: a rerun is not the same bits")
+    return errs
+
+
+def ln_rows(torch, ln, card, label, shape) -> dict:
+    """The LayerNorm kernels at ``shape`` in bf16 (f32 parameters), each
+    timed (device time, the card held busy; event time beside it) beside
+    its byte bound, its plain version and the library yardstick:
+    ``F.layer_norm`` on the bf16 x with bf16-cast parameters, forward, and
+    its backward alone (``torch.autograd.grad``)."""
+    import torch.nn.functional as F
+
+    t, h = shape
+    x, dy, gamma, beta = ln_inputs(torch, shape, torch.bfloat16, seed=7)
+    _, mean, rstd = ln.layer_norm_forward(x, gamma, beta, LN_EPS,
+                                          torch.bfloat16)
+    lx = x.clone().requires_grad_()
+    lp = [p.to(torch.bfloat16).requires_grad_() for p in (gamma, beta)]
+    out = F.layer_norm(lx, (h,), *lp, LN_EPS)
+    element = x.element_size()
+    # each input read once, each output written once: x, gamma, beta in;
+    # y, mean, rstd out; backward dy, x, mean, rstd, gamma in and dx,
+    # dgamma, dbeta out
+    moved = {"fwd": 2 * t * h * element + 2 * h * 4 + 2 * t * 4,
+             "bwd": 3 * t * h * element + 2 * t * 4 + 3 * h * 4}
+    rows = {}
+    for name, fns in (
+            ("fwd", (lambda: ln.layer_norm_forward(x, gamma, beta, LN_EPS,
+                                                   torch.bfloat16),
+                     lambda: ln.layer_norm_reference(x, gamma, beta, LN_EPS,
+                                                     torch.bfloat16),
+                     lambda: F.layer_norm(lx, (h,), *lp, LN_EPS))),
+            ("bwd", (lambda: ln.layer_norm_backward(dy, x, mean, rstd, gamma,
+                                                    beta),
+                     lambda: ln.layer_norm_backward_reference(
+                         dy, x, mean, rstd, gamma, beta),
+                     lambda: torch.autograd.grad(out, (lx, *lp), dy,
+                                                 retain_graph=True)))):
+        (ms, plain_ms, library_ms), _ = timed_rows(
+            torch, card, f"layer_norm_{name} ({label})", fns)
+        bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = LN_OPS[name] * t * h / F32_FLOPS * 1e3
+        rows[name] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=library_ms)
+        print(f"[{card}] layer_norm_{name} [{t}, {h}] bf16 ({label}): "
+              f"{ms:.4f} ms (device) | plain {plain_ms:.4f} ms | "
+              f"F.layer_norm bf16 {library_ms:.4f} ms | bound "
+              f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}, "
+              f"{moved[name] / 1e6:.2f} MB) | "
+              f"{100 * rows[name]['bound_ms'] / ms:.1f}% of the bound",
+              flush=True)
+    del x, dy, lx, lp, out
+    release(torch)
+    return rows
+
+
+def first_flip_ok(torch, models: dict, prompt, tokens: dict) -> list:
+    """Where the greedy tokens of the kernels' and the former LayerNorm's
+    models first part in a row: each path's logits at that shared prefix
+    (an eager prefill of the row), and whether the former path's top-2
+    margin there lies within twice the paths' largest logit gap (a near
+    tie that either rounding may break), as phase 3 allows. Returns (row,
+    position, margin, gap, ok) for each row that parts."""
+    found = []
+    a, b = tokens["kernels"], tokens["former"]
+    p = prompt.shape[1]
+    for row in (a != b).any(dim=1).nonzero().flatten().tolist():
+        pos = int((a[row] != b[row]).nonzero()[0])
+        prefix = a[row:row + 1, :pos]
+        logits = {}
+        for path, model in models.items():
+            with (former_layer_norm() if path == "former"
+                  else contextlib.nullcontext()):
+                logits[path] = model.prefill(prefix, model.new_cache(1))[0]
+        gap = float((logits["kernels"] - logits["former"]).abs().max())
+        top2 = logits["former"].float().topk(2).values
+        margin = float(top2[0] - top2[1])
+        found.append((row, pos - p, margin, gap, margin <= 2 * gap))
+    return found
+
+
+def ln_decode_ab(torch, card) -> dict:
+    """GPT-2 small serving (bf16 parameters, b 8, prompt 512, 64 new
+    tokens, greedy) on the LayerNorm kernels and on the former arithmetic,
+    each on a model of its own (a captured decode step is kept per model)
+    from the same weights, in turns kernels/former/former/kernels: the
+    graphed generation's wall ms (median of 3 after the capture's), eager
+    prefill ms and the decode ms a step ``(wall - prefill) / 63``, and the
+    device ms of a replayed decode step; greedy tokens graph against eager
+    on each path, and kernels against former."""
+    from cron_operator_tpu_torch.models import GPTConfig
+
+    serving = importlib.import_module("cron_operator_tpu_torch.workloads.generate")
+    cfg = GPTConfig(max_len=1024)
+    b, p, n = 8, 512, 64
+    models = {"kernels": slice_model(torch, cfg)}
+    models["former"] = slice_model(torch, cfg, models["kernels"])
+    prompt = torch.randint(0, cfg.vocab_size, (b, p), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(5))
+    runs, tokens = {}, {}
+    with torch.inference_mode():
+        for path in ("kernels", "former", "former", "kernels"):
+            model = models[path]
+            with (former_layer_norm() if path == "former"
+                  else contextlib.nullcontext()):
+                cache = model.new_cache(b)
+                prefill = median_ms(torch, lambda: model.prefill(
+                    prompt, cache), iters=3)
+                del cache
+                walls = []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    graphed = serving.generate(cfg, model, prompt, n)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                eager = serving.generate(cfg, model, prompt, n,
+                                         captured=False)
+                if not torch.equal(graphed, eager):
+                    fail(f"layer_norm decode ({path}): greedy tokens through "
+                         "the decode graph differ from the eager loop's")
+                tokens[path] = graphed
+                decoder = serving._decoder(model, b, True, None)
+                token = prompt[:, -1:]
+
+                def replay():
+                    decoder.cache.pos.fill_(p)
+                    decoder.step({"token": token})
+
+                device = device_ms(torch, replay, iters=20, reps=5)
+            gen_ms = statistics.median(walls[1:])
+            runs.setdefault(path, []).append({
+                "generate_ms": gen_ms, "prefill_ms": prefill,
+                "decode_ms_per_step": (gen_ms - prefill) / (n - 1),
+                "device_ms_per_step": device})
+        flips = first_flip_ok(torch, models, prompt, tokens)
+    best = {k: min(v, key=lambda r: r["decode_ms_per_step"])
+            for k, v in runs.items()}
+    same = torch.equal(tokens["kernels"], tokens["former"])
+    print(f"[{card}] decode A/B (graphed, kernels/former/former/kernels): "
+          + " | ".join(f"{k} " + ", ".join(
+              f"{r['decode_ms_per_step']:.4f} ms a step ({r['device_ms_per_step']:.4f}"
+              f" device, prefill {r['prefill_ms']:.3f})" for r in v)
+              for k, v in runs.items())
+          + f" | beside {LN_BEFORE_MS['decode']} ms on the former LayerNorm "
+          f"(PERF.md section 5); greedy tokens graph == eager on each, "
+          f"kernels == former {same}", flush=True)
+    for row, pos, margin, gap, ok in flips:
+        print(f"  row {row}: greedy tokens part at new token {pos}; the "
+              f"former's top-2 margin {margin:.4f} vs the paths' logit gap "
+              f"{gap:.4f}", flush=True)
+        if not ok:
+            fail(f"layer_norm decode: row {row}'s greedy token {pos} differs "
+                 "between the kernels and the former arithmetic beyond the "
+                 "logit gap")
+    del models
+    release(torch)
+    return {"runs": runs, "best": best, "tokens_equal": same,
+            "flips": flips}
+
+
+def phase_layer_norm(torch, card, steps: dict, serving: dict) -> dict:
+    """The LayerNorm kernels (``ops/csrc/layer_norm.cu``) against their
+    plain versions at :data:`LN_SHAPES`, x in bf16 and f32, f32 and bf16
+    parameters, and rows offset by +100 (bf16, f32, and f32 x with a bf16
+    y) within ``layer_norm_tolerance``, reruns the same bits; the times at
+    the main paths' rows beside the bound, the plain versions and
+    ``F.layer_norm``;
+    the graphed gpt and bert steps on the kernels and with the former
+    arithmetic swapped in (``former_layer_norm``), in turns, beside
+    :data:`LN_BEFORE_MS` (each path's graph equals its eager steps to the
+    bit on the kernels: phases 6 and 7 check that before this one runs);
+    serving's decode on each path (``ln_decode_ab``); LayerNorm's share of
+    the gpt, bert and vit steps (``steps``: phases 6, 7 and 8's graphed
+    steps) and of a decode step (``serving``: phase 4's). Returns the
+    kernels line's rows and the readings."""
+    from cron_operator_tpu_torch.models import Bert, BertConfig, GPT, GPTConfig
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.train import Trainer
+
+    ln = importlib.import_module("cron_operator_tpu_torch.ops.layer_norm")
+    errs = {}
+
+    def label_of(name, dtype, pdt):
+        plan = ln.forward_plan(*LN_SHAPES[name])
+        return (f"{name} {list(LN_SHAPES[name])} x {str(dtype)[6:]} params "
+                f"{str(pdt)[6:]} ({plan['design']}, {plan['chunks']} "
+                "chunks)")
+
+    for name, shape in LN_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for pdt in (torch.float32, torch.bfloat16):
+                label = label_of(name, dtype, pdt)
+                errs[label] = check_ln_pair(
+                    torch, ln, label, *ln_inputs(torch, shape, dtype, pdt,
+                                                 seed=len(errs)), dtype)
+        for dtype, out_dtype in ((torch.bfloat16, torch.bfloat16),
+                                 (torch.float32, torch.float32),
+                                 (torch.float32, torch.bfloat16)):
+            if name in LN_OFFSET_SHAPES:
+                x, dy, gamma, beta = ln_inputs(torch, shape, dtype,
+                                               seed=len(errs), offset=100.0)
+                label = (f"{name} x {str(dtype)[6:]} y {str(out_dtype)[6:]}"
+                         " offset 100")
+                errs[label] = check_ln_pair(torch, ln, label, x,
+                                            dy.to(out_dtype), gamma, beta,
+                                            out_dtype)
+        release(torch)
+    rows = {name: ln_rows(torch, ln, card, name, LN_SHAPES[name])
+            for name in LN_TIMED}
+    for name in LN_TIMED:
+        # the serving paths hold bf16 parameters, the training ones f32
+        pdt = torch.bfloat16 if name == "decode" else torch.float32
+        e = errs[label_of(name, torch.bfloat16, pdt)]
+        rows[name]["fwd"]["max_abs_err"] = e["y"]
+        rows[name]["bwd"]["max_abs_err"] = e["dx"]
+
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    models = {
+        "gpt": (GPT, GPTConfig(max_len=s),
+                data.causal_token_sample(b, s, 50257)),
+        "bert": (Bert, BertConfig.base(max_len=BERT_SHAPE["s"]),
+                 data.token_sample(BERT_SHAPE["b"], BERT_SHAPE["s"], 30522)),
+    }
+
+    def trainer_of(name):
+        cls, cfg, sample = models[name]
+        wired, loss_fn = lm_wiring(cfg)
+        model = cls(wired, device="cuda").init_weights(
+            torch.Generator(device="cuda").manual_seed(0))
+        return Trainer(model, loss_fn=loss_fn, sample_fn=sample)
+
+    ab = {}
+    for name in models:
+        runs, best = graphed_runs(
+            torch, ("kernels", "former", "former", "kernels"),
+            lambda path: trainer_of(name),
+            lambda path: former_layer_norm() if path == "former" else
+            contextlib.nullcontext())
+        ab[name] = {"runs": runs, "best": best}
+        print(f"[{card}] {name} step A/B (graphed, kernels/former/former/"
+              f"kernels): " + " | ".join(f"{p} " + ", ".join(
+                  f"{r['step_ms']:.3f} ms ({r['device_ms']:.3f} device, peak "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB)" for r in rs)
+                  for p, rs in runs.items())
+              + " | kernels/former "
+              f"{best['kernels']['step_ms'] / best['former']['step_ms']:.4f}"
+              f" | beside {LN_BEFORE_MS[name]} ms on the former LayerNorm "
+              "(PERF.md section 5)", flush=True)
+    decode = ln_decode_ab(torch, card)
+    print(f"[{card}] decode: phase 4's graphed decode step on the kernels "
+          f"{serving['graph']['decode_ms_per_step']:.4f} ms, "
+          f"{serving['device_ms_per_step']:.4f} device ms, beside "
+          f"{LN_BEFORE_MS['decode']} before them", flush=True)
+    shares = {}
+    for name, shape in (("gpt", "gpt"), ("bert", "bert"), ("vit", "vit")):
+        r = rows[shape]
+        per_step = {k: LM_NORMS * (r["fwd"][k] + r["bwd"][k])
+                    for k in ("ms", "plain_ms", "bound_ms")}
+        device = steps[name]["device_ms"]
+        copies = steps[name].get("shares", {}).get("copies and casts")
+        shares[name] = {**per_step, "step_device_ms": device,
+                        "share": per_step["ms"] / device,
+                        "step_copies_share": copies}
+        print(f"[{card}] layer_norm in the {name} step: x{LM_NORMS} kernel "
+              f"pairs {per_step['ms']:.3f} ms = {100 * shares[name]['share']:.1f}"
+              f"% of its {device:.3f} device ms (plain versions "
+              f"{per_step['plain_ms']:.3f} ms, bound "
+              f"{per_step['bound_ms']:.3f} ms; the graphed call's copies "
+              f"and casts {100 * (copies or 0):.1f}%)", flush=True)
+    return {"rows": rows, "errors": errs, "step_ab": ab, "decode": decode,
+            "shares": shares}
 
 
 def free_port() -> int:
@@ -4075,6 +4464,38 @@ def xent_entries(rows: dict) -> list:
             for i, d in enumerate(("fwd", "bwd"))]
 
 
+LN_ROW = (CSRC + "layer_norm.cu",
+          # no Pallas kernel: XLA fuses flax's nn.LayerNorm
+          "cron_operator_tpu/models/gpt.py:139")
+# each path of the LayerNorm kernels, its suffix in the kernels line, the
+# shape of phase 22 whose times stand for it, and whether it runs the
+# backward (the serving paths run the forward alone)
+LN_PATHS = (("gpt", "", "gpt", True), ("bert", "@bert", "bert", True),
+            ("vit", "@vit", "vit", True), ("moe", "@moe", "gpt", True),
+            ("resume", "@resume", "gpt", True),
+            ("generate", "@generate", "decode", False),
+            ("serve_checkpoint", "@serve_checkpoint", "decode", False),
+            ("moe_serve", "@moe_serve", "decode", False),
+            ("mesh_data", "@mesh_data", "bert", True),
+            # ring gpt's rank holds b 8 x 512 rows, Ulysses bert's 8 x 256
+            ("seq_ring", "@seq_ring", "bert", True),
+            ("seq_ulysses", "@seq_ulysses", "pipeline", True),
+            ("pipeline", "@pipeline", "pipeline", True),
+            ("mesh_graph", "@mesh_graph", "gpt", True))
+
+
+def ln_entries(rows: dict) -> list:
+    source, replaces = LN_ROW
+    names = {"fwd": "layer_norm", "bwd": "layer_norm_bwd"}
+    return [{"name": names[d] + suffix, "route": "cuda",
+             "design": "warp", "source": source, "replaces": replaces,
+             "launches": LN_LAUNCHES.get(path, [0, 0])[i],
+             "shape": list(LN_SHAPES[shape]), **rows[shape][d]}
+            for path, suffix, shape, backward in LN_PATHS
+            if path in LN_LAUNCHES
+            for i, d in enumerate(("fwd", "bwd")) if backward or d == "fwd"]
+
+
 def main() -> None:
     import torch
 
@@ -4147,8 +4568,10 @@ def main() -> None:
         RESNET50_PARAMS, lambda: ResNet50(device="cuda"),
         TrainConfig(optimizer="sgd", learning_rate=0.1),
         sum(n for _, _, n in RESNET50_NORMS), RESNET50_SHARES)
-    timed("vit", phase_image_job, torch, fa, card, "vit", VIT_PARAMS,
-          lambda: ViT(ViTConfig.base(), device="cuda"), TrainConfig())
+    _, vit_step = timed(
+        "vit", phase_image_job, torch, fa, card, "vit", VIT_PARAMS,
+        lambda: ViT(ViTConfig.base(), device="cuda"), TrainConfig(), 0, None,
+        "vit")
     timed("mnist", phase_job, torch, fa, "mnist", MNIST_PARAMS, 0)
 
     root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
@@ -4186,13 +4609,18 @@ def main() -> None:
                        card)
     norm_rows = timed("GroupNorm kernel vs plain", phase_group_norm, torch,
                       card, norm_counts, resnet_step)
-    loss = timed("softmax xent kernel vs plain", phase_xent, torch, card,
-                 {"gpt": step, "bert": bert_step})
+    loss = timed("softmax xent kernel vs plain", phase_xent, torch, card)
     print("xent " + json.dumps({
         "launches": XENT_LAUNCHES, "errors": loss["errors"],
         "logits_made": loss["logits_made"],
-        "step_ab": {k: v["best"] for k, v in loss["step_ab"].items()},
-        "layer_norm": loss["layer_norm"]}))
+        "step_ab": {k: v["best"] for k, v in loss["step_ab"].items()}}))
+    norm = timed("LayerNorm kernel vs plain", phase_layer_norm, torch, card,
+                 {"gpt": step, "bert": bert_step, "vit": vit_step}, serving)
+    print("layer_norm " + json.dumps({
+        "launches": LN_LAUNCHES, "errors": norm["errors"],
+        "step_ab": {k: v["best"] for k, v in norm["step_ab"].items()},
+        "decode": {k: v for k, v in norm["decode"].items() if k != "runs"},
+        "shares": norm["shares"]}))
     step_epilogues = resnet50_epilogues(1)
     print(f"phases: {sum(walls.values()):.1f} s in all, "
           + json.dumps({k: round(v, 1) for k, v in walls.items()}))
@@ -4269,6 +4697,9 @@ def main() -> None:
         # the loss kernels on the gpt and bert paths of phases 5, 7, 9, 13,
         # 15 and 18, each row at its path's logits (phase 21)
         *xent_entries(loss["rows"]),
+        # the LayerNorm pair on every path that launched it (phases 3, 5, 7,
+        # 8, 9, 11, 13-16 and 18), each row at its path's rows (phase 22)
+        *ln_entries(norm["rows"]),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

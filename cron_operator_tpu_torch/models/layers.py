@@ -26,8 +26,9 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from cron_operator_tpu_torch.ops.group_norm import group_norm
+from cron_operator_tpu_torch.ops.layer_norm import layer_norm
 from cron_operator_tpu_torch.ops.rope import apply_rope
-from cron_operator_tpu_torch.parallel.mesh import on_local_rows
+from cron_operator_tpu_torch.parallel.mesh import on_local_rows, on_own_rows
 
 
 class Linear(nn.Linear):
@@ -238,7 +239,12 @@ def tied_logits(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` that normalises in f32 with its parameters and
     rounds the result to ``compute_dtype``, as flax's ``nn.LayerNorm(dtype=
-    ...)`` does."""
+    ...)`` does: through :func:`ops.layer_norm.layer_norm` (the kernel pair
+    of ``csrc/layer_norm.cu`` on the card, which reads x and writes y in
+    their own dtypes; on the CPU the former arithmetic, to the bit). On a
+    DTensor (the ``tensor``, ``expert`` and ``seq`` meshes) each rank
+    normalises its own rows (``on_own_rows``): no mesh splits the
+    features."""
 
     def __init__(self, features: int, *, eps: float,
                  compute_dtype: torch.dtype, device=None,
@@ -247,9 +253,13 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
-                         self.bias.float(), self.eps)
-        return y.to(self.compute_dtype)
+        if isinstance(x, DTensor):
+            return on_own_rows(self._norm, x, self.weight, self.bias)
+        return self._norm(x, self.weight, self.bias)
+
+    def _norm(self, x, weight, bias):
+        return layer_norm(x, weight, bias, eps=self.eps,
+                          out_dtype=self.compute_dtype)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:

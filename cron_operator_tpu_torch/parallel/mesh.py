@@ -473,13 +473,36 @@ def on_local_rows(fn, x, *weights):
     the batch. A weight may be None."""
     mesh = x.device_mesh
     rows = batch_placements(mesh)
+    out = fn(x.redistribute(mesh, rows).to_local(),
+             *_whole_weights(mesh, rows, weights))
+    return DTensor.from_local(out, mesh, rows, run_check=False)
+
+
+def on_own_rows(fn, x, *weights):
+    """``fn(x_local, *weights_whole)`` on each rank, for an op that works
+    row by row over the last dim (a layer norm): ``x`` (a DTensor) keeps
+    the splits of its rows, and a split of its last dim or a pending sum
+    becomes a replica first; each weight is gathered whole, its gradient
+    ``Partial`` on the axes that split x's rows, as in
+    :func:`on_local_rows`. The result is a DTensor of x's shape in that
+    layout."""
+    mesh, last = x.device_mesh, x.ndim - 1
+    rows = tuple(p if isinstance(p, Shard) and p.dim % x.ndim != last
+                 else Replicate() for p in x.placements)
+    out = fn(x.redistribute(mesh, rows).to_local(),
+             *_whole_weights(mesh, rows, weights))
+    return DTensor.from_local(out, mesh, rows, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def _whole_weights(mesh, rows, weights) -> list:
+    """Each weight (or None) gathered whole as a plain tensor, its gradient
+    a partial sum on the axes that ``rows`` shards."""
     grads = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
     whole = [Replicate()] * mesh.ndim
-    local = [None if w is None else
-             w.redistribute(mesh, whole).to_local(grad_placements=grads)
-             for w in weights]
-    out = fn(x.redistribute(mesh, rows).to_local(), *local)
-    return DTensor.from_local(out, mesh, rows, run_check=False)
+    return [None if w is None else
+            w.redistribute(mesh, whole).to_local(grad_placements=grads)
+            for w in weights]
 
 
 def spec_for_shape(shape: Tuple[int, ...], mesh: Any, *,
@@ -771,6 +794,7 @@ __all__ = [
     "mesh_for_devices",
     "mesh_for_slice",
     "on_local_rows",
+    "on_own_rows",
     "placements_for_shape",
     "placements_from_spec",
     "plain_axes",

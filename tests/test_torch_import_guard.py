@@ -34,6 +34,9 @@ FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "test_torch_softmax_xent_cuda.py",
     # the cluster kernels' sweep of cluster sizes
     ROOT / "hack" / "torch_cluster_sweep.py",
+    # the LayerNorm kernels' card test and the backward's grid sweep
+    ROOT / "tests" / "test_torch_layer_norm_cuda.py",
+    ROOT / "hack" / "torch_layer_norm_sweep.py",
 ]
 
 
