@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    forward (K1) against ``flash_attention_reference``, and the backward
    pair K2 (dQ) and K3 (dK, dV) against ``flash_attention_bwd_reference``,
    over bf16/f32, causal or not, head_dim 64/128 (plus 32 and 256 for the
-   backward), GQA groups 1/2/4, seq 128/512/2048, so over both kernel
-   designs (``sm90`` for bf16 at d 64/128, ``fma`` for the rest), within
+   backward), GQA groups 1/2/4, seq 128/512/2048, and at b 1 the lengths
+   no tile divides, ``RAGGED_SEQS`` (1 to 1000, ViT-B/16's 197 among
+   them), so over both kernel designs (``sm90`` for bf16 at d 64/128,
+   ``fma`` for the rest), within
    the bounds of ``forward_tolerance``, ``dq_tolerance`` and
    ``dkv_tolerance``; a second
    backward run must be bit-identical, and the backward's peak memory must
@@ -77,7 +79,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    graph against the eager step, as phase 6 (beside 15.496 ms).
 8. ResNet-50 (``resnet50``: b 128, image 224, SGD), ViT-B/16 (``vit``:
    b 64, image 224) and the MLP (``mnist``) at their defaults, each with
-   its parameter count and no flash launch; ResNet-50's GroupNorm kernels
+   its parameter count; ViT's K1, K2 and K3 launched 12 times a step each
+   at its 197 tokens, all sm90 (120 over its 10 steps), and its
+   ``xla_flops_per_step`` within 1% of this script's count, the others no
+   flash launch; ResNet-50's GroupNorm kernels
    launched 53 times a step each, forward and backward (530 over its 10
    steps, a replay counted once; ViT's 0), every forward launch on
    ``forward_plan``'s design and every backward on the cluster design, the
@@ -85,8 +90,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and the backward's 33 relu masks (``RESNET50_EPILOGUES``), counts set
    to 0 just before the job and read just after; for ResNet-50 and ViT the
    graph against the eager step as phase 6, with model FLOPs per step from
-   ``FlopCounterMode``, and for ResNet-50 the graphed call's device time
-   in the relus' forward and backward and the adds (``RESNET50_SHARES``).
+   ``FlopCounterMode`` (plus ViT's attention, which runs inside the
+   kernels, by formula), and for ResNet-50 the graphed call's device time
+   in the relus' forward and backward and the adds (``RESNET50_SHARES``),
+   for ViT that of the attention kernels, f32 GEMMs and copies
+   (``VIT_SHARES``). Then K1-K3 at ViT's attention shape (b 64, s 197, h
+   12, d 64, not causal) against their plain versions, timed beside their
+   bounds (the work at s, not at the padded tiles), the plain versions and
+   SDPA; and ViT's graphed step on the kernels, with the plain f32 body
+   (the attention ViT ran before) and with a plain body of bf16 products
+   swapped in, in turns, with each path's peak memory, beside
+   ``VIT_PLAIN_BEFORE``.
 9. The one-card job contract at GPT-2 small width (b 8, s 1024, bf16 over
    f32 parameters, AdamW, fused data): 12 steps in calls of 4 against 8
    steps saved every 4 and a fresh model and trainer that restore step 8
@@ -347,7 +361,27 @@ BERT_SHAPE = dict(b=8, s=512, h=12, d=64)
 # The image and MLP jobs at their entrypoints' defaults.
 RESNET50_PARAMS = {"batch_size": "128", "image_size": "224", "steps": "10"}
 VIT_PARAMS = {"size": "base", "batch_size": "64", "image_size": "224",
-              "steps": "10"}
+              "steps": "10", "flops_accounting": "1"}
+# ViT-B/16's attention: b 64 x 197 tokens (196 patches and CLS), 12 heads of
+# 64, non-causal, in each of its 12 layers: K1-K3 on the card at that length.
+VIT_SHAPE = dict(b=64, s=197, h=12, d=64)
+VIT_LAYERS = 12
+# ViT's attention FLOPs a step, which FlopCounterMode cannot see inside the
+# kernels: 4 d per (query, key) pair and head forward, 8 d backward, as
+# ops.attention.count_attention_flops counts them (and as FlopCounterMode
+# counted the plain body's four products).
+VIT_ATTENTION_FLOPS = (12 * VIT_SHAPE["d"] * VIT_SHAPE["b"] * VIT_SHAPE["h"]
+                       * VIT_SHAPE["s"] ** 2 * VIT_LAYERS)
+# ViT's graphed step and rate on the plain f32 attention body, before K1-K3
+# took its 197 tokens (PERF.md section 5; H100 80GB HBM3, 700 W), printed
+# beside this run's.
+VIT_PLAIN_BEFORE = {"step_ms": 40.452, "images_per_s": 1582.1}
+# Shares of ViT's graphed call's device time: the flash kernels, f32 GEMMs
+# (the plain body's products ran as sm80_xmma_gemm_f32f32), and copies and
+# casts.
+VIT_SHARES = {"attention kernels": r"flash_(fwd|bwd)",
+              "f32 GEMMs": r"gemm_f32f32|sgemm",
+              "copies and casts": r"direct_copy_kernel|bfloat16_copy_kernel"}
 MNIST_PARAMS = {"batch_size": "256", "steps": "20"}
 # Switch-MoE: the MoE params of the shipped GPT Cron
 # (examples/v1alpha1/cron/cron-jax-gpt.yaml): every second block's FFN is 8
@@ -507,6 +541,15 @@ def phase_device(torch):
     return card
 
 
+def whole_block_fwd(fa, q, k, v, causal: bool):
+    """K1 through its public entry with one block of the whole sequence,
+    which meets the JAX block rule at any length (a ragged ``seq`` too);
+    the kernel's own tiles do not follow the blocks."""
+    s = q.shape[1]
+    return fa.flash_attention_fwd(q, k, v, causal=causal, block_q=s,
+                                  block_k=s)
+
+
 def check_k1(torch, fa, name: str, q, k, v, causal: bool) -> float:
     """Runs K1 and its plain version on the same card tensors and fails
     unless they agree; returns max|dO|. O within ``forward_tolerance`` for
@@ -515,7 +558,7 @@ def check_k1(torch, fa, name: str, q, k, v, causal: bool) -> float:
     the fma design rounds O once (one bf16 ulp, 2^-7 |O| + 1e-4); in f32
     only the summation order differs (1e-4). LSE is f32 on both sides:
     summation order only (1e-4)."""
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    o, lse = whole_block_fwd(fa, q, k, v, causal)
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
     diff = (o.float() - o_ref.float()).abs()
@@ -529,26 +572,30 @@ def check_k1(torch, fa, name: str, q, k, v, causal: bool) -> float:
     return err_o
 
 
+# Phase 2's sequence lengths that no kernel tile divides (one row, a tile
+# and one short or over, ViT-B/16's 197, ...), at b 1 and 4 heads.
+RAGGED_SEQS = (1, 63, 65, 197, 200, 255, 1000)
+RAGGED_B, RAGGED_H = 1, 4
+
+
 def phase_kernel_vs_plain(torch, fa) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
-    n = 0
-    for dtype in (torch.bfloat16, torch.float32):
-        for causal in (False, True):
-            for d in (64, 128):
-                for group in (1, 2, 4):
-                    for s in (128, 512, 2048):
-                        b, h = 2, 8
-                        q = torch.randn(b, s, h, d, generator=gen,
-                                        device="cuda").to(dtype)
-                        k, v = (torch.randn(b, s, h // group, d, generator=gen,
-                                            device="cuda").to(dtype)
-                                for _ in range(2))
-                        check_k1(torch, fa,
-                                 f"K1 {str(dtype)[6:]} causal={int(causal)} "
-                                 f"d={d} group={group} s={s}",
-                                 q, k, v, causal)
-                        n += 1
-    print(f"kernel vs plain: {n} cases agree, launches by design "
+    cases = [(dtype, causal, d, group, s, 2, 8)
+             for dtype in (torch.bfloat16, torch.float32)
+             for causal in (False, True) for d in (64, 128)
+             for group in (1, 2, 4) for s in (128, 512, 2048)]
+    cases += [(dtype, causal, d, group, s, RAGGED_B, RAGGED_H)
+              for dtype in (torch.bfloat16, torch.float32)
+              for causal in (False, True) for d in (64, 128)
+              for group in (1, 2) for s in RAGGED_SEQS]
+    for dtype, causal, d, group, s, b, h in cases:
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(b, s, h // group, d, generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        check_k1(torch, fa, f"K1 {str(dtype)[6:]} causal={int(causal)} d={d} "
+                 f"group={group} b={b} s={s}", q, k, v, causal)
+    print(f"kernel vs plain: {len(cases)} cases agree (ragged seq "
+          f"{RAGGED_SEQS} among them), launches by design "
           f"{fa.flash_attention.launches_by_design}", flush=True)
 
 
@@ -579,9 +626,10 @@ def check_bwd(torch, fa, name: str, q, k, v, do, causal: bool):
     dQ within ``dq_tolerance`` and dK and dV within ``dkv_tolerance`` for
     the design that runs (the sm90 designs round dS, and in K3 P, to bf16,
     as the TPU kernels do; the fma design keeps them in f32 and rounds each
-    grad once: 2^-7 |ref| + 1e-4 max|ref|). Returns (max|d dQ|, max|d dK,
-    d dV|)."""
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    grad once: 2^-7 |ref| + 1e-4 max|ref|); at seq 1, where dQ and dK
+    vanish in exact arithmetic, plus ``vanishing_grad_floor``. Returns
+    (max|d dQ|, max|d dK, d dV|)."""
+    o, lse = whole_block_fwd(fa, q, k, v, causal)
     delta = fa._delta(o, do)
     runs = []
     for _ in range(2):
@@ -600,6 +648,9 @@ def check_bwd(torch, fa, name: str, q, k, v, do, causal: bool):
                               causal=causal),
               *fa.dkv_tolerance(q, k, v, do, lse, delta, *refs[1:],
                                 causal=causal))
+    if q.shape[1] == 1:  # dQ and dK vanish: one key takes all the mass
+        floors = fa.vanishing_grad_floor(q, k, v, do, lse, causal=causal)
+        bounds = (bounds[0] + floors[0], bounds[1] + floors[1], bounds[2])
     for grad, got, ref, bound in zip(("dQ", "dK", "dV"), runs[0], refs,
                                      bounds):
         ref = ref.float()
@@ -624,19 +675,24 @@ def phase_bwd_vs_plain(torch, fa) -> None:
                                device="cuda").to(dtype)
         return draw(h), draw(kv_h), draw(kv_h), draw(h)
 
-    cases = [(dtype, causal, d, group, s)
+    cases = [(dtype, causal, d, group, s, 2, 8)
              for dtype in (torch.bfloat16, torch.float32)
              for causal in (False, True) for d in (64, 128)
              for group in (1, 2, 4) for s in (128, 512, 2048)]
-    cases += [(dtype, causal, d, 2, 512) for dtype in (torch.bfloat16,
-                                                       torch.float32)
-              for causal in (False, True) for d in (32, 256)]
-    for dtype, causal, d, group, s in cases:
-        b, h = 2, 8
+    cases += [(dtype, causal, d, 2, s, 2, 8) for dtype in (torch.bfloat16,
+                                                           torch.float32)
+              for causal in (False, True) for d in (32, 256)
+              for s in (512, 197)]
+    cases += [(dtype, causal, d, group, s, RAGGED_B, RAGGED_H)
+              for dtype in (torch.bfloat16, torch.float32)
+              for causal in (False, True) for d in (64, 128)
+              for group in (1, 2) for s in RAGGED_SEQS]
+    for dtype, causal, d, group, s, b, h in cases:
         check_bwd(torch, fa, f"K2/K3 {str(dtype)[6:]} causal={int(causal)} "
-                  f"d={d} group={group} s={s}",
+                  f"d={d} group={group} b={b} s={s}",
                   *inputs(b, s, h, h // group, d, dtype), causal)
-    print(f"backward kernels vs plain: {len(cases)} cases agree, each "
+    print(f"backward kernels vs plain: {len(cases)} cases agree (ragged seq "
+          f"{RAGGED_SEQS} among them), each "
           "bit-identical on a second run; launches by design: K2 "
           f"{fa.flash_attention_dq.launches_by_design}, K3 "
           f"{fa.flash_attention_dkv.launches_by_design}", flush=True)
@@ -1181,7 +1237,7 @@ def attention_rows(torch, fa, card, shape: dict, causal: bool, label: str):
     flops = 4 * d * pairs
     bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     (ms, plain_ms, library_ms), _ = timed_rows(torch, card, f"K1 ({label})", (
-        lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
+        lambda: whole_block_fwd(fa, q, k, v, causal),
         lambda: fa.flash_attention_reference(q, k, v, causal=causal),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)))
     rows["K1"] = dict(
@@ -1196,7 +1252,7 @@ def attention_rows(torch, fa, card, shape: dict, causal: bool, label: str):
     dq_err, dkv_err = check_bwd(
         torch, fa, f"K2/K3 bfloat16 {mask} b={b} s={s} h={h} d={d} "
         f"({label})", q, k, v, do, causal)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    o, lse = whole_block_fwd(fa, q, k, v, causal)
     delta = fa._delta(o, do)
     leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
@@ -1435,18 +1491,23 @@ def phase_bert(torch, fa, card):
 
 def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
                     train_config, norms_per_step: int = 0,
-                    shares: dict = None, ln_path: str = None):
-    """An image job at its defaults (no attention reaches the kernels; the
-    GroupNorm kernels launch ``norms_per_step`` times a step each, forward
-    and backward, counted from 0 over the job, each on its plan's design
-    and ResNet-50's epilogue), then its step on the card, graph against
-    eager (``make_model()``'s model with seed-0 weights, the job's
-    optimizer, fused data): model FLOPs a step counted by
-    ``FlopCounterMode`` over one forward and backward; ``shares`` as
+                    shares: dict = None, ln_path: str = None,
+                    flash_per_step: int = 0, attention_flops: float = 0):
+    """An image job at its defaults (K1, K2 and K3 launch
+    ``flash_per_step`` times a step each, all sm90: ViT's 12 layers at 197
+    tokens, none for the others; the GroupNorm kernels launch
+    ``norms_per_step`` times a step each, forward and backward, counted
+    from 0 over the job, each on its plan's design and ResNet-50's
+    epilogue), then its step on the card, graph against eager
+    (``make_model()``'s model with seed-0 weights, the job's optimizer,
+    fused data): model FLOPs a step counted by ``FlopCounterMode`` over one
+    forward and backward plus ``attention_flops``, the attention that the
+    kernels run out of its sight, held within 1% of the job's
+    ``xla_flops_per_step`` where the job publishes it; ``shares`` as
     :func:`graph_vs_eager`'s; ``ln_path`` names a job whose LayerNorms
     launch the kernels (``phase_job``'s). Returns the GroupNorm launches
-    (forward, backward and the two directions' launches by epilogue) and
-    the step's rows."""
+    (forward, backward and the two directions' launches by epilogue), the
+    step's rows and the K1-K3 launches."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from cron_operator_tpu_torch.workloads import data
@@ -1455,7 +1516,8 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
         cross_entropy_loss,
     )
 
-    _, progress = phase_job(torch, fa, job, params, 0, ln_path=ln_path)
+    flash_counts, progress = phase_job(torch, fa, job, params,
+                                       flash_per_step, ln_path=ln_path)
     norm_counts = read_norm_counts()  # counted from 0 over the job
     steps = int(params["steps"])
     expected = (norms_per_step * steps,) * 2
@@ -1503,10 +1565,19 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
         cross_entropy_loss(model(batch["x"]), batch["y"]).backward()
     del model, batch
     release(torch)
+    model_flops = counter.get_total_flops() + attention_flops
+    if "xla_flops_per_step" in progress:
+        job_flops = progress["xla_flops_per_step"]
+        print(f"{job}: xla_flops_per_step {job_flops} vs script "
+              f"{model_flops:.6e} ({job_flops / model_flops - 1:+.4%}; the "
+              f"attention {attention_flops:.6e} of it)", flush=True)
+        if abs(job_flops / model_flops - 1) > 0.01:
+            fail(f"{job}: xla_flops_per_step {job_flops} is not within 1% "
+                 f"of this script's {model_flops}")
     step = graph_vs_eager(
         torch, card, f"{job} step (b{b}, image {size})",
         lambda: Trainer(seeded(), train_config, sample_fn=sample),
-        counter.get_total_flops(), b, "images", shares=shares)
+        model_flops, b, "images", shares=shares)
     print(f"[{card}] {job} job: {progress['steps_per_s']} steps/s, "
           f"{progress['avg_step_time_s']} s/step (the calls after the "
           f"first), first call {progress['compile_time_s']} s")
@@ -1515,7 +1586,94 @@ def phase_image_job(torch, fa, card, job: str, params: dict, make_model,
         "job_avg_step_time_s": progress["avg_step_time_s"],
         "job_first_step_s": progress["compile_time_s"],
     }))
-    return norm_counts, step
+    return norm_counts, step, flash_counts
+
+
+def plain_bf16_attention(q, k, v, *, causal: bool):
+    """The plain attention body with its two products in bf16 on the tensor
+    cores (cuBLAS, f32 accumulation, bf16 out), the softmax in f32 and P
+    rounded to bf16: the yardstick that a plain repair of the f32 body
+    would give. K/V at full head count, as the plain body takes them."""
+    import torch
+
+    d = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / d ** 0.5
+    if causal:
+        keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                          device=q.device).tril()
+        scores = scores.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+@contextlib.contextmanager
+def vit_attention_body(path: str):
+    """``auto`` attention on the card as ``path`` runs it: ``kernels`` (K1-K3,
+    the main path), ``plain_f32`` (the plain f32 body that ViT ran before:
+    ``parallel.ring._single_device_attention``) or ``plain_bf16``
+    (:func:`plain_bf16_attention`), swapped in for the kernels' entry."""
+    attention = importlib.import_module("cron_operator_tpu_torch.ops.attention")
+    if path == "kernels":
+        yield
+        return
+    body = (attention._single_device_attention if path == "plain_f32"
+            else plain_bf16_attention)
+    entry = attention._flash_attention_any_length
+    attention._flash_attention_any_length = (
+        lambda q, k, v, *, causal=False: body(q, k, v, causal=causal))
+    try:
+        yield
+    finally:
+        attention._flash_attention_any_length = entry
+
+
+def phase_vit_attention(torch, fa, card, vit_step: dict) -> dict:
+    """ViT-B/16's attention at its shape (b 64, s 197, h 12, d 64, not
+    causal): K1-K3 against their plain versions, timed beside their bounds
+    (the work at s, not at the tiles), the plain versions and SDPA
+    (``attention_rows``); then the graphed ViT step on the kernels and with
+    each plain body swapped in (:func:`vit_attention_body`), in turns
+    kernels, plain_f32, plain_bf16, kernels (:func:`graphed_runs`; the
+    kernels bracket the plain bodies, and phase 8 timed them too), with each
+    path's peak memory, beside
+    :data:`VIT_PLAIN_BEFORE`. Returns the kernels' rows and the runs."""
+    from cron_operator_tpu_torch.models import ViT, ViTConfig
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
+
+    rows = attention_rows(torch, fa, card, VIT_SHAPE, False, "vit")
+    b, size = int(VIT_PARAMS["batch_size"]), int(VIT_PARAMS["image_size"])
+    sample = data.imagenet_sample(b, size, ViTConfig.base().num_classes)
+
+    def make_trainer(path):
+        model = ViT(ViTConfig.base(), device="cuda").init_weights(
+            torch.Generator(device="cuda").manual_seed(0))
+        return Trainer(model, TrainConfig(), sample_fn=sample)
+
+    runs, best = graphed_runs(
+        torch, ("kernels", "plain_f32", "plain_bf16", "kernels"),
+        make_trainer, vit_attention_body)
+    print(f"[{card}] vit step A/B (graphed, kernels/plain_f32/plain_bf16/"
+          "kernels): " + " | ".join(
+              f"{p} " + ", ".join(
+                  f"{r['step_ms']:.3f} ms, {b / r['step_ms'] * 1e3:.1f} "
+                  f"images/s ({r['device_ms']:.3f} device, peak "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB)" for r in rs)
+              for p, rs in runs.items())
+          + " | kernels/plain_f32 "
+          f"{best['kernels']['step_ms'] / best['plain_f32']['step_ms']:.4f}, "
+          "kernels/plain_bf16 "
+          f"{best['kernels']['step_ms'] / best['plain_bf16']['step_ms']:.4f}"
+          f" | beside {VIT_PLAIN_BEFORE['step_ms']} ms and "
+          f"{VIT_PLAIN_BEFORE['images_per_s']} images/s on the plain f32 "
+          "body (PERF.md section 5)", flush=True)
+    share = vit_step.get("shares", {}).get("attention kernels")
+    per_step = VIT_LAYERS * sum(rows[k]["ms"] for k in ("K1", "K2", "K3"))
+    print(f"[{card}] vit: K1-K3 x{VIT_LAYERS} a step {per_step:.3f} ms = "
+          f"{100 * per_step / vit_step['device_ms']:.1f}% of the step's "
+          f"{vit_step['device_ms']:.3f} device ms; the graphed call's "
+          f"profile puts the kernels at {100 * (share or 0):.2f}%", flush=True)
+    return {"rows": rows, "runs": runs, "best": best}
 
 
 COPYING_OPS = ("_to_copy", "copy_", "clone", "contiguous", "_reshape_copy",
@@ -4563,15 +4721,20 @@ def main() -> None:
     from cron_operator_tpu_torch.workloads.train import TrainConfig
 
     # each job's model and optimizer, as its entrypoint builds them
-    norm_counts, resnet_step = timed(
+    norm_counts, resnet_step, _ = timed(
         "resnet50", phase_image_job, torch, fa, card, "resnet50",
         RESNET50_PARAMS, lambda: ResNet50(device="cuda"),
         TrainConfig(optimizer="sgd", learning_rate=0.1),
         sum(n for _, _, n in RESNET50_NORMS), RESNET50_SHARES)
-    _, vit_step = timed(
+    _, vit_step, vit_counts = timed(
         "vit", phase_image_job, torch, fa, card, "vit", VIT_PARAMS,
-        lambda: ViT(ViTConfig.base(), device="cuda"), TrainConfig(), 0, None,
-        "vit")
+        lambda: ViT(ViTConfig.base(), device="cuda"), TrainConfig(), 0,
+        VIT_SHARES, "vit", VIT_LAYERS, VIT_ATTENTION_FLOPS)
+    vit_attention = timed("vit attention", phase_vit_attention, torch, fa,
+                          card, vit_step)
+    print("vit_attention " + json.dumps({
+        "best": vit_attention["best"], "runs": vit_attention["runs"],
+        "launches": vit_counts}))
     timed("mnist", phase_job, torch, fa, "mnist", MNIST_PARAMS, 0)
 
     root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
@@ -4644,6 +4807,9 @@ def main() -> None:
         kernel_entry("K1", "@bert", bert_counts[0], bert_rows["K1"]),
         kernel_entry("K2", "@bert", bert_counts[1], bert_rows["K2"]),
         kernel_entry("K3", "@bert", bert_counts[2], bert_rows["K3"]),
+        # ViT-B/16's 12 layers at b 64 x 197 tokens (phase 8)
+        *(kernel_entry(key, "@vit", vit_counts[i], vit_attention["rows"][key])
+          for i, key in enumerate(("K1", "K2", "K3"))),
         # this slice's paths: the resumed training run (the training
         # slice's shape) and serving from the checkpoint (the prefill's)
         kernel_entry("K1", "@resume", resume_counts[0], train_rows["K1"]),

@@ -4,8 +4,8 @@ Token ids ``[batch, seq]`` -> masked-LM logits ``[b, s, vocab]`` in f32
 through a tied output embedding. The encoder block is GPT's
 :class:`~cron_operator_tpu_torch.models.gpt.DecoderLayer` with non-causal
 attention, which :func:`ops.attention.multi_head_attention` sends to the
-Hopper flash kernels on the card (sequence a multiple of 128, head dim
-32/64/128/256) and to plain attention on the CPU. Parameter names match
+Hopper flash kernels on the card (head dim 32/64/128/256, any sequence
+length) and to plain attention on the CPU. Parameter names match
 GPT's, so ``models/convert.py:params_from_flax`` serves both.
 """
 

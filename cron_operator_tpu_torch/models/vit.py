@@ -6,8 +6,11 @@ zero-initialised CLS token in front, a learned ``pos_emb`` over the
 ``n + 1`` tokens (absent under ``rope``), BERT's
 :class:`~cron_operator_tpu_torch.models.bert.EncoderLayer` stack, a final
 LayerNorm, and an f32 Dense head on the CLS row. The ``(size/patch)^2 + 1``
-tokens are never a multiple of 128, so ``auto`` attention is the plain
-path on the card too.
+tokens are never a multiple of 128: ``auto`` attention runs the flash
+kernels K1-K3 on the card at that length all the same (bf16, P rounded to
+bf16 before P V, as the kernels do), and the plain f32 attention on the
+CPU, as the JAX ViT does everywhere. ``attention_impl="flash"`` keeps the
+JAX package's refusal of a sequence that its blocks do not divide.
 """
 
 from __future__ import annotations

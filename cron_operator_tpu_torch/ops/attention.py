@@ -1,8 +1,10 @@
 """Attention dispatch, as in ``cron_operator_tpu/ops/attention.py``.
 
 - ``"flash"`` — the hand-written Hopper kernels (:mod:`ops.flash_attention`):
-  K1 forward, K2/K3 backward, so gradients pass through; the automatic pick
-  for CUDA tensors with tile-aligned shapes.
+  K1 forward, K2/K3 backward, so gradients pass through. As in the JAX
+  package, ``seq`` must divide by the block edges (multiples of 128). The
+  automatic pick for a CUDA tensor at a kernel head dim takes the same
+  kernels at any ``seq`` (ViT-B/16's 197 tokens).
 - ``"xla"`` — plain PyTorch attention with f32 products
   (:func:`parallel.ring._single_device_attention`); the name is kept from the
   JAX package so configs carry over. The CPU path.
@@ -48,6 +50,7 @@ from cron_operator_tpu_torch.ops.flash_attention import (
     _DTYPE_CODES,
     HEAD_DIMS,
     _count,
+    _flash_attention_any_length,
     _raise_on,
     flash_attention,
 )
@@ -141,15 +144,15 @@ def multi_head_attention(
     if q.is_meta:
         return _MetaAttention.apply(q, k, v, causal)
     if impl == "auto":
-        # The JAX package also waits for seq >= 1024 before it picks its
-        # kernel; that crossover was measured on a TPU v5e and does not carry
-        # over, so it stays out until an H100 measurement sets one (PERF.md
-        # keeps the kernel's and the plain version's times).
-        impl = (
-            "flash"
-            if q.is_cuda and q.shape[1] % 128 == 0 and q.shape[-1] in HEAD_DIMS
-            else "xla"
-        )
+        # The kernels on the card at any sequence length: no fallback to the
+        # plain body for a CUDA tensor (a shape the kernels refuse raises).
+        # The JAX package waits for seq >= 1024 and a multiple of its blocks
+        # before it picks its kernel; that crossover was measured on a TPU
+        # v5e and does not carry over (PERF.md keeps the kernels' and the
+        # plain versions' times on the H100, ViT's 197 tokens among them).
+        if q.is_cuda and q.shape[-1] in HEAD_DIMS:
+            return _flash_attention_any_length(q, k, v, causal=causal)
+        impl = "xla"
 
     if impl != "flash":
         k, v = _full_heads(q, k, v)

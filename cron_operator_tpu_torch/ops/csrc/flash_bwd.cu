@@ -47,6 +47,14 @@
 // in the score tile, the other side's columns tx + 16*j; in the output,
 // columns tx + 16*c (c < D/16). Shared rows are padded by one float so that
 // the 16 threads reading rows tx + 16*j at one column hit 16 distinct banks.
+//
+// Any sequence length s >= 1. The grids and the loops round the tile counts
+// up, so the last query tile and the last key tile may be partial: rows past
+// s load as zeros, and no dQ, dK or dV row past s is stored. LSE and Delta
+// are f32 [b * h, s], row r of (batch, head) bh at bh * s + r, read only for
+// r < s, so no read reaches another head's rows or past the buffer. P and dS
+// are set to 0 by the index where the key lies past the query's last (above
+// it under causal, or past s) or the query lies past s, whatever the scores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,13 +106,16 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 // Copies rows [r0, r0 + TILE) of one head of a [b, s, h, d] tensor into a
-// padded f32 shared tile.
+// padded f32 shared tile; rows at or past `seq` are zeros.
 template <typename T, int D, int TILE>
 __device__ __forceinline__ void load_tile(float* dst, const T* base,
-                                          int64_t row_stride, int r0) {
+                                          int64_t row_stride, int r0,
+                                          int seq) {
   for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) {
     const int r = idx / D, c = idx % D;
-    dst[r * (D + 1) + c] = to_float(base[(int64_t)(r0 + r) * row_stride + c]);
+    dst[r * (D + 1) + c] =
+        r0 + r < seq ? to_float(base[(int64_t)(r0 + r) * row_stride + c])
+                     : 0.f;
   }
 }
 
@@ -141,26 +152,30 @@ __global__ void __launch_bounds__(THREADS)
   const int kvh = hi / (heads / kv_heads);  // kv_index: grouped K/V in place
   const int q0 = q_tile * TILE;
 
-  load_tile<T, D, TILE>(q_s, q + bi * sq.b + hi * sq.h, sq.s, q0);
-  load_tile<T, D, TILE>(do_s, dout + bi * sdo.b + hi * sdo.h, sdo.s, q0);
+  load_tile<T, D, TILE>(q_s, q + bi * sq.b + hi * sq.h, sq.s, q0, seq);
+  load_tile<T, D, TILE>(do_s, dout + bi * sdo.b + hi * sdo.h, sdo.s, q0, seq);
   const T* k_base = k + bi * sk.b + kvh * sk.h;
   const T* v_base = v + bi * sv.b + kvh * sv.h;
 
   float lse_r[RM], delta_r[RM], acc[RM][COLS];
+  int last_key[RM];  // the last key column each row keeps (-1: past s)
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
-    const int64_t row = (int64_t)bh * seq + q0 + ty * RM + i;
-    lse_r[i] = lse[row];
-    delta_r[i] = delta[row];
+    const int row = q0 + ty * RM + i;
+    const bool in = row < seq;
+    lse_r[i] = in ? lse[(int64_t)bh * seq + row] : 0.f;
+    delta_r[i] = in ? delta[(int64_t)bh * seq + row] : 0.f;
+    last_key[i] = !in ? -1 : causal ? row : seq - 1;
 #pragma unroll
     for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_tiles = causal ? q_tile + 1 : seq / TILE;
+  const int n_tiles = causal ? q_tile + 1 : (seq + TILE - 1) / TILE;
   for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * TILE;
     __syncthreads();  // the last tile's K and dS reads are done
-    load_tile<T, D, TILE>(k_s, k_base, sk.s, kt * TILE);
-    load_tile<T, D, TILE>(v_s, v_base, sv.s, kt * TILE);
+    load_tile<T, D, TILE>(k_s, k_base, sk.s, k0, seq);
+    load_tile<T, D, TILE>(v_s, v_base, sv.s, k0, seq);
     __syncthreads();
 
     float s[RM][CN], dp[RM][CN];
@@ -190,7 +205,10 @@ __global__ void __launch_bounds__(THREADS)
         }
     }
 
-    const bool diagonal = causal && kt == q_tile;
+    // a tile that may hold a key past a row's last: the diagonal, the last
+    // key tile, every tile of a partial query tile
+    const bool edge = (causal && kt == q_tile) || k0 + TILE > seq ||
+                      q0 + TILE > seq;
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int row = ty * RM + i;
@@ -198,10 +216,10 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < CN; ++j) {
         const int col = tx + 16 * j;
         // A masked score is NEG_INF in the JAX kernel: exp() gives exactly 0.
-        const float p = (diagonal && col > row)
-                            ? 0.f
-                            : expf(s[i][j] * scale - lse_r[i]);
-        ds_s[row * LP + col] = p * (dp[i][j] - delta_r[i]);
+        ds_s[row * LP + col] =
+            (edge && k0 + col > last_key[i])
+                ? 0.f
+                : expf(s[i][j] * scale - lse_r[i]) * (dp[i][j] - delta_r[i]);
       }
     }
     __syncthreads();  // dS of the whole tile is in shared memory
@@ -222,6 +240,7 @@ __global__ void __launch_bounds__(THREADS)
 
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
+    if (q0 + ty * RM + i >= seq) continue;
     T* dq_row = dq + bi * sdq.b + (int64_t)(q0 + ty * RM + i) * sdq.s +
                 hi * sdq.h;
 #pragma unroll
@@ -266,16 +285,20 @@ __global__ void __launch_bounds__(THREADS)
   const int group = heads / kv_heads;
   const int k0 = k_tile * TILE;
 
-  load_tile<T, D, TILE>(k_s, k + bi * sk.b + kvh * sk.h, sk.s, k0);
-  load_tile<T, D, TILE>(v_s, v + bi * sv.b + kvh * sv.h, sv.s, k0);
+  load_tile<T, D, TILE>(k_s, k + bi * sk.b + kvh * sk.h, sk.s, k0, seq);
+  load_tile<T, D, TILE>(v_s, v + bi * sv.b + kvh * sv.h, sv.s, k0, seq);
 
   float dk_acc[RM][COLS], dv_acc[RM][COLS];
+  int first_q[RM];  // the first query each key row takes (s: none)
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+  for (int i = 0; i < RM; ++i) {
+    const int row = k0 + ty * RM + i;
+    first_q[i] = row >= seq ? seq : causal ? row : 0;
 #pragma unroll
     for (int c = 0; c < COLS; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  }
 
-  const int n_tiles = seq / TILE;
+  const int n_tiles = (seq + TILE - 1) / TILE;
   const int first_q_tile = causal ? k_tile : 0;
   for (int g = 0; g < group; ++g) {
     const int hi = kvh * group + g;
@@ -285,11 +308,12 @@ __global__ void __launch_bounds__(THREADS)
     for (int qt = first_q_tile; qt < n_tiles; ++qt) {
       const int q0 = qt * TILE;
       __syncthreads();  // the last tile's Q, dO, P^T and dS^T reads are done
-      load_tile<T, D, TILE>(q_s, q_base, sq.s, q0);
-      load_tile<T, D, TILE>(do_s, do_base, sdo.s, q0);
+      load_tile<T, D, TILE>(q_s, q_base, sq.s, q0, seq);
+      load_tile<T, D, TILE>(do_s, do_base, sdo.s, q0, seq);
       if (tid < TILE) {
-        lse_s[tid] = lse[row_base + q0 + tid];
-        delta_s[tid] = delta[row_base + q0 + tid];
+        const bool in = q0 + tid < seq;
+        lse_s[tid] = in ? lse[row_base + q0 + tid] : 0.f;
+        delta_s[tid] = in ? delta[row_base + q0 + tid] : 0.f;
       }
       __syncthreads();
 
@@ -320,18 +344,21 @@ __global__ void __launch_bounds__(THREADS)
           }
       }
 
-      const bool diagonal = causal && qt == k_tile;
+      // a tile that may hold a query before a key's first or past s: the
+      // diagonal, the last query tile, every tile of a partial key tile
+      const bool edge = (causal && qt == k_tile) || q0 + TILE > seq ||
+                        k0 + TILE > seq;
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
         const int kr = ty * RM + i;
 #pragma unroll
         for (int j = 0; j < CN; ++j) {
           const int qc = tx + 16 * j;
-          const float p = (diagonal && kr > qc)
-                              ? 0.f
-                              : expf(s[i][j] * scale - lse_s[qc]);
+          const bool keep =
+              !edge || (q0 + qc >= first_q[i] && q0 + qc < seq);
+          const float p = keep ? expf(s[i][j] * scale - lse_s[qc]) : 0.f;
           pt_s[kr * LP + qc] = p;
-          dst_s[kr * LP + qc] = p * (dp[i][j] - delta_s[qc]);
+          dst_s[kr * LP + qc] = keep ? p * (dp[i][j] - delta_s[qc]) : 0.f;
         }
       }
       __syncthreads();  // P^T and dS^T of the whole tile are in shared memory
@@ -363,6 +390,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int64_t row = k0 + ty * RM + i;
+    if (row >= seq) continue;
     T* dk_row = dk + bi * sdk.b + row * sdk.s + kvh * sdk.h;
     T* dv_row = dv + bi * sdv.b + row * sdv.s + kvh * sdv.h;
 #pragma unroll
@@ -392,7 +420,8 @@ cudaError_t launch_dq(const Args& a) {
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.seq / tile_rows<D>(), a.batch * a.heads);
+  const dim3 grid((a.seq + tile_rows<D>() - 1) / tile_rows<D>(),
+                  a.batch * a.heads);
   flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
@@ -408,7 +437,8 @@ cudaError_t launch_dkv(const Args& a) {
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.seq / tile_rows<D>(), a.batch * a.kv_heads);
+  const dim3 grid((a.seq + tile_rows<D>() - 1) / tile_rows<D>(),
+                  a.batch * a.kv_heads);
   flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
@@ -436,7 +466,7 @@ cudaError_t dispatch_dim(int head_dim, const Args& a) {
 
 template <bool DQ>
 int dispatch(int dtype, int head_dim, const Args& a) {
-  if (a.seq <= 0 || a.seq % 64 || a.batch <= 0 || a.kv_heads <= 0 ||
+  if (a.seq <= 0 || a.batch <= 0 || a.kv_heads <= 0 ||
       a.heads % a.kv_heads)
     return cudaErrorInvalidValue;
   if (dtype == 0) return dispatch_dim<float, DQ>(head_dim, a);
@@ -450,8 +480,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; every head_dim
 // stride is 1. lse and delta are contiguous f32 [batch * heads, seq]. The
-// caller checks shapes (seq a multiple of 64, heads a multiple of kv_heads, a
-// supported head_dim); anything else returns cudaErrorInvalidValue. Each
+// caller checks shapes (seq >= 1, heads a multiple of kv_heads, a supported
+// head_dim); anything else returns cudaErrorInvalidValue. Each
 // returns its launch's cudaGetLastError().
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, void* dq, int dtype,

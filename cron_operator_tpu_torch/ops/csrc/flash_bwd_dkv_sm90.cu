@@ -24,8 +24,10 @@
 // and stay in shared memory. The producer's first lane then streams, for
 // each of the `group` query heads that share the KV head and each query
 // tile of BQ rows at or below the diagonal, the Q and dO tiles (TMA, 128-byte
-// swizzle, 4-D tensor maps over the inputs' strides) and the tile's LSE and
-// Delta (bulk copies) into a ring of STAGES buffers guarded by mbarriers.
+// swizzle, 4-D tensor maps over the inputs' strides) into a ring of STAGES
+// buffers guarded by mbarriers, while the warp's 32 lanes copy the tile's
+// LSE and Delta into the same stage (plain loads and stores, each lane then
+// arriving on the stage's barrier, which releases its stores).
 // The warpgroup computes S^T = K Q^T and dP^T = V dO^T as wgmma m64nBQk16
 // from shared memory, forms P^T = exp2(S^T scale log2e - LSE log2e) and
 // dS^T = P^T (dP^T - Delta) in registers on the accumulator layout, and
@@ -35,6 +37,22 @@
 // are written once, with no atomics, so a rerun is bit-identical. Key tile 0,
 // the heaviest under causal, is launched first. BQ is 64 at d 64 and 32 at
 // d 128, where the two d-wide accumulators take 128 registers a thread.
+//
+// Any sequence length s >= 1. The grid and the query loop round the tile
+// counts up, so the last key tile and the last query tile may be partial.
+// TMA reads rows past s as zeros (the tensor maps end at s). LSE and Delta
+// are f32 [b * h, s], row r of (batch, head) bh at bh * s + r; the lanes
+// read a tile's values only for r < s (0 past it), so no read reaches
+// another head's rows or past the buffer, and a tile at any offset needs no
+// 16-byte alignment. P^T and dS^T are set to 0 by the index, whatever the
+// scores, for a query past s (the last query tile) and a key past s (the
+// last key tile), so a query row past s adds nothing to dK and dV. No dK or
+// dV row past s is stored. As in K1 (`flash_fwd_sm90.cu`), this lives in a
+// second instantiation (RAGGED), launched when s is not a multiple of 64,
+// so that a multiple of 64 runs the kernel without it. The lanes load a
+// tile's LSE and Delta into registers before they wait for its stage to
+// drain.
+//
 // The tensor maps come from cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint (sm90.cuh), so the library needs no -lcuda.
 
@@ -62,13 +80,13 @@ struct Layout {
   static constexpr int S_Q = 0, S_DO = Q_TILE, S_LSE = 2 * Q_TILE,
                        S_DELTA = 2 * Q_TILE + 4 * BQ;
   static constexpr int STAGE = (2 * Q_TILE + 8 * BQ + 1023) / 1024 * 1024;
-  static constexpr int STAGE_TX = 2 * Q_TILE + 8 * BQ;  // bytes a stage loads
+  static constexpr int STAGE_TX = 2 * Q_TILE;  // bytes TMA loads a stage
   static constexpr int BARS = STAGE0 + STAGES * STAGE;  // kv, full[], empty[]
   static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;  // + align
   static constexpr int THREADS = 128 + 32;
 };
 
-template <int D>
+template <int D, bool RAGGED>
 __global__ void __launch_bounds__(Layout<D>::THREADS, D == 64 ? 2 : 1)
     flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_k,
@@ -86,7 +104,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, D == 64 ? 2 : 1)
   constexpr int BQ = L::BQ;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint8_t* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  uint8_t* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t kv_bar = base + L::BARS;
   const uint32_t full_bar = kv_bar + 8;
   const uint32_t empty_bar = full_bar + 8 * STAGES;
@@ -97,21 +115,22 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, D == 64 ? 2 : 1)
   const int group = heads / kv_heads;
   const int k0 = k_tile * BK;
   const int first_qt = causal ? k0 / BQ : 0;
-  const int n_qt = seq / BQ;
+  const int n_qt = (seq + BQ - 1) / BQ;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
     mbar_init(kv_bar, 1);
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(full_bar + 8 * st, 1);
+      mbar_init(full_bar + 8 * st, 32);  // one arrival per producer lane
       mbar_init(empty_bar + 8 * st, 4);  // one arrival per consumer warp
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (tid >= 128) {  // producer warp: one lane issues every load
-    if (tid == 128) {
+  if (tid >= 128) {  // producer warp: lane 0 issues the TMA loads
+    const int lane = tid - 128;
+    if (lane == 0) {
       prefetch_map(&tm_q);
       prefetch_map(&tm_do);
       mbar_arrive_expect_tx(kv_bar, 2 * L::KV_TILE);
@@ -121,29 +140,48 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, D == 64 ? 2 : 1)
         tma_load_4d(base + L::V + p * BK * 128, &tm_v, p * PANEL_COLS, k0,
                     kvh, bi, kv_bar);
       }
-      int st = 0;
-      uint32_t phase = 0;
-      for (int g = 0; g < group; ++g) {
-        const int hi = kvh * group + g;
-        const int64_t row_base = (int64_t)(bi * heads + hi) * seq;
-        for (int qt = first_qt; qt < n_qt; ++qt) {
-          mbar_wait(empty_bar + 8 * st, phase ^ 1);
-          const uint32_t full = full_bar + 8 * st;
-          const uint32_t stage = base + L::STAGE0 + st * L::STAGE;
-          mbar_arrive_expect_tx(full, L::STAGE_TX);
+    }
+    int st = 0;
+    uint32_t phase = 0;
+    for (int g = 0; g < group; ++g) {
+      const int hi = kvh * group + g;
+      const int64_t row_base = (int64_t)(bi * heads + hi) * seq;
+      for (int qt = first_qt; qt < n_qt; ++qt) {
+        // this tile's LSE and Delta into registers while the stage drains,
+        // so that their latency hides behind the wait
+        float lse_v[BQ / 32], delta_v[BQ / 32];
+#pragma unroll
+        for (int i = 0; i < BQ / 32; ++i) {
+          const int row = qt * BQ + lane + 32 * i;
+          const bool in = !RAGGED || row < seq;
+          lse_v[i] = in ? lse[row_base + row] : 0.f;
+          delta_v[i] = in ? delta[row_base + row] : 0.f;
+        }
+        mbar_wait(empty_bar + 8 * st, phase ^ 1);
+        const uint32_t full = full_bar + 8 * st;
+        const uint32_t stage = base + L::STAGE0 + st * L::STAGE;
+        if (lane == 0) {
+          mbar_expect_tx(full, L::STAGE_TX);
           for (int p = 0; p < L::PANELS; ++p) {
             tma_load_4d(stage + L::S_Q + p * L::Q_PANEL, &tm_q,
                         p * PANEL_COLS, qt * BQ, hi, bi, full);
             tma_load_4d(stage + L::S_DO + p * L::Q_PANEL, &tm_do,
                         p * PANEL_COLS, qt * BQ, hi, bi, full);
           }
-          bulk_load(stage + L::S_LSE, lse + row_base + qt * BQ, 4 * BQ, full);
-          bulk_load(stage + L::S_DELTA, delta + row_base + qt * BQ, 4 * BQ,
-                    full);
-          if (++st == STAGES) {
-            st = 0;
-            phase ^= 1;
-          }
+        }
+        float* lse_s = reinterpret_cast<float*>(base_ptr + L::STAGE0 +
+                                                st * L::STAGE + L::S_LSE);
+        float* delta_s = reinterpret_cast<float*>(base_ptr + L::STAGE0 +
+                                                  st * L::STAGE + L::S_DELTA);
+#pragma unroll
+        for (int i = 0; i < BQ / 32; ++i) {
+          lse_s[lane + 32 * i] = lse_v[i];
+          delta_s[lane + 32 * i] = delta_v[i];
+        }
+        mbar_arrive(full);  // releases this lane's stores to the consumers
+        if (++st == STAGES) {
+          st = 0;
+          phase ^= 1;
         }
       }
     }
@@ -199,8 +237,8 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, D == 64 ? 2 : 1)
       reg_fence(s);
       reg_fence(dp);
 
-      // P^T and dS^T; a key above its query (diagonal tiles only) gives 0,
-      // as the NEG_INF score does in the TPU kernel.
+      // P^T and dS^T; a key above its query (diagonal tiles only) gives
+      // 0, as the NEG_INF score does in the TPU kernel.
       const bool diagonal = causal && q0 < k0 + BK;
 #pragma unroll
       for (int i = 0; i < BQ / 2; ++i) {
@@ -212,6 +250,15 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, D == 64 ? 2 : 1)
                 : fast_exp2(fmaf(s[i], scale_log2, -lse_s[c] * LOG2E));
         s[i] = p;
         dp[i] = p * (dp[i] - delta_s[c]);
+      }
+      if constexpr (RAGGED) {
+        if (q0 + BQ > seq || k0 + BK > seq) {  // a query or a key past s
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i)
+            if (q0 + 8 * (i >> 2) + c2 + (i & 1) >= seq ||
+                k0 + r_lo + 8 * ((i >> 1) & 1) >= seq)
+              s[i] = dp[i] = 0.f;  // set, not multiplied: P may be inf
+        }
       }
       uint32_t pa[BQ / 4], da[BQ / 4];
       acc_to_a(s, pa);
@@ -246,6 +293,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, D == 64 ? 2 : 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int64_t row = k0 + r_lo + 8 * h;
+    if (RAGGED && row >= seq) continue;
     __nv_bfloat16* dk_row = dk + bi * sdk_b + row * sdk_s + kvh * sdk_h;
     __nv_bfloat16* dv_row = dv + bi * sdv_b + row * sdv_s + kvh * sdv_h;
 #pragma unroll
@@ -271,7 +319,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
+template <int D, bool RAGGED>
 cudaError_t launch(const Args& a) {
   using L = Layout<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
@@ -289,11 +337,13 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   static std::atomic<uint64_t> smem_set{0};
   err = allow_smem_once(
-      smem_set, reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel<D>),
+      smem_set,
+      reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel<D, RAGGED>),
       L::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.batch * a.kv_heads, a.seq / BK);
-  flash_bwd_dkv_sm90_kernel<D><<<grid, L::THREADS, L::BYTES, a.stream>>>(
+  const dim3 grid(a.batch * a.kv_heads, (a.seq + BK - 1) / BK);
+  flash_bwd_dkv_sm90_kernel<D, RAGGED><<<grid, L::THREADS, L::BYTES,
+                                         a.stream>>>(
       tm_q, tm_k, tm_v, tm_do, a.lse, a.delta,
       static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
       a.seq, a.heads, a.kv_heads, a.sdk[0], a.sdk[1], a.sdk[2], a.sdv[0],
@@ -305,11 +355,11 @@ cudaError_t launch(const Args& a) {
 
 extern "C" {
 
-// bf16 only; head_dim 64 or 128. Strides are in elements (every head_dim
-// stride is 1); q, k, v and dO need a 16-byte aligned base and strides that
-// are multiples of 8 elements, lse and delta are contiguous f32
-// [batch * heads, seq] on a 16-byte aligned base; the caller checks all of
-// it. Anything else returns cudaErrorInvalidValue. Returns the launch's
+// bf16 only; head_dim 64 or 128; any seq >= 1. Strides are in elements
+// (every head_dim stride is 1); q, k, v and dO need a 16-byte aligned base
+// and strides that are multiples of 8 elements, lse and delta are
+// contiguous f32 [batch * heads, seq]; the caller checks all of it.
+// Anything else returns cudaErrorInvalidValue. Returns the launch's
 // cudaGetLastError().
 int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
@@ -321,8 +371,7 @@ int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                        int64_t sdk_b, int64_t sdk_s, int64_t sdk_h,
                        int64_t sdv_b, int64_t sdv_s, int64_t sdv_h,
                        int causal, float scale, void* stream) {
-  if (seq <= 0 || seq % 64 || batch <= 0 || kv_heads <= 0 ||
-      heads % kv_heads)
+  if (seq <= 0 || batch <= 0 || kv_heads <= 0 || heads % kv_heads)
     return cudaErrorInvalidValue;
   const Args a{q, k, v, dout,
                static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -331,8 +380,10 @@ int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                {sdo_b, sdo_s, sdo_h}, {sdk_b, sdk_s, sdk_h},
                {sdv_b, sdv_s, sdv_h}, causal, scale,
                static_cast<cudaStream_t>(stream)};
-  if (head_dim == 64) return launch<64>(a);
-  if (head_dim == 128) return launch<128>(a);
+  const bool ragged = seq % BK != 0;
+  if (head_dim == 64) return ragged ? launch<64, true>(a) : launch<64, false>(a);
+  if (head_dim == 128)
+    return ragged ? launch<128, true>(a) : launch<128, false>(a);
   return cudaErrorInvalidValue;
 }
 

@@ -33,9 +33,22 @@
 // end and written once, with no atomics, so a rerun is bit-identical. The
 // last query tile, the heaviest under causal, is launched first. BK is 64
 // at both head dims: the dQ, S and dP accumulators and the dS fragment take
-// 144 registers a thread at d 128. The tensor maps come from
-// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint (sm90.cuh), so the
-// library needs no -lcuda.
+// 144 registers a thread at d 128.
+//
+// Any sequence length s >= 1. The grid and the key loop round the tile
+// counts up, so the last query tile and the last key tile may be partial.
+// TMA reads rows past s as zeros (the tensor maps end at s). LSE and Delta
+// are f32 [b * h, s], row r of (batch, head) bh at bh * s + r; a row past s
+// reads row s - 1's values, so no read reaches another head's rows or past
+// the buffer. dS is set to 0 by the index, whatever the scores, for a key
+// past s (the last key tile) and in a row past s (the last query tile), so
+// a zero-filled key adds nothing and a row past s accumulates nothing. No
+// dQ row past s is stored. As in K1 (`flash_fwd_sm90.cu`), this lives in a
+// second instantiation (RAGGED), launched when s is not a multiple of 64,
+// so that a multiple of 64 runs the kernel without it.
+//
+// The tensor maps come from cuTensorMapEncodeTiled through
+// cudaGetDriverEntryPoint (sm90.cuh), so the library needs no -lcuda.
 
 #include "sm90.cuh"
 
@@ -66,7 +79,7 @@ struct Layout {
   static constexpr int THREADS = 128 + 32;
 };
 
-template <int D>
+template <int D, bool RAGGED>
 __global__ void __launch_bounds__(Layout<D>::THREADS, 2)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
@@ -91,7 +104,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 2)
   const int hi = blockIdx.x % heads;
   const int kvh = hi / (heads / kv_heads);  // kv_index: grouped K/V in place
   const int q0 = q_tile * BQ;
-  const int n_kt = causal ? (q0 + BQ + BK - 1) / BK : seq / BK;
+  const int n_kt = ((causal ? q0 + BQ : seq) + BK - 1) / BK;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -145,13 +158,15 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 2)
   const uint32_t do_s = base + L::DO;
 
   // LSE (times log2 e) and Delta of this thread's two rows, constant over
-  // the key loop
+  // the key loop; a row past s reads row s - 1's (its dS is set to 0)
   float lse_r[2], delta_r[2];
-  const int64_t row_base = (int64_t)blockIdx.x * seq + q0 + r_lo;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    lse_r[h] = lse[row_base + 8 * h] * LOG2E;
-    delta_r[h] = delta[row_base + 8 * h];
+    const int row = q0 + r_lo + 8 * h;
+    const int64_t at =
+        (int64_t)blockIdx.x * seq + min(row, seq - 1);
+    lse_r[h] = lse[at] * LOG2E;
+    delta_r[h] = delta[at];
   }
 
   float dq_acc[D / 2];
@@ -184,8 +199,8 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 2)
     reg_fence(s);
     reg_fence(dp);
 
-    // P and dS; a key above its query (diagonal tiles only) gives 0, as the
-    // NEG_INF score does in the TPU kernel.
+    // P and dS; a key above its query (diagonal tiles only) gives 0, as
+    // the NEG_INF score does in the TPU kernel.
     const bool diagonal = causal && k0 + BK - 1 > q0;
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
@@ -196,6 +211,15 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 2)
                           ? 0.f
                           : fast_exp2(fmaf(s[i], scale_log2, -lse_r[h]));
       dp[i] = p * (dp[i] - delta_r[h]);
+    }
+    if constexpr (RAGGED) {
+      if (k0 + BK > seq || q0 + BQ > seq) {  // a key or a query past s
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          if (k0 + 8 * (i >> 2) + c2 + (i & 1) >= seq ||
+              q0 + r_lo + 8 * ((i >> 1) & 1) >= seq)
+            dp[i] = 0.f;  // set, not multiplied: such a P may be inf
+      }
     }
     uint32_t da[BK / 4];
     acc_to_a(dp, da);
@@ -221,6 +245,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 2)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int64_t row = q0 + r_lo + 8 * h;
+    if (row >= seq) continue;
     __nv_bfloat16* dq_row = dq + bi * sdq_b + row * sdq_s + hi * sdq_h;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -241,7 +266,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
+template <int D, bool RAGGED>
 cudaError_t launch(const Args& a) {
   using L = Layout<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
@@ -259,11 +284,13 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   static std::atomic<uint64_t> smem_set{0};
   err = allow_smem_once(
-      smem_set, reinterpret_cast<const void*>(flash_bwd_dq_sm90_kernel<D>),
+      smem_set,
+      reinterpret_cast<const void*>(flash_bwd_dq_sm90_kernel<D, RAGGED>),
       L::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.batch * a.heads, a.seq / BQ);
-  flash_bwd_dq_sm90_kernel<D><<<grid, L::THREADS, L::BYTES, a.stream>>>(
+  const dim3 grid(a.batch * a.heads, (a.seq + BQ - 1) / BQ);
+  flash_bwd_dq_sm90_kernel<D, RAGGED><<<grid, L::THREADS, L::BYTES,
+                                        a.stream>>>(
       tm_q, tm_k, tm_v, tm_do, a.lse, a.delta,
       static_cast<__nv_bfloat16*>(a.dq), a.seq, a.heads, a.kv_heads,
       a.sdq[0], a.sdq[1], a.sdq[2], a.causal, a.scale, a.scale * LOG2E);
@@ -274,12 +301,11 @@ cudaError_t launch(const Args& a) {
 
 extern "C" {
 
-// bf16 only; head_dim 64 or 128. Strides are in elements (every head_dim
-// stride is 1); q, k, v and dO need a 16-byte aligned base and strides that
-// are multiples of 8 elements, lse and delta are contiguous f32
-// [batch * heads, seq] on a 16-byte aligned base; the caller checks all of
-// it. dQ, written as bf16 pairs, needs a 4-byte aligned base and even
-// strides. Anything else returns cudaErrorInvalidValue. Returns the launch's
+// bf16 only; head_dim 64 or 128; any seq >= 1. Strides are in elements
+// (every head_dim stride is 1); q, k, v and dO need a 16-byte aligned base
+// and strides that are multiples of 8 elements, lse and delta are
+// contiguous f32 [batch * heads, seq]; the caller checks all of it. dQ,
+// written as bf16 pairs, needs a 4-byte aligned base and even strides. Anything else returns cudaErrorInvalidValue. Returns the launch's
 // cudaGetLastError().
 int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
@@ -290,7 +316,7 @@ int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                       int64_t sdo_s, int64_t sdo_h, int64_t sdq_b,
                       int64_t sdq_s, int64_t sdq_h, int causal, float scale,
                       void* stream) {
-  if (seq <= 0 || seq % BQ || batch <= 0 || kv_heads <= 0 ||
+  if (seq <= 0 || batch <= 0 || kv_heads <= 0 ||
       heads % kv_heads || reinterpret_cast<uintptr_t>(dq) % 4 ||
       (sdq_b | sdq_s | sdq_h) & 1)
     return cudaErrorInvalidValue;
@@ -300,8 +326,10 @@ int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                {sq_b, sq_s, sq_h}, {sk_b, sk_s, sk_h}, {sv_b, sv_s, sv_h},
                {sdo_b, sdo_s, sdo_h}, {sdq_b, sdq_s, sdq_h}, causal, scale,
                static_cast<cudaStream_t>(stream)};
-  if (head_dim == 64) return launch<64>(a);
-  if (head_dim == 128) return launch<128>(a);
+  const bool ragged = seq % BK != 0;
+  if (head_dim == 64) return ragged ? launch<64, true>(a) : launch<64, false>(a);
+  if (head_dim == 128)
+    return ragged ? launch<128, true>(a) : launch<128, false>(a);
   return cudaErrorInvalidValue;
 }
 

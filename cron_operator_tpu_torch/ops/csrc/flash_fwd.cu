@@ -28,6 +28,13 @@
 // threads of one row group sit in one half-warp, so row max and row sum are
 // half-warp shuffles. Shared rows are padded by one float so that the 16
 // threads reading rows tx + 16*j at one column hit 16 distinct banks.
+//
+// Any sequence length s >= 1. The grid and the key loop round the tile
+// counts up, so the last query tile and the last key tile may be partial:
+// rows past s load as zeros (never read), and none is stored. Each row
+// carries a last key column (its own row under causal, s - 1 otherwise, -1
+// for a row past s); a score past it is NEG_INF and its P exactly 0. The
+// LSE is f32 [b * h, s]: row r of (batch, head) bh at bh * s + r.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +67,20 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 struct Strides {
   int64_t b, s, h;
 };
+
+// Copies rows [r0, r0 + TILE) of one head of a [b, s, h, d] tensor into a
+// padded f32 shared tile; rows at or past `seq` are zeros, never read.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* base,
+                                          int64_t row_stride, int r0,
+                                          int seq) {
+  for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) {
+    const int r = idx / D, c = idx % D;
+    dst[r * (D + 1) + c] =
+        r0 + r < seq ? to_float(base[(int64_t)(r0 + r) * row_stride + c])
+                     : 0.f;
+  }
+}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -98,29 +119,26 @@ __global__ void __launch_bounds__(THREADS)
   const T* k_base = k + bi * sk.b + kvh * sk.h;
   const T* v_base = v + bi * sv.b + kvh * sv.h;
 
-  for (int idx = tid; idx < TILE * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D;
-    q_s[r * LD + c] = to_float(q_base[(int64_t)(q0 + r) * sq.s + c]);
-  }
+  load_tile<T, D>(q_s, q_base, sq.s, q0, seq);
 
   float m[4], l[4], acc[4][COLS];
+  int last_key[4];  // the last key column each row keeps (-1: past s)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
+    const int row = q0 + ty * 4 + i;
+    last_key[i] = row >= seq ? -1 : causal ? row : seq - 1;
   }
 
-  const int n_tiles = causal ? q_tile + 1 : seq / TILE;
+  const int n_tiles = causal ? q_tile + 1 : (seq + TILE - 1) / TILE;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();  // the last tile's K, V and P reads are done
-    for (int idx = tid; idx < TILE * D; idx += THREADS) {
-      const int r = idx / D, c = idx % D;
-      k_s[r * LD + c] = to_float(k_base[(int64_t)(k0 + r) * sk.s + c]);
-      v_s[r * LD + c] = to_float(v_base[(int64_t)(k0 + r) * sv.s + c]);
-    }
+    load_tile<T, D>(k_s, k_base, sk.s, k0, seq);
+    load_tile<T, D>(v_s, v_base, sv.s, k0, seq);
     __syncthreads();
 
     float s[4][4];
@@ -141,7 +159,10 @@ __global__ void __launch_bounds__(THREADS)
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
-    const bool diagonal = causal && kt == q_tile;
+    // a tile that may hold a key past a row's last: the diagonal, the last
+    // key tile, every tile of a partial query tile
+    const bool edge = (causal && kt == q_tile) || k0 + TILE > seq ||
+                      q0 + TILE > seq;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = ty * 4 + i;
@@ -149,7 +170,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float x = s[i][j] * scale;
-        if (diagonal && tx + 16 * j > row) x = NEG_INF;
+        if (edge && k0 + tx + 16 * j > last_key[i]) x = NEG_INF;
         s[i][j] = x;
         row_max = fmaxf(row_max, x);
       }
@@ -161,7 +182,10 @@ __global__ void __launch_bounds__(THREADS)
       float row_sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        // exactly 0 past the last key, also in a row that kept no key
+        const float p = edge && k0 + tx + 16 * j > last_key[i]
+                            ? 0.f
+                            : expf(s[i][j] - m_new);
         row_sum += p;
         p_s[row * LP + tx + 16 * j] = p;
       }
@@ -192,6 +216,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
+    if (row >= seq) continue;
     const bool masked = l[i] == 0.f;  // fully masked row: O = 0, not NaN
     const float denom = masked ? 1.f : l[i];
     T* o_row = o + bi * so.b + (int64_t)row * so.s + hi * so.h;
@@ -214,7 +239,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(seq / TILE, batch * heads);
+  const dim3 grid((seq + TILE - 1) / TILE, batch * heads);
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
@@ -251,8 +276,8 @@ cudaError_t dispatch_dim(int head_dim, const void* q, const void* k,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. The caller
-// checks shapes (seq a multiple of 64, heads a multiple of kv_heads, a
-// supported head_dim); anything else returns cudaErrorInvalidValue. Returns
+// checks shapes (seq >= 1, heads a multiple of kv_heads, a supported
+// head_dim); anything else returns cudaErrorInvalidValue. Returns
 // the launch's cudaGetLastError().
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               int dtype, int batch, int seq, int heads, int kv_heads,
@@ -260,8 +285,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               int64_t sk_b, int64_t sk_s, int64_t sk_h, int64_t sv_b,
               int64_t sv_s, int64_t sv_h, int64_t so_b, int64_t so_s,
               int64_t so_h, int causal, float scale, void* stream) {
-  if (seq <= 0 || seq % TILE || batch <= 0 || kv_heads <= 0 ||
-      heads % kv_heads)
+  if (seq <= 0 || batch <= 0 || kv_heads <= 0 || heads % kv_heads)
     return cudaErrorInvalidValue;
   const Strides sq{sq_b, sq_s, sq_h}, sk{sk_b, sk_s, sk_h},
       sv{sv_b, sv_s, sv_h}, so{so_b, so_s, so_h};

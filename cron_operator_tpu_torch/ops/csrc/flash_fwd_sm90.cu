@@ -29,14 +29,26 @@
 // four lanes of a quad, so row max and sum are two shuffles), converts P to
 // bf16 in registers and runs O += P V as wgmma with P as the register A
 // operand and V read N-major from its natural [kv, d] layout. Causal blocks
-// stop at the diagonal and mask only the diagonal tile; the last query
-// tiles, which see the most keys, are launched first. With NWG = 2 a last
-// half tile (seq an odd multiple of 64) leaves the second warpgroup idle:
-// TMA reads its rows as zeros, and it stores nothing. NWG follows the head
-// dim (`flash_fwd_sm90` below), from device times on the H100 (PERF.md): at
-// d 64 one warpgroup (two or three blocks share an SM and hide each other's
+// stop at the diagonal; the last query tiles, which see the most keys, are
+// launched first. A warpgroup whose rows all lie past s (the second of a
+// last half block) computes and stores nothing. NWG follows the head dim
+// (`flash_fwd_sm90` below), from device times on the H100 (PERF.md): at d
+// 64 one warpgroup (two or three blocks share an SM and hide each other's
 // waits), at d 128 two (each K/V tile, twice as wide, then feeds twice the
 // rows).
+//
+// Any sequence length s >= 1. The grid and the key loop round the tile
+// counts up, so the last query tile and the last key tile may be partial.
+// TMA reads rows past s as zeros (the tensor maps end at s), and no row past
+// s is stored. In the last key tile a key past s scores NEG_INF, as the
+// causal mask sets a key above the diagonal, so its P is exactly 0 and a
+// zero-filled key takes no softmax mass; in the last query tile P is set to
+// 0 in every row past s. These masks live in a second instantiation of the
+// kernel (RAGGED), launched when s is not a multiple of 64: any code for
+// them in the loop, even a branch that the aligned shapes never take, made
+// those shapes slower on the H100 (PERF.md), so a multiple of 64 runs the
+// kernel without it. The LSE is f32 [b * h, s]: row r of (batch, head) bh
+// at bh * s + r, written for r < s only.
 //
 // The tensor maps come from cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint (sm90.cuh), so the library needs no -lcuda.
@@ -65,7 +77,7 @@ struct Layout {
   static constexpr int THREADS = 128 * NWG + 32;
 };
 
-template <int D, int NWG>
+template <int D, int NWG, bool RAGGED>
 __global__ void __launch_bounds__(Layout<D, NWG>::THREADS, NWG == 1 ? 2 : 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -90,7 +102,7 @@ __global__ void __launch_bounds__(Layout<D, NWG>::THREADS, NWG == 1 ? 2 : 1)
   const int kvh = hi / (heads / kv_heads);  // grouped K/V addressed in place
   const int q0 = q_tile * ROWS;
   const int q_end = min(seq, q0 + ROWS);
-  const int n_kt = causal ? q_end / BN : seq / BN;
+  const int n_kt = ((causal ? q_end : seq) + BN - 1) / BN;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -169,6 +181,13 @@ __global__ void __launch_bounds__(Layout<D, NWG>::THREADS, NWG == 1 ? 2 : 1)
       wgmma_wait<0>();
       reg_fence(s);
 
+      if constexpr (RAGGED) {
+        if ((kt + 1) * BN > seq) {  // the last key tile: keys past s
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i)
+            if (kt * BN + 8 * (i >> 2) + c2 + (i & 1) >= seq) s[i] = NEG_INF;
+        }
+      }
       const bool diagonal = causal && kt == row0 / BN;
       float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -194,6 +213,13 @@ __global__ void __launch_bounds__(Layout<D, NWG>::THREADS, NWG == 1 ? 2 : 1)
         const int h = (i >> 1) & 1;
         s[i] = fast_exp2(s[i] - m[h]);
         l[h] += s[i];
+      }
+      if constexpr (RAGGED) {
+        if (row0 + 64 > seq) {  // the last query tile: P = 0 past s
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i)
+            if (row0 + r_lo + 8 * ((i >> 1) & 1) >= seq) s[i] = 0.f;
+        }
       }
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
@@ -251,7 +277,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, int NWG>
+template <int D, int NWG, bool RAGGED>
 cudaError_t launch(const Args& a) {
   using L = Layout<D, NWG>;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -266,12 +292,14 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   static std::atomic<uint64_t> smem_set{0};
   err = allow_smem_once(
-      smem_set, reinterpret_cast<const void*>(flash_fwd_sm90_kernel<D, NWG>),
+      smem_set,
+      reinterpret_cast<const void*>(flash_fwd_sm90_kernel<D, NWG, RAGGED>),
       L::BYTES);
   if (err != cudaSuccess) return err;
   const int rows = 64 * NWG;
   const dim3 grid(a.batch * a.heads, (a.seq + rows - 1) / rows);
-  flash_fwd_sm90_kernel<D, NWG><<<grid, L::THREADS, L::BYTES, a.stream>>>(
+  flash_fwd_sm90_kernel<D, NWG, RAGGED>
+      <<<grid, L::THREADS, L::BYTES, a.stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(a.o),
       static_cast<float*>(a.lse), a.seq, a.heads, a.kv_heads, a.so[0],
       a.so[1], a.so[2], a.causal, a.scale * 1.4426950408889634f);
@@ -282,7 +310,8 @@ cudaError_t launch(const Args& a) {
 
 extern "C" {
 
-// bf16 only; head_dim 64 (64 query rows a block) or 128 (128 rows).
+// bf16 only; head_dim 64 (64 query rows a block) or 128 (128 rows); any
+// seq >= 1.
 // Strides are in elements (every head_dim stride is 1); q, k and v need a
 // 16-byte aligned base and strides that are multiples of 8 elements, which
 // the caller checks. Anything else returns cudaErrorInvalidValue. Returns
@@ -293,15 +322,17 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                    int64_t sk_b, int64_t sk_s, int64_t sk_h, int64_t sv_b,
                    int64_t sv_s, int64_t sv_h, int64_t so_b, int64_t so_s,
                    int64_t so_h, int causal, float scale, void* stream) {
-  if (seq <= 0 || seq % 64 || batch <= 0 || kv_heads <= 0 ||
-      heads % kv_heads)
+  if (seq <= 0 || batch <= 0 || kv_heads <= 0 || heads % kv_heads)
     return cudaErrorInvalidValue;
   const Args a{q, k, v, o, lse, batch, seq, heads, kv_heads,
                {sq_b, sq_s, sq_h}, {sk_b, sk_s, sk_h}, {sv_b, sv_s, sv_h},
                {so_b, so_s, so_h}, causal, scale,
                static_cast<cudaStream_t>(stream)};
-  if (head_dim == 64) return launch<64, 1>(a);
-  if (head_dim == 128) return launch<128, 2>(a);
+  const bool ragged = seq % BN != 0;
+  if (head_dim == 64)
+    return ragged ? launch<64, 1, true>(a) : launch<64, 1, false>(a);
+  if (head_dim == 128)
+    return ragged ? launch<128, 2, true>(a) : launch<128, 2, false>(a);
   return cudaErrorInvalidValue;
 }
 

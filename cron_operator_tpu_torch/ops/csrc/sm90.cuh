@@ -61,6 +61,14 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
       : "memory");
 }
 
+// Adds `bytes` to the transactions the current phase waits for, without an
+// arrival: the arrivals come from the threads that fill the rest of a stage.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
 // Waits until the phase of the given parity has completed. A phase bug would
 // hang the card; instead, a wait that outlasts any real load (2^34 cycles,
 // some 9 s at 1.98 GHz) traps, and the launch fails with an error.
@@ -145,17 +153,6 @@ __device__ __forceinline__ const T* cluster_peer(const T* p, uint32_t rank) {
                : "=l"(out)
                : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
   return reinterpret_cast<const T*>(out);
-}
-
-// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
-// global to shared memory; completion counts on `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {

@@ -40,12 +40,20 @@ O)`` in plain PyTorch (as the JAX package does in XLA) and then runs K2 and
 K3. It composes with ``torch.utils.checkpoint(use_reentrant=False)``, which
 reruns the forward.
 
-The shape rules are the JAX package's: ``seq`` must divide by the block
-edges, which default to :func:`_default_block` (multiples of 128), and K/V
-may carry a positive divisor of the query heads. The kernels' own tiles are
-64 rows (32 for the fma backward at head dim 256 and for the sm90 K3's query
-tiles at head dim 128), which divide every accepted ``seq``; the sm90 K1's
-128-row blocks at head dim 128 handle a last half block.
+The public entries keep the JAX package's shape rules: ``seq`` must divide
+by the block edges, which default to :func:`_default_block` (multiples of
+128), and K/V may carry a positive divisor of the query heads. The kernels
+themselves take any ``seq`` >= 1: their tiles (64 rows; 32 for the fma
+backward at head dim 256 and for the sm90 K3's query tiles at head dim 128;
+the sm90 K1's blocks of 128 rows at head dim 128) round up, the last tile
+of each side may be partial, and a key or query row past ``seq`` gets P = 0
+by its index (in the sm90 designs, a second instantiation of each kernel
+that a ``seq`` not a multiple of 64 launches). The LSE and ``Delta`` stay
+contiguous f32 ``[b*h, s, 1]``; the kernels bound their reads of them by
+``seq`` (the sources' headers). :func:`_flash_attention_any_length` is the
+differentiable entry without the block rule, which
+``ops.attention.multi_head_attention`` takes on the card (ViT-B/16's 197
+tokens).
 """
 
 from __future__ import annotations
@@ -63,7 +71,6 @@ _MAX_DEFAULT_BLOCK = 512
 NEG_INF = -1e30  # masked score: exp() underflows to exactly 0, no inf - inf
 # LSE of a row that saw no key: exp(s - LSE_MASKED) is 0 for any finite s.
 LSE_MASKED = 1e30
-KERNEL_TILE = 64  # query and key rows per tile inside the kernel
 HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernel is compiled for
 SM90_HEAD_DIMS = (64, 128)  # head dims of the bf16 wgmma/TMA design
 DESIGNS = ("sm90", "fma")
@@ -257,11 +264,8 @@ def _check_kernel_inputs(q, k, v) -> None:
             f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does not fit q "
             f"{tuple(q.shape)}"
         )
-    if s % KERNEL_TILE:
-        raise ValueError(
-            f"flash kernel needs seq length a multiple of {KERNEL_TILE}, "
-            f"not {s}"
-        )
+    if s < 1:
+        raise ValueError(f"flash kernel needs seq length >= 1, not {s}")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must lie on one device")
 
@@ -341,6 +345,12 @@ def flash_attention_fwd(
     _refuse_placed(q, k, v)
     s = q.shape[1]
     _check_shapes(s, block_q or _default_block(s), block_k or _default_block(s))
+    return _forward(q, k, v, causal)
+
+
+def _forward(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 for a CUDA tensor, its plain version for a CPU tensor, at any
+    ``seq``; no autograd graph."""
     with torch.no_grad():
         if q.is_cuda:
             return _launch(q, k, v, causal)
@@ -496,6 +506,29 @@ def dkv_tolerance(q, k, v, do, lse, delta, dk_ref, dv_ref, *, causal=False):
             2.0 ** -7 * dv_abs + 2.0 ** -8 * p_do + dv_floor)
 
 
+def vanishing_grad_floor(q, k, v, do, lse, *, causal=False):
+    """Floors for ``|dQ - dQ_ref|`` and ``|dK - dK_ref|`` where dQ and dK
+    vanish in exact arithmetic: at ``seq`` 1 the one key takes all of each
+    row's mass, so dS = P (dP - Delta) is rounding residue on both sides and
+    the floors of :func:`dq_tolerance` and :func:`dkv_tolerance`, 1e-4
+    max|ref|, scale with that residue instead of the terms. Each floor here
+    is 1e-4 of the largest sum of the magnitudes of the gradient's terms:
+    ``scale sum_k P (sum_d |dO| |V| + |Delta|) |K|`` for dQ and the same
+    over the queries with ``|Q|`` for dK (summed over the GQA group).
+    ``Delta``'s magnitude is bounded by ``sum_d |dO| |V|`` for a row with
+    one key, so that sum stands for both."""
+    b, s, h, d = q.shape
+    _, kv_h, group = _gqa_layout(q, k)
+    kf, vf = (x.float().abs().repeat_interleave(group, dim=2) for x in (k, v))
+    p = torch.exp(_reference_scores(q, k, causal) - lse.reshape(b, h, s, 1))
+    terms = 2 * p * torch.einsum("bqhd,bkhd->bhqk", do.float().abs(), vf)
+    scale = 1.0 / d ** 0.5
+    dq = torch.einsum("bhqk,bkhd->bqhd", terms, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", terms, q.float().abs()) * scale
+    dk = dk.reshape(b, s, kv_h, group, d).sum(3)
+    return 1e-4 * dq.max().item(), 1e-4 * dk.max().item()
+
+
 _bwd_lib: Optional[ctypes.CDLL] = None
 _bwd_sm90_libs: Dict[str, ctypes.CDLL] = {}
 # pointer arguments of each sm90 backward kernel's C function
@@ -549,7 +582,7 @@ def _bwd_sm90_kernel(kernel: str) -> ctypes.CDLL:
 def _bwd_args(q, k, v, do, lse, delta, outs, design: str = "fma"):
     """Checks the backward's inputs as :func:`_launch` checks the forward's;
     returns the inputs as the design reads them (unit-stride; for sm90 also
-    TMA-ready, with 16-byte aligned LSE and Delta), then the C interface's
+    TMA-ready), then the C interface's
     shape arguments and the strides of the inputs and ``outs``, in its
     order."""
     _check_kernel_inputs(q, k, v)
@@ -563,8 +596,6 @@ def _bwd_args(q, k, v, do, lse, delta, outs, design: str = "fma"):
     head = [b, s, h, k.shape[2], d]
     if design == "sm90":
         q, k, v, do = (_for_tma(x) for x in (q, k, v, do))
-        lse, delta = (t if t.data_ptr() % 16 == 0 else t.clone()
-                      for t in (lse, delta))
     else:
         q, k, v, do = (x if x.stride(-1) == 1 else x.contiguous()
                        for x in (q, k, v, do))
@@ -663,7 +694,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        o, lse = _forward(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
@@ -691,9 +722,21 @@ def flash_attention(
     _refuse_placed(q, k, v)
     s = q.shape[1]
     _check_shapes(s, block_q or _default_block(s), block_k or _default_block(s))
+    return _flash_attention_any_length(q, k, v, causal=causal)
+
+
+def _flash_attention_any_length(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *,
+                                causal: bool = False) -> torch.Tensor:
+    """:func:`flash_attention` without the JAX package's block rule: any
+    ``seq`` >= 1, which the kernels take (a partial last tile on each side).
+    Every other refusal stays. ``ops.attention.multi_head_attention``'s
+    ``auto`` takes it for a CUDA tensor; a CPU tensor runs the plain
+    versions, as in :func:`flash_attention`."""
+    _refuse_placed(q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal)
-    return flash_attention_fwd(q, k, v, causal=causal)[0]
+    return _forward(q, k, v, causal)[0]
 
 
 for _fn in (flash_attention, flash_attention_dq, flash_attention_dkv):
@@ -716,4 +759,5 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_reference",
     "forward_tolerance",
+    "vanishing_grad_floor",
 ]

@@ -548,8 +548,8 @@ def bert(ctx) -> None:
 
     Params: steps(=10), batch_size(=8), seq_len(=512, the model's max_len),
     size(=base|tiny), attention(=auto|flash|xla|ring|ulysses: ``auto`` runs
-    the Hopper flash kernels, non-causal, on the card when seq_len is a
-    multiple of 128, and ring attention under ``seq > 1``), the mesh axes
+    the Hopper flash kernels, non-causal, on the card, and ring attention
+    under ``seq > 1``), the mesh axes
     seq/tensor/fsdp (the sequence split over ``seq``), remat(=0),
     kv_heads(=0: MHA), rope(=0|1). AdamW at lr 1e-3; targets are the inputs
     (``token_batches``). The loss is :func:`lm_loss`'s: the padded product's
@@ -628,8 +628,9 @@ def vit(ctx) -> None:
     entrypoint. Params: steps(=10), batch_size(=64), image_size(=the
     config's: 224 base, 32 tiny), size(=base|tiny), remat(=0),
     kv_heads(=0: MHA), rope(=0|1: rotary over the flattened patch index,
-    replacing the learned table). AdamW at lr 1e-3. Attention is the plain
-    path: (size/patch)^2 + 1 tokens are never a multiple of 128.
+    replacing the learned table). AdamW at lr 1e-3. Attention runs the
+    Hopper flash kernels on the card at the (size/patch)^2 + 1 tokens (197
+    at base), and the plain f32 path on the CPU.
     ``attention=ring|ulysses`` raises ``ValueError`` (the JAX job ignores
     it).
     """

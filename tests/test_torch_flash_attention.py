@@ -153,7 +153,7 @@ class TestDesign:
 
     @pytest.mark.parametrize("dtype, d, s, match", [
         (torch.bfloat16, 48, 128, "head_dim"),
-        (torch.bfloat16, 64, 96, "multiple of 64"),
+        (torch.bfloat16, 64, 0, "seq length >= 1"),
         (torch.float16, 64, 128, "float32 or bfloat16"),
     ])
     def test_refused_shape_raises_before_any_build(self, monkeypatch, dtype,

@@ -37,6 +37,10 @@ FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     # the LayerNorm kernels' card test and the backward's grid sweep
     ROOT / "tests" / "test_torch_layer_norm_cuda.py",
     ROOT / "hack" / "torch_layer_norm_sweep.py",
+    # the flash kernels at lengths no tile divides: their card test, and
+    # the kernels' A/B between checkouts
+    ROOT / "tests" / "test_torch_flash_ragged_cuda.py",
+    ROOT / "hack" / "torch_flash_ab.py",
 ]
 
 
