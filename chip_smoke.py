@@ -23,7 +23,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    backward run must be bit-identical, and the backward's peak memory must
    grow about linearly from seq 2048 to 8192.
 3. The serving slice at GPT-2 small width: ``generate_job`` through a job
-   context (its decode steps replay a captured CUDA graph), with every
+   context (its prefill and decode steps replay captured CUDA graphs), with every
    kernel count set to 0 just before and read just after (every K1 launch
    must be of the sm90 design, and the decode kernel must launch 12 times
    in each of the 3 x 63 decode steps); then prefill logits through the
@@ -35,15 +35,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    version and
    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
    calls it); the slice's prefill, eager decode step and tokens/s (CUDA
-   events, medians); then generation through the decode graph against the
-   eager loop: greedy tokens identical, decode ms a step (beside the 2.895
-   ms it took before the decode kernel and 1.130 on its three-pass
-   design), device ms of a replayed step, busy share and tokens/s of
-   each; the decode kernel launched 12 times a decode step in both; an
-   eager decode step copies, casts or pads no tensor of a layer's cache
-   size or more (neither the KV cache nor the vocab table); a replayed
-   step profiled, with the decode kernel's one cluster launch once a
-   layer (all launches on its cluster design).
+   events, medians); then generation through the prefill and decode
+   graphs against the eager loop: greedy tokens identical; the replayed
+   prefill against an eager one (KV cache, position and first token to
+   the bit; K1 12 and the LayerNorm forward 25 launches, 24 folded, a
+   replay) and its ms beside the eager prefill and the 6.870 ms before it
+   was captured; decode ms a step (the graphed round less the graphed
+   prefill; beside the 2.895 ms it took before the decode kernel and
+   1.130 on its three-pass design), the first round's ms, device ms of a
+   replayed step, busy share and tokens/s of each; the decode kernel
+   launched 12 times a decode step in both; an eager decode step copies,
+   casts or pads no tensor of a layer's cache size or more (neither the
+   KV cache nor the vocab table); a replayed step profiled, with the
+   decode kernel's one cluster launch once a layer (all launches on its
+   cluster design), 25 LayerNorm launches and no residual add of its own.
 5. The training slice at GPT-2 small width: ``gpt`` through a job context
    (b 8, s 1024, 10 steps in the default mode: ``steps_per_call`` 8, one
    captured step replayed), every kernel count set to 0 just before and
@@ -53,7 +58,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the loss kernels) against the plain path (plain attention, the former
    f32 loss) from the same f32 weights, both measured against an f32 run.
    The LayerNorm kernels (``ops/csrc/layer_norm.cu``) launch 25 times a
-   step each way here, as on every GPT, BERT and ViT training path
+   step each way here (24 of them folded with the residual add before the
+   norm), as on every GPT, BERT and ViT training path
    (phases 7, 8, 9 and 13), and 25 times a prefill and a decode step on
    the serving paths (phases 3, 11 and 14); phases 15, 16 and 18 record
    theirs as they come.
@@ -118,7 +124,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
     0, the JAX runner's frame types).
 11. ``generate_job checkpoint_from=`` that lineage (b 8, prompt 512, 64
     new tokens, 2 rounds): ``restored_from_step`` reported, K1 launched 12
-    times in each round's prefill and the decode kernel 12 times in each
+    times in each round's prefill (the second a replay, counted through
+    its capture's tally) and the decode kernel 12 times in each
     decode step, greedy tokens equal to those of a GPT built in this
     process from the checkpoint's f32 parameters (eager decode).
 12. ``gpt mfu=1 flops_accounting=1`` (24 steps): the published ``mfu``
@@ -149,9 +156,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
     ``MOE_ONEHOT``.
 14. Switch-MoE serving: ``generate_job`` with the same MoE params at the
     serving slice's shape (K1 36 launches over 3 rounds, all sm90, the
-    decode kernel 12 a decode step); the decode graph against the eager
-    loop as phase 4 (beside 3.442 ms a decode step), prefill ms on the
-    index and the dense path in turns, greedy tokens equal on both, and
+    decode kernel 12 a decode step); the prefill and decode graphs against
+    the eager loop as phase 4 (beside 3.442 ms a decode step; the graphed
+    prefill beside the eager 13.656-21.181 ms before it was captured),
+    eager prefill ms on the index and the dense path in turns, greedy
+    tokens equal on both, and
     tokens/s; then the cached greedy decode against
     a full-forward rerun for 8 tokens at full width with
     ``moe_capacity_factor=8`` (no token dropped on either path), in f32.
@@ -294,16 +303,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
     ``[4096, 768]``, ViT-B's ``[12608, 768]``, a decode step's ``[8,
     768]``, the pipeline's ``[2048, 768]``) and the tiny widths 128 and
     64, x in bf16 and f32, f32 and bf16 parameters, and rows offset by
-    +100, within ``layer_norm_tolerance``, reruns the same bits; each
-    kernel timed beside its byte bound, its plain version and
-    ``F.layer_norm`` on the bf16 x with bf16-cast parameters (its backward
-    alone for ``layer_norm_bwd``; a yardstick the port never calls); the
-    graphed gpt and bert steps on the kernels and with the former
-    arithmetic swapped in (``former_layer_norm``), in turns, beside 22.882
-    and 12.242 ms (``LN_BEFORE_MS``); serving on each path in turns (the
-    graphed decode step beside 1.054 ms, greedy tokens graph against eager
-    and kernels against former); LayerNorm's share of the gpt, bert and
-    vit steps. Their launches on every path go into the kernels line.
+    +100, within ``layer_norm_tolerance``, reruns the same bits; the
+    folded pair (``layer_norm_add_fwd`` and ``layer_norm_bwd`` given the
+    residual stream's gradient) against ``add_layer_norm_reference`` and
+    ``add_layer_norm_backward_reference`` at ``LN_FOLD_SHAPES``, s the
+    bits of torch's add; each kernel timed beside its byte bound, its
+    plain version and the library calls (``F.layer_norm`` on the bf16 x
+    with bf16-cast parameters, its backward alone; folded, torch's add and
+    then ``F.layer_norm``, and the unfolded kernels after torch's add;
+    yardsticks the port never calls); the graphed gpt and bert steps
+    folded and with the blocks unfolded (``unfolded_layer_norm``: torch's
+    adds, the norms alone), in turns, beside 19.738 and 10.585 ms
+    (``LN_BEFORE_MS``); serving on each path in turns (the graphed decode
+    step beside 0.662 ms, the graphed prefill, greedy tokens graph against
+    eager and folded against unfolded, a replayed step's LayerNorm
+    launches and bf16 adds, 24 fewer folded); LayerNorm's share of the
+    gpt, bert and vit steps. Their launches on every path, each design
+    apart, go into the kernels line.
 23. A ``kernels`` JSON line, the card line, and last the result line
     ``{"ok": true, "device": {...}}``. Each phase prints its wall time.
     Every temporary directory is deleted and every subprocess ended.
@@ -399,6 +415,10 @@ BEFORE_MS = {"gpt": 41.805, "bert": 15.496, "moe": 69.017,
 # The graphed decode ms a step on the three-pass decode kernel, before its
 # cluster redesign (PERF.md section 5: PR 13 run 3, H100 80GB HBM3, 700 W).
 DECODE_THREE_PASS_MS = {"generate": 1.130, "moe": 1.586}
+# The eager prefill (b 8, prompt 512) before it was captured beside the
+# decode step (PERF.md section 5, H100 80GB HBM3, 700 W; MoE
+# host-bound across 13.656-21.181), printed beside the graphed prefill.
+PREFILL_BEFORE_MS = {"generate": "6.870", "moe": "13.656-21.181"}
 # Kernels the graphed steps must no longer spend time in, each regex with
 # the largest share of a graphed call's device time its kernels may take:
 # cuBLAS's GEMMs for rows of 1- or 2-element alignment, which the vocab
@@ -483,6 +503,11 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
+# Traces a profile_window takes before it gives up on one that holds no
+# kernel.
+PROFILE_ATTEMPTS = 3
+
+
 def profile_window(torch, card: str, label: str, fn, kernels_out=None):
     """Where one window's device time goes: the top kernels by device time
     and the device's busy share of the window's wall time (torch.profiler;
@@ -497,20 +522,30 @@ def profile_window(torch, card: str, label: str, fn, kernels_out=None):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # a record_function range (the optimizer's step) also carries device
-    # time, that of the kernels inside it: leave it out of the sum
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)]
+    # a trace with no kernel at all is the profiler's loss, not the
+    # window's (a replayed decode step once came back empty): trace again
+    for attempt in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # a record_function range (the optimizer's step) also carries
+        # device time, that of the kernels inside it: leave it out of the
+        # sum
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"
+                   and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)]
+        if kernels:
+            break
+        print(f"[{card}] profile {label}: the trace holds no kernel "
+              f"(attempt {attempt + 1} of {PROFILE_ATTEMPTS})", flush=True)
     busy_us = sum(e.self_device_time_total for e in kernels)
     if kernels_out is not None:
         kernels_out.extend((e.key, e.self_device_time_total, e.count)
@@ -795,52 +830,62 @@ def check_xent(label: str, path: str, counts, steps: int) -> None:
 
 
 def ln_wrappers():
-    """``ops.layer_norm``'s forward and backward wrappers, whose
-    ``launches`` count the LayerNorm kernels'."""
+    """``ops.layer_norm``'s forward and backward wrappers, unfolded and
+    folded (the residual add before the norm), whose ``launches`` count the
+    LayerNorm kernels'."""
     ln = importlib.import_module("cron_operator_tpu_torch.ops.layer_norm")
-    return ln.layer_norm_forward, ln.layer_norm_backward
+    return (ln.layer_norm_forward, ln.layer_norm_backward,
+            ln.add_layer_norm_forward, ln.add_layer_norm_backward)
 
 
 def read_ln_counts():
-    return [fn.launches for fn in ln_wrappers()]
+    """The LayerNorm kernels' launches: (forward, backward) of both
+    designs, then those of the folded design alone."""
+    fwd, bwd, add_fwd, add_bwd = (fn.launches for fn in ln_wrappers())
+    return [fwd + add_fwd, bwd + add_bwd, add_fwd, add_bwd]
 
 
-def check_ln(label: str, path: str, counts, expected) -> None:
-    """The LayerNorm kernels' launches (forward, backward) on the path
-    ``path``, kept for the kernels line: ``expected`` (forward, backward),
-    or None for a path whose counts are recorded as they come."""
-    print(f"{label}: LayerNorm kernel launches (forward, backward) {counts}"
-          + ("" if expected is None else f" (expected {list(expected)})"),
-          flush=True)
-    if expected is not None and list(counts) != list(expected):
-        fail(f"{label}: the LayerNorm kernels launched {counts} times, not "
-             f"{list(expected)}")
+def check_ln(label: str, path: str, counts, expected,
+             folded: bool = True) -> None:
+    """The LayerNorm kernels' launches (forward, backward; each a norm,
+    folded or not, then the folded alone) on the path ``path``, kept for
+    the kernels line: ``expected`` (forward, backward), or None for a path
+    whose counts are recorded as they come. With ``folded`` every norm but
+    the first of :data:`LM_NORMS` takes its residual add (24 of 25), else
+    none does (a DTensor mesh keeps torch's adds)."""
+    print(f"{label}: LayerNorm kernel launches (forward, backward) "
+          f"{counts[:2]}, folded {counts[2:]}" + (
+              "" if expected is None else f" (expected {list(expected)}, "
+              f"folded {'24 in 25' if folded else 'none'})"), flush=True)
+    if expected is not None:
+        fold = [e * (LM_NORMS - 1) // LM_NORMS if folded else 0
+                for e in expected]
+        if list(counts) != [*expected, *fold]:
+            fail(f"{label}: the LayerNorm kernels launched {counts} times, "
+                 f"not {[*expected, *fold]}")
     if path:
-        LN_LAUNCHES[path] = [LN_LAUNCHES.get(path, [0, 0])[i] + counts[i]
-                             for i in range(2)]
+        LN_LAUNCHES[path] = [LN_LAUNCHES.get(path, [0] * 4)[i] + counts[i]
+                             for i in range(4)]
 
 
 @contextlib.contextmanager
-def former_layer_norm():
-    """``models.layers.LayerNorm`` on its former arithmetic (x cast to f32,
-    ``F.layer_norm``, the result cast back; the plain versions of the
-    LayerNorm kernels) while the context is open, swapped in as
-    ``dense_moe`` swaps the MoE FFN."""
-    import torch.nn.functional as F
-
+def unfolded_layer_norm():
+    """``models.layers.LayerNorm.add_norm`` unfolded while the context is
+    open: torch's residual add, then the norm alone (``LayerNorm.forward``:
+    the unfolded LayerNorm kernels), as the blocks ran before the fold."""
     layers = importlib.import_module("cron_operator_tpu_torch.models.layers")
-    real = layers.LayerNorm.forward
+    real = layers.LayerNorm.add_norm
 
-    def former(self, x):
-        y = F.layer_norm(x.float(), self.normalized_shape,
-                         self.weight.float(), self.bias.float(), self.eps)
-        return y.to(self.compute_dtype)
+    def unfolded(self, x, r):
+        if r is not None:
+            x = x + r
+        return x, self(x)
 
-    layers.LayerNorm.forward = former
+    layers.LayerNorm.add_norm = unfolded
     try:
         yield
     finally:
-        layers.LayerNorm.forward = real
+        layers.LayerNorm.add_norm = real
 
 
 def lm_wiring(cfg, former: bool = False):
@@ -1710,18 +1755,25 @@ def copying_ops(torch, fn, min_numel: int) -> list:
 def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
                         label: str = "generate", before_ms: float = None):
     """Generation at the slice's shape (b 8, prompt 512, 64 new tokens,
-    greedy) through the decode graph against the eager loop, on the same
-    weights and prompt: the tokens must be identical. Wall ms of a whole
-    generation (host clock, synchronised, median of the 3 after a first
-    one that holds the graph's warm-up and capture) gives the decode ms a
-    step, ``(wall - prefill) / 63``, and tokens/s, printed beside
+    greedy) through the prefill and decode graphs against the eager loop,
+    on the same weights and prompt: the tokens must be identical. Then the
+    entry's replayed prefill against an eager prefill on a cache of its
+    own: the KV cache, its position and the first token to the bit, K1 12
+    and the LayerNorm forward 25 launches (24 folded) a replay, and the
+    graphed prefill's ms (CUDA events; device ms with the card held busy)
+    beside ``prefill_ms`` (eager) and :data:`PREFILL_BEFORE_MS`. Wall ms of
+    a whole generation (host clock, synchronised, median of the 3 after a
+    first one, the first round, that holds the graphs' warm-ups and
+    captures) gives the decode ms a step, ``(wall - prefill) / 63`` with
+    each mode's prefill (graphed or eager), and tokens/s, printed beside
     ``before_ms``, the decode ms a step before the decode kernel; the
     device ms of one replayed decode step (the card held busy) over the
     decode ms a step is the busy share of each. An eager decode step may
     copy, cast or pad no tensor of a layer's cache size or larger (the KV
     cache, the vocab table: ``copying_ops``); the graph must launch the
-    decode kernel 12 times a step; a replayed step is profiled. ``cfg`` is
-    GPT-2 small's unless given."""
+    decode kernel 12 times a step; a replayed step is profiled, and holds
+    :data:`LM_NORMS` LayerNorm launches and no residual add of its own.
+    ``cfg`` is GPT-2 small's unless given."""
     from cron_operator_tpu_torch.models import GPTConfig
 
     serving = importlib.import_module("cron_operator_tpu_torch.workloads.generate")
@@ -1743,10 +1795,10 @@ def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
         fail(f"{label}: a decode step copies a cache- or table-sized tensor: "
              f"{copies}")
     decode = decode_wrapper()
-    outs, rows = {}, {}
+    outs, rows, walls = {}, {}, {}
     with torch.inference_mode():
         for mode, captured in (("eager", False), ("graph", True)):
-            walls = []
+            walls[mode] = []
             launches_before = decode.launches
             for _ in range(4):
                 torch.cuda.synchronize()
@@ -1754,20 +1806,27 @@ def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
                 outs[mode] = serving.generate(cfg, model, prompt, n,
                                               captured=captured)
                 torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            gen_ms = statistics.median(walls[1:])
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
             launched = decode.launches - launches_before
-            rows[mode] = {"generate_ms": gen_ms, "first_ms": walls[0],
-                          "decode_ms_per_step": (gen_ms - prefill_ms) / (n - 1),
-                          "tokens_per_s": b * n / gen_ms * 1e3,
-                          "decode_launches_per_step": launched / (4 * (n - 1))}
             if launched != 12 * 4 * (n - 1):
                 fail(f"{label} {mode}: the decode kernel launched {launched} "
                      f"times in 4 x {n - 1} decode steps, not 12 a step")
         if not torch.equal(outs["eager"], outs["graph"]):
-            fail("greedy tokens through the decode graph differ from the "
-                 "eager loop's")
+            fail("greedy tokens through the prefill and decode graphs differ "
+                 "from the eager loop's")
         decoder = serving._decoder(model, b, True, None)
+        graphed_prefill = check_prefill_replay(torch, label, model, decoder,
+                                               prompt)
+        prefill = {"eager": prefill_ms, "graph": graphed_prefill["ms"]}
+        for mode in ("eager", "graph"):
+            gen_ms = statistics.median(walls[mode][1:])
+            rows[mode] = {
+                "generate_ms": gen_ms, "first_ms": walls[mode][0],
+                "prefill_ms": prefill[mode],
+                "decode_ms_per_step": (gen_ms - prefill[mode]) / (n - 1),
+                "tokens_per_s": b * n / gen_ms * 1e3,
+                "decode_launches_per_step": 12}
+        rows["prefill_replay"] = graphed_prefill
         token = prompt[:, -1:]
 
         def replay():
@@ -1786,22 +1845,34 @@ def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
                                               "combine_kernel",
                                               "decode_cluster_kernel"))}
     copy_us = sum(us for name, us, _ in kernels if "copy" in name.lower())
+    norms, adds = norm_and_add_launches(kernels)
     print(f"{label}: a replayed decode step runs the decode kernel "
-          f"{decode_kernels}; copy kernels {copy_us / 1e3:.4f} ms of it",
-          flush=True)
+          f"{decode_kernels}; copy kernels {copy_us / 1e3:.4f} ms of it; "
+          f"LayerNorm kernels {norms}, bf16 adds {adds} (the position "
+          "add; each residual add is folded into a norm)", flush=True)
     if (list(decode_kernels.values()) != [12]
             or "decode_cluster_kernel" not in next(iter(decode_kernels))):
         fail(f"{label}: a replayed decode step does not run the decode "
              f"kernel's cluster design once a layer: {decode_kernels}")
+    if norms != LM_NORMS or adds > 1:
+        fail(f"{label}: a replayed decode step runs {norms} LayerNorm "
+             f"kernels and {adds} bf16 adds, not {LM_NORMS} and at most the "
+             "position add")
+    rows["decode_step_adds"] = adds
     rows["device_ms_per_step"] = device
     for mode in ("eager", "graph"):
         r = rows[mode]
         r["busy"] = device / r["decode_ms_per_step"]
         print(f"[{card}] {label} {mode} (b{b} p{p} +{n}): "
-              f"{r['generate_ms']:.3f} ms (first {r['first_ms']:.1f}) | decode "
+              f"{r['generate_ms']:.3f} ms (first round {r['first_ms']:.1f}) "
+              f"| prefill {r['prefill_ms']:.3f} ms | decode "
               f"{r['decode_ms_per_step']:.3f} ms/step, device {device:.3f} ms,"
               f" busy {100 * r['busy']:.1f}% | {r['tokens_per_s']:.1f} "
               "tokens/s", flush=True)
+    print(f"[{card}] {label}: graphed prefill {graphed_prefill['ms']:.3f} ms "
+          f"({graphed_prefill['device_ms']:.3f} device), eager "
+          f"{prefill_ms:.3f}, beside {PREFILL_BEFORE_MS[label_key(label)]} "
+          "eager before the capture (PERF.md section 5)", flush=True)
     if before_ms is not None:
         print(f"[{card}] {label}: decode {rows['graph']['decode_ms_per_step']:.3f}"
               f" ms a step graphed, beside {before_ms} before the decode "
@@ -1811,6 +1882,57 @@ def phase_serving_graph(torch, card, prefill_ms: float, cfg=None,
     del model, decoder
     release(torch)
     return rows
+
+
+def check_prefill_replay(torch, label: str, model, decoder, prompt) -> dict:
+    """The serving entry's prefill graph for ``prompt``'s length, replayed
+    on ``prompt``, against an eager prefill on a cache of its own: every
+    layer's K and V over the prompt, the position and the greedy first
+    token to the bit; K1 launched 12 times and the LayerNorm forward
+    :data:`LM_NORMS` times (24 folded) by the replay, counted through the
+    capture's tally, the decode kernel never. Returns the graphed
+    prefill's ms (CUDA events, median of 20) and device ms (the card held
+    busy)."""
+    fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
+    p = prompt.shape[1]
+    graph = decoder.prefills[p]
+    eager = model.new_cache(prompt.shape[0])
+    want = model.prefill(prompt, eager).argmax(-1)
+    zero_counts(fa)
+    token = graph({"prompt": prompt}).clone()
+    torch.cuda.synchronize()
+    k1, ln = fa.flash_attention.launches, read_ln_counts()
+    replays = decode_wrapper().launches
+    same = (torch.equal(token, want) and int(decoder.cache.pos) == p
+            and all(torch.equal(a[:, :p], w[:, :p]) for a, w in zip(
+                decoder.cache.k + decoder.cache.v, eager.k + eager.v)))
+    print(f"{label}: a replayed prefill against an eager one: cache, "
+          f"position and first token the same bits {same}; launches K1 "
+          f"{k1}, LayerNorm {ln[0]} ({ln[2]} folded), decode {replays}",
+          flush=True)
+    if not same:
+        fail(f"{label}: the replayed prefill differs from the eager prefill")
+    if (k1, ln[0], ln[2], replays) != (12, LM_NORMS, LM_NORMS - 1, 0):
+        fail(f"{label}: a prefill replay launched K1 {k1}, LayerNorm "
+             f"{ln[0]} ({ln[2]} folded), decode {replays} times, not 12, "
+             f"{LM_NORMS} ({LM_NORMS - 1}) and 0")
+    del eager
+    replay = lambda: graph({"prompt": prompt})  # noqa: E731
+    return {"ms": median_ms(torch, replay, iters=20),
+            "device_ms": device_ms(torch, replay, iters=10, reps=5),
+            "k1_launches": k1, "layer_norm_launches": ln[0],
+            "folded_launches": ln[2], "bits_equal": same}
+
+
+def norm_and_add_launches(kernels) -> tuple:
+    """The LayerNorm kernels' launches and the bf16 elementwise adds'
+    (torch's residual adds were ``CUDAFunctor_add<c10::BFloat16>``) in a
+    profile's (name, us, launches) rows."""
+    norms = sum(n for name, _, n in kernels
+                if re.search(r"layer_norm_fwd_kernel", name))
+    adds = sum(n for name, _, n in kernels
+               if "CUDAFunctor_add<c10::BFloat16>" in name)
+    return norms, adds
 
 
 def label_key(label: str) -> str:
@@ -3084,7 +3206,8 @@ def phase_seq(torch, fa, card):
                 # the LayerNorm kernels on each rank's own rows
                 check_xent(f"seq {name} rank {r}", None, got["xent"], 0)
                 check_ln(f"seq {name} rank {r}", f"seq_{name}",
-                         got["layer_norm"], (LM_NORMS * MESH_STEPS,) * 2)
+                         got["layer_norm"], (LM_NORMS * MESH_STEPS,) * 2,
+                         folded=False)
             print(f"seq {name} ({job}): losses {ranks[0]['losses']} against "
                   f"one rank's attention=xla {ref['losses']}: max gap "
                   f"{gap:.6f}, update distance {dist:.6f}; lr 0 reads "
@@ -4210,14 +4333,18 @@ LN_TIMED = ("gpt", "bert", "vit", "decode", "pipeline")
 # the shapes also checked with rows offset by +100
 LN_OFFSET_SHAPES = ("gpt", "tiny_gpt", "tiny_vit")
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon, the models' LN_EPS
-# The graphed gpt and bert steps and the graphed decode step on the former
-# LayerNorm (x cast to f32, torch's f32 norm, the cast back), PERF.md
-# section 5's readings before the kernels (H100 80GB HBM3, 700 W).
-LN_BEFORE_MS = {"gpt": 22.882, "bert": 12.242, "decode": 1.054}
+# The graphed gpt and bert steps and the graphed decode step before the
+# residual adds were folded into the norms, PERF.md section 5's readings
+# (H100 80GB HBM3, 700 W).
+LN_BEFORE_MS = {"gpt": 19.738, "bert": 10.585, "decode": 0.662}
 # f32 operations an element in the bound's count beside the bytes: the
 # forward's sum, centred square (2), and y (3); the backward's x̂ (2), γ dy,
-# two row sums (2), two parameter partials (2) and dx (4).
-LN_OPS = {"fwd": 6, "bwd": 12}
+# two row sums (2), two parameter partials (2) and dx (4); the fold adds
+# one (the residual add, the gradient's add).
+LN_OPS = {"fwd": 6, "bwd": 12, "add_fwd": 7, "add_bwd": 13}
+# The folded pair checked at these shapes (bf16 and f32), with the
+# residual stream's gradient and without.
+LN_FOLD_SHAPES = ("decode", "gpt", "bert", "vit", "pipeline", "tiny_gpt")
 
 
 def ln_inputs(torch, shape, dtype, param_dtype=None, seed=0, offset=0.0):
@@ -4330,26 +4457,146 @@ def ln_rows(torch, ln, card, label, shape) -> dict:
     return rows
 
 
+def check_fold_pair(torch, ln, label, x, r, dy, ds, gamma, beta,
+                    out_dtype) -> dict:
+    """The folded LayerNorm kernels against their plain versions on the
+    same inputs: s the bits of torch's add, then y, mean, rstd, dx, dgamma
+    and dbeta within ``layer_norm_tolerance`` (dx's bound with the plain
+    version's second rounding, ``dx_norm``), a rerun the same bits.
+    Returns the largest errors and err/bound ratios."""
+    s, y, mean, rstd = ln.add_layer_norm_forward(x, r, gamma, beta, LN_EPS,
+                                                 out_dtype)
+    grads = ln.add_layer_norm_backward(dy, ds, s, mean, rstd, gamma, beta)
+    torch.cuda.synchronize()
+    ref = ln.add_layer_norm_reference(x, r, gamma, beta, LN_EPS, out_dtype)
+    ref_grads = ln.add_layer_norm_backward_reference(dy, ds, ref[0], ref[2],
+                                                     ref[3], gamma, beta)
+    dx_norm = ln.layer_norm_backward_reference(dy, ref[0], ref[2], ref[3],
+                                               gamma, beta)[0]
+    bounds = ln.layer_norm_tolerance(ref[0], gamma, beta, ref[2], ref[3],
+                                     ref[1], dy, ref_grads[0], ref_grads[1],
+                                     dx_norm=None if ds is None else dx_norm)
+    if not same_bits(torch, s, ref[0]):
+        fail(f"layer_norm_add {label}: s is not the bits of torch's add")
+    errs = {}
+    h = x.shape[-1]
+    for name, got, want in zip(("y", "mean", "rstd", "dx", "dgamma",
+                                "dbeta"), (y, mean, rstd, *grads),
+                               (*ref[1:], *ref_grads)):
+        err = (got.float() - want.float()).abs()
+        if name in ("y", "dx"):
+            err = err.reshape(-1, h)
+        ratio = float((err / bounds[name]).max())
+        errs[name] = float(err.max())
+        errs[name + "_ratio"] = ratio
+        if not (got.dtype == want.dtype and got.shape == want.shape
+                and bool(torch.isfinite(got).all()) and ratio <= 1):
+            fail(f"layer_norm_add {label}: {name} off its plain version: "
+                 f"max err {errs[name]:.3e}, err/bound {ratio:.3f}")
+    again = ln.add_layer_norm_forward(x, r, gamma, beta, LN_EPS, out_dtype)
+    again_grads = ln.add_layer_norm_backward(dy, ds, again[0], again[2],
+                                             again[3], gamma, beta)
+    rerun = all(same_bits(torch, a, b) for a, b in zip(
+        (s, y, mean, rstd, *grads), (*again, *again_grads)))
+    print(f"layer_norm_add {label}: s the bits of torch's add, " + ", ".join(
+        f"{k} {errs[k]:.3e} ({errs[k + '_ratio']:.3f})"
+        for k in ("y", "mean", "rstd", "dx", "dgamma", "dbeta"))
+        + f" (max err, err/bound); rerun the same bits {rerun}", flush=True)
+    if not rerun:
+        fail(f"layer_norm_add {label}: a rerun is not the same bits")
+    return errs
+
+
+def fold_rows(torch, ln, card, label, shape) -> dict:
+    """The folded LayerNorm kernels at ``shape`` in bf16 (f32 parameters),
+    each timed (device time, the card held busy) beside its byte bound, its
+    plain version (torch's add, then the norm's plain version), the two
+    library calls it replaces (torch's add, then ``F.layer_norm`` on the
+    bf16 sum with bf16-cast parameters; backward, autograd's through both
+    with the residual stream's gradient) and the unfolded kernels after
+    torch's add (``unfolded_ms``)."""
+    import torch.nn.functional as F
+
+    t, h = shape
+    x, dy, gamma, beta = ln_inputs(torch, shape, torch.bfloat16, seed=8)
+    r, ds, _, _ = ln_inputs(torch, shape, torch.bfloat16, seed=9)
+    s, _, mean, rstd = ln.add_layer_norm_forward(x, r, gamma, beta, LN_EPS,
+                                                 torch.bfloat16)
+    lx, lr = (v.clone().requires_grad_() for v in (x, r))
+    lp = [p.to(torch.bfloat16).requires_grad_() for p in (gamma, beta)]
+    ls = lx + lr
+    out = F.layer_norm(ls, (h,), *lp, LN_EPS)
+    element = x.element_size()
+    # each input read once, each output written once: x, r, gamma, beta in;
+    # s, y, mean, rstd out; backward s, dy, ds, mean, rstd, gamma in and
+    # dx, dgamma, dbeta out
+    moved = {"fwd": 4 * t * h * element + 2 * h * 4 + 2 * t * 4,
+             "bwd": 4 * t * h * element + 2 * t * 4 + 3 * h * 4}
+    rows = {}
+    for name, fns in (
+            ("fwd", (lambda: ln.add_layer_norm_forward(
+                        x, r, gamma, beta, LN_EPS, torch.bfloat16),
+                     lambda: ln.add_layer_norm_reference(
+                         x, r, gamma, beta, LN_EPS, torch.bfloat16),
+                     lambda: F.layer_norm(x + r, (h,), *lp, LN_EPS),
+                     lambda: ln.layer_norm_forward(x + r, gamma, beta, LN_EPS,
+                                                   torch.bfloat16))),
+            ("bwd", (lambda: ln.add_layer_norm_backward(
+                        dy, ds, s, mean, rstd, gamma, beta),
+                     lambda: ln.add_layer_norm_backward_reference(
+                         dy, ds, s, mean, rstd, gamma, beta),
+                     lambda: torch.autograd.grad((ls, out), (lx, lr, *lp),
+                                                 (ds, dy), retain_graph=True),
+                     lambda: ln.layer_norm_backward(dy, s, mean, rstd, gamma,
+                                                    beta)[0] + ds))):
+        (ms, plain_ms, library_ms, unfolded_ms), _ = timed_rows(
+            torch, card, f"layer_norm_add_{name} ({label})", fns,
+            iters=(20, 5, 20, 20))
+        bytes_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = LN_OPS["add_" + name] * t * h / F32_FLOPS * 1e3
+        rows[name] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=library_ms, unfolded_ms=unfolded_ms)
+        print(f"[{card}] layer_norm_add_{name} [{t}, {h}] bf16 ({label}): "
+              f"{ms:.5f} ms (device) | unfolded kernels after torch's add "
+              f"{unfolded_ms:.5f} ms | plain {plain_ms:.4f} ms | torch add "
+              f"and F.layer_norm bf16 {library_ms:.5f} ms | bound "
+              f"{rows[name]['bound_ms']:.5f} ms ({rows[name]['bound_by']}, "
+              f"{moved[name] / 1e6:.2f} MB) | "
+              f"{100 * rows[name]['bound_ms'] / ms:.1f}% of the bound",
+              flush=True)
+    del x, r, dy, ds, lx, lr, lp, ls, out
+    release(torch)
+    return rows
+
+
+def path_context(path: str):
+    """The phase 22 A/B's swap for ``path``: the blocks unfolded (torch's
+    residual adds, the norms alone) for ``"unfolded"``, else none."""
+    return (unfolded_layer_norm() if path == "unfolded"
+            else contextlib.nullcontext())
+
+
 def first_flip_ok(torch, models: dict, prompt, tokens: dict) -> list:
-    """Where the greedy tokens of the kernels' and the former LayerNorm's
-    models first part in a row: each path's logits at that shared prefix
-    (an eager prefill of the row), and whether the former path's top-2
-    margin there lies within twice the paths' largest logit gap (a near
-    tie that either rounding may break), as phase 3 allows. Returns (row,
-    position, margin, gap, ok) for each row that parts."""
+    """Where the greedy tokens of the folded and the unfolded models first
+    part in a row: each path's logits at that shared prefix (an eager
+    prefill of the row), and whether the unfolded path's top-2 margin
+    there lies within twice the paths' largest logit gap (a near tie that
+    either rounding may break), as phase 3 allows. Returns (row, position,
+    margin, gap, ok) for each row that parts."""
     found = []
-    a, b = tokens["kernels"], tokens["former"]
+    a, b = tokens["folded"], tokens["unfolded"]
     p = prompt.shape[1]
     for row in (a != b).any(dim=1).nonzero().flatten().tolist():
         pos = int((a[row] != b[row]).nonzero()[0])
         prefix = a[row:row + 1, :pos]
         logits = {}
         for path, model in models.items():
-            with (former_layer_norm() if path == "former"
-                  else contextlib.nullcontext()):
+            with path_context(path):
                 logits[path] = model.prefill(prefix, model.new_cache(1))[0]
-        gap = float((logits["kernels"] - logits["former"]).abs().max())
-        top2 = logits["former"].float().topk(2).values
+        gap = float((logits["folded"] - logits["unfolded"]).abs().max())
+        top2 = logits["unfolded"].float().topk(2).values
         margin = float(top2[0] - top2[1])
         found.append((row, pos - p, margin, gap, margin <= 2 * gap))
     return found
@@ -4357,32 +4604,30 @@ def first_flip_ok(torch, models: dict, prompt, tokens: dict) -> list:
 
 def ln_decode_ab(torch, card) -> dict:
     """GPT-2 small serving (bf16 parameters, b 8, prompt 512, 64 new
-    tokens, greedy) on the LayerNorm kernels and on the former arithmetic,
-    each on a model of its own (a captured decode step is kept per model)
-    from the same weights, in turns kernels/former/former/kernels: the
-    graphed generation's wall ms (median of 3 after the capture's), eager
-    prefill ms and the decode ms a step ``(wall - prefill) / 63``, and the
-    device ms of a replayed decode step; greedy tokens graph against eager
-    on each path, and kernels against former."""
+    tokens, greedy) with the residual adds folded into the LayerNorm
+    kernels and unfolded (torch's adds, the norms alone), each on a model
+    of its own (the captured prefill and decode step are kept per model)
+    from the same weights, in turns folded/unfolded/unfolded/folded: the
+    graphed generation's wall ms (median of 3 after the captures'), the
+    graphed prefill's ms and the decode ms a step ``(wall - prefill) /
+    63``, and the device ms of a replayed decode step and prefill; greedy
+    tokens graph against eager on each path, and folded against unfolded
+    (through ``first_flip_ok``); the bf16 adds of a replayed decode step
+    on each path, 24 fewer folded."""
     from cron_operator_tpu_torch.models import GPTConfig
 
     serving = importlib.import_module("cron_operator_tpu_torch.workloads.generate")
     cfg = GPTConfig(max_len=1024)
     b, p, n = 8, 512, 64
-    models = {"kernels": slice_model(torch, cfg)}
-    models["former"] = slice_model(torch, cfg, models["kernels"])
+    models = {"folded": slice_model(torch, cfg)}
+    models["unfolded"] = slice_model(torch, cfg, models["folded"])
     prompt = torch.randint(0, cfg.vocab_size, (b, p), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(5))
-    runs, tokens = {}, {}
+    runs, tokens, adds = {}, {}, {}
     with torch.inference_mode():
-        for path in ("kernels", "former", "former", "kernels"):
+        for path in ("folded", "unfolded", "unfolded", "folded"):
             model = models[path]
-            with (former_layer_norm() if path == "former"
-                  else contextlib.nullcontext()):
-                cache = model.new_cache(b)
-                prefill = median_ms(torch, lambda: model.prefill(
-                    prompt, cache), iters=3)
-                del cache
+            with path_context(path):
                 walls = []
                 for _ in range(4):
                     torch.cuda.synchronize()
@@ -4394,7 +4639,7 @@ def ln_decode_ab(torch, card) -> dict:
                                          captured=False)
                 if not torch.equal(graphed, eager):
                     fail(f"layer_norm decode ({path}): greedy tokens through "
-                         "the decode graph differ from the eager loop's")
+                         "the graphs differ from the eager loop's")
                 tokens[path] = graphed
                 decoder = serving._decoder(model, b, True, None)
                 token = prompt[:, -1:]
@@ -4403,50 +4648,72 @@ def ln_decode_ab(torch, card) -> dict:
                     decoder.cache.pos.fill_(p)
                     decoder.step({"token": token})
 
+                def prefill():
+                    decoder.prefills[p]({"prompt": prompt})
+
                 device = device_ms(torch, replay, iters=20, reps=5)
+                prefill_ms = median_ms(torch, prefill, iters=10)
+                prefill_device = device_ms(torch, prefill, iters=5, reps=5)
+                if path not in adds:
+                    kernels = []
+                    profile_window(torch, card, f"decode step ({path})",
+                                   replay, kernels)
+                    adds[path] = norm_and_add_launches(kernels)
             gen_ms = statistics.median(walls[1:])
             runs.setdefault(path, []).append({
-                "generate_ms": gen_ms, "prefill_ms": prefill,
-                "decode_ms_per_step": (gen_ms - prefill) / (n - 1),
+                "generate_ms": gen_ms, "first_round_ms": walls[0],
+                "prefill_ms": prefill_ms,
+                "prefill_device_ms": prefill_device,
+                "decode_ms_per_step": (gen_ms - prefill_ms) / (n - 1),
                 "device_ms_per_step": device})
         flips = first_flip_ok(torch, models, prompt, tokens)
     best = {k: min(v, key=lambda r: r["decode_ms_per_step"])
             for k, v in runs.items()}
-    same = torch.equal(tokens["kernels"], tokens["former"])
-    print(f"[{card}] decode A/B (graphed, kernels/former/former/kernels): "
+    same = torch.equal(tokens["folded"], tokens["unfolded"])
+    print(f"[{card}] decode A/B (graphed, folded/unfolded/unfolded/folded): "
           + " | ".join(f"{k} " + ", ".join(
-              f"{r['decode_ms_per_step']:.4f} ms a step ({r['device_ms_per_step']:.4f}"
-              f" device, prefill {r['prefill_ms']:.3f})" for r in v)
-              for k, v in runs.items())
-          + f" | beside {LN_BEFORE_MS['decode']} ms on the former LayerNorm "
-          f"(PERF.md section 5); greedy tokens graph == eager on each, "
-          f"kernels == former {same}", flush=True)
+              f"{r['decode_ms_per_step']:.4f} ms a step "
+              f"({r['device_ms_per_step']:.4f} device, graphed prefill "
+              f"{r['prefill_ms']:.3f}, {r['prefill_device_ms']:.3f} device)"
+              for r in v) for k, v in runs.items())
+          + f" | beside {LN_BEFORE_MS['decode']} ms unfolded (PERF.md "
+          f"section 5); greedy tokens graph == eager on each, folded == "
+          f"unfolded {same}; a replayed step's (LayerNorm, bf16 add) "
+          f"launches {adds}", flush=True)
     for row, pos, margin, gap, ok in flips:
         print(f"  row {row}: greedy tokens part at new token {pos}; the "
-              f"former's top-2 margin {margin:.4f} vs the paths' logit gap "
+              f"unfolded top-2 margin {margin:.4f} vs the paths' logit gap "
               f"{gap:.4f}", flush=True)
         if not ok:
             fail(f"layer_norm decode: row {row}'s greedy token {pos} differs "
-                 "between the kernels and the former arithmetic beyond the "
+                 "between the folded and the unfolded path beyond the "
                  "logit gap")
+    if (adds["folded"][0] != LM_NORMS or adds["unfolded"][0] != LM_NORMS
+            or adds["unfolded"][1] - adds["folded"][1] != LM_NORMS - 1):
+        fail(f"layer_norm decode: a replayed step's (LayerNorm, bf16 add) "
+             f"launches {adds}: not {LM_NORMS} norms on each path and "
+             f"{LM_NORMS - 1} adds fewer folded")
     del models
     release(torch)
     return {"runs": runs, "best": best, "tokens_equal": same,
-            "flips": flips}
+            "flips": flips, "adds": adds}
 
 
 def phase_layer_norm(torch, card, steps: dict, serving: dict) -> dict:
     """The LayerNorm kernels (``ops/csrc/layer_norm.cu``) against their
     plain versions at :data:`LN_SHAPES`, x in bf16 and f32, f32 and bf16
     parameters, and rows offset by +100 (bf16, f32, and f32 x with a bf16
-    y) within ``layer_norm_tolerance``, reruns the same bits; the times at
-    the main paths' rows beside the bound, the plain versions and
-    ``F.layer_norm``;
-    the graphed gpt and bert steps on the kernels and with the former
-    arithmetic swapped in (``former_layer_norm``), in turns, beside
+    y) within ``layer_norm_tolerance``, reruns the same bits; the folded
+    pair (the residual add before the norm) at :data:`LN_FOLD_SHAPES` in
+    bf16 and f32, with the residual stream's gradient and without, and at
+    GPT's rows offset by +100 (``check_fold_pair``); the times of both at
+    the main paths' rows beside the bound, the plain versions and the
+    library calls;
+    the graphed gpt and bert steps folded and unfolded (torch's adds, the
+    norms alone: ``unfolded_layer_norm``), in turns, beside
     :data:`LN_BEFORE_MS` (each path's graph equals its eager steps to the
-    bit on the kernels: phases 6 and 7 check that before this one runs);
-    serving's decode on each path (``ln_decode_ab``); LayerNorm's share of
+    bit folded: phases 6 and 7 check that before this one runs);
+    serving on each path (``ln_decode_ab``); LayerNorm's share of
     the gpt, bert and vit steps (``steps``: phases 6, 7 and 8's graphed
     steps) and of a decode step (``serving``: phase 4's). Returns the
     kernels line's rows and the readings."""
@@ -4482,14 +4749,44 @@ def phase_layer_norm(torch, card, steps: dict, serving: dict) -> dict:
                                             dy.to(out_dtype), gamma, beta,
                                             out_dtype)
         release(torch)
+    for name in LN_FOLD_SHAPES:
+        # the serving paths hold bf16 parameters, the training ones f32
+        pdt = torch.bfloat16 if name == "decode" else torch.float32
+        for dtype in (torch.bfloat16, torch.float32):
+            for with_ds in (True, False):
+                x, dy, gamma, beta = ln_inputs(torch, LN_SHAPES[name], dtype,
+                                               pdt, seed=len(errs))
+                r, ds, _, _ = ln_inputs(torch, LN_SHAPES[name], dtype,
+                                        seed=len(errs) + 1)
+                label = (f"fold {name} {list(LN_SHAPES[name])} x "
+                         f"{str(dtype)[6:]} params {str(pdt)[6:]}"
+                         + ("" if with_ds else " no ds"))
+                errs[label] = check_fold_pair(
+                    torch, ln, label, x, r, dy, ds if with_ds else None,
+                    gamma, beta, dtype)
+    x, dy, gamma, beta = ln_inputs(torch, LN_SHAPES["gpt"], torch.bfloat16,
+                                   seed=len(errs), offset=100.0)
+    r, ds, _, _ = ln_inputs(torch, LN_SHAPES["gpt"], torch.bfloat16,
+                            seed=len(errs) + 1)
+    errs["fold gpt offset 100"] = check_fold_pair(
+        torch, ln, "fold gpt x bfloat16 offset 100", x, r, dy, ds, gamma,
+        beta, torch.bfloat16)
+    del x, dy, gamma, beta, r, ds
+    release(torch)
     rows = {name: ln_rows(torch, ln, card, name, LN_SHAPES[name])
             for name in LN_TIMED}
+    folded = {name: fold_rows(torch, ln, card, name, LN_SHAPES[name])
+              for name in LN_TIMED}
     for name in LN_TIMED:
         # the serving paths hold bf16 parameters, the training ones f32
         pdt = torch.bfloat16 if name == "decode" else torch.float32
         e = errs[label_of(name, torch.bfloat16, pdt)]
         rows[name]["fwd"]["max_abs_err"] = e["y"]
         rows[name]["bwd"]["max_abs_err"] = e["dx"]
+        e = errs[f"fold {name} {list(LN_SHAPES[name])} x bfloat16 params "
+                 f"{str(pdt)[6:]}"]
+        folded[name]["fwd"]["max_abs_err"] = e["y"]
+        folded[name]["bwd"]["max_abs_err"] = e["dx"]
 
     b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
     models = {
@@ -4509,43 +4806,43 @@ def phase_layer_norm(torch, card, steps: dict, serving: dict) -> dict:
     ab = {}
     for name in models:
         runs, best = graphed_runs(
-            torch, ("kernels", "former", "former", "kernels"),
-            lambda path: trainer_of(name),
-            lambda path: former_layer_norm() if path == "former" else
-            contextlib.nullcontext())
+            torch, ("folded", "unfolded", "unfolded", "folded"),
+            lambda path: trainer_of(name), path_context)
         ab[name] = {"runs": runs, "best": best}
-        print(f"[{card}] {name} step A/B (graphed, kernels/former/former/"
-              f"kernels): " + " | ".join(f"{p} " + ", ".join(
+        print(f"[{card}] {name} step A/B (graphed, folded/unfolded/unfolded/"
+              f"folded): " + " | ".join(f"{p} " + ", ".join(
                   f"{r['step_ms']:.3f} ms ({r['device_ms']:.3f} device, peak "
                   f"{r['peak_bytes'] / 2**30:.2f} GiB)" for r in rs)
                   for p, rs in runs.items())
-              + " | kernels/former "
-              f"{best['kernels']['step_ms'] / best['former']['step_ms']:.4f}"
-              f" | beside {LN_BEFORE_MS[name]} ms on the former LayerNorm "
-              "(PERF.md section 5)", flush=True)
+              + " | folded/unfolded "
+              f"{best['folded']['step_ms'] / best['unfolded']['step_ms']:.4f}"
+              f" | beside {LN_BEFORE_MS[name]} ms before the fold (PERF.md "
+              "section 5)", flush=True)
     decode = ln_decode_ab(torch, card)
-    print(f"[{card}] decode: phase 4's graphed decode step on the kernels "
+    print(f"[{card}] decode: phase 4's graphed decode step folded "
           f"{serving['graph']['decode_ms_per_step']:.4f} ms, "
           f"{serving['device_ms_per_step']:.4f} device ms, beside "
-          f"{LN_BEFORE_MS['decode']} before them", flush=True)
+          f"{LN_BEFORE_MS['decode']} before the fold", flush=True)
     shares = {}
     for name, shape in (("gpt", "gpt"), ("bert", "bert"), ("vit", "vit")):
-        r = rows[shape]
-        per_step = {k: LM_NORMS * (r["fwd"][k] + r["bwd"][k])
+        # a step: one unfolded pair and 24 folded ones
+        r, f = rows[shape], folded[shape]
+        per_step = {k: (r["fwd"][k] + r["bwd"][k]
+                        + (LM_NORMS - 1) * (f["fwd"][k] + f["bwd"][k]))
                     for k in ("ms", "plain_ms", "bound_ms")}
         device = steps[name]["device_ms"]
         copies = steps[name].get("shares", {}).get("copies and casts")
         shares[name] = {**per_step, "step_device_ms": device,
                         "share": per_step["ms"] / device,
                         "step_copies_share": copies}
-        print(f"[{card}] layer_norm in the {name} step: x{LM_NORMS} kernel "
-              f"pairs {per_step['ms']:.3f} ms = {100 * shares[name]['share']:.1f}"
+        print(f"[{card}] layer_norm in the {name} step: {LM_NORMS} kernel "
+              f"pairs (24 folded) {per_step['ms']:.3f} ms = {100 * shares[name]['share']:.1f}"
               f"% of its {device:.3f} device ms (plain versions "
               f"{per_step['plain_ms']:.3f} ms, bound "
               f"{per_step['bound_ms']:.3f} ms; the graphed call's copies "
               f"and casts {100 * (copies or 0):.1f}%)", flush=True)
-    return {"rows": rows, "errors": errs, "step_ab": ab, "decode": decode,
-            "shares": shares}
+    return {"rows": rows, "folded": folded, "errors": errs, "step_ab": ab,
+            "decode": decode, "shares": shares}
 
 
 def free_port() -> int:
@@ -4642,16 +4939,35 @@ LN_PATHS = (("gpt", "", "gpt", True), ("bert", "@bert", "bert", True),
             ("mesh_graph", "@mesh_graph", "gpt", True))
 
 
-def ln_entries(rows: dict) -> list:
+# the folded pair: the residual add that XLA fuses into the norm's fusion
+LN_ADD_REPLACES = "cron_operator_tpu/models/gpt.py:164"
+
+
+def ln_entries(rows: dict, folded: dict) -> list:
+    """Each path's unfolded and folded rows; ``LN_LAUNCHES[path]`` holds
+    (forward, backward) of both designs, then the folded design's."""
     source, replaces = LN_ROW
     names = {"fwd": "layer_norm", "bwd": "layer_norm_bwd"}
-    return [{"name": names[d] + suffix, "route": "cuda",
-             "design": "warp", "source": source, "replaces": replaces,
-             "launches": LN_LAUNCHES.get(path, [0, 0])[i],
-             "shape": list(LN_SHAPES[shape]), **rows[shape][d]}
-            for path, suffix, shape, backward in LN_PATHS
-            if path in LN_LAUNCHES
-            for i, d in enumerate(("fwd", "bwd")) if backward or d == "fwd"]
+    entries = []
+    for path, suffix, shape, backward in LN_PATHS:
+        if path not in LN_LAUNCHES:
+            continue
+        counts = LN_LAUNCHES[path]
+        for i, d in enumerate(("fwd", "bwd")):
+            if d == "bwd" and not backward:
+                continue
+            common = {"route": "cuda", "source": source,
+                      "shape": list(LN_SHAPES[shape])}
+            entries.append({"name": names[d] + suffix, "design": "warp",
+                            "replaces": replaces, **common,
+                            "launches": counts[i] - counts[2 + i],
+                            **rows[shape][d]})
+            entries.append({"name": names[d].replace(
+                                "layer_norm", "layer_norm_add") + suffix,
+                            "design": "warp_add",
+                            "replaces": LN_ADD_REPLACES, **common,
+                            "launches": counts[2 + i], **folded[shape][d]})
+    return entries
 
 
 def main() -> None:
@@ -4865,7 +5181,7 @@ def main() -> None:
         *xent_entries(loss["rows"]),
         # the LayerNorm pair on every path that launched it (phases 3, 5, 7,
         # 8, 9, 11, 13-16 and 18), each row at its path's rows (phase 22)
-        *ln_entries(norm["rows"]),
+        *ln_entries(norm["rows"], norm["folded"]),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from cron_operator_tpu_torch.models.gpt import LN_EPS, DecoderLayer
+from cron_operator_tpu_torch.models.gpt import LN_EPS, DecoderLayer, fold_blocks
 from cron_operator_tpu_torch.models.layers import (
     LayerNorm,
     add_positions,
@@ -103,13 +103,15 @@ class Bert(nn.Module):
         x = self.tok_emb(input_ids).to(dt)
         if self.pos_emb is not None:
             x = add_positions(x, self.pos_emb[:input_ids.shape[1]].to(dt))
-        for layer in self.layers:
-            x, _ = layer(x)
+        # each block's input add folded into its first norm, the last
+        # block's into ln_f (gpt.fold_blocks)
+        x, r, _ = fold_blocks(self.layers, x)
+        h = self.ln_f.add_norm(x, r)[1]
         if self.config.return_hidden:
-            return self.ln_f(x), self.tok_emb.weight
+            return h, self.tok_emb.weight
         # tied output embedding (flax tok.attend) in cfg.dtype, then f32,
         # through a zero-padded table (layers.tied_logits)
-        return tied_logits(self.ln_f(x), self.tok_emb.weight, dt)
+        return tied_logits(h, self.tok_emb.weight, dt)
 
 
 __all__ = ["Bert", "BertConfig", "EncoderLayer"]

@@ -190,15 +190,26 @@ class DecoderLayer(nn.Module):
         cache_k: Optional[torch.Tensor] = None,
         cache_v: Optional[torch.Tensor] = None,
         pos: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        r: Optional[torch.Tensor] = None,
+        fold: bool = False,
+    ) -> tuple:
         """Full pass when ``pos`` is None (writing the prompt's K/V into the
         cache buffers when given: prefill); one-token decode at cache
         position ``pos`` (a 1-element int64 tensor) otherwise. Returns the
         block's output and the MoE block's aux loss (None for a dense
-        FFN)."""
+        FFN).
+
+        With ``fold`` the residual adds are left to the norms: the block's
+        input is ``x + r`` (``r`` the previous block's MLP branch, None for
+        the first block), which ``ln_attn`` adds as it normalises, as
+        ``ln_mlp`` adds the attention branch; the block returns the
+        residual stream before its last add, the MLP branch that the next
+        norm adds (the next block's ``ln_attn``, or the model's ``ln_f``)
+        and the aux loss. XLA fuses each add into the norm after it in the
+        reference (``cron_operator_tpu/models/gpt.py:164-166, 174``)."""
         cfg = self.config
         b, s, _ = x.shape
-        y = self.ln_attn(x)
+        x, y = self.ln_attn.add_norm(x, r)
         decode = pos is not None
         q, k, v = self.attn(y, rope_positions=pos)
         if decode:
@@ -210,14 +221,13 @@ class DecoderLayer(nn.Module):
             if cache_k is not None:
                 cache_k[:, :s] = k
                 cache_v[:, :s] = v
-        x = x + self.out(attn.reshape(b, s, -1))
-        y = self.ln_mlp(x)
+        x, y = self.ln_mlp.add_norm(x, self.out(attn.reshape(b, s, -1)))
         aux = None
         if self.moe is not None:
             y, aux = self.moe(y, decode=decode)
         else:
             y = self.fc_out(F.gelu(self.fc_in(y), approximate="tanh"))
-        return x + y, aux
+        return (x, y, aux) if fold else (x + y, aux)
 
     def _decode_attention(self, q, k, v, cache_k, cache_v, pos):
         """One-token attention against the layer's cache: the new K/V land
@@ -227,6 +237,25 @@ class DecoderLayer(nn.Module):
         cache_k.index_copy_(1, pos, k)
         cache_v.index_copy_(1, pos, v)
         return decode_attention(q, cache_k, cache_v, pos)
+
+
+def fold_blocks(layers, x: torch.Tensor, caches=None,
+                pos: Optional[torch.Tensor] = None):
+    """``layers`` (pre-LN blocks) over the embedded ``x``, each block's
+    input add folded into its first norm (``DecoderLayer`` with ``fold``,
+    called as a module so that its hooks run: FSDP2 gathers a block's
+    parameters in one), with
+    the caches' ``(k, v)`` a layer and ``pos`` when serving. Returns the
+    residual stream and the last MLP branch, which the final norm adds
+    (``LayerNorm.add_norm``), and the summed aux loss (None for dense
+    blocks)."""
+    r, aux = None, None
+    caches = caches or [(None, None)] * len(layers)
+    for layer, (ck, cv) in zip(layers, caches):
+        x, r, layer_aux = layer(x, ck, cv, pos, r=r, fold=True)
+        if layer_aux is not None:
+            aux = layer_aux if aux is None else aux + layer_aux
+    return x, r, aux
 
 
 class GPT(nn.Module):
@@ -300,27 +329,32 @@ class GPT(nn.Module):
             x = add_positions(x, table.to(dt))
         return x
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor,
+                r: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The tied output embedding (flax ``tok.attend``) in ``cfg.dtype``,
-        then f32, through a zero-padded table (:func:`layers.tied_logits`).
+        then f32, through a zero-padded table (:func:`layers.tied_logits`),
+        of ``ln_f(x + r)``, the last block's add folded into the norm.
         Serving (no autograd) keeps its padded table across calls, so a
         decode step copies none. FSDP2 writes the gathered weight without
         bumping its version counter, so a model it wraps pads at use."""
         cache = None if isinstance(self, FSDPModule) else self._vocab_table
-        return tied_logits(self.ln_f(x), self.tok_emb.weight,
+        return tied_logits(self.ln_f.add_norm(x, r)[1], self.tok_emb.weight,
                            self.config.dtype, cache)
 
+    def refresh_vocab_table(self) -> None:
+        """Refills the padded vocab table now if the weight changed since
+        it was filled (a restore, a training step): a replayed prefill or
+        decode step reads the table in place and runs no Python that could
+        refill it."""
+        if not isinstance(self, FSDPModule):
+            self._vocab_table.get(self.tok_emb.weight, self.config.dtype)
+
     def forward(self, input_ids: torch.Tensor):
-        x = self._embed(input_ids)
-        aux = None
-        for layer in self.layers:
-            x, layer_aux = layer(x)
-            if layer_aux is not None:
-                aux = layer_aux if aux is None else aux + layer_aux
+        x, r, aux = fold_blocks(self.layers, self._embed(input_ids))
         if self.config.return_hidden:
-            out = self.ln_f(x), self.tok_emb.weight
+            out = self.ln_f.add_norm(x, r)[1], self.tok_emb.weight
         else:
-            out = self._logits(x)
+            out = self._logits(x, r)
         if not self.has_moe:
             return out
         return out, self.config.moe_aux_weight * aux
@@ -328,21 +362,20 @@ class GPT(nn.Module):
     def prefill(self, input_ids: torch.Tensor, cache: KVCache) -> torch.Tensor:
         """One batched causal pass over the prompt ``[b, p]`` that fills every
         layer's cache; returns the last position's logits ``[b, vocab]``."""
-        x = self._embed(input_ids)
-        for layer, ck, cv in zip(self.layers, cache.k, cache.v):
-            x, _ = layer(x, ck, cv)
+        x, r, _ = fold_blocks(self.layers, self._embed(input_ids),
+                              list(zip(cache.k, cache.v)))
         cache.pos.fill_(input_ids.shape[1])
-        return self._logits(x[:, -1:])[:, 0]
+        return self._logits(x[:, -1:], r[:, -1:])[:, 0]
 
     def decode(self, token: torch.Tensor, cache: KVCache) -> torch.Tensor:
         """One token ``[b, 1]`` at the cache's next position; returns its
         logits ``[b, vocab]`` and advances the position, on the device."""
         pos = cache.pos.reshape(1)
-        x = self._embed(token, pos)
-        for layer, ck, cv in zip(self.layers, cache.k, cache.v):
-            x, _ = layer(x, ck, cv, pos=pos)
+        x, r, _ = fold_blocks(self.layers, self._embed(token, pos),
+                              list(zip(cache.k, cache.v)), pos)
         cache.pos.add_(1)
-        return self._logits(x)[:, 0]
+        return self._logits(x, r)[:, 0]
 
 
-__all__ = ["GPT", "GPTConfig", "DecoderLayer", "KVCache", "MoEBlock"]
+__all__ = ["GPT", "GPTConfig", "DecoderLayer", "KVCache", "MoEBlock",
+           "fold_blocks"]

@@ -26,7 +26,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from cron_operator_tpu_torch.ops.group_norm import group_norm
-from cron_operator_tpu_torch.ops.layer_norm import layer_norm
+from cron_operator_tpu_torch.ops.layer_norm import add_layer_norm, layer_norm
 from cron_operator_tpu_torch.ops.rope import apply_rope
 from cron_operator_tpu_torch.parallel.mesh import on_local_rows, on_own_rows
 
@@ -244,7 +244,12 @@ class LayerNorm(nn.LayerNorm):
     their own dtypes; on the CPU the former arithmetic, to the bit). On a
     DTensor (the ``tensor``, ``expert`` and ``seq`` meshes) each rank
     normalises its own rows (``on_own_rows``): no mesh splits the
-    features."""
+    features.
+
+    :meth:`add_norm` takes the residual add before the norm into the same
+    kernels (``ops.layer_norm.add_layer_norm``), as a pre-LN block's add
+    and the next norm; on a DTensor the add stays torch's, then the norm on
+    each rank's own rows."""
 
     def __init__(self, features: int, *, eps: float,
                  compute_dtype: torch.dtype, device=None,
@@ -256,6 +261,18 @@ class LayerNorm(nn.LayerNorm):
         if isinstance(x, DTensor):
             return on_own_rows(self._norm, x, self.weight, self.bias)
         return self._norm(x, self.weight, self.bias)
+
+    def add_norm(self, x: torch.Tensor, r: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(s, norm(s))`` with ``s = x + r``, the residual stream and its
+        norm (``r`` None: ``(x, norm(x))``)."""
+        if r is None:
+            return x, self(x)
+        if isinstance(x, DTensor) or isinstance(r, DTensor):
+            s = x + r
+            return s, self(s)
+        return add_layer_norm(x, r, self.weight, self.bias, eps=self.eps,
+                              out_dtype=self.compute_dtype)
 
     def _norm(self, x, weight, bias):
         return layer_norm(x, weight, bias, eps=self.eps,

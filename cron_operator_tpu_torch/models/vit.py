@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from cron_operator_tpu_torch.models.bert import EncoderLayer
-from cron_operator_tpu_torch.models.gpt import LN_EPS
+from cron_operator_tpu_torch.models.gpt import LN_EPS, fold_blocks
 from cron_operator_tpu_torch.models.layers import (
     Conv2d,
     LayerNorm,
@@ -114,9 +114,10 @@ class ViT(nn.Module):
         x = torch.cat([cls, x], dim=1)
         if self.pos_emb is not None:
             x = x + self.pos_emb.to(cfg.dtype)[None]
-        for layer in self.layers:
-            x, _ = layer(x)
-        return self.head(self.ln_f(x)[:, 0].float())
+        # each block's input add folded into its first norm, the last
+        # block's into ln_f (gpt.fold_blocks)
+        x, r, _ = fold_blocks(self.layers, x)
+        return self.head(self.ln_f.add_norm(x, r)[1][:, 0].float())
 
 
 __all__ = ["ViT", "ViTConfig"]

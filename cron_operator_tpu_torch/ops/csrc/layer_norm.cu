@@ -12,6 +12,16 @@
 // reads x (and dy) in their own dtype once and writes y (dx) once, in that
 // dtype, and keeps only f32 [T] statistics.
 //
+// The folded pair takes the residual add before the norm into the same
+// launch, as XLA fuses the add into the norm's fusion in the reference
+// (cron_operator_tpu/models/gpt.py:164-166, 174 -> 139 and 311;
+// models/bert.py:83-89, 117): layer_norm_add_fwd reads the residual rows x
+// and the branch rows r, writes s = x + r rounded once to their dtype (the
+// residual stream, the bits of torch's add) and normalises that rounded s.
+// Its backward is layer_norm_bwd given ds, the residual stream's incoming
+// gradient: dx_total = dx + ds in f32, rounded once, which both x and r
+// receive (the former path rounded dx, then added ds in bf16).
+//
 // Function (row t of T, H columns; flax's _normalize order):
 //   forward   mean_t = sum_j x_tj / H,
 //             var_t  = sum_j (x_tj - mean_t)^2 / H   (centred squares of
@@ -30,6 +40,9 @@
 // at 3.35 TB/s; the backward reads x and dy and writes dx (37.75 MB, with
 // the statistics and parameters 37.8 MB), 11.3 us. The arithmetic is about
 // ten f32 operations an element: 63 M forward, about 1 us at 67 TFLOP/s.
+// Folded, the forward also reads r and writes s (50.4 MB, 15.0 us) and the
+// backward reads ds (50.4 MB, 15.0 us); a decode step's [8, 768] is a
+// latency, not a byte count.
 //
 // Design "warp": a row is read once, in 16-byte vectors, into the registers
 // of one warp, which hold it while its sums are formed, and y (dx) is
@@ -47,7 +60,11 @@
 // memory laid out lane-minor, free of bank conflicts (a first design added
 // them in eight serial rounds at 8-way conflicts, which took as long as the
 // rows themselves), and warp 0 writes the block's f32 partial row of each;
-// a second launch sums each column's partial rows in a fixed order.
+// a second launch sums each column's partial rows in a fixed order. It is
+// launched as the first's programmatic dependent (the first grid allows it
+// at its start, it waits for that grid's end with griddepcontrol.wait): at
+// BERT-base's rows the gap between two plain launches and the second's own
+// start took about a third of the pair's time.
 // No atomics: reruns are bit-identical. Nothing allocates or synchronises,
 // so a CUDA graph capture of a step holds.
 
@@ -100,6 +117,15 @@ struct Chunk<float> {
     v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
     v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
   }
+  __device__ void pack(const float (&v)[CHUNK]) {
+    a = make_float4(v[0], v[1], v[2], v[3]);
+    b = make_float4(v[4], v[5], v[6], v[7]);
+  }
+  __device__ void put(float* p) const {
+    float4* q = reinterpret_cast<float4*>(p);
+    q[0] = a;
+    q[1] = b;
+  }
   __device__ static void store(float* p, const float (&v)[CHUNK]) {
     float4* q = reinterpret_cast<float4*>(p);
     q[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -114,6 +140,10 @@ struct Chunk<__nv_bfloat16> {
     r = __ldg(reinterpret_cast<const uint4*>(p));
   }
   __device__ void unpack(float (&v)[CHUNK]) const { unpack_bf16(r, v); }
+  __device__ void pack(const float (&v)[CHUNK]) { r = pack_bf16(v); }
+  __device__ void put(__nv_bfloat16* p) const {
+    *reinterpret_cast<uint4*>(p) = r;
+  }
   __device__ static void store(__nv_bfloat16* p, const float (&v)[CHUNK]) {
     *reinterpret_cast<uint4*>(p) = pack_bf16(v);
   }
@@ -152,9 +182,13 @@ __device__ __forceinline__ float2 row_sum(float2 s) {
   return s;
 }
 
-template <int CHUNKS, typename T>
+// ADD: the rows normalised are s = x + r, rounded once to T (the bits of
+// torch's add in T) and written to s_out [rows, h] contiguous; else x.
+template <int CHUNKS, typename T, bool ADD>
 __global__ void __launch_bounds__(THREADS)
     layer_norm_fwd_kernel(const T* __restrict__ x, long long x_stride,
+                          const T* __restrict__ r, long long r_stride,
+                          T* __restrict__ s_out,
                           const void* __restrict__ gamma,
                           const void* __restrict__ beta, bool p_bf16,
                           void* __restrict__ y, bool y_bf16,
@@ -166,11 +200,34 @@ __global__ void __launch_bounds__(THREADS)
   if (row >= rows) return;  // a whole warp leaves together
   const int chunks = h / CHUNK;
   const T* xr = x + static_cast<size_t>(row) * x_stride;
+  const size_t out_row = static_cast<size_t>(row) * h;
   Chunk<T> held[CHUNKS];
 #pragma unroll
   for (int k = 0; k < CHUNKS; ++k) {
     const int i = t + k * 32;
     if (i < chunks) held[k].load(xr + static_cast<size_t>(i) * CHUNK);
+  }
+  if constexpr (ADD) {
+    const T* rr = r + static_cast<size_t>(row) * r_stride;
+    Chunk<T> branch[CHUNKS];
+#pragma unroll
+    for (int k = 0; k < CHUNKS; ++k) {
+      const int i = t + k * 32;
+      if (i < chunks) branch[k].load(rr + static_cast<size_t>(i) * CHUNK);
+    }
+#pragma unroll
+    for (int k = 0; k < CHUNKS; ++k) {
+      const int i = t + k * 32;
+      if (i < chunks) {
+        float v[CHUNK], b[CHUNK];
+        held[k].unpack(v);
+        branch[k].unpack(b);
+#pragma unroll
+        for (int j = 0; j < CHUNK; ++j) v[j] += b[j];
+        held[k].pack(v);  // rounded once: the norm reads what s holds
+        held[k].put(s_out + out_row + static_cast<size_t>(i) * CHUNK);
+      }
+    }
   }
   float sum = 0.f;
 #pragma unroll
@@ -199,7 +256,6 @@ __global__ void __launch_bounds__(THREADS)
   }
   const float var = row_sum(make_float2(sq, 0.f)).x / fh;
   const float rstd = rsqrtf(var + eps);
-  const size_t out_row = static_cast<size_t>(row) * h;
 #pragma unroll
   for (int k = 0; k < CHUNKS; ++k) {
     const int i = t + k * 32;
@@ -220,10 +276,13 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int CHUNKS, typename T, typename D>
+// RESID: dx += ds, the residual stream's gradient [rows, h] of T at row
+// stride ds_stride, before dx's one rounding.
+template <int CHUNKS, typename T, typename D, bool RESID>
 __global__ void __launch_bounds__(THREADS)
     layer_norm_bwd_kernel(const T* __restrict__ x, long long x_stride,
                           const D* __restrict__ dy, long long dy_stride,
+                          const T* __restrict__ ds, long long ds_stride,
                           const float* __restrict__ mean,
                           const float* __restrict__ rstd,
                           const void* __restrict__ gamma, bool p_bf16,
@@ -233,6 +292,9 @@ __global__ void __launch_bounds__(THREADS)
   // a warp's store or load of one value touches 32 banks once
   constexpr int HELD = 2 * CHUNKS * CHUNK;
   extern __shared__ float tree[];  // [WARPS / 2][HELD][32]
+  // the second launch (layer_norm_params_kernel) may start now: its blocks
+  // wait for this grid's end before they read a partial row
+  asm volatile("griddepcontrol.launch_dependents;");
   const int t = threadIdx.x & 31;
   const int slot = threadIdx.x / 32;
   const int chunks = h / CHUNK;
@@ -246,7 +308,7 @@ __global__ void __launch_bounds__(THREADS)
        row += gridDim.x * WARPS) {
     const T* xr = x + static_cast<size_t>(row) * x_stride;
     const D* dyr = dy + static_cast<size_t>(row) * dy_stride;
-    Chunk<T> xc[CHUNKS];
+    Chunk<T> xc[CHUNKS], sc[CHUNKS];
     Chunk<D> dc[CHUNKS];
 #pragma unroll
     for (int k = 0; k < CHUNKS; ++k) {
@@ -254,6 +316,9 @@ __global__ void __launch_bounds__(THREADS)
       if (i < chunks) {
         xc[k].load(xr + static_cast<size_t>(i) * CHUNK);
         dc[k].load(dyr + static_cast<size_t>(i) * CHUNK);
+        if constexpr (RESID)
+          sc[k].load(ds + static_cast<size_t>(row) * ds_stride +
+                     static_cast<size_t>(i) * CHUNK);
       }
     }
     const float m = __ldg(mean + row), r = __ldg(rstd + row);
@@ -292,6 +357,12 @@ __global__ void __launch_bounds__(THREADS)
         for (int j = 0; j < CHUNK; ++j) {
           const float xh = (xv[j] - m) * r;
           xv[j] = r * (g[j] * dv[j] - a - xh * b);
+        }
+        if constexpr (RESID) {
+          float sv[CHUNK];
+          sc[k].unpack(sv);
+#pragma unroll
+          for (int j = 0; j < CHUNK; ++j) xv[j] += sv[j];
         }
         Chunk<T>::store(dxr + static_cast<size_t>(i) * CHUNK, xv);
       }
@@ -348,6 +419,9 @@ __global__ void __launch_bounds__(THREADS)
                              int h, void* __restrict__ dgamma,
                              void* __restrict__ dbeta, bool p_bf16) {
   __shared__ float2 red[PARAM_LANES][PARAM_COLS];
+  // launched early (programmatic dependent launch): wait for the row
+  // kernel's grid to end and its partial rows to be visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   const int j = threadIdx.x % PARAM_COLS, lane = threadIdx.x / PARAM_COLS;
   const int c = blockIdx.x * PARAM_COLS + j;  // < h: h is a multiple of 8
   float2 v[PARAM_ROWS];
@@ -435,10 +509,39 @@ int layer_norm_fwd(const void* x, long long x_stride, const void* gamma,
   return by_chunks(chunks, [&](auto c) {
     return by_type(x_dtype, [&](auto t) {
       using T = decltype(t);
-      layer_norm_fwd_kernel<decltype(c)::value, T>
+      layer_norm_fwd_kernel<decltype(c)::value, T, false>
           <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-              static_cast<const T*>(x), x_stride, gamma, beta, p_dtype == 1,
-              y, y_dtype == 1, static_cast<float*>(mean),
+              static_cast<const T*>(x), x_stride, nullptr, 0, nullptr, gamma,
+              beta, p_dtype == 1, y, y_dtype == 1, static_cast<float*>(mean),
+              static_cast<float*>(rstd), rows, h, eps);
+      return static_cast<int>(cudaGetLastError());
+    });
+  });
+}
+
+// The folded forward: x and r [rows, h] of x_dtype at row strides x_stride
+// and r_stride; s = x + r (rounded once to x_dtype) written to s [rows, h]
+// contiguous, then layer_norm_fwd's y, mean and rstd of s. One launch.
+int layer_norm_add_fwd(const void* x, long long x_stride, const void* r,
+                       long long r_stride, void* s, const void* gamma,
+                       const void* beta, void* y, void* mean, void* rstd,
+                       int x_dtype, int p_dtype, int y_dtype, int rows, int h,
+                       float eps, int chunks, void* stream) {
+  if (!code_ok(x_dtype) || !code_ok(p_dtype) || !code_ok(y_dtype) ||
+      !plan_ok(rows, h, chunks, x_stride, x_dtype) ||
+      !plan_ok(rows, h, chunks, r_stride, x_dtype) || !aligned(x) ||
+      !aligned(r) || !aligned(s) || !aligned(gamma) || !aligned(beta) ||
+      !aligned(y))
+    return cudaErrorInvalidValue;
+  const int grid = (rows + WARPS - 1) / WARPS;
+  return by_chunks(chunks, [&](auto c) {
+    return by_type(x_dtype, [&](auto t) {
+      using T = decltype(t);
+      layer_norm_fwd_kernel<decltype(c)::value, T, true>
+          <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+              static_cast<const T*>(x), x_stride, static_cast<const T*>(r),
+              r_stride, static_cast<T*>(s), gamma, beta, p_dtype == 1, y,
+              y_dtype == 1, static_cast<float*>(mean),
               static_cast<float*>(rstd), rows, h, eps);
       return static_cast<int>(cudaGetLastError());
     });
@@ -446,19 +549,26 @@ int layer_norm_fwd(const void* x, long long x_stride, const void* gamma,
 }
 
 // x as layer_norm_fwd's, dy [rows, h] of dy_dtype at row stride dy_stride,
+// ds null or [rows, h] of x_dtype at row stride ds_stride (added to dx),
 // mean and rstd from it, gamma [h] of p_dtype; dx [rows, h] contiguous of
 // x_dtype; part f32 [grid][2][h] scratch; dgamma and dbeta [h] of p_dtype.
 // Two launches: `grid` blocks (1 <= grid <= MAX_BWD_BLOCKS, and at most
-// the forward's grid) walking the rows, then h / 8 summing the partials.
+// the forward's grid) walking the rows, then h / 8 summing the partials,
+// launched as the first's programmatic dependent, so that its blocks are
+// resident and waiting when the first grid ends.
 int layer_norm_bwd(const void* x, long long x_stride, const void* dy,
-                   long long dy_stride, const void* mean, const void* rstd,
-                   const void* gamma, void* dx, void* part, void* dgamma,
-                   void* dbeta, int x_dtype, int dy_dtype, int p_dtype,
-                   int rows, int h, int chunks, int grid, void* stream) {
+                   long long dy_stride, const void* ds, long long ds_stride,
+                   const void* mean, const void* rstd, const void* gamma,
+                   void* dx, void* part, void* dgamma, void* dbeta,
+                   int x_dtype, int dy_dtype, int p_dtype, int rows, int h,
+                   int chunks, int grid, void* stream) {
   if (!code_ok(x_dtype) || !code_ok(dy_dtype) || !code_ok(p_dtype) ||
       !plan_ok(rows, h, chunks, x_stride, x_dtype) ||
       !plan_ok(rows, h, chunks, dy_stride, dy_dtype) || !aligned(x) ||
-      !aligned(dy) || !aligned(gamma) || !aligned(dx))
+      !aligned(dy) || !aligned(gamma) || !aligned(dx) || !aligned(part))
+    return cudaErrorInvalidValue;
+  if (ds != nullptr &&
+      (!plan_ok(rows, h, chunks, ds_stride, x_dtype) || !aligned(ds)))
     return cudaErrorInvalidValue;
   if (grid < 1 || grid > MAX_BWD_BLOCKS || grid > (rows + WARPS - 1) / WARPS)
     return cudaErrorInvalidValue;
@@ -471,19 +581,35 @@ int layer_norm_bwd(const void* x, long long x_stride, const void* dy,
         constexpr int C = decltype(c)::value;
         // the tree: half the warps' partials, 24 KB at 3 chunks a lane
         const int smem = WARPS / 2 * 2 * C * CHUNK * 32 * sizeof(float);
-        layer_norm_bwd_kernel<C, T, D><<<grid, THREADS, smem, s>>>(
-            static_cast<const T*>(x), x_stride, static_cast<const D*>(dy),
-            dy_stride, static_cast<const float*>(mean),
-            static_cast<const float*>(rstd), gamma, p_dtype == 1,
-            static_cast<T*>(dx), static_cast<float*>(part), rows, h);
+        auto launch = [&](auto kernel) {
+          kernel<<<grid, THREADS, smem, s>>>(
+              static_cast<const T*>(x), x_stride, static_cast<const D*>(dy),
+              dy_stride, static_cast<const T*>(ds), ds_stride,
+              static_cast<const float*>(mean),
+              static_cast<const float*>(rstd), gamma, p_dtype == 1,
+              static_cast<T*>(dx), static_cast<float*>(part), rows, h);
+        };
+        if (ds != nullptr)
+          launch(layer_norm_bwd_kernel<C, T, D, true>);
+        else
+          launch(layer_norm_bwd_kernel<C, T, D, false>);
         return static_cast<int>(cudaGetLastError());
       });
     });
   });
   if (err != cudaSuccess) return err;
-  layer_norm_params_kernel<<<h / PARAM_COLS, THREADS, 0, s>>>(
-      static_cast<const float*>(part), grid, h, dgamma, dbeta, p_dtype == 1);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(h / PARAM_COLS);
+  config.blockDim = dim3(THREADS);
+  config.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &config, layer_norm_params_kernel, static_cast<const float*>(part),
+      grid, h, dgamma, dbeta, p_dtype == 1));
 }
 
 const char* layer_norm_error_string(int err) {

@@ -156,7 +156,11 @@ class StepGraph:
 
     ``generators`` (torch.Generators on the card) are registered with the
     graph, so each replay draws what the eager call would have drawn at
-    that point of the generator's stream. The capture runs with
+    that point of the generator's stream. ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``) is the memory pool the capture
+    allocates from, shared with the other graphs given it; a caller shares
+    one only between graphs that never run at the same time. By default
+    the graph has a pool of its own. The capture runs with
     ``capture_error_mode="thread_local"``: other threads of the process
     (a staging thread, other jobs) keep using the card meanwhile.
 
@@ -170,7 +174,8 @@ class StepGraph:
     def __init__(self, fn: Callable[[Dict[str, torch.Tensor]], Any],
                  generators: Sequence[torch.Generator] = (),
                  warmup: int = 1,
-                 stream: Optional[torch.cuda.Stream] = None):
+                 stream: Optional[torch.cuda.Stream] = None,
+                 pool: Optional[tuple] = None):
         # A bound method (the Trainer's step) is held weakly: its owner
         # holds this graph, and a strong reference back would make a cycle
         # that keeps a deleted owner's graph, and its memory pool, alive
@@ -180,6 +185,7 @@ class StepGraph:
         self._generators = tuple(generators)
         self._warmup = max(1, int(warmup))
         self._side = stream
+        self._pool = pool
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._inputs: Dict[str, torch.Tensor] = {}
         self._outputs: Any = None
@@ -218,7 +224,7 @@ class StepGraph:
             for gen in self._generators:
                 graph.register_generator_state(gen)
             with capture_launches(side.cuda_stream) as launches, \
-                    torch.cuda.graph(graph, stream=side,
+                    torch.cuda.graph(graph, pool=self._pool, stream=side,
                                      capture_error_mode="thread_local"):
                 self._outputs = fn(self._inputs)
         main.wait_stream(side)

@@ -1,16 +1,24 @@
 """Autoregressive generation — the serving path for the GPT family.
 
 The prompt is consumed by one batched causal pass that fills the KV cache
-(prefill, eager, through the flash kernel on the card), then ``max_new - 1``
+(prefill, through the flash kernel on the card), then ``max_new - 1``
 single-token decode steps follow, each sampling from its logits. The JAX
-package compiles the whole generation into one program (a ``lax.scan`` over
-the decode steps) and keeps an LRU of compiled functions (``_COMPILED``).
-On the card the port captures one decode step with its sampling as a CUDA
-graph (:class:`parallel.overlap.StepGraph`) and replays it for every new
-token. The captured steps live in an LRU of ``_DECODERS_CAP`` entries, one
-per (model, batch, greedy), each with the static KV cache its graph writes;
-a lock guards the LRU, since the executor runs jobs on threads. On the CPU,
-and with ``captured=False`` on the card, the same step runs eagerly.
+package compiles the whole generation into one program (the prefill, then
+a ``lax.scan`` over the decode steps, under one ``jax.jit``) and keeps an
+LRU of compiled functions (``_COMPILED``, keyed by config, ``max_new`` and
+greedy; jit specialises on the prompt's shape). On the card the port
+captures the prefill with its sampling of the first token, and one decode
+step with its sampling, as CUDA graphs
+(:class:`parallel.overlap.StepGraph`), and replays them: the prefill once
+a generation, the decode step for every new token. The graphs live in an
+LRU of ``_DECODERS_CAP`` entries, one per (model, batch, greedy), each
+with the static KV cache its graphs write and one graph memory pool that
+they share (they run one after another under the entry's lock, never at
+once); an entry keeps the prefill graphs of its last ``_PREFILLS_CAP``
+prompt lengths. A lock guards the LRU, since the executor runs jobs on
+threads. On the CPU, and with ``captured=False`` on the card, the same
+prefill and steps run eagerly. A failed capture or replay raises; nothing
+falls back to eager.
 
 Decode is bandwidth-bound (every step reads the parameters and the whole
 static KV cache); batch is the throughput lever.
@@ -40,6 +48,10 @@ from cron_operator_tpu_torch.parallel.overlap import StepGraph
 _DECODERS_CAP = 8
 _DECODERS: "OrderedDict[tuple, _Decoder]" = OrderedDict()
 _DECODERS_LOCK = threading.Lock()
+# Prompt lengths whose captured prefill an entry keeps, least recently used
+# dropped first: a long-lived executor must not keep a graph for every
+# length it has served.
+_PREFILLS_CAP = 4
 
 
 def _sample(logits: torch.Tensor, temperature: Optional[torch.Tensor],
@@ -57,11 +69,13 @@ def _sample(logits: torch.Tensor, temperature: Optional[torch.Tensor],
 
 
 class _Decoder:
-    """A model's decode step with its sampling for ``batch`` sequences, on
-    a KV cache of its own: captured at its first use and replayed after.
-    Sampling draws from ``generator``, registered with the graph; the
-    temperature is a device tensor filled before each generation. The
-    model is held weakly: a decoder whose model is gone is dropped."""
+    """A model's prefill and decode step, each with its sampling, for
+    ``batch`` sequences, on a KV cache of its own: each captured at its
+    first use and replayed after, the prefill once per prompt length
+    (:meth:`prefill`). Sampling draws from ``generator``, registered with
+    the graphs; the temperature is a device tensor filled before each
+    generation. The graphs share one memory pool (made on the card only).
+    The model is held weakly: a decoder whose model is gone is dropped."""
 
     def __init__(self, model: GPT, batch: int, greedy: bool,
                  generator: Optional[torch.Generator]):
@@ -71,12 +85,34 @@ class _Decoder:
         self.cache = model.new_cache(batch)
         self.temperature = (None if greedy else
                             torch.ones((), device=self.cache.pos.device))
-        self.step = StepGraph(
-            self._decode, generators=() if greedy else (generator,))
+        self.generators = () if greedy else (generator,)
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if self.cache.pos.is_cuda else None)
+        self.step = StepGraph(self._decode, generators=self.generators,
+                              pool=self.pool)
+        self.prefills: "OrderedDict[int, StepGraph]" = OrderedDict()
 
     def _decode(self, inputs):
         logits = self.model().decode(inputs["token"], self.cache)
         return _sample(logits, self.temperature, self.generator)
+
+    def _prefill(self, inputs):
+        logits = self.model().prefill(inputs["prompt"], self.cache)
+        return _sample(logits, self.temperature, self.generator)
+
+    def prefill(self, prompt_len: int) -> StepGraph:
+        """The prefill graph of prompts of ``prompt_len`` tokens (new, or
+        the one kept), most recently used now; past :data:`_PREFILLS_CAP`
+        lengths the least recently used is dropped. Called under
+        :attr:`lock`."""
+        graph = self.prefills.get(prompt_len)
+        if graph is None:
+            graph = self.prefills[prompt_len] = StepGraph(
+                self._prefill, generators=self.generators, pool=self.pool)
+            while len(self.prefills) > _PREFILLS_CAP:
+                self.prefills.popitem(last=False)
+        self.prefills.move_to_end(prompt_len)
+        return graph
 
 
 def _decoder(model: GPT, batch: int, greedy: bool,
@@ -142,10 +178,14 @@ def generate(
         with decoder.lock:
             if decoder.temperature is not None:
                 decoder.temperature.fill_(temperature)
+            prefill = decoder.prefill(p)
+            # a replay runs no Python: a weight restored in place since the
+            # last call gets its padded table here
+            model.refresh_vocab_table()
+            # each graph's output: the next replay rewrites it
             return _generate(
-                model, prompt_ids, max_new_tokens, decoder.cache,
-                decoder.temperature, generator,
-                # the graph's output: the next replay rewrites it
+                prompt_ids, max_new_tokens,
+                lambda: prefill({"prompt": prompt_ids}).clone(),
                 lambda inputs: decoder.step(inputs).clone())
     cache = model.new_cache(b)
     temp = (None if greedy else
@@ -154,18 +194,19 @@ def generate(
     def step(inputs):
         return _sample(model.decode(inputs["token"], cache), temp, generator)
 
-    return _generate(model, prompt_ids, max_new_tokens, cache, temp,
-                     generator, step)
+    return _generate(
+        prompt_ids, max_new_tokens,
+        lambda: _sample(model.prefill(prompt_ids, cache), temp, generator),
+        step)
 
 
-def _generate(model: GPT, prompt_ids: torch.Tensor, max_new_tokens: int,
-              cache, temperature: Optional[torch.Tensor],
-              generator: Optional[torch.Generator],
-              step: Callable) -> torch.Tensor:
-    """Prefill, then ``max_new_tokens - 1`` calls of ``step`` (each feeds
-    the previous token and samples from the fresh logits: the last sampled
-    token never needs a forward of its own)."""
-    tok = _sample(model.prefill(prompt_ids, cache), temperature, generator)
+def _generate(prompt_ids: torch.Tensor, max_new_tokens: int,
+              first: Callable, step: Callable) -> torch.Tensor:
+    """``first()``, the prefill and its sampled token, then
+    ``max_new_tokens - 1`` calls of ``step`` (each feeds the previous token
+    and samples from the fresh logits: the last sampled token never needs a
+    forward of its own)."""
+    tok = first()
     toks = [tok]
     for _ in range(max_new_tokens - 1):
         tok = step({"token": tok[:, None]})

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The LayerNorm backward's grid, timed on one card.
+"""The LayerNorm backward's grid, and where its time goes, on one card.
 
 Run from the root of a checkout, on a machine with an H100::
 
-    python3 hack/torch_layer_norm_sweep.py
+    python3 hack/torch_layer_norm_sweep.py          # the grid sweep
+    python3 hack/torch_layer_norm_sweep.py split    # the launches' split
 
 ``ops/csrc/layer_norm.cu``'s backward at GPT-2 small's ``[8192, 768]``,
 BERT-base's ``[4096, 768]`` and ViT-B's ``[12608, 768]`` in bf16, at grids
@@ -14,6 +15,13 @@ reading is the device time of one call with the card held busy
 (``ops.microbench.device_ms``) beside the byte bound. One JSON line a
 reading, then the card line. This is the reading behind
 ``ops/layer_norm.py`` ``BWD_BLOCKS``; it imports nothing of JAX.
+
+``split`` profiles the backward at GPT's and BERT's rows and the forward
+at a decode step's ``[8, 768]`` (``torch.profiler``, 50 calls): each
+kernel's mean device us a launch (the backward's row kernel and the second
+launch that sums the partial rows of dgamma and dbeta), beside the device
+time of one whole call with the card held busy; what the call takes
+beyond its kernels is the gap between launches.
 """
 
 from __future__ import annotations
@@ -40,6 +48,41 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def split(torch, ln, device_ms) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = {"gpt": (8192, 768, "bwd"), "bert": (4096, 768, "bwd"),
+             "decode": (8, 768, "fwd")}
+    for name, (t, h, way) in cases.items():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x, dy = (torch.randn(t, h, generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        gamma = 1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(h, generator=gen, device="cuda")
+        _, mean, rstd = ln.layer_norm_forward(x, gamma, beta, EPS,
+                                              torch.bfloat16)
+        if way == "bwd":
+            def call():
+                ln.layer_norm_backward(dy, x, mean, rstd, gamma, beta)
+        else:
+            def call():
+                ln.layer_norm_forward(x, gamma, beta, EPS, torch.bfloat16)
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(50):
+                call()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.self_device_time_total / e.count
+                   for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and e.count}
+        whole = device_ms(torch, call)
+        print(json.dumps({
+            "split": name, "rows": [t, h], "direction": way,
+            "kernel_us": kernels, "call_us": whole * 1e3,
+            "gap_us": whole * 1e3 - sum(kernels.values())}), flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -48,6 +91,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     ln = importlib.import_module("cron_operator_tpu_torch.ops.layer_norm")
+    if sys.argv[1:2] == ["split"]:
+        split(torch, ln, device_ms)
+        print(f"card: {card()}")
+        return
     for name, (t, h) in SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(0)
         x, dy = (torch.randn(t, h, generator=gen, device="cuda")

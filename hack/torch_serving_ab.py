@@ -18,6 +18,12 @@ slice of ``chip_smoke.py`` (GPT-2 small, seed-0 bf16 weights, 8 prompts of
 - ``k1_host_us``: the host's time to enqueue one ``flash_attention_fwd``
   call at the prefill's attention shape (the strided ``qkv[:, :, i]``
   views), over 200 calls;
+- ``first_round_ms``: the first graphed ``generate`` of the model (8
+  prompts of 512, 64 new tokens, greedy), its captures included, wall
+  time with the card synchronised;
+- ``round_ms``: the median of the 3 graphed rounds after it;
+- ``decode_device_ms``: the device time of one replayed decode step at
+  cache position 512, the card held busy (``device_ms``);
 - ``tokens_per_s``: ``generate_job``'s own figure (3 rounds, rounds 2-3).
 
 The first three are medians over 9 repetitions; their minimum and maximum
@@ -40,7 +46,8 @@ PARAMS = {
     "size": "base", "seq_len": "1024", "batch_size": "8", "prompt_len": "512",
     "max_new": "64", "rounds": "3", "temperature": "0", "seed": "0",
 }
-METRICS = ("prefill_ms", "decode_ms", "k1_host_us", "tokens_per_s")
+METRICS = ("prefill_ms", "decode_ms", "k1_host_us", "first_round_ms",
+           "round_ms", "decode_device_ms", "tokens_per_s")
 
 
 def microbench():
@@ -81,13 +88,17 @@ def measure(root: Path) -> dict:
     from cron_operator_tpu_torch.models import GPT, GPTConfig
     from cron_operator_tpu_torch.ops import _build
     from cron_operator_tpu_torch.workloads.entrypoints import generate_job
+    from cron_operator_tpu_torch.workloads.generate import generate
 
-    event_ms = microbench().event_ms
+    bench = microbench()
+    event_ms = bench.event_ms
     pkg_root = Path(cron_operator_tpu_torch.__file__).resolve().parents[1]
     if pkg_root != root:
         raise SystemExit(f"imported the port from {pkg_root}, not {root}")
     # the module, not the function of the same name that ops/__init__ exports
     fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
+    serving = importlib.import_module(
+        "cron_operator_tpu_torch.workloads.generate")
     _build.build_all()
 
     out = {"root": str(root)}
@@ -122,6 +133,24 @@ def measure(root: Path) -> dict:
     for name, values in series.items():
         out[name] = statistics.median(values)
         out[name + "_min_max"] = [min(values), max(values)]
+    rounds = []
+    with torch.inference_mode():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate(cfg, model, prompt, 64)
+            torch.cuda.synchronize()
+            rounds.append((time.perf_counter() - t0) * 1e3)
+    out["first_round_ms"] = rounds[0]
+    out["round_ms"] = statistics.median(rounds[1:])
+    decoder = serving._decoder(model, 8, True, None)
+
+    def replay():
+        decoder.cache.pos.fill_(512)
+        decoder.step({"token": token})
+
+    with torch.inference_mode():
+        out["decode_device_ms"] = bench.device_ms(torch, replay, 20, REPS)
     del model, cache, qkv, q, k, v
     torch.cuda.empty_cache()
 

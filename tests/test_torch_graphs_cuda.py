@@ -1,6 +1,10 @@
 """Multi-step dispatch on the card: the training step captured as a CUDA
 graph and replayed against the eager step, the decode step's graph against
-the eager decode loop, and fused data against the device stream.
+the eager decode loop, the captured prefill against the eager prefill
+(logits and cache to the bit, its launches once a replay, the prefill
+graphs of an entry sharing its decode graph's pool, evicted entries'
+memory returned, weights restored in place served by the replays), and
+fused data against the device stream.
 
 Needs a CUDA card and nvcc (the flash kernels have no CPU mode, and a CUDA
 graph needs a card); skips without one. It imports only torch and the
@@ -21,6 +25,9 @@ from cron_operator_tpu_torch.models import MLP, Bert, BertConfig, GPT, GPTConfig
 from cron_operator_tpu_torch.parallel.overlap import StepGraph
 from cron_operator_tpu_torch.workloads import data
 from cron_operator_tpu_torch.workloads.generate import generate
+
+serving = importlib.import_module("cron_operator_tpu_torch.workloads.generate")
+ln = importlib.import_module("cron_operator_tpu_torch.ops.layer_norm")
 from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
 fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
@@ -189,3 +196,124 @@ def test_a_deleted_trainer_returns_its_graph_pool(cuda_device):
         gc.enable()
     # the parameters, the AdamW state (2x) and the gradients at least
     assert during - after >= 4 * params_bytes, (during, after, params_bytes)
+
+
+def _serving_gpt(seed=0, **over):
+    cfg = GPTConfig.tiny(hidden_size=256, max_len=192, **over)
+    model = GPT(cfg, device="cuda", param_dtype=cfg.dtype)
+    return cfg, model.init_weights(
+        torch.Generator(device="cuda").manual_seed(seed)).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [{}, {"moe_every": 2, "num_experts": 4}],
+                         ids=["dense", "moe"])
+def test_a_replayed_prefill_is_the_eager_prefill(cuda_device, over):
+    """The prefill captured by ``StepGraph`` (as ``generate`` captures it)
+    and replayed on a new prompt gives the eager prefill's logits and KV
+    cache to the bit, and counts K1 and the LayerNorm kernels once a
+    replay."""
+    cfg, model = _serving_gpt(**over)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (2, 128), device="cuda",
+                             generator=gen) for _ in range(2)]
+    with torch.inference_mode():
+        cache = model.new_cache(2)
+        graph = StepGraph(lambda inputs: model.prefill(inputs["prompt"],
+                                                       cache))
+        graph({"prompt": prompts[0]})  # warm-up and capture
+        k1, ln_fwd = fa.flash_attention.launches, (
+            ln.layer_norm_forward.launches
+            + ln.add_layer_norm_forward.launches)
+        logits = graph({"prompt": prompts[1]}).clone()
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches - k1 == cfg.num_layers
+        assert (ln.layer_norm_forward.launches
+                + ln.add_layer_norm_forward.launches - ln_fwd
+                == 2 * cfg.num_layers + 1)
+        fresh = model.new_cache(2)
+        want = model.prefill(prompts[1], fresh)
+    assert torch.equal(logits, want)
+    assert int(cache.pos) == int(fresh.pos) == 128
+    for a, b in zip(cache.k + cache.v, fresh.k + fresh.v):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [{}, {"num_kv_heads": 2, "rope": True},
+                                  {"moe_every": 2, "num_experts": 4}],
+                         ids=["mha", "gqa_rope", "moe"])
+def test_captured_prefill_greedy_tokens_equal_the_eager_loop(cuda_device,
+                                                             over):
+    """Greedy generation with the prefill and decode step replayed, over
+    two prompt lengths and a length seen again, gives the eager loop's
+    tokens; the entry keeps one prefill graph a length, all on the decode
+    graph's memory pool."""
+    cfg, model = _serving_gpt(**over)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab_size, (2, p), device="cuda",
+                             generator=gen) for p in (128, 64, 128)]
+    for prompt in prompts:
+        eager = generate(cfg, model, prompt, 16, captured=False)
+        graphed = generate(cfg, model, prompt, 16)
+        assert torch.equal(eager, graphed)
+    decoder = serving._decoder(model, 2, True, None)
+    assert list(decoder.prefills) == [64, 128]
+    # 128 captured by its first generation, replayed by its second
+    assert [g.replays for g in decoder.prefills.values()] == [0, 1]
+    assert all(g._pool == decoder.pool for g in decoder.prefills.values())
+    assert decoder.step._pool == decoder.pool
+
+
+@pytest.mark.cuda
+def test_evicted_entries_return_their_memory(cuda_device, monkeypatch):
+    """With room for one entry, a second model's entry drops the first
+    one: its graphs and cache go with it (the memory in use does not grow
+    by the new entry's cache of the same size), and its graph pool goes
+    back to the card (the memory reserved falls)."""
+    import gc
+    import weakref
+
+    monkeypatch.setattr(serving, "_DECODERS_CAP", 1)
+    monkeypatch.setattr(serving, "_DECODERS", serving.OrderedDict())
+    cfg, first = _serving_gpt(seed=0)
+    _, second = _serving_gpt(seed=1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 128), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+    generate(cfg, first, prompt, 8)
+    entry = serving._decoder(first, 2, True, None)
+    graphs = [weakref.ref(g._graph) for g in (entry.step,
+                                              *entry.prefills.values())]
+    entry = weakref.ref(entry)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated, reserved = (torch.cuda.memory_allocated(),
+                           torch.cuda.memory_reserved())
+    serving._decoder(second, 2, True, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert entry() is None and all(g() is None for g in graphs)
+    assert list(serving._DECODERS) == [(id(second), 2, True)]
+    assert torch.cuda.memory_allocated() <= allocated
+    assert torch.cuda.memory_reserved() < reserved
+
+
+@pytest.mark.cuda
+def test_weights_restored_in_place_are_served_by_the_replays(cuda_device):
+    """A restore into the served model between generations
+    (``load_state_dict`` writes the parameters in place) reaches the
+    replayed prefill and decode steps: the padded vocab table they read is
+    refilled before the replay, so the tokens are the eager loop's on the
+    new weights."""
+    cfg, model = _serving_gpt(seed=0)
+    _, other = _serving_gpt(seed=1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(4))
+    for _ in range(2):  # the captures, then replays
+        generate(cfg, model, prompt, 8)
+    with torch.no_grad():
+        model.load_state_dict(other.state_dict())
+    graphed = generate(cfg, model, prompt, 8)
+    eager = generate(cfg, other, prompt, 8, captured=False)
+    assert torch.equal(graphed, eager)

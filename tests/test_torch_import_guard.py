@@ -41,6 +41,10 @@ FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     # the kernels' A/B between checkouts
     ROOT / "tests" / "test_torch_flash_ragged_cuda.py",
     ROOT / "hack" / "torch_flash_ab.py",
+    # the residual add folded into the LayerNorm pair and the serving
+    # entries' prefill graphs (CPU), and the graphs' card test
+    ROOT / "tests" / "test_torch_layer_norm_fold.py",
+    ROOT / "tests" / "test_torch_graphs_cuda.py",
 ]
 
 

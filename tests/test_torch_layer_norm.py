@@ -77,6 +77,14 @@ def _former_forward(self, x):
     return y.to(self.compute_dtype)
 
 
+def _former_add_norm(self, x, r):
+    """``LayerNorm.add_norm`` in the former blocks' terms: torch's add
+    (the block's residual), then the former forward."""
+    if r is not None:
+        x = x + r
+    return x, _former_forward(self, x)
+
+
 def _module(gamma, beta, compute_dtype, param_dtype=torch.float32):
     norm = LayerNorm(gamma.shape[0], eps=EPS, compute_dtype=compute_dtype,
                      param_dtype=param_dtype)
@@ -246,7 +254,8 @@ def _tiny_gpt(seed=0):
 
 def test_tiny_gpt_is_the_former_modules_bits(monkeypatch):
     """A tiny GPT's logits, the gradients of its loss and its greedy tokens
-    with the module as it is and with the former forward swapped in."""
+    with the module as it is (the residual adds folded into the norms) and
+    with the former forward and torch's adds swapped in."""
     ids = torch.from_numpy(np.random.default_rng(6).integers(
         0, 1024, (2, 16)))
     prompt = ids[:, :8]
@@ -254,6 +263,7 @@ def test_tiny_gpt_is_the_former_modules_bits(monkeypatch):
     for former in (False, True):
         if former:
             monkeypatch.setattr(LayerNorm, "forward", _former_forward)
+            monkeypatch.setattr(LayerNorm, "add_norm", _former_add_norm)
         model = _tiny_gpt()
         logits = model(ids)
         F.cross_entropy(logits[:, :-1].reshape(-1, 1024),

@@ -8,7 +8,14 @@ capture of the forward and backward replayed equal to eager and counted
 once a replay; widths whose lanes hold part of a chunk count (256, 512);
 a strided row view (the prefill's last position) read in place; a dy
 whose layout autograd picks (``LayerNorm(x).sum().backward()``); layouts
-the kernels cannot read in place raise.
+the kernels cannot read in place raise. The folded pair (the residual add
+before the norm, ``add_layer_norm``) at the decode, GPT, BERT and ViT rows
+and the tiny width: s the bits of torch's add, y, the statistics, dx (with
+and without the residual stream's gradient), dgamma and dbeta within
+``layer_norm_tolerance`` of the plain versions (dx with the bound of the
+plain version's second rounding), reruns bit-identical, strided views of
+the prefill's last position read in place, a captured folded forward and
+backward replayed equal to eager and counted once a replay.
 
 Needs a CUDA card and nvcc (the kernels have no CPU mode); skips without a
 card. It imports only torch and the port, so it also runs where JAX is not
@@ -230,3 +237,128 @@ def test_layouts_the_kernels_cannot_read_raise(cuda_device, change):
     with pytest.raises(ValueError):
         ln.layer_norm_forward(x, gamma, torch.zeros_like(gamma), EPS,
                               torch.bfloat16)
+
+
+def _check_folded(x, r, dy, ds, gamma, beta, out_dtype):
+    """The folded kernels against their plain versions: s to the bit, the
+    rest within ``layer_norm_tolerance`` (dx's bound grown by the plain
+    version's rounding of the norm's dx before the add), reruns the same
+    bits."""
+    s, y, mean, rstd = ln.add_layer_norm_forward(x, r, gamma, beta, EPS,
+                                                 out_dtype)
+    grads = ln.add_layer_norm_backward(dy, ds, s, mean, rstd, gamma, beta)
+    torch.cuda.synchronize()
+    ref_s, ref_y, ref_mean, ref_rstd = ln.add_layer_norm_reference(
+        x, r, gamma, beta, EPS, out_dtype)
+    assert torch.equal(_bits(s), _bits(x + r))
+    ref = ln.add_layer_norm_backward_reference(dy, ds, ref_s, ref_mean,
+                                               ref_rstd, gamma, beta)
+    dx_norm = ln.layer_norm_backward_reference(dy, ref_s, ref_mean, ref_rstd,
+                                               gamma, beta)[0]
+    bounds = ln.layer_norm_tolerance(ref_s, gamma, beta, ref_mean, ref_rstd,
+                                     ref_y, dy, ref[0], ref[1],
+                                     dx_norm=None if ds is None else dx_norm)
+    h = x.shape[-1]
+    for name, got, want in (("y", y, ref_y), ("mean", mean, ref_mean),
+                            ("rstd", rstd, ref_rstd), ("dx", grads[0], ref[0]),
+                            ("dgamma", grads[1], ref[1]),
+                            ("dbeta", grads[2], ref[2])):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert bool(torch.isfinite(got).all()), name
+        err = (got.float() - want.float()).abs()
+        if name in ("y", "dx"):
+            err = err.reshape(-1, h)
+        assert bool((err <= bounds[name]).all()), (
+            name, float((err / bounds[name]).max()))
+    again = ln.add_layer_norm_forward(x, r, gamma, beta, EPS, out_dtype)
+    again_grads = ln.add_layer_norm_backward(dy, ds, again[0], again[2],
+                                             again[3], gamma, beta)
+    for a, b in zip((s, y, mean, rstd, *grads), (*again, *again_grads)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("residual_grad", [True, False],
+                         ids=["ds", "no_ds"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", ["decode", "gpt", "bert", "vit",
+                                   "tiny_gpt"])
+def test_folded_kernels_match_the_plain_versions(cuda_device, shape, dtype,
+                                                 residual_grad):
+    x, dy, gamma, beta = _inputs(SHAPES[shape], dtype, cuda_device, seed=6)
+    r, ds, _, _ = _inputs(SHAPES[shape], dtype, cuda_device, seed=7)
+    param_dtype = torch.bfloat16 if shape == "decode" else torch.float32
+    _check_folded(x, r, dy, ds if residual_grad else None,
+                  gamma.to(param_dtype), beta.to(param_dtype), dtype)
+
+
+def test_folded_kernels_at_offset_rows(cuda_device):
+    """A residual stream near +100 with a unit branch, f32 x with a bf16
+    y too."""
+    for dtype, out_dtype in ((torch.bfloat16, torch.bfloat16),
+                             (torch.float32, torch.bfloat16)):
+        x, dy, gamma, beta = _inputs(SHAPES["gpt"], dtype, cuda_device,
+                                     seed=8, offset=100.0)
+        r, ds, _, _ = _inputs(SHAPES["gpt"], dtype, cuda_device, seed=9)
+        _check_folded(x, r, dy.to(out_dtype), ds, gamma, beta, out_dtype)
+
+
+def test_folded_strided_views_are_read_in_place(cuda_device):
+    """The prefill's ``ln_f(x[:, -1:] + r[:, -1:])``: both at a row stride
+    of s * H."""
+    x, r, gamma, beta = _inputs((8 * 16, 768), torch.bfloat16, cuda_device,
+                                seed=10)
+    xv, rv = (t.view(8, 16, 768)[:, -1:] for t in (x, r))
+    got = ln.add_layer_norm_forward(xv, rv, gamma, beta, EPS, torch.bfloat16)
+    want = ln.add_layer_norm_forward(xv.contiguous(), rv.contiguous(), gamma,
+                                     beta, EPS, torch.bfloat16)
+    assert got[0].shape == got[1].shape == xv.shape
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_a_folded_capture_replays_equal_to_eager_and_counts(cuda_device):
+    """``LayerNorm.add_norm`` forward and backward captured as one CUDA
+    graph, s feeding a later op: each replay gives eager's bits and counts
+    one launch of each folded wrapper and none of the unfolded ones."""
+    x, r, gamma, beta = _inputs(SHAPES["bert"], torch.bfloat16, cuda_device,
+                                seed=11)
+    dy, dz, _, _ = _inputs(SHAPES["bert"], torch.bfloat16, cuda_device,
+                           seed=12)
+    norm = LayerNorm(768, eps=EPS, compute_dtype=torch.bfloat16,
+                     device=cuda_device)
+    with torch.no_grad():
+        norm.weight.copy_(gamma)
+        norm.bias.copy_(beta)
+    xg, rg = x.clone().requires_grad_(), r.clone().requires_grad_()
+
+    def step():
+        norm.weight.grad = norm.bias.grad = xg.grad = rg.grad = None
+        s, y = norm.add_norm(xg, rg)
+        torch.autograd.backward((s, y), (dz, dy))
+        return s, y
+
+    want = [t.detach().clone() for t in step()]
+    want_grads = [t.grad.clone() for t in (xg, rg, norm.weight, norm.bias)]
+    assert torch.equal(_bits(want_grads[0]), _bits(want_grads[1]))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step()  # warm-up on the capture's stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with fa.capture_launches(stream.cuda_stream) as tally:
+        with torch.cuda.graph(graph, stream=stream):
+            out = step()
+    wrappers = (ln.add_layer_norm_forward, ln.add_layer_norm_backward,
+                ln.layer_norm_forward, ln.layer_norm_backward)
+    before = [f.launches for f in wrappers]
+    for _ in range(3):
+        graph.replay()
+    fa.count_replays(tally, 3)
+    torch.cuda.synchronize()
+    for a, b in zip(out, want):
+        assert torch.equal(_bits(a), _bits(b))
+    for t, w in zip((xg, rg, norm.weight, norm.bias), want_grads):
+        assert torch.equal(_bits(t.grad), _bits(w))
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [3, 3, 0, 0]
