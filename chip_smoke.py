@@ -190,16 +190,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
     ``bert attention=ulysses seq=2`` (BERT-base, b 8 x 512), AdamW,
     ``data=host``, 3 steps, each held by phase 15's checks
     (``MESH_LOSS_BOUND``, ``MESH_UPDATE_BOUND``, and a one-rank run at lr
-    0 outside both) against a one-rank ``attention=xla`` run of the same
-    batches (the same plain f32 attention as the sequence-parallel bodies,
-    so the check isolates the split); both ranks report the same losses,
-    and K1-K3 and the loss kernels (a ``seq`` mesh keeps the former f32
-    loss) launch 0 times on these paths (counts set to 0 just before
-    the job and read just after). Printed for each: the step ms
-    (time-shared), the device ms of one layer's attention body (forward
-    and backward, ``profile_window`` at the rank's local shape) and the
-    share of a profiled step's device time that the model's 12 bodies
-    take, and peak memory a rank. Then ``spmd_pipeline`` over the two ranks
+    0 outside both) against a one-rank ``attention=flash`` run of the same
+    batches (K1-K3 over the whole sequence: the arithmetic that the bodies
+    run on their blocks, so the check isolates the split), with the gap to
+    a one-rank ``attention=xla`` run (the plain f32 attention) printed
+    beside; both ranks report the same losses. The bodies run K1, K2 and
+    K3 (``flash_attention_block``), all sm90, once per computed block in
+    each step and layer (``seq_launches``; counts set to 0 just before the
+    job and read just after, by mask): the ring's rank 0 36 causal, rank 1
+    36 causal and 36 full; Ulysses 36 full on each rank. The loss kernels
+    (a ``seq`` mesh keeps the former f32 loss) launch 0 times. Printed for
+    each: the step ms (time-shared), the device ms of one layer's attention
+    body on each rank (forward and backward, ``profile_window`` at the
+    rank's local shape; split into K1-K3, memory copies, NCCL's kernels and
+    the rest) and the share of a profiled step's device time that the
+    model's 12 bodies take, and peak memory a rank. On the ring's ranks, the GPT
+    Cron's per-rank block (``CRON_RING_BLOCK``, ``[4, 2048, 12, 64]`` bf16,
+    causal) over the ring of 2: forward and backward device ms and peak
+    memory a rank through the kernels and through
+    ``ring_attention_local_reference`` (the plain f32 body), the kernels'
+    output and gradients within ``body_tolerances`` of K1-K3 over the
+    whole sequence, finite, and a rerun's bits equal. K1-K3 are timed at
+    the ring's diagonal block and Ulysses' local heads. Then
+    ``spmd_pipeline`` over the two ranks
     as pipe 2: each stage one port ``DecoderLayer`` at GPT-2 small width
     (bf16 products over f32 parameters placed by
     ``pipeline_param_sharding``), x ``[8, 1024, 768]`` in 4 microbatches:
@@ -2728,7 +2741,8 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
     ``profile_window`` (every rank) and keeps what it printed;
     ``readings(trainer, batch)`` adds its dict to the result. Returns the
     counts (and the loss kernels' under ``xent``, the LayerNorm kernels'
-    under ``layer_norm``), designs, shapes, per-step
+    under ``layer_norm``), designs, shapes, K1-K3's launches ``[full,
+    causal]`` by mask (``by_mask``), per-step
     losses, step s, tokens/s and the peak memory in GiB (and the
     profile)."""
     import torch.distributed as dist
@@ -2746,6 +2760,7 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
     shapes, made = set(), []
     launchers = {a: getattr(fa, a) for a in ("_launch", "_launch_dq",
                                              "_launch_dkv")}
+    by_mask = {a: [0, 0] for a in launchers}  # [full, causal] launches
     real_trainer = entrypoints.Trainer
 
     def trainer(model, *args, **kw):
@@ -2756,6 +2771,7 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
     for attr, inner in launchers.items():
         def traced(q, *args, _inner=inner, _name=attr):
             shapes.add((_name, q.shape[0], q.shape[2]))
+            by_mask[_name][int(bool(args[-1]))] += 1  # causal: the last
             return _inner(q, *args)
         setattr(fa, attr, traced)
     entrypoints.Trainer = trainer
@@ -2770,6 +2786,7 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
                   "xent": read_xent_counts(),
                   "layer_norm": read_ln_counts(),
                   "shapes": sorted(shapes), "losses": ctx.progress.losses,
+                  "by_mask": [by_mask[a] for a in launchers],
                   "step_s": ctx.progress["avg_step_time_s"],
                   "tokens_per_s": ctx.progress["tokens_per_s"],
                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -3012,12 +3029,24 @@ def phase_mesh(torch, fa, card):
 # gloo group on cuda:0 as in phase 15.
 SEQ_RUNS = {
     # name: (job, params of the two-rank run; the reference runs them with
-    # attention=xla at one rank)
+    # attention=flash at one rank: K1-K3 over the whole sequence, the
+    # arithmetic the bodies run on their blocks, so the check isolates the
+    # split; a one-rank attention=xla run is read beside it)
     "ring": ("gpt", {**MESH_PARAMS, "attention": "ring", "seq": "2"}),
     "ulysses": ("bert", {**MESH_PARAMS, "seq_len": "512",
                          "attention": "ulysses", "seq": "2"}),
 }
 SEQ_LAYERS = 12  # GPT-2 small and BERT-base: one attention body a layer
+# K1-K3's shapes on the seq runs: ring gpt's block of a rank, b 8 x 512 of
+# 12 heads (the diagonal causal, the block below it in full: BERT_SHAPE),
+# and Ulysses bert's whole 512 tokens on 6 heads
+SEQ_RING_BLOCK = dict(TRAIN_SHAPE, s=TRAIN_SHAPE["s"] // 2)
+SEQ_ULYSSES_HEADS = dict(BERT_SHAPE, h=BERT_SHAPE["h"] // 2)
+# The GPT Cron's ring block (examples/v1alpha1/cron/cron-jax-gpt.yaml:
+# seq_len 16384 over seq 8 and fsdp 8 at b 32, GPT-2 small's 12 heads of
+# 64): each rank's [4, 2048, 12, 64], read here over the phase's ring of 2
+CRON_RING_BLOCK = dict(b=4, s=2048, h=12, d=64)
+CRON_TOL_HEADS = 2  # heads a time in the bounds' f32 [b, h, s, s] terms
 PIPE_SHAPE = dict(b=8, s=1024, hidden=768, microbatches=4)
 
 
@@ -3034,10 +3063,14 @@ PIPE_REL_BOUND = 2e-2
 
 
 def seq_readings(tr, batch) -> dict:
-    """On each rank of a sequence-parallel run: one profiled step's device
-    ms, and the device ms of one layer's attention body (its forward and
-    backward on this rank's block, causal for gpt) under
-    ``profile_window``, at the run's local shape."""
+    """On each rank of a sequence-parallel run: the rank's coordinate and
+    the ring's size, the body (``ring`` or ``ulysses``) and its mask; one
+    profiled step's device ms, and the device ms of one layer's attention
+    body (its forward and backward on this rank's block, causal for gpt)
+    under ``profile_window``, at the run's local shape, split into K1-K3,
+    memory copies, NCCL's kernels and the rest (``body_split_ms``); for
+    the ring, the
+    Cron-shape reading (:func:`cron_ring_reading`)."""
     import torch
 
     from cron_operator_tpu_torch.parallel.ring import ring_attention_local
@@ -3052,7 +3085,8 @@ def seq_readings(tr, batch) -> dict:
     mesh = tr.mesh
     b, s = batch["x"].shape
     h, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
-    t = s // dict(zip(mesh.mesh_dim_names, mesh.shape))["seq"]
+    par = dict(zip(mesh.mesh_dim_names, mesh.shape))["seq"]
+    t = s // par
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v = (torch.randn(b, t, h, d, device="cuda", dtype=cfg.dtype,
                            generator=gen).requires_grad_() for _ in range(3))
@@ -3063,10 +3097,102 @@ def seq_readings(tr, batch) -> dict:
         out = body(q, k, v, mesh=mesh, causal=causal)
         out.backward(torch.ones_like(out))
 
+    traced = []
     _, body_ms = profile_window(torch, card, "one attention body, fwd+bwd",
-                                fwd_bwd)
-    return {"step_device_ms": step_ms, "body_device_ms": body_ms,
-            "body_share": SEQ_LAYERS * body_ms / step_ms}
+                                fwd_bwd, traced)
+    split = {"flash": 0.0, "copies": 0.0, "nccl": 0.0, "other": 0.0}
+    for key, us, _ in traced:  # K1-K3, memory copies (gloo's staging),
+        # NCCL's kernels (their time waiting on the peer included)
+        name = key.lower()
+        part = next((p for p, word in (("flash", "flash"),
+                                       ("copies", "memcpy"),
+                                       ("nccl", "nccl")) if word in name),
+                    "other")
+        split[part] += us / 1e3
+    out = {"step_device_ms": step_ms, "body_device_ms": body_ms,
+           "body_split_ms": split,
+           "body_share": SEQ_LAYERS * body_ms / step_ms,
+           "seq_coord": mesh.get_local_rank("seq"), "seq_size": par,
+           "impl": cfg.attention_impl, "causal": causal}
+    if causal:
+        del q, k, v
+        out["cron"] = cron_ring_reading(torch, mesh, card)
+    return out
+
+
+def cron_ring_reading(torch, mesh, card) -> dict:
+    """The GPT Cron's per-rank ring block (CRON_RING_BLOCK, bf16, causal)
+    on this rank of the ``seq`` ring, from one seeded whole q, k, v and dO:
+    forward and backward through ``ring_attention_local`` (K1-K3) and
+    ``ring_attention_local_reference`` (the plain f32 body), each's device
+    ms (``profile_window``) and peak memory above what the rank held
+    before; the kernels' output and gradients on this rank's rows against
+    K1-K3 over the whole sequence (``flash_attention_block``) as the worst
+    ratio of error to ``body_tolerances`` (bounds taken CRON_TOL_HEADS
+    heads at a time), whether a rerun gave the same bits, and the plain
+    body's largest gap to the kernels' output."""
+    from cron_operator_tpu_torch.parallel.ring import (
+        body_tolerances,
+        ring_attention_local,
+        ring_attention_local_reference,
+    )
+
+    fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
+    ring = dict(zip(mesh.mesh_dim_names, mesh.shape))["seq"]
+    mine = mesh.get_local_rank("seq")
+    b, t, h, d = (CRON_RING_BLOCK[x] for x in "bshd")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, do = (torch.randn(b, ring * t, h, d, device="cuda",
+                               generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    rows = slice(mine * t, (mine + 1) * t)
+
+    def run(body):
+        leaves = [x[:, rows].clone().requires_grad_() for x in (q, k, v)]
+        out = body(*leaves, mesh=mesh, causal=True)
+        out.backward(do[:, rows])
+        return [out.detach()] + [x.grad for x in leaves]
+
+    result, got = {}, {}
+    for name, body in (("kernels", ring_attention_local),
+                       ("plain", ring_attention_local_reference)):
+        release(torch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got[name] = run(body)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        _, ms = profile_window(
+            torch, card, f"GPT Cron ring block {[b, t, h, d]}, {name} body, "
+            "fwd+bwd", lambda: run(body))
+        result[name] = {"device_ms": ms, "peak_gib": peak}
+    again = run(ring_attention_local)
+    result["rerun_equal"] = all(torch.equal(x, y)
+                                for x, y in zip(got["kernels"], again))
+    result["plain_max_abs_err"] = float(
+        (got["plain"][0].float() - got["kernels"][0].float()).abs().max())
+    del again, got["plain"]
+    release(torch)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o, _ = fa.flash_attention_block(*leaves, causal=True)
+    o.backward(do)
+    want = [o.detach()] + [x.grad for x in leaves]
+    del o, leaves
+    worst = {}
+    for h0 in range(0, h, CRON_TOL_HEADS):
+        heads = slice(h0, h0 + CRON_TOL_HEADS)
+        bounds = body_tolerances(*(x[:, :, heads] for x in (q, k, v, do)),
+                                 causal=True, blocks=ring)
+        for key, g, w in zip(("o", "dq", "dk", "dv"), got["kernels"], want):
+            err = (g[:, :, heads].float() - w[:, rows, heads].float()).abs()
+            ratio = float((err / bounds[key][:, rows]).max())
+            worst[key] = max(worst.get(key, 0.0), ratio)
+        del bounds
+    result["worst_ratio"] = worst
+    result["finite"] = all(bool(torch.isfinite(x).all())
+                           for x in got["kernels"])
+    return result
 
 
 def rel_l2(torch, a, b) -> float:
@@ -3146,14 +3272,47 @@ def run_pipeline(torch, stages: int = 2) -> dict:
     }
 
 
+def seq_launches(got: dict) -> list:
+    """The ``[full, causal]`` launches each of K1, K2 and K3 must make on a
+    rank of a sequence-parallel run, by the body's rule, per step and
+    layer: once per computed block, so ``coord + 1`` blocks on coordinate
+    ``coord`` of a causal ring (its own causal, the earlier ones in full;
+    the later ones add nothing), every block in full on a non-causal ring,
+    and one block over the whole sequence for Ulysses."""
+    per = MESH_STEPS * SEQ_LAYERS
+    if got["impl"] == "ulysses":
+        return [0, per] if got["causal"] else [per, 0]
+    if got["causal"]:
+        return [per * got["seq_coord"], per]
+    return [per * got["seq_size"], 0]
+
+
 def seq_problems(torch, ranks: list, ref: dict):
     """Every check of a sequence-parallel run against its one-rank
-    ``attention=xla`` reference: K1-K3 0 launches on every rank, every
-    rank's losses equal, the loss gap and the update distance within their
-    bounds. Returns the problems and the two readings."""
+    ``attention=flash`` reference: on every rank K1, K2 and K3 launched as
+    :func:`seq_launches` says, by mask, all sm90; every rank's losses
+    equal; the loss gap and the update distance within their bounds; the
+    ring's Cron-shape reading (where taken) within ``body_tolerances``,
+    finite and bit-identical on a rerun. Returns the problems and the two
+    readings."""
     gap, dist = mesh_readings(torch, ranks, ref)
-    problems = [f"rank {r} launched K1/K2/K3 {got['counts']} times, not 0"
-                for r, got in enumerate(ranks) if got["counts"] != [0, 0, 0]]
+    problems = []
+    for r, got in enumerate(ranks):
+        want = seq_launches(got)
+        if got["by_mask"] != [want] * 3 or got["counts"] != [sum(want)] * 3:
+            problems.append(f"rank {r} (coordinate {got['seq_coord']}) "
+                            f"launched K1/K2/K3 {got['by_mask']} times by "
+                            f"[full, causal] mask, not {want} each")
+        if any(x["sm90"] != n for x, n in zip(got["designs"], got["counts"])):
+            problems.append(f"rank {r} launches by design {got['designs']}: "
+                            "not all sm90")
+        cron = got.get("cron")
+        if cron is not None and not (
+                cron["finite"] and cron["rerun_equal"]
+                and max(cron["worst_ratio"].values()) <= 1.0):
+            problems.append(f"rank {r}: the Cron-shape ring block reads "
+                            f"{cron}: not finite, not bit-identical on a "
+                            "rerun, or past body_tolerances")
     if any(got["losses"] != ranks[0]["losses"] for got in ranks):
         problems.append("ranks report different losses "
                         f"{[got['losses'] for got in ranks]}")
@@ -3188,20 +3347,26 @@ def pipeline_problems(ranks: list, stages: int) -> list:
 
 def phase_seq(torch, fa, card):
     """Ring ``gpt`` and Ulysses ``bert`` over two ranks against one-rank
-    ``attention=xla`` runs (phase 15's checks, K1-K3 0 launches), then the
-    pipe-2 pipeline against the layers in sequence. Returns each run's
-    readings and the pipeline's launches."""
+    ``attention=flash`` runs (phase 15's checks; K1-K3 by the bodies' rule,
+    :func:`seq_launches`), with the gap to a one-rank ``attention=xla`` run
+    beside, and the ring's Cron-shape reading; then the pipe-2 pipeline
+    against the layers in sequence. Returns each run's readings, its
+    launches by mask summed over the ranks, the rows of K1-K3 at the bodies'
+    shapes and the pipeline's launches."""
     root = tempfile.mkdtemp(prefix="chip-smoke-seq-")
     results = {}
     try:
         for name, (job, params) in SEQ_RUNS.items():
             plain = {k: v for k, v in params.items() if k != "seq"}
-            plain["attention"] = "xla"
-            (ref,) = spawn_ranks(1, plain, root, f"ref_{name}", task=job)
-            frozen = frozen_reading(torch, {"ref": ref}, root, plain, "ref",
+            flash = {**plain, "attention": "flash"}
+            (ref,) = spawn_ranks(1, flash, root, f"ref_{name}", task=job)
+            frozen = frozen_reading(torch, {"ref": ref}, root, flash, "ref",
                                     job)
+            (xla,) = spawn_ranks(1, {**plain, "attention": "xla"}, root,
+                                 f"xla_{name}", task=job)
             ranks = spawn_ranks(2, params, root, name, task=job)
             problems, (gap, dist) = seq_problems(torch, ranks, ref)
+            xla_gap, xla_dist = mesh_readings(torch, ranks, xla)
             for r, got in enumerate(ranks):  # a seq mesh: the former loss,
                 # the LayerNorm kernels on each rank's own rows
                 check_xent(f"seq {name} rank {r}", None, got["xent"], 0)
@@ -3209,31 +3374,58 @@ def phase_seq(torch, fa, card):
                          got["layer_norm"], (LM_NORMS * MESH_STEPS,) * 2,
                          folded=False)
             print(f"seq {name} ({job}): losses {ranks[0]['losses']} against "
-                  f"one rank's attention=xla {ref['losses']}: max gap "
+                  f"one rank's attention=flash {ref['losses']}: max gap "
                   f"{gap:.6f}, update distance {dist:.6f}; lr 0 reads "
                   f"{frozen['loss_gap']:.6f} and "
-                  f"{frozen['update_distance']:.6f}; K1/K2/K3 "
-                  f"{[got['counts'] for got in ranks]}", flush=True)
+                  f"{frozen['update_distance']:.6f}; against one rank's "
+                  f"attention=xla {xla['losses']}: max gap {xla_gap:.6f}, "
+                  f"update distance {xla_dist:.6f}; K1/K2/K3 [full, causal] "
+                  f"launches by rank {[got['by_mask'] for got in ranks]} "
+                  f"(designs {[got['designs'] for got in ranks]})",
+                  flush=True)
+            cron = [got["cron"] for got in ranks if "cron" in got]
+            for r, reading in enumerate(cron):
+                print(f"[{card}] seq {name} rank {r}: the GPT Cron's ring "
+                      f"block {[CRON_RING_BLOCK[x] for x in 'bshd']} bf16 "
+                      "causal, ring of 2, fwd+bwd: kernels "
+                      f"{reading['kernels']['device_ms']:.3f} device ms, "
+                      f"peak {reading['kernels']['peak_gib']:.3f} GiB; plain "
+                      f"f32 body {reading['plain']['device_ms']:.3f} device "
+                      f"ms, peak {reading['plain']['peak_gib']:.3f} GiB; "
+                      "error / body_tolerances against K1-K3 over the whole "
+                      f"sequence {reading['worst_ratio']}; rerun equal "
+                      f"{reading['rerun_equal']}; plain body's output within "
+                      f"{reading['plain_max_abs_err']:.5f}", flush=True)
             if problems:
                 fail(f"seq {name}: " + "; ".join(problems))
             got = ranks[0]
+            bodies = "; ".join(
+                f"rank {r}: one attention body {x['body_device_ms']:.3f} "
+                f"device ms (fwd+bwd; K1-K3, copies, NCCL, the rest "
+                f"{[round(v, 3) for v in x['body_split_ms'].values()]}), "
+                f"{SEQ_LAYERS} of them "
+                f"{100 * x['body_share']:.1f}% of a profiled step's "
+                f"{x['step_device_ms']:.3f} device ms"
+                for r, x in enumerate(ranks))
             print(f"[{card}] seq {name}: {got['step_s'] * 1e3:.1f} ms a step "
                   "(steps 2-3, two ranks time-sharing one card: not a scaling "
-                  f"number); one attention body {got['body_device_ms']:.3f} "
-                  f"device ms (fwd+bwd), {SEQ_LAYERS} of them "
-                  f"{100 * got['body_share']:.1f}% of a profiled step's "
-                  f"{got['step_device_ms']:.3f} device ms; peak "
+                  f"number); {bodies}; peak "
                   f"{max(r['peak_gib'] for r in ranks):.2f} GiB a rank",
                   flush=True)
             results[name] = {
                 "step_ms": got["step_s"] * 1e3, "loss_gap": gap,
                 "update_distance": dist, "frozen": frozen,
-                "body_device_ms": got["body_device_ms"],
-                "step_device_ms": got["step_device_ms"],
-                "body_share": got["body_share"],
+                "xla_loss_gap": xla_gap, "xla_update_distance": xla_dist,
+                "body_device_ms": [x["body_device_ms"] for x in ranks],
+                "step_device_ms": [x["step_device_ms"] for x in ranks],
+                "body_share": [x["body_share"] for x in ranks],
+                "body_split_ms": [x["body_split_ms"] for x in ranks],
                 "peak_gib": max(r["peak_gib"] for r in ranks),
+                "cron": cron,
                 "launches": [sum(r["counts"][i] for r in ranks)
-                             for i in range(3)]}
+                             for i in range(3)],
+                "by_mask": [[sum(r["by_mask"][i][m] for r in ranks)
+                             for m in (0, 1)] for i in range(3)]}
         ranks = spawn_ranks(2, {}, root, "pipeline", task="pipeline")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3256,6 +3448,13 @@ def phase_seq(torch, fa, card):
         "rows": attention_rows(torch, fa, card, dict(
             TRAIN_SHAPE, b=PIPE_SHAPE["b"] // PIPE_SHAPE["microbatches"]),
             True, "pipeline")}
+    # K1-K3 at the bodies' shapes: the ring's diagonal block (causal; the
+    # blocks below it are BERT_SHAPE in full, phase 7's rows) and Ulysses'
+    # local heads over the whole sequence
+    results["ring"]["rows"] = attention_rows(torch, fa, card, SEQ_RING_BLOCK,
+                                             True, "seq ring diagonal")
+    results["ulysses"]["rows"] = attention_rows(
+        torch, fa, card, SEQ_ULYSSES_HEADS, False, "seq ulysses")
     return results
 
 
@@ -5143,6 +5342,19 @@ def main() -> None:
         *(kernel_entry(key, f"@mesh_{name}", run["launches"][i],
                        run["rows"][key])
           for name, run in mesh.items()
+          for i, key in enumerate(("K1", "K2", "K3"))),
+        # the seq bodies of phase 16, launches summed over the two ranks:
+        # the ring's diagonal blocks (causal) at a rank's b 8 x 512, the
+        # blocks below them (in full) at the same shape (phase 7's rows),
+        # Ulysses' 6 local heads over 512 tokens
+        *(kernel_entry(key, "@seq_ring", seq["ring"]["by_mask"][i][1],
+                       seq["ring"]["rows"][key])
+          for i, key in enumerate(("K1", "K2", "K3"))),
+        *(kernel_entry(key, "@seq_ring[full]", seq["ring"]["by_mask"][i][0],
+                       bert_rows[key])
+          for i, key in enumerate(("K1", "K2", "K3"))),
+        *(kernel_entry(key, "@seq_ulysses", seq["ulysses"]["launches"][i],
+                       seq["ulysses"]["rows"][key])
           for i, key in enumerate(("K1", "K2", "K3"))),
         # the pipeline of phase 16: its launches summed over the two ranks,
         # at the training slice's shape in microbatches of 2 rows

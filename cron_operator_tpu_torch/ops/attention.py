@@ -10,9 +10,13 @@
   JAX package so configs carry over. The CPU path.
 - ``"ring"`` — sequence-parallel ring attention over the mesh's ``seq``
   axis (:mod:`parallel.ring`); the automatic pick when the mesh has
-  ``seq > 1``. Any head count.
+  ``seq > 1``. Any head count. Each K/V block runs through K1-K3
+  (``flash_attention_block``) on the card and their plain versions on the
+  CPU; the blocks merge by their LSEs.
 - ``"ulysses"`` — the all-to-all head-scatter variant
   (:mod:`parallel.ulysses`); the head count must divide the ``seq`` axis.
+  Between the all-to-alls, K1-K3 over the whole sequence on the local
+  heads (their plain versions on the CPU).
 
 One-token decode against a KV cache has its own entry,
 :func:`decode_attention`: the hand kernel ``csrc/decode_attn.cu`` on the

@@ -38,7 +38,10 @@ design also copies an input whose base or strides TMA cannot take, see
 o, lse)`` from the forward, and its backward computes ``Delta = rowsum(dO *
 O)`` in plain PyTorch (as the JAX package does in XLA) and then runs K2 and
 K3. It composes with ``torch.utils.checkpoint(use_reentrant=False)``, which
-reruns the forward.
+reruns the forward. :func:`flash_attention_block` returns ``(o, lse)``,
+both differentiable (K2 and K3 take ``Delta - dlse``): the block that the
+sequence-parallel bodies (``parallel.ring``, ``parallel.ulysses``) run on
+a rank's local blocks and merge by their LSEs.
 
 The public entries keep the JAX package's shape rules: ``seq`` must divide
 by the block edges, which default to :func:`_default_block` (multiples of
@@ -688,21 +691,35 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False):
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K1 forward, K2/K3 backward; saves ``(q, k, v, o, lse)`` as the JAX
-    package's ``_flash_fwd`` does."""
+class _FlashBlock(torch.autograd.Function):
+    """K1 forward with both outputs, ``(o, lse)``; K2/K3 backward from the
+    gradients of both. Saves ``(q, k, v, o, lse)`` as the JAX package's
+    ``_flash_fwd`` does. ``lse = log sum_k exp(s_k)`` has ``d lse / d s =
+    P``, so the score gradient is ``dS = P (dP - Delta + dlse)``: K2 and K3
+    take ``Delta - dlse`` in Delta's place, which is exact (Delta alone
+    where the LSE reached no loss)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
+        ctx.set_materialize_grads(False)
         o, lse = _forward(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
-        return o
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal)
+        if do is None and dlse is None:
+            return None, None, None, None
+        if do is None:
+            do = torch.zeros_like(o)
+        delta = _delta(o, do)
+        if dlse is not None:
+            delta = (delta - dlse.reshape(delta.shape)).contiguous()
+        dq = flash_attention_dq(q, k, v, do, lse, delta, causal=ctx.causal)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta,
+                                     causal=ctx.causal)
         return dq, dk, dv, None
 
 
@@ -735,8 +752,28 @@ def _flash_attention_any_length(q: torch.Tensor, k: torch.Tensor,
     versions, as in :func:`flash_attention`."""
     _refuse_placed(q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal)
+        return _FlashBlock.apply(q, k, v, causal)[0]
     return _forward(q, k, v, causal)[0]
+
+
+def flash_attention_block(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)`` of one block of attention, differentiable in both: ``o``
+    ``[b, s, h, d]`` in ``q``'s type, ``lse`` ``[b*h, s, 1]`` f32 (the
+    kernels' layout), for q, k and v ``[b, s, h, d]`` at any ``s`` >= 1.
+    The sequence-parallel bodies (``parallel.ring``, ``parallel.ulysses``)
+    run it on a rank's local blocks and merge the blocks' outputs by their
+    LSEs. A CUDA tensor launches K1 forward and K2 and K3 backward (or
+    raises), a CPU tensor takes :func:`flash_attention_reference` and the
+    plain backward; a DTensor raises ``TypeError``. A row that sees no key
+    (none here: q and k share their rows, so a causal block keeps the
+    diagonal) gives ``o`` 0 and ``lse`` ``LSE_MASKED``."""
+    _refuse_placed(q, k, v)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashBlock.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
 
 
 for _fn in (flash_attention, flash_attention_dq, flash_attention_dkv):
@@ -750,6 +787,7 @@ __all__ = [
     "dkv_tolerance",
     "dq_tolerance",
     "flash_attention",
+    "flash_attention_block",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
     "flash_attention_dkv",

@@ -10,9 +10,11 @@ K/V blocks, Ulysses redistributes once each way::
 
 Two collectives in all, at the cost of needing ``heads % P == 0``. Both
 are exact, so ``param.attention`` picks either. The attention between the
-two all-to-alls is the plain f32 attention of
-``parallel.ring._single_device_attention``, as in JAX; it calls no flash
-kernel.
+two all-to-alls is ``ops.flash_attention.flash_attention_block``'s output
+on the local ``[b, seq, heads/P, d]`` heads: K1 forward, K2 and K3
+backward on the card, their plain versions on the CPU. The JAX body is
+plain f32 ``jnp`` there (``parallel.ring._single_device_attention`` here,
+the plain version).
 """
 
 from __future__ import annotations
@@ -21,10 +23,7 @@ import torch
 import torch.distributed as dist
 
 from cron_operator_tpu_torch.parallel.mesh import SEQ_AXIS, axis_sizes
-from cron_operator_tpu_torch.parallel.ring import (
-    _single_device_attention,
-    seq_sharded_call,
-)
+from cron_operator_tpu_torch.parallel.ring import seq_sharded_call
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -63,7 +62,13 @@ def ulysses_attention_local(
     split over ``axis_name`` of ``mesh``: the JAX tiled all-to-alls
     (heads split into P chunks, chunk j to coordinate j, the sequence
     concatenated in coordinate order), full-sequence attention on ``h/P``
-    heads (causal needs no offsets: the sequence is whole), and back."""
+    heads through ``flash_attention_block`` (one K1, K2 and K3 launch on a
+    CUDA tensor; causal needs no offsets: the sequence is whole), and
+    back."""
+    from cron_operator_tpu_torch.ops.flash_attention import (
+        flash_attention_block,
+    )
+
     group = mesh.get_group(axis_name)
     par = axis_sizes(mesh)[axis_name]
 
@@ -79,7 +84,7 @@ def ulysses_attention_local(
         y = _AllToAll.apply(x, group)  # [P (head block), b, t, h/P, d]
         return y.permute(1, 2, 0, 3, 4).reshape(b, s // par, par * hp, d)
 
-    out = _single_device_attention(heads_out(q), heads_out(k), heads_out(v),
+    out, _ = flash_attention_block(heads_out(q), heads_out(k), heads_out(v),
                                    causal=causal)
     return heads_back(out)
 

@@ -23,8 +23,9 @@ On four cards it then runs, from ``chip_smoke.py``'s phases 16 and 18:
 
 - ``SEQ_LEGS``: ring ``gpt`` under ``seq`` 2 (two ranks), ``seq`` 4 and
   ``data`` 2 x ``seq`` 2, and Ulysses ``bert`` under ``seq`` 2, each held by
-  ``seq_problems`` against one rank's ``attention=xla`` run of the same
-  batches (with its lr-0 reading), the hops over NCCL;
+  ``seq_problems`` (K1-K3 launched by the bodies' rule, ``seq_launches``)
+  against one rank's ``attention=flash`` run of the same batches (K1-K3
+  over the whole sequence, with its lr-0 reading), the hops over NCCL;
 - ``PIPE_STAGES``: ``spmd_pipeline`` of 2 and of 4 GPT-2-small layers over
   as many ranks, held by ``pipeline_problems`` (``PIPE_REL_BOUND``);
 - ``GRAPH_LEGS``: ``data`` 4 and ``fsdp`` 4 at ``GRAPH_MESH_PARAMS`` (24
@@ -65,7 +66,8 @@ STRATEGIES = {
         "expert2": ({**MOE, "expert": "2"}, (8, 12))},
 }
 # name: (ranks, job, params over MESH_PARAMS); the reference is one rank's
-# run of the job at attention=xla
+# run of the job at attention=flash (K1-K3 over the whole sequence, the
+# arithmetic the bodies run on their blocks)
 SEQ_LEGS = {
     "seq2_ring": (2, "gpt", {"attention": "ring", "seq": "2"}),
     "seq4_ring": (4, "gpt", {"attention": "ring", "seq": "4"}),
@@ -98,7 +100,7 @@ def seq_leg(smoke, torch, root, refs, name) -> bool:
     world, job, extra = SEQ_LEGS[name]
     params = {**smoke.MESH_PARAMS, **extra}
     plain = {k: v for k, v in params.items() if k != "seq"}
-    plain["attention"] = "xla"
+    plain["attention"] = "flash"
     key = json.dumps([job, plain], sort_keys=True)
     if key not in refs:
         (ref,) = smoke.spawn_ranks(1, plain, root, f"ref_{name}", task=job,
@@ -106,7 +108,7 @@ def seq_leg(smoke, torch, root, refs, name) -> bool:
         frozen = smoke.frozen_reading(torch, {"ref": ref}, root, plain,
                                       "ref", job)
         refs[key] = ref
-        print(json.dumps({"run": f"one rank ({job}, attention=xla)",
+        print(json.dumps({"run": f"one rank ({job}, attention=flash)",
                           "losses": ref["losses"],
                           "step_ms": ref["step_s"] * 1e3, "lr0": frozen}),
               flush=True)
@@ -121,6 +123,9 @@ def seq_leg(smoke, torch, root, refs, name) -> bool:
         "body_device_ms": got["body_device_ms"],
         "step_device_ms": got["step_device_ms"],
         "body_share": got["body_share"],
+        "body_split_ms": got["body_split_ms"],
+        "by_mask": [r["by_mask"] for r in ranks],
+        "cron": [r["cron"] for r in ranks if "cron" in r],
         "peak_gib": max(r["peak_gib"] for r in ranks),
         "problems": problems}), flush=True)
     return bool(problems)

@@ -25,7 +25,8 @@ Jobs (dicts):
 - ``data_parallel``: :func:`_data_parallel`; ``moe_group``:
   :func:`_moe_group`.
 - ``split``: :func:`_split`; ``moe``: :func:`_moe`; ``refuse``:
-  :func:`_refuse`; ``attention``: :func:`_attention`; ``hop``:
+  :func:`_refuse`; ``attention``: :func:`_attention`; ``body``:
+  :func:`_body`; ``hop``:
   :func:`_hop`; ``guards``: :func:`_guards`; ``pipe_guards``:
   :func:`_pipe_guards`; ``pipeline``: :func:`_pipeline`; ``lm_job``:
   :func:`_lm_job`.
@@ -378,6 +379,71 @@ def _attention(job, mesh) -> Dict[str, Any]:
             "placements": [str(p) for p in out_d.placements]}
 
 
+def body_arrays(seed: int, b: int, s: int, h: int, d: int):
+    """Seeded numpy q, k, v and the output's gradient dO, each ``[b, s, h,
+    d]`` f32: the inputs of the ``body`` cases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, s, h, d), dtype=np.float32)
+                 for _ in range(4))
+
+
+def _body(job, mesh) -> Dict[str, Any]:
+    """A sequence-parallel body (``impl`` ring or ulysses) on the seeded
+    ``body_arrays(*job["qkv"])`` in ``dtype`` (default f32), through the
+    public function on plain global tensors, with dO fed to its output;
+    for the ring also :func:`parallel.ring.ring_attention_local_reference`
+    through the same scaffolding. Results: each way's output and the
+    gradients of q, k and v, whole, and the block calls this rank's body
+    made (``(causal, rows)`` of each ``flash_attention_block`` call)."""
+    from functools import partial
+
+    import torch
+
+    fa = importlib.import_module(
+        "cron_operator_tpu_torch.ops.flash_attention")
+    from cron_operator_tpu_torch.parallel import ring
+    from cron_operator_tpu_torch.parallel.ulysses import ulysses_attention
+
+    dtype = getattr(torch, job.get("dtype", "float32"))
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in body_arrays(*job["qkv"]))
+    causal = job["causal"]
+
+    def run(fn):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*xs, mesh, causal=causal)
+        out.backward(do)
+        return out.detach(), [x.grad for x in xs]
+
+    def reference(q, k, v, mesh, causal):
+        body = partial(ring.ring_attention_local_reference, mesh=mesh,
+                       causal=causal)
+        return ring.seq_sharded_call(body, q, k, v, mesh, seq_axis="seq",
+                                     causal=causal, op_name="reference")
+
+    calls = []
+    block = fa.flash_attention_block
+
+    def counted(q, k, v, *, causal=False):
+        calls.append((causal, q.shape[1]))
+        return block(q, k, v, causal=causal)
+
+    fa.flash_attention_block = counted
+    try:
+        fn = ring.ring_attention if job["impl"] == "ring" else \
+            ulysses_attention
+        out, grads = run(fn)
+    finally:
+        fa.flash_attention_block = block
+    result = {"out": out, "grads": grads, "calls": calls,
+              "coord": mesh.get_local_rank("seq")}
+    if job["impl"] == "ring":
+        result["ref_out"], result["ref_grads"] = run(reference)
+    return result
+
+
 def _hop(job, mesh) -> Dict[str, Any]:
     """:func:`parallel.ring.ppermute` by ``shift`` over ``axis``: each rank
     sends its coordinate, weights what it receives by its coordinate + 1
@@ -590,7 +656,7 @@ def _rank_main(jobs_file: str) -> int:
             run = {"train": _train, "data_parallel": _data_parallel,
                    "moe_group": _moe_group, "chain": _chain, "split": _split,
                    "moe": _moe, "refuse": _refuse, "attention": _attention,
-                   "hop": _hop, "guards": _guards,
+                   "body": _body, "hop": _hop, "guards": _guards,
                    "pipe_guards": _pipe_guards,
                    "pipeline": _pipeline, "lm_job": _lm_job}[job["kind"]]
             out = run(job, mesh)
