@@ -2743,8 +2743,9 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
     counts (and the loss kernels' under ``xent``, the LayerNorm kernels'
     under ``layer_norm``), designs, shapes, K1-K3's launches ``[full,
     causal]`` by mask (``by_mask``), per-step
-    losses, step s, tokens/s and the peak memory in GiB (and the
-    profile)."""
+    losses, step s, tokens/s, the peak memory in GiB, the trainer's path
+    (:func:`trainer_path`), the attention impl and mask, and the ``seq``
+    axis's size and this rank's coordinate on it (and the profile)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -2795,6 +2796,12 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
         for attr, inner in launchers.items():
             setattr(fa, attr, inner)
     tr, start = made[0]
+    sizes = dict(zip(tr.mesh.mesh_dim_names, tr.mesh.shape)) if (
+        tr.mesh is not None) else {}
+    result.update(path=trainer_path(tr), impl=tr.model.config.attention_impl,
+                  causal=job == "gpt", seq_size=sizes.get("seq", 1),
+                  seq_coord=(tr.mesh.get_local_rank("seq")
+                             if sizes.get("seq", 1) > 1 else 0))
     delta = {n: whole(p) - start[n] for n, p in tr.model.named_parameters()}
     if not dist.is_initialized() or dist.get_rank() == 0:
         torch.save(delta, delta_out)
@@ -2811,6 +2818,22 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
                            lambda: tr.step(batch))
         result["profile"] = text.getvalue()
     return result
+
+
+def trainer_path(tr) -> str:
+    """How a Trainer holds its model: ``one`` (no mesh), ``fsdp`` (FSDP2),
+    ``dtensor`` (placed parameters) or ``ddp`` (plain parameters under
+    DDP)."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    if tr.mesh is None:
+        return "one"
+    if isinstance(tr.model, FSDPModule):
+        return "fsdp"
+    if any(isinstance(p, DTensor) for p in tr.model.parameters()):
+        return "dtensor"
+    return "ddp"
 
 
 def mesh_rank(rank: int, world: int, local_rank: int, backend: str,
@@ -3063,9 +3086,8 @@ PIPE_REL_BOUND = 2e-2
 
 
 def seq_readings(tr, batch) -> dict:
-    """On each rank of a sequence-parallel run: the rank's coordinate and
-    the ring's size, the body (``ring`` or ``ulysses``) and its mask; one
-    profiled step's device ms, and the device ms of one layer's attention
+    """On each rank of a sequence-parallel run: one profiled step's device
+    ms, and the device ms of one layer's attention
     body (its forward and backward on this rank's block, causal for gpt)
     under ``profile_window``, at the run's local shape, split into K1-K3,
     memory copies, NCCL's kernels and the rest (``body_split_ms``); for
@@ -3111,9 +3133,7 @@ def seq_readings(tr, batch) -> dict:
         split[part] += us / 1e3
     out = {"step_device_ms": step_ms, "body_device_ms": body_ms,
            "body_split_ms": split,
-           "body_share": SEQ_LAYERS * body_ms / step_ms,
-           "seq_coord": mesh.get_local_rank("seq"), "seq_size": par,
-           "impl": cfg.attention_impl, "causal": causal}
+           "body_share": SEQ_LAYERS * body_ms / step_ms}
     if causal:
         del q, k, v
         out["cron"] = cron_ring_reading(torch, mesh, card)
@@ -3272,24 +3292,31 @@ def run_pipeline(torch, stages: int = 2) -> dict:
     }
 
 
-def seq_launches(got: dict) -> list:
+def seq_launches(got: dict, steps: int = MESH_STEPS) -> list:
     """The ``[full, causal]`` launches each of K1, K2 and K3 must make on a
-    rank of a sequence-parallel run, by the body's rule, per step and
-    layer: once per computed block, so ``coord + 1`` blocks on coordinate
-    ``coord`` of a causal ring (its own causal, the earlier ones in full;
-    the later ones add nothing), every block in full on a non-causal ring,
-    and one block over the whole sequence for Ulysses."""
-    per = MESH_STEPS * SEQ_LAYERS
-    if got["impl"] == "ulysses":
+    rank of a run of ``steps`` steps (:func:`run_gpt`'s result), by the
+    body's rule, per step and layer: once per computed block, so ``coord +
+    1`` blocks on coordinate ``coord`` of a causal ring (its own causal, the
+    earlier ones in full; the later ones add nothing), every block in full
+    on a non-causal ring, and one block over the whole sequence for Ulysses
+    or without a ``seq`` axis."""
+    per = steps * SEQ_LAYERS
+    if got["impl"] == "ulysses" or got["seq_size"] == 1:
         return [0, per] if got["causal"] else [per, 0]
     if got["causal"]:
         return [per * got["seq_coord"], per]
     return [per * got["seq_size"], 0]
 
 
+# The trainer's paths a seq mesh may take: plain modules (DDP, or FSDP2
+# under fsdp x seq), never DTensor parameters.
+SEQ_PATHS = ("ddp", "fsdp")
+
+
 def seq_problems(torch, ranks: list, ref: dict):
     """Every check of a sequence-parallel run against its one-rank
-    ``attention=flash`` reference: on every rank K1, K2 and K3 launched as
+    ``attention=flash`` reference: every rank on a path of
+    :data:`SEQ_PATHS`; on every rank K1, K2 and K3 launched as
     :func:`seq_launches` says, by mask, all sm90; every rank's losses
     equal; the loss gap and the update distance within their bounds; the
     ring's Cron-shape reading (where taken) within ``body_tolerances``,
@@ -3298,6 +3325,9 @@ def seq_problems(torch, ranks: list, ref: dict):
     gap, dist = mesh_readings(torch, ranks, ref)
     problems = []
     for r, got in enumerate(ranks):
+        if got["path"] not in SEQ_PATHS:
+            problems.append(f"rank {r} trained on the {got['path']} path, "
+                            f"not the plain one ({' or '.join(SEQ_PATHS)})")
         want = seq_launches(got)
         if got["by_mask"] != [want] * 3 or got["counts"] != [sum(want)] * 3:
             problems.append(f"rank {r} (coordinate {got['seq_coord']}) "
@@ -3348,7 +3378,9 @@ def pipeline_problems(ranks: list, stages: int) -> list:
 def phase_seq(torch, fa, card):
     """Ring ``gpt`` and Ulysses ``bert`` over two ranks against one-rank
     ``attention=flash`` runs (phase 15's checks; K1-K3 by the bodies' rule,
-    :func:`seq_launches`), with the gap to a one-rank ``attention=xla`` run
+    :func:`seq_launches`; the plain path, DDP: the loss kernels once a step
+    each and the LayerNorm kernels 24 of 25 folded, eager over gloo, which
+    cannot capture), with the gap to a one-rank ``attention=xla`` run
     beside, and the ring's Cron-shape reading; then the pipe-2 pipeline
     against the layers in sequence. Returns each run's readings, its
     launches by mask summed over the ranks, the rows of K1-K3 at the bodies'
@@ -3367,12 +3399,15 @@ def phase_seq(torch, fa, card):
             ranks = spawn_ranks(2, params, root, name, task=job)
             problems, (gap, dist) = seq_problems(torch, ranks, ref)
             xla_gap, xla_dist = mesh_readings(torch, ranks, xla)
-            for r, got in enumerate(ranks):  # a seq mesh: the former loss,
-                # the LayerNorm kernels on each rank's own rows
-                check_xent(f"seq {name} rank {r}", None, got["xent"], 0)
+            for r, got in enumerate(ranks):  # a seq mesh trains plain
+                # modules: the loss kernels, the folded LayerNorm kernels
+                check_xent(f"seq {name} rank {r}", f"seq_{name}",
+                           got["xent"], MESH_STEPS)
                 check_ln(f"seq {name} rank {r}", f"seq_{name}",
-                         got["layer_norm"], (LM_NORMS * MESH_STEPS,) * 2,
-                         folded=False)
+                         got["layer_norm"], (LM_NORMS * MESH_STEPS,) * 2)
+            print(f"seq {name} ({job}): trained on the "
+                  f"{[got['path'] for got in ranks]} path (by rank)",
+                  flush=True)
             print(f"seq {name} ({job}): losses {ranks[0]['losses']} against "
                   f"one rank's attention=flash {ref['losses']}: max gap "
                   f"{gap:.6f}, update distance {dist:.6f}; lr 0 reads "
@@ -4455,16 +4490,22 @@ def phase_xent(torch, card) -> dict:
                 torch.full((), g, device="cuda"))
             del x, y
             release(torch)
-    mesh_shape = (4096,) + XENT_SHAPES["gpt"][1:]
+    # the local logits of a rank: the data mesh's and ring gpt's (b 4 x
+    # 1024 or 8 x 512 rows), Ulysses bert's (b 8 x 256)
+    local = {"mesh": ((4096,) + XENT_SHAPES["gpt"][1:], "gpt"),
+             "seq_bert": ((2048,) + XENT_SHAPES["bert"][1:], "bert")}
     rows = {name: xent_rows(torch, xent, card, name, shape)
-            for name, shape in (*XENT_SHAPES.items(), ("mesh", mesh_shape))}
+            for name, shape in (*XENT_SHAPES.items(),
+                                *((n, shape) for n, (shape, _)
+                                  in local.items()))}
     for name in XENT_SHAPES:
         for d in ("fwd", "bwd"):
             key = "loss" if d == "fwd" else "dlogits"
             rows[name][d]["max_abs_err"] = errs[
                 f"{name} bfloat16 offset 0"][key]
-    for d in ("fwd", "bwd"):
-        rows["mesh"][d]["max_abs_err"] = rows["gpt"][d]["max_abs_err"]
+    for name, (_, like) in local.items():
+        for d in ("fwd", "bwd"):
+            rows[name][d]["max_abs_err"] = rows[like][d]["max_abs_err"]
 
     b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
     models = {
@@ -5105,6 +5146,10 @@ XENT_ROW = (CSRC + "xent.cu",
 XENT_PATHS = (("gpt", "", "gpt"), ("bert", "@bert", "bert"),
               ("moe", "@moe", "gpt"), ("resume", "@resume", "gpt"),
               ("mesh_data", "@mesh_data", "mesh"),
+              # ring gpt's rank holds b 8 x 512 rows (the data mesh's
+              # 4096), Ulysses bert's b 8 x 256
+              ("seq_ring", "@seq_ring", "mesh"),
+              ("seq_ulysses", "@seq_ulysses", "seq_bert"),
               ("mesh_graph", "@mesh_graph", "gpt"))
 
 

@@ -25,6 +25,7 @@ from cron_operator_tpu_torch.models.layers import (
     init_flax_layers_,
     tied_logits,
 )
+from cron_operator_tpu_torch.parallel.mesh import local_positions
 
 
 @dataclass(frozen=True)
@@ -67,8 +68,11 @@ class EncoderLayer(DecoderLayer):
 class Bert(nn.Module):
     """Token ids ``[batch, seq]`` -> MLM logits ``[b, s, vocab]`` in f32
     (or ``(hidden, embedding table)`` with ``cfg.return_hidden``).
-    ``pos_emb`` is ``[max_len, hidden]``, sliced to the sequence, and absent
-    under ``rope``."""
+    ``pos_emb`` is ``[max_len, hidden]``, sliced to the sequence (to this
+    rank's block of positions under ``seq_mesh``, set by
+    ``parallel.mesh.data_parallel``), and absent under ``rope``."""
+
+    seq_mesh = None
 
     def __init__(self, config: BertConfig = BertConfig(), *, device=None,
                  param_dtype: torch.dtype = torch.float32):
@@ -102,7 +106,8 @@ class Bert(nn.Module):
         dt = self.config.dtype
         x = self.tok_emb(input_ids).to(dt)
         if self.pos_emb is not None:
-            x = add_positions(x, self.pos_emb[:input_ids.shape[1]].to(dt))
+            block = local_positions(self.seq_mesh, input_ids.shape[1])
+            x = add_positions(x, self.pos_emb[block].to(dt))
         # each block's input add folded into its first norm, the last
         # block's into ln_f (gpt.fold_blocks)
         x, r, _ = fold_blocks(self.layers, x)

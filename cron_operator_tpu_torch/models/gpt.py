@@ -50,6 +50,11 @@ from cron_operator_tpu_torch.ops.attention import (
     decode_attention,
     multi_head_attention,
 )
+from cron_operator_tpu_torch.parallel.mesh import (
+    SEQ_AXIS,
+    axis_sizes,
+    local_positions,
+)
 from cron_operator_tpu_torch.parallel.moe import moe_ffn
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch defaults to 1e-5)
@@ -112,12 +117,15 @@ class MoEBlock(nn.Module):
     the factor to ``num_experts``, so the capacity is the batch and no token
     is dropped. Prefill keeps the training factor, as in the JAX package.
 
-    ``token_group`` is None, or on the plain data-parallel path the process
-    group whose ranks split the batch (``parallel.mesh.data_parallel`` sets
-    it): training steps then route among every rank's tokens.
+    ``token_group`` is None, or on the plain meshed path the process group
+    of every rank (``parallel.mesh.data_parallel`` sets it, and
+    ``seq_mesh`` under a ``seq`` axis): training steps then route among
+    every rank's tokens, in the one-device order (row, position) when the
+    positions are split over ``seq``.
     """
 
     token_group = None
+    seq_mesh = None
 
     def __init__(self, cfg: GPTConfig, device=None,
                  param_dtype: torch.dtype = torch.float32):
@@ -149,9 +157,12 @@ class MoEBlock(nn.Module):
         if decode:
             cf = max(cf, float(cfg.num_experts))
         params = {"router": self.router, "wi": self.wi, "wo": self.wo}
+        seq = 1 if self.seq_mesh is None else axis_sizes(
+            self.seq_mesh)[SEQ_AXIS]
         y, aux = moe_ffn(params, x.reshape(b * s, d), capacity_factor=cf,
                          compute_dtype=cfg.dtype,
-                         group=None if decode else self.token_group)
+                         group=None if decode else self.token_group,
+                         rows=b, seq_blocks=seq)
         return y.reshape(b, s, d).to(cfg.dtype), aux
 
 
@@ -159,9 +170,14 @@ class DecoderLayer(nn.Module):
     """Pre-LN block: attention (causal here; BERT's and ViT's
     :class:`~cron_operator_tpu_torch.models.bert.EncoderLayer` is this block
     with ``causal = False``), then the tanh-gelu FFN, or with ``use_moe``
-    the :class:`MoEBlock` in its place."""
+    the :class:`MoEBlock` in its place. ``seq_mesh`` (set by
+    ``parallel.mesh.data_parallel`` under a ``seq`` axis) makes the block's
+    input this rank's block of positions: rotary positions at the block's
+    global offset, and attention across the blocks
+    (:func:`ops.attention.multi_head_attention` with ``mesh``)."""
 
     causal = True
+    seq_mesh = None
 
     def __init__(self, cfg: GPTConfig, device=None,
                  param_dtype: torch.dtype = torch.float32,
@@ -211,13 +227,17 @@ class DecoderLayer(nn.Module):
         b, s, _ = x.shape
         x, y = self.ln_attn.add_norm(x, r)
         decode = pos is not None
-        q, k, v = self.attn(y, rope_positions=pos)
+        at = pos
+        if not decode and cfg.rope and self.seq_mesh is not None:
+            block = local_positions(self.seq_mesh, s)
+            at = torch.arange(block.start, block.stop, device=x.device)
+        q, k, v = self.attn(y, rope_positions=at)
         if decode:
             attn = self._decode_attention(q, k, v, cache_k, cache_v, pos)
         else:
             attn = multi_head_attention(
-                q, k, v, causal=self.causal, impl=cfg.attention_impl
-            )
+                q, k, v, causal=self.causal, impl=cfg.attention_impl,
+                mesh=self.seq_mesh)
             if cache_k is not None:
                 cache_k[:, :s] = k
                 cache_v[:, :s] = v
@@ -265,7 +285,11 @@ class GPT(nn.Module):
     ``aux`` is the layers' summed router balance loss times
     ``moe_aux_weight``, an f32 scalar. The JAX model returns the pair
     always, with aux 0 for dense blocks; the port's dense model returns the
-    output alone."""
+    output alone. Under ``seq_mesh`` (``parallel.mesh.data_parallel``) the
+    ids are this rank's block of positions, which take the learned
+    positions at its global offset."""
+
+    seq_mesh = None
 
     def __init__(self, config: GPTConfig = GPTConfig(), *, device=None,
                  param_dtype: torch.dtype = torch.float32):
@@ -319,13 +343,15 @@ class GPT(nn.Module):
 
     def _embed(self, input_ids: torch.Tensor,
                 pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Token embeddings plus the learned positions ``0..s-1``, or
-        ``pos`` (a 1-element tensor) for a decode step."""
+        """Token embeddings plus the learned positions ``0..s-1`` (this
+        rank's block of them under ``seq_mesh``), or ``pos`` (a 1-element
+        tensor) for a decode step."""
         dt = self.config.dtype
         x = self.tok_emb(input_ids).to(dt)
         if self.pos_emb is not None:
-            table = (self.pos_emb[:input_ids.shape[1]] if pos is None
-                     else self.pos_emb.index_select(0, pos))
+            table = (self.pos_emb[local_positions(self.seq_mesh,
+                                                  input_ids.shape[1])]
+                     if pos is None else self.pos_emb.index_select(0, pos))
             x = add_positions(x, table.to(dt))
         return x
 

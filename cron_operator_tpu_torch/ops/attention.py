@@ -27,15 +27,20 @@ where XLA compiles it.
 
 Models call :func:`multi_head_attention` and stay strategy-agnostic. On the
 ``meta`` device (a FLOP count, :func:`count_attention_flops`) attention
-computes nothing and is counted by formula, whatever ``impl`` says. Over a
-device mesh q, k and v are DTensors that carry their mesh, so a model
-passes none (the JAX models pass theirs): each rank runs the dispatch on
-its local block (:func:`_sharded_attention`, the JAX ``_sharded_flash``),
-or under ``seq > 1`` (or an explicit ``ring``/``ulysses``) the
-sequence-parallel body on its block of the sequence. A plain tensor has no
-mesh, so ``ring`` and ``ulysses`` give plain attention there: what the JAX
-dispatch gives under a mesh without a ``seq`` axis, which is how every JAX
-job calls it on one device (JAX raises only when no mesh is passed at all).
+computes nothing and is counted by formula, whatever ``impl`` says. On the
+plain meshed path (``parallel.mesh.data_parallel``) q, k and v are this
+rank's block of positions as plain tensors, and the layer passes the mesh
+(its ``seq_mesh``) when ``seq > 1``: :func:`_seq_attention` runs the
+sequence-parallel body on the local blocks (``auto`` and ``ring`` the ring,
+``ulysses`` Ulysses; ``flash`` and ``xla`` gather the sequence). Over a
+DTensor mesh (``tensor``, ``expert``) q, k and v are DTensors that carry
+their mesh: each rank runs the dispatch on its local block
+(:func:`_sharded_attention`, the JAX ``_sharded_flash``), or under ``seq >
+1`` (or an explicit ``ring``/``ulysses``) the sequence-parallel body on its
+block of the sequence. A plain tensor without a mesh gives plain attention
+for ``ring`` and ``ulysses``: what the JAX dispatch gives under a mesh
+without a ``seq`` axis, which is how every JAX job calls it on one device
+(JAX raises only when no mesh is passed at all).
 """
 
 from __future__ import annotations
@@ -63,12 +68,19 @@ from cron_operator_tpu_torch.parallel.mesh import (
     SEQ_AXIS,
     TENSOR_AXIS,
     axis_sizes,
+    local_positions,
 )
+from cron_operator_tpu_torch.parallel.moe import gather_rows
 from cron_operator_tpu_torch.parallel.ring import (
     _single_device_attention,
     ring_attention,
+    ring_attention_local,
 )
-from cron_operator_tpu_torch.parallel.ulysses import ulysses_attention
+from cron_operator_tpu_torch.parallel.ulysses import (
+    check_heads,
+    ulysses_attention,
+    ulysses_attention_local,
+)
 
 
 def reference_attention(
@@ -135,18 +147,24 @@ def multi_head_attention(
     *,
     causal: bool = False,
     impl: str = "auto",
+    mesh=None,
 ) -> torch.Tensor:
     """Dispatching attention on ``[batch, seq, heads, head_dim]``.
 
     ``impl``: ``"auto" | "flash" | "xla" | "ring" | "ulysses"``.
     Grouped-query K/V (fewer heads, a divisor) go to the flash kernel as
     they are; the other impls repeat them here, the sequence-parallel ones
-    before the sequence is split.
+    before the sequence is split. ``mesh`` (plain tensors only): q, k and v
+    are this rank's block of a sequence split over the mesh's ``seq`` axis
+    (:func:`_seq_attention`); without a ``seq`` axis above 1 it changes
+    nothing.
     """
     if isinstance(q, DTensor):
         return _sharded_attention(q, k, v, causal=causal, impl=impl)
     if q.is_meta:
         return _MetaAttention.apply(q, k, v, causal)
+    if mesh is not None and axis_sizes(mesh).get(SEQ_AXIS, 1) > 1:
+        return _seq_attention(q, k, v, mesh, causal=causal, impl=impl)
     if impl == "auto":
         # The kernels on the card at any sequence length: no fallback to the
         # plain body for a CUDA tensor (a shape the kernels refuse raises).
@@ -165,6 +183,37 @@ def multi_head_attention(
     if impl in ("xla", "ring", "ulysses"):
         return _single_device_attention(q, k, v, causal=causal)
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _seq_attention(q, k, v, mesh, *, causal: bool, impl: str):
+    """Attention of this rank's block ``[b, t, h, d]`` of a sequence split
+    over ``seq`` of ``mesh``, plain tensors (the plain meshed path), on
+    full-head K/V: ``auto`` and ``ring`` run
+    :func:`parallel.ring.ring_attention_local` and ``ulysses``
+    :func:`parallel.ulysses.ulysses_attention_local` (K1-K3 inside on the
+    card), as the JAX dispatch picks ring for ``auto`` under a ``seq``
+    axis. ``flash`` and ``xla`` attend over the whole sequence, as under
+    GSPMD: the blocks are gathered over ``seq`` (their gradients summed
+    back), the dispatch runs on the whole sequence and each rank keeps its
+    rows of the output."""
+    if impl not in ("auto", "flash", "xla", "ring", "ulysses"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl in ("flash", "xla"):
+        whole = [_gather_seq(t, mesh) for t in (q, k, v)]
+        out = multi_head_attention(*whole, causal=causal, impl=impl)
+        return out[:, local_positions(mesh, q.shape[1])]
+    k, v = _full_heads(q, k, v)
+    if impl == "ulysses":
+        check_heads(q.shape[2], axis_sizes(mesh)[SEQ_AXIS])
+        return ulysses_attention_local(q, k, v, mesh=mesh, causal=causal)
+    return ring_attention_local(q, k, v, mesh=mesh, causal=causal)
+
+
+def _gather_seq(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``[b, t, ...]`` blocks of every coordinate of ``mesh``'s ``seq``
+    axis, in coordinate order: ``[b, seq * t, ...]``, differentiable."""
+    rows = gather_rows(x.transpose(0, 1), mesh.get_group(SEQ_AXIS))
+    return rows.transpose(0, 1)
 
 
 def _full_heads(q, k, v):

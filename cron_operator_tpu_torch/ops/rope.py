@@ -3,10 +3,13 @@
 Rotates each (even, odd) feature pair of Q and K by a position- and
 frequency-dependent angle, in f32. The same function serves the full
 forward (``positions = arange(seq)``) and a decode step (``positions =
-[current_index]``). Over a mesh ``x`` is a DTensor whose sequence may be
-split over ``seq``; ``positions`` stay global, so the tables enter as
+[current_index]``). ``positions`` are always global: on the plain
+meshed path ``x`` is this rank's block of a sequence split over ``seq``,
+and the caller passes the block's own positions (``models.gpt.DecoderLayer``
+from ``parallel.mesh.local_positions``); over a DTensor mesh ``x`` is a
+DTensor whose sequence may be split over ``seq``, the tables enter as
 replicated DTensors and each rank rotates its block at its own global
-positions, as JAX rotates before the sequence is split.
+positions. Either way, as JAX rotates before the sequence is split.
 """
 
 from __future__ import annotations

@@ -21,15 +21,20 @@ Axis convention (outer to inner), shared with the JAX package:
 - ``tensor`` tensor parallelism (a weight's output-features dim, heads).
 
 Two paths train over a mesh (:func:`plain_axes` picks one). A mesh whose
-axes above 1 are only ``data`` and ``fsdp`` trains plain modules
-(:func:`data_parallel`): ``DistributedDataParallel`` for ``data``, FSDP2
-``fully_shard`` per block and on the root for ``fsdp`` (replicated over
-``data`` when both are above 1), each parameter split on the dim the
-placement rule gives it; the model code sees plain tensors, and on NCCL the
-step can be captured as a CUDA graph. A mesh with ``tensor``, ``expert``,
-``seq`` or ``pipe`` above 1 places every parameter as a DTensor
-(:func:`distribute_parameters`) and DTensor's propagation places the
-collectives. The JAX package has one path, GSPMD, for every mesh.
+axes above 1 are among ``data``, ``fsdp`` and ``seq`` trains plain modules
+(:func:`data_parallel`): ``DistributedDataParallel`` over every rank
+without ``fsdp``, FSDP2 ``fully_shard`` per block and on the root with it
+(sharded on ``fsdp``, replicated over the other axes above 1), each
+parameter split on the dim the placement rule gives it. Each rank holds its
+rows of the batch and, under ``seq``, its block of positions as plain
+tensors; the modules that see a block of positions get the mesh
+(``seq_mesh``: learned and rotary positions at the block's global offset,
+ring and Ulysses attention on the local blocks), the MoE blocks the group
+of every rank (``token_group``), and on NCCL the step can be captured as a
+CUDA graph. A mesh with ``tensor``, ``expert`` or ``pipe`` above 1 places
+every parameter as a DTensor (:func:`distribute_parameters`) and DTensor's
+propagation places the collectives. The JAX package has one path, GSPMD,
+for every mesh.
 
 The plan half (:class:`MeshPlan`, :func:`plan_for_devices`, :func:`replan`,
 :func:`regrow`) is a copy of the JAX package's pure Python: the controller
@@ -627,27 +632,37 @@ def distribute_parameters(model: nn.Module, mesh: Any,
     return model
 
 
+# Axes that a mesh may split above 1 and still train plain modules.
+PLAIN_AXES: Tuple[str, ...] = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS)
+# The attributes through which :func:`data_parallel` hands the modules of a
+# model the mesh: ``token_group`` (the MoE block: the group of every rank)
+# and ``seq_mesh`` (each module that sees a rank's block of positions).
+MESH_ATTACHMENTS: Tuple[str, ...] = ("token_group", "seq_mesh")
+
+
 def plain_axes(mesh: Any) -> bool:
-    """Whether every axis of ``mesh`` above 1 is a batch axis (``data`` or
-    ``fsdp``): such a mesh trains plain modules (:func:`data_parallel`);
-    any other keeps DTensor parameters (:func:`distribute_parameters`)."""
-    return all(size == 1 or name in BATCH_AXES
+    """Whether every axis of ``mesh`` above 1 is ``data``, ``fsdp`` or
+    ``seq``: such a mesh trains plain modules (:func:`data_parallel`); any
+    other (``tensor``, ``expert`` or ``pipe`` above 1) keeps DTensor
+    parameters (:func:`distribute_parameters`)."""
+    return all(size == 1 or name in PLAIN_AXES
                for name, size in axis_sizes(mesh).items())
 
 
 def batch_group(mesh: Any):
     """The process group of every rank of a :func:`plain_axes` mesh, over
-    which its batch rows are split: the one axis above 1 (or the only
-    axis), or with ``data`` and ``fsdp`` both above 1 the default group,
-    whose whole world the mesh must then be."""
+    which its gradients are averaged (each rank's loss the mean over its own
+    tokens, every rank holding as many): the one axis above 1 (or the only
+    axis), or with two or more above 1 the default group, whose whole world
+    the mesh must then be."""
     big = [name for name, size in axis_sizes(mesh).items() if size > 1]
     if len(big) == 1 or mesh.ndim == 1:
         return mesh.get_group(big[0] if big else 0)
     if mesh.size() != dist.get_world_size():
         raise ValueError(
             f"a {axis_sizes(mesh)} mesh of {mesh.size()} ranks in a world "
-            f"of {dist.get_world_size()}: a data x fsdp mesh must be the "
-            "whole world")
+            f"of {dist.get_world_size()}: a mesh of several axes above 1 "
+            "must be the whole world")
     return dist.group.WORLD
 
 
@@ -675,6 +690,24 @@ def _blocks(model: nn.Module) -> List[nn.Module]:
     return blocks
 
 
+def _fsdp_mesh(mesh: Any):
+    """The mesh FSDP2 shards over: ``fsdp`` alone, or with other axes above
+    1 (``data``, ``seq``) a 2-D mesh of the same ranks whose first dim
+    replicates over all of them (HSDP) and whose second is ``fsdp``. The
+    mesh's order (data, fsdp, seq) keeps ``data`` and ``seq`` apart, which
+    no slice of it joins, so the grid is the mesh's ranks with ``fsdp``
+    moved last, and every rank of the world builds its groups."""
+    sizes = axis_sizes(mesh)
+    if all(size == 1 for name, size in sizes.items() if name != FSDP_AXIS):
+        return mesh[FSDP_AXIS]
+    names = list(sizes)
+    fsdp = names.index(FSDP_AXIS)
+    order = [i for i in range(len(names)) if i != fsdp] + [fsdp]
+    grid = mesh.mesh.permute(order).reshape(-1, sizes[FSDP_AXIS])
+    return DeviceMesh(mesh.device_type, grid,
+                      mesh_dim_names=("replicate", FSDP_AXIS))
+
+
 def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
     """``model`` trained over a :func:`plain_axes` mesh, its parameters
     plain tensors in the model code:
@@ -687,24 +720,30 @@ def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
     - an ``fsdp`` axis (:func:`plan_for_devices` names it when it is above
       1; a mesh made from a plan that names it at 1 runs FSDP2 on one
       rank): FSDP2 ``fully_shard`` on each block
-      (:func:`_blocks`) and on the root, over ``fsdp`` (over ``data`` x
-      ``fsdp`` when ``data`` is above 1: sharded on ``fsdp``, replicated on
-      ``data``), each parameter split on the dim :func:`sharding_for_tree`
-      gives it on ``fsdp``; the parameters it replicates there stay plain
+      (:func:`_blocks`) and on the root, over :func:`_fsdp_mesh` (sharded
+      on ``fsdp``, replicated over ``data`` and ``seq`` where they are above
+      1), each parameter split on the dim :func:`sharding_for_tree` gives it
+      on ``fsdp``; the parameters it replicates there stay plain
       (``ignored_params``) and are returned in ``replicated``. The
       all-gathers stay f32, as the parameters are (no mixed precision).
 
-    Modules with a ``token_group`` attribute (the MoE block) get
-    :func:`batch_group`: they route over every rank's tokens, as the JAX
-    sharded trainer does (:func:`parallel.moe.moe_ffn`)."""
+    Every module gets its :data:`MESH_ATTACHMENTS`: ``token_group`` (the
+    MoE block) is :func:`batch_group`, so it routes over every rank's
+    tokens, as the JAX sharded trainer does (:func:`parallel.moe.moe_ffn`);
+    ``seq_mesh`` is ``mesh`` under a ``seq`` axis above 1 (else None), for
+    the modules that see this rank's block of positions
+    (:func:`local_positions`)."""
     from torch.distributed.fsdp import fully_shard
     from torch.nn.parallel import DistributedDataParallel
 
     group = batch_group(mesh)
-    for module in model.modules():
-        if hasattr(module, "token_group"):
-            module.token_group = group
     sizes = axis_sizes(mesh)
+    attach = {"token_group": group,
+              "seq_mesh": mesh if sizes.get(SEQ_AXIS, 1) > 1 else None}
+    for module in model.modules():
+        for name, value in attach.items():
+            if hasattr(module, name):
+                setattr(module, name, value)
     if FSDP_AXIS not in sizes:
         device = next(model.parameters()).device
         ddp = DistributedDataParallel(
@@ -721,9 +760,7 @@ def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
             split[p] = placement
         else:
             replicated.append(p)
-    axes = (DATA_AXIS, FSDP_AXIS) if sizes.get(DATA_AXIS, 1) > 1 else (
-        FSDP_AXIS,)
-    kw = dict(mesh=mesh[axes], shard_placement_fn=split.__getitem__,
+    kw = dict(mesh=_fsdp_mesh(mesh), shard_placement_fn=split.__getitem__,
               ignored_params=set(replicated))
     for block in _blocks(model):
         fully_shard(block, **kw)
@@ -769,14 +806,26 @@ def seq_block(mesh: Any, n_positions: int) -> slice:
     return slice(index * per, (index + 1) * per)
 
 
+def local_positions(mesh: Any, n_local: int) -> slice:
+    """The global positions of this rank's block of ``n_local`` positions,
+    a sequence split over ``seq`` of ``mesh`` in coordinate order as
+    :func:`seq_block` lays it out: ``coord * n_local`` on; ``0 ..
+    n_local - 1`` without a mesh (None)."""
+    if mesh is None:
+        return slice(0, n_local)
+    return seq_block(mesh, n_local * axis_sizes(mesh).get(SEQ_AXIS, 1))
+
+
 __all__ = [
     "BATCH_AXES",
     "DATA_AXIS",
     "DataParallel",
     "EXPERT_AXIS",
     "FSDP_AXIS",
+    "MESH_ATTACHMENTS",
     "MeshPlan",
     "PIPE_AXIS",
+    "PLAIN_AXES",
     "SEQ_AXIS",
     "TENSOR_AXIS",
     "axis_sizes",
@@ -790,6 +839,7 @@ __all__ = [
     "group_devices_by_slice",
     "hybrid_grid",
     "hybrid_mesh_for_slices",
+    "local_positions",
     "make_mesh",
     "mesh_for_devices",
     "mesh_for_slice",

@@ -40,15 +40,19 @@ the logits (:func:`_route`), so capacities and slots are those of one
 device and the output equals the unsharded one; under sequence
 parallelism too, where ``x`` holds every rank's positions in the global
 row-major token order and the capacity comes from the global token
-count. On the plain data-parallel path (``parallel.mesh.data_parallel``)
-the tokens are each rank's plain rows and ``moe_ffn`` takes the process
-group they are split over (``group``): the logits are gathered and routed
-alike on every rank, the capacity counts every rank's tokens, each rank
-gathers its own tokens into their slots (other ranks' slots read a zero
-row), each expert's input is the sum over the ranks (each slot holds one
-token, so the sum is exact), and every rank runs every expert on it and
-combines its own rows. The routes and the output are those of one
-device, as under GSPMD.
+count. On the plain path (``parallel.mesh.data_parallel``) the tokens are
+each rank's plain rows, or under ``seq`` its rows of a block of positions,
+and ``moe_ffn`` takes the process group of every rank (``group``): the
+logits are gathered, put in the one-device token order (row, position)
+(:func:`token_order`: rank order is (batch shard, seq block, row,
+position), which differs once a rank holds more than one row of a split
+sequence, and capacity fills slots in token order) and routed alike on
+every rank, the capacity counts every rank's tokens, each rank gathers its
+own tokens into their slots (other ranks' slots read a zero row), each
+expert's input is the sum over the ranks (each slot holds one token, so
+the sum is exact), and every rank runs every expert on it and combines its
+own rows. The routes and the output are those of one device, as under
+GSPMD.
 
 Usage::
 
@@ -180,6 +184,37 @@ def _route(logits: torch.Tensor, capacity: int):
     return fn(logits)
 
 
+def token_order(group, tokens: int, rows: int = 1, seq_blocks: int = 1,
+                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(order, mine)`` for the tokens of a batch spread over ``group``:
+    each rank holds ``tokens`` of them, its ``rows`` rows of a block of
+    positions, row-major, and the batch's positions are split into
+    ``seq_blocks`` blocks over consecutive ranks (rank = batch shard x
+    ``seq_blocks`` + block, the mesh's order: data, fsdp, then seq).
+    ``order[i]`` is the rank-order index (every rank's tokens gathered in
+    rank order) of token i in the one-device order (global row, position);
+    ``mine[j]`` is the one-device index of this rank's token j. Without a
+    split sequence, or at one row a rank, both orders agree."""
+    ranks = dist.get_world_size(group)
+    everyone = torch.arange(ranks * tokens, device=device)
+    shape = (ranks // seq_blocks, seq_blocks, rows, tokens // rows)
+    order = everyone.view(shape).permute(0, 2, 1, 3).reshape(-1)
+    one_device = everyone.view(shape[0], rows, seq_blocks, shape[3])
+    at = one_device.permute(0, 2, 1, 3).reshape(-1)
+    me = dist.get_rank(group)
+    return order, at[me * tokens:(me + 1) * tokens]
+
+
+def _gather_routed(logits: torch.Tensor, group, rows: int, seq_blocks: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every rank's router logits over ``group`` in the one-device token
+    order (:func:`token_order`), and this rank's tokens' indices there."""
+    order, mine = token_order(group, logits.shape[0], rows, seq_blocks,
+                              logits.device)
+    gathered = _GatherRows.apply(logits, group)
+    return gathered.index_select(0, order), mine
+
+
 class _GatherRows(torch.autograd.Function):
     """Every rank's rows of ``x`` over ``group``, in rank order; the
     gradient of this rank's rows sums every rank's gradient of them."""
@@ -307,24 +342,29 @@ def moe_ffn(
     capacity_factor: float = 1.25,
     compute_dtype: Optional[torch.dtype] = None,
     group=None,
+    rows: int = 1,
+    seq_blocks: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mixture-of-experts FFN over a flat token batch.
 
     ``x``: ``[T, d_model]`` -> (``[T, d_model]``, aux loss). Dropped tokens
     give zeros: compose with a residual connection. With ``group`` (a
     process group of more than one rank), ``x`` is this rank's part of a
-    batch split over the group's ranks in rank order, routed with every
-    rank's tokens (see the module docstring).
+    batch spread over the group's ranks, routed with every rank's tokens in
+    the one-device order (see the module docstring): its ``rows`` rows,
+    row-major, of a block of positions when the batch's positions are split
+    into ``seq_blocks`` blocks over consecutive ranks (:func:`token_order`).
 
     Routing (logits, softmax, aux loss) always runs in f32. Dispatch and
     combine are gathers by token index; the two expert matmuls run in
     ``compute_dtype`` (default ``x.dtype``); gelu is tanh-approximate, as
     flax's. DTensor inputs or parameters take :func:`moe_ffn_reference`.
     """
+    kw = dict(capacity_factor=capacity_factor, compute_dtype=compute_dtype,
+              group=group, rows=rows, seq_blocks=seq_blocks)
     if isinstance(x, DTensor) or any(isinstance(p, DTensor)
                                      for p in params.values()):
-        return moe_ffn_reference(params, x, capacity_factor=capacity_factor,
-                                 compute_dtype=compute_dtype, group=group)
+        return moe_ffn_reference(params, x, **kw)
     T = x.shape[0]
     E = params["wi"].shape[0]
     ranks = 1 if group is None else dist.get_world_size(group)
@@ -333,16 +373,16 @@ def moe_ffn(
 
     logits = x.float() @ params["router"].float()
     if ranks > 1:
-        logits = _GatherRows.apply(logits, group)
+        logits, mine = _gather_routed(logits, group, rows, seq_blocks)
     expert_index, slot, gate, aux_loss = router_top1_indices(logits, C)
     dest, src = slot_indices(expert_index, slot, C, E)
     if ranks > 1:
-        # this rank's rows are global tokens first .. first + T - 1; the
-        # slots of other ranks' tokens read the zero row here
-        first = dist.get_rank(group) * T
-        dest, gate = dest[first:first + T], gate[first:first + T]
-        src = src - first
-        src = torch.where((src >= 0) & (src < T), src, T)
+        # this rank's tokens are one-device tokens mine[0 .. T - 1]; the
+        # slots of other ranks' tokens (and empty ones) read the zero row
+        dest, gate = dest.index_select(0, mine), gate.index_select(0, mine)
+        local = torch.full((ranks * T + 1,), T, dtype=torch.long,
+                           device=x.device)
+        src = local.scatter_(0, mine, torch.arange(T, device=x.device))[src]
 
     expert_in = _Dispatch.apply(x.to(cd), src, dest, E)  # [E, C, d]
     if ranks > 1:
@@ -359,13 +399,15 @@ def moe_ffn_reference(
     capacity_factor: float = 1.25,
     compute_dtype: Optional[torch.dtype] = None,
     group=None,
+    rows: int = 1,
+    seq_blocks: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`moe_ffn` in the reference's dense formulation: dispatch and
     combine are products with the ``[T, E, C]`` one-hots of
     :func:`router_top1`, cast to ``compute_dtype``. It is the plain version
     that the index path is held to, and the path of DTensor inputs and
-    parameters (``tensor``, ``expert`` and ``seq`` meshes), whose
-    collectives DTensor's propagation over the products places."""
+    parameters (``tensor`` and ``expert`` meshes), whose collectives
+    DTensor's propagation over the products places."""
     T = x.shape[0]
     E = params["wi"].shape[0]
     ranks = 1 if group is None else dist.get_world_size(group)
@@ -374,10 +416,10 @@ def moe_ffn_reference(
 
     logits = x.float() @ params["router"].float()
     if ranks > 1:
-        combine, dispatch, aux_loss = router_top1(
-            _GatherRows.apply(logits, group), C)
-        rows = slice(dist.get_rank(group) * T, (dist.get_rank(group) + 1) * T)
-        combine, dispatch = combine[rows], dispatch[rows]
+        logits, mine = _gather_routed(logits, group, rows, seq_blocks)
+        combine, dispatch, aux_loss = router_top1(logits, C)
+        combine = combine.index_select(0, mine)
+        dispatch = dispatch.index_select(0, mine)
     else:
         combine, dispatch, aux_loss = _route(logits, C)
 
@@ -395,6 +437,13 @@ def moe_ffn_reference(
     return y, aux_loss
 
 
-__all__ = ["init_moe_params", "moe_ffn", "moe_ffn_reference",
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's rows of ``x`` over ``group`` in rank order,
+    differentiable: the gradient of this rank's rows sums every rank's
+    gradient of them."""
+    return _GatherRows.apply(x, group)
+
+
+__all__ = ["gather_rows", "init_moe_params", "moe_ffn", "moe_ffn_reference",
            "moe_param_sharding", "router_top1", "router_top1_indices",
-           "slot_indices"]
+           "slot_indices", "token_order"]

@@ -89,6 +89,17 @@ def ulysses_attention_local(
     return heads_back(out)
 
 
+def check_heads(heads: int, par: int, seq_axis: str = SEQ_AXIS) -> None:
+    """Raises ``ValueError`` unless ``heads`` divide the ``par``-way
+    ``seq_axis``, which the head scatter needs."""
+    if par > 1 and heads % par:
+        raise ValueError(
+            f"ulysses_attention: {heads} heads do not divide the {par}-way "
+            f"{seq_axis!r} axis; use ring attention (any head count) or "
+            "resize the mesh"
+        )
+
+
 def ulysses_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -102,14 +113,7 @@ def ulysses_attention(
     through head-scatter all-to-alls, with the guards of
     :func:`parallel.ring.seq_sharded_call`; the head count must divide the
     ``seq_axis`` size (``ValueError``)."""
-    par = axis_sizes(mesh).get(seq_axis, 1)
-    heads = q.shape[2]
-    if par > 1 and heads % par:
-        raise ValueError(
-            f"ulysses_attention: {heads} heads do not divide the {par}-way "
-            f"{seq_axis!r} axis; use ring attention (any head count) or "
-            "resize the mesh"
-        )
+    check_heads(q.shape[2], axis_sizes(mesh).get(seq_axis, 1), seq_axis)
 
     def body(q, k, v):
         return ulysses_attention_local(q, k, v, mesh=mesh, axis_name=seq_axis,
@@ -118,4 +122,4 @@ def ulysses_attention(
                             causal=causal, op_name="ulysses_attention")
 
 
-__all__ = ["ulysses_attention", "ulysses_attention_local"]
+__all__ = ["check_heads", "ulysses_attention", "ulysses_attention_local"]

@@ -245,12 +245,13 @@ def lm_loss(mesh=None, fused_xent: bool = False):
 
     - ``fused_xent``: :func:`ops.xent.chunked_cross_entropy` of the final
       hidden states against the tied table, no logits built.
-    - Otherwise, without a mesh or over a mesh of batch axes alone
-      (``plain_axes``: DDP or FSDP2 on plain modules):
+    - Otherwise, without a mesh or over a mesh of ``data``, ``fsdp`` and
+      ``seq`` axes (``plain_axes``: DDP or FSDP2 on plain modules, each
+      rank's loss over its own rows and block of positions):
       :func:`ops.xent.tied_cross_entropy`, the padded bf16 product and the
       loss kernels of ``ops/csrc/xent.cu`` on the card.
-    - A mesh that places DTensors (``tensor``, ``expert``, ``seq``): the
-      model's f32 logits and ``cross_entropy_loss``, the former path."""
+    - A mesh that places DTensors (``tensor``, ``expert``): the model's f32
+      logits and ``cross_entropy_loss``, the former path."""
     if fused_xent:
         return True, _chunked_loss
     if mesh is not None and not plain_axes(mesh):
@@ -553,8 +554,9 @@ def bert(ctx) -> None:
     seq/tensor/fsdp (the sequence split over ``seq``), remat(=0),
     kv_heads(=0: MHA), rope(=0|1). AdamW at lr 1e-3; targets are the inputs
     (``token_batches``). The loss is :func:`lm_loss`'s: the padded product's
-    softmax cross-entropy through the loss kernels, or ``cross_entropy_loss``
-    of the f32 logits over a mesh that places DTensors.
+    softmax cross-entropy through the loss kernels (a ``seq`` mesh too, on
+    each rank's block of positions), or ``cross_entropy_loss`` of the f32
+    logits over a mesh that places DTensors (``tensor``, ``expert``).
     """
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 8))
@@ -586,10 +588,12 @@ def gpt(ctx) -> None:
     dense; k > 0 makes every k-th block's FFN a Switch-MoE layer),
     num_experts(=8), remat(=0),
     fused_xent(=0: the loss is :func:`ops.xent.tied_cross_entropy`, the
-    whole padded bf16 logits through the loss kernels, or over a mesh that
-    places DTensors ``cross_entropy_loss`` of the f32 logits; when 1 it is
-    :func:`ops.xent.chunked_cross_entropy` against the tied embedding and
-    the ``[b, s, vocab]`` logits are never built; :func:`lm_loss`),
+    whole padded bf16 logits through the loss kernels, a ``seq`` mesh's on
+    each rank's block of positions, or over a mesh that places DTensors
+    (``tensor``, ``expert``) ``cross_entropy_loss`` of the f32 logits;
+    when 1 it is :func:`ops.xent.chunked_cross_entropy` against the tied
+    embedding and the ``[b, s, vocab]`` logits are never built;
+    :func:`lm_loss`),
     kv_heads(=0: MHA), rope(=0|1), data(=device|host|fused), platform,
     and the params of :func:`_train_kwargs` (AdamW at lr 1e-3 by
     default). Targets are next-token shifted; an MoE model's weighted

@@ -8,29 +8,31 @@ mesh (``Trainer(..., mesh=...)``, a ``DeviceMesh`` from
 JAX ``Trainer`` jits it over its mesh.
 
 Under a mesh each rank draws or receives the same global batch and keeps
-its rows (:func:`workloads.data.local_rows`, the batch split over ``data``
-then ``fsdp``), so a sharded run sees exactly the one-process batch. The
-reported loss and the clip norm are global. Two paths
-(:func:`parallel.mesh.plain_axes`):
+its part (:func:`workloads.data.local_rows`: the rows split over ``data``
+then ``fsdp``, and with ``TrainConfig.seq_dim_in_batch`` that dim's block
+over ``seq``, for ``y`` too under ``labels_follow_seq``), so a sharded run
+sees exactly the one-process batch. The reported loss and the clip norm
+are global. Two paths (:func:`parallel.mesh.plain_axes`):
 
-- a mesh whose axes above 1 are only ``data`` and ``fsdp`` trains the plain
-  module under ``DistributedDataParallel`` or FSDP2
-  (:func:`parallel.mesh.data_parallel`): the batch is each rank's rows as
-  plain tensors, the loss an all-reduce of the ranks' means on the device,
-  and the parameters that FSDP2 leaves whole have their gradients averaged
-  here. It runs as on one card: staging, a fused ``capturable`` optimizer
-  with a device learning rate, and on an NCCL group the step captured as a
-  CUDA graph with the collectives inside it, after ``MESH_GRAPH_WARMUP``
-  eager steps. A gloo collective cannot be captured, so a gloo group runs
-  its steps eagerly.
-- any other mesh places the parameters and the whole optimizer state as
-  DTensors (:func:`parallel.mesh.sharding_for_tree`), and each rank's
-  batch as a DTensor, with ``TrainConfig.seq_dim_in_batch`` its block of
-  the sequence over ``seq`` (labels too with ``labels_follow_seq``);
-  DTensor's propagation places the collectives (attention runs on local
-  blocks, see :mod:`ops.attention`). It runs its steps eagerly: no CUDA
-  graph, no staging thread, and the optimizer without ``capturable``, its
-  learning rate a float.
+- a mesh whose axes above 1 are among ``data``, ``fsdp`` and ``seq`` trains
+  the plain module under ``DistributedDataParallel`` or FSDP2
+  (:func:`parallel.mesh.data_parallel`, which hands the modules that see a
+  block of positions the mesh): the batch is each rank's part as plain
+  tensors, the loss an all-reduce of the ranks' means on the device (every
+  rank holds as many tokens), and the parameters that FSDP2 leaves whole
+  have their gradients averaged here. It runs as on one card: staging, a
+  fused ``capturable`` optimizer with a device learning rate, and on an
+  NCCL group the step captured as a CUDA graph with the collectives inside
+  it (the ring's hops and Ulysses' all-to-alls too), after
+  ``MESH_GRAPH_WARMUP`` eager steps. A gloo collective cannot be captured,
+  so a gloo group runs its steps eagerly.
+- a mesh with ``tensor``, ``expert`` or ``pipe`` above 1 places the
+  parameters and the whole optimizer state as DTensors
+  (:func:`parallel.mesh.sharding_for_tree`), and each rank's batch as a
+  DTensor laid out as above; DTensor's propagation places the collectives
+  (attention runs on local blocks, see :mod:`ops.attention`). It runs its
+  steps eagerly: no CUDA graph, no staging thread, and the optimizer
+  without ``capturable``, its learning rate a float.
 
 A save gathers every tensor
 whole on every rank and rank 0 alone writes it; a restore places each
@@ -108,6 +110,10 @@ from torch.utils.checkpoint import checkpoint
 from cron_operator_tpu_torch.models.convert import flax_rank
 from cron_operator_tpu_torch.ops.attention import count_attention_flops
 from cron_operator_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    MESH_ATTACHMENTS,
+    SEQ_AXIS,
+    axis_sizes,
     batch_placements,
     data_parallel,
     distribute_parameters,
@@ -311,21 +317,24 @@ def _mean_over(value: torch.Tensor, group) -> torch.Tensor:
 @contextlib.contextmanager
 def _as_one_device(model: nn.Module):
     """``model`` as one device runs it, for the block's duration: every
-    module without its forward hooks (FSDP2's all-gathers) and without a
-    ``token_group`` (the MoE block's routing over the ranks)."""
+    module without its forward hooks (FSDP2's all-gathers) and without its
+    mesh attachments (``parallel.mesh.MESH_ATTACHMENTS``: the MoE block's
+    routing over the ranks, a block of positions over ``seq``)."""
     saved = [(m, m._forward_pre_hooks, m._forward_hooks,
-              getattr(m, "token_group", None)) for m in model.modules()]
-    for m, _, _, group in saved:
+              {a: getattr(m, a) for a in MESH_ATTACHMENTS
+               if getattr(m, a, None) is not None})
+             for m in model.modules()]
+    for m, _, _, attached in saved:
         m._forward_pre_hooks, m._forward_hooks = OrderedDict(), OrderedDict()
-        if group is not None:
-            m.token_group = None
+        for name in attached:
+            setattr(m, name, None)
     try:
         yield
     finally:
-        for m, pre, post, group in saved:
+        for m, pre, post, attached in saved:
             m._forward_pre_hooks, m._forward_hooks = pre, post
-            if group is not None:
-                m.token_group = group
+            for name, value in attached.items():
+                setattr(m, name, value)
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
@@ -587,7 +596,8 @@ class Trainer:
         is counted, nor the optimizer's elementwise update; the chunked
         cross-entropy's backward, which recomputes its logits with aten
         matmuls, is. On the plain meshed path the model is counted as one
-        device runs it, at the global batch's shapes."""
+        device runs it (no hooks, no mesh attachments), at the global
+        batch's shapes (:meth:`_global_shape`)."""
         if self._flops_counted or self._batch_struct is None:
             return self._flops_per_step
         self._flops_counted = True
@@ -622,8 +632,8 @@ class Trainer:
         (the step waits for them, :meth:`_Placed.wait`); tensors already on
         the card pass as they are. This is the Prefetcher's ``place``: it
         runs on the staging thread. Under a mesh each value is the global
-        batch, of which this rank keeps its rows: plain on the
-        data-parallel path, else a DTensor laid out by
+        batch, of which this rank keeps its part (:meth:`_seq_dim`): plain
+        on the plain path, else a DTensor laid out by
         :func:`parallel.mesh.batch_placements`."""
         if isinstance(batch, _Placed):
             return batch
@@ -634,7 +644,8 @@ class Trainer:
         host = {}
         for k, v in batch.items():
             if self._plain:
-                v = local_rows(torch.as_tensor(v), self.mesh)
+                v = local_rows(torch.as_tensor(v), self.mesh,
+                               self._seq_dim(k))
             if torch.is_tensor(v) and v.device == self.device:
                 placed[k] = v
             else:
@@ -651,18 +662,38 @@ class Trainer:
             placed.ready.record(self._copy_stream)
         return placed
 
+    def _seq_dim(self, key: str) -> Optional[int]:
+        """The dim of the batch value ``key`` split over ``seq``: the
+        ``seq_dim_in_batch`` dim for ``x`` (for ``y`` too under
+        ``labels_follow_seq``), the JAX Trainer's batch shardings; None for
+        a value split by rows alone."""
+        cfg = self.config
+        if key != "y" or cfg.labels_follow_seq:
+            return cfg.seq_dim_in_batch
+        return None
+
     def _local(self, key: str, value: torch.Tensor) -> DTensor:
         """This rank's block of the global batch value ``key`` as a DTensor
         laid out by :func:`parallel.mesh.batch_placements`: rows over the
-        batch axes, and the ``seq_dim_in_batch`` dim over ``seq`` for ``x``
-        (for ``y`` too under ``labels_follow_seq``), the JAX Trainer's
-        batch shardings."""
-        cfg = self.config
-        seq_dim = (cfg.seq_dim_in_batch
-                   if key != "y" or cfg.labels_follow_seq else None)
+        batch axes, and the :meth:`_seq_dim` dim over ``seq``."""
+        seq_dim = self._seq_dim(key)
         return DTensor.from_local(
             local_rows(value, self.mesh, seq_dim).to(self.device), self.mesh,
             batch_placements(self.mesh, seq_dim=seq_dim), run_check=False)
+
+    def _global_shape(self, key: str, value: torch.Tensor) -> tuple:
+        """The global batch's shape of ``key`` from this rank's ``value``:
+        on the plain path its rows times the batch axes' shards and its
+        :meth:`_seq_dim` dim times ``seq``; a DTensor's own shape."""
+        shape = list(value.shape)
+        if self._plain:
+            sizes = axis_sizes(self.mesh)
+            for axis in BATCH_AXES:
+                shape[0] *= sizes.get(axis, 1)
+            dim = self._seq_dim(key)
+            if dim is not None:
+                shape[dim] *= sizes.get(SEQ_AXIS, 1)
+        return tuple(shape)
 
     def put_chunk(self, group: List[Dict[str, Any]]) -> List[_Placed]:
         """K batches on the device, one call's worth: step i of the call
@@ -709,10 +740,8 @@ class Trainer:
             if self.mesh is not None:
                 batch = self.put_batch(batch)
         if self._batch_struct is None:  # the global batch's shapes
-            rows = dist.get_world_size(self._group) if self._plain else 1
-            self._batch_struct = {
-                k: ((v.shape[0] * rows, *v.shape[1:]), v.dtype)
-                for k, v in batch.items()}
+            self._batch_struct = {k: (self._global_shape(k, v), v.dtype)
+                                  for k, v in batch.items()}
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(batch)
         loss.backward()

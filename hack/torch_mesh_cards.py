@@ -21,18 +21,23 @@ rank's run within ``MESH_LOSS_BOUND`` and ``MESH_UPDATE_BOUND``.
 
 On four cards it then runs, from ``chip_smoke.py``'s phases 16 and 18:
 
-- ``SEQ_LEGS``: ring ``gpt`` under ``seq`` 2 (two ranks), ``seq`` 4 and
-  ``data`` 2 x ``seq`` 2, and Ulysses ``bert`` under ``seq`` 2, each held by
-  ``seq_problems`` (K1-K3 launched by the bodies' rule, ``seq_launches``)
-  against one rank's ``attention=flash`` run of the same batches (K1-K3
-  over the whole sequence, with its lr-0 reading), the hops over NCCL;
+- ``SEQ_LEGS``: ring ``gpt`` under ``seq`` 2 (two ranks), ``seq`` 4,
+  ``data`` 2 x ``seq`` 2 and ``fsdp`` 2 x ``seq`` 2 (the shipped Crons'
+  layout), and Ulysses ``bert`` under ``seq`` 2, each on the plain path
+  (DDP, or FSDP2 with ``fsdp``) held by ``seq_problems`` (K1-K3 launched by
+  the bodies' rule, ``seq_launches``) against one rank's
+  ``attention=flash`` run of the same batches (K1-K3 over the whole
+  sequence, with its lr-0 reading), the hops over NCCL, the steps eager
+  (``steps_per_call=1``);
 - ``PIPE_STAGES``: ``spmd_pipeline`` of 2 and of 4 GPT-2-small layers over
   as many ranks, held by ``pipeline_problems`` (``PIPE_REL_BOUND``);
-- ``GRAPH_LEGS``: ``data`` 4 and ``fsdp`` 4 at ``GRAPH_MESH_PARAMS`` (24
-  steps in calls of 8: captured over NCCL after ``MESH_GRAPH_WARMUP`` eager
-  steps, replayed) against the same job in calls of one step: the losses
-  and every parameter the same bits on every rank, the replayed call's
-  step ms and the NCCL kernels in it.
+- ``GRAPH_LEGS``: ``data`` 4, ``fsdp`` 4, ring ``seq`` 4 and ring ``fsdp``
+  2 x ``seq`` 2 at ``GRAPH_MESH_PARAMS`` (24 steps in calls of 8: captured
+  over NCCL after ``MESH_GRAPH_WARMUP`` eager steps, the ring's hops and
+  the collectives inside the graph, replayed) against the same job in
+  calls of one step: the losses and every parameter the same bits on every
+  rank, K1-K3 by ``seq_launches``, the replayed call's step ms and the
+  NCCL kernels in it.
 
 ``--profile NAME`` runs one more step of strategy NAME under
 ``torch.profiler`` on every rank and prints rank 0's busy share and top
@@ -72,13 +77,18 @@ SEQ_LEGS = {
     "seq2_ring": (2, "gpt", {"attention": "ring", "seq": "2"}),
     "seq4_ring": (4, "gpt", {"attention": "ring", "seq": "4"}),
     "data2_seq2": (4, "gpt", {"attention": "ring", "seq": "2"}),
+    # the shipped Crons' layout (fsdp x seq, ring), on four cards
+    "fsdp2_seq2": (4, "gpt", {"attention": "ring", "seq": "2", "fsdp": "2"}),
     "seq2_ulysses": (2, "bert", {"seq_len": "512", "attention": "ulysses",
                                  "seq": "2"}),
 }
 PIPE_STAGES = (2, 4)
 # name: params over GRAPH_MESH_PARAMS, K1-K3's local (batch, heads)
 GRAPH_LEGS = {"data4_graph": ({"devices": "4"}, (2, 12)),
-              "fsdp4_graph": ({"fsdp": "4"}, (2, 12))}
+              "fsdp4_graph": ({"fsdp": "4"}, (2, 12)),
+              "seq4_ring_graph": ({"attention": "ring", "seq": "4"}, (8, 12)),
+              "fsdp2_seq2_graph": ({"attention": "ring", "seq": "2",
+                                    "fsdp": "2"}, (4, 12))}
 LEG_TIMEOUT_S = 240  # a rank of a leg that runs longer fails the leg
 
 
@@ -99,7 +109,7 @@ def seq_leg(smoke, torch, root, refs, name) -> bool:
     job and params); returns whether it failed."""
     world, job, extra = SEQ_LEGS[name]
     params = {**smoke.MESH_PARAMS, **extra}
-    plain = {k: v for k, v in params.items() if k != "seq"}
+    plain = {k: v for k, v in params.items() if k not in ("seq", "fsdp")}
     plain["attention"] = "flash"
     key = json.dumps([job, plain], sort_keys=True)
     if key not in refs:
@@ -157,7 +167,6 @@ def graph_leg(smoke, name, root) -> bool:
     ranks = smoke.spawn_ranks(4, {**smoke.GRAPH_MESH_PARAMS, **extra}, root,
                               name, backend="nccl", cards=4, task="graph",
                               timeout=LEG_TIMEOUT_S)
-    want = smoke.GRAPH_MESH_STEPS * smoke.MESH_LAYERS
     problems = []
     for r, got in enumerate(ranks):
         ends = got["eager_losses"][smoke.GRAPH_CHUNK - 1::smoke.GRAPH_CHUNK]
@@ -165,14 +174,26 @@ def graph_leg(smoke, name, root) -> bool:
             problems.append(f"rank {r}: graphed losses {got['losses']} "
                             f"against eager {ends}, parameters the same "
                             f"bits: {got['same_bits']}")
-        if got["counts"] != [want] * 3 or {
+        # the wrappers count every replay; the launchers' Python calls
+        # (by mask) are the eager steps' and the capture's alone
+        want = sum(smoke.seq_launches(got, smoke.GRAPH_MESH_STEPS))
+        calls = smoke.seq_launches(got, MESH_GRAPH_WARMUP + 1)
+        if got["counts"] != [want] * 3 or got["by_mask"] != [calls] * 3 or {
                 tuple(x[1:]) for x in got["shapes"]} != {local}:
-            problems.append(f"rank {r}: K1/K2/K3 {got['counts']} at "
+            problems.append(f"rank {r}: K1/K2/K3 {got['counts']}, not "
+                            f"{want} each, launcher calls [full, causal] "
+                            f"{got['by_mask']}, not {calls} each, at "
                             f"{got['shapes']}")
+        if got["replayed"] != smoke.GRAPH_MESH_STEPS - MESH_GRAPH_WARMUP:
+            problems.append(f"rank {r}: {got['replayed']} steps replayed")
+        if got["path"] not in ("ddp", "fsdp"):
+            problems.append(f"rank {r} trained on the {got['path']} path")
         if got["losses"] != ranks[0]["losses"]:
             problems.append(f"rank {r} reports other losses")
     print(json.dumps({
         "run": name, "cards": 4, "params": extra, "warmup": MESH_GRAPH_WARMUP,
+        "path": ranks[0]["path"], "counts": [r["counts"] for r in ranks],
+        "by_mask": [r["by_mask"] for r in ranks],
         "replayed": ranks[0]["replayed"], "losses": ranks[0]["losses"],
         "step_ms": ranks[0]["step_ms"],
         "kernel_ms_per_step": ranks[0]["busy_ms"], "nccl": ranks[0]["nccl"],

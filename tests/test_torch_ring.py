@@ -14,7 +14,10 @@ them, all from the same seeded numpy inputs in f32.
   tensors and the dispatch on DTensors with grouped-query K/V (4 query
   heads, 2 K/V heads) give the dense port's values within 1e-5 and its
   gradients within 1e-5 of their largest magnitude, and the JAX
-  function's (and JAX's dispatch's) within the same bounds; fully masked
+  function's (and JAX's dispatch's) within the same bounds; the dispatch
+  on each rank's plain block with the mesh passed (the plain path), and
+  ``xla`` there (the sequence gathered), give the dense port's rows and
+  gradients within the same bounds; fully masked
   rows give 0; the degenerate mesh and a batch of 1 give plain attention;
   an indivisible sequence and an indivisible head count raise.
 - The hop (``ppermute``): coordinate i receives i - shift, its transpose
@@ -22,12 +25,13 @@ them, all from the same seeded numpy inputs in f32.
   tensors) moves the same values and is chosen for exactly that case.
 - Workloads (``tests/test_workloads.py`` 52-117 and
   ``test_bert_trains_with_ulysses``): tiny BERT with ring attention under
-  seq 2 x tensor 2, tiny GPT with ring and Switch-MoE blocks under seq 2,
-  tiny GPT with GQA and RoPE under ring seq 2, and tiny BERT with Ulysses
-  under seq 2: 3 steps of the numpy batches from converted JAX weights,
-  losses within rtol 1e-5 of the one-process port and within 5e-5 of the
-  JAX ``Trainer`` on its mesh (the bound of ``test_torch_parallel.py``),
-  every rank reporting the same global loss.
+  seq 2 x tensor 2 (DTensor parameters), tiny GPT with ring and Switch-MoE
+  blocks under seq 2, tiny GPT with GQA and RoPE under ring seq 2, and tiny
+  BERT with Ulysses under seq 2 (the last three on the plain path, DDP):
+  3 steps of the numpy batches from converted JAX weights, losses within
+  rtol 1e-5 of the one-process port and within 5e-5 of the JAX ``Trainer``
+  on its mesh (the bound of ``test_torch_parallel.py``), every rank
+  reporting the same global loss.
 """
 
 import torch_threads  # noqa: F401  (an xdist worker's torch threads)
@@ -75,18 +79,21 @@ MESHES = {"seq2": (2, {"seq": 2}), "seq4": (4, {"seq": 4}),
           "data2_seq2": (4, {"seq": 2})}
 SEQ, BATCH, STEPS = 32, 4, 3
 MOE = {"moe_every": 2, "num_experts": 4}
-# name: (world, axes, model, model overrides, stream)
+# name: (world, axes, model, model overrides, stream, the trainer's path:
+# a mesh with tensor keeps DTensor parameters, a seq mesh trains plain ones)
 RUNS = {
     "bert_ring_seq2_tensor2": (4, {"seq": 2, "tensor": 2}, "bert",
-                               {"attention_impl": "ring"}, "token_batches"),
+                               {"attention_impl": "ring"}, "token_batches",
+                               "dtensor"),
     "gpt_ring_moe_seq2": (2, {"seq": 2}, "gpt",
                           {"attention_impl": "ring", **MOE},
-                          "causal_token_batches"),
+                          "causal_token_batches", "ddp"),
     "gpt_gqa_rope_ring_seq2": (2, {"seq": 2}, "gpt",
                                {"attention_impl": "ring", "num_kv_heads": 2,
-                                "rope": True}, "causal_token_batches"),
+                                "rope": True}, "causal_token_batches", "ddp"),
     "bert_ulysses_seq2": (2, {"seq": 2}, "bert",
-                          {"attention_impl": "ulysses"}, "token_batches"),
+                          {"attention_impl": "ulysses"}, "token_batches",
+                          "ddp"),
 }
 SP_TRAIN = {"seq_dim_in_batch": 1, "labels_follow_seq": True}
 
@@ -129,7 +136,7 @@ def worlds(tmp_path_factory):
              "axis": "seq", "shift": -1},
             {"kind": "guards", "name": f"guards{world}", "axes": axes}]
     result = {"flax": {}, "weights": {}}
-    for name, (world, axes, model, over, stream) in RUNS.items():
+    for name, (world, axes, model, over, stream, _) in RUNS.items():
         mesh = jax_mesh(jax.devices("cpu")[:world], **axes)
         net, params = _flax(model, over, mesh)
         weights = params_from_flax(params, _port(model, over).config)
@@ -230,6 +237,26 @@ def test_matches_dense_and_jax(worlds, impl, mesh_name, causal):
     assert ranks[0]["placements"] == ["S(0)", "S(1)"]  # batch, sequence
 
 
+@pytest.mark.parametrize("impl, mesh_name, causal", CASES,
+                         ids=[f"{i}-{m}-{'causal' if c else 'full'}"
+                              for i, m, c in CASES])
+def test_local_blocks_match_dense(worlds, impl, mesh_name, causal):
+    """The dispatch on each rank's plain block of rows and positions with
+    the mesh passed (the plain path's layers, grouped K/V): ``ring`` or
+    ``ulysses`` run their body on the blocks, ``xla`` gathers the sequence;
+    each gives the dense port's rows of the output, and its gradients of
+    the summed ``sum(out ** 2)`` (the other blocks' parts brought back by
+    the reverse hops, all-to-alls or gathers)."""
+    want, want_grads = _dense(causal)
+    for got in worlds[f"{impl}-{mesh_name}-{causal}"]:
+        rows, positions = (slice(*got[k]) for k in ("rows", "positions"))
+        for way in (impl, "xla"):
+            local = got["local"][way]
+            assert (local["out"] - want[rows, positions]).abs().max() <= ATOL
+            for g, w in zip(local["grads"], want_grads):
+                _close(g, w[rows, positions])
+
+
 def test_grad_flows_through_ring(worlds):
     """TestRingAttention.test_grad_flows_through_ring: finite gradients of
     the right shape, the ring's reverse hops included."""
@@ -307,7 +334,7 @@ def test_hop_stages_cuda_tensors_over_gloo_only(monkeypatch):
 
 def _one_process(name, weights):
     """The one-process port run of a RUNS entry: its losses."""
-    world, axes, model, over, stream = RUNS[name]
+    world, axes, model, over, stream, _ = RUNS[name]
     net = _port(model, over)
     net.load_state_dict(weights)
     trainer = Trainer(net, TrainConfig(
@@ -320,6 +347,7 @@ def _one_process(name, weights):
 @pytest.mark.parametrize("name", sorted(RUNS))
 def test_sequence_parallel_training_matches_one_process(worlds, name):
     ranks = worlds[name]
+    assert [r["path"] for r in ranks] == [RUNS[name][5]] * len(ranks)
     for r in ranks[1:]:
         assert r["losses"] == ranks[0]["losses"]  # the global loss, everywhere
     got = ranks[0]["losses"]
@@ -334,7 +362,7 @@ def test_sequence_parallel_training_matches_the_jax_trainer(worlds, name):
     test_gpt_ring_sp_step_with_moe and test_gpt_gqa_rope_under_ring_sp, and
     test_parallel.py's test_bert_trains_with_ulysses, held to the JAX
     Trainer's losses on a mesh of the same axes."""
-    world, axes, model, over, stream = RUNS[name]
+    world, axes, model, over, stream, _ = RUNS[name]
     net, mesh, params = worlds["flax"][name]
     trainer = JaxTrainer(
         lambda p, x: net.apply({"params": p}, x), params, mesh,

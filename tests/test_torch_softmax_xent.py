@@ -22,9 +22,9 @@ against the former wiring and the JAX package's, on the CPU.
   within ``LOSS_ATOL``, as ``tests/test_torch_train.py``.
 - In one gloo world of 2 rank processes (``tests/torch_mesh_ranks.py``),
   the jobs over a ``tensor`` mesh (DTensor parameters) keep the former path
-  (no call of the loss's forward), and over ``data`` (DDP) and ``fsdp``
-  (FSDP2) meshes take the loss on the padded logits, with the former
-  wiring's losses to the bit.
+  (no call of the loss's forward), and over ``data`` (DDP), ``fsdp``
+  (FSDP2) and ``seq`` (DDP, ring GPT and Ulysses BERT) meshes take the loss
+  on the padded logits, with the former wiring's losses to the bit.
 """
 
 import torch_threads  # noqa: F401  (an xdist worker's torch threads)
@@ -342,6 +342,8 @@ MESH_JOBS = {  # name: (entrypoint, mesh params, the loss kernels' route)
     "gpt_data": ("gpt", {}, True),
     "gpt_fsdp": ("gpt", {"fsdp": "2"}, True),
     "bert_data": ("bert", {}, True),
+    "gpt_seq": ("gpt", {"seq": "2", "attention": "ring"}, True),
+    "bert_seq": ("bert", {"seq": "2", "attention": "ulysses"}, True),
 }
 
 

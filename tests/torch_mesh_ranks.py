@@ -149,9 +149,13 @@ def _data_parallel(job, mesh) -> Dict[str, Any]:
     """:func:`_train`'s results, and under ``chunked`` the losses, the
     final parameters and the model FLOPs a step
     (``Trainer.flops_per_step``) of the same steps trained in calls of
-    ``chunk`` steps (staged by the trainer's background thread)."""
+    ``chunk`` steps (staged by the trainer's background thread). With
+    ``rank_order``, also the losses (``rank_order_losses``) of
+    :func:`_train` with the MoE blocks routing every rank's tokens in rank
+    order (``parallel.moe.token_order`` giving the identity)."""
     import torch
 
+    from cron_operator_tpu_torch.parallel import moe
     from cron_operator_tpu_torch.workloads import data
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
@@ -163,13 +167,26 @@ def _data_parallel(job, mesh) -> Dict[str, Any]:
         steps_per_call=job["chunk"],
         aux_loss_in_output=getattr(model, "has_moe", False),
         **job.get("train", {})), mesh=mesh)
-    stats = trainer.run(data.causal_token_batches(job["batch"], cfg.max_len,
-                                                  cfg.vocab_size),
+    stream = getattr(data, job.get("stream", "causal_token_batches"))
+    stats = trainer.run(stream(job["batch"], cfg.max_len, cfg.vocab_size),
                         job["steps"])
     out["chunked"] = {
         "losses": [s.loss for s in stats],
         "final": {n: _whole(p) for n, p in model.named_parameters()},
         "flops": trainer.flops_per_step()}
+    if job.get("rank_order"):
+        real = moe.token_order
+
+        def rank_order(group, tokens, rows=1, seq_blocks=1, device=None):
+            order, _ = real(group, tokens, device=device)
+            me = torch.distributed.get_rank(group)
+            return order, order[me * tokens:(me + 1) * tokens]
+
+        moe.token_order = rank_order
+        try:
+            out["rank_order_losses"] = _train(job, mesh)["losses"]
+        finally:
+            moe.token_order = real
     return out
 
 
@@ -346,17 +363,25 @@ def _refuse(job, mesh) -> Dict[str, Any]:
 
 def _attention(job, mesh) -> Dict[str, Any]:
     """Sequence-parallel attention (``impl`` ring or ulysses) on the seeded
-    ``qkv_arrays(*job["qkv"])``, two ways: the public function on plain
+    ``qkv_arrays(*job["qkv"])``, three ways: the public function on plain
     global tensors (k and v repeated to q's heads, as the JAX dispatch
-    does before it), and :func:`ops.attention.multi_head_attention` on
+    does before it), :func:`ops.attention.multi_head_attention` on
     DTensors laid out by ``batch_placements(mesh, seq_dim=1)`` (grouped
-    k/v as they are). Results: each way's output and the gradients of
-    ``sum(out ** 2)``, whole."""
+    k/v as they are), and the same dispatch on this rank's plain block
+    (rows and positions) with the mesh passed, as the plain path's layers
+    call it, for ``impl`` and for ``xla`` (the sequence gathered). Results:
+    each way's output and the gradients of ``sum(out ** 2)``, whole, or on
+    the plain blocks this rank's (``local``, with its ``rows`` and
+    ``positions``)."""
     import torch
     from torch.distributed.tensor import distribute_tensor
 
     from cron_operator_tpu_torch.ops.attention import multi_head_attention
-    from cron_operator_tpu_torch.parallel.mesh import batch_placements
+    from cron_operator_tpu_torch.parallel.mesh import (
+        batch_placements,
+        batch_rows,
+        seq_block,
+    )
     from cron_operator_tpu_torch.parallel.ring import ring_attention
     from cron_operator_tpu_torch.parallel.ulysses import ulysses_attention
 
@@ -373,10 +398,33 @@ def _attention(job, mesh) -> Dict[str, Any]:
     out_d = multi_head_attention(*placed, causal=job["causal"],
                                  impl=job["impl"])
     (out_d ** 2).sum().backward()
+    local = {}
+    for impl in (job["impl"], "xla"):
+        blocks = [_local_block(t, mesh).clone().requires_grad_()
+                  for t in (q, k, v)]
+        out_l = multi_head_attention(*blocks, causal=job["causal"],
+                                     impl=impl, mesh=mesh)
+        (out_l ** 2).sum().backward()
+        local[impl] = {"out": out_l.detach(),
+                       "grads": [t.grad for t in blocks]}
     return {"out": _whole(out), "grads": [t.grad.clone() for t in plain],
             "out_dispatch": _whole(out_d),
             "grads_dispatch": [_whole(t.grad) for t in placed],
-            "placements": [str(p) for p in out_d.placements]}
+            "placements": [str(p) for p in out_d.placements],
+            "local": local, "rows": _slice(batch_rows(mesh, q.shape[0])),
+            "positions": _slice(seq_block(mesh, q.shape[1]))}
+
+
+def _local_block(t, mesh):
+    """This rank's rows and block of positions of ``[b, s, ...]`` ``t``, as
+    the plain path holds a batch split over the batch axes and ``seq``."""
+    from cron_operator_tpu_torch.workloads.data import local_rows
+
+    return local_rows(t, mesh, seq_dim=1)
+
+
+def _slice(s) -> List[int]:
+    return [s.start, s.stop]
 
 
 def body_arrays(seed: int, b: int, s: int, h: int, d: int):
