@@ -168,14 +168,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
     (``--mesh-rank``) as two ranks of a gloo group on ``cuda:0`` (NCCL
     refuses two ranks on one device); each calls ``gpt`` at GPT-2 small
     widths (b 8 x 1024 global, AdamW, ``data=host``, 3 steps) under a
-    strategy of ``MESH_STRATEGIES`` not in ``MESH_LEFT_OUT`` (``devices=2``,
-    the plain path under ``DistributedDataParallel``, eager over gloo:
-    gloo's functional all-gather of CUDA tensors crashes under torch 2.11,
-    which ``tensor`` and ``expert`` need, and FSDP2 over gloo on CUDA
-    tensors is untried). Each rank's K1, K2 and
+    strategy of ``MESH_STRATEGIES`` not in ``MESH_LEFT_OUT``: ``devices=2``
+    (rows split, DDP) and ``tensor=2`` (every rank the whole batch, its 6
+    heads and its half of the FFN, the Megatron split; DDP over a batch
+    group of one rank), both the plain path (``MESH_PATHS``, checked),
+    eager over gloo (gloo's functional all-gather of CUDA tensors crashes
+    under torch 2.11, which ``expert``'s DTensor parameters need, and
+    FSDP2 over gloo on CUDA tensors is untried). Each rank's K1, K2 and
     K3 must launch 36 times, all sm90, at the strategy's local (batch,
-    heads), and the loss kernels 3 times each (a plain mesh), counts set
-    to 0 just before the job and read just after; both
+    heads): (4, 12) under data, (8, 6) under tensor; the loss kernels 3
+    times each and the LayerNorm kernels 75 times each way (72 folded), as
+    one card's; counts set to 0 just before the job and read just after;
+    both
     ranks report the same losses; against a one-rank run of the same
     batches (a process of its own) the per-step loss gap stays within
     ``MESH_LOSS_BOUND`` and the update distance (the parameters' change
@@ -2687,17 +2691,24 @@ MESH_STRATEGIES = {
 # tensors (_c10d_functional.all_gather_into_tensor, then wait_tensor, as
 # DTensor's Shard -> Replicate redistribution issues it) ends the process
 # with SIGSEGV; the plain dist.all_gather_into_tensor of the same tensors
-# works. tensor gathers parameters and activations that way in the forward,
-# expert in the backward (the gradient of a Replicate -> Shard slice of the
-# expert-stacked products); data trains under DDP, which needs only
-# all-reduce. fsdp trains under FSDP2, whose all-gathers and reduce-scatters
-# of CUDA tensors over gloo no run has tried (hack/torch_mesh_cards.py runs
-# it over NCCL). The CPU tests train all four in gloo worlds.
-_GATHER = ("gloo functional all_gather_into_tensor on CUDA tensors "
-           "(SIGSEGV, torch 2.11)")
+# works. expert keeps DTensor parameters and gathers that way in the
+# backward (the gradient of a Replicate -> Shard slice of the
+# expert-stacked products). data trains under DDP, which needs only
+# all-reduce, and so does tensor on the plain path (DDP over a batch group
+# of one rank, the blocks' partial sums and their inputs' gradients by
+# in-place all-reduces, the parameters' pieces gathered for the update
+# distance by the plain all-gather). fsdp trains under FSDP2, whose
+# all-gathers and reduce-scatters of CUDA tensors over gloo no run has
+# tried (hack/torch_mesh_cards.py runs it over NCCL). The CPU tests train
+# all four in gloo worlds.
 MESH_LEFT_OUT = {"fsdp": "FSDP2's collectives of CUDA tensors over gloo "
                          "(untried; over NCCL on several cards)",
-                 "tensor": _GATHER, "expert": _GATHER}
+                 "expert": "DTensor parameters: gloo functional "
+                           "all_gather_into_tensor on CUDA tensors "
+                           "(SIGSEGV, torch 2.11)"}
+# The path each strategy's trainer takes (``trainer_path``)
+MESH_PATHS = {"data": "ddp", "fsdp": "fsdp", "tensor": "ddp",
+              "expert": "dtensor"}
 # Every check of a mesh run holds it against a one-rank run of the same
 # global batches (the reference), on two readings:
 # - the per-step loss gap. Sound runs differ by bf16 products whose row
@@ -2751,12 +2762,19 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
 
     fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
     from cron_operator_tpu_torch.backends.registry import JobContext
+    from cron_operator_tpu_torch.parallel.mesh import tensor_parallel
     from cron_operator_tpu_torch.workloads import data, entrypoints
 
-    def whole(t):
+    def whole(t, split=None, name=None):
+        """``t`` whole, f32 on the host: a DTensor's full tensor, and a
+        piece of a parameter split over ``tensor`` gathered over its group
+        (a collective: every rank calls it; on the host over gloo)."""
         t = t.detach()
-        return (t.full_tensor() if isinstance(t, DTensor) else t).to(
-            "cpu", torch.float32, copy=True)
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        if split is not None and name in split.splits:
+            on_host = dist.get_backend(split.group) == "gloo"
+            t = split.gather(name, t.cpu() if on_host else t)
+        return t.to("cpu", torch.float32, copy=True)
 
     shapes, made = set(), []
     launchers = {a: getattr(fa, a) for a in ("_launch", "_launch_dq",
@@ -2802,7 +2820,9 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
                   causal=job == "gpt", seq_size=sizes.get("seq", 1),
                   seq_coord=(tr.mesh.get_local_rank("seq")
                              if sizes.get("seq", 1) > 1 else 0))
-    delta = {n: whole(p) - start[n] for n, p in tr.model.named_parameters()}
+    split = tensor_parallel(tr.model)
+    delta = {n: whole(p, split, n) - start[n]
+             for n, p in tr.model.named_parameters()}
     if not dist.is_initialized() or dist.get_rank() == 0:
         torch.save(delta, delta_out)
     del delta, start
@@ -2931,15 +2951,20 @@ def mesh_readings(torch, run: list, ref: dict):
     return gap, update_distance(torch, run[0]["delta"], ref["delta"])
 
 
-def mesh_problems(torch, ranks: list, ref: dict, local: tuple):
+def mesh_problems(torch, ranks: list, ref: dict, local: tuple,
+                  path=None):
     """Every check of one strategy's run: each rank's K1, K2 and K3
     launched MESH_STEPS x MESH_LAYERS times, all sm90, at the strategy's
-    local (batch, heads); every rank's losses equal; the loss gap and the
-    update distance against the reference within their bounds. Returns the
-    problems (empty when it passed) and the two readings."""
+    local (batch, heads); every rank on ``path`` (when given: the
+    trainer's, ``trainer_path``); every rank's losses equal; the loss gap
+    and the update distance against the reference within their bounds.
+    Returns the problems (empty when it passed) and the two readings."""
     want = MESH_STEPS * MESH_LAYERS
     problems = []
     for r, got in enumerate(ranks):
+        if path is not None and got["path"] != path:
+            problems.append(f"rank {r} trained on the {got['path']} path, "
+                            f"not {path}")
         if got["counts"] != [want] * 3:
             problems.append(f"rank {r} launched K1/K2/K3 {got['counts']} "
                             f"times, not {want} each")
@@ -3016,13 +3041,15 @@ def phase_mesh(torch, fa, card):
         for name, (extra, local) in strategies.items():
             ranks = spawn_ranks(2, {**MESH_PARAMS, **extra}, root, name)
             ref = refs["moe" if "moe_every" in extra else "dense"]
-            problems, readings = mesh_problems(torch, ranks, ref, local)
+            problems, readings = mesh_problems(torch, ranks, ref, local,
+                                               MESH_PATHS[name])
             for r, got in enumerate(ranks):  # a plain mesh: the kernels
                 check_xent(f"mesh {name} rank {r}", f"mesh_{name}",
                            got["xent"], MESH_STEPS)
                 check_ln(f"mesh {name} rank {r}", f"mesh_{name}",
                          got["layer_norm"], (LM_NORMS * MESH_STEPS,) * 2)
-            print(f"mesh {name}: losses {ranks[0]['losses']} against one "
+            print(f"mesh {name}: the {ranks[0]['path']} path; losses "
+                  f"{ranks[0]['losses']} against one "
                   f"rank {ref['losses']}: max gap {readings['loss_gap']:.6f}"
                   f", update distance {readings['update_distance']:.6f}; "
                   f"K1/K2/K3 {ranks[0]['counts']} a rank, all sm90, at "
@@ -5146,6 +5173,8 @@ XENT_ROW = (CSRC + "xent.cu",
 XENT_PATHS = (("gpt", "", "gpt"), ("bert", "@bert", "bert"),
               ("moe", "@moe", "gpt"), ("resume", "@resume", "gpt"),
               ("mesh_data", "@mesh_data", "mesh"),
+              # a tensor rank holds every row (b 8 x 1024), the table whole
+              ("mesh_tensor", "@mesh_tensor", "gpt"),
               # ring gpt's rank holds b 8 x 512 rows (the data mesh's
               # 4096), Ulysses bert's b 8 x 256
               ("seq_ring", "@seq_ring", "mesh"),
@@ -5176,6 +5205,7 @@ LN_PATHS = (("gpt", "", "gpt", True), ("bert", "@bert", "bert", True),
             ("serve_checkpoint", "@serve_checkpoint", "decode", False),
             ("moe_serve", "@moe_serve", "decode", False),
             ("mesh_data", "@mesh_data", "bert", True),
+            ("mesh_tensor", "@mesh_tensor", "gpt", True),  # every row
             # ring gpt's rank holds b 8 x 512 rows, Ulysses bert's 8 x 256
             ("seq_ring", "@seq_ring", "bert", True),
             ("seq_ulysses", "@seq_ulysses", "pipeline", True),

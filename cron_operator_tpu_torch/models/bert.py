@@ -70,9 +70,13 @@ class Bert(nn.Module):
     (or ``(hidden, embedding table)`` with ``cfg.return_hidden``).
     ``pos_emb`` is ``[max_len, hidden]``, sliced to the sequence (to this
     rank's block of positions under ``seq_mesh``, set by
-    ``parallel.mesh.data_parallel``), and absent under ``rope``."""
+    ``parallel.mesh.data_parallel``), and absent under ``rope``. Its
+    blocks split over ``tensor`` as GPT's (``splits_over_tensor``), so a
+    ``tensor`` mesh trains plain modules; the embeddings, the norms and
+    the tied table stay whole on every rank."""
 
     seq_mesh = None
+    splits_over_tensor = True
 
     def __init__(self, config: BertConfig = BertConfig(), *, device=None,
                  param_dtype: torch.dtype = torch.float32):

@@ -32,6 +32,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.fsdp import FSDPModule
@@ -44,6 +45,7 @@ from cron_operator_tpu_torch.models.layers import (
     add_positions,
     draw_,
     init_flax_layers_,
+    row_parallel,
     tied_logits,
 )
 from cron_operator_tpu_torch.ops.attention import (
@@ -52,7 +54,9 @@ from cron_operator_tpu_torch.ops.attention import (
 )
 from cron_operator_tpu_torch.parallel.mesh import (
     SEQ_AXIS,
+    TensorSplit,
     axis_sizes,
+    copy_to_tensor,
     local_positions,
 )
 from cron_operator_tpu_torch.parallel.moe import moe_ffn
@@ -118,14 +122,20 @@ class MoEBlock(nn.Module):
     is dropped. Prefill keeps the training factor, as in the JAX package.
 
     ``token_group`` is None, or on the plain meshed path the process group
-    of every rank (``parallel.mesh.data_parallel`` sets it, and
+    of the batch axes (``parallel.mesh.data_parallel`` sets it, and
     ``seq_mesh`` under a ``seq`` axis): training steps then route among
     every rank's tokens, in the one-device order (row, position) when the
-    positions are split over ``seq``.
+    positions are split over ``seq``. ``tensor_group`` (a ``tensor`` mesh
+    without ``expert``, on the plain path) splits ``wi`` and ``wo`` on the
+    FFN's width (:meth:`tensor_splits`): the ranks of the group hold the
+    same tokens and route them alike, the router whole, and the experts'
+    outputs are summed over the group. Any mesh with ``expert`` above 1
+    keeps DTensor parameters.
     """
 
     token_group = None
     seq_mesh = None
+    tensor_group = None
 
     def __init__(self, cfg: GPTConfig, device=None,
                  param_dtype: torch.dtype = torch.float32):
@@ -136,6 +146,14 @@ class MoEBlock(nn.Module):
         self.router = nn.Parameter(torch.empty(d, e, **kw))
         self.wi = nn.Parameter(torch.empty(e, d, f, **kw))
         self.wo = nn.Parameter(torch.empty(e, f, d, **kw))
+
+    def tensor_splits(self, t: int) -> dict:
+        """``wi [E, d, f]`` and ``wo [E, f, d]`` split on ``f`` over a
+        ``tensor`` group of ``t`` ranks (``parallel.mesh.
+        split_over_tensor``); none when ``t`` does not divide ``f``."""
+        if self.config.mlp_dim % t:
+            return {}
+        return {"wi": TensorSplit(2), "wo": TensorSplit(1)}
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -162,8 +180,19 @@ class MoEBlock(nn.Module):
         y, aux = moe_ffn(params, x.reshape(b * s, d), capacity_factor=cf,
                          compute_dtype=cfg.dtype,
                          group=None if decode else self.token_group,
-                         rows=b, seq_blocks=seq)
+                         rows=b, seq_blocks=seq,
+                         tensor_group=_split_group(self.tensor_group,
+                                                   self.tensor_splits))
         return y.reshape(b, s, d).to(cfg.dtype), aux
+
+
+def _split_group(group, rule):
+    """``group`` (a ``tensor`` group, or None) when ``rule`` (a module's
+    ``tensor_splits``) splits parameters over its ranks, else None: a part
+    whose parameters stay whole runs whole on every rank."""
+    if group is None or not rule(dist.get_world_size(group)):
+        return None
+    return group
 
 
 class DecoderLayer(nn.Module):
@@ -174,10 +203,22 @@ class DecoderLayer(nn.Module):
     ``parallel.mesh.data_parallel`` under a ``seq`` axis) makes the block's
     input this rank's block of positions: rotary positions at the block's
     global offset, and attention across the blocks
-    (:func:`ops.attention.multi_head_attention` with ``mesh``)."""
+    (:func:`ops.attention.multi_head_attention` with ``mesh``).
+
+    ``tensor_group`` (set by ``data_parallel`` under a ``tensor`` axis, on
+    the parameters that :meth:`tensor_splits` split) runs the Megatron
+    block: this rank's heads (the QKV projection's rows, ``out``'s input
+    columns) and its slice of the FFN (``fc_in``'s rows, ``fc_out``'s
+    input columns); ``parallel.mesh.copy_to_tensor`` in front of the QKV
+    projection and ``fc_in``, and ``out``'s and ``fc_out``'s partial
+    products summed over the group before their bias
+    (:func:`layers.row_parallel`). Both branches are whole again where the
+    norms add them, and the norms and the residual stream stay whole on
+    every rank."""
 
     causal = True
     seq_mesh = None
+    tensor_group = None
 
     def __init__(self, cfg: GPTConfig, device=None,
                  param_dtype: torch.dtype = torch.float32,
@@ -199,6 +240,22 @@ class DecoderLayer(nn.Module):
         else:
             self.fc_in = Linear(cfg.hidden_size, cfg.mlp_dim, **kw)
             self.fc_out = Linear(cfg.mlp_dim, cfg.hidden_size, **kw)
+
+    def tensor_splits(self, t: int) -> dict:
+        """The block's own products over a ``tensor`` group of ``t`` ranks
+        (``parallel.mesh.split_over_tensor``; the QKV projection and the
+        MoE block name theirs): ``out``'s input columns with the heads
+        (when :meth:`GroupedQKVProjection.splits_heads`), and a dense FFN's
+        ``fc_in`` rows and ``fc_out`` input columns when ``t`` divides
+        ``mlp_dim``. The biases of ``out`` and ``fc_out`` stay whole."""
+        out = {}
+        if self.attn.splits_heads(t):
+            out["out.weight"] = TensorSplit(1)
+        if self.moe is None and self.config.mlp_dim % t == 0:
+            out.update({"fc_in.weight": TensorSplit(0),
+                        "fc_in.bias": TensorSplit(0),
+                        "fc_out.weight": TensorSplit(1)})
+        return out
 
     def forward(
         self,
@@ -231,7 +288,8 @@ class DecoderLayer(nn.Module):
         if not decode and cfg.rope and self.seq_mesh is not None:
             block = local_positions(self.seq_mesh, s)
             at = torch.arange(block.start, block.stop, device=x.device)
-        q, k, v = self.attn(y, rope_positions=at)
+        heads = _split_group(self.tensor_group, self.attn.tensor_splits)
+        q, k, v = self.attn(copy_to_tensor(y, heads), rope_positions=at)
         if decode:
             attn = self._decode_attention(q, k, v, cache_k, cache_v, pos)
         else:
@@ -241,13 +299,21 @@ class DecoderLayer(nn.Module):
             if cache_k is not None:
                 cache_k[:, :s] = k
                 cache_v[:, :s] = v
-        x, y = self.ln_mlp.add_norm(x, self.out(attn.reshape(b, s, -1)))
+        x, y = self.ln_mlp.add_norm(
+            x, row_parallel(self.out, attn.reshape(b, s, -1), heads))
         aux = None
         if self.moe is not None:
             y, aux = self.moe(y, decode=decode)
         else:
-            y = self.fc_out(F.gelu(self.fc_in(y), approximate="tanh"))
+            ffn = self._ffn_group()
+            h = F.gelu(self.fc_in(copy_to_tensor(y, ffn)), approximate="tanh")
+            y = row_parallel(self.fc_out, h, ffn)
         return (x, y, aux) if fold else (x + y, aux)
+
+    def _ffn_group(self):
+        """``tensor_group`` when it splits the dense FFN, else None."""
+        return _split_group(self.tensor_group, lambda t: (
+            "fc_in.weight" in self.tensor_splits(t)))
 
     def _decode_attention(self, q, k, v, cache_k, cache_v, pos):
         """One-token attention against the layer's cache: the new K/V land
@@ -287,9 +353,13 @@ class GPT(nn.Module):
     always, with aux 0 for dense blocks; the port's dense model returns the
     output alone. Under ``seq_mesh`` (``parallel.mesh.data_parallel``) the
     ids are this rank's block of positions, which take the learned
-    positions at its global offset."""
+    positions at its global offset. Its blocks split over ``tensor``
+    (``splits_over_tensor``: :class:`DecoderLayer`), so a ``tensor`` mesh
+    trains plain modules; the embeddings, the norms and the tied table
+    stay whole on every rank."""
 
     seq_mesh = None
+    splits_over_tensor = True
 
     def __init__(self, config: GPTConfig = GPTConfig(), *, device=None,
                  param_dtype: torch.dtype = torch.float32):

@@ -28,7 +28,12 @@ from torch.distributed.tensor._utils import compute_local_shape_and_global_offse
 from cron_operator_tpu_torch.ops.group_norm import group_norm
 from cron_operator_tpu_torch.ops.layer_norm import add_layer_norm, layer_norm
 from cron_operator_tpu_torch.ops.rope import apply_rope
-from cron_operator_tpu_torch.parallel.mesh import on_local_rows, on_own_rows
+from cron_operator_tpu_torch.parallel.mesh import (
+    TensorSplit,
+    on_local_rows,
+    on_own_rows,
+    reduce_from_tensor,
+)
 
 
 class Linear(nn.Linear):
@@ -45,6 +50,19 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         return linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def row_parallel(layer: Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """``layer(x)`` for a ``layer`` that keeps the input features of this
+    rank's heads or FFN slice (row-parallel over ``group``, the ``tensor``
+    group): the partial products summed over the group
+    (``parallel.mesh.reduce_from_tensor``), then the whole bias added once.
+    ``group`` None: ``layer(x)``."""
+    if group is None:
+        return layer(x)
+    dt = layer.compute_dtype
+    partial = F.linear(x.to(dt), layer.weight.to(dt))
+    return reduce_from_tensor(partial, group) + layer.bias.to(dt)
 
 
 def split_inside(x: torch.Tensor) -> bool:
@@ -203,9 +221,11 @@ def tied_product(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
     against a table padded with zero rows (:func:`_pad_rows`), Vp =
     :func:`padded_vocab` columns, the padded ones zero. Without autograd
     the padded table comes from ``cache`` (a :class:`PaddedTable`). A
-    DTensor operand (a ``tensor``/``expert``/``seq`` mesh) and the ``meta``
-    device (the FLOP count, which stays at the true vocab) take the product
-    unpadded, Vp = V."""
+    DTensor operand (a mesh that places DTensors: ``expert`` or ``pipe``
+    above 1; a ``tensor`` mesh trains the transformers' plain modules,
+    their table whole on every rank) and the ``meta`` device (the FLOP
+    count, which stays at the true vocab) take the product unpadded, Vp =
+    V."""
     v = weight.shape[0]
     if (v % VOCAB_ROWS_MULTIPLE == 0 or weight.is_meta
             or isinstance(weight, DTensor) or isinstance(x, DTensor)):
@@ -242,9 +262,10 @@ class LayerNorm(nn.LayerNorm):
     ...)`` does: through :func:`ops.layer_norm.layer_norm` (the kernel pair
     of ``csrc/layer_norm.cu`` on the card, which reads x and writes y in
     their own dtypes; on the CPU the former arithmetic, to the bit). On a
-    DTensor (the ``tensor``, ``expert`` and ``seq`` meshes) each rank
-    normalises its own rows (``on_own_rows``): no mesh splits the
-    features.
+    DTensor (a mesh that places DTensors: ``expert`` or ``pipe`` above 1)
+    each rank normalises its own rows (``on_own_rows``): no mesh splits
+    the features. The plain ``tensor`` path keeps the norms whole on every
+    rank, their inputs whole once the branches are summed.
 
     :meth:`add_norm` takes the residual add before the norm into the same
     kernels (``ops.layer_norm.add_layer_norm``), as a pre-LN block's add
@@ -410,10 +431,12 @@ def init_flax_layers_(model: nn.Module, generator: torch.Generator) -> None:
 
 def unsplit_last(x: torch.Tensor) -> torch.Tensor:
     """``x`` with its last dim whole on every rank: a DTensor split there
-    (a projection whose output features lie on ``tensor`` or ``fsdp``) is
-    gathered over those mesh axes, since a flattened ``(3, heads,
-    head_dim)`` split has no placement after the view. A plain tensor, or
-    a DTensor whole there, passes as it is."""
+    (on a mesh that places DTensors, a projection whose output features
+    lie on ``tensor`` or ``fsdp``) is gathered over those mesh axes, since
+    a flattened ``(3, heads, head_dim)`` split has no placement after the
+    view. A plain tensor (the transformers' ``tensor`` meshes train plain
+    modules, each rank's projection giving its own heads), or a DTensor
+    whole there, passes as it is."""
     if not isinstance(x, DTensor):
         return x
     last = x.ndim - 1
@@ -431,7 +454,9 @@ class GroupedQKVProjection(nn.Module):
     ``cfg`` needs ``hidden_size``, ``num_heads``, ``num_kv_heads`` (0 = MHA),
     ``dtype`` (of the products) and ``rope``. When ``cfg.rope``, Q/K rotate
     at ``rope_positions`` (default ``arange(s)``; decode passes its one cache
-    position). For MHA, q/k/v are strided views of one fused output.
+    position). For MHA, q/k/v are strided views of one fused output. Split
+    over a ``tensor`` group (:meth:`tensor_splits`), each rank's projection
+    gives its own heads, ``heads / t`` and ``kv_heads / t`` of them.
     """
 
     def __init__(self, cfg, device=None, param_dtype=torch.float32):
@@ -456,18 +481,41 @@ class GroupedQKVProjection(nn.Module):
                 cfg.hidden_size, 2 * self.kv_heads * self.head_dim, **kw
             )
 
+    def splits_heads(self, t: int) -> bool:
+        """Whether a ``tensor`` group of ``t`` ranks splits the heads: when
+        ``t`` divides both head counts, as the JAX sharded flash path
+        splits them; else every rank keeps them all."""
+        return self.heads % t == 0 and self.kv_heads % t == 0
+
+    def tensor_splits(self, t: int) -> dict:
+        """The projection's parameters over a ``tensor`` group of ``t``
+        ranks (``parallel.mesh.split_over_tensor``), each rank keeping the
+        rows of its heads: the fused ``qkv`` rows, laid out ``(3, heads,
+        head_dim)``, by head within each of q, k and v (not a contiguous
+        block of rows), or ``q`` by query heads and ``kv`` (``(2, kv_heads,
+        head_dim)``) by K/V heads, which keeps each rank's query heads with
+        the K/V heads they share. None when the heads stay whole
+        (:meth:`splits_heads`)."""
+        if not self.splits_heads(t):
+            return {}
+        if self.kv_heads == self.heads:
+            return {"qkv.weight": TensorSplit(0, 3),
+                    "qkv.bias": TensorSplit(0, 3)}
+        return {"q.weight": TensorSplit(0), "q.bias": TensorSplit(0),
+                "kv.weight": TensorSplit(0, 2), "kv.bias": TensorSplit(0, 2)}
+
     def forward(
         self, y: torch.Tensor, rope_positions: Optional[torch.Tensor] = None
     ):
         b, s, _ = y.shape
         d = self.head_dim
+        # -1 heads: all of them, or this rank's under a tensor split
         if self.kv_heads == self.heads:
             q, k, v = unsplit_last(self.qkv(y)).view(
-                b, s, 3, self.heads, d).unbind(2)
+                b, s, 3, -1, d).unbind(2)
         else:
-            q = unsplit_last(self.q(y)).view(b, s, self.heads, d)
-            k, v = unsplit_last(self.kv(y)).view(
-                b, s, 2, self.kv_heads, d).unbind(2)
+            q = unsplit_last(self.q(y)).view(b, s, -1, d)
+            k, v = unsplit_last(self.kv(y)).view(b, s, 2, -1, d).unbind(2)
         if self.rope:
             positions = (
                 torch.arange(s, device=y.device) if rope_positions is None
@@ -490,6 +538,7 @@ __all__ = [
     "init_flax_layers_",
     "linear",
     "padded_vocab",
+    "row_parallel",
     "same_padding",
     "tied_logits",
     "tied_product",

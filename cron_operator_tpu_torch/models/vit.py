@@ -63,7 +63,12 @@ class ViTConfig:
 
 class ViT(nn.Module):
     """NHWC images ``[b, size, size, 3]`` -> logits ``[b, classes]`` in
-    f32."""
+    f32. Its blocks split over ``tensor`` as GPT's (``splits_over_tensor``),
+    so a ``tensor`` mesh trains plain modules; the patch embedding, the
+    CLS token, the positions, the norms and the head stay whole on every
+    rank."""
+
+    splits_over_tensor = True
 
     def __init__(self, config: ViTConfig = ViTConfig(), *, device=None,
                  param_dtype: torch.dtype = torch.float32):

@@ -21,18 +21,28 @@ Axis convention (outer to inner), shared with the JAX package:
 - ``tensor`` tensor parallelism (a weight's output-features dim, heads).
 
 Two paths train over a mesh (:func:`plain_axes` picks one). A mesh whose
-axes above 1 are among ``data``, ``fsdp`` and ``seq`` trains plain modules
-(:func:`data_parallel`): ``DistributedDataParallel`` over every rank
-without ``fsdp``, FSDP2 ``fully_shard`` per block and on the root with it
-(sharded on ``fsdp``, replicated over the other axes above 1), each
-parameter split on the dim the placement rule gives it. Each rank holds its
-rows of the batch and, under ``seq``, its block of positions as plain
-tensors; the modules that see a block of positions get the mesh
-(``seq_mesh``: learned and rotary positions at the block's global offset,
-ring and Ulysses attention on the local blocks), the MoE blocks the group
-of every rank (``token_group``), and on NCCL the step can be captured as a
-CUDA graph. A mesh with ``tensor``, ``expert`` or ``pipe`` above 1 places
-every parameter as a DTensor (:func:`distribute_parameters`) and DTensor's
+axes above 1 are among ``data``, ``fsdp`` and ``seq``, and ``tensor`` for a
+model that splits its blocks (GPT, BERT and ViT: ``splits_over_tensor``),
+trains plain modules (:func:`data_parallel`). Under ``tensor`` each block
+first keeps its own heads and its slice of the FFN (:func:`split_over_tensor`,
+the Megatron layout: the QKV projection and ``fc_in`` split by output
+features, ``out`` and ``fc_out`` by input features, their partial sums
+reduced over the ``tensor`` group by :func:`reduce_from_tensor` and their
+inputs' gradients by :func:`copy_to_tensor`); every other parameter stays
+whole on every rank of a ``tensor`` group, which holds the same rows. Then
+``DistributedDataParallel`` over the batch axes (:func:`batch_group`)
+without ``fsdp``, or FSDP2 ``fully_shard`` per block and on the root with
+it (sharded on ``fsdp``, replicated over ``data`` and ``seq``, at this
+rank's ``tensor`` coordinate), each parameter split on the dim the
+placement rule gives it. Each rank holds its rows of the batch and, under
+``seq``, its block of positions as plain tensors; the modules that see a
+block of positions get the mesh (``seq_mesh``: learned and rotary
+positions at the block's global offset, ring and Ulysses attention on the
+local blocks), the MoE blocks the batch group (``token_group``), the
+blocks the ``tensor`` group (``tensor_group``), and on NCCL the step can
+be captured as a CUDA graph. A mesh with ``expert`` or ``pipe`` above 1,
+or ``tensor`` for a model that does not split (MLP, ResNet), places every
+parameter as a DTensor (:func:`distribute_parameters`) and DTensor's
 propagation places the collectives. The JAX package has one path, GSPMD,
 for every mesh.
 
@@ -62,6 +72,7 @@ never reaches the file format.
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -632,38 +643,232 @@ def distribute_parameters(model: nn.Module, mesh: Any,
     return model
 
 
-# Axes that a mesh may split above 1 and still train plain modules.
+# Axes that a mesh may split above 1 and still train plain modules, and
+# ``tensor`` too for a model that splits its blocks (:func:`plain_axes`).
 PLAIN_AXES: Tuple[str, ...] = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS)
 # The attributes through which :func:`data_parallel` hands the modules of a
-# model the mesh: ``token_group`` (the MoE block: the group of every rank)
-# and ``seq_mesh`` (each module that sees a rank's block of positions).
-MESH_ATTACHMENTS: Tuple[str, ...] = ("token_group", "seq_mesh")
+# model the mesh: ``token_group`` (the MoE block: the batch group),
+# ``seq_mesh`` (each module that sees a rank's block of positions) and
+# ``tensor_group`` (each module that splits over ``tensor``).
+MESH_ATTACHMENTS: Tuple[str, ...] = ("token_group", "seq_mesh",
+                                     "tensor_group")
 
 
-def plain_axes(mesh: Any) -> bool:
-    """Whether every axis of ``mesh`` above 1 is ``data``, ``fsdp`` or
-    ``seq``: such a mesh trains plain modules (:func:`data_parallel`); any
-    other (``tensor``, ``expert`` or ``pipe`` above 1) keeps DTensor
-    parameters (:func:`distribute_parameters`)."""
-    return all(size == 1 or name in PLAIN_AXES
+def plain_axes(mesh: Any, model: Any = None) -> bool:
+    """Whether ``mesh`` trains plain modules (:func:`data_parallel`): every
+    axis above 1 is ``data``, ``fsdp`` or ``seq``, or ``tensor`` for a
+    ``model`` (a module or its class) whose ``splits_over_tensor`` is true
+    (GPT, BERT and ViT: :func:`split_over_tensor`). Any other mesh
+    (``expert`` or ``pipe`` above 1, ``tensor`` for MLP and ResNet) keeps
+    DTensor parameters (:func:`distribute_parameters`)."""
+    allowed = PLAIN_AXES + ((TENSOR_AXIS,) if getattr(
+        model, "splits_over_tensor", False) else ())
+    return all(size == 1 or name in allowed
                for name, size in axis_sizes(mesh).items())
 
 
+def regrid(grid: torch.Tensor, sizes: Dict[str, int],
+           dims: Dict[str, Sequence[str]]) -> Tuple[torch.Tensor, tuple]:
+    """``grid`` (the ranks of a mesh of axes ``sizes``, row-major) as a grid
+    with one dim for each entry of ``dims``, joining the axes it lists (in
+    the mesh's order), after a first dim ``rest`` that joins the other
+    axes when their sizes multiply above 1; and the new dims' names."""
+    names = list(sizes)
+    joined = [a for axes in dims.values() for a in axes]
+    rest = [a for a in names if a not in joined]
+    shape = [math.prod(sizes[a] for a in axes) for axes in dims.values()]
+    dim_names = tuple(dims)
+    if math.prod(sizes[a] for a in rest) > 1:
+        shape, dim_names = [-1, *shape], ("rest", *dim_names)
+    grid = grid.permute([names.index(a) for a in rest + joined])
+    return grid.reshape(shape), dim_names
+
+
+def _regroup(mesh: Any, dims: Dict[str, Sequence[str]]):
+    """``mesh``'s ranks as a ``DeviceMesh`` laid out by :func:`regrid`.
+    Every rank of the world builds its groups."""
+    grid, names = regrid(mesh.mesh, axis_sizes(mesh), dims)
+    return DeviceMesh(mesh.device_type, grid, mesh_dim_names=names)
+
+
 def batch_group(mesh: Any):
-    """The process group of every rank of a :func:`plain_axes` mesh, over
-    which its gradients are averaged (each rank's loss the mean over its own
-    tokens, every rank holding as many): the one axis above 1 (or the only
-    axis), or with two or more above 1 the default group, whose whole world
-    the mesh must then be."""
-    big = [name for name, size in axis_sizes(mesh).items() if size > 1]
-    if len(big) == 1 or mesh.ndim == 1:
-        return mesh.get_group(big[0] if big else 0)
-    if mesh.size() != dist.get_world_size():
-        raise ValueError(
-            f"a {axis_sizes(mesh)} mesh of {mesh.size()} ranks in a world "
-            f"of {dist.get_world_size()}: a mesh of several axes above 1 "
-            "must be the whole world")
-    return dist.group.WORLD
+    """The process group of a :func:`plain_axes` mesh over which its
+    gradients are averaged (each rank's loss the mean over its own tokens,
+    every rank holding as many): the ranks of its batch axes (``data``,
+    ``fsdp``, ``seq``) at this rank's ``tensor`` coordinate, the ranks of
+    a ``tensor`` group holding the same rows. One batch axis above 1 (or
+    none: a group of one rank) gives that axis's group; several give the
+    default group when the mesh is the world and has no ``tensor`` axis
+    above 1, else a group made once for the mesh."""
+    sizes = axis_sizes(mesh)
+    batch = [name for name in sizes if name in PLAIN_AXES]
+    big = [name for name in batch if sizes[name] > 1]
+    if len(big) == 1 or (not big and batch):
+        return mesh.get_group((big or batch)[0])
+    if (len(big) == sum(size > 1 for size in sizes.values())
+            and mesh.size() == dist.get_world_size()):
+        return dist.group.WORLD
+    group = getattr(mesh, "_batch_group", None)
+    if group is None:
+        group = _regroup(mesh, {"batch": batch}).get_group("batch")
+        mesh._batch_group = group
+    return group
+
+
+@dataclass(frozen=True)
+class TensorSplit:
+    """How a parameter is split over ``tensor``: its dim ``dim`` is made of
+    ``outer`` blocks (the fused ``qkv`` rows: q, k and v), each cut into as
+    many equal pieces as the ``tensor`` group has ranks, and rank i keeps
+    piece i of every block, in order."""
+
+    dim: int
+    outer: int = 1
+
+    def local(self, whole: torch.Tensor, index: int,
+              count: int) -> torch.Tensor:
+        """Rank ``index``'s piece of ``whole`` among ``count`` ranks."""
+        n = whole.shape[self.dim]
+        blocks = whole.unflatten(
+            self.dim, (self.outer, count, n // (self.outer * count)))
+        return blocks.select(self.dim + 1, index).flatten(
+            self.dim, self.dim + 1)
+
+    def whole(self, pieces: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The whole tensor from every rank's piece, in rank order."""
+        blocks = [p.unflatten(self.dim, (self.outer, -1)) for p in pieces]
+        return torch.stack(blocks, self.dim + 1).flatten(
+            self.dim, self.dim + 2)
+
+
+@dataclass
+class TensorParallel:
+    """A model split over ``tensor`` by :func:`split_over_tensor`: the
+    ``tensor`` group, this rank's index in it and its size, and
+    ``{parameter name: TensorSplit}`` of the parameters it holds in
+    pieces; every other parameter is whole on every rank of the group."""
+
+    group: Any
+    index: int
+    size: int
+    splits: Dict[str, TensorSplit]
+
+    def take(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of the whole tensor of parameter ``name`` (or
+        of state shaped like it); a whole parameter's as it is."""
+        split = self.splits.get(name)
+        if split is None:
+            return whole
+        return split.local(whole, self.index, self.size)
+
+    def gather(self, name: str, piece: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of parameter ``name`` from this rank's
+        ``piece``, on every rank (a collective of the group for a split
+        parameter: every rank calls it); a whole parameter's as it is."""
+        split = self.splits.get(name)
+        if split is None:
+            return piece
+        piece = piece.contiguous()
+        flat = piece.new_empty((self.size * piece.numel(),))
+        dist.all_gather_into_tensor(flat, piece.reshape(-1),
+                                    group=self.group)
+        return split.whole(list(flat.view(self.size, *piece.shape)))
+
+    def whole_shape(self, name: str, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The whole shape of parameter ``name`` from its piece's."""
+        shape = list(shape)
+        split = self.splits.get(name)
+        if split is not None:
+            shape[split.dim] *= self.size
+        return tuple(shape)
+
+
+def split_over_tensor(model: nn.Module, mesh: Any
+                      ) -> Optional[TensorParallel]:
+    """Each module of ``model`` that names parameters to split over a
+    ``tensor`` group of t ranks (``tensor_splits(t)``: ``{name relative to
+    the module: TensorSplit}``) keeps this rank's piece of each, as a new
+    plain parameter, the Megatron layout: a block's QKV projection keeps
+    the rows of its heads and ``fc_in`` its slice of the FFN's outputs
+    (column-parallel), ``out`` and ``fc_out`` the matching input columns
+    (row-parallel: their partial products are summed over the group,
+    :func:`reduce_from_tensor`). Every rank must hold the whole values
+    (the same seed, or the same checkpoint), as for
+    :func:`distribute_parameters`. Returns the record of the split, also
+    left on the model as ``tensor_parallel``; None without a ``tensor``
+    axis above 1."""
+    count = axis_sizes(mesh).get(TENSOR_AXIS, 1)
+    if count == 1:
+        return None
+    index = mesh.get_local_rank(TENSOR_AXIS)
+    splits: Dict[str, TensorSplit] = {}
+    for prefix, module in model.named_modules():
+        rule = getattr(module, "tensor_splits", None)
+        for name, split in (rule(count) if rule is not None else {}).items():
+            owner, _, leaf = name.rpartition(".")
+            holder = module.get_submodule(owner) if owner else module
+            p = getattr(holder, leaf)
+            holder.register_parameter(leaf, nn.Parameter(
+                split.local(p.detach(), index, count).clone(),
+                requires_grad=p.requires_grad))
+            splits[f"{prefix}.{name}" if prefix else name] = split
+    model.tensor_parallel = TensorParallel(
+        mesh.get_group(TENSOR_AXIS), index, count, splits)
+    return model.tensor_parallel
+
+
+def tensor_parallel(model: nn.Module) -> Optional[TensorParallel]:
+    """The record of :func:`split_over_tensor` on ``model``, or None when
+    it holds every parameter whole."""
+    return getattr(model, "tensor_parallel", None)
+
+
+class _CopyToTensor(torch.autograd.Function):
+    """The identity forward; the gradient summed over ``group`` backward:
+    the input of a column-parallel product (the QKV projection, ``fc_in``),
+    whose ranks each contribute the gradient through their own pieces."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    """The sum over ``group`` forward; the identity backward: the output of
+    a row-parallel product (``out``, ``fc_out``), each rank's gradient that
+    of the whole sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, its gradient summed over ``group`` in the backward (the
+    in-place ``torch.distributed`` call, which gloo also runs on CUDA
+    tensors); ``x`` itself when ``group`` is None."""
+    return x if group is None else _CopyToTensor.apply(x, group)
+
+
+def reduce_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, its gradient passed through unchanged;
+    ``x`` itself when ``group`` is None. Unlike ``parallel.moe``'s
+    ``_SumOver``, which also sums the gradient: a replicated gradient
+    summed over t ranks would count t times."""
+    return x if group is None else _ReduceFromTensor.apply(x, group)
 
 
 @dataclass
@@ -671,11 +876,13 @@ class DataParallel:
     """A model wrapped by :func:`data_parallel`."""
 
     module: nn.Module  # what a step calls: the DDP wrapper, or the model
-    group: Any  # :func:`batch_group`: every rank of the mesh
+    group: Any  # :func:`batch_group`: the batch axes' ranks
     # Parameters that FSDP2 leaves whole on every rank (those the rule
     # replicates over ``fsdp``): their gradients are this rank's, and the
     # caller averages them over ``group``.
     replicated: List[nn.Parameter]
+    # The split over ``tensor`` (:func:`split_over_tensor`), or None.
+    tensor: Optional[TensorParallel] = None
 
 
 def _blocks(model: nn.Module) -> List[nn.Module]:
@@ -691,26 +898,28 @@ def _blocks(model: nn.Module) -> List[nn.Module]:
 
 
 def _fsdp_mesh(mesh: Any):
-    """The mesh FSDP2 shards over: ``fsdp`` alone, or with other axes above
-    1 (``data``, ``seq``) a 2-D mesh of the same ranks whose first dim
-    replicates over all of them (HSDP) and whose second is ``fsdp``. The
-    mesh's order (data, fsdp, seq) keeps ``data`` and ``seq`` apart, which
-    no slice of it joins, so the grid is the mesh's ranks with ``fsdp``
-    moved last, and every rank of the world builds its groups."""
+    """The mesh FSDP2 shards over, built from the batch axes alone at this
+    rank's ``tensor`` coordinate: ``fsdp`` alone, or with ``data`` or
+    ``seq`` above 1 a 2-D mesh whose first dim replicates over them (HSDP)
+    and whose second is ``fsdp``. The mesh's order (data, fsdp, seq,
+    tensor) keeps ``data`` and ``seq`` apart, which no slice of it joins,
+    so the grid is regrouped (:func:`_regroup`), and every rank of the
+    world builds its groups."""
     sizes = axis_sizes(mesh)
-    if all(size == 1 for name, size in sizes.items() if name != FSDP_AXIS):
+    replicate = [a for a in (DATA_AXIS, SEQ_AXIS) if a in sizes]
+    if all(sizes[a] == 1 for a in replicate):
         return mesh[FSDP_AXIS]
-    names = list(sizes)
-    fsdp = names.index(FSDP_AXIS)
-    order = [i for i in range(len(names)) if i != fsdp] + [fsdp]
-    grid = mesh.mesh.permute(order).reshape(-1, sizes[FSDP_AXIS])
-    return DeviceMesh(mesh.device_type, grid,
-                      mesh_dim_names=("replicate", FSDP_AXIS))
+    regrouped = _regroup(mesh, {"replicate": replicate,
+                                FSDP_AXIS: [FSDP_AXIS]})
+    if regrouped.ndim == 3:  # a tensor axis above 1 ahead
+        return regrouped["replicate", FSDP_AXIS]
+    return regrouped
 
 
 def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
     """``model`` trained over a :func:`plain_axes` mesh, its parameters
-    plain tensors in the model code:
+    plain tensors in the model code. First, under a ``tensor`` axis above
+    1, each block keeps its pieces (:func:`split_over_tensor`); then:
 
     - no ``fsdp`` axis: ``DistributedDataParallel`` over :func:`batch_group`
       (the gradients averaged by bucketed all-reduces in the backward, as
@@ -722,24 +931,28 @@ def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
       rank): FSDP2 ``fully_shard`` on each block
       (:func:`_blocks`) and on the root, over :func:`_fsdp_mesh` (sharded
       on ``fsdp``, replicated over ``data`` and ``seq`` where they are above
-      1), each parameter split on the dim :func:`sharding_for_tree` gives it
-      on ``fsdp``; the parameters it replicates there stay plain
-      (``ignored_params``) and are returned in ``replicated``. The
-      all-gathers stay f32, as the parameters are (no mixed precision).
+      1), each parameter (a ``tensor`` piece: the piece) split on the dim
+      :func:`sharding_for_tree` gives it on ``fsdp``; the parameters it
+      replicates there stay plain (``ignored_params``) and are returned in
+      ``replicated``. The all-gathers stay f32, as the parameters are (no
+      mixed precision).
 
     Every module gets its :data:`MESH_ATTACHMENTS`: ``token_group`` (the
-    MoE block) is :func:`batch_group`, so it routes over every rank's
+    MoE block) is :func:`batch_group`, so it routes over the batch axes'
     tokens, as the JAX sharded trainer does (:func:`parallel.moe.moe_ffn`);
     ``seq_mesh`` is ``mesh`` under a ``seq`` axis above 1 (else None), for
     the modules that see this rank's block of positions
-    (:func:`local_positions`)."""
+    (:func:`local_positions`); ``tensor_group`` is the ``tensor`` axis's
+    group under a split (else None), for the modules that split."""
     from torch.distributed.fsdp import fully_shard
     from torch.nn.parallel import DistributedDataParallel
 
+    split = split_over_tensor(model, mesh)
     group = batch_group(mesh)
     sizes = axis_sizes(mesh)
     attach = {"token_group": group,
-              "seq_mesh": mesh if sizes.get(SEQ_AXIS, 1) > 1 else None}
+              "seq_mesh": mesh if sizes.get(SEQ_AXIS, 1) > 1 else None,
+              "tensor_group": None if split is None else split.group}
     for module in model.modules():
         for name, value in attach.items():
             if hasattr(module, name):
@@ -750,22 +963,22 @@ def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
             model, device_ids=[device] if device.type == "cuda" else None,
             process_group=group, broadcast_buffers=False, init_sync=False,
             gradient_as_bucket_view=True)
-        return DataParallel(ddp, group, [])
+        return DataParallel(ddp, group, [], split)
     names = list(sizes)
     rule = sharding_for_tree(model, mesh)
-    split, replicated = {}, []
+    sharded, replicated = {}, []
     for name, p in model.named_parameters():
         placement = rule[name][names.index(FSDP_AXIS)]
         if isinstance(placement, Shard):
-            split[p] = placement
+            sharded[p] = placement
         else:
             replicated.append(p)
-    kw = dict(mesh=_fsdp_mesh(mesh), shard_placement_fn=split.__getitem__,
+    kw = dict(mesh=_fsdp_mesh(mesh), shard_placement_fn=sharded.__getitem__,
               ignored_params=set(replicated))
     for block in _blocks(model):
         fully_shard(block, **kw)
     fully_shard(model, **kw)
-    return DataParallel(model, group, replicated)
+    return DataParallel(model, group, replicated, split)
 
 
 def batch_rows(mesh: Any, n_rows: int) -> slice:
@@ -828,10 +1041,13 @@ __all__ = [
     "PLAIN_AXES",
     "SEQ_AXIS",
     "TENSOR_AXIS",
+    "TensorParallel",
+    "TensorSplit",
     "axis_sizes",
     "batch_group",
     "batch_placements",
     "batch_rows",
+    "copy_to_tensor",
     "data_parallel",
     "distribute_parameters",
     "expert_stacked",
@@ -850,10 +1066,14 @@ __all__ = [
     "plain_axes",
     "plan_for_devices",
     "rank_grid",
+    "reduce_from_tensor",
+    "regrid",
     "regrow",
     "replan",
     "seq_block",
     "sharding_for_tree",
     "spec_for_shape",
+    "split_over_tensor",
+    "tensor_parallel",
     "world_ranks",
 ]

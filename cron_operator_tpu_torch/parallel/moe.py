@@ -42,8 +42,8 @@ parallelism too, where ``x`` holds every rank's positions in the global
 row-major token order and the capacity comes from the global token
 count. On the plain path (``parallel.mesh.data_parallel``) the tokens are
 each rank's plain rows, or under ``seq`` its rows of a block of positions,
-and ``moe_ffn`` takes the process group of every rank (``group``): the
-logits are gathered, put in the one-device token order (row, position)
+and ``moe_ffn`` takes the process group of the batch axes (``group``):
+the logits are gathered, put in the one-device token order (row, position)
 (:func:`token_order`: rank order is (batch shard, seq block, row,
 position), which differs once a rank holds more than one row of a split
 sequence, and capacity fills slots in token order) and routed alike on
@@ -52,7 +52,11 @@ own tokens into their slots (other ranks' slots read a zero row), each
 expert's input is the sum over the ranks (each slot holds one token, so
 the sum is exact), and every rank runs every expert on it and combines its
 own rows. The routes and the output are those of one device, as under
-GSPMD.
+GSPMD. Under a ``tensor`` axis too (``tensor_group``): the group's ranks
+hold the same tokens and route them alike, each keeps ``wi`` and ``wo``
+on its slice of the FFN's width, and the experts' outputs are summed over
+the group before the combine (``parallel.mesh.reduce_from_tensor``), the
+gradient of their input summed over it (``copy_to_tensor``).
 
 Usage::
 
@@ -74,7 +78,9 @@ from torch.distributed.tensor.experimental import local_map
 from cron_operator_tpu_torch.parallel.mesh import (
     EXPERT_AXIS,
     axis_sizes,
+    copy_to_tensor,
     expert_stacked,
+    reduce_from_tensor,
 )
 
 
@@ -344,6 +350,7 @@ def moe_ffn(
     group=None,
     rows: int = 1,
     seq_blocks: int = 1,
+    tensor_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mixture-of-experts FFN over a flat token batch.
 
@@ -354,6 +361,8 @@ def moe_ffn(
     the one-device order (see the module docstring): its ``rows`` rows,
     row-major, of a block of positions when the batch's positions are split
     into ``seq_blocks`` blocks over consecutive ranks (:func:`token_order`).
+    With ``tensor_group``, ``wi`` and ``wo`` are this rank's slices of the
+    FFN's width and the experts' outputs are summed over that group.
 
     Routing (logits, softmax, aux loss) always runs in f32. Dispatch and
     combine are gathers by token index; the two expert matmuls run in
@@ -361,7 +370,8 @@ def moe_ffn(
     flax's. DTensor inputs or parameters take :func:`moe_ffn_reference`.
     """
     kw = dict(capacity_factor=capacity_factor, compute_dtype=compute_dtype,
-              group=group, rows=rows, seq_blocks=seq_blocks)
+              group=group, rows=rows, seq_blocks=seq_blocks,
+              tensor_group=tensor_group)
     if isinstance(x, DTensor) or any(isinstance(p, DTensor)
                                      for p in params.values()):
         return moe_ffn_reference(params, x, **kw)
@@ -384,11 +394,13 @@ def moe_ffn(
                            device=x.device)
         src = local.scatter_(0, mine, torch.arange(T, device=x.device))[src]
 
-    expert_in = _Dispatch.apply(x.to(cd), src, dest, E)  # [E, C, d]
+    expert_in = _Dispatch.apply(copy_to_tensor(x.to(cd), tensor_group), src,
+                                dest, E)  # [E, C, d]
     if ranks > 1:
         expert_in = _SumOver.apply(expert_in, group)
     h = F.gelu(torch.bmm(expert_in, params["wi"].to(cd)), approximate="tanh")
-    expert_out = torch.bmm(h, params["wo"].to(cd))  # [E, C, d]
+    expert_out = reduce_from_tensor(
+        torch.bmm(h, params["wo"].to(cd)), tensor_group)  # [E, C, d]
     return _Combine.apply(expert_out, gate, src, dest), aux_loss
 
 
@@ -401,6 +413,7 @@ def moe_ffn_reference(
     group=None,
     rows: int = 1,
     seq_blocks: int = 1,
+    tensor_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`moe_ffn` in the reference's dense formulation: dispatch and
     combine are products with the ``[T, E, C]`` one-hots of
@@ -427,12 +440,14 @@ def moe_ffn_reference(
     # merge a sharded expert dim behind another, which DTensor refuses. With
     # wi/wo on Shard(0) over expert each rank runs its experts' products and
     # the combine is a partial sum over the expert axis.
-    x, dispatch, combine = x.to(cd), dispatch.to(cd), combine.to(cd)
+    x = copy_to_tensor(x.to(cd), tensor_group)
+    dispatch, combine = dispatch.to(cd), combine.to(cd)
     expert_in = torch.matmul(dispatch.permute(1, 2, 0), x)  # [E, C, d]
     if ranks > 1:
         expert_in = _SumOver.apply(expert_in, group)
     h = F.gelu(torch.bmm(expert_in, params["wi"].to(cd)), approximate="tanh")
-    expert_out = torch.bmm(h, params["wo"].to(cd))  # [E, C, d]
+    expert_out = reduce_from_tensor(
+        torch.bmm(h, params["wo"].to(cd)), tensor_group)  # [E, C, d]
     y = torch.matmul(combine.reshape(T, E * C), expert_out.reshape(E * C, -1))
     return y, aux_loss
 

@@ -14,7 +14,9 @@ successive Forbid ticks continue one run.
 Over a device mesh every rank gathers the state whole and rank 0 alone
 writes it (the trainer's choice; the store is the same), so a checkpoint
 is the one-device state whatever world size saved it, and
-:meth:`CheckpointStore.restore_resharded` places it onto any mesh.
+:meth:`CheckpointStore.restore_resharded` places it onto any mesh: a
+tensor that the live model holds in pieces over ``tensor`` (a
+:class:`Piece` in ``like``) is cut to this rank's piece first.
 
 Format: the port's own, not Orbax. A step is a directory written under a
 temporary name and committed by ``os.replace``, so a listed step was
@@ -35,7 +37,8 @@ import shutil
 import threading
 import weakref
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
@@ -60,17 +63,33 @@ def job_family(name: str) -> str:
     return _TICK_SUFFIX.sub("", name) or name
 
 
+@dataclass(frozen=True)
+class Piece:
+    """A ``like`` entry for a tensor that the live model holds in pieces
+    (a parameter split over ``tensor``, or state shaped like it): the
+    payload holds it whole, of ``shape``; ``take`` cuts the whole tensor to
+    this rank's piece, which is then placed as ``like``."""
+
+    like: torch.Tensor
+    shape: Tuple[int, ...]
+    take: Callable[[torch.Tensor], torch.Tensor]
+
+
 def _check_like(payload: Any, like: Any, path: str = "") -> None:
     """Raises ``ValueError`` unless every tensor of ``like`` is in
-    ``payload`` at the same path with the same shape and dtype."""
-    if torch.is_tensor(like):
-        if not (torch.is_tensor(payload) and payload.shape == like.shape
-                and payload.dtype == like.dtype):
+    ``payload`` at the same path with the same shape and dtype (a
+    :class:`Piece`'s whole shape)."""
+    if torch.is_tensor(like) or isinstance(like, Piece):
+        shape = like.shape if torch.is_tensor(like) else torch.Size(
+            like.shape)
+        dtype = (like if torch.is_tensor(like) else like.like).dtype
+        if not (torch.is_tensor(payload) and payload.shape == shape
+                and payload.dtype == dtype):
             got = (f"{tuple(payload.shape)} {payload.dtype}"
                    if torch.is_tensor(payload) else type(payload).__name__)
             raise ValueError(
                 f"checkpoint entry {path or '/'} is {got}, expected "
-                f"{tuple(like.shape)} {like.dtype}"
+                f"{tuple(shape)} {dtype}"
             )
     elif isinstance(like, dict):
         if not isinstance(payload, dict):
@@ -86,9 +105,12 @@ def place_like(payload: Any, like: Any) -> Any:
     every tensor that ``like`` holds at the same path placed as that one:
     a DTensor ``like`` gives a DTensor on its mesh with its placements,
     each rank keeping its own shard of the whole tensor (nothing is sent),
-    a plain tensor ``like`` gives a tensor on its device. Entries that
-    ``like`` does not name stay as they are. Shapes and dtypes must
-    agree."""
+    a plain tensor ``like`` gives a tensor on its device, a :class:`Piece`
+    this rank's piece, placed as its ``like``. Entries that ``like`` does
+    not name stay as they are. Shapes and dtypes must agree."""
+    if isinstance(like, Piece):
+        _check_like(payload, like)
+        return place_like(like.take(payload), like.like)
     if torch.is_tensor(like):
         _check_like(payload, like)
         if isinstance(like, DTensor):
@@ -246,7 +268,8 @@ class CheckpointStore:
         """Restore across device meshes: the checkpoint holds whole tensors
         keyed by name, whatever world size saved it, and each tensor that
         ``like`` declares is placed as ``like``'s is (:func:`place_like`):
-        a DTensor's shards onto its mesh, a plain tensor onto its device.
+        a DTensor's shards onto its mesh, a plain tensor onto its device, a
+        :class:`Piece` this rank's piece of a ``tensor`` split.
         The JAX package's Tenplex plan, restricted to this format."""
         return place_like(self.restore(step, like), like)
 
@@ -317,6 +340,7 @@ def flush_open_stores(
 __all__ = [
     "CheckpointStore",
     "DEFAULT_ROOT",
+    "Piece",
     "flush_open_stores",
     "job_family",
     "place_like",

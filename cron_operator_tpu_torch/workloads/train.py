@@ -11,23 +11,29 @@ Under a mesh each rank draws or receives the same global batch and keeps
 its part (:func:`workloads.data.local_rows`: the rows split over ``data``
 then ``fsdp``, and with ``TrainConfig.seq_dim_in_batch`` that dim's block
 over ``seq``, for ``y`` too under ``labels_follow_seq``), so a sharded run
-sees exactly the one-process batch. The reported loss and the clip norm
-are global. Two paths (:func:`parallel.mesh.plain_axes`):
+sees exactly the one-process batch; the ranks of a ``tensor`` group hold
+the same part. The reported loss and the clip norm are global. Two paths
+(:func:`parallel.mesh.plain_axes`):
 
-- a mesh whose axes above 1 are among ``data``, ``fsdp`` and ``seq`` trains
-  the plain module under ``DistributedDataParallel`` or FSDP2
-  (:func:`parallel.mesh.data_parallel`, which hands the modules that see a
-  block of positions the mesh): the batch is each rank's part as plain
-  tensors, the loss an all-reduce of the ranks' means on the device (every
-  rank holds as many tokens), and the parameters that FSDP2 leaves whole
-  have their gradients averaged here. It runs as on one card: staging, a
+- a mesh whose axes above 1 are among ``data``, ``fsdp`` and ``seq``, and
+  ``tensor`` for a model that splits its blocks (GPT, BERT, ViT), trains
+  the plain module under ``DistributedDataParallel`` or FSDP2 over the
+  batch axes (:func:`parallel.mesh.data_parallel`, which first splits the
+  blocks' heads and FFN over ``tensor`` and hands the modules their
+  groups and the mesh): the batch is each rank's part as plain tensors,
+  the loss an all-reduce of the ranks' means over the batch group on the
+  device (every rank holds as many tokens), and the parameters that FSDP2
+  leaves whole have their gradients averaged here; the parameters that
+  stay whole across ``tensor`` get equal gradients on every rank of its
+  group by construction, and the clip sums the squares of the split ones
+  over the group. It runs as on one card: staging, a
   fused ``capturable`` optimizer with a device learning rate, and on an
   NCCL group the step captured as a CUDA graph with the collectives inside
   it (the ring's hops and Ulysses' all-to-alls too), after
   ``MESH_GRAPH_WARMUP`` eager steps. A gloo collective cannot be captured,
   so a gloo group runs its steps eagerly.
-- a mesh with ``tensor``, ``expert`` or ``pipe`` above 1 places the
-  parameters and the whole optimizer state as DTensors
+- a mesh with ``expert`` or ``pipe`` above 1 (or ``tensor`` for MLP and
+  ResNet) places the parameters and the whole optimizer state as DTensors
   (:func:`parallel.mesh.sharding_for_tree`), and each rank's batch as a
   DTensor laid out as above; DTensor's propagation places the collectives
   (attention runs on local blocks, see :mod:`ops.attention`). It runs its
@@ -35,9 +41,10 @@ are global. Two paths (:func:`parallel.mesh.plain_axes`):
   without ``capturable``, its learning rate a float.
 
 A save gathers every tensor
-whole on every rank and rank 0 alone writes it; a restore places each
-tensor of the (full-tensor) checkpoint as the live one is placed, so a
-checkpoint saved at one world size resumes at another
+whole on every rank (the ``tensor`` pieces over its group) and rank 0 alone
+writes it; a restore places each tensor of the (full-tensor) checkpoint as
+the live one is placed, a ``tensor`` piece cut from it first, so a
+checkpoint saved at one world size or mesh resumes at another
 (:meth:`workloads.checkpoint.CheckpointStore.restore_resharded`). Every
 rank reads the store itself, so the ranks must share it: the constructor
 raises on every rank when they restored different steps.
@@ -120,7 +127,7 @@ from cron_operator_tpu_torch.parallel.mesh import (
     plain_axes,
 )
 from cron_operator_tpu_torch.parallel.overlap import StepGraph, chunk_schedule
-from cron_operator_tpu_torch.workloads.checkpoint import place_like
+from cron_operator_tpu_torch.workloads.checkpoint import Piece, place_like
 from cron_operator_tpu_torch.workloads.data import (
     ChunkStager,
     Prefetcher,
@@ -337,16 +344,26 @@ def _as_one_device(model: nn.Module):
                 setattr(m, name, value)
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                          pieces: Optional[List[bool]] = None,
+                          group=None) -> None:
     """``optax.clip_by_global_norm`` in place: when the global norm reaches
     ``max_norm``, every gradient is scaled by ``max_norm / norm``. No
     epsilon is added to the norm (``clip_grad_norm_`` adds 1e-6), and the
     decision stays on the device. A sharded gradient's norm is reduced over
-    its shards, so the norm is the global one on every rank."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([_whole(torch.linalg.vector_norm(g.float()))
-                     for g in grads])
-    )
+    its shards, so the norm is the global one on every rank. With
+    ``group`` (a ``tensor`` group), the gradients that ``pieces`` flags are
+    this rank's pieces of split parameters: their squares are summed over
+    the group, and the others, whole on every rank, count once."""
+    norms = [_whole(torch.linalg.vector_norm(g.float())) for g in grads]
+    if group is None:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        whole, split = (sum((n.square() for n, p in zip(norms, pieces)
+                             if p == want), norms[0].new_zeros(()))
+                        for want in (False, True))
+        dist.all_reduce(split, group=group)
+        norm = torch.sqrt(whole + split)
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     for g in grads:
@@ -409,10 +426,12 @@ class Trainer:
     steps (see the module docstring).
 
     ``mesh`` (a ``DeviceMesh``) wraps the model here
-    (:func:`parallel.mesh.data_parallel`) or places its parameters
+    (:func:`parallel.mesh.data_parallel`: the plain path, which a
+    ``tensor`` mesh takes for GPT, BERT and ViT) or places its parameters
     (:func:`parallel.mesh.distribute_parameters`), and trains over it (see
     the module docstring); None trains on one device. ``self.model`` stays
-    the model itself, whose state dict a checkpoint holds.
+    the model itself, whose state dict, gathered whole, a checkpoint
+    holds.
     """
 
     def __init__(
@@ -428,12 +447,14 @@ class Trainer:
         self.mesh = mesh
         self.config = config or TrainConfig()
         self.device = next(model.parameters()).device
-        # The plain data-parallel path: what a step calls, the group of
-        # every rank, and the parameters whose gradients are averaged here.
-        self._plain = mesh is not None and plain_axes(mesh)
+        # The plain data-parallel path: what a step calls, the batch axes'
+        # group, the parameters whose gradients are averaged here, and the
+        # split over tensor (parallel.mesh.TensorParallel, or None).
+        self._plain = mesh is not None and plain_axes(mesh, model)
         self._forward: nn.Module = model
         self._group = None
         self._replicated: List[nn.Parameter] = []
+        self._tensor = None
         # The plain path's steps run on a stream of their own on the card,
         # the one DDP is built on: DDP keeps the parameters' gradient
         # accumulators, which carry the stream they were made on, and a
@@ -448,6 +469,7 @@ class Trainer:
             self._forward = wrapped.module
             self._group = wrapped.group
             self._replicated = wrapped.replicated
+            self._tensor = wrapped.tensor
         elif mesh is not None:
             distribute_parameters(model, mesh)
         # Rank 0 alone writes checkpoints; every rank gathers them.
@@ -483,7 +505,7 @@ class Trainer:
             # Resume before any step, warm-up or capture, falling back past
             # unreadable steps as the JAX package's store does.
             restored = (checkpoint.restore_latest(
-                like={"params": self.model.state_dict()})
+                like={"params": self._params_like()})
                 if checkpoint.latest_step() is not None else None)
             if mesh is not None:
                 _same_step_on_every_rank(
@@ -526,13 +548,19 @@ class Trainer:
         memory in the current stream's order, after every step enqueued so
         far, and the copies are waited for here, so that the next step
         cannot overwrite them. Under a mesh every rank gathers each tensor
-        whole (a collective: every rank calls this) and the state is the
-        one-device state."""
+        whole (a collective: every rank calls this), a ``tensor`` piece
+        over its group, and the state is the one-device state."""
         opt = self.optimizer.state_dict()
         opt["param_groups"] = [
             {**g, "lr": float(g["lr"])} for g in opt["param_groups"]]
+        names = self._param_names()
+        opt["state"] = {i: {k: self._gathered(names[int(i)], v)
+                            for k, v in entry.items()}
+                        for i, entry in opt["state"].items()}
+        params = {k: self._gathered(k, v)
+                  for k, v in self.model.state_dict().items()}
         state = {
-            "params": _to_host(self.model.state_dict()),
+            "params": _to_host(params),
             "optimizer": _to_host(opt),
             "step": self.steps_done,
             "data_gen": (self._data_gen.get_state()
@@ -565,19 +593,58 @@ class Trainer:
     def _placed_like(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """The placements a restored state takes under the mesh, as a
         ``like`` of :func:`workloads.checkpoint.place_like`: the parameters
-        as the live ones, and each optimizer state tensor shaped like its
-        parameter as that parameter (the optimizer's state mirrors it, as
-        the JAX ``sharding_for_tree`` places it); scalars (a step count)
-        stay as they are."""
+        as the live ones (:meth:`_params_like`), and each optimizer state
+        tensor shaped like its parameter's whole as that parameter (the
+        optimizer's state mirrors it, as the JAX ``sharding_for_tree``
+        places it); scalars (a step count) stay as they are."""
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        names = self._param_names()
         opt_like = {}
         for i, entry in state["optimizer"].get("state", {}).items():
-            p = params[int(i)]
-            opt_like[i] = {k: p for k, v in entry.items()
+            p, name = params[int(i)], names[int(i)]
+            like = self._like(name, p)
+            opt_like[i] = {k: like for k, v in entry.items()
                            if torch.is_tensor(v) and v.ndim
-                           and tuple(v.shape) == tuple(p.shape)}
-        return {"params": self.model.state_dict(),
+                           and tuple(v.shape) == self._whole_shape(name, p)}
+        return {"params": self._params_like(),
                 "optimizer": {"state": opt_like}}
+
+    def _param_names(self) -> List[str]:
+        """The parameters' names in the optimizer's order (its state
+        dict's indices)."""
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        return [names[id(p)] for g in self.optimizer.param_groups
+                for p in g["params"]]
+
+    def _whole_shape(self, name: str, t: torch.Tensor) -> tuple:
+        """The whole shape of parameter ``name`` (or state shaped like
+        it), held as ``t``: a ``tensor`` piece's whole."""
+        if self._tensor is None:
+            return tuple(t.shape)
+        return self._tensor.whole_shape(name, t.shape)
+
+    def _like(self, name: str, t: torch.Tensor) -> Any:
+        """The ``like`` of parameter ``name`` (or state shaped like it),
+        held as ``t``: ``t``, or for a ``tensor`` piece a
+        :class:`workloads.checkpoint.Piece` that cuts it from the whole."""
+        if self._tensor is None or name not in self._tensor.splits:
+            return t
+        return Piece(t, self._whole_shape(name, t),
+                     lambda whole: self._tensor.take(name, whole))
+
+    def _params_like(self) -> Dict[str, Any]:
+        """The model's state dict as a ``like`` (:meth:`_like`)."""
+        return {n: self._like(n, t) for n, t in self.model.state_dict().items()}
+
+    def _gathered(self, name: str, t: Any) -> Any:
+        """``t`` (parameter ``name``, or state shaped like it) whole over
+        ``tensor`` when it is a piece (a collective of the group), else as
+        it is."""
+        if (self._tensor is None or name not in self._tensor.splits
+                or not torch.is_tensor(t) or t.shape
+                != self.model.get_parameter(name).shape):
+            return t  # whole, or a scalar of the state (a step count)
+        return self._tensor.gather(name, _whole(t.detach()))
 
     def flops_per_step(self) -> Optional[float]:
         """Model FLOPs of one optimizer step at the batch shapes trained:
@@ -597,13 +664,15 @@ class Trainer:
         cross-entropy's backward, which recomputes its logits with aten
         matmuls, is. On the plain meshed path the model is counted as one
         device runs it (no hooks, no mesh attachments), at the global
-        batch's shapes (:meth:`_global_shape`)."""
+        batch's shapes (:meth:`_global_shape`), with every parameter whole
+        (a ``tensor`` piece at its whole shape), as the JAX package counts
+        its program."""
         if self._flops_counted or self._batch_struct is None:
             return self._flops_per_step
         self._flops_counted = True
         try:
             meta = {  # whole shapes: a step's FLOPs over the mesh
-                name: torch.empty(t.shape, dtype=t.dtype,
+                name: torch.empty(self._whole_shape(name, t), dtype=t.dtype,
                                   device="meta").requires_grad_(
                     t.requires_grad)
                 for name, t in itertools.chain(self.model.named_parameters(),
@@ -748,9 +817,16 @@ class Trainer:
         _average_([p.grad for p in self._replicated if p.grad is not None],
                   self._group)
         if self.config.grad_clip_norm > 0:
-            grads = [p.grad for g in self.optimizer.param_groups
-                     for p in g["params"] if p.grad is not None]
-            clip_by_global_norm_(grads, self.config.grad_clip_norm)
+            named = [(n, p.grad) for n, p in zip(
+                self._param_names(), (p for g in self.optimizer.param_groups
+                                      for p in g["params"]))
+                     if p.grad is not None]
+            split = self._tensor
+            clip_by_global_norm_(
+                [g for _, g in named], self.config.grad_clip_norm,
+                pieces=[split is not None and n in split.splits
+                        for n, _ in named],
+                group=None if split is None else split.group)
         if not self._plain:
             self.optimizer.step()
             return _whole(loss.detach())

@@ -10,14 +10,17 @@ Run from the root of a checkout::
 NCCL process group and each call the port's ``gpt`` entrypoint on
 ``chip_smoke.MESH_PARAMS`` (GPT-2 small widths, b 8 x 1024 global, bf16
 over f32 parameters, AdamW, ``data=host``, ``steps_per_call=1``, 3 steps)
-under each strategy of ``STRATEGIES[N]``. ``data`` and ``fsdp`` meshes
-train plain modules (DDP, FSDP2), the others DTensor parameters. The
-ranks, the one-rank references, the frozen reading and every check are
-``chip_smoke.py``'s mesh phase's (``spawn_ranks``, ``mesh_references``,
-``frozen_reading``, ``mesh_problems``): every rank launches K1, K2 and K3
-36 times, all sm90, at the strategy's local (batch, heads), reports the
-same losses, and holds the loss gap and the update distance against one
-rank's run within ``MESH_LOSS_BOUND`` and ``MESH_UPDATE_BOUND``.
+under each strategy of ``STRATEGIES[N]``. ``data``, ``fsdp`` and
+``tensor`` meshes train plain modules (DDP, FSDP2; under ``tensor`` each
+rank keeps its heads and its half of the FFN, the Megatron split), the
+``expert`` ones DTensor parameters. The ranks, the one-rank references,
+the frozen reading and every check are ``chip_smoke.py``'s mesh phase's
+(``spawn_ranks``, ``mesh_references``, ``frozen_reading``,
+``mesh_problems``): every rank takes the strategy's path, launches K1, K2
+and K3 36 times, all sm90, at the strategy's local (batch, heads),
+reports the same losses, and holds the loss gap and the update distance
+against one rank's run within ``MESH_LOSS_BOUND`` and
+``MESH_UPDATE_BOUND``.
 
 On four cards it then runs, from ``chip_smoke.py``'s phases 16 and 18:
 
@@ -31,10 +34,12 @@ On four cards it then runs, from ``chip_smoke.py``'s phases 16 and 18:
   (``steps_per_call=1``);
 - ``PIPE_STAGES``: ``spmd_pipeline`` of 2 and of 4 GPT-2-small layers over
   as many ranks, held by ``pipeline_problems`` (``PIPE_REL_BOUND``);
-- ``GRAPH_LEGS``: ``data`` 4, ``fsdp`` 4, ring ``seq`` 4 and ring ``fsdp``
-  2 x ``seq`` 2 at ``GRAPH_MESH_PARAMS`` (24 steps in calls of 8: captured
-  over NCCL after ``MESH_GRAPH_WARMUP`` eager steps, the ring's hops and
-  the collectives inside the graph, replayed) against the same job in
+- ``GRAPH_LEGS``: ``data`` 4, ``fsdp`` 4, ring ``seq`` 4, ring ``fsdp``
+  2 x ``seq`` 2, ``fsdp`` 2 x ``tensor`` 2 and ``data`` 2 x ``tensor`` 2
+  at ``GRAPH_MESH_PARAMS`` (24 steps in calls of 8: captured over NCCL
+  after ``MESH_GRAPH_WARMUP`` eager steps, the ring's hops, the ``tensor``
+  blocks' all-reduces and the other collectives inside the graph,
+  replayed) against the same job in
   calls of one step: the losses and every parameter the same bits on every
   rank, K1-K3 by ``seq_launches``, the replayed call's step ms and the
   NCCL kernels in it.
@@ -60,15 +65,16 @@ sys.path.insert(0, str(ROOT))
 
 MOE = {"moe_every": "2", "num_experts": "8"}
 STRATEGIES = {
-    # N: {name: (params, local (batch, heads))}
-    4: {"data4": ({"devices": "4"}, (2, 12)),
-        "fsdp4": ({"fsdp": "4"}, (2, 12)),
-        "fsdp2_tensor2": ({"fsdp": "2", "tensor": "2"}, (4, 6)),
-        "data2_expert2": ({**MOE, "expert": "2"}, (4, 12))},
-    2: {"data2": ({"devices": "2"}, (4, 12)),
-        "fsdp2": ({"fsdp": "2"}, (4, 12)),
-        "tensor2": ({"tensor": "2"}, (8, 6)),
-        "expert2": ({**MOE, "expert": "2"}, (8, 12))},
+    # N: {name: (params, local (batch, heads), the trainer's path)}
+    4: {"data4": ({"devices": "4"}, (2, 12), "ddp"),
+        "fsdp4": ({"fsdp": "4"}, (2, 12), "fsdp"),
+        "fsdp2_tensor2": ({"fsdp": "2", "tensor": "2"}, (4, 6), "fsdp"),
+        "data2_tensor2": ({"tensor": "2"}, (4, 6), "ddp"),
+        "data2_expert2": ({**MOE, "expert": "2"}, (4, 12), "dtensor")},
+    2: {"data2": ({"devices": "2"}, (4, 12), "ddp"),
+        "fsdp2": ({"fsdp": "2"}, (4, 12), "fsdp"),
+        "tensor2": ({"tensor": "2"}, (8, 6), "ddp"),
+        "expert2": ({**MOE, "expert": "2"}, (8, 12), "dtensor")},
 }
 # name: (ranks, job, params over MESH_PARAMS); the reference is one rank's
 # run of the job at attention=flash (K1-K3 over the whole sequence, the
@@ -88,7 +94,10 @@ GRAPH_LEGS = {"data4_graph": ({"devices": "4"}, (2, 12)),
               "fsdp4_graph": ({"fsdp": "4"}, (2, 12)),
               "seq4_ring_graph": ({"attention": "ring", "seq": "4"}, (8, 12)),
               "fsdp2_seq2_graph": ({"attention": "ring", "seq": "2",
-                                    "fsdp": "2"}, (4, 12))}
+                                    "fsdp": "2"}, (4, 12)),
+              # the Megatron blocks, the batch over fsdp or data
+              "fsdp2_tensor2_graph": ({"fsdp": "2", "tensor": "2"}, (4, 6)),
+              "data2_tensor2_graph": ({"tensor": "2"}, (4, 6))}
 LEG_TIMEOUT_S = 240  # a rank of a leg that runs longer fails the leg
 
 
@@ -240,15 +249,17 @@ def main(argv) -> int:
                               **smoke.frozen_reading(torch, refs, root)}),
                   flush=True)
 
-        def strategy(name, extra, local):
+        def strategy(name, extra, local, path):
             ranks = smoke.spawn_ranks(
                 n, {**smoke.MESH_PARAMS, **extra}, root, name,
                 backend="nccl", cards=n, profile=name == profiled,
                 timeout=LEG_TIMEOUT_S)
             ref = refs["moe" if "moe_every" in extra else "dense"]
-            problems, readings = smoke.mesh_problems(torch, ranks, ref, local)
+            problems, readings = smoke.mesh_problems(torch, ranks, ref, local,
+                                                     path)
             print(json.dumps({
                 "run": name, "cards": n, "params": extra,
+                "path": ranks[0]["path"],
                 "local_batch_heads": local,
                 "launches_per_rank": ranks[0]["counts"],
                 "losses": ranks[0]["losses"], **readings,
@@ -260,8 +271,9 @@ def main(argv) -> int:
                       flush=True)
             return bool(problems)
 
-        for name, (extra, local) in strategies.items():
-            failed |= attempt(name, lambda: strategy(name, extra, local))
+        for name, (extra, local, path) in strategies.items():
+            failed |= attempt(name, lambda: strategy(name, extra, local,
+                                                     path))
         if n == 4:
             seq_refs = {}
             for name in filter(wanted, SEQ_LEGS):

@@ -18,7 +18,11 @@ one-process port and the JAX package beside them.
   ``test_torch_train.py``), and the gradients ``jax.grad``'s within rtol
   1e-4.
 - Placements: every parameter lies as ``parallel.mesh.sharding_for_tree``
-  says, the expert-stacked MoE weights on ``Shard(0)`` over ``expert``.
+  says, the expert-stacked MoE weights on ``Shard(0)`` over ``expert``;
+  under ``tensor 2`` the model trains plain modules (DDP), each rank
+  holding its heads' rows of ``qkv`` and its slice of ``fc_in`` and the
+  matching input columns of ``out`` and ``fc_out``, every other parameter
+  whole (``tests/test_torch_tensor_plain.py`` takes that path further).
 The elastic chain (checkpoints across world sizes) is in
 ``test_torch_mesh.py``.
 """
@@ -172,13 +176,30 @@ def test_sharded_training_matches_the_jax_trainer(worlds, run):
         _close(got["grads"][name], g, rtol=1e-4)
 
 
+# Under tensor 2 the transformer's blocks keep their pieces: the dim of
+# each split parameter (its name's last two components) that holds half
+TENSOR_SPLIT_DIMS = {"qkv.weight": 0, "qkv.bias": 0, "out.weight": 1,
+                     "fc_in.weight": 0, "fc_in.bias": 0, "fc_out.weight": 1}
+
+
 @pytest.mark.parametrize("run", sorted(RUNS))
 def test_parameters_lie_as_the_rule_places_them(worlds, run):
     world, axes, over, _ = RUNS[run]
     got = worlds[run][0]
     assert got["mesh"] == plan_for_devices(world, **axes).axis_sizes
-    want = sharding_for_tree(GPT(_port_config(over)),
-                             plan_for_devices(world, **axes))
+    model = GPT(_port_config(over))
+    if run == "tensor":  # the plain path: plain pieces under DDP
+        assert [r["path"] for r in worlds[run]] == ["ddp"] * world
+        for rank in worlds[run]:
+            assert all(p == ["R", "R"] for p in rank["placements"].values())
+            for name, p in model.named_parameters():
+                shape = list(p.shape)
+                dim = TENSOR_SPLIT_DIMS.get(".".join(name.split(".")[-2:]))
+                if dim is not None:
+                    shape[dim] //= 2
+                assert rank["shapes"][name] == tuple(shape), name
+        return
+    want = sharding_for_tree(model, plan_for_devices(world, **axes))
     assert got["placements"] == {n: [str(p) for p in pl]
                                  for n, pl in want.items()}
     if run == "expert":

@@ -25,9 +25,10 @@ them, all from the same seeded numpy inputs in f32.
   tensors) moves the same values and is chosen for exactly that case.
 - Workloads (``tests/test_workloads.py`` 52-117 and
   ``test_bert_trains_with_ulysses``): tiny BERT with ring attention under
-  seq 2 x tensor 2 (DTensor parameters), tiny GPT with ring and Switch-MoE
-  blocks under seq 2, tiny GPT with GQA and RoPE under ring seq 2, and tiny
-  BERT with Ulysses under seq 2 (the last three on the plain path, DDP):
+  seq 2 x tensor 2 (the ring over each rank's two heads), tiny GPT with
+  ring and Switch-MoE blocks under seq 2, tiny GPT with GQA and RoPE under
+  ring seq 2, and tiny BERT with Ulysses under seq 2 (all on the plain
+  path, DDP):
   3 steps of the numpy batches from converted JAX weights, losses within
   rtol 1e-5 of the one-process port and within 5e-5 of the JAX ``Trainer``
   on its mesh (the bound of ``test_torch_parallel.py``), every rank
@@ -80,11 +81,11 @@ MESHES = {"seq2": (2, {"seq": 2}), "seq4": (4, {"seq": 4}),
 SEQ, BATCH, STEPS = 32, 4, 3
 MOE = {"moe_every": 2, "num_experts": 4}
 # name: (world, axes, model, model overrides, stream, the trainer's path:
-# a mesh with tensor keeps DTensor parameters, a seq mesh trains plain ones)
+# seq meshes train plain modules, with tensor too for GPT and BERT)
 RUNS = {
     "bert_ring_seq2_tensor2": (4, {"seq": 2, "tensor": 2}, "bert",
                                {"attention_impl": "ring"}, "token_batches",
-                               "dtensor"),
+                               "ddp"),
     "gpt_ring_moe_seq2": (2, {"seq": 2}, "gpt",
                           {"attention_impl": "ring", **MOE},
                           "causal_token_batches", "ddp"),

@@ -21,10 +21,10 @@ against the former wiring and the JAX package's, on the CPU.
   ``Trainer``'s losses with its ``cross_entropy_loss`` over three steps
   within ``LOSS_ATOL``, as ``tests/test_torch_train.py``.
 - In one gloo world of 2 rank processes (``tests/torch_mesh_ranks.py``),
-  the jobs over a ``tensor`` mesh (DTensor parameters) keep the former path
-  (no call of the loss's forward), and over ``data`` (DDP), ``fsdp``
-  (FSDP2) and ``seq`` (DDP, ring GPT and Ulysses BERT) meshes take the loss
-  on the padded logits, with the former wiring's losses to the bit.
+  the jobs over ``data`` (DDP), ``fsdp`` (FSDP2), ``seq`` (DDP, ring GPT
+  and Ulysses BERT) and ``tensor`` (DDP over each rank's heads and FFN
+  slice, the table whole) meshes take the loss on the padded logits, with
+  the former wiring's losses to the bit.
 """
 
 import torch_threads  # noqa: F401  (an xdist worker's torch threads)
@@ -338,7 +338,7 @@ def test_the_jobs_loss_matches_the_jax_trainer(run):
 
 
 MESH_JOBS = {  # name: (entrypoint, mesh params, the loss kernels' route)
-    "gpt_tensor": ("gpt", {"tensor": "2"}, False),
+    "gpt_tensor": ("gpt", {"tensor": "2"}, True),
     "gpt_data": ("gpt", {}, True),
     "gpt_fsdp": ("gpt", {"fsdp": "2"}, True),
     "bert_data": ("bert", {}, True),

@@ -13,11 +13,14 @@ torch, numpy and the port only.
 Jobs (dicts):
 
 - ``train``: a GPT (``cfg``: ``GPTConfig.tiny`` overrides, f32; a BERT
-  with ``"model": "bert"``) loaded from ``weights`` (a state dict file)
-  trains ``steps`` steps of the numpy ``causal_token_batches(batch, seq,
-  1024)`` (``"stream": "token_batches"`` for BERT's) under ``axes``;
-  results: the losses, the first step's gradients, gathered whole, and the
-  parameters' placements.
+  with ``"model": "bert"``, a ViT with ``"model": "vit"``) loaded from
+  ``weights`` (a state dict file) trains ``steps`` steps of the numpy
+  ``causal_token_batches(batch, seq, 1024)`` (``"stream": "token_batches"``
+  for BERT's, ``"imagenet_batches"`` for ViT's) under ``axes``; results:
+  the losses, the first step's gradients, gathered whole, and the
+  parameters' placements and shapes. ``contiguous_qkv`` splits the fused
+  ``qkv`` rows over ``tensor`` as one contiguous block a rank (a wrong
+  split, which the tests must catch).
 - ``chain``: a GPT tiny from seed 0 trains on fused data to ``steps`` with
   a checkpoint store at ``dir`` (``save_every``), resuming from its newest
   step; results: the restored step, the parameters right after the
@@ -29,7 +32,8 @@ Jobs (dicts):
   :func:`_body`; ``hop``:
   :func:`_hop`; ``guards``: :func:`_guards`; ``pipe_guards``:
   :func:`_pipe_guards`; ``pipeline``: :func:`_pipeline`; ``lm_job``:
-  :func:`_lm_job`.
+  :func:`_lm_job`; ``tensor_restore``: :func:`_tensor_restore`;
+  ``tensor_collectives``: :func:`_tensor_collectives`.
 
 :func:`mesh_probe` is an entrypoint for the port's runner.
 """
@@ -54,8 +58,10 @@ def _config(job):
 
     from cron_operator_tpu_torch.models.bert import BertConfig
     from cron_operator_tpu_torch.models.gpt import GPTConfig
+    from cron_operator_tpu_torch.models.vit import ViTConfig
 
-    maker = BertConfig.tiny if job.get("model") == "bert" else GPTConfig.tiny
+    maker = {"bert": BertConfig.tiny, "vit": ViTConfig.tiny}.get(
+        job.get("model"), GPTConfig.tiny)
     return maker(**{"dtype": torch.float32, "attention_impl": "xla",
                     **job.get("cfg", {})})
 
@@ -63,8 +69,20 @@ def _config(job):
 def _model(job):
     from cron_operator_tpu_torch.models.bert import Bert
     from cron_operator_tpu_torch.models.gpt import GPT
+    from cron_operator_tpu_torch.models.vit import ViT
 
-    return (Bert if job.get("model") == "bert" else GPT)(_config(job))
+    return {"bert": Bert, "vit": ViT}.get(job.get("model"), GPT)(_config(job))
+
+
+def _batches(job, cfg):
+    """The job's numpy stream (``stream``): token batches of the model's
+    length and vocab, or ViT's images of its size and classes."""
+    from cron_operator_tpu_torch.workloads import data
+
+    stream = getattr(data, job.get("stream", "causal_token_batches"))
+    if job.get("model") == "vit":
+        return stream(job["batch"], cfg.image_size, cfg.num_classes)
+    return stream(job["batch"], cfg.max_len, cfg.vocab_size)
 
 
 def qkv_arrays(seed: int, b: int, s: int, h: int, kv_h: int, d: int):
@@ -105,30 +123,69 @@ def _whole(t):
     return (t.full_tensor() if isinstance(t, DTensor) else t).clone()
 
 
+def _weights(job, timeout: float = 300.0):
+    """The state dict at ``job["weights"]``, waiting up to ``timeout`` s
+    for the file: a test process may write it (by a rename) after it
+    started the world."""
+    import torch
+
+    path = Path(job["weights"])
+    deadline = time.monotonic() + timeout
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no weights at {path}")
+        time.sleep(0.1)
+    return torch.load(path, weights_only=True)
+
+
+def _whole_params(model, tensors) -> Dict[str, Any]:
+    """``tensors`` (``(name, tensor)`` pairs of ``model``'s parameters, or
+    of their gradients) whole: a DTensor's full tensor, and a piece of a
+    parameter split over ``tensor`` gathered over its group
+    (``parallel.mesh.tensor_parallel``; every rank calls this)."""
+    from cron_operator_tpu_torch.parallel.mesh import tensor_parallel
+
+    split = tensor_parallel(model)
+    out = {}
+    for name, t in tensors:
+        t = _whole(t)
+        out[name] = t if split is None else split.gather(name, t)
+    return out
+
+
 def _train(job, mesh) -> Dict[str, Any]:
     import torch
 
-    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.models.layers import GroupedQKVProjection
+    from cron_operator_tpu_torch.parallel.mesh import TensorSplit
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
     cfg = _config(job)
     model = _model(job)
-    model.load_state_dict(torch.load(job["weights"], weights_only=True))
-    trainer = Trainer(model, TrainConfig(
-        steps_per_call=1, stage_async=False,
-        aux_loss_in_output=getattr(model, "has_moe", False),
-        **job.get("train", {})), mesh=mesh)
-    stream = getattr(data, job.get("stream", "causal_token_batches"))
-    batches = stream(job["batch"], cfg.max_len, cfg.vocab_size)
+    model.load_state_dict(_weights(job))
+    rule = GroupedQKVProjection.tensor_splits
+    if job.get("contiguous_qkv"):
+        GroupedQKVProjection.tensor_splits = lambda self, t: {
+            k: TensorSplit(0) for k in rule(self, t)}
+    try:
+        trainer = Trainer(model, TrainConfig(
+            steps_per_call=1, stage_async=False,
+            aux_loss_in_output=getattr(model, "has_moe", False),
+            **job.get("train", {})), mesh=mesh)
+    finally:
+        GroupedQKVProjection.tensor_splits = rule
+    batches = _batches(job, cfg)
     stats = trainer.run(batches, 1)
-    grads = {n: _whole(p.grad) for n, p in model.named_parameters()}
+    grads = _whole_params(model, ((n, p.grad)
+                                  for n, p in model.named_parameters()))
     stats += trainer.run(batches, job["steps"])
     return {
         "losses": [s.loss for s in stats],
         "grads": grads,
         "placements": {n: placements(p, mesh)
                        for n, p in model.named_parameters()},
-        "final": {n: _whole(p) for n, p in model.named_parameters()},
+        "shapes": {n: tuple(p.shape) for n, p in model.named_parameters()},
+        "final": _whole_params(model, model.named_parameters()),
         "path": _path(model),
     }
 
@@ -156,23 +213,20 @@ def _data_parallel(job, mesh) -> Dict[str, Any]:
     import torch
 
     from cron_operator_tpu_torch.parallel import moe
-    from cron_operator_tpu_torch.workloads import data
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
     out = _train(job, mesh)
     cfg = _config(job)
     model = _model(job)
-    model.load_state_dict(torch.load(job["weights"], weights_only=True))
+    model.load_state_dict(_weights(job))
     trainer = Trainer(model, TrainConfig(
         steps_per_call=job["chunk"],
         aux_loss_in_output=getattr(model, "has_moe", False),
         **job.get("train", {})), mesh=mesh)
-    stream = getattr(data, job.get("stream", "causal_token_batches"))
-    stats = trainer.run(stream(job["batch"], cfg.max_len, cfg.vocab_size),
-                        job["steps"])
+    stats = trainer.run(_batches(job, cfg), job["steps"])
     out["chunked"] = {
         "losses": [s.loss for s in stats],
-        "final": {n: _whole(p) for n, p in model.named_parameters()},
+        "final": _whole_params(model, model.named_parameters()),
         "flops": trainer.flops_per_step()}
     if job.get("rank_order"):
         real = moe.token_order
@@ -265,7 +319,7 @@ def _chain(job, mesh) -> Dict[str, Any]:
             sample_fn=data.causal_token_sample(job["batch"], cfg.max_len,
                                                cfg.vocab_size),
             checkpoint=store, mesh=mesh)
-        restored = {n: _whole(p) for n, p in model.named_parameters()}
+        restored = _whole_params(model, model.named_parameters())
         step0 = trainer.steps_done
         import itertools
 
@@ -274,6 +328,91 @@ def _chain(job, mesh) -> Dict[str, Any]:
         store.close()
     return {"restored_step": step0, "restored": restored,
             "losses": [s.loss for s in stats]}
+
+
+def _tensor_restore(job, mesh) -> Dict[str, Any]:
+    """A GPT tiny (seed 0) whose trainer restores the newest step of the
+    store at ``dir`` once one is there (up to 300 s: the test process
+    writes it while this world runs), and rank 0 saves the trainer's
+    ``host_state`` (every tensor gathered whole) at that step into the
+    store at ``out_dir``; results: the restored step and the parameters'
+    shapes on this rank."""
+    import torch
+
+    from cron_operator_tpu_torch.models.gpt import GPT
+    from cron_operator_tpu_torch.workloads import data
+    from cron_operator_tpu_torch.workloads.checkpoint import CheckpointStore
+    from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
+
+    cfg = _config(job)
+    store = CheckpointStore("ns", "chain", root=job["dir"], max_to_keep=100)
+    deadline = time.monotonic() + 300
+    while store.latest_step() is None:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no checkpoint under {job['dir']}")
+        time.sleep(0.2)
+    model = GPT(cfg).init_weights(torch.Generator().manual_seed(0))
+    try:
+        trainer = Trainer(
+            model, TrainConfig(steps_per_call=1),
+            sample_fn=data.causal_token_sample(job["batch"], cfg.max_len,
+                                               cfg.vocab_size),
+            checkpoint=store, mesh=mesh)
+        state = trainer.host_state()
+    finally:
+        store.close()
+    if torch.distributed.get_rank() == 0:
+        out = CheckpointStore("ns", "chain", root=job["out_dir"])
+        out.save(trainer.steps_done, state)
+        out.close()
+    torch.distributed.barrier()
+    return {"restored_step": trainer.steps_done,
+            "shapes": {n: tuple(p.shape) for n, p in model.named_parameters()}}
+
+
+def _tensor_collectives(job, mesh) -> Dict[str, Any]:
+    """The Megatron pair over the ``tensor`` group, on rank-dependent
+    inputs ``x_r = seed(r)`` and cotangents ``w_r``: ``copy_to_tensor``'s
+    output and its input's gradient, ``reduce_from_tensor``'s likewise, and
+    a row-parallel ``Linear`` (``layers.row_parallel``: this rank's input
+    columns of a seeded whole layer, on its columns of a seeded input)
+    with the whole layer's output beside it."""
+    import torch
+    import torch.distributed as dist
+
+    from cron_operator_tpu_torch.models.layers import Linear, row_parallel
+    from cron_operator_tpu_torch.parallel.mesh import (
+        TENSOR_AXIS,
+        TensorSplit,
+        copy_to_tensor,
+        reduce_from_tensor,
+    )
+
+    group = mesh.get_group(TENSOR_AXIS)
+    r, t = dist.get_rank(group), dist.get_world_size(group)
+    out = {}
+    for name, fn in (("copy", copy_to_tensor), ("reduce", reduce_from_tensor)):
+        gen = torch.Generator().manual_seed(job["seed"] + r)
+        x = torch.randn(3, 4, generator=gen).requires_grad_()
+        w = torch.randn(3, 4, generator=gen)
+        y = fn(x, group)
+        (y * w).sum().backward()
+        out[name] = {"x": x.detach(), "w": w, "y": y.detach(),
+                     "grad": x.grad}
+    gen = torch.Generator().manual_seed(job["seed"])
+    whole = Linear(8, 6, compute_dtype=torch.float32)
+    with torch.no_grad():
+        whole.weight.copy_(torch.randn(6, 8, generator=gen))
+        whole.bias.copy_(torch.randn(6, generator=gen))
+    x = torch.randn(2, 8, generator=gen)
+    piece = Linear(8 // t, 6, compute_dtype=torch.float32)
+    with torch.no_grad():
+        piece.weight.copy_(TensorSplit(1).local(whole.weight, r, t))
+        piece.bias.copy_(whole.bias)
+    cols = TensorSplit(1).local(x, r, t)
+    out["row_parallel"] = {"y": row_parallel(piece, cols, group).detach(),
+                           "whole": whole(x).detach()}
+    return out
 
 
 def _split(job, mesh) -> Dict[str, Any]:
@@ -706,7 +845,9 @@ def _rank_main(jobs_file: str) -> int:
                    "moe": _moe, "refuse": _refuse, "attention": _attention,
                    "body": _body, "hop": _hop, "guards": _guards,
                    "pipe_guards": _pipe_guards,
-                   "pipeline": _pipeline, "lm_job": _lm_job}[job["kind"]]
+                   "pipeline": _pipeline, "lm_job": _lm_job,
+                   "tensor_restore": _tensor_restore,
+                   "tensor_collectives": _tensor_collectives}[job["kind"]]
             out = run(job, mesh)
             out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
             torch.save(out, Path(spec["out"]) / f"{job['name']}.rank{rank}.pt")
