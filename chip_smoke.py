@@ -169,22 +169,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
     refuses two ranks on one device); each calls ``gpt`` at GPT-2 small
     widths (b 8 x 1024 global, AdamW, ``data=host``, 3 steps) under a
     strategy of ``MESH_STRATEGIES`` not in ``MESH_LEFT_OUT``: ``devices=2``
-    (rows split, DDP) and ``tensor=2`` (every rank the whole batch, its 6
+    (rows split, DDP), ``tensor=2`` (every rank the whole batch, its 6
     heads and its half of the FFN, the Megatron split; DDP over a batch
-    group of one rank), both the plain path (``MESH_PATHS``, checked),
-    eager over gloo (gloo's functional all-gather of CUDA tensors crashes
-    under torch 2.11, which ``expert``'s DTensor parameters need, and
-    FSDP2 over gloo on CUDA tensors is untried). Each rank's K1, K2 and
-    K3 must launch 36 times, all sm90, at the strategy's local (batch,
-    heads): (4, 12) under data, (8, 6) under tensor; the loss kernels 3
-    times each and the LayerNorm kernels 75 times each way (72 folded), as
-    one card's; counts set to 0 just before the job and read just after;
-    both
+    group of one rank) and, with ``moe_every=2 num_experts=8``,
+    ``expert=2`` (every rank the whole batch, the router and every dense
+    weight whole, its 4 of the 8 experts' ``wi`` and ``wo`` in each MoE
+    block, the experts' outputs gathered over the pair; DDP over a batch
+    group of one rank), all the plain path (``MESH_PATHS``, checked),
+    eager over gloo with plain ``torch.distributed`` calls (FSDP2 over
+    gloo on CUDA tensors is untried). Each rank's K1, K2 and K3 must
+    launch 36 times, all sm90, at the strategy's local (batch, heads): (4,
+    12) under data, (8, 6) under tensor, (8, 12) under expert; the loss
+    kernels 3 times each and the LayerNorm kernels 75 times each way (72
+    folded), as one card's; counts set to 0 just before the job and read
+    just after; both
     ranks report the same losses; against a one-rank run of the same
-    batches (a process of its own) the per-step loss gap stays within
-    ``MESH_LOSS_BOUND`` and the update distance (the parameters' change
-    over the run, gathered whole) within ``MESH_UPDATE_BOUND``, and a
-    one-rank run at lr 0 must fall outside both; K1-K3 are timed at the
+    batches and model (a process of its own) the per-step loss gap stays
+    within ``MESH_LOSS_BOUND`` and the update distance (the parameters'
+    change over the run, gathered whole) within ``MESH_UPDATE_BOUND``, and
+    a one-rank run at lr 0 (dense, and with the MoE blocks) must fall
+    outside both; K1-K3 are timed at the
     local shape; the step ms is printed as two ranks time-sharing the
     card, not as scaling. ``hack/torch_mesh_cards.py`` runs the same ranks
     and checks over NCCL, one rank a card.
@@ -2686,29 +2690,24 @@ MESH_STRATEGIES = {
     "tensor": ({"tensor": "2"}, (8, 6)),
     "expert": ({**MOE_PARAMS, "expert": "2"}, (8, 12)),
 }
-# Strategies this phase leaves out, and the collective that keeps them out:
-# under torch 2.11 (the card's), gloo's functional all-gather of CUDA
-# tensors (_c10d_functional.all_gather_into_tensor, then wait_tensor, as
-# DTensor's Shard -> Replicate redistribution issues it) ends the process
-# with SIGSEGV; the plain dist.all_gather_into_tensor of the same tensors
-# works. expert keeps DTensor parameters and gathers that way in the
-# backward (the gradient of a Replicate -> Shard slice of the
-# expert-stacked products). data trains under DDP, which needs only
-# all-reduce, and so does tensor on the plain path (DDP over a batch group
-# of one rank, the blocks' partial sums and their inputs' gradients by
-# in-place all-reduces, the parameters' pieces gathered for the update
-# distance by the plain all-gather). fsdp trains under FSDP2, whose
-# all-gathers and reduce-scatters of CUDA tensors over gloo no run has
-# tried (hack/torch_mesh_cards.py runs it over NCCL). The CPU tests train
-# all four in gloo worlds.
+# Strategies this phase leaves out, and why: under torch 2.11 (the
+# card's), gloo's functional all-gather of CUDA tensors
+# (_c10d_functional.all_gather_into_tensor, then wait_tensor, which
+# DTensor's redistributions call) ends the process with SIGSEGV, and the plain
+# dist.all_gather_into_tensor of the same tensors works. data trains under
+# DDP, which needs only all-reduce; tensor and expert train on the plain
+# path too (DDP over a batch group of one rank): tensor's blocks sum their
+# partial products and their inputs' gradients by in-place all-reduces,
+# expert's MoE blocks gather their experts' outputs by the plain
+# all-gather, and the pieces are gathered for the update distance the
+# same way. fsdp trains under FSDP2, whose all-gathers and reduce-scatters
+# of CUDA tensors over gloo no run has tried (hack/torch_mesh_cards.py
+# runs it over NCCL). The CPU tests train all four in gloo worlds.
 MESH_LEFT_OUT = {"fsdp": "FSDP2's collectives of CUDA tensors over gloo "
-                         "(untried; over NCCL on several cards)",
-                 "expert": "DTensor parameters: gloo functional "
-                           "all_gather_into_tensor on CUDA tensors "
-                           "(SIGSEGV, torch 2.11)"}
+                         "(untried; over NCCL on several cards)"}
 # The path each strategy's trainer takes (``trainer_path``)
 MESH_PATHS = {"data": "ddp", "fsdp": "fsdp", "tensor": "ddp",
-              "expert": "dtensor"}
+              "expert": "ddp"}
 # Every check of a mesh run holds it against a one-rank run of the same
 # global batches (the reference), on two readings:
 # - the per-step loss gap. Sound runs differ by bf16 products whose row
@@ -2767,12 +2766,13 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
 
     def whole(t, split=None, name=None):
         """``t`` whole, f32 on the host: a DTensor's full tensor, and a
-        piece of a parameter split over ``tensor`` gathered over its group
-        (a collective: every rank calls it; on the host over gloo)."""
+        piece of a parameter split over ``tensor`` or ``expert`` gathered
+        over its group (a collective: every rank calls it; on the host over
+        gloo)."""
         t = t.detach()
         t = t.full_tensor() if isinstance(t, DTensor) else t
         if split is not None and name in split.splits:
-            on_host = dist.get_backend(split.group) == "gloo"
+            on_host = dist.get_backend(split.group_of(name)) == "gloo"
             t = split.gather(name, t.cpu() if on_host else t)
         return t.to("cpu", torch.float32, copy=True)
 
@@ -2991,13 +2991,22 @@ def frozen_reading(torch, refs: dict, root: str, params: dict = MESH_PARAMS,
     """The reference at lr 0 (parameters that never move) against the
     reference: its readings must fail both bounds."""
     (frozen,) = spawn_ranks(1, {**params, **MESH_FROZEN_PARAMS}, root,
-                            f"frozen_{task}", task=task)
+                            f"frozen_{task}_{kind}", task=task)
     gap, dist = mesh_readings(torch, [frozen], refs[kind])
     if not (gap > MESH_LOSS_BOUND and dist > MESH_UPDATE_BOUND):
         fail(f"a run whose parameters never move reads a loss gap {gap} and "
              f"an update distance {dist}: within the bounds "
              f"{MESH_LOSS_BOUND}, {MESH_UPDATE_BOUND}")
     return {"loss_gap": gap, "update_distance": dist}
+
+
+def frozen_readings(torch, refs: dict, root: str) -> dict:
+    """:func:`frozen_reading` of each reference of :func:`mesh_references`
+    (dense, and with the MoE params), by kind."""
+    return {kind: frozen_reading(
+        torch, refs, root,
+        {**MESH_PARAMS, **(MOE_PARAMS if kind == "moe" else {})}, kind)
+        for kind in refs}
 
 
 def mesh_references(strategies: dict, root: str) -> dict:
@@ -3033,14 +3042,16 @@ def phase_mesh(torch, fa, card):
     results, rows = {}, {}
     try:
         refs = mesh_references(strategies, root)
-        frozen = frozen_reading(torch, refs, root)
-        print(f"mesh: parameters that never move (lr 0) read a loss gap "
-              f"{frozen['loss_gap']:.6f} and an update distance "
-              f"{frozen['update_distance']:.6f} (bounds {MESH_LOSS_BOUND}, "
-              f"{MESH_UPDATE_BOUND})", flush=True)
+        frozen = frozen_readings(torch, refs, root)
+        for kind, reading in frozen.items():
+            print(f"mesh: parameters that never move (lr 0, {kind}) read a "
+                  f"loss gap {reading['loss_gap']:.6f} and an update "
+                  f"distance {reading['update_distance']:.6f} (bounds "
+                  f"{MESH_LOSS_BOUND}, {MESH_UPDATE_BOUND})", flush=True)
         for name, (extra, local) in strategies.items():
             ranks = spawn_ranks(2, {**MESH_PARAMS, **extra}, root, name)
-            ref = refs["moe" if "moe_every" in extra else "dense"]
+            kind = "moe" if "moe_every" in extra else "dense"
+            ref = refs[kind]
             problems, readings = mesh_problems(torch, ranks, ref, local,
                                                MESH_PATHS[name])
             for r, got in enumerate(ranks):  # a plain mesh: the kernels
@@ -3069,7 +3080,7 @@ def phase_mesh(torch, fa, card):
                 "launches": [sum(x["counts"][i] for x in ranks)
                              for i in range(3)],
                 "rows": rows[key], "step_ms": ranks[0]["step_s"] * 1e3,
-                **readings, "frozen": frozen}
+                **readings, "frozen": frozen[kind]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return results
@@ -5173,8 +5184,10 @@ XENT_ROW = (CSRC + "xent.cu",
 XENT_PATHS = (("gpt", "", "gpt"), ("bert", "@bert", "bert"),
               ("moe", "@moe", "gpt"), ("resume", "@resume", "gpt"),
               ("mesh_data", "@mesh_data", "mesh"),
-              # a tensor rank holds every row (b 8 x 1024), the table whole
+              # a tensor or expert rank holds every row (b 8 x 1024), the
+              # table whole
               ("mesh_tensor", "@mesh_tensor", "gpt"),
+              ("mesh_expert", "@mesh_expert", "gpt"),
               # ring gpt's rank holds b 8 x 512 rows (the data mesh's
               # 4096), Ulysses bert's b 8 x 256
               ("seq_ring", "@seq_ring", "mesh"),
@@ -5206,6 +5219,7 @@ LN_PATHS = (("gpt", "", "gpt", True), ("bert", "@bert", "bert", True),
             ("moe_serve", "@moe_serve", "decode", False),
             ("mesh_data", "@mesh_data", "bert", True),
             ("mesh_tensor", "@mesh_tensor", "gpt", True),  # every row
+            ("mesh_expert", "@mesh_expert", "gpt", True),  # every row
             # ring gpt's rank holds b 8 x 512 rows, Ulysses bert's 8 x 256
             ("seq_ring", "@seq_ring", "bert", True),
             ("seq_ulysses", "@seq_ulysses", "pipeline", True),

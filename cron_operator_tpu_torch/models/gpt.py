@@ -125,17 +125,22 @@ class MoEBlock(nn.Module):
     of the batch axes (``parallel.mesh.data_parallel`` sets it, and
     ``seq_mesh`` under a ``seq`` axis): training steps then route among
     every rank's tokens, in the one-device order (row, position) when the
-    positions are split over ``seq``. ``tensor_group`` (a ``tensor`` mesh
-    without ``expert``, on the plain path) splits ``wi`` and ``wo`` on the
-    FFN's width (:meth:`tensor_splits`): the ranks of the group hold the
-    same tokens and route them alike, the router whole, and the experts'
-    outputs are summed over the group. Any mesh with ``expert`` above 1
-    keeps DTensor parameters.
+    positions are split over ``seq``. ``expert_group`` (an ``expert``
+    mesh, on the plain path) splits ``wi`` and ``wo`` on the experts
+    (:meth:`expert_splits`, JAX's ``P('expert')``): the ranks of the group
+    hold the same tokens and route them alike, the router whole, each runs
+    its E/n experts, and their outputs are gathered over the group.
+    ``tensor_group`` (a ``tensor`` mesh, on the plain path) splits them on
+    the FFN's width instead (:meth:`tensor_splits`) when ``expert`` leaves
+    them whole, and the experts' outputs are summed over the group; under
+    ``tensor x expert`` the experts split over ``expert`` alone, at full
+    width, and the block runs whole on each ``tensor`` rank.
     """
 
     token_group = None
     seq_mesh = None
     tensor_group = None
+    expert_group = None
 
     def __init__(self, cfg: GPTConfig, device=None,
                  param_dtype: torch.dtype = torch.float32):
@@ -147,10 +152,20 @@ class MoEBlock(nn.Module):
         self.wi = nn.Parameter(torch.empty(e, d, f, **kw))
         self.wo = nn.Parameter(torch.empty(e, f, d, **kw))
 
+    def expert_splits(self, n: int) -> dict:
+        """``wi [E, d, f]`` and ``wo [E, f, d]`` split on ``E`` over an
+        ``expert`` group of ``n`` ranks (``parallel.mesh.
+        split_over_tensor``); none when ``n`` does not divide ``E``, as
+        JAX's ``expert_stacked`` leaves them whole."""
+        if self.config.num_experts % n:
+            return {}
+        return {"wi": TensorSplit(0), "wo": TensorSplit(0)}
+
     def tensor_splits(self, t: int) -> dict:
         """``wi [E, d, f]`` and ``wo [E, f, d]`` split on ``f`` over a
         ``tensor`` group of ``t`` ranks (``parallel.mesh.
-        split_over_tensor``); none when ``t`` does not divide ``f``."""
+        split_over_tensor``, which skips them when ``expert`` split them);
+        none when ``t`` does not divide ``f``."""
         if self.config.mlp_dim % t:
             return {}
         return {"wi": TensorSplit(2), "wo": TensorSplit(1)}
@@ -177,19 +192,22 @@ class MoEBlock(nn.Module):
         params = {"router": self.router, "wi": self.wi, "wo": self.wo}
         seq = 1 if self.seq_mesh is None else axis_sizes(
             self.seq_mesh)[SEQ_AXIS]
+        experts = _split_group(self.expert_group, self.expert_splits)
+        width = None if experts is not None else _split_group(
+            self.tensor_group, self.tensor_splits)
         y, aux = moe_ffn(params, x.reshape(b * s, d), capacity_factor=cf,
                          compute_dtype=cfg.dtype,
                          group=None if decode else self.token_group,
-                         rows=b, seq_blocks=seq,
-                         tensor_group=_split_group(self.tensor_group,
-                                                   self.tensor_splits))
+                         rows=b, seq_blocks=seq, tensor_group=width,
+                         expert_group=experts)
         return y.reshape(b, s, d).to(cfg.dtype), aux
 
 
 def _split_group(group, rule):
-    """``group`` (a ``tensor`` group, or None) when ``rule`` (a module's
-    ``tensor_splits``) splits parameters over its ranks, else None: a part
-    whose parameters stay whole runs whole on every rank."""
+    """``group`` (a ``tensor`` or ``expert`` group, or None) when ``rule``
+    (a module's ``tensor_splits`` or ``expert_splits``) splits parameters
+    over its ranks, else None: a part whose parameters stay whole runs
+    whole on every rank."""
     if group is None or not rule(dist.get_world_size(group)):
         return None
     return group
@@ -355,8 +373,9 @@ class GPT(nn.Module):
     ids are this rank's block of positions, which take the learned
     positions at its global offset. Its blocks split over ``tensor``
     (``splits_over_tensor``: :class:`DecoderLayer`), so a ``tensor`` mesh
-    trains plain modules; the embeddings, the norms and the tied table
-    stay whole on every rank."""
+    trains plain modules, and its MoE blocks' experts over ``expert``
+    (:meth:`MoEBlock.expert_splits`); the embeddings, the norms and the
+    tied table stay whole on every rank."""
 
     seq_mesh = None
     splits_over_tensor = True

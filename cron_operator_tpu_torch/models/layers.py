@@ -221,8 +221,8 @@ def tied_product(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
     against a table padded with zero rows (:func:`_pad_rows`), Vp =
     :func:`padded_vocab` columns, the padded ones zero. Without autograd
     the padded table comes from ``cache`` (a :class:`PaddedTable`). A
-    DTensor operand (a mesh that places DTensors: ``expert`` or ``pipe``
-    above 1; a ``tensor`` mesh trains the transformers' plain modules,
+    DTensor operand (a mesh that places DTensors: ``pipe`` above 1; an
+    ``expert`` or ``tensor`` mesh trains the transformers' plain modules,
     their table whole on every rank) and the ``meta`` device (the FLOP
     count, which stays at the true vocab) take the product unpadded, Vp =
     V."""
@@ -262,8 +262,8 @@ class LayerNorm(nn.LayerNorm):
     ...)`` does: through :func:`ops.layer_norm.layer_norm` (the kernel pair
     of ``csrc/layer_norm.cu`` on the card, which reads x and writes y in
     their own dtypes; on the CPU the former arithmetic, to the bit). On a
-    DTensor (a mesh that places DTensors: ``expert`` or ``pipe`` above 1)
-    each rank normalises its own rows (``on_own_rows``): no mesh splits
+    DTensor (a mesh that places DTensors: ``pipe`` above 1) each rank
+    normalises its own rows (``on_own_rows``): no mesh splits
     the features. The plain ``tensor`` path keeps the norms whole on every
     rank, their inputs whole once the branches are summed.
 

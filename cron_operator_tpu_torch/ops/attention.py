@@ -33,8 +33,8 @@ rank's block of positions as plain tensors, and the layer passes the mesh
 (its ``seq_mesh``) when ``seq > 1``: :func:`_seq_attention` runs the
 sequence-parallel body on the local blocks (``auto`` and ``ring`` the ring,
 ``ulysses`` Ulysses; ``flash`` and ``xla`` gather the sequence). Over a
-DTensor mesh (``tensor``, ``expert``) q, k and v are DTensors that carry
-their mesh: each rank runs the dispatch on its local block
+DTensor mesh (``pipe``; the tests' placed cases) q, k and v are DTensors
+that carry their mesh: each rank runs the dispatch on its local block
 (:func:`_sharded_attention`, the JAX ``_sharded_flash``), or under ``seq >
 1`` (or an explicit ``ring``/``ulysses``) the sequence-parallel body on its
 block of the sequence. A plain tensor without a mesh gives plain attention

@@ -21,30 +21,35 @@ Axis convention (outer to inner), shared with the JAX package:
 - ``tensor`` tensor parallelism (a weight's output-features dim, heads).
 
 Two paths train over a mesh (:func:`plain_axes` picks one). A mesh whose
-axes above 1 are among ``data``, ``fsdp`` and ``seq``, and ``tensor`` for a
-model that splits its blocks (GPT, BERT and ViT: ``splits_over_tensor``),
-trains plain modules (:func:`data_parallel`). Under ``tensor`` each block
-first keeps its own heads and its slice of the FFN (:func:`split_over_tensor`,
-the Megatron layout: the QKV projection and ``fc_in`` split by output
-features, ``out`` and ``fc_out`` by input features, their partial sums
-reduced over the ``tensor`` group by :func:`reduce_from_tensor` and their
-inputs' gradients by :func:`copy_to_tensor`); every other parameter stays
-whole on every rank of a ``tensor`` group, which holds the same rows. Then
+axes above 1 are among ``data``, ``fsdp``, ``seq`` and ``expert``, and
+``tensor`` for a model that splits its blocks (GPT, BERT and ViT:
+``splits_over_tensor``), trains plain modules (:func:`data_parallel`).
+First each module that names parameters to split keeps this rank's pieces
+(:func:`split_over_tensor`): under ``expert`` an MoE block its E/n
+experts' ``wi`` and ``wo`` (JAX's ``P('expert')`` of the expert-stacked
+leaves; the ranks of an ``expert`` group hold the same rows, and the
+experts' outputs are gathered over the group); under ``tensor`` each
+block its own heads and its slice of the FFN (the Megatron layout: the QKV
+projection and ``fc_in`` split by output features, ``out`` and ``fc_out``
+by input features, their partial sums reduced over the ``tensor`` group by
+:func:`reduce_from_tensor` and their inputs' gradients by
+:func:`copy_to_tensor`); every other parameter stays whole on every rank
+of those groups, which hold the same rows. Then
 ``DistributedDataParallel`` over the batch axes (:func:`batch_group`)
 without ``fsdp``, or FSDP2 ``fully_shard`` per block and on the root with
 it (sharded on ``fsdp``, replicated over ``data`` and ``seq``, at this
-rank's ``tensor`` coordinate), each parameter split on the dim the
-placement rule gives it. Each rank holds its rows of the batch and, under
-``seq``, its block of positions as plain tensors; the modules that see a
-block of positions get the mesh (``seq_mesh``: learned and rotary
-positions at the block's global offset, ring and Ulysses attention on the
-local blocks), the MoE blocks the batch group (``token_group``), the
-blocks the ``tensor`` group (``tensor_group``), and on NCCL the step can
-be captured as a CUDA graph. A mesh with ``expert`` or ``pipe`` above 1,
-or ``tensor`` for a model that does not split (MLP, ResNet), places every
-parameter as a DTensor (:func:`distribute_parameters`) and DTensor's
-propagation places the collectives. The JAX package has one path, GSPMD,
-for every mesh.
+rank's ``expert`` and ``tensor`` coordinates), each parameter split on the
+dim the placement rule gives it. Each rank holds its rows of the batch
+and, under ``seq``, its block of positions as plain tensors; the modules
+that see a block of positions get the mesh (``seq_mesh``: learned and
+rotary positions at the block's global offset, ring and Ulysses attention
+on the local blocks), the MoE blocks the batch group (``token_group``)
+and the ``expert`` group (``expert_group``), the blocks the ``tensor``
+group (``tensor_group``), and on NCCL the step can be captured as a CUDA
+graph. A mesh with ``pipe`` above 1, or ``tensor`` for a model that does
+not split (MLP, ResNet), places every parameter as a DTensor
+(:func:`distribute_parameters`) and DTensor's propagation places the
+collectives. The JAX package has one path, GSPMD, for every mesh.
 
 The plan half (:class:`MeshPlan`, :func:`plan_for_devices`, :func:`replan`,
 :func:`regrow`) is a copy of the JAX package's pure Python: the controller
@@ -74,7 +79,7 @@ from __future__ import annotations
 
 import math
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -645,22 +650,34 @@ def distribute_parameters(model: nn.Module, mesh: Any,
 
 # Axes that a mesh may split above 1 and still train plain modules, and
 # ``tensor`` too for a model that splits its blocks (:func:`plain_axes`).
-PLAIN_AXES: Tuple[str, ...] = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS)
+PLAIN_AXES: Tuple[str, ...] = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS, EXPERT_AXIS)
+# The plain axes whose ranks hold different tokens (rows, or under ``seq``
+# blocks of positions): :func:`batch_group`'s. The ranks of an ``expert``
+# or ``tensor`` group hold the same ones.
+TOKEN_AXES: Tuple[str, ...] = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS)
+# The axes that :func:`split_over_tensor` splits parameters over, in the
+# order it takes them (a parameter split over one is not split over the
+# next), and the module attribute that names each axis's splits.
+SPLIT_RULES: Dict[str, str] = {EXPERT_AXIS: "expert_splits",
+                               TENSOR_AXIS: "tensor_splits"}
 # The attributes through which :func:`data_parallel` hands the modules of a
 # model the mesh: ``token_group`` (the MoE block: the batch group),
-# ``seq_mesh`` (each module that sees a rank's block of positions) and
-# ``tensor_group`` (each module that splits over ``tensor``).
+# ``seq_mesh`` (each module that sees a rank's block of positions),
+# ``tensor_group`` (each module that splits over ``tensor``) and
+# ``expert_group`` (the MoE block, whose experts split over ``expert``).
 MESH_ATTACHMENTS: Tuple[str, ...] = ("token_group", "seq_mesh",
-                                     "tensor_group")
+                                     "tensor_group", "expert_group")
 
 
 def plain_axes(mesh: Any, model: Any = None) -> bool:
     """Whether ``mesh`` trains plain modules (:func:`data_parallel`): every
-    axis above 1 is ``data``, ``fsdp`` or ``seq``, or ``tensor`` for a
+    axis above 1 is ``data``, ``fsdp``, ``seq`` or ``expert`` (a model
+    without MoE blocks keeps every parameter whole on each ``expert``
+    rank, as JAX's ``sharding_for_tree`` does), or ``tensor`` for a
     ``model`` (a module or its class) whose ``splits_over_tensor`` is true
     (GPT, BERT and ViT: :func:`split_over_tensor`). Any other mesh
-    (``expert`` or ``pipe`` above 1, ``tensor`` for MLP and ResNet) keeps
-    DTensor parameters (:func:`distribute_parameters`)."""
+    (``pipe`` above 1, ``tensor`` for MLP and ResNet) keeps DTensor
+    parameters (:func:`distribute_parameters`)."""
     allowed = PLAIN_AXES + ((TENSOR_AXIS,) if getattr(
         model, "splits_over_tensor", False) else ())
     return all(size == 1 or name in allowed
@@ -695,13 +712,17 @@ def batch_group(mesh: Any):
     """The process group of a :func:`plain_axes` mesh over which its
     gradients are averaged (each rank's loss the mean over its own tokens,
     every rank holding as many): the ranks of its batch axes (``data``,
-    ``fsdp``, ``seq``) at this rank's ``tensor`` coordinate, the ranks of
-    a ``tensor`` group holding the same rows. One batch axis above 1 (or
-    none: a group of one rank) gives that axis's group; several give the
-    default group when the mesh is the world and has no ``tensor`` axis
-    above 1, else a group made once for the mesh."""
+    ``fsdp``, ``seq``: :data:`TOKEN_AXES`) at this rank's ``expert`` and
+    ``tensor`` coordinates, the ranks of an ``expert`` or ``tensor`` group
+    holding the same rows. Its ranks are in the mesh's order (data, fsdp,
+    seq), which ``parallel.moe.token_order`` reads. One batch axis above 1
+    (or none: a group of one rank) gives that axis's group; several give
+    the default group when the mesh is the world and has no other axis
+    above 1, else a group made once for the mesh (:func:`_regroup`: under
+    ``expert`` the mesh's order, data, fsdp, expert, seq, puts ``expert``
+    between ``fsdp`` and ``seq``)."""
     sizes = axis_sizes(mesh)
-    batch = [name for name in sizes if name in PLAIN_AXES]
+    batch = [name for name in sizes if name in TOKEN_AXES]
     big = [name for name in batch if sizes[name] > 1]
     if len(big) == 1 or (not big and batch):
         return mesh.get_group((big or batch)[0])
@@ -717,13 +738,16 @@ def batch_group(mesh: Any):
 
 @dataclass(frozen=True)
 class TensorSplit:
-    """How a parameter is split over ``tensor``: its dim ``dim`` is made of
-    ``outer`` blocks (the fused ``qkv`` rows: q, k and v), each cut into as
-    many equal pieces as the ``tensor`` group has ranks, and rank i keeps
-    piece i of every block, in order."""
+    """How a parameter is split over the mesh axis ``axis`` (``tensor`` or
+    ``expert``): its dim ``dim`` is made of ``outer`` blocks (the fused
+    ``qkv`` rows: q, k and v), each cut into as many equal pieces as the
+    axis's group has ranks, and rank i keeps piece i of every block, in
+    order. A module's rule names its splits without the axis;
+    :func:`split_over_tensor` records the axis it ran them over."""
 
     dim: int
     outer: int = 1
+    axis: str = TENSOR_AXIS
 
     def local(self, whole: torch.Tensor, index: int,
               count: int) -> torch.Tensor:
@@ -743,15 +767,23 @@ class TensorSplit:
 
 @dataclass
 class TensorParallel:
-    """A model split over ``tensor`` by :func:`split_over_tensor`: the
-    ``tensor`` group, this rank's index in it and its size, and
-    ``{parameter name: TensorSplit}`` of the parameters it holds in
-    pieces; every other parameter is whole on every rank of the group."""
+    """A model split by :func:`split_over_tensor`: for each split axis
+    above 1 (``tensor``, ``expert``) its group (``groups``), this rank's
+    index in it (``index``) and its size (``size``), and ``{parameter name:
+    TensorSplit}`` of the parameters it holds in pieces, each split naming
+    its axis; every other parameter is whole on every rank of those
+    groups."""
 
-    group: Any
-    index: int
-    size: int
+    groups: Dict[str, Any]
+    index: Dict[str, int]
+    size: Dict[str, int]
     splits: Dict[str, TensorSplit]
+
+    def group_of(self, name: str) -> Any:
+        """The group that parameter ``name`` is split over, or None when
+        it is whole."""
+        split = self.splits.get(name)
+        return None if split is None else self.groups[split.axis]
 
     def take(self, name: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's piece of the whole tensor of parameter ``name`` (or
@@ -759,62 +791,77 @@ class TensorParallel:
         split = self.splits.get(name)
         if split is None:
             return whole
-        return split.local(whole, self.index, self.size)
+        return split.local(whole, self.index[split.axis],
+                           self.size[split.axis])
 
     def gather(self, name: str, piece: torch.Tensor) -> torch.Tensor:
         """The whole tensor of parameter ``name`` from this rank's
-        ``piece``, on every rank (a collective of the group for a split
-        parameter: every rank calls it); a whole parameter's as it is."""
+        ``piece``, on every rank (a collective of the split's group: every
+        rank calls it); a whole parameter's as it is."""
         split = self.splits.get(name)
         if split is None:
             return piece
+        count = self.size[split.axis]
         piece = piece.contiguous()
-        flat = piece.new_empty((self.size * piece.numel(),))
+        flat = piece.new_empty((count * piece.numel(),))
         dist.all_gather_into_tensor(flat, piece.reshape(-1),
-                                    group=self.group)
-        return split.whole(list(flat.view(self.size, *piece.shape)))
+                                    group=self.groups[split.axis])
+        return split.whole(list(flat.view(count, *piece.shape)))
 
     def whole_shape(self, name: str, shape: Sequence[int]) -> Tuple[int, ...]:
         """The whole shape of parameter ``name`` from its piece's."""
         shape = list(shape)
         split = self.splits.get(name)
         if split is not None:
-            shape[split.dim] *= self.size
+            shape[split.dim] *= self.size[split.axis]
         return tuple(shape)
 
 
 def split_over_tensor(model: nn.Module, mesh: Any
                       ) -> Optional[TensorParallel]:
-    """Each module of ``model`` that names parameters to split over a
-    ``tensor`` group of t ranks (``tensor_splits(t)``: ``{name relative to
-    the module: TensorSplit}``) keeps this rank's piece of each, as a new
-    plain parameter, the Megatron layout: a block's QKV projection keeps
-    the rows of its heads and ``fc_in`` its slice of the FFN's outputs
-    (column-parallel), ``out`` and ``fc_out`` the matching input columns
-    (row-parallel: their partial products are summed over the group,
-    :func:`reduce_from_tensor`). Every rank must hold the whole values
-    (the same seed, or the same checkpoint), as for
-    :func:`distribute_parameters`. Returns the record of the split, also
-    left on the model as ``tensor_parallel``; None without a ``tensor``
-    axis above 1."""
-    count = axis_sizes(mesh).get(TENSOR_AXIS, 1)
-    if count == 1:
+    """Each module of ``model`` that names parameters to split over an
+    axis of :data:`SPLIT_RULES` of n ranks (``expert_splits(n)``,
+    ``tensor_splits(n)``: ``{name relative to the module: TensorSplit}``)
+    keeps this rank's piece of each, as a new plain parameter. The axes
+    are taken in that order, and a parameter that ``expert`` split is not
+    split again over ``tensor``: an MoE block's ``wi`` and ``wo`` keep
+    their E/n experts at full width, as JAX places expert-stacked leaves
+    on ``expert`` alone, and split on the FFN's width over ``tensor`` only
+    when ``expert`` leaves them whole. Under ``tensor`` this is the
+    Megatron layout: a block's QKV projection keeps the rows of its heads
+    and ``fc_in`` its slice of the FFN's outputs (column-parallel), ``out``
+    and ``fc_out`` the matching input columns (row-parallel: their partial
+    products are summed over the group, :func:`reduce_from_tensor`). Every
+    rank must hold the whole values (the same seed, or the same
+    checkpoint), as for :func:`distribute_parameters`. Returns the record
+    of the split, also left on the model as ``tensor_parallel``; None
+    without a split axis above 1."""
+    sizes = axis_sizes(mesh)
+    axes = [a for a in SPLIT_RULES if sizes.get(a, 1) > 1]
+    if not axes:
         return None
-    index = mesh.get_local_rank(TENSOR_AXIS)
-    splits: Dict[str, TensorSplit] = {}
-    for prefix, module in model.named_modules():
-        rule = getattr(module, "tensor_splits", None)
-        for name, split in (rule(count) if rule is not None else {}).items():
-            owner, _, leaf = name.rpartition(".")
-            holder = module.get_submodule(owner) if owner else module
-            p = getattr(holder, leaf)
-            holder.register_parameter(leaf, nn.Parameter(
-                split.local(p.detach(), index, count).clone(),
-                requires_grad=p.requires_grad))
-            splits[f"{prefix}.{name}" if prefix else name] = split
-    model.tensor_parallel = TensorParallel(
-        mesh.get_group(TENSOR_AXIS), index, count, splits)
-    return model.tensor_parallel
+    record = TensorParallel(
+        {a: mesh.get_group(a) for a in axes},
+        {a: mesh.get_local_rank(a) for a in axes},
+        {a: sizes[a] for a in axes}, {})
+    for axis in axes:
+        count, index = record.size[axis], record.index[axis]
+        for prefix, module in model.named_modules():
+            rule = getattr(module, SPLIT_RULES[axis], None)
+            for name, split in (rule(count) if rule is not None
+                                else {}).items():
+                full = f"{prefix}.{name}" if prefix else name
+                if full in record.splits:
+                    continue  # split over an earlier axis
+                owner, _, leaf = name.rpartition(".")
+                holder = module.get_submodule(owner) if owner else module
+                p = getattr(holder, leaf)
+                holder.register_parameter(leaf, nn.Parameter(
+                    split.local(p.detach(), index, count).clone(),
+                    requires_grad=p.requires_grad))
+                record.splits[full] = replace(split, axis=axis)
+    model.tensor_parallel = record
+    return record
 
 
 def tensor_parallel(model: nn.Module) -> Optional[TensorParallel]:
@@ -881,7 +928,8 @@ class DataParallel:
     # replicates over ``fsdp``): their gradients are this rank's, and the
     # caller averages them over ``group``.
     replicated: List[nn.Parameter]
-    # The split over ``tensor`` (:func:`split_over_tensor`), or None.
+    # The split over ``expert`` and ``tensor`` (:func:`split_over_tensor`),
+    # or None.
     tensor: Optional[TensorParallel] = None
 
 
@@ -899,27 +947,28 @@ def _blocks(model: nn.Module) -> List[nn.Module]:
 
 def _fsdp_mesh(mesh: Any):
     """The mesh FSDP2 shards over, built from the batch axes alone at this
-    rank's ``tensor`` coordinate: ``fsdp`` alone, or with ``data`` or
-    ``seq`` above 1 a 2-D mesh whose first dim replicates over them (HSDP)
-    and whose second is ``fsdp``. The mesh's order (data, fsdp, seq,
-    tensor) keeps ``data`` and ``seq`` apart, which no slice of it joins,
-    so the grid is regrouped (:func:`_regroup`), and every rank of the
-    world builds its groups."""
+    rank's ``expert`` and ``tensor`` coordinates: ``fsdp`` alone, or with
+    ``data`` or ``seq`` above 1 a 2-D mesh whose first dim replicates over
+    them (HSDP) and whose second is ``fsdp``. The mesh's order (data, fsdp,
+    expert, seq, tensor) keeps ``data`` and ``seq`` apart, which no slice
+    of it joins, so the grid is regrouped (:func:`_regroup`), and every
+    rank of the world builds its groups."""
     sizes = axis_sizes(mesh)
     replicate = [a for a in (DATA_AXIS, SEQ_AXIS) if a in sizes]
     if all(sizes[a] == 1 for a in replicate):
         return mesh[FSDP_AXIS]
     regrouped = _regroup(mesh, {"replicate": replicate,
                                 FSDP_AXIS: [FSDP_AXIS]})
-    if regrouped.ndim == 3:  # a tensor axis above 1 ahead
+    if regrouped.ndim == 3:  # an expert or tensor axis above 1 ahead
         return regrouped["replicate", FSDP_AXIS]
     return regrouped
 
 
 def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
     """``model`` trained over a :func:`plain_axes` mesh, its parameters
-    plain tensors in the model code. First, under a ``tensor`` axis above
-    1, each block keeps its pieces (:func:`split_over_tensor`); then:
+    plain tensors in the model code. First, under an ``expert`` or a
+    ``tensor`` axis above 1, each module keeps its pieces
+    (:func:`split_over_tensor`); then:
 
     - no ``fsdp`` axis: ``DistributedDataParallel`` over :func:`batch_group`
       (the gradients averaged by bucketed all-reduces in the backward, as
@@ -932,27 +981,31 @@ def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
       (:func:`_blocks`) and on the root, over :func:`_fsdp_mesh` (sharded
       on ``fsdp``, replicated over ``data`` and ``seq`` where they are above
       1), each parameter (a ``tensor`` piece: the piece) split on the dim
-      :func:`sharding_for_tree` gives it on ``fsdp``; the parameters it
-      replicates there stay plain (``ignored_params``) and are returned in
-      ``replicated``. The all-gathers stay f32, as the parameters are (no
-      mixed precision).
+      :func:`sharding_for_tree` gives it on ``fsdp``, and an ``expert``
+      piece whole on each ``fsdp`` rank, as JAX gives expert-stacked
+      leaves ``P('expert')`` alone; the parameters it replicates there stay
+      plain (``ignored_params``) and are returned in ``replicated``. The
+      all-gathers stay f32, as the parameters are (no mixed precision).
 
     Every module gets its :data:`MESH_ATTACHMENTS`: ``token_group`` (the
     MoE block) is :func:`batch_group`, so it routes over the batch axes'
     tokens, as the JAX sharded trainer does (:func:`parallel.moe.moe_ffn`);
     ``seq_mesh`` is ``mesh`` under a ``seq`` axis above 1 (else None), for
     the modules that see this rank's block of positions
-    (:func:`local_positions`); ``tensor_group`` is the ``tensor`` axis's
-    group under a split (else None), for the modules that split."""
+    (:func:`local_positions`); ``tensor_group`` and ``expert_group`` are
+    those axes' groups under a split (else None), for the modules that
+    split."""
     from torch.distributed.fsdp import fully_shard
     from torch.nn.parallel import DistributedDataParallel
 
     split = split_over_tensor(model, mesh)
     group = batch_group(mesh)
     sizes = axis_sizes(mesh)
+    groups = {} if split is None else split.groups
     attach = {"token_group": group,
               "seq_mesh": mesh if sizes.get(SEQ_AXIS, 1) > 1 else None,
-              "tensor_group": None if split is None else split.group}
+              "tensor_group": groups.get(TENSOR_AXIS),
+              "expert_group": groups.get(EXPERT_AXIS)}
     for module in model.modules():
         for name, value in attach.items():
             if hasattr(module, name):
@@ -966,10 +1019,12 @@ def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
         return DataParallel(ddp, group, [], split)
     names = list(sizes)
     rule = sharding_for_tree(model, mesh)
+    experts = {n for n, s in (split.splits if split else {}).items()
+               if s.axis == EXPERT_AXIS}
     sharded, replicated = {}, []
     for name, p in model.named_parameters():
         placement = rule[name][names.index(FSDP_AXIS)]
-        if isinstance(placement, Shard):
+        if isinstance(placement, Shard) and name not in experts:
             sharded[p] = placement
         else:
             replicated.append(p)
@@ -1040,7 +1095,9 @@ __all__ = [
     "PIPE_AXIS",
     "PLAIN_AXES",
     "SEQ_AXIS",
+    "SPLIT_RULES",
     "TENSOR_AXIS",
+    "TOKEN_AXES",
     "TensorParallel",
     "TensorSplit",
     "axis_sizes",

@@ -56,7 +56,18 @@ GSPMD. Under a ``tensor`` axis too (``tensor_group``): the group's ranks
 hold the same tokens and route them alike, each keeps ``wi`` and ``wo``
 on its slice of the FFN's width, and the experts' outputs are summed over
 the group before the combine (``parallel.mesh.reduce_from_tensor``), the
-gradient of their input summed over it (``copy_to_tensor``).
+gradient of their input summed over it (``copy_to_tensor``). Under an
+``expert`` axis (``expert_group``), JAX's layout: the batch is not split
+over ``expert``, so the group's ranks hold the same tokens and route them
+alike, the router whole; each keeps its E/n experts' ``wi`` and ``wo``,
+dispatches its tokens into those experts' slots alone, runs its experts,
+and the experts' outputs are gathered over the group before the combine
+(:func:`gather_experts`: the backward keeps this rank's slice unsummed,
+every rank's gradient of the replicated output being whole already). The
+dispatch's input takes ``copy_to_tensor`` over the group, since each rank
+sees the gradient of its own experts' slots alone; the router, the gate
+and the aux loss are whole and alike on every rank, so their gradients
+are whole already and are not summed (a sum would count them n times).
 
 Usage::
 
@@ -341,6 +352,48 @@ class _Combine(torch.autograd.Function):
         return d_out.view(ctx.shape), d_gate.to(ctx.gate_dtype), None, None
 
 
+class _GatherExperts(torch.autograd.Function):
+    """Every rank's experts of ``x`` (``[E/n, ...]``) over ``group``, in
+    rank order, ``[E, ...]``; backward, this rank's slice of the gradient,
+    not summed: every rank of the group holds the same tokens and combines
+    them alike, so its gradient of the gathered output is whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.new_empty((dist.get_world_size(group) * x.shape[0],
+                           *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows = grad.shape[0] // dist.get_world_size(ctx.group)
+        me = dist.get_rank(ctx.group)
+        return grad[me * rows:(me + 1) * rows], None
+
+
+def gather_experts(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`_GatherExperts` over ``group``; ``x`` itself when ``group``
+    is None."""
+    return x if group is None else _GatherExperts.apply(x, group)
+
+
+def _expert_slots(dest: torch.Tensor, src: torch.Tensor, capacity: int,
+                  n_local: int, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``dest``, ``src``) of :func:`slot_indices` cut to this rank's
+    ``n_local`` experts of an ``expert`` group: ``src``'s slots of those
+    experts, and each token's slot among them, or ``n_local * capacity``
+    (the zero row) for a token that another rank's expert holds or that
+    was dropped. Without a group, as they are."""
+    if group is None:
+        return dest, src
+    span = n_local * capacity
+    first = dist.get_rank(group) * span
+    mine = (dest >= first) & (dest < first + span)
+    return torch.where(mine, dest - first, span), src[first:first + span]
+
+
 def moe_ffn(
     params: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -351,6 +404,7 @@ def moe_ffn(
     rows: int = 1,
     seq_blocks: int = 1,
     tensor_group=None,
+    expert_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mixture-of-experts FFN over a flat token batch.
 
@@ -362,7 +416,10 @@ def moe_ffn(
     row-major, of a block of positions when the batch's positions are split
     into ``seq_blocks`` blocks over consecutive ranks (:func:`token_order`).
     With ``tensor_group``, ``wi`` and ``wo`` are this rank's slices of the
-    FFN's width and the experts' outputs are summed over that group.
+    FFN's width and the experts' outputs are summed over that group. With
+    ``expert_group`` (n ranks holding the same tokens), ``wi`` and ``wo``
+    are this rank's E/n experts, in rank order, and the experts' outputs
+    are gathered over that group; E is the router's.
 
     Routing (logits, softmax, aux loss) always runs in f32. Dispatch and
     combine are gathers by token index; the two expert matmuls run in
@@ -371,12 +428,12 @@ def moe_ffn(
     """
     kw = dict(capacity_factor=capacity_factor, compute_dtype=compute_dtype,
               group=group, rows=rows, seq_blocks=seq_blocks,
-              tensor_group=tensor_group)
+              tensor_group=tensor_group, expert_group=expert_group)
     if isinstance(x, DTensor) or any(isinstance(p, DTensor)
                                      for p in params.values()):
         return moe_ffn_reference(params, x, **kw)
     T = x.shape[0]
-    E = params["wi"].shape[0]
+    E, local = params["router"].shape[-1], params["wi"].shape[0]
     ranks = 1 if group is None else dist.get_world_size(group)
     C = _capacity(T * ranks, E, capacity_factor)
     cd = compute_dtype or x.dtype
@@ -390,17 +447,20 @@ def moe_ffn(
         # this rank's tokens are one-device tokens mine[0 .. T - 1]; the
         # slots of other ranks' tokens (and empty ones) read the zero row
         dest, gate = dest.index_select(0, mine), gate.index_select(0, mine)
-        local = torch.full((ranks * T + 1,), T, dtype=torch.long,
+        owner = torch.full((ranks * T + 1,), T, dtype=torch.long,
                            device=x.device)
-        src = local.scatter_(0, mine, torch.arange(T, device=x.device))[src]
+        src = owner.scatter_(0, mine, torch.arange(T, device=x.device))[src]
 
-    expert_in = _Dispatch.apply(copy_to_tensor(x.to(cd), tensor_group), src,
-                                dest, E)  # [E, C, d]
+    to_mine, from_mine = _expert_slots(dest, src, C, local, expert_group)
+    x_in = copy_to_tensor(copy_to_tensor(x.to(cd), tensor_group),
+                          expert_group)
+    expert_in = _Dispatch.apply(x_in, from_mine, to_mine, local)  # [E/n, C, d]
     if ranks > 1:
         expert_in = _SumOver.apply(expert_in, group)
     h = F.gelu(torch.bmm(expert_in, params["wi"].to(cd)), approximate="tanh")
     expert_out = reduce_from_tensor(
-        torch.bmm(h, params["wo"].to(cd)), tensor_group)  # [E, C, d]
+        torch.bmm(h, params["wo"].to(cd)), tensor_group)
+    expert_out = gather_experts(expert_out, expert_group)  # [E, C, d]
     return _Combine.apply(expert_out, gate, src, dest), aux_loss
 
 
@@ -414,15 +474,18 @@ def moe_ffn_reference(
     rows: int = 1,
     seq_blocks: int = 1,
     tensor_group=None,
+    expert_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`moe_ffn` in the reference's dense formulation: dispatch and
     combine are products with the ``[T, E, C]`` one-hots of
-    :func:`router_top1`, cast to ``compute_dtype``. It is the plain version
-    that the index path is held to, and the path of DTensor inputs and
-    parameters (``tensor`` and ``expert`` meshes), whose collectives
+    :func:`router_top1`, cast to ``compute_dtype``; under ``expert_group``
+    the dispatch takes this rank's experts' columns. It is the plain
+    version that the index path is held to, and the path of DTensor
+    inputs and parameters (``pipe`` meshes, ``tensor`` under MLP and
+    ResNet, and the tests' placed ``expert`` cases), whose collectives
     DTensor's propagation over the products places."""
     T = x.shape[0]
-    E = params["wi"].shape[0]
+    E, local = params["router"].shape[-1], params["wi"].shape[0]
     ranks = 1 if group is None else dist.get_world_size(group)
     C = _capacity(T * ranks, E, capacity_factor)
     cd = compute_dtype or x.dtype
@@ -435,19 +498,23 @@ def moe_ffn_reference(
         dispatch = dispatch.index_select(0, mine)
     else:
         combine, dispatch, aux_loss = _route(logits, C)
+    if expert_group is not None:
+        first = dist.get_rank(expert_group) * local
+        dispatch = dispatch[:, first:first + local]
 
     # Matmuls that keep the expert dim leading: einsum's own reshapes would
     # merge a sharded expert dim behind another, which DTensor refuses. With
     # wi/wo on Shard(0) over expert each rank runs its experts' products and
     # the combine is a partial sum over the expert axis.
-    x = copy_to_tensor(x.to(cd), tensor_group)
+    x = copy_to_tensor(copy_to_tensor(x.to(cd), tensor_group), expert_group)
     dispatch, combine = dispatch.to(cd), combine.to(cd)
-    expert_in = torch.matmul(dispatch.permute(1, 2, 0), x)  # [E, C, d]
+    expert_in = torch.matmul(dispatch.permute(1, 2, 0), x)  # [E/n, C, d]
     if ranks > 1:
         expert_in = _SumOver.apply(expert_in, group)
     h = F.gelu(torch.bmm(expert_in, params["wi"].to(cd)), approximate="tanh")
     expert_out = reduce_from_tensor(
-        torch.bmm(h, params["wo"].to(cd)), tensor_group)  # [E, C, d]
+        torch.bmm(h, params["wo"].to(cd)), tensor_group)
+    expert_out = gather_experts(expert_out, expert_group)  # [E, C, d]
     y = torch.matmul(combine.reshape(T, E * C), expert_out.reshape(E * C, -1))
     return y, aux_loss
 
@@ -459,6 +526,6 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     return _GatherRows.apply(x, group)
 
 
-__all__ = ["gather_rows", "init_moe_params", "moe_ffn", "moe_ffn_reference",
-           "moe_param_sharding", "router_top1", "router_top1_indices",
-           "slot_indices", "token_order"]
+__all__ = ["gather_experts", "gather_rows", "init_moe_params", "moe_ffn",
+           "moe_ffn_reference", "moe_param_sharding", "router_top1",
+           "router_top1_indices", "slot_indices", "token_order"]

@@ -15,8 +15,9 @@ Over a device mesh every rank gathers the state whole and rank 0 alone
 writes it (the trainer's choice; the store is the same), so a checkpoint
 is the one-device state whatever world size saved it, and
 :meth:`CheckpointStore.restore_resharded` places it onto any mesh: a
-tensor that the live model holds in pieces over ``tensor`` (a
-:class:`Piece` in ``like``) is cut to this rank's piece first.
+tensor that the live model holds in pieces over ``tensor`` or ``expert``
+(a :class:`Piece` in ``like``) is cut to this rank's piece first, so a
+step saved under ``data 2 x expert 2`` restores on one rank and back.
 
 Format: the port's own, not Orbax. A step is a directory written under a
 temporary name and committed by ``os.replace``, so a listed step was
@@ -66,9 +67,9 @@ def job_family(name: str) -> str:
 @dataclass(frozen=True)
 class Piece:
     """A ``like`` entry for a tensor that the live model holds in pieces
-    (a parameter split over ``tensor``, or state shaped like it): the
-    payload holds it whole, of ``shape``; ``take`` cuts the whole tensor to
-    this rank's piece, which is then placed as ``like``."""
+    (a parameter split over ``tensor`` or ``expert``, or state shaped like
+    it): the payload holds it whole, of ``shape``; ``take`` cuts the whole
+    tensor to this rank's piece, which is then placed as ``like``."""
 
     like: torch.Tensor
     shape: Tuple[int, ...]
@@ -269,7 +270,8 @@ class CheckpointStore:
         keyed by name, whatever world size saved it, and each tensor that
         ``like`` declares is placed as ``like``'s is (:func:`place_like`):
         a DTensor's shards onto its mesh, a plain tensor onto its device, a
-        :class:`Piece` this rank's piece of a ``tensor`` split.
+        :class:`Piece` this rank's piece of a ``tensor`` or ``expert``
+        split.
         The JAX package's Tenplex plan, restricted to this format."""
         return place_like(self.restore(step, like), like)
 

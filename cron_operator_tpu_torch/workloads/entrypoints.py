@@ -246,14 +246,16 @@ def lm_loss(mesh=None, fused_xent: bool = False):
     - ``fused_xent``: :func:`ops.xent.chunked_cross_entropy` of the final
       hidden states against the tied table, no logits built.
     - Otherwise, without a mesh or over a mesh of ``data``, ``fsdp``,
-      ``seq`` and ``tensor`` axes (``plain_axes`` for the LM models, whose
-      blocks split over ``tensor``: DDP or FSDP2 on plain modules, each
-      rank's loss over its own rows and block of positions, whole on every
-      rank of a ``tensor`` group): :func:`ops.xent.tied_cross_entropy`,
-      the padded bf16 product and the loss kernels of
-      ``ops/csrc/xent.cu`` on the card.
-    - A mesh that places DTensors (``expert`` or ``pipe`` above 1): the
-      model's f32 logits and ``cross_entropy_loss``, the former path."""
+      ``seq``, ``expert`` and ``tensor`` axes (``plain_axes`` for the LM
+      models, whose blocks split over ``tensor``: DDP or FSDP2 on plain
+      modules, each rank's loss over its own rows and block of positions,
+      whole on every rank of a ``tensor`` or ``expert`` group):
+      :func:`ops.xent.tied_cross_entropy`, the padded bf16 product and the
+      loss kernels of ``ops/csrc/xent.cu`` on the card.
+    - A mesh that places DTensors (``pipe`` above 1, which the jobs
+      refuse; ``tensor`` places them only for MLP and ResNet, which take
+      no LM loss): the model's f32 logits and ``cross_entropy_loss``, the
+      former path."""
     if fused_xent:
         return True, _chunked_loss
     if mesh is not None and not plain_axes(mesh, GPT):  # BERT splits alike
@@ -557,9 +559,8 @@ def bert(ctx) -> None:
     kv_heads(=0: MHA), rope(=0|1). AdamW at lr 1e-3; targets are the inputs
     (``token_batches``). The loss is :func:`lm_loss`'s: the padded product's
     softmax cross-entropy through the loss kernels (a ``seq`` mesh too, on
-    each rank's block of positions, and a ``tensor`` mesh, whole on each
-    rank), or ``cross_entropy_loss`` of the f32 logits over a mesh that
-    places DTensors (``expert``).
+    each rank's block of positions, and a ``tensor`` or ``expert`` mesh,
+    whole on each rank).
     """
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 8))
@@ -592,9 +593,8 @@ def gpt(ctx) -> None:
     num_experts(=8), remat(=0),
     fused_xent(=0: the loss is :func:`ops.xent.tied_cross_entropy`, the
     whole padded bf16 logits through the loss kernels, a ``seq`` mesh's on
-    each rank's block of positions, a ``tensor`` mesh's whole on each
-    rank, or over a mesh that places DTensors (``expert``)
-    ``cross_entropy_loss`` of the f32 logits;
+    each rank's block of positions, a ``tensor`` or ``expert`` mesh's
+    whole on each rank;
     when 1 it is :func:`ops.xent.chunked_cross_entropy` against the tied
     embedding and the ``[b, s, vocab]`` logits are never built;
     :func:`lm_loss`),

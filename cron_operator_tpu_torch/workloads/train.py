@@ -11,29 +11,31 @@ Under a mesh each rank draws or receives the same global batch and keeps
 its part (:func:`workloads.data.local_rows`: the rows split over ``data``
 then ``fsdp``, and with ``TrainConfig.seq_dim_in_batch`` that dim's block
 over ``seq``, for ``y`` too under ``labels_follow_seq``), so a sharded run
-sees exactly the one-process batch; the ranks of a ``tensor`` group hold
-the same part. The reported loss and the clip norm are global. Two paths
-(:func:`parallel.mesh.plain_axes`):
+sees exactly the one-process batch; the ranks of a ``tensor`` or an
+``expert`` group hold the same part. The reported loss and the clip norm
+are global. Two paths (:func:`parallel.mesh.plain_axes`):
 
-- a mesh whose axes above 1 are among ``data``, ``fsdp`` and ``seq``, and
-  ``tensor`` for a model that splits its blocks (GPT, BERT, ViT), trains
-  the plain module under ``DistributedDataParallel`` or FSDP2 over the
-  batch axes (:func:`parallel.mesh.data_parallel`, which first splits the
-  blocks' heads and FFN over ``tensor`` and hands the modules their
+- a mesh whose axes above 1 are among ``data``, ``fsdp``, ``seq`` and
+  ``expert``, and ``tensor`` for a model that splits its blocks (GPT,
+  BERT, ViT), trains the plain module under ``DistributedDataParallel``
+  or FSDP2 over the batch axes (:func:`parallel.mesh.data_parallel`,
+  which first splits the MoE blocks' experts over ``expert`` and the
+  blocks' heads and FFN over ``tensor``, and hands the modules their
   groups and the mesh): the batch is each rank's part as plain tensors,
   the loss an all-reduce of the ranks' means over the batch group on the
   device (every rank holds as many tokens), and the parameters that FSDP2
   leaves whole have their gradients averaged here; the parameters that
-  stay whole across ``tensor`` get equal gradients on every rank of its
-  group by construction, and the clip sums the squares of the split ones
-  over the group. It runs as on one card: staging, a
+  stay whole across ``tensor`` and ``expert`` get equal gradients on
+  every rank of those groups by construction, and the clip sums the
+  squares of the split ones over the group of their split. It runs as on
+  one card: staging, a
   fused ``capturable`` optimizer with a device learning rate, and on an
   NCCL group the step captured as a CUDA graph with the collectives inside
-  it (the ring's hops and Ulysses' all-to-alls too), after
-  ``MESH_GRAPH_WARMUP`` eager steps. A gloo collective cannot be captured,
-  so a gloo group runs its steps eagerly.
-- a mesh with ``expert`` or ``pipe`` above 1 (or ``tensor`` for MLP and
-  ResNet) places the parameters and the whole optimizer state as DTensors
+  it (the ring's hops, Ulysses' all-to-alls and the experts' all-gathers
+  too), after ``MESH_GRAPH_WARMUP`` eager steps. A gloo collective cannot
+  be captured, so a gloo group runs its steps eagerly.
+- a mesh with ``pipe`` above 1 (or ``tensor`` for MLP and ResNet) places
+  the parameters and the whole optimizer state as DTensors
   (:func:`parallel.mesh.sharding_for_tree`), and each rank's batch as a
   DTensor laid out as above; DTensor's propagation places the collectives
   (attention runs on local blocks, see :mod:`ops.attention`). It runs its
@@ -41,9 +43,10 @@ the same part. The reported loss and the clip norm are global. Two paths
   without ``capturable``, its learning rate a float.
 
 A save gathers every tensor
-whole on every rank (the ``tensor`` pieces over its group) and rank 0 alone
-writes it; a restore places each tensor of the (full-tensor) checkpoint as
-the live one is placed, a ``tensor`` piece cut from it first, so a
+whole on every rank (the ``tensor`` and ``expert`` pieces over their
+groups) and rank 0 alone writes it; a restore places each tensor of the
+(full-tensor) checkpoint as the live one is placed, a piece cut from it
+first, so a
 checkpoint saved at one world size or mesh resumes at another
 (:meth:`workloads.checkpoint.CheckpointStore.restore_resharded`). Every
 rank reads the store itself, so the ranks must share it: the constructor
@@ -345,25 +348,28 @@ def _as_one_device(model: nn.Module):
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
-                          pieces: Optional[List[bool]] = None,
-                          group=None) -> None:
+                          groups: Optional[List[Any]] = None) -> None:
     """``optax.clip_by_global_norm`` in place: when the global norm reaches
     ``max_norm``, every gradient is scaled by ``max_norm / norm``. No
     epsilon is added to the norm (``clip_grad_norm_`` adds 1e-6), and the
     decision stays on the device. A sharded gradient's norm is reduced over
-    its shards, so the norm is the global one on every rank. With
-    ``group`` (a ``tensor`` group), the gradients that ``pieces`` flags are
-    this rank's pieces of split parameters: their squares are summed over
-    the group, and the others, whole on every rank, count once."""
+    its shards, so the norm is the global one on every rank. ``groups``
+    (one entry a gradient) names the group (``tensor`` or ``expert``) whose
+    ranks hold the pieces of a split parameter's gradient: the squares of
+    each group's pieces are summed over it, and a gradient whose entry is
+    None, whole on every rank of those groups, counts once."""
     norms = [_whole(torch.linalg.vector_norm(g.float())) for g in grads]
-    if group is None:
+    if groups is None:
         norm = torch.linalg.vector_norm(torch.stack(norms))
     else:
-        whole, split = (sum((n.square() for n, p in zip(norms, pieces)
-                             if p == want), norms[0].new_zeros(()))
-                        for want in (False, True))
-        dist.all_reduce(split, group=group)
-        norm = torch.sqrt(whole + split)
+        squares: Dict[Any, torch.Tensor] = {}  # by group, first seen first
+        for n, group in zip(norms, groups):
+            squares[group] = squares.get(group, n.new_zeros(())) + n.square()
+        total = squares.pop(None, norms[0].new_zeros(()))
+        for group, split in squares.items():
+            dist.all_reduce(split, group=group)
+            total = total + split
+        norm = torch.sqrt(total)
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     for g in grads:
@@ -426,8 +432,9 @@ class Trainer:
     steps (see the module docstring).
 
     ``mesh`` (a ``DeviceMesh``) wraps the model here
-    (:func:`parallel.mesh.data_parallel`: the plain path, which a
-    ``tensor`` mesh takes for GPT, BERT and ViT) or places its parameters
+    (:func:`parallel.mesh.data_parallel`: the plain path, which an
+    ``expert`` mesh takes for every model and a ``tensor`` mesh for GPT,
+    BERT and ViT) or places its parameters
     (:func:`parallel.mesh.distribute_parameters`), and trains over it (see
     the module docstring); None trains on one device. ``self.model`` stays
     the model itself, whose state dict, gathered whole, a checkpoint
@@ -449,7 +456,8 @@ class Trainer:
         self.device = next(model.parameters()).device
         # The plain data-parallel path: what a step calls, the batch axes'
         # group, the parameters whose gradients are averaged here, and the
-        # split over tensor (parallel.mesh.TensorParallel, or None).
+        # split over expert and tensor (parallel.mesh.TensorParallel, or
+        # None).
         self._plain = mesh is not None and plain_axes(mesh, model)
         self._forward: nn.Module = model
         self._group = None
@@ -548,8 +556,9 @@ class Trainer:
         memory in the current stream's order, after every step enqueued so
         far, and the copies are waited for here, so that the next step
         cannot overwrite them. Under a mesh every rank gathers each tensor
-        whole (a collective: every rank calls this), a ``tensor`` piece
-        over its group, and the state is the one-device state."""
+        whole (a collective: every rank calls this), a ``tensor`` or
+        ``expert`` piece over its group, and the state is the one-device
+        state."""
         opt = self.optimizer.state_dict()
         opt["param_groups"] = [
             {**g, "lr": float(g["lr"])} for g in opt["param_groups"]]
@@ -618,14 +627,14 @@ class Trainer:
 
     def _whole_shape(self, name: str, t: torch.Tensor) -> tuple:
         """The whole shape of parameter ``name`` (or state shaped like
-        it), held as ``t``: a ``tensor`` piece's whole."""
+        it), held as ``t``: a ``tensor`` or ``expert`` piece's whole."""
         if self._tensor is None:
             return tuple(t.shape)
         return self._tensor.whole_shape(name, t.shape)
 
     def _like(self, name: str, t: torch.Tensor) -> Any:
         """The ``like`` of parameter ``name`` (or state shaped like it),
-        held as ``t``: ``t``, or for a ``tensor`` piece a
+        held as ``t``: ``t``, or for a ``tensor`` or ``expert`` piece a
         :class:`workloads.checkpoint.Piece` that cuts it from the whole."""
         if self._tensor is None or name not in self._tensor.splits:
             return t
@@ -638,8 +647,8 @@ class Trainer:
 
     def _gathered(self, name: str, t: Any) -> Any:
         """``t`` (parameter ``name``, or state shaped like it) whole over
-        ``tensor`` when it is a piece (a collective of the group), else as
-        it is."""
+        its split's group (``tensor`` or ``expert``) when it is a piece (a
+        collective of the group), else as it is."""
         if (self._tensor is None or name not in self._tensor.splits
                 or not torch.is_tensor(t) or t.shape
                 != self.model.get_parameter(name).shape):
@@ -665,8 +674,8 @@ class Trainer:
         matmuls, is. On the plain meshed path the model is counted as one
         device runs it (no hooks, no mesh attachments), at the global
         batch's shapes (:meth:`_global_shape`), with every parameter whole
-        (a ``tensor`` piece at its whole shape), as the JAX package counts
-        its program."""
+        (a ``tensor`` or ``expert`` piece at its whole shape), as the JAX
+        package counts its program."""
         if self._flops_counted or self._batch_struct is None:
             return self._flops_per_step
         self._flops_counted = True
@@ -824,9 +833,8 @@ class Trainer:
             split = self._tensor
             clip_by_global_norm_(
                 [g for _, g in named], self.config.grad_clip_norm,
-                pieces=[split is not None and n in split.splits
-                        for n, _ in named],
-                group=None if split is None else split.group)
+                None if split is None else [split.group_of(n)
+                                            for n, _ in named])
         if not self._plain:
             self.optimizer.step()
             return _whole(loss.detach())

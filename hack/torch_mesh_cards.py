@@ -10,12 +10,13 @@ Run from the root of a checkout::
 NCCL process group and each call the port's ``gpt`` entrypoint on
 ``chip_smoke.MESH_PARAMS`` (GPT-2 small widths, b 8 x 1024 global, bf16
 over f32 parameters, AdamW, ``data=host``, ``steps_per_call=1``, 3 steps)
-under each strategy of ``STRATEGIES[N]``. ``data``, ``fsdp`` and
-``tensor`` meshes train plain modules (DDP, FSDP2; under ``tensor`` each
-rank keeps its heads and its half of the FFN, the Megatron split), the
-``expert`` ones DTensor parameters. The ranks, the one-rank references,
-the frozen reading and every check are ``chip_smoke.py``'s mesh phase's
-(``spawn_ranks``, ``mesh_references``, ``frozen_reading``,
+under each strategy of ``STRATEGIES[N]``. Every mesh trains plain modules
+(DDP, FSDP2; under ``tensor`` each rank keeps its heads and its half of
+the FFN, the Megatron split; under ``expert`` each rank keeps its 4 of the
+MoE blocks' 8 experts, the ranks of an ``expert`` group holding the same
+rows and gathering the experts' outputs). The ranks, the one-rank
+references, the frozen readings and every check are ``chip_smoke.py``'s
+mesh phase's (``spawn_ranks``, ``mesh_references``, ``frozen_readings``,
 ``mesh_problems``): every rank takes the strategy's path, launches K1, K2
 and K3 36 times, all sm90, at the strategy's local (batch, heads),
 reports the same losses, and holds the loss gap and the update distance
@@ -35,10 +36,11 @@ On four cards it then runs, from ``chip_smoke.py``'s phases 16 and 18:
 - ``PIPE_STAGES``: ``spmd_pipeline`` of 2 and of 4 GPT-2-small layers over
   as many ranks, held by ``pipeline_problems`` (``PIPE_REL_BOUND``);
 - ``GRAPH_LEGS``: ``data`` 4, ``fsdp`` 4, ring ``seq`` 4, ring ``fsdp``
-  2 x ``seq`` 2, ``fsdp`` 2 x ``tensor`` 2 and ``data`` 2 x ``tensor`` 2
-  at ``GRAPH_MESH_PARAMS`` (24 steps in calls of 8: captured over NCCL
-  after ``MESH_GRAPH_WARMUP`` eager steps, the ring's hops, the ``tensor``
-  blocks' all-reduces and the other collectives inside the graph,
+  2 x ``seq`` 2, ``fsdp`` 2 x ``tensor`` 2, ``data`` 2 x ``tensor`` 2 and
+  the MoE GPT under ``data`` 2 x ``expert`` 2 at ``GRAPH_MESH_PARAMS`` (24
+  steps in calls of 8: captured over NCCL after ``MESH_GRAPH_WARMUP``
+  eager steps, the ring's hops, the ``tensor`` blocks' all-reduces, the
+  experts' all-gathers and the other collectives inside the graph,
   replayed) against the same job in
   calls of one step: the losses and every parameter the same bits on every
   rank, K1-K3 by ``seq_launches``, the replayed call's step ms and the
@@ -70,11 +72,13 @@ STRATEGIES = {
         "fsdp4": ({"fsdp": "4"}, (2, 12), "fsdp"),
         "fsdp2_tensor2": ({"fsdp": "2", "tensor": "2"}, (4, 6), "fsdp"),
         "data2_tensor2": ({"tensor": "2"}, (4, 6), "ddp"),
-        "data2_expert2": ({**MOE, "expert": "2"}, (4, 12), "dtensor")},
+        "data2_expert2": ({**MOE, "expert": "2"}, (4, 12), "ddp"),
+        "fsdp2_expert2": ({**MOE, "fsdp": "2", "expert": "2"}, (4, 12),
+                          "fsdp")},
     2: {"data2": ({"devices": "2"}, (4, 12), "ddp"),
         "fsdp2": ({"fsdp": "2"}, (4, 12), "fsdp"),
         "tensor2": ({"tensor": "2"}, (8, 6), "ddp"),
-        "expert2": ({**MOE, "expert": "2"}, (8, 12), "dtensor")},
+        "expert2": ({**MOE, "expert": "2"}, (8, 12), "ddp")},
 }
 # name: (ranks, job, params over MESH_PARAMS); the reference is one rank's
 # run of the job at attention=flash (K1-K3 over the whole sequence, the
@@ -97,7 +101,9 @@ GRAPH_LEGS = {"data4_graph": ({"devices": "4"}, (2, 12)),
                                     "fsdp": "2"}, (4, 12)),
               # the Megatron blocks, the batch over fsdp or data
               "fsdp2_tensor2_graph": ({"fsdp": "2", "tensor": "2"}, (4, 6)),
-              "data2_tensor2_graph": ({"tensor": "2"}, (4, 6))}
+              "data2_tensor2_graph": ({"tensor": "2"}, (4, 6)),
+              # the MoE GPT's experts over expert, the batch over data
+              "data2_expert2_graph": ({**MOE, "expert": "2"}, (4, 12))}
 LEG_TIMEOUT_S = 240  # a rank of a leg that runs longer fails the leg
 
 
@@ -244,10 +250,10 @@ def main(argv) -> int:
                               "step_ms": ref["step_s"] * 1e3,
                               "tokens_per_s": ref["tokens_per_s"]}),
                   flush=True)
-        if refs:
-            print(json.dumps({"run": "one rank at lr 0 (frozen)",
-                              **smoke.frozen_reading(torch, refs, root)}),
-                  flush=True)
+        for kind, frozen in smoke.frozen_readings(torch, refs,
+                                                  root).items():
+            print(json.dumps({"run": f"one rank at lr 0 ({kind}, frozen)",
+                              **frozen}), flush=True)
 
         def strategy(name, extra, local, path):
             ranks = smoke.spawn_ranks(

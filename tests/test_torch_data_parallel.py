@@ -8,9 +8,11 @@ above 1). Worlds of 2 and 4 rank processes (``tests/torch_mesh_ranks.py``)
 are spawned together, once for the module, and the test process runs the
 one-process port and the JAX package beside them.
 
-- The rule: ``data``, ``fsdp``, ``seq`` and their products take the plain
-  path (the ``seq`` runs are in ``test_torch_seq_plain.py``); a mesh with
-  ``tensor``, ``expert`` or ``pipe`` above 1 keeps DTensor parameters.
+- The rule: ``data``, ``fsdp``, ``seq``, ``expert`` and their products
+  take the plain path (the ``seq`` runs are in ``test_torch_seq_plain.py``,
+  the ``expert`` ones in ``test_torch_expert_plain.py``); a mesh with
+  ``tensor`` (for no model that splits its blocks) or ``pipe`` above 1
+  keeps DTensor parameters.
 - Tiny GPT (f32, 2 layers, 4 heads, seq 32, batch 4 of the numpy
   ``causal_token_batches``, AdamW, converted JAX weights) under ``data 2``,
   ``fsdp 2`` and ``data 2 x fsdp 2``, and with Switch-MoE blocks (every
@@ -84,7 +86,7 @@ MOE_FFN = {"seed": 3, "d": 16, "f": 32, "experts": 4, "tokens": 64,
     ({"data": 2, "fsdp": 2}, True),
     ({"data": 1}, True),
     ({"data": 2, "tensor": 2}, False),
-    ({"data": 2, "expert": 2}, False),
+    ({"data": 2, "expert": 2}, True),
     ({"data": 2, "seq": 2}, True),
     ({"data": 1, "fsdp": 2, "seq": 2}, True),
     ({"data": 1, "seq": 2, "tensor": 2}, False),

@@ -17,12 +17,14 @@ one-process port and the JAX package beside them.
   devices within 5e-5 (the bound of the one-device comparison in
   ``test_torch_train.py``), and the gradients ``jax.grad``'s within rtol
   1e-4.
-- Placements: every parameter lies as ``parallel.mesh.sharding_for_tree``
-  says, the expert-stacked MoE weights on ``Shard(0)`` over ``expert``;
-  under ``tensor 2`` the model trains plain modules (DDP), each rank
-  holding its heads' rows of ``qkv`` and its slice of ``fc_in`` and the
-  matching input columns of ``out`` and ``fc_out``, every other parameter
-  whole (``tests/test_torch_tensor_plain.py`` takes that path further).
+- Placements: under data 2 x fsdp 2 every parameter lies as
+  ``parallel.mesh.sharding_for_tree`` says; under ``tensor 2`` and
+  ``expert 2`` the model trains plain modules (DDP), under ``tensor`` each
+  rank holding its heads' rows of ``qkv`` and its slice of ``fc_in`` and
+  the matching input columns of ``out`` and ``fc_out``, under ``expert``
+  its 2 of the 4 experts' ``wi`` and ``wo``, every other parameter whole
+  (``tests/test_torch_tensor_plain.py`` and
+  ``tests/test_torch_expert_plain.py`` take those paths further).
 The elastic chain (checkpoints across world sizes) is in
 ``test_torch_mesh.py``.
 """
@@ -176,10 +178,14 @@ def test_sharded_training_matches_the_jax_trainer(worlds, run):
         _close(got["grads"][name], g, rtol=1e-4)
 
 
-# Under tensor 2 the transformer's blocks keep their pieces: the dim of
-# each split parameter (its name's last two components) that holds half
-TENSOR_SPLIT_DIMS = {"qkv.weight": 0, "qkv.bias": 0, "out.weight": 1,
-                     "fc_in.weight": 0, "fc_in.bias": 0, "fc_out.weight": 1}
+# Under tensor 2 the transformer's blocks keep their pieces, under expert 2
+# the MoE blocks their experts: the dim of each split parameter (its name's
+# last two components) that holds half
+SPLIT_DIMS = {
+    "tensor": {"qkv.weight": 0, "qkv.bias": 0, "out.weight": 1,
+               "fc_in.weight": 0, "fc_in.bias": 0, "fc_out.weight": 1},
+    "expert": {"moe.wi": 0, "moe.wo": 0},
+}
 
 
 @pytest.mark.parametrize("run", sorted(RUNS))
@@ -188,13 +194,13 @@ def test_parameters_lie_as_the_rule_places_them(worlds, run):
     got = worlds[run][0]
     assert got["mesh"] == plan_for_devices(world, **axes).axis_sizes
     model = GPT(_port_config(over))
-    if run == "tensor":  # the plain path: plain pieces under DDP
+    if run in SPLIT_DIMS:  # the plain path: plain pieces under DDP
         assert [r["path"] for r in worlds[run]] == ["ddp"] * world
         for rank in worlds[run]:
             assert all(p == ["R", "R"] for p in rank["placements"].values())
             for name, p in model.named_parameters():
                 shape = list(p.shape)
-                dim = TENSOR_SPLIT_DIMS.get(".".join(name.split(".")[-2:]))
+                dim = SPLIT_DIMS[run].get(".".join(name.split(".")[-2:]))
                 if dim is not None:
                     shape[dim] //= 2
                 assert rank["shapes"][name] == tuple(shape), name
@@ -202,6 +208,3 @@ def test_parameters_lie_as_the_rule_places_them(worlds, run):
     want = sharding_for_tree(model, plan_for_devices(world, **axes))
     assert got["placements"] == {n: [str(p) for p in pl]
                                  for n, pl in want.items()}
-    if run == "expert":
-        moe = got["placements"]["layers.1.moe.wi"]
-        assert moe == ["R", "S(0)"]  # replicated over data, split by expert

@@ -516,7 +516,7 @@ def test_batch_groups_hold_the_batch_axes_at_a_tensor_coordinate(name):
     (GPT, {"data": 1, "seq": 2, "tensor": 2}, True),
     (MLP, {"data": 1, "tensor": 2}, False),
     (ResNet, {"data": 2, "tensor": 2}, False),
-    (GPT, {"data": 1, "expert": 2, "tensor": 2}, False),
+    (GPT, {"data": 1, "expert": 2, "tensor": 2}, True),
     (GPT, {"pipe": 2, "data": 1, "tensor": 2}, False),
     (None, {"data": 1, "tensor": 2}, False),
     (MLP, {"data": 2, "fsdp": 2}, True),
@@ -524,9 +524,9 @@ def test_batch_groups_hold_the_batch_axes_at_a_tensor_coordinate(name):
         "gpt_expert", "gpt_pipe", "no_model", "mlp_batch_axes"])
 def test_the_rule_takes_tensor_for_models_that_split(model, axes, plain):
     """The model decides, by rule at construction: GPT, BERT and ViT take
-    ``tensor`` on the plain path, MLP and ResNet keep DTensor parameters
-    under it, and ``expert`` or ``pipe`` above 1 keeps them for every
-    model."""
+    ``tensor`` on the plain path (beside ``expert`` too), MLP and ResNet
+    keep DTensor parameters under it, and ``pipe`` above 1 keeps them for
+    every model."""
     assert plain_axes(MeshPlan(axes), model) is plain
 
 

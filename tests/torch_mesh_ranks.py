@@ -21,12 +21,13 @@ Jobs (dicts):
   parameters' placements and shapes. ``contiguous_qkv`` splits the fused
   ``qkv`` rows over ``tensor`` as one contiguous block a rank (a wrong
   split, which the tests must catch).
-- ``chain``: a GPT tiny from seed 0 trains on fused data to ``steps`` with
+- ``chain``: a GPT tiny (``cfg`` overrides; with MoE blocks its aux loss
+  added) from seed 0 trains on fused data to ``steps`` with
   a checkpoint store at ``dir`` (``save_every``), resuming from its newest
   step; results: the restored step, the parameters right after the
   restore, and the losses.
 - ``data_parallel``: :func:`_data_parallel`; ``moe_group``:
-  :func:`_moe_group`.
+  :func:`_moe_group`; ``moe_expert``: :func:`_moe_expert`.
 - ``split``: :func:`_split`; ``moe``: :func:`_moe`; ``refuse``:
   :func:`_refuse`; ``attention``: :func:`_attention`; ``body``:
   :func:`_body`; ``hop``:
@@ -141,7 +142,7 @@ def _weights(job, timeout: float = 300.0):
 def _whole_params(model, tensors) -> Dict[str, Any]:
     """``tensors`` (``(name, tensor)`` pairs of ``model``'s parameters, or
     of their gradients) whole: a DTensor's full tensor, and a piece of a
-    parameter split over ``tensor`` gathered over its group
+    parameter split over ``tensor`` or ``expert`` gathered over its group
     (``parallel.mesh.tensor_parallel``; every rank calls this)."""
     from cron_operator_tpu_torch.parallel.mesh import tensor_parallel
 
@@ -289,6 +290,66 @@ def _moe_group(job, mesh) -> Dict[str, Any]:
     return {**out, "alone": alone, "dense": run(moe_ffn_reference)}
 
 
+def _moe_expert(job, mesh) -> Dict[str, Any]:
+    """``moe_ffn`` and ``moe_ffn_reference`` on this rank's rows of a
+    seeded token batch, with ``group`` the mesh's batch group and
+    ``expert_group`` its ``expert`` group, each rank holding its experts'
+    ``wi`` and ``wo``: the output rows, the aux loss, this rank's input
+    gradient, the router's gradient summed over the batch group (whole on
+    every rank of the expert group already) and, under ``router_summed``,
+    summed over the expert group too (counted n times), and ``wi``/``wo``'s
+    gradients summed over the batch group and gathered whole over the
+    expert group; ``rows``: this rank's rows of the batch."""
+    import torch
+    import torch.distributed as dist
+
+    from cron_operator_tpu_torch.parallel.mesh import (
+        EXPERT_AXIS,
+        TensorSplit,
+        batch_group,
+        batch_rows,
+    )
+    from cron_operator_tpu_torch.parallel.moe import (
+        init_moe_params,
+        moe_ffn,
+        moe_ffn_reference,
+    )
+
+    group, experts = batch_group(mesh), mesh.get_group(EXPERT_AXIS)
+    me, n = dist.get_rank(experts), dist.get_world_size(experts)
+    gen = torch.Generator().manual_seed(job["seed"])
+    init = init_moe_params(gen, d_model=job["d"], d_ff=job["f"],
+                           n_experts=job["experts"])
+    x_all = torch.randn(job["tokens"], job["d"], generator=gen)
+    rows = batch_rows(mesh, job["tokens"])
+    split = TensorSplit(0)
+    ranks = dist.get_world_size(group)
+
+    def run(fn):
+        params = {k: (v if k == "router" else split.local(v, me, n))
+                  .clone().requires_grad_() for k, v in init.items()}
+        x = x_all[rows].clone().requires_grad_()
+        y, aux = fn(params, x, group=group, expert_group=experts,
+                    capacity_factor=job["capacity_factor"])
+        ((y ** 2).sum() / job["tokens"] + 0.01 * aux / ranks).backward()
+        grads = {}
+        for name, p in params.items():
+            dist.all_reduce(p.grad, group=group)
+            if name == "router":
+                grads[name] = p.grad.clone()
+                dist.all_reduce(p.grad, group=experts)
+                summed = p.grad
+            else:
+                pieces = [torch.empty_like(p.grad) for _ in range(n)]
+                dist.all_gather(pieces, p.grad.contiguous(), group=experts)
+                grads[name] = split.whole(pieces)
+        return {"y": y.detach(), "aux": aux.detach(), "x_grad": x.grad,
+                "grads": grads, "router_summed": summed}
+
+    return {"index": run(moe_ffn), "dense": run(moe_ffn_reference),
+            "rows": _slice(rows)}
+
+
 def placements(p, mesh) -> List[str]:
     """``p``'s placement on each axis of ``mesh``, as strings: a DTensor's
     (``R`` on an axis its own mesh, FSDP2's, does not span), ``R`` on every
@@ -315,7 +376,8 @@ def _chain(job, mesh) -> Dict[str, Any]:
     try:
         trainer = Trainer(
             model, TrainConfig(steps_per_call=1,
-                               save_every=job["save_every"]),
+                               save_every=job["save_every"],
+                               aux_loss_in_output=model.has_moe),
             sample_fn=data.causal_token_sample(job["batch"], cfg.max_len,
                                                cfg.vocab_size),
             checkpoint=store, mesh=mesh)
@@ -331,12 +393,12 @@ def _chain(job, mesh) -> Dict[str, Any]:
 
 
 def _tensor_restore(job, mesh) -> Dict[str, Any]:
-    """A GPT tiny (seed 0) whose trainer restores the newest step of the
-    store at ``dir`` once one is there (up to 300 s: the test process
-    writes it while this world runs), and rank 0 saves the trainer's
-    ``host_state`` (every tensor gathered whole) at that step into the
-    store at ``out_dir``; results: the restored step and the parameters'
-    shapes on this rank."""
+    """A GPT tiny (``cfg``, seed 0) whose trainer restores the newest step
+    of the store at ``dir`` once one is there (up to 300 s: the test
+    process writes it while this world runs), and rank 0 saves the
+    trainer's ``host_state`` (every tensor gathered whole) at that step
+    into the store at ``out_dir``; results: the restored step and the
+    parameters' shapes on this rank."""
     import torch
 
     from cron_operator_tpu_torch.models.gpt import GPT
@@ -354,7 +416,8 @@ def _tensor_restore(job, mesh) -> Dict[str, Any]:
     model = GPT(cfg).init_weights(torch.Generator().manual_seed(0))
     try:
         trainer = Trainer(
-            model, TrainConfig(steps_per_call=1),
+            model, TrainConfig(steps_per_call=1,
+                               aux_loss_in_output=model.has_moe),
             sample_fn=data.causal_token_sample(job["batch"], cfg.max_len,
                                                cfg.vocab_size),
             checkpoint=store, mesh=mesh)
@@ -841,7 +904,8 @@ def _rank_main(jobs_file: str) -> int:
         for job in spec["jobs"]:
             mesh = mesh_for_devices(device_type="cpu", **job["axes"])
             run = {"train": _train, "data_parallel": _data_parallel,
-                   "moe_group": _moe_group, "chain": _chain, "split": _split,
+                   "moe_group": _moe_group, "moe_expert": _moe_expert,
+                   "chain": _chain, "split": _split,
                    "moe": _moe, "refuse": _refuse, "attention": _attention,
                    "body": _body, "hop": _hop, "guards": _guards,
                    "pipe_guards": _pipe_guards,
