@@ -2722,6 +2722,7 @@ MESH_PATHS = {"data": "ddp", "fsdp": "fsdp", "tensor": "ddp",
 #   gradients of its own rows alone.
 MESH_LOSS_BOUND = 2e-3
 MESH_UPDATE_BOUND = 0.25
+GPT2_VOCAB = 50257
 MESH_FROZEN_PARAMS = {"lr": "0"}
 MESH_STEPS = int(MESH_PARAMS["steps"])
 MESH_LAYERS = 12  # GPT-2 small: one K1, K2 and K3 launch a layer and step
@@ -2751,8 +2752,9 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
     ``profile_window`` (every rank) and keeps what it printed;
     ``readings(trainer, batch)`` adds its dict to the result. Returns the
     counts (and the loss kernels' under ``xent``, the LayerNorm kernels'
-    under ``layer_norm``), designs, shapes, K1-K3's launches ``[full,
-    causal]`` by mask (``by_mask``), per-step
+    under ``layer_norm``), designs, shapes, the loss forward kernel's
+    ``[rows, columns, real columns, first column]`` (``xent_shapes``),
+    K1-K3's launches ``[full, causal]`` by mask (``by_mask``), per-step
     losses, step s, tokens/s, the peak memory in GiB, the trainer's path
     (:func:`trainer_path`), the attention impl and mask, and the ``seq``
     axis's size and this rank's coordinate on it (and the profile)."""
@@ -2776,7 +2778,14 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
             t = split.gather(name, t.cpu() if on_host else t)
         return t.to("cpu", torch.float32, copy=True)
 
-    shapes, made = set(), []
+    shapes, made, xent_shapes = set(), [], set()
+    xent = importlib.import_module("cron_operator_tpu_torch.ops.xent")
+    xent_launch = xent._launch_forward
+
+    def xent_traced(logits, labels, vocab, *slice_of):
+        xent_shapes.add((*logits.shape, vocab, *(slice_of[:1] or (0,))))
+        return xent_launch(logits, labels, vocab, *slice_of)
+
     launchers = {a: getattr(fa, a) for a in ("_launch", "_launch_dq",
                                              "_launch_dkv")}
     by_mask = {a: [0, 0] for a in launchers}  # [full, causal] launches
@@ -2794,6 +2803,7 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
             return _inner(q, *args)
         setattr(fa, attr, traced)
     entrypoints.Trainer = trainer
+    xent._launch_forward = xent_traced
     try:
         ctx = JobContext("chip-smoke-mesh", "default", {}, params,
                          progress=LossLog())
@@ -2804,13 +2814,16 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
         result = {"counts": read_counts(fa), "designs": read_designs(fa),
                   "xent": read_xent_counts(),
                   "layer_norm": read_ln_counts(),
-                  "shapes": sorted(shapes), "losses": ctx.progress.losses,
+                  "shapes": sorted(shapes),
+                  "xent_shapes": sorted(map(list, xent_shapes)),
+                  "losses": ctx.progress.losses,
                   "by_mask": [by_mask[a] for a in launchers],
                   "step_s": ctx.progress["avg_step_time_s"],
                   "tokens_per_s": ctx.progress["tokens_per_s"],
                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     finally:
         entrypoints.Trainer = real_trainer
+        xent._launch_forward = xent_launch
         for attr, inner in launchers.items():
             setattr(fa, attr, inner)
     tr, start = made[0]
@@ -2838,6 +2851,18 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
                            lambda: tr.step(batch))
         result["profile"] = text.getvalue()
     return result
+
+
+def tensor_xent_shape(rows: int, t: int, index: int) -> list:
+    """The loss forward kernel's ``[rows, columns, real columns, first
+    column]`` on the rank of ``tensor`` index ``index`` among ``t``: its
+    block of GPT-2 small's vocab rows, the vocab rounded up to a multiple
+    of 64 t and cut in t equal blocks (25152 a rank at t 2, rank 1's 25105
+    of them real), counted here apart from the port's rule
+    (``models.layers.vocab_split``)."""
+    per = -(-GPT2_VOCAB // (64 * t)) * 64
+    lo = index * per
+    return [rows, per, max(0, min(per, GPT2_VOCAB - lo)), lo]
 
 
 def trainer_path(tr) -> str:
@@ -3057,6 +3082,15 @@ def phase_mesh(torch, fa, card):
             for r, got in enumerate(ranks):  # a plain mesh: the kernels
                 check_xent(f"mesh {name} rank {r}", f"mesh_{name}",
                            got["xent"], MESH_STEPS)
+                print(f"mesh {name} rank {r}: the loss forward kernel at "
+                      "[rows, columns, real columns, first column] "
+                      f"{got['xent_shapes']}", flush=True)
+                if name == "tensor" and got["xent_shapes"] != [
+                        tensor_xent_shape(TRAIN_SHAPE["b"] * TRAIN_SHAPE["s"],
+                                          2, r)]:
+                    fail(f"mesh tensor rank {r}: the loss kernels ran at "
+                         f"{got['xent_shapes']}, not the rank's block of "
+                         "the vocab")
                 check_ln(f"mesh {name} rank {r}", f"mesh_{name}",
                          got["layer_norm"], (LM_NORMS * MESH_STEPS,) * 2)
             print(f"mesh {name}: the {ranks[0]['path']} path; losses "
@@ -4425,31 +4459,38 @@ def check_xent_pair(torch, xent, label, x, y, v, g) -> dict:
     return errs
 
 
-def xent_rows(torch, xent, card, label, shape) -> dict:
+def xent_rows(torch, xent, card, label, shape, total=None) -> dict:
     """The loss kernels at ``shape`` in bf16, each timed (device time, the
     card held busy; event time beside it) beside its byte bound, its plain
     version and the library yardstick: ``F.cross_entropy`` on the cut
     logits (a contiguous copy made beforehand), forward, and its backward
-    alone (``torch.autograd.grad``)."""
+    alone (``torch.autograd.grad``). With ``total`` (the whole vocab) the
+    logits are a ``tensor`` rank's first block of the vocab (its ``v``
+    real columns from column 0; the labels fall in it), the kernels and the
+    plain versions in their slice forms, the library call on the block's
+    real columns."""
     import torch.nn.functional as F
 
     t, vp, v = shape
     x, y = xent_inputs(torch, shape, torch.bfloat16, seed=7)
     g = torch.ones((), device="cuda")
-    _, lse = xent.softmax_xent_forward(x, y, v)
+    _, lse = xent.softmax_xent_forward(x, y, v, 0, total)
     cut = x[:, :v].contiguous().requires_grad_()
     out = F.cross_entropy(cut, y)
     element = x.element_size()
     moved = {"fwd": t * vp * element + t * (8 + 2 * 4),
              "bwd": 2 * t * vp * element + t * (8 + 4)}
     rows = {}
+    merged = None if total is None else lse  # the slice form's backward
     for name, fns in (
-            ("fwd", (lambda: xent.softmax_xent_forward(x, y, v),
-                     lambda: xent.softmax_xent_forward_reference(x, y, v),
+            ("fwd", (lambda: xent.softmax_xent_forward(x, y, v, 0, total),
+                     lambda: xent.softmax_xent_forward_reference(
+                         x, y, v, 0, total),
                      lambda: F.cross_entropy(cut, y))),
-            ("bwd", (lambda: xent.softmax_xent_backward(x, y, lse, g, v),
-                     lambda: xent.softmax_xent_backward_reference(x, y, g,
-                                                                  v),
+            ("bwd", (lambda: xent.softmax_xent_backward(x, y, lse, g, v, 0,
+                                                        total),
+                     lambda: xent.softmax_xent_backward_reference(
+                         x, y, g, v, 0, merged),
                      lambda: torch.autograd.grad(out, cut,
                                                  retain_graph=True)))):
         (ms, plain_ms, library_ms), _ = timed_rows(
@@ -4459,7 +4500,7 @@ def xent_rows(torch, xent, card, label, shape) -> dict:
         rows[name] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=library_ms)
+            library_ms=library_ms, shape=[t, vp])
         print(f"[{card}] xent_{name} T {t} Vp {vp} bf16 ({label}): "
               f"{ms:.4f} ms (device) | plain {plain_ms:.4f} ms | "
               f"F.cross_entropy {library_ms:.4f} ms | bound "
@@ -4470,6 +4511,113 @@ def xent_rows(torch, xent, card, label, shape) -> dict:
     del x, y, cut, out
     release(torch)
     return rows
+
+
+# The slices of GPT-2 small's vocab that phase 21 holds against the plain
+# versions: (rows, tensor ranks t, the rank's index) at a data 2 x tensor 2
+# or tensor 4 rank's T of 4096 (b 4 x 1024): rank 0 of 2 (25152 columns,
+# all real), rank 1 of 2 (25105 of 25152 real) and rank 3 of 4 (12433 of
+# 12608 real)
+XENT_SLICES = {"gpt2 rank 0 of 2": (4096, 2, 0),
+               "gpt2 rank 1 of 2": (4096, 2, 1),
+               "gpt2 rank 3 of 4": (4096, 4, 3)}
+# The slices timed for the kernels line, rank 0's block of GPT-2 small's
+# vocab under tensor 2: phase 15's T (b 8 x 1024) and a data 2 x tensor 2
+# rank's (b 4 x 1024): (T, columns, real columns)
+XENT_TENSOR_SHAPES = {"tensor": (8192, 25152, 25152),
+                      "tensor_data2": (4096, 25152, 25152)}
+
+
+def check_xent_slices(torch, xent) -> dict:
+    """The loss kernels in their slice forms at :data:`XENT_SLICES`, bf16
+    and f32 +100: each slice's logsumexp within ``xent_tolerance`` of its
+    plain version and its label logit the same bits; the t slices' forward
+    results merged (``merge_slices``) within ``merge_tolerance`` of the
+    whole row's kernel; each slice's gradient from the merged logsumexp
+    within ``xent_tolerance`` of its plain version, zeros past its real
+    columns, a rerun the same bits. Returns the largest errors by
+    slice and dtype."""
+    from cron_operator_tpu_torch.models.layers import vocab_split
+
+    split = vocab_split(GPT2_VOCAB)
+    errs = {}
+    for t in sorted({t for _, t, _ in XENT_SLICES.values()}):
+        rows = XENT_SLICES[next(k for k, v in XENT_SLICES.items()
+                                if v[1] == t)][0]
+        per = split.padded(t) // t
+        for dtype, offset in ((torch.bfloat16, 0.0), (torch.float32, 100.0)):
+            x, y = xent_inputs(torch, (rows, split.padded(t), GPT2_VOCAB),
+                               dtype, seed=10 + t, offset=offset)
+            g = torch.full((), 0.37, device="cuda")
+            parts = []
+            for r in range(t):
+                lo, real = split.offset(r, t)
+                piece = x[:, lo:lo + per].contiguous()
+                parts.append((piece, lo, real) + xent.softmax_xent_forward(
+                    piece, y, real, lo, GPT2_VOCAB))
+            loss, lse = xent.softmax_xent_forward(x, y, GPT2_VOCAB)
+            ref_loss, ref_lse = xent.softmax_xent_forward_reference(
+                x, y, GPT2_VOCAB)
+            lses = torch.stack([p[4] for p in parts])
+            got_loss, got_lse = xent.merge_slices(
+                lses, torch.stack([p[3] for p in parts]))
+            bounds = xent.merge_tolerance(xent.xent_tolerance(
+                x, y, GPT2_VOCAB, ref_loss, ref_lse), lses, lse)
+            tag = f"{str(dtype)[6:]} offset {offset:g}"
+            merge = {}
+            for key, got, want in (("lse", got_lse, lse),
+                                   ("loss", got_loss, loss)):
+                err = (got - want).abs()
+                merge[key] = float((err / bounds[key]).max())
+                if not merge[key] <= 1:
+                    fail(f"xent: {t} slices merged off the whole row's "
+                         f"kernel ({key}, {tag}): max err "
+                         f"{float(err.max()):.3e}, err/bound {merge[key]:.3f}")
+            print(f"xent: GPT-2 small's {t} slices merged against the whole "
+                  f"row's kernel ({tag}): err/bound lse {merge['lse']:.3f}, "
+                  f"loss {merge['loss']:.3f}", flush=True)
+            for name, (_, tt, r) in XENT_SLICES.items():
+                if tt != t:
+                    continue
+                piece, lo, real, picked, slse = parts[r]
+                ref_picked, ref_slse = xent.softmax_xent_forward_reference(
+                    piece, y, real, lo, GPT2_VOCAB)
+                dx = xent.softmax_xent_backward(piece, y, got_lse, g, real,
+                                                lo, GPT2_VOCAB)
+                again = xent.softmax_xent_backward(piece, y, got_lse, g, real,
+                                                   lo, GPT2_VOCAB)
+                ref_dx = xent.softmax_xent_backward_reference(
+                    piece, y, g, real, lo, got_lse)
+                fwd = xent.xent_tolerance(piece, y, real, ref_picked,
+                                          ref_slse, lo=lo)
+                bwd = xent.xent_tolerance(piece, y, real, ref_picked,
+                                          got_lse, g, ref_dx, lo=lo)
+                lse_ratio = float(((slse - ref_slse).abs()
+                                   / fwd["lse"]).max())
+                dx_err = (dx[:, :real].float() - ref_dx[:, :real].float()).abs()
+                dx_ratio = float((dx_err / bwd["dlogits"]).max())
+                picked_same = same_bits(torch, picked, ref_picked)
+                pad_zero = bool((dx[:, real:] == 0).all())
+                rerun = same_bits(torch, dx, again)
+                label = f"{name} {tag}"
+                errs[label] = {"lse": float((slse - ref_slse).abs().max()),
+                               "dlogits": float(dx_err.max()),
+                               "lse_ratio": lse_ratio,
+                               "dlogits_ratio": dx_ratio}
+                print(f"xent {label}: [{rows}, {per}], {real} real columns "
+                      f"from {lo}: lse err/bound {lse_ratio:.3f}, label "
+                      f"logits the same bits {picked_same}, dlogits max err "
+                      f"{errs[label]['dlogits']:.3e} (err/bound "
+                      f"{dx_ratio:.3f}); padding zero {pad_zero}; rerun the "
+                      f"same bits {rerun}", flush=True)
+                if not (lse_ratio <= 1 and dx_ratio <= 1 and picked_same
+                        and pad_zero and rerun
+                        and bool(torch.isfinite(dx).all())):
+                    fail(f"xent {label}: the slice kernels off their plain "
+                         "versions")
+            del x, y, parts
+            release(torch)
+    return errs
 
 
 def logits_made(torch, fn, t: int, v: int, vp: int) -> list:
@@ -4544,6 +4692,14 @@ def phase_xent(torch, card) -> dict:
     for name, (_, like) in local.items():
         for d in ("fwd", "bwd"):
             rows[name][d]["max_abs_err"] = rows[like][d]["max_abs_err"]
+    slice_errs = check_xent_slices(torch, xent)
+    for name, shape in XENT_TENSOR_SHAPES.items():
+        rows[name] = xent_rows(torch, xent, card, name, shape,
+                               total=GPT2_VOCAB)
+        for d in ("fwd", "bwd"):
+            rows[name][d]["max_abs_err"] = slice_errs[
+                "gpt2 rank 0 of 2 bfloat16 offset 0"][
+                    "lse" if d == "fwd" else "dlogits"]
 
     b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
     models = {
@@ -4596,8 +4752,8 @@ def phase_xent(torch, card) -> dict:
               f"{best['kernels']['step_ms'] / best['former']['step_ms']:.4f}"
               f" | beside {LOSS_BEFORE_MS[name]} ms on the former loss "
               "(PERF.md section 5)", flush=True)
-    return {"rows": rows, "errors": errs, "logits_made": kinds,
-            "step_ab": ab}
+    return {"rows": rows, "errors": errs, "slice_errors": slice_errs,
+            "logits_made": kinds, "step_ab": ab}
 
 
 # Phase 22: the LayerNorm kernels (ops/csrc/layer_norm.cu) at the rows
@@ -5184,9 +5340,9 @@ XENT_ROW = (CSRC + "xent.cu",
 XENT_PATHS = (("gpt", "", "gpt"), ("bert", "@bert", "bert"),
               ("moe", "@moe", "gpt"), ("resume", "@resume", "gpt"),
               ("mesh_data", "@mesh_data", "mesh"),
-              # a tensor or expert rank holds every row (b 8 x 1024), the
-              # table whole
-              ("mesh_tensor", "@mesh_tensor", "gpt"),
+              # a tensor rank holds every row (b 8 x 1024) and its block
+              # of the vocab, an expert rank every row and the table whole
+              ("mesh_tensor", "@mesh_tensor", "tensor"),
               ("mesh_expert", "@mesh_expert", "gpt"),
               # ring gpt's rank holds b 8 x 512 rows (the data mesh's
               # 4096), Ulysses bert's b 8 x 256

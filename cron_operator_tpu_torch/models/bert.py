@@ -20,10 +20,14 @@ from torch import nn
 from cron_operator_tpu_torch.models.gpt import LN_EPS, DecoderLayer, fold_blocks
 from cron_operator_tpu_torch.models.layers import (
     LayerNorm,
+    VocabPiece,
     add_positions,
     draw_,
     init_flax_layers_,
     tied_logits,
+    vocab_parallel_embedding,
+    vocab_piece,
+    vocab_split,
 )
 from cron_operator_tpu_torch.parallel.mesh import local_positions
 
@@ -72,11 +76,15 @@ class Bert(nn.Module):
     rank's block of positions under ``seq_mesh``, set by
     ``parallel.mesh.data_parallel``), and absent under ``rope``. Its
     blocks split over ``tensor`` as GPT's (``splits_over_tensor``), so a
-    ``tensor`` mesh trains plain modules; the embeddings, the norms and
-    the tied table stay whole on every rank."""
+    ``tensor`` mesh trains plain modules, and so does its tied table, by
+    vocab rows as GPT's (``GPT.tensor_splits``): each rank embeds the
+    tokens of its rows and multiplies by them alone, and with
+    ``return_hidden`` hands a ``layers.VocabPiece`` in place of the table.
+    The learned positions and the norms stay whole on every rank."""
 
     seq_mesh = None
     splits_over_tensor = True
+    tensor_group = None
 
     def __init__(self, config: BertConfig = BertConfig(), *, device=None,
                  param_dtype: torch.dtype = torch.float32):
@@ -106,9 +114,18 @@ class Bert(nn.Module):
         init_flax_layers_(self, generator)
         return self
 
+    def tensor_splits(self, t: int) -> dict:
+        """The tied table's vocab rows over a ``tensor`` group, as
+        ``GPT.tensor_splits``."""
+        return {"tok_emb.weight": vocab_split(self.config.vocab_size)}
+
     def forward(self, input_ids: torch.Tensor):
         dt = self.config.dtype
-        x = self.tok_emb(input_ids).to(dt)
+        table = vocab_piece(self.tok_emb.weight, self.config.vocab_size,
+                            self.tensor_group)
+        x = (vocab_parallel_embedding(input_ids, table, dt)
+             if isinstance(table, VocabPiece)
+             else self.tok_emb(input_ids).to(dt))
         if self.pos_emb is not None:
             block = local_positions(self.seq_mesh, input_ids.shape[1])
             x = add_positions(x, self.pos_emb[block].to(dt))
@@ -117,10 +134,11 @@ class Bert(nn.Module):
         x, r, _ = fold_blocks(self.layers, x)
         h = self.ln_f.add_norm(x, r)[1]
         if self.config.return_hidden:
-            return h, self.tok_emb.weight
+            return h, table
         # tied output embedding (flax tok.attend) in cfg.dtype, then f32,
-        # through a zero-padded table (layers.tied_logits)
-        return tied_logits(h, self.tok_emb.weight, dt)
+        # through a zero-padded table (layers.tied_logits; a rank's columns
+        # gathered whole under tensor)
+        return tied_logits(h, table, dt)
 
 
 __all__ = ["Bert", "BertConfig", "EncoderLayer"]

@@ -42,11 +42,15 @@ from cron_operator_tpu_torch.models.layers import (
     LayerNorm,
     Linear,
     PaddedTable,
+    VocabPiece,
     add_positions,
     draw_,
     init_flax_layers_,
     row_parallel,
     tied_logits,
+    vocab_parallel_embedding,
+    vocab_piece,
+    vocab_split,
 )
 from cron_operator_tpu_torch.ops.attention import (
     decode_attention,
@@ -374,11 +378,18 @@ class GPT(nn.Module):
     positions at its global offset. Its blocks split over ``tensor``
     (``splits_over_tensor``: :class:`DecoderLayer`), so a ``tensor`` mesh
     trains plain modules, and its MoE blocks' experts over ``expert``
-    (:meth:`MoEBlock.expert_splits`); the embeddings, the norms and the
-    tied table stay whole on every rank."""
+    (:meth:`MoEBlock.expert_splits`). Under ``tensor`` the tied table
+    splits too (:meth:`tensor_splits`, the Megatron vocab-parallel
+    layout): each rank keeps its block of the vocab's rows, embeds the
+    tokens that fall in it (``layers.vocab_parallel_embedding``, summed
+    over the group) and multiplies by its rows alone; with
+    ``return_hidden`` it hands the loss a ``layers.VocabPiece`` in place of
+    the table, and its logits are the ranks' columns gathered whole. The
+    learned positions and the norms stay whole on every rank."""
 
     seq_mesh = None
     splits_over_tensor = True
+    tensor_group = None
 
     def __init__(self, config: GPTConfig = GPTConfig(), *, device=None,
                  param_dtype: torch.dtype = torch.float32):
@@ -418,6 +429,17 @@ class GPT(nn.Module):
                 layer.moe.init_weights(generator)
         return self
 
+    def tensor_splits(self, t: int) -> dict:
+        """The tied table over a ``tensor`` group (``parallel.mesh.
+        split_over_tensor``): its vocab rows, ``layers.vocab_split``."""
+        return {"tok_emb.weight": vocab_split(self.config.vocab_size)}
+
+    def _table(self):
+        """The tied table: ``tok_emb.weight``, or under ``tensor_group``
+        this rank's ``layers.VocabPiece`` of it."""
+        return vocab_piece(self.tok_emb.weight, self.config.vocab_size,
+                           self.tensor_group)
+
     def new_cache(self, batch: int) -> KVCache:
         """Zeroed per-layer K/V buffers for ``batch`` sequences."""
         cfg = self.config
@@ -436,7 +458,10 @@ class GPT(nn.Module):
         rank's block of them under ``seq_mesh``), or ``pos`` (a 1-element
         tensor) for a decode step."""
         dt = self.config.dtype
-        x = self.tok_emb(input_ids).to(dt)
+        tok = self._table()
+        x = (vocab_parallel_embedding(input_ids, tok, dt)
+             if isinstance(tok, VocabPiece)
+             else self.tok_emb(input_ids).to(dt))
         if self.pos_emb is not None:
             table = (self.pos_emb[local_positions(self.seq_mesh,
                                                   input_ids.shape[1])]
@@ -453,7 +478,7 @@ class GPT(nn.Module):
         decode step copies none. FSDP2 writes the gathered weight without
         bumping its version counter, so a model it wraps pads at use."""
         cache = None if isinstance(self, FSDPModule) else self._vocab_table
-        return tied_logits(self.ln_f.add_norm(x, r)[1], self.tok_emb.weight,
+        return tied_logits(self.ln_f.add_norm(x, r)[1], self._table(),
                            self.config.dtype, cache)
 
     def refresh_vocab_table(self) -> None:
@@ -467,7 +492,7 @@ class GPT(nn.Module):
     def forward(self, input_ids: torch.Tensor):
         x, r, aux = fold_blocks(self.layers, self._embed(input_ids))
         if self.config.return_hidden:
-            out = self.ln_f.add_norm(x, r)[1], self.tok_emb.weight
+            out = self.ln_f.add_norm(x, r)[1], self._table()
         else:
             out = self._logits(x, r)
         if not self.has_moe:

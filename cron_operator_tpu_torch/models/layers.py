@@ -17,9 +17,11 @@ output to ``dtype``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple, Union
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -30,6 +32,9 @@ from cron_operator_tpu_torch.ops.layer_norm import add_layer_norm, layer_norm
 from cron_operator_tpu_torch.ops.rope import apply_rope
 from cron_operator_tpu_torch.parallel.mesh import (
     TensorSplit,
+    VocabSplit,
+    copy_to_tensor,
+    gather_from_tensor,
     on_local_rows,
     on_own_rows,
     reduce_from_tensor,
@@ -210,6 +215,72 @@ class PaddedTable:
         return self._table
 
 
+def vocab_split(vocab: int) -> VocabSplit:
+    """The tied table's split over a ``tensor`` group (``parallel.mesh.
+    split_over_tensor``): its ``vocab`` rows by the Megatron vocab-parallel
+    layout, each rank's block a multiple of :data:`VOCAB_ROWS_MULTIPLE`
+    rows (GPT-2's 50257 at 2 ranks: 25152 rows a rank, 25105 of them real
+    on rank 1)."""
+    return VocabSplit(0, rows=vocab, multiple=VOCAB_ROWS_MULTIPLE)
+
+
+@dataclass(frozen=True)
+class VocabPiece:
+    """A ``tensor`` rank's block of a tied table split by :func:`vocab_split`:
+    ``weight [rows, E]`` (the rank's parameter) holds the global rows
+    ``lo .. lo + rows - 1``, of which the first :attr:`real` lie below
+    ``vocab`` (the rest are zero padding); ``group`` is the ``tensor``
+    group. A model under ``tensor`` hands this beside its hidden states
+    for the loss (``ops.xent.vocab_parallel_cross_entropy``)."""
+
+    weight: torch.Tensor
+    lo: int
+    vocab: int
+    group: Any
+
+    @property
+    def real(self) -> int:
+        """The count of this rank's rows that lie below ``vocab``."""
+        return max(0, min(self.weight.shape[0], self.vocab - self.lo))
+
+
+def vocab_piece(weight: torch.Tensor, vocab: int, group) -> Any:
+    """``weight`` as the :class:`VocabPiece` of this rank of ``group`` (a
+    table of ``vocab`` rows split by :func:`vocab_split`: the blocks are
+    equal, rank i's from row ``i * rows`` on); ``weight`` itself when
+    ``group`` is None (the table whole)."""
+    if group is None:
+        return weight
+    return VocabPiece(weight, dist.get_rank(group) * weight.shape[0], vocab,
+                      group)
+
+
+def vocab_parallel_embedding(ids: torch.Tensor, table: VocabPiece,
+                             dtype: torch.dtype) -> torch.Tensor:
+    """The token embedding of ``ids`` in ``dtype`` from a rank's
+    :class:`VocabPiece`: each rank looks up the ids in its rows and writes
+    zeros for the others, and the sum over the group
+    (``reduce_from_tensor``: one all-reduce in ``dtype``, exact, one term
+    non-zero) is the whole table's lookup; its gradient passes through, so
+    each rank's rows get exactly their own tokens' gradient."""
+    rows = table.weight.shape[0]
+    local = ids - table.lo
+    inside = (local >= 0) & (local < rows)
+    out = F.embedding(torch.where(inside, local, 0), table.weight).to(dtype)
+    return reduce_from_tensor(out.masked_fill(~inside[..., None], 0),
+                              table.group)
+
+
+def vocab_parallel_product(x: torch.Tensor, table: VocabPiece,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """The tied product on a rank's rows: ``x @ weight.T`` in ``dtype``,
+    ``[..., rows]`` (column ``j`` is global column ``lo + j``; the padding
+    rows give zero columns). ``x`` enters through ``copy_to_tensor``, so
+    its gradient is summed over the group."""
+    return F.linear(copy_to_tensor(x, table.group).to(dtype),
+                    table.weight.to(dtype))
+
+
 def tied_product(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
                  cache: Optional[PaddedTable] = None) -> torch.Tensor:
     """The tied output embedding's product (flax ``tok.attend``) ``x @
@@ -223,7 +294,8 @@ def tied_product(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
     the padded table comes from ``cache`` (a :class:`PaddedTable`). A
     DTensor operand (a mesh that places DTensors: ``pipe`` above 1; an
     ``expert`` or ``tensor`` mesh trains the transformers' plain modules,
-    their table whole on every rank) and the ``meta`` device (the FLOP
+    a ``tensor`` rank its :class:`VocabPiece` of the table, through
+    :func:`vocab_parallel_product`) and the ``meta`` device (the FLOP
     count, which stays at the true vocab) take the product unpadded, Vp =
     V."""
     v = weight.shape[0]
@@ -238,14 +310,23 @@ def tied_product(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
     return F.linear(x, table)
 
 
-def tied_logits(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
+def tied_logits(x: torch.Tensor, weight: Any, dtype: torch.dtype,
                 cache: Optional[PaddedTable] = None) -> torch.Tensor:
     """The tied output embedding (flax ``tok.attend``): ``x @ weight.T`` in
     ``dtype`` (:func:`tied_product`), returned in f32 ``[..., V]``: a padded
     product is cut back to V columns before the f32 cast, so no caller sees
-    a padded column (an argmax over all-negative logits would pick one)."""
-    v = weight.shape[0]
-    logits = tied_product(x, weight, dtype, cache)
+    a padded column (an argmax over all-negative logits would pick one).
+    On a :class:`VocabPiece` each rank's ``[..., rows]`` product
+    (:func:`vocab_parallel_product`) is gathered over the group
+    (``gather_from_tensor``: its gradient each rank's own columns) and cut
+    to V: the whole logits on every rank."""
+    if isinstance(weight, VocabPiece):
+        v = weight.vocab
+        logits = gather_from_tensor(
+            vocab_parallel_product(x, weight, dtype), weight.group)
+    else:
+        v = weight.shape[0]
+        logits = tied_product(x, weight, dtype, cache)
     if logits.shape[-1] == v:
         return logits.float()
     logits = logits[..., :v]
@@ -533,6 +614,7 @@ __all__ = [
     "LayerNorm",
     "Linear",
     "PaddedTable",
+    "VocabPiece",
     "add_positions",
     "draw_",
     "init_flax_layers_",
@@ -542,4 +624,8 @@ __all__ = [
     "same_padding",
     "tied_logits",
     "tied_product",
+    "vocab_parallel_embedding",
+    "vocab_parallel_product",
+    "vocab_piece",
+    "vocab_split",
 ]

@@ -22,11 +22,25 @@
 //             as the former slice's backward padded them.
 // The mean over T is the wrapper's: one torch sum of loss_t, in one order.
 //
+// A slice of the vocab (a `tensor` rank's block of the tied table, the
+// Megatron vocab-parallel loss): the row holds the global columns lo ..
+// lo + Vp - 1, of which the first R (0 to Vp) are real, of a vocab of V.
+// The forward then writes the slice's lse_t over its R columns (-inf for
+// R = 0) and, in place of the loss, the label's logit x_{t,label_t - lo}
+// when lo <= label_t < lo + R, else 0 (NaN for a label outside [0, V),
+// decided on the whole vocab); the wrapper merges both over the group. The
+// backward takes the merged lse_t and writes (exp(x_tj - lse_t) -
+// [j + lo == label_t]) * (g / T) on the R real columns, exact zeros past
+// them. The whole row is the slice lo = 0, R = V, and the forward writes
+// the loss there: the same arithmetic, to the bit.
+//
 // Bound: bytes. The forward reads T * Vp elements, the backward reads as
 // many and writes as many (labels, lse and loss are 16 bytes a row). GPT-2
 // small's b 8 x 1024 (T 8192, Vp 50304) in bf16: 824.2 MB forward and
 // 1648.4 MB backward, 0.246 and 0.492 ms at 3.35 TB/s; BERT-base's b 8 x
-// 512 (T 4096, Vp 30528): 0.075 and 0.149 ms. The arithmetic is one exp2
+// 512 (T 4096, Vp 30528): 0.075 and 0.149 ms; a `tensor` rank's slice of
+// GPT-2 small's at 2 ranks (T 8192, Vp 25152) half of GPT's, 0.123 and
+// 0.246 ms. The arithmetic is one exp2
 // and a few f32 operations an element: GPT's 412 M exps take about 0.11 ms
 // at the special-function units' 16 a clock an SM, under the byte bound.
 //
@@ -146,12 +160,12 @@ template <typename T, typename L>
 __global__ void __launch_bounds__(THREADS)
     xent_fwd_kernel(const T* __restrict__ logits, const L* __restrict__ labels,
                     float* __restrict__ lse_out, float* __restrict__ loss_out,
-                    int vp, int vocab) {
+                    int vp, int real, int lo, int vocab) {
   using V = Vec<T>;
   constexpr int N = V::N;
   const int row = blockIdx.x;
   const T* x = logits + static_cast<size_t>(row) * vp;
-  const int full = vocab / N;  // vectors wholly inside the vocab
+  const int full = real / N;  // vectors wholly inside the real columns
   float m = -CUDART_INF_F, s = 0.f;
   for (int base = threadIdx.x; base < full; base += THREADS * UNROLL) {
     typename V::Raw r[UNROLL];
@@ -169,7 +183,7 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
   }
-  const int tail = vocab - full * N;  // columns of vector `full` that count
+  const int tail = real - full * N;  // columns of vector `full` that count
   if (tail && threadIdx.x == (full % THREADS)) {
     float v[N];
     V::unpack(V::load(x + static_cast<size_t>(full) * N), v);
@@ -193,12 +207,15 @@ __global__ void __launch_bounds__(THREADS)
     m = warp_m[0];
     s = warp_s[0];
     for (int w = 1; w < WARPS; ++w) merge(m, s, warp_m[w], warp_s[w]);
-    const float lse = m + logf(s);
-    const long long label = static_cast<long long>(labels[row]);
-    const float picked =
-        (label >= 0 && label < vocab) ? V::one(x + label) : CUDART_NAN_F;
+    const float lse = m + logf(s);  // -inf when no column is real
+    const long long label = static_cast<long long>(labels[row]) - lo;
+    const bool valid = label + lo >= 0 && label + lo < vocab;
+    const float picked = !valid ? CUDART_NAN_F
+                         : (label >= 0 && label < real) ? V::one(x + label)
+                                                        : 0.f;
     lse_out[row] = lse;
-    loss_out[row] = lse - picked;
+    // the whole row's loss, or a slice's label logit for the merge
+    loss_out[row] = (lo == 0 && real == vocab) ? lse - picked : picked;
   }
 }
 
@@ -206,7 +223,8 @@ template <typename T, typename L>
 __global__ void __launch_bounds__(THREADS)
     xent_bwd_kernel(const T* __restrict__ logits, const L* __restrict__ labels,
                     const float* __restrict__ lse, const float* __restrict__ g,
-                    T* __restrict__ dlogits, int rows, int vp, int vocab) {
+                    T* __restrict__ dlogits, int rows, int vp, int real,
+                    int lo) {
   using V = Vec<T>;
   constexpr int N = V::N;
   const int row = blockIdx.x;
@@ -216,7 +234,8 @@ __global__ void __launch_bounds__(THREADS)
   // d(mean)/d(loss_t), as the former mean's backward: g / T in f32
   const float scale = __ldg(g) / static_cast<float>(rows);
   const float l = __ldg(lse + row);
-  const long long label = static_cast<long long>(labels[row]);
+  // the label's column in this slice (outside [0, real): no column)
+  const long long label = static_cast<long long>(labels[row]) - lo;
   const int vectors = vp / N;
   for (int base = threadIdx.x; base < vectors; base += THREADS * UNROLL) {
     typename V::Raw r[UNROLL];
@@ -234,7 +253,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int k = 0; k < N; ++k) {
           const int j = i * N + k;
-          v[k] = j < vocab
+          v[k] = j < real
                      ? (exp_of(v[k], l) - (j == label ? 1.f : 0.f)) * scale
                      : 0.f;
         }
@@ -245,10 +264,13 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 bool shape_ok(const void* a, int dtype, int label_bytes, int rows, int vp,
-              int vocab) {
+              int real, int lo, int vocab) {
   const int n = dtype == 1 ? 8 : 4;
   return (dtype == 0 || dtype == 1) &&
-         (label_bytes == 4 || label_bytes == 8) && rows > 0 && vocab > 0 && vocab <= vp && vp % n == 0 &&
+         (label_bytes == 4 || label_bytes == 8) && rows > 0 && vp > 0 &&
+         vp % n == 0 && real >= 0 && real <= vp && lo >= 0 && vocab > 0 &&
+         // a slice without a real column may start past the vocab's end
+         (real == 0 || static_cast<long long>(lo) + real <= vocab) &&
          reinterpret_cast<uintptr_t>(a) % 16 == 0;
 }
 
@@ -269,14 +291,16 @@ int by_types(int dtype, int label_bytes, F&& f) {
 extern "C" {
 
 // logits [rows, vp] of dtype (0 float32, 1 bfloat16), rows contiguous and
-// 16-byte aligned, of which the first `vocab` columns count; labels [rows]
-// int32 or int64 (label_bytes 4 or 8); lse and loss f32 [rows]. Returns the
+// 16-byte aligned, the global columns lo .. lo + vp - 1 of a vocab of
+// `vocab`, of which the first `real` count (lo 0 and real == vocab: the
+// whole row); labels [rows] int32 or int64 (label_bytes 4 or 8); lse and
+// loss f32 [rows] (loss: the label's logit for a slice). Returns the
 // launch's cudaGetLastError(), cudaErrorInvalidValue for what the kernel
 // does not take.
 int xent_fwd(const void* logits, const void* labels, void* lse, void* loss,
-             int dtype, int label_bytes, int rows, int vp, int vocab,
-             void* stream) {
-  if (!shape_ok(logits, dtype, label_bytes, rows, vp, vocab))
+             int dtype, int label_bytes, int rows, int vp, int real, int lo,
+             int vocab, void* stream) {
+  if (!shape_ok(logits, dtype, label_bytes, rows, vp, real, lo, vocab))
     return cudaErrorInvalidValue;
   return by_types(dtype, label_bytes, [&](auto t, auto l) {
     using T = decltype(t);
@@ -284,18 +308,19 @@ int xent_fwd(const void* logits, const void* labels, void* lse, void* loss,
     xent_fwd_kernel<T, L><<<rows, THREADS, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(logits), static_cast<const L*>(labels),
-        static_cast<float*>(lse), static_cast<float*>(loss), vp, vocab);
+        static_cast<float*>(lse), static_cast<float*>(loss), vp, real, lo,
+        vocab);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
-// As xent_fwd's, with lse f32 [rows] from it, g the f32 gradient of the
-// mean loss (one value on the device) and dlogits [rows, vp] of logits'
-// dtype and alignment, every column written.
+// As xent_fwd's, with lse f32 [rows] from it (merged over the slices), g
+// the f32 gradient of the mean loss (one value on the device) and dlogits
+// [rows, vp] of logits' dtype and alignment, every column written.
 int xent_bwd(const void* logits, const void* labels, const void* lse,
              const void* g, void* dlogits, int dtype, int label_bytes,
-             int rows, int vp, int vocab, void* stream) {
-  if (!shape_ok(logits, dtype, label_bytes, rows, vp, vocab) ||
+             int rows, int vp, int real, int lo, int vocab, void* stream) {
+  if (!shape_ok(logits, dtype, label_bytes, rows, vp, real, lo, vocab) ||
       reinterpret_cast<uintptr_t>(dlogits) % 16 != 0)
     return cudaErrorInvalidValue;
   return by_types(dtype, label_bytes, [&](auto t, auto l) {
@@ -305,7 +330,7 @@ int xent_bwd(const void* logits, const void* labels, const void* lse,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(logits), static_cast<const L*>(labels),
         static_cast<const float*>(lse), static_cast<const float*>(g),
-        static_cast<T*>(dlogits), rows, vp, vocab);
+        static_cast<T*>(dlogits), rows, vp, real, lo);
     return static_cast<int>(cudaGetLastError());
   });
 }

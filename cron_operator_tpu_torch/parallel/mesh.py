@@ -33,8 +33,10 @@ block its own heads and its slice of the FFN (the Megatron layout: the QKV
 projection and ``fc_in`` split by output features, ``out`` and ``fc_out``
 by input features, their partial sums reduced over the ``tensor`` group by
 :func:`reduce_from_tensor` and their inputs' gradients by
-:func:`copy_to_tensor`); every other parameter stays whole on every rank
-of those groups, which hold the same rows. Then
+:func:`copy_to_tensor`), and GPT's and BERT's tied table its block of the
+vocab rows (:class:`VocabSplit`, the vocab-parallel layout); every other
+parameter stays whole on every rank of those groups, which hold the same
+rows. Then
 ``DistributedDataParallel`` over the batch axes (:func:`batch_group`)
 without ``fsdp``, or FSDP2 ``fully_shard`` per block and on the root with
 it (sharded on ``fsdp``, replicated over ``data`` and ``seq``, at this
@@ -742,8 +744,9 @@ class TensorSplit:
     ``expert``): its dim ``dim`` is made of ``outer`` blocks (the fused
     ``qkv`` rows: q, k and v), each cut into as many equal pieces as the
     axis's group has ranks, and rank i keeps piece i of every block, in
-    order. A module's rule names its splits without the axis;
-    :func:`split_over_tensor` records the axis it ran them over."""
+    order (:class:`VocabSplit` pads the dim first). A module's rule names
+    its splits without the axis; :func:`split_over_tensor` records the
+    axis it ran them over."""
 
     dim: int
     outer: int = 1
@@ -763,6 +766,56 @@ class TensorSplit:
         blocks = [p.unflatten(self.dim, (self.outer, -1)) for p in pieces]
         return torch.stack(blocks, self.dim + 1).flatten(
             self.dim, self.dim + 2)
+
+    def whole_size(self, piece: int, count: int) -> int:
+        """The whole size of dim ``dim`` from a piece's among ``count``
+        ranks."""
+        return piece * count
+
+
+@dataclass(frozen=True)
+class VocabSplit(TensorSplit):
+    """The Megatron vocab-parallel split of a tied table's rows (dim 0):
+    ``rows`` (the vocab V) padded with zero rows to :meth:`padded`, a
+    multiple of ``multiple`` x the group's ranks, and rank i keeping the
+    i-th of the equal blocks, ``padded / count`` rows from row ``i *
+    padded / count`` on (a multiple of ``multiple``, so a rank's product
+    is as wide a multiple as the whole padded one). The rows past V, on
+    the last ranks, are zero and get no gradient. The whole tensor has V
+    rows: :meth:`whole` cuts the padding off again."""
+
+    rows: int = 0
+    multiple: int = 1
+
+    def padded(self, count: int) -> int:
+        """V rounded up to a multiple of ``multiple * count``."""
+        unit = self.multiple * count
+        return -(-self.rows // unit) * unit
+
+    def offset(self, index: int, count: int) -> Tuple[int, int]:
+        """Rank ``index``'s first row and its count of real rows (0 to
+        ``padded / count``)."""
+        per = self.padded(count) // count
+        lo = index * per
+        return lo, max(0, min(per, self.rows - lo))
+
+    def local(self, whole: torch.Tensor, index: int,
+              count: int) -> torch.Tensor:
+        per = self.padded(count) // count
+        lo, real = self.offset(index, count)
+        shape = list(whole.shape)
+        shape[self.dim] = per
+        piece = whole.new_zeros(shape)
+        piece.narrow(self.dim, 0, real).copy_(
+            whole.narrow(self.dim, min(lo, self.rows), real))
+        return piece
+
+    def whole(self, pieces: Sequence[torch.Tensor]) -> torch.Tensor:
+        return torch.cat(list(pieces), self.dim).narrow(self.dim, 0,
+                                                        self.rows)
+
+    def whole_size(self, piece: int, count: int) -> int:
+        return self.rows
 
 
 @dataclass
@@ -813,7 +866,8 @@ class TensorParallel:
         shape = list(shape)
         split = self.splits.get(name)
         if split is not None:
-            shape[split.dim] *= self.size[split.axis]
+            shape[split.dim] = split.whole_size(shape[split.dim],
+                                                self.size[split.axis])
         return tuple(shape)
 
 
@@ -831,7 +885,8 @@ def split_over_tensor(model: nn.Module, mesh: Any
     Megatron layout: a block's QKV projection keeps the rows of its heads
     and ``fc_in`` its slice of the FFN's outputs (column-parallel), ``out``
     and ``fc_out`` the matching input columns (row-parallel: their partial
-    products are summed over the group, :func:`reduce_from_tensor`). Every
+    products are summed over the group, :func:`reduce_from_tensor`), and
+    a tied table its block of the vocab rows (:class:`VocabSplit`). Every
     rank must hold the whole values (the same seed, or the same
     checkpoint), as for :func:`distribute_parameters`. Returns the record
     of the split, also left on the model as ``tensor_parallel``; None
@@ -901,6 +956,36 @@ class _ReduceFromTensor(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _GatherFromTensor(torch.autograd.Function):
+    """Every rank's ``x [..., n]`` laid end to end on the last dim, in rank
+    order, forward; this rank's own ``n`` columns of the gradient backward
+    (each rank's loss of the whole output is the same, so nothing is
+    summed): the output of a column-parallel product that a caller needs
+    whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        count, n = dist.get_world_size(group), x.shape[-1]
+        ctx.index, ctx.n = dist.get_rank(group), n
+        flat = x.new_empty((count * x.numel(),))
+        dist.all_gather_into_tensor(flat, x.contiguous().reshape(-1),
+                                    group=group)
+        return flat.view(count, *x.shape).movedim(0, -2).reshape(
+            *x.shape[:-1], count * n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(-1, ctx.index * ctx.n, ctx.n), None
+
+
+def gather_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s last dim gathered over ``group`` (every rank's in rank
+    order), its gradient this rank's own columns (the in-place
+    ``torch.distributed`` all-gather); ``x`` itself when ``group`` is
+    None."""
+    return x if group is None else _GatherFromTensor.apply(x, group)
 
 
 def copy_to_tensor(x: torch.Tensor, group) -> torch.Tensor:
@@ -1100,6 +1185,7 @@ __all__ = [
     "TOKEN_AXES",
     "TensorParallel",
     "TensorSplit",
+    "VocabSplit",
     "axis_sizes",
     "batch_group",
     "batch_placements",
@@ -1109,6 +1195,7 @@ __all__ = [
     "distribute_parameters",
     "expert_stacked",
     "features_dims",
+    "gather_from_tensor",
     "group_devices_by_slice",
     "hybrid_grid",
     "hybrid_mesh_for_slices",

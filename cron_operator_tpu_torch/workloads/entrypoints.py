@@ -230,7 +230,8 @@ def _batches(ctx, host_factory, device_factory) -> Iterator[Dict[str, Any]]:
 
 
 def _tied_loss(out, y):
-    hidden, table = out  # return_hidden: the model hands back both
+    hidden, table = out  # return_hidden: the model hands back both (a
+    # tensor rank its VocabPiece of the table)
     return tied_cross_entropy(hidden, table, y)
 
 
@@ -244,14 +245,21 @@ def lm_loss(mesh=None, fused_xent: bool = False):
     model's ``return_hidden`` and the loss of its output.
 
     - ``fused_xent``: :func:`ops.xent.chunked_cross_entropy` of the final
-      hidden states against the tied table, no logits built.
+      hidden states against the tied table, no logits built (under a
+      ``tensor`` axis over the rank's vocab rows, merged over the group).
     - Otherwise, without a mesh or over a mesh of ``data``, ``fsdp``,
       ``seq``, ``expert`` and ``tensor`` axes (``plain_axes`` for the LM
       models, whose blocks split over ``tensor``: DDP or FSDP2 on plain
       modules, each rank's loss over its own rows and block of positions,
-      whole on every rank of a ``tensor`` or ``expert`` group):
+      the same rows on every rank of a ``tensor`` or ``expert`` group):
       :func:`ops.xent.tied_cross_entropy`, the padded bf16 product and the
-      loss kernels of ``ops/csrc/xent.cu`` on the card.
+      loss kernels of ``ops/csrc/xent.cu`` on the card. Under a ``tensor``
+      axis the model hands its rank's block of the vocab rows
+      (``models.layers.VocabPiece``) in place of the table, and the loss
+      is the vocab-parallel one (:func:`ops.xent.
+      vocab_parallel_cross_entropy`): the product on the rank's rows and
+      the kernels on its ``[T, V / t]`` columns, each row merged over the
+      group.
     - A mesh that places DTensors (``pipe`` above 1, which the jobs
       refuse; ``tensor`` places them only for MLP and ResNet, which take
       no LM loss): the model's f32 logits and ``cross_entropy_loss``, the
@@ -559,8 +567,9 @@ def bert(ctx) -> None:
     kv_heads(=0: MHA), rope(=0|1). AdamW at lr 1e-3; targets are the inputs
     (``token_batches``). The loss is :func:`lm_loss`'s: the padded product's
     softmax cross-entropy through the loss kernels (a ``seq`` mesh too, on
-    each rank's block of positions, and a ``tensor`` or ``expert`` mesh,
-    whole on each rank).
+    each rank's block of positions, an ``expert`` mesh whole on each rank,
+    and a ``tensor`` mesh on each rank's block of the vocab, merged over
+    the group).
     """
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 8))
@@ -593,11 +602,12 @@ def gpt(ctx) -> None:
     num_experts(=8), remat(=0),
     fused_xent(=0: the loss is :func:`ops.xent.tied_cross_entropy`, the
     whole padded bf16 logits through the loss kernels, a ``seq`` mesh's on
-    each rank's block of positions, a ``tensor`` or ``expert`` mesh's
-    whole on each rank;
+    each rank's block of positions, an ``expert`` mesh's whole on each
+    rank, a ``tensor`` mesh's on each rank's block of the vocab merged
+    over the group;
     when 1 it is :func:`ops.xent.chunked_cross_entropy` against the tied
-    embedding and the ``[b, s, vocab]`` logits are never built;
-    :func:`lm_loss`),
+    embedding (a ``tensor`` rank's block of it) and the ``[b, s, vocab]``
+    logits are never built; :func:`lm_loss`),
     kv_heads(=0: MHA), rope(=0|1), data(=device|host|fused), platform,
     and the params of :func:`_train_kwargs` (AdamW at lr 1e-3 by
     default). Targets are next-token shifted; an MoE model's weighted

@@ -44,7 +44,13 @@ On four cards it then runs, from ``chip_smoke.py``'s phases 16 and 18:
   replayed) against the same job in
   calls of one step: the losses and every parameter the same bits on every
   rank, K1-K3 by ``seq_launches``, the replayed call's step ms and the
-  NCCL kernels in it.
+  NCCL kernels in it (and their device ms a step).
+
+Every strategy and graph leg also prints each rank's loss kernel launches
+(forward, backward), the loss forward kernel's ``[rows, columns, real
+columns, first column]`` and each rank's peak memory; under ``tensor`` the
+loss runs on the rank's block of the vocab rows
+(``chip_smoke.tensor_xent_shape``), which a leg checks.
 
 ``--profile NAME`` runs one more step of strategy NAME under
 ``torch.profiler`` on every rank and prints rank 0's busy share and top
@@ -173,6 +179,39 @@ def pipe_leg(smoke, stages, root) -> bool:
     return bool(problems)
 
 
+def local_tokens(extra: dict) -> int:
+    """A rank's tokens of the b 8 x 1024 global batch on four cards: the
+    batch and ``seq`` axes split them, the ``tensor`` and ``expert`` ranks
+    hold the same ones."""
+    same = int(extra.get("tensor", 1)) * int(extra.get("expert", 1))
+    return 8 * 1024 // (4 // same)
+
+
+def xent_problems(smoke, name, ranks, rows) -> list:
+    """Under a ``tensor`` axis of t ranks (t from the leg's params), the
+    loss kernels on each rank's block of GPT-2 small's vocab rows at
+    ``rows`` tokens (the ``tensor`` index is the rank's last coordinate);
+    else at the whole padded vocab."""
+    params = dict(STRATEGIES.get(4, {}).get(name, ({},))[0],
+                  **GRAPH_LEGS.get(name, ({},))[0])
+    t = int(params.get("tensor", 1))
+    problems = []
+    for r, got in enumerate(ranks):
+        want = (smoke.tensor_xent_shape(rows, t, r % t) if t > 1
+                else [rows, 50304, smoke.GPT2_VOCAB, 0])
+        if got["xent_shapes"] != [want]:
+            problems.append(f"rank {r}: the loss kernels at "
+                            f"{got['xent_shapes']}, not {want}")
+    return problems
+
+
+def xent_readings(ranks) -> dict:
+    """Each rank's loss kernel launches, shapes and peak memory."""
+    return {"xent_launches": [r["xent"] for r in ranks],
+            "xent_shapes": [r["xent_shapes"] for r in ranks],
+            "peak_gib_by_rank": [r["peak_gib"] for r in ranks]}
+
+
 def graph_leg(smoke, name, root) -> bool:
     """A captured meshed step on four cards against its eager run; returns
     whether it failed."""
@@ -205,6 +244,10 @@ def graph_leg(smoke, name, root) -> bool:
             problems.append(f"rank {r} trained on the {got['path']} path")
         if got["losses"] != ranks[0]["losses"]:
             problems.append(f"rank {r} reports other losses")
+        if got["xent"] != [smoke.GRAPH_MESH_STEPS] * 2:
+            problems.append(f"rank {r}: loss kernels {got['xent']}")
+    problems += xent_problems(smoke, name, ranks, local_tokens(extra))
+    nccl_ms = sum(ms for ms, _ in ranks[0]["nccl"].values())
     print(json.dumps({
         "run": name, "cards": 4, "params": extra, "warmup": MESH_GRAPH_WARMUP,
         "path": ranks[0]["path"], "counts": [r["counts"] for r in ranks],
@@ -212,7 +255,9 @@ def graph_leg(smoke, name, root) -> bool:
         "replayed": ranks[0]["replayed"], "losses": ranks[0]["losses"],
         "step_ms": ranks[0]["step_ms"],
         "kernel_ms_per_step": ranks[0]["busy_ms"], "nccl": ranks[0]["nccl"],
-        "peak_gib": ranks[0]["peak_gib"], "problems": problems}), flush=True)
+        "nccl_ms_per_step": nccl_ms / smoke.GRAPH_CHUNK,
+        "peak_gib": ranks[0]["peak_gib"], **xent_readings(ranks),
+        "problems": problems}), flush=True)
     return bool(problems)
 
 
@@ -263,6 +308,9 @@ def main(argv) -> int:
             ref = refs["moe" if "moe_every" in extra else "dense"]
             problems, readings = smoke.mesh_problems(torch, ranks, ref, local,
                                                      path)
+            if n == 4:
+                problems += xent_problems(smoke, name, ranks,
+                                          local_tokens(extra))
             print(json.dumps({
                 "run": name, "cards": n, "params": extra,
                 "path": ranks[0]["path"],
@@ -271,7 +319,7 @@ def main(argv) -> int:
                 "losses": ranks[0]["losses"], **readings,
                 "step_ms": ranks[0]["step_s"] * 1e3,
                 "tokens_per_s": ranks[0]["tokens_per_s"],
-                "problems": problems}), flush=True)
+                **xent_readings(ranks), "problems": problems}), flush=True)
             if "profile" in ranks[0]:
                 print(f"{name}, rank 0 of {n}:\n{ranks[0]['profile']}",
                       flush=True)

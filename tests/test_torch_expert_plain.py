@@ -102,7 +102,9 @@ RUNS = {
 # rank of a group of 2 holds half of, and the axis it splits over
 EXPERT_DIMS = {"moe.wi": 0, "moe.wo": 0}
 TENSOR_DIMS = {"attn.qkv.weight": 0, "attn.qkv.bias": 0, "out.weight": 1,
-               "fc_in.weight": 0, "fc_in.bias": 0, "fc_out.weight": 1}
+               "fc_in.weight": 0, "fc_in.bias": 0, "fc_out.weight": 1,
+               # the tied table's vocab rows (1024: 512 a rank)
+               "tok_emb.weight": 0}
 # moe_ffn alone: 64 tokens, 4 experts at capacity factor 1
 MOE_FFN = {"seed": 5, "d": 16, "f": 32, "experts": 4, "tokens": 64,
            "capacity_factor": 1.0}
@@ -341,8 +343,8 @@ def test_expert_ranks_hold_the_pieces_of_the_split_rule(worlds, run):
     """Every rank holds half of ``wi`` and ``wo`` on the experts when 2
     divides E (whole at 3 experts), under ``tensor`` half of the
     attention's and the dense FFN's split parameters (the MoE blocks at
-    full width), every other parameter whole, as plain tensors or FSDP2's
-    shards over ``fsdp`` alone."""
+    full width) and of the tied table's vocab rows, every other parameter
+    whole, as plain tensors or FSDP2's shards over ``fsdp`` alone."""
     _, axes, over = RUNS[run][:3]
     net = GPT(_port_config(over))
     split = dict(EXPERT_DIMS) if over["num_experts"] % 2 == 0 else {}
@@ -351,7 +353,8 @@ def test_expert_ranks_hold_the_pieces_of_the_split_rule(worlds, run):
     for got in worlds[run]:
         for name, p in net.named_parameters():
             shape = list(p.shape)
-            key = next((k for k in split if name.endswith("." + k)), None)
+            key = next((k for k in split
+                        if name == k or name.endswith("." + k)), None)
             if key:
                 shape[split[key]] //= 2
             assert got["shapes"][name] == tuple(shape), name

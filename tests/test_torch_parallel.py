@@ -183,7 +183,9 @@ def test_sharded_training_matches_the_jax_trainer(worlds, run):
 # last two components) that holds half
 SPLIT_DIMS = {
     "tensor": {"qkv.weight": 0, "qkv.bias": 0, "out.weight": 1,
-               "fc_in.weight": 0, "fc_in.bias": 0, "fc_out.weight": 1},
+               "fc_in.weight": 0, "fc_in.bias": 0, "fc_out.weight": 1,
+               # the tied table's vocab rows (1024: 512 a rank)
+               "tok_emb.weight": 0},
     "expert": {"moe.wi": 0, "moe.wo": 0},
 }
 

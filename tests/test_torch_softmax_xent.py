@@ -22,9 +22,13 @@ against the former wiring and the JAX package's, on the CPU.
   within ``LOSS_ATOL``, as ``tests/test_torch_train.py``.
 - In one gloo world of 2 rank processes (``tests/torch_mesh_ranks.py``),
   the jobs over ``data`` (DDP), ``fsdp`` (FSDP2), ``seq`` (DDP, ring GPT
-  and Ulysses BERT) and ``tensor`` (DDP over each rank's heads and FFN
-  slice, the table whole) meshes take the loss on the padded logits, with
-  the former wiring's losses to the bit.
+  and Ulysses BERT) and ``tensor`` (DDP over each rank's heads, FFN slice
+  and block of the table's vocab rows) meshes take the loss on the padded
+  logits, with the former wiring's losses to the bit; under ``tensor``
+  the vocab-parallel loss (each rank's slice of the logits, merged over
+  the group) sums the exponentials in another order than the former f32
+  log-softmax of the gathered logits, and its losses stay within
+  ``TENSOR_LOSS_BOUND`` of the former wiring's.
 """
 
 import torch_threads  # noqa: F401  (an xdist worker's torch threads)
@@ -337,13 +341,20 @@ def test_the_jobs_loss_matches_the_jax_trainer(run):
 # ------------------------------------------------------------ the meshes
 
 
-MESH_JOBS = {  # name: (entrypoint, mesh params, the loss kernels' route)
-    "gpt_tensor": ("gpt", {"tensor": "2"}, True),
-    "gpt_data": ("gpt", {}, True),
-    "gpt_fsdp": ("gpt", {"fsdp": "2"}, True),
-    "bert_data": ("bert", {}, True),
-    "gpt_seq": ("gpt", {"seq": "2", "attention": "ring"}, True),
-    "bert_seq": ("bert", {"seq": "2", "attention": "ulysses"}, True),
+# The largest gap between the vocab-parallel loss's per-step losses and
+# the former wiring's in the tiny bf16 gpt job under tensor 2: the first two
+# steps' losses agree to the bit (AdamW's first update is the gradients'
+# signs), and the rounding of the merged sums moves the second update (8.6e-5
+# at step 3 on the CPU).
+TENSOR_LOSS_BOUND = 1e-3
+MESH_JOBS = {  # name: (entrypoint, mesh params, the loss kernels' route,
+    #                  the bound on the gap to the former wiring's losses)
+    "gpt_tensor": ("gpt", {"tensor": "2"}, True, TENSOR_LOSS_BOUND),
+    "gpt_data": ("gpt", {}, True, 0.0),
+    "gpt_fsdp": ("gpt", {"fsdp": "2"}, True, 0.0),
+    "bert_data": ("bert", {}, True, 0.0),
+    "gpt_seq": ("gpt", {"seq": "2", "attention": "ring"}, True, 0.0),
+    "bert_seq": ("bert", {"seq": "2", "attention": "ulysses"}, True, 0.0),
 }
 
 
@@ -355,7 +366,7 @@ def started_world(tmp_path_factory):
     out = tmp_path_factory.mktemp("xent_world")
     jobs = [{"kind": "lm_job", "name": name, "axes": {}, "entry": entry,
              "params": {**JOB_PARAMS[entry], "batch_size": "4", **axes}}
-            for name, (entry, axes, _) in MESH_JOBS.items()]
+            for name, (entry, axes, _, _) in MESH_JOBS.items()]
     procs = start_world(2, jobs, out)
     yield out, procs
     for proc in procs:
@@ -374,12 +385,17 @@ def world(started_world):
 
 @pytest.mark.parametrize("job", sorted(MESH_JOBS))
 def test_meshes_take_their_loss_path(world, job):
-    kernels = MESH_JOBS[job][2]
+    kernels, bound = MESH_JOBS[job][2:]
     for rank in world[job]:
         runs = rank["runs"]
         assert len(runs["job"]["losses"]) == 3
         assert all(np.isfinite(runs["job"]["losses"]))
-        assert runs["job"]["losses"] == runs["former"]["losses"]
+        if bound:
+            gaps = np.abs(np.subtract(runs["job"]["losses"],
+                                      runs["former"]["losses"]))
+            assert gaps.max() <= bound
+        else:
+            assert runs["job"]["losses"] == runs["former"]["losses"]
         assert runs["job"]["kernel_calls"] == (3 if kernels else 0)
         assert runs["former"]["kernel_calls"] == 0
     assert world[job][0]["runs"] == world[job][1]["runs"]

@@ -29,7 +29,9 @@ AdamW, converted JAX weights):
   1e-4), the bounds of ``tests/test_torch_seq_plain.py``; the same 5
   steps in calls of 4 leave the losses and the parameters of calls of one
   step, to the bit; each rank counts a step's model FLOPs as one device
-  does; each rank holds the pieces the split rule gives it.
+  does; each rank holds the pieces the split rule gives it (GPT's and
+  BERT's tied table its block of the vocab rows: ``tests/
+  test_torch_vocab_parallel.py`` trains on the vocab-parallel loss).
 - A checkpoint written under ``fsdp 2 x tensor 2``, restored and written
   again by one process, then restored under ``tensor 2`` and written from
   its gathered state, holds the same bits at every stage (parameters and
@@ -124,7 +126,9 @@ STREAMS = {"gpt": "causal_token_batches", "bert": "token_batches",
 SPLIT_DIMS = {"attn.qkv.weight": 0, "attn.qkv.bias": 0, "attn.q.weight": 0,
               "attn.q.bias": 0, "attn.kv.weight": 0, "attn.kv.bias": 0,
               "out.weight": 1, "fc_in.weight": 0, "fc_in.bias": 0,
-              "fc_out.weight": 1, "moe.wi": 2, "moe.wo": 1}
+              "fc_out.weight": 1, "moe.wi": 2, "moe.wo": 1,
+              # the vocab rows (1024 at tiny: 512 a rank, no padding)
+              "tok_emb.weight": 0}
 CHAIN = {"cfg": {"max_len": SEQ}, "batch": BATCH}
 # meshes of 8 ranks whose FSDP2 mesh replicates over a batch axis beside a
 # tensor axis: name: (axes, FSDP2's grid at tensor coordinate t)
@@ -392,17 +396,17 @@ def test_tensor_model_flops_count_the_one_device_model(worlds, run):
 @pytest.mark.parametrize("run", sorted(RUNS))
 def test_tensor_ranks_hold_the_pieces_of_the_split_rule(worlds, run):
     """Every rank holds half of each split parameter on its split dim (the
-    attention's only when both head counts divide 2), every other
-    parameter whole, as plain tensors or FSDP2's shards over ``fsdp``
-    alone."""
+    attention's only when both head counts divide 2; GPT's and BERT's tied
+    table, half of its vocab rows), every other parameter whole, as plain
+    tensors or FSDP2's shards over ``fsdp`` alone."""
     _, axes, model, over = RUNS[run][:4]
     net = _port_model(model, over)
     heads_whole = over.get("num_kv_heads") == 1
     for got in worlds[run]:
         for name, p in net.named_parameters():
             shape = list(p.shape)
-            key = next((k for k in SPLIT_DIMS if name.endswith("." + k)),
-                       None)
+            key = next((k for k in SPLIT_DIMS
+                        if name == k or name.endswith("." + k)), None)
             if key and not (heads_whole and (key.startswith("attn.")
                                              or key == "out.weight")):
                 shape[SPLIT_DIMS[key]] //= 2
@@ -422,6 +426,8 @@ def test_a_checkpoint_crosses_tensor_meshes_bit_exact(worlds):
     assert [r["restored_step"] for r in worlds["restore"]] == [2, 2]
     assert worlds["restore"][0]["shapes"]["layers.0.attn.qkv.weight"] == (
         192, 128)  # a piece: 2 of the 4 heads of q, k and v
+    assert worlds["restore"][0]["shapes"]["tok_emb.weight"] == (
+        512, 128)  # half of the vocab rows
 
     def same(a, b, path=""):
         if torch.is_tensor(a):

@@ -20,7 +20,14 @@ Jobs (dicts):
   the losses, the first step's gradients, gathered whole, and the
   parameters' placements and shapes. ``contiguous_qkv`` splits the fused
   ``qkv`` rows over ``tensor`` as one contiguous block a rank (a wrong
-  split, which the tests must catch).
+  split, which the tests must catch). ``loss`` (``lm`` or ``fused``)
+  trains on the jobs' LM loss (``entrypoints.lm_loss``: the model's hidden
+  states, under ``tensor`` its ``VocabPiece``, and the tied or the chunked
+  loss) in place of ``cross_entropy_loss`` on the logits; then the results
+  also hold this rank's block of the tied table after the steps
+  (``table``). ``wrong_offset`` hands every ``tensor`` rank the offset 0
+  for its block of the vocab (a wrong merge, which the tests must
+  catch).
 - ``chain``: a GPT tiny (``cfg`` overrides; with MoE blocks its aux loss
   added) from seed 0 trains on fused data to ``steps`` with
   a checkpoint store at ``dir`` (``save_every``), resuming from its newest
@@ -63,8 +70,19 @@ def _config(job):
 
     maker = {"bert": BertConfig.tiny, "vit": ViTConfig.tiny}.get(
         job.get("model"), GPTConfig.tiny)
+    lm = {"return_hidden": True} if job.get("loss") else {}
     return maker(**{"dtype": torch.float32, "attention_impl": "xla",
-                    **job.get("cfg", {})})
+                    **lm, **job.get("cfg", {})})
+
+
+def _trainer_kwargs(job, mesh) -> Dict[str, Any]:
+    """The Trainer's ``loss_fn`` under the job's ``loss`` (none: the
+    Trainer's default, ``cross_entropy_loss`` on the logits)."""
+    from cron_operator_tpu_torch.workloads.entrypoints import lm_loss
+
+    if not job.get("loss"):
+        return {}
+    return {"loss_fn": lm_loss(mesh, job["loss"] == "fused")[1]}
 
 
 def _model(job):
@@ -157,7 +175,11 @@ def _whole_params(model, tensors) -> Dict[str, Any]:
 def _train(job, mesh) -> Dict[str, Any]:
     import torch
 
-    from cron_operator_tpu_torch.models.layers import GroupedQKVProjection
+    from cron_operator_tpu_torch.models import bert, gpt
+    from cron_operator_tpu_torch.models.layers import (
+        GroupedQKVProjection,
+        VocabPiece,
+    )
     from cron_operator_tpu_torch.parallel.mesh import TensorSplit
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
@@ -168,19 +190,24 @@ def _train(job, mesh) -> Dict[str, Any]:
     if job.get("contiguous_qkv"):
         GroupedQKVProjection.tensor_splits = lambda self, t: {
             k: TensorSplit(0) for k in rule(self, t)}
+    piece = gpt.vocab_piece
+    if job.get("wrong_offset"):
+        gpt.vocab_piece = bert.vocab_piece = lambda w, v, group: (
+            w if group is None else VocabPiece(w, 0, v, group))
     try:
         trainer = Trainer(model, TrainConfig(
             steps_per_call=1, stage_async=False,
             aux_loss_in_output=getattr(model, "has_moe", False),
-            **job.get("train", {})), mesh=mesh)
+            **job.get("train", {})), mesh=mesh, **_trainer_kwargs(job, mesh))
+        batches = _batches(job, cfg)
+        stats = trainer.run(batches, 1)
+        grads = _whole_params(model, ((n, p.grad)
+                                      for n, p in model.named_parameters()))
+        stats += trainer.run(batches, job["steps"])
     finally:
         GroupedQKVProjection.tensor_splits = rule
-    batches = _batches(job, cfg)
-    stats = trainer.run(batches, 1)
-    grads = _whole_params(model, ((n, p.grad)
-                                  for n, p in model.named_parameters()))
-    stats += trainer.run(batches, job["steps"])
-    return {
+        gpt.vocab_piece = bert.vocab_piece = piece
+    out = {
         "losses": [s.loss for s in stats],
         "grads": grads,
         "placements": {n: placements(p, mesh)
@@ -189,6 +216,11 @@ def _train(job, mesh) -> Dict[str, Any]:
         "final": _whole_params(model, model.named_parameters()),
         "path": _path(model),
     }
+    if job.get("loss"):
+        out["table"] = _whole(model.tok_emb.weight)
+        if "tensor" in mesh.mesh_dim_names:
+            out["tensor_index"] = mesh.get_local_rank("tensor")
+    return out
 
 
 def _path(model) -> str:
@@ -223,7 +255,7 @@ def _data_parallel(job, mesh) -> Dict[str, Any]:
     trainer = Trainer(model, TrainConfig(
         steps_per_call=job["chunk"],
         aux_loss_in_output=getattr(model, "has_moe", False),
-        **job.get("train", {})), mesh=mesh)
+        **job.get("train", {})), mesh=mesh, **_trainer_kwargs(job, mesh))
     stats = trainer.run(_batches(job, cfg), job["steps"])
     out["chunked"] = {
         "losses": [s.loss for s in stats],
@@ -380,7 +412,7 @@ def _chain(job, mesh) -> Dict[str, Any]:
                                aux_loss_in_output=model.has_moe),
             sample_fn=data.causal_token_sample(job["batch"], cfg.max_len,
                                                cfg.vocab_size),
-            checkpoint=store, mesh=mesh)
+            checkpoint=store, mesh=mesh, **_trainer_kwargs(job, mesh))
         restored = _whole_params(model, model.named_parameters())
         step0 = trainer.steps_done
         import itertools
@@ -420,7 +452,7 @@ def _tensor_restore(job, mesh) -> Dict[str, Any]:
                                aux_loss_in_output=model.has_moe),
             sample_fn=data.causal_token_sample(job["batch"], cfg.max_len,
                                                cfg.vocab_size),
-            checkpoint=store, mesh=mesh)
+            checkpoint=store, mesh=mesh, **_trainer_kwargs(job, mesh))
         state = trainer.host_state()
     finally:
         store.close()
