@@ -190,8 +190,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
     a one-rank run at lr 0 (dense, and with the MoE blocks) must fall
     outside both; K1-K3 are timed at the
     local shape; the step ms is printed as two ranks time-sharing the
-    card, not as scaling. ``hack/torch_mesh_cards.py`` runs the same ranks
-    and checks over NCCL, one rank a card.
+    card, not as scaling. Then the image jobs under ``tensor=2``
+    (``MESH_IMAGE_STRATEGIES``): ``mnist`` at b 256 and ``resnet50`` at
+    full width, 224^2, b 16 (built in f32 with TF32 off, at lr 0.001:
+    bf16's own noise, and the job's lr, which makes one rank's loss
+    climb, read above the bounds with no split at all), SGD,
+    ``data=host``, 3 steps, each against a one-rank run of its own batches
+    with the same checks and its own lr-0 run (``image_mesh_problems``):
+    the plain path (DDP over a batch group of one rank; each rank holds the
+    MLP's slice of its first pair of hidden layers, or each ResNet block's
+    slice of its first two convs at its first norm's group boundaries);
+    then ``resnet50`` under ``tensor=2`` as the job runs it, bf16 at its lr
+    (``MESH_IMAGE_JOB_RUN``), held by the same checks but the two bounds;
+    under ``resnet50`` each rank's
+    GroupNorm kernels 53 times a step each way, by epilogue as one card's
+    (33 relu, 16 residual then relu, 4 none; 33 masked backward), its
+    forward launches at the rank's shapes (each block's first norm at half
+    its channels and 16 groups, ``RESNET50_SPLIT_NORMS``) and by
+    ``forward_plan``'s design; those norms checked against their plain
+    versions and timed at the rank's shapes (``tensor_norm_rows``: each
+    split shape's row, and the sums over the 53 norms a step beside the
+    bound, the plain versions and ``F.group_norm``), the kernels line's
+    ``@mesh_resnet50_tensor`` rows, counted on the bf16 run.
+    ``hack/torch_mesh_cards.py`` runs the
+    same ranks and checks over NCCL, one rank a card.
 16. Sequence and pipeline parallelism on one card, two ranks of a gloo
     group on ``cuda:0`` as in phase 15: ``gpt attention=ring seq=2``
     (GPT-2 small, b 8 x 1024 global, each rank ``[8, 512]``, causal) and
@@ -200,9 +222,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
     (``MESH_LOSS_BOUND``, ``MESH_UPDATE_BOUND``, and a one-rank run at lr
     0 outside both) against a one-rank ``attention=flash`` run of the same
     batches (K1-K3 over the whole sequence: the arithmetic that the bodies
-    run on their blocks, so the check isolates the split), with the gap to
-    a one-rank ``attention=xla`` run (the plain f32 attention) printed
-    beside; both ranks report the same losses. The bodies run K1, K2 and
+    run on their blocks, so the check isolates the split); both ranks
+    report the same losses. The bodies run K1, K2 and
     K3 (``flash_attention_block``), all sm90, once per computed block in
     each step and layer (``seq_launches``; counts set to 0 just before the
     job and read just after, by mask): the ring's rank 0 36 causal, rank 1
@@ -2726,6 +2747,49 @@ GPT2_VOCAB = 50257
 MESH_FROZEN_PARAMS = {"lr": "0"}
 MESH_STEPS = int(MESH_PARAMS["steps"])
 MESH_LAYERS = 12  # GPT-2 small: one K1, K2 and K3 launch a layer and step
+# The image jobs under tensor 2 on the same two gloo ranks, each held by the
+# checks above against a one-rank run of its own batches, 3 steps of SGD:
+# mnist at its default batch and rate, and resnet50 at full width and 224^2
+# with b 16 (every rank of a tensor group holds the whole batch, and gloo
+# stages each pair's all-reduces of the activations through the host). The
+# checks read resnet50 built in f32 with TF32 off (IMAGE_COMPUTE) at lr
+# 0.001: in bf16 the bounds sit below the model's own rounding noise (one
+# rank against data 2, no split, reads a loss gap near 0.013 and an update
+# distance near 0.15 at lr 0.01), and at the job's lr 0.1 one rank's loss
+# climbs 7.4 -> 63 in 3 steps, which amplifies any difference in the order
+# of a sum. MESH_IMAGE_JOB_RUN then runs resnet50 under tensor 2 as the job
+# runs it (bf16, its own lr) for the kernels' counts, the step and the peak
+# memory.
+# A param that :func:`run_image` takes off before the job sees it: "float32"
+# (or "float64") builds resnet50 in that dtype with TF32 off
+IMAGE_COMPUTE = "smoke_compute"
+# Another: "plain" runs the model's GroupNorms as the plain differentiable
+# ops (``ops.group_norm.group_norm_reference``) in place of the kernels
+IMAGE_NORM = "smoke_norm"
+# Another: "deterministic" holds the whole job to cuDNN's deterministic
+# kernels (a one-rank run in the mode a split conv model's steps run in),
+# "default" leaves the trainer's steps on cuDNN's own choice (a split conv
+# model's ranks, whose steps the trainer otherwise holds deterministic)
+IMAGE_CUDNN = "smoke_cudnn"
+MESH_IMAGE_PARAMS = {
+    "mnist": {"batch_size": "256", "steps": "3", "data": "host",
+              "steps_per_call": "1"},
+    "resnet50": {"batch_size": "16", "image_size": "224", "steps": "3",
+                 "data": "host", "steps_per_call": "1", "lr": "0.001",
+                 IMAGE_COMPUTE: "float32"}}
+# name: (job, strategy params)
+MESH_IMAGE_STRATEGIES = {"mnist_tensor": ("mnist", {"tensor": "2"}),
+                         "resnet50_tensor": ("resnet50", {"tensor": "2"})}
+# (name, job, params, strategy params)
+MESH_IMAGE_JOB_RUN = ("resnet50_tensor_bf16", "resnet50", {
+    k: v for k, v in MESH_IMAGE_PARAMS["resnet50"].items()
+    if k not in ("lr", IMAGE_COMPUTE)}, {"tensor": "2"})
+IMAGE_JOBS = ("mnist", "resnet50")
+# ResNet-50's norms that a rank of tensor 2 runs on half the channels and
+# 16 of the 32 groups, each block's first (the column conv's): (its
+# channels, map side, blocks), counted here apart from the port's rule.
+RESNET50_SPLIT_NORMS = ((32, 56, 3), (64, 56, 1), (64, 28, 3), (128, 28, 1),
+                        (128, 14, 5), (256, 14, 1), (256, 7, 2))
 
 
 class LossLog(dict):
@@ -2758,25 +2822,9 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
     losses, step s, tokens/s, the peak memory in GiB, the trainer's path
     (:func:`trainer_path`), the attention impl and mask, and the ``seq``
     axis's size and this rank's coordinate on it (and the profile)."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
-
     fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
     from cron_operator_tpu_torch.backends.registry import JobContext
-    from cron_operator_tpu_torch.parallel.mesh import tensor_parallel
     from cron_operator_tpu_torch.workloads import data, entrypoints
-
-    def whole(t, split=None, name=None):
-        """``t`` whole, f32 on the host: a DTensor's full tensor, and a
-        piece of a parameter split over ``tensor`` or ``expert`` gathered
-        over its group (a collective: every rank calls it; on the host over
-        gloo)."""
-        t = t.detach()
-        t = t.full_tensor() if isinstance(t, DTensor) else t
-        if split is not None and name in split.splits:
-            on_host = dist.get_backend(split.group_of(name)) == "gloo"
-            t = split.gather(name, t.cpu() if on_host else t)
-        return t.to("cpu", torch.float32, copy=True)
 
     shapes, made, xent_shapes = set(), [], set()
     xent = importlib.import_module("cron_operator_tpu_torch.ops.xent")
@@ -2792,7 +2840,7 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
     real_trainer = entrypoints.Trainer
 
     def trainer(model, *args, **kw):
-        start = {n: whole(p) for n, p in model.named_parameters()}
+        start = {n: host_whole(torch, p) for n, p in model.named_parameters()}
         made.append((real_trainer(model, *args, **kw), start))
         return made[-1][0]
 
@@ -2833,12 +2881,8 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
                   causal=job == "gpt", seq_size=sizes.get("seq", 1),
                   seq_coord=(tr.mesh.get_local_rank("seq")
                              if sizes.get("seq", 1) > 1 else 0))
-    split = tensor_parallel(tr.model)
-    delta = {n: whole(p, split, n) - start[n]
-             for n, p in tr.model.named_parameters()}
-    if not dist.is_initialized() or dist.get_rank() == 0:
-        torch.save(delta, delta_out)
-    del delta, start
+    save_delta(torch, tr, start, delta_out)
+    del start
     stream = data.token_batches if job == "bert" else data.causal_token_batches
     batch = next(stream(int(params["batch_size"]), int(params["seq_len"]),
                         tr.model.config.vocab_size))
@@ -2851,6 +2895,242 @@ def run_gpt(torch, params: dict, delta_out: str, profile: bool = False,
                            lambda: tr.step(batch))
         result["profile"] = text.getvalue()
     return result
+
+
+def host_whole(torch, t, split=None, name=None):
+    """``t`` whole, f32 on the host: a DTensor's full tensor, and a piece of
+    a parameter split over ``tensor`` or ``expert`` gathered over its group
+    (a collective: every rank calls it; on the host over gloo)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    t = t.detach()
+    t = t.full_tensor() if isinstance(t, DTensor) else t
+    if split is not None and name in split.splits:
+        on_host = dist.get_backend(split.group_of(name)) == "gloo"
+        t = split.gather(name, t.cpu() if on_host else t)
+    return t.to("cpu", torch.float32, copy=True)
+
+
+def save_delta(torch, tr, start: dict, delta_out: str) -> None:
+    """Writes to ``delta_out`` (on rank 0; every rank gathers) the change of
+    every parameter of trainer ``tr``'s model since ``start``, whole, f32."""
+    import torch.distributed as dist
+
+    from cron_operator_tpu_torch.parallel.mesh import tensor_parallel
+
+    split = tensor_parallel(tr.model)
+    delta = {n: host_whole(torch, p, split, n) - start[n]
+             for n, p in tr.model.named_parameters()}
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        torch.save(delta, delta_out)
+
+
+def norm_key(c: int, side: int, groups: int) -> str:
+    """A GroupNorm launch's shape as a key of the JSON lines."""
+    return f"C{c} {side}x{side} g{groups}"
+
+
+def resnet50_rank_norms(split: bool) -> dict:
+    """A rank's GroupNorm forward launches a ResNet-50 step, by (channels,
+    side, groups): :data:`RESNET50_NORMS`, and on a rank of tensor 2
+    (``split``) each block's first norm (:data:`RESNET50_SPLIT_NORMS`) at
+    half its channels and groups."""
+    counts = {(c, side, NORM_GROUPS): n for c, side, n in RESNET50_NORMS}
+    for c, side, n in RESNET50_SPLIT_NORMS if split else ():
+        counts[2 * c, side, NORM_GROUPS] -= n
+        counts[c, side, NORM_GROUPS // 2] = n
+    return {k: n for k, n in counts.items() if n}
+
+
+def resnet50_tensor_mix() -> dict:
+    """The forward epilogues of a rank of tensor 2's norms a ResNet-50
+    step, by (channels, side, groups): :data:`RESNET50_EPILOGUES`, each
+    split norm a relu (a block's first norm)."""
+    mix = {(c, side, NORM_GROUPS): dict(m)
+           for (c, side), m in RESNET50_EPILOGUES.items()}
+    for c, side, n in RESNET50_SPLIT_NORMS:
+        mix[2 * c, side, NORM_GROUPS]["relu"] -= n
+        mix[c, side, NORM_GROUPS // 2] = {"relu": n}
+    return {k: {e: n for e, n in m.items() if n} for k, m in mix.items()
+            if sum(m.values())}
+
+
+def run_image(torch, params: dict, delta_out: str, profile: bool = False,
+              job: str = "resnet50", readings=None):
+    """:func:`run_gpt` for an image job (``mnist`` or ``resnet50``): the job
+    on ``params`` in this process, every kernel count set to 0 just before
+    and read just after. Returns the GroupNorm kernels' launches (forward,
+    backward), by design and by epilogue, the forward launches by
+    :func:`norm_key` (each Python launch: a replay is not one), per-step
+    losses, step s, the peak memory in GiB and the trainer's path; writes
+    the parameters' change to ``delta_out`` (:func:`save_delta`);
+    ``readings`` and ``profile`` as :func:`run_gpt`'s."""
+    fa = importlib.import_module("cron_operator_tpu_torch.ops.flash_attention")
+    gn = importlib.import_module("cron_operator_tpu_torch.ops.group_norm")
+    from cron_operator_tpu_torch.backends.registry import JobContext
+    from cron_operator_tpu_torch.workloads import data, entrypoints
+
+    made, shapes = [], {}
+    real_trainer, launch = entrypoints.Trainer, gn._launch_forward
+    real_resnet = entrypoints.ResNet50
+    compute, cudnn = params.get(IMAGE_COMPUTE), params.get(IMAGE_CUDNN)
+    norm = params.get(IMAGE_NORM)
+    params = {k: v for k, v in params.items()
+              if k not in (IMAGE_COMPUTE, IMAGE_CUDNN, IMAGE_NORM)}
+    if cudnn == "deterministic":  # this process runs the one job
+        torch.backends.cudnn.deterministic = True
+    if norm == "plain":  # this process runs the one job
+        layers = importlib.import_module(
+            "cron_operator_tpu_torch.models.layers")
+        layers.group_norm = lambda x, weight, bias, *, groups, eps, \
+            out_dtype, relu, residual: gn.group_norm_reference(
+                x, weight, bias, groups, eps, out_dtype, relu, residual)[0]
+    if compute in ("float32", "float64"):
+        # the mesh checks' precision: f32 convs, norms and head, TF32 off
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        entrypoints.ResNet50 = lambda **kw: real_resnet(
+            dtype=getattr(torch, compute), **kw)
+
+    def trainer(model, *args, **kw):
+        start = {n: host_whole(torch, p) for n, p in model.named_parameters()}
+        made.append((real_trainer(model, *args, **kw), start))
+        if cudnn == "default":
+            made[-1][0]._deterministic = False
+        return made[-1][0]
+
+    def traced(x, weight, bias, groups, *args, **kw):
+        key = norm_key(x.shape[1], x.shape[2], groups)
+        shapes[key] = shapes.get(key, 0) + 1
+        return launch(x, weight, bias, groups, *args, **kw)
+
+    entrypoints.Trainer, gn._launch_forward = trainer, traced
+    try:
+        ctx = JobContext("chip-smoke-mesh", "default", {}, params,
+                         progress=LossLog())
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(fa)
+        getattr(entrypoints, job)(ctx)
+        torch.cuda.synchronize()
+        wrappers = norm_wrappers()
+        result = {"norms": [fn.launches for fn in wrappers],
+                  "norm_designs": [dict(fn.launches_by_design)
+                                   for fn in wrappers],
+                  "norm_epilogues": [dict(fn.launches_by_epilogue)
+                                     for fn in wrappers],
+                  "norm_shapes": shapes, "counts": read_counts(fa),
+                  "losses": ctx.progress.losses,
+                  "step_s": ctx.progress["avg_step_time_s"],
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    finally:
+        entrypoints.Trainer, gn._launch_forward = real_trainer, launch
+        entrypoints.ResNet50 = real_resnet
+    tr, start = made[0]
+    result["path"] = trainer_path(tr)
+    result["whole_digest"] = whole_digest(torch, tr)
+    save_delta(torch, tr, start, delta_out)
+    del start
+    b = int(params["batch_size"])
+    batch = next(data.mnist_batches(b) if job == "mnist" else
+                 data.imagenet_batches(b, int(params["image_size"])))
+    if readings is not None:
+        result.update(readings(tr, batch))
+    if profile:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            profile_window(torch, card_line(), "one mesh step",
+                           lambda: tr.step(batch))
+        result["profile"] = text.getvalue()
+    return result
+
+
+def whole_digest(torch, tr) -> str:
+    """A hash of the bits of every parameter of trainer ``tr``'s model that
+    a ``tensor`` or ``expert`` split leaves whole (this rank's local tensor),
+    which every rank of a DDP mesh must hold alike."""
+    import hashlib
+
+    from torch.distributed.tensor import DTensor
+
+    from cron_operator_tpu_torch.parallel.mesh import tensor_parallel
+
+    split = tensor_parallel(tr.model)
+    digest = hashlib.sha256()
+    for name, p in tr.model.named_parameters():
+        if split is None or name not in split.splits:
+            p = p.to_local() if isinstance(p, DTensor) else p
+            digest.update(p.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def image_mesh_problems(torch, ranks: list, ref, job: str, steps: int,
+                        batch: int, split: bool, path=None,
+                        dtype: str = "bfloat16"):
+    """Every check of an image job's mesh run: every rank on ``path``
+    (when given); every rank's ``steps`` losses finite and equal, and the
+    parameters that no split cuts the same bits (:func:`whole_digest`,
+    after the run: DDP's ranks hold one replica); no flash
+    kernel launched; the GroupNorm kernels, under ``resnet50``, 53 times a
+    step each way on every rank, by epilogue as one card's
+    (:func:`resnet50_epilogues`), its forward launches at the rank's shapes
+    (:func:`resnet50_rank_norms` of ``split``, a rank of tensor 2) and by
+    design ``forward_plan``'s at those shapes, the rank's ``batch`` rows and
+    the run's ``dtype``, none under ``mnist``; with a reference ``ref``, the
+    loss gap and the update distance against it within their bounds.
+    Returns the problems and the two readings (None without ``ref``)."""
+    gn = importlib.import_module("cron_operator_tpu_torch.ops.group_norm")
+    per_step = sum(n for _, _, n in RESNET50_NORMS) if job == "resnet50" else 0
+    problems = []
+    for r, got in enumerate(ranks):
+        if path is not None and got["path"] != path:
+            problems.append(f"rank {r} trained on the {got['path']} path, "
+                            f"not {path}")
+        if got["losses"] != ranks[0]["losses"]:
+            problems.append(f"ranks report different losses "
+                            f"{[x['losses'] for x in ranks]}")
+        if len(got["losses"]) != steps or not all(
+                math.isfinite(x) for x in got["losses"]):
+            problems.append(f"rank {r} published the losses {got['losses']}, "
+                            f"not {steps} finite ones")
+        if got["whole_digest"] != ranks[0]["whole_digest"]:
+            problems.append(f"rank {r}'s whole parameters are not rank 0's "
+                            "bits")
+        if list(got["counts"]) != [0, 0, 0]:
+            problems.append(f"rank {r} launched K1/K2/K3 {got['counts']}")
+        if got["norms"] != [per_step * steps] * 2:
+            problems.append(f"rank {r} launched the GroupNorm kernels "
+                            f"{got['norms']} times, not {per_step * steps} "
+                            "each way")
+        if not per_step:
+            continue
+        want = [dict(e) for e in resnet50_epilogues(steps)]
+        if got["norm_epilogues"] != want:
+            problems.append(f"rank {r}: GroupNorm launches by epilogue "
+                            f"{got['norm_epilogues']}, not {want}")
+        shapes = resnet50_rank_norms(split)
+        want = {norm_key(*k): n * steps for k, n in shapes.items()}
+        if got["norm_shapes"] != want:
+            problems.append(f"rank {r}: GroupNorm forward launches by shape "
+                            f"{got['norm_shapes']}, not {want}")
+        planned = dict.fromkeys(gn.FORWARD_DESIGNS, 0)
+        for (c, side, g), n in shapes.items():
+            planned[gn.forward_plan(batch, c, side * side, g,
+                                    getattr(torch, dtype))["design"]] += (
+                                        n * steps)
+        if got["norm_designs"][0] != planned:
+            problems.append(f"rank {r}: GroupNorm forward launches by design "
+                            f"{got['norm_designs'][0]}, not forward_plan's "
+                            f"{planned}")
+    if ref is None:
+        return problems, {"loss_gap": None, "update_distance": None}
+    gap, dist = mesh_readings(torch, ranks, ref, steps)
+    if not gap <= MESH_LOSS_BOUND:
+        problems.append(f"losses {ranks[0]['losses']} not within "
+                        f"{MESH_LOSS_BOUND} of the reference's {ref['losses']}")
+    if not dist <= MESH_UPDATE_BOUND:
+        problems.append(f"update distance {dist} above {MESH_UPDATE_BOUND}")
+    return problems, {"loss_gap": gap, "update_distance": dist}
 
 
 def tensor_xent_shape(rows: int, t: int, index: int) -> list:
@@ -2889,9 +3169,11 @@ def mesh_rank(rank: int, world: int, local_rank: int, backend: str,
     ``cuda:local_rank`` (none for a gloo world of one; NCCL's asynchronous
     error handling off, which a captured step needs), runs ``task``
     (``gpt`` or ``bert``: :func:`run_gpt` of that job, with the sequence
-    readings under ``seq``; ``pipeline``: :func:`run_pipeline` over
-    ``world`` stages; ``graph``: :func:`run_mesh_graph`) and writes its
-    result to ``out`` (the parameter change to ``out.delta.pt``)."""
+    readings under ``seq``; ``mnist`` or ``resnet50``: :func:`run_image`;
+    ``pipeline``: :func:`run_pipeline` over ``world`` stages; ``graph``,
+    or ``graph:<job>`` for another job than ``gpt``:
+    :func:`run_mesh_graph`) and writes its result to ``out`` (the
+    parameter change to ``out.delta.pt``)."""
     import faulthandler
 
     faulthandler.enable()  # a crashed rank leaves its stack in its stderr
@@ -2910,8 +3192,12 @@ def mesh_rank(rank: int, world: int, local_rank: int, backend: str,
     try:
         if task == "pipeline":
             result = run_pipeline(torch, world)
-        elif task == "graph":
-            result = run_mesh_graph(torch, params, out)
+        elif task.startswith("graph"):
+            result = run_mesh_graph(torch, params, out,
+                                    task.partition(":")[2] or "gpt")
+        elif task in IMAGE_JOBS:
+            result = run_image(torch, params, out + ".delta.pt", profile,
+                               job=task)
         else:
             seq = int(params.get("seq", 1)) > 1
             result = run_gpt(torch, params, out + ".delta.pt", profile,
@@ -2966,12 +3252,12 @@ def update_distance(torch, delta: str, ref_delta: str) -> float:
     return math.sqrt(num / den)
 
 
-def mesh_readings(torch, run: list, ref: dict):
-    """A mesh run (its ranks' results) against the reference's: the largest
-    per-step loss gap and the update distance."""
-    if len(ref["losses"]) != MESH_STEPS or len(run[0]["losses"]) != MESH_STEPS:
+def mesh_readings(torch, run: list, ref: dict, steps: int = MESH_STEPS):
+    """A mesh run (its ranks' results) of ``steps`` steps against the
+    reference's: the largest per-step loss gap and the update distance."""
+    if len(ref["losses"]) != steps or len(run[0]["losses"]) != steps:
         fail(f"a mesh run published {len(run[0]['losses'])} losses and its "
-             f"reference {len(ref['losses'])}, not {MESH_STEPS}")
+             f"reference {len(ref['losses'])}, not {steps}")
     gap = max(abs(a - b) for a, b in zip(run[0]["losses"], ref["losses"]))
     return gap, update_distance(torch, run[0]["delta"], ref["delta"])
 
@@ -3017,7 +3303,8 @@ def frozen_reading(torch, refs: dict, root: str, params: dict = MESH_PARAMS,
     reference: its readings must fail both bounds."""
     (frozen,) = spawn_ranks(1, {**params, **MESH_FROZEN_PARAMS}, root,
                             f"frozen_{task}_{kind}", task=task)
-    gap, dist = mesh_readings(torch, [frozen], refs[kind])
+    gap, dist = mesh_readings(torch, [frozen], refs[kind],
+                              int(params["steps"]))
     if not (gap > MESH_LOSS_BOUND and dist > MESH_UPDATE_BOUND):
         fail(f"a run whose parameters never move reads a loss gap {gap} and "
              f"an update distance {dist}: within the bounds "
@@ -3120,13 +3407,187 @@ def phase_mesh(torch, fa, card):
     return results
 
 
+def tensor_norm_rows(torch, card, b: int) -> dict:
+    """The GroupNorm kernels at a rank of tensor 2's ResNet-50 norms with
+    ``b`` rows in bf16 (:func:`resnet50_rank_norms`): each split shape
+    (half the channels, 16 groups) held to its plain versions
+    (``check_norm``, both designs); every shape's forward and backward
+    with the epilogues the rank runs (:func:`resnet50_tensor_mix`) timed
+    (device ms, card held busy) beside its bound, its plain version and
+    the library call (``F.group_norm``, ``native_group_norm_backward`` on
+    NCHW copies; no epilogue), each split shape's row printed. Returns the
+    kernels line's rows: each direction's sums over the 53 norms a step,
+    and the largest |y - plain| and |dx - plain| of the split shapes."""
+    import torch.nn.functional as F
+
+    gn = importlib.import_module("cron_operator_tpu_torch.ops.group_norm")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bf16, eps = torch.bfloat16, NORM_EPS
+    totals = {d: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"),
+                               0.0) for d in ("forward", "backward")}
+    worst = {"forward": 0.0, "backward": 0.0}
+    bound_by = set()
+    for (c, side, g), mix in resnet50_tensor_mix().items():
+        hw = side * side
+
+        def nhwc():
+            return torch.randn(b, side, side, c, generator=gen,
+                               device="cuda").permute(0, 3, 1, 2).to(bf16)
+        x, dy, res = nhwc(), nhwc(), nhwc()
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        split = g != NORM_GROUPS
+        if split:
+            errs = check_norm(torch, gn, f"tensor rank bf16 b{b} C{c} "
+                              f"{side}x{side} g{g}", x, dy, gamma, beta,
+                              bf16, g)
+            worst["forward"] = max(worst["forward"], errs[0])
+            worst["backward"] = max(worst["backward"], errs[1])
+        _, mean, rstd = gn.group_norm_forward(x, gamma, beta, g, eps, bf16)
+        gamma_lp, beta_lp = gamma.to(bf16), beta.to(bf16)
+        x_c, dy_c = x.contiguous(), dy.contiguous()
+        _, lmean, lrstd = torch.ops.aten.native_group_norm(
+            x_c, gamma_lp, beta_lp, b, c, hw, g, eps)
+        library = {
+            "forward": lambda: F.group_norm(x, g, gamma_lp, beta_lp, eps),
+            "backward": lambda: torch.ops.aten.native_group_norm_backward(
+                dy_c, x_c, lmean, lrstd, gamma_lp, b, c, hw, g, [True] * 3)}
+        for epilogue, n in mix.items():
+            relu = epilogue != "none"
+            r = res if epilogue == "residual_relu" else None
+            masked = BACKWARD_EPILOGUE[epilogue] == "relu"
+            fns = {"forward": (
+                lambda: gn.group_norm_forward(x, gamma, beta, g, eps, bf16,
+                                              relu, r),
+                lambda: gn.group_norm_reference(x, gamma, beta, g, eps, bf16,
+                                                relu, r)),
+                "backward": (
+                lambda: gn.group_norm_backward(dy, x, mean, rstd, gamma, g,
+                                               masked, beta, eps),
+                lambda: gn.group_norm_backward_reference(
+                    dy, x, mean, rstd, gamma, g, masked, beta, eps))}
+            for direction, (kernel, plain) in fns.items():
+                ms = device_ms(torch, kernel, 20)
+                plain_ms = device_ms(torch, plain, 3)
+                library_ms = device_ms(torch, library[direction], 10)
+                bound_ms, by = norm_bound(
+                    b, c, hw, 2, direction,
+                    epilogue if direction == "forward"
+                    else BACKWARD_EPILOGUE[epilogue], g)
+                bound_by.add(by)
+                for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                               ("library_ms", library_ms),
+                               ("bound_ms", bound_ms)):
+                    totals[direction][key] += n * v
+                if split:
+                    print(f"[{card}] group_norm {direction} on a tensor "
+                          f"rank, split: b{b} C{c} {side}x{side} g{g} bf16 "
+                          f"with {epilogue} (x{n} a step): "
+                          f"{ms * 1e3:.2f} us (device) | bound "
+                          f"{bound_ms * 1e3:.2f} us ({bound_ms / ms:.1%}, "
+                          f"{by}) | plain {plain_ms * 1e3:.2f} us | library "
+                          f"{library_ms * 1e3:.2f} us", flush=True)
+        del x, dy, res, mean, rstd, x_c, dy_c, lmean, lrstd, library, fns
+        release(torch)
+    print(f"[{card}] group_norm over a tensor rank's 53 norms a ResNet-50 "
+          f"step at b{b} (its epilogues; the library call without them): "
+          + json.dumps(totals), flush=True)
+    return {d: {"max_abs_err": worst[d], "ms": totals[d]["ms"],
+                "plain_ms": totals[d]["plain_ms"],
+                "bound_ms": totals[d]["bound_ms"],
+                "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
+                "library_ms": totals[d]["library_ms"]}
+            for d in ("forward", "backward")}
+
+
+def phase_mesh_images(torch, card) -> dict:
+    """Phase 15's image jobs (:data:`MESH_IMAGE_STRATEGIES`): each job's
+    one-rank run of :data:`MESH_IMAGE_PARAMS` and its run at lr 0, which
+    must fail both bounds, then the two ranks on the one card under the
+    strategy, held by :func:`image_mesh_problems` (the plain path, DDP over
+    a batch group of one rank: each rank the whole batch, MLP's first pair
+    and each ResNet block's first two convs split, the split norms on the
+    GroupNorm kernels at half their channels and groups); then
+    :data:`MESH_IMAGE_JOB_RUN`, resnet50 as the job runs it, held by the
+    same checks without a reference; then :func:`tensor_norm_rows` at its
+    rank shapes. Returns each run's readings, the GroupNorm launches summed
+    over the two ranks (forward, backward; by design and by epilogue) and
+    the kernels line's rows."""
+    root = tempfile.mkdtemp(prefix="chip-smoke-mesh-images-")
+    results = {}
+    runs = [(name, job, MESH_IMAGE_PARAMS[job], extra)
+            for name, (job, extra) in MESH_IMAGE_STRATEGIES.items()]
+    runs.append(MESH_IMAGE_JOB_RUN)
+    try:
+        for name, job, params, extra in runs:
+            steps, b = int(params["steps"]), int(params["batch_size"])
+            dtype = params.get(IMAGE_COMPUTE, "bfloat16")
+            ref = frozen = None
+            if name in MESH_IMAGE_STRATEGIES:
+                (ref,) = spawn_ranks(1, params, root, f"ref_{job}", task=job)
+                frozen = frozen_reading(torch, {job: ref}, root, params, job,
+                                        job)
+                print(f"mesh {name}: parameters that never move (lr 0) read "
+                      f"a loss gap {frozen['loss_gap']:.6f} and an update "
+                      f"distance {frozen['update_distance']:.6f} (bounds "
+                      f"{MESH_LOSS_BOUND}, {MESH_UPDATE_BOUND})", flush=True)
+            ranks = spawn_ranks(2, {**params, **extra}, root, name, task=job)
+            problems, readings = image_mesh_problems(
+                torch, ranks, ref, job, steps, b, "tensor" in extra, "ddp",
+                dtype)
+            for r, got in enumerate(ranks):
+                print(f"mesh {name} rank {r} ({dtype}): GroupNorm launches "
+                      f"(forward, backward) {got['norms']}, by design "
+                      f"{got['norm_designs']}, by epilogue "
+                      f"{got['norm_epilogues']}; forward launches by shape "
+                      f"{got['norm_shapes']}; peak {got['peak_gib']:.2f} GiB",
+                      flush=True)
+            against = "" if ref is None else (
+                f" against one rank {ref['losses']}: max gap "
+                f"{readings['loss_gap']:.6f}, update distance "
+                f"{readings['update_distance']:.6f}")
+            print(f"mesh {name}: the {ranks[0]['path']} path; losses "
+                  f"{ranks[0]['losses']}{against}", flush=True)
+            if problems:
+                fail(f"mesh {name}: " + "; ".join(problems))
+            alone = "" if ref is None else (
+                f", one rank {ref['step_s'] * 1e3:.1f} ms")
+            print(f"[{card}] mesh {name}: {ranks[0]['step_s'] * 1e3:.1f} ms a "
+                  f"step ({dtype}, steps 2-{steps}; two ranks time-sharing one "
+                  "card through host gloo collectives: not a scaling "
+                  f"number){alone}", flush=True)
+
+            def summed(key, i):
+                out = {}
+                for got in ranks:
+                    for k, v in got[key][i].items():
+                        out[k] = out.get(k, 0) + v
+                return out
+            results[name] = {
+                "job": job, "dtype": dtype, "step_ms": ranks[0]["step_s"] * 1e3,
+                "ref_step_ms": None if ref is None else ref["step_s"] * 1e3,
+                "peak_gib": [got["peak_gib"] for got in ranks],
+                **readings, "frozen": frozen,
+                "norms": [sum(got["norms"][i] for got in ranks)
+                          for i in range(2)],
+                "norm_designs": [summed("norm_designs", i) for i in range(2)],
+                "norm_epilogues": [summed("norm_epilogues", i)
+                                   for i in range(2)],
+                "norm_shapes": ranks[0]["norm_shapes"], "steps": steps}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    b = int(MESH_IMAGE_JOB_RUN[2]["batch_size"])
+    results["rows"] = tensor_norm_rows(torch, card, b)
+    return results
+
+
 # Phase 16: sequence and pipeline parallelism on one card, two ranks of a
 # gloo group on cuda:0 as in phase 15.
 SEQ_RUNS = {
     # name: (job, params of the two-rank run; the reference runs them with
     # attention=flash at one rank: K1-K3 over the whole sequence, the
     # arithmetic the bodies run on their blocks, so the check isolates the
-    # split; a one-rank attention=xla run is read beside it)
+    # split)
     "ring": ("gpt", {**MESH_PARAMS, "attention": "ring", "seq": "2"}),
     "ulysses": ("bert", {**MESH_PARAMS, "seq_len": "512",
                          "attention": "ulysses", "seq": "2"}),
@@ -3452,9 +3913,8 @@ def phase_seq(torch, fa, card):
     ``attention=flash`` runs (phase 15's checks; K1-K3 by the bodies' rule,
     :func:`seq_launches`; the plain path, DDP: the loss kernels once a step
     each and the LayerNorm kernels 24 of 25 folded, eager over gloo, which
-    cannot capture), with the gap to a one-rank ``attention=xla`` run
-    beside, and the ring's Cron-shape reading; then the pipe-2 pipeline
-    against the layers in sequence. Returns each run's readings, its
+    cannot capture), and the ring's Cron-shape reading; then the pipe-2
+    pipeline against the layers in sequence. Returns each run's readings, its
     launches by mask summed over the ranks, the rows of K1-K3 at the bodies'
     shapes and the pipeline's launches."""
     root = tempfile.mkdtemp(prefix="chip-smoke-seq-")
@@ -3466,11 +3926,8 @@ def phase_seq(torch, fa, card):
             (ref,) = spawn_ranks(1, flash, root, f"ref_{name}", task=job)
             frozen = frozen_reading(torch, {"ref": ref}, root, flash, "ref",
                                     job)
-            (xla,) = spawn_ranks(1, {**plain, "attention": "xla"}, root,
-                                 f"xla_{name}", task=job)
             ranks = spawn_ranks(2, params, root, name, task=job)
             problems, (gap, dist) = seq_problems(torch, ranks, ref)
-            xla_gap, xla_dist = mesh_readings(torch, ranks, xla)
             for r, got in enumerate(ranks):  # a seq mesh trains plain
                 # modules: the loss kernels, the folded LayerNorm kernels
                 check_xent(f"seq {name} rank {r}", f"seq_{name}",
@@ -3484,9 +3941,7 @@ def phase_seq(torch, fa, card):
                   f"one rank's attention=flash {ref['losses']}: max gap "
                   f"{gap:.6f}, update distance {dist:.6f}; lr 0 reads "
                   f"{frozen['loss_gap']:.6f} and "
-                  f"{frozen['update_distance']:.6f}; against one rank's "
-                  f"attention=xla {xla['losses']}: max gap {xla_gap:.6f}, "
-                  f"update distance {xla_dist:.6f}; K1/K2/K3 [full, causal] "
+                  f"{frozen['update_distance']:.6f}; K1/K2/K3 [full, causal] "
                   f"launches by rank {[got['by_mask'] for got in ranks]} "
                   f"(designs {[got['designs'] for got in ranks]})",
                   flush=True)
@@ -3522,7 +3977,6 @@ def phase_seq(torch, fa, card):
             results[name] = {
                 "step_ms": got["step_s"] * 1e3, "loss_gap": gap,
                 "update_distance": dist, "frozen": frozen,
-                "xla_loss_gap": xla_gap, "xla_update_distance": xla_dist,
                 "body_device_ms": [x["body_device_ms"] for x in ranks],
                 "step_device_ms": [x["step_device_ms"] for x in ranks],
                 "body_share": [x["body_share"] for x in ranks],
@@ -3668,8 +4122,9 @@ def replay_kernels(torch, fn) -> dict:
             and not getattr(e, "is_user_annotation", False)}
 
 
-def run_mesh_graph(torch, params: dict, out: str) -> dict:
-    """On the rank of a one-rank NCCL group: :func:`run_gpt` of ``params``
+def run_mesh_graph(torch, params: dict, out: str, job: str = "gpt") -> dict:
+    """On a rank of an NCCL group: :func:`run_gpt` (or for an image
+    ``job`` :func:`run_image`) of ``params``
     (calls of GRAPH_CHUNK steps, replayed after the warm-up), then one more
     call timed (CUDA events, median of 3) and one profiled (the NCCL
     kernels inside the replay); then :func:`run_gpt` of the same job with
@@ -3709,11 +4164,12 @@ def run_mesh_graph(torch, params: dict, out: str) -> dict:
         finals["eager"] = snapshot(tr)
         return {}
 
-    graph = run_gpt(torch, params, out + ".graph.pt",
-                    readings=graph_readings)
+    run = run_image if job in IMAGE_JOBS else run_gpt
+    graph = run(torch, params, out + ".graph.pt", job=job,
+                readings=graph_readings)
     release(torch)
-    eager = run_gpt(torch, {**params, "steps_per_call": "1"},
-                    out + ".eager.pt", readings=eager_readings)
+    eager = run(torch, {**params, "steps_per_call": "1"},
+                out + ".eager.pt", job=job, readings=eager_readings)
     graph["eager_losses"] = eager["losses"]
     graph["same_bits"] = all(torch.equal(a, b) for a, b in
                              zip(finals["graph"], finals["eager"]))
@@ -3972,13 +4428,13 @@ def resnet50_forward_designs(steps: int) -> dict:
 
 
 def norm_bound(b: int, c: int, hw: int, esize: int, direction: str,
-               epilogue: str = "none"):
+               epilogue: str = "none", groups: int = NORM_GROUPS):
     """(bound ms, bound_by) of one norm with ``epilogue``: each input read
     once and each output written once (forward x, gamma, beta and a
     residual -> z, mean, rstd; backward x, dy, mean, rstd, gamma and for a
     relu's mask beta -> dx, dgamma, dbeta) over 3.35 TB/s, against
     ``NORM_OPS`` f32 operations an element over the f32 rate."""
-    n, stats = b * c * hw, 2 * b * NORM_GROUPS * 4
+    n, stats = b * c * hw, 2 * b * groups * 4
     if direction == "forward":
         moved = 2 * n * esize + 2 * c * 4 + stats
         if epilogue == "residual_relu":
@@ -3992,15 +4448,17 @@ def norm_bound(b: int, c: int, hw: int, esize: int, direction: str,
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def check_norm(torch, gn, label: str, x, dy, gamma, beta, out_dtype):
-    """Both GroupNorm kernels against their plain versions on one input:
+def check_norm(torch, gn, label: str, x, dy, gamma, beta, out_dtype,
+               g: int = NORM_GROUPS):
+    """Both GroupNorm kernels (``g`` groups) against their plain versions
+    on one input:
     y, mean and rstd, then dx, dgamma and dbeta (the plain backward from
     the kernel's statistics, so both take the same inputs), each within
     ``group_norm_tolerance``; a second run of each bit-identical; then
     each kernel's two-pass design on the same inputs within the same
     bounds. Returns the largest |y - plain|, |dx - plain|, and the two-pass
     designs' |y - plain| and |dx - plain|."""
-    g, eps = NORM_GROUPS, NORM_EPS
+    eps = NORM_EPS
     y, mean, rstd = gn.group_norm_forward(x, gamma, beta, g, eps, out_dtype)
     dx, dgamma, dbeta = gn.group_norm_backward(dy, x, mean, rstd, gamma, g)
     again = gn.group_norm_forward(x, gamma, beta, g, eps, out_dtype)
@@ -5517,9 +5975,12 @@ def main() -> None:
         "moe serving", phase_moe_serving, torch, fa, card)
     print("moe_serving " + json.dumps(moe_serving))
     mesh = timed("mesh on one card", phase_mesh, torch, fa, card)
+    mesh_images = timed("mesh image jobs on one card", phase_mesh_images,
+                        torch, card)
+    job_run = mesh_images[MESH_IMAGE_JOB_RUN[0]]
     print("mesh " + json.dumps({k: {x: v[x] for x in (
         "step_ms", "loss_gap", "update_distance", "frozen")}
-        for k, v in mesh.items()}))
+        for k, v in {**mesh, **mesh_images}.items() if k != "rows"}))
     seq = timed("sequence and pipeline", phase_seq, torch, fa, card)
     print("seq " + json.dumps({k: {x: y for x, y in v.items() if x != "rows"}
                                for k, v in seq.items()}))
@@ -5633,6 +6094,23 @@ def main() -> None:
                    OLD_DESIGN_LAUNCHES["group_norm_bwd"],
                    {**norm_rows["backward_two_pass"],
                     "epilogues": step_epilogues[1]}),
+        # the GroupNorm pair on resnet50 under tensor 2 as the job runs it
+        # (phase 15's bf16 run), its launches summed over the two ranks, 53
+        # a step and rank each way, a block's first norm at half its
+        # channels and 16 groups ("split_norms", by channels, side and
+        # groups, a step and rank); each time a rank's 53 norms a step at
+        # b 16 with their epilogues
+        *(norm_entry(name, "+".join(sorted(
+            k for k, v in job_run["norm_designs"][i].items() if v)),
+            job_run["norms"][i],
+            {**mesh_images["rows"][d],
+             "launches_by_design": job_run["norm_designs"][i],
+             "launches_by_epilogue": job_run["norm_epilogues"][i],
+             "split_norms": {norm_key(c, side, NORM_GROUPS // 2): n
+                             for c, side, n in RESNET50_SPLIT_NORMS}})
+          for i, (name, d) in enumerate((
+              ("group_norm@mesh_resnet50_tensor", "forward"),
+              ("group_norm_bwd@mesh_resnet50_tensor", "backward")))),
         # the loss kernels on the gpt and bert paths of phases 5, 7, 9, 13,
         # 15 and 18, each row at its path's logits (phase 21)
         *xent_entries(loss["rows"]),

@@ -32,7 +32,6 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.fsdp import FSDPModule
@@ -46,7 +45,7 @@ from cron_operator_tpu_torch.models.layers import (
     add_positions,
     draw_,
     init_flax_layers_,
-    row_parallel,
+    split_group,
     tied_logits,
     vocab_parallel_embedding,
     vocab_piece,
@@ -196,8 +195,8 @@ class MoEBlock(nn.Module):
         params = {"router": self.router, "wi": self.wi, "wo": self.wo}
         seq = 1 if self.seq_mesh is None else axis_sizes(
             self.seq_mesh)[SEQ_AXIS]
-        experts = _split_group(self.expert_group, self.expert_splits)
-        width = None if experts is not None else _split_group(
+        experts = split_group(self.expert_group, self.expert_splits)
+        width = None if experts is not None else split_group(
             self.tensor_group, self.tensor_splits)
         y, aux = moe_ffn(params, x.reshape(b * s, d), capacity_factor=cf,
                          compute_dtype=cfg.dtype,
@@ -205,16 +204,6 @@ class MoEBlock(nn.Module):
                          rows=b, seq_blocks=seq, tensor_group=width,
                          expert_group=experts)
         return y.reshape(b, s, d).to(cfg.dtype), aux
-
-
-def _split_group(group, rule):
-    """``group`` (a ``tensor`` or ``expert`` group, or None) when ``rule``
-    (a module's ``tensor_splits`` or ``expert_splits``) splits parameters
-    over its ranks, else None: a part whose parameters stay whole runs
-    whole on every rank."""
-    if group is None or not rule(dist.get_world_size(group)):
-        return None
-    return group
 
 
 class DecoderLayer(nn.Module):
@@ -233,10 +222,10 @@ class DecoderLayer(nn.Module):
     columns) and its slice of the FFN (``fc_in``'s rows, ``fc_out``'s
     input columns); ``parallel.mesh.copy_to_tensor`` in front of the QKV
     projection and ``fc_in``, and ``out``'s and ``fc_out``'s partial
-    products summed over the group before their bias
-    (:func:`layers.row_parallel`). Both branches are whole again where the
-    norms add them, and the norms and the residual stream stay whole on
-    every rank."""
+    products summed over the group before their bias (the layers' own
+    call with ``tensor_group``, :class:`layers.Linear`). Both branches are
+    whole again where the norms add them, and the norms and the residual
+    stream stay whole on every rank."""
 
     causal = True
     seq_mesh = None
@@ -310,7 +299,7 @@ class DecoderLayer(nn.Module):
         if not decode and cfg.rope and self.seq_mesh is not None:
             block = local_positions(self.seq_mesh, s)
             at = torch.arange(block.start, block.stop, device=x.device)
-        heads = _split_group(self.tensor_group, self.attn.tensor_splits)
+        heads = split_group(self.tensor_group, self.attn.tensor_splits)
         q, k, v = self.attn(copy_to_tensor(y, heads), rope_positions=at)
         if decode:
             attn = self._decode_attention(q, k, v, cache_k, cache_v, pos)
@@ -322,19 +311,19 @@ class DecoderLayer(nn.Module):
                 cache_k[:, :s] = k
                 cache_v[:, :s] = v
         x, y = self.ln_mlp.add_norm(
-            x, row_parallel(self.out, attn.reshape(b, s, -1), heads))
+            x, self.out(attn.reshape(b, s, -1), tensor_group=heads))
         aux = None
         if self.moe is not None:
             y, aux = self.moe(y, decode=decode)
         else:
             ffn = self._ffn_group()
             h = F.gelu(self.fc_in(copy_to_tensor(y, ffn)), approximate="tanh")
-            y = row_parallel(self.fc_out, h, ffn)
+            y = self.fc_out(h, tensor_group=ffn)
         return (x, y, aux) if fold else (x + y, aux)
 
     def _ffn_group(self):
         """``tensor_group`` when it splits the dense FFN, else None."""
-        return _split_group(self.tensor_group, lambda t: (
+        return split_group(self.tensor_group, lambda t: (
             "fc_in.weight" in self.tensor_splits(t)))
 
     def _decode_attention(self, q, k, v, cache_k, cache_v, pos):

@@ -52,22 +52,26 @@ class Linear(nn.Linear):
                          dtype=param_dtype)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tensor_group=None) -> torch.Tensor:
+        """``tensor_group``: row-parallel over that group (this layer
+        keeps the input features of the rank's slice): the partial
+        products summed over the group (``parallel.mesh.
+        reduce_from_tensor``), then the whole bias added once."""
         dt = self.compute_dtype
+        if tensor_group is not None:
+            partial = F.linear(x.to(dt), self.weight.to(dt))
+            return reduce_from_tensor(partial, tensor_group) + self.bias.to(dt)
         return linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
-def row_parallel(layer: Linear, x: torch.Tensor, group) -> torch.Tensor:
-    """``layer(x)`` for a ``layer`` that keeps the input features of this
-    rank's heads or FFN slice (row-parallel over ``group``, the ``tensor``
-    group): the partial products summed over the group
-    (``parallel.mesh.reduce_from_tensor``), then the whole bias added once.
-    ``group`` None: ``layer(x)``."""
-    if group is None:
-        return layer(x)
-    dt = layer.compute_dtype
-    partial = F.linear(x.to(dt), layer.weight.to(dt))
-    return reduce_from_tensor(partial, group) + layer.bias.to(dt)
+def split_group(group, rule):
+    """``group`` (a ``tensor`` or ``expert`` group, or None) when ``rule``
+    (a module's ``tensor_splits`` or ``expert_splits``) splits parameters
+    over its ranks, else None: a part whose parameters stay whole runs
+    whole on every rank."""
+    if group is None or not rule(dist.get_world_size(group)):
+        return None
+    return group
 
 
 def split_inside(x: torch.Tensor) -> bool:
@@ -419,10 +423,21 @@ class Conv2d(nn.Conv2d):
         return [same_padding(n, k, s) for n, k, s in
                 zip(hw, self.kernel_size, self.stride)]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tensor_group=None) -> torch.Tensor:
+        """``tensor_group``: row-parallel over that group (this conv keeps
+        the input channels of the rank's groups): the partial map, dense
+        in the input's memory format (channels-last stays so), summed
+        over the group in place (``parallel.mesh.reduce_from_tensor``),
+        then the whole bias, if any, added once."""
         if isinstance(x, DTensor):
             # DTensor has no placement rule for a strided NCHW conv
             return on_local_rows(self._conv, x, self.weight, self.bias)
+        if tensor_group is not None:
+            out = reduce_from_tensor(self._conv(x, self.weight, None),
+                                     tensor_group)
+            if self.bias is not None:
+                out = out + self.bias.to(out.dtype)[:, None, None]
+            return out
         return self._conv(x, self.weight, self.bias)
 
     def _conv(self, x, weight, bias):
@@ -438,6 +453,9 @@ class Conv2d(nn.Conv2d):
         return F.conv2d(x, weight.to(dt), bias, self.stride, padding)
 
 
+NORM_GROUPS = 32  # flax nn.GroupNorm's default num_groups
+
+
 class GroupNorm(nn.GroupNorm):
     """flax ``nn.GroupNorm(dtype=...)``: 32 groups of consecutive channels,
     epsilon 1e-6, normalised in f32 with f32 parameters and rounded to
@@ -449,11 +467,18 @@ class GroupNorm(nn.GroupNorm):
     channels-last CUDA tensor, the plain versions on the CPU. ``relu`` and
     ``residual`` (ResNet's ``relu(y + residual)``) run in the kernels'
     epilogues; on a DTensor they follow the norm as DTensor ops, since
-    ``on_local_rows`` takes its extra arguments for weights."""
+    ``on_local_rows`` takes its extra arguments for weights.
+
+    Split over a ``tensor`` group at group boundaries (a ResNet block's
+    first norm: ``parallel.mesh.split_over_tensor``), a rank keeps
+    ``num_groups / t`` of the groups and their channels. The groups of a
+    call follow the scale it is given at the module's group width, so
+    the whole scale (the FLOP count's, with every parameter whole) takes
+    every group."""
 
     def __init__(self, channels: int, *, compute_dtype: torch.dtype,
                  device=None, param_dtype: torch.dtype = torch.float32):
-        super().__init__(32, channels, eps=1e-6, device=device,
+        super().__init__(NORM_GROUPS, channels, eps=1e-6, device=device,
                          dtype=param_dtype)
         self.compute_dtype = compute_dtype
 
@@ -467,7 +492,8 @@ class GroupNorm(nn.GroupNorm):
         return self._norm(x, self.weight, self.bias, residual, relu)
 
     def _norm(self, x, weight, bias, residual=None, relu=False):
-        return group_norm(x, weight, bias, groups=self.num_groups,
+        groups = weight.shape[0] * self.num_groups // self.num_channels
+        return group_norm(x, weight, bias, groups=groups,
                           eps=self.eps, out_dtype=self.compute_dtype,
                           relu=relu, residual=residual)
 
@@ -613,6 +639,7 @@ __all__ = [
     "GroupedQKVProjection",
     "LayerNorm",
     "Linear",
+    "NORM_GROUPS",
     "PaddedTable",
     "VocabPiece",
     "add_positions",
@@ -620,8 +647,8 @@ __all__ = [
     "init_flax_layers_",
     "linear",
     "padded_vocab",
-    "row_parallel",
     "same_padding",
+    "split_group",
     "tied_logits",
     "tied_product",
     "vocab_parallel_embedding",

@@ -10,6 +10,11 @@ input's: when the channels change or the stride is above 1. The stem is a
 7x7 stride-2 conv with explicit (3, 3) padding, then a 3x3 stride-2 max
 pool padded (1, 1) with -inf; the head is a mean over H and W in ``dtype``,
 then Dense in ``dtype``, with f32 logits.
+
+Under a ``tensor`` mesh each block splits its first two convs as a
+column/row pair at the first norm's group boundaries
+(:meth:`_Block.tensor_splits`); the JAX package splits every kernel's
+output features and lets GSPMD place the collectives.
 """
 
 from __future__ import annotations
@@ -23,10 +28,13 @@ from torch import nn
 
 from cron_operator_tpu_torch.models.layers import (
     Conv2d,
+    NORM_GROUPS,
     GroupNorm,
     Linear,
     init_flax_layers_,
+    split_group,
 )
+from cron_operator_tpu_torch.parallel.mesh import TensorSplit, copy_to_tensor
 
 
 class _Block(nn.Module):
@@ -35,9 +43,20 @@ class _Block(nn.Module):
     output is relu(shortcut + the last norm). The relus and the add run in
     the norms' epilogues (``GroupNorm(relu=, residual=)``). The convs and
     norms are numbered as flax numbers ``Conv_i``/``GroupNorm_i`` in
-    creation order, the shortcut's pair last."""
+    creation order, the shortcut's pair last.
+
+    Under ``tensor_group`` (set by ``parallel.mesh.data_parallel`` when
+    :meth:`tensor_splits` splits the block) the first two convs run as
+    the Megatron pair: the block's input enters the first conv through
+    ``copy_to_tensor``, that conv gives the rank's whole groups of its
+    norm's channels, the norm (and its relu) runs on them alone, and the
+    second conv's partial map over those channels is summed over the
+    group in place before its norm (``Conv2d(tensor_group=)``). The other
+    convs, the shortcut and every later norm run whole on each rank, so
+    the residual epilogue and the block's output are whole."""
 
     expansion = 1
+    tensor_group = None
 
     def __init__(self, in_channels: int, filters: int, stride: int,
                  convs, *, dtype: torch.dtype, device=None):
@@ -56,18 +75,41 @@ class _Block(nn.Module):
             self.norms.append(GroupNorm(out, **kw))
         self.n_main = len(convs)
 
+    def tensor_splits(self, t: int) -> dict:
+        """The first two convs over a ``tensor`` group of ``t`` ranks
+        (``parallel.mesh.split_over_tensor``): the first by output channels
+        (column-parallel) with its norm's scale and bias, in blocks of
+        whole groups, ``NORM_GROUPS / t`` a rank, and the second by input
+        channels (row-parallel). Nothing when ``t`` does not divide the
+        groups: the block stays whole."""
+        if NORM_GROUPS % t:
+            return {}
+        return {"convs.0.weight": TensorSplit(0),
+                "norms.0.weight": TensorSplit(0),
+                "norms.0.bias": TensorSplit(0),
+                "convs.1.weight": TensorSplit(1)}
+
+    def _conv(self, i: int, y: torch.Tensor, group) -> torch.Tensor:
+        """Conv ``i`` of ``y``, the first two as the pair under ``group``."""
+        if group is not None and i == 0:
+            return self.convs[0](copy_to_tensor(y, group))
+        if group is not None and i == 1:
+            return self.convs[1](y, tensor_group=group)
+        return self.convs[i](y)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = split_group(self.tensor_group, self.tensor_splits)
         y = x
         last = self.n_main - 1
         for i in range(last):
-            y = self.norms[i](self.convs[i](y), relu=True)
+            y = self.norms[i](self._conv(i, y, group), relu=True)
         residual = x
         if len(self.convs) > self.n_main:
             residual = self.norms[-1](self.convs[-1](x))
         # relu(residual + norm(conv(y))), the add and relu in the norm's
         # epilogue
-        return self.norms[last](self.convs[last](y), residual=residual,
-                                relu=True)
+        return self.norms[last](self._conv(last, y, group),
+                                residual=residual, relu=True)
 
 
 class BottleneckBlock(_Block):
@@ -95,7 +137,11 @@ class BasicBlock(_Block):
 class ResNet(nn.Module):
     """NHWC images ``[b, H, W, 3]`` -> logits ``[b, num_classes]`` in f32.
     ``blocks.{j}`` is flax's ``<Block>_{j}``, ``stem``/``stem_norm`` its
-    ``Conv_0``/``GroupNorm_0`` and ``head`` its ``Dense_0``."""
+    ``Conv_0``/``GroupNorm_0`` and ``head`` its ``Dense_0``. Its blocks
+    split over ``tensor`` (``splits_over_tensor``: :class:`_Block`); the
+    stem and the head stay whole."""
+
+    splits_over_tensor = True
 
     def __init__(self, stage_sizes: Sequence[int],
                  block: Type[_Block] = BottleneckBlock,

@@ -22,8 +22,9 @@ Axis convention (outer to inner), shared with the JAX package:
 
 Two paths train over a mesh (:func:`plain_axes` picks one). A mesh whose
 axes above 1 are among ``data``, ``fsdp``, ``seq`` and ``expert``, and
-``tensor`` for a model that splits its blocks (GPT, BERT and ViT:
-``splits_over_tensor``), trains plain modules (:func:`data_parallel`).
+``tensor`` for a model that splits its blocks (GPT, BERT, ViT, MLP and
+ResNet: ``splits_over_tensor``), trains plain modules
+(:func:`data_parallel`).
 First each module that names parameters to split keeps this rank's pieces
 (:func:`split_over_tensor`): under ``expert`` an MoE block its E/n
 experts' ``wi`` and ``wo`` (JAX's ``P('expert')`` of the expert-stacked
@@ -34,9 +35,12 @@ projection and ``fc_in`` split by output features, ``out`` and ``fc_out``
 by input features, their partial sums reduced over the ``tensor`` group by
 :func:`reduce_from_tensor` and their inputs' gradients by
 :func:`copy_to_tensor`), and GPT's and BERT's tied table its block of the
-vocab rows (:class:`VocabSplit`, the vocab-parallel layout); every other
-parameter stays whole on every rank of those groups, which hold the same
-rows. Then
+vocab rows (:class:`VocabSplit`, the vocab-parallel layout); the MLP
+its first pair of hidden layers, and each ResNet block the column/row
+pair of its first two convs, split at the first conv's GroupNorm group
+boundaries so that the norm between them runs on the rank's whole groups;
+every other parameter stays whole on every rank of those groups, which
+hold the same rows. Then
 ``DistributedDataParallel`` over the batch axes (:func:`batch_group`)
 without ``fsdp``, or FSDP2 ``fully_shard`` per block and on the root with
 it (sharded on ``fsdp``, replicated over ``data`` and ``seq``, at this
@@ -49,7 +53,7 @@ on the local blocks), the MoE blocks the batch group (``token_group``)
 and the ``expert`` group (``expert_group``), the blocks the ``tensor``
 group (``tensor_group``), and on NCCL the step can be captured as a CUDA
 graph. A mesh with ``pipe`` above 1, or ``tensor`` for a model that does
-not split (MLP, ResNet), places every parameter as a DTensor
+not split, places every parameter as a DTensor
 (:func:`distribute_parameters`) and DTensor's propagation places the
 collectives. The JAX package has one path, GSPMD, for every mesh.
 
@@ -677,8 +681,8 @@ def plain_axes(mesh: Any, model: Any = None) -> bool:
     without MoE blocks keeps every parameter whole on each ``expert``
     rank, as JAX's ``sharding_for_tree`` does), or ``tensor`` for a
     ``model`` (a module or its class) whose ``splits_over_tensor`` is true
-    (GPT, BERT and ViT: :func:`split_over_tensor`). Any other mesh
-    (``pipe`` above 1, ``tensor`` for MLP and ResNet) keeps DTensor
+    (GPT, BERT, ViT, MLP and ResNet: :func:`split_over_tensor`). Any other
+    mesh (``pipe`` above 1, ``tensor`` without such a model) keeps DTensor
     parameters (:func:`distribute_parameters`)."""
     allowed = PLAIN_AXES + ((TENSOR_AXIS,) if getattr(
         model, "splits_over_tensor", False) else ())
@@ -886,11 +890,15 @@ def split_over_tensor(model: nn.Module, mesh: Any
     and ``fc_in`` its slice of the FFN's outputs (column-parallel), ``out``
     and ``fc_out`` the matching input columns (row-parallel: their partial
     products are summed over the group, :func:`reduce_from_tensor`), and
-    a tied table its block of the vocab rows (:class:`VocabSplit`). Every
-    rank must hold the whole values (the same seed, or the same
-    checkpoint), as for :func:`distribute_parameters`. Returns the record
-    of the split, also left on the model as ``tensor_parallel``; None
-    without a split axis above 1."""
+    a tied table its block of the vocab rows (:class:`VocabSplit`). A
+    piece keeps its whole tensor's memory format (a conv weight stays
+    channels-last), and a ``GroupNorm`` whose scale and bias are split
+    keeps its share of the groups (``num_groups`` and ``num_channels``
+    divided by the group's ranks: the split must fall on group
+    boundaries). Every rank must hold the whole values (the same seed, or
+    the same checkpoint), as for :func:`distribute_parameters`. Returns
+    the record of the split, also left on the model as
+    ``tensor_parallel``; None without a split axis above 1."""
     sizes = axis_sizes(mesh)
     axes = [a for a in SPLIT_RULES if sizes.get(a, 1) > 1]
     if not axes:
@@ -911,12 +919,29 @@ def split_over_tensor(model: nn.Module, mesh: Any
                 owner, _, leaf = name.rpartition(".")
                 holder = module.get_submodule(owner) if owner else module
                 p = getattr(holder, leaf)
+                # the piece is a view: clone keeps its strides
                 holder.register_parameter(leaf, nn.Parameter(
                     split.local(p.detach(), index, count).clone(),
                     requires_grad=p.requires_grad))
                 record.splits[full] = replace(split, axis=axis)
+                if isinstance(holder, nn.GroupNorm) and leaf == "weight":
+                    _split_groups(holder, count)
     model.tensor_parallel = record
     return record
+
+
+def _split_groups(norm: nn.GroupNorm, count: int) -> None:
+    """``norm`` keeping its share of whole groups on a rank of ``count``:
+    its channels split on dim 0 in equal blocks, each rank normalises
+    ``num_groups / count`` groups of the same width, and no statistic
+    crosses the ranks."""
+    if norm.num_groups % count or norm.num_channels % count:
+        raise ValueError(
+            f"a GroupNorm of {norm.num_channels} channels in "
+            f"{norm.num_groups} groups does not split over {count} ranks "
+            "at group boundaries")
+    norm.num_groups //= count
+    norm.num_channels //= count
 
 
 def tensor_parallel(model: nn.Module) -> Optional[TensorParallel]:
@@ -937,25 +962,39 @@ class _CopyToTensor(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
+        grad = grad.clone()  # dense, in grad's own memory format
         dist.all_reduce(grad, group=ctx.group)
         return grad, None
 
 
 class _ReduceFromTensor(torch.autograd.Function):
     """The sum over ``group`` forward; the identity backward: the output of
-    a row-parallel product (``out``, ``fc_out``), each rank's gradient that
-    of the whole sum."""
+    a row-parallel product (``out``, ``fc_out``, a ResNet block's second
+    conv), each rank's gradient that of the whole sum. The sum is written
+    over a dense ``x`` (a partial product that nothing else reads, in its
+    own memory format, a channels-last map too), so no copy of it is made;
+    a strided ``x`` is reduced in a dense copy."""
 
     @staticmethod
     def forward(ctx, x, group):
-        out = x.contiguous().clone()
+        if _dense(x):
+            ctx.mark_dirty(x)
+            out = x
+        else:
+            out = x.clone()  # dense, in x's own memory format
         dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+def _dense(x: torch.Tensor) -> bool:
+    """Whether ``x`` covers its storage span without gaps or overlaps, in
+    the contiguous or the channels-last order."""
+    return x.is_contiguous() or (
+        x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last))
 
 
 class _GatherFromTensor(torch.autograd.Function):
@@ -999,7 +1038,10 @@ def reduce_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group``, its gradient passed through unchanged;
     ``x`` itself when ``group`` is None. Unlike ``parallel.moe``'s
     ``_SumOver``, which also sums the gradient: a replicated gradient
-    summed over t ranks would count t times."""
+    summed over t ranks would count t times. The sum is written over a
+    dense ``x`` (its autograd history moves onto the sum), so the caller
+    hands in a partial product that it made for the sum and reads no
+    more."""
     return x if group is None else _ReduceFromTensor.apply(x, group)
 
 
@@ -1016,6 +1058,9 @@ class DataParallel:
     # The split over ``expert`` and ``tensor`` (:func:`split_over_tensor`),
     # or None.
     tensor: Optional[TensorParallel] = None
+    # Whether a step must run cuDNN's deterministic kernels (a conv model
+    # split over ``tensor``: see :func:`data_parallel`).
+    deterministic: bool = False
 
 
 def _blocks(model: nn.Module) -> List[nn.Module]:
@@ -1071,6 +1116,18 @@ def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
       leaves ``P('expert')`` alone; the parameters it replicates there stay
       plain (``ignored_params``) and are returned in ``replicated``. The
       all-gathers stay f32, as the parameters are (no mixed precision).
+      FSDP2 takes contiguous parameters alone, so a channels-last conv
+      weight is made contiguous first (its all-gathered weight would be
+      contiguous in any case; a conv of a channels-last activation keeps
+      that layout).
+
+    A model with a conv split over ``tensor`` (ResNet; ViT, whose patch
+    embedding is a conv it leaves whole) comes back ``deterministic``: a
+    parameter that the split leaves whole gets the same gradient bits on
+    every rank of the group only from cuDNN's deterministic kernels, since
+    nothing sums its gradient over ``tensor``. The trainer holds its steps
+    to them (``torch.backends.cudnn.deterministic``, restored after each
+    call); this function sets no flag of the process.
 
     Every module gets its :data:`MESH_ATTACHMENTS`: ``token_group`` (the
     MoE block) is :func:`batch_group`, so it routes over the batch axes'
@@ -1095,13 +1152,24 @@ def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
         for name, value in attach.items():
             if hasattr(module, name):
                 setattr(module, name, value)
+    # every rank of the tensor group computes the whole parameters'
+    # gradients, which nothing sums over it: they must come out the same
+    # bits on each rank, and cuDNN's default backward algorithms may sum
+    # with atomics
+    deterministic = TENSOR_AXIS in groups and any(
+        isinstance(m, nn.Conv2d) for m in model.modules())
     if FSDP_AXIS not in sizes:
         device = next(model.parameters()).device
         ddp = DistributedDataParallel(
             model, device_ids=[device] if device.type == "cuda" else None,
             process_group=group, broadcast_buffers=False, init_sync=False,
             gradient_as_bucket_view=True)
-        return DataParallel(ddp, group, [], split)
+        return DataParallel(ddp, group, [], split, deterministic)
+    for module in model.modules():
+        for name, p in list(module.named_parameters(recurse=False)):
+            if not p.is_contiguous():
+                module.register_parameter(name, nn.Parameter(
+                    p.detach().contiguous(), requires_grad=p.requires_grad))
     names = list(sizes)
     rule = sharding_for_tree(model, mesh)
     experts = {n for n, s in (split.splits if split else {}).items()
@@ -1118,7 +1186,7 @@ def data_parallel(model: nn.Module, mesh: Any) -> DataParallel:
     for block in _blocks(model):
         fully_shard(block, **kw)
     fully_shard(model, **kw)
-    return DataParallel(model, group, replicated, split)
+    return DataParallel(model, group, replicated, split, deterministic)
 
 
 def batch_rows(mesh: Any, n_rows: int) -> slice:

@@ -261,8 +261,7 @@ def lm_loss(mesh=None, fused_xent: bool = False):
       the kernels on its ``[T, V / t]`` columns, each row merged over the
       group.
     - A mesh that places DTensors (``pipe`` above 1, which the jobs
-      refuse; ``tensor`` places them only for MLP and ResNet, which take
-      no LM loss): the model's f32 logits and ``cross_entropy_loss``, the
+      refuse): the model's f32 logits and ``cross_entropy_loss``, the
       former path."""
     if fused_xent:
         return True, _chunked_loss
@@ -526,7 +525,9 @@ def _run(
 @register_entrypoint("mnist")
 def mnist(ctx) -> None:
     """MLP on synthetic MNIST, as the JAX ``mnist`` entrypoint. Params:
-    steps(=20), batch_size(=256), SGD at lr 0.01 unless ``param.lr``."""
+    steps(=20), batch_size(=256), SGD at lr 0.01 unless ``param.lr``, and
+    the mesh axes fsdp/tensor/expert (under ``tensor`` each rank keeps its
+    slice of the first pair of hidden layers: ``MLP.tensor_splits``)."""
     steps = int(ctx.params.get("steps", 20))
     batch_size = int(ctx.params.get("batch_size", 256))
     device, mesh = _train_device(ctx)
@@ -542,7 +543,10 @@ def mnist(ctx) -> None:
 def resnet50(ctx) -> None:
     """ResNet-50 on synthetic ImageNet, the JAX package's north-star
     workload. Params: steps(=10), batch_size(=128), image_size(=224), SGD
-    at lr 0.1 unless ``param.lr``."""
+    at lr 0.1 unless ``param.lr``, and the mesh axes fsdp/tensor/expert
+    (under ``tensor`` each block keeps its slice of its first two convs,
+    split at its first norm's group boundaries:
+    ``resnet._Block.tensor_splits``)."""
     steps = int(ctx.params.get("steps", 10))
     batch_size = int(ctx.params.get("batch_size", 128))
     image_size = int(ctx.params.get("image_size", 224))

@@ -17,11 +17,13 @@ are global. Two paths (:func:`parallel.mesh.plain_axes`):
 
 - a mesh whose axes above 1 are among ``data``, ``fsdp``, ``seq`` and
   ``expert``, and ``tensor`` for a model that splits its blocks (GPT,
-  BERT, ViT), trains the plain module under ``DistributedDataParallel``
-  or FSDP2 over the batch axes (:func:`parallel.mesh.data_parallel`,
-  which first splits the MoE blocks' experts over ``expert`` and the
-  blocks' heads and FFN over ``tensor``, and hands the modules their
-  groups and the mesh): the batch is each rank's part as plain tensors,
+  BERT, ViT, MLP, ResNet), trains the plain module under
+  ``DistributedDataParallel`` or FSDP2 over the batch axes
+  (:func:`parallel.mesh.data_parallel`, which first splits the MoE
+  blocks' experts over ``expert`` and the blocks' heads and FFN, the
+  MLP's first pair of hidden layers and each ResNet block's first two
+  convs over ``tensor``, and hands the modules their groups and the
+  mesh): the batch is each rank's part as plain tensors,
   the loss an all-reduce of the ranks' means over the batch group on the
   device (every rank holds as many tokens), and the parameters that FSDP2
   leaves whole have their gradients averaged here; the parameters that
@@ -31,11 +33,12 @@ are global. Two paths (:func:`parallel.mesh.plain_axes`):
   one card: staging, a
   fused ``capturable`` optimizer with a device learning rate, and on an
   NCCL group the step captured as a CUDA graph with the collectives inside
-  it (the ring's hops, Ulysses' all-to-alls and the experts' all-gathers
-  too), after ``MESH_GRAPH_WARMUP`` eager steps. A gloo collective cannot
+  it (the ring's hops, Ulysses' all-to-alls, the experts' all-gathers
+  and the ``tensor`` pairs' all-reduces too), after ``MESH_GRAPH_WARMUP``
+  eager steps. A gloo collective cannot
   be captured, so a gloo group runs its steps eagerly.
-- a mesh with ``pipe`` above 1 (or ``tensor`` for MLP and ResNet) places
-  the parameters and the whole optimizer state as DTensors
+- a mesh with ``pipe`` above 1 (or ``tensor`` for a model that does not
+  split) places the parameters and the whole optimizer state as DTensors
   (:func:`parallel.mesh.sharding_for_tree`), and each rank's batch as a
   DTensor laid out as above; DTensor's propagation places the collectives
   (attention runs on local blocks, see :mod:`ops.attention`). It runs its
@@ -325,6 +328,23 @@ def _mean_over(value: torch.Tensor, group) -> torch.Tensor:
 
 
 @contextlib.contextmanager
+def _cudnn_deterministic(on: bool):
+    """The block run on cuDNN's deterministic kernels when ``on``
+    (``torch.backends.cudnn.deterministic``, the process's own value
+    restored after it); nothing changed otherwise. A captured step keeps
+    the kernels it was captured with."""
+    if not on:
+        yield
+        return
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+@contextlib.contextmanager
 def _as_one_device(model: nn.Module):
     """``model`` as one device runs it, for the block's duration: every
     module without its forward hooks (FSDP2's all-gathers) and without its
@@ -463,6 +483,7 @@ class Trainer:
         self._group = None
         self._replicated: List[nn.Parameter] = []
         self._tensor = None
+        self._deterministic = False  # cuDNN held deterministic in a step
         # The plain path's steps run on a stream of their own on the card,
         # the one DDP is built on: DDP keeps the parameters' gradient
         # accumulators, which carry the stream they were made on, and a
@@ -478,6 +499,7 @@ class Trainer:
             self._group = wrapped.group
             self._replicated = wrapped.replicated
             self._tensor = wrapped.tensor
+            self._deterministic = wrapped.deterministic
         elif mesh is not None:
             distribute_parameters(model, mesh)
         # Rank 0 alone writes checkpoints; every rank gathers them.
@@ -862,7 +884,7 @@ class Trainer:
                 )
             graph = self._graph
         loss = None
-        with self._on_stream():
+        with self._on_stream(), _cudnn_deterministic(self._deterministic):
             for i, batch in enumerate(batches):
                 self._set_lr(self.steps_done + i)
                 batch = batch.wait(self.device)

@@ -21,7 +21,16 @@ mesh phase's (``spawn_ranks``, ``mesh_references``, ``frozen_readings``,
 and K3 36 times, all sm90, at the strategy's local (batch, heads),
 reports the same losses, and holds the loss gap and the update distance
 against one rank's run within ``MESH_LOSS_BOUND`` and
-``MESH_UPDATE_BOUND``.
+``MESH_UPDATE_BOUND``. The image legs of ``STRATEGIES`` (a job field of
+``resnet50`` or ``mnist``) run that job at ``IMAGE_PARAMS`` (its default
+global batch, 6 eager steps; ``resnet50`` built in f32 at lr 0.001, as
+phase 15 checks it: ``chip_smoke.MESH_IMAGE_PARAMS``) under ``data`` or
+``tensor`` (each rank the
+MLP's slice of its first pair of hidden layers, or each ResNet block's
+slice of its first two convs at its first norm's group boundaries),
+against one rank's run and its lr-0 reading, held by
+``chip_smoke.image_mesh_problems`` (under ``resnet50`` the GroupNorm
+kernels 53 times a step each way, at the rank's shapes and by epilogue).
 
 On four cards it then runs, from ``chip_smoke.py``'s phases 16 and 18:
 
@@ -44,7 +53,12 @@ On four cards it then runs, from ``chip_smoke.py``'s phases 16 and 18:
   replayed) against the same job in
   calls of one step: the losses and every parameter the same bits on every
   rank, K1-K3 by ``seq_launches``, the replayed call's step ms and the
-  NCCL kernels in it (and their device ms a step).
+  NCCL kernels in it (and their device ms a step);
+- ``IMAGE_GRAPH_LEGS``: ``resnet50`` and ``mnist`` under ``data`` 4 and
+  ``data`` 2 x ``tensor`` 2 at ``IMAGE_PARAMS`` in 24 steps of calls of 8,
+  captured and replayed as the graph legs (the pairs' all-reduces inside
+  the graph), held to the same bits against calls of one step, the
+  GroupNorm kernels 53 times a step each way under ``resnet50``.
 
 Every strategy and graph leg also prints each rank's loss kernel launches
 (forward, backward), the loss forward kernel's ``[rows, columns, real
@@ -73,19 +87,37 @@ sys.path.insert(0, str(ROOT))
 
 MOE = {"moe_every": "2", "num_experts": "8"}
 STRATEGIES = {
-    # N: {name: (params, local (batch, heads), the trainer's path)}
-    4: {"data4": ({"devices": "4"}, (2, 12), "ddp"),
-        "fsdp4": ({"fsdp": "4"}, (2, 12), "fsdp"),
-        "fsdp2_tensor2": ({"fsdp": "2", "tensor": "2"}, (4, 6), "fsdp"),
-        "data2_tensor2": ({"tensor": "2"}, (4, 6), "ddp"),
-        "data2_expert2": ({**MOE, "expert": "2"}, (4, 12), "ddp"),
+    # N: {name: (params, local (batch, heads), the trainer's path, job)};
+    # an image job's local entry is its rows a rank
+    4: {"data4": ({"devices": "4"}, (2, 12), "ddp", "gpt"),
+        "fsdp4": ({"fsdp": "4"}, (2, 12), "fsdp", "gpt"),
+        "fsdp2_tensor2": ({"fsdp": "2", "tensor": "2"}, (4, 6), "fsdp",
+                          "gpt"),
+        "data2_tensor2": ({"tensor": "2"}, (4, 6), "ddp", "gpt"),
+        "data2_expert2": ({**MOE, "expert": "2"}, (4, 12), "ddp", "gpt"),
         "fsdp2_expert2": ({**MOE, "fsdp": "2", "expert": "2"}, (4, 12),
-                          "fsdp")},
-    2: {"data2": ({"devices": "2"}, (4, 12), "ddp"),
-        "fsdp2": ({"fsdp": "2"}, (4, 12), "fsdp"),
-        "tensor2": ({"tensor": "2"}, (8, 6), "ddp"),
-        "expert2": ({**MOE, "expert": "2"}, (8, 12), "ddp")},
+                          "fsdp", "gpt"),
+        # the image jobs: their rows over data, or the MLP's first pair and
+        # each ResNet block's first two convs over tensor
+        "resnet50_data4": ({"devices": "4"}, 32, "ddp", "resnet50"),
+        "resnet50_data2_tensor2": ({"tensor": "2"}, 64, "ddp", "resnet50"),
+        "mnist_data4": ({"devices": "4"}, 64, "ddp", "mnist"),
+        "mnist_data2_tensor2": ({"tensor": "2"}, 128, "ddp", "mnist")},
+    2: {"data2": ({"devices": "2"}, (4, 12), "ddp", "gpt"),
+        "fsdp2": ({"fsdp": "2"}, (4, 12), "fsdp", "gpt"),
+        "tensor2": ({"tensor": "2"}, (8, 6), "ddp", "gpt"),
+        "expert2": ({**MOE, "expert": "2"}, (8, 12), "ddp", "gpt"),
+        "resnet50_tensor2": ({"tensor": "2"}, 128, "ddp", "resnet50"),
+        "mnist_tensor2": ({"tensor": "2"}, 256, "ddp", "mnist")},
 }
+# The image jobs' params on the cards: each job's default batch (global),
+# eager steps (with phase 15's precision and rate for the checks); the graph
+# legs' the same as the job runs them (bf16, its lr) in calls of GRAPH_CHUNK
+IMAGE_PARAMS = {
+    "resnet50": {"batch_size": "128", "image_size": "224", "steps": "6",
+                 "data": "host", "steps_per_call": "1"},
+    "mnist": {"batch_size": "256", "steps": "6", "data": "host",
+              "steps_per_call": "1"}}
 # name: (ranks, job, params over MESH_PARAMS); the reference is one rank's
 # run of the job at attention=flash (K1-K3 over the whole sequence, the
 # arithmetic the bodies run on their blocks)
@@ -110,6 +142,14 @@ GRAPH_LEGS = {"data4_graph": ({"devices": "4"}, (2, 12)),
               "data2_tensor2_graph": ({"tensor": "2"}, (4, 6)),
               # the MoE GPT's experts over expert, the batch over data
               "data2_expert2_graph": ({**MOE, "expert": "2"}, (4, 12))}
+# name: (job, params over IMAGE_PARAMS[job] in calls of GRAPH_CHUNK, rows a
+# rank): the image jobs' captured steps, their column/row pairs'
+# all-reduces inside the graph under tensor
+IMAGE_GRAPH_LEGS = {
+    "resnet50_data4_graph": ("resnet50", {"devices": "4"}, 32),
+    "resnet50_data2_tensor2_graph": ("resnet50", {"tensor": "2"}, 64),
+    "mnist_data4_graph": ("mnist", {"devices": "4"}, 64),
+    "mnist_data2_tensor2_graph": ("mnist", {"tensor": "2"}, 128)}
 LEG_TIMEOUT_S = 240  # a rank of a leg that runs longer fails the leg
 
 
@@ -261,6 +301,94 @@ def graph_leg(smoke, name, root) -> bool:
     return bool(problems)
 
 
+def image_leg(smoke, torch, root, refs, name, n, profiled) -> bool:
+    """An image job's strategy over NCCL on ``n`` cards (its one-rank
+    reference and lr-0 reading first, once per job), held by
+    ``chip_smoke.image_mesh_problems``; returns whether it failed."""
+    extra, rows, path, job = STRATEGIES[n][name]
+    # the checks' precision and rate, as chip_smoke's phase 15 reads them
+    params = {**IMAGE_PARAMS[job], **{
+        k: v for k, v in smoke.MESH_IMAGE_PARAMS[job].items()
+        if k in ("lr", smoke.IMAGE_COMPUTE)}}
+    if job not in refs:
+        (ref,) = smoke.spawn_ranks(1, params, root, f"ref_{job}", task=job,
+                                   timeout=LEG_TIMEOUT_S)
+        frozen = smoke.frozen_reading(torch, {job: ref}, root, params, job,
+                                      job)
+        refs[job] = ref
+        print(json.dumps({"run": f"one rank ({job})", "losses": ref["losses"],
+                          "step_ms": ref["step_s"] * 1e3,
+                          "peak_gib": ref["peak_gib"], "lr0": frozen}),
+              flush=True)
+    ranks = smoke.spawn_ranks(n, {**params, **extra}, root, name,
+                              backend="nccl", cards=n, task=job,
+                              profile=name == profiled, timeout=LEG_TIMEOUT_S)
+    dtype = params.get(smoke.IMAGE_COMPUTE, "bfloat16")
+    problems, readings = smoke.image_mesh_problems(
+        torch, ranks, refs[job], job, int(params["steps"]), rows,
+        "tensor" in extra, path, dtype)
+    print(json.dumps({
+        "run": name, "cards": n, "job": job, "params": extra, "dtype": dtype,
+        "path": ranks[0]["path"], "rows_per_rank": rows,
+        "losses": ranks[0]["losses"], **readings,
+        "step_ms": ranks[0]["step_s"] * 1e3,
+        "norms_per_rank": ranks[0]["norms"],
+        "norm_shapes": ranks[0]["norm_shapes"],
+        "peak_gib_by_rank": [r["peak_gib"] for r in ranks],
+        "problems": problems}), flush=True)
+    if "profile" in ranks[0]:
+        print(f"{name}, rank 0 of {n}:\n{ranks[0]['profile']}", flush=True)
+    return bool(problems)
+
+
+def image_graph_leg(smoke, name, root) -> bool:
+    """An image job's captured meshed step on four cards against its eager
+    run (the losses and every parameter the same bits), its GroupNorm
+    kernels 53 times a step each way under resnet50 (a replay counted
+    once); returns whether it failed."""
+    from cron_operator_tpu_torch.workloads.train import MESH_GRAPH_WARMUP
+
+    job, extra, rows = IMAGE_GRAPH_LEGS[name]
+    steps = smoke.GRAPH_MESH_STEPS
+    params = {**IMAGE_PARAMS[job], "steps": str(steps),
+              "steps_per_call": str(smoke.GRAPH_CHUNK), **extra}
+    ranks = smoke.spawn_ranks(4, params, root, name, backend="nccl", cards=4,
+                              task=f"graph:{job}", timeout=LEG_TIMEOUT_S)
+    per_step = (sum(n for _, _, n in smoke.RESNET50_NORMS)
+                if job == "resnet50" else 0)
+    problems = []
+    for r, got in enumerate(ranks):
+        ends = got["eager_losses"][smoke.GRAPH_CHUNK - 1::smoke.GRAPH_CHUNK]
+        if got["losses"] != ends or not got["same_bits"]:
+            problems.append(f"rank {r}: graphed losses {got['losses']} "
+                            f"against eager {ends}, parameters the same "
+                            f"bits: {got['same_bits']}")
+        if got["replayed"] != steps - MESH_GRAPH_WARMUP:
+            problems.append(f"rank {r}: {got['replayed']} steps replayed")
+        if got["path"] not in ("ddp", "fsdp"):
+            problems.append(f"rank {r} trained on the {got['path']} path")
+        if got["losses"] != ranks[0]["losses"]:
+            problems.append(f"rank {r} reports other losses")
+        if got["whole_digest"] != ranks[0]["whole_digest"]:
+            problems.append(f"rank {r}'s whole parameters are not rank 0's "
+                            "bits")
+        if got["norms"] != [per_step * steps] * 2:
+            problems.append(f"rank {r}: GroupNorm kernels {got['norms']}, "
+                            f"not {per_step * steps} each way")
+    nccl_ms = sum(ms for ms, _ in ranks[0]["nccl"].values())
+    print(json.dumps({
+        "run": name, "cards": 4, "job": job, "params": extra,
+        "rows_per_rank": rows, "warmup": MESH_GRAPH_WARMUP,
+        "path": ranks[0]["path"], "norms": [r["norms"] for r in ranks],
+        "replayed": ranks[0]["replayed"], "losses": ranks[0]["losses"],
+        "step_ms": ranks[0]["step_ms"],
+        "kernel_ms_per_step": ranks[0]["busy_ms"], "nccl": ranks[0]["nccl"],
+        "nccl_ms_per_step": nccl_ms / smoke.GRAPH_CHUNK,
+        "peak_gib_by_rank": [r["peak_gib"] for r in ranks],
+        "problems": problems}), flush=True)
+    return bool(problems)
+
+
 def main(argv) -> int:
     import torch
 
@@ -287,7 +415,10 @@ def main(argv) -> int:
     failed = False
     root = tempfile.mkdtemp(prefix="mesh-cards-")
     try:
-        strategies = {k: v for k, v in STRATEGIES[n].items() if wanted(k)}
+        strategies = {k: v for k, v in STRATEGIES[n].items()
+                      if wanted(k) and v[3] == "gpt"}
+        images = [k for k, v in STRATEGIES[n].items()
+                  if wanted(k) and v[3] != "gpt"]
         refs = smoke.mesh_references(strategies, root) if strategies else {}
         for kind, ref in refs.items():
             print(json.dumps({"run": f"one rank ({kind})",
@@ -325,9 +456,13 @@ def main(argv) -> int:
                       flush=True)
             return bool(problems)
 
-        for name, (extra, local, path) in strategies.items():
+        for name, (extra, local, path, _) in strategies.items():
             failed |= attempt(name, lambda: strategy(name, extra, local,
                                                      path))
+        image_refs = {}
+        for name in images:
+            failed |= attempt(name, lambda: image_leg(
+                smoke, torch, root, image_refs, name, n, profiled))
         if n == 4:
             seq_refs = {}
             for name in filter(wanted, SEQ_LEGS):
@@ -339,6 +474,9 @@ def main(argv) -> int:
                         smoke, stages, root))
             for name in filter(wanted, GRAPH_LEGS):
                 failed |= attempt(name, lambda: graph_leg(smoke, name, root))
+            for name in filter(wanted, IMAGE_GRAPH_LEGS):
+                failed |= attempt(name, lambda: image_graph_leg(
+                    smoke, name, root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"card: {card}")

@@ -459,8 +459,10 @@ def test_a_checkpoint_crosses_expert_meshes_bit_exact(worlds):
 def test_expert_is_a_plain_axis_for_every_model(axes):
     """``expert`` trains plain modules for every model (a model without
     MoE blocks keeps each parameter whole on every ``expert`` rank), and
-    beside ``tensor`` for the models that split their blocks."""
+    beside ``tensor`` for the models that split their blocks (GPT and the
+    MLP both do; a mesh without a model does not)."""
     from cron_operator_tpu_torch.models.mlp import MLP
 
     assert plain_axes(MeshPlan(axes), GPT)
-    assert plain_axes(MeshPlan(axes), MLP) is ("tensor" not in axes)
+    assert plain_axes(MeshPlan(axes), MLP)
+    assert plain_axes(MeshPlan(axes), None) is ("tensor" not in axes)

@@ -17,6 +17,11 @@ FILES = sorted((ROOT / "cron_operator_tpu_torch").rglob("*.py")) + [
     ROOT / "hack" / "torch_train_ab.py", ROOT / "hack" / "torch_mesh_cards.py",
     ROOT / "hack" / "torch_mesh_readings.py",
     ROOT / "hack" / "torch_gloo_cuda_probe.py",
+    # the image jobs' two-rank readings against one rank, bf16 and f32
+    ROOT / "hack" / "torch_image_mesh_sweep.py",
+    # the cuDNN mode's effect and cost, and the split's gradient on the CPU
+    ROOT / "hack" / "torch_cudnn_modes.py",
+    ROOT / "hack" / "torch_resnet_split_cpu.py",
     # the perf tooling: the harness, the step bench and the MFU scripts
     ROOT / "hack" / "torch_bench.py", ROOT / "hack" / "torch_step_bench.py",
     ROOT / "hack" / "torch_mfu_probe.py", ROOT / "hack" / "torch_mfu_attrib.py",

@@ -520,8 +520,8 @@ def test_batch_groups_hold_the_batch_axes_at_a_tensor_coordinate(name):
     (Bert, {"data": 2, "tensor": 2}, True),
     (ViT, {"data": 1, "fsdp": 2, "tensor": 2}, True),
     (GPT, {"data": 1, "seq": 2, "tensor": 2}, True),
-    (MLP, {"data": 1, "tensor": 2}, False),
-    (ResNet, {"data": 2, "tensor": 2}, False),
+    (MLP, {"data": 1, "tensor": 2}, True),
+    (ResNet, {"data": 2, "tensor": 2}, True),
     (GPT, {"data": 1, "expert": 2, "tensor": 2}, True),
     (GPT, {"pipe": 2, "data": 1, "tensor": 2}, False),
     (None, {"data": 1, "tensor": 2}, False),
@@ -529,10 +529,10 @@ def test_batch_groups_hold_the_batch_axes_at_a_tensor_coordinate(name):
 ], ids=["gpt", "bert_data", "vit_fsdp", "gpt_seq", "mlp", "resnet",
         "gpt_expert", "gpt_pipe", "no_model", "mlp_batch_axes"])
 def test_the_rule_takes_tensor_for_models_that_split(model, axes, plain):
-    """The model decides, by rule at construction: GPT, BERT and ViT take
-    ``tensor`` on the plain path (beside ``expert`` too), MLP and ResNet
-    keep DTensor parameters under it, and ``pipe`` above 1 keeps them for
-    every model."""
+    """The model decides, by rule at construction: GPT, BERT, ViT, MLP
+    and ResNet take ``tensor`` on the plain path (GPT beside ``expert``
+    too), a mesh without a model keeps DTensor parameters under it, and
+    ``pipe`` above 1 keeps them for every model."""
     assert plain_axes(MeshPlan(axes), model) is plain
 
 

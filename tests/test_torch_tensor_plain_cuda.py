@@ -8,8 +8,8 @@ collectives inside the step:
   ``MESH_GRAPH_WARMUP`` eager steps, against the same steps in calls of one
   (every step eager): the losses and every rank's pieces the same bits;
   K1-K3 launched at the local heads;
-- a row-parallel ``Linear`` (``layers.row_parallel``) in bf16 on the card
-  gives the whole layer's output within one bf16 rounding of its
+- a row-parallel ``Linear`` (``Linear(x, tensor_group=)``) in bf16 on
+  the card gives the whole layer's output within one bf16 rounding of its
   magnitude, its bias added once (twice would move it by the bias).
 
 Needs two CUDA cards and nvcc; skips with fewer. It imports only torch and
@@ -30,7 +30,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from cron_operator_tpu_torch.models import GPT, GPTConfig
-from cron_operator_tpu_torch.models.layers import Linear, row_parallel
+from cron_operator_tpu_torch.models.layers import Linear
 from cron_operator_tpu_torch.parallel.mesh import (
     TENSOR_AXIS,
     MeshPlan,
@@ -85,7 +85,7 @@ def _row_parallel(group, rank):
     with torch.no_grad():
         piece.weight.copy_(TensorSplit(1).local(whole.weight, rank, RANKS))
         piece.bias.copy_(whole.bias)
-    got = row_parallel(piece, TensorSplit(1).local(x, rank, RANKS), group)
+    got = piece(TensorSplit(1).local(x, rank, RANKS), tensor_group=group)
     return got.float().cpu(), whole(x).float().cpu()
 
 

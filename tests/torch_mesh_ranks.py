@@ -16,11 +16,17 @@ Jobs (dicts):
   with ``"model": "bert"``, a ViT with ``"model": "vit"``) loaded from
   ``weights`` (a state dict file) trains ``steps`` steps of the numpy
   ``causal_token_batches(batch, seq, 1024)`` (``"stream": "token_batches"``
-  for BERT's, ``"imagenet_batches"`` for ViT's) under ``axes``; results:
-  the losses, the first step's gradients, gathered whole, and the
-  parameters' placements and shapes. ``contiguous_qkv`` splits the fused
-  ``qkv`` rows over ``tensor`` as one contiguous block a rank (a wrong
-  split, which the tests must catch). ``loss`` (``lm`` or ``fused``)
+  for BERT's, ``"imagenet_batches"`` for ViT's) under ``axes``; an image
+  model of :data:`IMAGE_MODELS` (``"model": "mlp"``, ``"resnet"``,
+  ``"resnet_basic"``; ``cfg`` its widths, f32, 10 classes) trains on
+  ``mnist_batches(batch)`` or ``imagenet_batches(batch, image_size, 10)``;
+  results: the losses, the first step's gradients, gathered whole, the
+  parameters' placements and shapes, which 4-d parameters (this rank's
+  local tensors) are channels-last, each GroupNorm's groups and
+  channels, and the cuDNN mode each forward of the steps ran in (and the
+  process's after them). ``contiguous_qkv`` splits the fused ``qkv`` rows
+  over ``tensor`` as one contiguous block a rank (a wrong split, which the
+  tests must catch). ``loss`` (``lm`` or ``fused``)
   trains on the jobs' LM loss (``entrypoints.lm_loss``: the model's hidden
   states, under ``tensor`` its ``VocabPiece``, and the tied or the chunked
   loss) in place of ``cross_entropy_loss`` on the logits; then the results
@@ -29,7 +35,8 @@ Jobs (dicts):
   for its block of the vocab (a wrong merge, which the tests must
   catch).
 - ``chain``: a GPT tiny (``cfg`` overrides; with MoE blocks its aux loss
-  added) from seed 0 trains on fused data to ``steps`` with
+  added; or an image model, ``model``) from seed 0 trains on fused data
+  to ``steps`` with
   a checkpoint store at ``dir`` (``save_every``), resuming from its newest
   step; results: the restored step, the parameters right after the
   restore, and the losses.
@@ -61,9 +68,19 @@ from typing import Any, Dict, List
 ROOT = Path(__file__).resolve().parents[1]
 
 
+# The image models a job may name (``model``); its ``cfg`` holds the MLP's
+# ``features``, or ResNet's ``stages``, ``width`` and ``image_size``
+IMAGE_MODELS = ("mlp", "resnet", "resnet_basic")
+
+
 def _config(job):
     import torch
 
+    if job.get("model") in IMAGE_MODELS:
+        from types import SimpleNamespace
+
+        return SimpleNamespace(num_classes=10,
+                               image_size=job["cfg"].get("image_size", 32))
     from cron_operator_tpu_torch.models.bert import BertConfig
     from cron_operator_tpu_torch.models.gpt import GPTConfig
     from cron_operator_tpu_torch.models.vit import ViTConfig
@@ -90,7 +107,42 @@ def _model(job):
     from cron_operator_tpu_torch.models.gpt import GPT
     from cron_operator_tpu_torch.models.vit import ViT
 
+    if job.get("model") in IMAGE_MODELS:
+        return image_model(job["model"], job["cfg"])
     return {"bert": Bert, "vit": ViT}.get(job.get("model"), GPT)(_config(job))
+
+
+def image_model(kind: str, cfg: Dict[str, Any]):
+    """The port's MLP (``cfg["features"]``) or ResNet (``cfg["stages"]``,
+    ``cfg["width"]``; bottleneck blocks, or basic ones for
+    ``resnet_basic``) in f32 with 10 classes."""
+    import torch
+
+    from cron_operator_tpu_torch.models.mlp import MLP
+    from cron_operator_tpu_torch.models.resnet import (
+        BasicBlock,
+        BottleneckBlock,
+        ResNet,
+    )
+
+    if kind == "mlp":
+        return MLP(tuple(cfg["features"]), 10, dtype=torch.float32)
+    block = BasicBlock if kind == "resnet_basic" else BottleneckBlock
+    return ResNet(tuple(cfg["stages"]), block, 10, cfg["width"],
+                  dtype=torch.float32)
+
+
+def _sample(job, cfg):
+    """The fused data's sample function of the job's model."""
+    from cron_operator_tpu_torch.workloads import data
+
+    if job.get("model") == "mlp":
+        return data.mnist_sample(job["batch"])
+    if job.get("model") in IMAGE_MODELS:
+        return data.imagenet_sample(job["batch"], cfg.image_size,
+                                    cfg.num_classes)
+    return data.causal_token_sample(job["batch"], cfg.max_len,
+                                    cfg.vocab_size)
 
 
 def _batches(job, cfg):
@@ -99,7 +151,9 @@ def _batches(job, cfg):
     from cron_operator_tpu_torch.workloads import data
 
     stream = getattr(data, job.get("stream", "causal_token_batches"))
-    if job.get("model") == "vit":
+    if job.get("model") == "mlp":
+        return stream(job["batch"])
+    if job.get("model") in ("vit", *IMAGE_MODELS):
         return stream(job["batch"], cfg.image_size, cfg.num_classes)
     return stream(job["batch"], cfg.max_len, cfg.vocab_size)
 
@@ -140,6 +194,13 @@ def _whole(t):
     t = t.detach()
     # a replicated DTensor's full_tensor() is its local tensor, not a copy
     return (t.full_tensor() if isinstance(t, DTensor) else t).clone()
+
+
+def _local(t):
+    """A DTensor's local tensor; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _weights(job, timeout: float = 300.0):
@@ -194,6 +255,10 @@ def _train(job, mesh) -> Dict[str, Any]:
     if job.get("wrong_offset"):
         gpt.vocab_piece = bert.vocab_piece = lambda w, v, group: (
             w if group is None else VocabPiece(w, 0, v, group))
+    # the cuDNN mode each forward of the steps runs under
+    modes = []
+    hook = model.register_forward_pre_hook(
+        lambda module, args: modes.append(torch.backends.cudnn.deterministic))
     try:
         trainer = Trainer(model, TrainConfig(
             steps_per_call=1, stage_async=False,
@@ -205,6 +270,7 @@ def _train(job, mesh) -> Dict[str, Any]:
                                       for n, p in model.named_parameters()))
         stats += trainer.run(batches, job["steps"])
     finally:
+        hook.remove()
         GroupedQKVProjection.tensor_splits = rule
         gpt.vocab_piece = bert.vocab_piece = piece
     out = {
@@ -213,6 +279,15 @@ def _train(job, mesh) -> Dict[str, Any]:
         "placements": {n: placements(p, mesh)
                        for n, p in model.named_parameters()},
         "shapes": {n: tuple(p.shape) for n, p in model.named_parameters()},
+        "channels_last": {
+            n: _local(p).is_contiguous(memory_format=torch.channels_last)
+            for n, p in model.named_parameters() if p.dim() == 4},
+        "groups": {n: (m.num_groups, m.num_channels)
+                   for n, m in model.named_modules()
+                   if isinstance(m, torch.nn.GroupNorm)},
+        "cudnn_deterministic": {
+            "steps": sorted(set(modes)),
+            "after": torch.backends.cudnn.deterministic},
         "final": _whole_params(model, model.named_parameters()),
         "path": _path(model),
     }
@@ -397,21 +472,19 @@ def placements(p, mesh) -> List[str]:
 def _chain(job, mesh) -> Dict[str, Any]:
     import torch
 
-    from cron_operator_tpu_torch.models.gpt import GPT
-    from cron_operator_tpu_torch.workloads import data
     from cron_operator_tpu_torch.workloads.checkpoint import CheckpointStore
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
     cfg = _config(job)
-    model = GPT(cfg).init_weights(torch.Generator().manual_seed(0))
+    model = _model(job).init_weights(torch.Generator().manual_seed(0))
     store = CheckpointStore("ns", "chain", root=job["dir"], max_to_keep=100)
     try:
         trainer = Trainer(
             model, TrainConfig(steps_per_call=1,
                                save_every=job["save_every"],
-                               aux_loss_in_output=model.has_moe),
-            sample_fn=data.causal_token_sample(job["batch"], cfg.max_len,
-                                               cfg.vocab_size),
+                               aux_loss_in_output=getattr(
+                                   model, "has_moe", False)),
+            sample_fn=_sample(job, cfg),
             checkpoint=store, mesh=mesh, **_trainer_kwargs(job, mesh))
         restored = _whole_params(model, model.named_parameters())
         step0 = trainer.steps_done
@@ -425,7 +498,8 @@ def _chain(job, mesh) -> Dict[str, Any]:
 
 
 def _tensor_restore(job, mesh) -> Dict[str, Any]:
-    """A GPT tiny (``cfg``, seed 0) whose trainer restores the newest step
+    """The job's model (a GPT tiny of ``cfg``, or an image model of
+    :data:`IMAGE_MODELS`) from seed 0, whose trainer restores the newest step
     of the store at ``dir`` once one is there (up to 300 s: the test
     process writes it while this world runs), and rank 0 saves the
     trainer's ``host_state`` (every tensor gathered whole) at that step
@@ -433,8 +507,6 @@ def _tensor_restore(job, mesh) -> Dict[str, Any]:
     parameters' shapes on this rank."""
     import torch
 
-    from cron_operator_tpu_torch.models.gpt import GPT
-    from cron_operator_tpu_torch.workloads import data
     from cron_operator_tpu_torch.workloads.checkpoint import CheckpointStore
     from cron_operator_tpu_torch.workloads.train import TrainConfig, Trainer
 
@@ -445,13 +517,13 @@ def _tensor_restore(job, mesh) -> Dict[str, Any]:
         if time.monotonic() > deadline:
             raise TimeoutError(f"no checkpoint under {job['dir']}")
         time.sleep(0.2)
-    model = GPT(cfg).init_weights(torch.Generator().manual_seed(0))
+    model = _model(job).init_weights(torch.Generator().manual_seed(0))
     try:
         trainer = Trainer(
             model, TrainConfig(steps_per_call=1,
-                               aux_loss_in_output=model.has_moe),
-            sample_fn=data.causal_token_sample(job["batch"], cfg.max_len,
-                                               cfg.vocab_size),
+                               aux_loss_in_output=getattr(
+                                   model, "has_moe", False)),
+            sample_fn=_sample(job, cfg),
             checkpoint=store, mesh=mesh, **_trainer_kwargs(job, mesh))
         state = trainer.host_state()
     finally:
@@ -469,13 +541,13 @@ def _tensor_collectives(job, mesh) -> Dict[str, Any]:
     """The Megatron pair over the ``tensor`` group, on rank-dependent
     inputs ``x_r = seed(r)`` and cotangents ``w_r``: ``copy_to_tensor``'s
     output and its input's gradient, ``reduce_from_tensor``'s likewise, and
-    a row-parallel ``Linear`` (``layers.row_parallel``: this rank's input
-    columns of a seeded whole layer, on its columns of a seeded input)
-    with the whole layer's output beside it."""
+    a row-parallel ``Linear`` (``Linear(x, tensor_group=)``: this rank's
+    input columns of a seeded whole layer, on its columns of a seeded
+    input) with the whole layer's output beside it."""
     import torch
     import torch.distributed as dist
 
-    from cron_operator_tpu_torch.models.layers import Linear, row_parallel
+    from cron_operator_tpu_torch.models.layers import Linear
     from cron_operator_tpu_torch.parallel.mesh import (
         TENSOR_AXIS,
         TensorSplit,
@@ -490,7 +562,9 @@ def _tensor_collectives(job, mesh) -> Dict[str, Any]:
         gen = torch.Generator().manual_seed(job["seed"] + r)
         x = torch.randn(3, 4, generator=gen).requires_grad_()
         w = torch.randn(3, 4, generator=gen)
-        y = fn(x, group)
+        # reduce_from_tensor writes the sum over its input: a partial made
+        # for it, as a product's output is
+        y = fn(x if fn is copy_to_tensor else x.clone(), group)
         (y * w).sum().backward()
         out[name] = {"x": x.detach(), "w": w, "y": y.detach(),
                      "grad": x.grad}
@@ -505,7 +579,7 @@ def _tensor_collectives(job, mesh) -> Dict[str, Any]:
         piece.weight.copy_(TensorSplit(1).local(whole.weight, r, t))
         piece.bias.copy_(whole.bias)
     cols = TensorSplit(1).local(x, r, t)
-    out["row_parallel"] = {"y": row_parallel(piece, cols, group).detach(),
+    out["row_parallel"] = {"y": piece(cols, tensor_group=group).detach(),
                            "whole": whole(x).detach()}
     return out
 
